@@ -7,9 +7,11 @@ Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every kernel of the serving path from the sources in the
      checkout (one nvcc per source, started together);
-  3. hold each kernel against its plain PyTorch version on the card at the
-     8B weight shapes, bit for bit, and time kernel, plain version and the
-     memory-bandwidth bound with CUDA events (L2 flushed between calls);
+  3. hold each kernel against its plain PyTorch version on the card, bit
+     for bit, at every shape the serving path gives it (the quant kernel's
+     stacked [L, in, out] leaves included) and at the six 8B weight shapes,
+     and time kernel, plain version and the bound with CUDA events (L2
+     flushed between calls);
   4. serve 12 requests through ContinuousBatchingEngine at llama3_8b full
      width and depth with random bf16 weights from a seeded generator, once
      in bf16 and once in w8a16, checking token counts, vocabulary range,
@@ -18,7 +20,7 @@ Phases (any failure exits non-zero and prints no result line):
   5. the w8a16 logits parity check (relative error < 0.08);
   6. decode tokens/s at 8 slots and prefill tokens/s (4 x 64) for both,
      and a torch.profiler window of each decode loop (device time per
-     step, its top kernels, and the device-idle share);
+     step, its top kernels, and the device-idle share of that window);
   7. print the kernels line, the nvidia-smi line, and the result line.
 
 Imports torch and the port only (never jax, never ray_tpu).
@@ -36,14 +38,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 
-# 8B weight shapes [in, out] the serving path quantizes and dequantizes:
-# wq/wo, wk/wv, w_gate/w_up, w_down, lm_head, embed.
-KERNEL_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
-                 (4096, 128256), (128256, 4096)]
-# Peak device-memory rates by card (NVIDIA data sheets).
-PEAK_BYTES_PER_S = [("H200", 4.8e12), ("H100 PCIE", 2.0e12),
-                    ("H100 NVL", 3.9e12), ("H100", 3.35e12)]
-PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# H100 SXM data sheet: HBM3 rate, and float32 outside the tensor cores
+# (the kernels' arithmetic); bound_ms is the larger of bytes and operations.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
 NUM_SLOTS, MAX_LEN = 8, 1024
 
 
@@ -65,12 +63,34 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def peak_bandwidth(name: str):
+def check_card(name: str) -> None:
     upper = name.upper()
-    for key, rate in PEAK_BYTES_PER_S:
-        if key in upper:
-            return rate, key
-    fail(f"no peak memory rate known for card {name!r}")
+    if "H100" not in upper or "PCIE" in upper or "NVL" in upper:
+        fail(f"card {name!r} is not an H100 SXM: the bounds use its rates")
+
+
+def kernel_shapes(cfg, num_slots: int):
+    """{kernel: {shape: calls on the main path}}. The quant kernel runs once
+    per leaf at load, on the stacked [L, in, out] leaves, the embedding and
+    the LM head; the dequant kernel runs 7·L + 2 times per forward pass (one
+    decode step here), on each layer's slices, the LM head and the embedding
+    rows gathered for the slots. The six 2-D 8B weight shapes are checked
+    for both kernels; those a kernel never gets on the path count 0."""
+    L, d, f, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    qd, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    layer = [((d, qd), 1), ((d, kv), 2), ((qd, d), 1), ((d, f), 2),
+             ((f, d), 1)]  # wq, wk/wv, wo, w_gate/w_up, w_down
+    quant, dequant = {}, {}
+    for shape in [s for s, _ in layer] + [(d, V), (V, d)]:
+        quant[shape] = dequant[shape] = 0
+    for shape, n in layer:
+        quant[(L, *shape)] = quant.get((L, *shape), 0) + n
+        dequant[shape] += n * L
+    quant[(V, d)] += 1  # embed
+    quant[(d, V)] += 1  # lm_head
+    dequant[(d, V)] += 1
+    dequant[(num_slots, 1, d)] = 1  # embedding rows gathered per step
+    return {"quantize_int8": quant, "dequantize_int8": dequant}
 
 
 def time_ms(torch, fn, flush, reps: int = 7) -> float:
@@ -90,54 +110,77 @@ def time_ms(torch, fn, flush, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def check_kernels(torch, quant, gen, peak_bw):
-    """Phase 3: bit-exact agreement and times at the six 8B shapes."""
+def numel(shape) -> int:
+    n = 1
+    for k in shape:
+        n *= k
+    return n
+
+
+def bound_ms(nbytes: int, ops: int):
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * ops / PEAK_F32_OPS_PER_S
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def check_kernels(torch, quant, gen, shapes):
+    """Phase 3: bit-exact agreement with the plain versions and times at
+    every shape of `shapes`, largest first while the card is still empty
+    (the plain version's float32 temporaries of the stacked w_down leaf
+    take ~25 GB)."""
     bf16 = torch.bfloat16
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    rows = {"quantize_int8": [], "dequantize_int8": []}
-    for r, d in KERNEL_SHAPES:
-        x = (torch.randn((r, d), generator=gen, device="cuda") * 0.02).to(bf16)
-        x[0] = 0  # an all-zero row takes the 1e-8 scale floor
+    rows = {name: [] for name in shapes}
+    todo = sorted(set(shapes["quantize_int8"]) | set(shapes["dequantize_int8"]),
+                  key=lambda s: -numel(s))
+    for shape in todo:
+        n, d = numel(shape), shape[-1]
+        r = n // d
+        x = torch.randn(shape, generator=gen, device="cuda", dtype=bf16)
+        x.mul_(0.02)
+        x.view(-1, d)[0] = 0  # an all-zero row takes the 1e-8 scale floor
         v, s = quant.quantize_int8(x)
         pv, ps = quant.quantize_int8_plain(x)
         torch.cuda.synchronize()
         q_err = max((v.int() - pv.int()).abs().max().item(),
                     (s - ps).abs().max().item())
         if not (torch.equal(v, pv) and torch.equal(s, ps)):
-            fail(f"quantize_int8 differs from its plain version at {(r, d)}: "
+            fail(f"quantize_int8 differs from its plain version at {shape}: "
                  f"max abs err {q_err}")
+        del pv, ps
         out = quant.dequantize_int8(v, s, bf16)
         pout = quant.dequantize_int8_plain(v, s, bf16)
         torch.cuda.synchronize()
         d_err = (out.float() - pout.float()).abs().max().item()
         if not torch.equal(out.view(torch.int16), pout.view(torch.int16)):
             fail(f"dequantize_int8 differs from its plain version at "
-                 f"{(r, d)}: max abs err {d_err}")
-        n = r * d
+                 f"{shape}: max abs err {d_err}")
+        del out, pout
         # bytes: each input read once, each output written once
-        q_bytes, q_ops = n * 2 + n + r * 4, n * 6
-        d_bytes, d_ops = n + r * 4 + n * 2, n * 2
-        for name, err, nbytes, ops, fn, plain in (
-                ("quantize_int8", q_err, q_bytes, q_ops,
-                 lambda: quant.quantize_int8(x),
-                 lambda: quant.quantize_int8_plain(x)),
-                ("dequantize_int8", d_err, d_bytes, d_ops,
-                 lambda: quant.dequantize_int8(v, s, bf16),
-                 lambda: quant.dequantize_int8_plain(v, s, bf16))):
-            bytes_ms = 1e3 * nbytes / peak_bw
-            ops_ms = 1e3 * ops / PEAK_F32_OPS_PER_S
-            row = {"shape": [r, d], "max_abs_err": err,
-                   "ms": time_ms(torch, fn, flush),
+        work = {
+            "quantize_int8": (q_err, n * 2 + n + r * 4, n * 6,
+                              lambda: quant.quantize_int8(x),
+                              lambda: quant.quantize_int8_plain(x)),
+            "dequantize_int8": (d_err, n + r * 4 + n * 2, n * 2,
+                                lambda: quant.dequantize_int8(v, s, bf16),
+                                lambda: quant.dequantize_int8_plain(v, s,
+                                                                    bf16))}
+        for name, (err, nbytes, ops, fn, plain) in work.items():
+            if shape not in shapes[name]:
+                continue
+            b_ms, b_by = bound_ms(nbytes, ops)
+            row = {"shape": list(shape), "calls": shapes[name][shape],
+                   "max_abs_err": err, "ms": time_ms(torch, fn, flush),
                    "plain_ms": time_ms(torch, plain, flush),
-                   "bound_ms": max(bytes_ms, ops_ms),
-                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+                   "bound_ms": b_ms, "bound_by": b_by}
             rows[name].append(row)
-            log(f"kernel {name} {r}x{d} bf16: identical to plain "
-                f"(max_abs_err {err}); kernel {row['ms']:.4f} ms, plain "
-                f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.3f} "
-                f"of bound")
-        del x, v, s, pv, ps, out, pout
+            log(f"kernel {name} {list(shape)} bf16 ({row['calls']} calls on "
+                f"the path): identical to plain (max_abs_err {err}); kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), {b_ms / row['ms']:.3f} of bound")
+        del x, v, s
+        torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -227,11 +270,10 @@ def main() -> int:
     # ---- phase 1: the card
     card = smi_line()
     name = torch.cuda.get_device_name(0)
-    peak_bw, peak_key = peak_bandwidth(name)
+    check_card(name)
     log(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
-    log(f"peak memory rate used for bounds: {peak_bw / 1e12} TB/s "
-        f"({peak_key} data sheet); float32 {PEAK_F32_OPS_PER_S / 1e12} "
-        f"TFLOP/s")
+    log(f"peak rates used for bounds: {PEAK_BYTES_PER_S / 1e12} TB/s, "
+        f"float32 {PEAK_F32_OPS_PER_S / 1e12} TFLOP/s (H100 SXM data sheet)")
 
     # ---- phase 2: build
     t0 = time.perf_counter()
@@ -240,13 +282,15 @@ def main() -> int:
         log(f"built {lib.relative_to(HERE)}")
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
 
-    # ---- phase 3: kernels against their plain versions
+    # ---- phase 3: kernels against their plain versions, before the
+    # weights take the card's memory
+    cfg = ModelConfig.llama3_8b()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
-    kernel_rows = check_kernels(torch, quant, gen, peak_bw)
+    kernel_rows = check_kernels(torch, quant, gen,
+                                kernel_shapes(cfg, NUM_SLOTS))
 
     # ---- phase 4: serve llama3_8b at full width and depth
-    cfg = ModelConfig.llama3_8b()
     t0 = time.perf_counter()
     params = init_params(cfg, seed=args.seed, device="cuda")
     torch.cuda.synchronize()
@@ -310,9 +354,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         if prof["device_ms_per_step"] > 0:
             log(f"decode {label} profile: device {prof['device_ms_per_step']}"
-                f" ms/step ({prof['launches_per_step']} kernels/step), idle "
-                f"share {1 - prof['device_ms_per_step'] / dec['ms_per_step']}"
-                f" of the unprofiled step [{card}]")
+                f" ms/step ({prof['launches_per_step']} kernels/step) in a "
+                f"window of {prof['ms_per_step']} ms/step, device-idle share "
+                f"{prof['device_idle_share']} of that window [{card}]")
             for row in prof["top"]:
                 log(f"  {row['ms_per_step']:.4f} ms/step "
                     f"({row['share']:.3f}) {row['name']}")
@@ -329,22 +373,26 @@ def main() -> int:
     # ---- phase 7: report
     replaces = {"quantize_int8": "ray_tpu/ops/pallas/quant.py:19",
                 "dequantize_int8": "ray_tpu/ops/pallas/quant.py:27"}
+    per = {"quantize_int8": "one model load",
+           "dequantize_int8": "one decode step"}
     kernels = []
     for kname, rows in kernel_rows.items():
-        # totals over one call at each of the six 8B shapes
+        # times: the main path's calls for `per`, each shape timed once and
+        # counted as often as the path calls it
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "ray_tpu_torch/ops/kernels/csrc/quant.cu",
             "replaces": replaces[kname],
             "launches": launches[kname],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "ms": sum(r["calls"] * r["ms"] for r in rows),
+            "plain_ms": sum(r["calls"] * r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["calls"] * r["bound_ms"] for r in rows),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in rows) else "operations",
             "library_ms": None,
-            "shapes": [r["shape"] for r in rows],
+            "per": per[kname],
+            "shapes": rows,
         })
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

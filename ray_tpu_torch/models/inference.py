@@ -126,7 +126,7 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
         sel = x[torch.arange(b, device=dev), logits_index.long()]
     logits = (sel @ head).float()
     cache = {"k": k_all, "v": v_all,
-             "length": torch.tensor(s, dtype=torch.int32, device=dev)}
+             "length": torch.full((), s, dtype=torch.int32, device=dev)}
     return logits, cache
 
 

@@ -2,7 +2,8 @@
 
   * `measure_decode` — steady-state decode throughput with every slot busy;
   * `profile_decode` — the same loop under torch.profiler: device time per
-    step and the kernels that take it;
+    step, the kernels that take it, and the device-idle share of the
+    profiled window;
   * `measure_prefill` — batched bucketed admission throughput;
   * `measure_quant_parity` — the w8a16 honesty check: prefill logits of the
     quantized model against the unquantized one, and the weight-bytes ratio.
@@ -71,8 +72,8 @@ def profile_decode(params, cfg, *, num_slots: int, max_len: int,
                    device="cuda") -> Dict[str, Any]:
     """Device time of the steady decode loop from torch.profiler's CUDA
     activity: kernel (and copy) time per step, and the kernels that take
-    most of it. Set against `measure_decode`'s unprofiled ms/step, the
-    device time gives the loop's device-idle share."""
+    most of it. The window's own host-clock time (synchronized at both
+    ends, profiler overhead included) gives its device-idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -89,9 +90,11 @@ def profile_decode(params, cfg, *, num_slots: int, max_len: int,
     _sync(eng.device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         _sync(eng.device)
+        window_ms = 1e3 * (time.perf_counter() - t0)
     # device-side rows only: a CPU op's row repeats its kernels' time
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -99,7 +102,9 @@ def profile_decode(params, cfg, *, num_slots: int, max_len: int,
     device_us = sum(r[1] for r in rows)
     return {
         "steps": steps,
+        "ms_per_step": window_ms / steps,
         "device_ms_per_step": device_us / 1e3 / steps,
+        "device_idle_share": 1 - device_us / 1e3 / window_ms,
         "launches_per_step": sum(r[2] for r in rows) / steps,
         "top": [{"name": k[:80], "ms_per_step": us / 1e3 / steps,
                  "share": us / device_us}

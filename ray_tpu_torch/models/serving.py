@@ -25,8 +25,10 @@ Engine = step functions over tensors + a host-side slot manager:
     the slot cache in place. The token vector is never written in place:
     the in-flight step's pending host copy still reads the previous one.
 
-Device waits happen OUTSIDE the bookkeeping lock (`_step_lock` serializes
-steppers; `_lock` only guards host-side state).
+Device work is dispatched and waited on OUTSIDE the bookkeeping lock
+(`_step_lock` serializes steppers; `_lock` only guards host-side state).
+Host data reaches the device through pinned memory and asynchronous copies,
+so dispatch never waits for the device.
 """
 
 from __future__ import annotations
@@ -81,6 +83,18 @@ def quantize_model_params(params: Dict, cfg: ModelConfig) -> Dict:
     return out
 
 
+def _to_device(data, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Host data -> device tensor without waiting for the device: staged in
+    pinned memory and copied asynchronously on the current stream (the
+    caching host allocator keeps the staging buffer until the copy ran). A
+    plain `torch.tensor(data, device=cuda)` copies from pageable memory and
+    synchronizes the stream."""
+    t = torch.tensor(data, dtype=dtype)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def prefill_kv(params: Dict, tokens: torch.Tensor, true_len: torch.Tensor,
                cfg: ModelConfig, max_len: int):
     """Prompt pass for ONE right-padded request [1, s_bucket]: returns
@@ -120,8 +134,8 @@ def _write_slots(k_all: torch.Tensor, v_all: torch.Tensor,
     tokens = tokens.clone()
     if keep:
         dev = k_all.device
-        rows = torch.tensor([r for r, _ in keep], device=dev)
-        dst = torch.tensor([s for _, s in keep], device=dev)
+        rows = _to_device([r for r, _ in keep], torch.int64, dev)
+        dst = _to_device([s for _, s in keep], torch.int64, dev)
         k_all.index_copy_(1, dst, k_rows.index_select(1, rows))
         v_all.index_copy_(1, dst, v_rows.index_select(1, rows))
         lengths.index_copy_(0, dst, true_len.index_select(0, rows).to(
@@ -287,9 +301,11 @@ class ContinuousBatchingEngine:
 
     Locking: `_step_lock` serializes steppers (at most one step pipeline in
     flight); `_lock` guards only host bookkeeping and is NEVER held across a
-    device wait — `progress()` reads and `submit()` complete while a step is
-    blocked on the device. `_cv` (on `_lock`) wakes waiters when tokens land
-    and wakes the driver thread when work arrives.
+    dispatch or a device wait — `progress()` reads and `submit()` complete
+    while a step issues its kernels or waits on the device. Only the
+    stepping thread touches the device buffers (k, v, lengths, tokens).
+    `_cv` (on `_lock`) wakes waiters when tokens land and wakes the driver
+    thread when work arrives.
 
     `params` must already live on `device`. `prefill_calls` and
     `decode_steps` count the forward passes dispatched.
@@ -391,7 +407,10 @@ class ContinuousBatchingEngine:
             self._dispatch_prefill(bucket, reqs)      # device enqueue only
         with self._lock:
             prev = self._pending
-            self._pending = self._dispatch_decode()   # device enqueue only
+            plan = self._plan_decode()
+        pending = self._dispatch_decode(*plan) if plan else None  # no _lock
+        with self._lock:
+            self._pending = pending
         self._drain_pending_first()                   # device wait, no _lock
         self._reap(prev)                              # device wait, no _lock
         with self._lock:
@@ -423,10 +442,9 @@ class ContinuousBatchingEngine:
             rows.append([0] * bucket)
             lens.append(1)
             slots.append(self.num_slots)  # out of range -> dropped
-        true_len = torch.tensor(lens, dtype=torch.int32, device=self.device)
+        true_len = _to_device(lens, torch.int32, self.device)
         first, k_rows, v_rows = prefill_slots(
-            self.params,
-            torch.tensor(rows, dtype=torch.int32, device=self.device),
+            self.params, _to_device(rows, torch.int32, self.device),
             true_len, self.cfg, self.max_len)
         self.prefill_calls += 1
         self.k, self.v, self.lengths, self.tokens = _write_slots(
@@ -435,23 +453,29 @@ class ContinuousBatchingEngine:
         self._pending_first.append(
             (_HostCopy(first), [(i, r) for i, r in enumerate(reqs)]))
 
-    def _dispatch_decode(self):
-        """Dispatch one fused decode step (no device wait). Captures the
-        dispatch-time active set so tokens are attributed correctly even if
-        a slot retires and is re-admitted before the sync. Caller holds
-        `_lock`."""
+    def _plan_decode(self):
+        """The next decode step's attention bucket and its dispatch-time
+        active set (tokens are attributed correctly even if a slot retires
+        and is re-admitted before the sync); advances the position shadow.
+        Caller holds `_lock`. None when no slot is active."""
         if not self._active:
             return None
         attn_len = _attn_bucket(
             max(self._slot_pos[s] for s in self._active), self.max_len)
         slot_map = dict(self._active)
+        for s in slot_map:
+            self._slot_pos[s] += 1
+        return attn_len, slot_map
+
+    def _dispatch_decode(self, attn_len: int, slot_map: Dict[int, _Request]):
+        """Dispatch one fused decode step (no device wait). Runs on the
+        stepping thread WITHOUT `_lock`: issuing its kernels takes
+        milliseconds of host time."""
         self.k, self.v, self.lengths, tokens_out = decode_step_fused(
             self.params, self.k, self.v, self.lengths, self.tokens,
             self.cfg, attn_len)
         self.decode_steps += 1
         self.tokens = tokens_out
-        for s in slot_map:
-            self._slot_pos[s] += 1
         return _HostCopy(tokens_out), slot_map
 
     def _drain_pending_first(self) -> None:

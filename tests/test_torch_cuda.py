@@ -88,3 +88,44 @@ def test_w8a16_engine_goes_through_the_kernels(cuda):
     per_pass = 7 * cfg.n_layers + 2
     assert quant.dequantize_int8.launches == per_pass * (
         eng.prefill_calls + eng.decode_steps)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_engine_dispatch_never_waits_for_the_device(cuda, monkeypatch,
+                                                    quantize):
+    """Admission (host prompts to the device, batched prefill, the slot
+    scatter) and the decode dispatch only queue device work: under
+    torch.cuda.set_sync_debug_mode("error") a hidden stream synchronization,
+    such as a copy from pageable host memory, raises. `_to_host`, the one
+    intended wait, runs with the check off."""
+    cfg = ModelConfig.tiny()
+    params = init_params(cfg, seed=0, device=cuda)
+    eng = serving.ContinuousBatchingEngine(params, cfg, num_slots=4,
+                                           max_len=64,
+                                           quantize_weights=quantize,
+                                           device=cuda)
+    eng.generate([1, 2, 3], max_new_tokens=3)  # warm-up: lazy inits, caches
+    to_host = serving.ContinuousBatchingEngine._to_host
+
+    def unchecked(pending):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return to_host(pending)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(eng, "_to_host", unchecked, raising=False)
+    prompts = [[5, 17, 400, 3], list(range(9, 29)), [7, 8]]  # two buckets
+    rids = [eng.submit(p, max_new_tokens=5) for p in prompts]
+    steps = eng.prefill_calls, eng.decode_steps
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert eng.prefill_calls == steps[0] + 2
+    assert eng.decode_steps == steps[1] + 3
+    eng.run_until_done()
+    for rid, p in zip(rids, prompts):
+        assert len(eng.result(rid)) == len(p) + 5

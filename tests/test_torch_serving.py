@@ -275,9 +275,10 @@ def test_cache_buffers_stay_in_place_across_steps():
         assert eng.tokens is not tokens
 
 
-def test_progress_and_submit_not_blocked_during_step():
-    """Only `_step_lock` is held across the host sync: `progress()` and
-    `submit()` complete while a step is blocked in `_to_host`."""
+def test_progress_and_submit_not_blocked_during_step(monkeypatch):
+    """Only `_step_lock` is held across the decode dispatch and the host
+    sync: `progress()` and `submit()` complete while a step is blocked
+    issuing its kernels (inside `decode_step_fused`) or in `_to_host`."""
     import time
 
     _, tp = _params()
@@ -286,31 +287,44 @@ def test_progress_and_submit_not_blocked_during_step():
     rid = eng.submit([1, 2, 3], max_new_tokens=12)
     eng.step()
     eng.step()
-    entered, release = threading.Event(), threading.Event()
+    rids = []
 
-    def slow_to_host(pending):
-        entered.set()
-        release.wait(5.0)
-        return tsrv.ContinuousBatchingEngine._to_host(pending)
+    def blocking(fn):
+        entered, release = threading.Event(), threading.Event()
 
-    eng._to_host = slow_to_host
-    stepper = threading.Thread(target=eng.step)
-    stepper.start()
-    try:
-        assert entered.wait(5.0), "step never reached the host sync"
-        t0 = time.perf_counter()
-        _, done = eng.progress(rid)
-        rid2 = eng.submit([4, 5], max_new_tokens=4)
-        assert time.perf_counter() - t0 < 0.5
-        assert not done
-    finally:
-        release.set()
-        stepper.join(10.0)
-        del eng._to_host
-    assert not stepper.is_alive()
+        def slow(*args, **kwargs):
+            entered.set()
+            release.wait(5.0)
+            return fn(*args, **kwargs)
+
+        return slow, entered, release
+
+    for where in ("dispatch", "to_host"):
+        with monkeypatch.context() as m:
+            if where == "dispatch":
+                slow, entered, release = blocking(tsrv.decode_step_fused)
+                m.setattr(tsrv, "decode_step_fused", slow)
+            else:
+                slow, entered, release = blocking(
+                    tsrv.ContinuousBatchingEngine._to_host)
+                m.setattr(eng, "_to_host", slow, raising=False)
+            stepper = threading.Thread(target=eng.step)
+            stepper.start()
+            try:
+                assert entered.wait(5.0), f"step never reached {where}"
+                t0 = time.perf_counter()
+                _, done = eng.progress(rid)
+                rids.append(eng.submit([4, 5], max_new_tokens=4))
+                assert time.perf_counter() - t0 < 0.5, where
+                assert not done
+            finally:
+                release.set()
+                stepper.join(10.0)
+            assert not stepper.is_alive()
     eng.run_until_done()
     assert len(eng.result(rid)) == 3 + 12
-    assert len(eng.result(rid2)) == 2 + 4
+    for r in rids:
+        assert len(eng.result(r)) == 2 + 4
 
 
 def test_servebench_rows_on_cpu():
@@ -325,3 +339,7 @@ def test_servebench_rows_on_cpu():
                                           device="cpu")
     assert par["logits_parity_ok"], par
     assert par["weight_bytes_ratio"] < 0.3  # float32 -> int8 + row scales
+    prof = servebench.profile_decode(tp, CFG, num_slots=2, max_len=MAX_LEN,
+                                     steps=2, warm_steps=1, device="cpu")
+    assert prof["steps"] == 2 and prof["ms_per_step"] > 0
+    assert 0 <= prof["device_idle_share"] <= 1
