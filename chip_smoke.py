@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (ray_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # full run: Llama-3-8B shapes, 32 layers
+    python3 chip_smoke.py            # full run: Llama-3-8B shapes
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build every kernel of the serving path from the sources in the
-     checkout (one nvcc per source, started together);
-  3. hold each kernel against its plain PyTorch version on the card, bit
-     for bit, at every shape the serving path gives it (the quant kernel's
-     stacked [L, in, out] leaves included) and at the six 8B weight shapes,
-     and time kernel, plain version and the bound with CUDA events (L2
-     flushed between calls);
+  2. build every kernel of the serving and training paths from the sources
+     in the checkout (one nvcc per source, started together);
+  3. hold each quant kernel against its plain PyTorch version on the card,
+     bit for bit, at every shape the serving path gives it (the quant
+     kernel's stacked [L, in, out] leaves included) and at the six 8B
+     weight shapes, and time kernel, plain version and the bound with CUDA
+     events (L2 flushed between calls);
   4. serve 12 requests through ContinuousBatchingEngine at llama3_8b full
      width and depth with random bf16 weights from a seeded generator, once
      in bf16 and once in w8a16, checking token counts, vocabulary range,
@@ -21,7 +21,20 @@ Phases (any failure exits non-zero and prints no result line):
   6. decode tokens/s at 8 slots and prefill tokens/s (4 x 64) for both,
      and a torch.profiler window of each decode loop (device time per
      step, its top kernels, and the device-idle share of that window);
-  7. print the kernels line, the nvidia-smi line, and the result line.
+  7. with the serving weights freed: hold the flash forward, the two flash
+     backward kernels and the fused-FFN K3 kernel against their plain
+     versions at the 8B training shapes and at shapes that do not tile
+     (max abs error / max abs plain value < 1e-2), and time kernel, plain
+     version, bound and one PyTorch library call doing the same work;
+  8. train Llama-3-8B at full width with 8 of its 32 layers (random bf16
+     weights, one batch of 2 x 2049 tokens reused) for 8 steps of
+     default_optimizer(warmup_steps=2), checking finite losses and grad
+     norms, the first loss against its expectation for this init, a falling
+     loss, and that each of the four kernels launches exactly n_layers
+     times in every step (counters zeroed before the step, read after);
+  9. ms/step, tokens/s and MFU over steps 3-8, peak device memory, and a
+     torch.profiler window of 3 more steps;
+ 10. print the kernels line, the nvidia-smi line, and the result line.
 
 Imports torch and the port only (never jax, never ray_tpu).
 """
@@ -29,7 +42,9 @@ Imports torch and the port only (never jax, never ray_tpu).
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -38,11 +53,21 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 
-# H100 SXM data sheet: HBM3 rate, and float32 outside the tensor cores
-# (the kernels' arithmetic); bound_ms is the larger of bytes and operations.
+# H100 SXM data sheet: HBM3 rate and the dense bf16 tensor-core rate; a
+# kernel's bound_ms is the larger of its bytes and its operations at these.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 NUM_SLOTS, MAX_LEN = 8, 1024
+# Training: 8 layers of Llama-3-8B, batch 2 x 2048, 8 checked steps.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TIMED_FROM = 2, 2048, 8, 2
+# Predicted in PERF.md before the first run: the loss on the one reused
+# batch falls by at least this much (nats) from step 1 to step 8.
+MIN_LOSS_DROP = 0.5
+# Kernel against its plain version: both read the same bf16 inputs, the
+# plain version computes in float32; bf16 output rounding (~4e-3 relative)
+# and another summation order stay far below this share of the plain
+# output's largest magnitude.
+REL_ERR_LIMIT = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -119,7 +144,7 @@ def numel(shape) -> int:
 
 def bound_ms(nbytes: int, ops: int):
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-    ops_ms = 1e3 * ops / PEAK_F32_OPS_PER_S
+    ops_ms = 1e3 * ops / PEAK_BF16_OPS_PER_S
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -238,6 +263,259 @@ def serve(torch, params, cfg, requests, quantize: bool, label: str):
     return eng, rids
 
 
+def causal_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs a row may attend: the work attention needs."""
+    if not causal:
+        return sq * sk
+    off = sk - sq
+    return sum(min(sk, max(0, r + off + 1)) for r in range(sq))
+
+
+def flash_shapes():
+    """(bh, sq, sk, head_dim, causal, calls per training step): the 8B
+    step's shape (b 2 x 32 heads, s 2048, hd 128), then one that does not
+    tile (sk not a multiple of the 64-key tile, sq != sk)."""
+    return [(64, 2048, 2048, 128, True, 8), (8, 1000, 1100, 128, True, 0)]
+
+
+def k3_shapes():
+    """(T, d, d_ff, calls per training step): the 8B step's (4096 tokens),
+    then one that tiles on no axis (tiles are 32 tokens x 128 x 64)."""
+    return [(4096, 4096, 14336, 8), (1000, 4000, 3000, 0)]
+
+
+def rel_err(torch, got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+def check_train_kernels(torch, gen):
+    """Phase 7: the four training-path kernels against their plain
+    versions, and their times, bounds and a library call's time."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+
+    bf16 = torch.bfloat16
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    rows = {"flash_fwd": [], "flash_bwd_dkv": [], "flash_bwd_dq": [],
+            "dw_gateup": []}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda",
+                            dtype=torch.float32) * scale).to(bf16)
+
+    def record(name, shape, calls, errs, nbytes, ops, fn, plain, library,
+               library_what):
+        b_ms, b_by = bound_ms(nbytes, ops)
+        err = max(e[0] for e in errs)
+        rel = max(e[1] for e in errs)
+        if not rel < REL_ERR_LIMIT:
+            fail(f"{name} differs from its plain version at {shape}: max "
+                 f"abs err {err}, {rel} of the plain output's max "
+                 f"(limit {REL_ERR_LIMIT})")
+        row = {"shape": list(shape), "calls": calls, "max_abs_err": err,
+               "rel_err": rel, "ms": time_ms(torch, fn, flush),
+               "plain_ms": time_ms(torch, plain, flush),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": (time_ms(torch, library, flush)
+                              if library is not None else None),
+               "library": library_what if library is not None else None}
+        rows[name].append(row)
+        lib = ("" if row["library_ms"] is None else
+               f", library {row['library_ms']:.4f} ms ({library_what})")
+        log(f"kernel {name} {list(shape)} bf16 ({calls} calls per training "
+            f"step): max abs err {err:.3g} ({rel:.3g} of the plain max); "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), {b_ms / row['ms']:.3f} of "
+            f"bound{lib}")
+
+    for bh, sq, sk, d, causal, calls in flash_shapes():
+        shape = (bh, sq, sk, d)
+        scale = d ** -0.5
+        q, k, v, do = (randn(bh, n, d) for n in (sq, sk, sk, sq))
+        out, lse = fa.flash_fwd(q, k, v, scale, causal)
+        p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+        torch.cuda.synchronize()
+        fwd_errs = [rel_err(torch, out, p_out), rel_err(torch, lse, p_lse)]
+        del out, lse
+        delta = fa.flash_delta(p_out, do)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, p_lse, delta, scale, causal)
+        p_dk, p_dv = fa.flash_bwd_dkv_plain(q, k, v, do, p_lse, delta,
+                                            scale, causal)
+        dq = fa.flash_bwd_dq(q, k, v, do, p_lse, delta, scale, causal)
+        p_dq = fa.flash_bwd_dq_plain(q, k, v, do, p_lse, delta, scale,
+                                     causal)
+        torch.cuda.synchronize()
+        dkv_errs = [rel_err(torch, dk, p_dk), rel_err(torch, dv, p_dv)]
+        dq_errs = [rel_err(torch, dq, p_dq)]
+        del dk, dv, dq, p_dk, p_dv, p_dq
+        torch.cuda.empty_cache()
+        pairs = causal_pairs(sq, sk, causal)
+        product = 2 * bh * pairs * d  # FLOP of one [sq, sk] x d product
+        qo_bytes, kv_bytes = 2 * bh * sq * d, 2 * bh * sk * d
+        lib_fwd = lib_bwd = lib_out = None
+        if sq == sk and causal:  # SDPA's causal mask is end-aligned here
+            q4, k4, v4 = (t.view(1, *t.shape).requires_grad_(True)
+                          for t in (q, k, v))
+            lib_out = sdpa(q4, k4, v4, is_causal=True)
+            g4 = do.view(1, *do.shape)
+
+            def lib_fwd():
+                with torch.no_grad():
+                    sdpa(q4, k4, v4, is_causal=True)
+
+            def lib_bwd():
+                torch.autograd.grad(lib_out, (q4, k4, v4), g4,
+                                    retain_graph=True)
+        record("flash_fwd", shape, calls, fwd_errs,
+               2 * qo_bytes + 2 * kv_bytes + 4 * bh * sq, 2 * product,
+               lambda: fa.flash_fwd(q, k, v, scale, causal),
+               lambda: fa.flash_fwd_plain(q, k, v, scale, causal), lib_fwd,
+               "torch scaled_dot_product_attention, causal, K/V repeated")
+        lib_what = ("the backward of that call (dq, dk and dv in one "
+                    "call)")
+        record("flash_bwd_dkv", shape, calls, dkv_errs,
+               2 * qo_bytes + 2 * kv_bytes + 8 * bh * sq + 2 * kv_bytes,
+               4 * product,
+               lambda: fa.flash_bwd_dkv(q, k, v, do, p_lse, delta, scale,
+                                        causal),
+               lambda: fa.flash_bwd_dkv_plain(q, k, v, do, p_lse, delta,
+                                              scale, causal),
+               lib_bwd, lib_what)
+        record("flash_bwd_dq", shape, calls, dq_errs,
+               2 * qo_bytes + 2 * kv_bytes + 8 * bh * sq + qo_bytes,
+               3 * product,
+               lambda: fa.flash_bwd_dq(q, k, v, do, p_lse, delta, scale,
+                                       causal),
+               lambda: fa.flash_bwd_dq_plain(q, k, v, do, p_lse, delta,
+                                             scale, causal),
+               lib_bwd, lib_what)
+        lib_fwd = lib_bwd = lib_out = None
+        del q, k, v, do, p_out, p_lse, delta
+        torch.cuda.empty_cache()
+
+    for T, d, dff, calls in k3_shapes():
+        x = randn(T, d)
+        rstd = torch.rand((T, 1), generator=gen, device="cuda") + 0.5
+        nw = randn(d, scale=0.1) + 1
+        dgate, dup = randn(T, dff, scale=0.01), randn(T, dff, scale=0.01)
+        dwg, dwu = ff.dw_gateup(x, rstd, nw, dgate, dup)
+        p_dwg, p_dwu = ff.dw_gateup_plain(x, rstd, nw, dgate, dup)
+        torch.cuda.synchronize()
+        errs = [rel_err(torch, dwg, p_dwg), rel_err(torch, dwu, p_dwu)]
+        del dwg, dwu, p_dwg, p_dwu
+        h = ff.normed(x, rstd, nw)
+        record("dw_gateup", (T, d, dff), calls, errs,
+               2 * T * d + 4 * T + 2 * d + 2 * 2 * T * dff + 2 * 2 * d * dff,
+               2 * 2 * T * d * dff,
+               lambda: ff.dw_gateup(x, rstd, nw, dgate, dup),
+               lambda: ff.dw_gateup_plain(x, rstd, nw, dgate, dup),
+               lambda: (torch.matmul(h.T, dgate), torch.matmul(h.T, dup)),
+               "two torch.matmul(h.T, .) on a precomputed h")
+        del x, rstd, nw, dgate, dup, h
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train(torch, card: str, seed: int):
+    """Phases 8-9: the training step at Llama-3-8B width, 8 layers."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import count_params
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+    from ray_tpu_torch.train import default_optimizer, make_train_step
+
+    cfg = bench.train_config_8b(n_layers=8)
+    kernels = (*fa.KERNELS, ff.dw_gateup)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: device memory allocated before the state: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step_fn, init_fn = make_train_step(
+        cfg, default_optimizer(warmup_steps=2), device="cuda")
+    state = init_fn(seed)
+    n_params = count_params(state.params)
+    batch = bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1, "cuda")
+    torch.cuda.synchronize()
+    log(f"train: llama3_8b width, {cfg.n_layers} layers, "
+        f"{n_params / 1e9:.4f}B params, state (params, mu f32, nu bf16) "
+        f"built in {time.perf_counter() - t0:.2f} s; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ + 1} tokens, reused every step")
+
+    losses, norms, step_s = [], [], []
+    launches = {k.__name__: 0 for k in kernels}
+    for i in range(TRAIN_STEPS):
+        for k in kernels:  # the main path's counts start here
+            k.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        got = {k.__name__: k.launches for k in kernels}
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        log(f"train step {i + 1}: loss {losses[-1]:.5f}, grad_norm "
+            f"{norms[-1]:.5f}, {1e3 * step_s[-1]:.2f} ms, launches {got}, "
+            f"allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, "
+            f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if got != {name: cfg.n_layers for name in got}:
+            fail(f"training step {i + 1} launched {got}; each kernel must "
+                 f"launch n_layers = {cfg.n_layers} times")
+        for name, n in got.items():
+            launches[name] += n
+        if not (math.isfinite(losses[-1]) and math.isfinite(norms[-1])):
+            fail(f"training step {i + 1}: loss {losses[-1]}, grad_norm "
+                 f"{norms[-1]}")
+    # logits z = x . W_head with rms(x) = 1 (final norm) and W_head ~
+    # N(0, 0.02^2): z ~ N(0, 0.02^2 d), so E[loss] = ln V + var(z) / 2
+    expect = math.log(cfg.vocab_size) + 0.5 * 0.02 ** 2 * cfg.d_model
+    log(f"train: first loss {losses[0]:.5f}; ln(vocab) = "
+        f"{math.log(cfg.vocab_size):.5f}, expected at this init "
+        f"{expect:.5f}; last loss {losses[-1]:.5f}, drop "
+        f"{losses[0] - losses[-1]:.5f} (predicted >= {MIN_LOSS_DROP})")
+    if abs(losses[0] - expect) > 0.5:
+        fail(f"first loss {losses[0]} is not within 0.5 of {expect}")
+    if not losses[0] - losses[-1] >= MIN_LOSS_DROP:
+        fail(f"loss fell by {losses[0] - losses[-1]} over {TRAIN_STEPS} "
+             f"steps, predicted >= {MIN_LOSS_DROP}")
+
+    timed = step_s[TIMED_FROM:]
+    ms_step = 1e3 * statistics.mean(timed)
+    tput = bench.throughput(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ,
+                            ms_step / 1e3, PEAK_BF16_OPS_PER_S)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train: {ms_step:.2f} ms/step (mean of steps {TIMED_FROM + 1}-"
+        f"{TRAIN_STEPS}; min {1e3 * min(timed):.2f}, max "
+        f"{1e3 * max(timed):.2f}), {tput['tokens_per_sec']:.1f} tokens/s, "
+        f"MFU {tput['mfu']:.4f} of {PEAK_BF16_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s, peak device memory {peak_gib:.2f} GiB [{card}]")
+    state, prof = bench.profile_train(step_fn, state, batch, steps=3,
+                                      top=12)
+    if prof["device_ms_per_step"] > 0:
+        log(f"train profile: device {prof['device_ms_per_step']:.2f} "
+            f"ms/step ({prof['launches_per_step']:.0f} kernels/step) in a "
+            f"window of {prof['ms_per_step']:.2f} ms/step, device-idle "
+            f"share {prof['device_idle_share']:.4f} of that window [{card}]")
+        log("train profile by kind: " + ", ".join(
+            f"{kind} {ms:.2f} ms/step" for kind, ms in sorted(
+                prof["ms_per_step_by_kind"].items(), key=lambda kv: -kv[1])))
+        for row in prof["top"]:
+            log(f"  {row['ms_per_step']:.4f} ms/step ({row['share']:.3f}, "
+                f"{row['calls_per_step']:.0f} calls) {row['name']}")
+    else:
+        log("train profile: the profiler recorded no device time "
+            "(device-idle share not measured)")
+    del state
+    torch.cuda.empty_cache()
+    return launches, TRAIN_STEPS
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -273,11 +551,12 @@ def main() -> int:
     check_card(name)
     log(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     log(f"peak rates used for bounds: {PEAK_BYTES_PER_S / 1e12} TB/s, "
-        f"float32 {PEAK_F32_OPS_PER_S / 1e12} TFLOP/s (H100 SXM data sheet)")
+        f"bf16 tensor cores {PEAK_BF16_OPS_PER_S / 1e12} TFLOP/s dense "
+        f"(H100 SXM data sheet)")
 
     # ---- phase 2: build
     t0 = time.perf_counter()
-    libs = _util.build(["quant"])
+    libs = _util.build(["quant", "flash_attention", "fused_ffn"])
     for lib in libs.values():
         log(f"built {lib.relative_to(HERE)}")
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
@@ -367,21 +646,48 @@ def main() -> int:
         pre = measure_prefill(p, cfg, max_len=MAX_LEN, device="cuda")
         log(f"prefill {label}: {pre['prefill_tokens_per_s']} tok/s "
             f"(batch 4 x 64), {pre['ms_per_call']} ms/call [{card}]")
+    del p  # the loop variable would keep the w8a16 weights alive
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
-    # ---- phase 7: report
-    replaces = {"quantize_int8": "ray_tpu/ops/pallas/quant.py:19",
-                "dequantize_int8": "ray_tpu/ops/pallas/quant.py:27"}
+    # ---- phase 7: training kernels against their plain versions, with
+    # the serving weights freed and before the training state exists
+    del params, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory allocated after the serving phases: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    train_rows = check_train_kernels(torch, gen)
+
+    # ---- phases 8-9: train llama3_8b width, 8 layers; measure
+    train_launches, train_steps = train(torch, card, args.seed)
+
+    # ---- phase 10: report
+    pallas = "ray_tpu/ops/pallas/"
+    replaces = {"quantize_int8": pallas + "quant.py:19",
+                "dequantize_int8": pallas + "quant.py:27",
+                "flash_fwd": pallas + "flash_attention.py:38",
+                "flash_bwd_dkv": pallas + "flash_attention.py:181",
+                "flash_bwd_dq": pallas + "flash_attention.py:224",
+                "dw_gateup": pallas + "fused_ffn.py:121"}
+    csrc = "ray_tpu_torch/ops/kernels/csrc/"
+    source = {"quantize_int8": csrc + "quant.cu",
+              "dequantize_int8": csrc + "quant.cu",
+              "flash_fwd": csrc + "flash_attention.cu",
+              "flash_bwd_dkv": csrc + "flash_attention.cu",
+              "flash_bwd_dq": csrc + "flash_attention.cu",
+              "dw_gateup": csrc + "fused_ffn.cu"}
     per = {"quantize_int8": "one model load",
            "dequantize_int8": "one decode step"}
+    launches.update(train_launches)
     kernels = []
-    for kname, rows in kernel_rows.items():
+    for kname, rows in {**kernel_rows, **train_rows}.items():
         # times: the main path's calls for `per`, each shape timed once and
         # counted as often as the path calls it
+        lib = [r for r in rows if r["calls"] and r.get("library_ms")]
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": "ray_tpu_torch/ops/kernels/csrc/quant.cu",
+            "source": source[kname],
             "replaces": replaces[kname],
             "launches": launches[kname],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -390,10 +696,15 @@ def main() -> int:
             "bound_ms": sum(r["calls"] * r["bound_ms"] for r in rows),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in rows) else "operations",
-            "library_ms": None,
-            "per": per[kname],
+            "library_ms": (sum(r["calls"] * r["library_ms"] for r in lib)
+                           if lib else None),
+            "per": per.get(kname, "one training step"),
             "shapes": rows,
         })
+        if kname in train_launches:
+            kernels[-1]["launches_per_step"] = (train_launches[kname]
+                                                / train_steps)
+            kernels[-1]["library"] = lib[0]["library"] if lib else None
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

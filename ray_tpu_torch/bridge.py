@@ -3,7 +3,8 @@
 Both packages use the same tree: nested dicts with the same leaf names, the
 same layer-stacked `[L, ...]` shapes and `[in, out]` weight layout, and
 `{"int8", "scale"}` leaves for w8a16 weights. The bridge moves leaves
-bit for bit. A bfloat16 array from JAX arrives in numpy with the
+bit for bit, and carries a training state across as well: params, the AdamW
+moments (mu float32, nu in the parameter dtype) and the update count. A bfloat16 array from JAX arrives in numpy with the
 `ml_dtypes` bfloat16 dtype, which `torch.from_numpy` rejects, so it travels
 as its 16-bit pattern and is reinterpreted on the other side.
 """
@@ -17,6 +18,7 @@ import torch
 
 from ray_tpu_torch.models.transformer import ModelConfig
 from ray_tpu_torch.ops.kernels._util import require_cuda
+from ray_tpu_torch.train.step import AdamWState, TrainState
 
 
 def _to_tensor(arr: Any, device: torch.device) -> torch.Tensor:
@@ -67,3 +69,44 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """The inverse of `params_from_jax`: torch tensors -> numpy arrays
     (bfloat16 tensors become ml_dtypes bfloat16 arrays with the same bits)."""
     return _map(params, _to_numpy)
+
+
+def _adam_state(node: Any) -> Any:
+    """The first node of an optax state tree with `mu` and `nu` fields
+    (optax's ScaleByAdamState), found by walking tuples, lists and dicts."""
+    if hasattr(node, "mu") and hasattr(node, "nu"):
+        return node
+    children = (node.values() if isinstance(node, dict)
+                else node if isinstance(node, (list, tuple)) else ())
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_from_jax(state: Any, cfg: ModelConfig,
+                         device="cuda") -> TrainState:
+    """A JAX `TrainState` (params, optax clip + adamw state, step) -> the
+    port's TrainState on `device`: params, mu, nu and the count carried
+    across bit for bit, dtypes kept (nu stays in the parameter dtype)."""
+    dev = require_cuda(device)
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("no optax adam state (mu, nu) in the optimizer "
+                         "state")
+    return TrainState(
+        params=params_from_jax(state.params, cfg, dev),
+        opt_state=AdamWState(count=int(np.asarray(adam.count)),
+                             mu=_map(adam.mu, lambda a: _to_tensor(a, dev)),
+                             nu=_map(adam.nu, lambda a: _to_tensor(a, dev))),
+        step=int(np.asarray(state.step)))
+
+
+def train_state_to_numpy(state: TrainState) -> Dict[str, Any]:
+    """The port's TrainState -> {"params", "mu", "nu", "count", "step"} of
+    numpy arrays and ints (bfloat16 as ml_dtypes bfloat16)."""
+    return {"params": params_to_numpy(state.params),
+            "mu": params_to_numpy(state.opt_state.mu),
+            "nu": params_to_numpy(state.opt_state.nu),
+            "count": state.opt_state.count, "step": state.step}

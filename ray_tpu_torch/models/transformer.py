@@ -1,7 +1,7 @@
-"""Flagship model config and parameters (twin of ray_tpu/models/transformer.py),
-serving part: the config and its presets, the scaled-normal init, and the
-read-side helpers the serving forward passes use (`_deq`, `_embed_lookup`,
-`lm_head_weights`).
+"""Flagship model (twin of ray_tpu/models/transformer.py): the config and
+its presets, the scaled-normal init, the read-side helpers the serving
+passes use (`_deq`, `_embed_lookup`, `lm_head_weights`), and the training
+forward and loss (`forward_features_with_aux`, `forward`, `loss_fn`).
 
 Parameters are a plain dict with the JAX package's leaf names, the same
 layer-stacked `[L, ...]` shapes and `[in, out]` weight layout, so one tree
@@ -9,18 +9,32 @@ moves between the two packages through `ray_tpu_torch.bridge`. w8a16 leaves
 are `{"int8", "scale"}` dicts; `_deq` and the int8 branch of `_embed_lookup`
 dequantize them with the hand-written dequant kernel.
 
-Training (`forward`, `loss_fn`, remat) is a later slice of the port.
+The reference's `lax.scan` over layers is a Python loop over
+`torch.unbind` views of the stacked leaves: autograd then stacks each
+leaf's per-layer gradients once, in one `[L, ...]` tensor. With
+`fused_ffn` (and `fused_attn`) each layer is the pair of autograd.Functions
+in `ops/kernels/fused_ffn.py` and `fused_attn.py`, whose backwards run the
+flash and K3 kernels. Remat modes `none` and `full`
+(`torch.utils.checkpoint`) are ported; the selective `dots` family, MoE and
+sequence parallelism raise until their ports land (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 
+from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.kernels._util import require_cuda
+from ray_tpu_torch.ops.kernels.fused_attn import attn_block
+from ray_tpu_torch.ops.kernels.fused_ffn import ffn_block
 from ray_tpu_torch.ops.kernels.quant import dequantize_int8
+from ray_tpu_torch.ops.layers import (apply_rotary, rms_norm,
+                                      rotary_embedding, swiglu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,8 +49,10 @@ class ModelConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # The fields below select training-side behaviour in the JAX package;
-    # they are kept so configs compare field for field.
+    # Training-side behaviour, as in the JAX package: remat, the chunked
+    # loss, the fused blocks. Sequence parallelism and MoE raise until
+    # their ports land; the rest are kept so configs compare field for
+    # field.
     remat: str = "full"
     loss_chunk: int = 0
     use_ring_attention: bool = False
@@ -190,3 +206,211 @@ def lm_head_weights(params: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
     head = (_deq(params["embed"], cfg.dtype).T if cfg.tie_embeddings
             else _deq(params["lm_head"], cfg.dtype))
     return head.to(cfg.dtype)
+
+
+# ---------------------------------------------------------------- forward
+
+
+def _unstack(layers: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Per-layer dicts of `torch.unbind` views of the stacked leaves."""
+    cols = {}
+    for k, v in layers.items():
+        if isinstance(v, dict):
+            cols[k] = [{"int8": a, "scale": s} for a, s in
+                       zip(torch.unbind(v["int8"]), torch.unbind(v["scale"]))]
+        else:
+            cols[k] = torch.unbind(v)
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def _unported(cfg: ModelConfig) -> None:
+    if cfg.seq_parallel or cfg.use_ring_attention:
+        raise NotImplementedError(
+            "sequence parallelism is not ported yet (ROADMAP.md, queue A "
+            "item 7)")
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            "the MoE FFN is not ported yet (ROADMAP.md, queue A item 7)")
+
+
+def _attn_half(cfg: ModelConfig, x, p, cos, sin):
+    """Attention sub-block: x + Wo(attn(rotary(qkv(rmsnorm(x)))))."""
+    p = _deq_tree(p, cfg.dtype)
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    nq_d, nkv_d = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    if cfg.fused_proj:
+        qkv = h @ torch.cat([p["wq"], p["wk"], p["wv"]], dim=1)
+        q, k, v = (qkv[..., :nq_d], qkv[..., nq_d:nq_d + nkv_d],
+                   qkv[..., nq_d + nkv_d:])
+    else:
+        q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    q = apply_rotary(q, cos, sin)
+    k = apply_rotary(k, cos, sin)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # [b, heads, s, hd]
+    attn = attention(q, k, v, causal=True)
+    attn = attn.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
+    return x + (attn @ p["wo"]).to(x.dtype)
+
+
+def _layer(cfg: ModelConfig, x, layer_params, cos, sin):
+    """One transformer block; returns (x, moe_aux = 0)."""
+    x = _attn_half(cfg, x, layer_params, cos, sin)
+    p = _deq_tree(layer_params, cfg.dtype)
+    h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    if cfg.fused_proj:
+        gu = h @ torch.cat([p["w_gate"], p["w_up"]], dim=1)
+        gate, up = gu[..., :cfg.d_ff], gu[..., cfg.d_ff:]
+    else:
+        gate, up = h @ p["w_gate"], h @ p["w_up"]
+    x = x + (swiglu(gate, up) @ p["w_down"]).to(x.dtype)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def maybe_remat(layer_fn, cfg: ModelConfig):
+    """Wrap a layer body per cfg.remat: "none" keeps every activation,
+    "full" recomputes the body in the backward (torch.utils.checkpoint).
+    The selective modes wait for their port."""
+    if cfg.remat == "full":
+        return functools.partial(torch.utils.checkpoint.checkpoint, layer_fn,
+                                 use_reentrant=False)
+    if cfg.remat in ("dots", "dots_sans_qkv", "dots_plus_attn"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} (selective checkpointing) is not ported "
+            f"yet (ROADMAP.md, queue A item 2); the fused_ffn + fused_attn "
+            f"layer runs without it")
+    if cfg.remat != "none":
+        raise ValueError(f"unknown remat mode {cfg.remat!r}")
+    return layer_fn
+
+
+def forward_features_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
+                              cfg: ModelConfig,
+                              positions: Optional[torch.Tensor] = None):
+    """tokens [b, s] -> (features [b, s, d] after final norm, moe_aux
+    scalar)."""
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed_lookup(params["embed"], tokens, cfg.dtype)  # [b, s, d]
+    cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = cos[None], sin[None]  # add batch dim
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    if cfg.fused_attn and not cfg.fused_ffn:
+        raise ValueError("fused_attn requires fused_ffn")
+    _unported(cfg)
+    layers = _unstack(params["layers"])
+    if cfg.fused_ffn:
+        if cfg.fused_attn:
+            def attn_fn(x, lp, cos, sin):
+                return attn_block(x, lp["attn_norm"], lp["wq"], lp["wk"],
+                                  lp["wv"], lp["wo"], cos, sin, cfg.n_heads,
+                                  cfg.n_kv_heads, cfg.norm_eps)
+        else:
+            attn_fn = maybe_remat(functools.partial(_attn_half, cfg), cfg)
+        for lp in layers:
+            x = attn_fn(x, lp, cos, sin)
+            x = ffn_block(x, lp["mlp_norm"], lp["w_gate"], lp["w_up"],
+                          lp["w_down"], cfg.norm_eps)
+    else:
+        layer_fn = maybe_remat(functools.partial(_layer, cfg), cfg)
+        for lp in layers:
+            x, layer_aux = layer_fn(x, lp, cos, sin)
+            aux = aux + layer_aux
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, aux
+
+
+def forward_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
+                     cfg: ModelConfig,
+                     positions: Optional[torch.Tensor] = None):
+    """tokens [b, s] -> (logits [b, s, vocab] float32, moe_aux scalar)."""
+    x, aux = forward_features_with_aux(params, tokens, cfg, positions)
+    return (x @ lm_head_weights(params, cfg)).float(), aux
+
+
+def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return forward_with_aux(params, tokens, cfg, positions)[0]
+
+
+def split_batch(batch: Dict[str, torch.Tensor]):
+    """Normalize a batch to (inputs, targets, mask): accepts pre-shifted
+    {"inputs", "targets"} or {"tokens": [b, s+1]}, optional "loss_mask"."""
+    if "inputs" in batch:
+        return batch["inputs"], batch["targets"], batch.get("loss_mask")
+    tokens = batch["tokens"]
+    mask = batch.get("loss_mask")
+    return tokens[:, :-1], tokens[:, 1:], (None if mask is None
+                                           else mask[:, 1:])
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token NLL over [..., s, vocab] logits / [..., s] targets,
+    masked if a [..., s] mask is given."""
+    logz = torch.logsumexp(logits, dim=-1)
+    target_logit = logits.gather(-1, targets[..., None].long())[..., 0]
+    nll = logz - target_logit
+    if mask is not None:
+        maskf = mask.float()
+        return (nll * maskf).sum() / maskf.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def chunked_token_nll(x: torch.Tensor, head: torch.Tensor,
+                      targets: torch.Tensor, mask: Optional[torch.Tensor],
+                      chunk: int) -> torch.Tensor:
+    """Mean NLL without materializing the full [b, s, vocab] float32
+    logits: each `chunk` of the sequence runs its LM-head product and
+    softmax under a checkpoint, so the backward recomputes one
+    [b, chunk, vocab] tile at a time."""
+    b, s, _ = x.shape
+    if s % chunk:
+        raise ValueError(f"chunk {chunk} must divide the sequence {s}")
+    maskf = (mask.float() if mask is not None
+             else torch.ones(targets.shape, dtype=torch.float32,
+                             device=x.device))
+
+    def chunk_nll(x_c, t_c, m_c):
+        logits = (x_c @ head).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, t_c[..., None].long())[..., 0]
+        return ((logz - tgt) * m_c).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, chunk):
+        sl = slice(i, i + chunk)
+        total = total + torch.utils.checkpoint.checkpoint(
+            chunk_nll, x[:, sl], targets[:, sl], maskf[:, sl],
+            use_reentrant=False)
+    return total / maskf.sum().clamp_min(1.0)
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig):
+    """Next-token cross entropy -> (loss, {"loss", "ntokens", "moe_aux"}).
+
+    batch: {"tokens": [b, s+1]} (shifted here) or pre-shifted
+    {"inputs": [b, s], "targets": [b, s]}; optional {"loss_mask": [b, s]}.
+    """
+    inputs, targets, mask = split_batch(batch)
+    if cfg.loss_chunk:
+        if targets.shape[-1] % cfg.loss_chunk != 0:
+            raise ValueError(
+                f"loss_chunk={cfg.loss_chunk} must divide the target length "
+                f"{targets.shape[-1]} (note {{'tokens'}} batches lose one "
+                f"position to the shift)")
+        x, moe_aux = forward_features_with_aux(params, inputs, cfg)
+        loss = chunked_token_nll(x, lm_head_weights(params, cfg), targets,
+                                 mask, cfg.loss_chunk)
+    else:
+        logits, moe_aux = forward_with_aux(params, inputs, cfg)
+        loss = token_nll(logits, targets, mask)
+    return loss, {"loss": loss, "ntokens": targets.numel(),
+                  "moe_aux": moe_aux}

@@ -1,5 +1,6 @@
 """The port on a CUDA device: the hand-written kernels against their plain
-PyTorch versions, and the engine's serving path through them.
+PyTorch versions, the engine's serving path through the quant kernels, and
+training steps through the flash and K3 kernels.
 
 Every test here needs a GPU and skips with a reason where there is none.
 The file imports torch and the port only, so it also runs where JAX is not
@@ -8,13 +9,20 @@ installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch.bench import make_batch
 from ray_tpu_torch.models import ModelConfig, init_params
 from ray_tpu_torch.models import inference, serving
+from ray_tpu_torch.ops.attention import attention, causal_attention_reference
+from ray_tpu_torch.ops.kernels import flash_attention as fa
+from ray_tpu_torch.ops.kernels import fused_ffn as ff
 from ray_tpu_torch.ops.kernels import quant
+from ray_tpu_torch.train import default_optimizer, make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -25,7 +33,10 @@ DTYPES = [torch.float32, torch.bfloat16]
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    return torch.device("cuda")
+    yield torch.device("cuda")
+    # a test that checks for hidden synchronizations must not leave the
+    # check on for the tests after it
+    torch.cuda.set_sync_debug_mode(0)
 
 
 def _input(shape, dtype, device, seed=0):
@@ -129,3 +140,118 @@ def test_engine_dispatch_never_waits_for_the_device(cuda, monkeypatch,
     eng.run_until_done()
     for rid, p in zip(rids, prompts):
         assert len(eng.result(rid)) == len(p) + 5
+
+
+# bf16 kernels against plain versions that compute in float32 from the same
+# bf16 inputs: bf16 output rounding is ~4e-3 relative and the sums run in
+# another order, so max abs error / max abs plain value < 1e-2.
+REL_TOL = 1e-2
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _bf16(shape, device, seed, scale=1.0):
+    x = np.random.default_rng(seed).standard_normal(shape) * scale
+    return torch.from_numpy(x.astype(np.float32)).to(device=device,
+                                                     dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal", [
+    (3, 64, 64, 32, True), (2, 50, 50, 64, False), (2, 40, 150, 32, True),
+    (2, 4, 200, 128, True), (3, 130, 130, 128, True), (2, 100, 77, 64, False),
+])
+def test_flash_kernels_match_plain_versions(cuda, bh, sq, sk, d, causal):
+    q, k, v, do = (_bf16(s, cuda, i) for i, s in enumerate(
+        ((bh, sq, d), (bh, sk, d), (bh, sk, d), (bh, sq, d))))
+    scale = d ** -0.5
+    before = [kern.launches for kern in fa.KERNELS]
+    out, lse = fa.flash_fwd(q, k, v, scale, causal)
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+    delta = fa.flash_delta(p_out, do)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, p_lse, delta, scale, causal)
+    dq = fa.flash_bwd_dq(q, k, v, do, p_lse, delta, scale, causal)
+    p_dk, p_dv = fa.flash_bwd_dkv_plain(q, k, v, do, p_lse, delta, scale,
+                                        causal)
+    p_dq = fa.flash_bwd_dq_plain(q, k, v, do, p_lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (bh, sq)
+    for got, want, name in ((out, p_out, "out"), (lse, p_lse, "lse"),
+                            (dq, p_dq, "dq"), (dk, p_dk, "dk"),
+                            (dv, p_dv, "dv")):
+        assert _rel_err(got, want) < REL_TOL, name
+    assert [kern.launches for kern in fa.KERNELS] == [b + 1 for b in before]
+
+
+@pytest.mark.parametrize("T,d,dff", [(64, 128, 256), (1000, 200, 328),
+                                     (37, 130, 50), (100, 72, 200)])
+def test_k3_kernel_matches_plain_version(cuda, T, d, dff):
+    x, dgate, dup = (_bf16(s, cuda, i) for i, s in enumerate(
+        ((T, d), (T, dff), (T, dff))))
+    rstd = torch.rand((T, 1), device=cuda) + 0.5
+    nw = _bf16((d,), cuda, 5, 0.1) + 1
+    before = ff.dw_gateup.launches
+    dwg, dwu = ff.dw_gateup(x, rstd, nw, dgate, dup)
+    p_dwg, p_dwu = ff.dw_gateup_plain(x, rstd, nw, dgate, dup)
+    torch.cuda.synchronize()
+    assert dwg.shape == dwu.shape == (d, dff)
+    assert _rel_err(dwg, p_dwg) < REL_TOL
+    assert _rel_err(dwu, p_dwu) < REL_TOL
+    assert ff.dw_gateup.launches == before + 1
+
+
+def test_new_kernels_refuse_float32_and_odd_head_dims(cuda):
+    q = torch.zeros((2, 64, 64), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_fwd(q, q, q, 1.0)
+    q16 = torch.zeros((2, 64, 48), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(q16, q16, q16, 1.0)
+    x = torch.zeros((8, 16), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ff.dw_gateup(x, torch.ones((8, 1), device=cuda),
+                     torch.ones(16, device=cuda), torch.zeros((8, 4),
+                                                              device=cuda),
+                     torch.zeros((8, 4), device=cuda))
+
+
+def test_attention_dispatches_to_flash_on_the_card(cuda):
+    """head_dim >= 128 and seq >= 128 (the reference's gate): the flash
+    pair, forward and backward, against autograd through the einsum."""
+    q = _bf16((1, 4, 128, 128), cuda, 0).requires_grad_(True)
+    k = _bf16((1, 2, 128, 128), cuda, 1).requires_grad_(True)
+    v = _bf16((1, 2, 128, 128), cuda, 2).requires_grad_(True)
+    g = _bf16((1, 4, 128, 128), cuda, 3)
+    before = [kern.launches for kern in fa.KERNELS]
+    out = attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    assert [kern.launches for kern in fa.KERNELS] == [b + 1 for b in before]
+    ref = causal_attention_reference(
+        q, k.repeat_interleave(2, 1), v.repeat_interleave(2, 1))
+    ref_grads = torch.autograd.grad(ref, (q, k, v), g)
+    assert _rel_err(out, ref) < 2e-2
+    for a, b in zip(grads, ref_grads):
+        assert _rel_err(a, b) < 2e-2
+
+
+def test_tiny_bf16_training_steps_go_through_the_kernels(cuda):
+    cfg = dataclasses.replace(ModelConfig.tiny(), dtype=torch.bfloat16,
+                              fused_ffn=True, fused_attn=True)
+    step_fn, init_fn = make_train_step(
+        cfg, default_optimizer(1e-3, warmup_steps=1), device=cuda)
+    state = init_fn(0)
+    batch = make_batch(cfg, 2, 64, 1, cuda)
+    kernels = (*fa.KERNELS, ff.dw_gateup)
+    losses = []
+    for _ in range(3):
+        for kern in kernels:
+            kern.launches = 0
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        assert np.isfinite(float(metrics["grad_norm"]))
+        assert [kern.launches for kern in kernels] == [cfg.n_layers] * 4
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert state.opt_state.mu["embed"].dtype == torch.float32
+    assert state.opt_state.nu["embed"].dtype == torch.bfloat16

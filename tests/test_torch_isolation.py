@@ -30,7 +30,12 @@ def _forbidden(name: str) -> bool:
 
 def test_port_imports_neither_jax_nor_ray_tpu():
     modules = list(_port_modules())
-    assert "ray_tpu_torch.models.serving" in modules
+    for name in ("ray_tpu_torch.models.serving", "ray_tpu_torch.train.step",
+                 "ray_tpu_torch.bench",
+                 "ray_tpu_torch.ops.kernels.flash_attention",
+                 "ray_tpu_torch.ops.kernels.fused_ffn",
+                 "ray_tpu_torch.ops.kernels.fused_attn"):
+        assert name in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}:\n"
@@ -71,7 +76,9 @@ def test_chip_smoke_alone_fails_without_a_result(tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["init_params", "params_from_jax",
-                                   "engine", "require_cuda"])
+                                   "engine", "require_cuda",
+                                   "make_train_step", "make_init_fn",
+                                   "bench"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -79,6 +86,9 @@ def test_default_device_raises_without_cuda(entry):
     from ray_tpu_torch.models import ModelConfig, init_params
     from ray_tpu_torch.models.serving import ContinuousBatchingEngine
     from ray_tpu_torch.ops.kernels._util import require_cuda
+    from ray_tpu_torch.train import (default_optimizer, make_init_fn,
+                                     make_train_step)
+    from ray_tpu_torch import bench
 
     cfg = ModelConfig.tiny()
     calls = {
@@ -89,6 +99,9 @@ def test_default_device_raises_without_cuda(entry):
         "engine": lambda: ContinuousBatchingEngine(
             init_params(cfg, seed=0, device="cpu"), cfg),
         "require_cuda": lambda: require_cuda("cuda"),
+        "make_train_step": lambda: make_train_step(cfg),
+        "make_init_fn": lambda: make_init_fn(cfg, default_optimizer())(0),
+        "bench": lambda: bench.main([]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
