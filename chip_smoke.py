@@ -22,19 +22,29 @@ Phases (any failure exits non-zero and prints no result line):
      and a torch.profiler window of each decode loop (device time per
      step, its top kernels, and the device-idle share of that window);
   7. with the serving weights freed: hold the flash forward, the two flash
-     backward kernels and the fused-FFN K3 kernel against their plain
-     versions at the 8B training shapes and at shapes that do not tile
-     (max abs error / max abs plain value < 1e-2), and time kernel, plain
-     version, bound and one PyTorch library call doing the same work;
+     backward kernels and the fused-FFN K1, K2 and K3 kernels against their
+     plain versions at the 8B training shapes and at shapes that do not
+     tile (max abs error / max abs plain value < 1e-2), and the AdamW
+     kernel bit for bit at every leaf shape of the 8-layer training tree
+     and at an odd size; time kernel, plain version, bound and one PyTorch
+     library call doing the same work;
   8. train Llama-3-8B at full width with 8 of its 32 layers (random bf16
      weights, one batch of 2 x 2049 tokens reused) for 8 steps of
      default_optimizer(warmup_steps=2), checking finite losses and grad
      norms, the first loss against its expectation for this init, a falling
-     loss, and that each of the four kernels launches exactly n_layers
-     times in every step (counters zeroed before the step, read after);
+     loss, and that each of the four kernels of this path launches exactly
+     n_layers times in every step (counters zeroed before the step, read
+     after);
   9. ms/step, tokens/s and MFU over steps 3-8, peak device memory, and a
      torch.profiler window of 3 more steps;
- 10. print the kernels line, the nvidia-smi line, and the result line.
+ 10. with that state freed, the all-kernel step: the same config, seed and
+     batch with fused_ffn.USE_K1 = USE_K2 = True and
+     fused_adamw_optimizer(warmup_steps=2), 8 steps, checking the same
+     gates, six kernels at n_layers launches and the AdamW kernel at one
+     launch per leaf in every step, losses 1-2 equal to phase 8's within
+     1e-5 relative and step 1's grad norm within 1%; then phase 9's
+     measurements for this path;
+ 11. print the kernels line, the nvidia-smi line, and the result line.
 
 Imports torch and the port only (never jax, never ray_tpu).
 """
@@ -53,10 +63,12 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 
-# H100 SXM data sheet: HBM3 rate and the dense bf16 tensor-core rate; a
-# kernel's bound_ms is the larger of its bytes and its operations at these.
+# H100 SXM data sheet: HBM3 rate, the dense bf16 tensor-core rate and the
+# float32 rate outside the tensor cores; a kernel's bound_ms is the larger
+# of its bytes and its operations at these.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_OPS_PER_S = 989e12
+PEAK_F32_OPS_PER_S = 67e12
 NUM_SLOTS, MAX_LEN = 8, 1024
 # Training: 8 layers of Llama-3-8B, batch 2 x 2048, 8 checked steps.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TIMED_FROM = 2, 2048, 8, 2
@@ -68,6 +80,13 @@ MIN_LOSS_DROP = 0.5
 # and another summation order stay far below this share of the plain
 # output's largest magnitude.
 REL_ERR_LIMIT = 1e-2
+# The all-kernel step against the default step: the same forward (losses 1
+# and 2, step 1's lr is 0 on both paths) and, at step 1, gradients that
+# differ only where K2 keeps d_s in float32 (the default path rounds it to
+# bf16).
+SAME_LOSS_RTOL = 1e-5
+GRAD_NORM_RTOL = 1e-2
+ADAMW_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
 
 
 def fail(msg: str) -> None:
@@ -142,9 +161,9 @@ def numel(shape) -> int:
     return n
 
 
-def bound_ms(nbytes: int, ops: int):
+def bound_ms(nbytes: int, ops: int, ops_per_s: float = PEAK_BF16_OPS_PER_S):
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-    ops_ms = 1e3 * ops / PEAK_BF16_OPS_PER_S
+    ops_ms = 1e3 * ops / ops_per_s
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -278,10 +297,38 @@ def flash_shapes():
     return [(64, 2048, 2048, 128, True, 8), (8, 1000, 1100, 128, True, 0)]
 
 
-def k3_shapes():
-    """(T, d, d_ff, calls per training step): the 8B step's (4096 tokens),
-    then one that tiles on no axis (tiles are 32 tokens x 128 x 64)."""
+def ffn_shapes():
+    """(T, d, d_ff, calls per training step) of the fused-FFN kernels: the
+    8B step's (4096 tokens), then one that tiles on no axis (output tiles
+    128 x 64 or 128 x 128, 32 tokens or 64 of d a step)."""
     return [(4096, 4096, 14336, 8), (1000, 4000, 3000, 0)]
+
+
+def adamw_shapes(cfg):
+    """{leaf shape: leaves of that shape} of the training tree (the AdamW
+    kernel runs once per leaf a step), then an odd size that is no leaf."""
+    L, d, f, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    qd, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    shapes = {}
+    for shape in [(V, d), (d, V), (d,), (L, d), (L, d), (L, d, qd),
+                  (L, d, kv), (L, d, kv), (L, qd, d), (L, d, f), (L, d, f),
+                  (L, f, d)]:
+        shapes[shape] = shapes.get(shape, 0) + 1
+    shapes[(1000003,)] = 0
+    return shapes
+
+
+def fused_adamw_library(torch, p, g, mu, nu, lr, grad_scale, step):
+    """torch._fused_adamw_ on one leaf, timed beside the kernel only;
+    grad_scale = 1 / clip makes it scale g by the clip factor as the kernel
+    does. It needs p, g, mu and nu of one dtype, so it runs on float32 p
+    and g: 32 B/element where the kernel moves 22."""
+    torch._fused_adamw_([p], [g], [mu], [nu], [], [step], amsgrad=False,
+                        lr=lr, beta1=ADAMW_HYPER["b1"],
+                        beta2=ADAMW_HYPER["b2"],
+                        weight_decay=ADAMW_HYPER["wd"],
+                        eps=ADAMW_HYPER["eps"], maximize=False,
+                        grad_scale=grad_scale, found_inf=None)
 
 
 def rel_err(torch, got, want):
@@ -289,26 +336,28 @@ def rel_err(torch, got, want):
     return err, err / max(want.float().abs().max().item(), 1e-30)
 
 
-def check_train_kernels(torch, gen):
-    """Phase 7: the four training-path kernels against their plain
-    versions, and their times, bounds and a library call's time."""
+def check_train_kernels(torch, gen, cfg):
+    """Phase 7: the training paths' kernels against their plain versions,
+    and their times, bounds and a library call's time."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
+    from ray_tpu_torch.ops.kernels import adamw as aw
     from ray_tpu_torch.ops.kernels import flash_attention as fa
     from ray_tpu_torch.ops.kernels import fused_ffn as ff
 
     bf16 = torch.bfloat16
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     rows = {"flash_fwd": [], "flash_bwd_dkv": [], "flash_bwd_dq": [],
-            "dw_gateup": []}
+            "dw_gateup": [], "dw_down": [], "dgateup": [],
+            "adamw_update": []}
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda",
                             dtype=torch.float32) * scale).to(bf16)
 
     def record(name, shape, calls, errs, nbytes, ops, fn, plain, library,
-               library_what):
-        b_ms, b_by = bound_ms(nbytes, ops)
+               library_what, ops_per_s=PEAK_BF16_OPS_PER_S):
+        b_ms, b_by = bound_ms(nbytes, ops, ops_per_s)
         err = max(e[0] for e in errs)
         rel = max(e[1] for e in errs)
         if not rel < REL_ERR_LIMIT:
@@ -396,7 +445,7 @@ def check_train_kernels(torch, gen):
         del q, k, v, do, p_out, p_lse, delta
         torch.cuda.empty_cache()
 
-    for T, d, dff, calls in k3_shapes():
+    for T, d, dff, calls in ffn_shapes():
         x = randn(T, d)
         rstd = torch.rand((T, 1), generator=gen, device="cuda") + 0.5
         nw = randn(d, scale=0.1) + 1
@@ -416,37 +465,109 @@ def check_train_kernels(torch, gen):
                "two torch.matmul(h.T, .) on a precomputed h")
         del x, rstd, nw, dgate, dup, h
         torch.cuda.empty_cache()
+
+        # K1 and K2 on their own inputs: the swiglu's operands and the
+        # down projection's weight at the same (T, d, d_ff)
+        gate, up = randn(T, dff), randn(T, dff)
+        dy = randn(T, d, scale=0.01)
+        wd = randn(dff, d, scale=dff ** -0.5)
+        errs = [rel_err(torch, ff.dw_down(gate, up, dy),
+                        ff.dw_down_plain(gate, up, dy))]
+        dg, du = ff.dgateup(dy, wd, gate, up)
+        p_dg, p_du = ff.dgateup_plain(dy, wd, gate, up)
+        torch.cuda.synchronize()
+        k2_errs = [rel_err(torch, dg, p_dg), rel_err(torch, du, p_du)]
+        del dg, du, p_dg, p_du
+        s_act = ff.swiglu_act(gate, up)
+        record("dw_down", (T, d, dff), calls, errs,
+               2 * 2 * T * dff + 2 * T * d + 2 * dff * d, 2 * T * d * dff,
+               lambda: ff.dw_down(gate, up, dy),
+               lambda: ff.dw_down_plain(gate, up, dy),
+               lambda: torch.matmul(s_act.T, dy),
+               "torch.matmul(s.T, dy) on a precomputed swiglu s")
+        record("dgateup", (T, d, dff), calls, k2_errs,
+               2 * T * d + 2 * dff * d + 2 * 2 * T * dff + 2 * 2 * T * dff,
+               2 * T * d * dff,
+               lambda: ff.dgateup(dy, wd, gate, up),
+               lambda: ff.dgateup_plain(dy, wd, gate, up),
+               lambda: torch.matmul(dy, wd.T),
+               "torch.matmul(dy, w_down.T), the product alone: no "
+               "epilogue")
+        del gate, up, dy, wd, s_act
+        torch.cuda.empty_cache()
+
+    # AdamW: bit for bit, in place, on copies; largest leaf first
+    lr, c1, c2 = 3e-4, aw.bias_correction(0.9, 3), aw.bias_correction(0.95, 3)
+    clip = torch.tensor(0.37, device="cuda")
+    inv_clip = clip.reciprocal()
+    step = torch.full((), 3.0, device="cuda")
+    for shape, calls in sorted(adamw_shapes(cfg).items(),
+                               key=lambda kv: -numel(kv[0])):
+        n = numel(shape)
+        p, g = randn(n, scale=0.02), randn(n, scale=1e-3)
+        mu = torch.randn(n, generator=gen, device="cuda") * 1e-4
+        nu = torch.rand(n, generator=gen, device="cuda") * 1e-6
+        want = [t.clone() for t in (p, mu, nu)]
+        aw.adamw_update(p, g, mu, nu, lr, clip, c1, c2, **ADAMW_HYPER)
+        aw.adamw_update_plain(want[0], g, want[1], want[2], lr, clip, c1, c2,
+                              **ADAMW_HYPER)
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip((p, mu, nu), want))
+        if not (torch.equal(p.view(torch.int16), want[0].view(torch.int16))
+                and torch.equal(mu, want[1]) and torch.equal(nu, want[2])):
+            fail(f"adamw_update differs from its plain version at {shape}: "
+                 f"max abs err {err}")
+        lib_p, lib_g = p.float(), g.float()
+        # p, g read as bf16 and mu, nu as float32; p, mu, nu written back
+        record("adamw_update", shape, calls, [(err, 0.0)], 22 * n, 17 * n,
+               lambda: aw.adamw_update(p, g, mu, nu, lr, clip, c1, c2,
+                                       **ADAMW_HYPER),
+               lambda: aw.adamw_update_plain(want[0], g, want[1], want[2],
+                                             lr, clip, c1, c2,
+                                             **ADAMW_HYPER),
+               lambda: fused_adamw_library(torch, lib_p, lib_g, want[1],
+                                           want[2], lr, inv_clip, step),
+               "torch._fused_adamw_ on float32 p and g (it takes no bf16 p "
+               "beside float32 moments): 32 B/element",
+               ops_per_s=PEAK_F32_OPS_PER_S)
+        del p, g, mu, nu, want, lib_p, lib_g
+        torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
     return rows
 
 
-def train(torch, card: str, seed: int):
-    """Phases 8-9: the training step at Llama-3-8B width, 8 layers."""
+def train(torch, card: str, seed: int, cfg, optimizer, kernels, want,
+          label: str):
+    """Phases 8-9 (and 10 for the all-kernel step): 8 steps of the training
+    step at Llama-3-8B width, 8 layers, with `optimizer`; `want` maps each
+    kernel of `kernels` to its launches per step. Returns {"losses",
+    "norms", "launches", "leaf_shapes"}."""
     from ray_tpu_torch import bench
     from ray_tpu_torch.models import count_params
-    from ray_tpu_torch.ops.kernels import flash_attention as fa
-    from ray_tpu_torch.ops.kernels import fused_ffn as ff
-    from ray_tpu_torch.train import default_optimizer, make_train_step
+    from ray_tpu_torch.models.transformer import tree_leaves
+    from ray_tpu_torch.train import make_train_step
 
-    cfg = bench.train_config_8b(n_layers=8)
-    kernels = (*fa.KERNELS, ff.dw_gateup)
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"train: device memory allocated before the state: "
+    log(f"train {label}: device memory allocated before the state: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    step_fn, init_fn = make_train_step(
-        cfg, default_optimizer(warmup_steps=2), device="cuda")
+    step_fn, init_fn = make_train_step(cfg, optimizer, device="cuda")
     state = init_fn(seed)
     n_params = count_params(state.params)
+    leaf_shapes = {}
+    for t in tree_leaves(state.params):
+        leaf_shapes[tuple(t.shape)] = leaf_shapes.get(tuple(t.shape), 0) + 1
+    nu_dtype = str(state.opt_state.nu["embed"].dtype).replace("torch.", "")
     batch = bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1, "cuda")
     torch.cuda.synchronize()
-    log(f"train: llama3_8b width, {cfg.n_layers} layers, "
-        f"{n_params / 1e9:.4f}B params, state (params, mu f32, nu bf16) "
-        f"built in {time.perf_counter() - t0:.2f} s; batch {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ + 1} tokens, reused every step")
+    log(f"train {label}: llama3_8b width, {cfg.n_layers} layers, "
+        f"{n_params / 1e9:.4f}B params, state (params, mu float32, nu "
+        f"{nu_dtype}) built in {time.perf_counter() - t0:.2f} s; batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ + 1} tokens, reused every step")
 
     losses, norms, step_s = [], [], []
     launches = {k.__name__: 0 for k in kernels}
@@ -460,60 +581,111 @@ def train(torch, card: str, seed: int):
         got = {k.__name__: k.launches for k in kernels}
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
-        log(f"train step {i + 1}: loss {losses[-1]:.5f}, grad_norm "
+        log(f"train {label} step {i + 1}: loss {losses[-1]:.5f}, grad_norm "
             f"{norms[-1]:.5f}, {1e3 * step_s[-1]:.2f} ms, launches {got}, "
             f"allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, "
             f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-        if got != {name: cfg.n_layers for name in got}:
-            fail(f"training step {i + 1} launched {got}; each kernel must "
-                 f"launch n_layers = {cfg.n_layers} times")
+        if got != want:
+            fail(f"training step {i + 1} ({label}) launched {got}; expected "
+                 f"{want}")
         for name, n in got.items():
             launches[name] += n
         if not (math.isfinite(losses[-1]) and math.isfinite(norms[-1])):
-            fail(f"training step {i + 1}: loss {losses[-1]}, grad_norm "
-                 f"{norms[-1]}")
+            fail(f"training step {i + 1} ({label}): loss {losses[-1]}, "
+                 f"grad_norm {norms[-1]}")
     # logits z = x . W_head with rms(x) = 1 (final norm) and W_head ~
     # N(0, 0.02^2): z ~ N(0, 0.02^2 d), so E[loss] = ln V + var(z) / 2
     expect = math.log(cfg.vocab_size) + 0.5 * 0.02 ** 2 * cfg.d_model
-    log(f"train: first loss {losses[0]:.5f}; ln(vocab) = "
+    log(f"train {label}: first loss {losses[0]:.5f}; ln(vocab) = "
         f"{math.log(cfg.vocab_size):.5f}, expected at this init "
         f"{expect:.5f}; last loss {losses[-1]:.5f}, drop "
         f"{losses[0] - losses[-1]:.5f} (predicted >= {MIN_LOSS_DROP})")
     if abs(losses[0] - expect) > 0.5:
-        fail(f"first loss {losses[0]} is not within 0.5 of {expect}")
+        fail(f"{label}: first loss {losses[0]} is not within 0.5 of {expect}")
     if not losses[0] - losses[-1] >= MIN_LOSS_DROP:
-        fail(f"loss fell by {losses[0] - losses[-1]} over {TRAIN_STEPS} "
-             f"steps, predicted >= {MIN_LOSS_DROP}")
+        fail(f"{label}: loss fell by {losses[0] - losses[-1]} over "
+             f"{TRAIN_STEPS} steps, predicted >= {MIN_LOSS_DROP}")
 
     timed = step_s[TIMED_FROM:]
     ms_step = 1e3 * statistics.mean(timed)
     tput = bench.throughput(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ,
                             ms_step / 1e3, PEAK_BF16_OPS_PER_S)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"train: {ms_step:.2f} ms/step (mean of steps {TIMED_FROM + 1}-"
-        f"{TRAIN_STEPS}; min {1e3 * min(timed):.2f}, max "
+    log(f"train {label}: {ms_step:.2f} ms/step (mean of steps "
+        f"{TIMED_FROM + 1}-{TRAIN_STEPS}; min {1e3 * min(timed):.2f}, max "
         f"{1e3 * max(timed):.2f}), {tput['tokens_per_sec']:.1f} tokens/s, "
         f"MFU {tput['mfu']:.4f} of {PEAK_BF16_OPS_PER_S / 1e12:.0f} "
         f"TFLOP/s, peak device memory {peak_gib:.2f} GiB [{card}]")
     state, prof = bench.profile_train(step_fn, state, batch, steps=3,
                                       top=12)
     if prof["device_ms_per_step"] > 0:
-        log(f"train profile: device {prof['device_ms_per_step']:.2f} "
-            f"ms/step ({prof['launches_per_step']:.0f} kernels/step) in a "
-            f"window of {prof['ms_per_step']:.2f} ms/step, device-idle "
-            f"share {prof['device_idle_share']:.4f} of that window [{card}]")
-        log("train profile by kind: " + ", ".join(
+        log(f"train {label} profile: device "
+            f"{prof['device_ms_per_step']:.2f} ms/step "
+            f"({prof['launches_per_step']:.0f} kernels/step) in a window of "
+            f"{prof['ms_per_step']:.2f} ms/step, device-idle share "
+            f"{prof['device_idle_share']:.4f} of that window [{card}]")
+        log(f"train {label} profile by kind: " + ", ".join(
             f"{kind} {ms:.2f} ms/step" for kind, ms in sorted(
                 prof["ms_per_step_by_kind"].items(), key=lambda kv: -kv[1])))
         for row in prof["top"]:
             log(f"  {row['ms_per_step']:.4f} ms/step ({row['share']:.3f}, "
                 f"{row['calls_per_step']:.0f} calls) {row['name']}")
     else:
-        log("train profile: the profiler recorded no device time "
-            "(device-idle share not measured)")
-    del state
+        log(f"train {label} profile: the profiler recorded no device time "
+            f"(device-idle share not measured)")
+    del state, step_fn, init_fn, batch, metrics
+    gc.collect()
     torch.cuda.empty_cache()
-    return launches, TRAIN_STEPS
+    return {"losses": losses, "norms": norms, "launches": launches,
+            "leaf_shapes": leaf_shapes}
+
+
+def train_both(torch, card: str, seed: int, cfg):
+    """Phases 8-10: the default step, then the all-kernel step on the same
+    config, seed and batch, held against it. Returns {kernel: {path:
+    launches over the 8 steps}}."""
+    from ray_tpu_torch.ops.kernels import adamw as aw
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+    from ray_tpu_torch.train import default_optimizer, fused_adamw_optimizer
+
+    L = cfg.n_layers
+    kernels = (*fa.KERNELS, *ff.KERNELS, aw.adamw_update)
+    default_want = {k.__name__: (L if k in (*fa.KERNELS, ff.dw_gateup)
+                                 else 0) for k in kernels}
+    base = train(torch, card, seed, cfg, default_optimizer(warmup_steps=2),
+                 kernels, default_want, "default")
+    n_leaves = sum(base["leaf_shapes"].values())
+    want_shapes = {s: n for s, n in adamw_shapes(cfg).items() if n}
+    if base["leaf_shapes"] != want_shapes:
+        fail(f"the training tree's leaf shapes {base['leaf_shapes']} are not "
+             f"the ones phase 7 checked the AdamW kernel at {want_shapes}")
+    all_want = {k.__name__: L for k in (*fa.KERNELS, *ff.KERNELS)}
+    all_want[aw.adamw_update.__name__] = n_leaves
+    old = ff.USE_K1, ff.USE_K2, ff.USE_K3
+    ff.USE_K1 = ff.USE_K2 = ff.USE_K3 = True
+    try:
+        allk = train(torch, card, seed, cfg,
+                     fused_adamw_optimizer(warmup_steps=2), kernels,
+                     all_want, "all-kernel")
+    finally:
+        ff.USE_K1, ff.USE_K2, ff.USE_K3 = old
+    for i in range(2):
+        a, b = allk["losses"][i], base["losses"][i]
+        log(f"train all-kernel vs default: loss {i + 1} {a:.6f} vs {b:.6f} "
+            f"(rel {abs(a - b) / abs(b):.3g}, limit {SAME_LOSS_RTOL})")
+        if not abs(a - b) <= SAME_LOSS_RTOL * abs(b):
+            fail(f"all-kernel loss {i + 1} {a} differs from the default "
+                 f"path's {b}")
+    a, b = allk["norms"][0], base["norms"][0]
+    log(f"train all-kernel vs default: step 1 grad norm {a:.6f} vs {b:.6f} "
+        f"(rel {abs(a - b) / abs(b):.3g}, limit {GRAD_NORM_RTOL})")
+    if not abs(a - b) <= GRAD_NORM_RTOL * abs(b):
+        fail(f"all-kernel step 1 grad norm {a} differs from the default "
+             f"path's {b}")
+    return {k.__name__: {"default": base["launches"][k.__name__],
+                         "all-kernel": allk["launches"][k.__name__]}
+            for k in kernels}
 
 
 def main() -> int:
@@ -534,6 +706,7 @@ def main() -> int:
     if Path(ray_tpu_torch.__file__).resolve().parent.parent != HERE:
         fail(f"ray_tpu_torch imported from {ray_tpu_torch.__file__}, not from "
              f"this checkout")
+    from ray_tpu_torch import bench
     from ray_tpu_torch.models import ModelConfig, count_params, init_params
     from ray_tpu_torch.models.servebench import (measure_decode,
                                                  measure_prefill,
@@ -556,7 +729,7 @@ def main() -> int:
 
     # ---- phase 2: build
     t0 = time.perf_counter()
-    libs = _util.build(["quant", "flash_attention", "fused_ffn"])
+    libs = _util.build(["quant", "flash_attention", "fused_ffn", "adamw"])
     for lib in libs.values():
         log(f"built {lib.relative_to(HERE)}")
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
@@ -657,26 +830,38 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"device memory allocated after the serving phases: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
-    train_rows = check_train_kernels(torch, gen)
+    train_cfg = bench.train_config_8b(n_layers=8)
+    train_rows = check_train_kernels(torch, gen, train_cfg)
 
-    # ---- phases 8-9: train llama3_8b width, 8 layers; measure
-    train_launches, train_steps = train(torch, card, args.seed)
+    # ---- phases 8-10: train llama3_8b width, 8 layers, on the default
+    # step and then the all-kernel step; measure both
+    by_path = train_both(torch, card, args.seed, train_cfg)
+    # each kernel's launches on the path it was ported for: the default
+    # step for the flash kernels and K3, the all-kernel step for the rest
+    train_launches = {k: (n["default"] if n["default"] else n["all-kernel"])
+                      for k, n in by_path.items()}
 
-    # ---- phase 10: report
+    # ---- phase 11: report
     pallas = "ray_tpu/ops/pallas/"
     replaces = {"quantize_int8": pallas + "quant.py:19",
                 "dequantize_int8": pallas + "quant.py:27",
                 "flash_fwd": pallas + "flash_attention.py:38",
                 "flash_bwd_dkv": pallas + "flash_attention.py:181",
                 "flash_bwd_dq": pallas + "flash_attention.py:224",
-                "dw_gateup": pallas + "fused_ffn.py:121"}
+                "dw_gateup": pallas + "fused_ffn.py:121",
+                "dw_down": pallas + "fused_ffn.py:76",
+                "dgateup": pallas + "fused_ffn.py:97",
+                "adamw_update": pallas + "adamw.py:37"}
     csrc = "ray_tpu_torch/ops/kernels/csrc/"
     source = {"quantize_int8": csrc + "quant.cu",
               "dequantize_int8": csrc + "quant.cu",
               "flash_fwd": csrc + "flash_attention.cu",
               "flash_bwd_dkv": csrc + "flash_attention.cu",
               "flash_bwd_dq": csrc + "flash_attention.cu",
-              "dw_gateup": csrc + "fused_ffn.cu"}
+              "dw_gateup": csrc + "fused_ffn.cu",
+              "dw_down": csrc + "fused_ffn.cu",
+              "dgateup": csrc + "fused_ffn.cu",
+              "adamw_update": csrc + "adamw.cu"}
     per = {"quantize_int8": "one model load",
            "dequantize_int8": "one decode step"}
     launches.update(train_launches)
@@ -703,7 +888,8 @@ def main() -> int:
         })
         if kname in train_launches:
             kernels[-1]["launches_per_step"] = (train_launches[kname]
-                                                / train_steps)
+                                                / TRAIN_STEPS)
+            kernels[-1]["launches_by_path"] = by_path[kname]
             kernels[-1]["library"] = lib[0]["library"] if lib else None
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

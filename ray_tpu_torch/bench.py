@@ -100,7 +100,8 @@ def bench_config(cfg: ModelConfig, batch_size: int, seq: int,
 
 
 _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                 "flash_bwd_dq_kernel", "dw_gateup_kernel", "quant_rows",
+                 "flash_bwd_dq_kernel", "dw_gateup_kernel", "dw_down_kernel",
+                 "dgateup_kernel", "adamw_kernel", "quant_rows",
                  "dequant_rows")
 
 

@@ -4,9 +4,11 @@ Both packages use the same tree: nested dicts with the same leaf names, the
 same layer-stacked `[L, ...]` shapes and `[in, out]` weight layout, and
 `{"int8", "scale"}` leaves for w8a16 weights. The bridge moves leaves
 bit for bit, and carries a training state across as well: params, the AdamW
-moments (mu float32, nu in the parameter dtype) and the update count. A bfloat16 array from JAX arrives in numpy with the
-`ml_dtypes` bfloat16 dtype, which `torch.from_numpy` rejects, so it travels
-as its 16-bit pattern and is reinterpreted on the other side.
+moments in the dtypes JAX kept them (optax: mu float32, nu in the parameter
+dtype; FusedAdamW: both float32) and the update count. A bfloat16 array
+from JAX arrives in numpy with the `ml_dtypes` bfloat16 dtype, which
+`torch.from_numpy` rejects, so it travels as its 16-bit pattern and is
+reinterpreted on the other side.
 """
 
 from __future__ import annotations
@@ -72,8 +74,9 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _adam_state(node: Any) -> Any:
-    """The first node of an optax state tree with `mu` and `nu` fields
-    (optax's ScaleByAdamState), found by walking tuples, lists and dicts."""
+    """The first node of an optimizer state tree with `mu` and `nu` fields
+    (optax's ScaleByAdamState, or FusedAdamWState itself), found by walking
+    tuples, lists and dicts."""
     if hasattr(node, "mu") and hasattr(node, "nu"):
         return node
     children = (node.values() if isinstance(node, dict)
@@ -87,14 +90,14 @@ def _adam_state(node: Any) -> Any:
 
 def train_state_from_jax(state: Any, cfg: ModelConfig,
                          device="cuda") -> TrainState:
-    """A JAX `TrainState` (params, optax clip + adamw state, step) -> the
-    port's TrainState on `device`: params, mu, nu and the count carried
-    across bit for bit, dtypes kept (nu stays in the parameter dtype)."""
+    """A JAX `TrainState` (params, an optax clip + adamw state or a
+    FusedAdamWState, step) -> the port's TrainState on `device`: params,
+    mu, nu and the count carried across bit for bit, dtypes kept (nu in the
+    parameter dtype under optax, float32 under FusedAdamW)."""
     dev = require_cuda(device)
     adam = _adam_state(state.opt_state)
     if adam is None:
-        raise ValueError("no optax adam state (mu, nu) in the optimizer "
-                         "state")
+        raise ValueError("no adam state (mu, nu) in the optimizer state")
     return TrainState(
         params=params_from_jax(state.params, cfg, dev),
         opt_state=AdamWState(count=int(np.asarray(adam.count)),

@@ -29,7 +29,7 @@ import torch
 import torch.utils.checkpoint
 
 from ray_tpu_torch.ops.attention import attention
-from ray_tpu_torch.ops.kernels._util import require_cuda
+from ray_tpu_torch.ops.kernels._util import require_cuda, tree_leaves
 from ray_tpu_torch.ops.kernels.fused_attn import attn_block
 from ray_tpu_torch.ops.kernels.fused_ffn import ffn_block
 from ray_tpu_torch.ops.kernels.quant import dequantize_int8
@@ -154,15 +154,6 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.vocab_size), 0.02)
     return params
-
-
-def tree_leaves(tree: Any):
-    """Tensors of a nested-dict parameter tree, in key order."""
-    if isinstance(tree, dict):
-        for key in sorted(tree):
-            yield from tree_leaves(tree[key])
-    else:
-        yield tree
 
 
 def count_params(params: Any) -> int:

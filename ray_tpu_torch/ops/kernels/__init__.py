@@ -2,12 +2,14 @@
 file of ray_tpu/ops/pallas. Sources live in ``csrc/`` and are built by
 ``_util.build`` at first use; nothing is compiled at import."""
 
+from ray_tpu_torch.ops.kernels.adamw import adamw_update
 from ray_tpu_torch.ops.kernels.flash_attention import (flash_bwd,
                                                        flash_bwd_dkv,
                                                        flash_bwd_dq,
                                                        flash_fwd)
-from ray_tpu_torch.ops.kernels.fused_ffn import dw_gateup
+from ray_tpu_torch.ops.kernels.fused_ffn import dgateup, dw_down, dw_gateup
 from ray_tpu_torch.ops.kernels.quant import dequantize_int8, quantize_int8
 
-__all__ = ["dequantize_int8", "dw_gateup", "flash_bwd", "flash_bwd_dkv",
-           "flash_bwd_dq", "flash_fwd", "quantize_int8"]
+__all__ = ["adamw_update", "dequantize_int8", "dgateup", "dw_down",
+           "dw_gateup", "flash_bwd", "flash_bwd_dkv", "flash_bwd_dq",
+           "flash_fwd", "quantize_int8"]

@@ -1,6 +1,6 @@
 """Shared helpers for the hand-written CUDA kernels (twin of
 ray_tpu/ops/pallas/_util.py): size arithmetic, the device check every entry
-point runs, and the nvcc build step.
+point runs, the leaf order of a parameter tree, and the nvcc build step.
 
 Kernels live in ``csrc/<name>.cu`` with a plain C interface. `build`
 compiles each source with nvcc into
@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Any, Dict, Iterable, Sequence, Tuple
 
 import torch
 
@@ -56,6 +56,15 @@ def require_cuda(device) -> torch.device:
             f"device={str(device)!r} but CUDA is not available; "
             f"pass device='cpu' to run on the CPU")
     return dev
+
+
+def tree_leaves(tree: Any):
+    """Tensors of a nested-dict parameter tree, in sorted-key order."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from tree_leaves(tree[key])
+    else:
+        yield tree
 
 
 def _nvcc() -> str:

@@ -1,33 +1,42 @@
-// K3 of the fused FFN backward: the gate/up weight gradients
-//   dW_gate = h^T . dgate,  dW_up = h^T . dup,  h = bf16(x * rstd * norm_w)
-// with h recomputed per tile from x, rstd and norm_w and never stored.
+// The fused FFN backward's three kernels (ray_tpu/ops/pallas/fused_ffn.py),
+// each one block per output tile with the reduction axis walked inside the
+// block, nvcuda::wmma 16x16x16 bf16 fragments and float32 accumulators:
 //
-// dw_gateup_kernel replaces the TPU kernel _dw_gateup_kernel
-// (ray_tpu/ops/pallas/fused_ffn.py:121, called at :264 when USE_K3).
+//   K1 dw_down_kernel    dW_down = swiglu(gate, up)^T . dy        [d_ff, d]
+//      replaces _dw_down_kernel (fused_ffn.py:76, called at :208 when USE_K1)
+//   K2 dgateup_kernel    d_s = dy . W_down^T (float32, never stored), then
+//                        dgate = d_s*up*silu'(gate), dup = d_s*silu(gate)
+//      replaces _dgateup_kernel (fused_ffn.py:97, called at :233 when USE_K2)
+//   K3 dw_gateup_kernel  dW_gate = h^T . dgate, dW_up = h^T . dup,
+//                        h = bf16(x * rstd * norm_w) recomputed per tile
+//      replaces _dw_gateup_kernel (fused_ffn.py:121, called at :264 when
+//      USE_K3)
 //
-// What bounds it on an H100: tensor-core operations. At the Llama-3-8B
-// training shape (T = 4096 tokens, d = 4096, d_ff = 14336) the two products
-// cost 2 * 2*T*d*d_ff = 9.62e11 FLOP (0.97 ms at 989 TFLOP/s) against
-// ~0.5 GB of operands and outputs (0.15 ms at 3.35 TB/s).
+// What bounds them on an H100: tensor-core operations. At the Llama-3-8B
+// training shape (T = 4096 tokens, d = 4096, d_ff = 14336) K1 and K2 are
+// one product each, 2*T*d*d_ff = 4.81e11 FLOP (0.49 ms at 989 TFLOP/s),
+// against 0.39 GB (K1) and 0.62 GB (K2) of operands and outputs (0.12 and
+// 0.18 ms at 3.35 TB/s); K3 is two products, 9.62e11 FLOP (0.97 ms), against
+// ~0.5 GB.
 //
 // Design (simple and right first; wgmma/TMA and a pipelined ring of tiles
 // are later work):
-//  * One block of 8 warps owns one 128 x 64 tile of both outputs ([d, d_ff]
-//    rows x columns) and walks the token axis T inside the block, 32 tokens
-//    per step; the TPU's sequential k grid axis becomes that loop.
-//  * Each step stages a [32 x 128] tile of h, computed on the fly in float32
-//    as (x * rstd) * norm_w and rounded to bf16 as the reference rounds it,
-//    and the [32 x 64] tiles of dgate and dup. The h tile feeds both
-//    products: two float32 accumulators share it, as on the TPU.
-//  * The next step's x, rstd, dgate and dup are loaded into registers while
-//    the current step's products run, so device-memory latency overlaps
-//    the tensor-core work; two blocks share an SM.
-//  * Products run on nvcuda::wmma 16x16x16 bf16 fragments; each warp owns a
-//    32 x 32 patch of each accumulator (2 x 2 fragments each).
-//  * Ragged edges are masked here, not by a tiling guard: tokens past T and
-//    columns past d or d_ff load as zeros, and only in-range outputs are
-//    written. 16-byte loads are used where a row's length is a multiple of
-//    8, element loads elsewhere.
+//  * One block of 8 warps owns one output tile (128 x 64; K1 128 x 128)
+//    and loops over the reduction axis (tokens for K1/K3, d for K2); the
+//    TPU's sequential k grid axis becomes that loop. Each warp owns a 32 x
+//    32 patch of each accumulator (2 x 2 fragments; K1 32 x 64).
+//  * The elementwise chains run on tiles already in registers or shared
+//    memory: K1's prologue computes the swiglu bf16(silu(g)*u) (float32,
+//    rounded to bf16 only as the product's operand); K3's prologue computes
+//    h; K2's epilogue reads the float32 accumulator from shared memory with
+//    the gate/up tile and writes only dgate and dup.
+//  * The next step's tiles are loaded into registers while the current
+//    step's products run, so device-memory latency overlaps the tensor-core
+//    work; two blocks share an SM.
+//  * Ragged edges are masked here, not by a tiling guard: rows and columns
+//    past T, d or d_ff load as zeros, and only in-range outputs are written.
+//    16-byte loads are used where a row's length is a multiple of 8,
+//    element loads elsewhere.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,9 +49,9 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kTM = 128;  // output rows (d axis) per block
-constexpr int kTN = 64;   // output columns (d_ff axis) per block
-constexpr int kTK = 32;   // tokens per step
+constexpr int kTM = 128;  // output rows per block
+constexpr int kTN = 64;   // output columns per block
+constexpr int kTK = 32;   // tokens per step (K1, K3)
 constexpr int kThreads = 256;
 constexpr int kLdH = kTM + 8;
 constexpr int kLdG = kTN + 8;
@@ -60,8 +69,10 @@ constexpr int kTileBytes = sizeof(bf16) * kTK * (kLdH + 2 * kLdG) +
 constexpr int kStageBytes = sizeof(float) * kTM * kLdStage;
 constexpr int kSmemBytes = kTileBytes > kStageBytes ? kTileBytes : kStageBytes;
 
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // Eight bf16 values src[0..8) packed in 16 bytes, zeros past `left` valid
@@ -240,6 +251,317 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// Stages a block's kTM x kTN float32 accumulator in shared memory
+// (row-major, ld kLdStage); the caller syncs before and after.
+__device__ __forceinline__ void stage_acc(float* stage, FragC (&acc)[2][2],
+                                          int wm, int wn) {
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      wmma::store_matrix_sync(stage + (wm + a * 16) * kLdStage + wn + b * 16,
+                              acc[a][b], kLdStage, wmma::mem_row_major);
+    }
+  }
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// ------------------------------------------------------------------- K1
+//
+// K1's output tile is kTM x kTN1 (128 x 128), twice K3's width: the swiglu
+// prologue (one expf per element) and the gate/up loads are repeated once
+// per column block of d, so a wider block halves them. Each warp owns a
+// 32 x 64 patch (2 x 4 fragments); the epilogue stages one 64-column half
+// at a time through the same 128 x kLdStage buffer.
+
+constexpr int kTN1 = 128;
+constexpr int kDVec1 = kTK * kTN1 / 8 / kThreads;
+static_assert(kDVec1 * 8 * kThreads == kTK * kTN1, "K1 dy tile split");
+constexpr int kK1TileBytes = sizeof(bf16) * kTK * 2 * kLdH;
+static_assert(kK1TileBytes <= kSmemBytes, "K1 tiles fit");
+
+// One step of K1: the [kTK x kTM] gate and up tiles (d_ff columns m0..) and
+// the [kTK x kTN1] dy tile (d columns n0..).
+struct StagedK1 {
+  uint4 g[kXVec];
+  uint4 u[kXVec];
+  uint4 dy[kDVec1];
+};
+
+__device__ __forceinline__ void fetch_k1(StagedK1& st, const bf16* gate,
+                                         const bf16* up, const bf16* dy,
+                                         int t0, int m0, int n0, int T,
+                                         int d, int dff, bool vec_f,
+                                         bool vec_d) {
+#pragma unroll
+  for (int v = 0; v < kXVec; ++v) {
+    const int i = threadIdx.x + v * kThreads;
+    const int t = t0 + i / (kTM / 8);
+    const int c = (i % (kTM / 8)) * 8;
+    const int left = t < T ? dff - (m0 + c) : 0;
+    const int64_t off = static_cast<int64_t>(t) * dff + m0 + c;
+    st.g[v] = fetch8(gate + (left > 0 ? off : 0), left, vec_f);
+    st.u[v] = fetch8(up + (left > 0 ? off : 0), left, vec_f);
+  }
+#pragma unroll
+  for (int v = 0; v < kDVec1; ++v) {
+    const int i = threadIdx.x + v * kThreads;
+    const int t = t0 + i / (kTN1 / 8);
+    const int c = (i % (kTN1 / 8)) * 8;
+    const int left = t < T ? d - (n0 + c) : 0;
+    const int64_t off = static_cast<int64_t>(t) * d + n0 + c;
+    st.dy[v] = fetch8(dy + (left > 0 ? off : 0), left, vec_d);
+  }
+}
+
+// Writes the staged step into shared memory: the swiglu
+// s = bf16(silu(g) * u), computed here in float32, and dy as it is.
+__device__ __forceinline__ void store_k1(const StagedK1& st, bf16* sS,
+                                         bf16* sD) {
+#pragma unroll
+  for (int v = 0; v < kXVec; ++v) {
+    const int i = threadIdx.x + v * kThreads;
+    const int r = i / (kTM / 8);
+    const int c = (i % (kTM / 8)) * 8;
+    const bf16* g = reinterpret_cast<const bf16*>(&st.g[v]);
+    const bf16* u = reinterpret_cast<const bf16*>(&st.u[v]);
+    __align__(16) bf16 s[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float gf = __bfloat162float(g[k]);
+      s[k] = __float2bfloat16_rn(gf * sigmoid(gf) * __bfloat162float(u[k]));
+    }
+    *reinterpret_cast<uint4*>(sS + r * kLdH + c) =
+        *reinterpret_cast<const uint4*>(s);
+  }
+#pragma unroll
+  for (int v = 0; v < kDVec1; ++v) {
+    const int i = threadIdx.x + v * kThreads;
+    const int r = i / (kTN1 / 8);
+    const int c = (i % (kTN1 / 8)) * 8;
+    *reinterpret_cast<uint4*>(sD + r * kLdH + c) = st.dy[v];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    dw_down_kernel(const bf16* __restrict__ gate, const bf16* __restrict__ up,
+                   const bf16* __restrict__ dy, bf16* __restrict__ dw_down,
+                   int T, int d, int dff) {
+  __shared__ __align__(128) unsigned char smem[kSmemBytes];
+  bf16* sS = reinterpret_cast<bf16*>(smem);
+  bf16* sD = sS + kTK * kLdH;
+
+  const int m0 = blockIdx.y * kTM;   // rows of dW_down: the d_ff axis
+  const int n0 = blockIdx.x * kTN1;  // columns of dW_down: the d axis
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp & 3) * 32;
+  const int half = warp >> 2;        // which 64 of the 128 columns
+  const int wn = half * 64;
+  const bool vec_f = (dff & 7) == 0;
+  const bool vec_d = (d & 7) == 0;
+
+  FragC acc[2][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) wmma::fill_fragment(acc[a][b], 0.0f);
+  }
+
+  StagedK1 st;
+  fetch_k1(st, gate, up, dy, 0, m0, n0, T, d, dff, vec_f, vec_d);
+  for (int t0 = 0; t0 < T; t0 += kTK) {
+    __syncthreads();  // the previous step's fragments are loaded
+    store_k1(st, sS, sD);
+    __syncthreads();
+    if (t0 + kTK < T) {
+      fetch_k1(st, gate, up, dy, t0 + kTK, m0, n0, T, d, dff, vec_f, vec_d);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTK / 16; ++kk) {
+      FragAt s[2];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        // A(row i, token t) = s[t][i]: the swiglu tile read column-major
+        wmma::load_matrix_sync(s[a], sS + kk * 16 * kLdH + wm + a * 16, kLdH);
+      }
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        FragB g;
+        wmma::load_matrix_sync(g, sD + kk * 16 * kLdH + wn + b * 16, kLdH);
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          wmma::mma_sync(acc[a][b], s[a], g, acc[a][b]);
+        }
+      }
+    }
+  }
+
+  // epilogue: one 64-column half at a time, staged by the warps that own it
+  float* stage = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    __syncthreads();
+    if (half == pass) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          wmma::store_matrix_sync(stage + (wm + a * 16) * kLdStage + b * 16,
+                                  acc[a][b], kLdStage, wmma::mem_row_major);
+        }
+      }
+    }
+    __syncthreads();
+    const int c0 = n0 + pass * kTN;
+    for (int i = threadIdx.x; i < kTM * kTN; i += kThreads) {
+      const int r = i / kTN;
+      const int c = i % kTN;
+      if (m0 + r < dff && c0 + c < d) {
+        dw_down[static_cast<int64_t>(m0 + r) * d + c0 + c] =
+            __float2bfloat16_rn(stage[r * kLdStage + c]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------- K2
+
+constexpr int kTK2 = 64;  // d per step
+constexpr int kLdK2 = kTK2 + 8;
+constexpr int kAVec2 = kTM * kTK2 / 8 / kThreads;
+constexpr int kBVec2 = kTN * kTK2 / 8 / kThreads;
+static_assert(kAVec2 * 8 * kThreads == kTM * kTK2, "dy tile split");
+static_assert(kBVec2 * 8 * kThreads == kTN * kTK2, "w_down tile split");
+constexpr int kK2TileBytes = sizeof(bf16) * (kTM + kTN) * kLdK2;
+static_assert(kK2TileBytes <= kSmemBytes, "K2 tiles fit");
+
+// One step of K2: the [kTM x kTK2] dy tile (tokens m0.., d columns k0..)
+// and the [kTN x kTK2] W_down tile (d_ff rows n0.., d columns k0..).
+struct StagedK2 {
+  uint4 a[kAVec2];
+  uint4 b[kBVec2];
+};
+
+__device__ __forceinline__ void fetch_k2(StagedK2& st, const bf16* dy,
+                                         const bf16* w_down, int k0, int m0,
+                                         int n0, int T, int d, int dff,
+                                         bool vec_d) {
+#pragma unroll
+  for (int v = 0; v < kAVec2; ++v) {
+    const int i = threadIdx.x + v * kThreads;
+    const int t = m0 + i / (kTK2 / 8);
+    const int c = (i % (kTK2 / 8)) * 8;
+    const int left = t < T ? d - (k0 + c) : 0;
+    const int64_t off = static_cast<int64_t>(t) * d + k0 + c;
+    st.a[v] = fetch8(dy + (left > 0 ? off : 0), left, vec_d);
+  }
+#pragma unroll
+  for (int v = 0; v < kBVec2; ++v) {
+    const int i = threadIdx.x + v * kThreads;
+    const int j = n0 + i / (kTK2 / 8);
+    const int c = (i % (kTK2 / 8)) * 8;
+    const int left = j < dff ? d - (k0 + c) : 0;
+    const int64_t off = static_cast<int64_t>(j) * d + k0 + c;
+    st.b[v] = fetch8(w_down + (left > 0 ? off : 0), left, vec_d);
+  }
+}
+
+__device__ __forceinline__ void store_k2(const StagedK2& st, bf16* sA,
+                                         bf16* sB) {
+#pragma unroll
+  for (int v = 0; v < kAVec2; ++v) {
+    const int i = threadIdx.x + v * kThreads;
+    const int r = i / (kTK2 / 8);
+    const int c = (i % (kTK2 / 8)) * 8;
+    *reinterpret_cast<uint4*>(sA + r * kLdK2 + c) = st.a[v];
+  }
+#pragma unroll
+  for (int v = 0; v < kBVec2; ++v) {
+    const int i = threadIdx.x + v * kThreads;
+    const int r = i / (kTK2 / 8);
+    const int c = (i % (kTK2 / 8)) * 8;
+    *reinterpret_cast<uint4*>(sB + r * kLdK2 + c) = st.b[v];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    dgateup_kernel(const bf16* __restrict__ dy,
+                   const bf16* __restrict__ w_down,
+                   const bf16* __restrict__ gate, const bf16* __restrict__ up,
+                   bf16* __restrict__ dgate, bf16* __restrict__ dup, int T,
+                   int d, int dff) {
+  __shared__ __align__(128) unsigned char smem[kSmemBytes];
+  bf16* sA = reinterpret_cast<bf16*>(smem);
+  bf16* sB = sA + kTM * kLdK2;
+
+  const int m0 = blockIdx.y * kTM;  // rows of dgate/dup: tokens
+  const int n0 = blockIdx.x * kTN;  // columns: the d_ff axis
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp & 3) * 32;
+  const int wn = (warp >> 2) * 32;
+  const bool vec_d = (d & 7) == 0;
+
+  FragC acc[2][2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) wmma::fill_fragment(acc[a][b], 0.0f);
+  }
+
+  StagedK2 st;
+  fetch_k2(st, dy, w_down, 0, m0, n0, T, d, dff, vec_d);
+  for (int k0 = 0; k0 < d; k0 += kTK2) {
+    __syncthreads();  // the previous step's fragments are loaded
+    store_k2(st, sA, sB);
+    __syncthreads();
+    if (k0 + kTK2 < d) {
+      fetch_k2(st, dy, w_down, k0 + kTK2, m0, n0, T, d, dff, vec_d);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTK2 / 16; ++kk) {
+      FragA a[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        wmma::load_matrix_sync(a[x], sA + (wm + x * 16) * kLdK2 + kk * 16,
+                               kLdK2);
+      }
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+        // B(k, j) = W_down[j][k]: the W_down tile read column-major
+        FragBt w;
+        wmma::load_matrix_sync(w, sB + (wn + y * 16) * kLdK2 + kk * 16,
+                               kLdK2);
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          wmma::mma_sync(acc[x][y], a[x], w, acc[x][y]);
+        }
+      }
+    }
+  }
+
+  // epilogue: the swiglu VJP on the float32 d_s tile; d_s is never stored
+  float* stage = reinterpret_cast<float*>(smem);
+  __syncthreads();
+  stage_acc(stage, acc, wm, wn);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTM * kTN; i += kThreads) {
+    const int r = i / kTN;
+    const int c = i % kTN;
+    if (m0 + r < T && n0 + c < dff) {
+      const int64_t off = static_cast<int64_t>(m0 + r) * dff + n0 + c;
+      const float ds = stage[r * kLdStage + c];
+      const float g = __bfloat162float(gate[off]);
+      const float u = __bfloat162float(up[off]);
+      const float s = sigmoid(g);
+      dgate[off] = __float2bfloat16_rn(ds * u * (s * (1.0f + g * (1.0f - s))));
+      dup[off] = __float2bfloat16_rn(ds * (g * s));
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -256,6 +578,30 @@ int rt_dw_gateup(const void* x, const void* rstd, const void* norm_w,
       static_cast<const bf16*>(norm_w), static_cast<const bf16*>(dgate),
       static_cast<const bf16*>(dup), static_cast<bf16*>(dw_gate),
       static_cast<bf16*>(dw_up), T, d, dff);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gate/up [T, d_ff], dy [T, d] bf16, row-major and 16-byte aligned;
+// dw_down [d_ff, d] bf16.
+int rt_dw_down(const void* gate, const void* up, const void* dy,
+               void* dw_down, int T, int d, int dff, void* stream) {
+  dim3 grid((d + kTN1 - 1) / kTN1, (dff + kTM - 1) / kTM);
+  dw_down_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(gate), static_cast<const bf16*>(up),
+      static_cast<const bf16*>(dy), static_cast<bf16*>(dw_down), T, d, dff);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dy [T, d], w_down [d_ff, d], gate/up [T, d_ff] bf16, row-major and
+// 16-byte aligned; dgate/dup [T, d_ff] bf16.
+int rt_dgateup(const void* dy, const void* w_down, const void* gate,
+               const void* up, void* dgate, void* dup, int T, int d, int dff,
+               void* stream) {
+  dim3 grid((dff + kTN - 1) / kTN, (T + kTM - 1) / kTM);
+  dgateup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(dy), static_cast<const bf16*>(w_down),
+      static_cast<const bf16*>(gate), static_cast<const bf16*>(up),
+      static_cast<bf16*>(dgate), static_cast<bf16*>(dup), T, d, dff);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,21 +3,27 @@ rmsnorm -> gate/up -> swiglu -> down + residual, with a hand-written
 backward.
 
 `ffn_block` is an autograd.Function that saves `x2d, rstd, gate, up` (the
-set the reference saves) and re-runs no forward matmul in its backward.
-Of the reference's three Pallas kernels only K3 is on by default
-(`USE_K3 = True`, `USE_K1/K2 = False`), so the port has K3 alone:
+set the reference saves) and re-runs no forward matmul in its backward. The
+backward has the reference's three kernels (csrc/fused_ffn.cu), each behind
+its module flag, read at every call:
 
-  K3  dW_gate = hᵀ·dgate, dW_up = hᵀ·dup  with h = x·rstd·norm_w
-      recomputed per tile and never stored — `dw_gateup`, the CUDA kernel
-      in csrc/fused_ffn.cu;
+  K1  dW_down = swiglu(gate, up)ᵀ·dy with the swiglu computed on the staged
+      tile — `dw_down` (USE_K1, default off);
+  K2  d_s = dy·W_downᵀ accumulated in float32 and never stored, then
+      dgate = d_s·up·silu'(gate), dup = d_s·silu(gate) — `dgateup` (USE_K2,
+      default off);
+  K3  dW_gate = hᵀ·dgate, dW_up = hᵀ·dup with h = x·rstd·norm_w recomputed
+      per tile and never stored — `dw_gateup` (USE_K3, default on);
 
-and computes the rest in plain torch, as the reference's defaults do:
-dW_down = swiglu(gate, up)ᵀ·dy, d_s = dy·W_downᵀ with the swiglu VJP, dh
-through the gate/up weights and the rmsnorm VJP.
+the defaults are the reference's (`fused_ffn.py:59-61`). A flag that is off
+runs the reference's own XLA-side math in plain torch (as the reference's
+`_vjp_bwd` does); dh through the gate/up weights and the rmsnorm VJP are
+always plain torch, as in the reference.
 
-On a CUDA tensor `dw_gateup` launches its kernel or raises (bfloat16 only);
-`dw_gateup_plain` runs for tensors on the CPU. The kernel masks ragged
-edges itself, so no (T, d, d_ff) tiling guard exists on either side.
+On a CUDA tensor each kernel wrapper launches its kernel or raises
+(bfloat16 only); its `*_plain` twin runs for tensors on the CPU. The
+kernels mask ragged edges themselves, so no (T, d, d_ff) tiling guard
+exists on either side.
 """
 
 from __future__ import annotations
@@ -33,7 +39,15 @@ _P, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "rt_dw_gateup": ([_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _P],
                      _INT),
+    "rt_dw_down": ([_P, _P, _P, _P, _INT, _INT, _INT, _P], _INT),
+    "rt_dgateup": ([_P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _P], _INT),
 }
+
+# Which backward kernels run (the reference's defaults, fused_ffn.py:59-61);
+# FFNBlock.backward reads them at every call.
+USE_K1 = False
+USE_K2 = False
+USE_K3 = True
 
 
 def _lib() -> ctypes.CDLL:
@@ -63,6 +77,101 @@ def rms_normed(x: torch.Tensor, norm_w: torch.Tensor, eps: float):
     return rstd, normed(x, rstd, norm_w)
 
 
+def swiglu_act(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """bf16(silu(gate in float32) · up in float32): the activation that
+    W_down multiplies, rounded to gate's dtype."""
+    return (_silu(gate.float()) * up.float()).to(gate.dtype)
+
+
+def _kernel_path(what: str, tensors) -> bool:
+    """False when every tensor lies on the CPU (the plain version runs);
+    True when the kernel can take them (one CUDA device, contiguous, 16-byte
+    aligned), else raises."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return False
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{what}: every tensor must be on one CUDA "
+                             f"device (the plain version serves the CPU), "
+                             f"got {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: tensors must be contiguous and "
+                             f"16-byte aligned")
+    return True
+
+
+def _require_bf16(what: str, tensors) -> None:
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(f"{what}: the CUDA kernel takes bfloat16 tensors, "
+                        f"got {[t.dtype for t in tensors]}")
+
+
+def dw_down_plain(gate, up, dy) -> torch.Tensor:
+    """Plain PyTorch version of K1: a float32 product of the rounded
+    swiglu."""
+    s = swiglu_act(gate, up).float()
+    return torch.matmul(s.T, dy.float()).to(dy.dtype)
+
+
+def dw_down(gate: torch.Tensor, up: torch.Tensor,
+            dy: torch.Tensor) -> torch.Tensor:
+    """gate/up [T, d_ff], dy [T, d] -> dW_down [d_ff, d] in dy's dtype."""
+    T, dff = gate.shape
+    d = dy.shape[1]
+    if up.shape != (T, dff) or dy.shape != (T, d):
+        raise ValueError(f"dw_down: shapes gate {tuple(gate.shape)}, up "
+                         f"{tuple(up.shape)}, dy {tuple(dy.shape)} do not "
+                         f"match")
+    tensors = (gate, up, dy)
+    if not _kernel_path("dw_down", tensors):
+        return dw_down_plain(gate, up, dy)
+    _require_bf16("dw_down", tensors)
+    out = torch.empty((dff, d), dtype=dy.dtype, device=dy.device)
+    if dff and d:  # T == 0 runs no token step and writes zeros
+        lib = _lib()
+        check(lib, lib.rt_dw_down(
+            gate.data_ptr(), up.data_ptr(), dy.data_ptr(), out.data_ptr(),
+            T, d, dff, stream_handle(dy)), "dw_down")
+        dw_down.launches += 1
+    return out
+
+
+def dgateup_plain(dy, w_down, gate, up) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2: d_s in float32, then the swiglu VJP."""
+    ds = torch.matmul(dy.float(), w_down.float().T)
+    gf, uf = gate.float(), up.float()
+    return ((ds * uf * _dsilu(gf)).to(gate.dtype),
+            (ds * _silu(gf)).to(up.dtype))
+
+
+def dgateup(dy: torch.Tensor, w_down: torch.Tensor, gate: torch.Tensor,
+            up: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dy [T, d], w_down [d_ff, d], gate/up [T, d_ff] -> (dgate, dup), each
+    [T, d_ff] in gate's dtype."""
+    T, d = dy.shape
+    dff = w_down.shape[0]
+    if w_down.shape != (dff, d) or gate.shape != (T, dff) \
+            or up.shape != (T, dff):
+        raise ValueError(f"dgateup: shapes dy {tuple(dy.shape)}, w_down "
+                         f"{tuple(w_down.shape)}, gate {tuple(gate.shape)}, "
+                         f"up {tuple(up.shape)} do not match")
+    tensors = (dy, w_down, gate, up)
+    if not _kernel_path("dgateup", tensors):
+        return dgateup_plain(dy, w_down, gate, up)
+    _require_bf16("dgateup", tensors)
+    dgate = torch.empty((T, dff), dtype=gate.dtype, device=gate.device)
+    dup = torch.empty((T, dff), dtype=up.dtype, device=up.device)
+    if T and dff:  # d == 0 gives d_s = 0
+        lib = _lib()
+        check(lib, lib.rt_dgateup(
+            dy.data_ptr(), w_down.data_ptr(), gate.data_ptr(), up.data_ptr(),
+            dgate.data_ptr(), dup.data_ptr(), T, d, dff, stream_handle(dy)),
+            "dgateup")
+        dgateup.launches += 1
+    return dgate, dup
+
+
 def dw_gateup_plain(x2d, rstd, norm_w, dgate, dup
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K3: float32 products of the rounded h."""
@@ -86,17 +195,9 @@ def dw_gateup(x2d: torch.Tensor, rstd: torch.Tensor, norm_w: torch.Tensor,
             f"{tuple(rstd.shape)}, norm_w {tuple(norm_w.shape)}, dgate "
             f"{tuple(dgate.shape)}, dup {tuple(dup.shape)} do not match")
     tensors = (x2d, rstd, norm_w, dgate, dup)
-    if all(t.device.type == "cpu" for t in tensors):
+    if not _kernel_path("dw_gateup", tensors):
         return dw_gateup_plain(x2d, rstd, norm_w, dgate, dup)
     dev = x2d.device
-    for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"dw_gateup: every tensor must be on one CUDA "
-                             f"device (the plain version serves the CPU), "
-                             f"got {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("dw_gateup: tensors must be contiguous and "
-                             "16-byte aligned")
     if any(t.dtype != torch.bfloat16 for t in (x2d, norm_w, dgate, dup)) \
             or rstd.dtype != torch.float32:
         raise TypeError(f"dw_gateup: the CUDA kernel takes bfloat16 x, "
@@ -152,23 +253,32 @@ class FFNBlock(torch.autograd.Function):
     def backward(ctx, dy):
         x2d, rstd, gate, up, nw, wg, wu, wd = ctx.saved_tensors
         shape = ctx.shape
-        dy2d = dy.reshape(-1, shape[-1])
-        gf, uf = gate.float(), up.float()
-        # dW_down and d_s (the reference's defaults, USE_K1/K2 = False)
-        s_act = (_silu(gf) * uf).to(gate.dtype)
-        dwd = (s_act.T @ dy2d).to(wd.dtype)
-        ds = (dy2d @ wd.T).float()
-        dgate = (ds * uf * _dsilu(gf)).to(gate.dtype)
-        dup = (ds * _silu(gf)).to(up.dtype)
-        del ds, s_act
-        # K3
-        dwg, dwu = dw_gateup(x2d.contiguous(), rstd.contiguous(),
-                             nw.contiguous(), dgate, dup)
+        dy2d = dy.reshape(-1, shape[-1]).contiguous()
+        # each flag off: the reference's XLA-side math (fused_ffn.py:200-262)
+        if USE_K1:
+            dwd = dw_down(gate, up, dy2d)
+        else:
+            dwd = swiglu_act(gate, up).T @ dy2d
+        if USE_K2:
+            dgate, dup = dgateup(dy2d, wd.contiguous(), gate, up)
+        else:
+            gf, uf = gate.float(), up.float()
+            ds = (dy2d @ wd.T).float()
+            dgate = (ds * uf * _dsilu(gf)).to(gate.dtype)
+            dup = (ds * _silu(gf)).to(up.dtype)
+            del ds, gf, uf
+        if USE_K3:
+            dwg, dwu = dw_gateup(x2d.contiguous(), rstd.contiguous(),
+                                 nw.contiguous(), dgate, dup)
+        else:
+            h = normed(x2d, rstd, nw)
+            dwg, dwu = h.T @ dgate, h.T @ dup
+            del h
         # dh through the gate/up projections, then the rmsnorm VJP
         dh = (dgate @ wg.T).float() + (dup @ wu.T).float()
         dx, dnw = _rmsnorm_vjp(x2d, rstd, nw, dh, dy2d)
         return dx.reshape(shape), dnw, dwg.to(wg.dtype), dwu.to(wu.dtype), \
-            dwd, None
+            dwd.to(wd.dtype), None
 
 
 def ffn_block(x: torch.Tensor, norm_w: torch.Tensor, w_gate: torch.Tensor,
@@ -179,7 +289,9 @@ def ffn_block(x: torch.Tensor, norm_w: torch.Tensor, w_gate: torch.Tensor,
     return FFNBlock.apply(x, norm_w, w_gate, w_up, w_down, eps)
 
 
-# Launch count: the wrapper adds one where it launches its kernel, and
+# Launch counts: each wrapper adds one where it launches its kernel, and
 # nowhere else (the CPU path launches nothing).
 dw_gateup.launches = 0
-KERNELS = (dw_gateup,)
+dw_down.launches = 0
+dgateup.launches = 0
+KERNELS = (dw_gateup, dw_down, dgateup)

@@ -18,8 +18,12 @@ gradients' dtype). JAX donates the state to its jitted step; here the
 update writes the state's tensors in place, so the state passed in and the
 one returned share them.
 
-The mesh, its shardings and `fused_adamw_optimizer` wait for their ports
-(ROADMAP.md queue A item 7, queue B item 4).
+`fused_adamw_optimizer` is the same schedule and hyperparameters through
+`FusedAdamW` (ops/kernels/adamw.py): one kernel pass per leaf, mu and nu
+in float32, the clip factor kept on the device, so the step never waits
+for it.
+
+The mesh and its shardings wait for their port (ROADMAP.md queue A item 7).
 """
 
 from __future__ import annotations
@@ -29,19 +33,20 @@ import math
 from typing import (Any, Callable, Dict, Iterator, NamedTuple, Optional,
                     Tuple)
 
-import numpy as np
 import torch
 
 from ray_tpu_torch.models.transformer import (ModelConfig, init_params,
                                               loss_fn, tree_leaves)
 from ray_tpu_torch.ops.kernels._util import require_cuda
+from ray_tpu_torch.ops.kernels.adamw import FusedAdamW, bias_correction
 
 
 @dataclasses.dataclass
 class AdamWState:
     count: int   # updates applied so far (optax's ScaleByAdamState.count)
     mu: Any      # float32 first moments, one per parameter leaf
-    nu: Any      # second moments in each parameter's dtype
+    nu: Any      # second moments: the parameter's dtype under optax,
+                 # float32 under FusedAdamW
 
 
 @dataclasses.dataclass
@@ -52,6 +57,7 @@ class TrainState:
 
 
 class Optimizer(NamedTuple):
+    """What the step calls (`FusedAdamW` has the same two methods)."""
     init: Callable[[Any], AdamWState]
     # apply(grads, opt_state, params, grad_norm) -> opt_state; updates the
     # params and moments in place
@@ -106,11 +112,6 @@ def global_norm(tree: Any) -> torch.Tensor:
         for g in tree_leaves(tree)]).sum().sqrt()
 
 
-def _bias_correction(decay: float, count: int) -> float:
-    # optax: 1 - decay**count in float32
-    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
-
-
 def default_optimizer(learning_rate: float = 3e-4,
                       weight_decay: float = 0.1,
                       warmup_steps: int = 100,
@@ -135,8 +136,8 @@ def default_optimizer(learning_rate: float = 3e-4,
         # one host sync per step: the clipped branch then runs alone
         clip = bool(grad_norm >= clip_norm)
         count = state.count + 1
-        bc1 = _bias_correction(b1, count)
-        bc2 = _bias_correction(b2, count)
+        bc1 = bias_correction(b1, count)
+        bc2 = bias_correction(b2, count)
         lr = sched(state.count)
         # optax's arithmetic, op for op, written in place where the result
         # is the same (a + b = b + a) so one leaf's temporaries stay small
@@ -159,6 +160,19 @@ def default_optimizer(learning_rate: float = 3e-4,
     return Optimizer(init=init, apply=apply)
 
 
+def fused_adamw_optimizer(learning_rate: float = 3e-4,
+                          weight_decay: float = 0.1,
+                          warmup_steps: int = 100,
+                          total_steps: int = 10000) -> FusedAdamW:
+    """default_optimizer's schedule and hyperparameters with the fused
+    AdamW + clip update (one kernel pass per leaf over params, grads and
+    moments)."""
+    sched = warmup_cosine_decay_schedule(
+        0.0, learning_rate, warmup_steps, max(total_steps, warmup_steps + 1))
+    return FusedAdamW(sched, b1=0.9, b2=0.95, weight_decay=weight_decay,
+                      clip_norm=1.0)
+
+
 def make_init_fn(cfg: ModelConfig, optimizer: Optimizer,
                  device="cuda") -> Callable[[int], TrainState]:
     """init_fn(seed) -> TrainState with params from `init_params` on the
@@ -179,9 +193,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
                                         Tuple[TrainState, Dict[str, Any]]],
                                Callable[[int], TrainState]]:
     """Returns (step_fn, init_fn). step_fn(state, batch) -> (state,
-    metrics); the metrics are device tensors. The step waits for the
-    device once, when the optimizer reads the global norm to decide on
-    clipping."""
+    metrics); the metrics are device tensors. Under `default_optimizer`
+    the step waits for the device once, when it reads the global norm to
+    decide on clipping; under `fused_adamw_optimizer` it never waits."""
     optimizer = optimizer or default_optimizer()
     dev = require_cuda(device)
 

@@ -10,7 +10,10 @@ import torch
 
 from ray_tpu.models import ModelConfig as JaxConfig
 from ray_tpu.models import init_params as jax_init_params
-from ray_tpu_torch.bridge import params_from_jax, params_to_numpy
+from ray_tpu.ops.pallas.adamw import FusedAdamWState
+from ray_tpu.train.step import TrainState as JaxTrainState
+from ray_tpu_torch.bridge import (params_from_jax, params_to_numpy,
+                                  train_state_from_jax, train_state_to_numpy)
 from ray_tpu_torch.models import ModelConfig, count_params
 
 
@@ -79,3 +82,37 @@ def test_shape_mismatch_is_refused():
     tree = {"embed": np.zeros((16, 8), np.float32)}
     with pytest.raises(ValueError, match="embed shape"):
         params_from_jax(tree, ModelConfig.tiny(), device="cpu")
+
+
+def test_fused_adamw_state_carries_across_bitwise():
+    """A JAX TrainState whose optimizer state is the reference's
+    FusedAdamWState (bf16 params, float32 mu and nu, count 5): every leaf
+    arrives bit for bit, nu stays float32, and it goes back unchanged."""
+    jcfg = dataclasses.replace(JaxConfig.tiny(), dtype=jnp.bfloat16)
+    cfg = dataclasses.replace(ModelConfig.tiny(), dtype=torch.bfloat16)
+    params = jax.tree_util.tree_map(
+        np.asarray, jax_init_params(jax.random.PRNGKey(1), jcfg))
+    rng = np.random.default_rng(7)
+
+    def moments(scale):
+        return jax.tree_util.tree_map(
+            lambda p: (scale * rng.standard_normal(p.shape)).astype(
+                np.float32), params)
+
+    opt = FusedAdamWState(count=np.int32(5), mu=moments(1e-3),
+                          nu=jax.tree_util.tree_map(np.abs, moments(1e-5)))
+    state = train_state_from_jax(
+        JaxTrainState(params=params, opt_state=opt, step=np.int32(5)), cfg,
+        device="cpu")
+    assert state.opt_state.count == 5 and state.step == 5
+    assert state.params["layers"]["wq"].dtype == torch.bfloat16
+    assert state.opt_state.nu["layers"]["wq"].dtype == torch.float32
+    back = train_state_to_numpy(state)
+    for key, tree in (("params", params), ("mu", opt.mu), ("nu", opt.nu)):
+        src = dict(_leaves(tree))
+        got = dict(_leaves(back[key]))
+        assert src.keys() == got.keys()
+        for name, a in src.items():
+            assert got[name].dtype == a.dtype, (key, name)
+            np.testing.assert_array_equal(_bits(got[name]), _bits(a),
+                                          err_msg=f"{key} {name}")

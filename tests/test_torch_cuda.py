@@ -1,6 +1,6 @@
 """The port on a CUDA device: the hand-written kernels against their plain
 PyTorch versions, the engine's serving path through the quant kernels, and
-training steps through the flash and K3 kernels.
+training steps through the flash, fused-FFN and AdamW kernels.
 
 Every test here needs a GPU and skips with a reason where there is none.
 The file imports torch and the port only, so it also runs where JAX is not
@@ -19,10 +19,13 @@ from ray_tpu_torch.bench import make_batch
 from ray_tpu_torch.models import ModelConfig, init_params
 from ray_tpu_torch.models import inference, serving
 from ray_tpu_torch.ops.attention import attention, causal_attention_reference
+from ray_tpu_torch.ops.kernels import adamw as aw
 from ray_tpu_torch.ops.kernels import flash_attention as fa
 from ray_tpu_torch.ops.kernels import fused_ffn as ff
 from ray_tpu_torch.ops.kernels import quant
-from ray_tpu_torch.train import default_optimizer, make_train_step
+from ray_tpu_torch.train import (default_optimizer, fused_adamw_optimizer,
+                                 make_train_step)
+from ray_tpu_torch.train.step import global_norm
 
 pytestmark = pytest.mark.cuda
 
@@ -255,3 +258,105 @@ def test_tiny_bf16_training_steps_go_through_the_kernels(cuda):
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     assert state.opt_state.mu["embed"].dtype == torch.float32
     assert state.opt_state.nu["embed"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("T,d,dff", [(37, 130, 50), (1000, 200, 328)])
+def test_k1_k2_kernels_match_plain_versions(cuda, T, d, dff):
+    gate, up = _bf16((T, dff), cuda, 0), _bf16((T, dff), cuda, 1)
+    dy = _bf16((T, d), cuda, 2, 0.1)
+    wd = _bf16((dff, d), cuda, 3, dff ** -0.5)
+    before = [k.launches for k in ff.KERNELS]
+    dwd = ff.dw_down(gate, up, dy)
+    dgate, dup = ff.dgateup(dy, wd, gate, up)
+    p_dwd = ff.dw_down_plain(gate, up, dy)
+    p_dgate, p_dup = ff.dgateup_plain(dy, wd, gate, up)
+    torch.cuda.synchronize()
+    assert dwd.shape == (dff, d) and dgate.shape == dup.shape == (T, dff)
+    for got, want in ((dwd, p_dwd), (dgate, p_dgate), (dup, p_dup)):
+        assert _rel_err(got, want) < REL_TOL
+    assert [k.launches for k in ff.KERNELS] == [before[0], before[1] + 1,
+                                                before[2] + 1]
+
+
+def _adamw_leaf(n, device, seed, dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    p, g = (torch.from_numpy((s * rng.standard_normal(n)).astype(np.float32))
+            .to(device=device, dtype=dtype) for s in (0.02, 1e-2))
+    mu = torch.from_numpy((1e-3 * rng.standard_normal(n)).astype(
+        np.float32)).to(device)
+    nu = torch.from_numpy((1e-5 * rng.random(n)).astype(np.float32)).to(
+        device)
+    return p, g, mu, nu
+
+
+@pytest.mark.parametrize("n,dtype", [(1000003, torch.bfloat16),
+                                     (13, torch.bfloat16),
+                                     (4099, torch.float32)])
+def test_adamw_kernel_equals_plain_version_bitwise(cuda, n, dtype):
+    """In place, at sizes that are not a multiple of 8 (the scalar tail),
+    and from an unaligned start (the scalar path for the whole leaf)."""
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+    c1, c2 = aw.bias_correction(0.9, 4), aw.bias_correction(0.95, 4)
+    clip = torch.tensor(0.37, device=cuda)
+    for start in (0, 1):
+        p, g, mu, nu = (t[start:] for t in _adamw_leaf(n, cuda, start, dtype))
+        want = [t.clone() for t in (p, mu, nu)]
+        before = aw.adamw_update.launches
+        aw.adamw_update(p, g, mu, nu, 3e-4, clip, c1, c2, **hyper)
+        aw.adamw_update_plain(want[0], g, want[1], want[2], 3e-4, clip, c1,
+                              c2, **hyper)
+        torch.cuda.synchronize()
+        assert aw.adamw_update.launches == before + 1
+        for got, ref in zip((p, mu, nu), want):
+            assert torch.equal(got.view(torch.int16) if got.dtype ==
+                               torch.bfloat16 else got,
+                               ref.view(torch.int16) if ref.dtype ==
+                               torch.bfloat16 else ref)
+
+
+def test_fused_adamw_apply_never_waits_for_the_device(cuda):
+    """The clip factor stays on the device and the count on the host:
+    under torch.cuda.set_sync_debug_mode("error") a hidden synchronization
+    raises."""
+    opt = fused_adamw_optimizer(1e-3, warmup_steps=1)
+    params = {"w": _adamw_leaf(4096 * 3 + 5, cuda, 0)[0],
+              "b": _adamw_leaf(64, cuda, 1)[0]}
+    grads = {k: torch.randn_like(v) for k, v in params.items()}
+    state = opt.init(params)
+    gn = global_norm(grads)
+    before = aw.adamw_update.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state = opt.apply(grads, state, params, gn)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.count == 2 and aw.adamw_update.launches == before + 4
+    assert torch.isfinite(params["w"].float()).all()
+
+
+def test_tiny_all_kernel_training_steps_go_through_the_kernels(cuda):
+    cfg = dataclasses.replace(ModelConfig.tiny(), dtype=torch.bfloat16,
+                              fused_ffn=True, fused_attn=True)
+    step_fn, init_fn = make_train_step(
+        cfg, fused_adamw_optimizer(1e-3, warmup_steps=1), device=cuda)
+    state = init_fn(0)
+    batch = make_batch(cfg, 2, 64, 1, cuda)
+    kernels = (*fa.KERNELS, *ff.KERNELS, aw.adamw_update)
+    old = ff.USE_K1, ff.USE_K2
+    ff.USE_K1 = ff.USE_K2 = True
+    losses = []
+    try:
+        for _ in range(3):
+            for kern in kernels:
+                kern.launches = 0
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            assert np.isfinite(float(metrics["grad_norm"]))
+            assert [kern.launches for kern in kernels] == \
+                [cfg.n_layers] * 6 + [12]
+    finally:
+        ff.USE_K1, ff.USE_K2 = old
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert state.opt_state.nu["embed"].dtype == torch.float32

@@ -181,3 +181,150 @@ def test_ffn_block_bfloat16_stays_bfloat16():
     assert y.dtype == torch.bfloat16
     assert all(g.dtype == torch.bfloat16 for g in grads)
     assert all(torch.isfinite(g.float()).all() for g in grads)
+
+
+# ------------------------------------------------ K1 and K2 (fused_ffn.py)
+
+
+def _reference_k1(gate, up, dy, bm, bk):
+    """The reference's K1 pallas_call as fused_ffn.py:207-221 launches it,
+    with (bm, bk) tiles: dW_down row blocks of bm, token blocks of bk."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    T, dff = gate.shape
+    d = dy.shape[1]
+    vmem = pltpu.VMEM
+    return pl.pallas_call(
+        jffn._dw_down_kernel,
+        grid=(dff // bm, T // bk),
+        in_specs=[
+            pl.BlockSpec((bk, bm), lambda i, k: (k, i), memory_space=vmem),
+            pl.BlockSpec((bk, bm), lambda i, k: (k, i), memory_space=vmem),
+            pl.BlockSpec((bk, d), lambda i, k: (k, 0), memory_space=vmem),
+        ],
+        out_specs=pl.BlockSpec((bm, d), lambda i, k: (i, 0),
+                               memory_space=vmem),
+        out_shape=jax.ShapeDtypeStruct((dff, d), dy.dtype),
+        scratch_shapes=[pltpu.VMEM((bm, d), jnp.float32)],
+        interpret=True,
+    )(gate, up, dy)
+
+
+def _reference_k2(dy, wd, gate, up, bm, bn, bk):
+    """The reference's K2 pallas_call as fused_ffn.py:233-252 launches it."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    T, d = dy.shape
+    dff = wd.shape[0]
+    vmem = pltpu.VMEM
+    tile = pl.BlockSpec((bm, bn), lambda i, j, k: (i, j), memory_space=vmem)
+    return pl.pallas_call(
+        jffn._dgateup_kernel,
+        grid=(T // bm, dff // bn, d // bk),
+        in_specs=[
+            pl.BlockSpec((bm, bk), lambda i, j, k: (i, k), memory_space=vmem),
+            pl.BlockSpec((bn, bk), lambda i, j, k: (j, k), memory_space=vmem),
+            tile, tile,
+        ],
+        out_specs=[tile, tile],
+        out_shape=[jax.ShapeDtypeStruct((T, dff), gate.dtype)] * 2,
+        scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32)],
+        interpret=True,
+    )(dy, wd, gate, up)
+
+
+def _k12_inputs(T, d, dff, seed):
+    rng = _rng(seed)
+    gate, up = (rng.standard_normal((T, dff)).astype(np.float32)
+                for _ in range(2))
+    dy = rng.standard_normal((T, d)).astype(np.float32)
+    wd = (rng.standard_normal((dff, d)) * dff ** -0.5).astype(np.float32)
+    return gate, up, dy, wd
+
+
+def test_plain_k1_matches_reference_k1():
+    """Tiles (bm, bk) = (64, 32) give the reference a 2 x 2 grid, so its
+    accumulator carries across token blocks."""
+    gate, up, dy, _ = _k12_inputs(64, 48, 128, seed=4)
+    want = _reference_k1(*(jnp.asarray(a) for a in (gate, up, dy)), 64, 32)
+    got = tffn.dw_down(*(torch.from_numpy(a) for a in (gate, up, dy)))
+    assert got.shape == (128, 48)
+    np.testing.assert_allclose(got.numpy(), np.array(want), **GRAD_TOL)
+
+
+def test_plain_k2_matches_reference_k2():
+    """Tiles (bm, bn, bk) = (32, 64, 32) give a 2 x 2 x 2 grid: d_s carries
+    across d blocks before the epilogue runs."""
+    gate, up, dy, wd = _k12_inputs(64, 64, 128, seed=5)
+    want = _reference_k2(*(jnp.asarray(a) for a in (dy, wd, gate, up)),
+                         32, 64, 32)
+    got = tffn.dgateup(*(torch.from_numpy(a) for a in (dy, wd, gate, up)))
+    for g, w, name in zip(got, want, ("dgate", "dup")):
+        np.testing.assert_allclose(g.numpy(), np.array(w), err_msg=name,
+                                   **GRAD_TOL)
+
+
+def _silu64(x):
+    return x / (1.0 + np.exp(-x))
+
+
+@pytest.mark.parametrize("T,d,dff", [(37, 72, 50), (100, 130, 200)])
+def test_plain_k1_k2_on_shapes_that_do_not_tile(T, d, dff):
+    """No tiling guard on the port's side: float64 numpy is the truth."""
+    gate, up, dy, wd = _k12_inputs(T, d, dff, seed=6)
+    g64, u64 = gate.astype(np.float64), up.astype(np.float64)
+    dwd = tffn.dw_down(*(torch.from_numpy(a) for a in (gate, up, dy)))
+    np.testing.assert_allclose(dwd.numpy(), (_silu64(g64) * u64).T @ dy,
+                               **GRAD_TOL)
+    dgate, dup = tffn.dgateup(*(torch.from_numpy(a)
+                                for a in (dy, wd, gate, up)))
+    ds = dy.astype(np.float64) @ wd.T.astype(np.float64)
+    s = 1.0 / (1.0 + np.exp(-g64))
+    np.testing.assert_allclose(dgate.numpy(), ds * u64 * s * (1 + g64 * (1 - s)),
+                               **GRAD_TOL)
+    np.testing.assert_allclose(dup.numpy(), ds * _silu64(g64), **GRAD_TOL)
+
+
+FLAG_VARIANTS = [(True, False, True), (False, True, True), (True, True, False)]
+
+
+def _set_flags(module, flags):
+    old = (module.USE_K1, module.USE_K2, module.USE_K3)
+    module.USE_K1, module.USE_K2, module.USE_K3 = flags
+    return old
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ffn_with_flags(flags):
+    """The JAX block's output and grads with its USE_K1/K2/K3 flags set as
+    given (the flags are read while the backward is traced)."""
+    args, dy = _ffn_inputs()
+    args[0] = args[0].reshape(B, S, D)
+    old = _set_flags(jffn, flags)
+    try:
+        y, vjp = jax.vjp(jffn.ffn_block, *(jnp.asarray(a) for a in args))
+        grads = vjp(jnp.asarray(dy.reshape(B, S, D)))
+    finally:
+        _set_flags(jffn, old)
+    return np.array(y), [np.array(g) for g in grads]
+
+
+@pytest.mark.parametrize("flags", FLAG_VARIANTS)
+def test_ffn_block_flag_variants_match_jax_block(flags):
+    """The twin of test_fused_ffn_flag_variants_match_reference
+    (tests/test_pallas_kernels.py:493-528): the same three flag tuples, the
+    port's block against the reference's block under the same flags, the
+    reference's tolerance (2e-4)."""
+    args, dy = _ffn_inputs()
+    args[0] = args[0].reshape(B, S, D)
+    old = _set_flags(tffn, flags)
+    try:
+        y, grads = _torch_block(tffn.ffn_block, args, dy.reshape(B, S, D))
+    finally:
+        _set_flags(tffn, old)
+    want_y, want_grads = _jax_ffn_with_flags(flags)
+    np.testing.assert_allclose(y, want_y, rtol=2e-4, atol=2e-4)
+    for g, w, name in zip(grads, want_grads,
+                          ("x", "norm_w", "w_gate", "w_up", "w_down")):
+        np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-4,
+                                   err_msg=f"{flags} d{name}")

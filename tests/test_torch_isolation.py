@@ -32,6 +32,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     modules = list(_port_modules())
     for name in ("ray_tpu_torch.models.serving", "ray_tpu_torch.train.step",
                  "ray_tpu_torch.bench",
+                 "ray_tpu_torch.ops.kernels.adamw",
                  "ray_tpu_torch.ops.kernels.flash_attention",
                  "ray_tpu_torch.ops.kernels.fused_ffn",
                  "ray_tpu_torch.ops.kernels.fused_attn"):
@@ -78,7 +79,7 @@ def test_chip_smoke_alone_fails_without_a_result(tmp_path):
 @pytest.mark.parametrize("entry", ["init_params", "params_from_jax",
                                    "engine", "require_cuda",
                                    "make_train_step", "make_init_fn",
-                                   "bench"])
+                                   "fused_adamw_optimizer", "bench"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -86,7 +87,8 @@ def test_default_device_raises_without_cuda(entry):
     from ray_tpu_torch.models import ModelConfig, init_params
     from ray_tpu_torch.models.serving import ContinuousBatchingEngine
     from ray_tpu_torch.ops.kernels._util import require_cuda
-    from ray_tpu_torch.train import (default_optimizer, make_init_fn,
+    from ray_tpu_torch.train import (default_optimizer,
+                                     fused_adamw_optimizer, make_init_fn,
                                      make_train_step)
     from ray_tpu_torch import bench
 
@@ -101,6 +103,8 @@ def test_default_device_raises_without_cuda(entry):
         "require_cuda": lambda: require_cuda("cuda"),
         "make_train_step": lambda: make_train_step(cfg),
         "make_init_fn": lambda: make_init_fn(cfg, default_optimizer())(0),
+        "fused_adamw_optimizer": lambda: make_init_fn(
+            cfg, fused_adamw_optimizer())(0),
         "bench": lambda: bench.main([]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):

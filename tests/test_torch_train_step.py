@@ -24,14 +24,18 @@ from ray_tpu.models import ModelConfig as JConfig
 from ray_tpu.models import init_params as jinit
 from ray_tpu.models import loss_fn as jloss
 from ray_tpu.parallel import MeshConfig, make_mesh
+from ray_tpu.ops.pallas import fused_ffn as jffn
 from ray_tpu.train import make_train_step as jmake_train_step
 from ray_tpu.train.step import default_optimizer as jdefault_optimizer
+from ray_tpu.train.step import fused_adamw_optimizer as jfused_adamw
 from ray_tpu_torch import bench
 from ray_tpu_torch.bridge import (params_from_jax, params_to_numpy,
                                   train_state_from_jax, train_state_to_numpy)
 from ray_tpu_torch.models import ModelConfig
 from ray_tpu_torch.models.transformer import loss_fn, tree_leaves
-from ray_tpu_torch.train import (default_optimizer, make_train_step,
+from ray_tpu_torch.ops.kernels import fused_ffn as tffn
+from ray_tpu_torch.train import (default_optimizer, fused_adamw_optimizer,
+                                 make_train_step,
                                  warmup_cosine_decay_schedule)
 
 FUSED = dict(fused_ffn=True, fused_attn=True)
@@ -153,24 +157,41 @@ def test_schedule_matches_optax(warmup, total):
                                    atol=1e-6 * 3e-4, err_msg=f"step {step}")
 
 
+ALL_KERNELS = (True, True, True)  # USE_K1, USE_K2, USE_K3
+
+
+def _set_ffn_flags(module, flags):
+    old = (module.USE_K1, module.USE_K2, module.USE_K3)
+    module.USE_K1, module.USE_K2, module.USE_K3 = flags
+    return old
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_steps(fused, n_steps=3):
+def _jax_steps(fused, all_kernels=False, n_steps=3):
     """The JAX step on a 1-device CPU mesh: its initial state and, after
-    each step, (loss, grad_norm, params)."""
+    each step, (loss, grad_norm, params). `all_kernels`: the fused AdamW
+    optimizer and every fused-FFN kernel flag on (the Pallas kernels run in
+    interpret mode)."""
     jcfg, _ = _cfgs(fused)
     mesh = make_mesh(MeshConfig(dp=1), jax.devices()[:1])
+    make_opt = jfused_adamw if all_kernels else jdefault_optimizer
     step_fn, init_fn, _ = jmake_train_step(
-        jcfg, mesh, jdefault_optimizer(1e-3, warmup_steps=1), donate=False)
+        jcfg, mesh, make_opt(1e-3, warmup_steps=1), donate=False)
     state = init_fn(jax.random.PRNGKey(0))
     init = jax.device_get(state)
     tokens = _tokens(5)
     batch = {"inputs": jnp.asarray(tokens[:, :-1]),
              "targets": jnp.asarray(tokens[:, 1:])}
     out = []
-    for _ in range(n_steps):
-        state, metrics = step_fn(state, batch)
-        out.append((float(metrics["loss"]), float(metrics["grad_norm"]),
-                    jax.device_get(state.params)))
+    old = _set_ffn_flags(jffn, ALL_KERNELS if all_kernels else
+                         (jffn.USE_K1, jffn.USE_K2, jffn.USE_K3))
+    try:  # the flags are read while the step is traced, at its first call
+        for _ in range(n_steps):
+            state, metrics = step_fn(state, batch)
+            out.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                        jax.device_get(state.params)))
+    finally:
+        _set_ffn_flags(jffn, old)
     return init, tokens, out
 
 
@@ -185,6 +206,28 @@ def test_three_train_steps_match_jax(fused):
                                  device="cpu")
     batch = {"inputs": torch.from_numpy(tokens[:, :-1]),
              "targets": torch.from_numpy(tokens[:, 1:])}
+    _check_steps(step_fn, state, batch, want)
+
+
+def test_three_all_kernel_train_steps_match_jax():
+    """The all-kernel step: fused blocks, USE_K1/K2/K3 on and
+    fused_adamw_optimizer (mu and nu float32) on both sides."""
+    init, tokens, want = _jax_steps(True, all_kernels=True)
+    _, cfg = _cfgs(True)
+    state = train_state_from_jax(init, cfg, device="cpu")
+    assert state.opt_state.nu["embed"].dtype == torch.float32
+    step_fn, _ = make_train_step(cfg, fused_adamw_optimizer(
+        1e-3, warmup_steps=1), device="cpu")
+    batch = {"inputs": torch.from_numpy(tokens[:, :-1]),
+             "targets": torch.from_numpy(tokens[:, 1:])}
+    old = _set_ffn_flags(tffn, ALL_KERNELS)
+    try:
+        _check_steps(step_fn, state, batch, want)
+    finally:
+        _set_ffn_flags(tffn, old)
+
+
+def _check_steps(step_fn, state, batch, want):
     for i, (loss, gnorm, params) in enumerate(want):
         state, metrics = step_fn(state, batch)
         assert metrics["step"] == i
