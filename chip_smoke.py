@@ -28,6 +28,16 @@ Phases (any failure exits non-zero and prints no result line):
      kernel bit for bit at every leaf shape of the 8-layer training tree
      and at an odd size; time kernel, plain version, bound and one PyTorch
      library call doing the same work;
+ 7b. hold the RMSNorm forward and dx kernels against their plain versions
+     at [4096, 4096] bf16 (the training batch at d_model), [8, 4096] bf16
+     (the decode batch), [4096, 4096] f32 and [300, 130] bf16 (ragged rows
+     and d), and the cross-entropy forward and backward at [4096, 128256]
+     f32 (the model's logits) and bf16 and at [37, 3000] f32 with some
+     labels -1: bf16 outputs within 1e-2 and f32 outputs within 1e-5 of the
+     plain output's max, rstd, loss and lse within 2e-5 of each value; time
+     each with its plain version, its bound and one library call
+     (F.rms_norm and its autograd backward, F.cross_entropy and its
+     backward);
   8. train Llama-3-8B at full width with 8 of its 32 layers (random bf16
      weights, one batch of 2 x 2049 tokens reused) for 8 steps of
      default_optimizer(warmup_steps=2), checking finite losses and grad
@@ -44,6 +54,14 @@ Phases (any failure exits non-zero and prints no result line):
      launch per leaf in every step, losses 1-2 equal to phase 8's within
      1e-5 relative and step 1's grad norm within 1%; then phase 9's
      measurements for this path;
+ 10b. the RMSNorm and cross-entropy entries on the 8-layer model's own
+     tensors (fresh params, same seed and batch): softmax_cross_entropy over
+     its float32 logits [2, 2048, 128256] against token_nll (mean loss and
+     its gradient within 1e-5 relative), rms_norm_fused on the batch's
+     [2, 2048, 4096] bf16 embedding rows with the final_norm weight against
+     ops.layers.rms_norm (within one bf16 ulp; dx and dw by autograd within
+     1e-2), each of the four kernels launched exactly once (counters zeroed
+     just before, read just after);
  11. print the kernels line, the nvidia-smi line, and the result line.
 
 Imports torch and the port only (never jax, never ray_tpu).
@@ -87,6 +105,14 @@ REL_ERR_LIMIT = 1e-2
 SAME_LOSS_RTOL = 1e-5
 GRAD_NORM_RTOL = 1e-2
 ADAMW_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+# RMSNorm and cross-entropy against their plain versions: float32 outputs
+# (another summation order) and the row statistics rstd, loss and lse (each
+# value); bf16 outputs keep REL_ERR_LIMIT.
+F32_REL_LIMIT = 1e-5
+STAT_REL_LIMIT = 2e-5
+# The cross-entropy entry on the 8B logits against token_nll: mean loss and
+# gradient (relative to the gradient's largest magnitude).
+ENTRY_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -137,6 +163,13 @@ def kernel_shapes(cfg, num_slots: int):
     return {"quantize_int8": quant, "dequantize_int8": dequant}
 
 
+# GPU clock cycles (about 0.5 ms) that the stream spins after each L2 flush,
+# so that the timed call's host-side dispatch (argument checks, allocation,
+# the ctypes call) is over before the start event: a call whose dispatch
+# outlasted the flush would otherwise be timed with the gap before it.
+HOLD_CYCLES = 1_000_000
+
+
 def time_ms(torch, fn, flush, reps: int = 7) -> float:
     """Median of `reps` single-call CUDA-event timings after one warm-up,
     with the 50 MB L2 flushed before each call (weights arrive cold)."""
@@ -144,6 +177,7 @@ def time_ms(torch, fn, flush, reps: int = 7) -> float:
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -538,6 +572,164 @@ def check_train_kernels(torch, gen, cfg):
     return rows
 
 
+def norm_shapes():
+    """(rows, d, dtype, calls on the main path) of the RMSNorm kernels: the
+    8B training batch at d_model (2 x 2048 rows, phase 10b's shape), the
+    decode batch of 8 slots, the training shape in float32, and ragged rows
+    and d."""
+    return [(4096, 4096, "bfloat16", 1), (8, 4096, "bfloat16", 0),
+            (4096, 4096, "float32", 0), (300, 130, "bfloat16", 0)]
+
+
+def xent_shapes():
+    """(N, V, dtype, labels set to -1, calls on the main path) of the
+    cross-entropy kernels: the 8B model's float32 logits for 2 x 2048 tokens
+    (phase 10b's shape), the same in bf16, and a ragged vocabulary with
+    every fourth label -1."""
+    return [(4096, 128256, "float32", False, 1),
+            (4096, 128256, "bfloat16", False, 0),
+            (37, 3000, "float32", True, 0)]
+
+
+def stat_err(torch, got, want):
+    """Largest |got - want| and largest |got - want| / |want| over the
+    values of a row statistic (rstd, loss, lse)."""
+    diff = (got - want).abs()
+    return (diff.max().item(),
+            (diff / want.abs().clamp_min(1e-30)).max().item())
+
+
+def check_norm_xent_kernels(torch, gen):
+    """Phase 7b: the RMSNorm and cross-entropy kernels against their plain
+    versions, and their times, bounds and a library call's time."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops.kernels import rmsnorm as rms
+    from ray_tpu_torch.ops.kernels import xent
+
+    t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    rows = {k.__name__: [] for k in (*rms.KERNELS, *xent.KERNELS)}
+
+    def record(name, shape, dtype, calls, checks, nbytes, ops, fn, plain,
+               library, library_what):
+        """checks: (output, (max abs err, relative err), limit)."""
+        for what, (err, rel), limit in checks:
+            if not rel < limit:
+                fail(f"{name} differs from its plain version at {shape} "
+                     f"{dtype}: {what} max abs err {err}, relative {rel} "
+                     f"(limit {limit})")
+        b_ms, b_by = bound_ms(nbytes, ops, PEAK_F32_OPS_PER_S)
+        row = {"shape": list(shape), "dtype": dtype, "calls": calls,
+               "max_abs_err": max(c[1][0] for c in checks),
+               "rel_err": {c[0]: c[1][1] for c in checks},
+               "ms": time_ms(torch, fn, flush),
+               "plain_ms": time_ms(torch, plain, flush),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": (time_ms(torch, library, flush)
+                              if library is not None else None),
+               "library": library_what if library is not None else None}
+        rows[name].append(row)
+        lib = ("" if row["library_ms"] is None else
+               f", library {row['library_ms']:.4f} ms ({library_what})")
+        log(f"kernel {name} {list(shape)} {dtype} ({calls} calls in phase "
+            f"10b): rel err {row['rel_err']}; kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{b_ms / row['ms']:.3f} of bound{lib}")
+
+    eps = 1e-5
+    for n, d, dtype, calls in norm_shapes():
+        dt = getattr(torch, dtype)
+        size = dt.itemsize
+        x = (torch.randn((n, d), generator=gen, device="cuda") * 2).to(dt)
+        w = (torch.randn((d,), generator=gen, device="cuda") * 0.1
+             + 1).to(dt)
+        g = torch.randn((n, d), generator=gen, device="cuda").to(dt)
+        limit = F32_REL_LIMIT if dt == torch.float32 else REL_ERR_LIMIT
+        out, rstd = rms.rms_norm_fwd(x, w, eps)
+        p_out, p_rstd = rms.rms_norm_fwd_plain(x, w, eps)
+        dx = rms.rms_norm_bwd_dx(x, w, p_rstd, g)
+        p_dx = rms.rms_norm_bwd_dx_plain(x, w, p_rstd, g)
+        torch.cuda.synchronize()
+        fwd_checks = [("out", rel_err(torch, out, p_out), limit),
+                      ("rstd", stat_err(torch, rstd, p_rstd),
+                       STAT_REL_LIMIT)]
+        dx_checks = [("dx", rel_err(torch, dx, p_dx), limit)]
+        del out, rstd, p_out, dx, p_dx
+        xl = x.detach().requires_grad_(True)
+        wl = w.detach().requires_grad_(True)
+        lib_out = F.rms_norm(xl, (d,), wl, eps)
+        record("rms_norm_fwd", (n, d), dtype, calls, fwd_checks,
+               2 * n * d * size + d * size + 4 * n, 4 * n * d,
+               lambda: rms.rms_norm_fwd(x, w, eps),
+               lambda: rms.rms_norm_fwd_plain(x, w, eps),
+               lambda: F.rms_norm(x, (d,), w, eps),
+               "torch.nn.functional.rms_norm")
+        record("rms_norm_bwd_dx", (n, d), dtype, calls, dx_checks,
+               3 * n * d * size + d * size + 4 * n, 9 * n * d,
+               lambda: rms.rms_norm_bwd_dx(x, w, p_rstd, g),
+               lambda: rms.rms_norm_bwd_dx_plain(x, w, p_rstd, g),
+               lambda: torch.autograd.grad(lib_out, (xl, wl), g,
+                                           retain_graph=True),
+               "the autograd backward of torch.nn.functional.rms_norm: "
+               "dx and dw in one call")
+        del x, w, g, p_rstd, xl, wl, lib_out
+        torch.cuda.empty_cache()
+
+    for n, v, dtype, ignore, calls in xent_shapes():
+        dt = getattr(torch, dtype)
+        size = dt.itemsize
+        logits = (torch.randn((n, v), generator=gen, device="cuda")
+                  * 2).to(dt)
+        labels = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        if ignore:
+            labels[::4] = -1
+        g = torch.randn((n,), generator=gen, device="cuda")
+        limit = F32_REL_LIMIT if dt == torch.float32 else REL_ERR_LIMIT
+        loss, lse = xent.xent_fwd(logits, labels)
+        p_loss, p_lse = xent.xent_fwd_plain(logits, labels)
+        dx = xent.xent_bwd(logits, labels, p_lse, g)
+        p_dx = xent.xent_bwd_plain(logits, labels, p_lse, g)
+        torch.cuda.synchronize()
+        fwd_checks = [("loss", stat_err(torch, loss, p_loss),
+                       STAT_REL_LIMIT),
+                      ("lse", stat_err(torch, lse, p_lse), STAT_REL_LIMIT)]
+        bwd_checks = [("dx", rel_err(torch, dx, p_dx), limit)]
+        del loss, lse, p_loss, dx, p_dx
+        torch.cuda.empty_cache()
+        lib_fwd = lib_bwd = None
+        if not ignore:  # cross_entropy's ignore index is -100, not -1
+            labels64 = labels.long()
+            ll = logits.detach().requires_grad_(True)
+            lib_loss = F.cross_entropy(ll, labels64, reduction="none")
+            lib_g = g.to(lib_loss.dtype)
+
+            def lib_fwd():
+                with torch.no_grad():
+                    F.cross_entropy(logits, labels64, reduction="none")
+
+            def lib_bwd():
+                torch.autograd.grad(lib_loss, ll, lib_g, retain_graph=True)
+        record("xent_fwd", (n, v), dtype, calls, fwd_checks,
+               n * v * size + 12 * n, 4 * n * v,
+               lambda: xent.xent_fwd(logits, labels),
+               lambda: xent.xent_fwd_plain(logits, labels), lib_fwd,
+               "torch.nn.functional.cross_entropy(reduction='none')")
+        record("xent_bwd", (n, v), dtype, calls, bwd_checks,
+               2 * n * v * size + 12 * n, 4 * n * v,
+               lambda: xent.xent_bwd(logits, labels, p_lse, g),
+               lambda: xent.xent_bwd_plain(logits, labels, p_lse, g),
+               lib_bwd, "the autograd backward of that call")
+        lib_fwd = lib_bwd = lib_loss = ll = None
+        del logits, labels, g, p_lse
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    log(f"phase 7b: {time.perf_counter() - t0:.2f} s")
+    return rows
+
+
 def train(torch, card: str, seed: int, cfg, optimizer, kernels, want,
           label: str):
     """Phases 8-9 (and 10 for the all-kernel step): 8 steps of the training
@@ -642,8 +834,8 @@ def train(torch, card: str, seed: int, cfg, optimizer, kernels, want,
 
 def train_both(torch, card: str, seed: int, cfg):
     """Phases 8-10: the default step, then the all-kernel step on the same
-    config, seed and batch, held against it. Returns {kernel: {path:
-    launches over the 8 steps}}."""
+    config, seed and batch, held against it. Returns ({kernel: {path:
+    launches over the 8 steps}}, the default step's first loss)."""
     from ray_tpu_torch.ops.kernels import adamw as aw
     from ray_tpu_torch.ops.kernels import flash_attention as fa
     from ray_tpu_torch.ops.kernels import fused_ffn as ff
@@ -683,9 +875,108 @@ def train_both(torch, card: str, seed: int, cfg):
     if not abs(a - b) <= GRAD_NORM_RTOL * abs(b):
         fail(f"all-kernel step 1 grad norm {a} differs from the default "
              f"path's {b}")
-    return {k.__name__: {"default": base["launches"][k.__name__],
-                         "all-kernel": allk["launches"][k.__name__]}
-            for k in kernels}
+    by_path = {k.__name__: {"default": base["launches"][k.__name__],
+                            "all-kernel": allk["launches"][k.__name__]}
+               for k in kernels}
+    return by_path, base["losses"][0]
+
+
+def bf16_ulps(torch, got, want) -> float:
+    """Largest |got - want| in units of the last place of bf16 at want."""
+    want = want.float()
+    mag = want.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((got.float() - want).abs() / ulp).max().item()
+
+
+def check_entries_on_model(torch, gen, seed: int, cfg, first_loss: float):
+    """Phase 10b: softmax_cross_entropy and rms_norm_fused on the 8-layer
+    model's own tensors, against the plain model functions, each of their
+    four kernels launched exactly once. Returns {kernel: launches}."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import init_params
+    from ray_tpu_torch.models.transformer import forward, token_nll
+    from ray_tpu_torch.ops.kernels import rmsnorm as rms
+    from ray_tpu_torch.ops.kernels import xent
+    from ray_tpu_torch.ops.layers import rms_norm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device="cuda")
+    batch = bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1, "cuda")
+    inputs, targets = batch["inputs"], batch["targets"]
+    with torch.no_grad():
+        logits = forward(params, inputs, cfg)
+        act = params["embed"][inputs]
+    weight = params["final_norm"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    V = cfg.vocab_size
+    if logits.shape != (TRAIN_BATCH, TRAIN_SEQ, V) \
+            or logits.dtype != torch.float32:
+        fail(f"the model's logits are {tuple(logits.shape)} {logits.dtype}, "
+             f"expected float32 [{TRAIN_BATCH}, {TRAIN_SEQ}, {V}]")
+    g_act = torch.randn(act.shape, generator=gen, device="cuda").to(
+        act.dtype)
+
+    kernels = (*rms.KERNELS, *xent.KERNELS)
+    for k in kernels:  # the main path's counts start here
+        k.launches = 0
+    lk = logits.detach().requires_grad_(True)
+    loss_k = xent.softmax_cross_entropy(lk.view(-1, V),
+                                        targets.reshape(-1)).mean()
+    (grad_k,) = torch.autograd.grad(loss_k, lk)
+    xk = act.detach().requires_grad_(True)
+    wk = weight.detach().requires_grad_(True)
+    out_k = rms.rms_norm_fused(xk, wk, cfg.norm_eps)
+    dx_k, dw_k = torch.autograd.grad(out_k, (xk, wk), g_act)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+
+    lr = logits.detach().requires_grad_(True)
+    loss_r = token_nll(lr, targets)
+    (grad_r,) = torch.autograd.grad(loss_r, lr)
+    a, b = loss_k.item(), loss_r.item()
+    g_err, g_rel = rel_err(torch, grad_k, grad_r)
+    del lk, lr, grad_k, grad_r, logits
+    torch.cuda.empty_cache()
+    log(f"entries on the model: softmax_cross_entropy mean {a:.6f}, "
+        f"token_nll {b:.6f} (rel {abs(a - b) / abs(b):.3g}, limit "
+        f"{ENTRY_RTOL}; phase 8's step-1 loss {first_loss:.6f}); gradient "
+        f"max abs err {g_err:.3g} ({g_rel:.3g} of its max, limit "
+        f"{ENTRY_RTOL})")
+    if not (math.isfinite(a) and abs(a - b) <= ENTRY_RTOL * abs(b)):
+        fail(f"softmax_cross_entropy over the model's logits gives {a}, "
+             f"token_nll {b}")
+    if not g_rel <= ENTRY_RTOL:
+        fail(f"the cross-entropy gradient over the model's logits differs "
+             f"from token_nll's by {g_rel} of its max")
+
+    xr = act.detach().requires_grad_(True)
+    wr = weight.detach().requires_grad_(True)
+    out_r = rms_norm(xr, wr, cfg.norm_eps)
+    dx_r, dw_r = torch.autograd.grad(out_r, (xr, wr), g_act)
+    ulps = bf16_ulps(torch, out_k, out_r)
+    dx_err = rel_err(torch, dx_k, dx_r)
+    dw_err = rel_err(torch, dw_k, dw_r)
+    log(f"entries on the model: rms_norm_fused on {list(act.shape)} "
+        f"{str(act.dtype).replace('torch.', '')} with final_norm: "
+        f"{ulps:.3g} bf16 ulp from ops.layers.rms_norm (limit 1); dx "
+        f"{dx_err[1]:.3g}, dw {dw_err[1]:.3g} of their max from autograd "
+        f"through it (limit {REL_ERR_LIMIT})")
+    if not ulps <= 1.0:
+        fail(f"rms_norm_fused is {ulps} bf16 ulp from ops.layers.rms_norm")
+    if not (dx_err[1] < REL_ERR_LIMIT and dw_err[1] < REL_ERR_LIMIT):
+        fail(f"rms_norm_fused's dx/dw differ from autograd through "
+             f"ops.layers.rms_norm: {dx_err}, {dw_err}")
+    want = {k.__name__: 1 for k in kernels}
+    log(f"entries on the model: launches {launches} (expected {want}); "
+        f"phase {time.perf_counter() - t0:.2f} s")
+    if launches != want:
+        fail(f"phase 10b launched {launches}; expected {want}")
+    return launches
 
 
 def main() -> int:
@@ -729,7 +1020,8 @@ def main() -> int:
 
     # ---- phase 2: build
     t0 = time.perf_counter()
-    libs = _util.build(["quant", "flash_attention", "fused_ffn", "adamw"])
+    libs = _util.build(["quant", "flash_attention", "fused_ffn", "adamw",
+                        "rmsnorm", "xent"])
     for lib in libs.values():
         log(f"built {lib.relative_to(HERE)}")
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
@@ -832,14 +1124,19 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     train_cfg = bench.train_config_8b(n_layers=8)
     train_rows = check_train_kernels(torch, gen, train_cfg)
+    # ---- phase 7b: the RMSNorm and cross-entropy kernels
+    entry_rows = check_norm_xent_kernels(torch, gen)
 
     # ---- phases 8-10: train llama3_8b width, 8 layers, on the default
     # step and then the all-kernel step; measure both
-    by_path = train_both(torch, card, args.seed, train_cfg)
+    by_path, first_loss = train_both(torch, card, args.seed, train_cfg)
     # each kernel's launches on the path it was ported for: the default
     # step for the flash kernels and K3, the all-kernel step for the rest
     train_launches = {k: (n["default"] if n["default"] else n["all-kernel"])
                       for k, n in by_path.items()}
+    # ---- phase 10b: the RMSNorm and cross-entropy entries on the model
+    entry_launches = check_entries_on_model(torch, gen, args.seed, train_cfg,
+                                            first_loss)
 
     # ---- phase 11: report
     pallas = "ray_tpu/ops/pallas/"
@@ -851,7 +1148,11 @@ def main() -> int:
                 "dw_gateup": pallas + "fused_ffn.py:121",
                 "dw_down": pallas + "fused_ffn.py:76",
                 "dgateup": pallas + "fused_ffn.py:97",
-                "adamw_update": pallas + "adamw.py:37"}
+                "adamw_update": pallas + "adamw.py:37",
+                "rms_norm_fwd": pallas + "rmsnorm.py:25",
+                "rms_norm_bwd_dx": pallas + "rmsnorm.py:33",
+                "xent_fwd": pallas + "xent.py:28",
+                "xent_bwd": pallas + "xent.py:59"}
     csrc = "ray_tpu_torch/ops/kernels/csrc/"
     source = {"quantize_int8": csrc + "quant.cu",
               "dequantize_int8": csrc + "quant.cu",
@@ -861,12 +1162,21 @@ def main() -> int:
               "dw_gateup": csrc + "fused_ffn.cu",
               "dw_down": csrc + "fused_ffn.cu",
               "dgateup": csrc + "fused_ffn.cu",
-              "adamw_update": csrc + "adamw.cu"}
+              "adamw_update": csrc + "adamw.cu",
+              "rms_norm_fwd": csrc + "rmsnorm.cu",
+              "rms_norm_bwd_dx": csrc + "rmsnorm.cu",
+              "xent_fwd": csrc + "xent.cu",
+              "xent_bwd": csrc + "xent.cu"}
+    norm_per = "one norm-and-gradient at the 8B training shape"
+    xent_per = "one loss-and-gradient of the 8B logits"
     per = {"quantize_int8": "one model load",
-           "dequantize_int8": "one decode step"}
+           "dequantize_int8": "one decode step",
+           "rms_norm_fwd": norm_per, "rms_norm_bwd_dx": norm_per,
+           "xent_fwd": xent_per, "xent_bwd": xent_per}
     launches.update(train_launches)
+    launches.update(entry_launches)
     kernels = []
-    for kname, rows in {**kernel_rows, **train_rows}.items():
+    for kname, rows in {**kernel_rows, **train_rows, **entry_rows}.items():
         # times: the main path's calls for `per`, each shape timed once and
         # counted as often as the path calls it
         lib = [r for r in rows if r["calls"] and r.get("library_ms")]
@@ -890,6 +1200,7 @@ def main() -> int:
             kernels[-1]["launches_per_step"] = (train_launches[kname]
                                                 / TRAIN_STEPS)
             kernels[-1]["launches_by_path"] = by_path[kname]
+        if kname in train_launches or kname in entry_launches:
             kernels[-1]["library"] = lib[0]["library"] if lib else None
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

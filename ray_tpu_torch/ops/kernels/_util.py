@@ -58,6 +58,28 @@ def require_cuda(device) -> torch.device:
     return dev
 
 
+def check_cuda(tensors: Sequence[torch.Tensor], what: str) -> None:
+    """Raise unless every tensor is contiguous and on one CUDA device (a
+    wrapper runs its plain version only when every tensor is on the
+    CPU)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{what}: every tensor must be on one CUDA "
+                             f"device (the plain version serves the CPU), "
+                             f"got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
+
+
+def rows_vectorized(x: torch.Tensor, *others: torch.Tensor) -> bool:
+    """Whether a row kernel may move 16 bytes at a time: the last axis of
+    `x` a multiple of 16 bytes' worth of its elements, and every pointer
+    16-byte aligned."""
+    return (x.shape[-1] % (16 // x.element_size()) == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, *others)))
+
+
 def tree_leaves(tree: Any):
     """Tensors of a nested-dict parameter tree, in sorted-key order."""
     if isinstance(tree, dict):

@@ -1,6 +1,7 @@
 """The port on a CUDA device: the hand-written kernels against their plain
-PyTorch versions, the engine's serving path through the quant kernels, and
-training steps through the flash, fused-FFN and AdamW kernels.
+PyTorch versions, the engine's serving path through the quant kernels,
+training steps through the flash, fused-FFN and AdamW kernels, and the
+RMSNorm and cross-entropy entries through theirs.
 
 Every test here needs a GPU and skips with a reason where there is none.
 The file imports torch and the port only, so it also runs where JAX is not
@@ -23,6 +24,9 @@ from ray_tpu_torch.ops.kernels import adamw as aw
 from ray_tpu_torch.ops.kernels import flash_attention as fa
 from ray_tpu_torch.ops.kernels import fused_ffn as ff
 from ray_tpu_torch.ops.kernels import quant
+from ray_tpu_torch.ops.kernels import rmsnorm as rms
+from ray_tpu_torch.ops.kernels import xent
+from ray_tpu_torch.ops.layers import rms_norm
 from ray_tpu_torch.train import (default_optimizer, fused_adamw_optimizer,
                                  make_train_step)
 from ray_tpu_torch.train.step import global_norm
@@ -360,3 +364,161 @@ def test_tiny_all_kernel_training_steps_go_through_the_kernels(cuda):
         ff.USE_K1, ff.USE_K2 = old
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     assert state.opt_state.nu["embed"].dtype == torch.float32
+
+
+# RMSNorm and cross-entropy: float32 outputs within 1e-5 of the plain
+# output's largest magnitude (another summation order), bfloat16 outputs
+# within REL_TOL (one rounding of nearly equal float32 values), and the row
+# statistics rstd, loss and lse within 2e-5 of each value.
+F32_TOL = 1e-5
+STAT_TOL = 2e-5
+
+
+def _stat_ok(got, want):
+    return bool(((got - want).abs() <= STAT_TOL * want.abs()).all())
+
+
+def _randn(shape, device, dtype, seed, scale=1.0, shift=0.0):
+    x = np.random.default_rng(seed).standard_normal(shape) * scale + shift
+    return torch.from_numpy(x.astype(np.float32)).to(device=device,
+                                                     dtype=dtype)
+
+
+@pytest.mark.parametrize("wdtype", DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(300, 130), (8, 4096), (5, 1000),
+                                   (3, 7)])
+def test_rmsnorm_kernels_match_plain_versions(cuda, shape, dtype, wdtype):
+    """d = 130 and 7 take the scalar path, 4096 and 1000 the 16-byte one;
+    x and w in every pairing of float32 and bfloat16."""
+    x = _randn(shape, cuda, dtype, 0, 2.0)
+    w = _randn(shape[-1:], cuda, wdtype, 1, 0.1, 1.0)
+    g = _randn(shape, cuda, dtype, 2)
+    before = [k.launches for k in rms.KERNELS]
+    out, rstd = rms.rms_norm_fwd(x, w, 1e-5)
+    p_out, p_rstd = rms.rms_norm_fwd_plain(x, w, 1e-5)
+    dx = rms.rms_norm_bwd_dx(x, w, p_rstd, g)
+    p_dx = rms.rms_norm_bwd_dx_plain(x, w, p_rstd, g)
+    torch.cuda.synchronize()
+    tol = F32_TOL if dtype == torch.float32 else REL_TOL
+    assert out.dtype == dx.dtype == dtype and rstd.shape == shape[:1]
+    assert _rel_err(out, p_out) < tol and _rel_err(dx, p_dx) < tol
+    assert _stat_ok(rstd, p_rstd)
+    assert [k.launches for k in rms.KERNELS] == [b + 1 for b in before]
+
+
+def test_rmsnorm_unaligned_rows_take_the_scalar_path(cuda):
+    """A contiguous view whose start is 4 bytes past a 16-byte boundary."""
+    flat = _randn((6 * 1000 + 1,), cuda, torch.float32, 0)
+    x = flat[1:].view(6, 1000)
+    assert x.data_ptr() % 16 != 0
+    w = _randn((1000,), cuda, torch.float32, 1, 0.1, 1.0)
+    out, rstd = rms.rms_norm_fwd(x, w)
+    p_out, p_rstd = rms.rms_norm_fwd_plain(x, w, 1e-5)
+    dx = rms.rms_norm_bwd_dx(x, w, p_rstd, x)
+    torch.cuda.synchronize()
+    assert _rel_err(out, p_out) < F32_TOL and _stat_ok(rstd, p_rstd)
+    assert _rel_err(dx, rms.rms_norm_bwd_dx_plain(x, w, p_rstd, x)) < F32_TOL
+
+
+def _labels(n, v, device, seed):
+    """Labels in [0, V), every fourth -1 and the last one V (past the
+    vocabulary: treated as negative)."""
+    lab = np.random.default_rng(seed).integers(0, v, n).astype(np.int32)
+    lab[::4] = -1
+    lab[-1] = v
+    return torch.from_numpy(lab).to(device)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,v", [(37, 3000), (300, 2100), (5, 128256),
+                                 (4, 13), (2, 1)])
+def test_xent_kernels_match_plain_versions(cuda, n, v, dtype):
+    logits = _randn((n, v), cuda, dtype, 0, 2.0)
+    labels = _labels(n, v, cuda, 1)
+    g = _randn((n,), cuda, torch.float32, 2)
+    before = [k.launches for k in xent.KERNELS]
+    loss, lse = xent.xent_fwd(logits, labels)
+    p_loss, p_lse = xent.xent_fwd_plain(logits, labels)
+    dx = xent.xent_bwd(logits, labels, p_lse, g)
+    p_dx = xent.xent_bwd_plain(logits, labels, p_lse, g)
+    torch.cuda.synchronize()
+    assert loss.dtype == lse.dtype == torch.float32 and dx.dtype == dtype
+    assert _stat_ok(loss, p_loss) and _stat_ok(lse, p_lse)
+    tol = F32_TOL if dtype == torch.float32 else REL_TOL
+    assert _rel_err(dx, p_dx) < tol
+    assert [k.launches for k in xent.KERNELS] == [b + 1 for b in before]
+
+
+def test_rmsnorm_and_xent_autograd_on_the_card(cuda):
+    """rms_norm_fused against autograd through ops.layers.rms_norm, and
+    softmax_cross_entropy against autograd through logsumexp, with int64
+    labels and ignored rows."""
+    x = _randn((2, 50, 136), cuda, torch.bfloat16, 0).requires_grad_(True)
+    w = _randn((136,), cuda, torch.bfloat16, 1, 0.1, 1.0).requires_grad_(True)
+    g = _randn((2, 50, 136), cuda, torch.bfloat16, 2)
+    before = [k.launches for k in (*rms.KERNELS, *xent.KERNELS)]
+    out = rms.rms_norm_fused(x, w)
+    grads = torch.autograd.grad(out, (x, w), g)
+    ref = rms_norm(x, w)
+    ref_grads = torch.autograd.grad(ref, (x, w), g)
+    assert _rel_err(out, ref) < REL_TOL
+    for a, b in zip(grads, ref_grads):
+        assert a.dtype == torch.bfloat16 and _rel_err(a, b) < REL_TOL
+
+    logits = _randn((37, 3000), cuda, torch.float32, 3).requires_grad_(True)
+    labels = _labels(37, 3000, cuda, 4).long()
+    wts = _randn((37,), cuda, torch.float32, 5)
+    loss = xent.softmax_cross_entropy(logits, labels)
+    (dl,) = torch.autograd.grad((loss * wts).sum(), logits)
+    valid = (labels >= 0) & (labels < 3000)
+    tgt = logits.gather(1, labels.clamp(0, 2999)[:, None])[:, 0]
+    ref = torch.logsumexp(logits, -1) - torch.where(valid, tgt, 0.0)
+    (ref_dl,) = torch.autograd.grad((ref * wts).sum(), logits)
+    assert _rel_err(loss, ref) < F32_TOL and _rel_err(dl, ref_dl) < F32_TOL
+    assert [k.launches for k in (*rms.KERNELS, *xent.KERNELS)] == \
+        [b + 1 for b in before]
+
+
+def test_norm_and_xent_wrappers_refuse_bad_inputs(cuda):
+    x = torch.zeros((8, 16), device=cuda)
+    w = torch.ones(16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        rms.rms_norm_fwd(x.t(), torch.ones(8, device=cuda))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rms.rms_norm_fwd(x, w.cpu())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rms.rms_norm_bwd_dx(x, w, torch.ones(8), x)
+    logits = torch.zeros((16, 8), device=cuda)
+    labels = torch.zeros(16, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        xent.xent_fwd(logits.t().contiguous().t(), labels)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        xent.xent_fwd(logits, labels.cpu())
+    with pytest.raises(TypeError, match="int32"):
+        xent.xent_fwd(logits, labels.long())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        xent.xent_bwd(logits, labels, torch.zeros(16), torch.zeros(16))
+
+
+def test_xent_bf16_past_two_to_the_31_elements(cuda):
+    """16800 x 128256 bf16 logits, 2.15e9 elements: the last rows lie past
+    2^31 elements, so a 32-bit offset would read the wrong rows there."""
+    n, v = 16800, 128256
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    logits = torch.randn((n, v), generator=gen, device=cuda,
+                         dtype=torch.bfloat16)
+    labels = torch.randint(0, v, (n,), generator=gen, device=cuda,
+                           dtype=torch.int32)
+    labels[-3] = -1
+    g = torch.rand((n,), generator=gen, device=cuda)
+    loss, lse = xent.xent_fwd(logits, labels)
+    dx = xent.xent_bwd(logits, labels, lse, g)
+    for rows in (slice(0, 64), slice(n - 64, n)):
+        p_loss, p_lse = xent.xent_fwd_plain(logits[rows], labels[rows])
+        p_dx = xent.xent_bwd_plain(logits[rows], labels[rows], lse[rows],
+                                   g[rows])
+        torch.cuda.synchronize()
+        assert _stat_ok(loss[rows], p_loss) and _stat_ok(lse[rows], p_lse)
+        assert _rel_err(dx[rows], p_dx) < REL_TOL

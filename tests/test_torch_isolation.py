@@ -35,7 +35,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "ray_tpu_torch.ops.kernels.adamw",
                  "ray_tpu_torch.ops.kernels.flash_attention",
                  "ray_tpu_torch.ops.kernels.fused_ffn",
-                 "ray_tpu_torch.ops.kernels.fused_attn"):
+                 "ray_tpu_torch.ops.kernels.fused_attn",
+                 "ray_tpu_torch.ops.kernels.rmsnorm",
+                 "ray_tpu_torch.ops.kernels.xent"):
         assert name in modules
     code = (
         "import importlib, json, sys\n"
