@@ -38,13 +38,22 @@ Phases (any failure exits non-zero and prints no result line):
      each with its plain version, its bound and one library call
      (F.rms_norm and its autograd backward, F.cross_entropy and its
      backward);
+  7c. hold the packed flash kernels (forward, dk/dv, dq over [b, s,
+     heads x hd], GQA by index) against their plain versions at the 8B
+     attention shape (q [2, 2048, 32 x 128], k/v [2, 2048, 8 x 128], bf16,
+     causal) and at shapes that do not tile ([1, 200] with 8/2 heads, a
+     decode window sq 64 against sk 300 at hd 64, s 130 at hd 32 not
+     causal): outputs within 1e-2 of the plain output's max, lse within
+     2e-5 of the plain lse's; time each with its plain version, its bound
+     and scaled_dot_product_attention (enable_gqa) on the strided [b, h, s,
+     hd] views and its backward, logging which SDPA backend runs;
   8. train Llama-3-8B at full width with 8 of its 32 layers (random bf16
      weights, one batch of 2 x 2049 tokens reused) for 8 steps of
      default_optimizer(warmup_steps=2), checking finite losses and grad
      norms, the first loss against its expectation for this init, a falling
      loss, and that each of the four kernels of this path launches exactly
-     n_layers times in every step (counters zeroed before the step, read
-     after);
+     n_layers times in every step and the packed flash kernels never
+     (counters zeroed before the step, read after);
   9. ms/step, tokens/s and MFU over steps 3-8, peak device memory, and a
      torch.profiler window of 3 more steps;
  10. with that state freed, the all-kernel step: the same config, seed and
@@ -62,6 +71,15 @@ Phases (any failure exits non-zero and prints no result line):
      ops.layers.rms_norm (within one bf16 ulp; dx and dw by autograd within
      1e-2), each of the four kernels launched exactly once (counters zeroed
      just before, read just after);
+ 10c. ops.attention_packed on layer 0's own q, k, v of the 8-layer model
+     (fresh params, same seed and batch; rms_norm, projections and rotary
+     as _attn_half builds them), forward and backward with a seeded bf16
+     cotangent, against ops.attention on the [b, h, s, hd] views (the
+     B1/B2 route) and against the float32 reference: output and dq/dk/dv
+     within 1e-2 of the compared tensor's max, each packed kernel launched
+     exactly once and the B1/B2 kernels never (counters zeroed just before,
+     read just after); logs which outputs and lse are bit-identical across
+     the two routes;
  11. print the kernels line, the nvidia-smi line, and the result line.
 
 Imports torch and the port only (never jax, never ray_tpu).
@@ -591,6 +609,36 @@ def xent_shapes():
             (37, 3000, "float32", True, 0)]
 
 
+def record_checked(torch, flush, rows, name, shape, dtype, calls, checks,
+                   nbytes, ops, ops_per_s, fn, plain, library, library_what,
+                   calls_what):
+    """Fail unless every check holds, then time kernel, plain version and
+    library call and append the row to `rows`. checks: (output, (max abs
+    err, relative err), limit)."""
+    for what, (err, rel), limit in checks:
+        if not rel < limit:
+            fail(f"{name} differs from its plain version at {shape} "
+                 f"{dtype}: {what} max abs err {err}, relative {rel} "
+                 f"(limit {limit})")
+    b_ms, b_by = bound_ms(nbytes, ops, ops_per_s)
+    row = {"shape": list(shape), "dtype": dtype, "calls": calls,
+           "max_abs_err": max(c[1][0] for c in checks),
+           "rel_err": {c[0]: c[1][1] for c in checks},
+           "ms": time_ms(torch, fn, flush),
+           "plain_ms": time_ms(torch, plain, flush),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": (time_ms(torch, library, flush)
+                          if library is not None else None),
+           "library": library_what if library is not None else None}
+    rows.append(row)
+    lib = ("" if row["library_ms"] is None else
+           f", library {row['library_ms']:.4f} ms ({library_what})")
+    log(f"kernel {name} {list(shape)} {dtype} ({calls} {calls_what}): rel "
+        f"err {row['rel_err']}; kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{b_ms / row['ms']:.3f} of bound{lib}")
+
+
 def stat_err(torch, got, want):
     """Largest |got - want| and largest |got - want| / |want| over the
     values of a row statistic (rstd, loss, lse)."""
@@ -613,29 +661,9 @@ def check_norm_xent_kernels(torch, gen):
 
     def record(name, shape, dtype, calls, checks, nbytes, ops, fn, plain,
                library, library_what):
-        """checks: (output, (max abs err, relative err), limit)."""
-        for what, (err, rel), limit in checks:
-            if not rel < limit:
-                fail(f"{name} differs from its plain version at {shape} "
-                     f"{dtype}: {what} max abs err {err}, relative {rel} "
-                     f"(limit {limit})")
-        b_ms, b_by = bound_ms(nbytes, ops, PEAK_F32_OPS_PER_S)
-        row = {"shape": list(shape), "dtype": dtype, "calls": calls,
-               "max_abs_err": max(c[1][0] for c in checks),
-               "rel_err": {c[0]: c[1][1] for c in checks},
-               "ms": time_ms(torch, fn, flush),
-               "plain_ms": time_ms(torch, plain, flush),
-               "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": (time_ms(torch, library, flush)
-                              if library is not None else None),
-               "library": library_what if library is not None else None}
-        rows[name].append(row)
-        lib = ("" if row["library_ms"] is None else
-               f", library {row['library_ms']:.4f} ms ({library_what})")
-        log(f"kernel {name} {list(shape)} {dtype} ({calls} calls in phase "
-            f"10b): rel err {row['rel_err']}; kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"{b_ms / row['ms']:.3f} of bound{lib}")
+        record_checked(torch, flush, rows[name], name, shape, dtype, calls,
+                       checks, nbytes, ops, PEAK_F32_OPS_PER_S, fn, plain,
+                       library, library_what, "calls in phase 10b")
 
     eps = 1e-5
     for n, d, dtype, calls in norm_shapes():
@@ -842,7 +870,9 @@ def train_both(torch, card: str, seed: int, cfg):
     from ray_tpu_torch.train import default_optimizer, fused_adamw_optimizer
 
     L = cfg.n_layers
-    kernels = (*fa.KERNELS, *ff.KERNELS, aw.adamw_update)
+    # the packed kernels are on neither path: they must launch 0 times
+    kernels = (*fa.KERNELS, *ff.KERNELS, aw.adamw_update,
+               *fa.PACKED_KERNELS)
     default_want = {k.__name__: (L if k in (*fa.KERNELS, ff.dw_gateup)
                                  else 0) for k in kernels}
     base = train(torch, card, seed, cfg, default_optimizer(warmup_steps=2),
@@ -854,6 +884,7 @@ def train_both(torch, card: str, seed: int, cfg):
              f"the ones phase 7 checked the AdamW kernel at {want_shapes}")
     all_want = {k.__name__: L for k in (*fa.KERNELS, *ff.KERNELS)}
     all_want[aw.adamw_update.__name__] = n_leaves
+    all_want.update({k.__name__: 0 for k in fa.PACKED_KERNELS})
     old = ff.USE_K1, ff.USE_K2, ff.USE_K3
     ff.USE_K1 = ff.USE_K2 = ff.USE_K3 = True
     try:
@@ -977,6 +1008,241 @@ def check_entries_on_model(torch, gen, seed: int, cfg, first_loss: float):
     if launches != want:
         fail(f"phase 10b launched {launches}; expected {want}")
     return launches
+
+
+def packed_shapes():
+    """(b, heads, kv heads, sq, sk, head_dim, causal, calls in phase 10c) of
+    the packed flash kernels: the 8B attention shape (b 2, 32 query and 8
+    kv heads, s 2048, hd 128), then shapes that do not tile: a ragged
+    sequence, a decode window (sq 64 against sk 300, n_rep 1, hd 64) and
+    s 130 at hd 32, not causal."""
+    return [(2, 32, 8, 2048, 2048, 128, True, 1),
+            (1, 8, 2, 200, 200, 128, True, 0),
+            (1, 2, 2, 64, 300, 64, True, 0),
+            (1, 4, 1, 130, 130, 32, False, 0)]
+
+
+def heads_view(t, n: int):
+    """[b, s, n·d] -> the strided [b, n, s, d] view."""
+    b, s, width = t.shape
+    return t.view(b, s, n, width // n).transpose(1, 2)
+
+
+def sdpa_backend(torch, q, k, v, causal: bool) -> str:
+    """The backend PyTorch's dispatcher picks for this SDPA call."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(
+        q, k, v, is_causal=causal, enable_gqa=True)).name
+
+
+def check_packed_kernels(torch, gen):
+    """Phase 7c: the packed flash kernels against their plain versions,
+    and their times, bounds and SDPA's time on the same strided heads."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    rows = {k.__name__: [] for k in fa.PACKED_KERNELS}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    for b, h, kv, sq, sk, d, causal, calls in packed_shapes():
+        shape = (b, h, kv, sq, sk, d)
+        scale = d ** -0.5
+        q, do = randn(b, sq, h * d), randn(b, sq, h * d)
+        k, v = randn(b, sk, kv * d), randn(b, sk, kv * d)
+        out, lse = fa.flash_fwd_packed(q, k, v, h, kv, scale, causal)
+        p_out, p_lse = fa.flash_fwd_packed_plain(q, k, v, h, kv, scale,
+                                                 causal)
+        torch.cuda.synchronize()
+        # lse relative to its largest magnitude: a causal row 0 has one
+        # key, and its lse (that one score) may lie near 0
+        fwd_checks = [("out", rel_err(torch, out, p_out), REL_ERR_LIMIT),
+                      ("lse", rel_err(torch, lse, p_lse), STAT_REL_LIMIT)]
+        del out, lse
+        delta = fa.flash_delta_packed(p_out, do, h)
+        bwd = (q, k, v, do, p_lse, delta, h, kv, scale, causal)
+        dk, dv = fa.flash_bwd_dkv_packed(*bwd)
+        p_dk, p_dv = fa.flash_bwd_dkv_packed_plain(*bwd)
+        dq = fa.flash_bwd_dq_packed(*bwd)
+        p_dq = fa.flash_bwd_dq_packed_plain(*bwd)
+        torch.cuda.synchronize()
+        dkv_checks = [("dk", rel_err(torch, dk, p_dk), REL_ERR_LIMIT),
+                      ("dv", rel_err(torch, dv, p_dv), REL_ERR_LIMIT)]
+        dq_checks = [("dq", rel_err(torch, dq, p_dq), REL_ERR_LIMIT)]
+        del dk, dv, dq, p_dk, p_dv, p_dq
+        torch.cuda.empty_cache()
+        # FLOP as phase 7 (only the causal pairs); bytes: q, o, dO and dq
+        # [b, sq, h·d], k, v, dk, dv [b, sk, kv·d], lse and delta [b, h, sq]
+        product = 2 * b * h * causal_pairs(sq, sk, causal) * d
+        qo_bytes, kv_bytes, row_bytes = (2 * b * sq * h * d,
+                                         2 * b * sk * kv * d, 4 * b * h * sq)
+        lib_fwd = lib_bwd = lib_out = None
+        if sq == sk:  # SDPA's causal mask is end-aligned here
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            views = [heads_view(t, n) for t, n in zip(leaves, (h, kv, kv))]
+            lib_out = sdpa(*views, is_causal=causal, enable_gqa=True)
+            g4 = heads_view(do, h)
+
+            def lib_fwd():
+                with torch.no_grad():
+                    sdpa(*views, is_causal=causal, enable_gqa=True)
+
+            def lib_bwd():
+                torch.autograd.grad(lib_out, leaves, g4, retain_graph=True)
+
+            if calls:
+                log(f"SDPA at {list(shape)}: the dispatcher picks "
+                    f"{sdpa_backend(torch, *views, causal)}")
+        lib_what = ("torch scaled_dot_product_attention on the strided "
+                    "[b, h, s, d] views, enable_gqa")
+        bwd_what = ("the autograd backward of that call (dq, dk and dv in "
+                    "one call)")
+        common = dict(torch=torch, flush=flush, shape=shape, dtype="bfloat16",
+                      calls=calls, ops_per_s=PEAK_BF16_OPS_PER_S,
+                      calls_what="calls in phase 10c")
+        record_checked(rows=rows["flash_fwd_packed"], name="flash_fwd_packed",
+                       checks=fwd_checks,
+                       nbytes=2 * qo_bytes + 2 * kv_bytes + row_bytes,
+                       ops=2 * product,
+                       fn=lambda: fa.flash_fwd_packed(q, k, v, h, kv, scale,
+                                                      causal),
+                       plain=lambda: fa.flash_fwd_packed_plain(
+                           q, k, v, h, kv, scale, causal),
+                       library=lib_fwd, library_what=lib_what, **common)
+        record_checked(rows=rows["flash_bwd_dkv_packed"],
+                       name="flash_bwd_dkv_packed", checks=dkv_checks,
+                       nbytes=2 * qo_bytes + 4 * kv_bytes + 2 * row_bytes,
+                       ops=4 * product,
+                       fn=lambda: fa.flash_bwd_dkv_packed(*bwd),
+                       plain=lambda: fa.flash_bwd_dkv_packed_plain(*bwd),
+                       library=lib_bwd, library_what=bwd_what, **common)
+        record_checked(rows=rows["flash_bwd_dq_packed"],
+                       name="flash_bwd_dq_packed", checks=dq_checks,
+                       nbytes=3 * qo_bytes + 2 * kv_bytes + 2 * row_bytes,
+                       ops=3 * product,
+                       fn=lambda: fa.flash_bwd_dq_packed(*bwd),
+                       plain=lambda: fa.flash_bwd_dq_packed_plain(*bwd),
+                       library=lib_bwd, library_what=bwd_what, **common)
+        lib_fwd = lib_bwd = lib_out = None
+        del q, k, v, do, p_out, p_lse, delta, bwd
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    log(f"phase 7c: {time.perf_counter() - t0:.2f} s")
+    return rows
+
+
+def check_packed_entry_on_model(torch, gen, seed: int, cfg):
+    """Phase 10c: ops.attention_packed on layer 0's own q, k, v of the
+    8-layer model (fresh params, the seed and batch of phase 8), forward
+    and backward, against the B1/B2 route (ops.attention on the [b, h, s,
+    d] views) and the float32 reference; each packed kernel launched
+    exactly once. Returns {kernel: launches}."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import init_params
+    from ray_tpu_torch.ops.attention import (_repeat_kv, attention,
+                                             attention_packed,
+                                             causal_attention_reference)
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.layers import (apply_rotary, rms_norm,
+                                          rotary_embedding)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    params = init_params(cfg, seed=seed, device="cuda")
+    batch = bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1, "cuda")
+    b, s = batch["inputs"].shape
+    with torch.no_grad():
+        # layer 0's attention input as _attn_half builds it
+        # (models/transformer.py:228-245; this config has fused_proj off)
+        layer0 = {n: params["layers"][n][0]
+                  for n in ("attn_norm", "wq", "wk", "wv")}
+        x = params["embed"][batch["inputs"]]
+        hn = rms_norm(x, layer0["attn_norm"], cfg.norm_eps)
+        q, k, v = hn @ layer0["wq"], hn @ layer0["wk"], hn @ layer0["wv"]
+        cos, sin = rotary_embedding(torch.arange(s, device="cuda"), hd,
+                                    cfg.rope_theta)
+        q = apply_rotary(q.view(b, s, H, hd), cos[None],
+                         sin[None]).reshape(b, s, H * hd)
+        k = apply_rotary(k.view(b, s, KV, hd), cos[None],
+                         sin[None]).reshape(b, s, KV * hd)
+    del params, layer0, x, hn
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+
+    kernels = (*fa.PACKED_KERNELS, *fa.KERNELS)
+    for kern in kernels:  # the main path's counts start here
+        kern.launches = 0
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out_p = attention_packed(*leaves, n_heads=H, n_kv_heads=KV)
+    grads_p = torch.autograd.grad(out_p, leaves, g)
+    torch.cuda.synchronize()
+    launches = {kern.__name__: kern.launches for kern in kernels}
+
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out_b = attention(*(heads_view(t, n) for t, n in zip(leaves,
+                                                         (H, KV, KV))))
+    out_b = out_b.transpose(1, 2).reshape(b, s, H * hd)
+    grads_b = torch.autograd.grad(out_b, leaves, g)
+
+    # the float32 reference: [b, h, s, s] float32 logits (1.07 GB)
+    leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    q4, k4, v4 = (heads_view(t, n) for t, n in zip(leaves, (H, KV, KV)))
+    ref = causal_attention_reference(q4, _repeat_kv(k4, H // KV),
+                                     _repeat_kv(v4, H // KV))
+    ref = ref.transpose(1, 2).reshape(b, s, H * hd)
+    grads_r = torch.autograd.grad(ref, leaves, g.float())
+    del leaves, q4, k4, v4
+    torch.cuda.synchronize()
+
+    names = ("out", "dq", "dk", "dv")
+    errs = {}
+    for name, p_t, b_t, r_t in zip(names, (out_p, *grads_p),
+                                   (out_b, *grads_b), (ref, *grads_r)):
+        errs[name] = {"vs_b1_b2": rel_err(torch, p_t, b_t)[1],
+                      "b1_b2_vs_f32": rel_err(torch, b_t, r_t)[1],
+                      "packed_vs_f32": rel_err(torch, p_t, r_t)[1]}
+    same = {name: torch.equal(p_t, b_t) for name, p_t, b_t in
+            zip(names, (out_p, *grads_p), (out_b, *grads_b))}
+    del out_b, grads_b, ref, grads_r
+    torch.cuda.empty_cache()
+    # lse of the two routes, beside the counted run
+    scale = hd ** -0.5
+    _, lse_p = fa.flash_fwd_packed(q, k, v, H, KV, scale)
+    flat = [heads_view(t, n).repeat_interleave(H // n, 1).reshape(
+        b * H, s, hd) for t, n in ((q, H), (k, KV), (v, KV))]
+    _, lse_b = fa.flash_fwd(*flat, scale)
+    same["lse"] = torch.equal(lse_p.view(b * H, s), lse_b)
+    del flat, lse_p, lse_b
+    finite = all(bool(torch.isfinite(t).all()) for t in (out_p, *grads_p))
+    log(f"packed entry on the model: layer 0's q {list(q.shape)}, k/v "
+        f"{list(k.shape)} {str(q.dtype).replace('torch.', '')}; relative "
+        f"errors {errs} (limit {REL_ERR_LIMIT}); bit-identical to the "
+        f"B1/B2 route: {same}; finite {finite}")
+    if not finite:
+        fail("the packed entry's output or gradients on the model are not "
+             "finite")
+    for name, e in errs.items():
+        if not max(e.values()) < REL_ERR_LIMIT:
+            fail(f"packed entry on the model: {name} {e} (limit "
+                 f"{REL_ERR_LIMIT})")
+    want = {kern.__name__: (1 if kern in fa.PACKED_KERNELS else 0)
+            for kern in kernels}
+    log(f"packed entry on the model: launches {launches} (expected "
+        f"{want}); phase {time.perf_counter() - t0:.2f} s")
+    if launches != want:
+        fail(f"phase 10c launched {launches}; expected {want}")
+    return {kern.__name__: launches[kern.__name__]
+            for kern in fa.PACKED_KERNELS}
 
 
 def main() -> int:
@@ -1126,6 +1392,8 @@ def main() -> int:
     train_rows = check_train_kernels(torch, gen, train_cfg)
     # ---- phase 7b: the RMSNorm and cross-entropy kernels
     entry_rows = check_norm_xent_kernels(torch, gen)
+    # ---- phase 7c: the packed flash kernels
+    packed_rows = check_packed_kernels(torch, gen)
 
     # ---- phases 8-10: train llama3_8b width, 8 layers, on the default
     # step and then the all-kernel step; measure both
@@ -1133,10 +1401,13 @@ def main() -> int:
     # each kernel's launches on the path it was ported for: the default
     # step for the flash kernels and K3, the all-kernel step for the rest
     train_launches = {k: (n["default"] if n["default"] else n["all-kernel"])
-                      for k, n in by_path.items()}
+                      for k, n in by_path.items() if k not in packed_rows}
     # ---- phase 10b: the RMSNorm and cross-entropy entries on the model
     entry_launches = check_entries_on_model(torch, gen, args.seed, train_cfg,
                                             first_loss)
+    # ---- phase 10c: the packed flash-attention entry on the model
+    entry_launches.update(check_packed_entry_on_model(torch, gen, args.seed,
+                                                      train_cfg))
 
     # ---- phase 11: report
     pallas = "ray_tpu/ops/pallas/"
@@ -1152,7 +1423,10 @@ def main() -> int:
                 "rms_norm_fwd": pallas + "rmsnorm.py:25",
                 "rms_norm_bwd_dx": pallas + "rmsnorm.py:33",
                 "xent_fwd": pallas + "xent.py:28",
-                "xent_bwd": pallas + "xent.py:59"}
+                "xent_bwd": pallas + "xent.py:59",
+                "flash_fwd_packed": pallas + "flash_attention.py:385",
+                "flash_bwd_dkv_packed": pallas + "flash_attention.py:442",
+                "flash_bwd_dq_packed": pallas + "flash_attention.py:480"}
     csrc = "ray_tpu_torch/ops/kernels/csrc/"
     source = {"quantize_int8": csrc + "quant.cu",
               "dequantize_int8": csrc + "quant.cu",
@@ -1166,17 +1440,23 @@ def main() -> int:
               "rms_norm_fwd": csrc + "rmsnorm.cu",
               "rms_norm_bwd_dx": csrc + "rmsnorm.cu",
               "xent_fwd": csrc + "xent.cu",
-              "xent_bwd": csrc + "xent.cu"}
+              "xent_bwd": csrc + "xent.cu",
+              "flash_fwd_packed": csrc + "flash_attention.cu",
+              "flash_bwd_dkv_packed": csrc + "flash_attention.cu",
+              "flash_bwd_dq_packed": csrc + "flash_attention.cu"}
     norm_per = "one norm-and-gradient at the 8B training shape"
     xent_per = "one loss-and-gradient of the 8B logits"
+    packed_per = "one forward-and-gradient at the 8B attention shape"
     per = {"quantize_int8": "one model load",
            "dequantize_int8": "one decode step",
            "rms_norm_fwd": norm_per, "rms_norm_bwd_dx": norm_per,
-           "xent_fwd": xent_per, "xent_bwd": xent_per}
+           "xent_fwd": xent_per, "xent_bwd": xent_per,
+           **{k: packed_per for k in packed_rows}}
     launches.update(train_launches)
     launches.update(entry_launches)
     kernels = []
-    for kname, rows in {**kernel_rows, **train_rows, **entry_rows}.items():
+    for kname, rows in {**kernel_rows, **train_rows, **entry_rows,
+                        **packed_rows}.items():
         # times: the main path's calls for `per`, each shape timed once and
         # counted as often as the path calls it
         lib = [r for r in rows if r["calls"] and r.get("library_ms")]

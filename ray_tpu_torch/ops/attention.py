@@ -1,12 +1,16 @@
-"""Attention (twin of ray_tpu/ops/attention.py:30-81): the flash kernels on
-a CUDA device, a reference einsum elsewhere.
+"""Attention (twin of ray_tpu/ops/attention.py): the flash kernels on a
+CUDA device, a reference einsum elsewhere.
 
 `attention` takes `[batch, heads, seq, head_dim]` tensors and supports GQA
-by repeating K/V heads first. On a CUDA tensor whose shape passes the same
-gate as the reference's TPU dispatch (head_dim >= 128 and seq >= 128) it
-runs `FlashAttention`, the hand-written forward/backward pair; otherwise it
-runs `causal_attention_reference`, the ground truth the kernels are held
-against.
+by repeating K/V heads first. `attention_packed` takes the packed
+`[batch, seq, heads·head_dim]` layout the q/k/v projections produce, with
+K/V `[batch, seq, kv_heads·head_dim]` never repeated. On a CUDA tensor
+whose shape passes the same gate as the reference's TPU dispatch
+(head_dim >= 128 and seq >= 128) each runs its hand-written
+forward/backward kernels (`FlashAttention`, `flash_attention_packed`);
+otherwise each runs `causal_attention_reference`, the ground truth the
+kernels are held against, the packed one through reshapes. No model path
+calls `attention_packed`, in either package.
 """
 
 from __future__ import annotations
@@ -64,3 +68,28 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    v.reshape(b * h, sk, d), scale, causal)
         return out.reshape(b, h, sq, d)
     return causal_attention_reference(q, k, v, sm_scale=scale, causal=causal)
+
+
+def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     n_heads: int, n_kv_heads: int, causal: bool = True,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over packed [batch, seq, heads·head_dim] tensors; supports
+    GQA (k/v [batch, seq, n_kv_heads·head_dim])."""
+    b, sq, hd = q.shape
+    d = hd // n_heads
+    sk = k.shape[1]
+    scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
+    if q.is_cuda and d >= 128 and sq >= 128:
+        from ray_tpu_torch.ops.kernels.flash_attention import (
+            flash_attention_packed)
+
+        return flash_attention_packed(q, k, v, n_heads, n_kv_heads, scale,
+                                      causal)
+    q4 = q.reshape(b, sq, n_heads, d).transpose(1, 2)
+    k4 = k.reshape(b, sk, n_kv_heads, d).transpose(1, 2)
+    v4 = v.reshape(b, sk, n_kv_heads, d).transpose(1, 2)
+    n_rep = n_heads // n_kv_heads
+    out = causal_attention_reference(q4, _repeat_kv(k4, n_rep),
+                                     _repeat_kv(v4, n_rep), sm_scale=scale,
+                                     causal=causal)
+    return out.transpose(1, 2).reshape(b, sq, hd)

@@ -2,10 +2,12 @@
 // kernels, bf16 operands with float32 accumulation and softmax state.
 //
 // flash_fwd_kernel replaces the TPU kernel _fwd_kernel
-// (ray_tpu/ops/pallas/flash_attention.py:38, via _flash_fwd :104);
-// flash_bwd_dkv_kernel replaces _bwd_dkv_kernel (:181) and
-// flash_bwd_dq_kernel replaces _bwd_dq_kernel (:224), both built on the
-// recompute of _recompute_p_ds (:142).
+// (ray_tpu/ops/pallas/flash_attention.py:38) in both of its calls, over
+// [b*h, s, d] (_flash_fwd :104) and over the packed [b, s, h*d] layout
+// (_flash_fwd_packed :376); flash_bwd_dkv_kernel replaces _bwd_dkv_kernel
+// (:181) and flash_bwd_dq_kernel replaces _bwd_dq_kernel (:224), both built
+// on the recompute of _recompute_p_ds (:142), in _flash_bwd (:276, :303)
+// and in _flash_bwd_packed (:442, :480).
 //
 // What bounds them on an H100: tensor-core operations. At the Llama-3-8B
 // training shape (b*h = 64, s = 2048, head_dim 128, causal) each product
@@ -31,8 +33,21 @@
 //  * The forward keeps its output accumulator in shared memory and rescales
 //    it by exp(m_prev - m_new) before each P.V product; l >= 1e-30 guards
 //    rows that saw no key.
-//  * GQA is handled by the caller, which passes K/V repeated per query head
-//    and sums dk/dv over the groups afterwards, as the reference does.
+//  * One layout serves both calls: q, dO, out and dq are [b, sq, heads*D]
+//    and k, v, dk, dv [b, sk, (heads/n_rep)*D], lse and delta
+//    [b, heads, sq]. The grid's y axis is the head and z the batch; a
+//    block finds its head's rows by strides (row stride heads*D on the
+//    query side, (heads/n_rep)*D on the key side), so [b*h, s, d] is the
+//    case heads = 1, n_rep = 1 and no transpose is ever made. Each head's
+//    slice of a row is D*2 bytes (64-256), so the 16-byte loads stay
+//    whole. Offsets are 64-bit.
+//  * GQA by index: query head h reads kv head h / n_rep, and K/V are never
+//    repeated. A dk/dv block owns one key tile of one kv head and walks the
+//    query tiles of all n_rep query heads that share it, accumulating in
+//    its float32 fragments and writing once (no atomics; the causal skip
+//    of the first query tiles applies per head). The [b*h, s, d] callers
+//    pass K/V repeated per query head and sum dk/dv over the groups
+//    afterwards, as the reference's unpacked path does.
 //
 // Head dims 32, 64 and 128 are instantiated; the caller checks the rest.
 
@@ -62,11 +77,13 @@ using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// Copies rows [row0, row0 + rows) of a row-major [n, D] bf16 matrix into a
-// [rows][D + 8] shared tile with 16-byte moves; rows >= n become zeros.
+// Copies rows [row0, row0 + rows) of an [n, D] bf16 matrix whose rows lie
+// ld elements apart into a [rows][D + 8] shared tile with 16-byte moves;
+// rows >= n become zeros.
 template <int D>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int row0, int n, int rows) {
+                                          int row0, int n, int rows,
+                                          int64_t ld) {
   constexpr int kVec = D / 8;
   constexpr int kLd = D + 8;
   for (int i = threadIdx.x; i < rows * kVec; i += kThreads) {
@@ -75,7 +92,7 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n) {
       val = *reinterpret_cast<const uint4*>(
-          src + (static_cast<int64_t>(row0) + r) * D + c);
+          src + (static_cast<int64_t>(row0) + r) * ld + c);
     }
     *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
   }
@@ -138,8 +155,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ lse, int sq, int sk, float scale,
-                     int causal) {
+                     float* __restrict__ lse, int sq, int sk, int n_rep,
+                     float scale, int causal) {
   constexpr int kLdT = D + 8;
   constexpr int kLdO = D + 4;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -153,15 +170,20 @@ __global__ void __launch_bounds__(kThreads)
   float* sL = sM + kBQ;
   float* sAlpha = sL + kBQ;
 
-  const int bh = blockIdx.y;
+  const int head = blockIdx.y;
+  const int heads = gridDim.y;
+  const int batch = blockIdx.z;
   const int q0 = blockIdx.x * kBQ;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const bf16* qh = q + static_cast<int64_t>(bh) * sq * D;
-  const bf16* kh = k + static_cast<int64_t>(bh) * sk * D;
-  const bf16* vh = v + static_cast<int64_t>(bh) * sk * D;
+  const int64_t ldq = static_cast<int64_t>(heads) * D;
+  const int64_t ldk = static_cast<int64_t>(heads / n_rep) * D;
+  const int64_t qoff = static_cast<int64_t>(batch) * sq * ldq + head * D;
+  const int64_t koff =
+      static_cast<int64_t>(batch) * sk * ldk + (head / n_rep) * D;
+  const int64_t row_off = (static_cast<int64_t>(batch) * heads + head) * sq;
 
-  load_rows<D>(sQ, qh, q0, sq, kBQ);
+  load_rows<D>(sQ, q + qoff, q0, sq, kBQ, ldq);
   for (int i = threadIdx.x; i < kBQ * kLdO; i += kThreads) sO[i] = 0.0f;
   for (int i = threadIdx.x; i < kBQ; i += kThreads) {
     sM[i] = kNegInf;
@@ -178,8 +200,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();  // the previous tile's readers are done
-    load_rows<D>(sK, kh, k0, sk, kBK);
-    load_rows<D>(sV, vh, k0, sk, kBK);
+    load_rows<D>(sK, k + koff, k0, sk, kBK, ldk);
+    load_rows<D>(sV, v + koff, k0, sk, kBK, ldk);
     __syncthreads();
     rows_times_tile_t<D>(sQ + warp * 16 * kLdT, sK, sS + warp * 16 * kLdS);
     __syncwarp();
@@ -240,13 +262,13 @@ __global__ void __launch_bounds__(kThreads)
     const int rr = i / D;
     if (q0 + rr < sq) {
       const float l = fmaxf(sL[rr], 1e-30f);
-      out[(static_cast<int64_t>(bh) * sq + q0 + rr) * D + i % D] =
+      out[qoff + (static_cast<int64_t>(q0) + rr) * ldq + i % D] =
           __float2bfloat16_rn(sO[rr * kLdO + i % D] / l);
     }
   }
   for (int rr = threadIdx.x; rr < kBQ; rr += kThreads) {
     if (q0 + rr < sq) {
-      lse[static_cast<int64_t>(bh) * sq + q0 + rr] =
+      lse[row_off + q0 + rr] =
           sM[rr] + logf(fmaxf(sL[rr], 1e-30f));
     }
   }
@@ -326,14 +348,16 @@ __device__ __forceinline__ void recompute_p_ds(const BwdTiles<D>& t, int q0,
   }
 }
 
-// Writes a float32 [rows][D + 4] staging tile as bf16 rows [row0, n).
+// Writes a float32 [rows][D + 4] staging tile as bf16 rows [row0, n) of a
+// matrix whose rows lie ld elements apart.
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* dst, const float* stage,
-                                           int row0, int n, int rows) {
+                                           int row0, int n, int rows,
+                                           int64_t ld) {
   for (int i = threadIdx.x; i < rows * D; i += kThreads) {
     const int r = i / D;
     if (row0 + r < n) {
-      dst[(static_cast<int64_t>(row0) + r) * D + i % D] =
+      dst[(static_cast<int64_t>(row0) + r) * ld + i % D] =
           __float2bfloat16_rn(stage[r * (D + 4) + i % D]);
     }
   }
@@ -348,18 +372,22 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int sq,
-                         int sk, float scale, int causal) {
+                         int sk, int n_rep, float scale, int causal) {
   constexpr int kLdT = D + 8;
   extern __shared__ __align__(128) unsigned char smem[];
   BwdTiles<D> t(smem);
-  const int bh = blockIdx.y;
+  const int g = blockIdx.y;  // kv head
+  const int n_kv = gridDim.y;
+  const int heads = n_kv * n_rep;
+  const int batch = blockIdx.z;
   const int k0 = blockIdx.x * kBK;
   const int warp = threadIdx.x >> 5;
-  const int64_t qoff = static_cast<int64_t>(bh) * sq;
-  const int64_t koff = static_cast<int64_t>(bh) * sk;
+  const int64_t ldq = static_cast<int64_t>(heads) * D;
+  const int64_t ldk = static_cast<int64_t>(n_kv) * D;
+  const int64_t koff = static_cast<int64_t>(batch) * sk * ldk + g * D;
 
-  load_rows<D>(t.k, k + koff * D, k0, sk, kBK);
-  load_rows<D>(t.v, v + koff * D, k0, sk, kBK);
+  load_rows<D>(t.k, k + koff, k0, sk, kBK, ldk);
+  load_rows<D>(t.v, v + koff, k0, sk, kBK, ldk);
 
   FragC acc_dk[D / 16];
   FragC acc_dv[D / 16];
@@ -377,32 +405,41 @@ __global__ void __launch_bounds__(kThreads)
     qb0 = need <= 0 ? 0 : (need + kBQ - 1) / kBQ;
   }
   const int n_qb = (sq + kBQ - 1) / kBQ;
-  for (int qb = qb0; qb < n_qb; ++qb) {
-    const int q0 = qb * kBQ;
-    __syncthreads();
-    load_rows<D>(t.q, q + qoff * D, q0, sq, kBQ);
-    load_rows<D>(t.dout, dout + qoff * D, q0, sq, kBQ);
-    load_vec(t.lse, lse + qoff, q0, sq);
-    load_vec(t.delta, delta + qoff, q0, sq);
-    __syncthreads();
-    recompute_p_ds<D>(t, q0, k0, sq, sk, scale, causal, true);
-    __syncthreads();  // every warp reads every query row of p and ds
-    // dv += p^T.dO and dk += ds^T.q over this query tile, for the warp's
-    // 16 key rows: A(key, query) = p[query][key] is p read column-major.
+  // every query head of this kv head, each over its query tiles
+  for (int r = 0; r < n_rep; ++r) {
+    const int head = g * n_rep + r;
+    const int64_t qoff = static_cast<int64_t>(batch) * sq * ldq + head * D;
+    const int64_t row_off =
+        (static_cast<int64_t>(batch) * heads + head) * sq;
+    for (int qb = qb0; qb < n_qb; ++qb) {
+      const int q0 = qb * kBQ;
+      __syncthreads();
+      load_rows<D>(t.q, q + qoff, q0, sq, kBQ, ldq);
+      load_rows<D>(t.dout, dout + qoff, q0, sq, kBQ, ldq);
+      load_vec(t.lse, lse + row_off, q0, sq);
+      load_vec(t.delta, delta + row_off, q0, sq);
+      __syncthreads();
+      recompute_p_ds<D>(t, q0, k0, sq, sk, scale, causal, true);
+      __syncthreads();  // every warp reads every query row of p and ds
+      // dv += p^T.dO and dk += ds^T.q over this query tile, for the warp's
+      // 16 key rows: A(key, query) = p[query][key] is p read column-major.
 #pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk) {
-      FragAt a_p;
-      FragAt a_ds;
-      wmma::load_matrix_sync(a_p, t.p + kk * 16 * kLdP + warp * 16, kLdP);
-      wmma::load_matrix_sync(a_ds, t.ds + kk * 16 * kLdP + warp * 16, kLdP);
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+        FragAt a_p;
+        FragAt a_ds;
+        wmma::load_matrix_sync(a_p, t.p + kk * 16 * kLdP + warp * 16, kLdP);
+        wmma::load_matrix_sync(a_ds, t.ds + kk * 16 * kLdP + warp * 16,
+                               kLdP);
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        FragB b_do;
-        FragB b_q;
-        wmma::load_matrix_sync(b_do, t.dout + kk * 16 * kLdT + j * 16, kLdT);
-        wmma::load_matrix_sync(b_q, t.q + kk * 16 * kLdT + j * 16, kLdT);
-        wmma::mma_sync(acc_dv[j], a_p, b_do, acc_dv[j]);
-        wmma::mma_sync(acc_dk[j], a_ds, b_q, acc_dk[j]);
+        for (int j = 0; j < D / 16; ++j) {
+          FragB b_do;
+          FragB b_q;
+          wmma::load_matrix_sync(b_do, t.dout + kk * 16 * kLdT + j * 16,
+                                 kLdT);
+          wmma::load_matrix_sync(b_q, t.q + kk * 16 * kLdT + j * 16, kLdT);
+          wmma::mma_sync(acc_dv[j], a_p, b_do, acc_dv[j]);
+          wmma::mma_sync(acc_dk[j], a_ds, b_q, acc_dk[j]);
+        }
       }
     }
   }
@@ -418,8 +455,8 @@ __global__ void __launch_bounds__(kThreads)
                             acc_dv[j], D + 4, wmma::mem_row_major);
   }
   __syncthreads();
-  store_rows<D>(dk + koff * D, stage_k, k0, sk, kBK);
-  store_rows<D>(dv + koff * D, stage_v, k0, sk, kBK);
+  store_rows<D>(dk + koff, stage_k, k0, sk, kBK, ldk);
+  store_rows<D>(dv + koff, stage_v, k0, sk, kBK, ldk);
 }
 
 template <int D>
@@ -430,21 +467,27 @@ __global__ void __launch_bounds__(kThreads)
                         const bf16* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int sq, int sk, float scale,
-                        int causal) {
+                        bf16* __restrict__ dq, int sq, int sk, int n_rep,
+                        float scale, int causal) {
   constexpr int kLdT = D + 8;
   extern __shared__ __align__(128) unsigned char smem[];
   BwdTiles<D> t(smem);
-  const int bh = blockIdx.y;
+  const int head = blockIdx.y;
+  const int heads = gridDim.y;
+  const int batch = blockIdx.z;
   const int q0 = blockIdx.x * kBQ;
   const int warp = threadIdx.x >> 5;
-  const int64_t qoff = static_cast<int64_t>(bh) * sq;
-  const int64_t koff = static_cast<int64_t>(bh) * sk;
+  const int64_t ldq = static_cast<int64_t>(heads) * D;
+  const int64_t ldk = static_cast<int64_t>(heads / n_rep) * D;
+  const int64_t qoff = static_cast<int64_t>(batch) * sq * ldq + head * D;
+  const int64_t koff =
+      static_cast<int64_t>(batch) * sk * ldk + (head / n_rep) * D;
+  const int64_t row_off = (static_cast<int64_t>(batch) * heads + head) * sq;
 
-  load_rows<D>(t.q, q + qoff * D, q0, sq, kBQ);
-  load_rows<D>(t.dout, dout + qoff * D, q0, sq, kBQ);
-  load_vec(t.lse, lse + qoff, q0, sq);
-  load_vec(t.delta, delta + qoff, q0, sq);
+  load_rows<D>(t.q, q + qoff, q0, sq, kBQ, ldq);
+  load_rows<D>(t.dout, dout + qoff, q0, sq, kBQ, ldq);
+  load_vec(t.lse, lse + row_off, q0, sq);
+  load_vec(t.delta, delta + row_off, q0, sq);
 
   FragC acc[D / 16];
 #pragma unroll
@@ -454,8 +497,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();
-    load_rows<D>(t.k, k + koff * D, k0, sk, kBK);
-    load_rows<D>(t.v, v + koff * D, k0, sk, kBK);
+    load_rows<D>(t.k, k + koff, k0, sk, kBK, ldk);
+    load_rows<D>(t.v, v + koff, k0, sk, kBK, ldk);
     __syncthreads();
     recompute_p_ds<D>(t, q0, k0, sq, sk, scale, causal, false);
     __syncwarp();  // ds rows of this warp are complete
@@ -480,11 +523,18 @@ __global__ void __launch_bounds__(kThreads)
                             D + 4, wmma::mem_row_major);
   }
   __syncthreads();
-  store_rows<D>(dq + qoff * D, stage, q0, sq, kBQ);
+  store_rows<D>(dq + qoff, stage, q0, sq, kBQ, ldq);
 }
 
+// What every launch shares: the grid's head and batch axes within their
+// 65535 limit, n_rep dividing the heads, and the dynamic shared memory.
 template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
+cudaError_t prepare(Kernel kernel, size_t smem, int batch, int heads,
+                    int n_rep) {
+  if (batch < 1 || batch > 65535 || heads < 1 || heads > 65535 ||
+      n_rep < 1 || heads % n_rep) {
+    return cudaErrorInvalidValue;
+  }
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
@@ -492,50 +542,54 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
-                       void* lse, int bh, int sq, int sk, float scale,
-                       int causal, cudaStream_t s) {
+                       void* lse, int batch, int heads, int n_rep, int sq,
+                       int sk, float scale, int causal, cudaStream_t s) {
   const size_t smem = fwd_smem_bytes<D>();
-  cudaError_t err = prepare(flash_fwd_kernel<D>, smem);
+  cudaError_t err = prepare(flash_fwd_kernel<D>, smem, batch, heads, n_rep);
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + kBQ - 1) / kBQ, bh);
+  dim3 grid((sq + kBQ - 1) / kBQ, heads, batch);
   flash_fwd_kernel<D><<<grid, kThreads, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), sq, sk, scale, causal);
+      static_cast<float*>(lse), sq, sk, n_rep, scale, causal);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int bh, int sq, int sk,
-                       float scale, int causal, cudaStream_t s) {
+                       void* dk, void* dv, int batch, int heads, int n_rep,
+                       int sq, int sk, float scale, int causal,
+                       cudaStream_t s) {
   const size_t smem = bwd_smem_bytes<D>();
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<D>, smem);
+  cudaError_t err =
+      prepare(flash_bwd_dkv_kernel<D>, smem, batch, heads, n_rep);
   if (err != cudaSuccess) return err;
-  dim3 grid((sk + kBK - 1) / kBK, bh);
+  dim3 grid((sk + kBK - 1) / kBK, heads / n_rep, batch);
   flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, scale, causal);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, n_rep, scale,
+      causal);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      void* dq, int bh, int sq, int sk, float scale,
-                      int causal, cudaStream_t s) {
+                      void* dq, int batch, int heads, int n_rep, int sq,
+                      int sk, float scale, int causal, cudaStream_t s) {
   const size_t smem = bwd_smem_bytes<D>();
-  cudaError_t err = prepare(flash_bwd_dq_kernel<D>, smem);
+  cudaError_t err = prepare(flash_bwd_dq_kernel<D>, smem, batch, heads,
+                            n_rep);
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + kBQ - 1) / kBQ, bh);
+  dim3 grid((sq + kBQ - 1) / kBQ, heads, batch);
   flash_bwd_dq_kernel<D><<<grid, kThreads, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), sq, sk, scale, causal);
+      static_cast<bf16*>(dq), sq, sk, n_rep, scale, causal);
   return cudaGetLastError();
 }
 
@@ -543,44 +597,47 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q [bh, sq, d], k/v [bh, sk, d] bf16 row-major; out [bh, sq, d] bf16; lse
-// [bh, sq] float32. d is 32, 64 or 128. Returns a CUDA error code (0 = ok).
+// q [batch, sq, heads*d], k/v [batch, sk, (heads/n_rep)*d] bf16 row-major;
+// out like q; lse [batch, heads, sq] float32. [b*h, s, d] operands are
+// batch = b*h, heads = n_rep = 1. d is 32, 64 or 128. Returns a CUDA error
+// code (0 = ok).
 int rt_flash_fwd(const void* q, const void* k, const void* v, void* out,
-                 void* lse, int bh, int sq, int sk, int d, float scale,
-                 int causal, void* stream) {
+                 void* lse, int batch, int heads, int n_rep, int sq, int sk,
+                 int d, float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch_fwd<32>(q, k, v, out, lse, bh, sq, sk, scale, causal, s);
-    case 64: return launch_fwd<64>(q, k, v, out, lse, bh, sq, sk, scale, causal, s);
-    case 128: return launch_fwd<128>(q, k, v, out, lse, bh, sq, sk, scale, causal, s);
+    case 32: return launch_fwd<32>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, s);
+    case 64: return launch_fwd<64>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, s);
+    case 128: return launch_fwd<128>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// dO [bh, sq, d] bf16, lse/delta [bh, sq] float32; dk/dv [bh, sk, d] bf16.
+// dO like q, lse/delta [batch, heads, sq] float32; dk/dv like k.
 int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
-                     void* dk, void* dv, int bh, int sq, int sk, int d,
-                     float scale, int causal, void* stream) {
+                     void* dk, void* dv, int batch, int heads, int n_rep,
+                     int sq, int sk, int d, float scale, int causal,
+                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal, s);
-    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal, s);
-    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal, s);
+    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, s);
+    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, s);
+    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// dq [bh, sq, d] bf16.
+// dq like q.
 int rt_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
-                    void* dq, int bh, int sq, int sk, int d, float scale,
-                    int causal, void* stream) {
+                    void* dq, int batch, int heads, int n_rep, int sq, int sk,
+                    int d, float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal, s);
-    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal, s);
-    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal, s);
+    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, s);
+    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, s);
+    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,13 +20,28 @@ On a CUDA tensor each of the three wrappers launches its hand-written kernel
 32, 64 or 128. The plain PyTorch versions beside them run for tensors on the
 CPU; they compute densely in float32 with the kernels' masking and
 roundings (p and ds rounded to the input dtype before the products they
-feed). GQA is the caller's: K/V come in repeated per query head.
+feed). Over [b·h, s, d] GQA is the caller's: K/V come in repeated per
+query head.
+
+The packed layout (twin of `_flash_fwd_packed`/`_flash_bwd_packed`,
+ray_tpu/ops/pallas/flash_attention.py:376-502) runs the same three kernels
+over `[b, s, heads·head_dim]` operands, the layout the q/k/v projections
+produce: each head is a column slice found by strides, and GQA is the index
+map `h // n_rep`, so K/V `[b, sk, n_kv·head_dim]` are never repeated and the
+dk/dv kernel sums the n_rep query heads of a kv head in float32 before its
+one write. lse and Δ are `[b, heads, sq]` (the reference's `[b, 8·heads,
+sq]` broadcast is TPU tiling). Entries: `flash_fwd_packed`,
+`flash_bwd_dkv_packed`, `flash_bwd_dq_packed` (each with its plain twin and
+launch counter, in `PACKED_KERNELS`), `flash_bwd_packed`,
+`FlashAttentionPacked` and `flash_attention_packed`, the twin of the
+reference's entry of that name. The Pallas block sizes are TPU tiling and
+are not carried over.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,13 +51,13 @@ _NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 
 _P, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Every entry takes the packed layout (batch, heads, n_rep, sq, sk, d);
+# [b·h, s, d] operands are batch = b·h, heads = n_rep = 1.
+_LAYOUT = [_INT] * 6
 _SIGNATURES = {
-    "rt_flash_fwd": ([_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _F, _INT,
-                      _P], _INT),
-    "rt_flash_bwd_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT,
-                          _INT, _F, _INT, _P], _INT),
-    "rt_flash_bwd_dq": ([_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT,
-                         _F, _INT, _P], _INT),
+    "rt_flash_fwd": ([_P] * 5 + _LAYOUT + [_F, _INT, _P], _INT),
+    "rt_flash_bwd_dkv": ([_P] * 8 + _LAYOUT + [_F, _INT, _P], _INT),
+    "rt_flash_bwd_dq": ([_P] * 7 + _LAYOUT + [_F, _INT, _P], _INT),
 }
 
 
@@ -90,13 +105,18 @@ def _p_ds_plain(q, k, v, do, lse, delta, scale, causal):
     return p.to(q.dtype).float(), ds.to(q.dtype).float()
 
 
+def _dkv_f32(q, k, v, do, lse, delta, scale, causal):
+    p, ds = _p_ds_plain(q, k, v, do, lse, delta, scale, causal)
+    dv = torch.matmul(p.transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dk, dv
+
+
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale: float,
                         causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the dk/dv kernel."""
-    p, ds = _p_ds_plain(q, k, v, do, lse, delta, scale, causal)
-    dv = torch.matmul(p.transpose(-1, -2), do.float())
-    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dk, dv = _dkv_f32(q, k, v, do, lse, delta, scale, causal)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -105,6 +125,64 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, scale: float,
     """Plain PyTorch version of the dq kernel."""
     _, ds = _p_ds_plain(q, k, v, do, lse, delta, scale, causal)
     return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def _grouped(x: torch.Tensor, groups: int, n_rep: int) -> torch.Tensor:
+    """[b, s, groups·n_rep·d] -> [b, groups, n_rep, s, d]: head
+    g·n_rep + r at [:, g, r] (query heads by kv head; k/v take n_rep 1)."""
+    b, s, width = x.shape
+    d = width // (groups * n_rep)
+    return x.reshape(b, s, groups, n_rep, d).permute(0, 2, 3, 1, 4)
+
+
+def _packed(x: torch.Tensor) -> torch.Tensor:
+    """[b, groups, n_rep, s, d] -> [b, s, groups·n_rep·d]."""
+    b, _, _, s, _ = x.shape
+    return x.permute(0, 3, 1, 2, 4).reshape(b, s, -1)
+
+
+def _grouped_operands(q, k, v, n_heads, n_kv, *rows):
+    """q, k, v and the [b, heads, sq] row tensors `rows`, grouped by kv
+    head: K/V broadcast over the n_rep query heads (never repeated)."""
+    n_rep = n_heads // n_kv
+    b, sq = q.shape[:2]
+    return (_grouped(q, n_kv, n_rep), _grouped(k, n_kv, 1),
+            _grouped(v, n_kv, 1),
+            *(r.reshape(b, n_kv, n_rep, sq) for r in rows))
+
+
+def flash_fwd_packed_plain(q, k, v, n_heads: int, n_kv: int, scale: float,
+                           causal: bool = True
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the packed forward: (out [b, sq, h·d], lse
+    [b, h, sq] float32)."""
+    out, lse = flash_fwd_plain(*_grouped_operands(q, k, v, n_heads, n_kv),
+                               scale, causal)
+    return _packed(out), lse.reshape(q.shape[0], n_heads, q.shape[1])
+
+
+def flash_bwd_dkv_packed_plain(q, k, v, do, lse, delta, n_heads: int,
+                               n_kv: int, scale: float, causal: bool = True
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the packed dk/dv kernel: each kv head's
+    n_rep query heads summed in float32 before the one rounding."""
+    qg, kg, vg, lg, dg = _grouped_operands(q, k, v, n_heads, n_kv, lse,
+                                           delta)
+    dog = _grouped(do, n_kv, n_heads // n_kv)
+    dk, dv = _dkv_f32(qg, kg, vg, dog, lg, dg, scale, causal)
+    return (_packed(dk.sum(2, keepdim=True)).to(k.dtype),
+            _packed(dv.sum(2, keepdim=True)).to(v.dtype))
+
+
+def flash_bwd_dq_packed_plain(q, k, v, do, lse, delta, n_heads: int,
+                              n_kv: int, scale: float, causal: bool = True
+                              ) -> torch.Tensor:
+    """Plain PyTorch version of the packed dq kernel."""
+    qg, kg, vg, lg, dg = _grouped_operands(q, k, v, n_heads, n_kv, lse,
+                                           delta)
+    dog = _grouped(do, n_kv, n_heads // n_kv)
+    return _packed(flash_bwd_dq_plain(qg, kg, vg, dog, lg, dg, scale,
+                                      causal))
 
 
 # ---------------------------------------------------------------- kernels
@@ -134,16 +212,49 @@ def _check_cuda(tensors, what: str) -> None:
                              f"16-byte aligned")
 
 
-def _check_operands(q, k, v, what: str) -> None:
+def _check_operands(q, k, v, d: int, batch: int, heads: int,
+                    what: str) -> None:
     for t in (q, k, v):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{what}: the CUDA kernel takes bfloat16, got "
                             f"{t.dtype}")
-    if q.shape[-1] not in HEAD_DIMS:
+    if d not in HEAD_DIMS:
         raise ValueError(f"{what}: the CUDA kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {q.shape[-1]}")
-    if q.shape[0] > 65535:
-        raise ValueError(f"{what}: b·h = {q.shape[0]} exceeds 65535")
+                         f"{HEAD_DIMS}, got {d}")
+    if batch > 65535 or heads > 65535:
+        raise ValueError(f"{what}: a grid axis of {max(batch, heads)} "
+                         f"exceeds 65535")
+
+
+def _launch_fwd(q, k, v, lse, layout, scale, causal, what) -> torch.Tensor:
+    out = torch.empty_like(q)
+    lib = _lib()
+    check(lib, lib.rt_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *layout, float(scale), int(causal),
+        stream_handle(q)), what)
+    return out
+
+
+def _launch_dkv(q, k, v, do, lse, delta, layout, scale, causal, what):
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _lib()
+    check(lib, lib.rt_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *layout, float(scale), int(causal), stream_handle(q)), what)
+    return dk, dv
+
+
+def _launch_dq(q, k, v, do, lse, delta, layout, scale, causal, what):
+    dq = torch.empty_like(q)
+    lib = _lib()
+    check(lib, lib.rt_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *layout,
+        float(scale), int(causal), stream_handle(q)), what)
+    return dq
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -155,17 +266,14 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_fwd_plain(q, k, v, scale, causal)
     _check_cuda((q, k, v), "flash_fwd")
-    _check_operands(q, k, v, "flash_fwd")
     bh, sq, d = q.shape
-    out = torch.empty_like(q)
+    _check_operands(q, k, v, d, bh, 1, "flash_fwd")
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    if bh and sq:
-        lib = _lib()
-        check(lib, lib.rt_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), bh, sq, k.shape[1], d, float(scale), int(causal),
-            stream_handle(q)), "flash_fwd")
-        flash_fwd.launches += 1
+    if not (bh and sq):
+        return torch.empty_like(q), lse
+    out = _launch_fwd(q, k, v, lse, (bh, 1, 1, sq, k.shape[1], d), scale,
+                      causal, "flash_fwd")
+    flash_fwd.launches += 1
     return out, lse
 
 
@@ -176,11 +284,18 @@ def _check_bwd(q, k, v, do, lse, delta, what):
         raise ValueError(f"{what}: dO {tuple(do.shape)}, lse "
                          f"{tuple(lse.shape)} and delta {tuple(delta.shape)} "
                          f"do not match q {tuple(q.shape)}")
+    return _check_bwd_operands(q, k, v, do, lse, delta, q.shape[-1], bh, 1,
+                               what)
+
+
+def _check_bwd_operands(q, k, v, do, lse, delta, d, batch, heads, what):
+    """True if every tensor is on the CPU (the plain version runs); else
+    raise unless the kernels take them."""
     tensors = (q, k, v, do, lse, delta)
     if all(t.device.type == "cpu" for t in tensors):
         return True
     _check_cuda(tensors, what)
-    _check_operands(q, k, v, what)
+    _check_operands(q, k, v, d, batch, heads, what)
     if do.dtype != torch.bfloat16 or lse.dtype != torch.float32 \
             or delta.dtype != torch.float32:
         raise TypeError(f"{what}: needs bfloat16 dO and float32 lse/delta")
@@ -193,16 +308,12 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float,
     if _check_bwd(q, k, v, do, lse, delta, "flash_bwd_dkv"):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal)
     bh, sq, d = q.shape
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    if bh and k.shape[1]:
-        lib = _lib()
-        check(lib, lib.rt_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, sq, k.shape[1], d, float(scale), int(causal),
-            stream_handle(q)), "flash_bwd_dkv")
-        flash_bwd_dkv.launches += 1
+    if not (bh and k.shape[1]):
+        return torch.empty_like(k), torch.empty_like(v)
+    dk, dv = _launch_dkv(q, k, v, do, lse, delta,
+                         (bh, 1, 1, sq, k.shape[1], d), scale, causal,
+                         "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
     return dk, dv
 
 
@@ -212,15 +323,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float,
     if _check_bwd(q, k, v, do, lse, delta, "flash_bwd_dq"):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal)
     bh, sq, d = q.shape
-    dq = torch.empty_like(q)
-    if bh and sq:
-        lib = _lib()
-        check(lib, lib.rt_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, sq,
-            k.shape[1], d, float(scale), int(causal), stream_handle(q)),
-            "flash_bwd_dq")
-        flash_bwd_dq.launches += 1
+    if not (bh and sq):
+        return torch.empty_like(q)
+    dq = _launch_dq(q, k, v, do, lse, delta, (bh, 1, 1, sq, k.shape[1], d),
+                    scale, causal, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
     return dq
 
 
@@ -260,9 +367,175 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+# ---------------------------------------------------------------- packed
+
+
+def _check_packed(q, k, v, n_heads: int, n_kv: int, what: str) -> int:
+    """Shapes of the packed layout; returns head_dim."""
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
+            or q.shape[0] != k.shape[0]:
+        raise ValueError(f"{what}: needs q [b, sq, h·d] and k/v [b, sk, "
+                         f"n_kv·d], got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if n_heads < 1 or n_kv < 1 or n_heads % n_kv or q.shape[2] % n_heads \
+            or k.shape[2] != n_kv * (q.shape[2] // n_heads):
+        raise ValueError(f"{what}: q width {q.shape[2]} and k width "
+                         f"{k.shape[2]} are not {n_heads} and {n_kv} heads "
+                         f"of one head_dim, with n_kv dividing n_heads")
+    return q.shape[2] // n_heads
+
+
+def _packed_layout(q, k, n_heads, n_kv, d):
+    b, sq, _ = q.shape
+    return (b, n_heads, n_heads // n_kv, sq, k.shape[1], d)
+
+
+def flash_fwd_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     n_heads: int, n_kv: int, scale: float,
+                     causal: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q [b, sq, h·d], k/v [b, sk, n_kv·d] -> (out [b, sq, h·d] in q's
+    dtype, lse [b, h, sq] float32)."""
+    d = _check_packed(q, k, v, n_heads, n_kv, "flash_fwd_packed")
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return flash_fwd_packed_plain(q, k, v, n_heads, n_kv, scale, causal)
+    _check_cuda((q, k, v), "flash_fwd_packed")
+    b, sq, _ = q.shape
+    _check_operands(q, k, v, d, b, n_heads, "flash_fwd_packed")
+    lse = torch.empty((b, n_heads, sq), dtype=torch.float32,
+                      device=q.device)
+    if not (b and sq):
+        return torch.empty_like(q), lse
+    out = _launch_fwd(q, k, v, lse, _packed_layout(q, k, n_heads, n_kv, d),
+                      scale, causal, "flash_fwd_packed")
+    flash_fwd_packed.launches += 1
+    return out, lse
+
+
+def _check_bwd_packed(q, k, v, do, lse, delta, n_heads, n_kv, what):
+    d = _check_packed(q, k, v, n_heads, n_kv, what)
+    b, sq, _ = q.shape
+    if do.shape != q.shape or lse.shape != (b, n_heads, sq) \
+            or delta.shape != (b, n_heads, sq):
+        raise ValueError(f"{what}: dO {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} and delta {tuple(delta.shape)} "
+                         f"do not match q {tuple(q.shape)} with {n_heads} "
+                         f"heads")
+    return d, _check_bwd_operands(q, k, v, do, lse, delta, d, b, n_heads,
+                                  what)
+
+
+def flash_bwd_dkv_packed(q, k, v, do, lse, delta, n_heads: int, n_kv: int,
+                         scale: float, causal: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv), each [b, sk, n_kv·d] in k's dtype: one kv head's gradient
+    summed over its n_rep query heads."""
+    d, plain = _check_bwd_packed(q, k, v, do, lse, delta, n_heads, n_kv,
+                                 "flash_bwd_dkv_packed")
+    if plain:
+        return flash_bwd_dkv_packed_plain(q, k, v, do, lse, delta, n_heads,
+                                          n_kv, scale, causal)
+    if not (q.shape[0] and k.shape[1]):
+        return torch.empty_like(k), torch.empty_like(v)
+    dk, dv = _launch_dkv(q, k, v, do, lse, delta,
+                         _packed_layout(q, k, n_heads, n_kv, d), scale,
+                         causal, "flash_bwd_dkv_packed")
+    flash_bwd_dkv_packed.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq_packed(q, k, v, do, lse, delta, n_heads: int, n_kv: int,
+                        scale: float, causal: bool = True) -> torch.Tensor:
+    """dq [b, sq, h·d] in q's dtype."""
+    d, plain = _check_bwd_packed(q, k, v, do, lse, delta, n_heads, n_kv,
+                                 "flash_bwd_dq_packed")
+    if plain:
+        return flash_bwd_dq_packed_plain(q, k, v, do, lse, delta, n_heads,
+                                         n_kv, scale, causal)
+    if not (q.shape[0] and q.shape[1]):
+        return torch.empty_like(q)
+    dq = _launch_dq(q, k, v, do, lse, delta,
+                    _packed_layout(q, k, n_heads, n_kv, d), scale, causal,
+                    "flash_bwd_dq_packed")
+    flash_bwd_dq_packed.launches += 1
+    return dq
+
+
+def flash_delta_packed(o: torch.Tensor, do: torch.Tensor,
+                       n_heads: int) -> torch.Tensor:
+    """Δ = per-head rowsum(dO ⊙ O) in float32, [b, h, sq] (plain torch, as
+    the reference computes it in XLA, flash_attention.py:428-434)."""
+    b, sq, width = o.shape
+    prod = (do.float() * o.float()).reshape(b, sq, n_heads,
+                                            width // n_heads)
+    return prod.sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_bwd_packed(q, k, v, o, lse, do, n_heads: int, n_kv: int,
+                     scale: float, causal: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of packed attention given the forward's out `o` and
+    `lse` and the output cotangent `do`."""
+    delta = flash_delta_packed(o, do, n_heads)
+    dk, dv = flash_bwd_dkv_packed(q, k, v, do, lse, delta, n_heads, n_kv,
+                                  scale, causal)
+    dq = flash_bwd_dq_packed(q, k, v, do, lse, delta, n_heads, n_kv, scale,
+                             causal)
+    return dq, dk, dv
+
+
+class FlashAttentionPacked(torch.autograd.Function):
+    """out = attention(q, k, v) over packed [b, s, heads·d] with the packed
+    kernels in both directions; saves (q, k, v, out, lse) as the
+    reference's `_vjp_fwd_packed`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_heads: int, n_kv: int, scale: float,
+                causal: bool = True):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_fwd_packed(q, k, v, n_heads, n_kv, scale, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.n_heads, ctx.n_kv = n_heads, n_kv
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd_packed(q, k, v, out, lse, do.contiguous(),
+                                      ctx.n_heads, ctx.n_kv, ctx.scale,
+                                      ctx.causal)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_packed(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, n_heads: int, n_kv_heads: int,
+                           sm_scale: Optional[float] = None,
+                           causal: bool = True) -> torch.Tensor:
+    """Flash attention over packed [b, s, heads·head_dim] tensors (twin of
+    ray_tpu/ops/pallas/flash_attention.py:505): q [b, s, n_heads·d], k/v
+    [b, s, n_kv_heads·d] -> [b, s, n_heads·d]. GQA K/V stay unexpanded."""
+    if q.shape[-1] % n_heads or n_heads % n_kv_heads:
+        raise ValueError(
+            f"packed width {q.shape[-1]} must divide by n_heads={n_heads}, "
+            f"which must divide by n_kv_heads={n_kv_heads}")
+    d = q.shape[-1] // n_heads
+    if k.shape[-1] != n_kv_heads * d:
+        raise ValueError(f"k width {k.shape[-1]} != n_kv_heads*head_dim "
+                         f"{n_kv_heads * d}")
+    scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
+    return FlashAttentionPacked.apply(q, k, v, n_heads, n_kv_heads, scale,
+                                      causal)
+
+
 # Launch counts: each wrapper adds one where it launches its kernel, and
-# nowhere else (the CPU path launches nothing).
+# nowhere else (the CPU path launches nothing). The packed wrappers run the
+# same kernels but count apart: no model path calls them.
 flash_fwd.launches = 0
 flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0
 KERNELS = (flash_fwd, flash_bwd_dkv, flash_bwd_dq)
+flash_fwd_packed.launches = 0
+flash_bwd_dkv_packed.launches = 0
+flash_bwd_dq_packed.launches = 0
+PACKED_KERNELS = (flash_fwd_packed, flash_bwd_dkv_packed, flash_bwd_dq_packed)

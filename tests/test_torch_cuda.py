@@ -1,7 +1,7 @@
 """The port on a CUDA device: the hand-written kernels against their plain
 PyTorch versions, the engine's serving path through the quant kernels,
 training steps through the flash, fused-FFN and AdamW kernels, and the
-RMSNorm and cross-entropy entries through theirs.
+packed flash-attention, RMSNorm and cross-entropy entries through theirs.
 
 Every test here needs a GPU and skips with a reason where there is none.
 The file imports torch and the port only, so it also runs where JAX is not
@@ -19,7 +19,8 @@ import torch
 from ray_tpu_torch.bench import make_batch
 from ray_tpu_torch.models import ModelConfig, init_params
 from ray_tpu_torch.models import inference, serving
-from ray_tpu_torch.ops.attention import attention, causal_attention_reference
+from ray_tpu_torch.ops.attention import (attention, attention_packed,
+                                         causal_attention_reference)
 from ray_tpu_torch.ops.kernels import adamw as aw
 from ray_tpu_torch.ops.kernels import flash_attention as fa
 from ray_tpu_torch.ops.kernels import fused_ffn as ff
@@ -522,3 +523,111 @@ def test_xent_bf16_past_two_to_the_31_elements(cuda):
         torch.cuda.synchronize()
         assert _stat_ok(loss[rows], p_loss) and _stat_ok(lse[rows], p_lse)
         assert _rel_err(dx[rows], p_dx) < REL_TOL
+
+
+def _heads(x, n):
+    """[b, s, n·d] -> [b, n, s, d]."""
+    b, s, width = x.shape
+    return x.view(b, s, n, width // n).transpose(1, 2)
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", [
+    (2, 4, 2, 128, 128, 64, True), (1, 8, 2, 200, 200, 128, True),
+    (1, 2, 2, 64, 300, 64, True), (1, 4, 1, 130, 130, 32, False),
+])
+def test_packed_flash_kernels_match_plain_versions(cuda, b, h, kv, sq, sk,
+                                                   d, causal):
+    q, k, v, do = (_bf16(s, cuda, i) for i, s in enumerate(
+        ((b, sq, h * d), (b, sk, kv * d), (b, sk, kv * d), (b, sq, h * d))))
+    scale = d ** -0.5
+    before = [kern.launches for kern in fa.PACKED_KERNELS]
+    out, lse = fa.flash_fwd_packed(q, k, v, h, kv, scale, causal)
+    p_out, p_lse = fa.flash_fwd_packed_plain(q, k, v, h, kv, scale, causal)
+    delta = fa.flash_delta_packed(p_out, do, h)
+    dk, dv = fa.flash_bwd_dkv_packed(q, k, v, do, p_lse, delta, h, kv, scale,
+                                     causal)
+    dq = fa.flash_bwd_dq_packed(q, k, v, do, p_lse, delta, h, kv, scale,
+                                causal)
+    p_dk, p_dv = fa.flash_bwd_dkv_packed_plain(q, k, v, do, p_lse, delta, h,
+                                               kv, scale, causal)
+    p_dq = fa.flash_bwd_dq_packed_plain(q, k, v, do, p_lse, delta, h, kv,
+                                        scale, causal)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    assert dk.shape == dv.shape == (b, sk, kv * d)
+    for got, want, name in ((out, p_out, "out"), (lse, p_lse, "lse"),
+                            (dq, p_dq, "dq"), (dk, p_dk, "dk"),
+                            (dv, p_dv, "dv")):
+        assert _rel_err(got, want) < REL_TOL, name
+    assert [kern.launches for kern in fa.PACKED_KERNELS] == [
+        n + 1 for n in before]
+
+
+def test_packed_kernels_equal_the_unpacked_kernels_per_head(cuda):
+    """The same kernel bodies over strided heads: the forward and dq equal
+    the [b·h, s, d] route bit for bit, dk/dv agree to bf16 rounding (the
+    packed kernel sums the n_rep heads in float32, the other route rounds
+    each head's share first)."""
+    b, h, kv, s, d = 2, 4, 2, 192, 128
+    q, k, v, do = (_bf16(shape, cuda, i) for i, shape in enumerate(
+        ((b, s, h * d), (b, s, kv * d), (b, s, kv * d), (b, s, h * d))))
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_packed(q, k, v, h, kv, scale)
+    delta = fa.flash_delta_packed(out, do, h)
+    dk, dv = fa.flash_bwd_dkv_packed(q, k, v, do, lse, delta, h, kv, scale)
+    dq = fa.flash_bwd_dq_packed(q, k, v, do, lse, delta, h, kv, scale)
+
+    def flat(x, n):  # [b, s, n·d] -> [b·h, s, d], heads repeated to h
+        x = _heads(x, n)
+        return x.repeat_interleave(h // n, 1).reshape(b * h, s, d)
+
+    q3, k3, v3, do3 = flat(q, h), flat(k, kv), flat(v, kv), flat(do, h)
+    out3, lse3 = fa.flash_fwd(q3, k3, v3, scale)
+    rows = (lse.view(b * h, s), delta.view(b * h, s))
+    dk3, dv3 = fa.flash_bwd_dkv(q3, k3, v3, do3, *rows, scale)
+    dq3 = fa.flash_bwd_dq(q3, k3, v3, do3, *rows, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(flat(out, h), out3)
+    assert torch.equal(lse.view(b * h, s), lse3)
+    assert torch.equal(flat(dq, h), dq3)
+    for got, want in ((dk, dk3), (dv, dv3)):
+        summed = want.float().view(b, kv, h // kv, s, d).sum(2)
+        assert _rel_err(_heads(got, kv), summed) < REL_TOL
+
+
+def test_attention_packed_matches_attention_on_the_card(cuda):
+    """The packed entry and the B1/B2 route on the same heads, forward and
+    backward, and one launch of each packed kernel."""
+    b, h, kv, s, d = 1, 4, 2, 256, 128
+    q = _bf16((b, s, h * d), cuda, 0).requires_grad_(True)
+    k = _bf16((b, s, kv * d), cuda, 1).requires_grad_(True)
+    v = _bf16((b, s, kv * d), cuda, 2).requires_grad_(True)
+    g = _bf16((b, s, h * d), cuda, 3)
+    before = [kern.launches for kern in fa.PACKED_KERNELS]
+    out = attention_packed(q, k, v, n_heads=h, n_kv_heads=kv)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    assert [kern.launches for kern in fa.PACKED_KERNELS] == [
+        n + 1 for n in before]
+    ref = attention(_heads(q, h), _heads(k, kv), _heads(v, kv))
+    ref = ref.transpose(1, 2).reshape(b, s, h * d)
+    ref_grads = torch.autograd.grad(ref, (q, k, v), g)
+    assert _rel_err(out, ref) < REL_TOL
+    for a, r in zip(grads, ref_grads):
+        assert _rel_err(a, r) < REL_TOL
+
+
+def test_packed_entry_refuses_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 128, 4 * 128), device=cuda)
+    k = torch.zeros((1, 128, 2 * 128), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_fwd_packed(q, k, k, 4, 2, 1.0)
+    q16 = torch.zeros((1, 128, 2 * 256), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_packed(q16, q16, q16, n_heads=2, n_kv_heads=2)
+    wide = torch.zeros((1, 128, 3 * 4 * 64), device=cuda,
+                       dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd_packed(wide[..., :256], wide[..., :256],
+                            wide[..., :256], 4, 4, 1.0)
+    with pytest.raises(ValueError, match="n_kv_heads"):
+        fa.flash_attention_packed(q16, q16[..., :100], q16[..., :100], 2, 2)
