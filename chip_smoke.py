@@ -46,7 +46,19 @@ Phases (any failure exits non-zero and prints no result line):
      causal): outputs within 1e-2 of the plain output's max, lse within
      2e-5 of the plain lse's; time each with its plain version, its bound
      and scaled_dot_product_attention (enable_gqa) on the strided [b, h, s,
-     hd] views and its backward, logging which SDPA backend runs;
+     hd] views and its backward, logging which SDPA backend runs; the same
+     summary lines as phase 7;
+ 7d. hold the six float32 kernels (flash forward, dk/dv, dq; K3, K1, K2)
+     against their plain versions with TF32 off (within 1e-4 of the plain
+     max): the flash kernels at the 8B attention shape in float32, a ragged
+     shape and the shape of the tiny variant below, the FFN kernels at T
+     512 x d 256 x d_ff 512, a ragged shape and the tiny variant's; time
+     each with its float32 bound (67 TFLOP/s) and a library call; then
+     train ModelConfig.tiny() in float32 widened to head_dim 128 (d_model
+     256, 2 heads, 1 kv head; fused_ffn, fused_attn, USE_K1 = USE_K2 =
+     True) for 3 steps at b 2 x s 128, each float32 kernel launched exactly
+     n_layers times a step (counters zeroed before each step, read after),
+     the losses within 1e-4 relative of the same model on the CPU;
   8. train Llama-3-8B at full width with 8 of its 32 layers (random bf16
      weights, one batch of 2 x 2049 tokens reused) for 8 steps of
      default_optimizer(warmup_steps=2), checking finite losses and grad
@@ -79,8 +91,10 @@ Phases (any failure exits non-zero and prints no result line):
      within 1e-2 of the compared tensor's max, each packed kernel launched
      exactly once and the B1/B2 kernels never (counters zeroed just before,
      read just after); logs which outputs and lse are bit-identical across
-     the two routes;
- 11. print the kernels line, the nvidia-smi line, and the result line.
+     the two routes, and fails unless out, lse and dq are (one kernel body
+     serves both routes);
+ 11. print the kernels line (the float32 kernels as `<name>_f32`), the
+     nvidia-smi line, and the result line.
 
 Imports torch and the port only (never jax, never ray_tpu).
 """
@@ -88,6 +102,7 @@ Imports torch and the port only (never jax, never ray_tpu).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -1231,6 +1246,9 @@ def check_packed_entry_on_model(torch, gen, seed: int, cfg):
     if not finite:
         fail("the packed entry's output or gradients on the model are not "
              "finite")
+    if not (same["out"] and same["lse"] and same["dq"]):
+        fail(f"the packed route's out, lse and dq are not bit-identical to "
+             f"the B1/B2 route's: {same}")
     for name, e in errs.items():
         if not max(e.values()) < REL_ERR_LIMIT:
             fail(f"packed entry on the model: {name} {e} (limit "
@@ -1243,6 +1261,300 @@ def check_packed_entry_on_model(torch, gen, seed: int, cfg):
         fail(f"phase 10c launched {launches}; expected {want}")
     return {kern.__name__: launches[kern.__name__]
             for kern in fa.PACKED_KERNELS}
+
+
+def redesign_summary(rows, names, card: str) -> None:
+    """One line on the redesigned forward and dq kernels at the 8B
+    attention shape (the first row of each): ms a launch, bound and share,
+    and SDPA's forward and backward from the same run, the backward split
+    between dk/dv and dq in proportion to their bounds (SDPA computes the
+    three in one call; dk/dv is 4 products, dq 3)."""
+    fwd, dkv, dq = (rows[n][0] for n in names)
+    bwd_bound = dkv["bound_ms"] + dq["bound_ms"]
+    for i, (name, r) in enumerate(zip(names, (fwd, dkv, dq))):
+        if r["library_ms"] is None:
+            lib = "no library call at this shape"
+        elif i == 0:
+            lib = f"SDPA forward {r['library_ms']:.4f} ms"
+        else:
+            lib = (f"SDPA backward {r['library_ms']:.4f} ms, this kernel's "
+                   f"bound share of it "
+                   f"{r['library_ms'] * r['bound_ms'] / bwd_bound:.4f} ms")
+        log(f"{name} at {r['shape']}: {r['ms']:.4f} ms a launch, bound "
+            f"{r['bound_ms']:.4f} ms, {r['bound_ms'] / r['ms']:.3f} of "
+            f"bound; {lib} [{card}]")
+
+
+# The float32 kernels against their plain versions: both compute in full
+# float32 (CUDA-core FMAs in the kernels, TF32 off for the plain versions'
+# matmuls) and sum in another order.
+F32_KERNEL_LIMIT = 1e-4
+# The float32 tiny variant at head_dim 128 (ModelConfig.tiny() widened to
+# d_model 256 with 2 heads and 1 kv head), trained at b 2 x s 128: the
+# width at which the fused attention block takes the flash kernels.
+F32_TINY = dict(d_model=256, n_heads=2, n_kv_heads=1)
+F32_TINY_BATCH, F32_TINY_SEQ, F32_TINY_STEPS = 2, 128, 3
+# its losses on the card against the same model, params and batch on the
+# CPU
+F32_LOSS_RTOL = 1e-4
+
+
+def f32_tiny_config():
+    from ray_tpu_torch.models import ModelConfig
+
+    return dataclasses.replace(ModelConfig.tiny(), fused_ffn=True,
+                               fused_attn=True, **F32_TINY)
+
+
+def f32_flash_shapes(cfg):
+    """(bh, sq, sk, head_dim, causal, calls per step of the f32 tiny
+    variant) of the float32 flash kernels: the 8B attention shape, one that
+    does not tile, and the tiny variant's own (b 2 x 2 heads, K/V repeated
+    per query head, s 128)."""
+    return [(64, 2048, 2048, 128, True, 0), (8, 1000, 1100, 64, True, 0),
+            (F32_TINY_BATCH * cfg.n_heads, F32_TINY_SEQ, F32_TINY_SEQ,
+             cfg.head_dim, True, cfg.n_layers)]
+
+
+def f32_ffn_shapes(cfg):
+    """(T, d, d_ff, calls per step of the f32 tiny variant) of the float32
+    fused-FFN kernels: T 512 x d 256 x d_ff 512, one that tiles on no axis
+    (64 x 64 output tiles, 16 of the reduction a step), and the tiny
+    variant's own."""
+    return [(512, 256, 512, 0), (1000, 200, 328, 0),
+            (F32_TINY_BATCH * F32_TINY_SEQ, cfg.d_model, cfg.d_ff,
+             cfg.n_layers)]
+
+
+def check_f32_kernels(torch, gen, cfg):
+    """Phase 7d: the six float32 kernels (flash forward, dk/dv and dq, K3,
+    K1, K2) against their plain versions, with their times, float32 bounds
+    and a library call's time. Returns {kernel_f32: rows}."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+
+    t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "dw_gateup",
+             "dw_down", "dgateup")
+    rows = {f"{n}_f32": [] for n in names}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def record(name, shape, calls, checks, nbytes, ops, fn, plain, library,
+               library_what):
+        record_checked(torch, flush, rows[name], name, shape, "float32",
+                       calls, checks, nbytes, ops, PEAK_F32_OPS_PER_S, fn,
+                       plain, library, library_what,
+                       "calls per step of the f32 tiny variant")
+
+    for bh, sq, sk, d, causal, calls in f32_flash_shapes(cfg):
+        shape = (bh, sq, sk, d)
+        scale = d ** -0.5
+        q, k, v, do = (randn(bh, n, d) for n in (sq, sk, sk, sq))
+        out, lse = fa.flash_fwd(q, k, v, scale, causal)
+        p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+        delta = fa.flash_delta(p_out, do)
+        bwd = (q, k, v, do, p_lse, delta, scale, causal)
+        dk, dv = fa.flash_bwd_dkv(*bwd)
+        p_dk, p_dv = fa.flash_bwd_dkv_plain(*bwd)
+        dq = fa.flash_bwd_dq(*bwd)
+        p_dq = fa.flash_bwd_dq_plain(*bwd)
+        torch.cuda.synchronize()
+        lim = F32_KERNEL_LIMIT
+        fwd_checks = [("out", rel_err(torch, out, p_out), lim),
+                      ("lse", rel_err(torch, lse, p_lse), lim)]
+        dkv_checks = [("dk", rel_err(torch, dk, p_dk), lim),
+                      ("dv", rel_err(torch, dv, p_dv), lim)]
+        dq_checks = [("dq", rel_err(torch, dq, p_dq), lim)]
+        del out, lse, dk, dv, dq, p_dk, p_dv, p_dq
+        torch.cuda.empty_cache()
+        product = 2 * bh * causal_pairs(sq, sk, causal) * d
+        qo_bytes, kv_bytes, row_bytes = 4 * bh * sq * d, 4 * bh * sk * d, \
+            4 * bh * sq
+        lib_fwd = lib_bwd = lib_out = None
+        if sq == sk:  # SDPA's causal mask is end-aligned here
+            q4, k4, v4 = (t.view(1, *t.shape).requires_grad_(True)
+                          for t in (q, k, v))
+            lib_out = sdpa(q4, k4, v4, is_causal=causal)
+            g4 = do.view(1, *do.shape)
+
+            def lib_fwd():
+                with torch.no_grad():
+                    sdpa(q4, k4, v4, is_causal=causal)
+
+            def lib_bwd():
+                torch.autograd.grad(lib_out, (q4, k4, v4), g4,
+                                    retain_graph=True)
+        lib_what = "torch scaled_dot_product_attention in float32"
+        bwd_what = "the backward of that call (dq, dk and dv in one call)"
+        record("flash_fwd_f32", shape, calls, fwd_checks,
+               2 * qo_bytes + 2 * kv_bytes + row_bytes, 2 * product,
+               lambda: fa.flash_fwd(q, k, v, scale, causal),
+               lambda: fa.flash_fwd_plain(q, k, v, scale, causal), lib_fwd,
+               lib_what)
+        record("flash_bwd_dkv_f32", shape, calls, dkv_checks,
+               2 * qo_bytes + 4 * kv_bytes + 2 * row_bytes, 4 * product,
+               lambda: fa.flash_bwd_dkv(*bwd),
+               lambda: fa.flash_bwd_dkv_plain(*bwd), lib_bwd, bwd_what)
+        record("flash_bwd_dq_f32", shape, calls, dq_checks,
+               3 * qo_bytes + 2 * kv_bytes + 2 * row_bytes, 3 * product,
+               lambda: fa.flash_bwd_dq(*bwd),
+               lambda: fa.flash_bwd_dq_plain(*bwd), lib_bwd, bwd_what)
+        lib_fwd = lib_bwd = lib_out = None
+        del q, k, v, do, p_out, p_lse, delta, bwd
+        torch.cuda.empty_cache()
+
+    for T, d, dff, calls in f32_ffn_shapes(cfg):
+        x = randn(T, d)
+        rstd = torch.rand((T, 1), generator=gen, device="cuda") + 0.5
+        nw = randn(d, scale=0.1) + 1
+        dgate, dup = randn(T, dff, scale=0.01), randn(T, dff, scale=0.01)
+        gate, up = randn(T, dff), randn(T, dff)
+        dy = randn(T, d, scale=0.01)
+        wd = randn(dff, d, scale=dff ** -0.5)
+        lim = F32_KERNEL_LIMIT
+        dwg, dwu = ff.dw_gateup(x, rstd, nw, dgate, dup)
+        p_dwg, p_dwu = ff.dw_gateup_plain(x, rstd, nw, dgate, dup)
+        dwd = ff.dw_down(gate, up, dy)
+        p_dwd = ff.dw_down_plain(gate, up, dy)
+        dg, du = ff.dgateup(dy, wd, gate, up)
+        p_dg, p_du = ff.dgateup_plain(dy, wd, gate, up)
+        torch.cuda.synchronize()
+        k3_checks = [("dw_gate", rel_err(torch, dwg, p_dwg), lim),
+                     ("dw_up", rel_err(torch, dwu, p_dwu), lim)]
+        k1_checks = [("dw_down", rel_err(torch, dwd, p_dwd), lim)]
+        k2_checks = [("dgate", rel_err(torch, dg, p_dg), lim),
+                     ("dup", rel_err(torch, du, p_du), lim)]
+        h = ff.normed(x, rstd, nw)
+        s_act = ff.swiglu_act(gate, up)
+        shape = (T, d, dff)
+        record("dw_gateup_f32", shape, calls, k3_checks,
+               4 * (T * d + T + d + 2 * T * dff + 2 * d * dff),
+               2 * 2 * T * d * dff,
+               lambda: ff.dw_gateup(x, rstd, nw, dgate, dup),
+               lambda: ff.dw_gateup_plain(x, rstd, nw, dgate, dup),
+               lambda: (torch.matmul(h.T, dgate), torch.matmul(h.T, dup)),
+               "two float32 torch.matmul(h.T, .) on a precomputed h")
+        record("dw_down_f32", shape, calls, k1_checks,
+               4 * (2 * T * dff + T * d + dff * d), 2 * T * d * dff,
+               lambda: ff.dw_down(gate, up, dy),
+               lambda: ff.dw_down_plain(gate, up, dy),
+               lambda: torch.matmul(s_act.T, dy),
+               "float32 torch.matmul(s.T, dy) on a precomputed swiglu s")
+        record("dgateup_f32", shape, calls, k2_checks,
+               4 * (T * d + dff * d + 4 * T * dff), 2 * T * d * dff,
+               lambda: ff.dgateup(dy, wd, gate, up),
+               lambda: ff.dgateup_plain(dy, wd, gate, up),
+               lambda: torch.matmul(dy, wd.T),
+               "float32 torch.matmul(dy, w_down.T), the product alone")
+        del x, rstd, nw, dgate, dup, gate, up, dy, wd, h, s_act
+        del dwg, dwu, p_dwg, p_dwu, dwd, p_dwd, dg, du, p_dg, p_du
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    log(f"phase 7d: {time.perf_counter() - t0:.2f} s")
+    return rows
+
+
+def train_f32_tiny(torch, seed: int, cfg):
+    """Phase 7d's main path: the float32 tiny variant at head_dim 128,
+    fused_ffn and fused_attn, USE_K1 = USE_K2 = True, F32_TINY_STEPS steps
+    of default_optimizer on the card, each float32 kernel launched n_layers
+    times a step (counters zeroed before each step, read after); the losses
+    against the same params and batch on the CPU. Returns {kernel_f32:
+    launches over the steps}."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import init_params
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+    from ray_tpu_torch.train import default_optimizer, make_train_step
+    from ray_tpu_torch.train.step import TrainState
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+
+    t0 = time.perf_counter()
+    kernels = (*fa.KERNELS, *ff.KERNELS)
+    L = cfg.n_layers
+    want = {k.__name__: (L, L) for k in kernels}
+    opt = default_optimizer(1e-3, warmup_steps=1)
+    params = init_params(cfg, seed=seed, device="cpu")
+    batch = bench.make_batch(cfg, F32_TINY_BATCH, F32_TINY_SEQ, seed + 1,
+                             "cpu")
+    curves = {}
+    launches = {f"{k.__name__}_f32": 0 for k in kernels}
+    old = ff.USE_K1, ff.USE_K2
+    ff.USE_K1 = ff.USE_K2 = True
+    try:
+        for dev in ("cuda", "cpu"):
+            step_fn, _ = make_train_step(cfg, opt, device=dev)
+            p = to(params, dev)
+            state = TrainState(params=p, opt_state=opt.init(p), step=0)
+            losses = []
+            for i in range(F32_TINY_STEPS):
+                for k in kernels:  # the main path's counts start here
+                    k.launches = k.f32_launches = 0
+                state, metrics = step_fn(state, batch)
+                losses.append(float(metrics["loss"]))
+                if dev != "cuda":
+                    continue
+                got = {k.__name__: (k.launches, k.f32_launches)
+                       for k in kernels}
+                if got != want:
+                    fail(f"f32 tiny step {i + 1} launched {got} (launches, "
+                         f"float32 launches); expected {want}")
+                for k in kernels:
+                    launches[f"{k.__name__}_f32"] += k.f32_launches
+            curves[dev] = losses
+    finally:
+        ff.USE_K1, ff.USE_K2 = old
+    rel = max(abs(a - b) / abs(b) for a, b in zip(curves["cuda"],
+                                                   curves["cpu"]))
+    log(f"train f32 tiny (d_model {cfg.d_model}, head_dim {cfg.head_dim}, "
+        f"{L} layers, b {F32_TINY_BATCH} x s {F32_TINY_SEQ}): losses "
+        f"{curves['cuda']} on the card, {curves['cpu']} on the CPU (max rel "
+        f"{rel:.3g}, limit {F32_LOSS_RTOL}); each float32 kernel "
+        f"{L} launches a step; {time.perf_counter() - t0:.2f} s")
+    if not all(math.isfinite(x) for x in curves["cuda"]):
+        fail(f"f32 tiny losses {curves['cuda']} are not finite")
+    if not rel <= F32_LOSS_RTOL:
+        fail(f"f32 tiny losses on the card {curves['cuda']} differ from the "
+             f"CPU's {curves['cpu']} by {rel} relative")
+    return launches
+
+
+def ptxas_report(proc, out_path) -> None:
+    """Log ptxas's registers, spills and the dynamic shared memory of the
+    redesigned forward and dq kernels (the `nvcc -Xptxas -v` started in
+    phase 2)."""
+    import re
+
+    log_text, _ = proc.communicate()
+    out_path.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        fail(f"nvcc -Xptxas -v on flash_attention.cu failed:\n{log_text}")
+    lines = log_text.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '.*?(flash_fwd_kernel|"
+                      r"flash_bwd_dq_kernel)ILi(\d+)E", line)
+        if not m:
+            continue
+        kernel, d = m.group(1), int(m.group(2))
+        stats = " ".join(x.split(":", 1)[-1].strip()
+                         for x in lines[i + 1:i + 4]
+                         if "registers" in x or "spill" in x)
+        # bf16 tiles: 128 query rows of Q (and of dO in dq), two stages of
+        # 64-row K and V tiles, and 1 KB to align them
+        q_rows = 128 if kernel == "flash_fwd_kernel" else 256
+        smem = 2 * (q_rows + 4 * 64) * d + 1024
+        log(f"ptxas {kernel}<{d}>: {stats}; dynamic shared memory {smem} "
+            f"bytes a block")
 
 
 def main() -> int:
@@ -1284,12 +1596,21 @@ def main() -> int:
         f"bf16 tensor cores {PEAK_BF16_OPS_PER_S / 1e12} TFLOP/s dense "
         f"(H100 SXM data sheet)")
 
-    # ---- phase 2: build
+    # ---- phase 2: build, and beside it ptxas's report on the redesigned
+    # flash forward and dq kernels
     t0 = time.perf_counter()
+    _util.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    ptxas_obj = _util.BUILD_DIR / "ptxas-flash_attention.o"
+    ptxas = subprocess.Popen(
+        [_util._nvcc(), *[f for f in _util.NVCC_FLAGS if f != "-shared"],
+         "-Xptxas", "-v", "-c", "-o", str(ptxas_obj),
+         str(_util.CSRC_DIR / "flash_attention.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = _util.build(["quant", "flash_attention", "fused_ffn", "adamw",
                         "rmsnorm", "xent"])
     for lib in libs.values():
         log(f"built {lib.relative_to(HERE)}")
+    ptxas_report(ptxas, ptxas_obj)
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
 
     # ---- phase 3: kernels against their plain versions, before the
@@ -1390,10 +1711,19 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     train_cfg = bench.train_config_8b(n_layers=8)
     train_rows = check_train_kernels(torch, gen, train_cfg)
+    redesign_summary(train_rows, ("flash_fwd", "flash_bwd_dkv",
+                                  "flash_bwd_dq"), card)
     # ---- phase 7b: the RMSNorm and cross-entropy kernels
     entry_rows = check_norm_xent_kernels(torch, gen)
     # ---- phase 7c: the packed flash kernels
     packed_rows = check_packed_kernels(torch, gen)
+    redesign_summary(packed_rows, ("flash_fwd_packed", "flash_bwd_dkv_packed",
+                                   "flash_bwd_dq_packed"), card)
+    # ---- phase 7d: the float32 kernels, then the float32 tiny variant
+    # trained through them
+    f32_cfg = f32_tiny_config()
+    f32_rows = check_f32_kernels(torch, gen, f32_cfg)
+    f32_launches = train_f32_tiny(torch, args.seed, f32_cfg)
 
     # ---- phases 8-10: train llama3_8b width, 8 layers, on the default
     # step and then the all-kernel step; measure both
@@ -1427,6 +1757,8 @@ def main() -> int:
                 "flash_fwd_packed": pallas + "flash_attention.py:385",
                 "flash_bwd_dkv_packed": pallas + "flash_attention.py:442",
                 "flash_bwd_dq_packed": pallas + "flash_attention.py:480"}
+    # the float32 kernels replace the same TPU kernels, run in float32
+    replaces.update({k: replaces[k[:-4]] for k in f32_rows})
     csrc = "ray_tpu_torch/ops/kernels/csrc/"
     source = {"quantize_int8": csrc + "quant.cu",
               "dequantize_int8": csrc + "quant.cu",
@@ -1444,6 +1776,7 @@ def main() -> int:
               "flash_fwd_packed": csrc + "flash_attention.cu",
               "flash_bwd_dkv_packed": csrc + "flash_attention.cu",
               "flash_bwd_dq_packed": csrc + "flash_attention.cu"}
+    source.update({k: source[k[:-4]] for k in f32_rows})
     norm_per = "one norm-and-gradient at the 8B training shape"
     xent_per = "one loss-and-gradient of the 8B logits"
     packed_per = "one forward-and-gradient at the 8B attention shape"
@@ -1451,12 +1784,15 @@ def main() -> int:
            "dequantize_int8": "one decode step",
            "rms_norm_fwd": norm_per, "rms_norm_bwd_dx": norm_per,
            "xent_fwd": xent_per, "xent_bwd": xent_per,
-           **{k: packed_per for k in packed_rows}}
+           **{k: packed_per for k in packed_rows},
+           **{k: "one training step of the float32 tiny variant at "
+                 "head_dim 128" for k in f32_rows}}
     launches.update(train_launches)
     launches.update(entry_launches)
+    launches.update(f32_launches)
     kernels = []
     for kname, rows in {**kernel_rows, **train_rows, **entry_rows,
-                        **packed_rows}.items():
+                        **packed_rows, **f32_rows}.items():
         # times: the main path's calls for `per`, each shape timed once and
         # counted as often as the path calls it
         lib = [r for r in rows if r["calls"] and r.get("library_ms")]
@@ -1480,7 +1816,11 @@ def main() -> int:
             kernels[-1]["launches_per_step"] = (train_launches[kname]
                                                 / TRAIN_STEPS)
             kernels[-1]["launches_by_path"] = by_path[kname]
-        if kname in train_launches or kname in entry_launches:
+        if kname in f32_launches:
+            kernels[-1]["launches_per_step"] = (f32_launches[kname]
+                                                / F32_TINY_STEPS)
+        if kname in train_launches or kname in entry_launches \
+                or kname in f32_launches:
             kernels[-1]["library"] = lib[0]["library"] if lib else None
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,6 +10,10 @@ an unchanged tree reuses the library. A build writes to a temporary file and
 renames it into place, so concurrent builds never load a half-written
 library. Libraries are loaded with ctypes; every C entry point returns
 ``cudaGetLastError()`` after its launch and ``check`` raises on non-zero.
+Where a source holds bfloat16 and float32 kernels (flash attention, the
+fused FFN), each entry point ``name`` has a float32 twin ``name_f32``
+(`with_f32`, `dtype_entry`), and wrappers count launches with
+`count_launch`.
 """
 
 from __future__ import annotations
@@ -155,6 +159,33 @@ def load_library(name: str, signatures: Dict[str, Signature]) -> ctypes.CDLL:
                 getattr(lib, fn).restype = restype
             _LOADED[name] = lib
         return lib
+
+
+# The dtypes of the flash and fused-FFN kernels: each C entry point `name`
+# takes bfloat16, and `name_f32` the same operands in float32.
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def with_f32(signatures: Dict[str, Signature]) -> Dict[str, Signature]:
+    """`signatures` and the float32 twin (`name_f32`) of each entry."""
+    return {**signatures,
+            **{f"{name}_f32": sig for name, sig in signatures.items()}}
+
+
+def dtype_entry(library: str, signatures: Dict[str, Signature], name: str,
+                dtype: torch.dtype):
+    """(the library, its entry point `name` for operands of `dtype`)."""
+    lib = load_library(library, signatures)
+    return lib, getattr(lib, name + ("_f32" if dtype == torch.float32
+                                     else ""))
+
+
+def count_launch(wrapper, dtype: torch.dtype) -> None:
+    """One launch of `wrapper`'s kernel; float32 launches also count in
+    `wrapper.f32_launches`."""
+    wrapper.launches += 1
+    if dtype == torch.float32:
+        wrapper.f32_launches += 1
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -12,6 +12,8 @@
 //      replaces _dw_gateup_kernel (fused_ffn.py:121, called at :264 when
 //      USE_K3)
 //
+// plus float32 twins of all three (*_f32_kernel, at the end of the file).
+//
 // What bounds them on an H100: tensor-core operations. At the Llama-3-8B
 // training shape (T = 4096 tokens, d = 4096, d_ff = 14336) K1 and K2 are
 // one product each, 2*T*d*d_ff = 4.81e11 FLOP (0.49 ms at 989 TFLOP/s),
@@ -562,6 +564,186 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// ---------------------------------------------------------------- float32
+//
+// K1, K2 and K3 for float32 operands and outputs (the reference keeps the
+// model's dtype, fused_ffn.py:264 on): one plain tiled SIMT product,
+// C[m][n] = sum_k A(m, k) B(k, n) over a 64 x 64 output tile, 16 of k a
+// step through shared memory, each of 256 threads owning a 4 x 4 patch
+// (rows 4ty + i, columns tx + 16j), every product an FMA on the CUDA cores
+// in float32 (TF32 would keep ~3 digits). The modes differ only in how A
+// and B are fetched (with K1's swiglu and K3's h computed on the fly) and
+// in K2's epilogue. Bound on an H100: float32 operations (67 TFLOP/s).
+
+constexpr int kFT = 64;  // output tile
+constexpr int kFK = 16;  // reduction step
+constexpr int kLdF = kFT + 1;
+
+// Fills the [kFK][kLdF] tile with fetch(x, kk) at [kk][x] for x < kFT.
+// kContig: the source is contiguous along k (each thread walks k),
+// otherwise along x.
+template <bool kContig, typename Fetch>
+__device__ __forceinline__ void fill_tile_f32(float* tile, Fetch fetch) {
+  for (int e = threadIdx.x; e < kFK * kFT; e += kThreads) {
+    const int x = kContig ? e / kFK : e % kFT;
+    const int kk = kContig ? e % kFK : e / kFT;
+    tile[kk * kLdF + x] = fetch(x, kk);
+  }
+}
+
+template <bool kContigA, bool kContigB, typename FetchA, typename FetchB>
+__device__ __forceinline__ void gemm_tile_f32(int K, FetchA fetch_a,
+                                              FetchB fetch_b, float* sA,
+                                              float* sB, float (&c)[4][4]) {
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[i][j] = 0.0f;
+  }
+  for (int k0 = 0; k0 < K; k0 += kFK) {
+    __syncthreads();  // the previous step's readers are done
+    fill_tile_f32<kContigA>(
+        sA, [&](int m, int kk) { return fetch_a(m, k0 + kk); });
+    fill_tile_f32<kContigB>(
+        sB, [&](int n, int kk) { return fetch_b(k0 + kk, n); });
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kFK; ++kk) {
+      float x[4], y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = sA[kk * kLdF + 4 * ty + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) y[j] = sB[kk * kLdF + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) c[i][j] = fmaf(x[i], y[j], c[i][j]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store_tile_f32(float* out,
+                                               const float (&c)[4][4],
+                                               int m0, int n0, int M, int N) {
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + 4 * ty + i;
+      const int n = n0 + tx + 16 * j;
+      if (m < M && n < N) out[static_cast<int64_t>(m) * N + n] = c[i][j];
+    }
+  }
+}
+
+// K3: dW_gate (blockIdx.z 0) or dW_up (1) = h^T . dgate|dup, h = x*rstd*w.
+__global__ void __launch_bounds__(kThreads)
+    dw_gateup_f32_kernel(const float* __restrict__ x,
+                         const float* __restrict__ rstd,
+                         const float* __restrict__ norm_w,
+                         const float* __restrict__ dgate,
+                         const float* __restrict__ dup,
+                         float* __restrict__ dw_gate,
+                         float* __restrict__ dw_up, int T, int d, int dff) {
+  __shared__ float sA[kFK * kLdF];
+  __shared__ float sB[kFK * kLdF];
+  const int m0 = blockIdx.y * kFT;  // the d axis
+  const int n0 = blockIdx.x * kFT;  // the d_ff axis
+  const float* g = blockIdx.z ? dup : dgate;
+  float c[4][4];
+  gemm_tile_f32<false, false>(
+      T,
+      [&](int m, int t) {
+        const int i = m0 + m;
+        return t < T && i < d
+                   ? x[static_cast<int64_t>(t) * d + i] * rstd[t] * norm_w[i]
+                   : 0.0f;
+      },
+      [&](int t, int n) {
+        const int j = n0 + n;
+        return t < T && j < dff ? g[static_cast<int64_t>(t) * dff + j] : 0.0f;
+      },
+      sA, sB, c);
+  store_tile_f32(blockIdx.z ? dw_up : dw_gate, c, m0, n0, d, dff);
+}
+
+// K1: dW_down = swiglu(gate, up)^T . dy, swiglu = silu(g) * u.
+__global__ void __launch_bounds__(kThreads)
+    dw_down_f32_kernel(const float* __restrict__ gate,
+                       const float* __restrict__ up,
+                       const float* __restrict__ dy,
+                       float* __restrict__ dw_down, int T, int d, int dff) {
+  __shared__ float sA[kFK * kLdF];
+  __shared__ float sB[kFK * kLdF];
+  const int m0 = blockIdx.y * kFT;  // the d_ff axis
+  const int n0 = blockIdx.x * kFT;  // the d axis
+  float c[4][4];
+  gemm_tile_f32<false, false>(
+      T,
+      [&](int m, int t) {
+        const int i = m0 + m;
+        if (t >= T || i >= dff) return 0.0f;
+        const int64_t off = static_cast<int64_t>(t) * dff + i;
+        const float g = gate[off];
+        return g * sigmoid(g) * up[off];
+      },
+      [&](int t, int n) {
+        const int j = n0 + n;
+        return t < T && j < d ? dy[static_cast<int64_t>(t) * d + j] : 0.0f;
+      },
+      sA, sB, c);
+  store_tile_f32(dw_down, c, m0, n0, dff, d);
+}
+
+// K2: d_s = dy . W_down^T (never stored), then the swiglu VJP.
+__global__ void __launch_bounds__(kThreads)
+    dgateup_f32_kernel(const float* __restrict__ dy,
+                       const float* __restrict__ w_down,
+                       const float* __restrict__ gate,
+                       const float* __restrict__ up,
+                       float* __restrict__ dgate, float* __restrict__ dup,
+                       int T, int d, int dff) {
+  __shared__ float sA[kFK * kLdF];
+  __shared__ float sB[kFK * kLdF];
+  const int m0 = blockIdx.y * kFT;  // tokens
+  const int n0 = blockIdx.x * kFT;  // the d_ff axis
+  float c[4][4];
+  gemm_tile_f32<true, true>(
+      d,
+      [&](int m, int k) {
+        const int t = m0 + m;
+        return t < T && k < d ? dy[static_cast<int64_t>(t) * d + k] : 0.0f;
+      },
+      [&](int k, int n) {
+        const int j = n0 + n;
+        return j < dff && k < d ? w_down[static_cast<int64_t>(j) * d + k]
+                                : 0.0f;
+      },
+      sA, sB, c);
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int t = m0 + 4 * ty + i;
+      const int n = n0 + tx + 16 * j;
+      if (t < T && n < dff) {
+        const int64_t off = static_cast<int64_t>(t) * dff + n;
+        const float g = gate[off];
+        const float s = sigmoid(g);
+        dgate[off] = c[i][j] * up[off] * (s * (1.0f + g * (1.0f - s)));
+        dup[off] = c[i][j] * (g * s);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -602,6 +784,42 @@ int rt_dgateup(const void* dy, const void* w_down, const void* gate,
       static_cast<const bf16*>(dy), static_cast<const bf16*>(w_down),
       static_cast<const bf16*>(gate), static_cast<const bf16*>(up),
       static_cast<bf16*>(dgate), static_cast<bf16*>(dup), T, d, dff);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same three entries for float32 operands and outputs (rstd float32).
+int rt_dw_gateup_f32(const void* x, const void* rstd, const void* norm_w,
+                     const void* dgate, const void* dup, void* dw_gate,
+                     void* dw_up, int T, int d, int dff, void* stream) {
+  dim3 grid((dff + kFT - 1) / kFT, (d + kFT - 1) / kFT, 2);
+  dw_gateup_f32_kernel<<<grid, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(rstd),
+      static_cast<const float*>(norm_w), static_cast<const float*>(dgate),
+      static_cast<const float*>(dup), static_cast<float*>(dw_gate),
+      static_cast<float*>(dw_up), T, d, dff);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_dw_down_f32(const void* gate, const void* up, const void* dy,
+                   void* dw_down, int T, int d, int dff, void* stream) {
+  dim3 grid((d + kFT - 1) / kFT, (dff + kFT - 1) / kFT);
+  dw_down_f32_kernel<<<grid, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(gate), static_cast<const float*>(up),
+      static_cast<const float*>(dy), static_cast<float*>(dw_down), T, d, dff);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_dgateup_f32(const void* dy, const void* w_down, const void* gate,
+                   const void* up, void* dgate, void* dup, int T, int d,
+                   int dff, void* stream) {
+  dim3 grid((dff + kFT - 1) / kFT, (T + kFT - 1) / kFT);
+  dgateup_f32_kernel<<<grid, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dy), static_cast<const float*>(w_down),
+      static_cast<const float*>(gate), static_cast<const float*>(up),
+      static_cast<float*>(dgate), static_cast<float*>(dup), T, d, dff);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,12 +16,14 @@ KV-cache convention):
     `flash_attention_pallas`).
 
 On a CUDA tensor each of the three wrappers launches its hand-written kernel
-(csrc/flash_attention.cu) or raises: the kernels take bfloat16 and head_dim
-32, 64 or 128. The plain PyTorch versions beside them run for tensors on the
-CPU; they compute densely in float32 with the kernels' masking and
-roundings (p and ds rounded to the input dtype before the products they
-feed). Over [b·h, s, d] GQA is the caller's: K/V come in repeated per
-query head.
+(csrc/flash_attention.cu) or raises: the kernels take bfloat16 or float32
+operands, all of one dtype (`KERNEL_DTYPES`; the reference computes in the
+input dtype), and head_dim 32, 64 or 128. Each wrapper counts its launches
+in `.launches` and, of those, the float32 kernel's in `.f32_launches`. The
+plain PyTorch versions beside them run for tensors on the CPU; they compute
+densely in float32 with the kernels' masking and roundings (p and ds
+rounded to the input dtype before the products they feed). Over [b·h, s,
+d] GQA is the caller's: K/V come in repeated per query head.
 
 The packed layout (twin of `_flash_fwd_packed`/`_flash_bwd_packed`,
 ray_tpu/ops/pallas/flash_attention.py:376-502) runs the same three kernels
@@ -45,7 +47,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from ray_tpu_torch.ops.kernels._util import check, load_library, stream_handle
+from ray_tpu_torch.ops.kernels._util import (KERNEL_DTYPES, check,
+                                             count_launch, dtype_entry,
+                                             stream_handle, with_f32)
 
 _NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
@@ -54,15 +58,15 @@ _P, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every entry takes the packed layout (batch, heads, n_rep, sq, sk, d);
 # [b·h, s, d] operands are batch = b·h, heads = n_rep = 1.
 _LAYOUT = [_INT] * 6
-_SIGNATURES = {
+_SIGNATURES = with_f32({
     "rt_flash_fwd": ([_P] * 5 + _LAYOUT + [_F, _INT, _P], _INT),
     "rt_flash_bwd_dkv": ([_P] * 8 + _LAYOUT + [_F, _INT, _P], _INT),
     "rt_flash_bwd_dq": ([_P] * 7 + _LAYOUT + [_F, _INT, _P], _INT),
-}
+})
 
 
-def _lib() -> ctypes.CDLL:
-    return load_library("flash_attention", _SIGNATURES)
+def _entry(name: str, dtype: torch.dtype):
+    return dtype_entry("flash_attention", _SIGNATURES, name, dtype)
 
 
 # ---------------------------------------------------------------- plain
@@ -200,7 +204,8 @@ def _check(q, k, v, what: str) -> None:
 
 def _check_cuda(tensors, what: str) -> None:
     """The kernels' contract: CUDA, one device, contiguous, 16-byte
-    aligned; bf16 operands and head_dim in HEAD_DIMS (checked by callers)."""
+    aligned; operands of one dtype in KERNEL_DTYPES and head_dim in
+    HEAD_DIMS (checked by callers)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
@@ -214,10 +219,11 @@ def _check_cuda(tensors, what: str) -> None:
 
 def _check_operands(q, k, v, d: int, batch: int, heads: int,
                     what: str) -> None:
-    for t in (q, k, v):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: the CUDA kernel takes bfloat16, got "
-                            f"{t.dtype}")
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"{what}: the CUDA kernels take bfloat16 or float32 "
+                        f"operands of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"{what}: the CUDA kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {d}")
@@ -228,8 +234,8 @@ def _check_operands(q, k, v, d: int, batch: int, heads: int,
 
 def _launch_fwd(q, k, v, lse, layout, scale, causal, what) -> torch.Tensor:
     out = torch.empty_like(q)
-    lib = _lib()
-    check(lib, lib.rt_flash_fwd(
+    lib, fn = _entry("rt_flash_fwd", q.dtype)
+    check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *layout, float(scale), int(causal),
         stream_handle(q)), what)
@@ -239,8 +245,8 @@ def _launch_fwd(q, k, v, lse, layout, scale, causal, what) -> torch.Tensor:
 def _launch_dkv(q, k, v, do, lse, delta, layout, scale, causal, what):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _lib()
-    check(lib, lib.rt_flash_bwd_dkv(
+    lib, fn = _entry("rt_flash_bwd_dkv", q.dtype)
+    check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *layout, float(scale), int(causal), stream_handle(q)), what)
@@ -249,8 +255,8 @@ def _launch_dkv(q, k, v, do, lse, delta, layout, scale, causal, what):
 
 def _launch_dq(q, k, v, do, lse, delta, layout, scale, causal, what):
     dq = torch.empty_like(q)
-    lib = _lib()
-    check(lib, lib.rt_flash_bwd_dq(
+    lib, fn = _entry("rt_flash_bwd_dq", q.dtype)
+    check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *layout,
         float(scale), int(causal), stream_handle(q)), what)
@@ -273,7 +279,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.empty_like(q), lse
     out = _launch_fwd(q, k, v, lse, (bh, 1, 1, sq, k.shape[1], d), scale,
                       causal, "flash_fwd")
-    flash_fwd.launches += 1
+    count_launch(flash_fwd, q.dtype)
     return out, lse
 
 
@@ -296,9 +302,11 @@ def _check_bwd_operands(q, k, v, do, lse, delta, d, batch, heads, what):
         return True
     _check_cuda(tensors, what)
     _check_operands(q, k, v, d, batch, heads, what)
-    if do.dtype != torch.bfloat16 or lse.dtype != torch.float32 \
+    if do.dtype != q.dtype or lse.dtype != torch.float32 \
             or delta.dtype != torch.float32:
-        raise TypeError(f"{what}: needs bfloat16 dO and float32 lse/delta")
+        raise TypeError(f"{what}: needs dO in q's dtype ({q.dtype}) and "
+                        f"float32 lse/delta, got {do.dtype}, {lse.dtype}, "
+                        f"{delta.dtype}")
     return False
 
 
@@ -313,7 +321,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float,
     dk, dv = _launch_dkv(q, k, v, do, lse, delta,
                          (bh, 1, 1, sq, k.shape[1], d), scale, causal,
                          "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    count_launch(flash_bwd_dkv, q.dtype)
     return dk, dv
 
 
@@ -327,7 +335,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float,
         return torch.empty_like(q)
     dq = _launch_dq(q, k, v, do, lse, delta, (bh, 1, 1, sq, k.shape[1], d),
                     scale, causal, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    count_launch(flash_bwd_dq, q.dtype)
     return dq
 
 
@@ -408,7 +416,7 @@ def flash_fwd_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.empty_like(q), lse
     out = _launch_fwd(q, k, v, lse, _packed_layout(q, k, n_heads, n_kv, d),
                       scale, causal, "flash_fwd_packed")
-    flash_fwd_packed.launches += 1
+    count_launch(flash_fwd_packed, q.dtype)
     return out, lse
 
 
@@ -440,7 +448,7 @@ def flash_bwd_dkv_packed(q, k, v, do, lse, delta, n_heads: int, n_kv: int,
     dk, dv = _launch_dkv(q, k, v, do, lse, delta,
                          _packed_layout(q, k, n_heads, n_kv, d), scale,
                          causal, "flash_bwd_dkv_packed")
-    flash_bwd_dkv_packed.launches += 1
+    count_launch(flash_bwd_dkv_packed, q.dtype)
     return dk, dv
 
 
@@ -457,7 +465,7 @@ def flash_bwd_dq_packed(q, k, v, do, lse, delta, n_heads: int, n_kv: int,
     dq = _launch_dq(q, k, v, do, lse, delta,
                     _packed_layout(q, k, n_heads, n_kv, d), scale, causal,
                     "flash_bwd_dq_packed")
-    flash_bwd_dq_packed.launches += 1
+    count_launch(flash_bwd_dq_packed, q.dtype)
     return dq
 
 
@@ -528,14 +536,12 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor,
                                       causal)
 
 
-# Launch counts: each wrapper adds one where it launches its kernel, and
-# nowhere else (the CPU path launches nothing). The packed wrappers run the
-# same kernels but count apart: no model path calls them.
-flash_fwd.launches = 0
-flash_bwd_dkv.launches = 0
-flash_bwd_dq.launches = 0
+# Launch counts: each wrapper adds one to `.launches` where it launches its
+# kernel, and nowhere else (the CPU path launches nothing); `.f32_launches`
+# counts the float32 kernel's share. The packed wrappers run the same
+# kernels but count apart: no model path calls them.
 KERNELS = (flash_fwd, flash_bwd_dkv, flash_bwd_dq)
-flash_fwd_packed.launches = 0
-flash_bwd_dkv_packed.launches = 0
-flash_bwd_dq_packed.launches = 0
 PACKED_KERNELS = (flash_fwd_packed, flash_bwd_dkv_packed, flash_bwd_dq_packed)
+for _wrapper in (*KERNELS, *PACKED_KERNELS):
+    _wrapper.launches = 0
+    _wrapper.f32_launches = 0

@@ -4,17 +4,22 @@ autograd.Function whose backward re-runs no forward.
 
 The forward saves `x, rstd, q, k, v, out, lse`: the post-rotary q/k
 (`[b, h, s, hd]` and `[b, kv_heads, s, hd]`), v, the attention output and
-the flash kernel's logsumexp. K/V are saved UNREPEATED and expanded per
-query head at kernel entry in both directions; dk/dv are summed back over
-the repeat groups. The backward goes straight to the flash backward kernels,
-un-rotates dq/dk by the rotation's transpose (rotary with -sin), and
+the flash kernel's logsumexp (None on the einsum route below). K/V are
+saved UNREPEATED and expanded per query head at the core's entry in both
+directions; dk/dv are summed back over the repeat groups. The backward goes
+straight to the core's backward (the flash backward kernels), un-rotates dq/dk by the rotation's transpose (rotary with -sin), and
 finishes with the dW and dh products in torch and the rmsnorm VJP. cos/sin
 get zero gradients, as in the reference.
 
-The attention core is always the flash pair (`flash_fwd`/`flash_bwd`): the
-CUDA kernels on a CUDA tensor, their plain versions on the CPU. The
-reference takes its einsum path off the TPU instead; both compute the same
-function.
+The attention core follows the reference's `_use_kernel` gate
+(ray_tpu/ops/pallas/fused_attn.py:42-43), decided by `use_flash`: on a
+CUDA tensor the flash pair (`flash_fwd`/`flash_bwd`, bfloat16 or float32)
+runs only at head_dim >= 128 and seq >= 128, and launches or raises there;
+below either the block takes the reference's einsum route,
+`causal_attention_reference` forward and its autograd VJP in the backward
+(the reference's `_core_fwd`/`_core_bwd`, :46-82). On the CPU the core is
+the flash pair's plain versions at every shape (the reference takes its
+einsum route off the TPU); both compute the same function.
 
 In bfloat16, dh is the float32 sum of three products each rounded to
 bfloat16 (the reference sums float32 products); in float32 the two agree.
@@ -24,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from ray_tpu_torch.ops.attention import _repeat_kv
+from ray_tpu_torch.ops.attention import _repeat_kv, causal_attention_reference
 from ray_tpu_torch.ops.kernels.flash_attention import flash_bwd, flash_fwd
 from ray_tpu_torch.ops.kernels.fused_ffn import (_rmsnorm_vjp, normed,
                                                  rms_normed)
@@ -34,6 +39,23 @@ from ray_tpu_torch.ops.layers import apply_rotary
 def _flat(t: torch.Tensor) -> torch.Tensor:
     b, h, s, hd = t.shape
     return t.reshape(b * h, s, hd).contiguous()
+
+
+def use_flash(s: int, hd: int, cuda: bool) -> bool:
+    """Whether the attention core is the flash pair: on a CUDA tensor the
+    reference's `_use_kernel` rule (head_dim >= 128 and seq >= 128, taken on
+    the TPU), elsewhere always (the flash pair's plain versions)."""
+    return not cuda or (hd >= 128 and s >= 128)
+
+
+def _einsum_vjp(q4, kr, vr, do4, scale):
+    """(dq, dk, dv) of the einsum reference at (q4, kr, vr), k/v repeated
+    per query head, as the reference's `_core_bwd` takes them."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q4, kr, vr)]
+        out = causal_attention_reference(*leaves, sm_scale=scale,
+                                         causal=True)
+        return torch.autograd.grad(out, leaves, do4)
 
 
 def _fwd_impl(x, nw, wq, wk, wv, wo, cos, sin, n_heads, n_kv_heads, eps):
@@ -47,9 +69,15 @@ def _fwd_impl(x, nw, wq, wk, wv, wo, cos, sin, n_heads, n_kv_heads, eps):
     k = apply_rotary(k, cos, sin).transpose(1, 2).contiguous()
     v = v.transpose(1, 2).contiguous()
     n_rep = n_heads // n_kv_heads
-    out, lse = flash_fwd(_flat(q), _flat(_repeat_kv(k, n_rep)),
-                         _flat(_repeat_kv(v, n_rep)), hd ** -0.5, True)
-    out = out.reshape(b, n_heads, s, hd)
+    kr, vr = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    if use_flash(s, hd, x.is_cuda):
+        out, lse = flash_fwd(_flat(q), _flat(kr), _flat(vr), hd ** -0.5,
+                             True)
+        out = out.reshape(b, n_heads, s, hd)
+    else:  # the reference's einsum route; no lse to save
+        out = causal_attention_reference(q, kr, vr, sm_scale=hd ** -0.5,
+                                         causal=True)
+        lse = None
     attn_flat = out.transpose(1, 2).reshape(b, s, n_heads * hd)
     y = x + (attn_flat @ wo).to(x.dtype)
     return y, (rstd, q, k, v, out, lse)
@@ -82,10 +110,15 @@ class AttnBlock(torch.autograd.Function):
         do4 = (dy2d @ wo.T).reshape(b, s, n_heads, hd).transpose(1, 2)
         do4 = do4.to(out.dtype)
 
-        # flash backward on the saved tensors (no forward re-run)
-        dq4, dkr, dvr = flash_bwd(
-            _flat(q), _flat(_repeat_kv(k, n_rep)), _flat(_repeat_kv(v, n_rep)),
-            _flat(out), lse, _flat(do4), hd ** -0.5, True)
+        # the core's backward on the saved tensors: the flash kernels (no
+        # forward re-run), or the einsum route's VJP where the forward took it
+        kr, vr = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+        if lse is not None:
+            dq4, dkr, dvr = flash_bwd(_flat(q), _flat(kr), _flat(vr),
+                                      _flat(out), lse, _flat(do4),
+                                      hd ** -0.5, True)
+        else:
+            dq4, dkr, dvr = _einsum_vjp(q, kr, vr, do4, hd ** -0.5)
         dq4 = dq4.reshape(b, n_heads, s, hd)
         dkr = dkr.reshape(b, n_kv_heads, n_rep, s, hd).sum(dim=2)
         dvr = dvr.reshape(b, n_kv_heads, n_rep, s, hd).sum(dim=2)

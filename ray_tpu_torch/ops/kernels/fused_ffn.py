@@ -20,8 +20,11 @@ runs the reference's own XLA-side math in plain torch (as the reference's
 `_vjp_bwd` does); dh through the gate/up weights and the rmsnorm VJP are
 always plain torch, as in the reference.
 
-On a CUDA tensor each kernel wrapper launches its kernel or raises
-(bfloat16 only); its `*_plain` twin runs for tensors on the CPU. The
+On a CUDA tensor each kernel wrapper launches its kernel or raises: the
+kernels take bfloat16 or float32 tensors of one dtype (`KERNEL_DTYPES`, the
+reference keeps the model's dtype; rstd is always float32), and each
+wrapper counts its launches in `.launches` and the float32 kernel's share
+in `.f32_launches`. Its `*_plain` twin runs for tensors on the CPU. The
 kernels mask ragged edges themselves, so no (T, d, d_ff) tiling guard
 exists on either side.
 """
@@ -33,15 +36,17 @@ from typing import Tuple
 
 import torch
 
-from ray_tpu_torch.ops.kernels._util import check, load_library, stream_handle
+from ray_tpu_torch.ops.kernels._util import (KERNEL_DTYPES, check,
+                                             count_launch, dtype_entry,
+                                             stream_handle, with_f32)
 
 _P, _INT = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
+_SIGNATURES = with_f32({
     "rt_dw_gateup": ([_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _P],
                      _INT),
     "rt_dw_down": ([_P, _P, _P, _P, _INT, _INT, _INT, _P], _INT),
     "rt_dgateup": ([_P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _P], _INT),
-}
+})
 
 # Which backward kernels run (the reference's defaults, fused_ffn.py:59-61);
 # FFNBlock.backward reads them at every call.
@@ -50,8 +55,8 @@ USE_K2 = False
 USE_K3 = True
 
 
-def _lib() -> ctypes.CDLL:
-    return load_library("fused_ffn", _SIGNATURES)
+def _entry(name: str, dtype: torch.dtype):
+    return dtype_entry("fused_ffn", _SIGNATURES, name, dtype)
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -101,10 +106,13 @@ def _kernel_path(what: str, tensors) -> bool:
     return True
 
 
-def _require_bf16(what: str, tensors) -> None:
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError(f"{what}: the CUDA kernel takes bfloat16 tensors, "
-                        f"got {[t.dtype for t in tensors]}")
+def _require_dtype(what: str, tensors) -> None:
+    """All of `tensors` in one dtype that the kernels take."""
+    dtype = tensors[0].dtype
+    if dtype not in KERNEL_DTYPES or any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"{what}: the CUDA kernels take bfloat16 or float32 "
+                        f"tensors of one dtype, got "
+                        f"{[t.dtype for t in tensors]}")
 
 
 def dw_down_plain(gate, up, dy) -> torch.Tensor:
@@ -126,14 +134,14 @@ def dw_down(gate: torch.Tensor, up: torch.Tensor,
     tensors = (gate, up, dy)
     if not _kernel_path("dw_down", tensors):
         return dw_down_plain(gate, up, dy)
-    _require_bf16("dw_down", tensors)
+    _require_dtype("dw_down", tensors)
     out = torch.empty((dff, d), dtype=dy.dtype, device=dy.device)
     if dff and d:  # T == 0 runs no token step and writes zeros
-        lib = _lib()
-        check(lib, lib.rt_dw_down(
+        lib, fn = _entry("rt_dw_down", dy.dtype)
+        check(lib, fn(
             gate.data_ptr(), up.data_ptr(), dy.data_ptr(), out.data_ptr(),
             T, d, dff, stream_handle(dy)), "dw_down")
-        dw_down.launches += 1
+        count_launch(dw_down, dy.dtype)
     return out
 
 
@@ -159,16 +167,16 @@ def dgateup(dy: torch.Tensor, w_down: torch.Tensor, gate: torch.Tensor,
     tensors = (dy, w_down, gate, up)
     if not _kernel_path("dgateup", tensors):
         return dgateup_plain(dy, w_down, gate, up)
-    _require_bf16("dgateup", tensors)
+    _require_dtype("dgateup", tensors)
     dgate = torch.empty((T, dff), dtype=gate.dtype, device=gate.device)
     dup = torch.empty((T, dff), dtype=up.dtype, device=up.device)
     if T and dff:  # d == 0 gives d_s = 0
-        lib = _lib()
-        check(lib, lib.rt_dgateup(
+        lib, fn = _entry("rt_dgateup", dy.dtype)
+        check(lib, fn(
             dy.data_ptr(), w_down.data_ptr(), gate.data_ptr(), up.data_ptr(),
             dgate.data_ptr(), dup.data_ptr(), T, d, dff, stream_handle(dy)),
             "dgateup")
-        dgateup.launches += 1
+        count_launch(dgateup, dy.dtype)
     return dgate, dup
 
 
@@ -198,20 +206,19 @@ def dw_gateup(x2d: torch.Tensor, rstd: torch.Tensor, norm_w: torch.Tensor,
     if not _kernel_path("dw_gateup", tensors):
         return dw_gateup_plain(x2d, rstd, norm_w, dgate, dup)
     dev = x2d.device
-    if any(t.dtype != torch.bfloat16 for t in (x2d, norm_w, dgate, dup)) \
-            or rstd.dtype != torch.float32:
-        raise TypeError(f"dw_gateup: the CUDA kernel takes bfloat16 x, "
-                        f"norm_w, dgate, dup and float32 rstd, got "
-                        f"{[t.dtype for t in tensors]}")
+    _require_dtype("dw_gateup", (x2d, norm_w, dgate, dup))
+    if rstd.dtype != torch.float32:
+        raise TypeError(f"dw_gateup: the CUDA kernels take float32 rstd, got "
+                        f"{rstd.dtype}")
     dwg = torch.empty((d, dff), dtype=dgate.dtype, device=dev)
     dwu = torch.empty((d, dff), dtype=dup.dtype, device=dev)
     if d and dff:  # T == 0 runs no token step and writes zeros
-        lib = _lib()
-        check(lib, lib.rt_dw_gateup(
+        lib, fn = _entry("rt_dw_gateup", x2d.dtype)
+        check(lib, fn(
             x2d.data_ptr(), rstd.data_ptr(), norm_w.data_ptr(),
             dgate.data_ptr(), dup.data_ptr(), dwg.data_ptr(), dwu.data_ptr(),
             T, d, dff, stream_handle(x2d)), "dw_gateup")
-        dw_gateup.launches += 1
+        count_launch(dw_gateup, x2d.dtype)
     return dwg, dwu
 
 
@@ -289,9 +296,10 @@ def ffn_block(x: torch.Tensor, norm_w: torch.Tensor, w_gate: torch.Tensor,
     return FFNBlock.apply(x, norm_w, w_gate, w_up, w_down, eps)
 
 
-# Launch counts: each wrapper adds one where it launches its kernel, and
-# nowhere else (the CPU path launches nothing).
-dw_gateup.launches = 0
-dw_down.launches = 0
-dgateup.launches = 0
+# Launch counts: each wrapper adds one to `.launches` where it launches its
+# kernel, and nowhere else (the CPU path launches nothing); `.f32_launches`
+# counts the float32 kernel's share.
 KERNELS = (dw_gateup, dw_down, dgateup)
+for _wrapper in KERNELS:
+    _wrapper.launches = 0
+    _wrapper.f32_launches = 0

@@ -30,7 +30,7 @@ from ray_tpu_torch.ops.kernels import xent
 from ray_tpu_torch.ops.layers import rms_norm
 from ray_tpu_torch.train import (default_optimizer, fused_adamw_optimizer,
                                  make_train_step)
-from ray_tpu_torch.train.step import global_norm
+from ray_tpu_torch.train.step import TrainState, global_norm
 
 pytestmark = pytest.mark.cuda
 
@@ -211,18 +211,27 @@ def test_k3_kernel_matches_plain_version(cuda, T, d, dff):
 
 
 def test_new_kernels_refuse_float32_and_odd_head_dims(cuda):
-    q = torch.zeros((2, 64, 64), device=cuda)
-    with pytest.raises(TypeError, match="bfloat16"):
+    """The kernels take bfloat16 and float32 (both of one dtype); float16,
+    mixed dtypes and head dims outside (32, 64, 128) raise."""
+    q = torch.zeros((2, 64, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
         fa.flash_fwd(q, q, q, 1.0)
+    q32 = torch.zeros((2, 64, 64), device=cuda)
+    with pytest.raises(TypeError, match="one dtype"):
+        fa.flash_fwd(q32, q32.bfloat16(), q32.bfloat16(), 1.0)
     q16 = torch.zeros((2, 64, 48), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd(q16, q16, q16, 1.0)
-    x = torch.zeros((8, 16), device=cuda)
-    with pytest.raises(TypeError, match="bfloat16"):
+    x = torch.zeros((8, 16), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
         ff.dw_gateup(x, torch.ones((8, 1), device=cuda),
-                     torch.ones(16, device=cuda), torch.zeros((8, 4),
-                                                              device=cuda),
-                     torch.zeros((8, 4), device=cuda))
+                     torch.ones(16, device=cuda, dtype=torch.float16),
+                     torch.zeros((8, 4), device=cuda, dtype=torch.float16),
+                     torch.zeros((8, 4), device=cuda, dtype=torch.float16))
+    with pytest.raises(TypeError, match="one dtype"):
+        ff.dw_down(torch.zeros((8, 4), device=cuda),
+                   torch.zeros((8, 4), device=cuda),
+                   torch.zeros((8, 16), device=cuda, dtype=torch.bfloat16))
 
 
 def test_attention_dispatches_to_flash_on_the_card(cuda):
@@ -244,13 +253,20 @@ def test_attention_dispatches_to_flash_on_the_card(cuda):
         assert _rel_err(a, b) < 2e-2
 
 
+# `tiny` widened to head_dim 128 (d_model 256, 2 heads, 1 kv head) and
+# trained at s 128: the shapes at which the fused attention block takes the
+# flash kernels (the reference's gate); at tiny's own head_dim 32 it takes
+# the einsum route.
+TINY_HD128 = dict(d_model=256, n_heads=2, n_kv_heads=1)
+
+
 def test_tiny_bf16_training_steps_go_through_the_kernels(cuda):
     cfg = dataclasses.replace(ModelConfig.tiny(), dtype=torch.bfloat16,
-                              fused_ffn=True, fused_attn=True)
+                              fused_ffn=True, fused_attn=True, **TINY_HD128)
     step_fn, init_fn = make_train_step(
         cfg, default_optimizer(1e-3, warmup_steps=1), device=cuda)
     state = init_fn(0)
-    batch = make_batch(cfg, 2, 64, 1, cuda)
+    batch = make_batch(cfg, 2, 128, 1, cuda)
     kernels = (*fa.KERNELS, ff.dw_gateup)
     losses = []
     for _ in range(3):
@@ -343,11 +359,11 @@ def test_fused_adamw_apply_never_waits_for_the_device(cuda):
 
 def test_tiny_all_kernel_training_steps_go_through_the_kernels(cuda):
     cfg = dataclasses.replace(ModelConfig.tiny(), dtype=torch.bfloat16,
-                              fused_ffn=True, fused_attn=True)
+                              fused_ffn=True, fused_attn=True, **TINY_HD128)
     step_fn, init_fn = make_train_step(
         cfg, fused_adamw_optimizer(1e-3, warmup_steps=1), device=cuda)
     state = init_fn(0)
-    batch = make_batch(cfg, 2, 64, 1, cuda)
+    batch = make_batch(cfg, 2, 128, 1, cuda)
     kernels = (*fa.KERNELS, *ff.KERNELS, aw.adamw_update)
     old = ff.USE_K1, ff.USE_K2
     ff.USE_K1 = ff.USE_K2 = True
@@ -617,8 +633,8 @@ def test_attention_packed_matches_attention_on_the_card(cuda):
 
 
 def test_packed_entry_refuses_what_the_kernels_do_not_take(cuda):
-    q = torch.zeros((1, 128, 4 * 128), device=cuda)
-    k = torch.zeros((1, 128, 2 * 128), device=cuda)
+    q = torch.zeros((1, 128, 4 * 128), device=cuda, dtype=torch.float16)
+    k = torch.zeros((1, 128, 2 * 128), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16"):
         fa.flash_fwd_packed(q, k, k, 4, 2, 1.0)
     q16 = torch.zeros((1, 128, 2 * 256), device=cuda, dtype=torch.bfloat16)
@@ -631,3 +647,201 @@ def test_packed_entry_refuses_what_the_kernels_do_not_take(cuda):
                             wide[..., :256], 4, 4, 1.0)
     with pytest.raises(ValueError, match="n_kv_heads"):
         fa.flash_attention_packed(q16, q16[..., :100], q16[..., :100], 2, 2)
+
+
+# ------------------------------------------------ float32 and the redesign
+#
+# float32 kernels against their plain versions on the same float32 inputs:
+# both compute in full float32 (CUDA-core FMAs in the kernels; the plain
+# versions' matmuls with TF32 off, set below), summed in another order, so
+# max abs error / max abs plain value < 1e-4.
+F32_KERNEL_TOL = 1e-4
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _f32(shape, device, seed, scale=1.0):
+    x = np.random.default_rng(seed).standard_normal(shape) * scale
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", [
+    (2, 4, 1, 128, 128, 128, True), (1, 2, 2, 64, 300, 64, True),
+    (1, 4, 1, 130, 130, 32, False), (1, 8, 2, 200, 200, 128, True),
+])
+def test_f32_flash_kernels_match_plain_versions(no_tf32, packed, b, h, kv,
+                                                sq, sk, d, causal):
+    """The three float32 flash kernels, both layouts, GQA by index (packed)
+    or repeated K/V ([b·h, s, d])."""
+    cuda = no_tf32
+    q, do = (_f32((b, sq, h * d), cuda, i) for i in (0, 3))
+    k, v = (_f32((b, sk, kv * d), cuda, i) for i in (1, 2))
+    scale = d ** -0.5
+    if packed:
+        kernels = fa.PACKED_KERNELS
+        args = (h, kv, scale, causal)
+        fwd, fwd_plain = fa.flash_fwd_packed, fa.flash_fwd_packed_plain
+        dkv, dkv_plain = fa.flash_bwd_dkv_packed, fa.flash_bwd_dkv_packed_plain
+        dq, dq_plain = fa.flash_bwd_dq_packed, fa.flash_bwd_dq_packed_plain
+        delta_of = lambda o: fa.flash_delta_packed(o, do, h)  # noqa: E731
+    else:
+        def flat(x, n):
+            return _heads(x, n).repeat_interleave(h // n, 1).reshape(
+                b * h, x.shape[1], d).contiguous()
+        q, k, v, do = flat(q, h), flat(k, kv), flat(v, kv), flat(do, h)
+        kernels = fa.KERNELS
+        args = (scale, causal)
+        fwd, fwd_plain = fa.flash_fwd, fa.flash_fwd_plain
+        dkv, dkv_plain = fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain
+        dq, dq_plain = fa.flash_bwd_dq, fa.flash_bwd_dq_plain
+        delta_of = lambda o: fa.flash_delta(o, do)  # noqa: E731
+    before = [(kern.launches, kern.f32_launches) for kern in kernels]
+    out, lse = fwd(q, k, v, *args)
+    p_out, p_lse = fwd_plain(q, k, v, *args)
+    delta = delta_of(p_out)
+    bwd = (q, k, v, do, p_lse, delta, *args)
+    got = (out, lse, *dkv(*bwd), dq(*bwd))
+    want = (p_out, p_lse, *dkv_plain(*bwd), dq_plain(*bwd))
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("out", "lse", "dk", "dv", "dq")):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert _rel_err(g, w) < F32_KERNEL_TOL, name
+    assert [(kern.launches, kern.f32_launches) for kern in kernels] == [
+        (n + 1, m + 1) for n, m in before]
+
+
+@pytest.mark.parametrize("T,d,dff", [(512, 256, 512), (37, 130, 50),
+                                     (1000, 200, 328)])
+def test_f32_ffn_kernels_match_plain_versions(no_tf32, T, d, dff):
+    cuda = no_tf32
+    x = _f32((T, d), cuda, 0)
+    rstd = torch.rand((T, 1), device=cuda) + 0.5
+    nw = _f32((d,), cuda, 5, 0.1) + 1
+    dgate, dup = _f32((T, dff), cuda, 1), _f32((T, dff), cuda, 2)
+    gate, up = _f32((T, dff), cuda, 3), _f32((T, dff), cuda, 4)
+    dy = _f32((T, d), cuda, 6, 0.1)
+    wd = _f32((dff, d), cuda, 7, dff ** -0.5)
+    before = [(kern.launches, kern.f32_launches) for kern in ff.KERNELS]
+    got = (*ff.dw_gateup(x, rstd, nw, dgate, dup), ff.dw_down(gate, up, dy),
+           *ff.dgateup(dy, wd, gate, up))
+    want = (*ff.dw_gateup_plain(x, rstd, nw, dgate, dup),
+            ff.dw_down_plain(gate, up, dy), *ff.dgateup_plain(dy, wd, gate,
+                                                              up))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert _rel_err(g, w) < F32_KERNEL_TOL
+    assert [(kern.launches, kern.f32_launches) for kern in ff.KERNELS] == [
+        (n + 1, m + 1) for n, m in before]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", [
+    (2, 8, 2, 256, 256, 128, True), (1, 4, 1, 64, 300, 64, True),
+    (1, 4, 4, 130, 130, 32, False), (1, 4, 1, 200, 200, 128, True),
+    (2, 4, 1, 200, 200, 64, True), (1, 8, 2, 192, 192, 32, True),
+])
+def test_redesigned_fwd_and_dq_match_plain_versions(cuda, b, h, kv, sq, sk,
+                                                    d, causal):
+    """The register-resident forward and dq kernels (bf16) at d 32/64/128,
+    in both layouts, GQA n_rep 4 by index, sq != sk, not causal, and a
+    ragged s: outputs within 1e-2 and lse within 2e-5 of the plain max (lse
+    relative to its largest magnitude: a causal row 0 holds one score,
+    which may lie near 0)."""
+    q, do = (_bf16((b, sq, h * d), cuda, i) for i in (0, 3))
+    k, v = (_bf16((b, sk, kv * d), cuda, i) for i in (1, 2))
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_packed(q, k, v, h, kv, scale, causal)
+    p_out, p_lse = fa.flash_fwd_packed_plain(q, k, v, h, kv, scale, causal)
+    delta = fa.flash_delta_packed(p_out, do, h)
+    bwd = (q, k, v, do, p_lse, delta, h, kv, scale, causal)
+    dq = fa.flash_bwd_dq_packed(*bwd)
+    p_dq = fa.flash_bwd_dq_packed_plain(*bwd)
+
+    def flat(x, n):  # [b, s, n·d] -> [b·h, s, d], heads repeated to h
+        return _heads(x, n).repeat_interleave(h // n, 1).reshape(
+            b * h, x.shape[1], d).contiguous()
+
+    q3, k3, v3, do3 = flat(q, h), flat(k, kv), flat(v, kv), flat(do, h)
+    out3, lse3 = fa.flash_fwd(q3, k3, v3, scale, causal)
+    rows = (p_lse.view(b * h, sq), delta.view(b * h, sq))
+    dq3 = fa.flash_bwd_dq(q3, k3, v3, do3, *rows, scale, causal)
+    torch.cuda.synchronize()
+    assert _rel_err(out, p_out) < REL_TOL
+    assert _rel_err(dq, p_dq) < REL_TOL
+    assert _rel_err(lse, p_lse) < 2e-5
+    assert _rel_err(out3, flat(p_out, h)) < REL_TOL
+    assert _rel_err(dq3, flat(p_dq, h)) < REL_TOL
+    assert _rel_err(lse3, p_lse.view(b * h, sq)) < 2e-5
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _train_on_both(cuda, cfg, seq, steps=3):
+    """`steps` steps of default_optimizer with K1/K2 on, from the same
+    float32 params and batch, on the card and on the CPU. Returns (the
+    card's launches per step of the flash and fused-FFN kernels, both loss
+    curves)."""
+    opt = default_optimizer(1e-3, warmup_steps=1)
+    params = init_params(cfg, seed=0, device="cpu")
+    batch = make_batch(cfg, 2, seq, 1, "cpu")
+    kernels = (*fa.KERNELS, *ff.KERNELS)
+    old = ff.USE_K1, ff.USE_K2
+    ff.USE_K1 = ff.USE_K2 = True
+    curves, launches = {}, []
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            step_fn, _ = make_train_step(cfg, opt, device=dev)
+            p = _to(params, dev)
+            state = TrainState(params=p, opt_state=opt.init(p), step=0)
+            losses = []
+            for _ in range(steps):
+                for kern in kernels:
+                    kern.launches = kern.f32_launches = 0
+                state, metrics = step_fn(state, batch)
+                losses.append(float(metrics["loss"]))
+                if dev.type == "cuda":
+                    launches.append({kern.__name__: (kern.launches,
+                                                     kern.f32_launches)
+                                     for kern in kernels})
+            curves[dev.type] = losses
+    finally:
+        ff.USE_K1, ff.USE_K2 = old
+    return launches, curves
+
+
+@pytest.mark.parametrize("variant", ["tiny", "hd128"])
+def test_tiny_f32_training_goes_through_the_f32_kernels(no_tf32, variant):
+    """ModelConfig.tiny() in float32 with fused_ffn and fused_attn: K3, K1
+    and K2 launch their float32 kernels n_layers times a step; the flash
+    pair launches 0 times at head_dim 32 (the einsum route, as the
+    reference's gate) and n_layers times at head_dim 128, s 128. The
+    losses match the same model on the CPU within 1e-4 relative."""
+    cfg = dataclasses.replace(ModelConfig.tiny(), fused_ffn=True,
+                              fused_attn=True)
+    seq = 64
+    if variant == "hd128":
+        cfg = dataclasses.replace(cfg, **TINY_HD128)
+        seq = 128
+    assert cfg.dtype == torch.float32
+    launches, curves = _train_on_both(no_tf32, cfg, seq)
+    n_flash = cfg.n_layers if variant == "hd128" else 0
+    L = cfg.n_layers
+    for got in launches:
+        assert got == {"flash_fwd": (n_flash, n_flash),
+                       "flash_bwd_dkv": (n_flash, n_flash),
+                       "flash_bwd_dq": (n_flash, n_flash),
+                       "dw_gateup": (L, L), "dw_down": (L, L),
+                       "dgateup": (L, L)}
+    assert all(np.isfinite(curves["cuda"]))
+    np.testing.assert_allclose(curves["cuda"], curves["cpu"], rtol=1e-4)
