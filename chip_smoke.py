@@ -6,7 +6,10 @@
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every kernel of the serving and training paths from the sources
-     in the checkout (one nvcc per source, started together);
+     in the checkout (one nvcc per source, started together), and log
+     ptxas's registers, spills and shared memory of the wgmma kernels (the
+     flash forward, dq and dk/dv at each head_dim; K1's TMA and cp.async
+     instances) with any ptxas warning;
   3. hold each quant kernel against its plain PyTorch version on the card,
      bit for bit, at every shape the serving path gives it (the quant
      kernel's stacked [L, in, out] leaves included) and at the six 8B
@@ -27,7 +30,11 @@ Phases (any failure exits non-zero and prints no result line):
      tile (max abs error / max abs plain value < 1e-2), and the AdamW
      kernel bit for bit at every leaf shape of the 8-layer training tree
      and at an odd size; time kernel, plain version, bound and one PyTorch
-     library call doing the same work;
+     library call doing the same work; one summary line each for the wgmma
+     flash kernels and K1 at the 8B shape (ms a launch, bound, share,
+     library, and the time of the kernel a redesign replaced, from
+     PERF.md), and K1's swiglu operand against the plain version's (dy the
+     identity; at most one bf16 ulp);
  7b. hold the RMSNorm forward and dx kernels against their plain versions
      at [4096, 4096] bf16 (the training batch at d_model), [8, 4096] bf16
      (the decode batch), [4096, 4096] f32 and [300, 130] bf16 (ragged rows
@@ -59,6 +66,17 @@ Phases (any failure exits non-zero and prints no result line):
      True) for 3 steps at b 2 x s 128, each float32 kernel launched exactly
      n_layers times a step (counters zeroed before each step, read after),
      the losses within 1e-4 relative of the same model on the CPU;
+ 7e. the flash route beyond head_dim 128 (fault C.2): at head_dim 256
+     (instantiated) and 96 and 192 (zero-padded to 128 and 256) in bf16 (b
+     1, 8 heads over 2 kv heads, s 1024, causal) and at 256 in float32 (4
+     over 2 heads, s 256, TF32 off), the three packed and the three [b·h,
+     s, d] kernels against their plain versions (within 1e-2, float32
+     1e-4, lse 2e-5), each launched once per shape, timed as the phase-7
+     and 7c rows are (0 calls a step); then ops.attention,
+     ops.attention_packed and the fused attn_block at each bf16 shape
+     against the einsum route in float32 (within 1e-2), each flash kernel
+     launched once per entry where the reference's gate takes it (head_dim
+     >= 128) and never below; head_dim 320 must raise;
   8. train Llama-3-8B at full width with 8 of its 32 layers (random bf16
      weights, one batch of 2 x 2049 tokens reused) for 8 steps of
      default_optimizer(warmup_steps=2), checking finite losses and grad
@@ -1263,12 +1281,268 @@ def check_packed_entry_on_model(torch, gen, seed: int, cfg):
             for kern in fa.PACKED_KERNELS}
 
 
+# Phase 7e (fault C.2): (b, heads, kv heads, s, head_dim, dtype) of the
+# flash route beyond head_dim 128, causal: head_dim 256 (instantiated), 96
+# and 192 (zero-padded to 128 and 256) in bf16 at s 1024, and head_dim 256
+# in float32 on a small shape; the last is held within F32_KERNEL_LIMIT
+# with TF32 off, the others within REL_ERR_LIMIT.
+HEAD_DIM_SHAPES = [(1, 8, 2, 1024, 256, "bfloat16"),
+                   (1, 8, 2, 1024, 96, "bfloat16"),
+                   (1, 8, 2, 1024, 192, "bfloat16"),
+                   (1, 4, 2, 256, 256, "float32")]
+
+
+def check_head_dims(torch, gen, train_rows, packed_rows, f32_rows):
+    """Phase 7e: the flash kernels at head_dim 256 and at padded head dims,
+    through the packed and the [b·h, s, d] entries, against their plain
+    versions (each kernel launched once per entry and shape), timed into
+    the kernel rows as shapes the training step does not call (0 calls);
+    then ops.attention, ops.attention_packed and the fused attn_block at
+    each bf16 shape against the einsum route, and head_dim 320 refused."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    import importlib
+
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_attn
+    from ray_tpu_torch.ops.layers import rotary_embedding
+
+    attn_mod = importlib.import_module("ray_tpu_torch.ops.attention")
+    t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    kernels = (*fa.KERNELS, *fa.PACKED_KERNELS)
+    for b, h, kv, s, d, dtype_name in HEAD_DIM_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        f32 = dtype == torch.float32
+        lim = F32_KERNEL_LIMIT if f32 else REL_ERR_LIMIT
+        peak = PEAK_F32_OPS_PER_S if f32 else PEAK_BF16_OPS_PER_S
+        esz = 4 if f32 else 2
+        scale = d ** -0.5
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        q, do = randn(b, s, h * d), randn(b, s, h * d)
+        k, v = randn(b, s, kv * d), randn(b, s, kv * d)
+
+        def flat(t, n):  # [b, s, n·d] -> [b·h, s, d], heads repeated to h
+            return heads_view(t, n).repeat_interleave(h // n, 1).reshape(
+                b * h, s, d).contiguous()
+
+        q3, k3, v3, do3 = flat(q, h), flat(k, kv), flat(v, kv), flat(do, h)
+        for kern in kernels:  # this shape's launches start here
+            kern.launches = 0
+        out, lse = fa.flash_fwd_packed(q, k, v, h, kv, scale)
+        p_out, p_lse = fa.flash_fwd_packed_plain(q, k, v, h, kv, scale)
+        delta = fa.flash_delta_packed(p_out, do, h)
+        bwd = (q, k, v, do, p_lse, delta, h, kv, scale, True)
+        dk, dv = fa.flash_bwd_dkv_packed(*bwd)
+        dq = fa.flash_bwd_dq_packed(*bwd)
+        rows3 = (p_lse.view(b * h, s), delta.view(b * h, s))
+        bwd3 = (q3, k3, v3, do3, *rows3, scale, True)
+        out3, lse3 = fa.flash_fwd(q3, k3, v3, scale)
+        dk3, dv3 = fa.flash_bwd_dkv(*bwd3)
+        dq3 = fa.flash_bwd_dq(*bwd3)
+        torch.cuda.synchronize()
+        launches = {kern.__name__: kern.launches for kern in kernels}
+        log(f"head_dim {d} {dtype_name} (b {b}, {h}/{kv} heads, s {s}, "
+            f"causal): launches {launches}")
+        if launches != {kern.__name__: 1 for kern in kernels}:
+            fail(f"phase 7e at head_dim {d} launched {launches}; expected "
+                 f"one launch of each flash kernel")
+        p_dk, p_dv = fa.flash_bwd_dkv_packed_plain(*bwd)
+        p_dq = fa.flash_bwd_dq_packed_plain(*bwd)
+        p_dk3, p_dv3 = fa.flash_bwd_dkv_plain(*bwd3)
+        checks = {
+            "packed": ([("out", rel_err(torch, out, p_out), lim),
+                        ("lse", rel_err(torch, lse, p_lse), STAT_REL_LIMIT)],
+                       [("dk", rel_err(torch, dk, p_dk), lim),
+                        ("dv", rel_err(torch, dv, p_dv), lim)],
+                       [("dq", rel_err(torch, dq, p_dq), lim)]),
+            "flat": ([("out", rel_err(torch, out3, flat(p_out, h)), lim),
+                      ("lse", rel_err(torch, lse3, rows3[0]),
+                       STAT_REL_LIMIT)],
+                     [("dk", rel_err(torch, dk3, p_dk3), lim),
+                      ("dv", rel_err(torch, dv3, p_dv3), lim)],
+                     [("dq", rel_err(torch, dq3, flat(p_dq, h)), lim)])}
+        del out, lse, dk, dv, dq, p_dk, p_dv, p_dq, out3, lse3, dk3, dv3, dq3
+        del p_dk3, p_dv3
+        torch.cuda.empty_cache()
+        # bytes and FLOP as phases 7 and 7c (causal pairs only)
+        product = 2 * b * h * causal_pairs(s, s, True) * d
+        qo, kvb, rowb = esz * b * s * h * d, esz * b * s * kv * d, 4 * b * h * s
+        kv3 = esz * b * h * s * d  # K/V repeated per query head
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        views = [heads_view(t, n) for t, n in zip(leaves, (h, kv, kv))]
+        lib_out = sdpa(*views, is_causal=True, enable_gqa=True)
+        g4 = heads_view(do, h)
+
+        def lib_fwd():
+            with torch.no_grad():
+                sdpa(*views, is_causal=True, enable_gqa=True)
+
+        def lib_bwd():
+            torch.autograd.grad(lib_out, leaves, g4, retain_graph=True)
+
+        lib_what = ("torch scaled_dot_product_attention on the strided "
+                    "[b, h, s, d] views, enable_gqa")
+        bwd_what = "the autograd backward of that call"
+        suffix = "_f32" if f32 else ""
+        shape7c = (b, h, kv, s, s, d)
+        shape7 = (b * h, s, s, d)
+        layouts = {
+            "packed": (packed_rows if not f32 else None, shape7c,
+                       (2 * qo + 2 * kvb + rowb, 2 * qo + 4 * kvb + 2 * rowb,
+                        3 * qo + 2 * kvb + 2 * rowb),
+                       (lambda: fa.flash_fwd_packed(q, k, v, h, kv, scale),
+                        lambda: fa.flash_bwd_dkv_packed(*bwd),
+                        lambda: fa.flash_bwd_dq_packed(*bwd)),
+                       (lambda: fa.flash_fwd_packed_plain(q, k, v, h, kv,
+                                                          scale),
+                        lambda: fa.flash_bwd_dkv_packed_plain(*bwd),
+                        lambda: fa.flash_bwd_dq_packed_plain(*bwd))),
+            "flat": (train_rows if not f32 else f32_rows, shape7,
+                     (2 * qo + 2 * kv3 + rowb, 2 * qo + 4 * kv3 + 2 * rowb,
+                      3 * qo + 2 * kv3 + 2 * rowb),
+                     (lambda: fa.flash_fwd(q3, k3, v3, scale),
+                      lambda: fa.flash_bwd_dkv(*bwd3),
+                      lambda: fa.flash_bwd_dq(*bwd3)),
+                     (lambda: fa.flash_fwd_plain(q3, k3, v3, scale),
+                      lambda: fa.flash_bwd_dkv_plain(*bwd3),
+                      lambda: fa.flash_bwd_dq_plain(*bwd3)))}
+        for layout, (rows, shape, nbytes, fns, plains) in layouts.items():
+            names = ([f"{n.__name__}{suffix}" for n in fa.PACKED_KERNELS]
+                     if layout == "packed" else
+                     [f"{n.__name__}{suffix}" for n in fa.KERNELS])
+            for i, name in enumerate(names):
+                if rows is None:  # float32 packed: checked, not timed
+                    for what, (err, rel), limit in checks[layout][i]:
+                        if not rel < limit:
+                            fail(f"{name} differs from its plain version at "
+                                 f"{shape} {dtype_name}: {what} relative "
+                                 f"{rel} (limit {limit})")
+                    continue
+                record_checked(torch, flush, rows[name], name, shape,
+                               dtype_name, 0, checks[layout][i], nbytes[i],
+                               (2, 4, 3)[i] * product, peak, fns[i],
+                               plains[i], (lib_fwd, lib_bwd, lib_bwd)[i],
+                               (lib_what, bwd_what, bwd_what)[i],
+                               "calls per training step")
+        lib_fwd = lib_bwd = lib_out = None
+        del leaves, views, g4
+        if not f32:
+            check_entries_at_head_dim(torch, gen, attn_mod, fused_attn, fa,
+                                      rotary_embedding, q, k, v, do, b, h,
+                                      kv, s, d)
+        del q, k, v, do, q3, k3, v3, do3, p_out, p_lse, delta, bwd, bwd3
+        torch.cuda.empty_cache()
+    wide = torch.zeros((1, 128, 320), device="cuda", dtype=torch.bfloat16)
+    try:
+        fa.flash_fwd_packed(wide, wide, wide, 1, 1, 320 ** -0.5)
+    except ValueError as e:
+        log(f"head_dim 320 refused: {e}")
+    else:
+        fail("the flash route took head_dim 320; it must raise")
+    del flush
+    torch.cuda.empty_cache()
+    log(f"phase 7e: {time.perf_counter() - t0:.2f} s")
+
+
+def check_entries_at_head_dim(torch, gen, attn_mod, fused_attn, fa,
+                              rotary_embedding, q, k, v, do, b, h, kv, s, d):
+    """ops.attention (the B1/B2 route) and ops.attention_packed forward and
+    backward on the phase's q, k, v against the einsum reference in float32,
+    and the fused attn_block at d_model h·d against its own einsum route
+    (use_flash patched off); where the reference's gate takes the kernels
+    (head_dim >= 128, s >= 128) each flash kernel launches once per entry,
+    below it none."""
+    n = 1 if fused_attn.use_flash(s, d, True) else 0
+    kernels = (*fa.KERNELS, *fa.PACKED_KERNELS)
+    for kern in kernels:
+        kern.launches = 0
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out_b = attn_mod.attention(*(heads_view(t, n) for t, n in
+                                 zip(leaves, (h, kv, kv))))
+    out_b = out_b.transpose(1, 2).reshape(b, s, h * d)
+    grads_b = torch.autograd.grad(out_b, leaves, do)
+    out_p = attn_mod.attention_packed(*leaves, n_heads=h, n_kv_heads=kv)
+    grads_p = torch.autograd.grad(out_p, leaves, do)
+    torch.cuda.synchronize()
+    got = {kern.__name__: kern.launches for kern in kernels}
+    ref_leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    q4, k4, v4 = (heads_view(t, n) for t, n in zip(ref_leaves, (h, kv, kv)))
+    ref = attn_mod.causal_attention_reference(
+        q4, attn_mod._repeat_kv(k4, h // kv), attn_mod._repeat_kv(v4, h // kv))
+    ref = ref.transpose(1, 2).reshape(b, s, h * d)
+    grads_r = torch.autograd.grad(ref, ref_leaves, do.float())
+    errs = {}
+    for name, got_b, got_p, want in zip(("out", "dq", "dk", "dv"),
+                                        (out_b, *grads_b), (out_p, *grads_p),
+                                        (ref, *grads_r)):
+        errs[name] = (rel_err(torch, got_b, want)[1],
+                      rel_err(torch, got_p, want)[1])
+    del leaves, out_b, grads_b, out_p, grads_p, ref_leaves, ref, grads_r
+    del q4, k4, v4
+
+    # the fused attention block at d_model h·d, flash route and einsum route
+    D = h * d
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(q.dtype)
+
+    x = randn(b, s, D)
+    nw = randn(D, scale=0.1) + 1
+    ws = [randn(*shape, scale=shape[0] ** -0.5) for shape in
+          ((D, h * d), (D, kv * d), (D, kv * d), (h * d, D))]
+    cos, sin = rotary_embedding(torch.arange(s, device="cuda"), d)
+    dy = randn(b, s, D)
+    before = {kern.__name__: kern.launches for kern in fa.KERNELS}
+    results = []
+    gate = fused_attn.use_flash
+    for route in ("flash", "einsum"):
+        if route == "einsum":
+            fused_attn.use_flash = lambda *a: False
+        try:
+            xl = x.detach().requires_grad_(True)
+            y = fused_attn.attn_block(xl, nw, *ws, cos[None], sin[None], h,
+                                      kv)
+            dx, = torch.autograd.grad(y, (xl,), dy)
+            torch.cuda.synchronize()
+        finally:
+            fused_attn.use_flash = gate
+        results.append((y, dx))
+        if route == "flash":
+            block = {n: kern.launches - before[n] for n, kern in
+                     ((k.__name__, k) for k in fa.KERNELS)}
+    errs["attn_block y"] = rel_err(torch, results[0][0], results[1][0])[1]
+    errs["attn_block dx"] = rel_err(torch, results[0][1], results[1][1])[1]
+    log(f"entries at head_dim {d}: relative errors {errs} (limit "
+        f"{REL_ERR_LIMIT}); launches of attention + attention_packed {got}, "
+        f"of attn_block {block}")
+    want = {kern.__name__: n for kern in kernels}
+    if got != want or block != {kern.__name__: n for kern in fa.KERNELS}:
+        fail(f"the entries at head_dim {d} launched {got} and {block}; "
+             f"expected one launch of each kernel per entry")
+    for name, e in errs.items():
+        if not max(e if isinstance(e, tuple) else (e,)) < REL_ERR_LIMIT:
+            fail(f"entries at head_dim {d}: {name} {e} (limit "
+                 f"{REL_ERR_LIMIT})")
+
+
+# The first (wmma) designs of flash dk/dv, its packed run and K1, ms a
+# launch at the 8B shape, as PERF.md §6 records them before the wgmma
+# redesigns replaced them (NVIDIA H100 80GB HBM3, 700 W).
+OLD_MS = {"flash_bwd_dkv": 2.4535, "flash_bwd_dkv_packed": 2.7611,
+          "dw_down": 4.8364}
+
+
 def redesign_summary(rows, names, card: str) -> None:
-    """One line on the redesigned forward and dq kernels at the 8B
-    attention shape (the first row of each): ms a launch, bound and share,
-    and SDPA's forward and backward from the same run, the backward split
-    between dk/dv and dq in proportion to their bounds (SDPA computes the
-    three in one call; dk/dv is 4 products, dq 3)."""
+    """One line on each wgmma flash kernel at the 8B attention shape (the
+    first row of each): ms a launch, bound and share, SDPA's forward and
+    backward from the same run, the backward split between dk/dv and dq in
+    proportion to their bounds (SDPA computes the three in one call; dk/dv
+    is 4 products, dq 3), and the time of the kernel a redesign replaced."""
     fwd, dkv, dq = (rows[n][0] for n in names)
     bwd_bound = dkv["bound_ms"] + dq["bound_ms"]
     for i, (name, r) in enumerate(zip(names, (fwd, dkv, dq))):
@@ -1280,9 +1554,41 @@ def redesign_summary(rows, names, card: str) -> None:
             lib = (f"SDPA backward {r['library_ms']:.4f} ms, this kernel's "
                    f"bound share of it "
                    f"{r['library_ms'] * r['bound_ms'] / bwd_bound:.4f} ms")
+        old = (f"; the kernel it replaced {OLD_MS[name]} ms (PERF.md)"
+               if name in OLD_MS else "")
         log(f"{name} at {r['shape']}: {r['ms']:.4f} ms a launch, bound "
             f"{r['bound_ms']:.4f} ms, {r['bound_ms'] / r['ms']:.3f} of "
-            f"bound; {lib} [{card}]")
+            f"bound; {lib}{old} [{card}]")
+
+
+def k1_summary(torch, gen, rows, card: str) -> None:
+    """The wgmma K1 at the 8B shape (ms a launch, bound, share, library,
+    the kernel it replaced), and its swiglu operand against the plain
+    version's: with dy the identity (T = d = 256), dW_down[m, t] is the
+    kernel's bf16 swiglu of token t, d_ff row m, exactly (one nonzero term
+    a sum). Its sigmoid is __expf and __fdividef."""
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+
+    r = rows["dw_down"][0]
+    T, dff = 256, 14336
+    gate = torch.randn((T, dff), generator=gen, device="cuda").bfloat16()
+    up = torch.randn((T, dff), generator=gen, device="cuda").bfloat16()
+    eye = torch.eye(T, device="cuda", dtype=torch.bfloat16)
+    got = ff.dw_down(gate, up, eye).T
+    want = ff.swiglu_act(gate, up)
+    torch.cuda.synchronize()
+    ulps = bf16_ulps(torch, got, want)
+    differ = (got != want).float().mean().item()
+    log(f"dw_down at {r['shape']}: {r['ms']:.4f} ms a launch, bound "
+        f"{r['bound_ms']:.4f} ms, {r['bound_ms'] / r['ms']:.3f} of bound; "
+        f"library {r['library_ms']:.4f} ms ({r['library']}); the kernel it "
+        f"replaced {OLD_MS['dw_down']} ms (PERF.md); swiglu operand "
+        f"(__expf, __fdividef) against the plain version's at T {T} x d_ff "
+        f"{dff}: max {ulps:.3g} bf16 ulp, {differ:.3g} of the values differ "
+        f"[{card}]")
+    if not ulps <= 1:
+        fail(f"K1's swiglu operand is {ulps} bf16 ulp from the plain "
+             f"version's (one allowed)")
 
 
 # The float32 kernels against their plain versions: both compute in full
@@ -1529,32 +1835,52 @@ def train_f32_tiny(torch, seed: int, cfg):
     return launches
 
 
-def ptxas_report(proc, out_path) -> None:
+# dynamic shared memory a block of each wgmma kernel at head_dim d (bf16
+# tiles and 1 KB to align them): the forward's 128 query rows and two
+# stages of 64-row K and V; dq's 128 rows of Q and dO and its K/V stages
+# (one at d 256); dk/dv's K and V (128 keys, 64 at d 256), two stages of
+# Q and dO and of lse and delta; K1's three stages of gate, up and dy.
+WGMMA_SMEM = {
+    "flash_fwd_kernel": lambda d: 2 * (128 + 4 * 64) * d + 1024,
+    "flash_bwd_dq_kernel": lambda d: (2 * (256 + (2 if d > 128 else 4) * 64)
+                                      * d + 1024),
+    "flash_bwd_dkv_kernel": lambda d: (2 * (2 * (64 if d > 128 else 128)
+                                            + 4 * 64) * d + 4 * 4 * 64
+                                       + 1024),
+    "dw_down_kernel": lambda d: 2 * 3 * (2 * 64 * 128 + 64 * 256) + 1024,
+}
+
+
+def ptxas_report(procs) -> None:
     """Log ptxas's registers, spills and the dynamic shared memory of the
-    redesigned forward and dq kernels (the `nvcc -Xptxas -v` started in
-    phase 2)."""
+    wgmma kernels (the `nvcc -Xptxas -v` runs started in phase 2), and any
+    warning ptxas gives."""
     import re
 
-    log_text, _ = proc.communicate()
-    out_path.unlink(missing_ok=True)
-    if proc.returncode != 0:
-        fail(f"nvcc -Xptxas -v on flash_attention.cu failed:\n{log_text}")
-    lines = log_text.splitlines()
-    for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '.*?(flash_fwd_kernel|"
-                      r"flash_bwd_dq_kernel)ILi(\d+)E", line)
-        if not m:
-            continue
-        kernel, d = m.group(1), int(m.group(2))
-        stats = " ".join(x.split(":", 1)[-1].strip()
-                         for x in lines[i + 1:i + 4]
-                         if "registers" in x or "spill" in x)
-        # bf16 tiles: 128 query rows of Q (and of dO in dq), two stages of
-        # 64-row K and V tiles, and 1 KB to align them
-        q_rows = 128 if kernel == "flash_fwd_kernel" else 256
-        smem = 2 * (q_rows + 4 * 64) * d + 1024
-        log(f"ptxas {kernel}<{d}>: {stats}; dynamic shared memory {smem} "
-            f"bytes a block")
+    for name, (proc, out_path) in procs.items():
+        log_text, _ = proc.communicate()
+        out_path.unlink(missing_ok=True)
+        if proc.returncode != 0:
+            fail(f"nvcc -Xptxas -v on {name}.cu failed:\n{log_text}")
+        lines = log_text.splitlines()
+        for i, line in enumerate(lines):
+            if "warning" in line.lower():
+                log(f"ptxas {name}.cu: {line.strip()}")
+            m = re.search(r"Compiling entry function '.*?(flash_fwd_kernel|"
+                          r"flash_bwd_dq_kernel|flash_bwd_dkv_kernel|"
+                          r"dw_down_kernel)I?L?([ib])(\d*)", line)
+            if not m:
+                continue
+            kernel = m.group(1)
+            if m.group(2) == "i":
+                inst, d = f"<{m.group(3)}>", int(m.group(3))
+            else:  # dw_down_kernel<bool>: the TMA ring or the cp.async one
+                inst, d = ("<TMA>" if m.group(3) == "1" else "<cp.async>"), 0
+            stats = " ".join(x.split(":", 1)[-1].strip()
+                             for x in lines[i + 1:i + 4]
+                             if "registers" in x or "spill" in x)
+            log(f"ptxas {kernel}{inst}: {stats}; dynamic shared memory "
+                f"{WGMMA_SMEM[kernel](d)} bytes a block")
 
 
 def main() -> int:
@@ -1596,21 +1922,23 @@ def main() -> int:
         f"bf16 tensor cores {PEAK_BF16_OPS_PER_S / 1e12} TFLOP/s dense "
         f"(H100 SXM data sheet)")
 
-    # ---- phase 2: build, and beside it ptxas's report on the redesigned
-    # flash forward and dq kernels
+    # ---- phase 2: build, and beside it ptxas's report on the wgmma
+    # kernels (flash forward, dq and dk/dv; K1)
     t0 = time.perf_counter()
     _util.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    ptxas_obj = _util.BUILD_DIR / "ptxas-flash_attention.o"
-    ptxas = subprocess.Popen(
-        [_util._nvcc(), *[f for f in _util.NVCC_FLAGS if f != "-shared"],
-         "-Xptxas", "-v", "-c", "-o", str(ptxas_obj),
-         str(_util.CSRC_DIR / "flash_attention.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    ptxas = {}
+    for src in ("flash_attention", "fused_ffn"):
+        obj = _util.BUILD_DIR / f"ptxas-{src}.o"
+        ptxas[src] = (subprocess.Popen(
+            [_util._nvcc(), *[f for f in _util.NVCC_FLAGS if f != "-shared"],
+             "-Xptxas", "-v", "-c", "-o", str(obj),
+             str(_util.CSRC_DIR / f"{src}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), obj)
     libs = _util.build(["quant", "flash_attention", "fused_ffn", "adamw",
                         "rmsnorm", "xent"])
     for lib in libs.values():
         log(f"built {lib.relative_to(HERE)}")
-    ptxas_report(ptxas, ptxas_obj)
+    ptxas_report(ptxas)
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
 
     # ---- phase 3: kernels against their plain versions, before the
@@ -1713,6 +2041,7 @@ def main() -> int:
     train_rows = check_train_kernels(torch, gen, train_cfg)
     redesign_summary(train_rows, ("flash_fwd", "flash_bwd_dkv",
                                   "flash_bwd_dq"), card)
+    k1_summary(torch, gen, train_rows, card)
     # ---- phase 7b: the RMSNorm and cross-entropy kernels
     entry_rows = check_norm_xent_kernels(torch, gen)
     # ---- phase 7c: the packed flash kernels
@@ -1724,6 +2053,8 @@ def main() -> int:
     f32_cfg = f32_tiny_config()
     f32_rows = check_f32_kernels(torch, gen, f32_cfg)
     f32_launches = train_f32_tiny(torch, args.seed, f32_cfg)
+    # ---- phase 7e: head dims 256, 96 and 192 on the flash route
+    check_head_dims(torch, gen, train_rows, packed_rows, f32_rows)
 
     # ---- phases 8-10: train llama3_8b width, 8 layers, on the default
     # step and then the all-kernel step; measure both

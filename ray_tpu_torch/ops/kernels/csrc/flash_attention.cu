@@ -20,10 +20,11 @@
 //
 // Shared by every kernel here:
 //  * One block owns one output tile (128 query rows in the bf16 forward and
-//    dq, 64 rows elsewhere) and loops over the reduction axis inside the
-//    block (the TPU's sequential grid axis does not exist
-//    here). No atomics: forward and dq blocks own query tiles, dk/dv blocks
-//    own key tiles, so results are deterministic.
+//    dq, 128 keys in the bf16 dk/dv (64 at d 256), 64 rows in the float32
+//    kernels) and loops over the reduction axis inside the block (the
+//    TPU's sequential grid axis does not exist here). No atomics: forward
+//    and dq blocks own query tiles, dk/dv blocks own key tiles, so results
+//    are deterministic.
 //  * Scores, probabilities and the softmax state stay float32; p and ds are
 //    rounded to bf16 only as operands of the accumulating products, as the
 //    TPU kernels cast them.
@@ -47,94 +48,31 @@
 //    repeated per query head and sum dk/dv over the groups afterwards, as
 //    the reference's unpacked path does.
 //
-// The bf16 forward and dq kernels share one query-stationary mainloop
-// (see "query-stationary mainloop" below): two warpgroups, wgmma products
-// with P and dS as register operands, the scores, probabilities and output
-// accumulator never leaving registers, and K/V streamed through a
-// two-stage cp.async ring. The bf16 dk/dv kernel keeps the first design
-// (nvcuda::wmma over shared-memory tiles); the float32 kernels are plain
-// tiled SIMT code with CUDA-core FMAs (no TF32, which keeps ~3 digits).
+// The bf16 kernels are built on Hopper's warpgroup MMA (wgmma; the shared
+// building blocks are in hopper.cuh): the forward and dq share one
+// query-stationary mainloop (see "query-stationary mainloop" below), dk/dv
+// its key-stationary twin ("key-stationary mainloop"). Two warpgroups a
+// block; scores, probabilities and output accumulators never leave
+// registers; P and dS are register A operands; the streamed tiles come
+// through a two-stage cp.async ring. The float32 kernels are plain tiled
+// SIMT code with CUDA-core FMAs (no TF32, which keeps ~3 digits).
 //
-// Head dims 32, 64 and 128 are instantiated; the caller checks the rest.
+// Head dims 32, 64, 128 and 256 are instantiated; the wrappers zero-pad any
+// other head_dim up to 256 to the next of them (the caller's scale stays,
+// so the padded zeros change no score) and refuse a wider one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kBQ = 64;  // query rows per tile
 constexpr int kBK = 64;  // key rows per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-constexpr int kLdS = kBK + 4;  // float32 score tiles (dk/dv)
-constexpr int kLdP = kBK + 8;  // bf16 probability tiles (dk/dv)
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Copies rows [row0, row0 + rows) of an [n, D] bf16 matrix whose rows lie
-// ld elements apart into a [rows][D + 8] shared tile with 16-byte moves;
-// rows >= n become zeros.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int row0, int n, int rows,
-                                          int64_t ld) {
-  constexpr int kVec = D / 8;
-  constexpr int kLd = D + 8;
-  for (int i = threadIdx.x; i < rows * kVec; i += kThreads) {
-    const int r = i / kVec;
-    const int c = (i % kVec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) {
-      val = *reinterpret_cast<const uint4*>(
-          src + (static_cast<int64_t>(row0) + r) * ld + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
-  }
-}
-
-// Loads n_rows float32 values starting at row0 (zeros past n).
-__device__ __forceinline__ void load_vec(float* dst, const float* src,
-                                         int row0, int n) {
-  for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-    dst[i] = (row0 + i < n) ? src[row0 + i] : 0.0f;
-  }
-}
-
-// C[16][kBK] = A[16][D] * B[kBK][D]^T for one warp: A is the warp's 16 rows
-// of a [.][D + 8] tile, B a [kBK][D + 8] tile, C float32 with stride kLdS.
-template <int D>
-__device__ __forceinline__ void rows_times_tile_t(const bf16* a_rows,
-                                                  const bf16* b_tile,
-                                                  float* c_rows) {
-  constexpr int kLd = D + 8;
-#pragma unroll
-  for (int j = 0; j < kBK / 16; ++j) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA a;
-      FragBt b;
-      wmma::load_matrix_sync(a, a_rows + kk * 16, kLd);
-      wmma::load_matrix_sync(b, b_tile + j * 16 * kLd + kk * 16, kLd);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(c_rows + j * 16, acc, kLdS, wmma::mem_row_major);
-  }
-}
 
 // Index of the first key block past the causal band of query rows
 // [q0, q0 + rows): key block kb is needed iff kb*kBK <= q0 + rows - 1 +
@@ -161,36 +99,6 @@ __device__ __forceinline__ bool tile_needs_mask(int q0, int k0, int sk,
 __device__ __forceinline__ bool attends(int row, int col, int sk, int offset,
                                         int causal) {
   return col < sk && (!causal || col <= row + offset);
-}
-
-// ------------------------------------------------------- async copies
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Two floats as bf16x2, the lower column in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 16-byte asynchronous copy global -> shared; zero-fills when !valid (the
-// source is then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ------------------------------------------------ query-stationary mainloop
@@ -225,222 +133,14 @@ __device__ __forceinline__ void cp_async_wait() {
 //    query tiles are issued first and the tail of the launch is short.
 // Softmax exps are exp2 of log2e-scaled scores; lse is written back in
 // natural log. The block holds 2 x (K, V) and Q (and dO) tiles: 97 KB in
-// the forward and 129 KB in dq at d 128, one block an SM.
+// the forward and 129 KB in dq at d 128, one block an SM. At d 256 the
+// forward's 193 KB still fit, but dq's two stages would take 257 KB: its
+// K/V ring has one stage there (193 KB), each tile loaded after the
+// previous one's products, a simple kernel before a fast one. The O and dQ
+// accumulators are 128 floats a thread at d 256.
 
 constexpr int kWgRows = 128;  // query rows a block: two warpgroups of 64
 constexpr int kWgThreads = 256;
-
-// The products. A warp's part of an accumulator D (m64nN) is its 16 rows:
-// for lane 4g + t, d[4j], d[4j + 1] hold row g, columns 8j + 2t, 8j + 2t
-// + 1, and d[4j + 2], d[4j + 3] the same columns of row g + 8. A register
-// A operand (m64k16) is the warp's 16 rows the same way: a[0] | a[1] rows
-// g | g + 8 at columns 2t, 2t + 1, a[2] | a[3] at columns 2t + 8, 2t + 9.
-// Every product accumulates (its predicate is 1): callers zero D first.
-
-// D[64 x 64] += A . B, A and B K-major in shared memory (descriptors).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-// D[64 x 32] += A . B, A in registers, B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// D[64 x 64] += A . B, A in registers, B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// D[64 x 128] += A . B, A in registers, B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous products that write it.
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Tile layouts the descriptors read. D >= 64: 128-byte swizzle, the tile
-// cut into column blocks of 64 elements (kRows x 128 bytes each), row r's
-// 16-byte chunk c at chunk c ^ (r % 8) of its 128-byte row (tiles
-// 1024-byte aligned). D = 32: no swizzle, 8 x 8 core matrices (8 rows of
-// 16 bytes, 128 contiguous bytes), row-group major.
-template <int D>
-constexpr bool kSwizzled = D >= 64;
-
-// Byte offset of 16-byte chunk `chunk` of row `row` in a kRows-row tile.
-template <int D, int kRows>
-__device__ __forceinline__ int tile_offset(int row, int chunk) {
-  if constexpr (kSwizzled<D>) {
-    return (chunk >> 3) * kRows * 128 + row * 128 +
-           (((chunk & 7) ^ (row & 7)) << 4);
-  } else {
-    return ((row >> 3) * (D / 8) + chunk) * 128 + (row & 7) * 16;
-  }
-}
-
-// kRows rows of an [n, D] bf16 matrix (rows ld apart) into a tile by
-// cp.async, rows >= n zero-filled. Swizzled: a row's chunks go to one
-// 128-byte row, so the writes of 8 threads cover 8 banks groups; core
-// matrices: each pair of threads reads 32 contiguous bytes and each 16
-// threads write 256 contiguous bytes.
-template <int D, int kRows>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
-                                                int row0, int n, int64_t ld) {
-  constexpr int kChunks = kRows * D / 8;
-  static_assert(kChunks % kWgThreads == 0, "whole 16-byte moves");
-  const uint32_t base = smem_u32(dst);
-#pragma unroll
-  for (int it = 0; it < kChunks / kWgThreads; ++it) {
-    const int i = threadIdx.x + it * kWgThreads;
-    int r, chunk;
-    if constexpr (kSwizzled<D>) {
-      r = i / (D / 8);
-      chunk = i % (D / 8);
-    } else {
-      r = ((i >> 4) / (D / 16)) * 8 + ((i >> 1) & 7);
-      chunk = ((i >> 4) % (D / 16)) * 2 + (i & 1);
-    }
-    const bool valid = row0 + r < n;
-    const bf16* from =
-        valid ? src + (static_cast<int64_t>(row0) + r) * ld + chunk * 8 : src;
-    cp_async16(base + tile_offset<D, kRows>(r, chunk), from, valid);
-  }
-}
-
-// A shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), and the layout (1: 128-byte swizzle).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t swz) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (swz << 62);
-}
-
-// Descriptor of the k16 step kk of a K-major kRows-row tile (rows are M or
-// N, the reduction runs along D): Q and K.
-template <int D, int kRows>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
-  if constexpr (kSwizzled<D>) {
-    return smem_desc(tile + (kk >> 2) * kRows * 128 + (kk & 3) * 32, 16,
-                     1024, 1);
-  } else {
-    return smem_desc(tile + kk * 256, 128, (D / 8) * 128, 0);
-  }
-}
-
-// Descriptor of the k16 step kk (rows 16 kk..) of an MN-major kRows-row
-// tile (the reduction runs along the rows, N along D): V.
-template <int D, int kRows>
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
-  if constexpr (kSwizzled<D>) {
-    return smem_desc(tile + kk * 2048, kRows * 128, 1024, 1);
-  } else {
-    return smem_desc(tile + kk * 2 * (D / 8) * 128, (D / 8) * 128, 128, 0);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  if constexpr (D == 32) {
-    wgmma_rs_n32(o, a, desc);
-  } else if constexpr (D == 64) {
-    wgmma_rs_n64(o, a, desc);
-  } else {
-    wgmma_rs_n128(o, a, desc);
-  }
-}
 
 // The online softmax of one key tile on a warp's S accumulators (rows
 // row, row + 8; m unscaled, l this lane's share): masks, updates m and l,
@@ -559,8 +259,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
     cp_async_commit();
     cp_async_wait<1>();  // every group but the newest: tile kb (and Q)
-    // this thread's copies, visible to the products' (async) reads
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_async_shared();
     __syncthreads();
 
     float s[32];
@@ -589,7 +288,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      wgmma_pv<D>(o, pa[kk], mnmajor_desc<D, kBK>(smem_u32(tV), kk));
+      wgmma_rs<D>(o, pa[kk], mnmajor_desc<D, kBK>(smem_u32(tV), kk));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -620,10 +319,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// Stages of dq's K/V ring: two, but one at d 256, where two do not fit.
+template <int D>
+constexpr int kDqStages = D > 128 ? 1 : 2;
+
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  // Q, dO, 2 x (K, V), and room to align the tiles to 1024 bytes
-  return sizeof(bf16) * (2 * kWgRows + 4 * kBK) * D + 1024;
+  // Q, dO, the stages of (K, V), and room to align the tiles to 1024 bytes
+  return sizeof(bf16) * (2 * kWgRows + 2 * kDqStages<D> * kBK) * D + 1024;
 }
 
 template <int D>
@@ -637,12 +340,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                               bf16* __restrict__ dq, int sq, int sk,
                               int n_rep, float scale, int causal) {
   constexpr int kTile = kBK * D;  // elements of one K or V tile
+  constexpr int kStages = kDqStages<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
-  bf16* sO = sQ + kWgRows * D;  // dO
-  bf16* sK = sO + kWgRows * D;  // two stages
-  bf16* sV = sK + 2 * kTile;    // two stages
+  bf16* sO = sQ + kWgRows * D;        // dO
+  bf16* sK = sO + kWgRows * D;        // kStages stages
+  bf16* sV = sK + kStages * kTile;    // kStages stages
 
   const int head = blockIdx.y;
   const int heads = gridDim.y;
@@ -668,7 +372,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   load_tile_async<D, kWgRows>(sQ, q + qoff, q0, sq, ldq);
   load_tile_async<D, kWgRows>(sO, dout + qoff, q0, sq, ldq);
-  if (n_kb > 0) {
+  if (kStages == 2 && n_kb > 0) {
     load_tile_async<D, kBK>(sK, k + koff, 0, sk, ldk);
     load_tile_async<D, kBK>(sV, v + koff, 0, sk, ldk);
   }
@@ -687,17 +391,23 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * kBK;
-    const bf16* tK = sK + (kb & 1) * kTile;
-    const bf16* tV = sV + (kb & 1) * kTile;
-    if (kb + 1 < n_kb) {  // the next tile loads while this one computes
+    const int stage = kStages == 2 ? (kb & 1) : 0;
+    const bf16* tK = sK + stage * kTile;
+    const bf16* tV = sV + stage * kTile;
+    if (kStages == 1) {  // this tile, into the stage the last one freed
+      load_tile_async<D, kBK>(sK, k + koff, k0, sk, ldk);
+      load_tile_async<D, kBK>(sV, v + koff, k0, sk, ldk);
+    } else if (kb + 1 < n_kb) {  // the next tile loads while this one computes
       load_tile_async<D, kBK>(sK + ((kb + 1) & 1) * kTile, k + koff,
                               k0 + kBK, sk, ldk);
       load_tile_async<D, kBK>(sV + ((kb + 1) & 1) * kTile, v + koff,
                               k0 + kBK, sk, ldk);
     }
     cp_async_commit();
-    cp_async_wait<1>();  // every group but the newest: tile kb (Q, dO)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // every group but the newest (two stages) or all of them (one): tile
+    // kb, and Q and dO
+    cp_async_wait<kStages - 1>();
+    fence_async_shared();
     __syncthreads();
 
     float s[32], dp[32];
@@ -740,7 +450,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {  // dQ += dS.K, K read MN-major
-      wgmma_pv<D>(acc, pa[kk], mnmajor_desc<D, kBK>(smem_u32(tK), kk));
+      wgmma_rs<D>(acc, pa[kk], mnmajor_desc<D, kBK>(smem_u32(tK), kk));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -762,97 +472,60 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// ------------------------------------------------------------ dk/dv (bf16)
+// ------------------------------------------------- key-stationary mainloop
+//
+// flash_bwd_dkv_kernel (bf16): the twin of the query-stationary mainloop
+// with the roles of queries and keys swapped. One block of two warpgroups
+// owns 128 keys of one kv head (warpgroup g keys 64g..64g+63); K and V
+// stay in shared memory, and the 64-row Q and dO tiles, with their lse and
+// delta, stream past them through a two-stage cp.async ring, for each of
+// the n_rep query heads of the kv head in turn. dK and dV accumulate in
+// registers (float32) and are written once: no atomics, deterministic.
+//
+// Per query tile, for the warpgroup's 64 keys (products as m64nNk16 wgmma):
+//  * S^T = K.Q^T and dP^T = V.dO^T (N 64): A is the warpgroup's K (V)
+//    rows, B the Q (dO) tile, both K-major, the forward's descriptors with
+//    the roles swapped;
+//  * P^T = exp2(S^T*scale*log2e - lse*log2e) and dS^T = P^T*(dP^T -
+//    delta)*scale on the accumulators in float32, each lane reading the lse
+//    and delta of its 16 query columns from shared memory; P stays float32
+//    until dS is formed, as the reference's _recompute_p_ds (:142);
+//  * dV += P^T.dO and dK += dS^T.Q (N = d): the A operand is P^T (dS^T)
+//    rounded to bf16 in registers, the B operand the dO (Q) tile read
+//    MN-major: the one shared tile serves both of its reads, as K does in
+//    dq.
+// Masks go only on tiles that cross the causal diagonal (end-aligned,
+// offset sk - sq) or hold query rows past sq; the first query tile of a
+// head is the first whose band reaches the block's first key. Blocks are
+// issued key tile by key tile across every (kv head, batch), so those with
+// the lowest keys (the most query tiles under causal) start first on every
+// head: the packed layout's 256 blocks of 4 heads each at the 8B shape
+// took 0.48 ms issued head by head and 0.33 ms so (H100 SXM).
+//
+// Budgets at d 128: registers dK 64 + dV 64 + S^T 32 + dP^T 32 floats a
+// thread, then 32 for the packed P^T and dS^T operands; shared memory K, V
+// 64 KB + two stages of Q and dO 64 KB + lse/delta 1 KB, one block an SM.
+// At d 256, dK and dV for 64 keys do not fit in registers: both
+// warpgroups take the same 64 keys, recompute the same S^T and dP^T, and
+// each accumulates one 128-column half of dK and dV (1.5x the products);
+// shared memory 193 KB.
 
 template <int D>
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(bf16) * (2 * kBQ + 2 * kBK) * (D + 8)  // Q, dO, K, V
-         + sizeof(float) * 2 * kBQ * kLdS              // scores, dP
-         + sizeof(bf16) * 2 * kBQ * kLdP               // P, dS
-         + sizeof(float) * 2 * kBQ;                    // lse, delta
-}
+constexpr int kDkvKeys = D > 128 ? 64 : 128;  // keys a block
 
-// Shared layout of the dk/dv kernel.
 template <int D>
-struct BwdTiles {
-  bf16* q;
-  bf16* dout;
-  bf16* k;
-  bf16* v;
-  float* s;
-  float* dp;
-  bf16* p;
-  bf16* ds;
-  float* lse;
-  float* delta;
-  __device__ explicit BwdTiles(unsigned char* smem) {
-    constexpr int kLdT = D + 8;
-    q = reinterpret_cast<bf16*>(smem);
-    dout = q + kBQ * kLdT;
-    k = dout + kBQ * kLdT;
-    v = k + kBK * kLdT;
-    s = reinterpret_cast<float*>(v + kBK * kLdT);
-    dp = s + kBQ * kLdS;
-    p = reinterpret_cast<bf16*>(dp + kBQ * kLdS);
-    ds = p + kBQ * kLdP;
-    lse = reinterpret_cast<float*>(ds + kBQ * kLdP);
-    delta = lse + kBQ;
-  }
-};
+constexpr int kDkvCols = D > 128 ? D / 2 : D;  // dK/dV columns a warpgroup
 
-// For the warp's 16 query rows of the (q0, k0) tile pair: s = q.k^T and
-// dp = dO.v^T, then p = exp(s*scale - lse) and ds = p*(dp - delta)*scale on
-// the valid entries (0 elsewhere), written as bf16 to t.p and t.ds.
 template <int D>
-__device__ __forceinline__ void recompute_p_ds(const BwdTiles<D>& t, int q0,
-                                               int k0, int sq, int sk,
-                                               float scale, int causal) {
-  constexpr int kLdT = D + 8;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  rows_times_tile_t<D>(t.q + warp * 16 * kLdT, t.k, t.s + warp * 16 * kLdS);
-  rows_times_tile_t<D>(t.dout + warp * 16 * kLdT, t.v,
-                       t.dp + warp * 16 * kLdS);
-  __syncwarp();
-  const int r = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const int row = q0 + r;
-  const int offset = sk - sq;
-  const float lse = t.lse[r];
-  const float delta = t.delta[r];
-  const float* srow = t.s + r * kLdS + half * 32;
-  const float* dprow = t.dp + r * kLdS + half * 32;
-  bf16* prow = t.p + r * kLdP + half * 32;
-  bf16* dsrow = t.ds + r * kLdP + half * 32;
-#pragma unroll 8
-  for (int c = 0; c < 32; ++c) {
-    const int col = k0 + half * 32 + c;
-    const bool valid = row < sq && col < sk &&
-                       (!causal || col <= row + offset);
-    const float p = valid ? expf(srow[c] * scale - lse) : 0.0f;
-    const float ds = valid ? p * (dprow[c] - delta) * scale : 0.0f;
-    prow[c] = __float2bfloat16_rn(p);
-    dsrow[c] = __float2bfloat16_rn(ds);
-  }
-}
-
-// Writes a float32 [rows][D + 4] staging tile as bf16 rows [row0, n) of a
-// matrix whose rows lie ld elements apart.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float* stage,
-                                           int row0, int n, int rows,
-                                           int64_t ld) {
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D;
-    if (row0 + r < n) {
-      dst[(static_cast<int64_t>(row0) + r) * ld + i % D] =
-          __float2bfloat16_rn(stage[r * (D + 4) + i % D]);
-    }
-  }
+constexpr size_t dkv_smem_bytes() {
+  // K, V, two stages of Q and dO, two of lse and delta, and room to align
+  // the tiles to 1024 bytes
+  return sizeof(bf16) * (2 * kDkvKeys<D> + 4 * kBQ) * D +
+         sizeof(float) * 4 * kBQ + 1024;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWgThreads, 1)
     flash_bwd_dkv_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
@@ -861,90 +534,177 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ delta,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int sq,
                          int sk, int n_rep, float scale, int causal) {
-  constexpr int kLdT = D + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  BwdTiles<D> t(smem);
-  const int g = blockIdx.y;  // kv head
+  constexpr int kKeys = kDkvKeys<D>;
+  constexpr int kCols = kDkvCols<D>;
+  constexpr int kTile = kBQ * D;  // elements of one Q or dO tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  bf16* sV = sK + kKeys * D;
+  bf16* sQ = sV + kKeys * D;   // two stages
+  bf16* sO = sQ + 2 * kTile;   // dO, two stages
+  // two stages of [lse | delta], kBQ floats each
+  float* sRow = reinterpret_cast<float*>(sO + 2 * kTile);
+
+  // launch order: key tile-major over every (kv head, batch)
   const int n_kv = gridDim.y;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + n_kv * blockIdx.z);
+  const int hb = lin % (n_kv * gridDim.z);
+  const int g = hb % n_kv;  // kv head
+  const int batch = hb / n_kv;
+  const int k0 = lin / (n_kv * gridDim.z) * kKeys;
   const int heads = n_kv * n_rep;
-  const int batch = blockIdx.z;
-  const int k0 = blockIdx.x * kBK;
   const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
   const int64_t ldq = static_cast<int64_t>(heads) * D;
   const int64_t ldk = static_cast<int64_t>(n_kv) * D;
   const int64_t koff = static_cast<int64_t>(batch) * sk * ldk + g * D;
-
-  load_rows<D>(t.k, k + koff, k0, sk, kBK, ldk);
-  load_rows<D>(t.v, v + koff, k0, sk, kBK, ldk);
-
-  FragC acc_dk[D / 16];
-  FragC acc_dv[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(acc_dk[j], 0.0f);
-    wmma::fill_fragment(acc_dv[j], 0.0f);
-  }
-
-  // first query tile whose causal band reaches this key tile
   const int offset = sk - sq;
+  // the warpgroup's keys (its accumulator rows) and dK/dV columns
+  const int wg_key = kKeys == 128 ? 64 * wg : 0;
+  const int col0 = kCols == D ? 0 : kCols * wg;
+  const int key = k0 + wg_key + (warp & 3) * 16 + (lane >> 2);
+  const int col_lane = 2 * (lane & 3);
+  const float scale2 = scale * kLog2e;
+
+  // first query tile whose causal band reaches this block's first key
   int qb0 = 0;
   if (causal) {
     const int need = k0 - offset - (kBQ - 1);
     qb0 = need <= 0 ? 0 : (need + kBQ - 1) / kBQ;
   }
   const int n_qb = (sq + kBQ - 1) / kBQ;
-  // every query head of this kv head, each over its query tiles
-  for (int r = 0; r < n_rep; ++r) {
-    const int head = g * n_rep + r;
+  const int per_head = n_qb > qb0 ? n_qb - qb0 : 0;
+  const int n_tiles = n_rep * per_head;  // query tiles of every head
+
+  // Query tile `it` (head g*n_rep + it / per_head) into ring stage `stage`.
+  auto load_query_tile = [&](int it, int stage) {
+    const int head = g * n_rep + it / per_head;
+    const int q0 = (qb0 + it % per_head) * kBQ;
     const int64_t qoff = static_cast<int64_t>(batch) * sq * ldq + head * D;
-    const int64_t row_off =
-        (static_cast<int64_t>(batch) * heads + head) * sq;
-    for (int qb = qb0; qb < n_qb; ++qb) {
-      const int q0 = qb * kBQ;
-      __syncthreads();
-      load_rows<D>(t.q, q + qoff, q0, sq, kBQ, ldq);
-      load_rows<D>(t.dout, dout + qoff, q0, sq, kBQ, ldq);
-      load_vec(t.lse, lse + row_off, q0, sq);
-      load_vec(t.delta, delta + row_off, q0, sq);
-      __syncthreads();
-      recompute_p_ds<D>(t, q0, k0, sq, sk, scale, causal);
-      __syncthreads();  // every warp reads every query row of p and ds
-      // dv += p^T.dO and dk += ds^T.q over this query tile, for the warp's
-      // 16 key rows: A(key, query) = p[query][key] is p read column-major.
+    load_tile_async<D, kBQ>(sQ + stage * kTile, q + qoff, q0, sq, ldq);
+    load_tile_async<D, kBQ>(sO + stage * kTile, dout + qoff, q0, sq, ldq);
+    if (threadIdx.x < 2 * kBQ) {  // lse, then delta; zeros past sq
+      const int i = threadIdx.x % kBQ;
+      const float* src = threadIdx.x < kBQ ? lse : delta;
+      const bool valid = q0 + i < sq;
+      const int64_t row =
+          (static_cast<int64_t>(batch) * heads + head) * sq + q0 + i;
+      cp_async4(smem_u32(sRow + stage * 2 * kBQ + threadIdx.x),
+                valid ? src + row : src, valid);
+    }
+  };
+
+  load_tile_async<D, kKeys>(sK, k + koff, k0, sk, ldk);
+  load_tile_async<D, kKeys>(sV, v + koff, k0, sk, ldk);
+  if (n_tiles > 0) load_query_tile(0, 0);
+  cp_async_commit();
+
+  float acc_dk[kCols / 2], acc_dv[kCols / 2];
 #pragma unroll
-      for (int kk = 0; kk < kBQ / 16; ++kk) {
-        FragAt a_p;
-        FragAt a_ds;
-        wmma::load_matrix_sync(a_p, t.p + kk * 16 * kLdP + warp * 16, kLdP);
-        wmma::load_matrix_sync(a_ds, t.ds + kk * 16 * kLdP + warp * 16,
-                               kLdP);
+  for (int i = 0; i < kCols / 2; ++i) {
+    acc_dk[i] = 0.0f;
+    acc_dv[i] = 0.0f;
+  }
+  const uint32_t tK = smem_u32(sK) + row_offset<D>(wg_key);
+  const uint32_t tV = smem_u32(sV) + row_offset<D>(wg_key);
+  // the warpgroup's column blocks of the Q and dO tiles (d 256 only)
+  const uint32_t col_off = col0 / 64 * kBQ * 128;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    const int q0 = (qb0 + it % per_head) * kBQ;
+    cp_async_wait<0>();  // tile it (and K, V)
+    fence_async_shared();
+    __syncthreads();  // ... for every thread; and stage ^ 1 is free
+    if (it + 1 < n_tiles) load_query_tile(it + 1, stage ^ 1);
+    cp_async_commit();
+
+    const uint32_t tQ = smem_u32(sQ + stage * kTile);
+    const uint32_t tO = smem_u32(sO + stage * kTile);
+    float s[32], dp[32];
 #pragma unroll
-        for (int j = 0; j < D / 16; ++j) {
-          FragB b_do;
-          FragB b_q;
-          wmma::load_matrix_sync(b_do, t.dout + kk * 16 * kLdT + j * 16,
-                                 kLdT);
-          wmma::load_matrix_sync(b_q, t.q + kk * 16 * kLdT + j * 16, kLdT);
-          wmma::mma_sync(acc_dv[j], a_p, b_do, acc_dv[j]);
-          wmma::mma_sync(acc_dk[j], a_ds, b_q, acc_dk[j]);
-        }
+    for (int i = 0; i < 32; ++i) {
+      s[i] = 0.0f;
+      dp[i] = 0.0f;
+    }
+    fence_operands(s);
+    fence_operands(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {  // S^T = K.Q^T
+      wgmma_ss_n64(s, kmajor_desc<D, kKeys>(tK, kk),
+                   kmajor_desc<D, kBQ>(tQ, kk));
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {  // dP^T = V.dO^T
+      wgmma_ss_n64(dp, kmajor_desc<D, kKeys>(tV, kk),
+                   kmajor_desc<D, kBQ>(tO, kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(s);
+    fence_operands(dp);
+
+    // rows are keys, columns queries: p^T and ds^T in place
+    const float* row_lse = sRow + stage * 2 * kBQ;
+    const float* row_delta = row_lse + kBQ;
+    const bool mask =
+        q0 + kBQ > sq || (causal && k0 + kKeys - 1 > q0 + offset);
+#pragma unroll
+    for (int j = 0; j < kBQ / 8; ++j) {
+      const int c = 8 * j + col_lane;
+      const float2 l2 = *reinterpret_cast<const float2*>(row_lse + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(row_delta + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const int qr = q0 + c + (e & 1);
+        const int kr = key + (e >> 1) * 8;
+        const bool valid =
+            !mask || (qr < sq && (!causal || kr <= qr + offset));
+        const float lv = (e & 1) ? l2.y : l2.x;
+        const float dl = (e & 1) ? d2.y : d2.x;
+        const float p = valid ? exp2f(fmaf(s[i], scale2, -lv * kLog2e)) : 0.0f;
+        dp[i] = valid ? p * (dp[i] - dl) * scale : 0.0f;  // ds
+        s[i] = p;
       }
     }
-  }
-  __syncthreads();
-  // stage through the (now free) Q/dO/K/V region: [kBK][D + 4] float32 each
-  float* stage_k = reinterpret_cast<float*>(smem);
-  float* stage_v = stage_k + kBK * (D + 4);
+    uint32_t pa[kBQ / 16][4], da[kBQ / 16][4];
+    pack_p(s, pa);
+    pack_p(dp, da);
+    fence_operands(acc_dv);
+    fence_operands(acc_dk);
+    wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::store_matrix_sync(stage_k + warp * 16 * (D + 4) + j * 16,
-                            acc_dk[j], D + 4, wmma::mem_row_major);
-    wmma::store_matrix_sync(stage_v + warp * 16 * (D + 4) + j * 16,
-                            acc_dv[j], D + 4, wmma::mem_row_major);
+    for (int kk = 0; kk < kBQ / 16; ++kk) {  // dV += P^T.dO, dO MN-major
+      wgmma_rs<kCols>(acc_dv, pa[kk], mnmajor_desc<D, kBQ>(tO + col_off, kk));
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {  // dK += dS^T.Q, Q MN-major
+      wgmma_rs<kCols>(acc_dk, da[kk], mnmajor_desc<D, kBQ>(tQ + col_off, kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(acc_dv);
+    fence_operands(acc_dk);
   }
-  __syncthreads();
-  store_rows<D>(dk + koff, stage_k, k0, sk, kBK, ldk);
-  store_rows<D>(dv + koff, stage_v, k0, sk, kBK, ldk);
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = key + i * 8;
+    if (r >= sk) continue;
+    const int64_t at = koff + static_cast<int64_t>(r) * ldk + col0 + col_lane;
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + at + j * 8) =
+          pack_bf16(acc_dk[4 * j + 2 * i], acc_dk[4 * j + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at + j * 8) =
+          pack_bf16(acc_dv[4 * j + 2 * i], acc_dv[4 * j + 2 * i + 1]);
+    }
+  }
 }
 
 // ----------------------------------------------------------------- float32
@@ -955,9 +715,18 @@ __global__ void __launch_bounds__(kThreads)
 // every product an FMA on the CUDA cores in float32 (TF32 would keep ~3
 // digits). Thread (ty, tx) = (tid / 16, tid % 16) owns rows 4ty..4ty+3 and
 // columns tx + 16j of each 64-wide tile. Bound on an H100: float32
-// operations (67 TFLOP/s outside the tensor cores).
+// operations (67 TFLOP/s outside the tensor cores). At d 256 the four
+// 64-row tiles of dq and dk/dv would take 263 KB: there dq loads V and
+// then K into one buffer (dP first, then S and dq += dS.K), and dk/dv
+// loads Q, then dO, then Q again into one buffer (S^T, then dP^T and dv,
+// then dk): 215 and 231 KB.
 
 constexpr int kF32Threads = 256;
+
+// Whether a float32 backward kernel shares one tile buffer between two
+// operands (d 256).
+template <int D>
+constexpr bool kF32Share = D > 128;
 constexpr int kLdF = kBK + 1;  // float32 [64][64] tiles
 
 // Rows [row0, row0 + 64) of an [n, D] float32 matrix (rows ld apart) into
@@ -1166,9 +935,9 @@ __global__ void __launch_bounds__(kF32Threads)
 
 template <int D>
 constexpr size_t dq_f32_smem_bytes() {
-  return sizeof(float) * (4 * kBQ * (D + 1)  // Q, dO, K, V
-                          + kBQ * kLdF        // ds
-                          + 2 * kBQ);         // lse, delta
+  // Q, dO, K and V (K and V in one buffer at d 256), ds, lse and delta
+  return sizeof(float) * ((kF32Share<D> ? 3 : 4) * kBQ * (D + 1) +
+                          kBQ * kLdF + 2 * kBQ);
 }
 
 // p = exp(s*scale - lse), ds = p*(dp - delta)*scale on the entries a row
@@ -1196,7 +965,7 @@ __global__ void __launch_bounds__(kF32Threads)
   float* sQ = reinterpret_cast<float*>(smem);
   float* sO = sQ + kBQ * (D + 1);
   float* sK = sO + kBQ * (D + 1);
-  float* sV = sK + kBK * (D + 1);
+  float* sV = kF32Share<D> ? sK : sK + kBK * (D + 1);
   float* sDS = sV + kBK * (D + 1);
   float* sLse = sDS + kBQ * kLdF;
   float* sDelta = sLse + kBQ;
@@ -1230,12 +999,17 @@ __global__ void __launch_bounds__(kF32Threads)
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();
-    load_rows_f32<D>(sK, k + koff, k0, sk, ldk);
     load_rows_f32<D>(sV, v + koff, k0, sk, ldk);
+    if (!kF32Share<D>) load_rows_f32<D>(sK, k + koff, k0, sk, ldk);
     __syncthreads();
     float s[4][4], dp[4][4];
-    rows_dot_rows_f32<D>(sQ, sK, s);
     rows_dot_rows_f32<D>(sO, sV, dp);
+    if (kF32Share<D>) {  // K into V's buffer
+      __syncthreads();
+      load_rows_f32<D>(sK, k + koff, k0, sk, ldk);
+      __syncthreads();
+    }
+    rows_dot_rows_f32<D>(sQ, sK, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = 4 * ty + i;
@@ -1257,9 +1031,10 @@ __global__ void __launch_bounds__(kF32Threads)
 
 template <int D>
 constexpr size_t dkv_f32_smem_bytes() {
-  return sizeof(float) * (4 * kBQ * (D + 1)  // K, V, Q, dO
-                          + 2 * kBK * kLdF    // p^T, ds^T
-                          + 2 * kBQ);         // lse, delta
+  // K, V, Q and dO (Q and dO in one buffer at d 256), p^T and ds^T, lse
+  // and delta
+  return sizeof(float) * ((kF32Share<D> ? 3 : 4) * kBQ * (D + 1) +
+                          2 * kBK * kLdF + 2 * kBQ);
 }
 
 template <int D>
@@ -1277,7 +1052,7 @@ __global__ void __launch_bounds__(kF32Threads)
   float* sK = reinterpret_cast<float*>(smem);
   float* sV = sK + kBK * (D + 1);
   float* sQ = sV + kBK * (D + 1);
-  float* sO = sQ + kBQ * (D + 1);
+  float* sO = kF32Share<D> ? sQ : sQ + kBQ * (D + 1);
   float* sPt = sO + kBQ * (D + 1);  // [key][query]
   float* sDSt = sPt + kBK * kLdF;   // [key][query]
   float* sLse = sDSt + kBK * kLdF;
@@ -1323,12 +1098,17 @@ __global__ void __launch_bounds__(kF32Threads)
       const int q0 = qb * kBQ;
       __syncthreads();
       load_rows_f32<D>(sQ, q + qoff, q0, sq, ldq);
-      load_rows_f32<D>(sO, dout + qoff, q0, sq, ldq);
+      if (!kF32Share<D>) load_rows_f32<D>(sO, dout + qoff, q0, sq, ldq);
       load_vec_f32(sLse, lse + row_off, q0, sq);
       load_vec_f32(sDelta, delta + row_off, q0, sq);
       __syncthreads();
       float st[4][4], dpt[4][4];  // [key 4ty + i][query tx + 16j]
       rows_dot_rows_f32<D>(sK, sQ, st);
+      if (kF32Share<D>) {  // dO into Q's buffer
+        __syncthreads();
+        load_rows_f32<D>(sO, dout + qoff, q0, sq, ldq);
+        __syncthreads();
+      }
       rows_dot_rows_f32<D>(sV, sO, dpt);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -1346,6 +1126,11 @@ __global__ void __launch_bounds__(kF32Threads)
       }
       __syncthreads();
       weights_times_rows_f32<D>(sPt, sO, acc_dv);   // dv += p^T.dO
+      if (kF32Share<D>) {  // Q back into its buffer
+        __syncthreads();
+        load_rows_f32<D>(sQ, q + qoff, q0, sq, ldq);
+        __syncthreads();
+      }
       weights_times_rows_f32<D>(sDSt, sQ, acc_dk);  // dk += ds^T.q
     }
   }
@@ -1417,9 +1202,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   T* dkk = static_cast<T*>(dk);
   T* dvv = static_cast<T*>(dv);
   if constexpr (sizeof(T) == 2) {
-    return launch(flash_bwd_dkv_kernel<D>, bwd_smem_bytes<D>(), kThreads, sk,
-                  kBK, heads / n_rep, batch, heads, n_rep, s, qq, kk, vv, dd,
-                  ll, de, dkk, dvv, sq, sk, n_rep, scale, causal);
+    return launch(flash_bwd_dkv_kernel<D>, dkv_smem_bytes<D>(), kWgThreads,
+                  sk, kDkvKeys<D>, heads / n_rep, batch, heads, n_rep, s, qq,
+                  kk, vv, dd, ll, de, dkk, dvv, sq, sk, n_rep, scale, causal);
   } else {
     return launch(flash_bwd_dkv_f32_kernel<D>, dkv_f32_smem_bytes<D>(),
                   kF32Threads, sk, kBK, heads / n_rep, batch, heads, n_rep, s,
@@ -1460,6 +1245,7 @@ int fwd_entry(const void* q, const void* k, const void* v, void* out,
     case 32: return launch_fwd<32, T>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, s);
     case 64: return launch_fwd<64, T>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, s);
     case 128: return launch_fwd<128, T>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, s);
+    case 256: return launch_fwd<256, T>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1474,6 +1260,7 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
     case 32: return launch_dkv<32, T>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, s);
     case 64: return launch_dkv<64, T>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, s);
     case 128: return launch_dkv<128, T>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, s);
+    case 256: return launch_dkv<256, T>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1488,6 +1275,7 @@ int dq_entry(const void* q, const void* k, const void* v, const void* dout,
     case 32: return launch_dq<32, T>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, s);
     case 64: return launch_dq<64, T>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, s);
     case 128: return launch_dq<128, T>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, s);
+    case 256: return launch_dq<256, T>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1499,7 +1287,7 @@ extern "C" {
 // q [batch, sq, heads*d], k/v [batch, sk, (heads/n_rep)*d] row-major, bf16
 // (rt_flash_*) or float32 (rt_flash_*_f32); out like q; lse [batch, heads,
 // sq] float32. [b*h, s, d] operands are batch = b*h, heads = n_rep = 1. d
-// is 32, 64 or 128. Returns a CUDA error code (0 = ok).
+// is 32, 64, 128 or 256. Returns a CUDA error code (0 = ok).
 int rt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                  void* lse, int batch, int heads, int n_rep, int sq, int sk,
                  int d, float scale, int causal, void* stream) {

@@ -1,6 +1,6 @@
 // The fused FFN backward's three kernels (ray_tpu/ops/pallas/fused_ffn.py),
 // each one block per output tile with the reduction axis walked inside the
-// block, nvcuda::wmma 16x16x16 bf16 fragments and float32 accumulators:
+// block and float32 accumulators:
 //
 //   K1 dw_down_kernel    dW_down = swiglu(gate, up)^T . dy        [d_ff, d]
 //      replaces _dw_down_kernel (fused_ffn.py:76, called at :208 when USE_K1)
@@ -21,17 +21,17 @@
 // 0.18 ms at 3.35 TB/s); K3 is two products, 9.62e11 FLOP (0.97 ms), against
 // ~0.5 GB.
 //
-// Design (simple and right first; wgmma/TMA and a pipelined ring of tiles
-// are later work):
-//  * One block of 8 warps owns one output tile (128 x 64; K1 128 x 128)
-//    and loops over the reduction axis (tokens for K1/K3, d for K2); the
-//    TPU's sequential k grid axis becomes that loop. Each warp owns a 32 x
-//    32 patch of each accumulator (2 x 2 fragments; K1 32 x 64).
+// K1 (bf16) is built on Hopper's warpgroup MMA with the swiglu as a
+// register operand (see "K1" below). K2 and K3 keep the first design
+// (a wgmma mainloop for them is later work):
+//  * One block of 8 warps owns one output tile (128 x 64) and loops over
+//    the reduction axis (tokens for K3, d for K2); the TPU's sequential k
+//    grid axis becomes that loop. Each warp owns a 32 x 32 patch of each
+//    accumulator (2 x 2 nvcuda::wmma 16x16x16 bf16 fragments).
 //  * The elementwise chains run on tiles already in registers or shared
-//    memory: K1's prologue computes the swiglu bf16(silu(g)*u) (float32,
-//    rounded to bf16 only as the product's operand); K3's prologue computes
-//    h; K2's epilogue reads the float32 accumulator from shared memory with
-//    the gate/up tile and writes only dgate and dup.
+//    memory: K3's prologue computes h; K2's epilogue reads the float32
+//    accumulator from shared memory with the gate/up tile and writes only
+//    dgate and dup.
 //  * The next step's tiles are loaded into registers while the current
 //    step's products run, so device-memory latency overlaps the tensor-core
 //    work; two blocks share an SM.
@@ -40,20 +40,21 @@
 //    16-byte loads are used where a row's length is a multiple of 8,
 //    element loads elsewhere.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 using namespace nvcuda;
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kTM = 128;  // output rows per block
 constexpr int kTN = 64;   // output columns per block
-constexpr int kTK = 32;   // tokens per step (K1, K3)
+constexpr int kTK = 32;   // tokens per step (K3)
 constexpr int kThreads = 256;
 constexpr int kLdH = kTM + 8;
 constexpr int kLdG = kTN + 8;
@@ -273,157 +274,328 @@ __device__ __forceinline__ float sigmoid(float x) {
 
 // ------------------------------------------------------------------- K1
 //
-// K1's output tile is kTM x kTN1 (128 x 128), twice K3's width: the swiglu
-// prologue (one expf per element) and the gate/up loads are repeated once
-// per column block of d, so a wider block halves them. Each warp owns a
-// 32 x 64 patch (2 x 4 fragments); the epilogue stages one 64-column half
-// at a time through the same 128 x kLdStage buffer.
+// dw_down_kernel (bf16) is built on Hopper's warpgroup MMA (hopper.cuh):
+//  * a block owns a 128 (d_ff) x 256 (d) output tile, two warpgroups of
+//    m64n256 (128 float32 accumulators a thread), so the swiglu of each
+//    gate/up element is recomputed d/256 times (16 at d 4096) where the
+//    TPU kernel's full-d rows compute it once;
+//  * 64-token stages of gate and up [64 x 128] and dy [64 x 256], all in
+//    the 128-byte-swizzled layout, arrive through a three-stage ring (64 KB
+//    a stage). Where d_ff and d are multiples of 8 the Tensor Memory
+//    Accelerator (TMA) fills it: 8 boxes of 64 x 64 a stage, issued by a
+//    ninth, producer warp, with a "full" and an "empty" mbarrier a stage,
+//    so the consumers never wait at a block barrier and walk the k16 steps
+//    of all stages as one sequence. Elsewhere all threads fill it by
+//    cp.async, a block barrier a stage. At the 8B shape (H100 SXM) the
+//    cp.async ring moved ~4.7 TB/s from L2 and held the kernel at 1.5 ms
+//    even with no swiglu at all; TMA took it to 1.28 ms and the producer
+//    warp ~5% further. What holds it near 0.4 of its bound: the swiglu's
+//    two special-function ops an element (~0.3 ms: a variant without it
+//    took 0.97 ms) and 1 KB of tiles from L2 a token a block (gate, up
+//    and dy: twice the A operand of a plain product).
+//  * the swiglu is the register A operand, with no shared-memory round
+//    trip: each warp ldmatrix.trans-loads its 16 d_ff rows x 16 tokens of
+//    gate and of up (A(d_ff row, token) is the tile read transposed),
+//    computes silu(g)*u in float32, rounds it to bf16 as the plain
+//    version does and packs it into the 4 A registers of m64n256k16; B is
+//    the dy tile read MN-major (tokens are the reduction rows, d is
+//    contiguous);
+//  * the swiglu of k16 step k+1 is computed while step k's product runs
+//    (two A register sets), so the special-function work overlaps the
+//    tensor cores.
+// The sigmoid is __expf and __fdividef: silu(g)*u = g*u / (1 + exp(-g))
+// with two special-function ops (ex2, rcp) an element, where expf and an
+// IEEE division take more; its float32 value may differ from the plain
+// version's in the last bits, and so its bf16 rounding by one ulp. Rows
+// and columns past T, d or d_ff are zero-filled by the copies; where d_ff
+// or d is not a multiple of 8 a 16-byte copy cannot reach a row, and those
+// chunks are fetched element by element. Only in-range outputs are
+// written, as bf16 pairs from the accumulators.
 
-constexpr int kTN1 = 128;
-constexpr int kDVec1 = kTK * kTN1 / 8 / kThreads;
-static_assert(kDVec1 * 8 * kThreads == kTK * kTN1, "K1 dy tile split");
-constexpr int kK1TileBytes = sizeof(bf16) * kTK * 2 * kLdH;
-static_assert(kK1TileBytes <= kSmemBytes, "K1 tiles fit");
+constexpr int kK1Rows = 128;  // d_ff rows a block (two warpgroups of 64)
+constexpr int kK1Cols = 256;  // d columns a block
+constexpr int kK1Tok = 64;    // tokens a stage
+constexpr int kK1Stages = 3;
+constexpr int kK1Gate = kK1Tok * kK1Rows;  // elements of a gate/up tile
+constexpr int kK1Dy = kK1Tok * kK1Cols;    // elements of a dy tile
+constexpr int kK1Stage = 2 * kK1Gate + kK1Dy;
+constexpr size_t kK1SmemBytes = sizeof(bf16) * kK1Stages * kK1Stage + 1024;
 
-// One step of K1: the [kTK x kTM] gate and up tiles (d_ff columns m0..) and
-// the [kTK x kTN1] dy tile (d columns n0..).
-struct StagedK1 {
-  uint4 g[kXVec];
-  uint4 u[kXVec];
-  uint4 dy[kDVec1];
-};
-
-__device__ __forceinline__ void fetch_k1(StagedK1& st, const bf16* gate,
-                                         const bf16* up, const bf16* dy,
-                                         int t0, int m0, int n0, int T,
-                                         int d, int dff, bool vec_f,
-                                         bool vec_d) {
-#pragma unroll
-  for (int v = 0; v < kXVec; ++v) {
-    const int i = threadIdx.x + v * kThreads;
-    const int t = t0 + i / (kTM / 8);
-    const int c = (i % (kTM / 8)) * 8;
-    const int left = t < T ? dff - (m0 + c) : 0;
-    const int64_t off = static_cast<int64_t>(t) * dff + m0 + c;
-    st.g[v] = fetch8(gate + (left > 0 ? off : 0), left, vec_f);
-    st.u[v] = fetch8(up + (left > 0 ? off : 0), left, vec_f);
-  }
-#pragma unroll
-  for (int v = 0; v < kDVec1; ++v) {
-    const int i = threadIdx.x + v * kThreads;
-    const int t = t0 + i / (kTN1 / 8);
-    const int c = (i % (kTN1 / 8)) * 8;
-    const int left = t < T ? d - (n0 + c) : 0;
-    const int64_t off = static_cast<int64_t>(t) * d + n0 + c;
-    st.dy[v] = fetch8(dy + (left > 0 ? off : 0), left, vec_d);
-  }
-}
-
-// Writes the staged step into shared memory: the swiglu
-// s = bf16(silu(g) * u), computed here in float32, and dy as it is.
-__device__ __forceinline__ void store_k1(const StagedK1& st, bf16* sS,
-                                         bf16* sD) {
-#pragma unroll
-  for (int v = 0; v < kXVec; ++v) {
-    const int i = threadIdx.x + v * kThreads;
-    const int r = i / (kTM / 8);
-    const int c = (i % (kTM / 8)) * 8;
-    const bf16* g = reinterpret_cast<const bf16*>(&st.g[v]);
-    const bf16* u = reinterpret_cast<const bf16*>(&st.u[v]);
-    __align__(16) bf16 s[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float gf = __bfloat162float(g[k]);
-      s[k] = __float2bfloat16_rn(gf * sigmoid(gf) * __bfloat162float(u[k]));
-    }
-    *reinterpret_cast<uint4*>(sS + r * kLdH + c) =
-        *reinterpret_cast<const uint4*>(s);
-  }
-#pragma unroll
-  for (int v = 0; v < kDVec1; ++v) {
-    const int i = threadIdx.x + v * kThreads;
-    const int r = i / (kTN1 / 8);
-    const int c = (i % (kTN1 / 8)) * 8;
-    *reinterpret_cast<uint4*>(sD + r * kLdH + c) = st.dy[v];
+// One 16-byte chunk (8 bf16) of a row into shared memory: by cp.async when
+// the row is 16-byte aligned (`vec`) and all 8 are in range, zero-filled
+// when none is, else element by element.
+__device__ __forceinline__ void copy_chunk(uint32_t dst, const bf16* src,
+                                           int left, bool vec) {
+  if (left <= 0 || (vec && left >= 8)) {
+    cp_async16(dst, src, left > 0);
+  } else {
+    const uint4 val = fetch8(src, left, false);
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+                 "r"(val.x), "r"(val.y), "r"(val.z), "r"(val.w)
+                 : "memory");
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-    dw_down_kernel(const bf16* __restrict__ gate, const bf16* __restrict__ up,
+// Tokens [t0, t0 + 64) of gate/up (d_ff columns m0..m0+127) and of dy (d
+// columns n0..n0+255) into one ring stage.
+__device__ __forceinline__ void k1_load_stage(bf16* stage, const bf16* gate,
+                                              const bf16* up, const bf16* dy,
+                                              int t0, int m0, int n0, int T,
+                                              int d, int dff, bool vec_f,
+                                              bool vec_d) {
+  const uint32_t sG = smem_u32(stage);
+  const uint32_t sU = sG + 2 * kK1Gate;
+  const uint32_t sD = sU + 2 * kK1Gate;
+#pragma unroll
+  for (int it = 0; it < kK1Gate / 8 / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / (kK1Rows / 8);
+    const int c = i % (kK1Rows / 8);
+    const int t = t0 + r;
+    const int left = t < T ? dff - (m0 + 8 * c) : 0;
+    const int64_t off = left > 0 ? static_cast<int64_t>(t) * dff + m0 + 8 * c
+                                 : 0;
+    const int at = tile_offset<kK1Rows, kK1Tok>(r, c);
+    copy_chunk(sG + at, gate + off, left, vec_f);
+    copy_chunk(sU + at, up + off, left, vec_f);
+  }
+#pragma unroll
+  for (int it = 0; it < kK1Dy / 8 / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / (kK1Cols / 8);
+    const int c = i % (kK1Cols / 8);
+    const int t = t0 + r;
+    const int left = t < T ? d - (n0 + 8 * c) : 0;
+    const int64_t off = left > 0 ? static_cast<int64_t>(t) * d + n0 + 8 * c
+                                 : 0;
+    copy_chunk(sD + tile_offset<kK1Cols, kK1Tok>(r, c), dy + off, left,
+               vec_d);
+  }
+}
+
+// bf16(silu(g) * u) of two packed bf16 pairs, packed the same way.
+__device__ __forceinline__ uint32_t swiglu2(uint32_t g2, uint32_t u2) {
+  const float g0 = __uint_as_float(g2 << 16);
+  const float g1 = __uint_as_float(g2 & 0xffff0000u);
+  const float u0 = __uint_as_float(u2 << 16);
+  const float u1 = __uint_as_float(u2 & 0xffff0000u);
+  return pack_bf16(__fdividef(g0 * u0, 1.0f + __expf(-g0)),
+                   __fdividef(g1 * u1, 1.0f + __expf(-g1)));
+}
+
+// The A fragment of k16 step kk for this warp's 16 d_ff rows: ldmatrix
+// .trans of gate and up (lane l gives the address of token row
+// 16kk + l%8 + 8(l/16) at chunk `chunk` + (l/8)%2, so matrix i is
+// a[i]'s 8 x 8 block), then the swiglu in registers.
+__device__ __forceinline__ void swiglu_fragment(uint32_t (&a)[4],
+                                                uint32_t gate_tile,
+                                                uint32_t up_tile, int kk,
+                                                int lane, int chunk) {
+  const int row = 16 * kk + (lane & 7) + ((lane >> 4) << 3);
+  const uint32_t at =
+      tile_offset<kK1Rows, kK1Tok>(row, chunk + ((lane >> 3) & 1));
+  uint32_t g[4], u[4];
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(g[0]), "=r"(g[1]), "=r"(g[2]), "=r"(g[3])
+      : "r"(gate_tile + at));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(u[0]), "=r"(u[1]), "=r"(u[2]), "=r"(u[3])
+      : "r"(up_tile + at));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = swiglu2(g[i], u[i]);
+}
+
+// Tokens [t0, t0 + 64) into one ring stage by TMA: two 64-column boxes of
+// gate and of up, four of dy, all completing on the stage's mbarrier.
+__device__ __forceinline__ void k1_tma_stage(bf16* stage, uint32_t bar,
+                                             const CUtensorMap* tm_gate,
+                                             const CUtensorMap* tm_up,
+                                             const CUtensorMap* tm_dy, int t0,
+                                             int m0, int n0) {
+  constexpr int kBox = kK1Tok * 64 * sizeof(bf16);  // one 64 x 64 box
+  const uint32_t sG = smem_u32(stage);
+  const uint32_t sU = sG + 2 * kK1Gate;
+  const uint32_t sD = sU + 2 * kK1Gate;
+  mbar_expect_bytes(bar, kK1Stage * sizeof(bf16));
+#pragma unroll
+  for (int i = 0; i < kK1Rows / 64; ++i) {
+    tma_load_2d(sG + i * kBox, tm_gate, m0 + 64 * i, t0, bar);
+    tma_load_2d(sU + i * kBox, tm_up, m0 + 64 * i, t0, bar);
+  }
+#pragma unroll
+  for (int i = 0; i < kK1Cols / 64; ++i) {
+    tma_load_2d(sD + i * kBox, tm_dy, n0 + 64 * i, t0, bar);
+  }
+}
+
+// K1's block: two consumer warpgroups, and on the TMA ring a ninth warp
+// that only issues the copies.
+template <bool kTma>
+constexpr int kK1Threads = kTma ? kThreads + 32 : kThreads;
+
+template <bool kTma>
+__global__ void __launch_bounds__(kK1Threads<kTma>, 1)
+    dw_down_kernel(const __grid_constant__ CUtensorMap tm_gate,
+                   const __grid_constant__ CUtensorMap tm_up,
+                   const __grid_constant__ CUtensorMap tm_dy,
+                   const bf16* __restrict__ gate, const bf16* __restrict__ up,
                    const bf16* __restrict__ dy, bf16* __restrict__ dw_down,
                    int T, int d, int dff) {
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  bf16* sS = reinterpret_cast<bf16*>(smem);
-  bf16* sD = sS + kTK * kLdH;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  // TMA ring: a stage landed (full), every consumer warp is done with it
+  // (empty)
+  __shared__ __align__(8) uint64_t full[kK1Stages], empty[kK1Stages];
 
-  const int m0 = blockIdx.y * kTM;   // rows of dW_down: the d_ff axis
-  const int n0 = blockIdx.x * kTN1;  // columns of dW_down: the d axis
+  const int n0 = blockIdx.x * kK1Cols;  // columns of dW_down: the d axis
+  const int m0 = blockIdx.y * kK1Rows;  // rows of dW_down: the d_ff axis
   const int warp = threadIdx.x >> 5;
-  const int wm = (warp & 3) * 32;
-  const int half = warp >> 2;        // which 64 of the 128 columns
-  const int wn = half * 64;
-  const bool vec_f = (dff & 7) == 0;
-  const bool vec_d = (d & 7) == 0;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const int n_steps = (T + kK1Tok - 1) / kK1Tok;
+  // this warp's 16 d_ff rows of the gate/up tiles, in 16-byte chunks
+  const int chunk = wg * 8 + (warp & 3) * 2;
+  constexpr int kSteps = kK1Tok / 16;  // k16 steps a stage
+  auto stage_at = [&](int buf) { return smem_u32(ring + buf * kK1Stage); };
 
-  FragC acc[2][4];
+  float acc[kK1Cols / 2];
 #pragma unroll
-  for (int a = 0; a < 2; ++a) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) wmma::fill_fragment(acc[a][b], 0.0f);
-  }
+  for (int i = 0; i < kK1Cols / 2; ++i) acc[i] = 0.0f;
+  uint32_t a[2][4] = {};
 
-  StagedK1 st;
-  fetch_k1(st, gate, up, dy, 0, m0, n0, T, d, dff, vec_f, vec_d);
-  for (int t0 = 0; t0 < T; t0 += kTK) {
-    __syncthreads();  // the previous step's fragments are loaded
-    store_k1(st, sS, sD);
-    __syncthreads();
-    if (t0 + kTK < T) {
-      fetch_k1(st, gate, up, dy, t0 + kTK, m0, n0, T, d, dff, vec_f, vec_d);
-    }
+  if constexpr (kTma) {
+    // The producer warp keeps the ring full; the consumers walk the k16
+    // steps of all stages as one sequence, so the swiglu of the next step
+    // (in the next stage too) overlaps this step's product, and a stage is
+    // released to the producer as soon as its last product is done.
+    if (threadIdx.x == 0) {
 #pragma unroll
-    for (int kk = 0; kk < kTK / 16; ++kk) {
-      FragAt s[2];
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        // A(row i, token t) = s[t][i]: the swiglu tile read column-major
-        wmma::load_matrix_sync(s[a], sS + kk * 16 * kLdH + wm + a * 16, kLdH);
+      for (int i = 0; i < kK1Stages; ++i) {
+        mbar_init(smem_u32(&full[i]), 1);
+        mbar_init(smem_u32(&empty[i]), kThreads / 32);
       }
+      mbar_fence_init();
+    }
+    __syncthreads();
+    if (warp == kThreads / 32) {
+      if (lane == 0) {
+        for (int st = 0; st < n_steps; ++st) {
+          const int buf = st % kK1Stages;
+          if (st >= kK1Stages) {
+            mbar_wait(smem_u32(&empty[buf]), (st / kK1Stages - 1) & 1);
+          }
+          k1_tma_stage(ring + buf * kK1Stage, smem_u32(&full[buf]),
+                       &tm_gate, &tm_up, &tm_dy, st * kK1Tok, m0, n0);
+        }
+      }
+      return;
+    }
+    if (n_steps > 0) {
+      mbar_wait(smem_u32(&full[0]), 0);
+      swiglu_fragment(a[0], stage_at(0), stage_at(0) + 2 * kK1Gate, 0, lane,
+                      chunk);
+    }
+    for (int st = 0; st < n_steps; ++st) {
+      const uint32_t tD = stage_at(st % kK1Stages) + 4 * kK1Gate;
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        FragB g;
-        wmma::load_matrix_sync(g, sD + kk * 16 * kLdH + wn + b * 16, kLdH);
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          wmma::mma_sync(acc[a][b], s[a], g, acc[a][b]);
+      for (int kk = 0; kk < kSteps; ++kk) {
+        fence_operands(acc);
+        wgmma_fence();
+        wgmma_rs_n256(acc, a[kk & 1], mnmajor_desc<kK1Cols, kK1Tok>(tD, kk));
+        wgmma_commit();
+        // step kk - 1's product is done: its A registers, kept live up to
+        // here, are free for step kk + 1, and after the last step of a
+        // stage this warp is done with that stage
+        wgmma_wait<1>();
+        fence_operands(a[(kk + 1) & 1]);
+        if (kk == 0 && st > 0 && lane == 0) {
+          mbar_arrive(smem_u32(&empty[(st - 1) % kK1Stages]));
+        }
+        if (kk + 1 < kSteps) {
+          const uint32_t tG = stage_at(st % kK1Stages);
+          swiglu_fragment(a[(kk + 1) & 1], tG, tG + 2 * kK1Gate, kk + 1,
+                          lane, chunk);
+        } else if (st + 1 < n_steps) {  // the next stage's first step
+          const int buf = (st + 1) % kK1Stages;
+          mbar_wait(smem_u32(&full[buf]), ((st + 1) / kK1Stages) & 1);
+          swiglu_fragment(a[(kk + 1) & 1], stage_at(buf),
+                          stage_at(buf) + 2 * kK1Gate, 0, lane, chunk);
         }
       }
     }
-  }
-
-  // epilogue: one 64-column half at a time, staged by the warps that own it
-  float* stage = reinterpret_cast<float*>(smem);
+    wgmma_wait_all();
+    fence_operands(acc);
+    fence_operands(a[0]);
+    fence_operands(a[1]);
+  } else {
+    // cp.async ring (rows that TMA cannot describe): every thread copies,
+    // and a block barrier a stage frees the stage copied into next
+    const bool vec_f = (dff & 7) == 0;
+    const bool vec_d = (d & 7) == 0;
 #pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    __syncthreads();
-    if (half == pass) {
+    for (int st = 0; st < kK1Stages - 1; ++st) {
+      if (st < n_steps) {
+        k1_load_stage(ring + st * kK1Stage, gate, up, dy, st * kK1Tok, m0,
+                      n0, T, d, dff, vec_f, vec_d);
+      }
+      cp_async_commit();
+    }
+    for (int st = 0; st < n_steps; ++st) {
+      cp_async_wait<kK1Stages - 2>();  // stage st has landed
+      fence_async_shared();
+      __syncthreads();  // ... for every thread; and stage st - 1 is free
+      const int next = st + kK1Stages - 1;
+      if (next < n_steps) {
+        k1_load_stage(ring + (next % kK1Stages) * kK1Stage, gate, up, dy,
+                      next * kK1Tok, m0, n0, T, d, dff, vec_f, vec_d);
+      }
+      cp_async_commit();
+      const uint32_t tG = stage_at(st % kK1Stages);
+      const uint32_t tU = tG + 2 * kK1Gate;
+      const uint32_t tD = tU + 2 * kK1Gate;
+      swiglu_fragment(a[0], tG, tU, 0, lane, chunk);
 #pragma unroll
-      for (int a = 0; a < 2; ++a) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          wmma::store_matrix_sync(stage + (wm + a * 16) * kLdStage + b * 16,
-                                  acc[a][b], kLdStage, wmma::mem_row_major);
+      for (int kk = 0; kk < kSteps; ++kk) {
+        fence_operands(acc);
+        wgmma_fence();
+        wgmma_rs_n256(acc, a[kk & 1], mnmajor_desc<kK1Cols, kK1Tok>(tD, kk));
+        wgmma_commit();
+        wgmma_wait<1>();  // step kk - 1 is done (see the TMA ring)
+        fence_operands(a[(kk + 1) & 1]);
+        if (kk + 1 < kSteps) {
+          swiglu_fragment(a[(kk + 1) & 1], tG, tU, kk + 1, lane, chunk);
         }
       }
+      wgmma_wait_all();
+      fence_operands(acc);
+      fence_operands(a[1]);
     }
-    __syncthreads();
-    const int c0 = n0 + pass * kTN;
-    for (int i = threadIdx.x; i < kTM * kTN; i += kThreads) {
-      const int r = i / kTN;
-      const int c = i % kTN;
-      if (m0 + r < dff && c0 + c < d) {
-        dw_down[static_cast<int64_t>(m0 + r) * d + c0 + c] =
-            __float2bfloat16_rn(stage[r * kLdStage + c]);
+    cp_async_wait<0>();
+  }
+
+  const int row = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int col = n0 + 2 * (lane & 3);
+  const bool pairs = (d & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row + i * 8;
+    if (r >= dff) continue;
+    bf16* dst = dw_down + static_cast<int64_t>(r) * d;
+#pragma unroll
+    for (int j = 0; j < kK1Cols / 8; ++j) {
+      const int c = col + 8 * j;
+      const float lo = acc[4 * j + 2 * i];
+      const float hi = acc[4 * j + 2 * i + 1];
+      if (pairs && c + 1 < d) {
+        *reinterpret_cast<uint32_t*>(dst + c) = pack_bf16(lo, hi);
+      } else {
+        if (c < d) dst[c] = __float2bfloat16_rn(lo);
+        if (c + 1 < d) dst[c + 1] = __float2bfloat16_rn(hi);
       }
     }
   }
@@ -744,6 +916,52 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The CUDA driver API's cuTensorMapEncodeTiled, found through the runtime
+// (no link against libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a row-major [rows, cols] bf16 matrix in 64 x 64 boxes,
+// 128-byte swizzle, zeros past its edges.
+cudaError_t encode_bf16_map(CUtensorMap* map, const void* ptr, int rows,
+                            int cols) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, kK1Tok};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -767,10 +985,29 @@ int rt_dw_gateup(const void* x, const void* rstd, const void* norm_w,
 // dw_down [d_ff, d] bf16.
 int rt_dw_down(const void* gate, const void* up, const void* dy,
                void* dw_down, int T, int d, int dff, void* stream) {
-  dim3 grid((d + kTN1 - 1) / kTN1, (dff + kTM - 1) / kTM);
-  dw_down_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(gate), static_cast<const bf16*>(up),
-      static_cast<const bf16*>(dy), static_cast<bf16*>(dw_down), T, d, dff);
+  if ((dff + kK1Rows - 1) / kK1Rows > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // TMA needs row strides that are multiples of 16 bytes
+  const bool tma = T > 0 && dff % 8 == 0 && d % 8 == 0;
+  CUtensorMap maps[3] = {};
+  if (tma) {
+    cudaError_t err = encode_bf16_map(&maps[0], gate, T, dff);
+    if (err == cudaSuccess) err = encode_bf16_map(&maps[1], up, T, dff);
+    if (err == cudaSuccess) err = encode_bf16_map(&maps[2], dy, T, d);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  auto kernel = tma ? dw_down_kernel<true> : dw_down_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kK1SmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((d + kK1Cols - 1) / kK1Cols, (dff + kK1Rows - 1) / kK1Rows);
+  kernel<<<grid, tma ? kK1Threads<true> : kK1Threads<false>, kK1SmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], static_cast<const bf16*>(gate),
+      static_cast<const bf16*>(up), static_cast<const bf16*>(dy),
+      static_cast<bf16*>(dw_down), T, d, dff);
   return static_cast<int>(cudaGetLastError());
 }
 

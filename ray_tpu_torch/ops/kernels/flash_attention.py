@@ -18,12 +18,16 @@ KV-cache convention):
 On a CUDA tensor each of the three wrappers launches its hand-written kernel
 (csrc/flash_attention.cu) or raises: the kernels take bfloat16 or float32
 operands, all of one dtype (`KERNEL_DTYPES`; the reference computes in the
-input dtype), and head_dim 32, 64 or 128. Each wrapper counts its launches
-in `.launches` and, of those, the float32 kernel's in `.f32_launches`. The
-plain PyTorch versions beside them run for tensors on the CPU; they compute
-densely in float32 with the kernels' masking and roundings (p and ds
-rounded to the input dtype before the products they feed). Over [b·h, s,
-d] GQA is the caller's: K/V come in repeated per query head.
+input dtype), and head_dim 1 to 256. They are instantiated at 32, 64, 128
+and 256 (`HEAD_DIMS`); the wrappers zero-pad any other head_dim to the next
+of them before the launch and slice the outputs back (`pad_heads`,
+`unpad_heads`; exact, since the scale is the caller's). Each wrapper counts
+its launches in `.launches` and, of those, the float32 kernel's in
+`.f32_launches`. The plain PyTorch versions beside them run for tensors on
+the CPU; they compute densely in float32 with the kernels' masking and
+roundings (p and ds rounded to the input dtype before the products they
+feed). Over [b·h, s, d] GQA is the caller's: K/V come in repeated per query
+head.
 
 The packed layout (twin of `_flash_fwd_packed`/`_flash_bwd_packed`,
 ray_tpu/ops/pallas/flash_attention.py:376-502) runs the same three kernels
@@ -52,7 +56,11 @@ from ray_tpu_torch.ops.kernels._util import (KERNEL_DTYPES, check,
                                              stream_handle, with_f32)
 
 _NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+# The head dims the CUDA kernels are instantiated at. Any other head_dim up
+# to the last is zero-padded to the next of them before the launch and the
+# outputs sliced back (`pad_heads`, `unpad_heads`); a wider one raises.
+HEAD_DIMS = (32, 64, 128, 256)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 
 _P, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every entry takes the packed layout (batch, heads, n_rep, sq, sk, d);
@@ -189,6 +197,36 @@ def flash_bwd_dq_packed_plain(q, k, v, do, lse, delta, n_heads: int,
                                       causal))
 
 
+# ---------------------------------------------------------------- padding
+
+
+def kernel_head_dim(d: int) -> int:
+    """The instantiated head_dim that a head of width d (1 to
+    MAX_HEAD_DIM) runs at, zero-padded."""
+    return next(kd for kd in HEAD_DIMS if d <= kd)
+
+
+def pad_heads(x: torch.Tensor, heads: int, d: int, kd: int) -> torch.Tensor:
+    """[..., heads·d] -> [..., heads·kd], contiguous: each head's d
+    columns followed by kd - d zeros. With the caller's scale kept, the
+    zeros add nothing to any score, to dO·Vᵀ or to Δ, and the padded
+    columns of out, dq, dk and dv come out zero."""
+    if kd == d:
+        return x
+    lead = x.shape[:-1]
+    return torch.nn.functional.pad(x.reshape(*lead, heads, d),
+                                   (0, kd - d)).reshape(*lead, heads * kd)
+
+
+def unpad_heads(x: torch.Tensor, heads: int, d: int, kd: int
+                ) -> torch.Tensor:
+    """The inverse of `pad_heads`: each head's first d columns, contiguous."""
+    if kd == d:
+        return x
+    lead = x.shape[:-1]
+    return x.reshape(*lead, heads, kd)[..., :d].reshape(*lead, heads * d)
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -204,8 +242,8 @@ def _check(q, k, v, what: str) -> None:
 
 def _check_cuda(tensors, what: str) -> None:
     """The kernels' contract: CUDA, one device, contiguous, 16-byte
-    aligned; operands of one dtype in KERNEL_DTYPES and head_dim in
-    HEAD_DIMS (checked by callers)."""
+    aligned; operands of one dtype in KERNEL_DTYPES and head_dim up to
+    MAX_HEAD_DIM (checked by callers)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
@@ -224,25 +262,45 @@ def _check_operands(q, k, v, d: int, batch: int, heads: int,
         raise TypeError(f"{what}: the CUDA kernels take bfloat16 or float32 "
                         f"operands of one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what}: the CUDA kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: the CUDA kernels take head_dim 1 to "
+                         f"{MAX_HEAD_DIM} (instantiated at {HEAD_DIMS}, "
+                         f"other widths zero-padded), got {d}")
     if batch > 65535 or heads > 65535:
         raise ValueError(f"{what}: a grid axis of {max(batch, heads)} "
                          f"exceeds 65535")
 
 
+def _padded(layout, q, k, v, do=None):
+    """(the layout at the kernel's head_dim, and q, k, v and dO
+    zero-padded to it, and a function that slices a query-side and a
+    key-side result back)."""
+    b, heads, n_rep, sq, sk, d = layout
+    kd = kernel_head_dim(d)
+    n_kv = heads // n_rep
+    q, do = (pad_heads(t, heads, d, kd) if t is not None else None
+             for t in (q, do))
+    k, v = (pad_heads(t, n_kv, d, kd) for t in (k, v))
+
+    def back(x, query_side: bool):
+        return unpad_heads(x, heads if query_side else n_kv, d, kd)
+
+    return (b, heads, n_rep, sq, sk, kd), q, k, v, do, back
+
+
 def _launch_fwd(q, k, v, lse, layout, scale, causal, what) -> torch.Tensor:
+    layout, q, k, v, _, back = _padded(layout, q, k, v)
     out = torch.empty_like(q)
     lib, fn = _entry("rt_flash_fwd", q.dtype)
     check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *layout, float(scale), int(causal),
         stream_handle(q)), what)
-    return out
+    return back(out, True)
 
 
 def _launch_dkv(q, k, v, do, lse, delta, layout, scale, causal, what):
+    layout, q, k, v, do, back = _padded(layout, q, k, v, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib, fn = _entry("rt_flash_bwd_dkv", q.dtype)
@@ -250,17 +308,18 @@ def _launch_dkv(q, k, v, do, lse, delta, layout, scale, causal, what):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *layout, float(scale), int(causal), stream_handle(q)), what)
-    return dk, dv
+    return back(dk, False), back(dv, False)
 
 
 def _launch_dq(q, k, v, do, lse, delta, layout, scale, causal, what):
+    layout, q, k, v, do, back = _padded(layout, q, k, v, do)
     dq = torch.empty_like(q)
     lib, fn = _entry("rt_flash_bwd_dq", q.dtype)
     check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *layout,
         float(scale), int(causal), stream_handle(q)), what)
-    return dq
+    return back(dq, True)
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

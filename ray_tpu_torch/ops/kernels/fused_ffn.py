@@ -7,8 +7,8 @@ set the reference saves) and re-runs no forward matmul in its backward. The
 backward has the reference's three kernels (csrc/fused_ffn.cu), each behind
 its module flag, read at every call:
 
-  K1  dW_down = swiglu(gate, up)ᵀ·dy with the swiglu computed on the staged
-      tile — `dw_down` (USE_K1, default off);
+  K1  dW_down = swiglu(gate, up)ᵀ·dy with the swiglu computed in registers
+      as the product's operand — `dw_down` (USE_K1, default off);
   K2  d_s = dy·W_downᵀ accumulated in float32 and never stored, then
       dgate = d_s·up·silu'(gate), dup = d_s·silu(gate) — `dgateup` (USE_K2,
       default off);

@@ -117,7 +117,7 @@ def test_operand_checks_refuse_float16_and_mixed_dtypes():
     with pytest.raises(TypeError, match="one dtype"):
         fa._check_operands(q32, qb, qb, 128, 2, 1, "flash_fwd")
     with pytest.raises(ValueError, match="head_dim"):
-        fa._check_operands(q32, q32, q32, 96, 2, 1, "flash_fwd")
+        fa._check_operands(q32, q32, q32, 320, 2, 1, "flash_fwd")
     x16 = _zeros((8, 16), torch.float16)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         ff._require_dtype("dw_gateup", (x16, x16, x16))

@@ -212,14 +212,14 @@ def test_k3_kernel_matches_plain_version(cuda, T, d, dff):
 
 def test_new_kernels_refuse_float32_and_odd_head_dims(cuda):
     """The kernels take bfloat16 and float32 (both of one dtype); float16,
-    mixed dtypes and head dims outside (32, 64, 128) raise."""
+    mixed dtypes and head dims above 256 raise."""
     q = torch.zeros((2, 64, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         fa.flash_fwd(q, q, q, 1.0)
     q32 = torch.zeros((2, 64, 64), device=cuda)
     with pytest.raises(TypeError, match="one dtype"):
         fa.flash_fwd(q32, q32.bfloat16(), q32.bfloat16(), 1.0)
-    q16 = torch.zeros((2, 64, 48), device=cuda, dtype=torch.bfloat16)
+    q16 = torch.zeros((2, 64, 320), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd(q16, q16, q16, 1.0)
     x = torch.zeros((8, 16), device=cuda, dtype=torch.float16)
@@ -637,7 +637,7 @@ def test_packed_entry_refuses_what_the_kernels_do_not_take(cuda):
     k = torch.zeros((1, 128, 2 * 128), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16"):
         fa.flash_fwd_packed(q, k, k, 4, 2, 1.0)
-    q16 = torch.zeros((1, 128, 2 * 256), device=cuda, dtype=torch.bfloat16)
+    q16 = torch.zeros((1, 128, 2 * 320), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         attention_packed(q16, q16, q16, n_heads=2, n_kv_heads=2)
     wide = torch.zeros((1, 128, 3 * 4 * 64), device=cuda,
@@ -675,11 +675,13 @@ def _f32(shape, device, seed, scale=1.0):
 @pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", [
     (2, 4, 1, 128, 128, 128, True), (1, 2, 2, 64, 300, 64, True),
     (1, 4, 1, 130, 130, 32, False), (1, 8, 2, 200, 200, 128, True),
+    (1, 4, 2, 192, 192, 256, True), (1, 4, 2, 192, 192, 200, True),
 ])
 def test_f32_flash_kernels_match_plain_versions(no_tf32, packed, b, h, kv,
                                                 sq, sk, d, causal):
     """The three float32 flash kernels, both layouts, GQA by index (packed)
-    or repeated K/V ([b·h, s, d])."""
+    or repeated K/V ([b·h, s, d]), at head_dim 256 and a head_dim zero-padded
+    to it too."""
     cuda = no_tf32
     q, do = (_f32((b, sq, h * d), cuda, i) for i in (0, 3))
     k, v = (_f32((b, sk, kv * d), cuda, i) for i in (1, 2))
@@ -746,12 +748,15 @@ def test_f32_ffn_kernels_match_plain_versions(no_tf32, T, d, dff):
     (2, 8, 2, 256, 256, 128, True), (1, 4, 1, 64, 300, 64, True),
     (1, 4, 4, 130, 130, 32, False), (1, 4, 1, 200, 200, 128, True),
     (2, 4, 1, 200, 200, 64, True), (1, 8, 2, 192, 192, 32, True),
+    (1, 4, 2, 192, 192, 256, True), (1, 4, 2, 192, 192, 96, True),
+    (1, 4, 2, 192, 192, 192, True),
 ])
 def test_redesigned_fwd_and_dq_match_plain_versions(cuda, b, h, kv, sq, sk,
                                                     d, causal):
-    """The register-resident forward and dq kernels (bf16) at d 32/64/128,
-    in both layouts, GQA n_rep 4 by index, sq != sk, not causal, and a
-    ragged s: outputs within 1e-2 and lse within 2e-5 of the plain max (lse
+    """The register-resident forward and dq kernels (bf16) at d 32/64/128/
+    256 and at d 96 and 192 (zero-padded to 128 and 256), in both layouts,
+    GQA n_rep 4 by index, sq != sk, not causal, and a ragged s: outputs
+    within 1e-2 and lse within 2e-5 of the plain max (lse
     relative to its largest magnitude: a causal row 0 holds one score,
     which may lie near 0)."""
     q, do = (_bf16((b, sq, h * d), cuda, i) for i in (0, 3))
@@ -845,3 +850,106 @@ def test_tiny_f32_training_goes_through_the_f32_kernels(no_tf32, variant):
                        "dgateup": (L, L)}
     assert all(np.isfinite(curves["cuda"]))
     np.testing.assert_allclose(curves["cuda"], curves["cpu"], rtol=1e-4)
+
+
+# ------------------------------------------ head dims to 256, the redesigns
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 96, 192])
+@pytest.mark.parametrize("b,h,kv,sq,sk,causal,packed", [
+    (1, 4, 1, 200, 200, True, True), (2, 2, 2, 64, 300, True, False),
+    (1, 2, 2, 130, 77, False, False), (2, 1, 1, 256, 256, True, False),
+])
+def test_dkv_kernel_matches_plain_version(cuda, d, b, h, kv, sq, sk, causal,
+                                          packed):
+    """The wgmma dk/dv kernel at every instantiated head_dim and at two
+    zero-padded ones: packed with GQA n_rep 4 and a ragged s, sq != sk
+    end-aligned, not causal with sq > sk, and the square causal case;
+    within 1e-2 of the plain max."""
+    q, do = (_bf16((b, sq, h * d), cuda, i) for i in (0, 3))
+    k, v = (_bf16((b, sk, kv * d), cuda, i) for i in (1, 2))
+    scale = d ** -0.5
+    if packed:
+        args = (h, kv, scale, causal)
+        o, lse = fa.flash_fwd_packed_plain(q, k, v, *args)
+        delta = fa.flash_delta_packed(o, do, h)
+        dkv, dkv_plain = fa.flash_bwd_dkv_packed, fa.flash_bwd_dkv_packed_plain
+    else:
+        q, k, v, do = (_heads(t, n).reshape(b * n, t.shape[1], d).contiguous()
+                       for t, n in ((q, h), (k, kv), (v, kv), (do, h)))
+        args = (scale, causal)
+        o, lse = fa.flash_fwd_plain(q, k, v, *args)
+        delta = fa.flash_delta(o, do)
+        dkv, dkv_plain = fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain
+    before = dkv.launches
+    dk, dv = dkv(q, k, v, do, lse, delta, *args)
+    p_dk, p_dv = dkv_plain(q, k, v, do, lse, delta, *args)
+    torch.cuda.synchronize()
+    assert dk.shape == p_dk.shape and dv.shape == p_dv.shape
+    assert _rel_err(dk, p_dk) < REL_TOL
+    assert _rel_err(dv, p_dv) < REL_TOL
+    assert dkv.launches == before + 1
+
+
+@pytest.mark.parametrize("T,d,dff", [(4096, 4096, 14336), (1000, 4000, 3000),
+                                     (300, 264, 1001), (77, 131, 72)])
+def test_k1_kernel_matches_plain_version(cuda, T, d, dff):
+    """The wgmma K1 at the 8B shape (TMA ring), at a shape that tiles on no
+    axis, at a d_ff that is not a multiple of 8 and an odd d (the cp.async
+    ring with element-wise chunks)."""
+    gate, up = _bf16((T, dff), cuda, 0), _bf16((T, dff), cuda, 1)
+    dy = _bf16((T, d), cuda, 2, 0.01)
+    before = ff.dw_down.launches
+    got = ff.dw_down(gate, up, dy)
+    want = ff.dw_down_plain(gate, up, dy)
+    torch.cuda.synchronize()
+    assert got.shape == (dff, d)
+    assert _rel_err(got, want) < REL_TOL
+    assert ff.dw_down.launches == before + 1
+
+
+def test_attention_entries_launch_the_kernels_at_head_dim_256(cuda):
+    """ops.attention, ops.attention_packed and the fused attn_block at
+    head_dim 256, s 128 take the flash route and launch its kernels (they
+    raised before), against the einsum reference; head_dim 320 raises."""
+    b, h, kv, s, d = 1, 2, 1, 128, 256
+    q = _bf16((b, s, h * d), cuda, 0).requires_grad_(True)
+    k = _bf16((b, s, kv * d), cuda, 1).requires_grad_(True)
+    v = _bf16((b, s, kv * d), cuda, 2).requires_grad_(True)
+    g = _bf16((b, s, h * d), cuda, 3)
+    ref = causal_attention_reference(
+        _heads(q, h), *(_heads(t, kv).repeat_interleave(h // kv, 1)
+                        for t in (k, v))).transpose(1, 2).reshape(b, s, h * d)
+    ref_grads = torch.autograd.grad(ref, (q, k, v), g)
+    before = [kern.launches for kern in (*fa.KERNELS, *fa.PACKED_KERNELS)]
+    out_b = attention(_heads(q, h), _heads(k, kv), _heads(v, kv))
+    out_b = out_b.transpose(1, 2).reshape(b, s, h * d)
+    grads_b = torch.autograd.grad(out_b, (q, k, v), g)
+    out_p = attention_packed(q, k, v, n_heads=h, n_kv_heads=kv)
+    grads_p = torch.autograd.grad(out_p, (q, k, v), g)
+    assert [kern.launches for kern in (*fa.KERNELS, *fa.PACKED_KERNELS)] == [
+        n + 1 for n in before]
+    for got, want in ((out_b, ref), (out_p, ref), *zip(grads_b, ref_grads),
+                      *zip(grads_p, ref_grads)):
+        assert _rel_err(got, want) < REL_TOL
+
+    from ray_tpu_torch.ops.kernels.fused_attn import attn_block
+    from ray_tpu_torch.ops.layers import rotary_embedding
+
+    D = h * d
+    x = _bf16((b, s, D), cuda, 4).requires_grad_(True)
+    nw = _bf16((D,), cuda, 5, 0.1) + 1
+    ws = [_bf16(shape, cuda, 6 + i, shape[0] ** -0.5) for i, shape in
+          enumerate(((D, h * d), (D, kv * d), (D, kv * d), (h * d, D)))]
+    cos, sin = rotary_embedding(torch.arange(s, device=cuda), d)
+    before = [kern.launches for kern in fa.KERNELS]
+    y = attn_block(x, nw, *ws, cos[None], sin[None], h, kv)
+    dx, = torch.autograd.grad(y, (x,), _bf16((b, s, D), cuda, 11))
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in fa.KERNELS] == [n + 1 for n in before]
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(dx).all())
+    wide = torch.zeros((1, 128, 320), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 1 to 256"):
+        attention(wide.view(1, 1, 128, 320), wide.view(1, 1, 128, 320),
+                  wide.view(1, 1, 128, 320))
+
