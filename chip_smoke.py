@@ -8,8 +8,8 @@ Phases (any failure exits non-zero and prints no result line):
   2. build every kernel of the serving and training paths from the sources
      in the checkout (one nvcc per source, started together), and log
      ptxas's registers, spills and shared memory of the wgmma kernels (the
-     flash forward, dq and dk/dv at each head_dim; K1's TMA and cp.async
-     instances) with any ptxas warning;
+     flash forward, dq and dk/dv at each head_dim; K1's, K3's and K2's TMA
+     and cp.async instances) with any ptxas warning;
   3. hold each quant kernel against its plain PyTorch version on the card,
      bit for bit, at every shape the serving path gives it (the quant
      kernel's stacked [L, in, out] leaves included) and at the six 8B
@@ -31,10 +31,15 @@ Phases (any failure exits non-zero and prints no result line):
      kernel bit for bit at every leaf shape of the 8-layer training tree
      and at an odd size; time kernel, plain version, bound and one PyTorch
      library call doing the same work; one summary line each for the wgmma
-     flash kernels and K1 at the 8B shape (ms a launch, bound, share,
-     library, and the time of the kernel a redesign replaced, from
-     PERF.md), and K1's swiglu operand against the plain version's (dy the
-     identity; at most one bf16 ulp);
+     flash kernels, K1, K3 and K2 at the 8B shape (ms a launch, bound,
+     share, library, and the time of the kernel a redesign replaced, from
+     PERF.md), K1's swiglu operand against the plain version's (dy the
+     identity; at most one bf16 ulp) and K3's h operand (dgate the
+     identity: dW_gate^T equal to the plain normed x); then rows that see
+     no key (fault C.4): causal, sq 300 against sk 64, head_dim 64 and
+     128, the [b·h, s, d] bf16 forward, dk/dv and dq kernels and the
+     float32 forward against their plain versions (bf16 within 1e-2,
+     float32 1e-4, lse 2e-5), and out exactly 0 on rows 0-235;
  7b. hold the RMSNorm forward and dx kernels against their plain versions
      at [4096, 4096] bf16 (the training batch at d_model), [8, 4096] bf16
      (the decode batch), [4096, 4096] f32 and [300, 130] bf16 (ragged rows
@@ -54,7 +59,8 @@ Phases (any failure exits non-zero and prints no result line):
      2e-5 of the plain lse's; time each with its plain version, its bound
      and scaled_dot_product_attention (enable_gqa) on the strided [b, h, s,
      hd] views and its backward, logging which SDPA backend runs; the same
-     summary lines as phase 7;
+     summary lines as phase 7, and phase 7's no-key-rows case in the packed
+     layout;
  7d. hold the six float32 kernels (flash forward, dk/dv, dq; K3, K1, K2)
      against their plain versions with TF32 off (within 1e-4 of the plain
      max): the flash kernels at the 8B attention shape in float32, a ragged
@@ -385,7 +391,8 @@ def flash_shapes():
 def ffn_shapes():
     """(T, d, d_ff, calls per training step) of the fused-FFN kernels: the
     8B step's (4096 tokens), then one that tiles on no axis (output tiles
-    128 x 64 or 128 x 128, 32 tokens or 64 of d a step)."""
+    128 x 256 for K1 and K2, 128 x 128 for K3; 64 tokens or 64 of d a
+    stage)."""
     return [(4096, 4096, 14336, 8), (1000, 4000, 3000, 0)]
 
 
@@ -419,6 +426,78 @@ def fused_adamw_library(torch, p, g, mu, nu, lr, grad_scale, step):
 def rel_err(torch, got, want):
     err = (got.float() - want.float()).abs().max().item()
     return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+# Causal attention with sq > sk: rows r < sq - sk attend no key and give
+# out 0 on the flash route (fault C.4). (b, heads, kv heads, sq, sk).
+NO_KEY_SHAPE = (1, 2, 2, 300, 64)
+
+
+def check_no_key_rows(torch, gen, packed: bool) -> None:
+    """The flash kernels on rows that see no key, in one layout ([b·h, s,
+    d] or packed), at head_dim 64 and 128: the bf16 forward, dk/dv and dq
+    and the float32 forward against their plain versions (bf16 within
+    REL_ERR_LIMIT, float32 within F32_KERNEL_LIMIT, lse within
+    STAT_REL_LIMIT of its largest magnitude), and out exactly 0 on those
+    rows."""
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+
+    b, h, kv, sq, sk = NO_KEY_SHAPE
+    layout = "packed" if packed else "[b·h, s, d]"
+    for d in (64, 128):
+        scale = d ** -0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            def randn(s, n):
+                return torch.randn((b, s, n * d), generator=gen,
+                                   device="cuda").to(dtype)
+
+            q, do, k, v = randn(sq, h), randn(sq, h), randn(sk, kv), \
+                randn(sk, kv)
+            if packed:
+                args = (h, kv, scale, True)
+                fwd, fwd_plain = fa.flash_fwd_packed, fa.flash_fwd_packed_plain
+                dkv, dkv_plain = (fa.flash_bwd_dkv_packed,
+                                  fa.flash_bwd_dkv_packed_plain)
+                dq, dq_plain = (fa.flash_bwd_dq_packed,
+                                fa.flash_bwd_dq_packed_plain)
+            else:
+                q, do, k, v = (heads_view(t, n).reshape(b * n, -1, d)
+                               .contiguous()
+                               for t, n in ((q, h), (do, h), (k, kv), (v, kv)))
+                args = (scale, True)
+                fwd, fwd_plain = fa.flash_fwd, fa.flash_fwd_plain
+                dkv, dkv_plain = fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain
+                dq, dq_plain = fa.flash_bwd_dq, fa.flash_bwd_dq_plain
+            out, lse = fwd(q, k, v, *args)
+            p_out, p_lse = fwd_plain(q, k, v, *args)
+            limit = (F32_KERNEL_LIMIT if dtype == torch.float32
+                     else REL_ERR_LIMIT)
+            checks = [("out", rel_err(torch, out, p_out), limit),
+                      ("lse", rel_err(torch, lse, p_lse), STAT_REL_LIMIT)]
+            if dtype == torch.bfloat16:
+                delta = (fa.flash_delta_packed(p_out, do, h) if packed
+                         else fa.flash_delta(p_out, do))
+                bwd = (q, k, v, do, p_lse, delta, *args)
+                checks += [(name, rel_err(torch, got, want), limit)
+                           for name, got, want in zip(
+                               ("dk", "dv", "dq"),
+                               (*dkv(*bwd), dq(*bwd)),
+                               (*dkv_plain(*bwd), dq_plain(*bwd)))]
+            torch.cuda.synchronize()
+            zero = bool((out[:, :sq - sk] == 0).all())
+            for name, (err, rel), lim in checks:
+                if not rel < lim:
+                    fail(f"rows that see no key ({layout}, head_dim {d}, "
+                         f"{dtype}): {name} {rel} of the plain max from its "
+                         f"plain version (max abs err {err}, limit {lim})")
+            if not zero:
+                fail(f"rows that see no key ({layout}, head_dim {d}, "
+                     f"{dtype}): out is not 0 on rows 0-{sq - sk - 1}")
+            log(f"no-key rows ({layout}, causal sq {sq} sk {sk}, head_dim "
+                f"{d}, {str(dtype)[6:]}): "
+                + ", ".join(f"{name} {rel:.3g}" for name, (_, rel), _ in
+                            checks)
+                + f" of the plain max; out 0 on rows 0-{sq - sk - 1}")
 
 
 def check_train_kernels(torch, gen, cfg):
@@ -1530,11 +1609,11 @@ def check_entries_at_head_dim(torch, gen, attn_mod, fused_attn, fa,
                  f"{REL_ERR_LIMIT})")
 
 
-# The first (wmma) designs of flash dk/dv, its packed run and K1, ms a
-# launch at the 8B shape, as PERF.md §6 records them before the wgmma
+# The first (wmma) designs of flash dk/dv, its packed run, K1, K3 and K2,
+# ms a launch at the 8B shape, as PERF.md §6 records them before the wgmma
 # redesigns replaced them (NVIDIA H100 80GB HBM3, 700 W).
 OLD_MS = {"flash_bwd_dkv": 2.4535, "flash_bwd_dkv_packed": 2.7611,
-          "dw_down": 4.8364}
+          "dw_down": 4.8364, "dw_gateup": 6.3235, "dgateup": 3.0733}
 
 
 def redesign_summary(rows, names, card: str) -> None:
@@ -1561,6 +1640,44 @@ def redesign_summary(rows, names, card: str) -> None:
             f"bound; {lib}{old} [{card}]")
 
 
+def ffn_summary(rows, name: str) -> str:
+    """A wgmma fused-FFN kernel at the 8B shape (the first row): ms a
+    launch, bound, share, the library call's time, and the time of the
+    kernel its redesign replaced."""
+    r = rows[name][0]
+    return (f"{name} at {r['shape']}: {r['ms']:.4f} ms a launch, bound "
+            f"{r['bound_ms']:.4f} ms, {r['bound_ms'] / r['ms']:.3f} of "
+            f"bound; library {r['library_ms']:.4f} ms ({r['library']}); the "
+            f"kernel it replaced {OLD_MS[name]} ms (PERF.md)")
+
+
+def k3_k2_summary(torch, gen, rows, card: str) -> None:
+    """The summary lines of the wgmma K3 and K2, and K3's h operand: with
+    dgate the identity (T = d_ff = 256, d 4096), dW_gate[i, t] is the
+    kernel's bf16 h of token t, d row i, exactly (one nonzero term a sum),
+    which must equal the plain version's normed x."""
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+
+    T, d = 256, 4096
+    x = torch.randn((T, d), generator=gen, device="cuda").bfloat16()
+    rstd = torch.rand((T, 1), generator=gen, device="cuda") + 0.5
+    nw = (torch.randn((d,), generator=gen, device="cuda") * 0.1
+          + 1).bfloat16()
+    eye = torch.eye(T, device="cuda", dtype=torch.bfloat16)
+    got = ff.dw_gateup(x, rstd, nw, eye, eye)[0].T
+    want = ff.normed(x, rstd, nw)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    differ = (got != want).float().mean().item()
+    log(f"{ffn_summary(rows, 'dw_gateup')}; h operand ((x * rstd) * nw in "
+        f"float32, rounded to bf16) against the plain version's at T {T} x "
+        f"d {d}: equal {equal}, {differ:.3g} of the values differ [{card}]")
+    log(f"{ffn_summary(rows, 'dgateup')} [{card}]")
+    if not equal:
+        fail(f"K3's h operand differs from the plain version's normed x in "
+             f"{differ} of its values")
+
+
 def k1_summary(torch, gen, rows, card: str) -> None:
     """The wgmma K1 at the 8B shape (ms a launch, bound, share, library,
     the kernel it replaced), and its swiglu operand against the plain
@@ -1569,7 +1686,6 @@ def k1_summary(torch, gen, rows, card: str) -> None:
     a sum). Its sigmoid is __expf and __fdividef."""
     from ray_tpu_torch.ops.kernels import fused_ffn as ff
 
-    r = rows["dw_down"][0]
     T, dff = 256, 14336
     gate = torch.randn((T, dff), generator=gen, device="cuda").bfloat16()
     up = torch.randn((T, dff), generator=gen, device="cuda").bfloat16()
@@ -1579,12 +1695,9 @@ def k1_summary(torch, gen, rows, card: str) -> None:
     torch.cuda.synchronize()
     ulps = bf16_ulps(torch, got, want)
     differ = (got != want).float().mean().item()
-    log(f"dw_down at {r['shape']}: {r['ms']:.4f} ms a launch, bound "
-        f"{r['bound_ms']:.4f} ms, {r['bound_ms'] / r['ms']:.3f} of bound; "
-        f"library {r['library_ms']:.4f} ms ({r['library']}); the kernel it "
-        f"replaced {OLD_MS['dw_down']} ms (PERF.md); swiglu operand "
-        f"(__expf, __fdividef) against the plain version's at T {T} x d_ff "
-        f"{dff}: max {ulps:.3g} bf16 ulp, {differ:.3g} of the values differ "
+    log(f"{ffn_summary(rows, 'dw_down')}; swiglu operand (__expf, "
+        f"__fdividef) against the plain version's at T {T} x d_ff {dff}: "
+        f"max {ulps:.3g} bf16 ulp, {differ:.3g} of the values differ "
         f"[{card}]")
     if not ulps <= 1:
         fail(f"K1's swiglu operand is {ulps} bf16 ulp from the plain "
@@ -1839,7 +1952,9 @@ def train_f32_tiny(torch, seed: int, cfg):
 # tiles and 1 KB to align them): the forward's 128 query rows and two
 # stages of 64-row K and V; dq's 128 rows of Q and dO and its K/V stages
 # (one at d 256); dk/dv's K and V (128 keys, 64 at d 256), two stages of
-# Q and dO and of lse and delta; K1's three stages of gate, up and dy.
+# Q and dO and of lse and delta; K1's three stages of gate, up and dy;
+# K3's four of x, dgate and dup (64 x 128 each) and 64 rstd values; K2's
+# four of dy (128 x 64) and W_down (256 x 64).
 WGMMA_SMEM = {
     "flash_fwd_kernel": lambda d: 2 * (128 + 4 * 64) * d + 1024,
     "flash_bwd_dq_kernel": lambda d: (2 * (256 + (2 if d > 128 else 4) * 64)
@@ -1848,13 +1963,15 @@ WGMMA_SMEM = {
                                             + 4 * 64) * d + 4 * 4 * 64
                                        + 1024),
     "dw_down_kernel": lambda d: 2 * 3 * (2 * 64 * 128 + 64 * 256) + 1024,
+    "dw_gateup_kernel": lambda d: 4 * (2 * 3 * 64 * 128 + 4 * 64) + 1024,
+    "dgateup_kernel": lambda d: 2 * 4 * (128 + 256) * 64 + 1024,
 }
 
 
 def ptxas_report(procs) -> None:
     """Log ptxas's registers, spills and the dynamic shared memory of the
-    wgmma kernels (the `nvcc -Xptxas -v` runs started in phase 2), and any
-    warning ptxas gives."""
+    wgmma kernels (the `nvcc -Xptxas -v` runs started in phase 2), any
+    warning ptxas gives, and any note that it serialized products."""
     import re
 
     for name, (proc, out_path) in procs.items():
@@ -1864,17 +1981,19 @@ def ptxas_report(procs) -> None:
             fail(f"nvcc -Xptxas -v on {name}.cu failed:\n{log_text}")
         lines = log_text.splitlines()
         for i, line in enumerate(lines):
-            if "warning" in line.lower():
+            # warnings, and notes of products ptxas serialized (C7515)
+            if "warning" in line.lower() or "Performance Loss" in line:
                 log(f"ptxas {name}.cu: {line.strip()}")
             m = re.search(r"Compiling entry function '.*?(flash_fwd_kernel|"
                           r"flash_bwd_dq_kernel|flash_bwd_dkv_kernel|"
-                          r"dw_down_kernel)I?L?([ib])(\d*)", line)
+                          r"dw_down_kernel|dw_gateup_kernel|dgateup_kernel)"
+                          r"I?L?([ib])(\d*)", line)
             if not m:
                 continue
             kernel = m.group(1)
             if m.group(2) == "i":
                 inst, d = f"<{m.group(3)}>", int(m.group(3))
-            else:  # dw_down_kernel<bool>: the TMA ring or the cp.async one
+            else:  # an FFN kernel<bool>: the TMA ring or the cp.async one
                 inst, d = ("<TMA>" if m.group(3) == "1" else "<cp.async>"), 0
             stats = " ".join(x.split(":", 1)[-1].strip()
                              for x in lines[i + 1:i + 4]
@@ -1923,7 +2042,7 @@ def main() -> int:
         f"(H100 SXM data sheet)")
 
     # ---- phase 2: build, and beside it ptxas's report on the wgmma
-    # kernels (flash forward, dq and dk/dv; K1)
+    # kernels (flash forward, dq and dk/dv; K1, K3, K2)
     t0 = time.perf_counter()
     _util.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     ptxas = {}
@@ -2042,12 +2161,15 @@ def main() -> int:
     redesign_summary(train_rows, ("flash_fwd", "flash_bwd_dkv",
                                   "flash_bwd_dq"), card)
     k1_summary(torch, gen, train_rows, card)
+    k3_k2_summary(torch, gen, train_rows, card)
+    check_no_key_rows(torch, gen, packed=False)
     # ---- phase 7b: the RMSNorm and cross-entropy kernels
     entry_rows = check_norm_xent_kernels(torch, gen)
     # ---- phase 7c: the packed flash kernels
     packed_rows = check_packed_kernels(torch, gen)
     redesign_summary(packed_rows, ("flash_fwd_packed", "flash_bwd_dkv_packed",
                                    "flash_bwd_dq_packed"), card)
+    check_no_key_rows(torch, gen, packed=True)
     # ---- phase 7d: the float32 kernels, then the float32 tiny variant
     # trained through them
     f32_cfg = f32_tiny_config()

@@ -33,6 +33,12 @@
 //    -1e30, and rows past sq or sk are zero-filled when a tile is loaded, so
 //    no product ever reads garbage (0 * NaN would poison a sum). l >= 1e-30
 //    guards rows that saw no key.
+//  * A query row that may attend no key (causal with sq > sk: rows
+//    r < sq - sk) gives out = 0 and lse = -1e30: while a row's max is
+//    still -1e30 its p is kept 0, in every forward kernel. Its gradient is
+//    then 0, which is what the backward kernels compute there (p = 0 on
+//    masked entries). The einsum route (causal_attention_reference) gives
+//    the mean of V on such rows instead; the flash route is one function.
 //  * One layout serves both calls: q, dO, out and dq are [b, sq, heads*D]
 //    and k, v, dk, dv [b, sk, (heads/n_rep)*D], lse and delta
 //    [b, heads, sq]. The grid's y axis is the head and z the batch; a
@@ -898,10 +904,12 @@ __global__ void __launch_bounds__(kF32Threads)
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_prev = sM[sr];
     const float m_new = fmaxf(m_prev, mx);
+    // a row that has seen no key yet keeps p = 0 (and so out 0)
+    const bool none = m_new == kNegInf;
     float sum = 0.0f;
 #pragma unroll
     for (int cc = 0; cc < 16; ++cc) {
-      const float p = expf(srow[cc] - m_new);
+      const float p = none ? 0.0f : expf(srow[cc] - m_new);
       srow[cc] = p;
       sum += p;
     }

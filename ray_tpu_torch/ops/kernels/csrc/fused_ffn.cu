@@ -21,62 +21,46 @@
 // 0.18 ms at 3.35 TB/s); K3 is two products, 9.62e11 FLOP (0.97 ms), against
 // ~0.5 GB.
 //
-// K1 (bf16) is built on Hopper's warpgroup MMA with the swiglu as a
-// register operand (see "K1" below). K2 and K3 keep the first design
-// (a wgmma mainloop for them is later work):
-//  * One block of 8 warps owns one output tile (128 x 64) and loops over
-//    the reduction axis (tokens for K3, d for K2); the TPU's sequential k
-//    grid axis becomes that loop. Each warp owns a 32 x 32 patch of each
-//    accumulator (2 x 2 nvcuda::wmma 16x16x16 bf16 fragments).
-//  * The elementwise chains run on tiles already in registers or shared
-//    memory: K3's prologue computes h; K2's epilogue reads the float32
-//    accumulator from shared memory with the gate/up tile and writes only
-//    dgate and dup.
-//  * The next step's tiles are loaded into registers while the current
-//    step's products run, so device-memory latency overlaps the tensor-core
-//    work; two blocks share an SM.
-//  * Ragged edges are masked here, not by a tiling guard: rows and columns
-//    past T, d or d_ff load as zeros, and only in-range outputs are written.
-//    16-byte loads are used where a row's length is a multiple of 8,
-//    element loads elsewhere.
+// The bf16 kernels are built on Hopper's warpgroup MMA (hopper.cuh) around
+// one mainloop (see "rings" below): two consumer warpgroups a block, each
+// owning 64 rows of the output tile in float32 registers, fed by a ring of
+// shared-memory stages in the 128-byte-swizzled layout that TMA writes and
+// the wgmma descriptors read. What the three share besides:
+//  * The TPU's sequential k grid axis becomes the loop over ring stages; one
+//    block per output tile, no atomics and no split of the reduction, so
+//    results are deterministic.
+//  * The elementwise chains run where the data already is: K1's swiglu and
+//    K3's h are the products' register A operands, formed from the staged
+//    tiles (ldmatrix.trans) while the previous k16 step's products run;
+//    K2's swiglu VJP is its epilogue, on the float32 accumulators.
+//  * Each k16 step streams a block's whole tile width from L2 (about 1 KB a
+//    token for K1, 768 B for K3 and K2), so that traffic, not the tensor
+//    cores, is what holds them near 0.4 of their bound: tiles are as wide
+//    as 128 float32 accumulators a thread allow, and K2 and K3 issue their
+//    tiles in groups (grouped_tile) so that a wave's blocks share operand
+//    rows and columns in L2 instead of streaming them from device memory
+//    once a wave.
+//  * Ragged edges: rows and columns past T, d or d_ff are zero-filled by
+//    the copies (TMA fills past a matrix's edge; the cp.async ring fetches
+//    partial chunks element by element), and only in-range outputs are
+//    written.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int kTM = 128;  // output rows per block
-constexpr int kTN = 64;   // output columns per block
-constexpr int kTK = 32;   // tokens per step (K3)
-constexpr int kThreads = 256;
-constexpr int kLdH = kTM + 8;
-constexpr int kLdG = kTN + 8;
-constexpr int kLdStage = kTN + 4;
+constexpr int kThreads = 256;   // two consumer warpgroups
+constexpr int kBox = 64;        // a TMA box: 64 rows of 64 bf16 (8 KB)
+constexpr int kBoxBytes = kBox * kBox * 2;
+// output tiles issued per group along the first tile axis (grouped_tile)
+constexpr int kGroup = 16;
 
-// Each thread stages kXVec 8-element pieces of the x tile and kGVec of each
-// dgate/dup tile per step.
-constexpr int kXVec = kTK * kTM / 8 / kThreads;
-constexpr int kGVec = kTK * kTN / 8 / kThreads;
-static_assert(kXVec * 8 * kThreads == kTK * kTM, "x tile split");
-static_assert(kGVec * 8 * kThreads == kTK * kTN, "dgate tile split");
-
-constexpr int kTileBytes = sizeof(bf16) * kTK * (kLdH + 2 * kLdG) +
-                           sizeof(float) * kTM;
-constexpr int kStageBytes = sizeof(float) * kTM * kLdStage;
-constexpr int kSmemBytes = kTileBytes > kStageBytes ? kTileBytes : kStageBytes;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // Eight bf16 values src[0..8) packed in 16 bytes, zeros past `left` valid
 // elements; one 16-byte load when `vec` (aligned row) and all 8 are valid.
@@ -89,237 +73,6 @@ __device__ __forceinline__ uint4 fetch8(const bf16* src, int left, bool vec) {
   }
   return *reinterpret_cast<const uint4*>(e);
 }
-
-// Registers holding one step's tiles while the previous step computes.
-struct Staged {
-  uint4 x[kXVec];
-  float r[kXVec];
-  uint4 g[kGVec];
-  uint4 u[kGVec];
-};
-
-__device__ __forceinline__ void fetch_step(Staged& st, const bf16* x,
-                                           const float* rstd,
-                                           const bf16* dgate,
-                                           const bf16* dup, int t0, int m0,
-                                           int n0, int T, int d, int dff,
-                                           bool vec_x, bool vec_g) {
-#pragma unroll
-  for (int v = 0; v < kXVec; ++v) {
-    const int i = threadIdx.x + v * kThreads;
-    const int t = t0 + i / (kTM / 8);
-    const int c = (i % (kTM / 8)) * 8;
-    const int left = t < T ? d - (m0 + c) : 0;
-    const int64_t off = static_cast<int64_t>(t) * d + m0 + c;
-    st.x[v] = fetch8(x + (left > 0 ? off : 0), left, vec_x);
-    st.r[v] = t < T ? rstd[t] : 0.0f;
-  }
-#pragma unroll
-  for (int v = 0; v < kGVec; ++v) {
-    const int i = threadIdx.x + v * kThreads;
-    const int t = t0 + i / (kTN / 8);
-    const int c = (i % (kTN / 8)) * 8;
-    const int left = t < T ? dff - (n0 + c) : 0;
-    const int64_t off = static_cast<int64_t>(t) * dff + n0 + c;
-    st.g[v] = fetch8(dgate + (left > 0 ? off : 0), left, vec_g);
-    st.u[v] = fetch8(dup + (left > 0 ? off : 0), left, vec_g);
-  }
-}
-
-// Writes the staged step into shared memory: dgate/dup as they are, and
-// h = bf16((x * rstd) * norm_w) computed here in float32.
-__device__ __forceinline__ void store_step(const Staged& st, bf16* sH,
-                                           bf16* sG, bf16* sU,
-                                           const float* sW) {
-#pragma unroll
-  for (int v = 0; v < kXVec; ++v) {
-    const int i = threadIdx.x + v * kThreads;
-    const int r = i / (kTM / 8);
-    const int c = (i % (kTM / 8)) * 8;
-    const bf16* e = reinterpret_cast<const bf16*>(&st.x[v]);
-    __align__(16) bf16 h[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      h[k] = __float2bfloat16_rn(__bfloat162float(e[k]) * st.r[v] *
-                                 sW[c + k]);
-    }
-    *reinterpret_cast<uint4*>(sH + r * kLdH + c) =
-        *reinterpret_cast<const uint4*>(h);
-  }
-#pragma unroll
-  for (int v = 0; v < kGVec; ++v) {
-    const int i = threadIdx.x + v * kThreads;
-    const int r = i / (kTN / 8);
-    const int c = (i % (kTN / 8)) * 8;
-    *reinterpret_cast<uint4*>(sG + r * kLdG + c) = st.g[v];
-    *reinterpret_cast<uint4*>(sU + r * kLdG + c) = st.u[v];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-    dw_gateup_kernel(const bf16* __restrict__ x,
-                     const float* __restrict__ rstd,
-                     const bf16* __restrict__ norm_w,
-                     const bf16* __restrict__ dgate,
-                     const bf16* __restrict__ dup, bf16* __restrict__ dw_gate,
-                     bf16* __restrict__ dw_up, int T, int d, int dff) {
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  bf16* sH = reinterpret_cast<bf16*>(smem);
-  bf16* sG = sH + kTK * kLdH;
-  bf16* sU = sG + kTK * kLdG;
-  float* sW = reinterpret_cast<float*>(sU + kTK * kLdG);
-
-  const int m0 = blockIdx.y * kTM;  // rows of dW: the d axis
-  const int n0 = blockIdx.x * kTN;  // columns of dW: the d_ff axis
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp & 3) * 32;
-  const int wn = (warp >> 2) * 32;
-  const bool vec_x = (d & 7) == 0;
-  const bool vec_g = (dff & 7) == 0;
-
-  for (int i = threadIdx.x; i < kTM; i += kThreads) {
-    sW[i] = m0 + i < d ? __bfloat162float(norm_w[m0 + i]) : 0.0f;
-  }
-
-  FragC acc_g[2][2];
-  FragC acc_u[2][2];
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      wmma::fill_fragment(acc_g[a][b], 0.0f);
-      wmma::fill_fragment(acc_u[a][b], 0.0f);
-    }
-  }
-
-  Staged st;
-  fetch_step(st, x, rstd, dgate, dup, 0, m0, n0, T, d, dff, vec_x, vec_g);
-  for (int t0 = 0; t0 < T; t0 += kTK) {
-    __syncthreads();  // the previous step's fragments are loaded (and sW)
-    store_step(st, sH, sG, sU, sW);
-    __syncthreads();
-    // the next step's loads are in flight while this step computes
-    if (t0 + kTK < T) {
-      fetch_step(st, x, rstd, dgate, dup, t0 + kTK, m0, n0, T, d, dff,
-                 vec_x, vec_g);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kTK / 16; ++kk) {
-      FragAt h[2];
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        // A(row i, token t) = h[t][i]: the h tile read column-major
-        wmma::load_matrix_sync(h[a], sH + kk * 16 * kLdH + wm + a * 16, kLdH);
-      }
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        FragB g;
-        FragB u;
-        wmma::load_matrix_sync(g, sG + kk * 16 * kLdG + wn + b * 16, kLdG);
-        wmma::load_matrix_sync(u, sU + kk * 16 * kLdG + wn + b * 16, kLdG);
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          wmma::mma_sync(acc_g[a][b], h[a], g, acc_g[a][b]);
-          wmma::mma_sync(acc_u[a][b], h[a], u, acc_u[a][b]);
-        }
-      }
-    }
-  }
-
-  // epilogue: stage each accumulator through shared memory, write in range
-  float* stage = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        wmma::store_matrix_sync(
-            stage + (wm + a * 16) * kLdStage + wn + b * 16,
-            pass == 0 ? acc_g[a][b] : acc_u[a][b], kLdStage,
-            wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-    bf16* out = pass == 0 ? dw_gate : dw_up;
-    for (int i = threadIdx.x; i < kTM * kTN; i += kThreads) {
-      const int r = i / kTN;
-      const int c = i % kTN;
-      if (m0 + r < d && n0 + c < dff) {
-        out[static_cast<int64_t>(m0 + r) * dff + n0 + c] =
-            __float2bfloat16_rn(stage[r * kLdStage + c]);
-      }
-    }
-  }
-}
-
-// Stages a block's kTM x kTN float32 accumulator in shared memory
-// (row-major, ld kLdStage); the caller syncs before and after.
-__device__ __forceinline__ void stage_acc(float* stage, FragC (&acc)[2][2],
-                                          int wm, int wn) {
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      wmma::store_matrix_sync(stage + (wm + a * 16) * kLdStage + wn + b * 16,
-                              acc[a][b], kLdStage, wmma::mem_row_major);
-    }
-  }
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// ------------------------------------------------------------------- K1
-//
-// dw_down_kernel (bf16) is built on Hopper's warpgroup MMA (hopper.cuh):
-//  * a block owns a 128 (d_ff) x 256 (d) output tile, two warpgroups of
-//    m64n256 (128 float32 accumulators a thread), so the swiglu of each
-//    gate/up element is recomputed d/256 times (16 at d 4096) where the
-//    TPU kernel's full-d rows compute it once;
-//  * 64-token stages of gate and up [64 x 128] and dy [64 x 256], all in
-//    the 128-byte-swizzled layout, arrive through a three-stage ring (64 KB
-//    a stage). Where d_ff and d are multiples of 8 the Tensor Memory
-//    Accelerator (TMA) fills it: 8 boxes of 64 x 64 a stage, issued by a
-//    ninth, producer warp, with a "full" and an "empty" mbarrier a stage,
-//    so the consumers never wait at a block barrier and walk the k16 steps
-//    of all stages as one sequence. Elsewhere all threads fill it by
-//    cp.async, a block barrier a stage. At the 8B shape (H100 SXM) the
-//    cp.async ring moved ~4.7 TB/s from L2 and held the kernel at 1.5 ms
-//    even with no swiglu at all; TMA took it to 1.28 ms and the producer
-//    warp ~5% further. What holds it near 0.4 of its bound: the swiglu's
-//    two special-function ops an element (~0.3 ms: a variant without it
-//    took 0.97 ms) and 1 KB of tiles from L2 a token a block (gate, up
-//    and dy: twice the A operand of a plain product).
-//  * the swiglu is the register A operand, with no shared-memory round
-//    trip: each warp ldmatrix.trans-loads its 16 d_ff rows x 16 tokens of
-//    gate and of up (A(d_ff row, token) is the tile read transposed),
-//    computes silu(g)*u in float32, rounds it to bf16 as the plain
-//    version does and packs it into the 4 A registers of m64n256k16; B is
-//    the dy tile read MN-major (tokens are the reduction rows, d is
-//    contiguous);
-//  * the swiglu of k16 step k+1 is computed while step k's product runs
-//    (two A register sets), so the special-function work overlaps the
-//    tensor cores.
-// The sigmoid is __expf and __fdividef: silu(g)*u = g*u / (1 + exp(-g))
-// with two special-function ops (ex2, rcp) an element, where expf and an
-// IEEE division take more; its float32 value may differ from the plain
-// version's in the last bits, and so its bf16 rounding by one ulp. Rows
-// and columns past T, d or d_ff are zero-filled by the copies; where d_ff
-// or d is not a multiple of 8 a 16-byte copy cannot reach a row, and those
-// chunks are fetched element by element. Only in-range outputs are
-// written, as bf16 pairs from the accumulators.
-
-constexpr int kK1Rows = 128;  // d_ff rows a block (two warpgroups of 64)
-constexpr int kK1Cols = 256;  // d columns a block
-constexpr int kK1Tok = 64;    // tokens a stage
-constexpr int kK1Stages = 3;
-constexpr int kK1Gate = kK1Tok * kK1Rows;  // elements of a gate/up tile
-constexpr int kK1Dy = kK1Tok * kK1Cols;    // elements of a dy tile
-constexpr int kK1Stage = 2 * kK1Gate + kK1Dy;
-constexpr size_t kK1SmemBytes = sizeof(bf16) * kK1Stages * kK1Stage + 1024;
 
 // One 16-byte chunk (8 bf16) of a row into shared memory: by cp.async when
 // the row is 16-byte aligned (`vec`) and all 8 are in range, zero-filled
@@ -336,42 +89,265 @@ __device__ __forceinline__ void copy_chunk(uint32_t dst, const bf16* src,
   }
 }
 
-// Tokens [t0, t0 + 64) of gate/up (d_ff columns m0..m0+127) and of dy (d
-// columns n0..n0+255) into one ring stage.
-__device__ __forceinline__ void k1_load_stage(bf16* stage, const bf16* gate,
-                                              const bf16* up, const bf16* dy,
-                                              int t0, int m0, int n0, int T,
-                                              int d, int dff, bool vec_f,
-                                              bool vec_d) {
-  const uint32_t sG = smem_u32(stage);
-  const uint32_t sU = sG + 2 * kK1Gate;
-  const uint32_t sD = sU + 2 * kK1Gate;
+// Rows [row0, row0 + kRows) x columns [col0, col0 + kCols) of a row-major
+// [n_rows, n_cols] bf16 matrix into a swizzled tile (tile_offset<kCols,
+// kRows>, the layout TMA's 64 x 64 boxes give), by the kThreads consumer
+// threads; everything past the matrix zero-filled.
+template <int kCols, int kRows>
+__device__ __forceinline__ void load_tile_chunks(uint32_t dst,
+                                                 const bf16* src, int row0,
+                                                 int col0, int n_rows,
+                                                 int n_cols, bool vec) {
+  constexpr int kChunks = kRows * kCols / 8;
+  static_assert(kChunks % kThreads == 0, "whole 16-byte moves");
 #pragma unroll
-  for (int it = 0; it < kK1Gate / 8 / kThreads; ++it) {
+  for (int it = 0; it < kChunks / kThreads; ++it) {
     const int i = threadIdx.x + it * kThreads;
-    const int r = i / (kK1Rows / 8);
-    const int c = i % (kK1Rows / 8);
-    const int t = t0 + r;
-    const int left = t < T ? dff - (m0 + 8 * c) : 0;
-    const int64_t off = left > 0 ? static_cast<int64_t>(t) * dff + m0 + 8 * c
-                                 : 0;
-    const int at = tile_offset<kK1Rows, kK1Tok>(r, c);
-    copy_chunk(sG + at, gate + off, left, vec_f);
-    copy_chunk(sU + at, up + off, left, vec_f);
-  }
-#pragma unroll
-  for (int it = 0; it < kK1Dy / 8 / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / (kK1Cols / 8);
-    const int c = i % (kK1Cols / 8);
-    const int t = t0 + r;
-    const int left = t < T ? d - (n0 + 8 * c) : 0;
-    const int64_t off = left > 0 ? static_cast<int64_t>(t) * d + n0 + 8 * c
-                                 : 0;
-    copy_chunk(sD + tile_offset<kK1Cols, kK1Tok>(r, c), dy + off, left,
-               vec_d);
+    const int r = i / (kCols / 8);
+    const int c = i % (kCols / 8);
+    const int row = row0 + r;
+    const int left = row < n_rows ? n_cols - (col0 + 8 * c) : 0;
+    const int64_t off =
+        left > 0 ? static_cast<int64_t>(row) * n_cols + col0 + 8 * c : 0;
+    copy_chunk(dst + tile_offset<kCols, kRows>(r, c), src + off, left, vec);
   }
 }
+
+// Four 8 x 8 bf16 matrices, transposed, from shared memory (lane l gives
+// the address of matrix l / 8's row l % 8).
+__device__ __forceinline__ void ldmatrix_trans_x4(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// The output tile (m, n) of linear block b when the n_m x n_n tiles are
+// issued in groups of kGroup m-tiles, m fastest inside a group: a wave of
+// 132 blocks then spans ~kGroup m-tiles and ~132 / kGroup n-tiles, so its
+// blocks share both operands' tiles in L2 (where n fastest would have each
+// wave stream a whole operand from device memory).
+__device__ __forceinline__ void grouped_tile(int b, int n_m, int n_n, int& m,
+                                             int& n) {
+  const int per = kGroup * n_n;
+  const int group = b / per;
+  const int first = group * kGroup;
+  const int size = min(n_m - first, kGroup);
+  const int r = b - group * per;
+  m = first + r % size;
+  n = r / size;
+}
+
+// A warpgroup's m64nN float32 accumulator as bf16 rows of a row-major
+// [n_rows, n_cols] matrix: this thread's rows `row` and row + 8, columns
+// col + 8j, col + 8j + 1 (col = the tile's first column + 2 (lane % 4)),
+// in range only; bf16 pairs where the row length is even.
+template <int N>
+__device__ __forceinline__ void store_acc(const float (&acc)[N / 2],
+                                          bf16* out, int row, int col,
+                                          int n_rows, int n_cols) {
+  const bool pairs = (n_cols & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row + i * 8;
+    if (r >= n_rows) continue;
+    bf16* dst = out + static_cast<int64_t>(r) * n_cols;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = col + 8 * j;
+      const float lo = acc[4 * j + 2 * i];
+      const float hi = acc[4 * j + 2 * i + 1];
+      if (pairs && c + 1 < n_cols) {
+        *reinterpret_cast<uint32_t*>(dst + c) = pack_bf16(lo, hi);
+      } else {
+        if (c < n_cols) dst[c] = __float2bfloat16_rn(lo);
+        if (c + 1 < n_cols) dst[c + 1] = __float2bfloat16_rn(hi);
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------------- rings
+//
+// The mainloop K1, K2 and K3 share: a ring of kStages shared-memory stages,
+// each holding the tiles of one reduction step (64 tokens for K1 and K3, 64
+// of d for K2), consumed by two warpgroups in kSteps k16 products a stage.
+//  * TMA ring, where every operand row is 16-byte aligned (a multiple of 8
+//    elements): a ninth, producer warp issues each stage's boxes as soon as
+//    the stage's "empty" mbarrier says all 8 consumer warps are done with
+//    it, and the boxes complete on its "full" mbarrier. The consumers never
+//    wait at a block barrier and walk the k16 steps of all stages as one
+//    sequence.
+//  * cp.async ring, for rows TMA cannot describe: all 256 threads copy, and
+//    one block barrier a stage frees the stage copied into next.
+// In both, the A operand of k16 step k+1 (`prep`: K1's swiglu, K3's h, a
+// no-op for K2's shared-memory A) is formed while step k's products
+// (`mma`) run: two A register sets, each kept live by an empty asm until
+// its product is done, always indexed at compile time (a runtime index
+// puts them in local memory).
+
+template <bool kTma>
+constexpr int kRingThreads = kTma ? kThreads + 32 : kThreads;
+
+// The 1024-byte-aligned ring inside the dynamic shared memory (the
+// 128-byte swizzle repeats every 1024 bytes; each stage starts on one).
+__device__ __forceinline__ unsigned char* ring_base(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t{1023});
+}
+
+template <int kStages>
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(smem_u32(&full[i]), 1);
+      mbar_init(smem_u32(&empty[i]), kThreads / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// A barrier of the two consumer warpgroups alone (the producer warp may
+// have exited).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+// The producer (one lane): for each of n_steps steps waits until its stage
+// is free, then issue(step, stage, full barrier) starts its copies.
+template <int kStages, typename Issue>
+__device__ __forceinline__ void ring_produce(uint64_t* full, uint64_t* empty,
+                                             int n_steps, Issue issue) {
+  for (int st = 0; st < n_steps; ++st) {
+    const int buf = st % kStages;
+    if (st >= kStages) {
+      mbar_wait(smem_u32(&empty[buf]), (st / kStages - 1) & 1);
+    }
+    issue(st, buf, smem_u32(&full[buf]));
+  }
+}
+
+// The consumers of the TMA ring over its first n_steps steps. A stage is
+// released to the producer once its last product is done (the first step
+// of the next stage); the last stage is not released.
+template <int kStages, int kSteps, typename Prep, typename Mma>
+__device__ __forceinline__ void ring_consume(uint64_t* full, uint64_t* empty,
+                                             int n_steps, uint32_t (&a)[2][4],
+                                             Prep prep, Mma mma) {
+  static_assert(kSteps % 2 == 0, "A register sets alternate per k16 step");
+  const bool leader = (threadIdx.x & 31) == 0;
+  if (n_steps > 0) {
+    mbar_wait(smem_u32(&full[0]), 0);
+    prep(a[0], 0, 0);
+  }
+  for (int st = 0; st < n_steps; ++st) {
+    const int buf = st % kStages;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      mma(a[kk & 1], buf, kk);
+      wgmma_commit();
+      // step kk - 1's products are done: its A registers, kept live up to
+      // here, are free for step kk + 1, and after the last step of a stage
+      // this warp is done with that stage
+      wgmma_wait<1>();
+      fence_operands(a[(kk + 1) & 1]);
+      if (kk == 0 && st > 0 && leader) {
+        mbar_arrive(smem_u32(&empty[(st - 1) % kStages]));
+      }
+      if (kk + 1 < kSteps) {
+        prep(a[(kk + 1) & 1], buf, kk + 1);
+      } else if (st + 1 < n_steps) {  // the next stage's first step
+        const int next = (st + 1) % kStages;
+        mbar_wait(smem_u32(&full[next]), ((st + 1) / kStages) & 1);
+        prep(a[(kk + 1) & 1], next, 0);
+      }
+    }
+  }
+  wgmma_wait_all();
+  fence_operands(a[0]);
+  fence_operands(a[1]);
+}
+
+// The cp.async ring: load(step, stage) issues a stage's copies from every
+// thread; the products as in ring_consume, one stage at a time.
+template <int kStages, int kSteps, typename Load, typename Prep,
+          typename Mma>
+__device__ __forceinline__ void ring_cp_async(int n_steps,
+                                              uint32_t (&a)[2][4], Load load,
+                                              Prep prep, Mma mma) {
+  static_assert(kSteps % 2 == 0, "A register sets alternate per k16 step");
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_steps) load(st, st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < n_steps; ++st) {
+    cp_async_wait<kStages - 2>();  // stage st has landed
+    fence_async_shared();
+    __syncthreads();  // ... for every thread; and stage st - 1 is free
+    const int next = st + kStages - 1;
+    if (next < n_steps) load(next, next % kStages);
+    cp_async_commit();
+    const int buf = st % kStages;
+    prep(a[0], buf, 0);
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      mma(a[kk & 1], buf, kk);
+      wgmma_commit();
+      wgmma_wait<1>();  // step kk - 1 is done (see ring_consume)
+      fence_operands(a[(kk + 1) & 1]);
+      if (kk + 1 < kSteps) prep(a[(kk + 1) & 1], buf, kk + 1);
+    }
+    wgmma_wait_all();
+    fence_operands(a[0]);
+    fence_operands(a[1]);
+  }
+  cp_async_wait<0>();
+}
+
+// ------------------------------------------------------------------- K1
+//
+// dw_down_kernel: dW_down = swiglu(gate, up)^T . dy.
+//  * a block owns a 128 (d_ff) x 256 (d) output tile, two warpgroups of
+//    m64n256 (128 float32 accumulators a thread), so the swiglu of each
+//    gate/up element is recomputed d/256 times (16 at d 4096) where the
+//    TPU kernel's full-d rows compute it once;
+//  * 64-token stages of gate and up [64 x 128] and dy [64 x 256] through a
+//    three-stage ring (64 KB a stage; 8 TMA boxes). At the 8B shape (H100
+//    SXM) the cp.async ring moved ~4.7 TB/s from L2 and held the kernel at
+//    1.5 ms even with no swiglu at all; TMA took it to 1.28 ms and the
+//    producer warp ~5% further. What holds it near 0.4 of its bound: the
+//    swiglu's two special-function ops an element (~0.3 ms: a variant
+//    without it took 0.97 ms) and 1 KB of tiles from L2 a token a block
+//    (gate, up and dy: twice the A operand of a plain product).
+//  * the swiglu is the register A operand, with no shared-memory round
+//    trip: each warp ldmatrix.trans-loads its 16 d_ff rows x 16 tokens of
+//    gate and of up (A(d_ff row, token) is the tile read transposed),
+//    computes silu(g)*u in float32, rounds it to bf16 as the plain
+//    version does and packs it into the 4 A registers of m64n256k16; B is
+//    the dy tile read MN-major (tokens are the reduction rows, d is
+//    contiguous).
+// The sigmoid is __expf and __fdividef: silu(g)*u = g*u / (1 + exp(-g))
+// with two special-function ops (ex2, rcp) an element, where expf and an
+// IEEE division take more; its float32 value may differ from the plain
+// version's in the last bits, and so its bf16 rounding by one ulp.
+
+constexpr int kK1Rows = 128;  // d_ff rows a block (two warpgroups of 64)
+constexpr int kK1Cols = 256;  // d columns a block
+constexpr int kK1Tok = 64;    // tokens a stage
+constexpr int kK1Stages = 3;
+constexpr int kK1Gate = kK1Tok * kK1Rows * 2;  // bytes of a gate/up tile
+constexpr int kK1Dy = kK1Tok * kK1Cols * 2;    // bytes of a dy tile
+constexpr int kK1Stage = 2 * kK1Gate + kK1Dy;  // bytes a stage
+constexpr size_t kK1SmemBytes = kK1Stages * kK1Stage + 1024;
 
 // bf16(silu(g) * u) of two packed bf16 pairs, packed the same way.
 __device__ __forceinline__ uint32_t swiglu2(uint32_t g2, uint32_t u2) {
@@ -383,62 +359,32 @@ __device__ __forceinline__ uint32_t swiglu2(uint32_t g2, uint32_t u2) {
                    __fdividef(g1 * u1, 1.0f + __expf(-g1)));
 }
 
-// The A fragment of k16 step kk for this warp's 16 d_ff rows: ldmatrix
-// .trans of gate and up (lane l gives the address of token row
-// 16kk + l%8 + 8(l/16) at chunk `chunk` + (l/8)%2, so matrix i is
-// a[i]'s 8 x 8 block), then the swiglu in registers.
+// The address this lane gives ldmatrix.trans for the A fragment of k16
+// step kk of a [64 tokens x 128] tile whose 16 rows (of A) start at chunk
+// `chunk`: token row 16kk + l%8 + 8(l/16) at chunk + (l/8)%2, so matrix i
+// is a[i]'s 8 x 8 block (rows 0-7 | 8-15 of A x tokens 0-7 | 8-15).
+__device__ __forceinline__ uint32_t a_trans_offset(int kk, int lane,
+                                                   int chunk) {
+  const int row = 16 * kk + (lane & 7) + ((lane >> 4) << 3);
+  return tile_offset<128, 64>(row, chunk + ((lane >> 3) & 1));
+}
+
+// K1's A fragment of k16 step kk: gate and up read transposed, then the
+// swiglu in registers.
 __device__ __forceinline__ void swiglu_fragment(uint32_t (&a)[4],
                                                 uint32_t gate_tile,
                                                 uint32_t up_tile, int kk,
                                                 int lane, int chunk) {
-  const int row = 16 * kk + (lane & 7) + ((lane >> 4) << 3);
-  const uint32_t at =
-      tile_offset<kK1Rows, kK1Tok>(row, chunk + ((lane >> 3) & 1));
+  const uint32_t at = a_trans_offset(kk, lane, chunk);
   uint32_t g[4], u[4];
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(g[0]), "=r"(g[1]), "=r"(g[2]), "=r"(g[3])
-      : "r"(gate_tile + at));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(u[0]), "=r"(u[1]), "=r"(u[2]), "=r"(u[3])
-      : "r"(up_tile + at));
+  ldmatrix_trans_x4(g, gate_tile + at);
+  ldmatrix_trans_x4(u, up_tile + at);
 #pragma unroll
   for (int i = 0; i < 4; ++i) a[i] = swiglu2(g[i], u[i]);
 }
 
-// Tokens [t0, t0 + 64) into one ring stage by TMA: two 64-column boxes of
-// gate and of up, four of dy, all completing on the stage's mbarrier.
-__device__ __forceinline__ void k1_tma_stage(bf16* stage, uint32_t bar,
-                                             const CUtensorMap* tm_gate,
-                                             const CUtensorMap* tm_up,
-                                             const CUtensorMap* tm_dy, int t0,
-                                             int m0, int n0) {
-  constexpr int kBox = kK1Tok * 64 * sizeof(bf16);  // one 64 x 64 box
-  const uint32_t sG = smem_u32(stage);
-  const uint32_t sU = sG + 2 * kK1Gate;
-  const uint32_t sD = sU + 2 * kK1Gate;
-  mbar_expect_bytes(bar, kK1Stage * sizeof(bf16));
-#pragma unroll
-  for (int i = 0; i < kK1Rows / 64; ++i) {
-    tma_load_2d(sG + i * kBox, tm_gate, m0 + 64 * i, t0, bar);
-    tma_load_2d(sU + i * kBox, tm_up, m0 + 64 * i, t0, bar);
-  }
-#pragma unroll
-  for (int i = 0; i < kK1Cols / 64; ++i) {
-    tma_load_2d(sD + i * kBox, tm_dy, n0 + 64 * i, t0, bar);
-  }
-}
-
-// K1's block: two consumer warpgroups, and on the TMA ring a ninth warp
-// that only issues the copies.
 template <bool kTma>
-constexpr int kK1Threads = kTma ? kThreads + 32 : kThreads;
-
-template <bool kTma>
-__global__ void __launch_bounds__(kK1Threads<kTma>, 1)
+__global__ void __launch_bounds__(kRingThreads<kTma>, 1)
     dw_down_kernel(const __grid_constant__ CUtensorMap tm_gate,
                    const __grid_constant__ CUtensorMap tm_up,
                    const __grid_constant__ CUtensorMap tm_dy,
@@ -446,10 +392,7 @@ __global__ void __launch_bounds__(kK1Threads<kTma>, 1)
                    const bf16* __restrict__ dy, bf16* __restrict__ dw_down,
                    int T, int d, int dff) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
-  // TMA ring: a stage landed (full), every consumer warp is done with it
-  // (empty)
+  const uint32_t ring = smem_u32(ring_base(smem_raw));
   __shared__ __align__(8) uint64_t full[kK1Stages], empty[kK1Stages];
 
   const int n0 = blockIdx.x * kK1Cols;  // columns of dW_down: the d axis
@@ -457,281 +400,552 @@ __global__ void __launch_bounds__(kK1Threads<kTma>, 1)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int wg = warp >> 2;
-  const int n_steps = (T + kK1Tok - 1) / kK1Tok;
+  const int n_steps = cdiv(T, kK1Tok);
   // this warp's 16 d_ff rows of the gate/up tiles, in 16-byte chunks
   const int chunk = wg * 8 + (warp & 3) * 2;
-  constexpr int kSteps = kK1Tok / 16;  // k16 steps a stage
-  auto stage_at = [&](int buf) { return smem_u32(ring + buf * kK1Stage); };
+  auto stage_at = [&](int buf) { return ring + buf * kK1Stage; };
 
   float acc[kK1Cols / 2];
 #pragma unroll
   for (int i = 0; i < kK1Cols / 2; ++i) acc[i] = 0.0f;
   uint32_t a[2][4] = {};
+  auto prep = [&](uint32_t(&af)[4], int buf, int kk) {
+    swiglu_fragment(af, stage_at(buf), stage_at(buf) + kK1Gate, kk, lane,
+                    chunk);
+  };
+  auto mma = [&](const uint32_t(&af)[4], int buf, int kk) {
+    fence_operands(acc);
+    wgmma_fence();
+    wgmma_rs_n256(acc, af,
+                  mnmajor_desc<kK1Cols, kK1Tok>(stage_at(buf) + 2 * kK1Gate,
+                                                kk));
+  };
 
   if constexpr (kTma) {
-    // The producer warp keeps the ring full; the consumers walk the k16
-    // steps of all stages as one sequence, so the swiglu of the next step
-    // (in the next stage too) overlaps this step's product, and a stage is
-    // released to the producer as soon as its last product is done.
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int i = 0; i < kK1Stages; ++i) {
-        mbar_init(smem_u32(&full[i]), 1);
-        mbar_init(smem_u32(&empty[i]), kThreads / 32);
-      }
-      mbar_fence_init();
-    }
-    __syncthreads();
+    ring_init<kK1Stages>(full, empty);
     if (warp == kThreads / 32) {
       if (lane == 0) {
-        for (int st = 0; st < n_steps; ++st) {
-          const int buf = st % kK1Stages;
-          if (st >= kK1Stages) {
-            mbar_wait(smem_u32(&empty[buf]), (st / kK1Stages - 1) & 1);
-          }
-          k1_tma_stage(ring + buf * kK1Stage, smem_u32(&full[buf]),
-                       &tm_gate, &tm_up, &tm_dy, st * kK1Tok, m0, n0);
-        }
+        ring_produce<kK1Stages>(
+            full, empty, n_steps, [&](int st, int buf, uint32_t bar) {
+              // two 64-column boxes of gate and of up, four of dy
+              const uint32_t s = stage_at(buf);
+              const int t0 = st * kK1Tok;
+              mbar_expect_bytes(bar, kK1Stage);
+#pragma unroll
+              for (int i = 0; i < kK1Rows / kBox; ++i) {
+                tma_load_2d(s + i * kBoxBytes, &tm_gate, m0 + kBox * i, t0,
+                            bar);
+                tma_load_2d(s + kK1Gate + i * kBoxBytes, &tm_up,
+                            m0 + kBox * i, t0, bar);
+              }
+#pragma unroll
+              for (int i = 0; i < kK1Cols / kBox; ++i) {
+                tma_load_2d(s + 2 * kK1Gate + i * kBoxBytes, &tm_dy,
+                            n0 + kBox * i, t0, bar);
+              }
+            });
       }
       return;
     }
-    if (n_steps > 0) {
-      mbar_wait(smem_u32(&full[0]), 0);
-      swiglu_fragment(a[0], stage_at(0), stage_at(0) + 2 * kK1Gate, 0, lane,
-                      chunk);
-    }
-    for (int st = 0; st < n_steps; ++st) {
-      const uint32_t tD = stage_at(st % kK1Stages) + 4 * kK1Gate;
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        fence_operands(acc);
-        wgmma_fence();
-        wgmma_rs_n256(acc, a[kk & 1], mnmajor_desc<kK1Cols, kK1Tok>(tD, kk));
-        wgmma_commit();
-        // step kk - 1's product is done: its A registers, kept live up to
-        // here, are free for step kk + 1, and after the last step of a
-        // stage this warp is done with that stage
-        wgmma_wait<1>();
-        fence_operands(a[(kk + 1) & 1]);
-        if (kk == 0 && st > 0 && lane == 0) {
-          mbar_arrive(smem_u32(&empty[(st - 1) % kK1Stages]));
-        }
-        if (kk + 1 < kSteps) {
-          const uint32_t tG = stage_at(st % kK1Stages);
-          swiglu_fragment(a[(kk + 1) & 1], tG, tG + 2 * kK1Gate, kk + 1,
-                          lane, chunk);
-        } else if (st + 1 < n_steps) {  // the next stage's first step
-          const int buf = (st + 1) % kK1Stages;
-          mbar_wait(smem_u32(&full[buf]), ((st + 1) / kK1Stages) & 1);
-          swiglu_fragment(a[(kk + 1) & 1], stage_at(buf),
-                          stage_at(buf) + 2 * kK1Gate, 0, lane, chunk);
-        }
-      }
-    }
-    wgmma_wait_all();
-    fence_operands(acc);
-    fence_operands(a[0]);
-    fence_operands(a[1]);
+    ring_consume<kK1Stages, kK1Tok / 16>(full, empty, n_steps, a, prep, mma);
   } else {
-    // cp.async ring (rows that TMA cannot describe): every thread copies,
-    // and a block barrier a stage frees the stage copied into next
     const bool vec_f = (dff & 7) == 0;
     const bool vec_d = (d & 7) == 0;
+    ring_cp_async<kK1Stages, kK1Tok / 16>(
+        n_steps, a,
+        [&](int st, int buf) {
+          const uint32_t s = stage_at(buf);
+          const int t0 = st * kK1Tok;
+          load_tile_chunks<kK1Rows, kK1Tok>(s, gate, t0, m0, T, dff, vec_f);
+          load_tile_chunks<kK1Rows, kK1Tok>(s + kK1Gate, up, t0, m0, T, dff,
+                                            vec_f);
+          load_tile_chunks<kK1Cols, kK1Tok>(s + 2 * kK1Gate, dy, t0, n0, T,
+                                            d, vec_d);
+        },
+        prep, mma);
+  }
+  fence_operands(acc);
+
+  store_acc<kK1Cols>(acc, dw_down,
+                     m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2),
+                     n0 + 2 * (lane & 3), dff, d);
+}
+
+// ------------------------------------------------------------------- K3
+//
+// dw_gateup_kernel: dW_gate = h^T . dgate and dW_up = h^T . dup, h =
+// bf16((x * rstd) * norm_w).
+//  * a block owns 128 d-rows x 128 d_ff-columns of both outputs; each
+//    warpgroup takes 64 d-rows and keeps two m64n128 float32 accumulators
+//    (gate and up: 128 floats a thread, as K1's one m64n256);
+//  * 64-token stages of x [64 x 128 of d], dgate and dup [64 x 128 of
+//    d_ff] (48 KB; 6 TMA boxes) and rstd of those tokens (256 bytes, one
+//    1-D TMA box zero-filled past T, so padded tokens give h = 0), four
+//    stages;
+//  * h is the register A operand, formed like K1's swiglu: ldmatrix.trans
+//    of the x tile gives A(d row, token), and (x * rstd[t]) * nw[i] in
+//    float32, in that order, rounded to bf16, is bit for bit the plain
+//    version's h (`normed`). nw of a thread's two d rows is loaded once
+//    into registers, rstd read per k16 step from the stage. Each k16 step
+//    issues two m64n128k16 products on the one A, B the dgate and the dup
+//    tiles read MN-major (tokens are the reduction rows);
+//  * tiles are issued in groups of 16 d-row tiles walking d_ff
+//    (grouped_tile): with d_ff fastest a wave spans about all 112 d_ff
+//    tiles of one d-row tile at the 8B shape and streams nearly all of
+//    dgate and dup (235 MB) from device memory; grouped, ~33 MB a wave
+//    (PERF.md gives the times with 1, 8 and 16 d-row tiles a group);
+//  * on the TMA ring both output tiles leave by TMA stores from the freed
+//    ring (see the epilogue).
+
+constexpr int kK3Rows = 128;  // d rows a block (two warpgroups of 64)
+constexpr int kK3Cols = 128;  // d_ff columns a block, of each output
+constexpr int kK3Tok = 64;    // tokens a stage
+constexpr int kK3Stages = 4;
+constexpr int kK3Tile = kK3Tok * 128 * 2;  // bytes of an x, dgate or dup tile
+constexpr int kK3Stage = 3 * kK3Tile;      // bytes a stage
+constexpr int kK3Rstd = kK3Tok * 4;        // bytes of a stage's rstd
+// the stages, then each stage's rstd (1024-aligned, so 256-byte slots)
+constexpr size_t kK3SmemBytes = kK3Stages * (kK3Stage + kK3Rstd) + 1024;
+static_assert(kK3Rows == 128 && kK3Cols == 128, "x/dgate tile offsets");
+
+// bf16((x * r) * w) of a packed bf16 pair of x (two tokens), r their two
+// rstd values, w the row's norm weight; packed the same way.
+__device__ __forceinline__ uint32_t h2(uint32_t x2, float2 r, float w) {
+  const float x0 = __uint_as_float(x2 << 16);
+  const float x1 = __uint_as_float(x2 & 0xffff0000u);
+  return pack_bf16(x0 * r.x * w, x1 * r.y * w);
+}
+
+// K3's A fragment of k16 step kk: the x tile read transposed, then h with
+// this thread's tokens' rstd (16kk + 2t, +1, +8, +9; t = lane % 4) and its
+// two rows' norm weights w0 (row g) and w1 (row g + 8).
+__device__ __forceinline__ void h_fragment(uint32_t (&a)[4], uint32_t x_tile,
+                                           uint32_t rstd, int kk, int lane,
+                                           int chunk, float w0, float w1) {
+  uint32_t x[4];
+  ldmatrix_trans_x4(x, x_tile + a_trans_offset(kk, lane, chunk));
+  const uint32_t at = rstd + 4 * (16 * kk + 2 * (lane & 3));
+  float2 r0, r1;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(r0.x), "=f"(r0.y)
+               : "r"(at));
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(r1.x), "=f"(r1.y)
+               : "r"(at + 32));
+  a[0] = h2(x[0], r0, w0);
+  a[1] = h2(x[1], r0, w1);
+  a[2] = h2(x[2], r1, w0);
+  a[3] = h2(x[3], r1, w1);
+}
+
+template <bool kTma>
+__global__ void __launch_bounds__(kRingThreads<kTma>, 1)
+    dw_gateup_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_dgate,
+                     const __grid_constant__ CUtensorMap tm_dup,
+                     const __grid_constant__ CUtensorMap tm_rstd,
+                     const __grid_constant__ CUtensorMap tm_dw_gate,
+                     const __grid_constant__ CUtensorMap tm_dw_up,
+                     const bf16* __restrict__ x,
+                     const float* __restrict__ rstd,
+                     const bf16* __restrict__ norm_w,
+                     const bf16* __restrict__ dgate,
+                     const bf16* __restrict__ dup, bf16* __restrict__ dw_gate,
+                     bf16* __restrict__ dw_up, int T, int d, int dff) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t ring = smem_u32(ring_base(smem_raw));
+  __shared__ __align__(8) uint64_t full[kK3Stages], empty[kK3Stages];
+
+  int mt, nt;
+  grouped_tile(blockIdx.x, cdiv(d, kK3Rows), cdiv(dff, kK3Cols), mt, nt);
+  const int m0 = mt * kK3Rows;  // rows of dW: the d axis
+  const int n0 = nt * kK3Cols;  // columns of dW: the d_ff axis
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const int n_steps = cdiv(T, kK3Tok);
+  // this warp's 16 d rows of the x tile, in 16-byte chunks
+  const int chunk = wg * 8 + (warp & 3) * 2;
+  auto stage_at = [&](int buf) { return ring + buf * kK3Stage; };
+  auto rstd_at = [&](int buf) {
+    return ring + kK3Stages * kK3Stage + buf * kK3Rstd;
+  };
+
+  // norm_w of this thread's two d rows (rows of A: g and g + 8)
+  const int row = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const float w0 = row < d ? __bfloat162float(norm_w[row]) : 0.0f;
+  const float w1 = row + 8 < d ? __bfloat162float(norm_w[row + 8]) : 0.0f;
+
+  float acc_g[kK3Cols / 2], acc_u[kK3Cols / 2];
 #pragma unroll
-    for (int st = 0; st < kK1Stages - 1; ++st) {
-      if (st < n_steps) {
-        k1_load_stage(ring + st * kK1Stage, gate, up, dy, st * kK1Tok, m0,
-                      n0, T, d, dff, vec_f, vec_d);
+  for (int i = 0; i < kK3Cols / 2; ++i) {
+    acc_g[i] = 0.0f;
+    acc_u[i] = 0.0f;
+  }
+  // Both accumulators' zeros settle here: left to the compiler, acc_u's
+  // were set between the first products, and ptxas then serialized every
+  // product of the kernel (its C7515 note; 1.85 ms against 1.58 at the 8B
+  // shape, H100 SXM).
+  fence_operands(acc_g);
+  fence_operands(acc_u);
+  uint32_t a[2][4] = {};
+  auto prep = [&](uint32_t(&af)[4], int buf, int kk) {
+    h_fragment(af, stage_at(buf), rstd_at(buf), kk, lane, chunk, w0, w1);
+  };
+  auto mma = [&](const uint32_t(&af)[4], int buf, int kk) {
+    fence_operands(acc_g);
+    fence_operands(acc_u);
+    wgmma_fence();
+    wgmma_rs_n128(acc_g, af,
+                  mnmajor_desc<kK3Cols, kK3Tok>(stage_at(buf) + kK3Tile, kk));
+    wgmma_rs_n128(
+        acc_u, af,
+        mnmajor_desc<kK3Cols, kK3Tok>(stage_at(buf) + 2 * kK3Tile, kk));
+  };
+
+  if constexpr (kTma) {
+    ring_init<kK3Stages>(full, empty);
+    if (warp == kThreads / 32) {
+      if (lane == 0) {
+        ring_produce<kK3Stages>(
+            full, empty, n_steps, [&](int st, int buf, uint32_t bar) {
+              // two 64-column boxes each of x, dgate and dup, and rstd
+              const uint32_t s = stage_at(buf);
+              const int t0 = st * kK3Tok;
+              mbar_expect_bytes(bar, kK3Stage + kK3Rstd);
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                tma_load_2d(s + i * kBoxBytes, &tm_x, m0 + kBox * i, t0, bar);
+                tma_load_2d(s + kK3Tile + i * kBoxBytes, &tm_dgate,
+                            n0 + kBox * i, t0, bar);
+                tma_load_2d(s + 2 * kK3Tile + i * kBoxBytes, &tm_dup,
+                            n0 + kBox * i, t0, bar);
+              }
+              tma_load_1d(rstd_at(buf), &tm_rstd, t0, bar);
+            });
       }
-      cp_async_commit();
+      return;
     }
-    for (int st = 0; st < n_steps; ++st) {
-      cp_async_wait<kK1Stages - 2>();  // stage st has landed
-      fence_async_shared();
-      __syncthreads();  // ... for every thread; and stage st - 1 is free
-      const int next = st + kK1Stages - 1;
-      if (next < n_steps) {
-        k1_load_stage(ring + (next % kK1Stages) * kK1Stage, gate, up, dy,
-                      next * kK1Tok, m0, n0, T, d, dff, vec_f, vec_d);
-      }
-      cp_async_commit();
-      const uint32_t tG = stage_at(st % kK1Stages);
-      const uint32_t tU = tG + 2 * kK1Gate;
-      const uint32_t tD = tU + 2 * kK1Gate;
-      swiglu_fragment(a[0], tG, tU, 0, lane, chunk);
+    ring_consume<kK3Stages, kK3Tok / 16>(full, empty, n_steps, a, prep, mma);
+  } else {
+    const bool vec_x = (d & 7) == 0;
+    const bool vec_f = (dff & 7) == 0;
+    ring_cp_async<kK3Stages, kK3Tok / 16>(
+        n_steps, a,
+        [&](int st, int buf) {
+          const uint32_t s = stage_at(buf);
+          const int t0 = st * kK3Tok;
+          load_tile_chunks<128, kK3Tok>(s, x, t0, m0, T, d, vec_x);
+          load_tile_chunks<128, kK3Tok>(s + kK3Tile, dgate, t0, n0, T, dff,
+                                        vec_f);
+          load_tile_chunks<128, kK3Tok>(s + 2 * kK3Tile, dup, t0, n0, T,
+                                        dff, vec_f);
+          if (threadIdx.x < kK3Tok) {  // rstd, 0 past T
+            const int t = t0 + threadIdx.x;
+            cp_async4(rstd_at(buf) + 4 * threadIdx.x, rstd + (t < T ? t : 0),
+                      t < T);
+          }
+        },
+        prep, mma);
+  }
+  fence_operands(acc_g);
+  fence_operands(acc_u);
+
+  if constexpr (kTma) {
+    // Both tiles as bf16 into the ring (free once both warpgroups' products
+    // are done), in the 128-byte-swizzled 64 x 64 boxes a TMA load would
+    // give (4-byte stores, no bank conflicts), then one thread stores the
+    // eight boxes by TMA, clipped at the matrices' edges: 1.58 ms a launch
+    // at the 8B shape against 1.68-1.71 with each thread storing its
+    // 4-byte pairs straight from registers (H100 SXM).
+    consumer_sync();
+    // boxes 0-3 dW_gate, 4-7 dW_up, each (row block, column block) 2 x 2
+    auto stage_tile = [&](const float(&acc)[kK3Cols / 2], int first_box) {
+      const int r_loc = wg * 64 + (warp & 3) * 16 + (lane >> 2);
 #pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        fence_operands(acc);
-        wgmma_fence();
-        wgmma_rs_n256(acc, a[kk & 1], mnmajor_desc<kK1Cols, kK1Tok>(tD, kk));
-        wgmma_commit();
-        wgmma_wait<1>();  // step kk - 1 is done (see the TMA ring)
-        fence_operands(a[(kk + 1) & 1]);
-        if (kk + 1 < kSteps) {
-          swiglu_fragment(a[(kk + 1) & 1], tG, tU, kk + 1, lane, chunk);
+      for (int i = 0; i < 2; ++i) {
+        const int r = r_loc + 8 * i;
+#pragma unroll
+        for (int j = 0; j < kK3Cols / 8; ++j) {
+          const int box = first_box + (r / kBox) * 2 + j / 8;
+          const uint32_t at = ring + box * kBoxBytes + (r % kBox) * 128 +
+                              (((j % 8) ^ (r & 7)) << 4) + 4 * (lane & 3);
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at),
+                       "r"(pack_bf16(acc[4 * j + 2 * i],
+                                     acc[4 * j + 2 * i + 1]))
+                       : "memory");
         }
       }
-      wgmma_wait_all();
-      fence_operands(acc);
-      fence_operands(a[1]);
-    }
-    cp_async_wait<0>();
-  }
-
-  const int row = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
-  const int col = n0 + 2 * (lane & 3);
-  const bool pairs = (d & 1) == 0;
+    };
+    stage_tile(acc_g, 0);
+    stage_tile(acc_u, 4);
+    fence_async_shared();
+    consumer_sync();
+    if (threadIdx.x == 0) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row + i * 8;
-    if (r >= dff) continue;
-    bf16* dst = dw_down + static_cast<int64_t>(r) * d;
-#pragma unroll
-    for (int j = 0; j < kK1Cols / 8; ++j) {
-      const int c = col + 8 * j;
-      const float lo = acc[4 * j + 2 * i];
-      const float hi = acc[4 * j + 2 * i + 1];
-      if (pairs && c + 1 < d) {
-        *reinterpret_cast<uint32_t*>(dst + c) = pack_bf16(lo, hi);
-      } else {
-        if (c < d) dst[c] = __float2bfloat16_rn(lo);
-        if (c + 1 < d) dst[c + 1] = __float2bfloat16_rn(hi);
+      for (int box = 0; box < 8; ++box) {
+        tma_store_2d(box < 4 ? &tm_dw_gate : &tm_dw_up,
+                     n0 + kBox * (box % 2), m0 + kBox * (box % 4 / 2),
+                     ring + box * kBoxBytes);
       }
+      tma_store_drain();
     }
+  } else {
+    const int col = n0 + 2 * (lane & 3);
+    store_acc<kK3Cols>(acc_g, dw_gate, row, col, d, dff);
+    store_acc<kK3Cols>(acc_u, dw_up, row, col, d, dff);
   }
 }
 
 // ------------------------------------------------------------------- K2
+//
+// dgateup_kernel: d_s = dy . W_down^T in float32, never stored, then
+// dgate = d_s*up*silu'(gate) and dup = d_s*silu(gate).
+//  * a block owns 128 tokens x 256 d_ff columns, two warpgroups of m64n256
+//    (128 float32 accumulators a thread), rather than 128 x 128 at two
+//    blocks an SM: 87 FLOP a byte of tiles streamed from L2 against 64,
+//    and L2 is what such a product waits on here (K1);
+//  * both operands are K-major (d is contiguous in dy [T, d] and in W_down
+//    [d_ff, d]), so the mainloop is a plain shared-memory product: 64-of-d
+//    stages of dy [128 x 64] and W_down [256 x 64] (48 KB, 6 TMA boxes),
+//    four stages, wgmma with both descriptors in shared memory;
+//  * the epilogue reads gate and up and writes dgate and dup (4 x 117 MB
+//    at the 8B shape): on the TMA ring the producer loads the block's gate
+//    and up tiles [128 x 256] (16 boxes, 128 KB) into the first three
+//    stages that free up after the mainloop's last, so they arrive while
+//    the last products run and the epilogue reads them from shared memory
+//    (swizzled, no bank conflicts). The cp.async ring reads them from
+//    device memory in the epilogue. d_s is staged through shared memory,
+//    so the epilogue is a loop, a warp a row (see there);
+//  * the sigmoid is expf and an IEEE division, once per output element,
+//    as in the plain version;
+//  * tiles are issued in groups of 16 token tiles walking d_ff
+//    (grouped_tile): with d_ff fastest every wave streams all of W_down
+//    (117 MB) from device memory.
 
-constexpr int kTK2 = 64;  // d per step
-constexpr int kLdK2 = kTK2 + 8;
-constexpr int kAVec2 = kTM * kTK2 / 8 / kThreads;
-constexpr int kBVec2 = kTN * kTK2 / 8 / kThreads;
-static_assert(kAVec2 * 8 * kThreads == kTM * kTK2, "dy tile split");
-static_assert(kBVec2 * 8 * kThreads == kTN * kTK2, "w_down tile split");
-constexpr int kK2TileBytes = sizeof(bf16) * (kTM + kTN) * kLdK2;
-static_assert(kK2TileBytes <= kSmemBytes, "K2 tiles fit");
+constexpr int kK2Rows = 128;  // tokens a block (two warpgroups of 64)
+constexpr int kK2Cols = 256;  // d_ff columns a block
+constexpr int kK2Depth = 64;  // d a stage
+constexpr int kK2Stages = 4;
+constexpr int kK2A = kK2Rows * kK2Depth * 2;  // bytes of a dy tile
+constexpr int kK2B = kK2Cols * kK2Depth * 2;  // bytes of a W_down tile
+constexpr int kK2Stage = kK2A + kK2B;         // bytes a stage
+constexpr int kK2BoxesPerStage = kK2Stage / kBoxBytes;
+// gate and up tiles of the epilogue, in 64 x 64 boxes, and the ring stages
+// they take after the mainloop's
+constexpr int kK2GateBoxes = (kK2Rows / kBox) * (kK2Cols / kBox);
+constexpr int kK2EpiSteps =
+    (2 * kK2GateBoxes + kK2BoxesPerStage - 1) / kK2BoxesPerStage;
+constexpr size_t kK2SmemBytes = kK2Stages * kK2Stage + 1024;
+// each epilogue step waits for a stage whose last mainloop use the
+// consumers release; they release all but the last stage
+static_assert(kK2EpiSteps <= kK2Stages - 1, "epilogue stages free up");
 
-// One step of K2: the [kTM x kTK2] dy tile (tokens m0.., d columns k0..)
-// and the [kTN x kTK2] W_down tile (d_ff rows n0.., d columns k0..).
-struct StagedK2 {
-  uint4 a[kAVec2];
-  uint4 b[kBVec2];
-};
-
-__device__ __forceinline__ void fetch_k2(StagedK2& st, const bf16* dy,
-                                         const bf16* w_down, int k0, int m0,
-                                         int n0, int T, int d, int dff,
-                                         bool vec_d) {
+__device__ __forceinline__ void swiglu_vjp2(float2 ds, uint32_t g2,
+                                            uint32_t u2, float (&dg)[2],
+                                            float (&du)[2]) {
+  const float g[2] = {__uint_as_float(g2 << 16),
+                      __uint_as_float(g2 & 0xffff0000u)};
+  const float u[2] = {__uint_as_float(u2 << 16),
+                      __uint_as_float(u2 & 0xffff0000u)};
+  const float d[2] = {ds.x, ds.y};
 #pragma unroll
-  for (int v = 0; v < kAVec2; ++v) {
-    const int i = threadIdx.x + v * kThreads;
-    const int t = m0 + i / (kTK2 / 8);
-    const int c = (i % (kTK2 / 8)) * 8;
-    const int left = t < T ? d - (k0 + c) : 0;
-    const int64_t off = static_cast<int64_t>(t) * d + k0 + c;
-    st.a[v] = fetch8(dy + (left > 0 ? off : 0), left, vec_d);
-  }
-#pragma unroll
-  for (int v = 0; v < kBVec2; ++v) {
-    const int i = threadIdx.x + v * kThreads;
-    const int j = n0 + i / (kTK2 / 8);
-    const int c = (i % (kTK2 / 8)) * 8;
-    const int left = j < dff ? d - (k0 + c) : 0;
-    const int64_t off = static_cast<int64_t>(j) * d + k0 + c;
-    st.b[v] = fetch8(w_down + (left > 0 ? off : 0), left, vec_d);
+  for (int i = 0; i < 2; ++i) {
+    const float s = sigmoid(g[i]);
+    dg[i] = d[i] * u[i] * (s * (1.0f + g[i] * (1.0f - s)));
+    du[i] = d[i] * (g[i] * s);
   }
 }
 
-__device__ __forceinline__ void store_k2(const StagedK2& st, bf16* sA,
-                                         bf16* sB) {
-#pragma unroll
-  for (int v = 0; v < kAVec2; ++v) {
-    const int i = threadIdx.x + v * kThreads;
-    const int r = i / (kTK2 / 8);
-    const int c = (i % (kTK2 / 8)) * 8;
-    *reinterpret_cast<uint4*>(sA + r * kLdK2 + c) = st.a[v];
+// Two bf16 of a row (element c, c + 1; the second 0 past the row) packed
+// as a pair.
+__device__ __forceinline__ uint32_t load_pair(const bf16* row, int c,
+                                              int n_cols, bool pairs) {
+  if (pairs && c + 1 < n_cols) {
+    return *reinterpret_cast<const uint32_t*>(row + c);
   }
-#pragma unroll
-  for (int v = 0; v < kBVec2; ++v) {
-    const int i = threadIdx.x + v * kThreads;
-    const int r = i / (kTK2 / 8);
-    const int c = (i % (kTK2 / 8)) * 8;
-    *reinterpret_cast<uint4*>(sB + r * kLdK2 + c) = st.b[v];
-  }
+  const uint32_t lo = __bfloat16_as_ushort(row[c]);
+  const uint32_t hi = c + 1 < n_cols ? __bfloat16_as_ushort(row[c + 1]) : 0;
+  return lo | (hi << 16);
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-    dgateup_kernel(const bf16* __restrict__ dy,
+template <bool kTma>
+__global__ void __launch_bounds__(kRingThreads<kTma>, 1)
+    dgateup_kernel(const __grid_constant__ CUtensorMap tm_dy,
+                   const __grid_constant__ CUtensorMap tm_w,
+                   const __grid_constant__ CUtensorMap tm_gate,
+                   const __grid_constant__ CUtensorMap tm_up,
+                   const bf16* __restrict__ dy,
                    const bf16* __restrict__ w_down,
                    const bf16* __restrict__ gate, const bf16* __restrict__ up,
                    bf16* __restrict__ dgate, bf16* __restrict__ dup, int T,
                    int d, int dff) {
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + kTM * kLdK2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring_ptr = ring_base(smem_raw);
+  const uint32_t ring = smem_u32(ring_ptr);
+  __shared__ __align__(8) uint64_t full[kK2Stages], empty[kK2Stages];
 
-  const int m0 = blockIdx.y * kTM;  // rows of dgate/dup: tokens
-  const int n0 = blockIdx.x * kTN;  // columns: the d_ff axis
+  int mt, nt;
+  grouped_tile(blockIdx.x, cdiv(T, kK2Rows), cdiv(dff, kK2Cols), mt, nt);
+  const int m0 = mt * kK2Rows;  // rows of dgate/dup: tokens
+  const int n0 = nt * kK2Cols;  // columns: the d_ff axis
   const int warp = threadIdx.x >> 5;
-  const int wm = (warp & 3) * 32;
-  const int wn = (warp >> 2) * 32;
-  const bool vec_d = (d & 7) == 0;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const int n_steps = cdiv(d, kK2Depth);
+  auto stage_at = [&](int buf) { return ring + buf * kK2Stage; };
 
-  FragC acc[2][2];
+  float acc[kK2Cols / 2];
 #pragma unroll
-  for (int a = 0; a < 2; ++a) {
-#pragma unroll
-    for (int b = 0; b < 2; ++b) wmma::fill_fragment(acc[a][b], 0.0f);
-  }
+  for (int i = 0; i < kK2Cols / 2; ++i) acc[i] = 0.0f;
+  uint32_t a[2][4] = {};  // no register A operand: both in shared memory
+  auto prep = [](uint32_t(&)[4], int, int) {};
+  // the product of k16 step kk of a stage: A this warpgroup's 64 token rows
+  // of the dy tile, B the W_down tile, both K-major
+  auto mma = [&](const uint32_t(&)[4], int buf, int kk) {
+    fence_operands(acc);
+    wgmma_fence();
+    wgmma_ss_n256(
+        acc,
+        kmajor_desc<kK2Depth, kK2Rows>(stage_at(buf) + wg * 64 * 128, kk),
+        kmajor_desc<kK2Depth, kK2Cols>(stage_at(buf) + kK2A, kk));
+  };
 
-  StagedK2 st;
-  fetch_k2(st, dy, w_down, 0, m0, n0, T, d, dff, vec_d);
-  for (int k0 = 0; k0 < d; k0 += kTK2) {
-    __syncthreads();  // the previous step's fragments are loaded
-    store_k2(st, sA, sB);
-    __syncthreads();
-    if (k0 + kTK2 < d) {
-      fetch_k2(st, dy, w_down, k0 + kTK2, m0, n0, T, d, dff, vec_d);
-    }
+  if constexpr (kTma) {
+    ring_init<kK2Stages>(full, empty);
+    if (warp == kThreads / 32) {
+      if (lane == 0) {
+        ring_produce<kK2Stages>(
+            full, empty, n_steps + kK2EpiSteps,
+            [&](int st, int buf, uint32_t bar) {
+              const uint32_t s = stage_at(buf);
+              if (st < n_steps) {  // two boxes of dy, four of W_down
+                const int k0 = st * kK2Depth;
+                mbar_expect_bytes(bar, kK2Stage);
 #pragma unroll
-    for (int kk = 0; kk < kTK2 / 16; ++kk) {
-      FragA a[2];
+                for (int i = 0; i < kK2Rows / kBox; ++i) {
+                  tma_load_2d(s + i * kBoxBytes, &tm_dy, k0, m0 + kBox * i,
+                              bar);
+                }
 #pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        wmma::load_matrix_sync(a[x], sA + (wm + x * 16) * kLdK2 + kk * 16,
-                               kLdK2);
+                for (int i = 0; i < kK2Cols / kBox; ++i) {
+                  tma_load_2d(s + kK2A + i * kBoxBytes, &tm_w, k0,
+                              n0 + kBox * i, bar);
+                }
+              } else {  // the epilogue's gate and up boxes
+                const int b0 = (st - n_steps) * kK2BoxesPerStage;
+                const int nb = min(2 * kK2GateBoxes - b0, kK2BoxesPerStage);
+                mbar_expect_bytes(bar, nb * kBoxBytes);
+                for (int i = 0; i < nb; ++i) {
+                  const int b = (b0 + i) % kK2GateBoxes;  // token-block major
+                  tma_load_2d(s + i * kBoxBytes,
+                              b0 + i < kK2GateBoxes ? &tm_gate : &tm_up,
+                              n0 + kBox * (b % (kK2Cols / kBox)),
+                              m0 + kBox * (b / (kK2Cols / kBox)), bar);
+                }
+              }
+            });
       }
+      return;
+    }
+    ring_consume<kK2Stages, kK2Depth / 16>(full, empty, n_steps, a, prep,
+                                           mma);
+  } else {
+    const bool vec_d = (d & 7) == 0;
+    ring_cp_async<kK2Stages, kK2Depth / 16>(
+        n_steps, a,
+        [&](int st, int buf) {
+          const uint32_t s = stage_at(buf);
+          const int k0 = st * kK2Depth;
+          load_tile_chunks<kK2Depth, kK2Rows>(s, dy, m0, k0, T, d, vec_d);
+          load_tile_chunks<kK2Depth, kK2Cols>(s + kK2A, w_down, n0, k0, dff,
+                                              d, vec_d);
+        },
+        prep, mma);
+  }
+  fence_operands(acc);
+
+  // Epilogue: d_s goes through shared memory 64 columns at a time (into a
+  // ring stage free by now: the mainloop's last on the TMA ring, whose
+  // other three hold the gate/up boxes), and the swiglu VJP runs in a loop
+  // over rows, a warp a row: each lane's two columns, 128 contiguous bytes
+  // of dgate and of dup a warp. Unrolled over a thread's 128 accumulators
+  // instead, with its IEEE divisions, the epilogue took 0.67 ms of the
+  // kernel's 1.49 at the 8B shape (H100 SXM).
+  constexpr int kCb = 64;       // d_ff columns staged at a time
+  constexpr int kLd = kCb + 8;  // floats a staged row: no bank conflicts
+  static_assert(kK2Rows * kLd * 4 <= kK2Stage, "a staged block fits");
+  float* ds = reinterpret_cast<float*>(
+      ring_ptr + (kTma ? (n_steps + kK2Stages - 1) % kK2Stages : 0) *
+                     kK2Stage);
+  if constexpr (kTma) {
 #pragma unroll
-      for (int y = 0; y < 2; ++y) {
-        // B(k, j) = W_down[j][k]: the W_down tile read column-major
-        FragBt w;
-        wmma::load_matrix_sync(w, sB + (wn + y * 16) * kLdK2 + kk * 16,
-                               kLdK2);
+    for (int e = 0; e < kK2EpiSteps; ++e) {
+      const int st = n_steps + e;
+      mbar_wait(smem_u32(&full[st % kK2Stages]), (st / kK2Stages) & 1);
+    }
+  }
+  const int rl = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const bool pairs = (dff & 1) == 0;
 #pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          wmma::mma_sync(acc[x][y], a[x], w, acc[x][y]);
+  for (int cb = 0; cb < kK2Cols / kCb; ++cb) {
+    // both warpgroups' products are done (cb 0), or every warp has read
+    // the previous block
+    consumer_sync();
+#pragma unroll
+    for (int jj = 0; jj < kCb / 8; ++jj) {
+      const int j = cb * (kCb / 8) + jj;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        *reinterpret_cast<float2*>(ds + (rl + 8 * i) * kLd + 8 * jj +
+                                   2 * (lane & 3)) =
+            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      }
+    }
+    consumer_sync();
+    const int c_loc = cb * kCb + 2 * lane;
+    const int c = n0 + c_loc;
+#pragma unroll 2
+    for (int r_loc = warp; r_loc < kK2Rows; r_loc += kThreads / 32) {
+      const int r = m0 + r_loc;
+      if (r >= T || c >= dff) continue;
+      const int64_t off = static_cast<int64_t>(r) * dff + c;
+      uint32_t g2, u2;
+      if constexpr (kTma) {
+        // box b of gate (b + kK2GateBoxes of up) in epilogue step b / 6,
+        // slot b % 6; 128-byte swizzle inside the box
+        const int b = (r_loc / kBox) * (kK2Cols / kBox) + cb;
+        const int bu = b + kK2GateBoxes;
+        const int in_box = (r_loc % kBox) * 128 +
+                           (((lane >> 2) ^ (r_loc & 7)) << 4) +
+                           (lane & 3) * 4;
+        const uint32_t at_g =
+            stage_at((n_steps + b / kK2BoxesPerStage) % kK2Stages) +
+            (b % kK2BoxesPerStage) * kBoxBytes + in_box;
+        const uint32_t at_u =
+            stage_at((n_steps + bu / kK2BoxesPerStage) % kK2Stages) +
+            (bu % kK2BoxesPerStage) * kBoxBytes + in_box;
+        asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(g2) : "r"(at_g));
+        asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(u2) : "r"(at_u));
+      } else {
+        g2 = load_pair(gate + off - c, c, dff, pairs);
+        u2 = load_pair(up + off - c, c, dff, pairs);
+      }
+      float dg[2], du[2];
+      swiglu_vjp2(*reinterpret_cast<const float2*>(ds + r_loc * kLd +
+                                                   2 * lane),
+                  g2, u2, dg, du);
+      if (pairs && c + 1 < dff) {
+        *reinterpret_cast<uint32_t*>(dgate + off) = pack_bf16(dg[0], dg[1]);
+        *reinterpret_cast<uint32_t*>(dup + off) = pack_bf16(du[0], du[1]);
+      } else {
+        dgate[off] = __float2bfloat16_rn(dg[0]);
+        dup[off] = __float2bfloat16_rn(du[0]);
+        if (c + 1 < dff) {
+          dgate[off + 1] = __float2bfloat16_rn(dg[1]);
+          dup[off + 1] = __float2bfloat16_rn(du[1]);
         }
       }
-    }
-  }
-
-  // epilogue: the swiglu VJP on the float32 d_s tile; d_s is never stored
-  float* stage = reinterpret_cast<float*>(smem);
-  __syncthreads();
-  stage_acc(stage, acc, wm, wn);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTM * kTN; i += kThreads) {
-    const int r = i / kTN;
-    const int c = i % kTN;
-    if (m0 + r < T && n0 + c < dff) {
-      const int64_t off = static_cast<int64_t>(m0 + r) * dff + n0 + c;
-      const float ds = stage[r * kLdStage + c];
-      const float g = __bfloat162float(gate[off]);
-      const float u = __bfloat162float(up[off]);
-      const float s = sigmoid(g);
-      dgate[off] = __float2bfloat16_rn(ds * u * (s * (1.0f + g * (1.0f - s))));
-      dup[off] = __float2bfloat16_rn(ds * (g * s));
     }
   }
 }
@@ -952,7 +1166,7 @@ cudaError_t encode_bf16_map(CUtensorMap* map, const void* ptr, int rows,
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, kK1Tok};
+  const cuuint32_t box[2] = {kBox, kBox};
   const cuuint32_t steps[2] = {1, 1};
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
@@ -960,6 +1174,45 @@ cudaError_t encode_bf16_map(CUtensorMap* map, const void* ptr, int rows,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a float32 vector of n elements in boxes of 64 (256
+// bytes, no swizzle), zeros past its end.
+cudaError_t encode_f32_vector_map(CUtensorMap* map, const void* ptr, int n) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n) * 4};  // unread
+  const cuuint32_t box[1] = {kBox};
+  const cuuint32_t steps[1] = {1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims,
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory, then launches it on
+// `grid` blocks of `threads`.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, int threads, size_t bytes,
+           void* stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The number of output tiles of an n_m x n_n grid issued along one axis,
+// or -1 past the grid's limit.
+int linear_tiles(int rows, int tile_rows, int cols, int tile_cols) {
+  const int64_t n = static_cast<int64_t>((rows + tile_rows - 1) / tile_rows) *
+                    ((cols + tile_cols - 1) / tile_cols);
+  return n > 0x7fffffff ? -1 : static_cast<int>(n);
 }
 
 }  // namespace
@@ -972,13 +1225,29 @@ extern "C" {
 int rt_dw_gateup(const void* x, const void* rstd, const void* norm_w,
                  const void* dgate, const void* dup, void* dw_gate,
                  void* dw_up, int T, int d, int dff, void* stream) {
-  dim3 grid((dff + kTN - 1) / kTN, (d + kTM - 1) / kTM);
-  dw_gateup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(rstd),
-      static_cast<const bf16*>(norm_w), static_cast<const bf16*>(dgate),
-      static_cast<const bf16*>(dup), static_cast<bf16*>(dw_gate),
-      static_cast<bf16*>(dw_up), T, d, dff);
-  return static_cast<int>(cudaGetLastError());
+  const int tiles = linear_tiles(d, kK3Rows, dff, kK3Cols);
+  if (tiles < 0) return static_cast<int>(cudaErrorInvalidValue);
+  // TMA needs row strides that are multiples of 16 bytes
+  const bool tma = T > 0 && d % 8 == 0 && dff % 8 == 0;
+  CUtensorMap maps[6] = {};
+  if (tma) {
+    cudaError_t err = encode_bf16_map(&maps[0], x, T, d);
+    if (err == cudaSuccess) err = encode_bf16_map(&maps[1], dgate, T, dff);
+    if (err == cudaSuccess) err = encode_bf16_map(&maps[2], dup, T, dff);
+    if (err == cudaSuccess) err = encode_f32_vector_map(&maps[3], rstd, T);
+    if (err == cudaSuccess) err = encode_bf16_map(&maps[4], dw_gate, d, dff);
+    if (err == cudaSuccess) err = encode_bf16_map(&maps[5], dw_up, d, dff);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return launch(tma ? dw_gateup_kernel<true> : dw_gateup_kernel<false>,
+                dim3(tiles), tma ? kRingThreads<true> : kRingThreads<false>,
+                kK3SmemBytes, stream, maps[0], maps[1], maps[2], maps[3],
+                maps[4], maps[5],
+                static_cast<const bf16*>(x), static_cast<const float*>(rstd),
+                static_cast<const bf16*>(norm_w),
+                static_cast<const bf16*>(dgate),
+                static_cast<const bf16*>(dup), static_cast<bf16*>(dw_gate),
+                static_cast<bf16*>(dw_up), T, d, dff);
 }
 
 // gate/up [T, d_ff], dy [T, d] bf16, row-major and 16-byte aligned;
@@ -988,7 +1257,6 @@ int rt_dw_down(const void* gate, const void* up, const void* dy,
   if ((dff + kK1Rows - 1) / kK1Rows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // TMA needs row strides that are multiples of 16 bytes
   const bool tma = T > 0 && dff % 8 == 0 && d % 8 == 0;
   CUtensorMap maps[3] = {};
   if (tma) {
@@ -997,18 +1265,14 @@ int rt_dw_down(const void* gate, const void* up, const void* dy,
     if (err == cudaSuccess) err = encode_bf16_map(&maps[2], dy, T, d);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  auto kernel = tma ? dw_down_kernel<true> : dw_down_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kK1SmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((d + kK1Cols - 1) / kK1Cols, (dff + kK1Rows - 1) / kK1Rows);
-  kernel<<<grid, tma ? kK1Threads<true> : kK1Threads<false>, kK1SmemBytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], static_cast<const bf16*>(gate),
-      static_cast<const bf16*>(up), static_cast<const bf16*>(dy),
-      static_cast<bf16*>(dw_down), T, d, dff);
-  return static_cast<int>(cudaGetLastError());
+  return launch(tma ? dw_down_kernel<true> : dw_down_kernel<false>,
+                dim3((d + kK1Cols - 1) / kK1Cols,
+                     (dff + kK1Rows - 1) / kK1Rows),
+                tma ? kRingThreads<true> : kRingThreads<false>, kK1SmemBytes,
+                stream, maps[0], maps[1], maps[2],
+                static_cast<const bf16*>(gate), static_cast<const bf16*>(up),
+                static_cast<const bf16*>(dy), static_cast<bf16*>(dw_down), T,
+                d, dff);
 }
 
 // dy [T, d], w_down [d_ff, d], gate/up [T, d_ff] bf16, row-major and
@@ -1016,12 +1280,25 @@ int rt_dw_down(const void* gate, const void* up, const void* dy,
 int rt_dgateup(const void* dy, const void* w_down, const void* gate,
                const void* up, void* dgate, void* dup, int T, int d, int dff,
                void* stream) {
-  dim3 grid((dff + kTN - 1) / kTN, (T + kTM - 1) / kTM);
-  dgateup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(dy), static_cast<const bf16*>(w_down),
-      static_cast<const bf16*>(gate), static_cast<const bf16*>(up),
-      static_cast<bf16*>(dgate), static_cast<bf16*>(dup), T, d, dff);
-  return static_cast<int>(cudaGetLastError());
+  const int tiles = linear_tiles(T, kK2Rows, dff, kK2Cols);
+  if (tiles < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool tma = T > 0 && d > 0 && d % 8 == 0 && dff % 8 == 0;
+  CUtensorMap maps[4] = {};
+  if (tma) {
+    cudaError_t err = encode_bf16_map(&maps[0], dy, T, d);
+    if (err == cudaSuccess) err = encode_bf16_map(&maps[1], w_down, dff, d);
+    if (err == cudaSuccess) err = encode_bf16_map(&maps[2], gate, T, dff);
+    if (err == cudaSuccess) err = encode_bf16_map(&maps[3], up, T, dff);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return launch(tma ? dgateup_kernel<true> : dgateup_kernel<false>,
+                dim3(tiles), tma ? kRingThreads<true> : kRingThreads<false>,
+                kK2SmemBytes, stream, maps[0], maps[1], maps[2], maps[3],
+                static_cast<const bf16*>(dy),
+                static_cast<const bf16*>(w_down),
+                static_cast<const bf16*>(gate), static_cast<const bf16*>(up),
+                static_cast<bf16*>(dgate), static_cast<bf16*>(dup), T, d,
+                dff);
 }
 
 // The same three entries for float32 operands and outputs (rstd float32).

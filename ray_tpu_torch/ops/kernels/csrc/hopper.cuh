@@ -120,6 +120,36 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// The box at element `c0` of the vector `map` describes (rank 1), into
+// shared memory at `dst`, completing on mbarrier `bar`.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const void* map,
+                                            int c0, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(bar)
+      : "memory");
+}
+
+// The box at (column c0, row c1) of the matrix `map` describes, from
+// shared memory at `src` (the layout a load of that box gives), clipped at
+// the matrix's edges; a bulk group of this thread's.
+__device__ __forceinline__ void tma_store_2d(const void* map, int c0, int c1,
+                                             uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2}], [%3];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+
+// Closes this thread's bulk group, and waits until its stores have read
+// their shared memory (not until they reach device memory).
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------ products
 
 #define RT_D8(i)                                                   \
@@ -138,6 +168,36 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : RT_D8(0), RT_D8(8), RT_D8(16), RT_D8(24)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 256] += A . B, A and B K-major in shared memory (descriptors).
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128],
+                                              uint64_t desc_a,
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : RT_D8(0), RT_D8(8), RT_D8(16), RT_D8(24), RT_D8(32), RT_D8(40),
+        RT_D8(48), RT_D8(56), RT_D8(64), RT_D8(72), RT_D8(80), RT_D8(88),
+        RT_D8(96), RT_D8(104), RT_D8(112), RT_D8(120)
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 

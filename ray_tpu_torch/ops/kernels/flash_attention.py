@@ -98,15 +98,19 @@ def _scores(q, k, scale, causal):
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, causal: bool = True
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the forward kernel."""
+    """Plain PyTorch version of the forward kernel. A row that may attend
+    no key (causal with sq > sk: rows r < sq - sk) gives out 0, as the
+    kernels do, and lse -1e30."""
     s, valid = _scores(q, k, scale, causal)
     s = torch.where(valid, s, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    lse = (m + torch.log(l))[..., 0]
+    p = torch.where(valid.any(dim=-1, keepdim=True), p, 0.0)
     acc = torch.matmul(p.to(q.dtype).float(), v.float())
     out = (acc / l).to(q.dtype)
-    return out, (m + torch.log(l))[..., 0]
+    return out, lse
 
 
 def _p_ds_plain(q, k, v, do, lse, delta, scale, causal):

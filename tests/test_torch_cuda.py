@@ -953,3 +953,111 @@ def test_attention_entries_launch_the_kernels_at_head_dim_256(cuda):
         attention(wide.view(1, 1, 128, 320), wide.view(1, 1, 128, 320),
                   wide.view(1, 1, 128, 320))
 
+
+
+# --------------------------- rows that see no key; the wgmma K3 and K2
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 128, 96])
+def test_rows_that_see_no_key_give_zero_on_the_card(no_tf32, d, dtype,
+                                                    packed):
+    """Causal with sq 300 > sk 64: rows 0-235 attend no key. The forward
+    kernel (bf16 and float32, both layouts; head_dim 96 zero-padded to 128)
+    gives out 0 there, as its plain version does, and agrees with it
+    everywhere: within 1e-2 (bf16) or 1e-4 (float32), lse within 2e-5; the
+    bf16 dk/dv and dq kernels within 1e-2."""
+    cuda = no_tf32
+    b, h, kv, sq, sk = 1, 2, 2, 300, 64
+    make = _f32 if dtype == torch.float32 else _bf16
+    q, do = make((b, sq, h * d), cuda, 0), make((b, sq, h * d), cuda, 3)
+    k, v = make((b, sk, kv * d), cuda, 1), make((b, sk, kv * d), cuda, 2)
+    scale = d ** -0.5
+    if packed:
+        args = (h, kv, scale, True)
+        fwd, fwd_plain = fa.flash_fwd_packed, fa.flash_fwd_packed_plain
+        dkv, dkv_plain = fa.flash_bwd_dkv_packed, fa.flash_bwd_dkv_packed_plain
+        dq, dq_plain = fa.flash_bwd_dq_packed, fa.flash_bwd_dq_packed_plain
+        delta_of = lambda o: fa.flash_delta_packed(o, do, h)  # noqa: E731
+    else:
+        q, k, v, do = (_heads(t, n).reshape(b * n, t.shape[1], d).contiguous()
+                       for t, n in ((q, h), (k, kv), (v, kv), (do, h)))
+        args = (scale, True)
+        fwd, fwd_plain = fa.flash_fwd, fa.flash_fwd_plain
+        dkv, dkv_plain = fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain
+        dq, dq_plain = fa.flash_bwd_dq, fa.flash_bwd_dq_plain
+        delta_of = lambda o: fa.flash_delta(o, do)  # noqa: E731
+    out, lse = fwd(q, k, v, *args)
+    p_out, p_lse = fwd_plain(q, k, v, *args)
+    got, want = [out], [p_out]
+    if dtype == torch.bfloat16:
+        bwd = (q, k, v, do, p_lse, delta_of(p_out), *args)
+        got += [*dkv(*bwd), dq(*bwd)]
+        want += [*dkv_plain(*bwd), dq_plain(*bwd)]
+    torch.cuda.synchronize()
+    tol = F32_KERNEL_TOL if dtype == torch.float32 else REL_TOL
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel_err(g, w) < tol
+    assert _rel_err(lse, p_lse) < STAT_TOL
+    assert bool((out[:, :sq - sk] == 0).all())
+    assert bool((p_out[:, :sq - sk] == 0).all())
+    assert bool((out[:, sq - sk:] != 0).any())
+
+
+FFN_SHAPES = [(4096, 4096, 14336), (1000, 4000, 3000), (300, 264, 1001),
+              (77, 131, 72)]
+
+
+@pytest.mark.parametrize("T,d,dff", FFN_SHAPES)
+def test_wgmma_k3_kernel_matches_plain_version(cuda, T, d, dff):
+    """The wgmma K3 at the 8B shape (TMA ring), at a shape that tiles on no
+    axis, at a d_ff that is not a multiple of 8 and an odd d (the cp.async
+    ring with element-wise chunks)."""
+    x = _bf16((T, d), cuda, 0)
+    dgate, dup = _bf16((T, dff), cuda, 1, 0.01), _bf16((T, dff), cuda, 2,
+                                                       0.01)
+    rstd = torch.from_numpy(np.random.default_rng(4).random(
+        (T, 1)).astype(np.float32) + 0.5).to(cuda)
+    nw = _bf16((d,), cuda, 5, 0.1) + 1
+    before = ff.dw_gateup.launches
+    dwg, dwu = ff.dw_gateup(x, rstd, nw, dgate, dup)
+    p_dwg, p_dwu = ff.dw_gateup_plain(x, rstd, nw, dgate, dup)
+    torch.cuda.synchronize()
+    assert dwg.shape == dwu.shape == (d, dff)
+    assert _rel_err(dwg, p_dwg) < REL_TOL
+    assert _rel_err(dwu, p_dwu) < REL_TOL
+    assert ff.dw_gateup.launches == before + 1
+
+
+def test_k3_h_operand_equals_the_plain_normed_x(cuda):
+    """With dgate the identity (T = d_ff = 256), dW_gate[i, t] is the
+    kernel's bf16 h of token t, d row i (one nonzero term a sum): equal to
+    the plain version's (x·rstd)·norm_w rounded to bf16, value for value."""
+    T, d = 256, 4096
+    x = _bf16((T, d), cuda, 0)
+    rstd = torch.from_numpy(np.random.default_rng(4).random(
+        (T, 1)).astype(np.float32) + 0.5).to(cuda)
+    nw = _bf16((d,), cuda, 5, 0.1) + 1
+    eye = torch.eye(T, device=cuda, dtype=torch.bfloat16)
+    dwg, dwu = ff.dw_gateup(x, rstd, nw, eye, eye)
+    h = ff.normed(x, rstd, nw)
+    torch.cuda.synchronize()
+    assert torch.equal(dwg.T, h) and torch.equal(dwu.T, h)
+
+
+@pytest.mark.parametrize("T,d,dff", FFN_SHAPES)
+def test_wgmma_k2_kernel_matches_plain_version(cuda, T, d, dff):
+    """The wgmma K2 (shared-memory A and B, gate/up prefetched into the
+    ring for the epilogue) at the same four shapes."""
+    gate, up = _bf16((T, dff), cuda, 0), _bf16((T, dff), cuda, 1)
+    dy = _bf16((T, d), cuda, 2, 0.01)
+    wd = _bf16((dff, d), cuda, 3, dff ** -0.5)
+    before = ff.dgateup.launches
+    dgate, dup = ff.dgateup(dy, wd, gate, up)
+    p_dgate, p_dup = ff.dgateup_plain(dy, wd, gate, up)
+    torch.cuda.synchronize()
+    assert dgate.shape == dup.shape == (T, dff)
+    assert _rel_err(dgate, p_dgate) < REL_TOL
+    assert _rel_err(dup, p_dup) < REL_TOL
+    assert ff.dgateup.launches == before + 1
