@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
      in the checkout (one nvcc per source, started together), and log
      ptxas's registers, spills and shared memory of the wgmma kernels (the
      flash forward, dq and dk/dv at each head_dim; K1's, K3's and K2's TMA
-     and cp.async instances) with any ptxas warning;
+     and cp.async instances) and of the float32 K1 and K2 at each tile,
+     with any ptxas warning; fail if a 128 x 128 float32 tile (an 8 x 8
+     patch a thread) spills;
   3. hold each quant kernel against its plain PyTorch version on the card,
      bit for bit, at every shape the serving path gives it (the quant
      kernel's stacked [L, in, out] leaves included) and at the six 8B
@@ -64,9 +66,13 @@ Phases (any failure exits non-zero and prints no result line):
  7d. hold the six float32 kernels (flash forward, dk/dv, dq; K3, K1, K2)
      against their plain versions with TF32 off (within 1e-4 of the plain
      max): the flash kernels at the 8B attention shape in float32, a ragged
-     shape and the shape of the tiny variant below, the FFN kernels at T
-     512 x d 256 x d_ff 512, a ragged shape and the tiny variant's; time
-     each with its float32 bound (67 TFLOP/s) and a library call; then
+     shape and the shape of the tiny variant below, the FFN kernels at the
+     8B FFN shape in float32, T 512 x d 256 x d_ff 512, a ragged shape and
+     the tiny variant's, K1 and K2 also bit-identical across two calls;
+     time each with its float32 bound (67 TFLOP/s) and a library call; one
+     summary line each for the float32 K1 and K2 at the 8B shape and the
+     tiny variant's (ms a launch, bound, share, library, and the first
+     SIMT design's time from PERF.md); then
      train ModelConfig.tiny() in float32 widened to head_dim 128 (d_model
      256, 2 heads, 1 kv head; fused_ffn, fused_attn, USE_K1 = USE_K2 =
      True) for 3 steps at b 2 x s 128, each float32 kernel launched exactly
@@ -1611,9 +1617,34 @@ def check_entries_at_head_dim(torch, gen, attn_mod, fused_attn, fa,
 
 # The first (wmma) designs of flash dk/dv, its packed run, K1, K3 and K2,
 # ms a launch at the 8B shape, as PERF.md §6 records them before the wgmma
-# redesigns replaced them (NVIDIA H100 80GB HBM3, 700 W).
+# redesigns replaced them; and the first (SIMT, 64 x 64 tiles, unsplit)
+# float32 K1 and K2 by (T, d, d_ff): at the float32 tiny variant's shape
+# (half the ms a step PERF.md §6 recorded) and at the 8B shape (ffnbench,
+# before their redesign), as PERF.md gives them (NVIDIA H100 80GB HBM3,
+# 700 W).
 OLD_MS = {"flash_bwd_dkv": 2.4535, "flash_bwd_dkv_packed": 2.7611,
-          "dw_down": 4.8364, "dw_gateup": 6.3235, "dgateup": 3.0733}
+          "dw_down": 4.8364, "dw_gateup": 6.3235, "dgateup": 3.0733,
+          "dw_down_f32": {(256, 256, 256): 0.0796,
+                          (4096, 4096, 14336): 28.2689},
+          "dgateup_f32": {(256, 256, 256): 0.0567,
+                          (4096, 4096, 14336): 22.4388}}
+
+
+def f32_ffn_summary(rows, card: str) -> None:
+    """The redesigned float32 K1 and K2 at each shape their OLD_MS entry
+    has: ms a launch, bound, share, the library call's time, and the first
+    design's time."""
+    for name in ("dw_down_f32", "dgateup_f32"):
+        old = OLD_MS[name]
+        for r in rows[name]:
+            shape = tuple(r["shape"])
+            if shape not in old:
+                continue
+            log(f"{name} at {list(shape)}: {r['ms']:.4f} ms a launch, bound "
+                f"{r['bound_ms']:.4f} ms, {r['bound_ms'] / r['ms']:.3f} of "
+                f"bound; library {r['library_ms']:.4f} ms "
+                f"({r['ms'] / r['library_ms']:.2f}x it; {r['library']}); "
+                f"the first SIMT design {old[shape]} ms (PERF.md) [{card}]")
 
 
 def redesign_summary(rows, names, card: str) -> None:
@@ -1737,15 +1768,15 @@ def f32_flash_shapes(cfg):
 
 def f32_ffn_shapes(cfg):
     """(T, d, d_ff, calls per step of the f32 tiny variant) of the float32
-    fused-FFN kernels: T 512 x d 256 x d_ff 512, one that tiles on no axis
-    (64 x 64 output tiles, 16 of the reduction a step), and the tiny
+    fused-FFN kernels: the 8B FFN shape, T 512 x d 256 x d_ff 512, one that
+    tiles on no axis (and K1 and K2 split their reductions), and the tiny
     variant's own."""
-    return [(512, 256, 512, 0), (1000, 200, 328, 0),
+    return [(4096, 4096, 14336, 0), (512, 256, 512, 0), (1000, 200, 328, 0),
             (F32_TINY_BATCH * F32_TINY_SEQ, cfg.d_model, cfg.d_ff,
              cfg.n_layers)]
 
 
-def check_f32_kernels(torch, gen, cfg):
+def check_f32_kernels(torch, gen, cfg, card: str):
     """Phase 7d: the six float32 kernels (flash forward, dk/dv and dq, K3,
     K1, K2) against their plain versions, with their times, float32 bounds
     and a library call's time. Returns {kernel_f32: rows}."""
@@ -1842,7 +1873,18 @@ def check_f32_kernels(torch, gen, cfg):
         p_dwd = ff.dw_down_plain(gate, up, dy)
         dg, du = ff.dgateup(dy, wd, gate, up)
         p_dg, p_du = ff.dgateup_plain(dy, wd, gate, up)
+        # K1 and K2 split no reduction with atomics: a second call gives
+        # the same bits
+        same = {"dw_down": torch.equal(dwd, ff.dw_down(gate, up, dy)),
+                "dgateup": all(map(torch.equal, (dg, du),
+                                   ff.dgateup(dy, wd, gate, up)))}
         torch.cuda.synchronize()
+        log(f"float32 K1 and K2 at {(T, d, dff)}: plan K1 "
+            f"{ff.f32_plan(dff, d, T)}, K2 {ff.f32_plan(T, dff, d)}; two "
+            f"calls bit-identical {same}")
+        if not all(same.values()):
+            fail(f"float32 K1/K2 at {(T, d, dff)} differ between two calls: "
+                 f"{same}")
         k3_checks = [("dw_gate", rel_err(torch, dwg, p_dwg), lim),
                      ("dw_up", rel_err(torch, dwu, p_dwu), lim)]
         k1_checks = [("dw_down", rel_err(torch, dwd, p_dwd), lim)]
@@ -1874,6 +1916,7 @@ def check_f32_kernels(torch, gen, cfg):
         del dwg, dwu, p_dwg, p_dwu, dwd, p_dwd, dg, du, p_dg, p_du
         torch.cuda.empty_cache()
     del flush
+    f32_ffn_summary(rows, card)
     torch.cuda.empty_cache()
     log(f"phase 7d: {time.perf_counter() - t0:.2f} s")
     return rows
@@ -1948,14 +1991,17 @@ def train_f32_tiny(torch, seed: int, cfg):
     return launches
 
 
-# dynamic shared memory a block of each wgmma kernel at head_dim d (bf16
-# tiles and 1 KB to align them): the forward's 128 query rows and two
-# stages of 64-row K and V; dq's 128 rows of Q and dO and its K/V stages
-# (one at d 256); dk/dv's K and V (128 keys, 64 at d 256), two stages of
-# Q and dO and of lse and delta; K1's three stages of gate, up and dy;
-# K3's four of x, dgate and dup (64 x 128 each) and 64 rstd values; K2's
-# four of dy (128 x 64) and W_down (256 x 64).
-WGMMA_SMEM = {
+# dynamic shared memory a block of each kernel ptxas_report logs, at head_dim
+# d or float32 tile d: the wgmma kernels' bf16 tiles and 1 KB to align
+# them (the forward's 128 query rows and two stages of 64-row K and V; dq's
+# 128 rows of Q and dO and its K/V stages (one at d 256); dk/dv's K and V
+# (128 keys, 64 at d 256), two stages of Q and dO and of lse and delta;
+# K1's three stages of gate, up and dy; K3's four of x, dgate and dup (64 x
+# 128 each) and 64 rstd values; K2's four of dy (128 x 64) and W_down (256
+# x 64)); the float32 K1's three stages of gate, up and dy (16 x (d + 4)
+# floats each), and K2's three of dy and W_down as loaded (d x 20 floats
+# each) and two pairs of transposed tiles (16 x (d + 4)).
+KERNEL_SMEM = {
     "flash_fwd_kernel": lambda d: 2 * (128 + 4 * 64) * d + 1024,
     "flash_bwd_dq_kernel": lambda d: (2 * (256 + (2 if d > 128 else 4) * 64)
                                       * d + 1024),
@@ -1965,13 +2011,18 @@ WGMMA_SMEM = {
     "dw_down_kernel": lambda d: 2 * 3 * (2 * 64 * 128 + 64 * 256) + 1024,
     "dw_gateup_kernel": lambda d: 4 * (2 * 3 * 64 * 128 + 4 * 64) + 1024,
     "dgateup_kernel": lambda d: 2 * 4 * (128 + 256) * 64 + 1024,
+    "dw_down_f32_kernel": lambda d: 4 * 3 * 3 * 16 * (d + 4),
+    "dgateup_f32_kernel": lambda d: 4 * (3 * 2 * d * 20
+                                         + 2 * 2 * 16 * (d + 4)),
 }
 
 
 def ptxas_report(procs) -> None:
     """Log ptxas's registers, spills and the dynamic shared memory of the
-    wgmma kernels (the `nvcc -Xptxas -v` runs started in phase 2), any
-    warning ptxas gives, and any note that it serialized products."""
+    wgmma kernels and the float32 K1 and K2 (the `nvcc -Xptxas -v` runs
+    started in phase 2), any warning ptxas gives, and any note that it
+    serialized products; fail if a float32 K1 or K2 with 128 x 128 tiles
+    (8 x 8 accumulators a thread) spills."""
     import re
 
     for name, (proc, out_path) in procs.items():
@@ -1986,7 +2037,8 @@ def ptxas_report(procs) -> None:
                 log(f"ptxas {name}.cu: {line.strip()}")
             m = re.search(r"Compiling entry function '.*?(flash_fwd_kernel|"
                           r"flash_bwd_dq_kernel|flash_bwd_dkv_kernel|"
-                          r"dw_down_kernel|dw_gateup_kernel|dgateup_kernel)"
+                          r"dw_down_kernel|dw_gateup_kernel|dgateup_kernel|"
+                          r"dw_down_f32_kernel|dgateup_f32_kernel)"
                           r"I?L?([ib])(\d*)", line)
             if not m:
                 continue
@@ -1999,7 +2051,10 @@ def ptxas_report(procs) -> None:
                              for x in lines[i + 1:i + 4]
                              if "registers" in x or "spill" in x)
             log(f"ptxas {kernel}{inst}: {stats}; dynamic shared memory "
-                f"{WGMMA_SMEM[kernel](d)} bytes a block")
+                f"{KERNEL_SMEM[kernel](d)} bytes a block")
+            if (kernel.endswith("_f32_kernel") and d == 128
+                    and not re.search(r"\b0 bytes spill stores", stats)):
+                fail(f"ptxas: {kernel}{inst} spills ({stats})")
 
 
 def main() -> int:
@@ -2173,7 +2228,7 @@ def main() -> int:
     # ---- phase 7d: the float32 kernels, then the float32 tiny variant
     # trained through them
     f32_cfg = f32_tiny_config()
-    f32_rows = check_f32_kernels(torch, gen, f32_cfg)
+    f32_rows = check_f32_kernels(torch, gen, f32_cfg, card)
     f32_launches = train_f32_tiny(torch, args.seed, f32_cfg)
     # ---- phase 7e: head dims 256, 96 and 192 on the flash route
     check_head_dims(torch, gen, train_rows, packed_rows, f32_rows)

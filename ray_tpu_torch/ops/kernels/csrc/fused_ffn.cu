@@ -12,7 +12,9 @@
 //      replaces _dw_gateup_kernel (fused_ffn.py:121, called at :264 when
 //      USE_K3)
 //
-// plus float32 twins of all three (*_f32_kernel, at the end of the file).
+// plus float32 twins of all three (*_f32_kernel, near the end of the
+// file; K1's and K2's on a SIMT mainloop of their own, fed by a cp.async
+// ring, with tiles and a split of the reduction planned on the host).
 //
 // What bounds them on an H100: tensor-core operations. At the Llama-3-8B
 // training shape (T = 4096 tokens, d = 4096, d_ff = 14336) K1 and K2 are
@@ -953,13 +955,15 @@ __global__ void __launch_bounds__(kRingThreads<kTma>, 1)
 // ---------------------------------------------------------------- float32
 //
 // K1, K2 and K3 for float32 operands and outputs (the reference keeps the
-// model's dtype, fused_ffn.py:264 on): one plain tiled SIMT product,
+// model's dtype, fused_ffn.py:264 on). Every product is an FMA on the CUDA
+// cores in float32: TF32 would keep ~3 digits, and the kernels are held
+// within 1e-4 of their plain versions. Bound on an H100: float32 operations
+// (67 TFLOP/s).
+//
+// K3 (dw_gateup_f32_kernel) is one plain tiled SIMT product,
 // C[m][n] = sum_k A(m, k) B(k, n) over a 64 x 64 output tile, 16 of k a
 // step through shared memory, each of 256 threads owning a 4 x 4 patch
-// (rows 4ty + i, columns tx + 16j), every product an FMA on the CUDA cores
-// in float32 (TF32 would keep ~3 digits). The modes differ only in how A
-// and B are fetched (with K1's swiglu and K3's h computed on the fly) and
-// in K2's epilogue. Bound on an H100: float32 operations (67 TFLOP/s).
+// (rows 4ty + i, columns tx + 16j), A (its h) and B fetched by scalar loads.
 
 constexpr int kFT = 64;  // output tile
 constexpr int kFK = 16;  // reduction step
@@ -1058,76 +1062,482 @@ __global__ void __launch_bounds__(kThreads)
   store_tile_f32(blockIdx.z ? dw_up : dw_gate, c, m0, n0, d, dff);
 }
 
-// K1: dW_down = swiglu(gate, up)^T . dy, swiglu = silu(g) * u.
-__global__ void __launch_bounds__(kThreads)
+// ------------------------------------------------- float32 K1 and K2
+//
+// One SIMT mainloop, C[m][n] = sum_k A(m, k) B(k, n), shared by K1 and K2
+// (and shaped so that K3, with its h as `land`, can move onto it):
+//  * a block of 256 threads owns a kB x kB output tile (kB 128 or 64),
+//    each thread a (kB/16) x (kB/16) patch: rows 4ty + r + 64i, columns
+//    4tx + c + 64j (ty, tx = thread / 16, thread % 16). Both operands sit
+//    in shared memory k-major ([k][m] and [k][n], rows padded by 4 floats),
+//    so each k reads a thread's A and B as float4s: at kB 128, 4 vector
+//    loads for 64 FMAs (the first SIMT design read 8 scalars for 16). A
+//    k row's float4 reads are one address for A (a broadcast) and 16
+//    consecutive ones for B: no bank conflicts.
+//  * a ring of kF32Stages stages of 16 of k, filled by 16-byte cp.async
+//    (element by element and zero-filled at ragged edges and in rows that
+//    are not 16-byte aligned, as copy_chunk does for bf16), one block
+//    barrier a stage: stages st + 1 and st + 2 load while st multiplies.
+//  * `land(step, stage)` runs on each thread's own chunks of a stage once
+//    they have arrived (cp.async.wait_group makes a thread's own copies
+//    visible to it), before the barrier that releases the stage: K1's
+//    swiglu, once per element per block, and K2's transpose of its
+//    d-contiguous operands into the k-major tiles.
+//  * the tile and a split of the reduction are planned on the host
+//    (fused_ffn.py `f32_plan`): 128 x 128 tiles where those alone fill a
+//    wave of 132 SMs, else 64 x 64, and where those do not either, the
+//    reduction cut into S slices of whole stages (slice s: stages
+//    [s n / S, (s + 1) n / S) of n, `f32_slices`), grid (tiles, S). With
+//    S > 1 each block writes its float32 partial tile to a workspace
+//    [S, M, N] (allocated by the wrapper), and a second kernel sums the S
+//    partials in slice order and applies the epilogue (K2's swiglu VJP) to
+//    the sum. No atomics: every call gives the same bits. A second kernel
+//    rather than the last block of a tile found by a counter: no counters
+//    to keep at zero across calls and streams, no fences, and it costs one
+//    launch on shapes that are launch-bound anyway. One wrapper call
+//    launches one kernel (S = 1) or two.
+//  * tiles are issued in groups (grouped_tile), so that a wave's blocks
+//    share operand rows in L2 (112 x 32 tiles of 128 at the 8B shape).
+// At the 8B shape both reach ~0.58 of the float32 bound, two blocks an SM
+// (127-128 registers a thread). What holds them there is not shared memory
+// (halving the float4 reads gained 1-2%), occupancy (two blocks an SM, as
+// planned), the copies (K2's transposes cost 6.5%) or a missing register
+// prefetch of the next k (0.2%); 16 x 8 patches at 128 threads, one block
+// an SM without the register cap, four stages and 32-deep stages were all
+// slower (PERF.md).
+
+constexpr int kF32K = 16;  // of the reduction a stage
+constexpr int kF32Stages = 3;
+
+template <int kB>
+struct F32Tile {
+  static constexpr int kP = kB / 16;             // a thread's patch: kP x kP
+  static constexpr int kLd = kB + 4;             // floats a k row
+  static constexpr int kFloats = kF32K * kLd;    // a k-major tile
+  static constexpr int kRawLd = kF32K + 4;       // floats an m row (K2)
+  static constexpr int kRaw = kB * kRawLd;       // an m-major tile (K2)
+  static constexpr int kChunks = kB * kF32K / 4 / kThreads;  // a thread's
+  static_assert(kB == 64 || kB == 128, "4 x 4 or 8 x 8 patches");
+};
+
+// K1: three k-major tiles a stage (gate, up, dy); K2: two m-major tiles a
+// stage (dy, W_down) and two pairs of k-major tiles they are transposed
+// into (one pair per stage in flight: see f32_mainloop).
+template <int kB>
+constexpr size_t kK1F32Smem = kF32Stages * 3 * F32Tile<kB>::kFloats * 4;
+template <int kB>
+constexpr size_t kK2F32Smem =
+    (kF32Stages * 2 * F32Tile<kB>::kRaw + 2 * 2 * F32Tile<kB>::kFloats) * 4;
+
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Four floats src[0..4) into shared memory at dst: by cp.async when the row
+// is 16-byte aligned (`vec`) and all 4 are in range, zero-filled when none
+// is, else element by element.
+__device__ __forceinline__ void copy4_f32(uint32_t dst, const float* src,
+                                          int left, bool vec) {
+  if (left <= 0 || (vec && left >= 4)) {
+    cp_async16(dst, src, left > 0);
+  } else {
+    float e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = i < left ? src[i] : 0.0f;
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+                 "f"(e[0]), "f"(e[1]), "f"(e[2]), "f"(e[3])
+                 : "memory");
+  }
+}
+
+// Chunk it of this thread in a [16 x kB] k-major tile: k row `k`, columns
+// c .. c + 3 (a warp copies 512 contiguous bytes).
+template <int kB>
+__device__ __forceinline__ void kmajor_chunk(int it, int& k, int& c) {
+  const int e = threadIdx.x + it * kThreads;
+  k = e / (kB / 4);
+  c = 4 * (e % (kB / 4));
+}
+
+// Rows [k0, k0 + 16) x columns [c0, c0 + kB) of a row-major
+// [n_rows, n_cols] matrix into a k-major tile, zeros past the matrix (a
+// stage that lies inside an aligned matrix skips the checks: 1% at the 8B
+// shape).
+template <int kB>
+__device__ __forceinline__ void copy_kmajor(float* tile, const float* src,
+                                            int k0, int c0, int n_rows,
+                                            int n_cols, bool vec) {
+  const bool whole = vec && k0 + kF32K <= n_rows && c0 + kB <= n_cols;
+#pragma unroll
+  for (int it = 0; it < F32Tile<kB>::kChunks; ++it) {
+    int k, c;
+    kmajor_chunk<kB>(it, k, c);
+    const int row = k0 + k;
+    const uint32_t dst = smem_u32(tile + k * F32Tile<kB>::kLd + c);
+    if (whole) {
+      cp_async16(dst, src + static_cast<int64_t>(row) * n_cols + c0 + c,
+                 true);
+      continue;
+    }
+    const int left = row < n_rows ? n_cols - (c0 + c) : 0;
+    const int64_t off =
+        left > 0 ? static_cast<int64_t>(row) * n_cols + c0 + c : 0;
+    copy4_f32(dst, src + off, left, vec);
+  }
+}
+
+// Chunk it of this thread in a [kB x 16] m-major tile: row m, k .. k + 3. A
+// warp takes 16 rows x 32 bytes (whole sectors); its transposed stores
+// (k rows 4 apart: 16 banks apart at kLd = kB + 4) then hit all 32 banks,
+// and its float4 reads of the rows (kRawLd 20) all 8 bank groups.
+template <int kB>
+__device__ __forceinline__ void mmajor_chunk(int it, int& m, int& k) {
+  const int e = threadIdx.x + it * kThreads;
+  const int g = e / 32;
+  m = 16 * (g % (kB / 16)) + e % 16;
+  k = 4 * (2 * (g / (kB / 16)) + (e / 16) % 2);
+}
+
+// Rows [r0, r0 + kB) x k [k0, k0 + 16) of a row-major [n_rows, n_k]
+// matrix into an m-major tile, zeros past the matrix (checks skipped as
+// in copy_kmajor).
+template <int kB>
+__device__ __forceinline__ void copy_mmajor(float* raw, const float* src,
+                                            int r0, int k0, int n_rows,
+                                            int n_k, bool vec) {
+  const bool whole = vec && r0 + kB <= n_rows && k0 + kF32K <= n_k;
+#pragma unroll
+  for (int it = 0; it < F32Tile<kB>::kChunks; ++it) {
+    int m, k;
+    mmajor_chunk<kB>(it, m, k);
+    const int row = r0 + m;
+    const uint32_t dst = smem_u32(raw + m * F32Tile<kB>::kRawLd + k);
+    if (whole) {
+      cp_async16(dst, src + static_cast<int64_t>(row) * n_k + k0 + k, true);
+      continue;
+    }
+    const int left = row < n_rows ? n_k - (k0 + k) : 0;
+    const int64_t off =
+        left > 0 ? static_cast<int64_t>(row) * n_k + k0 + k : 0;
+    copy4_f32(dst, src + off, left, vec);
+  }
+}
+
+// This thread's chunks of an m-major tile into the k-major tile.
+template <int kB>
+__device__ __forceinline__ void transpose_own(const float* raw,
+                                              float* tile) {
+  using Tl = F32Tile<kB>;
+#pragma unroll
+  for (int it = 0; it < Tl::kChunks; ++it) {
+    int m, k;
+    mmajor_chunk<kB>(it, m, k);
+    const float4 v =
+        *reinterpret_cast<const float4*>(raw + m * Tl::kRawLd + k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tile[(k + i) * Tl::kLd + m] = lane4(v, i);
+  }
+}
+
+// Stages [first, first + count) of the cdiv(K, 16) stages of the reduction:
+// slice blockIdx.y of gridDim.y (fused_ffn.py `f32_slices`).
+__device__ __forceinline__ void f32_slice(int K, int& first, int& count) {
+  const int64_t n = cdiv(K, kF32K);
+  first = static_cast<int>(blockIdx.y * n / gridDim.y);
+  count = static_cast<int>((blockIdx.y + 1) * n / gridDim.y) - first;
+}
+
+// The mainloop over stages [st0, st0 + n_steps): load(step, stage) issues a
+// stage's copies, land(step, stage) finishes this thread's own chunks of it
+// once they are in, tiles(step, stage, a, b) names the k-major A and B tiles
+// the products read. acc comes back as this thread's patch.
+template <int kB, typename Load, typename Land, typename Tiles>
+__device__ __forceinline__ void f32_mainloop(int st0, int n_steps,
+                                             float (&acc)[kB / 16][kB / 16],
+                                             Load load, Land land,
+                                             Tiles tiles) {
+  using Tl = F32Tile<kB>;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < Tl::kP; ++i) {
+#pragma unroll
+    for (int j = 0; j < Tl::kP; ++j) acc[i][j] = 0.0f;
+  }
+#pragma unroll
+  for (int st = 0; st < kF32Stages - 1; ++st) {
+    if (st < n_steps) load(st0 + st, st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < n_steps; ++st) {
+    const int buf = st % kF32Stages;
+    cp_async_wait<kF32Stages - 2>();  // this thread's copies of stage st
+    land(st, buf);
+    // every thread's stage st is in and landed; stage st - 1 is free
+    __syncthreads();
+    const int next = st + kF32Stages - 1;
+    if (next < n_steps) load(st0 + next, next % kF32Stages);
+    cp_async_commit();
+    const float* a;
+    const float* b;
+    tiles(st, buf, a, b);
+#pragma unroll
+    for (int kk = 0; kk < kF32K; ++kk) {
+      float4 x[Tl::kP / 4], y[Tl::kP / 4];
+#pragma unroll
+      for (int q = 0; q < Tl::kP / 4; ++q) {
+        x[q] = *reinterpret_cast<const float4*>(a + kk * Tl::kLd + 4 * ty +
+                                                64 * q);
+        y[q] = *reinterpret_cast<const float4*>(b + kk * Tl::kLd + 4 * tx +
+                                                64 * q);
+      }
+#pragma unroll
+      for (int i = 0; i < Tl::kP; ++i) {
+#pragma unroll
+        for (int j = 0; j < Tl::kP; ++j) {
+          acc[i][j] = fmaf(lane4(x[i / 4], i % 4), lane4(y[j / 4], j % 4),
+                           acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// f(m, n, v) for each 4-column group of this thread's patch in range: row
+// m < M, columns n .. n + 3 (those at or past N to be dropped).
+template <int kB, typename F>
+__device__ __forceinline__ void for_patch(const float (&acc)[kB / 16][kB / 16],
+                                          int m0, int n0, int M, int N, F f) {
+  constexpr int kP = kB / 16;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    const int m = m0 + 4 * ty + i % 4 + 64 * (i / 4);
+    if (m >= M) continue;
+#pragma unroll
+    for (int q = 0; q < kP / 4; ++q) {
+      const int n = n0 + 4 * tx + 64 * q;
+      if (n >= N) continue;
+      f(m, n,
+        make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2],
+                    acc[i][4 * q + 3]));
+    }
+  }
+}
+
+// Elements i .. i + 3 of a float32 array of n: one 16-byte access where the
+// array's rows are aligned (`vec`) and all 4 are in range; zeros past n.
+__device__ __forceinline__ float4 load4(const float* p, int64_t i, int64_t n,
+                                        bool vec) {
+  if (vec && i + 4 <= n) return *reinterpret_cast<const float4*>(p + i);
+  return make_float4(p[i], i + 1 < n ? p[i + 1] : 0.0f,
+                     i + 2 < n ? p[i + 2] : 0.0f,
+                     i + 3 < n ? p[i + 3] : 0.0f);
+}
+
+__device__ __forceinline__ void store4(float* p, int64_t i, int64_t n,
+                                       float4 v, bool vec) {
+  if (vec && i + 4 <= n) {
+    *reinterpret_cast<float4*>(p + i) = v;
+    return;
+  }
+  p[i] = v.x;
+  if (i + 1 < n) p[i + 1] = v.y;
+  if (i + 2 < n) p[i + 2] = v.z;
+  if (i + 3 < n) p[i + 3] = v.w;
+}
+
+// K1's A operand: silu(g) * u, in the plain swiglu_act's order, the
+// sigmoid by __expf and __fdividef (two special-function ops). With expf
+// and an IEEE division, whose slow path ptxas keeps as a call, it cost 2.4
+// of the kernel's 15.0 ms at the 8B shape, and its call spilled registers
+// (PERF.md); in float32 the two differ in the last bits.
+__device__ __forceinline__ float swiglu_f32(float g, float u) {
+  return (g * __fdividef(1.0f, 1.0f + __expf(-g))) * u;
+}
+
+// K2's epilogue on four elements: dgate = d_s*up*silu'(gate), dup =
+// d_s*silu(gate), in the plain version's order (_dsilu, fused_ffn.py).
+__device__ __forceinline__ void swiglu_vjp4(float4 ds, float4 g, float4 u,
+                                            float4& dg, float4& du) {
+  float a[4], b[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x = lane4(g, i);
+    const float s = sigmoid(x);
+    a[i] = lane4(ds, i) * lane4(u, i) * (s * (1.0f + x * (1.0f - s)));
+    b[i] = lane4(ds, i) * (x * s);
+  }
+  dg = make_float4(a[0], a[1], a[2], a[3]);
+  du = make_float4(b[0], b[1], b[2], b[3]);
+}
+
+// K1: dW_down [d_ff, d] = swiglu(gate, up)^T . dy: M = d_ff, N = d, the
+// reduction over the T tokens. gate/up [T, d_ff] and dy [T, d] are
+// token-major, so every tile is a plain k-major copy; the swiglu overwrites
+// the gate tile as it lands (once per element per block: d / kB times in
+// all, 32 at the 8B shape).
+template <int kB>
+__global__ void __launch_bounds__(kThreads, 2)
     dw_down_f32_kernel(const float* __restrict__ gate,
                        const float* __restrict__ up,
                        const float* __restrict__ dy,
-                       float* __restrict__ dw_down, int T, int d, int dff) {
-  __shared__ float sA[kFK * kLdF];
-  __shared__ float sB[kFK * kLdF];
-  const int m0 = blockIdx.y * kFT;  // the d_ff axis
-  const int n0 = blockIdx.x * kFT;  // the d axis
-  float c[4][4];
-  gemm_tile_f32<false, false>(
-      T,
-      [&](int m, int t) {
-        const int i = m0 + m;
-        if (t >= T || i >= dff) return 0.0f;
-        const int64_t off = static_cast<int64_t>(t) * dff + i;
-        const float g = gate[off];
-        return g * sigmoid(g) * up[off];
+                       float* __restrict__ dw_down, float* __restrict__ ws,
+                       int T, int d, int dff) {
+  using Tl = F32Tile<kB>;
+  extern __shared__ __align__(16) float smem_f32[];
+  int mt, nt;
+  grouped_tile(blockIdx.x, cdiv(dff, kB), cdiv(d, kB), mt, nt);
+  const int m0 = mt * kB;  // rows of dW_down: the d_ff axis
+  const int n0 = nt * kB;  // columns: the d axis
+  int st0, n_steps;
+  f32_slice(T, st0, n_steps);
+  const bool vec_f = (dff & 3) == 0;
+  const bool vec_d = (d & 3) == 0;
+  // a stage: the gate (then swiglu), up and dy tiles
+  auto stage = [&](int buf) { return smem_f32 + buf * 3 * Tl::kFloats; };
+  float acc[Tl::kP][Tl::kP];
+  f32_mainloop<kB>(
+      st0, n_steps, acc,
+      [&](int st, int buf) {
+        float* s = stage(buf);
+        const int k0 = st * kF32K;
+        copy_kmajor<kB>(s, gate, k0, m0, T, dff, vec_f);
+        copy_kmajor<kB>(s + Tl::kFloats, up, k0, m0, T, dff, vec_f);
+        copy_kmajor<kB>(s + 2 * Tl::kFloats, dy, k0, n0, T, d, vec_d);
       },
-      [&](int t, int n) {
-        const int j = n0 + n;
-        return t < T && j < d ? dy[static_cast<int64_t>(t) * d + j] : 0.0f;
+      [&](int, int buf) {
+        float* s = stage(buf);
+#pragma unroll
+        for (int it = 0; it < Tl::kChunks; ++it) {
+          int k, c;
+          kmajor_chunk<kB>(it, k, c);
+          float4* g = reinterpret_cast<float4*>(s + k * Tl::kLd + c);
+          const float4 u = *reinterpret_cast<const float4*>(
+              s + Tl::kFloats + k * Tl::kLd + c);
+          const float4 v = *g;
+          *g = make_float4(swiglu_f32(v.x, u.x), swiglu_f32(v.y, u.y),
+                           swiglu_f32(v.z, u.z), swiglu_f32(v.w, u.w));
+        }
       },
-      sA, sB, c);
-  store_tile_f32(dw_down, c, m0, n0, dff, d);
+      [&](int, int buf, const float*& a, const float*& b) {
+        a = stage(buf);
+        b = stage(buf) + 2 * Tl::kFloats;
+      });
+  float* out = gridDim.y > 1
+                   ? ws + static_cast<int64_t>(blockIdx.y) * dff * d
+                   : dw_down;
+  for_patch<kB>(acc, m0, n0, dff, d, [&](int m, int n, float4 v) {
+    store4(out + static_cast<int64_t>(m) * d, n, d, v, vec_d);
+  });
 }
 
-// K2: d_s = dy . W_down^T (never stored), then the swiglu VJP.
-__global__ void __launch_bounds__(kThreads)
+// K2: d_s [T, d_ff] = dy . W_down^T, then the swiglu VJP: M = T, N = d_ff,
+// the reduction over d. dy [T, d] and W_down [d_ff, d] are both
+// d-contiguous, so each stage lands as two m-major tiles that every thread
+// transposes (its own chunks) into a k-major pair. d_s stays in registers
+// (S = 1) or in the workspace's partials (S > 1); the VJP runs on the whole
+// sum only.
+template <int kB>
+__global__ void __launch_bounds__(kThreads, 2)
     dgateup_f32_kernel(const float* __restrict__ dy,
                        const float* __restrict__ w_down,
                        const float* __restrict__ gate,
                        const float* __restrict__ up,
                        float* __restrict__ dgate, float* __restrict__ dup,
-                       int T, int d, int dff) {
-  __shared__ float sA[kFK * kLdF];
-  __shared__ float sB[kFK * kLdF];
-  const int m0 = blockIdx.y * kFT;  // tokens
-  const int n0 = blockIdx.x * kFT;  // the d_ff axis
-  float c[4][4];
-  gemm_tile_f32<true, true>(
-      d,
-      [&](int m, int k) {
-        const int t = m0 + m;
-        return t < T && k < d ? dy[static_cast<int64_t>(t) * d + k] : 0.0f;
+                       float* __restrict__ ws, int T, int d, int dff) {
+  using Tl = F32Tile<kB>;
+  extern __shared__ __align__(16) float smem_f32[];
+  int mt, nt;
+  grouped_tile(blockIdx.x, cdiv(T, kB), cdiv(dff, kB), mt, nt);
+  const int m0 = mt * kB;  // rows of dgate/dup: tokens
+  const int n0 = nt * kB;  // columns: the d_ff axis
+  int st0, n_steps;
+  f32_slice(d, st0, n_steps);
+  const bool vec_d = (d & 3) == 0;
+  const bool vec_f = (dff & 3) == 0;
+  // the stages' m-major dy and W_down tiles, then the two k-major pairs:
+  // stage st's pair is written (land) while other threads may still read
+  // stage st - 1's, and every thread is past st - 2's products by then
+  auto raw = [&](int buf) { return smem_f32 + buf * 2 * Tl::kRaw; };
+  auto kmaj = [&](int st) {
+    return smem_f32 + kF32Stages * 2 * Tl::kRaw + (st & 1) * 2 * Tl::kFloats;
+  };
+  float acc[Tl::kP][Tl::kP];
+  f32_mainloop<kB>(
+      st0, n_steps, acc,
+      [&](int st, int buf) {
+        const int k0 = st * kF32K;
+        copy_mmajor<kB>(raw(buf), dy, m0, k0, T, d, vec_d);
+        copy_mmajor<kB>(raw(buf) + Tl::kRaw, w_down, n0, k0, dff, d, vec_d);
       },
-      [&](int k, int n) {
-        const int j = n0 + n;
-        return j < dff && k < d ? w_down[static_cast<int64_t>(j) * d + k]
-                                : 0.0f;
+      [&](int st, int buf) {
+        transpose_own<kB>(raw(buf), kmaj(st));
+        transpose_own<kB>(raw(buf) + Tl::kRaw, kmaj(st) + Tl::kFloats);
       },
-      sA, sB, c);
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = m0 + 4 * ty + i;
-      const int n = n0 + tx + 16 * j;
-      if (t < T && n < dff) {
-        const int64_t off = static_cast<int64_t>(t) * dff + n;
-        const float g = gate[off];
-        const float s = sigmoid(g);
-        dgate[off] = c[i][j] * up[off] * (s * (1.0f + g * (1.0f - s)));
-        dup[off] = c[i][j] * (g * s);
-      }
-    }
+      [&](int st, int, const float*& a, const float*& b) {
+        a = kmaj(st);
+        b = kmaj(st) + Tl::kFloats;
+      });
+  if (gridDim.y > 1) {
+    float* part = ws + static_cast<int64_t>(blockIdx.y) * T * dff;
+    for_patch<kB>(acc, m0, n0, T, dff, [&](int m, int n, float4 v) {
+      store4(part + static_cast<int64_t>(m) * dff, n, dff, v, vec_f);
+    });
+    return;
   }
+  for_patch<kB>(acc, m0, n0, T, dff, [&](int m, int n, float4 v) {
+    const int64_t row = static_cast<int64_t>(m) * dff;
+    float4 dg, du;
+    swiglu_vjp4(v, load4(gate + row, n, dff, vec_f),
+                load4(up + row, n, dff, vec_f), dg, du);
+    store4(dgate + row, n, dff, dg, vec_f);
+    store4(dup + row, n, dff, du, vec_f);
+  });
+}
+
+// The S partials of elements i .. i + 3 of a workspace [S, n], summed in
+// slice order.
+__device__ __forceinline__ float4 sum_slices(const float* ws, int S,
+                                             int64_t n, int64_t i,
+                                             bool vec) {
+  float4 v = load4(ws, i, n, vec);
+  for (int s = 1; s < S; ++s) {
+    const float4 p = load4(ws + s * n, i, n, vec);
+    v = make_float4(v.x + p.x, v.y + p.y, v.z + p.z, v.w + p.w);
+  }
+  return v;
+}
+
+// K1 with S > 1: dW_down = the sum of the partials (4 elements a thread).
+__global__ void __launch_bounds__(kThreads)
+    split_sum_f32_kernel(const float* __restrict__ ws, int S, int64_t n,
+                         float* __restrict__ out) {
+  const int64_t i =
+      4 * (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x);
+  if (i >= n) return;
+  const bool vec = (n & 3) == 0;
+  store4(out, i, n, sum_slices(ws, S, n, i, vec), vec);
+}
+
+// K2 with S > 1: the swiglu VJP on the sum of the partials of d_s.
+__global__ void __launch_bounds__(kThreads)
+    split_vjp_f32_kernel(const float* __restrict__ ws, int S, int64_t n,
+                         const float* __restrict__ gate,
+                         const float* __restrict__ up,
+                         float* __restrict__ dgate,
+                         float* __restrict__ dup) {
+  const int64_t i =
+      4 * (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x);
+  if (i >= n) return;
+  const bool vec = (n & 3) == 0;
+  float4 dg, du;
+  swiglu_vjp4(sum_slices(ws, S, n, i, vec), load4(gate, i, n, vec),
+              load4(up, i, n, vec), dg, du);
+  store4(dgate, i, n, dg, vec);
+  store4(dup, i, n, du, vec);
 }
 
 // The CUDA driver API's cuTensorMapEncodeTiled, found through the runtime
@@ -1213,6 +1623,24 @@ int linear_tiles(int rows, int tile_rows, int cols, int tile_cols) {
   const int64_t n = static_cast<int64_t>((rows + tile_rows - 1) / tile_rows) *
                     ((cols + tile_cols - 1) / tile_cols);
   return n > 0x7fffffff ? -1 : static_cast<int>(n);
+}
+
+// The plan fused_ffn.py `f32_plan` chose for an M x N product over K: a
+// tile of 128 or 64, 1 <= splits <= max(1, cdiv(K, 16)) (and at most
+// 65535), a workspace [splits, M, N] where splits > 1. Returns the number
+// of output tiles, or -1 for a plan the kernels do not take.
+int f32_tiles(int M, int N, int K, int tile, int splits, const void* ws) {
+  const int stages = (K + kF32K - 1) / kF32K;
+  if ((tile != 128 && tile != 64) || splits < 1 || splits > 65535 ||
+      splits > (stages > 1 ? stages : 1) || (splits > 1 && ws == nullptr)) {
+    return -1;
+  }
+  return linear_tiles(M, tile, N, tile);
+}
+
+// Blocks of kThreads for the split kernels' 4 elements a thread.
+unsigned split_blocks(int64_t n) {
+  return static_cast<unsigned>((n + 4 * kThreads - 1) / (4 * kThreads));
 }
 
 }  // namespace
@@ -1301,7 +1729,10 @@ int rt_dgateup(const void* dy, const void* w_down, const void* gate,
                 dff);
 }
 
-// The same three entries for float32 operands and outputs (rstd float32).
+// The same three entries for float32 operands and outputs (rstd float32);
+// K1's and K2's also take the plan of fused_ffn.py `f32_plan` (tile,
+// splits) and, where splits > 1, its float32 workspace [splits, M, N]
+// (M x N = d_ff x d for K1, T x d_ff for K2).
 int rt_dw_gateup_f32(const void* x, const void* rstd, const void* norm_w,
                      const void* dgate, const void* dup, void* dw_gate,
                      void* dw_up, int T, int d, int dff, void* stream) {
@@ -1316,24 +1747,54 @@ int rt_dw_gateup_f32(const void* x, const void* rstd, const void* norm_w,
 }
 
 int rt_dw_down_f32(const void* gate, const void* up, const void* dy,
-                   void* dw_down, int T, int d, int dff, void* stream) {
-  dim3 grid((d + kFT - 1) / kFT, (dff + kFT - 1) / kFT);
-  dw_down_f32_kernel<<<grid, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(gate), static_cast<const float*>(up),
-      static_cast<const float*>(dy), static_cast<float*>(dw_down), T, d, dff);
+                   void* dw_down, void* ws, int T, int d, int dff, int tile,
+                   int splits, void* stream) {
+  const int tiles = f32_tiles(dff, d, T, tile, splits, ws);
+  if (tiles < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(tiles, splits);
+  const auto* g = static_cast<const float*>(gate);
+  const auto* u = static_cast<const float*>(up);
+  const auto* y = static_cast<const float*>(dy);
+  auto* out = static_cast<float*>(dw_down);
+  auto* w = static_cast<float*>(ws);
+  const int err =
+      tile == 128
+          ? launch(dw_down_f32_kernel<128>, grid, kThreads, kK1F32Smem<128>,
+                   stream, g, u, y, out, w, T, d, dff)
+          : launch(dw_down_f32_kernel<64>, grid, kThreads, kK1F32Smem<64>,
+                   stream, g, u, y, out, w, T, d, dff);
+  if (err != 0 || splits == 1) return err;
+  const int64_t n = static_cast<int64_t>(dff) * d;
+  split_sum_f32_kernel<<<split_blocks(n), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(w, splits, n,
+                                                              out);
   return static_cast<int>(cudaGetLastError());
 }
 
 int rt_dgateup_f32(const void* dy, const void* w_down, const void* gate,
-                   const void* up, void* dgate, void* dup, int T, int d,
-                   int dff, void* stream) {
-  dim3 grid((dff + kFT - 1) / kFT, (T + kFT - 1) / kFT);
-  dgateup_f32_kernel<<<grid, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dy), static_cast<const float*>(w_down),
-      static_cast<const float*>(gate), static_cast<const float*>(up),
-      static_cast<float*>(dgate), static_cast<float*>(dup), T, d, dff);
+                   const void* up, void* dgate, void* dup, void* ws, int T,
+                   int d, int dff, int tile, int splits, void* stream) {
+  const int tiles = f32_tiles(T, dff, d, tile, splits, ws);
+  if (tiles < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(tiles, splits);
+  const auto* y = static_cast<const float*>(dy);
+  const auto* wd = static_cast<const float*>(w_down);
+  const auto* g = static_cast<const float*>(gate);
+  const auto* u = static_cast<const float*>(up);
+  auto* dg = static_cast<float*>(dgate);
+  auto* du = static_cast<float*>(dup);
+  auto* w = static_cast<float*>(ws);
+  const int err =
+      tile == 128
+          ? launch(dgateup_f32_kernel<128>, grid, kThreads, kK2F32Smem<128>,
+                   stream, y, wd, g, u, dg, du, w, T, d, dff)
+          : launch(dgateup_f32_kernel<64>, grid, kThreads, kK2F32Smem<64>,
+                   stream, y, wd, g, u, dg, du, w, T, d, dff);
+  if (err != 0 || splits == 1) return err;
+  const int64_t n = static_cast<int64_t>(T) * dff;
+  split_vjp_f32_kernel<<<split_blocks(n), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(w, splits, n, g,
+                                                              u, dg, du);
   return static_cast<int>(cudaGetLastError());
 }
 

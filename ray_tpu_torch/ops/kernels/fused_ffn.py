@@ -26,27 +26,39 @@ reference keeps the model's dtype; rstd is always float32), and each
 wrapper counts its launches in `.launches` and the float32 kernel's share
 in `.f32_launches`. Its `*_plain` twin runs for tensors on the CPU. The
 kernels mask ragged edges themselves, so no (T, d, d_ff) tiling guard
-exists on either side.
+exists on either side. The float32 K1 and K2 also take a plan from the
+shape (`f32_plan`: the output tile, and a split of the reduction where the
+tiles alone would leave most of the card idle) and, when split, a float32
+workspace the wrapper allocates; the split is summed in a fixed order, so
+every call gives the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ray_tpu_torch.ops.kernels._util import (KERNEL_DTYPES, check,
+from ray_tpu_torch.ops.kernels._util import (KERNEL_DTYPES, cdiv, check,
                                              count_launch, dtype_entry,
                                              stream_handle, with_f32)
 
 _P, _INT = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = with_f32({
-    "rt_dw_gateup": ([_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _P],
-                     _INT),
-    "rt_dw_down": ([_P, _P, _P, _P, _INT, _INT, _INT, _P], _INT),
-    "rt_dgateup": ([_P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _P], _INT),
-})
+_SIGNATURES = {
+    **with_f32({
+        "rt_dw_gateup": ([_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _P],
+                         _INT),
+        "rt_dw_down": ([_P, _P, _P, _P, _INT, _INT, _INT, _P], _INT),
+        "rt_dgateup": ([_P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _P], _INT),
+    }),
+    # the float32 K1 and K2 also take their plan's workspace, tile and
+    # splits (`f32_plan`)
+    "rt_dw_down_f32": ([_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT,
+                        _P], _INT),
+    "rt_dgateup_f32": ([_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT,
+                        _INT, _P], _INT),
+}
 
 # Which backward kernels run (the reference's defaults, fused_ffn.py:59-61);
 # FFNBlock.backward reads them at every call.
@@ -86,6 +98,67 @@ def swiglu_act(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """bf16(silu(gate in float32) · up in float32): the activation that
     W_down multiplies, rounded to gate's dtype."""
     return (_silu(gate.float()) * up.float()).to(gate.dtype)
+
+
+class F32Plan(NamedTuple):
+    """How the float32 K1 and K2 cut an M x N product over K: `tile` x
+    `tile` output tiles, the reduction in `splits` slices of whole stages
+    (csrc/fused_ffn.cu, "float32 K1 and K2")."""
+    tile: int
+    splits: int
+
+
+F32_TILES = (128, 64)  # the block tiles the float32 mainloop takes
+F32_STAGE = 16         # of the reduction a stage of its ring holds
+F32_WAVE = 128         # blocks that make about one wave of an H100's 132 SMs
+
+
+def f32_plan(M: int, N: int, K: int) -> F32Plan:
+    """The largest tile whose output tiles alone make a wave (S = 1); where
+    none does, 64 x 64 tiles and the reduction split into as many slices as
+    bring the grid to a wave, each at least one stage long."""
+    for tile in F32_TILES:
+        if cdiv(M, tile) * cdiv(N, tile) >= F32_WAVE:
+            return F32Plan(tile, 1)
+    tile = F32_TILES[-1]
+    tiles = cdiv(M, tile) * cdiv(N, tile)
+    return F32Plan(tile, max(1, min(cdiv(F32_WAVE, tiles),
+                                    cdiv(K, F32_STAGE))))
+
+
+def f32_slices(K: int, splits: int) -> List[Tuple[int, int]]:
+    """[k0, k1) of each slice of the reduction, in slice order: slice s
+    takes stages [s·n // S, (s + 1)·n // S) of the n = cdiv(K, 16) (as the
+    kernels' `f32_slice` does)."""
+    n = cdiv(K, F32_STAGE)
+    return [(s * n // splits * F32_STAGE,
+             min(K, (s + 1) * n // splits * F32_STAGE))
+            for s in range(splits)]
+
+
+def f32_launch_plan(M: int, N: int, K: int, device
+                    ) -> Tuple[F32Plan, Optional[torch.Tensor]]:
+    """The plan of an M x N product over K and the float32 workspace
+    [splits, M, N] its partial tiles go to (None when splits is 1)."""
+    plan = f32_plan(M, N, K)
+    ws = (torch.empty((plan.splits, M, N), dtype=torch.float32,
+                      device=device) if plan.splits > 1 else None)
+    return plan, ws
+
+
+def _launch(what: str, dtype, pointers, dims, plan_dims, stream) -> None:
+    """Calls the C entry `rt_<what>` for `dtype`: the float32 K1 and K2
+    take their plan's workspace, tile and splits after the tensors
+    (plan_dims: that product's M, N, K)."""
+    lib, fn = _entry(f"rt_{what}", dtype)
+    if dtype == torch.float32:
+        plan, ws = f32_launch_plan(*plan_dims, device=pointers[0].device)
+        args = (*(t.data_ptr() for t in pointers),
+                None if ws is None else ws.data_ptr(), *dims, plan.tile,
+                plan.splits, stream)
+    else:
+        args = (*(t.data_ptr() for t in pointers), *dims, stream)
+    check(lib, fn(*args), what)
 
 
 def _kernel_path(what: str, tensors) -> bool:
@@ -137,10 +210,8 @@ def dw_down(gate: torch.Tensor, up: torch.Tensor,
     _require_dtype("dw_down", tensors)
     out = torch.empty((dff, d), dtype=dy.dtype, device=dy.device)
     if dff and d:  # T == 0 runs no token step and writes zeros
-        lib, fn = _entry("rt_dw_down", dy.dtype)
-        check(lib, fn(
-            gate.data_ptr(), up.data_ptr(), dy.data_ptr(), out.data_ptr(),
-            T, d, dff, stream_handle(dy)), "dw_down")
+        _launch("dw_down", dy.dtype, (gate, up, dy, out), (T, d, dff),
+                (dff, d, T), stream_handle(dy))
         count_launch(dw_down, dy.dtype)
     return out
 
@@ -171,11 +242,8 @@ def dgateup(dy: torch.Tensor, w_down: torch.Tensor, gate: torch.Tensor,
     dgate = torch.empty((T, dff), dtype=gate.dtype, device=gate.device)
     dup = torch.empty((T, dff), dtype=up.dtype, device=up.device)
     if T and dff:  # d == 0 gives d_s = 0
-        lib, fn = _entry("rt_dgateup", dy.dtype)
-        check(lib, fn(
-            dy.data_ptr(), w_down.data_ptr(), gate.data_ptr(), up.data_ptr(),
-            dgate.data_ptr(), dup.data_ptr(), T, d, dff, stream_handle(dy)),
-            "dgateup")
+        _launch("dgateup", dy.dtype, (dy, w_down, gate, up, dgate, dup),
+                (T, d, dff), (T, dff, d), stream_handle(dy))
         count_launch(dgateup, dy.dtype)
     return dgate, dup
 

@@ -744,6 +744,38 @@ def test_f32_ffn_kernels_match_plain_versions(no_tf32, T, d, dff):
         (n + 1, m + 1) for n, m in before]
 
 
+@pytest.mark.parametrize("T,d,dff", [(256, 256, 256), (4096, 4096, 14336),
+                                     (512, 256, 512), (37, 130, 50),
+                                     (1000, 200, 328), (0, 64, 64)])
+def test_f32_k1_k2_on_their_plans_match_plain_versions(no_tf32, T, d, dff):
+    """The float32 K1 and K2 on the tile and split their plan gives each
+    shape (fused_ffn.f32_plan): the tiny step's (64 x 64 tiles, 8 slices),
+    the 8B shape (128 x 128, unsplit), split and ragged shapes, rows that
+    are not 16-byte aligned (d 130, d_ff 50) and T = 0 (zeros). Within 1e-4
+    of the plain versions, and a second call gives the same bits."""
+    cuda = no_tf32
+    gate, up = _f32((T, dff), cuda, 3), _f32((T, dff), cuda, 4)
+    dy = _f32((T, d), cuda, 6, 0.1)
+    wd = _f32((dff, d), cuda, 7, dff ** -0.5)
+    kernels = (ff.dw_down, ff.dgateup)
+    before = [(kern.launches, kern.f32_launches) for kern in kernels]
+    got = (ff.dw_down(gate, up, dy), *ff.dgateup(dy, wd, gate, up))
+    again = (ff.dw_down(gate, up, dy), *ff.dgateup(dy, wd, gate, up))
+    want = (ff.dw_down_plain(gate, up, dy),
+            *ff.dgateup_plain(dy, wd, gate, up))
+    torch.cuda.synchronize()
+    for g, a, w, name in zip(got, again, want, ("dw_down", "dgate", "dup")):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert torch.equal(g, a), name
+        if w.numel():
+            assert _rel_err(g, w) < F32_KERNEL_TOL, name
+    if T == 0:
+        assert not got[0].any()
+    calls = (2, 2 if T else 0)  # K2 launches nothing for T = 0
+    assert [(kern.launches, kern.f32_launches) for kern in kernels] == [
+        (n + c, m + c) for (n, m), c in zip(before, calls)]
+
+
 @pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", [
     (2, 8, 2, 256, 256, 128, True), (1, 4, 1, 64, 300, 64, True),
     (1, 4, 4, 130, 130, 32, False), (1, 4, 1, 200, 200, 128, True),
