@@ -9,9 +9,10 @@ Phases (any failure exits non-zero and prints no result line):
      in the checkout (one nvcc per source, started together), and log
      ptxas's registers, spills and shared memory of the wgmma kernels (the
      flash forward, dq and dk/dv at each head_dim; K1's, K3's and K2's TMA
-     and cp.async instances) and of the float32 K1 and K2 at each tile,
-     with any ptxas warning; fail if a 128 x 128 float32 tile (an 8 x 8
-     patch a thread) spills;
+     and cp.async instances), of the float32 K3, K1 and K2 at each tile
+     and of the float32 flash forward at each head_dim and query tile, with
+     any ptxas warning; fail if a 128 x 128 float32 tile (an 8 x 8 patch a
+     thread) or the float32 forward at head_dim 128 spills;
   3. hold each quant kernel against its plain PyTorch version on the card,
      bit for bit, at every shape the serving path gives it (the quant
      kernel's stacked [L, in, out] leaves included) and at the six 8B
@@ -68,11 +69,12 @@ Phases (any failure exits non-zero and prints no result line):
      max): the flash kernels at the 8B attention shape in float32, a ragged
      shape and the shape of the tiny variant below, the FFN kernels at the
      8B FFN shape in float32, T 512 x d 256 x d_ff 512, a ragged shape and
-     the tiny variant's, K1 and K2 also bit-identical across two calls;
-     time each with its float32 bound (67 TFLOP/s) and a library call; one
-     summary line each for the float32 K1 and K2 at the 8B shape and the
-     tiny variant's (ms a launch, bound, share, library, and the first
-     SIMT design's time from PERF.md); then
+     the tiny variant's, K3, K1 and K2 also bit-identical across two
+     calls; time each with its float32 bound (67 TFLOP/s) and a library
+     call, logging SDPA's float32 backend and the kernels its forward
+     launches; one summary line each for the float32 flash forward, K3, K1
+     and K2 at the 8B shape and the tiny variant's (ms a launch, bound,
+     share, library, and the first SIMT design's time from PERF.md); then
      train ModelConfig.tiny() in float32 widened to head_dim 128 (d_model
      256, 2 heads, 1 kv head; fused_ffn, fused_attn, USE_K1 = USE_K2 =
      True) for 3 steps at b 2 x s 128, each float32 kernel launched exactly
@@ -1146,19 +1148,12 @@ def heads_view(t, n: int):
     return t.view(b, s, n, width // n).transpose(1, 2)
 
 
-def sdpa_backend(torch, q, k, v, causal: bool) -> str:
-    """The backend PyTorch's dispatcher picks for this SDPA call."""
-    from torch.nn.attention import SDPBackend
-
-    return SDPBackend(torch._fused_sdp_choice(
-        q, k, v, is_causal=causal, enable_gqa=True)).name
-
-
 def check_packed_kernels(torch, gen):
     """Phase 7c: the packed flash kernels against their plain versions,
     and their times, bounds and SDPA's time on the same strided heads."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
+    from ray_tpu_torch.flashbench import sdpa_backend
     from ray_tpu_torch.ops.kernels import flash_attention as fa
 
     t0 = time.perf_counter()
@@ -1216,7 +1211,7 @@ def check_packed_kernels(torch, gen):
 
             if calls:
                 log(f"SDPA at {list(shape)}: the dispatcher picks "
-                    f"{sdpa_backend(torch, *views, causal)}")
+                    f"{sdpa_backend(*views, causal)}")
         lib_what = ("torch scaled_dot_product_attention on the strided "
                     "[b, h, s, d] views, enable_gqa")
         bwd_what = ("the autograd backward of that call (dq, dk and dv in "
@@ -1627,14 +1622,21 @@ OLD_MS = {"flash_bwd_dkv": 2.4535, "flash_bwd_dkv_packed": 2.7611,
           "dw_down_f32": {(256, 256, 256): 0.0796,
                           (4096, 4096, 14336): 28.2689},
           "dgateup_f32": {(256, 256, 256): 0.0567,
-                          (4096, 4096, 14336): 22.4388}}
+                          (4096, 4096, 14336): 22.4388},
+          # PERF.md's times of the first SIMT design: a tiny-step launch
+          # is half its per-step time (two launches a step)
+          "flash_fwd_f32": {(4, 128, 128, 128): 0.0517,
+                            (64, 2048, 2048, 128): 5.3116},
+          "dw_gateup_f32": {(256, 256, 256): 0.0491,
+                            (4096, 4096, 14336): 46.9911}}
 
 
-def f32_ffn_summary(rows, card: str) -> None:
-    """The redesigned float32 K1 and K2 at each shape their OLD_MS entry
-    has: ms a launch, bound, share, the library call's time, and the first
-    design's time."""
-    for name in ("dw_down_f32", "dgateup_f32"):
+def f32_summary(rows, card: str) -> None:
+    """The redesigned float32 kernels (the flash forward, K3, K1 and K2)
+    at each shape their OLD_MS entry has: ms a launch, bound, share, the
+    library call's time, and the first design's time."""
+    for name in ("flash_fwd_f32", "dw_gateup_f32", "dw_down_f32",
+                 "dgateup_f32"):
         old = OLD_MS[name]
         for r in rows[name]:
             shape = tuple(r["shape"])
@@ -1776,12 +1778,41 @@ def f32_ffn_shapes(cfg):
              cfg.n_layers)]
 
 
+# One float32 causal SDPA forward at [1, bh, s, d] under torch.profiler, in
+# a process of its own: in chip_smoke's process a window that short
+# recorded no kernel (twice), though in a fresh one it does, and after such
+# a window SDPA's many-kernel backward at the tiny shape timed 3-4x slower
+# (PERF.md).
+SDPA_PROBE = """
+import torch
+from torch.nn.functional import scaled_dot_product_attention as sdpa
+from ray_tpu_torch.flashbench import device_kernels
+q, k, v = (torch.randn((1, {bh}, {s}, {d}), device="cuda") for _ in range(3))
+def forward():
+    with torch.no_grad():
+        sdpa(q, k, v, is_causal=True)
+print(device_kernels(forward))
+"""
+
+
+def sdpa_kernels(bh: int, s: int, d: int) -> str:
+    """The kernels SDPA's float32 causal forward at [1, bh, s, d]
+    launches, read by SDPA_PROBE."""
+    proc = subprocess.run(
+        [sys.executable, "-c", SDPA_PROBE.format(bh=bh, s=s, d=d)],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"the SDPA kernel probe failed:\n{proc.stderr[-2000:]}")
+    return proc.stdout.strip()
+
+
 def check_f32_kernels(torch, gen, cfg, card: str):
     """Phase 7d: the six float32 kernels (flash forward, dk/dv and dq, K3,
     K1, K2) against their plain versions, with their times, float32 bounds
     and a library call's time. Returns {kernel_f32: rows}."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
+    from ray_tpu_torch.flashbench import sdpa_backend
     from ray_tpu_torch.ops.kernels import flash_attention as fa
     from ray_tpu_torch.ops.kernels import fused_ffn as ff
 
@@ -1806,6 +1837,8 @@ def check_f32_kernels(torch, gen, cfg, card: str):
         scale = d ** -0.5
         q, k, v, do = (randn(bh, n, d) for n in (sq, sk, sk, sq))
         out, lse = fa.flash_fwd(q, k, v, scale, causal)
+        log(f"float32 forward at {list(shape)}: query tile "
+            f"{fa.f32_fwd_tile(bh, sq)} (f32_fwd_tile)")
         p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale, causal)
         delta = fa.flash_delta(p_out, do)
         bwd = (q, k, v, do, p_lse, delta, scale, causal)
@@ -1839,6 +1872,10 @@ def check_f32_kernels(torch, gen, cfg, card: str):
             def lib_bwd():
                 torch.autograd.grad(lib_out, (q4, k4, v4), g4,
                                     retain_graph=True)
+
+            log(f"SDPA float32 at {list(shape)}: the dispatcher picks "
+                f"{sdpa_backend(q4, k4, v4, causal)}; its forward launches "
+                f"{sdpa_kernels(bh, sq, d)}")
         lib_what = "torch scaled_dot_product_attention in float32"
         bwd_what = "the backward of that call (dq, dk and dv in one call)"
         record("flash_fwd_f32", shape, calls, fwd_checks,
@@ -1873,18 +1910,20 @@ def check_f32_kernels(torch, gen, cfg, card: str):
         p_dwd = ff.dw_down_plain(gate, up, dy)
         dg, du = ff.dgateup(dy, wd, gate, up)
         p_dg, p_du = ff.dgateup_plain(dy, wd, gate, up)
-        # K1 and K2 split no reduction with atomics: a second call gives
-        # the same bits
-        same = {"dw_down": torch.equal(dwd, ff.dw_down(gate, up, dy)),
+        # K3, K1 and K2 split no reduction with atomics: a second call
+        # gives the same bits
+        same = {"dw_gateup": all(map(torch.equal, (dwg, dwu),
+                                     ff.dw_gateup(x, rstd, nw, dgate, dup))),
+                "dw_down": torch.equal(dwd, ff.dw_down(gate, up, dy)),
                 "dgateup": all(map(torch.equal, (dg, du),
                                    ff.dgateup(dy, wd, gate, up)))}
         torch.cuda.synchronize()
-        log(f"float32 K1 and K2 at {(T, d, dff)}: plan K1 "
-            f"{ff.f32_plan(dff, d, T)}, K2 {ff.f32_plan(T, dff, d)}; two "
-            f"calls bit-identical {same}")
+        log(f"float32 K3, K1 and K2 at {(T, d, dff)}: plan K3 "
+            f"{ff.f32_plan(d, dff, T, 2)}, K1 {ff.f32_plan(dff, d, T)}, K2 "
+            f"{ff.f32_plan(T, dff, d)}; two calls bit-identical {same}")
         if not all(same.values()):
-            fail(f"float32 K1/K2 at {(T, d, dff)} differ between two calls: "
-                 f"{same}")
+            fail(f"float32 K3/K1/K2 at {(T, d, dff)} differ between two "
+                 f"calls: {same}")
         k3_checks = [("dw_gate", rel_err(torch, dwg, p_dwg), lim),
                      ("dw_up", rel_err(torch, dwu, p_dwu), lim)]
         k1_checks = [("dw_down", rel_err(torch, dwd, p_dwd), lim)]
@@ -1916,7 +1955,7 @@ def check_f32_kernels(torch, gen, cfg, card: str):
         del dwg, dwu, p_dwg, p_dwu, dwd, p_dwd, dg, du, p_dg, p_du
         torch.cuda.empty_cache()
     del flush
-    f32_ffn_summary(rows, card)
+    f32_summary(rows, card)
     torch.cuda.empty_cache()
     log(f"phase 7d: {time.perf_counter() - t0:.2f} s")
     return rows
@@ -2000,7 +2039,9 @@ def train_f32_tiny(torch, seed: int, cfg):
 # 128 each) and 64 rstd values; K2's four of dy (128 x 64) and W_down (256
 # x 64)); the float32 K1's three stages of gate, up and dy (16 x (d + 4)
 # floats each), and K2's three of dy and W_down as loaded (d x 20 floats
-# each) and two pairs of transposed tiles (16 x (d + 4)).
+# each) and two pairs of transposed tiles (16 x (d + 4)), K3's three of x
+# and dgate|dup (16 x (d + 4) floats each); the float32
+# forward's Q [rows][d], K and V slots [64][d] and P [rows][64].
 KERNEL_SMEM = {
     "flash_fwd_kernel": lambda d: 2 * (128 + 4 * 64) * d + 1024,
     "flash_bwd_dq_kernel": lambda d: (2 * (256 + (2 if d > 128 else 4) * 64)
@@ -2014,15 +2055,19 @@ KERNEL_SMEM = {
     "dw_down_f32_kernel": lambda d: 4 * 3 * 3 * 16 * (d + 4),
     "dgateup_f32_kernel": lambda d: 4 * (3 * 2 * d * 20
                                          + 2 * 2 * 16 * (d + 4)),
+    "dw_gateup_f32_kernel": lambda d: 4 * 3 * 2 * 16 * (d + 4),
+    "flash_fwd_f32_kernel": lambda d, rows: 4 * (rows * d + 2 * 64 * d
+                                                 + rows * 64),
 }
 
 
 def ptxas_report(procs) -> None:
     """Log ptxas's registers, spills and the dynamic shared memory of the
-    wgmma kernels and the float32 K1 and K2 (the `nvcc -Xptxas -v` runs
-    started in phase 2), any warning ptxas gives, and any note that it
-    serialized products; fail if a float32 K1 or K2 with 128 x 128 tiles
-    (8 x 8 accumulators a thread) spills."""
+    wgmma kernels, the float32 K1, K2 and K3 and the float32 flash forward
+    (the `nvcc -Xptxas -v` runs started in phase 2), any warning ptxas
+    gives, and any note that it serialized products; fail if a float32 K1,
+    K2 or K3 with 128 x 128 tiles (8 x 8 accumulators a thread) or a
+    float32 forward at head_dim 128 spills."""
     import re
 
     for name, (proc, out_path) in procs.items():
@@ -2037,21 +2082,25 @@ def ptxas_report(procs) -> None:
                 log(f"ptxas {name}.cu: {line.strip()}")
             m = re.search(r"Compiling entry function '.*?(flash_fwd_kernel|"
                           r"flash_bwd_dq_kernel|flash_bwd_dkv_kernel|"
+                          r"flash_fwd_f32_kernel|"
                           r"dw_down_kernel|dw_gateup_kernel|dgateup_kernel|"
-                          r"dw_down_f32_kernel|dgateup_f32_kernel)"
-                          r"I?L?([ib])(\d*)", line)
+                          r"dw_down_f32_kernel|dgateup_f32_kernel|"
+                          r"dw_gateup_f32_kernel)"
+                          r"I?L?([ib])(\d*)(?:ELi(\d+))?", line)
             if not m:
                 continue
             kernel = m.group(1)
-            if m.group(2) == "i":
-                inst, d = f"<{m.group(3)}>", int(m.group(3))
+            if m.group(2) == "i":  # <head_dim or tile> or <head_dim, rows>
+                params = tuple(int(g) for g in m.groups()[2:] if g)
+                inst, d = f"<{', '.join(map(str, params))}>", params[0]
             else:  # an FFN kernel<bool>: the TMA ring or the cp.async one
                 inst, d = ("<TMA>" if m.group(3) == "1" else "<cp.async>"), 0
+                params = (0,)
             stats = " ".join(x.split(":", 1)[-1].strip()
                              for x in lines[i + 1:i + 4]
                              if "registers" in x or "spill" in x)
             log(f"ptxas {kernel}{inst}: {stats}; dynamic shared memory "
-                f"{KERNEL_SMEM[kernel](d)} bytes a block")
+                f"{KERNEL_SMEM[kernel](*params)} bytes a block")
             if (kernel.endswith("_f32_kernel") and d == 128
                     and not re.search(r"\b0 bytes spill stores", stats)):
                 fail(f"ptxas: {kernel}{inst} spills ({stats})")

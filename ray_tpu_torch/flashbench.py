@@ -1,30 +1,53 @@
-"""Times the three flash kernels at the Llama-3-8B attention shape on one GPU.
+"""Times the three flash kernels on one GPU.
 
     python -m ray_tpu_torch.flashbench            # bf16 and float32
-    python -m ray_tpu_torch.flashbench --dtype bfloat16
+    python -m ray_tpu_torch.flashbench --dtype float32
+    python -m ray_tpu_torch.flashbench --dtype float32 \\
+        --source OTHER/flash_attention.cu --other-unplanned
 
-At b·h 64, s 2048, head_dim 128, causal ([b·h, s, d] layout), for each
-dtype: the forward, dk/dv and dq kernels against their plain versions
-(max abs error over the plain output's max), each kernel's time (median of
-7 CUDA-event timings after a warm-up, the 50 MB L2 flushed before each
-call and the stream held ~0.5 ms after the flush, as chip_smoke.py times
-them), its share of the bound (operations: 2, 4 and 3 products of
-2·pairs·hd FLOP at 989 TFLOP/s in bf16, 67 in float32), and
-scaled_dot_product_attention's forward and backward on the same tensors
-(bf16 only). A quick check between full chip_smoke runs; it needs a GPU.
+In the [b·h, s, d] layout, causal: bf16 at the Llama-3-8B attention shape
+(b·h 64, s 2048, head_dim 128); float32 at the float32 tiny training
+step's (b·h 4, s 128, head_dim 128) and then at that shape. At each shape:
+the forward, dk/dv and dq kernels against their plain versions (max abs
+error over the plain output's max), each kernel's time (median of 7
+CUDA-event timings after a warm-up, the 50 MB L2 flushed before each call
+and the stream held ~0.5 ms after the flush, as chip_smoke.py times them),
+its share of the bound (operations: 2, 4 and 3 products of 2·pairs·hd FLOP
+at 989 TFLOP/s in bf16, 67 in float32), and scaled_dot_product_attention's
+forward and backward on the same tensors (TF32 off), with the backend
+PyTorch's dispatcher picks and the kernels its forward launches (read by
+torch.profiler). In float32 it also times the forward at each query tile
+its plan can take (`flash_attention.F32_FWD_TILES`; the plan's own is
+marked). With --source, the same C entry points built from another
+flash_attention.cu (an earlier commit's, or a variant; its directory must
+hold the hopper.cuh it includes) are timed in turns with this tree's:
+other, tree, tree, other, twice. --other-unplanned says that the other
+build's float32 forward takes no query tile (before its plan existed). A
+quick check between full chip_smoke runs; it needs a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import hashlib
 import statistics
+import subprocess
+from pathlib import Path
 
 import torch
 
+from ray_tpu_torch.ops.kernels import _util
 from ray_tpu_torch.ops.kernels import flash_attention as fa
 
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HOLD_CYCLES = 1_000_000
+# (b·h, s, head_dim): the 8B attention shape and the float32 tiny step's,
+# whose many-kernel SDPA backward is timed before any torch.profiler window
+# (after one it read 3-4x slower, PERF.md)
+SHAPES = {torch.bfloat16: [(64, 2048, 128)],
+          torch.float32: [(4, 128, 128), (64, 2048, 128)]}
+NAMES = ("rt_flash_fwd", "rt_flash_bwd_dkv", "rt_flash_bwd_dq")
 
 
 def time_ms(fn, flush: torch.Tensor, reps: int = 7) -> float:
@@ -48,67 +71,185 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
-def run(dtype: torch.dtype, bh: int = 64, s: int = 2048, d: int = 128,
-        seed: int = 0) -> None:
+def sdpa_backend(q, k, v, causal: bool = True) -> str:
+    """The backend PyTorch's dispatcher picks for this SDPA call (GQA
+    allowed)."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(
+        q, k, v, is_causal=causal, enable_gqa=True)).name
+
+
+def device_kernels(fn) -> list:
+    """The names of the kernels one call of `fn` launches on the card (as
+    servebench.profile_decode reads them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
+
+
+def load_other(source: Path, unplanned: bool) -> ctypes.CDLL:
+    """`source` built with the port's nvcc flags (its own directory on the
+    include path) into the build directory, its entries declared (the
+    float32 forward without a query tile when `unplanned`)."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    out = _util.BUILD_DIR / f"libflashbench-{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        _util.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_util._nvcc(), *_util.NVCC_FLAGS, "-I",
+                        str(source.parent), "-o", str(out), str(source)],
+                       check=True)
+    lib = ctypes.CDLL(str(out))
+    for name in NAMES:
+        for entry in (name, f"{name}_f32"):
+            sig = fa._SIGNATURES[name if unplanned else entry]
+            getattr(lib, entry).argtypes, getattr(lib, entry).restype = sig
+    return lib
+
+
+def entries(lib: ctypes.CDLL, t: dict, dtype: torch.dtype, planned: bool,
+            tile=None) -> dict:
+    """The three entry points of `lib` for `dtype` on the tensors `t`
+    ([b·h, s, d], causal), each launched on the current stream; the float32
+    forward (when `planned`) at query tile `tile`, else at its plan's."""
+    bh, s, d = t["q"].shape
+    layout = (bh, 1, 1, s, s, d)
+    stream = torch.cuda.current_stream().cuda_stream
+    f32 = dtype == torch.float32
+    fwd_tile = ((tile or fa.f32_fwd_tile(bh, s),) if f32 and planned
+                else ())
+
+    def call(name, names, extra=()):
+        fn = getattr(lib, name + ("_f32" if f32 else ""))
+        code = fn(*(t[x].data_ptr() for x in names), *layout, d ** -0.5, 1,
+                  *extra, stream)
+        if code:
+            raise RuntimeError(f"CUDA error {code}")
+
+    return {
+        "flash_fwd": lambda: call("rt_flash_fwd",
+                                  ("q", "k", "v", "out", "lse"), fwd_tile),
+        "flash_bwd_dkv": lambda: call(
+            "rt_flash_bwd_dkv",
+            ("q", "k", "v", "do", "p_lse", "delta", "dk", "dv")),
+        "flash_bwd_dq": lambda: call(
+            "rt_flash_bwd_dq",
+            ("q", "k", "v", "do", "p_lse", "delta", "dq")),
+    }
+
+
+def run(dtype: torch.dtype, shape, gen, flush, other) -> None:
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    q, k, v, do = (torch.randn((bh, s, d), generator=gen,
-                               device="cuda").to(dtype) for _ in range(4))
-    scale = d ** -0.5
-    out, lse = fa.flash_fwd(q, k, v, scale)
-    p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale)
-    delta = fa.flash_delta(p_out, do)
-    bwd = (q, k, v, do, p_lse, delta, scale)
-    dk, dv = fa.flash_bwd_dkv(*bwd)
-    dq = fa.flash_bwd_dq(*bwd)
-    p_dk, p_dv = fa.flash_bwd_dkv_plain(*bwd)
-    p_dq = fa.flash_bwd_dq_plain(*bwd)
-    torch.cuda.synchronize()
+    bh, s, d = shape
     name = str(dtype).replace("torch.", "")
-    print(f"{name} errors: out {rel_err(out, p_out):.3g} lse "
-          f"{rel_err(lse, p_lse):.3g} dk {rel_err(dk, p_dk):.3g} dv "
-          f"{rel_err(dv, p_dv):.3g} dq {rel_err(dq, p_dq):.3g}", flush=True)
-    del out, lse, dk, dv, dq, p_dk, p_dv, p_dq
+    label = f"{name} {list(shape)}"
+    t = {x: torch.randn((bh, s, d), generator=gen, device="cuda").to(dtype)
+         for x in ("q", "k", "v", "do")}
+    scale = d ** -0.5
+    p_out, t["p_lse"] = fa.flash_fwd_plain(t["q"], t["k"], t["v"], scale)
+    t["delta"] = fa.flash_delta(p_out, t["do"])
+    bwd = (t["q"], t["k"], t["v"], t["do"], t["p_lse"], t["delta"], scale)
+    want = {"flash_fwd": (p_out, t["p_lse"]),
+            "flash_bwd_dkv": fa.flash_bwd_dkv_plain(*bwd),
+            "flash_bwd_dq": (fa.flash_bwd_dq_plain(*bwd),)}
+    outs = {"flash_fwd": ("out", "lse"), "flash_bwd_dkv": ("dk", "dv"),
+            "flash_bwd_dq": ("dq",)}
+    for x in ("out", "dq", "dk", "dv"):
+        t[x] = torch.empty_like(t["q"])
+    t["lse"] = torch.empty_like(t["p_lse"])
+    lib, _ = fa._entry("rt_flash_fwd", dtype)
+    tree = entries(lib, t, dtype, True)
     product = 2 * bh * (s * (s + 1) // 2) * d  # the causal pairs only
-    for kname, fn, n_products in (
-            ("flash_fwd", lambda: fa.flash_fwd(q, k, v, scale), 2),
-            ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(*bwd), 4),
-            ("flash_bwd_dq", lambda: fa.flash_bwd_dq(*bwd), 3)):
+    n_products = {"flash_fwd": 2, "flash_bwd_dkv": 4, "flash_bwd_dq": 3}
+    for kname, fn in tree.items():
+        fn()
+        torch.cuda.synchronize()
+        err = max(rel_err(t[o], w) for o, w in zip(outs[kname],
+                                                   want[kname]))
         ms = time_ms(fn, flush)
-        bound = 1e3 * n_products * product / PEAK_OPS_PER_S[dtype]
-        print(f"{name} {kname}: {ms:.4f} ms a launch, bound {bound:.4f} ms "
-              f"(operations), {bound / ms:.3f} of bound", flush=True)
-    if dtype == torch.bfloat16:
-        q4, k4, v4 = (t.view(1, *t.shape).requires_grad_(True)
-                      for t in (q, k, v))
-        lib_out = sdpa(q4, k4, v4, is_causal=True)
+        bound = 1e3 * n_products[kname] * product / PEAK_OPS_PER_S[dtype]
+        print(f"{label} {kname}: {ms:.4f} ms a launch, bound {bound:.4f} ms "
+              f"(operations), {bound / ms:.3f} of bound; max abs err "
+              f"{err:.3g} of the plain max", flush=True)
+    if dtype == torch.float32:
+        planned = fa.f32_fwd_tile(bh, s)
+        times = []
+        for tile in fa.F32_FWD_TILES:
+            fwd = entries(lib, t, dtype, True, tile)["flash_fwd"]
+            times.append(f"{tile}{' (plan)' if tile == planned else ''} "
+                         f"{time_ms(fwd, flush):.4f}")
+        times = ", ".join(times)
+        print(f"{label} flash_fwd by query tile, ms a launch: {times}",
+              flush=True)
+    q4, k4, v4 = (t[x].view(1, *t[x].shape).requires_grad_(True)
+                  for x in ("q", "k", "v"))
+    lib_out = sdpa(q4, k4, v4, is_causal=True)
 
-        def lib_fwd():
-            with torch.no_grad():
-                sdpa(q4, k4, v4, is_causal=True)
+    def lib_fwd():
+        with torch.no_grad():
+            sdpa(q4, k4, v4, is_causal=True)
 
-        fwd_ms = time_ms(lib_fwd, flush)
-        bwd_ms = time_ms(lambda: torch.autograd.grad(
-            lib_out, (q4, k4, v4), do.view(1, *do.shape),
-            retain_graph=True), flush)
-        print(f"{name} scaled_dot_product_attention: forward {fwd_ms:.4f} "
-              f"ms, backward {bwd_ms:.4f} ms", flush=True)
+    fwd_ms = time_ms(lib_fwd, flush)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (q4, k4, v4), t["do"].view(1, *t["do"].shape),
+        retain_graph=True), flush)
+    print(f"{label} scaled_dot_product_attention: forward {fwd_ms:.4f} ms, "
+          f"backward {bwd_ms:.4f} ms; backend {sdpa_backend(q4, k4, v4)}; "
+          f"forward kernels {device_kernels(lib_fwd)}", flush=True)
+    if other is None:
+        return
+    lib_other, planned_other = other
+    others = entries(lib_other, t, dtype, planned_other)
+    for kname in tree:
+        others[kname]()
+        torch.cuda.synchronize()
+        err = max(rel_err(t[o], w) for o, w in zip(outs[kname],
+                                                   want[kname]))
+        turns = []
+        for _ in range(2):
+            for who, fns in (("other", others), ("tree", tree),
+                             ("tree", tree), ("other", others)):
+                turns.append(f"{who} {time_ms(fns[kname], flush):.4f}")
+        print(f"{label} {kname} in turns, ms a launch: {', '.join(turns)} "
+              f"(other: max abs err {err:.3g} of the plain max)", flush=True)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=["bfloat16", "float32"], default=None)
+    ap.add_argument("--source", type=Path, default=None)
+    ap.add_argument("--other-unplanned", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flashbench needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(torch.cuda.get_device_name(0), flush=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    other = None
+    if args.source is not None:
+        other = (load_other(args.source, args.other_unplanned),
+                 not args.other_unplanned)
+        print(f"other: {args.source}", flush=True)
     for name in ([args.dtype] if args.dtype else ["bfloat16", "float32"]):
-        run(getattr(torch, name))
-        torch.cuda.empty_cache()
+        dtype = getattr(torch, name)
+        for shape in SHAPES[dtype]:
+            run(dtype, shape, gen, flush, other)
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

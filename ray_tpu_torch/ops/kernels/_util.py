@@ -161,6 +161,11 @@ def load_library(name: str, signatures: Dict[str, Signature]) -> ctypes.CDLL:
         return lib
 
 
+# Blocks that make about one wave of an H100's 132 SMs: the float32 kernels'
+# host plans (flash_attention.f32_fwd_tile, fused_ffn.f32_plan) size their
+# grids against it.
+WAVE_BLOCKS = 128
+
 # The dtypes of the flash and fused-FFN kernels: each C entry point `name`
 # takes bfloat16, and `name_f32` the same operands in float32.
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)

@@ -20,11 +20,12 @@
 //
 // Shared by every kernel here:
 //  * One block owns one output tile (128 query rows in the bf16 forward and
-//    dq, 128 keys in the bf16 dk/dv (64 at d 256), 64 rows in the float32
-//    kernels) and loops over the reduction axis inside the block (the
-//    TPU's sequential grid axis does not exist here). No atomics: forward
-//    and dq blocks own query tiles, dk/dv blocks own key tiles, so results
-//    are deterministic.
+//    dq, 128 keys in the bf16 dk/dv (64 at d 256), 64 or 16 query rows in
+//    the float32 forward, 64 rows in the float32 dq and dk/dv) and loops
+//    over the reduction axis inside the block (the TPU's sequential grid
+//    axis does not exist here). No atomics: forward and dq blocks own
+//    query tiles, dk/dv blocks own key tiles, so results are
+//    deterministic.
 //  * Scores, probabilities and the softmax state stay float32; p and ds are
 //    rounded to bf16 only as operands of the accumulating products, as the
 //    TPU kernels cast them.
@@ -60,8 +61,11 @@
 // its key-stationary twin ("key-stationary mainloop"). Two warpgroups a
 // block; scores, probabilities and output accumulators never leave
 // registers; P and dS are register A operands; the streamed tiles come
-// through a two-stage cp.async ring. The float32 kernels are plain tiled
-// SIMT code with CUDA-core FMAs (no TF32, which keeps ~3 digits).
+// through a two-stage cp.async ring. The float32 kernels use CUDA-core
+// FMAs (no TF32, which keeps ~3 digits): the forward a SIMT design of its
+// own (register-resident softmax, float4 operand reads, a cp.async K/V
+// ring and a host plan of its query tile; see "float32" below), dq and
+// dk/dv plain tiled SIMT code.
 //
 // Head dims 32, 64, 128 and 256 are instantiated; the wrappers zero-pad any
 // other head_dim up to 256 to the next of them (the caller's scale stays,
@@ -715,15 +719,49 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
 // ----------------------------------------------------------------- float32
 //
-// The three kernels for float32 operands and outputs: plain tiled SIMT
-// code, one block of 256 threads per 64-row output tile (as the bf16
-// kernels), tiles in shared memory with rows padded to D + 1 floats, and
-// every product an FMA on the CUDA cores in float32 (TF32 would keep ~3
-// digits). Thread (ty, tx) = (tid / 16, tid % 16) owns rows 4ty..4ty+3 and
-// columns tx + 16j of each 64-wide tile. Bound on an H100: float32
-// operations (67 TFLOP/s outside the tensor cores). At d 256 the four
-// 64-row tiles of dq and dk/dv would take 263 KB: there dq loads V and
-// then K into one buffer (dP first, then S and dq += dS.K), and dk/dv
+// flash_fwd_f32_kernel: one block owns BQ query rows of one head (64, or
+// 16 where the 64-row tiles alone would not make a wave of 128 blocks: the
+// host plan, flash_attention.py `f32_fwd_tile`) and walks the 64-key
+// tiles of its kv head. Bound on an H100: float32 operations (67 TFLOP/s
+// on the CUDA cores; no TF32, which keeps ~3 digits). What the design does
+// about it:
+//  * Rows go to row groups of 16 lanes, R rows a thread (8 at 64 rows, 4
+//    there at d 256, 1 at 16 rows: 128, 256 and 256 threads). Thread (ty,
+//    tx) = (tid / 16, tid % 16) owns rows R ty .. R ty + R - 1: their
+//    scores at keys tx + 16j (j < 4), their softmax state (m, l) and their
+//    output at columns 4tx + 64c (D / 16 of them; 2tx, 2tx + 1 at d 32).
+//    The row max and sum are four __shfl_xor_sync steps over the 16 lanes,
+//    and m, l and the rescale of O by alpha stay in registers.
+//  * S = Q.K^T reads Q and K as stored ([rows][d], d-contiguous, as in
+//    memory): each step takes 4 d of the thread's R rows and 4 keys as R +
+//    4 float4s for 16R FMAs (at R 8, 12 loads for 128 FMAs; the first SIMT
+//    design made 8 scalar loads for 16). Nothing is transposed, so K needs
+//    no second buffer and no transposing pass. A half-warp reads one Q
+//    address (a broadcast) and 16 key rows: K's 16-byte chunks are
+//    XOR-swizzled by key & 7 and Q's by (row / R) & 7, so those reads
+//    spread over all 8 bank groups with no padding.
+//  * P.V reduces over keys, and V [keys][d] is already k-major for it: per
+//    key, R p (float4s) and D / 64 float4s of V for R D / 16 FMAs. P goes
+//    through shared memory, since a row's 64 p are spread over its 16
+//    lanes; each warp's 2R rows have their own [64][2R] buffer, which only
+//    that warp reads.
+//  * Two slots, K and V, filled in turn by 16-byte cp.async, one barrier a
+//    slot: V(j) loads while S(j) and the softmax run, K(j + 1) while P.V(j)
+//    runs (the first K and V come together). At d 128 and 64 rows a block
+//    holds 112 KB (Q, the two slots, P) and 254 registers a thread: two
+//    blocks an SM. 4 rows a thread (256 threads) spilled at the 128
+//    registers two such blocks allow and was 12% slower (PERF.md).
+//  * Exps are exp2 of log2e-scaled scores (m is kept unscaled); while a
+//    row's max is still -1e30 its p is set to 0 by an explicit test, and
+//    lse is written in natural log, -1e30 for a row that saw no key.
+//
+// dq and dk/dv (flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel) are
+// plain tiled SIMT code, one block of 256 threads per 64-row output tile,
+// tiles in shared memory with rows padded to D + 1 floats, every product
+// an FMA on the CUDA cores. Thread (ty, tx) = (tid / 16, tid % 16) owns
+// rows 4ty..4ty+3 and columns tx + 16j of each 64-wide tile. At d 256 the
+// four 64-row tiles of dq and dk/dv would take 263 KB: there dq loads V
+// and then K into one buffer (dP first, then S and dq += dS.K), and dk/dv
 // loads Q, then dO, then Q again into one buffer (S^T, then dP^T and dv,
 // then dk): 215 and 231 KB.
 
@@ -806,52 +844,119 @@ __device__ __forceinline__ void weights_times_rows_f32(
 template <int D>
 __device__ __forceinline__ void store_rows_f32(float* dst,
                                                const float (&acc)[4][D / 16],
-                                               int row0, int n, int64_t ld,
-                                               const float* row_scale) {
+                                               int row0, int n,
+                                               int64_t ld) {
   const int ty = threadIdx.x >> 4;
   const int tx = threadIdx.x & 15;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * ty + i;
     if (row0 + r >= n) continue;
-    const float f = row_scale ? row_scale[r] : 1.0f;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
-      dst[(static_cast<int64_t>(row0) + r) * ld + tx + 16 * j] =
-          acc[i][j] * f;
+      dst[(static_cast<int64_t>(row0) + r) * ld + tx + 16 * j] = acc[i][j];
     }
   }
 }
 
-template <int D>
+// The float32 forward's rows a thread at query tile BQ (flash_attention.py
+// F32_FWD_TILES). At 16 rows, one row a thread keeps each thread's serial
+// work (the time of a launch that fills few SMs) small; at d 256, 8 rows'
+// outputs would not fit in registers.
+template <int D, int BQ>
+constexpr int kFwdRows = BQ >= 64 ? (D > 128 ? 4 : 8) : 1;
+template <int D, int BQ>
+constexpr int kFwdF32Threads = 16 * BQ / kFwdRows<D, BQ>;
+// the Q.K^T and P.V loops' unroll (the fastest of 2, 4 and 8 at d 128)
+constexpr int kFwdUnrollD = 2;
+constexpr int kFwdUnrollKeys = 8;
+
+template <int D, int BQ>
 constexpr size_t fwd_f32_smem_bytes() {
-  return sizeof(float) * (3 * kBQ * (D + 1)  // Q, K, V
-                          + kBQ * kLdF        // scores, then p
-                          + 3 * kBQ);         // m, l, alpha (1/l at the end)
+  // Q, the K and V slots, and each warp's P [64][2 * rows]
+  return sizeof(float) * (BQ * D + 2 * kBK * D + BQ * kBK);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+// Rows [row0, row0 + kRows) of an [n, D] float32 matrix (rows ld apart)
+// into a [kRows][D] tile by cp.async, 16-byte chunk c of row r at chunk
+// c ^ swizzle(r); rows >= n zero-filled.
+template <int D, int kRows, int kThreads, typename Swizzle>
+__device__ __forceinline__ void load_rows_async_f32(float* tile,
+                                                    const float* src,
+                                                    int row0, int n,
+                                                    int64_t ld,
+                                                    Swizzle swizzle) {
+  constexpr int kChunks = kRows * D / 4;
+#pragma unroll
+  for (int it = 0; it < (kChunks + kThreads - 1) / kThreads; ++it) {
+    const int e = threadIdx.x + it * kThreads;
+    if (kChunks % kThreads != 0 && e >= kChunks) break;
+    const int r = e / (D / 4);
+    const int c = e % (D / 4);
+    const bool valid = row0 + r < n;
+    const int64_t at = valid ? (static_cast<int64_t>(row0) + r) * ld + 4 * c
+                             : 0;
+    cp_async16(smem_u32(tile + r * D + 4 * (c ^ swizzle(r))), src + at,
+               valid);
+  }
+}
+
+// R (8, 4 or 1) consecutive floats of shared memory, 4R-byte aligned: as
+// float4s where R is a multiple of 4.
+template <int R>
+__device__ __forceinline__ void load_floats(const float* p, float (&x)[R]) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < R; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      x[i] = v.x;
+      x[i + 1] = v.y;
+      x[i + 2] = v.z;
+      x[i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < R; ++i) x[i] = p[i];
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void store_floats(float* p, const float (&x)[R]) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < R; i += 4) {
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < R; ++i) p[i] = x[i];
+  }
+}
+
+template <int D, int BQ>
+__global__ void __launch_bounds__(kFwdF32Threads<D, BQ>, D > 128 ? 1 : 2)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ out,
                          float* __restrict__ lse, int sq, int sk, int n_rep,
                          float scale, int causal) {
+  constexpr int R = kFwdRows<D, BQ>;  // rows a thread
+  constexpr int kThreads = kFwdF32Threads<D, BQ>;
+  constexpr int kCols = D / 16;  // output columns a thread
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);
-  float* sK = sQ + kBQ * (D + 1);
-  float* sV = sK + kBK * (D + 1);
-  float* sS = sV + kBK * (D + 1);
-  float* sM = sS + kBQ * kLdF;
-  float* sL = sM + kBQ;
-  float* sAlpha = sL + kBQ;
+  float* sK = sQ + BQ * D;
+  float* sV = sK + kBK * D;
+  // this warp's P: [64 keys][its 2R rows]
+  float* sP = sV + kBK * D + (threadIdx.x >> 5) * kBK * 2 * R;
 
   const int head = blockIdx.y;
   const int heads = gridDim.y;
   const int batch = blockIdx.z;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
+  const int ty = threadIdx.x >> 4;  // rows R ty .. R ty + R - 1
+  const int tx = threadIdx.x & 15;  // keys tx + 16j
   const int64_t ldq = static_cast<int64_t>(heads) * D;
   const int64_t ldk = static_cast<int64_t>(heads / n_rep) * D;
   const int64_t qoff = static_cast<int64_t>(batch) * sq * ldq + head * D;
@@ -859,86 +964,183 @@ __global__ void __launch_bounds__(kF32Threads)
       static_cast<int64_t>(batch) * sk * ldk + (head / n_rep) * D;
   const int64_t row_off = (static_cast<int64_t>(batch) * heads + head) * sq;
   const int offset = sk - sq;
-  const int n_kb = key_blocks(q0, sk, offset, causal);
+  const int n_kb = key_blocks(q0, sk, offset, causal, BQ);
+  const float scale2 = scale * kLog2e;
+  const auto q_swizzle = [](int r) { return (r / R) & 7; };
+  const auto k_swizzle = [](int r) { return r & 7; };
+  const auto no_swizzle = [](int) { return 0; };
 
-  load_rows_f32<D>(sQ, q + qoff, q0, sq, ldq);
-  for (int i = threadIdx.x; i < kBQ; i += kF32Threads) {
-    sM[i] = kNegInf;
-    sL[i] = 0.0f;
+  // Q, and the first K and V tiles
+  load_rows_async_f32<D, BQ, kThreads>(sQ, q + qoff, q0, sq, ldq,
+                                       q_swizzle);
+  if (n_kb > 0) {
+    load_rows_async_f32<D, kBK, kThreads>(sK, k + koff, 0, sk, ldk,
+                                          k_swizzle);
+    load_rows_async_f32<D, kBK, kThreads>(sV, v + koff, 0, sk, ldk,
+                                          no_swizzle);
   }
-  float o[4][D / 16];
+  cp_async_commit();
+
+  float o[R][kCols];
+  float m[R], l[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) o[i][j] = 0.0f;
+    for (int c = 0; c < kCols; ++c) o[i][c] = 0.0f;
   }
-  // softmax layout: four lanes per row, 16 columns each
-  const int sr = threadIdx.x >> 2;
-  const int quarter = threadIdx.x & 3;
+  const float* q_rows = sQ + R * ty * D;  // row R ty + i at i * D
+  const float* k_rows = sK + tx * D;      // key tx + 16j at 16j * D
+  const int xq = q_swizzle(R * ty);
+  const int xk = k_swizzle(tx);
+  const int pr = R * (ty & 1);  // this thread's rows in its warp's P
 
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows_f32<D>(sK, k + koff, k0, sk, ldk);
-    load_rows_f32<D>(sV, v + koff, k0, sk, ldk);
+    cp_async_wait<0>();
+    // K(kb) is in; every thread is past P.V(kb - 1), so V's slot is free
     __syncthreads();
-    float c[4][4];
-    rows_dot_rows_f32<D>(sQ, sK, c);
+    if (kb > 0) {  // V(0) came with K(0)
+      load_rows_async_f32<D, kBK, kThreads>(sV, v + koff, k0, sk, ldk,
+                                            no_swizzle);
+    }
+    cp_async_commit();
+
+    float s[R][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+    }
+#pragma unroll kFwdUnrollD
+    for (int c = 0; c < D / 4; ++c) {
+      float4 kv[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int r = 4 * ty + i;
-        const int col = k0 + tx + 16 * j;
-        sS[r * kLdF + tx + 16 * j] =
-            attends(q0 + r, col, sk, offset, causal) ? c[i][j] * scale
-                                                     : kNegInf;
+        kv[j] = *reinterpret_cast<const float4*>(k_rows + 16 * j * D +
+                                                 4 * (c ^ xk));
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(
+            q_rows + i * D + 4 * (c ^ xq));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+        }
       }
     }
+
+    // the online softmax, row by row over the half-warp's 16 lanes
+    const bool mask = tile_needs_mask(q0, k0, sk, offset, causal);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = q0 + R * ty + i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (mask && !attends(row, k0 + tx + 16 * j, sk, offset, causal)) {
+          s[i][j] = kNegInf;
+        }
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int lanes = 1; lanes < 16; lanes <<= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, lanes));
+      }
+      const float alpha = exp2f((m[i] - mx) * scale2);
+      m[i] = mx;
+      // a row that has seen no key yet keeps p = 0 (and so out 0)
+      const bool none = mx == kNegInf;
+      const float ms = mx * scale2;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = none ? 0.0f : exp2f(fmaf(s[i][j], scale2, -ms));
+        sum += s[i][j];
+      }
+#pragma unroll
+      for (int lanes = 1; lanes < 16; lanes <<= 1) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, lanes);
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) o[i][c] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float p[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) p[i] = s[i][j];
+      store_floats<R>(sP + (tx + 16 * j) * 2 * R + pr, p);
+    }
+
+    cp_async_wait<0>();
+    // V(kb) and every warp's P are in; every thread is past S(kb), so K's
+    // slot is free
     __syncthreads();
-    float* srow = sS + sr * kLdF + quarter * 16;
-    float mx = kNegInf;
-#pragma unroll
-    for (int cc = 0; cc < 16; ++cc) mx = fmaxf(mx, srow[cc]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_prev = sM[sr];
-    const float m_new = fmaxf(m_prev, mx);
-    // a row that has seen no key yet keeps p = 0 (and so out 0)
-    const bool none = m_new == kNegInf;
-    float sum = 0.0f;
-#pragma unroll
-    for (int cc = 0; cc < 16; ++cc) {
-      const float p = none ? 0.0f : expf(srow[cc] - m_new);
-      srow[cc] = p;
-      sum += p;
+    if (kb + 1 < n_kb) {
+      load_rows_async_f32<D, kBK, kThreads>(sK, k + koff, k0 + kBK, sk,
+                                            ldk, k_swizzle);
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float alpha = expf(m_prev - m_new);
-    __syncwarp();  // the row's four lanes have read sM
-    if (quarter == 0) {
-      sM[sr] = m_new;
-      sL[sr] = sL[sr] * alpha + sum;
-      sAlpha[sr] = alpha;
-    }
-    __syncthreads();
+    cp_async_commit();
+#pragma unroll kFwdUnrollKeys
+    for (int key = 0; key < kBK; ++key) {
+      float p[R];
+      load_floats<R>(sP + key * 2 * R + pr, p);
+      const float* v_row = sV + key * D;
+      float vv[kCols];
+      if constexpr (kCols >= 4) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = sAlpha[4 * ty + i];
+        for (int c = 0; c < kCols / 4; ++c) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              v_row + 4 * (tx + 16 * c));
+          vv[4 * c] = x.x;
+          vv[4 * c + 1] = x.y;
+          vv[4 * c + 2] = x.z;
+          vv[4 * c + 3] = x.w;
+        }
+      } else {
+        const float2 x = *reinterpret_cast<const float2*>(v_row + 2 * tx);
+        vv[0] = x.x;
+        vv[1] = x.y;
+      }
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) o[i][j] *= a;
+      for (int i = 0; i < R; ++i) {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) o[i][c] = fmaf(p[i], vv[c], o[i][c]);
+      }
     }
-    weights_times_rows_f32<D>(sS, sV, o);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kBQ; i += kF32Threads) {
-    const float l = fmaxf(sL[i], 1e-30f);
-    if (q0 + i < sq) lse[row_off + q0 + i] = sM[i] + logf(l);
-    sAlpha[i] = 1.0f / l;
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = q0 + R * ty + i;
+    if (r >= sq) continue;
+    const float sum = fmaxf(l[i], 1e-30f);
+    const float inv = 1.0f / sum;
+    float* dst = out + qoff + static_cast<int64_t>(r) * ldq;
+    if constexpr (kCols >= 4) {
+#pragma unroll
+      for (int c = 0; c < kCols / 4; ++c) {
+        *reinterpret_cast<float4*>(dst + 4 * (tx + 16 * c)) =
+            make_float4(o[i][4 * c] * inv, o[i][4 * c + 1] * inv,
+                        o[i][4 * c + 2] * inv, o[i][4 * c + 3] * inv);
+      }
+    } else {
+      *reinterpret_cast<float2*>(dst + 2 * tx) =
+          make_float2(o[i][0] * inv, o[i][1] * inv);
+    }
+    if (tx == 0) {
+      lse[row_off + r] =
+          (m[i] == kNegInf ? kNegInf : m[i] * scale) + logf(sum);
+    }
   }
-  __syncthreads();
-  store_rows_f32<D>(out + qoff, o, q0, sq, ldq, sAlpha);
 }
 
 template <int D>
@@ -1034,7 +1236,7 @@ __global__ void __launch_bounds__(kF32Threads)
     __syncthreads();
     weights_times_rows_f32<D>(sDS, sK, acc);  // dq += ds.k
   }
-  store_rows_f32<D>(dq + qoff, acc, q0, sq, ldq, nullptr);
+  store_rows_f32<D>(dq + qoff, acc, q0, sq, ldq);
 }
 
 template <int D>
@@ -1142,8 +1344,8 @@ __global__ void __launch_bounds__(kF32Threads)
       weights_times_rows_f32<D>(sDSt, sQ, acc_dk);  // dk += ds^T.q
     }
   }
-  store_rows_f32<D>(dk + koff, acc_dk, k0, sk, ldk, nullptr);
-  store_rows_f32<D>(dv + koff, acc_dv, k0, sk, ldk, nullptr);
+  store_rows_f32<D>(dk + koff, acc_dk, k0, sk, ldk);
+  store_rows_f32<D>(dv + koff, acc_dv, k0, sk, ldk);
 }
 
 // ------------------------------------------------------------------ launch
@@ -1175,10 +1377,30 @@ cudaError_t launch(Kernel kernel, size_t smem, int threads, int rows,
   return cudaGetLastError();
 }
 
+// The float32 forward at query tile BQ.
+template <int D, int BQ>
+cudaError_t launch_fwd_f32(const float* q, const float* k, const float* v,
+                           float* out, float* lse, int batch, int heads,
+                           int n_rep, int sq, int sk, float scale, int causal,
+                           cudaStream_t s) {
+  // two 64-row blocks at d 128 need all of the SM's shared memory
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32_kernel<D, BQ>,
+      cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  return launch(flash_fwd_f32_kernel<D, BQ>, fwd_f32_smem_bytes<D, BQ>(),
+                kFwdF32Threads<D, BQ>, sq, BQ, heads, batch, heads, n_rep, s,
+                q, k, v, out, lse, sq, sk, n_rep, scale, causal);
+}
+
+// `tile`: the float32 forward's query tile (64 or 16, flash_attention.py
+// `f32_fwd_tile`); the bf16 forward ignores it.
 template <int D, typename T>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
                        void* lse, int batch, int heads, int n_rep, int sq,
-                       int sk, float scale, int causal, cudaStream_t s) {
+                       int sk, float scale, int causal, int tile,
+                       cudaStream_t s) {
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
@@ -1189,9 +1411,11 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
                   kWgRows, heads, batch, heads, n_rep, s, qq, kk, vv, oo, ll,
                   sq, sk, n_rep, scale, causal);
   } else {
-    return launch(flash_fwd_f32_kernel<D>, fwd_f32_smem_bytes<D>(),
-                  kF32Threads, sq, kBQ, heads, batch, heads, n_rep, s, qq, kk,
-                  vv, oo, ll, sq, sk, n_rep, scale, causal);
+    switch (tile) {
+      case 64: return launch_fwd_f32<D, 64>(qq, kk, vv, oo, ll, batch, heads, n_rep, sq, sk, scale, causal, s);
+      case 16: return launch_fwd_f32<D, 16>(qq, kk, vv, oo, ll, batch, heads, n_rep, sq, sk, scale, causal, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -1247,13 +1471,13 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 template <typename T>
 int fwd_entry(const void* q, const void* k, const void* v, void* out,
               void* lse, int batch, int heads, int n_rep, int sq, int sk,
-              int d, float scale, int causal, void* stream) {
+              int d, float scale, int causal, int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch_fwd<32, T>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, s);
-    case 64: return launch_fwd<64, T>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, s);
-    case 128: return launch_fwd<128, T>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, s);
-    case 256: return launch_fwd<256, T>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, s);
+    case 32: return launch_fwd<32, T>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, tile, s);
+    case 64: return launch_fwd<64, T>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, tile, s);
+    case 128: return launch_fwd<128, T>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, tile, s);
+    case 256: return launch_fwd<256, T>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, scale, causal, tile, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1300,14 +1524,17 @@ int rt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                  void* lse, int batch, int heads, int n_rep, int sq, int sk,
                  int d, float scale, int causal, void* stream) {
   return fwd_entry<bf16>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, d,
-                         scale, causal, stream);
+                         scale, causal, 0, stream);
 }
 
+// The float32 forward also takes its query tile, 64 or 16
+// (flash_attention.py `f32_fwd_tile`).
 int rt_flash_fwd_f32(const void* q, const void* k, const void* v, void* out,
                      void* lse, int batch, int heads, int n_rep, int sq,
-                     int sk, int d, float scale, int causal, void* stream) {
+                     int sk, int d, float scale, int causal, int tile,
+                     void* stream) {
   return fwd_entry<float>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, d,
-                          scale, causal, stream);
+                          scale, causal, tile, stream);
 }
 
 // dO like q, lse/delta [batch, heads, sq] float32; dk/dv like k.

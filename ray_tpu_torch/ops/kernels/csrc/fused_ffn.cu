@@ -13,8 +13,8 @@
 //      USE_K3)
 //
 // plus float32 twins of all three (*_f32_kernel, near the end of the
-// file; K1's and K2's on a SIMT mainloop of their own, fed by a cp.async
-// ring, with tiles and a split of the reduction planned on the host).
+// file, on one SIMT mainloop of their own, fed by a cp.async ring, with
+// tiles and a split of the reduction planned on the host).
 //
 // What bounds them on an H100: tensor-core operations. At the Llama-3-8B
 // training shape (T = 4096 tokens, d = 4096, d_ff = 14336) K1 and K2 are
@@ -952,7 +952,7 @@ __global__ void __launch_bounds__(kRingThreads<kTma>, 1)
   }
 }
 
-// ---------------------------------------------------------------- float32
+// ---------------------------------------------------- float32 K1, K2, K3
 //
 // K1, K2 and K3 for float32 operands and outputs (the reference keeps the
 // model's dtype, fused_ffn.py:264 on). Every product is an FMA on the CUDA
@@ -960,112 +960,7 @@ __global__ void __launch_bounds__(kRingThreads<kTma>, 1)
 // within 1e-4 of their plain versions. Bound on an H100: float32 operations
 // (67 TFLOP/s).
 //
-// K3 (dw_gateup_f32_kernel) is one plain tiled SIMT product,
-// C[m][n] = sum_k A(m, k) B(k, n) over a 64 x 64 output tile, 16 of k a
-// step through shared memory, each of 256 threads owning a 4 x 4 patch
-// (rows 4ty + i, columns tx + 16j), A (its h) and B fetched by scalar loads.
-
-constexpr int kFT = 64;  // output tile
-constexpr int kFK = 16;  // reduction step
-constexpr int kLdF = kFT + 1;
-
-// Fills the [kFK][kLdF] tile with fetch(x, kk) at [kk][x] for x < kFT.
-// kContig: the source is contiguous along k (each thread walks k),
-// otherwise along x.
-template <bool kContig, typename Fetch>
-__device__ __forceinline__ void fill_tile_f32(float* tile, Fetch fetch) {
-  for (int e = threadIdx.x; e < kFK * kFT; e += kThreads) {
-    const int x = kContig ? e / kFK : e % kFT;
-    const int kk = kContig ? e % kFK : e / kFT;
-    tile[kk * kLdF + x] = fetch(x, kk);
-  }
-}
-
-template <bool kContigA, bool kContigB, typename FetchA, typename FetchB>
-__device__ __forceinline__ void gemm_tile_f32(int K, FetchA fetch_a,
-                                              FetchB fetch_b, float* sA,
-                                              float* sB, float (&c)[4][4]) {
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[i][j] = 0.0f;
-  }
-  for (int k0 = 0; k0 < K; k0 += kFK) {
-    __syncthreads();  // the previous step's readers are done
-    fill_tile_f32<kContigA>(
-        sA, [&](int m, int kk) { return fetch_a(m, k0 + kk); });
-    fill_tile_f32<kContigB>(
-        sB, [&](int n, int kk) { return fetch_b(k0 + kk, n); });
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      float x[4], y[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = sA[kk * kLdF + 4 * ty + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) y[j] = sB[kk * kLdF + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[i][j] = fmaf(x[i], y[j], c[i][j]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void store_tile_f32(float* out,
-                                               const float (&c)[4][4],
-                                               int m0, int n0, int M, int N) {
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + 4 * ty + i;
-      const int n = n0 + tx + 16 * j;
-      if (m < M && n < N) out[static_cast<int64_t>(m) * N + n] = c[i][j];
-    }
-  }
-}
-
-// K3: dW_gate (blockIdx.z 0) or dW_up (1) = h^T . dgate|dup, h = x*rstd*w.
-__global__ void __launch_bounds__(kThreads)
-    dw_gateup_f32_kernel(const float* __restrict__ x,
-                         const float* __restrict__ rstd,
-                         const float* __restrict__ norm_w,
-                         const float* __restrict__ dgate,
-                         const float* __restrict__ dup,
-                         float* __restrict__ dw_gate,
-                         float* __restrict__ dw_up, int T, int d, int dff) {
-  __shared__ float sA[kFK * kLdF];
-  __shared__ float sB[kFK * kLdF];
-  const int m0 = blockIdx.y * kFT;  // the d axis
-  const int n0 = blockIdx.x * kFT;  // the d_ff axis
-  const float* g = blockIdx.z ? dup : dgate;
-  float c[4][4];
-  gemm_tile_f32<false, false>(
-      T,
-      [&](int m, int t) {
-        const int i = m0 + m;
-        return t < T && i < d
-                   ? x[static_cast<int64_t>(t) * d + i] * rstd[t] * norm_w[i]
-                   : 0.0f;
-      },
-      [&](int t, int n) {
-        const int j = n0 + n;
-        return t < T && j < dff ? g[static_cast<int64_t>(t) * dff + j] : 0.0f;
-      },
-      sA, sB, c);
-  store_tile_f32(blockIdx.z ? dw_up : dw_gate, c, m0, n0, d, dff);
-}
-
-// ------------------------------------------------- float32 K1 and K2
-//
-// One SIMT mainloop, C[m][n] = sum_k A(m, k) B(k, n), shared by K1 and K2
-// (and shaped so that K3, with its h as `land`, can move onto it):
+// One SIMT mainloop, C[m][n] = sum_k A(m, k) B(k, n), serves all three:
 //  * a block of 256 threads owns a kB x kB output tile (kB 128 or 64),
 //    each thread a (kB/16) x (kB/16) patch: rows 4ty + r + 64i, columns
 //    4tx + c + 64j (ty, tx = thread / 16, thread % 16). Both operands sit
@@ -1081,8 +976,8 @@ __global__ void __launch_bounds__(kThreads)
 //  * `land(step, stage)` runs on each thread's own chunks of a stage once
 //    they have arrived (cp.async.wait_group makes a thread's own copies
 //    visible to it), before the barrier that releases the stage: K1's
-//    swiglu, once per element per block, and K2's transpose of its
-//    d-contiguous operands into the k-major tiles.
+//    swiglu and K3's h = (x*rstd)*norm_w, once per element per block, and
+//    K2's transpose of its d-contiguous operands into the k-major tiles.
 //  * the tile and a split of the reduction are planned on the host
 //    (fused_ffn.py `f32_plan`): 128 x 128 tiles where those alone fill a
 //    wave of 132 SMs, else 64 x 64, and where those do not either, the
@@ -1091,15 +986,18 @@ __global__ void __launch_bounds__(kThreads)
 //    S > 1 each block writes its float32 partial tile to a workspace
 //    [S, M, N] (allocated by the wrapper), and a second kernel sums the S
 //    partials in slice order and applies the epilogue (K2's swiglu VJP) to
-//    the sum. No atomics: every call gives the same bits. A second kernel
+//    the sum. K3's two products are blocks of one grid (tiles, S, 2) over
+//    a workspace [S, 2, d, d_ff], summed by one launch into the two halves
+//    of one [2, d, d_ff] output. No atomics: every call gives the same
+//    bits. A second kernel
 //    rather than the last block of a tile found by a counter: no counters
 //    to keep at zero across calls and streams, no fences, and it costs one
 //    launch on shapes that are launch-bound anyway. One wrapper call
 //    launches one kernel (S = 1) or two.
 //  * tiles are issued in groups (grouped_tile), so that a wave's blocks
 //    share operand rows in L2 (112 x 32 tiles of 128 at the 8B shape).
-// At the 8B shape both reach ~0.58 of the float32 bound, two blocks an SM
-// (127-128 registers a thread). What holds them there is not shared memory
+// At the 8B shape K1 and K2 reach ~0.58 of the float32 bound, two blocks an
+// SM (127-128 registers a thread). What holds them there is not shared memory
 // (halving the float4 reads gained 1-2%), occupancy (two blocks an SM, as
 // planned), the copies (K2's transposes cost 6.5%) or a missing register
 // prefetch of the next k (0.2%); 16 x 8 patches at 128 threads, one block
@@ -1128,6 +1026,9 @@ constexpr size_t kK1F32Smem = kF32Stages * 3 * F32Tile<kB>::kFloats * 4;
 template <int kB>
 constexpr size_t kK2F32Smem =
     (kF32Stages * 2 * F32Tile<kB>::kRaw + 2 * 2 * F32Tile<kB>::kFloats) * 4;
+// K3: two k-major tiles a stage (x, then h; dgate or dup).
+template <int kB>
+constexpr size_t kK3F32Smem = kF32Stages * 2 * F32Tile<kB>::kFloats * 4;
 
 __device__ __forceinline__ float lane4(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -1498,6 +1399,90 @@ __global__ void __launch_bounds__(kThreads, 2)
   });
 }
 
+// K3: dW_gate (blockIdx.z 0) or dW_up (1) [d, d_ff] = h^T . dgate|dup, h =
+// (x*rstd)*norm_w: M = d, N = d_ff, the reduction over the T tokens. x [T,
+// d] and dgate/dup [T, d_ff] are token-major, so both tiles are plain
+// k-major copies (K1's layout). h is formed where x lands, in the plain
+// version's order (fused_ffn.py `normed`), once per element per block:
+// norm_w at the block's kB columns is loaded once into shared memory, and
+// each chunk's token's rstd is read from L1, where the stage's load put
+// its 16 values (a prefetch: no register holds them across the stages).
+// Each block makes one of the two products and recomputes h: both in one
+// block would need two 8 x 8 accumulators a thread, over the 128-register
+// budget of two blocks an SM, which this kernel fills as K1 does.
+template <int kB>
+__global__ void __launch_bounds__(kThreads, 2)
+    dw_gateup_f32_kernel(const float* __restrict__ x,
+                         const float* __restrict__ rstd,
+                         const float* __restrict__ norm_w,
+                         const float* __restrict__ dgate,
+                         const float* __restrict__ dup,
+                         float* __restrict__ dw_gate,
+                         float* __restrict__ dw_up, float* __restrict__ ws,
+                         int T, int d, int dff) {
+  using Tl = F32Tile<kB>;
+  extern __shared__ __align__(16) float smem_f32[];
+  int mt, nt;
+  grouped_tile(blockIdx.x, cdiv(d, kB), cdiv(dff, kB), mt, nt);
+  const int m0 = mt * kB;  // rows of dW: the d axis
+  const int n0 = nt * kB;  // columns: the d_ff axis
+  int st0, n_steps;
+  f32_slice(T, st0, n_steps);
+  const bool vec_d = (d & 3) == 0;
+  const bool vec_f = (dff & 3) == 0;
+  __shared__ __align__(16) float s_norm_w[kB];
+  for (int i = threadIdx.x; i < kB; i += kThreads) {
+    s_norm_w[i] = m0 + i < d ? norm_w[m0 + i] : 0.0f;
+  }
+  __syncthreads();
+  // a stage: the x (then h) tile, the dgate|dup tile, the chunks' rstd
+  auto stage = [&](int buf) { return smem_f32 + buf * 2 * Tl::kFloats; };
+  float acc[Tl::kP][Tl::kP];
+  f32_mainloop<kB>(
+      st0, n_steps, acc,
+      [&](int st, int buf) {
+        float* s = stage(buf);
+        const int k0 = st * kF32K;
+        copy_kmajor<kB>(s, x, k0, m0, T, d, vec_d);
+        // a parameter in each branch: a selected pointer would hold two
+        // registers through the mainloop, and spilled
+        if (blockIdx.z) {
+          copy_kmajor<kB>(s + Tl::kFloats, dup, k0, n0, T, dff, vec_f);
+        } else {
+          copy_kmajor<kB>(s + Tl::kFloats, dgate, k0, n0, T, dff, vec_f);
+        }
+        if (threadIdx.x == 0) {  // 64 aligned bytes: one L1 line
+          asm volatile("prefetch.global.L1 [%0];\n" ::"l"(rstd + k0));
+        }
+      },
+      [&](int st, int buf) {
+        float* s = stage(buf);
+        const int k0 = (st0 + st) * kF32K;
+#pragma unroll
+        for (int it = 0; it < Tl::kChunks; ++it) {
+          int k, cc;
+          kmajor_chunk<kB>(it, k, cc);
+          float4* h = reinterpret_cast<float4*>(s + k * Tl::kLd + cc);
+          const float r = k0 + k < T ? __ldg(rstd + k0 + k) : 0.0f;
+          const float4 w = *reinterpret_cast<const float4*>(s_norm_w + cc);
+          const float4 v = *h;
+          *h = make_float4(v.x * r * w.x, v.y * r * w.y, v.z * r * w.z,
+                           v.w * r * w.w);
+        }
+      },
+      [&](int, int buf, const float*& a, const float*& b) {
+        a = stage(buf);
+        b = stage(buf) + Tl::kFloats;
+      });
+  float* out = gridDim.y > 1
+                   ? ws + (static_cast<int64_t>(blockIdx.y) * 2 + blockIdx.z)
+                              * d * dff
+                   : (blockIdx.z ? dw_up : dw_gate);
+  for_patch<kB>(acc, m0, n0, d, dff, [&](int m, int n, float4 v) {
+    store4(out + static_cast<int64_t>(m) * dff, n, dff, v, vec_f);
+  });
+}
+
 // The S partials of elements i .. i + 3 of a workspace [S, n], summed in
 // slice order.
 __device__ __forceinline__ float4 sum_slices(const float* ws, int S,
@@ -1511,7 +1496,8 @@ __device__ __forceinline__ float4 sum_slices(const float* ws, int S,
   return v;
 }
 
-// K1 with S > 1: dW_down = the sum of the partials (4 elements a thread).
+// K1 and K3 with S > 1: the output = the sum of the partials (4 elements a
+// thread).
 __global__ void __launch_bounds__(kThreads)
     split_sum_f32_kernel(const float* __restrict__ ws, int S, int64_t n,
                          float* __restrict__ out) {
@@ -1729,20 +1715,40 @@ int rt_dgateup(const void* dy, const void* w_down, const void* gate,
                 dff);
 }
 
-// The same three entries for float32 operands and outputs (rstd float32);
-// K1's and K2's also take the plan of fused_ffn.py `f32_plan` (tile,
-// splits) and, where splits > 1, its float32 workspace [splits, M, N]
-// (M x N = d_ff x d for K1, T x d_ff for K2).
+// The same three entries for float32 operands and outputs (rstd float32),
+// each also taking the plan of fused_ffn.py `f32_plan` (tile, splits) and,
+// where splits > 1, its float32 workspace: [splits, M, N] (M x N = d_ff x
+// d for K1, T x d_ff for K2), [splits, 2, d, d_ff] for K3, whose dw_up
+// must then follow dw_gate in memory (one [2, d, d_ff] output).
 int rt_dw_gateup_f32(const void* x, const void* rstd, const void* norm_w,
                      const void* dgate, const void* dup, void* dw_gate,
-                     void* dw_up, int T, int d, int dff, void* stream) {
-  dim3 grid((dff + kFT - 1) / kFT, (d + kFT - 1) / kFT, 2);
-  dw_gateup_f32_kernel<<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(rstd),
-      static_cast<const float*>(norm_w), static_cast<const float*>(dgate),
-      static_cast<const float*>(dup), static_cast<float*>(dw_gate),
-      static_cast<float*>(dw_up), T, d, dff);
+                     void* dw_up, void* ws, int T, int d, int dff, int tile,
+                     int splits, void* stream) {
+  const int tiles = f32_tiles(d, dff, T, tile, splits, ws);
+  auto* dg = static_cast<float*>(dw_gate);
+  auto* du = static_cast<float*>(dw_up);
+  const int64_t n = 2 * static_cast<int64_t>(d) * dff;
+  if (tiles < 0 || (splits > 1 && du != dg + n / 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(tiles, splits, 2);
+  const auto* xx = static_cast<const float*>(x);
+  const auto* r = static_cast<const float*>(rstd);
+  const auto* nw = static_cast<const float*>(norm_w);
+  const auto* g = static_cast<const float*>(dgate);
+  const auto* u = static_cast<const float*>(dup);
+  auto* w = static_cast<float*>(ws);
+  const int err =
+      tile == 128
+          ? launch(dw_gateup_f32_kernel<128>, grid, kThreads,
+                   kK3F32Smem<128>, stream, xx, r, nw, g, u, dg, du, w, T, d,
+                   dff)
+          : launch(dw_gateup_f32_kernel<64>, grid, kThreads, kK3F32Smem<64>,
+                   stream, xx, r, nw, g, u, dg, du, w, T, d, dff);
+  if (err != 0 || splits == 1) return err;
+  split_sum_f32_kernel<<<split_blocks(n), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(w, splits, n,
+                                                              dg);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,7 +23,10 @@ and 256 (`HEAD_DIMS`); the wrappers zero-pad any other head_dim to the next
 of them before the launch and slice the outputs back (`pad_heads`,
 `unpad_heads`; exact, since the scale is the caller's). Each wrapper counts
 its launches in `.launches` and, of those, the float32 kernel's in
-`.f32_launches`. The plain PyTorch versions beside them run for tensors on
+`.f32_launches`. The float32 forward also takes a query-tile height
+planned from the shape (`f32_fwd_tile`: 64 rows where those tiles alone
+make a wave of the card, else 16); `key_tiles` and `tile_needs_mask` are
+the kernels' causal-band arithmetic, in Python for the tests. The plain PyTorch versions beside them run for tensors on
 the CPU; they compute densely in float32 with the kernels' masking and
 roundings (p and ds rounded to the input dtype before the products they
 feed). Over [b·h, s, d] GQA is the caller's: K/V come in repeated per query
@@ -51,9 +54,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from ray_tpu_torch.ops.kernels._util import (KERNEL_DTYPES, check,
-                                             count_launch, dtype_entry,
-                                             stream_handle, with_f32)
+from ray_tpu_torch.ops.kernels._util import (KERNEL_DTYPES, WAVE_BLOCKS,
+                                             cdiv, check, count_launch,
+                                             dtype_entry, stream_handle,
+                                             with_f32)
 
 _NEG_INF = -1e30
 # The head dims the CUDA kernels are instantiated at. Any other head_dim up
@@ -66,11 +70,50 @@ _P, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every entry takes the packed layout (batch, heads, n_rep, sq, sk, d);
 # [b·h, s, d] operands are batch = b·h, heads = n_rep = 1.
 _LAYOUT = [_INT] * 6
-_SIGNATURES = with_f32({
-    "rt_flash_fwd": ([_P] * 5 + _LAYOUT + [_F, _INT, _P], _INT),
-    "rt_flash_bwd_dkv": ([_P] * 8 + _LAYOUT + [_F, _INT, _P], _INT),
-    "rt_flash_bwd_dq": ([_P] * 7 + _LAYOUT + [_F, _INT, _P], _INT),
-})
+_SIGNATURES = {
+    **with_f32({
+        "rt_flash_fwd": ([_P] * 5 + _LAYOUT + [_F, _INT, _P], _INT),
+        "rt_flash_bwd_dkv": ([_P] * 8 + _LAYOUT + [_F, _INT, _P], _INT),
+        "rt_flash_bwd_dq": ([_P] * 7 + _LAYOUT + [_F, _INT, _P], _INT),
+    }),
+    # the float32 forward also takes its query tile (`f32_fwd_tile`)
+    "rt_flash_fwd_f32": ([_P] * 5 + _LAYOUT + [_F, _INT, _INT, _P], _INT),
+}
+
+# The float32 forward's plan: a block owns F32_FWD_TILES[0] query rows of
+# one head where those tiles alone make a wave of WAVE_BLOCKS blocks, else
+# F32_FWD_TILES[1] (csrc/flash_attention.cu, "float32"). Every kernel walks
+# keys in tiles of KEY_TILE.
+F32_FWD_TILES = (64, 16)
+KEY_TILE = 64
+
+
+def f32_fwd_tile(heads: int, sq: int) -> int:
+    """The query-tile height of the float32 forward over `heads` query
+    heads (b·h, or b x heads in the packed layout) of sq rows."""
+    for tile in F32_FWD_TILES:
+        if heads * cdiv(sq, tile) >= WAVE_BLOCKS:
+            return tile
+    return F32_FWD_TILES[-1]
+
+
+def key_tiles(q0: int, rows: int, sq: int, sk: int, causal: bool) -> int:
+    """How many key tiles a block of query rows [q0, q0 + rows) walks
+    (the kernels' `key_blocks`): all of sk, or, causal, up to the band of
+    its last row (keys <= row + sk - sq)."""
+    n = cdiv(sk, KEY_TILE)
+    if causal:
+        last = q0 + rows - 1 + sk - sq
+        n = min(n, last // KEY_TILE + 1 if last >= 0 else 0)
+    return n
+
+
+def tile_needs_mask(q0: int, k0: int, sq: int, sk: int,
+                    causal: bool) -> bool:
+    """Whether the key tile at k0 holds a key that some row of the query
+    block at q0 may not attend (the kernels' `tile_needs_mask`): the ragged
+    key tail, or keys past the band of the block's first row."""
+    return k0 + KEY_TILE > sk or (causal and k0 + KEY_TILE - 1 > q0 + sk - sq)
 
 
 def _entry(name: str, dtype: torch.dtype):
@@ -296,9 +339,12 @@ def _launch_fwd(q, k, v, lse, layout, scale, causal, what) -> torch.Tensor:
     layout, q, k, v, _, back = _padded(layout, q, k, v)
     out = torch.empty_like(q)
     lib, fn = _entry("rt_flash_fwd", q.dtype)
+    b, heads, _, sq = layout[:4]
+    tile = ((f32_fwd_tile(b * heads, sq),) if q.dtype == torch.float32
+            else ())
     check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *layout, float(scale), int(causal),
+        lse.data_ptr(), *layout, float(scale), int(causal), *tile,
         stream_handle(q)), what)
     return back(out, True)
 

@@ -26,11 +26,12 @@ reference keeps the model's dtype; rstd is always float32), and each
 wrapper counts its launches in `.launches` and the float32 kernel's share
 in `.f32_launches`. Its `*_plain` twin runs for tensors on the CPU. The
 kernels mask ragged edges themselves, so no (T, d, d_ff) tiling guard
-exists on either side. The float32 K1 and K2 also take a plan from the
+exists on either side. The float32 K1, K2 and K3 also take a plan from the
 shape (`f32_plan`: the output tile, and a split of the reduction where the
 tiles alone would leave most of the card idle) and, when split, a float32
 workspace the wrapper allocates; the split is summed in a fixed order, so
-every call gives the same bits.
+every call gives the same bits. The float32 K3 writes dW_gate and dW_up as
+the two halves of one [2, d, d_ff] tensor.
 """
 
 from __future__ import annotations
@@ -40,9 +41,10 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ray_tpu_torch.ops.kernels._util import (KERNEL_DTYPES, cdiv, check,
-                                             count_launch, dtype_entry,
-                                             stream_handle, with_f32)
+from ray_tpu_torch.ops.kernels._util import (KERNEL_DTYPES, WAVE_BLOCKS,
+                                             cdiv, check, count_launch,
+                                             dtype_entry, stream_handle,
+                                             with_f32)
 
 _P, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -52,8 +54,10 @@ _SIGNATURES = {
         "rt_dw_down": ([_P, _P, _P, _P, _INT, _INT, _INT, _P], _INT),
         "rt_dgateup": ([_P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _P], _INT),
     }),
-    # the float32 K1 and K2 also take their plan's workspace, tile and
+    # the float32 kernels also take their plan's workspace, tile and
     # splits (`f32_plan`)
+    "rt_dw_gateup_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT,
+                          _INT, _INT, _P], _INT),
     "rt_dw_down_f32": ([_P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT,
                         _P], _INT),
     "rt_dgateup_f32": ([_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT,
@@ -101,28 +105,28 @@ def swiglu_act(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 
 class F32Plan(NamedTuple):
-    """How the float32 K1 and K2 cut an M x N product over K: `tile` x
-    `tile` output tiles, the reduction in `splits` slices of whole stages
-    (csrc/fused_ffn.cu, "float32 K1 and K2")."""
+    """How the float32 K1, K2 and K3 cut an M x N product over K: `tile`
+    x `tile` output tiles, the reduction in `splits` slices of whole stages
+    (csrc/fused_ffn.cu, "float32 K1, K2, K3")."""
     tile: int
     splits: int
 
 
 F32_TILES = (128, 64)  # the block tiles the float32 mainloop takes
 F32_STAGE = 16         # of the reduction a stage of its ring holds
-F32_WAVE = 128         # blocks that make about one wave of an H100's 132 SMs
 
 
-def f32_plan(M: int, N: int, K: int) -> F32Plan:
+def f32_plan(M: int, N: int, K: int, outputs: int = 1) -> F32Plan:
     """The largest tile whose output tiles alone make a wave (S = 1); where
     none does, 64 x 64 tiles and the reduction split into as many slices as
-    bring the grid to a wave, each at least one stage long."""
+    bring the grid to a wave, each at least one stage long. `outputs`
+    products of this shape run side by side (K3's two: a block each)."""
     for tile in F32_TILES:
-        if cdiv(M, tile) * cdiv(N, tile) >= F32_WAVE:
+        if cdiv(M, tile) * cdiv(N, tile) * outputs >= WAVE_BLOCKS:
             return F32Plan(tile, 1)
     tile = F32_TILES[-1]
-    tiles = cdiv(M, tile) * cdiv(N, tile)
-    return F32Plan(tile, max(1, min(cdiv(F32_WAVE, tiles),
+    tiles = cdiv(M, tile) * cdiv(N, tile) * outputs
+    return F32Plan(tile, max(1, min(cdiv(WAVE_BLOCKS, tiles),
                                     cdiv(K, F32_STAGE))))
 
 
@@ -136,23 +140,28 @@ def f32_slices(K: int, splits: int) -> List[Tuple[int, int]]:
             for s in range(splits)]
 
 
-def f32_launch_plan(M: int, N: int, K: int, device
+def f32_launch_plan(M: int, N: int, K: int, device, outputs: int = 1,
+                    plan: Optional[F32Plan] = None
                     ) -> Tuple[F32Plan, Optional[torch.Tensor]]:
-    """The plan of an M x N product over K and the float32 workspace
-    [splits, M, N] its partial tiles go to (None when splits is 1)."""
-    plan = f32_plan(M, N, K)
-    ws = (torch.empty((plan.splits, M, N), dtype=torch.float32,
+    """The plan of `outputs` M x N products over K (`f32_plan`'s, unless
+    `plan` is given) and the float32 workspace their partial tiles go to,
+    [splits, M, N] (one output) or [splits, outputs, M, N] (None when
+    splits is 1)."""
+    plan = plan or f32_plan(M, N, K, outputs)
+    shape = (M, N) if outputs == 1 else (outputs, M, N)
+    ws = (torch.empty((plan.splits, *shape), dtype=torch.float32,
                       device=device) if plan.splits > 1 else None)
     return plan, ws
 
 
-def _launch(what: str, dtype, pointers, dims, plan_dims, stream) -> None:
-    """Calls the C entry `rt_<what>` for `dtype`: the float32 K1 and K2
+def _launch(what: str, dtype, pointers, dims, plan_dims, stream,
+            outputs: int = 1) -> None:
+    """Calls the C entry `rt_<what>` for `dtype`: the float32 kernels
     take their plan's workspace, tile and splits after the tensors
-    (plan_dims: that product's M, N, K)."""
+    (plan_dims: that product's M, N, K; `outputs` such products)."""
     lib, fn = _entry(f"rt_{what}", dtype)
     if dtype == torch.float32:
-        plan, ws = f32_launch_plan(*plan_dims, device=pointers[0].device)
+        plan, ws = f32_launch_plan(*plan_dims, pointers[0].device, outputs)
         args = (*(t.data_ptr() for t in pointers),
                 None if ws is None else ws.data_ptr(), *dims, plan.tile,
                 plan.splits, stream)
@@ -278,14 +287,15 @@ def dw_gateup(x2d: torch.Tensor, rstd: torch.Tensor, norm_w: torch.Tensor,
     if rstd.dtype != torch.float32:
         raise TypeError(f"dw_gateup: the CUDA kernels take float32 rstd, got "
                         f"{rstd.dtype}")
-    dwg = torch.empty((d, dff), dtype=dgate.dtype, device=dev)
-    dwu = torch.empty((d, dff), dtype=dup.dtype, device=dev)
+    if x2d.dtype == torch.float32:  # one [2, d, d_ff] for the split's sum
+        dwg, dwu = torch.empty((2, d, dff), dtype=dgate.dtype, device=dev)
+    else:
+        dwg = torch.empty((d, dff), dtype=dgate.dtype, device=dev)
+        dwu = torch.empty((d, dff), dtype=dup.dtype, device=dev)
     if d and dff:  # T == 0 runs no token step and writes zeros
-        lib, fn = _entry("rt_dw_gateup", x2d.dtype)
-        check(lib, fn(
-            x2d.data_ptr(), rstd.data_ptr(), norm_w.data_ptr(),
-            dgate.data_ptr(), dup.data_ptr(), dwg.data_ptr(), dwu.data_ptr(),
-            T, d, dff, stream_handle(x2d)), "dw_gateup")
+        _launch("dw_gateup", x2d.dtype,
+                (x2d, rstd, norm_w, dgate, dup, dwg, dwu), (T, d, dff),
+                (d, dff, T), stream_handle(x2d), outputs=2)
         count_launch(dw_gateup, x2d.dtype)
     return dwg, dwu
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch import ffnbench
 from ray_tpu_torch.bench import make_batch
 from ray_tpu_torch.models import ModelConfig, init_params
 from ray_tpu_torch.models import inference, serving
@@ -672,17 +673,22 @@ def _f32(shape, device, seed, scale=1.0):
 
 
 @pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", [
-    (2, 4, 1, 128, 128, 128, True), (1, 2, 2, 64, 300, 64, True),
-    (1, 4, 1, 130, 130, 32, False), (1, 8, 2, 200, 200, 128, True),
-    (1, 4, 2, 192, 192, 256, True), (1, 4, 2, 192, 192, 200, True),
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal,tile", [
+    (2, 4, 1, 128, 128, 128, True, 16), (1, 2, 2, 64, 300, 64, True, 16),
+    (1, 4, 1, 130, 130, 32, False, 16), (1, 8, 2, 200, 200, 128, True, 16),
+    (1, 4, 2, 192, 192, 256, True, 16), (1, 4, 2, 192, 192, 200, True, 16),
+    (2, 8, 2, 512, 512, 128, True, 64), (1, 16, 4, 520, 520, 64, True, 64),
+    (4, 4, 4, 500, 530, 32, False, 64), (1, 32, 8, 300, 280, 256, True, 64),
 ])
 def test_f32_flash_kernels_match_plain_versions(no_tf32, packed, b, h, kv,
-                                                sq, sk, d, causal):
+                                                sq, sk, d, causal, tile):
     """The three float32 flash kernels, both layouts, GQA by index (packed)
     or repeated K/V ([b·h, s, d]), at head_dim 256 and a head_dim zero-padded
-    to it too."""
+    to it too, and the forward at each query tile its plan can pick
+    (`f32_fwd_tile`: b·h, or b x heads, query heads): ragged rows, sq != sk
+    and not causal at both."""
     cuda = no_tf32
+    assert fa.f32_fwd_tile(b * h, sq) == tile
     q, do = (_f32((b, sq, h * d), cuda, i) for i in (0, 3))
     k, v = (_f32((b, sk, kv * d), cuda, i) for i in (1, 2))
     scale = d ** -0.5
@@ -748,32 +754,100 @@ def test_f32_ffn_kernels_match_plain_versions(no_tf32, T, d, dff):
                                      (512, 256, 512), (37, 130, 50),
                                      (1000, 200, 328), (0, 64, 64)])
 def test_f32_k1_k2_on_their_plans_match_plain_versions(no_tf32, T, d, dff):
-    """The float32 K1 and K2 on the tile and split their plan gives each
-    shape (fused_ffn.f32_plan): the tiny step's (64 x 64 tiles, 8 slices),
-    the 8B shape (128 x 128, unsplit), split and ragged shapes, rows that
-    are not 16-byte aligned (d 130, d_ff 50) and T = 0 (zeros). Within 1e-4
-    of the plain versions, and a second call gives the same bits."""
+    """The float32 K1, K2 and K3 on the tile and split their plan gives
+    each shape (fused_ffn.f32_plan): the tiny step's (64 x 64 tiles, 8
+    slices for K1 and K2, 4 for K3's two outputs), the 8B shape (128 x 128,
+    unsplit), split and ragged shapes, rows that are not 16-byte aligned (d
+    130, d_ff 50) and T = 0 (zeros). Within 1e-4 of the plain versions, and
+    a second call gives the same bits."""
     cuda = no_tf32
     gate, up = _f32((T, dff), cuda, 3), _f32((T, dff), cuda, 4)
     dy = _f32((T, d), cuda, 6, 0.1)
     wd = _f32((dff, d), cuda, 7, dff ** -0.5)
-    kernels = (ff.dw_down, ff.dgateup)
+    x = _f32((T, d), cuda, 0)
+    rstd = torch.rand((T, 1), device=cuda) + 0.5
+    nw = _f32((d,), cuda, 5, 0.1) + 1
+    dgate, dup = _f32((T, dff), cuda, 1, 0.01), _f32((T, dff), cuda, 2, 0.01)
+    kernels = (ff.dw_down, ff.dgateup, ff.dw_gateup)
     before = [(kern.launches, kern.f32_launches) for kern in kernels]
-    got = (ff.dw_down(gate, up, dy), *ff.dgateup(dy, wd, gate, up))
-    again = (ff.dw_down(gate, up, dy), *ff.dgateup(dy, wd, gate, up))
+
+    def run():
+        return (ff.dw_down(gate, up, dy), *ff.dgateup(dy, wd, gate, up),
+                *ff.dw_gateup(x, rstd, nw, dgate, dup))
+
+    got, again = run(), run()
     want = (ff.dw_down_plain(gate, up, dy),
-            *ff.dgateup_plain(dy, wd, gate, up))
+            *ff.dgateup_plain(dy, wd, gate, up),
+            *ff.dw_gateup_plain(x, rstd, nw, dgate, dup))
     torch.cuda.synchronize()
-    for g, a, w, name in zip(got, again, want, ("dw_down", "dgate", "dup")):
+    for g, a, w, name in zip(got, again, want, ("dw_down", "dgate", "dup",
+                                                "dw_gate", "dw_up")):
         assert g.dtype == torch.float32 and g.shape == w.shape, name
         assert torch.equal(g, a), name
         if w.numel():
             assert _rel_err(g, w) < F32_KERNEL_TOL, name
     if T == 0:
-        assert not got[0].any()
-    calls = (2, 2 if T else 0)  # K2 launches nothing for T = 0
+        assert not got[0].any() and not got[3].any() and not got[4].any()
+    calls = (2, 2 if T else 0, 2)  # K2 launches nothing for T = 0
     assert [(kern.launches, kern.f32_launches) for kern in kernels] == [
         (n + c, m + c) for (n, m), c in zip(before, calls)]
+
+
+@pytest.mark.parametrize("plan", ffnbench.PLAN_SWEEP)
+def test_f32_ffn_kernels_under_every_plan_of_the_sweep(no_tf32, plan):
+    """K1, K2 and K3 at the float32 tiny step's shape (T = d = d_ff =
+    256) under each plan of ffnbench's sweep, called through their C
+    entries: within 1e-4 of the plain versions, and a second call gives the
+    same bits."""
+    cuda = no_tf32
+    dims = ffnbench.TINY
+    T, d, dff = dims
+    t = {"x": _f32((T, d), cuda, 0), "nw": _f32((d,), cuda, 5, 0.1) + 1,
+         "rstd": torch.rand((T, 1), device=cuda) + 0.5,
+         "dgate": _f32((T, dff), cuda, 1, 0.01),
+         "dup": _f32((T, dff), cuda, 2, 0.01),
+         "gate": _f32((T, dff), cuda, 3), "up": _f32((T, dff), cuda, 4),
+         "dy": _f32((T, d), cuda, 6, 0.1),
+         "wd": _f32((dff, d), cuda, 7, dff ** -0.5)}
+    ffnbench.add_outputs(t, dims, torch.float32)
+    lib, _ = ff._entry("rt_dw_gateup", torch.float32)
+    fns = ffnbench.entries(lib, t, dims, torch.float32, ffnbench.PLANNED,
+                           plan)
+    want = {"dw_gateup": ff.dw_gateup_plain(t["x"], t["rstd"], t["nw"],
+                                            t["dgate"], t["dup"]),
+            "dw_down": (ff.dw_down_plain(t["gate"], t["up"], t["dy"]),),
+            "dgateup": ff.dgateup_plain(t["dy"], t["wd"], t["gate"],
+                                        t["up"])}
+    for name, fn in fns.items():
+        fn()
+        first = [t[o].clone() for o in ffnbench.OUTPUTS[name]]
+        fn()
+        torch.cuda.synchronize()
+        for o, a, w in zip(ffnbench.OUTPUTS[name], first, want[name]):
+            assert torch.equal(t[o], a), (name, o)
+            assert _rel_err(t[o], w) < F32_KERNEL_TOL, (name, o)
+
+
+@pytest.mark.parametrize("d", [4096, 256])
+def test_f32_k3_h_operand_equals_the_plain_normed_x(no_tf32, d):
+    """The float32 K3 with dgate the identity (T = d_ff = 256):
+    dW_gate[i, t] is the kernel's h of token t, d row i (one nonzero term a
+    sum, the other slices adding exact zeros): equal to the plain version's
+    (x·rstd)·norm_w value for value, unsplit (d 4096: 128-tiles) and split
+    (d 256: 64-tiles, 4 slices)."""
+    cuda = no_tf32
+    T = 256
+    x = _f32((T, d), cuda, 0)
+    rstd = torch.from_numpy(np.random.default_rng(4).random(
+        (T, 1)).astype(np.float32) + 0.5).to(cuda)
+    nw = _f32((d,), cuda, 5, 0.1) + 1
+    eye = torch.eye(T, device=cuda)
+    assert ff.f32_plan(d, T, T, 2) == (ff.F32Plan(128, 1) if d == 4096
+                                       else ff.F32Plan(64, 4))
+    dwg, dwu = ff.dw_gateup(x, rstd, nw, eye, eye)
+    h = ff.normed(x, rstd, nw)
+    torch.cuda.synchronize()
+    assert torch.equal(dwg.T, h) and torch.equal(dwu.T, h)
 
 
 @pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", [
@@ -993,15 +1067,18 @@ def test_attention_entries_launch_the_kernels_at_head_dim_256(cuda):
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [64, 128, 96])
-def test_rows_that_see_no_key_give_zero_on_the_card(no_tf32, d, dtype,
+@pytest.mark.parametrize("h", [2, 32])
+def test_rows_that_see_no_key_give_zero_on_the_card(no_tf32, h, d, dtype,
                                                     packed):
     """Causal with sq 300 > sk 64: rows 0-235 attend no key. The forward
-    kernel (bf16 and float32, both layouts; head_dim 96 zero-padded to 128)
-    gives out 0 there, as its plain version does, and agrees with it
-    everywhere: within 1e-2 (bf16) or 1e-4 (float32), lse within 2e-5; the
-    bf16 dk/dv and dq kernels within 1e-2."""
+    kernel (bf16 and float32, both layouts; head_dim 96 zero-padded to 128;
+    2 heads or 32, which the float32 forward's plan gives query tiles of 16
+    and 64) gives out 0 there, as its plain version does, and agrees with
+    it everywhere: within 1e-2 (bf16) or 1e-4 (float32), lse within 2e-5;
+    the bf16 dk/dv and dq kernels within 1e-2."""
     cuda = no_tf32
-    b, h, kv, sq, sk = 1, 2, 2, 300, 64
+    b, kv, sq, sk = 1, h, 300, 64
+    assert fa.f32_fwd_tile(b * h, sq) == (16 if h == 2 else 64)
     make = _f32 if dtype == torch.float32 else _bf16
     q, do = make((b, sq, h * d), cuda, 0), make((b, sq, h * d), cuda, 3)
     k, v = make((b, sk, kv * d), cuda, 1), make((b, sk, kv * d), cuda, 2)

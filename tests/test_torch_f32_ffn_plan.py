@@ -1,13 +1,15 @@
-"""The plan of the float32 fused-FFN K1 and K2 kernels
+"""The plan of the float32 fused-FFN K1, K2 and K3 kernels
 (ray_tpu_torch/ops/kernels/fused_ffn.py `f32_plan`, `f32_slices`,
 `f32_launch_plan`): which output tile a shape takes, how many slices its
-reduction is cut into, and the workspace the wrappers allocate for them.
+reduction is cut into, and the workspace the wrappers allocate for them
+(K3's plan counts its two outputs, and its workspace holds both).
 
 The kernels run only on a card; what runs here is the plan they are given
 and its arithmetic: per-slice float32 partial products summed in slice
-order, then K2's swiglu VJP on the sum, held against the reference's K1 and
-K2 Pallas kernels in interpret mode on the same numpy inputs (float32,
-within 1e-4: the two sum in different orders).
+order, then K2's swiglu VJP on the sum, K3's h = (x·rstd)·norm_w formed
+before its products, held against the reference's K1, K2 and K3 Pallas
+kernels in interpret mode on the same numpy inputs (float32, within 1e-4:
+the two sum in different orders).
 """
 
 import itertools
@@ -73,7 +75,7 @@ def test_slices_cover_the_reduction_exactly_once(M, N, K):
 
 @pytest.mark.parametrize("M,N,K", NAMED)
 def test_grid_reaches_a_wave_wherever_it_can(M, N, K):
-    """Tiles times slices reach F32_WAVE blocks wherever the smallest tile
+    """Tiles times slices reach WAVE_BLOCKS blocks wherever the smallest tile
     and slices of one stage can; where they cannot, every stage is a
     slice."""
     plan = ff.f32_plan(M, N, K)
@@ -81,8 +83,8 @@ def test_grid_reaches_a_wave_wherever_it_can(M, N, K):
     smallest = ff.F32_TILES[-1]
     stages = max(1, _cdiv(K, ff.F32_STAGE))
     most = _cdiv(M, smallest) * _cdiv(N, smallest) * stages
-    if most >= ff.F32_WAVE:
-        assert blocks >= ff.F32_WAVE
+    if most >= ff.WAVE_BLOCKS:
+        assert blocks >= ff.WAVE_BLOCKS
     else:
         assert plan == ff.F32Plan(smallest, stages)
 
@@ -91,7 +93,7 @@ def test_grid_reaches_a_wave_wherever_it_can(M, N, K):
 def test_no_split_where_the_tiles_alone_fill_a_wave(M, N, K):
     plan = ff.f32_plan(M, N, K)
     for tile in ff.F32_TILES:
-        if _cdiv(M, tile) * _cdiv(N, tile) >= ff.F32_WAVE:
+        if _cdiv(M, tile) * _cdiv(N, tile) >= ff.WAVE_BLOCKS:
             assert plan == ff.F32Plan(tile, 1)
             return
     assert plan.tile == ff.F32_TILES[-1]
@@ -106,6 +108,39 @@ def test_workspace_matches_the_plan(M, N, K):
     else:
         assert ws.dtype == torch.float32
         assert tuple(ws.shape) == (plan.splits, M, N)
+
+
+# (d, d_ff, T) of K3, whose plan sees its two outputs: the float32 tiny
+# step's, the 8B shape, chip_smoke's and the GPU tests' shapes, T = 0.
+NAMED_K3 = [(256, 256, 256), (4096, 14336, 4096), (256, 512, 512),
+            (130, 50, 37), (200, 328, 1000), (64, 64, 0), (4096, 256, 256)]
+
+
+@pytest.mark.parametrize("M,N,K", NAMED_K3)
+def test_k3_plan_counts_both_outputs(M, N, K):
+    """Its tiles count twice: the grid (tiles, S, 2) reaches a wave
+    wherever the smallest tile and one-stage slices can, and the workspace
+    is [S, 2, d, d_ff]."""
+    plan, ws = ff.f32_launch_plan(M, N, K, "cpu", outputs=2)
+    assert plan == ff.f32_plan(M, N, K, 2)
+    if (M, N, K) == (256, 256, 256):  # the tiny step: 16 tiles x 2 x 4
+        assert plan == ff.F32Plan(64, 4)
+    if (M, N, K) == (4096, 14336, 4096):  # the 8B shape: 32 x 112 x 2
+        assert plan == ff.F32Plan(128, 1)
+    blocks = _cdiv(M, plan.tile) * _cdiv(N, plan.tile) * 2 * plan.splits
+    smallest = ff.F32_TILES[-1]
+    stages = max(1, _cdiv(K, ff.F32_STAGE))
+    most = _cdiv(M, smallest) * _cdiv(N, smallest) * 2 * stages
+    if most >= ff.WAVE_BLOCKS:
+        assert blocks >= ff.WAVE_BLOCKS
+    else:
+        assert plan == ff.F32Plan(smallest, stages)
+    if plan.splits == 1:
+        assert ws is None
+    else:
+        assert tuple(ws.shape) == (plan.splits, 2, M, N)
+        assert ws.dtype == torch.float32
+    test_slices_cover_the_reduction_exactly_once(M, N, K)
 
 
 def test_plan_rules_hold_over_a_grid_of_shapes():
@@ -208,5 +243,58 @@ def test_split_k2_matches_reference_k2():
     want = _reference_k2(*(jnp.asarray(a) for a in (dy, wd, gate, up)),
                          32, 64, 64)
     for a, b, name in zip(got, want, ("dgate", "dup")):
+        np.testing.assert_allclose(a.numpy(), np.array(b), err_msg=name,
+                                   **TOL)
+
+
+def _reference_k3(x, rstd, nw, dgate, dup, bm, bn, bk):
+    from jax.experimental.pallas import tpu as pltpu
+
+    T, d = x.shape
+    dff = dgate.shape[1]
+    vmem = pltpu.VMEM
+    out = pl.BlockSpec((bm, bn), lambda i, j, k: (i, j), memory_space=vmem)
+    return pl.pallas_call(
+        jffn._dw_gateup_kernel,
+        grid=(d // bm, dff // bn, T // bk),
+        in_specs=[
+            pl.BlockSpec((bk, bm), lambda i, j, k: (k, i), memory_space=vmem),
+            pl.BlockSpec((bk, 1), lambda i, j, k: (k, 0), memory_space=vmem),
+            pl.BlockSpec((1, bm), lambda i, j, k: (0, i), memory_space=vmem),
+            pl.BlockSpec((bk, bn), lambda i, j, k: (k, j), memory_space=vmem),
+            pl.BlockSpec((bk, bn), lambda i, j, k: (k, j), memory_space=vmem),
+        ],
+        out_specs=[out, out],
+        out_shape=[jax.ShapeDtypeStruct((d, dff), dgate.dtype)] * 2,
+        scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32),
+                        pltpu.VMEM((bm, bn), jnp.float32)],
+        interpret=True,
+    )(x, rstd, nw.reshape(1, -1), dgate, dup)
+
+
+def test_split_k3_matches_reference_k3():
+    """T 256 x d 64 x d_ff 128: 1 x 2 tiles of 64, two outputs, so the plan
+    cuts the 256 tokens into 16 slices; h = (x·rstd)·norm_w as the kernel
+    forms it where x lands, each output's slices summed in slice order."""
+    T, d, dff = 256, 64, 128
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((T, d)).astype(np.float32)
+    rstd = (rng.random((T, 1)) + 0.5).astype(np.float32)
+    nw = (rng.standard_normal(d) * 0.1 + 1).astype(np.float32)
+    dgate, dup = (rng.standard_normal((T, dff)).astype(np.float32)
+                  for _ in range(2))
+    h = ff.normed(*(torch.from_numpy(a) for a in (x, rstd, nw)))
+    plan = ff.f32_plan(d, dff, T, 2)
+    assert plan == ff.F32Plan(64, 16)
+    got = []
+    for g in (dgate, dup):
+        out = None
+        for k0, k1 in ff.f32_slices(T, plan.splits):
+            part = h[k0:k1].T @ torch.from_numpy(g)[k0:k1]
+            out = part if out is None else out + part
+        got.append(out)
+    want = _reference_k3(*(jnp.asarray(a) for a in (x, rstd, nw, dgate,
+                                                    dup)), 64, 64, 64)
+    for a, b, name in zip(got, want, ("dw_gate", "dw_up")):
         np.testing.assert_allclose(a.numpy(), np.array(b), err_msg=name,
                                    **TOL)
