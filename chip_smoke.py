@@ -10,9 +10,9 @@ Phases (any failure exits non-zero and prints no result line):
      ptxas's registers, spills and shared memory of the wgmma kernels (the
      flash forward, dq and dk/dv at each head_dim; K1's, K3's and K2's TMA
      and cp.async instances), of the float32 K3, K1 and K2 at each tile
-     and of the float32 flash forward at each head_dim and query tile, with
-     any ptxas warning; fail if a 128 x 128 float32 tile (an 8 x 8 patch a
-     thread) or the float32 forward at head_dim 128 spills;
+     and of the float32 flash forward, dq and dk/dv at each head_dim and
+     tile, with any ptxas warning; fail if a 128 x 128 float32 tile (an 8 x
+     8 patch a thread) or a float32 flash kernel at head_dim 128 spills;
   3. hold each quant kernel against its plain PyTorch version on the card,
      bit for bit, at every shape the serving path gives it (the quant
      kernel's stacked [L, in, out] leaves included) and at the six 8B
@@ -69,12 +69,14 @@ Phases (any failure exits non-zero and prints no result line):
      max): the flash kernels at the 8B attention shape in float32, a ragged
      shape and the shape of the tiny variant below, the FFN kernels at the
      8B FFN shape in float32, T 512 x d 256 x d_ff 512, a ragged shape and
-     the tiny variant's, K3, K1 and K2 also bit-identical across two
-     calls; time each with its float32 bound (67 TFLOP/s) and a library
-     call, logging SDPA's float32 backend and the kernels its forward
-     launches; one summary line each for the float32 flash forward, K3, K1
+     the tiny variant's, dq, dk/dv, K3, K1 and K2 also bit-identical
+     across two calls, each flash shape's planned tiles logged; time each
+     with its float32 bound (67 TFLOP/s) and a library call, logging
+     SDPA's float32 backend and the kernels its forward launches; one
+     summary line each for the float32 flash forward, dk/dv, dq, K3, K1
      and K2 at the 8B shape and the tiny variant's (ms a launch, bound,
-     share, library, and the first SIMT design's time from PERF.md); then
+     share, library (dk/dv 4/7 and dq 3/7 of SDPA's one backward), and the
+     first SIMT design's time from PERF.md); then
      train ModelConfig.tiny() in float32 widened to head_dim 128 (d_model
      256, 2 heads, 1 kv head; fused_ffn, fused_attn, USE_K1 = USE_K2 =
      True) for 3 steps at b 2 x s 128, each float32 kernel launched exactly
@@ -1616,7 +1618,8 @@ def check_entries_at_head_dim(torch, gen, attn_mod, fused_attn, fa,
 # float32 K1 and K2 by (T, d, d_ff): at the float32 tiny variant's shape
 # (half the ms a step PERF.md §6 recorded) and at the 8B shape (ffnbench,
 # before their redesign), as PERF.md gives them (NVIDIA H100 80GB HBM3,
-# 700 W).
+# 700 W); the same for the first SIMT float32 flash forward, K3, dk/dv and
+# dq.
 OLD_MS = {"flash_bwd_dkv": 2.4535, "flash_bwd_dkv_packed": 2.7611,
           "dw_down": 4.8364, "dw_gateup": 6.3235, "dgateup": 3.0733,
           "dw_down_f32": {(256, 256, 256): 0.0796,
@@ -1628,25 +1631,37 @@ OLD_MS = {"flash_bwd_dkv": 2.4535, "flash_bwd_dkv_packed": 2.7611,
           "flash_fwd_f32": {(4, 128, 128, 128): 0.0517,
                             (64, 2048, 2048, 128): 5.3116},
           "dw_gateup_f32": {(256, 256, 256): 0.0491,
-                            (4096, 4096, 14336): 46.9911}}
+                            (4096, 4096, 14336): 46.9911},
+          "flash_bwd_dkv_f32": {(4, 128, 128, 128): 0.06625,
+                                (64, 2048, 2048, 128): 6.6981},
+          "flash_bwd_dq_f32": {(4, 128, 128, 128): 0.0603,
+                               (64, 2048, 2048, 128): 5.8113}}
+# SDPA computes dq, dk and dv in one backward call: the float32 dk/dv's
+# share of it is 4 of the 7 products, dq's 3.
+BWD_SHARE = {"flash_bwd_dkv_f32": 4 / 7, "flash_bwd_dq_f32": 3 / 7}
 
 
 def f32_summary(rows, card: str) -> None:
-    """The redesigned float32 kernels (the flash forward, K3, K1 and K2)
-    at each shape their OLD_MS entry has: ms a launch, bound, share, the
-    library call's time, and the first design's time."""
-    for name in ("flash_fwd_f32", "dw_gateup_f32", "dw_down_f32",
-                 "dgateup_f32"):
+    """The redesigned float32 kernels (the flash forward, dk/dv and dq, K3,
+    K1 and K2) at each shape their OLD_MS entry has: ms a launch, bound,
+    share, the library call's time (dk/dv's and dq's share of SDPA's one
+    backward, BWD_SHARE), and the first design's time."""
+    for name in ("flash_fwd_f32", "flash_bwd_dkv_f32", "flash_bwd_dq_f32",
+                 "dw_gateup_f32", "dw_down_f32", "dgateup_f32"):
         old = OLD_MS[name]
+        share = BWD_SHARE.get(name, 1.0)
         for r in rows[name]:
             shape = tuple(r["shape"])
             if shape not in old:
                 continue
+            lib = r["library_ms"] * share
+            part = (f"; {share * 7:.0f}/7 of it {lib:.4f} ms" if share < 1
+                    else "")
             log(f"{name} at {list(shape)}: {r['ms']:.4f} ms a launch, bound "
                 f"{r['bound_ms']:.4f} ms, {r['bound_ms'] / r['ms']:.3f} of "
-                f"bound; library {r['library_ms']:.4f} ms "
-                f"({r['ms'] / r['library_ms']:.2f}x it; {r['library']}); "
-                f"the first SIMT design {old[shape]} ms (PERF.md) [{card}]")
+                f"bound; library {r['library_ms']:.4f} ms ({r['library']}"
+                f"{part}; {r['ms'] / lib:.2f}x it); the first SIMT design "
+                f"{old[shape]} ms (PERF.md) [{card}]")
 
 
 def redesign_summary(rows, names, card: str) -> None:
@@ -1837,8 +1852,6 @@ def check_f32_kernels(torch, gen, cfg, card: str):
         scale = d ** -0.5
         q, k, v, do = (randn(bh, n, d) for n in (sq, sk, sk, sq))
         out, lse = fa.flash_fwd(q, k, v, scale, causal)
-        log(f"float32 forward at {list(shape)}: query tile "
-            f"{fa.f32_fwd_tile(bh, sq)} (f32_fwd_tile)")
         p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale, causal)
         delta = fa.flash_delta(p_out, do)
         bwd = (q, k, v, do, p_lse, delta, scale, causal)
@@ -1846,7 +1859,19 @@ def check_f32_kernels(torch, gen, cfg, card: str):
         p_dk, p_dv = fa.flash_bwd_dkv_plain(*bwd)
         dq = fa.flash_bwd_dq(*bwd)
         p_dq = fa.flash_bwd_dq_plain(*bwd)
+        # dq and dk/dv sum in a fixed order (no atomics): a second call
+        # gives the same bits
+        same = {"flash_bwd_dkv": all(map(torch.equal, (dk, dv),
+                                         fa.flash_bwd_dkv(*bwd))),
+                "flash_bwd_dq": torch.equal(dq, fa.flash_bwd_dq(*bwd))}
         torch.cuda.synchronize()
+        log(f"float32 flash at {list(shape)}: the forward's and dq's query "
+            f"tile {fa.f32_fwd_tile(bh, sq)} (f32_fwd_tile), dk/dv's key "
+            f"tile {fa.f32_dkv_tile(bh, sk)} (f32_dkv_tile); dq and dk/dv "
+            f"bit-identical across two calls {same}")
+        if not all(same.values()):
+            fail(f"float32 dq/dk/dv at {list(shape)} differ between two "
+                 f"calls: {same}")
         lim = F32_KERNEL_LIMIT
         fwd_checks = [("out", rel_err(torch, out, p_out), lim),
                       ("lse", rel_err(torch, lse, p_lse), lim)]
@@ -2041,7 +2066,10 @@ def train_f32_tiny(torch, seed: int, cfg):
 # floats each), and K2's three of dy and W_down as loaded (d x 20 floats
 # each) and two pairs of transposed tiles (16 x (d + 4)), K3's three of x
 # and dgate|dup (16 x (d + 4) floats each); the float32
-# forward's Q [rows][d], K and V slots [64][d] and P [rows][64].
+# forward's Q [rows][d], K and V slots [64][d] and P [rows][64]; the
+# float32 dq's Q and dO [rows][d], K and V slots [32][d] and dS [rows][32];
+# the float32 dk/dv's K and V [keys][d], Q and dO slots [32][d], P^T and
+# dS^T [keys][32] and lse and delta slots [32].
 KERNEL_SMEM = {
     "flash_fwd_kernel": lambda d: 2 * (128 + 4 * 64) * d + 1024,
     "flash_bwd_dq_kernel": lambda d: (2 * (256 + (2 if d > 128 else 4) * 64)
@@ -2058,16 +2086,24 @@ KERNEL_SMEM = {
     "dw_gateup_f32_kernel": lambda d: 4 * 3 * 2 * 16 * (d + 4),
     "flash_fwd_f32_kernel": lambda d, rows: 4 * (rows * d + 2 * 64 * d
                                                  + rows * 64),
+    "flash_bwd_dq_f32_kernel": lambda d, rows: 4 * (2 * rows * d
+                                                    + 2 * 32 * d
+                                                    + rows * 32),
+    "flash_bwd_dkv_f32_kernel": lambda d, keys: 4 * (2 * keys * d
+                                                     + 2 * 32 * d
+                                                     + 2 * keys * 32
+                                                     + 2 * 32),
 }
 
 
 def ptxas_report(procs) -> None:
     """Log ptxas's registers, spills and the dynamic shared memory of the
-    wgmma kernels, the float32 K1, K2 and K3 and the float32 flash forward
-    (the `nvcc -Xptxas -v` runs started in phase 2), any warning ptxas
-    gives, and any note that it serialized products; fail if a float32 K1,
-    K2 or K3 with 128 x 128 tiles (8 x 8 accumulators a thread) or a
-    float32 forward at head_dim 128 spills."""
+    wgmma kernels, the float32 K1, K2 and K3 and the float32 flash
+    forward, dq and dk/dv at each instantiation (the `nvcc -Xptxas -v`
+    runs started in phase 2), any warning ptxas gives, and any note that
+    it serialized products; fail if a float32 K1, K2 or K3 with 128 x 128
+    tiles (8 x 8 accumulators a thread) or a float32 flash kernel at
+    head_dim 128 spills."""
     import re
 
     for name, (proc, out_path) in procs.items():
@@ -2082,7 +2118,8 @@ def ptxas_report(procs) -> None:
                 log(f"ptxas {name}.cu: {line.strip()}")
             m = re.search(r"Compiling entry function '.*?(flash_fwd_kernel|"
                           r"flash_bwd_dq_kernel|flash_bwd_dkv_kernel|"
-                          r"flash_fwd_f32_kernel|"
+                          r"flash_fwd_f32_kernel|flash_bwd_dq_f32_kernel|"
+                          r"flash_bwd_dkv_f32_kernel|"
                           r"dw_down_kernel|dw_gateup_kernel|dgateup_kernel|"
                           r"dw_down_f32_kernel|dgateup_f32_kernel|"
                           r"dw_gateup_f32_kernel)"

@@ -3,7 +3,7 @@
     python -m ray_tpu_torch.flashbench            # bf16 and float32
     python -m ray_tpu_torch.flashbench --dtype float32
     python -m ray_tpu_torch.flashbench --dtype float32 \\
-        --source OTHER/flash_attention.cu --other-unplanned
+        --source OTHER/flash_attention.cu --other-untiled-bwd
 
 In the [b·h, s, d] layout, causal: bf16 at the Llama-3-8B attention shape
 (b·h 64, s 2048, head_dim 128); float32 at the float32 tiny training
@@ -16,14 +16,17 @@ its share of the bound (operations: 2, 4 and 3 products of 2·pairs·hd FLOP
 at 989 TFLOP/s in bf16, 67 in float32), and scaled_dot_product_attention's
 forward and backward on the same tensors (TF32 off), with the backend
 PyTorch's dispatcher picks and the kernels its forward launches (read by
-torch.profiler). In float32 it also times the forward at each query tile
-its plan can take (`flash_attention.F32_FWD_TILES`; the plan's own is
-marked). With --source, the same C entry points built from another
-flash_attention.cu (an earlier commit's, or a variant; its directory must
-hold the hopper.cuh it includes) are timed in turns with this tree's:
-other, tree, tree, other, twice. --other-unplanned says that the other
-build's float32 forward takes no query tile (before its plan existed). A
-quick check between full chip_smoke runs; it needs a GPU.
+torch.profiler). In float32 it also times each kernel at each tile its
+plan can take (`flash_attention.F32_FWD_TILES`: the forward's and dq's
+query tile, dk/dv's key tile; the plan's own is marked). With --source,
+the same C entry points built from another flash_attention.cu (an earlier
+commit's, or a variant; its directory must hold the hopper.cuh it
+includes) are timed in turns with this tree's: other, tree, tree, other,
+twice. --other-unplanned says that none of the other build's float32
+entries takes a tile (before any plan existed, e.g. PR 9's);
+--other-untiled-bwd that its float32 dk/dv and dq take none (its forward
+does; e.g. PR 10's). A quick check between full chip_smoke runs; it needs
+a GPU.
 """
 
 from __future__ import annotations
@@ -96,10 +99,10 @@ def device_kernels(fn) -> list:
                    if e.device_type == DeviceType.CUDA})
 
 
-def load_other(source: Path, unplanned: bool) -> ctypes.CDLL:
+def load_other(source: Path, tiled) -> ctypes.CDLL:
     """`source` built with the port's nvcc flags (its own directory on the
     include path) into the build directory, its entries declared (the
-    float32 forward without a query tile when `unplanned`)."""
+    float32 ones not in `tiled` without a tile)."""
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(source.parent.glob("*.cuh")):
         h.update(header.read_bytes())
@@ -112,25 +115,32 @@ def load_other(source: Path, unplanned: bool) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     for name in NAMES:
         for entry in (name, f"{name}_f32"):
-            sig = fa._SIGNATURES[name if unplanned else entry]
+            sig = fa._SIGNATURES[entry if name in tiled else name]
             getattr(lib, entry).argtypes, getattr(lib, entry).restype = sig
     return lib
 
 
-def entries(lib: ctypes.CDLL, t: dict, dtype: torch.dtype, planned: bool,
+# The entries whose float32 kernel takes a tile in this tree, and the plan
+# of each ([b·h, s, d] operands: b·h heads of s rows and s keys).
+TILED = frozenset(NAMES)
+PLANS = {"rt_flash_fwd": fa.f32_fwd_tile, "rt_flash_bwd_dkv": fa.f32_dkv_tile,
+         "rt_flash_bwd_dq": fa.f32_fwd_tile}
+
+
+def entries(lib: ctypes.CDLL, t: dict, dtype: torch.dtype, tiled=TILED,
             tile=None) -> dict:
     """The three entry points of `lib` for `dtype` on the tensors `t`
-    ([b·h, s, d], causal), each launched on the current stream; the float32
-    forward (when `planned`) at query tile `tile`, else at its plan's."""
+    ([b·h, s, d], causal), each launched on the current stream; each
+    float32 one in `tiled` at tile `tile`, else at its plan's."""
     bh, s, d = t["q"].shape
     layout = (bh, 1, 1, s, s, d)
     stream = torch.cuda.current_stream().cuda_stream
     f32 = dtype == torch.float32
-    fwd_tile = ((tile or fa.f32_fwd_tile(bh, s),) if f32 and planned
-                else ())
 
-    def call(name, names, extra=()):
+    def call(name, names):
         fn = getattr(lib, name + ("_f32" if f32 else ""))
+        extra = ((tile or PLANS[name](bh, s),) if f32 and name in tiled
+                 else ())
         code = fn(*(t[x].data_ptr() for x in names), *layout, d ** -0.5, 1,
                   *extra, stream)
         if code:
@@ -138,7 +148,7 @@ def entries(lib: ctypes.CDLL, t: dict, dtype: torch.dtype, planned: bool,
 
     return {
         "flash_fwd": lambda: call("rt_flash_fwd",
-                                  ("q", "k", "v", "out", "lse"), fwd_tile),
+                                  ("q", "k", "v", "out", "lse")),
         "flash_bwd_dkv": lambda: call(
             "rt_flash_bwd_dkv",
             ("q", "k", "v", "do", "p_lse", "delta", "dk", "dv")),
@@ -169,7 +179,7 @@ def run(dtype: torch.dtype, shape, gen, flush, other) -> None:
         t[x] = torch.empty_like(t["q"])
     t["lse"] = torch.empty_like(t["p_lse"])
     lib, _ = fa._entry("rt_flash_fwd", dtype)
-    tree = entries(lib, t, dtype, True)
+    tree = entries(lib, t, dtype)
     product = 2 * bh * (s * (s + 1) // 2) * d  # the causal pairs only
     n_products = {"flash_fwd": 2, "flash_bwd_dkv": 4, "flash_bwd_dq": 3}
     for kname, fn in tree.items():
@@ -183,15 +193,15 @@ def run(dtype: torch.dtype, shape, gen, flush, other) -> None:
               f"(operations), {bound / ms:.3f} of bound; max abs err "
               f"{err:.3g} of the plain max", flush=True)
     if dtype == torch.float32:
-        planned = fa.f32_fwd_tile(bh, s)
-        times = []
-        for tile in fa.F32_FWD_TILES:
-            fwd = entries(lib, t, dtype, True, tile)["flash_fwd"]
-            times.append(f"{tile}{' (plan)' if tile == planned else ''} "
-                         f"{time_ms(fwd, flush):.4f}")
-        times = ", ".join(times)
-        print(f"{label} flash_fwd by query tile, ms a launch: {times}",
-              flush=True)
+        for kname, entry in zip(tree, NAMES):
+            planned = PLANS[entry](bh, s)
+            times = []
+            for tile in fa.F32_FWD_TILES:
+                fn = entries(lib, t, dtype, tile=tile)[kname]
+                times.append(f"{tile}{' (plan)' if tile == planned else ''} "
+                             f"{time_ms(fn, flush):.4f}")
+            print(f"{label} {kname} by tile, ms a launch: "
+                  f"{', '.join(times)}", flush=True)
     q4, k4, v4 = (t[x].view(1, *t[x].shape).requires_grad_(True)
                   for x in ("q", "k", "v"))
     lib_out = sdpa(q4, k4, v4, is_causal=True)
@@ -209,8 +219,8 @@ def run(dtype: torch.dtype, shape, gen, flush, other) -> None:
           f"forward kernels {device_kernels(lib_fwd)}", flush=True)
     if other is None:
         return
-    lib_other, planned_other = other
-    others = entries(lib_other, t, dtype, planned_other)
+    lib_other, tiled_other = other
+    others = entries(lib_other, t, dtype, tiled_other)
     for kname in tree:
         others[kname]()
         torch.cuda.synchronize()
@@ -230,6 +240,7 @@ def main() -> None:
     ap.add_argument("--dtype", choices=["bfloat16", "float32"], default=None)
     ap.add_argument("--source", type=Path, default=None)
     ap.add_argument("--other-unplanned", action="store_true")
+    ap.add_argument("--other-untiled-bwd", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -242,8 +253,10 @@ def main() -> None:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     other = None
     if args.source is not None:
-        other = (load_other(args.source, args.other_unplanned),
-                 not args.other_unplanned)
+        tiled = (frozenset() if args.other_unplanned
+                 else frozenset({"rt_flash_fwd"}) if args.other_untiled_bwd
+                 else TILED)
+        other = (load_other(args.source, tiled), tiled)
         print(f"other: {args.source}", flush=True)
     for name in ([args.dtype] if args.dtype else ["bfloat16", "float32"]):
         dtype = getattr(torch, name)

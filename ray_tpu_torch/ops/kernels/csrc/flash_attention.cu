@@ -21,9 +21,9 @@
 // Shared by every kernel here:
 //  * One block owns one output tile (128 query rows in the bf16 forward and
 //    dq, 128 keys in the bf16 dk/dv (64 at d 256), 64 or 16 query rows in
-//    the float32 forward, 64 rows in the float32 dq and dk/dv) and loops
-//    over the reduction axis inside the block (the TPU's sequential grid
-//    axis does not exist here). No atomics: forward and dq blocks own
+//    the float32 forward and dq, 64 or 16 keys in the float32 dk/dv) and
+//    loops over the reduction axis inside the block (the TPU's sequential
+//    grid axis does not exist here). No atomics: forward and dq blocks own
 //    query tiles, dk/dv blocks own key tiles, so results are
 //    deterministic.
 //  * Scores, probabilities and the softmax state stay float32; p and ds are
@@ -62,10 +62,10 @@
 // block; scores, probabilities and output accumulators never leave
 // registers; P and dS are register A operands; the streamed tiles come
 // through a two-stage cp.async ring. The float32 kernels use CUDA-core
-// FMAs (no TF32, which keeps ~3 digits): the forward a SIMT design of its
-// own (register-resident softmax, float4 operand reads, a cp.async K/V
-// ring and a host plan of its query tile; see "float32" below), dq and
-// dk/dv plain tiled SIMT code.
+// FMAs (no TF32, which keeps ~3 digits): one SIMT design (rows over groups
+// of lanes, float4 operand reads from swizzled tiles, two cp.async slots
+// for the streamed side and a host plan of the block's tile; see
+// "float32" below).
 //
 // Head dims 32, 64, 128 and 256 are instantiated; the wrappers zero-pad any
 // other head_dim up to 256 to the next of them (the caller's scale stays,
@@ -84,15 +84,16 @@ constexpr int kBK = 64;  // key rows per tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Index of the first key block past the causal band of query rows
-// [q0, q0 + rows): key block kb is needed iff kb*kBK <= q0 + rows - 1 +
+// Index of the first key block (of kt keys) past the causal band of query
+// rows [q0, q0 + rows): key block kb is needed iff kb*kt <= q0 + rows - 1 +
 // offset.
 __device__ __forceinline__ int key_blocks(int q0, int sk, int offset,
-                                          int causal, int rows = kBQ) {
-  int n = (sk + kBK - 1) / kBK;
+                                          int causal, int rows = kBQ,
+                                          int kt = kBK) {
+  int n = (sk + kt - 1) / kt;
   if (causal) {
     const int last = q0 + rows - 1 + offset;
-    const int lim = last < 0 ? 0 : last / kBK + 1;
+    const int lim = last < 0 ? 0 : last / kt + 1;
     n = n < lim ? n : lim;
   }
   return n;
@@ -755,109 +756,51 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 //    row's max is still -1e30 its p is set to 0 by an explicit test, and
 //    lse is written in natural log, -1e30 for a row that saw no key.
 //
-// dq and dk/dv (flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel) are
-// plain tiled SIMT code, one block of 256 threads per 64-row output tile,
-// tiles in shared memory with rows padded to D + 1 floats, every product
-// an FMA on the CUDA cores. Thread (ty, tx) = (tid / 16, tid % 16) owns
-// rows 4ty..4ty+3 and columns tx + 16j of each 64-wide tile. At d 256 the
-// four 64-row tiles of dq and dk/dv would take 263 KB: there dq loads V
-// and then K into one buffer (dP first, then S and dq += dS.K), and dk/dv
-// loads Q, then dO, then Q again into one buffer (S^T, then dP^T and dv,
-// then dk): 215 and 231 KB.
-
-constexpr int kF32Threads = 256;
-
-// Whether a float32 backward kernel shares one tile buffer between two
-// operands (d 256).
-template <int D>
-constexpr bool kF32Share = D > 128;
-constexpr int kLdF = kBK + 1;  // float32 [64][64] tiles
-
-// Rows [row0, row0 + 64) of an [n, D] float32 matrix (rows ld apart) into
-// a [64][D + 1] tile; rows >= n become zeros.
-template <int D>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
-                                              int row0, int n, int64_t ld) {
-  for (int i = threadIdx.x; i < kBQ * D; i += kF32Threads) {
-    const int r = i / D;
-    const int c = i % D;
-    dst[r * (D + 1) + c] =
-        row0 + r < n ? src[(static_cast<int64_t>(row0) + r) * ld + c] : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void load_vec_f32(float* dst, const float* src,
-                                             int row0, int n) {
-  for (int i = threadIdx.x; i < kBQ; i += kF32Threads) {
-    dst[i] = row0 + i < n ? src[row0 + i] : 0.0f;
-  }
-}
-
-// c[i][j] = A[4ty + i] . B[tx + 16j] over D, A and B [64][D + 1] tiles.
-template <int D>
-__device__ __forceinline__ void rows_dot_rows_f32(const float* a,
-                                                  const float* b,
-                                                  float (&c)[4][4]) {
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[i][j] = 0.0f;
-  }
-#pragma unroll 4
-  for (int kk = 0; kk < D; ++kk) {
-    float x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = a[(4 * ty + i) * (D + 1) + kk];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = b[(tx + 16 * j) * (D + 1) + kk];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[i][j] = fmaf(x[i], y[j], c[i][j]);
-    }
-  }
-}
-
-// acc[i][j] += W[4ty + i][:] . T[:][tx + 16j], W a [64][kLdF] tile and T
-// a [64][D + 1] tile.
-template <int D>
-__device__ __forceinline__ void weights_times_rows_f32(
-    const float* w, const float* t, float (&acc)[4][D / 16]) {
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-#pragma unroll 4
-  for (int kk = 0; kk < kBK; ++kk) {
-    float x[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = w[(4 * ty + i) * kLdF + kk];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      const float y = t[kk * (D + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(x[i], y, acc[i][j]);
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_rows_f32(float* dst,
-                                               const float (&acc)[4][D / 16],
-                                               int row0, int n,
-                                               int64_t ld) {
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    if (row0 + r >= n) continue;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      dst[(static_cast<int64_t>(row0) + r) * ld + tx + 16 * j] = acc[i][j];
-    }
-  }
-}
+// dq and dk/dv (flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel) take
+// the forward's design with each kernel's own side stationary. A block
+// owns BT rows of its side (dq: query rows of one head; dk/dv: keys of one
+// kv head; 64, or 16 where the 64-row tiles alone would not make a wave of
+// 128 blocks: the host plan, flash_attention.py `f32_fwd_tile` and
+// `f32_dkv_tile`) and streams the other side past them in tiles of kBS
+// (32) rows through two cp.async slots. Bound on an H100: float32
+// operations (dq 3 products, dk/dv 4). What the design does about it:
+//  * The block's own rows go to row groups of a quarter-warp (L = 8 lanes),
+//    R a thread (4 at 64 own rows, 2 there at d 256, 1 at 16: 128, 256 and
+//    128 threads). Thread (ty, tx) owns rows R ty .. R ty + R - 1, the
+//    streamed rows tx + 8j (j < 4) of each tile, and output columns 4tx +
+//    32c.
+//  * The two score products (dq: S = Q.K^T and dP = dO.V^T; dk/dv: S^T =
+//    K.Q^T and dP^T = V.dO^T) read d-contiguous float4s of both operands
+//    as stored: the own rows' 16-byte chunks XOR-swizzled by (row / R) & 7
+//    (one address a row group), the streamed rows' by row & 7 (8 rows over
+//    8 lanes), so no operand is ever transposed and no tile is padded.
+//    Counting four shared-memory wavefronts for a warp's float4 load (one
+//    a quarter-warp), broadcast or not, a step of 4 d costs 4 (R + 4)
+//    wavefronts for 16 R FMAs a thread: the square 4 x 4 patch of
+//    quarter-warp groups against the 8 x 2 of half-warp ones took dk/dv
+//    from 5.23 to 4.80 ms at the 8B shape (PERF.md).
+//  * p = exp2(s scale log2e - lse log2e) and ds = p (dp - delta) scale are
+//    elementwise (no row reduction). On a pair of tiles that holds an entry
+//    no row may attend (`pair_needs_mask`: a row past sq, a key past sk,
+//    the causal band) p is selected to 0 there, never multiplied to 0: a
+//    row that sees no key has lse -1e30, and its exp overflows. A pair
+//    without such an entry holds only rows that see keys.
+//  * The accumulating products (dq += dS.K; dv += P^T.dO, dk += dS^T.Q)
+//    reduce over the streamed rows: dS (and P) go through a per-warp buffer
+//    [kBS][the warp's 4R own rows], no barrier of its own, and each
+//    streamed row is read by the thread's column chunks at their swizzled
+//    place (chunk tx + 8c at (tx + 8c) ^ (row & 7), conflict-free).
+//  * dq: Q and dO are loaded once; K(j) loads while dP(j) runs and V(j + 1)
+//    while S(j), dS and dS.K(j) run: two barriers a key tile. dk/dv: K and
+//    V are loaded once; Q (with lse) and dO (with delta) walk the query
+//    tiles of the n_rep query heads of its kv head, in order; dO(j) loads
+//    while S^T(j) runs and Q(j + 1) while dv += P^T.dO(j) runs: three
+//    barriers a query tile (Q is read by the first product and the last
+//    but one). At d 128 and 64 own rows a dq block holds 104 KB and a dk/dv
+//    block 112.25 KB: two blocks of four warps an SM (252 and 255
+//    registers a thread).
+//  * No atomics: each block writes its rows once, every sum in a fixed
+//    order, so two calls give the same bits.
 
 // The float32 forward's rows a thread at query tile BQ (flash_attention.py
 // F32_FWD_TILES). At 16 rows, one row a thread keeps each thread's serial
@@ -1143,26 +1086,145 @@ __global__ void __launch_bounds__(kFwdF32Threads<D, BQ>, D > 128 ? 1 : 2)
   }
 }
 
-template <int D>
+// The float32 dq and dk/dv stream the other side in tiles of kBS rows
+// (flash_attention.py F32_BWD_STREAM).
+constexpr int kBS = 32;
+
+// Own rows go to row groups of a quarter-warp, kBwdLanes lanes: a 4 x 4
+// score patch a thread at 64 own rows. At block tile BT
+// (flash_attention.py F32_FWD_TILES): own rows a thread, threads.
+constexpr int kBwdLanes = 8;
+constexpr int kBwdCols = kBS / kBwdLanes;  // streamed rows a thread a tile
+template <int D, int BT>
+constexpr int kBwdRows = BT >= 64 ? (D > 128 ? 2 : 4) : 1;
+template <int D, int BT>
+constexpr int kBwdThreads = kBwdLanes * BT / kBwdRows<D, BT>;
+// the score products' d loop unroll: dq's the fastest of 1, 2 and 4 at d
+// 128; dk/dv's the most that spills nothing there (4 spilled)
+constexpr int kDqUnrollD = 4;
+constexpr int kDkvUnrollD = 2;
+
+// Whether query rows [q0, q0 + rows) and keys [k0, k0 + keys) hold an entry
+// that is not attended: a row past sq, a key past sk, or a key past the
+// causal band of the first row (flash_attention.py `bwd_tile_needs_mask`).
+__device__ __forceinline__ bool pair_needs_mask(int q0, int rows, int k0,
+                                                int keys, int sq, int sk,
+                                                int offset, int causal) {
+  return q0 + rows > sq || k0 + keys > sk ||
+         (causal && k0 + keys - 1 > q0 + offset);
+}
+
+// c[i][j] = A[own row i] . B[streamed row L j] over D (L = kBwdLanes):
+// `a` at the thread's first own row (rows D apart, chunks ^ xa), `b` at
+// its first streamed row (chunks ^ xb); the d loop unrolled U times.
+template <int D, int R, int U>
+__device__ __forceinline__ void own_dot_streamed(const float* a, int xa,
+                                                 const float* b, int xb,
+                                                 float (&c)[R][kBwdCols]) {
+  constexpr int L = kBwdLanes;
+  constexpr int J = kBwdCols;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) c[i][j] = 0.0f;
+  }
+#pragma unroll U
+  for (int ch = 0; ch < D / 4; ++ch) {
+    float4 bv[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      bv[j] = *reinterpret_cast<const float4*>(b + L * j * D +
+                                               4 * (ch ^ xb));
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float4 av =
+          *reinterpret_cast<const float4*>(a + i * D + 4 * (ch ^ xa));
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        c[i][j] = fmaf(av.x, bv[j].x, c[i][j]);
+        c[i][j] = fmaf(av.y, bv[j].y, c[i][j]);
+        c[i][j] = fmaf(av.z, bv[j].z, c[i][j]);
+        c[i][j] = fmaf(av.w, bv[j].w, c[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][c] += sum over the kBS streamed rows r of w[r][own row i] x
+// T[r][the thread's column c]: `w` this warp's [kBS][(32 / L) R] buffer
+// at the thread's own rows, `t` a [kBS][D] tile of chunks swizzled by
+// r & 7. The thread's columns are chunks tx + Lc.
+template <int D, int R>
+__device__ __forceinline__ void weights_times_streamed(
+    const float* w, const float* t, float (&acc)[R][D / kBwdLanes]) {
+  constexpr int L = kBwdLanes;
+  constexpr int kCols = D / L;
+  const int tx = threadIdx.x % L;
+#pragma unroll kFwdUnrollKeys
+  for (int r = 0; r < kBS; ++r) {
+    float x[R];
+    load_floats<R>(w + r * (32 / L) * R, x);
+    const float* row = t + r * D;
+    const int xr = r & 7;
+    float tv[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols / 4; ++c) {
+      const float4 y =
+          *reinterpret_cast<const float4*>(row + 4 * ((tx + L * c) ^ xr));
+      tv[4 * c] = y.x;
+      tv[4 * c + 1] = y.y;
+      tv[4 * c + 2] = y.z;
+      tv[4 * c + 3] = y.w;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(x[i], tv[c], acc[i][c]);
+    }
+  }
+}
+
+// The thread's own rows row0 + R ty + i (those below n) of acc into an
+// output whose rows are ld apart, at the thread's columns.
+template <int D, int R>
+__device__ __forceinline__ void store_own_rows(
+    float* dst, const float (&acc)[R][D / kBwdLanes], int row0, int n,
+    int64_t ld) {
+  constexpr int L = kBwdLanes;
+  const int ty = threadIdx.x / L;
+  const int tx = threadIdx.x % L;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = row0 + R * ty + i;
+    if (r >= n) continue;
+    float* p = dst + static_cast<int64_t>(r) * ld;
+#pragma unroll
+    for (int c = 0; c < D / L / 4; ++c) {
+      *reinterpret_cast<float4*>(p + 4 * (tx + L * c)) =
+          make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2],
+                      acc[i][4 * c + 3]);
+    }
+  }
+}
+
+template <int R, int C>
+__device__ __forceinline__ void zero(float (&acc)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
+  }
+}
+
+template <int D, int BQ>
 constexpr size_t dq_f32_smem_bytes() {
-  // Q, dO, K and V (K and V in one buffer at d 256), ds, lse and delta
-  return sizeof(float) * ((kF32Share<D> ? 3 : 4) * kBQ * (D + 1) +
-                          kBQ * kLdF + 2 * kBQ);
+  // Q and dO, the K and V slots, and each warp's dS [kBS][its own rows]
+  return sizeof(float) * (2 * BQ * D + 2 * kBS * D + BQ * kBS);
 }
 
-// p = exp(s*scale - lse), ds = p*(dp - delta)*scale on the entries a row
-// attends (0 elsewhere), for the thread's 4 x 4 patch (rows 4ty + i of
-// the query tile, columns tx + 16j of the key tile, or transposed).
-__device__ __forceinline__ float ds_f32(float s, float dp, float lse,
-                                        float delta, float scale, bool valid,
-                                        float* p_out) {
-  const float p = valid ? expf(s * scale - lse) : 0.0f;
-  if (p_out) *p_out = p;
-  return valid ? p * (dp - delta) * scale : 0.0f;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+template <int D, int BQ>
+__global__ void __launch_bounds__(kBwdThreads<D, BQ>, D > 128 ? 1 : 2)
     flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
@@ -1171,21 +1233,25 @@ __global__ void __launch_bounds__(kF32Threads)
                             const float* __restrict__ delta,
                             float* __restrict__ dq, int sq, int sk, int n_rep,
                             float scale, int causal) {
+  constexpr int R = kBwdRows<D, BQ>;  // query rows a thread
+  constexpr int L = kBwdLanes;
+  constexpr int J = kBwdCols;
+  constexpr int kWarpRows = 32 / L * R;
+  constexpr int kThreads = kBwdThreads<D, BQ>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);
-  float* sO = sQ + kBQ * (D + 1);
-  float* sK = sO + kBQ * (D + 1);
-  float* sV = kF32Share<D> ? sK : sK + kBK * (D + 1);
-  float* sDS = sV + kBK * (D + 1);
-  float* sLse = sDS + kBQ * kLdF;
-  float* sDelta = sLse + kBQ;
+  float* sO = sQ + BQ * D;
+  float* sK = sO + BQ * D;
+  float* sV = sK + kBS * D;
+  // this warp's dS: [kBS keys][its kWarpRows rows]
+  float* sDS = sV + kBS * D + (threadIdx.x >> 5) * kBS * kWarpRows;
 
   const int head = blockIdx.y;
   const int heads = gridDim.y;
   const int batch = blockIdx.z;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
+  const int ty = threadIdx.x / L;  // rows R ty .. R ty + R - 1
+  const int tx = threadIdx.x % L;  // keys tx + L j
   const int64_t ldq = static_cast<int64_t>(heads) * D;
   const int64_t ldk = static_cast<int64_t>(heads / n_rep) * D;
   const int64_t qoff = static_cast<int64_t>(batch) * sq * ldq + head * D;
@@ -1193,62 +1259,91 @@ __global__ void __launch_bounds__(kF32Threads)
       static_cast<int64_t>(batch) * sk * ldk + (head / n_rep) * D;
   const int64_t row_off = (static_cast<int64_t>(batch) * heads + head) * sq;
   const int offset = sk - sq;
-  const int n_kb = key_blocks(q0, sk, offset, causal);
+  const int n_kb = key_blocks(q0, sk, offset, causal, BQ, kBS);
+  const float scale2 = scale * kLog2e;
+  const auto own_swizzle = [](int r) { return (r / R) & 7; };
+  const auto streamed_swizzle = [](int r) { return r & 7; };
 
-  load_rows_f32<D>(sQ, q + qoff, q0, sq, ldq);
-  load_rows_f32<D>(sO, dout + qoff, q0, sq, ldq);
-  load_vec_f32(sLse, lse + row_off, q0, sq);
-  load_vec_f32(sDelta, delta + row_off, q0, sq);
-  float acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.0f;
+  // Q, dO and the first V tile (K(0) follows at the first barrier)
+  load_rows_async_f32<D, BQ, kThreads>(sQ, q + qoff, q0, sq, ldq,
+                                       own_swizzle);
+  load_rows_async_f32<D, BQ, kThreads>(sO, dout + qoff, q0, sq, ldq,
+                                       own_swizzle);
+  if (n_kb > 0) {
+    load_rows_async_f32<D, kBS, kThreads>(sV, v + koff, 0, sk, ldk,
+                                          streamed_swizzle);
   }
+  cp_async_commit();
+
+  // each row's log2e-scaled lse and its delta (0 past sq)
+  float lse2[R], dlt[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = q0 + R * ty + i;
+    lse2[i] = r < sq ? lse[row_off + r] * kLog2e : 0.0f;
+    dlt[i] = r < sq ? delta[row_off + r] : 0.0f;
+  }
+  float acc[R][D / L];
+  zero(acc);
+  const float* q_rows = sQ + R * ty * D;
+  const float* o_rows = sO + R * ty * D;
+  const int xo = own_swizzle(R * ty);
+  const int xs = streamed_swizzle(tx);
+  const int pr = R * (ty % (32 / L));  // this thread's rows in its warp's dS
 
   for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * kBK;
+    const int k0 = kb * kBS;
+    cp_async_wait<0>();
+    // V(kb) is in; every thread is past dS.K(kb - 1), so K's slot is free
     __syncthreads();
-    load_rows_f32<D>(sV, v + koff, k0, sk, ldk);
-    if (!kF32Share<D>) load_rows_f32<D>(sK, k + koff, k0, sk, ldk);
+    load_rows_async_f32<D, kBS, kThreads>(sK, k + koff, k0, sk, ldk,
+                                          streamed_swizzle);
+    cp_async_commit();
+    float dp[R][J];
+    own_dot_streamed<D, R, kDqUnrollD>(o_rows, xo, sV + tx * D, xs, dp);
+
+    cp_async_wait<0>();
+    // K(kb) is in; every thread is past dP(kb), so V's slot is free
     __syncthreads();
-    float s[4][4], dp[4][4];
-    rows_dot_rows_f32<D>(sO, sV, dp);
-    if (kF32Share<D>) {  // K into V's buffer
-      __syncthreads();
-      load_rows_f32<D>(sK, k + koff, k0, sk, ldk);
-      __syncthreads();
+    if (kb + 1 < n_kb) {
+      load_rows_async_f32<D, kBS, kThreads>(sV, v + koff, k0 + kBS, sk, ldk,
+                                            streamed_swizzle);
     }
-    rows_dot_rows_f32<D>(sQ, sK, s);
+    cp_async_commit();
+    float s[R][J];
+    own_dot_streamed<D, R, kDqUnrollD>(q_rows, xo, sK + tx * D, xs, s);
+    const bool mask = pair_needs_mask(q0, BQ, k0, kBS, sq, sk, offset, causal);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
+    for (int j = 0; j < J; ++j) {
+      float ds[R];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool valid = q0 + r < sq &&
-                           attends(q0 + r, k0 + tx + 16 * j, sk, offset,
-                                   causal);
-        sDS[r * kLdF + tx + 16 * j] = ds_f32(s[i][j], dp[i][j], sLse[r],
-                                             sDelta[r], scale, valid,
-                                             nullptr);
+      for (int i = 0; i < R; ++i) {
+        const int row = q0 + R * ty + i;
+        const bool valid =
+            !mask || (row < sq && attends(row, k0 + tx + L * j, sk, offset,
+                                          causal));
+        const float p =
+            valid ? exp2f(fmaf(s[i][j], scale2, -lse2[i])) : 0.0f;
+        ds[i] = p * (dp[i][j] - dlt[i]) * scale;
       }
+      store_floats<R>(sDS + (tx + L * j) * kWarpRows + pr, ds);
     }
-    __syncthreads();
-    weights_times_rows_f32<D>(sDS, sK, acc);  // dq += ds.k
+    __syncwarp();
+    weights_times_streamed<D, R>(sDS + pr, sK, acc);  // dq += dS.K
   }
-  store_rows_f32<D>(dq + qoff, acc, q0, sq, ldq);
+  cp_async_wait<0>();
+  store_own_rows<D, R>(dq + qoff, acc, q0, sq, ldq);
 }
 
-template <int D>
+template <int D, int BK>
 constexpr size_t dkv_f32_smem_bytes() {
-  // K, V, Q and dO (Q and dO in one buffer at d 256), p^T and ds^T, lse
-  // and delta
-  return sizeof(float) * ((kF32Share<D> ? 3 : 4) * kBQ * (D + 1) +
-                          2 * kBK * kLdF + 2 * kBQ);
+  // K and V, the Q and dO slots, each warp's P^T and dS^T [kBS][its own
+  // keys], and the lse and delta slots
+  return sizeof(float) * (2 * BK * D + 2 * kBS * D + 2 * BK * kBS + 2 * kBS);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+template <int D, int BK>
+__global__ void __launch_bounds__(kBwdThreads<D, BK>, D > 128 ? 1 : 2)
     flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
                              const float* __restrict__ v,
@@ -1258,94 +1353,132 @@ __global__ void __launch_bounds__(kF32Threads)
                              float* __restrict__ dk, float* __restrict__ dv,
                              int sq, int sk, int n_rep, float scale,
                              int causal) {
+  constexpr int R = kBwdRows<D, BK>;  // keys a thread
+  constexpr int L = kBwdLanes;
+  constexpr int J = kBwdCols;
+  constexpr int kWarpRows = 32 / L * R;
+  constexpr int kThreads = kBwdThreads<D, BK>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sK = reinterpret_cast<float*>(smem);
-  float* sV = sK + kBK * (D + 1);
-  float* sQ = sV + kBK * (D + 1);
-  float* sO = kF32Share<D> ? sQ : sQ + kBQ * (D + 1);
-  float* sPt = sO + kBQ * (D + 1);  // [key][query]
-  float* sDSt = sPt + kBK * kLdF;   // [key][query]
-  float* sLse = sDSt + kBK * kLdF;
-  float* sDelta = sLse + kBQ;
+  float* sV = sK + BK * D;
+  float* sQ = sV + BK * D;
+  float* sO = sQ + kBS * D;
+  // this warp's P^T and dS^T: [kBS query rows][its kWarpRows keys] each
+  float* sPt = sO + kBS * D + (threadIdx.x >> 5) * kBS * kWarpRows;
+  float* sDSt = sPt + BK * kBS;
+  float* sLse = sO + kBS * D + 2 * BK * kBS;
+  float* sDelta = sLse + kBS;
 
   const int g = blockIdx.y;  // kv head
   const int n_kv = gridDim.y;
   const int heads = n_kv * n_rep;
   const int batch = blockIdx.z;
-  const int k0 = blockIdx.x * kBK;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
+  const int k0 = blockIdx.x * BK;
+  const int ty = threadIdx.x / L;  // keys k0 + R ty .. R ty + R - 1
+  const int tx = threadIdx.x % L;  // query rows tx + L j of a tile
   const int64_t ldq = static_cast<int64_t>(heads) * D;
   const int64_t ldk = static_cast<int64_t>(n_kv) * D;
   const int64_t koff = static_cast<int64_t>(batch) * sk * ldk + g * D;
-
-  load_rows_f32<D>(sK, k + koff, k0, sk, ldk);
-  load_rows_f32<D>(sV, v + koff, k0, sk, ldk);
-  float acc_dk[4][D / 16];
-  float acc_dv[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      acc_dk[i][j] = 0.0f;
-      acc_dv[i][j] = 0.0f;
-    }
-  }
-
   const int offset = sk - sq;
-  int qb0 = 0;
-  if (causal) {
-    const int need = k0 - offset - (kBQ - 1);
-    qb0 = need <= 0 ? 0 : (need + kBQ - 1) / kBQ;
-  }
-  const int n_qb = (sq + kBQ - 1) / kBQ;
-  for (int rep = 0; rep < n_rep; ++rep) {
-    const int head = g * n_rep + rep;
-    const int64_t qoff = static_cast<int64_t>(batch) * sq * ldq + head * D;
-    const int64_t row_off =
-        (static_cast<int64_t>(batch) * heads + head) * sq;
-    for (int qb = qb0; qb < n_qb; ++qb) {
-      const int q0 = qb * kBQ;
-      __syncthreads();
-      load_rows_f32<D>(sQ, q + qoff, q0, sq, ldq);
-      if (!kF32Share<D>) load_rows_f32<D>(sO, dout + qoff, q0, sq, ldq);
-      load_vec_f32(sLse, lse + row_off, q0, sq);
-      load_vec_f32(sDelta, delta + row_off, q0, sq);
-      __syncthreads();
-      float st[4][4], dpt[4][4];  // [key 4ty + i][query tx + 16j]
-      rows_dot_rows_f32<D>(sK, sQ, st);
-      if (kF32Share<D>) {  // dO into Q's buffer
-        __syncthreads();
-        load_rows_f32<D>(sO, dout + qoff, q0, sq, ldq);
-        __syncthreads();
-      }
-      rows_dot_rows_f32<D>(sV, sO, dpt);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = 4 * ty + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qr = tx + 16 * j;
-          const bool valid = q0 + qr < sq &&
-                             attends(q0 + qr, k0 + key, sk, offset, causal);
-          float p;
-          sDSt[key * kLdF + qr] = ds_f32(st[i][j], dpt[i][j], sLse[qr],
-                                         sDelta[qr], scale, valid, &p);
-          sPt[key * kLdF + qr] = p;
-        }
-      }
-      __syncthreads();
-      weights_times_rows_f32<D>(sPt, sO, acc_dv);   // dv += p^T.dO
-      if (kF32Share<D>) {  // Q back into its buffer
-        __syncthreads();
-        load_rows_f32<D>(sQ, q + qoff, q0, sq, ldq);
-        __syncthreads();
-      }
-      weights_times_rows_f32<D>(sDSt, sQ, acc_dk);  // dk += ds^T.q
+  const float scale2 = scale * kLog2e;
+  const auto own_swizzle = [](int r) { return (r / R) & 7; };
+  const auto streamed_swizzle = [](int r) { return r & 7; };
+  // Each query head's tiles from the first that holds a row attending key
+  // k0 (rows >= k0 - offset); tile t is head g n_rep + t / per_head's
+  // tile qt0 + t % per_head.
+  const int first_row = causal ? max(k0 - offset, 0) : 0;
+  const int qt0 = first_row / kBS;
+  const int per_head = max((sq + kBS - 1) / kBS - qt0, 0);
+  const int n_t = n_rep * per_head;
+  const auto tile_q0 = [&](int t) { return (qt0 + t % per_head) * kBS; };
+  // Q with lse, or dO with delta, of tile t; rows past sq zero-filled
+  const auto load_tile = [&](float* rows, float* vec, const float* src,
+                             const float* vsrc, int t) {
+    const int head = g * n_rep + t / per_head;
+    const int q0 = tile_q0(t);
+    load_rows_async_f32<D, kBS, kThreads>(
+        rows, src + static_cast<int64_t>(batch) * sq * ldq + head * D, q0,
+        sq, ldq, streamed_swizzle);
+    const int i = threadIdx.x;
+    if (i < kBS) {
+      const bool valid = q0 + i < sq;
+      const int64_t at =
+          (static_cast<int64_t>(batch) * heads + head) * sq + q0 + i;
+      cp_async4(smem_u32(vec + i), vsrc + (valid ? at : 0), valid);
     }
+  };
+
+  // K and V once, and the first Q tile
+  load_rows_async_f32<D, BK, kThreads>(sK, k + koff, k0, sk, ldk,
+                                       own_swizzle);
+  load_rows_async_f32<D, BK, kThreads>(sV, v + koff, k0, sk, ldk,
+                                       own_swizzle);
+  if (n_t > 0) load_tile(sQ, sLse, q, lse, 0);
+  cp_async_commit();
+
+  float acc_dk[R][D / L], acc_dv[R][D / L];
+  zero(acc_dk);
+  zero(acc_dv);
+  const float* k_rows = sK + R * ty * D;
+  const float* v_rows = sV + R * ty * D;
+  const int xo = own_swizzle(R * ty);
+  const int xs = streamed_swizzle(tx);
+  const int pr = R * (ty % (32 / L));  // this thread's keys in its buffers
+
+  for (int t = 0; t < n_t; ++t) {
+    const int q0 = tile_q0(t);
+    cp_async_wait<0>();
+    // Q(t) and lse(t) are in; every thread is past dv(t - 1), so dO's slot
+    // is free
+    __syncthreads();
+    load_tile(sO, sDelta, dout, delta, t);
+    cp_async_commit();
+    float p[R][J];  // S^T, then P^T
+    own_dot_streamed<D, R, kDkvUnrollD>(k_rows, xo, sQ + tx * D, xs,
+                                           p);
+    const bool mask = pair_needs_mask(q0, kBS, k0, BK, sq, sk, offset, causal);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int row = q0 + tx + L * j;
+      const float l2 = sLse[tx + L * j] * kLog2e;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const bool valid =
+            !mask || (row < sq && attends(row, k0 + R * ty + i, sk, offset,
+                                          causal));
+        p[i][j] = valid ? exp2f(fmaf(p[i][j], scale2, -l2)) : 0.0f;
+      }
+    }
+
+    cp_async_wait<0>();
+    // dO(t) and delta(t) are in
+    __syncthreads();
+    float dp[R][J];
+    own_dot_streamed<D, R, kDkvUnrollD>(v_rows, xo, sO + tx * D, xs,
+                                           dp);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float dl = sDelta[tx + L * j];
+      float pc[R], dc[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        pc[i] = p[i][j];
+        dc[i] = p[i][j] * (dp[i][j] - dl) * scale;
+      }
+      store_floats<R>(sPt + (tx + L * j) * kWarpRows + pr, pc);
+      store_floats<R>(sDSt + (tx + L * j) * kWarpRows + pr, dc);
+    }
+    __syncwarp();
+    weights_times_streamed<D, R>(sDSt + pr, sQ, acc_dk);  // dk += dS^T.Q
+    // every thread is past dk(t), so Q's slot is free
+    __syncthreads();
+    if (t + 1 < n_t) load_tile(sQ, sLse, q, lse, t + 1);
+    cp_async_commit();
+    weights_times_streamed<D, R>(sPt + pr, sO, acc_dv);  // dv += P^T.dO
   }
-  store_rows_f32<D>(dk + koff, acc_dk, k0, sk, ldk);
-  store_rows_f32<D>(dv + koff, acc_dv, k0, sk, ldk);
+  cp_async_wait<0>();
+  store_own_rows<D, R>(dk + koff, acc_dk, k0, sk, ldk);
+  store_own_rows<D, R>(dv + koff, acc_dv, k0, sk, ldk);
 }
 
 // ------------------------------------------------------------------ launch
@@ -1377,21 +1510,51 @@ cudaError_t launch(Kernel kernel, size_t smem, int threads, int rows,
   return cudaGetLastError();
 }
 
+// launch() for a float32 kernel: two 64-row blocks of the forward, dq or
+// dk/dv at d 128 need all of the SM's shared memory.
+template <typename Kernel, typename... Args>
+cudaError_t launch_f32(Kernel kernel, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  return launch(kernel, args...);
+}
+
 // The float32 forward at query tile BQ.
 template <int D, int BQ>
 cudaError_t launch_fwd_f32(const float* q, const float* k, const float* v,
                            float* out, float* lse, int batch, int heads,
                            int n_rep, int sq, int sk, float scale, int causal,
                            cudaStream_t s) {
-  // two 64-row blocks at d 128 need all of the SM's shared memory
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D, BQ>,
-      cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  return launch(flash_fwd_f32_kernel<D, BQ>, fwd_f32_smem_bytes<D, BQ>(),
-                kFwdF32Threads<D, BQ>, sq, BQ, heads, batch, heads, n_rep, s,
-                q, k, v, out, lse, sq, sk, n_rep, scale, causal);
+  return launch_f32(flash_fwd_f32_kernel<D, BQ>, fwd_f32_smem_bytes<D, BQ>(),
+                    kFwdF32Threads<D, BQ>, sq, BQ, heads, batch, heads, n_rep,
+                    s, q, k, v, out, lse, sq, sk, n_rep, scale, causal);
+}
+
+// The float32 dk/dv at key tile BK and dq at query tile BQ.
+template <int D, int BK>
+cudaError_t launch_dkv_f32(const float* q, const float* k, const float* v,
+                           const float* dout, const float* lse,
+                           const float* delta, float* dk, float* dv,
+                           int batch, int heads, int n_rep, int sq, int sk,
+                           float scale, int causal, cudaStream_t s) {
+  return launch_f32(flash_bwd_dkv_f32_kernel<D, BK>,
+                    dkv_f32_smem_bytes<D, BK>(), kBwdThreads<D, BK>, sk, BK,
+                    heads / n_rep, batch, heads, n_rep, s, q, k, v, dout, lse,
+                    delta, dk, dv, sq, sk, n_rep, scale, causal);
+}
+
+template <int D, int BQ>
+cudaError_t launch_dq_f32(const float* q, const float* k, const float* v,
+                          const float* dout, const float* lse,
+                          const float* delta, float* dq, int batch, int heads,
+                          int n_rep, int sq, int sk, float scale, int causal,
+                          cudaStream_t s) {
+  return launch_f32(flash_bwd_dq_f32_kernel<D, BQ>, dq_f32_smem_bytes<D, BQ>(),
+                    kBwdThreads<D, BQ>, sq, BQ, heads, batch, heads, n_rep, s,
+                    q, k, v, dout, lse, delta, dq, sq, sk, n_rep, scale,
+                    causal);
 }
 
 // `tile`: the float32 forward's query tile (64 or 16, flash_attention.py
@@ -1419,11 +1582,13 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
   }
 }
 
+// `tile`: the float32 dk/dv's key tile (64 or 16, flash_attention.py
+// `f32_dkv_tile`); the bf16 dk/dv ignores it.
 template <int D, typename T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int batch, int heads, int n_rep,
-                       int sq, int sk, float scale, int causal,
+                       int sq, int sk, float scale, int causal, int tile,
                        cudaStream_t s) {
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
@@ -1438,18 +1603,22 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                   sk, kDkvKeys<D>, heads / n_rep, batch, heads, n_rep, s, qq,
                   kk, vv, dd, ll, de, dkk, dvv, sq, sk, n_rep, scale, causal);
   } else {
-    return launch(flash_bwd_dkv_f32_kernel<D>, dkv_f32_smem_bytes<D>(),
-                  kF32Threads, sk, kBK, heads / n_rep, batch, heads, n_rep, s,
-                  qq, kk, vv, dd, ll, de, dkk, dvv, sq, sk, n_rep, scale,
-                  causal);
+    switch (tile) {
+      case 64: return launch_dkv_f32<D, 64>(qq, kk, vv, dd, ll, de, dkk, dvv, batch, heads, n_rep, sq, sk, scale, causal, s);
+      case 16: return launch_dkv_f32<D, 16>(qq, kk, vv, dd, ll, de, dkk, dvv, batch, heads, n_rep, sq, sk, scale, causal, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
+// `tile`: the float32 dq's query tile (64 or 16, flash_attention.py
+// `f32_fwd_tile`); the bf16 dq ignores it.
 template <int D, typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int batch, int heads, int n_rep, int sq,
-                      int sk, float scale, int causal, cudaStream_t s) {
+                      int sk, float scale, int causal, int tile,
+                      cudaStream_t s) {
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
@@ -1462,9 +1631,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                   sq, kWgRows, heads, batch, heads, n_rep, s, qq, kk, vv, dd,
                   ll, de, dqq, sq, sk, n_rep, scale, causal);
   } else {
-    return launch(flash_bwd_dq_f32_kernel<D>, dq_f32_smem_bytes<D>(),
-                  kF32Threads, sq, kBQ, heads, batch, heads, n_rep, s, qq, kk,
-                  vv, dd, ll, de, dqq, sq, sk, n_rep, scale, causal);
+    switch (tile) {
+      case 64: return launch_dq_f32<D, 64>(qq, kk, vv, dd, ll, de, dqq, batch, heads, n_rep, sq, sk, scale, causal, s);
+      case 16: return launch_dq_f32<D, 16>(qq, kk, vv, dd, ll, de, dqq, batch, heads, n_rep, sq, sk, scale, causal, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -1486,13 +1657,13 @@ template <typename T>
 int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dk, void* dv,
               int batch, int heads, int n_rep, int sq, int sk, int d,
-              float scale, int causal, void* stream) {
+              float scale, int causal, int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch_dkv<32, T>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, s);
-    case 64: return launch_dkv<64, T>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, s);
-    case 128: return launch_dkv<128, T>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, s);
-    case 256: return launch_dkv<256, T>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, s);
+    case 32: return launch_dkv<32, T>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, tile, s);
+    case 64: return launch_dkv<64, T>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, tile, s);
+    case 128: return launch_dkv<128, T>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, tile, s);
+    case 256: return launch_dkv<256, T>(q, k, v, dout, lse, delta, dk, dv, batch, heads, n_rep, sq, sk, scale, causal, tile, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1501,13 +1672,13 @@ template <typename T>
 int dq_entry(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dq, int batch,
              int heads, int n_rep, int sq, int sk, int d, float scale,
-             int causal, void* stream) {
+             int causal, int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch_dq<32, T>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, s);
-    case 64: return launch_dq<64, T>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, s);
-    case 128: return launch_dq<128, T>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, s);
-    case 256: return launch_dq<256, T>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, s);
+    case 32: return launch_dq<32, T>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, tile, s);
+    case 64: return launch_dq<64, T>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, tile, s);
+    case 128: return launch_dq<128, T>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, tile, s);
+    case 256: return launch_dq<256, T>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep, sq, sk, scale, causal, tile, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1544,16 +1715,18 @@ int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      int sq, int sk, int d, float scale, int causal,
                      void* stream) {
   return dkv_entry<bf16>(q, k, v, dout, lse, delta, dk, dv, batch, heads,
-                         n_rep, sq, sk, d, scale, causal, stream);
+                         n_rep, sq, sk, d, scale, causal, 0, stream);
 }
 
+// The float32 dk/dv also takes its key tile, 64 or 16 (flash_attention.py
+// `f32_dkv_tile`).
 int rt_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dk, void* dv, int batch, int heads, int n_rep,
                          int sq, int sk, int d, float scale, int causal,
-                         void* stream) {
+                         int tile, void* stream) {
   return dkv_entry<float>(q, k, v, dout, lse, delta, dk, dv, batch, heads,
-                          n_rep, sq, sk, d, scale, causal, stream);
+                          n_rep, sq, sk, d, scale, causal, tile, stream);
 }
 
 // dq like q.
@@ -1562,16 +1735,18 @@ int rt_flash_bwd_dq(const void* q, const void* k, const void* v,
                     void* dq, int batch, int heads, int n_rep, int sq, int sk,
                     int d, float scale, int causal, void* stream) {
   return dq_entry<bf16>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep,
-                        sq, sk, d, scale, causal, stream);
+                        sq, sk, d, scale, causal, 0, stream);
 }
 
+// The float32 dq also takes its query tile, 64 or 16 (flash_attention.py
+// `f32_fwd_tile`).
 int rt_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dq, int batch, int heads, int n_rep, int sq,
-                        int sk, int d, float scale, int causal,
+                        int sk, int d, float scale, int causal, int tile,
                         void* stream) {
   return dq_entry<float>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep,
-                         sq, sk, d, scale, causal, stream);
+                         sq, sk, d, scale, causal, tile, stream);
 }
 
 const char* rt_error_string(int code) {

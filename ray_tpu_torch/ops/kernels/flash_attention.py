@@ -23,14 +23,17 @@ and 256 (`HEAD_DIMS`); the wrappers zero-pad any other head_dim to the next
 of them before the launch and slice the outputs back (`pad_heads`,
 `unpad_heads`; exact, since the scale is the caller's). Each wrapper counts
 its launches in `.launches` and, of those, the float32 kernel's in
-`.f32_launches`. The float32 forward also takes a query-tile height
-planned from the shape (`f32_fwd_tile`: 64 rows where those tiles alone
-make a wave of the card, else 16); `key_tiles` and `tile_needs_mask` are
-the kernels' causal-band arithmetic, in Python for the tests. The plain PyTorch versions beside them run for tensors on
-the CPU; they compute densely in float32 with the kernels' masking and
-roundings (p and ds rounded to the input dtype before the products they
-feed). Over [b·h, s, d] GQA is the caller's: K/V come in repeated per query
-head.
+`.f32_launches`. The float32 kernels also take a tile height planned
+from the shape: the query tile of the forward and dq (`f32_fwd_tile`: 64
+rows where those tiles alone make a wave of the card, else 16) and the key
+tile of dk/dv (`f32_dkv_tile`, the same rule over kv heads and keys); dq
+and dk/dv stream the other side in tiles of `F32_BWD_STREAM` rows.
+`key_tiles`, `tile_needs_mask`, `query_tiles` and `bwd_tile_needs_mask`
+are the kernels' causal-band arithmetic, in Python for the tests. The
+plain PyTorch versions beside them run for tensors on the CPU; they
+compute densely in float32 with the kernels' masking and roundings (p and
+ds rounded to the input dtype before the products they feed). Over
+[b·h, s, d] GQA is the caller's: K/V come in repeated per query head.
 
 The packed layout (twin of `_flash_fwd_packed`/`_flash_bwd_packed`,
 ray_tpu/ops/pallas/flash_attention.py:376-502) runs the same three kernels
@@ -76,36 +79,72 @@ _SIGNATURES = {
         "rt_flash_bwd_dkv": ([_P] * 8 + _LAYOUT + [_F, _INT, _P], _INT),
         "rt_flash_bwd_dq": ([_P] * 7 + _LAYOUT + [_F, _INT, _P], _INT),
     }),
-    # the float32 forward also takes its query tile (`f32_fwd_tile`)
+    # the float32 kernels also take their tile (`f32_fwd_tile`,
+    # `f32_dkv_tile`)
     "rt_flash_fwd_f32": ([_P] * 5 + _LAYOUT + [_F, _INT, _INT, _P], _INT),
+    "rt_flash_bwd_dkv_f32": ([_P] * 8 + _LAYOUT + [_F, _INT, _INT, _P],
+                             _INT),
+    "rt_flash_bwd_dq_f32": ([_P] * 7 + _LAYOUT + [_F, _INT, _INT, _P], _INT),
 }
 
-# The float32 forward's plan: a block owns F32_FWD_TILES[0] query rows of
-# one head where those tiles alone make a wave of WAVE_BLOCKS blocks, else
-# F32_FWD_TILES[1] (csrc/flash_attention.cu, "float32"). Every kernel walks
-# keys in tiles of KEY_TILE.
+# The float32 plan: a forward or dq block owns F32_FWD_TILES[0] query rows
+# of one head where those tiles alone make a wave of WAVE_BLOCKS blocks,
+# else F32_FWD_TILES[1], and a dk/dv block the same number of keys of one
+# kv head by the same rule (csrc/flash_attention.cu, "float32"). The
+# forward walks keys in tiles of KEY_TILE; dq walks keys, and dk/dv query
+# rows, in tiles of F32_BWD_STREAM.
 F32_FWD_TILES = (64, 16)
 KEY_TILE = 64
+F32_BWD_STREAM = 32
 
 
 def f32_fwd_tile(heads: int, sq: int) -> int:
-    """The query-tile height of the float32 forward over `heads` query
-    heads (b·h, or b x heads in the packed layout) of sq rows."""
+    """The query-tile height of the float32 forward and dq over `heads`
+    query heads (b·h, or b x heads in the packed layout) of sq rows."""
     for tile in F32_FWD_TILES:
         if heads * cdiv(sq, tile) >= WAVE_BLOCKS:
             return tile
     return F32_FWD_TILES[-1]
 
 
-def key_tiles(q0: int, rows: int, sq: int, sk: int, causal: bool) -> int:
-    """How many key tiles a block of query rows [q0, q0 + rows) walks
-    (the kernels' `key_blocks`): all of sk, or, causal, up to the band of
-    its last row (keys <= row + sk - sq)."""
-    n = cdiv(sk, KEY_TILE)
+def f32_dkv_tile(kv_heads: int, sk: int) -> int:
+    """The key-tile height of the float32 dk/dv over `kv_heads` kv heads
+    (b·h, or b x n_kv in the packed layout) of sk keys: the forward's rule
+    (`f32_fwd_tile`) over its own blocks."""
+    return f32_fwd_tile(kv_heads, sk)
+
+
+def key_tiles(q0: int, rows: int, sq: int, sk: int, causal: bool,
+              key_tile: int = KEY_TILE) -> int:
+    """How many key tiles of `key_tile` keys a block of query rows [q0,
+    q0 + rows) walks (the kernels' `key_blocks`): all of sk, or, causal, up
+    to the band of its last row (keys <= row + sk - sq)."""
+    n = cdiv(sk, key_tile)
     if causal:
         last = q0 + rows - 1 + sk - sq
-        n = min(n, last // KEY_TILE + 1 if last >= 0 else 0)
+        n = min(n, last // key_tile + 1 if last >= 0 else 0)
     return n
+
+
+def query_tiles(k0: int, sq: int, sk: int, causal: bool,
+                query_tile: int = F32_BWD_STREAM) -> range:
+    """The query tiles of `query_tile` rows (by index) that a float32
+    dk/dv block of keys from k0 walks for each query head: all of sq, or,
+    causal, from the tile of the first row that attends key k0 (rows >=
+    k0 - (sk - sq))."""
+    first = max(k0 - (sk - sq), 0) // query_tile if causal else 0
+    return range(first, cdiv(sq, query_tile))
+
+
+def bwd_tile_needs_mask(q0: int, rows: int, k0: int, keys: int, sq: int,
+                        sk: int, causal: bool) -> bool:
+    """Whether query rows [q0, q0 + rows) and keys [k0, k0 + keys) hold
+    an entry that is not attended (the float32 dq's and dk/dv's
+    `pair_needs_mask`): a row past sq, a key past sk, or a key past the
+    band of the first row. A pair that needs none holds only rows that see
+    keys."""
+    return (q0 + rows > sq or k0 + keys > sk
+            or (causal and k0 + keys - 1 > q0 + sk - sq))
 
 
 def tile_needs_mask(q0: int, k0: int, sq: int, sk: int,
@@ -354,10 +393,13 @@ def _launch_dkv(q, k, v, do, lse, delta, layout, scale, causal, what):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib, fn = _entry("rt_flash_bwd_dkv", q.dtype)
+    b, heads, n_rep, _, sk = layout[:5]
+    tile = ((f32_dkv_tile(b * heads // n_rep, sk),)
+            if q.dtype == torch.float32 else ())
     check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *layout, float(scale), int(causal), stream_handle(q)), what)
+        *layout, float(scale), int(causal), *tile, stream_handle(q)), what)
     return back(dk, False), back(dv, False)
 
 
@@ -365,10 +407,13 @@ def _launch_dq(q, k, v, do, lse, delta, layout, scale, causal, what):
     layout, q, k, v, do, back = _padded(layout, q, k, v, do)
     dq = torch.empty_like(q)
     lib, fn = _entry("rt_flash_bwd_dq", q.dtype)
+    b, heads, _, sq = layout[:4]
+    tile = ((f32_fwd_tile(b * heads, sq),) if q.dtype == torch.float32
+            else ())
     check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *layout,
-        float(scale), int(causal), stream_handle(q)), what)
+        float(scale), int(causal), *tile, stream_handle(q)), what)
     return back(dq, True)
 
 

@@ -725,6 +725,79 @@ def test_f32_flash_kernels_match_plain_versions(no_tf32, packed, b, h, kv,
         (n + 1, m + 1) for n, m in before]
 
 
+# (b, heads, kv heads, sq, sk, head_dim, causal) of the float32 dq and
+# dk/dv on their plans (`f32_fwd_tile`, `f32_dkv_tile`): GQA n_rep 4 (by
+# index packed, K/V repeated per query head flat), head dims 32 to 256,
+# ragged sq != sk, causal and not; between them every tile of each plan in
+# each layout (`test_f32_bwd_cases_cover_every_tile`).
+F32_BWD_CASES = [
+    (2, 8, 2, 520, 500, 32, True), (4, 16, 4, 300, 600, 32, False),
+    (2, 16, 4, 200, 1100, 64, False), (1, 8, 2, 70, 90, 64, True),
+    (1, 8, 2, 130, 150, 128, True), (4, 8, 2, 700, 2100, 128, True),
+    (2, 8, 2, 1030, 1000, 128, True), (1, 4, 1, 200, 190, 256, True),
+    (4, 8, 2, 1000, 1100, 256, True),
+]
+
+
+def _f32_bwd_tiles(b, h, kv, sq, sk, packed):
+    """(dq's query tile, dk/dv's key tile) the wrappers plan: packed over b
+    x heads and b x kv heads, flat over b·h both (K/V repeated)."""
+    return (fa.f32_fwd_tile(b * h, sq),
+            fa.f32_dkv_tile(b * (kv if packed else h), sk))
+
+
+def test_f32_bwd_cases_cover_every_tile(cuda):
+    for packed in (False, True):
+        tiles = {_f32_bwd_tiles(*c[:5], packed) for c in F32_BWD_CASES}
+        for kernel in range(2):
+            assert {t[kernel] for t in tiles} == set(fa.F32_FWD_TILES)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", F32_BWD_CASES)
+def test_f32_dq_dkv_on_their_plans_match_plain_versions(no_tf32, packed, b,
+                                                        h, kv, sq, sk, d,
+                                                        causal):
+    """The float32 dq and dk/dv at the tiles their plans give each case
+    within 1e-4 of their plain versions, and a second call of each gives
+    the same bits (every sum in a fixed order, no atomics)."""
+    cuda = no_tf32
+    q, do = (_f32((b, sq, h * d), cuda, i) for i in (0, 3))
+    k, v = (_f32((b, sk, kv * d), cuda, i) for i in (1, 2))
+    scale = d ** -0.5
+    if packed:
+        args = (h, kv, scale, causal)
+        fwd_plain = fa.flash_fwd_packed_plain
+        dkv, dkv_plain = fa.flash_bwd_dkv_packed, fa.flash_bwd_dkv_packed_plain
+        dq, dq_plain = fa.flash_bwd_dq_packed, fa.flash_bwd_dq_packed_plain
+        delta_of = lambda o: fa.flash_delta_packed(o, do, h)  # noqa: E731
+    else:
+        def flat(x, n):
+            return _heads(x, n).repeat_interleave(h // n, 1).reshape(
+                b * h, x.shape[1], d).contiguous()
+        q, k, v, do = flat(q, h), flat(k, kv), flat(v, kv), flat(do, h)
+        args = (scale, causal)
+        fwd_plain = fa.flash_fwd_plain
+        dkv, dkv_plain = fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain
+        dq, dq_plain = fa.flash_bwd_dq, fa.flash_bwd_dq_plain
+        delta_of = lambda o: fa.flash_delta(o, do)  # noqa: E731
+    p_out, p_lse = fwd_plain(q, k, v, *args)
+    bwd = (q, k, v, do, p_lse, delta_of(p_out), *args)
+    got_dk, got_dv = dkv(*bwd)
+    got_dq = dq(*bwd)
+    again_dk, again_dv = dkv(*bwd)
+    again_dq = dq(*bwd)
+    want_dk, want_dv = dkv_plain(*bwd)
+    want_dq = dq_plain(*bwd)
+    torch.cuda.synchronize()
+    for g, w, name in ((got_dq, want_dq, "dq"), (got_dk, want_dk, "dk"),
+                       (got_dv, want_dv, "dv")):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert _rel_err(g, w) < F32_KERNEL_TOL, name
+    for g, a in ((got_dq, again_dq), (got_dk, again_dk), (got_dv, again_dv)):
+        assert torch.equal(g, a)
+
+
 @pytest.mark.parametrize("T,d,dff", [(512, 256, 512), (37, 130, 50),
                                      (1000, 200, 328)])
 def test_f32_ffn_kernels_match_plain_versions(no_tf32, T, d, dff):
@@ -1075,7 +1148,8 @@ def test_rows_that_see_no_key_give_zero_on_the_card(no_tf32, h, d, dtype,
     2 heads or 32, which the float32 forward's plan gives query tiles of 16
     and 64) gives out 0 there, as its plain version does, and agrees with
     it everywhere: within 1e-2 (bf16) or 1e-4 (float32), lse within 2e-5;
-    the bf16 dk/dv and dq kernels within 1e-2."""
+    the dk/dv and dq kernels within 1e-2 (bf16) or 1e-4 (float32), the
+    float32 dq exactly 0 on those rows."""
     cuda = no_tf32
     b, kv, sq, sk = 1, h, 300, 64
     assert fa.f32_fwd_tile(b * h, sq) == (16 if h == 2 else 64)
@@ -1099,11 +1173,9 @@ def test_rows_that_see_no_key_give_zero_on_the_card(no_tf32, h, d, dtype,
         delta_of = lambda o: fa.flash_delta(o, do)  # noqa: E731
     out, lse = fwd(q, k, v, *args)
     p_out, p_lse = fwd_plain(q, k, v, *args)
-    got, want = [out], [p_out]
-    if dtype == torch.bfloat16:
-        bwd = (q, k, v, do, p_lse, delta_of(p_out), *args)
-        got += [*dkv(*bwd), dq(*bwd)]
-        want += [*dkv_plain(*bwd), dq_plain(*bwd)]
+    bwd = (q, k, v, do, p_lse, delta_of(p_out), *args)
+    got = [out, *dkv(*bwd), dq(*bwd)]
+    want = [p_out, *dkv_plain(*bwd), dq_plain(*bwd)]
     torch.cuda.synchronize()
     tol = F32_KERNEL_TOL if dtype == torch.float32 else REL_TOL
     for g, w in zip(got, want):
@@ -1112,6 +1184,8 @@ def test_rows_that_see_no_key_give_zero_on_the_card(no_tf32, h, d, dtype,
     assert bool((out[:, :sq - sk] == 0).all())
     assert bool((p_out[:, :sq - sk] == 0).all())
     assert bool((out[:, sq - sk:] != 0).any())
+    if dtype == torch.float32:
+        assert bool((got[-1][:, :sq - sk] == 0).all())
 
 
 FFN_SHAPES = [(4096, 4096, 14336), (1000, 4000, 3000), (300, 264, 1001),
