@@ -127,6 +127,33 @@ Phases (any failure exits non-zero and prints no result line):
      read just after); logs which outputs and lse are bit-identical across
      the two routes, and fails unless out, lse and dq are (one kernel body
      serves both routes);
+ 10d. serve Mixtral-8x7B at full width (d 4096, 32/8 heads, 8 experts of
+     d_ff 14336, top-2, vocab 32000) with 8 of its 32 layers, capacity
+     factor 8 (no token dropped), random bf16 weights from a seeded
+     generator: phase 4's 12 requests in bf16 and w8a16 with phase 4's
+     gates (greedy agreement pooled over requests 0-3), the quant and
+     dequant kernels' launches on the w8a16 run against the counts the
+     leaf list implies (the router stays bf16), phase 5's parity and phase
+     6's decode measurements;
+ 10e. train it at 2 of 32 layers, capacity factor 1.25, moe_aux_weight
+     0.02, remat "dots", batch 2 x 2049 reused: 8 steps of
+     default_optimizer(warmup_steps=2) (finite losses and grad norms, the
+     first loss within 0.5 of ln V + 0.02²·d/2 + 0.02·L, a drop of >= 0.5
+     nats, moe_aux every step, the flash forward at 2·n_layers launches a
+     step and the backward at n_layers, K1-K3 never), ms/step, peak GiB,
+     tokens/s and MFU over the active and over all parameters; then 3
+     steps of fused_adamw_optimizer (adamw_update once a leaf, 13 a step;
+     step-1 loss equal to the default's within 1e-5 relative);
+ 10f. one forward and backward of loss_fn in each remat mode (none, full,
+     dots, dots_sans_qkv, dots_plus_attn) on the same params and batch, for
+     the phase-10e MoE config and for the 8-layer 8B width with
+     fused_ffn=True, fused_attn=False: loss, moe_aux and grad norm equal to
+     none's within 1e-6 relative, the flash forward at n_layers launches
+     (none) or 2·n_layers (the rest), the backward at n_layers, K3 at
+     n_layers on the dense config, peak memory and the memory the forward
+     leaves for the backward each ordered none >= dots_plus_attn >= dots
+     >= dots_sans_qkv >= full within 1%; each mode's GiB and the ms of a
+     second, timed run;
  11. print the kernels line (the float32 kernels as `<name>_f32`), the
      nvidia-smi line, and the result line.
 
@@ -881,11 +908,12 @@ def check_norm_xent_kernels(torch, gen):
 
 
 def train(torch, card: str, seed: int, cfg, optimizer, kernels, want,
-          label: str):
-    """Phases 8-9 (and 10 for the all-kernel step): 8 steps of the training
-    step at Llama-3-8B width, 8 layers, with `optimizer`; `want` maps each
-    kernel of `kernels` to its launches per step. Returns {"losses",
-    "norms", "launches", "leaf_shapes"}."""
+          label: str, steps: int = TRAIN_STEPS, profile: bool = True):
+    """Phases 8-9 (and 10 for the all-kernel step, 10e for MoE): `steps`
+    steps of the training step at Llama-3-8B (or Mixtral-8x7B) width with
+    `optimizer`; `want` maps each kernel of `kernels` to its launches per
+    step. Returns {"losses", "norms", "launches", "leaf_shapes", "ms_step",
+    "peak_gib"}."""
     from ray_tpu_torch import bench
     from ray_tpu_torch.models import count_params
     from ray_tpu_torch.models.transformer import tree_leaves
@@ -906,14 +934,15 @@ def train(torch, card: str, seed: int, cfg, optimizer, kernels, want,
     nu_dtype = str(state.opt_state.nu["embed"].dtype).replace("torch.", "")
     batch = bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1, "cuda")
     torch.cuda.synchronize()
-    log(f"train {label}: llama3_8b width, {cfg.n_layers} layers, "
+    width = "mixtral-8x7b" if cfg.n_experts else "llama3_8b"
+    log(f"train {label}: {width} width, {cfg.n_layers} layers, "
         f"{n_params / 1e9:.4f}B params, state (params, mu float32, nu "
         f"{nu_dtype}) built in {time.perf_counter() - t0:.2f} s; batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ + 1} tokens, reused every step")
 
     losses, norms, step_s = [], [], []
     launches = {k.__name__: 0 for k in kernels}
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         for k in kernels:  # the main path's counts start here
             k.launches = 0
         t0 = time.perf_counter()
@@ -923,8 +952,10 @@ def train(torch, card: str, seed: int, cfg, optimizer, kernels, want,
         got = {k.__name__: k.launches for k in kernels}
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
+        aux = (f", moe_aux {float(metrics['moe_aux']):.5f}"
+               if cfg.n_experts else "")
         log(f"train {label} step {i + 1}: loss {losses[-1]:.5f}, grad_norm "
-            f"{norms[-1]:.5f}, {1e3 * step_s[-1]:.2f} ms, launches {got}, "
+            f"{norms[-1]:.5f}{aux}, {1e3 * step_s[-1]:.2f} ms, launches {got}, "
             f"allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, "
             f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         if got != want:
@@ -936,28 +967,52 @@ def train(torch, card: str, seed: int, cfg, optimizer, kernels, want,
             fail(f"training step {i + 1} ({label}): loss {losses[-1]}, "
                  f"grad_norm {norms[-1]}")
     # logits z = x . W_head with rms(x) = 1 (final norm) and W_head ~
-    # N(0, 0.02^2): z ~ N(0, 0.02^2 d), so E[loss] = ln V + var(z) / 2
+    # N(0, 0.02^2): z ~ N(0, 0.02^2 d), so E[loss] = ln V + var(z) / 2;
+    # a MoE loss adds moe_aux_weight times the aux of near-uniform routing,
+    # about 1 a layer
     expect = math.log(cfg.vocab_size) + 0.5 * 0.02 ** 2 * cfg.d_model
+    if cfg.n_experts:
+        expect += cfg.moe_aux_weight * cfg.n_layers
     log(f"train {label}: first loss {losses[0]:.5f}; ln(vocab) = "
         f"{math.log(cfg.vocab_size):.5f}, expected at this init "
         f"{expect:.5f}; last loss {losses[-1]:.5f}, drop "
-        f"{losses[0] - losses[-1]:.5f} (predicted >= {MIN_LOSS_DROP})")
+        f"{losses[0] - losses[-1]:.5f} (predicted >= {MIN_LOSS_DROP} over "
+        f"{TRAIN_STEPS} steps)")
     if abs(losses[0] - expect) > 0.5:
         fail(f"{label}: first loss {losses[0]} is not within 0.5 of {expect}")
-    if not losses[0] - losses[-1] >= MIN_LOSS_DROP:
+    if steps >= TRAIN_STEPS and not losses[0] - losses[-1] >= MIN_LOSS_DROP:
         fail(f"{label}: loss fell by {losses[0] - losses[-1]} over "
-             f"{TRAIN_STEPS} steps, predicted >= {MIN_LOSS_DROP}")
+             f"{steps} steps, predicted >= {MIN_LOSS_DROP}")
 
     timed = step_s[TIMED_FROM:]
     ms_step = 1e3 * statistics.mean(timed)
     tput = bench.throughput(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ,
                             ms_step / 1e3, PEAK_BF16_OPS_PER_S)
+    mfu = f"MFU {tput['mfu']:.4f}"
+    if cfg.n_experts:
+        # a token runs attention and two of the experts: 6 x those
+        # parameters a token (the active MFU), beside 6 x all of them
+        active = n_params - cfg.n_layers * (cfg.n_experts - 2) * 3 \
+            * cfg.d_model * cfg.d_ff
+        act = bench.throughput(cfg, active, TRAIN_BATCH, TRAIN_SEQ,
+                               ms_step / 1e3, PEAK_BF16_OPS_PER_S)
+        mfu = (f"MFU {act['mfu']:.4f} over 6 x {active / 1e9:.4f}B active "
+               f"parameters a token ({tput['mfu']:.4f} over 6 x all "
+               f"{n_params / 1e9:.4f}B)")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"train {label}: {ms_step:.2f} ms/step (mean of steps "
-        f"{TIMED_FROM + 1}-{TRAIN_STEPS}; min {1e3 * min(timed):.2f}, max "
+        f"{TIMED_FROM + 1}-{steps}; min {1e3 * min(timed):.2f}, max "
         f"{1e3 * max(timed):.2f}), {tput['tokens_per_sec']:.1f} tokens/s, "
-        f"MFU {tput['mfu']:.4f} of {PEAK_BF16_OPS_PER_S / 1e12:.0f} "
-        f"TFLOP/s, peak device memory {peak_gib:.2f} GiB [{card}]")
+        f"{mfu} of {PEAK_BF16_OPS_PER_S / 1e12:.0f} TFLOP/s, peak device "
+        f"memory {peak_gib:.2f} GiB [{card}]")
+    result = {"losses": losses, "norms": norms, "launches": launches,
+              "leaf_shapes": leaf_shapes, "ms_step": ms_step,
+              "peak_gib": peak_gib}
+    if not profile:
+        del state, step_fn, init_fn, batch, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        return result
     state, prof = bench.profile_train(step_fn, state, batch, steps=3,
                                       top=12)
     if prof["device_ms_per_step"] > 0:
@@ -978,8 +1033,7 @@ def train(torch, card: str, seed: int, cfg, optimizer, kernels, want,
     del state, step_fn, init_fn, batch, metrics
     gc.collect()
     torch.cuda.empty_cache()
-    return {"losses": losses, "norms": norms, "launches": launches,
-            "leaf_shapes": leaf_shapes}
+    return result
 
 
 def train_both(torch, card: str, seed: int, cfg):
@@ -1641,6 +1695,277 @@ OLD_MS = {"flash_bwd_dkv": 2.4535, "flash_bwd_dkv_packed": 2.7611,
 BWD_SHARE = {"flash_bwd_dkv_f32": 4 / 7, "flash_bwd_dq_f32": 3 / 7}
 
 
+# Phases 10d-10f: Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1, its
+# config.json) at full width, its depth cut to what one card holds: 8 of 32
+# layers to serve (23.7 GB of bf16 weights, 35.6 GB while the w8a16 copy is
+# made) and 2 of 32 to train (31.6 GB of params, grads and moments).
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 8, 2
+# Serving routes without drops: capacity = T, as Mixtral itself routes (the
+# reference's 1.25 would drop at least half of a decode step's top-2
+# assignments at 8 slots); training keeps the reference's default.
+MOE_SERVE_CAPACITY, MOE_TRAIN_CAPACITY = 8.0, 1.25
+# The greedy-agreement gate of phase 4, pooled over the first requests: a
+# router flip between the decode and prefill routes moves a whole expert's
+# share, so one 16-token request is a noisy sample of it.
+MOE_AGREEMENT_REQUESTS = 4
+REMAT_MODES = ("none", "full", "dots", "dots_sans_qkv", "dots_plus_attn")
+# Phase 10f: every mode's loss and grad norm against `none` (the same
+# kernels recompute the same values), and the slack of the peak-memory
+# order (none >= dots_plus_attn >= dots >= dots_sans_qkv >= full).
+REMAT_RTOL = 1e-6
+PEAK_SLACK = 0.01
+
+
+def mixtral_config(n_layers: int, capacity_factor: float, **kw):
+    """Mixtral-8x7B's published widths: d 4096, 32/8 heads of 128, 8
+    experts of d_ff 14336, top-2, vocab 32000, rope_theta 1e6, RMSNorm eps
+    1e-5, untied head, router aux coefficient 0.02."""
+    from ray_tpu_torch.models import ModelConfig
+
+    return ModelConfig(vocab_size=32000, d_model=4096, n_layers=n_layers,
+                       n_heads=32, n_kv_heads=8, d_ff=14336,
+                       max_seq_len=32768, rope_theta=1e6, norm_eps=1e-5,
+                       n_experts=8, capacity_factor=capacity_factor,
+                       moe_aux_weight=0.02, **kw)
+
+
+def decode_rows(torch, params, cfg, card: str, prefix: str = "") -> None:
+    """Phase 6's decode measurements: tokens/s and ms/step at NUM_SLOTS
+    slots, then a torch.profiler window (device ms/step, idle share, top
+    kernels), in bf16 and w8a16."""
+    from ray_tpu_torch.models.servebench import measure_decode, profile_decode
+
+    for label, quantize in (("bf16", False), ("w8a16", True)):
+        dec = measure_decode(params, cfg, num_slots=NUM_SLOTS,
+                             max_len=MAX_LEN, quantize_weights=quantize,
+                             device="cuda")
+        torch.cuda.empty_cache()
+        log(f"{prefix}decode {label}: {dec['decode_tokens_per_s']} tok/s at "
+            f"{NUM_SLOTS} slots, {dec['ms_per_step']} ms/step [{card}]")
+        prof = profile_decode(params, cfg, num_slots=NUM_SLOTS,
+                              max_len=MAX_LEN, quantize_weights=quantize,
+                              device="cuda")
+        torch.cuda.empty_cache()
+        if prof["device_ms_per_step"] > 0:
+            log(f"{prefix}decode {label} profile: device "
+                f"{prof['device_ms_per_step']} ms/step "
+                f"({prof['launches_per_step']} kernels/step) in a window of "
+                f"{prof['ms_per_step']} ms/step, device-idle share "
+                f"{prof['device_idle_share']} of that window [{card}]")
+            for row in prof["top"]:
+                log(f"  {row['ms_per_step']:.4f} ms/step "
+                    f"({row['share']:.3f}) {row['name']}")
+        else:
+            log(f"{prefix}decode {label} profile: the profiler recorded no "
+                f"device time (device-idle share not measured)")
+
+
+def serve_moe(torch, card: str, seed: int) -> None:
+    """Phase 10d: Mixtral-8x7B width, 8 layers, serves phase 4's requests
+    in bf16 and w8a16 with phase 4's and 5's gates and phase 6's decode
+    measurements."""
+    from ray_tpu_torch.models import count_params, init_params
+    from ray_tpu_torch.models.servebench import measure_quant_parity
+    from ray_tpu_torch.ops.kernels import quant
+
+    t0 = time.perf_counter()
+    cfg = mixtral_config(MOE_SERVE_LAYERS, MOE_SERVE_CAPACITY)
+    params = init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    log(f"moe serve: mixtral-8x7b width, {cfg.n_layers} of 32 layers, "
+        f"{count_params(params) / 1e9:.3f}B params, {cfg.n_experts} experts "
+        f"top-2 at capacity factor {cfg.capacity_factor}, random bf16 "
+        f"weights (seed {seed}) in {time.perf_counter() - t0:.2f} s")
+    requests = make_requests(cfg, seed)
+
+    def agreement(p, eng, rids, label):
+        fracs = [teacher_forced_agreement(torch, p, cfg, eng.result(rid),
+                                          len(prompt))
+                 for rid, (prompt, _) in zip(rids[:MOE_AGREEMENT_REQUESTS],
+                                             requests)]
+        n = [k for _, k in requests[:MOE_AGREEMENT_REQUESTS]]
+        pooled = sum(f * k for f, k in zip(fracs, n)) / sum(n)
+        log(f"serve {label}: teacher-forced agreement {pooled:.4f} over the "
+            f"{sum(n)} tokens of requests 0-{len(n) - 1} (each: "
+            f"{', '.join(f'{f:.3f}' for f in fracs)})")
+        if pooled < 0.9:
+            fail(f"{label} decode disagrees with teacher-forced prefill "
+                 f"({pooled})")
+
+    quant.dequantize_int8.launches = 0
+    eng, rids = serve(torch, params, cfg, requests, False, "moe bf16")
+    if quant.dequantize_int8.launches:
+        fail("the MoE bf16 engine launched the dequant kernel")
+    agreement(params, eng, rids, "moe bf16")
+    del eng
+    torch.cuda.empty_cache()
+
+    for k in quant.KERNELS:  # the main path's counts start here
+        k.launches = 0
+    qeng, qrids = serve(torch, params, cfg, requests, True, "moe w8a16")
+    launches = {k.__name__: k.launches for k in quant.KERNELS}
+    qparams = qeng.params
+    # one quant launch a quantized leaf at load (the 4-D expert leaves as
+    # [L·E·in, out] rows); a pass dequantizes each of a layer's quantized
+    # leaves once, then the LM head and the gathered embedding rows
+    layer_leaves = {k: tuple(v["int8"].shape)
+                    for k, v in qparams["layers"].items()
+                    if isinstance(v, dict)}
+    n_quant = len(layer_leaves) + 2
+    per_pass = len(layer_leaves) * cfg.n_layers + 2
+    want = {"quantize_int8": n_quant,
+            "dequantize_int8": per_pass * (qeng.prefill_calls
+                                           + qeng.decode_steps)}
+    log(f"moe w8a16 leaves: {layer_leaves}, embed, lm_head; router kept "
+        f"{str(qparams['layers']['router'].dtype).replace('torch.', '')}")
+    log(f"launches on the MoE w8a16 serving path: {launches} (expected "
+        f"{want}: {n_quant} leaves at load, {per_pass} a pass x "
+        f"{qeng.prefill_calls} prefill calls + {qeng.decode_steps} decode "
+        f"steps)")
+    if launches != want:
+        fail(f"MoE kernel launch counts {launches} != expected {want}")
+    if isinstance(qparams["layers"]["router"], dict):
+        fail("the router was quantized (the reference keeps it)")
+    agreement(qparams, qeng, qrids, "moe w8a16")
+    del qeng
+    torch.cuda.empty_cache()
+
+    parity = measure_quant_parity(params, cfg, max_len=MAX_LEN,
+                                  qparams=qparams, device="cuda")
+    log(f"moe w8a16 parity: logits rel err "
+        f"{parity['logits_max_abs_diff_rel']} (limit 0.08), weight bytes "
+        f"ratio {parity['weight_bytes_ratio']}")
+    if not parity["logits_parity_ok"]:
+        fail(f"MoE w8a16 logits rel err {parity['logits_max_abs_diff_rel']}")
+    del qparams
+    torch.cuda.empty_cache()
+    decode_rows(torch, params, cfg, card, "moe ")
+    log(f"moe serve: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; phase "
+        f"{time.perf_counter() - t0:.2f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_moe(torch, card: str, seed: int) -> None:
+    """Phase 10e: Mixtral-8x7B width, 2 layers, remat "dots", 8 steps of
+    the default step, then 3 of the fused-AdamW step held against it."""
+    from ray_tpu_torch.ops.kernels import adamw as aw
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+    from ray_tpu_torch.train import default_optimizer, fused_adamw_optimizer
+
+    cfg = mixtral_config(MOE_TRAIN_LAYERS, MOE_TRAIN_CAPACITY, remat="dots")
+    L = cfg.n_layers
+    kernels = (*fa.KERNELS, *ff.KERNELS, aw.adamw_update,
+               *fa.PACKED_KERNELS)
+    # the recompute reruns the flash forward; K1-K3 never run on MoE
+    want = {k.__name__: 0 for k in kernels}
+    want.update(flash_fwd=2 * L, flash_bwd_dkv=L, flash_bwd_dq=L)
+    base = train(torch, card, seed, cfg, default_optimizer(warmup_steps=2),
+                 kernels, want, "moe default")
+    want["adamw_update"] = n_leaves = sum(base["leaf_shapes"].values())
+    fused = train(torch, card, seed, cfg,
+                  fused_adamw_optimizer(warmup_steps=2), kernels, want,
+                  "moe fused-adamw", steps=3, profile=False)
+    a, b = fused["losses"][0], base["losses"][0]
+    log(f"train moe fused-adamw vs default: loss 1 {a:.6f} vs {b:.6f} (rel "
+        f"{abs(a - b) / abs(b):.3g}, limit {SAME_LOSS_RTOL}); adamw_update "
+        f"{n_leaves} launches a step, one a leaf")
+    if not abs(a - b) <= SAME_LOSS_RTOL * abs(b):
+        fail(f"MoE fused-adamw loss 1 {a} differs from the default's {b}")
+
+
+def remat_modes(torch, card: str, seed: int, cfg, label: str) -> None:
+    """Phase 10f: one forward and backward of `loss_fn` in each remat mode
+    on the same params and batch: loss and grad norm as `none`'s, the
+    flash forward at n_layers launches without remat and 2·n_layers with
+    it, peak memory in the modes' order; each mode's peak GiB and ms (a
+    second, timed run)."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import init_params
+    from ray_tpu_torch.models.transformer import loss_fn, tree_leaves
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+    from ray_tpu_torch.train.step import global_norm
+
+    t0 = time.perf_counter()
+    L = cfg.n_layers
+    params = init_params(cfg, seed=seed, device="cuda")
+    leaves = list(tree_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    batch = bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1, "cuda")
+    kernels = (*fa.KERNELS, *ff.KERNELS)
+    k3 = L if cfg.fused_ffn else 0  # the default fused-FFN block runs K3
+
+    def run(mcfg):
+        loss, aux = loss_fn(params, batch, mcfg)
+        # what the forward left for the backward (allocator bookkeeping on
+        # the host: no wait)
+        saved = torch.cuda.memory_allocated() - held
+        grads = torch.autograd.grad(loss, leaves)
+        return (loss.detach(), aux["moe_aux"].detach(),
+                global_norm(dict(enumerate(grads))), saved / 2 ** 30)
+
+    rows = {}
+    for mode in REMAT_MODES:
+        mcfg = dataclasses.replace(cfg, remat=mode)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        loss, aux, gnorm, saved = run(mcfg)
+        torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t1 = time.perf_counter()
+        run(mcfg)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t1)
+        rows[mode] = (float(loss), float(aux), float(gnorm), peak, ms,
+                      saved)
+        log(f"remat {label} {mode}: loss {float(loss):.7f}, moe_aux "
+            f"{float(aux):.6f}, grad_norm {float(gnorm):.7f}, peak "
+            f"{peak:.3f} GiB (params and batch {held / 2 ** 30:.3f}), "
+            f"{saved:.3f} GiB held from the forward for the backward, "
+            f"{ms:.2f} ms a forward and backward, launches {got} [{card}]")
+        want = {k.__name__: 0 for k in kernels}
+        want.update(flash_fwd=L if mode == "none" else 2 * L,
+                    flash_bwd_dkv=L, flash_bwd_dq=L, dw_gateup=k3)
+        if got != want:
+            fail(f"remat {label} {mode} launched {got}; expected {want}")
+    loss0, aux0, gnorm0 = rows["none"][:3]
+    for mode, (loss, aux, gnorm, *_) in rows.items():
+        for what, a, b in (("loss", loss, loss0), ("moe_aux", aux, aux0),
+                           ("grad norm", gnorm, gnorm0)):
+            if not abs(a - b) <= REMAT_RTOL * abs(b):
+                fail(f"remat {label} {mode}: {what} {a} differs from none's "
+                     f"{b}")
+    order = ("none", "dots_plus_attn", "dots", "dots_sans_qkv", "full")
+    same = all(r[:3] == rows["none"][:3] for r in rows.values())
+    log(f"remat {label}: losses and grad norms equal to none's within "
+        f"{REMAT_RTOL} (bit-identical: {same}); phase "
+        f"{time.perf_counter() - t0:.2f} s")
+    # peak memory, and what the forward held for the backward (each mode
+    # keeps a subset of what the one before it keeps)
+    for what, col in (("peak", 3), ("held from the forward", 5)):
+        gib = [rows[m][col] for m in order]
+        log(f"remat {label} {what} GiB: " + " >= ".join(
+            f"{m} {g:.3f}" for m, g in zip(order, gib))
+            + f" (slack {PEAK_SLACK})")
+        for hi, lo in zip(gib, gib[1:]):
+            if hi < lo * (1 - PEAK_SLACK):
+                fail(f"remat {label}: {what} memory out of order {gib}")
+    del params, leaves, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def f32_summary(rows, card: str) -> None:
     """The redesigned float32 kernels (the flash forward, dk/dv and dq, K3,
     K1 and K2) at each shape their OLD_MS entry has: ms a launch, bound,
@@ -2163,10 +2488,8 @@ def main() -> int:
              f"this checkout")
     from ray_tpu_torch import bench
     from ray_tpu_torch.models import ModelConfig, count_params, init_params
-    from ray_tpu_torch.models.servebench import (measure_decode,
-                                                 measure_prefill,
-                                                 measure_quant_parity,
-                                                 profile_decode)
+    from ray_tpu_torch.models.servebench import (measure_prefill,
+                                                 measure_quant_parity)
     from ray_tpu_torch.ops.kernels import _util
     from ray_tpu_torch.ops.kernels import quant
 
@@ -2260,28 +2583,7 @@ def main() -> int:
         fail(f"w8a16 logits rel err {parity['logits_max_abs_diff_rel']}")
 
     # ---- phase 6: throughput
-    for label, quantize in (("bf16", False), ("w8a16", True)):
-        dec = measure_decode(params, cfg, num_slots=NUM_SLOTS,
-                             max_len=MAX_LEN, quantize_weights=quantize,
-                             device="cuda")
-        torch.cuda.empty_cache()
-        log(f"decode {label}: {dec['decode_tokens_per_s']} tok/s at "
-            f"{NUM_SLOTS} slots, {dec['ms_per_step']} ms/step [{card}]")
-        prof = profile_decode(params, cfg, num_slots=NUM_SLOTS,
-                              max_len=MAX_LEN, quantize_weights=quantize,
-                              device="cuda")
-        torch.cuda.empty_cache()
-        if prof["device_ms_per_step"] > 0:
-            log(f"decode {label} profile: device {prof['device_ms_per_step']}"
-                f" ms/step ({prof['launches_per_step']} kernels/step) in a "
-                f"window of {prof['ms_per_step']} ms/step, device-idle share "
-                f"{prof['device_idle_share']} of that window [{card}]")
-            for row in prof["top"]:
-                log(f"  {row['ms_per_step']:.4f} ms/step "
-                    f"({row['share']:.3f}) {row['name']}")
-        else:
-            log(f"decode {label} profile: the profiler recorded no device "
-                f"time (device-idle share not measured)")
+    decode_rows(torch, params, cfg, card)
     for label, p in (("bf16", params), ("w8a16", qparams)):
         pre = measure_prefill(p, cfg, max_len=MAX_LEN, device="cuda")
         log(f"prefill {label}: {pre['prefill_tokens_per_s']} tok/s "
@@ -2332,6 +2634,16 @@ def main() -> int:
     # ---- phase 10c: the packed flash-attention entry on the model
     entry_launches.update(check_packed_entry_on_model(torch, gen, args.seed,
                                                       train_cfg))
+    # ---- phase 10d: serve Mixtral-8x7B width, 8 layers, bf16 and w8a16
+    serve_moe(torch, card, args.seed)
+    # ---- phase 10e: train Mixtral-8x7B width, 2 layers, remat "dots"
+    train_moe(torch, card, args.seed)
+    # ---- phase 10f: every remat mode on the MoE config and on the dense
+    # 8B width with fused_ffn and a rematerialized attention half
+    remat_modes(torch, card, args.seed,
+                mixtral_config(MOE_TRAIN_LAYERS, MOE_TRAIN_CAPACITY), "moe")
+    remat_modes(torch, card, args.seed,
+                dataclasses.replace(train_cfg, fused_attn=False), "dense")
 
     # ---- phase 11: report
     pallas = "ray_tpu/ops/pallas/"

@@ -20,6 +20,7 @@ from ray_tpu_torch.models.transformer import (ModelConfig, _deq_tree,
                                               lm_head_weights)
 from ray_tpu_torch.ops.layers import (apply_rotary, rms_norm,
                                       rotary_embedding, swiglu)
+from ray_tpu_torch.ops.moe import moe_ffn
 
 _NEG = -1e30
 
@@ -37,8 +38,9 @@ def _project_qkv(cfg: ModelConfig, p, x, cos, sin):
 
 def _mlp(cfg: ModelConfig, p, h):
     if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE serving is not ported yet (ROADMAP.md, queue A: MoE decode)")
+        out, _ = moe_ffn(h, p["router"], p["w_gate"], p["w_up"], p["w_down"],
+                         cfg.capacity_factor)
+        return out
     return swiglu(h @ p["w_gate"], h @ p["w_up"]) @ p["w_down"]
 
 

@@ -14,9 +14,13 @@ The reference's `lax.scan` over layers is a Python loop over
 leaf's per-layer gradients once, in one `[L, ...]` tensor. With
 `fused_ffn` (and `fused_attn`) each layer is the pair of autograd.Functions
 in `ops/kernels/fused_ffn.py` and `fused_attn.py`, whose backwards run the
-flash and K3 kernels. Remat modes `none` and `full`
-(`torch.utils.checkpoint`) are ported; the selective `dots` family, MoE and
-sequence parallelism raise until their ports land (ROADMAP.md queue A).
+flash and K3 kernels. With `n_experts > 0` the FFN is the top-2 MoE of
+`ops/moe.py` and `loss_fn` adds `moe_aux_weight` times the layers' summed
+load-balancing loss. Every remat mode is ported: `full` is
+`torch.utils.checkpoint`, and the selective `dots` family keeps the values
+the reference's policy keeps, named through `ops/remat.py`
+(`maybe_remat`). Sequence parallelism raises until its port lands
+(ROADMAP.md queue A item 7).
 """
 
 from __future__ import annotations
@@ -35,6 +39,9 @@ from ray_tpu_torch.ops.kernels.fused_ffn import ffn_block
 from ray_tpu_torch.ops.kernels.quant import dequantize_int8
 from ray_tpu_torch.ops.layers import (apply_rotary, rms_norm,
                                       rotary_embedding, swiglu)
+from ray_tpu_torch.ops.moe import moe_ffn
+from ray_tpu_torch.ops.remat import (checkpoint_name, named_matmul,
+                                     selective_checkpoint)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,9 +57,8 @@ class ModelConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     # Training-side behaviour, as in the JAX package: remat, the chunked
-    # loss, the fused blocks. Sequence parallelism and MoE raise until
-    # their ports land; the rest are kept so configs compare field for
-    # field.
+    # loss, MoE, the fused blocks. Sequence parallelism raises until its
+    # port lands; the rest are kept so configs compare field for field.
     remat: str = "full"
     loss_chunk: int = 0
     use_ring_attention: bool = False
@@ -220,9 +226,6 @@ def _unported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "sequence parallelism is not ported yet (ROADMAP.md, queue A "
             "item 7)")
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "the MoE FFN is not ported yet (ROADMAP.md, queue A item 7)")
 
 
 def _attn_half(cfg: ModelConfig, x, p, cos, sin):
@@ -233,11 +236,14 @@ def _attn_half(cfg: ModelConfig, x, p, cos, sin):
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     nq_d, nkv_d = cfg.n_heads * hd, cfg.n_kv_heads * hd
     if cfg.fused_proj:
-        qkv = h @ torch.cat([p["wq"], p["wk"], p["wv"]], dim=1)
-        q, k, v = (qkv[..., :nq_d], qkv[..., nq_d:nq_d + nkv_d],
-                   qkv[..., nq_d + nkv_d:])
+        qkv = named_matmul(h, torch.cat([p["wq"], p["wk"], p["wv"]], dim=1),
+                           "qkv")
+        q, k, v = (checkpoint_name(t, n) for t, n in (
+            (qkv[..., :nq_d], "qkv_q"), (qkv[..., nq_d:nq_d + nkv_d], "qkv_k"),
+            (qkv[..., nq_d + nkv_d:], "qkv_v")))
     else:
-        q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
+        q, k, v = (named_matmul(h, p[w], n) for w, n in (
+            ("wq", "qkv_q"), ("wk", "qkv_k"), ("wv", "qkv_v")))
     q = q.reshape(b, s, cfg.n_heads, hd)
     k = k.reshape(b, s, cfg.n_kv_heads, hd)
     v = v.reshape(b, s, cfg.n_kv_heads, hd)
@@ -245,36 +251,77 @@ def _attn_half(cfg: ModelConfig, x, p, cos, sin):
     k = apply_rotary(k, cos, sin)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # [b, heads, s, hd]
     attn = attention(q, k, v, causal=True)
-    attn = attn.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
-    return x + (attn @ p["wo"]).to(x.dtype)
+    attn = checkpoint_name(
+        attn.transpose(1, 2).reshape(b, s, cfg.n_heads * hd), "attn_out")
+    return x + named_matmul(attn, p["wo"], "attn_proj").to(x.dtype)
 
 
 def _layer(cfg: ModelConfig, x, layer_params, cos, sin):
-    """One transformer block; returns (x, moe_aux = 0)."""
+    """One transformer block; returns (x, moe_aux), moe_aux 0 for a dense
+    FFN."""
     x = _attn_half(cfg, x, layer_params, cos, sin)
     p = _deq_tree(layer_params, cfg.dtype)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    if cfg.n_experts > 0:
+        out, aux = moe_ffn(h, p["router"], p["w_gate"], p["w_up"],
+                           p["w_down"], cfg.capacity_factor)
+        return x + out.to(x.dtype), aux
     if cfg.fused_proj:
-        gu = h @ torch.cat([p["w_gate"], p["w_up"]], dim=1)
-        gate, up = gu[..., :cfg.d_ff], gu[..., cfg.d_ff:]
+        gu = named_matmul(h, torch.cat([p["w_gate"], p["w_up"]], dim=1),
+                          "ffn_gate_up")
+        gate = checkpoint_name(gu[..., :cfg.d_ff], "ffn_gate")
+        up = checkpoint_name(gu[..., cfg.d_ff:], "ffn_up")
     else:
-        gate, up = h @ p["w_gate"], h @ p["w_up"]
-    x = x + (swiglu(gate, up) @ p["w_down"]).to(x.dtype)
+        gate = named_matmul(h, p["w_gate"], "ffn_gate")
+        up = named_matmul(h, p["w_up"], "ffn_up")
+    x = x + named_matmul(swiglu(gate, up), p["w_down"], "ffn_down").to(
+        x.dtype)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def maybe_remat(layer_fn, cfg: ModelConfig):
+# The values each selective mode may keep, by their names (`ops/remat.py`):
+# `dots` (the reference's dots_with_no_batch_dims_saveable) every product
+# without batch dimensions, which are the named projections and the MoE
+# router and dispatch products (the per-expert products and the attention
+# einsums have batch dimensions, the combine product is unnamed: it only
+# feeds the residual add); `dots_sans_qkv` the reference's four names;
+# `dots_plus_attn` both policies' union with "attn_out".
+_DOTS = frozenset({"qkv", "qkv_q", "qkv_k", "qkv_v", "attn_proj",
+                   "ffn_gate_up", "ffn_gate", "ffn_up", "ffn_down",
+                   "moe_router", "moe_dispatch"})
+_SAVEABLE = {
+    "dots": _DOTS,
+    "dots_sans_qkv": frozenset({"attn_proj", "ffn_gate", "ffn_up",
+                                "ffn_down"}),
+    "dots_plus_attn": _DOTS | {"attn_out"},
+}
+# JAX keeps a saveable value only where the region's backward reads it
+# (jax.ad_checkpoint.print_saved_residuals on the reference's layer); the
+# port's policy saves the same set. A whole layer's backward reads every
+# named value but ffn_down (it only feeds the residual add); the attention
+# half's (the fused_ffn layer) reads q, k, v and attn_out, not attn_proj.
+# (Under dots_sans_qkv JAX keeps silu(gate) where the port keeps ffn_up,
+# a value of the same shape.)
+_READ_BY_BACKWARD = {
+    "layer": (_DOTS | {"attn_out"}) - {"ffn_down"},
+    "attn": frozenset({"qkv", "qkv_q", "qkv_k", "qkv_v", "attn_out"}),
+}
+
+
+def maybe_remat(layer_fn, cfg: ModelConfig, region: str = "layer"):
     """Wrap a layer body per cfg.remat: "none" keeps every activation,
-    "full" recomputes the body in the backward (torch.utils.checkpoint).
-    The selective modes wait for their port."""
+    "full" recomputes the body in the backward (torch.utils.checkpoint);
+    "dots", "dots_sans_qkv" and "dots_plus_attn" keep the named values
+    `_SAVEABLE[cfg.remat]` that the backward of `region` ("layer" or the
+    attention half, "attn") reads, and recompute the rest. The flash
+    forward is rerun by every recomputing mode, dots_plus_attn included:
+    its backward reads the logsumexp, which no policy names."""
     if cfg.remat == "full":
         return functools.partial(torch.utils.checkpoint.checkpoint, layer_fn,
                                  use_reentrant=False)
-    if cfg.remat in ("dots", "dots_sans_qkv", "dots_plus_attn"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} (selective checkpointing) is not ported "
-            f"yet (ROADMAP.md, queue A item 2); the fused_ffn + fused_attn "
-            f"layer runs without it")
+    if cfg.remat in _SAVEABLE:
+        return selective_checkpoint(
+            layer_fn, _SAVEABLE[cfg.remat] & _READ_BY_BACKWARD[region])
     if cfg.remat != "none":
         raise ValueError(f"unknown remat mode {cfg.remat!r}")
     return layer_fn
@@ -294,6 +341,9 @@ def forward_features_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
 
     if cfg.fused_attn and not cfg.fused_ffn:
         raise ValueError("fused_attn requires fused_ffn")
+    if cfg.fused_ffn and (cfg.n_experts > 0 or cfg.seq_parallel
+                          or cfg.use_ring_attention):
+        raise ValueError("fused_ffn supports the dense, non-sp path only")
     _unported(cfg)
     layers = _unstack(params["layers"])
     if cfg.fused_ffn:
@@ -303,7 +353,8 @@ def forward_features_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
                                   lp["wv"], lp["wo"], cos, sin, cfg.n_heads,
                                   cfg.n_kv_heads, cfg.norm_eps)
         else:
-            attn_fn = maybe_remat(functools.partial(_attn_half, cfg), cfg)
+            attn_fn = maybe_remat(functools.partial(_attn_half, cfg), cfg,
+                                  "attn")
         for lp in layers:
             x = attn_fn(x, lp, cos, sin)
             x = ffn_block(x, lp["mlp_norm"], lp["w_gate"], lp["w_up"],
@@ -403,5 +454,7 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     else:
         logits, moe_aux = forward_with_aux(params, inputs, cfg)
         loss = token_nll(logits, targets, mask)
+    if cfg.n_experts > 0:
+        loss = loss + cfg.moe_aux_weight * moe_aux
     return loss, {"loss": loss, "ntokens": targets.numel(),
                   "moe_aux": moe_aux}

@@ -4,7 +4,9 @@
 `init_fn(seed)` builds a `TrainState` on the device and
 `step_fn(state, batch)` runs the loss, its gradients and one optimizer
 update, returning `(state, metrics)` with the metrics `loss`, `grad_norm` (of
-the unclipped gradients) and `step` (the count before this step).
+the unclipped gradients), `moe_aux` (the layers' summed load-balancing loss,
+which the loss includes times `moe_aux_weight`; 0 for a dense model) and
+`step` (the count before this step).
 
 `default_optimizer` is optax's `clip_by_global_norm(1.0)` followed by
 `adamw(warmup_cosine_decay_schedule(0, lr, warmup, total), b1=0.9,
@@ -203,7 +205,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
         batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
         params = _tree_map(lambda t: t.detach().requires_grad_(True),
                            state.params)
-        loss, _ = loss_fn(params, batch, cfg)
+        loss, aux = loss_fn(params, batch, cfg)
         leaves = list(tree_leaves(params))
         grads = _unflatten(params, iter(torch.autograd.grad(loss, leaves)))
         del params, leaves
@@ -211,7 +213,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
         opt_state = optimizer.apply(grads, state.opt_state, state.params,
                                     grad_norm)
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
-                   "step": state.step}
+                   "moe_aux": aux["moe_aux"].detach(), "step": state.step}
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
     return step, make_init_fn(cfg, optimizer, dev)

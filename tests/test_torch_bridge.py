@@ -49,8 +49,27 @@ def _bits(a):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("quantized", [False, True])
 def test_round_trip_is_bitwise(dtype, quantized):
-    jcfg = dataclasses.replace(JaxConfig.tiny(), dtype=getattr(jnp, dtype))
-    cfg = dataclasses.replace(ModelConfig.tiny(), dtype=getattr(torch, dtype))
+    _round_trip("tiny", dtype, quantized)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_moe_round_trip_is_bitwise(dtype, quantized):
+    """The MoE tree: router [L, d, E] (never quantized), experts
+    [L, E, d, ff] / [L, E, ff, d] (int8 row by row when quantized)."""
+    params = _round_trip("tiny_moe", dtype, quantized)
+    layers = params["layers"]
+    assert tuple(layers["router"].shape) == (2, 128, 4)
+    assert layers["router"].dtype == getattr(torch, dtype)
+    w_down = layers["w_down"]["scale"] if quantized else layers["w_down"]
+    assert tuple(w_down.shape)[:3] == (2, 4, 256)
+
+
+def _round_trip(preset, dtype, quantized):
+    jcfg = dataclasses.replace(getattr(JaxConfig, preset)(),
+                               dtype=getattr(jnp, dtype))
+    cfg = dataclasses.replace(getattr(ModelConfig, preset)(),
+                              dtype=getattr(torch, dtype))
     tree = jax.tree_util.tree_map(
         np.asarray, jax_init_params(jax.random.PRNGKey(3), jcfg))
     if quantized:
@@ -76,6 +95,7 @@ def test_round_trip_is_bitwise(dtype, quantized):
         assert back[name].dtype == a.dtype, name
         np.testing.assert_array_equal(_bits(back[name]), _bits(a),
                                       err_msg=name)
+    return params
 
 
 def test_shape_mismatch_is_refused():

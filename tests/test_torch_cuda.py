@@ -118,7 +118,19 @@ def test_engine_dispatch_never_waits_for_the_device(cuda, monkeypatch,
     torch.cuda.set_sync_debug_mode("error") a hidden stream synchronization,
     such as a copy from pageable host memory, raises. `_to_host`, the one
     intended wait, runs with the check off."""
-    cfg = ModelConfig.tiny()
+    _dispatch_never_waits(cuda, monkeypatch, ModelConfig.tiny(), quantize)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_moe_engine_dispatch_never_waits_for_the_device(cuda, monkeypatch,
+                                                        quantize):
+    """The same on a MoE model: the capacity comes from shapes and the
+    routing stays on the device, so nothing in it waits either."""
+    _dispatch_never_waits(cuda, monkeypatch, ModelConfig.tiny_moe(),
+                          quantize)
+
+
+def _dispatch_never_waits(cuda, monkeypatch, cfg, quantize):
     params = init_params(cfg, seed=0, device=cuda)
     eng = serving.ContinuousBatchingEngine(params, cfg, num_slots=4,
                                            max_len=64,
@@ -1244,3 +1256,142 @@ def test_wgmma_k2_kernel_matches_plain_version(cuda, T, d, dff):
     assert _rel_err(dgate, p_dgate) < REL_TOL
     assert _rel_err(dup, p_dup) < REL_TOL
     assert ff.dgateup.launches == before + 1
+
+
+# ------------------------------------------------ MoE and selective remat
+
+REMAT_MODES = ("none", "full", "dots", "dots_sans_qkv", "dots_plus_attn")
+# tiny_moe widened to head_dim 128, so its attention takes the flash kernels
+TINY_MOE_HD128 = dataclasses.replace(ModelConfig.tiny_moe(), **TINY_HD128)
+# the routing of a CPU run must not sit near a tie (as test_torch_moe.py)
+ROUTER_MARGIN = 1e-4
+
+
+def _router_margin(logits) -> float:
+    p = torch.softmax(logits.double().cpu(), -1).sort(-1, descending=True)[0]
+    return min((p[:, 0] - p[:, 1]).min().item(),
+               (p[:, 1] - p[:, 2]).min().item())
+
+
+def _moe_inputs(device, dtype, B=2, S=64, d=256, E=8, ff=512, seed=59):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((B, S, d)),
+              0.3 * rng.standard_normal((d, E)),
+              *(rng.standard_normal(s) * s[-2] ** -0.5
+                for s in ((E, d, ff), (E, d, ff), (E, ff, d))))
+    return [torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                      dtype=dtype)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_moe_ffn_on_the_card_matches_its_cpu_run(no_tf32, dtype, tol):
+    """moe_ffn (plain PyTorch, no kernel of its own) on the card against
+    the same inputs on the CPU, capacity factor 1.25 (tokens dropped):
+    float32 within 1e-5 of the output's largest magnitude, bfloat16 within
+    1e-2; the aux loss within 1e-5 relative."""
+    from ray_tpu_torch.ops.moe import moe_ffn
+
+    cpu = _moe_inputs("cpu", dtype)
+    x, router = cpu[0], cpu[1]
+    logits = x.float().reshape(-1, x.shape[-1]) @ router.float()
+    assert _router_margin(logits) > ROUTER_MARGIN
+    want, want_aux = moe_ffn(*cpu)
+    got, aux = moe_ffn(*(t.to(no_tf32) for t in cpu))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _rel_err(got.cpu(), want) < tol
+    np.testing.assert_allclose(aux.item(), want_aux.item(), rtol=1e-5)
+
+
+def _moe_loss_and_grads(cfg, params, tokens, device):
+    """(loss, moe_aux, grads on the CPU, flash launches, router logits) of
+    one forward and backward of `loss_fn`."""
+    from ray_tpu_torch.models.transformer import loss_fn, tree_leaves
+    from ray_tpu_torch.ops import moe
+
+    routed = []
+    real = moe.top2_gating
+
+    def recording(logits, capacity):
+        routed.append(logits.detach())
+        return real(logits, capacity)
+
+    moe.top2_gating = recording
+    try:
+        p = {k: ({kk: vv.to(device).requires_grad_(True)
+                  for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(device).requires_grad_(True))
+             for k, v in params.items()}
+        leaves = list(tree_leaves(p))
+        for kern in fa.KERNELS:
+            kern.launches = 0
+        loss, aux = loss_fn(p, {"tokens": tokens.to(device)}, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        launches = {kern.__name__: kern.launches for kern in fa.KERNELS}
+    finally:
+        moe.top2_gating = real
+    return (loss.item(), aux["moe_aux"].item(), [g.cpu() for g in grads],
+            launches, routed)
+
+
+def _tiny_tokens(cfg, seq=128, seed=1):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, seq + 1)).astype(np.int64))
+
+
+def test_tiny_moe_hd128_on_the_card_matches_its_cpu_run(no_tf32):
+    """tiny_moe at head_dim 128 (float32, TF32 off): the flash pair launched
+    n_layers times, the loss and aux within 1e-5 relative and every
+    gradient within 1e-4 of its largest magnitude of the CPU's (einsum
+    attention there)."""
+    cfg = TINY_MOE_HD128
+    params = init_params(cfg, seed=0, device="cpu")
+    tokens = _tiny_tokens(cfg, seed=10)
+    want = _moe_loss_and_grads(cfg, params, tokens, "cpu")
+    assert want[3] == {k.__name__: 0 for k in fa.KERNELS}
+    assert all(_router_margin(lg) > ROUTER_MARGIN for lg in want[4])
+    got = _moe_loss_and_grads(cfg, params, tokens, no_tf32)
+    L = cfg.n_layers
+    assert got[3] == {"flash_fwd": L, "flash_bwd_dkv": L, "flash_bwd_dq": L}
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5)
+    assert got[1] > 1.0
+    for g, w in zip(got[2], want[2]):
+        assert _rel_err(g, w) < 1e-4
+
+
+@pytest.mark.parametrize("name", ["tiny_moe", "fused_ffn"])
+def test_remat_modes_agree_on_the_card(no_tf32, name):
+    """Every remat mode on the card gives the loss and gradients of `none`
+    within 1e-6 relative (the same kernels recompute the same values), and
+    launches the flash forward n_layers times a step without remat and
+    2·n_layers with it (the recompute reruns it: no policy names its
+    logsumexp), the flash backward n_layers times. `fused_ffn`: tiny at
+    head_dim 128 with fused_ffn=True, fused_attn=False, the reference's
+    config that wraps only the attention half."""
+    if name == "tiny_moe":
+        base = TINY_MOE_HD128
+    else:
+        base = dataclasses.replace(ModelConfig.tiny(), fused_ffn=True,
+                                   **TINY_HD128)
+    params = init_params(base, seed=0, device="cpu")
+    tokens = _tiny_tokens(base, seed=10)
+    L = base.n_layers
+    results = {}
+    for mode in REMAT_MODES:
+        cfg = dataclasses.replace(base, remat=mode)
+        results[mode] = _moe_loss_and_grads(cfg, params, tokens, no_tf32)
+        fwd = L if mode == "none" else 2 * L
+        assert results[mode][3] == {"flash_fwd": fwd, "flash_bwd_dkv": L,
+                                    "flash_bwd_dq": L}, mode
+    loss0, aux0, grads0 = results["none"][:3]
+    for mode in REMAT_MODES[1:]:
+        loss, aux, grads = results[mode][:3]
+        np.testing.assert_allclose(loss, loss0, rtol=1e-6, err_msg=mode)
+        np.testing.assert_allclose(aux, aux0, rtol=1e-6, err_msg=mode)
+        for g, g0 in zip(grads, grads0):
+            assert _rel_err(g, g0) <= 1e-6, mode

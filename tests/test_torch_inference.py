@@ -128,9 +128,3 @@ def test_tied_lm_head_matches_reference():
     tq = quantize_model_params(tp, cfg)
     jq = {**jp, "embed": {k: v.numpy() for k, v in tq["embed"].items()}}
     _close(lm_head_weights(tq, cfg), jax_lm_head(jq, jcfg), 0)
-
-
-def test_moe_is_refused_until_ported():
-    cfg = ModelConfig.tiny_moe()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tinf._mlp(cfg, {}, torch.zeros(1, 1, cfg.d_model))

@@ -2,7 +2,9 @@
 ray_tpu/models/serving.py at the tiny float32 config.
 
 Step functions: first/next tokens equal, caches within 1e-5. Engine: every
-scenario yields the same tokens as the JAX engine given the same parameters.
+scenario yields the same tokens as the JAX engine given the same parameters,
+`tiny_moe` ones included (their routing margins asserted as in
+test_torch_moe.py).
 """
 
 import functools
@@ -22,17 +24,21 @@ from ray_tpu_torch.bridge import params_from_jax
 from ray_tpu_torch.models import ModelConfig
 from ray_tpu_torch.models import serving as tsrv
 from ray_tpu_torch.models import servebench
+from ray_tpu_torch.ops import moe as tmoe
+from test_torch_moe import MARGIN, margins
 
 JCFG, CFG = JaxConfig.tiny(), ModelConfig.tiny()
+JCFG_MOE, CFG_MOE = JaxConfig.tiny_moe(), ModelConfig.tiny_moe()
 MAX_LEN = 64
 RNG = np.random.default_rng(5)
 
 
 @functools.lru_cache(maxsize=None)
-def _params():
+def _params(moe=False):
+    jcfg, cfg = (JCFG_MOE, CFG_MOE) if moe else (JCFG, CFG)
     jp = jax.jit(jax_init_params, static_argnums=1)(jax.random.PRNGKey(0),
-                                                    JCFG)
-    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), CFG,
+                                                    jcfg)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), cfg,
                          device="cpu")
     return jp, tp
 
@@ -196,8 +202,18 @@ def _driver(eng):
         eng.stop_driver()
 
 
+def _eight_slots(eng):
+    """Eight requests decoding together: with 4 experts at capacity factor
+    1.25 a decode step's 8 rows fit 2 tokens an expert, so at least half of
+    the 16 top-2 assignments drop, in both packages alike."""
+    rids = [eng.submit([3 * i + 1, 3 * i + 2, 3 * i + 3, i + 40],
+                       max_new_tokens=6) for i in range(8)]
+    eng.run_until_done()
+    return [eng.result(r) for r in rids]
+
+
 SCENARIOS = {
-    # name: (run, engine kwargs)
+    # name: (run, engine kwargs; moe=True serves tiny_moe)
     "single": (_single, dict(num_slots=2)),
     "interleaved": (_interleaved, dict(num_slots=4)),
     "more_than_slots": (_more_than_slots, dict(num_slots=2)),
@@ -206,6 +222,10 @@ SCENARIOS = {
     "stream": (_stream, dict(num_slots=2)),
     "driver": (_driver, dict(num_slots=4)),
     "quantized": (_single, dict(num_slots=2, quantize_weights=True)),
+    "moe_interleaved": (_interleaved, dict(num_slots=4, moe=True)),
+    "moe_eight_slots": (_eight_slots, dict(num_slots=8, moe=True)),
+    "moe_quantized": (_single, dict(num_slots=2, quantize_weights=True,
+                                    moe=True)),
 }
 
 
@@ -220,27 +240,46 @@ def _eos_token():
 
 def _kwargs(name):
     kw = dict(SCENARIOS[name][1], max_len=MAX_LEN)
+    kw.pop("moe", None)
     if name == "eos":
         kw["eos_token"] = _eos_token()
     return kw
 
 
+def _moe(name):
+    return SCENARIOS[name][1].get("moe", False)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_outputs(name):
-    jp, _ = _params()
+    jp, _ = _params(_moe(name))
     return SCENARIOS[name][0](jsrv.ContinuousBatchingEngine(
-        jp, JCFG, **_kwargs(name)))
+        jp, JCFG_MOE if _moe(name) else JCFG, **_kwargs(name)))
 
 
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
-def test_engine_matches_jax_engine(name):
-    _, tp = _params()
-    eng = tsrv.ContinuousBatchingEngine(tp, CFG, device="cpu",
-                                        **_kwargs(name))
+def test_engine_matches_jax_engine(monkeypatch, name):
+    _, tp = _params(_moe(name))
+    routed = []
+    real = tmoe.top2_gating
+
+    def recording(logits, capacity):
+        out = real(logits, capacity)
+        routed.append((logits.detach().clone(), int(out[0].sum())))
+        return out
+
+    monkeypatch.setattr(tmoe, "top2_gating", recording)
+    eng = tsrv.ContinuousBatchingEngine(tp, CFG_MOE if _moe(name) else CFG,
+                                        device="cpu", **_kwargs(name))
     got = SCENARIOS[name][0](eng)
     assert got == _jax_outputs(name)
     if name == "eos":
         assert len(got[0]) == 3 + 2  # stopped at the EOS, which is stripped
+    assert bool(routed) == _moe(name)
+    for logits, _ in routed:
+        assert margins(logits) > MARGIN, "a near tie in the router"
+    if name == "moe_eight_slots":  # decode steps over 8 rows drop tokens
+        assert any(len(lg) == 8 and kept < 16 for lg, kept in routed)
 
 
 def test_engine_validates_prompts():

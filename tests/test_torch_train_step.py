@@ -139,9 +139,9 @@ def test_unported_modes_raise():
     _, cfg = _cfgs(False)
     params = params_from_jax(_jax_params(), cfg, device="cpu")
     batch = {"tokens": torch.from_numpy(_tokens())}
-    for kw, err in ((dict(remat="dots"), NotImplementedError),
-                    (dict(seq_parallel="ring"), NotImplementedError),
-                    (dict(fused_attn=True), ValueError)):
+    for kw, err in ((dict(seq_parallel="ring"), NotImplementedError),
+                    (dict(fused_attn=True), ValueError),
+                    (dict(fused_ffn=True, n_experts=4), ValueError)):
         with pytest.raises(err):
             loss_fn(params, batch, dataclasses.replace(cfg, **kw))
 
