@@ -154,7 +154,36 @@ Phases (any failure exits non-zero and prints no result line):
      leaves for the backward each ordered none >= dots_plus_attn >= dots
      >= dots_sans_qkv >= full within 1%; each mode's GiB and the ms of a
      second, timed run;
- 11. print the kernels line (the float32 kernels as `<name>_f32`), the
+ 11. (run after phase 6, on phase 4's bf16 params, the w8a16 copy freed)
+     HF conversion at llama3_8b full width and depth:
+     params_from_hf_state_dict(state_dict_from_params(p)) equal to p bit
+     for bit on every leaf, and an engine on the converted params giving
+     phase 4's bf16 outputs token for token on requests 0-3; its seconds
+     and peak memory logged;
+ 12. (then, with the 8B weights freed) the servebench runner,
+     `servebench.main(["--full", "--no-latency", "--json", ...])` into
+     build/: b1 in bf16 at max_len 2048, decode at 1/4/8 slots, w8a16 and
+     prefill: rc 0, every required row but latency, the b1 config in
+     bf16 on one card, w8a16 parity < 0.08, the quant kernel at 18
+     launches (two w8a16 loads) and the dequant kernel at a positive
+     multiple of 7·L + 2 (its launches a pass); the rows printed;
+ 13. (after 10f) checkpoint and resume at llama3_8b width with k layers,
+     the most of 8, 4, 2, 1 whose checkpoint takes at most half the free
+     disk: 4 steps straight (losses and the final params kept on the
+     host), then 2 steps, save_checkpoint(step=2) under build/, a restore
+     into an abstract_like state, 2 more steps: losses 1-4 and the final
+     params bit-identical to the straight run under default_optimizer and
+     fused AdamW, the flash kernels and K3 at n_layers launches a step
+     after the restore (AdamW once a leaf under fused AdamW); then
+     latest_checkpoint and gc_checkpoints on that directory (a torn
+     staging dir, a step dir without meta, an older complete save); save
+     and restore seconds and GB/s logged; the directory deleted;
+ 14. print eightb_plan(); `_budget` at the 8-layer config on one card
+     equal to phase 8's live params, grads and optimizer bytes exactly,
+     its total beside phase 9's peak; the phase efficiencies of the
+     8-layer all-kernel step (`planning.measure_phase_eff`) beside the
+     ones the planning module holds;
+ 15. print the kernels line (the float32 kernels as `<name>_f32`), the
      nvidia-smi line, and the result line.
 
 Imports torch and the port only (never jax, never ray_tpu).
@@ -167,6 +196,7 @@ import dataclasses
 import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -913,9 +943,12 @@ def train(torch, card: str, seed: int, cfg, optimizer, kernels, want,
     steps of the training step at Llama-3-8B (or Mixtral-8x7B) width with
     `optimizer`; `want` maps each kernel of `kernels` to its launches per
     step. Returns {"losses", "norms", "launches", "leaf_shapes", "ms_step",
-    "peak_gib"}."""
+    "peak_gib", "state_bytes"}, the last the live state's params,
+    optimizer moments and (as the step hands them to the optimizer) grads,
+    in bytes."""
     from ray_tpu_torch import bench
     from ray_tpu_torch.models import count_params
+    from ray_tpu_torch.models.planning import _tree_bytes
     from ray_tpu_torch.models.transformer import tree_leaves
     from ray_tpu_torch.train import make_train_step
 
@@ -925,9 +958,12 @@ def train(torch, card: str, seed: int, cfg, optimizer, kernels, want,
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    optimizer = GradBytes(optimizer)
     step_fn, init_fn = make_train_step(cfg, optimizer, device="cuda")
     state = init_fn(seed)
     n_params = count_params(state.params)
+    state_bytes = {"params": _tree_bytes(state.params),
+                   "optimizer": _tree_bytes(state.opt_state)}
     leaf_shapes = {}
     for t in tree_leaves(state.params):
         leaf_shapes[tuple(t.shape)] = leaf_shapes.get(tuple(t.shape), 0) + 1
@@ -1005,9 +1041,10 @@ def train(torch, card: str, seed: int, cfg, optimizer, kernels, want,
         f"{1e3 * max(timed):.2f}), {tput['tokens_per_sec']:.1f} tokens/s, "
         f"{mfu} of {PEAK_BF16_OPS_PER_S / 1e12:.0f} TFLOP/s, peak device "
         f"memory {peak_gib:.2f} GiB [{card}]")
+    state_bytes["grads"] = optimizer.nbytes
     result = {"losses": losses, "norms": norms, "launches": launches,
               "leaf_shapes": leaf_shapes, "ms_step": ms_step,
-              "peak_gib": peak_gib}
+              "peak_gib": peak_gib, "state_bytes": state_bytes}
     if not profile:
         del state, step_fn, init_fn, batch, metrics
         gc.collect()
@@ -1039,7 +1076,8 @@ def train(torch, card: str, seed: int, cfg, optimizer, kernels, want,
 def train_both(torch, card: str, seed: int, cfg):
     """Phases 8-10: the default step, then the all-kernel step on the same
     config, seed and batch, held against it. Returns ({kernel: {path:
-    launches over the 8 steps}}, the default step's first loss)."""
+    launches over the 8 steps}}, the default step's run as `train` returns
+    it)."""
     from ray_tpu_torch.ops.kernels import adamw as aw
     from ray_tpu_torch.ops.kernels import flash_attention as fa
     from ray_tpu_torch.ops.kernels import fused_ffn as ff
@@ -1085,7 +1123,7 @@ def train_both(torch, card: str, seed: int, cfg):
     by_path = {k.__name__: {"default": base["launches"][k.__name__],
                             "all-kernel": allk["launches"][k.__name__]}
                for k in kernels}
-    return by_path, base["losses"][0]
+    return by_path, base
 
 
 def bf16_ulps(torch, got, want) -> float:
@@ -2468,6 +2506,319 @@ def ptxas_report(procs) -> None:
                 fail(f"ptxas: {kernel}{inst} spills ({stats})")
 
 
+# Phase 13: the layer counts tried for the checkpointed run, largest first;
+# the first whose larger checkpoint (fused AdamW, 10 B a parameter) takes at
+# most half the free disk runs.
+CKPT_LAYERS = (8, 4, 2, 1)
+CKPT_STEPS, CKPT_AT = 4, 2
+
+
+class GradBytes:
+    """An optimizer that records the bytes of the gradients the training
+    step hands it: the live grads of a step."""
+
+    def __init__(self, optimizer):
+        self.optimizer, self.nbytes = optimizer, None
+
+    def init(self, params):
+        return self.optimizer.init(params)
+
+    def apply(self, grads, state, params, grad_norm=None):
+        from ray_tpu_torch.models.planning import _tree_bytes
+
+        self.nbytes = _tree_bytes(grads)
+        return self.optimizer.apply(grads, state, params, grad_norm)
+
+
+def convert_round_trip(torch, params, cfg, requests, want) -> None:
+    """Phase 11: HF conversion at llama3_8b full width and depth, on phase
+    4's bf16 params: state_dict_from_params, then params_from_hf_state_dict,
+    equal to the params bit for bit on every leaf, and an engine on the
+    converted params giving phase 4's bf16 outputs for requests 0-3 token
+    for token."""
+    from ray_tpu_torch.models.convert import (params_from_hf_state_dict,
+                                              state_dict_from_params)
+    from ray_tpu_torch.models.transformer import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd = state_dict_from_params(params, cfg)
+    torch.cuda.synchronize()
+    t_export = time.perf_counter() - t0
+    sd_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+    n_sd = len(sd)
+    t0 = time.perf_counter()
+    back = params_from_hf_state_dict(sd, cfg, device="cuda")
+    torch.cuda.synchronize()
+    t_import = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"convert: state_dict_from_params {t_export:.2f} s "
+        f"({sd_bytes / 1e9:.2f} GB in {n_sd} tensors), "
+        f"params_from_hf_state_dict {t_import:.2f} s; peak device "
+        f"memory {peak / 2 ** 30:.2f} GiB, {(peak - held) / 2 ** 30:.2f} GiB "
+        f"above the {held / 2 ** 30:.2f} GiB held before")
+    differ = [n for n, (a, b) in enumerate(zip(tree_leaves(params),
+                                               tree_leaves(back),
+                                               strict=True))
+              if a.dtype != b.dtype or a.shape != b.shape
+              or not torch.equal(a, b)]
+    n_leaves = len(list(tree_leaves(params)))
+    log(f"convert: params_from_hf_state_dict(state_dict_from_params(p)) "
+        f"equal to p on {n_leaves - len(differ)} of {n_leaves} leaves, bit "
+        f"for bit")
+    if differ:
+        fail(f"the conversion round trip changed leaves {differ}")
+    eng, rids = serve(torch, back, cfg, requests, False, "bf16 converted")
+    got = [eng.result(r) for r in rids]
+    same = [i for i in range(len(requests)) if got[i] == want[i]]
+    log(f"convert: the engine on the converted params gives phase 4's bf16 "
+        f"outputs token for token on requests {same} of "
+        f"0-{len(requests) - 1} (gate: 0-3)")
+    if not all(i in same for i in range(4)):
+        fail("the engine on the converted params differs from phase 4's "
+             "bf16 outputs on requests 0-3")
+    del eng, back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def servebench_run(torch, card: str) -> None:
+    """Phase 12: the servebench runner's full profile (b1 in bf16, max_len
+    2048): rc 0, every required row but latency, w8a16 parity < 0.08, and
+    the quant kernel at 9 launches a w8a16 load (the parity row's and the
+    w8a16 decode row's), the dequant kernel at 7·L + 2 a pass."""
+    from ray_tpu_torch.models import servebench
+    from ray_tpu_torch.ops.kernels import quant
+
+    out = HERE / "build" / "servebench_b1.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    for k in quant.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    rc = servebench.main(["--full", "--no-latency", "--json", str(out)])
+    sys.stdout.flush()
+    launches = {k.__name__: k.launches for k in quant.KERNELS}
+    if rc != 0:
+        fail(f"servebench --full --no-latency exited {rc}")
+    art = json.loads(out.read_text())
+    missing = [r for r in servebench.REQUIRED_ROWS
+               if r != "latency_under_load" and r not in art]
+    if missing:
+        fail(f"servebench artifact lacks rows {missing}")
+    m = art["model"]
+    if (m["d_model"], m["n_layers"], m["dtype"], m["max_len"],
+            art["backend"], art["n_chips"]) != (2048, 16, "bfloat16", 2048,
+                                                "cuda", 1):
+        fail(f"servebench ran {m}, backend {art['backend']}, "
+             f"{art['n_chips']} chips; expected b1 in bf16 on one card")
+    q = art["w8a16"]
+    per_pass = 7 * m["n_layers"] + 2
+    log(f"servebench b1 [{card}]: " + "; ".join(
+        f"{r['num_slots']} slots {r['decode_tokens_per_s']:.1f} tok/s "
+        f"({r['ms_per_step']:.3f} ms/step)" for r in art["slot_sweep"])
+        + f"; w8a16 {q['decode_tokens_per_s']:.1f} tok/s at 8 slots "
+        f"({q['speedup_vs_unquantized']:.3f}x bf16), parity "
+        f"{q['logits_max_abs_diff_rel']:.5f} (limit 0.08), weight bytes "
+        f"{q['weight_bytes_ratio']:.4f}x, throughput claim validated: "
+        f"{q['weight_traffic_halves_claim']['throughput_claim_validated_on_this_backend']}"
+        f"; prefill {art['prefill']['prefill_tokens_per_s']:.1f} tok/s "
+        f"(4 x 64), {art['prefill']['ms_per_call']:.3f} ms/call; launches "
+        f"{launches}; phase {time.perf_counter() - t0:.2f} s")
+    if not q["logits_max_abs_diff_rel"] < 0.08:
+        fail(f"servebench w8a16 parity {q['logits_max_abs_diff_rel']}")
+    if launches["quantize_int8"] != 18 or not launches["dequantize_int8"] \
+            or launches["dequantize_int8"] % per_pass:
+        fail(f"servebench launched {launches}: expected quant 18 (two w8a16 "
+             f"loads) and dequant a positive multiple of {per_pass}")
+
+
+def checkpoint_resume(torch, card: str, seed: int) -> None:
+    """Phase 13: train llama3_8b width at k layers (the most of CKPT_LAYERS
+    whose checkpoint takes at most half the free disk) 4 steps straight,
+    then 2 steps, save_checkpoint(step=2), restore into an abstract_like
+    state, 2 more steps: losses 1-4 and the final params bit-identical to
+    the straight run, under default_optimizer and fused AdamW; then
+    latest_checkpoint and gc_checkpoints on the real directory."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models.planning import _tree_bytes
+    from ray_tpu_torch.models.transformer import tree_leaves
+    from ray_tpu_torch.ops.kernels import adamw as aw
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+    from ray_tpu_torch.train import (abstract_like, default_optimizer,
+                                     fused_adamw_optimizer, gc_checkpoints,
+                                     latest_checkpoint, load_checkpoint,
+                                     make_init_fn, make_train_step,
+                                     save_checkpoint)
+
+    t_phase = time.perf_counter()
+    root = HERE / "build" / "checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    optimizers = {"default": lambda: default_optimizer(warmup_steps=2),
+                  "fused AdamW": lambda: fused_adamw_optimizer(
+                      warmup_steps=2)}
+    for k in CKPT_LAYERS:
+        cfg = bench.train_config_8b(n_layers=k)
+        nbytes = {name: _tree_bytes(make_init_fn(cfg, make(), "meta")(seed))
+                  for name, make in optimizers.items()}
+        if max(nbytes.values()) <= free / 2:
+            break
+    else:
+        fail(f"no checkpoint of {CKPT_LAYERS} layers fits half of "
+             f"{free / 1e9:.1f} GB free")
+    log(f"checkpoint: {free / 1e9:.1f} GB free under {root.relative_to(HERE)}"
+        f"; llama3_8b width at {k} layers, states of "
+        + ", ".join(f"{n} {b / 1e9:.2f} GB" for n, b in nbytes.items()))
+    batch = bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1, "cuda")
+    L = cfg.n_layers
+    try:
+        for name, make in optimizers.items():
+            step_fn, init_fn = make_train_step(cfg, make(), device="cuda")
+
+            def run(state, n):
+                losses = []
+                for _ in range(n):
+                    state, metrics = step_fn(state, batch)
+                    losses.append(float(metrics["loss"]))
+                return state, losses
+
+            state, straight = run(init_fn(seed), CKPT_STEPS)
+            final = [t.cpu() for t in tree_leaves(state.params)]
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            state, first = run(init_fn(seed), CKPT_AT)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save_checkpoint(state, str(root), step=CKPT_AT,
+                                   meta={"losses": first})
+            save_s = time.perf_counter() - t0
+            on_disk = sum(f.stat().st_size for f in Path(path).rglob("*")
+                          if f.is_file())
+            target = abstract_like(state)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            state, meta = load_checkpoint(latest_checkpoint(str(root)),
+                                          target)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            del target
+            if (meta["step"], state.step, state.opt_state.count) != (
+                    CKPT_AT,) * 3 or meta["losses"] != first:
+                fail(f"checkpoint {name}: restored meta {meta}, step "
+                     f"{state.step}, count {state.opt_state.count}")
+            kernels = (*fa.KERNELS, ff.dw_gateup, aw.adamw_update)
+            for kern in kernels:
+                kern.launches = 0
+            state, more = run(state, CKPT_STEPS - CKPT_AT)
+            launches = {kern.__name__: kern.launches for kern in kernels}
+            n_leaves = len(final)
+            want = {kern.__name__: (CKPT_STEPS - CKPT_AT) * (
+                L if kern is not aw.adamw_update else
+                n_leaves if name == "fused AdamW" else 0)
+                for kern in kernels}
+            differ = [i for i, (a, b) in enumerate(zip(
+                tree_leaves(state.params), final, strict=True))
+                if not torch.equal(a.cpu(), b)]
+            log(f"checkpoint {name} [{card}]: save {save_s:.2f} s "
+                f"({nbytes[name] / save_s / 1e9:.2f} GB/s of state, "
+                f"{on_disk / 1e9:.2f} GB on disk), restore {load_s:.2f} s "
+                f"({nbytes[name] / load_s / 1e9:.2f} GB/s); losses straight "
+                f"{straight}, resumed {first + more}; final params "
+                f"bit-identical on {n_leaves - len(differ)} of {n_leaves} "
+                f"leaves; launches after the restore {launches}")
+            if first + more != straight or differ:
+                fail(f"checkpoint {name}: the resumed run differs from the "
+                     f"straight one (losses {first + more} vs {straight}, "
+                     f"leaves {differ})")
+            if launches != want:
+                fail(f"checkpoint {name}: the resumed steps launched "
+                     f"{launches}; expected {want}")
+            del state, final, step_fn, init_fn
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # the directory contract on the real directory: a torn staging
+            # dir, a step dir without its meta, and an older complete save
+            (root / ".tmp-step_3-1").mkdir()
+            (root / "step_5" / "state").mkdir(parents=True)
+            save_checkpoint({"w": torch.zeros(1)}, str(root), 1)
+            latest = latest_checkpoint(str(root))
+            deleted = sorted(Path(p).name for p in gc_checkpoints(
+                str(root), keep=1))
+            kept = sorted(p.name for p in root.iterdir())
+            log(f"checkpoint {name}: latest {Path(latest).name}, gc keep=1 "
+                f"deleted {deleted}, kept {kept}")
+            if Path(latest).name != f"step_{CKPT_AT}" \
+                    or deleted != [".tmp-step_3-1", "step_1"] \
+                    or kept != [f"step_{CKPT_AT}", "step_5"]:
+                fail(f"checkpoint {name}: latest_checkpoint or "
+                     f"gc_checkpoints broke the step-directory contract")
+            for child in root.iterdir():
+                shutil.rmtree(child)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"checkpoint: phase {time.perf_counter() - t_phase:.2f} s")
+
+
+def plan_phase(torch, card: str, seed: int, cfg, default_run) -> None:
+    """Phase 14: print eightb_plan(); `_budget` at the 8-layer config on one
+    card against the live state of phase 8 (params, grads, optimizer, byte
+    for byte), its total beside phase 9's peak; then the phase efficiencies
+    of the 8-layer all-kernel step (`measure_phase_eff`) beside the ones
+    the planning module holds."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import planning
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+    from ray_tpu_torch.train import default_optimizer, fused_adamw_optimizer
+
+    t0 = time.perf_counter()
+    log(f"plan: eightb_plan() = {json.dumps(planning.eightb_plan())}")
+    b = planning._budget(cfg, default_optimizer(), 1, 1, 1,
+                         TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ)
+    budget = {"params": b["param_bytes"], "grads": b["grad_bytes"],
+              "optimizer": b["optimizer_bytes"]}
+    live = default_run["state_bytes"]
+    log(f"plan: _budget at {cfg.n_layers} layers on one card {budget} "
+        f"bytes; phase 8's live state {live}")
+    if budget != live:
+        fail(f"_budget's state bytes {budget} != the live state's {live}")
+    total = b["per_chip_bytes"]["total"] / 2 ** 30
+    log(f"plan: _budget's total {total:.2f} GiB (state, activations under "
+        f"its dots-remat model, logits) against phase 9's measured peak "
+        f"{default_run['peak_gib']:.2f} GiB: gap "
+        f"{total - default_run['peak_gib']:+.2f} GiB [{card}]")
+    old = ff.USE_K1, ff.USE_K2, ff.USE_K3
+    ff.USE_K1 = ff.USE_K2 = ff.USE_K3 = True
+    try:
+        batch = bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1,
+                                 "cuda")
+        meas = planning.measure_phase_eff(
+            cfg, fused_adamw_optimizer(warmup_steps=2), batch, seed=seed)
+    finally:
+        ff.USE_K1, ff.USE_K2, ff.USE_K3 = old
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"plan: phase efficiencies of the {cfg.n_layers}-layer all-kernel "
+        f"step over {meas['steps']} steps [{card}]: " + ", ".join(
+            f"{p} {meas['ms'][p]:.3f} ms (ideal {meas['ideal_ms'][p]:.3f}, "
+            f"eff {meas['eff'][p]:.4f}; planning.PHASE_EFF "
+            f"{planning.PHASE_EFF[p]})" for p in meas['ms'])
+        + f"; phase {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2545,6 +2896,7 @@ def main() -> int:
     eng, rids = serve(torch, params, cfg, requests, False, "bf16")
     if quant.dequantize_int8.launches:
         fail("the bf16 engine launched the dequant kernel")
+    bf16_out = [eng.result(r) for r in rids]
     agree = teacher_forced_agreement(torch, params, cfg, eng.result(rids[0]),
                                      len(requests[0][0]))
     log(f"serve bf16: teacher-forced agreement of request 0 = {agree:.3f}")
@@ -2592,9 +2944,18 @@ def main() -> int:
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
+    # ---- phase 11: HF conversion of phase 4's params, round trip and
+    # serving
+    del qparams
+    convert_round_trip(torch, params, cfg, requests, bf16_out)
+    # ---- phase 12: the servebench runner at b1
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    servebench_run(torch, card)
+
     # ---- phase 7: training kernels against their plain versions, with
     # the serving weights freed and before the training state exists
-    del params, qparams
     gc.collect()
     torch.cuda.empty_cache()
     log(f"device memory allocated after the serving phases: "
@@ -2623,7 +2984,8 @@ def main() -> int:
 
     # ---- phases 8-10: train llama3_8b width, 8 layers, on the default
     # step and then the all-kernel step; measure both
-    by_path, first_loss = train_both(torch, card, args.seed, train_cfg)
+    by_path, default_run = train_both(torch, card, args.seed, train_cfg)
+    first_loss = default_run["losses"][0]
     # each kernel's launches on the path it was ported for: the default
     # step for the flash kernels and K3, the all-kernel step for the rest
     train_launches = {k: (n["default"] if n["default"] else n["all-kernel"])
@@ -2644,8 +3006,12 @@ def main() -> int:
                 mixtral_config(MOE_TRAIN_LAYERS, MOE_TRAIN_CAPACITY), "moe")
     remat_modes(torch, card, args.seed,
                 dataclasses.replace(train_cfg, fused_attn=False), "dense")
+    # ---- phase 13: checkpoint and resume at 8B width
+    checkpoint_resume(torch, card, args.seed)
+    # ---- phase 14: the 8B plan against phase 8's live state
+    plan_phase(torch, card, args.seed, train_cfg, default_run)
 
-    # ---- phase 11: report
+    # ---- phase 15: report
     pallas = "ray_tpu/ops/pallas/"
     replaces = {"quantize_int8": pallas + "quant.py:19",
                 "dequantize_int8": pallas + "quant.py:27",

@@ -111,10 +111,14 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     """Scaled-normal init from a `torch.Generator` seeded with `seed` on
     `device`, weights stored in cfg.dtype. The scheme is the JAX package's;
     the numbers differ (different generators), so parity tests load the
-    JAX parameters through the bridge instead."""
+    JAX parameters through the bridge instead. On the "meta" device (the
+    counterpart of `jax.eval_shape`) every leaf is an empty meta tensor of
+    its shape and dtype, and nothing is drawn."""
     dev = require_cuda(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":  # a meta generator does not exist
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv, L = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
 
@@ -122,6 +126,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         # float32 draw scaled then cast, as the reference; stacked leaves are
         # drawn one layer at a time so the float32 transient stays small
         out = torch.empty(shape, dtype=cfg.dtype, device=dev)
+        if gen is None:
+            return out
         for part in (out if per_layer else (out,)):
             part.copy_(torch.randn(part.shape, generator=gen, device=dev,
                                    dtype=torch.float32) * std)

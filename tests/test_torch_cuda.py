@@ -1395,3 +1395,102 @@ def test_remat_modes_agree_on_the_card(no_tf32, name):
         np.testing.assert_allclose(aux, aux0, rtol=1e-6, err_msg=mode)
         for g, g0 in zip(grads, grads0):
             assert _rel_err(g, g0) <= 1e-6, mode
+
+
+# ---- convert, servebench and checkpoints on the card (chip_smoke phases
+# 11-13 at tiny sizes)
+
+
+def test_convert_round_trip_serves_the_same_tokens(cuda):
+    """state_dict_from_params then params_from_hf_state_dict on the card
+    gives the params back bit for bit, and an engine on them the same
+    tokens."""
+    from ray_tpu_torch.models.convert import (params_from_hf_state_dict,
+                                              state_dict_from_params)
+    from ray_tpu_torch.models.transformer import tree_leaves
+
+    cfg = dataclasses.replace(ModelConfig.tiny(), dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device=cuda)
+    sd = state_dict_from_params(params, cfg)
+    assert all(t.device.type == "cuda" and t.dtype == torch.bfloat16
+               for t in sd.values())
+    back = params_from_hf_state_dict(sd, cfg, device=cuda)
+    for a, b in zip(tree_leaves(params), tree_leaves(back), strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    outs = []
+    for p in (params, back):
+        eng = serving.ContinuousBatchingEngine(p, cfg, num_slots=2,
+                                               max_len=64, device=cuda)
+        rids = [eng.submit([1, 2, 3, 4], max_new_tokens=8),
+                eng.submit([5, 6, 7], max_new_tokens=8),
+                eng.submit([9, 8], max_new_tokens=5)]
+        eng.run_until_done()
+        outs.append([eng.result(r) for r in rids])
+    assert outs[0] == outs[1]
+
+
+def test_servebench_quick_profile_on_the_card(cuda, tmp_path):
+    """The runner's quick profile: rc 0, the card named, parity < 0.08, the
+    quant kernel at 9 launches a w8a16 load (two loads), the dequant kernel
+    at 7·L + 2 a pass."""
+    import json
+
+    from ray_tpu_torch.models import servebench
+
+    before = [k.launches for k in quant.KERNELS]
+    out = tmp_path / "sb.json"
+    assert servebench.main(["--no-latency", "--json", str(out)]) == 0
+    launches = [k.launches - b for k, b in zip(quant.KERNELS, before)]
+    art = json.loads(out.read_text())
+    assert (art["backend"], art["n_chips"]) == ("cuda", 1)
+    assert art["device_name"] == torch.cuda.get_device_name(cuda)
+    assert art["w8a16"]["logits_max_abs_diff_rel"] < 0.08
+    per_pass = 7 * art["model"]["n_layers"] + 2
+    assert launches[0] == 18
+    assert launches[1] > 0 and launches[1] % per_pass == 0
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["sb.json"]
+
+
+@pytest.mark.parametrize("opt", ["default", "fused"])
+def test_checkpoint_resume_is_bit_identical_on_the_card(cuda, tmp_path,
+                                                        opt):
+    """tiny in bf16 at head_dim 128 through the flash and K3 kernels: 4
+    steps straight against 2, a checkpoint, a restore into an abstract_like
+    state and 2 more; losses, params and moments bit for bit."""
+    from ray_tpu_torch.models.transformer import tree_leaves
+    from ray_tpu_torch.train import (abstract_like, latest_checkpoint,
+                                     load_checkpoint, save_checkpoint)
+
+    cfg = dataclasses.replace(ModelConfig.tiny(), dtype=torch.bfloat16,
+                              fused_ffn=True, fused_attn=True, **TINY_HD128)
+    make = {"default": default_optimizer, "fused": fused_adamw_optimizer}
+    step_fn, init_fn = make_train_step(
+        cfg, make[opt](1e-3, warmup_steps=1), device=cuda)
+    batch = make_batch(cfg, 2, 128, 1, cuda)
+
+    def run(state, n):
+        losses = []
+        for _ in range(n):
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+        return state, losses
+
+    def tensors(state):
+        return [state.params, state.opt_state.mu, state.opt_state.nu]
+
+    straight, want = run(init_fn(0), 4)
+    state, first = run(init_fn(0), 2)
+    save_checkpoint(state, str(tmp_path), step=2)
+    target = abstract_like(state)
+    assert all(t.device.type == "cuda" for t in tree_leaves(target.params))
+    del state
+    resumed, meta = load_checkpoint(latest_checkpoint(str(tmp_path)),
+                                    target)
+    assert meta["step"] == 2 and resumed.opt_state.count == 2
+    fa.flash_fwd.launches = 0
+    resumed, more = run(resumed, 2)
+    assert fa.flash_fwd.launches == 2 * cfg.n_layers
+    assert first + more == want
+    for got, ref in zip(tensors(resumed), tensors(straight)):
+        for a, b in zip(tree_leaves(got), tree_leaves(ref), strict=True):
+            assert torch.equal(a, b)

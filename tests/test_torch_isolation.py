@@ -37,7 +37,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "ray_tpu_torch.ops.kernels.fused_ffn",
                  "ray_tpu_torch.ops.kernels.fused_attn",
                  "ray_tpu_torch.ops.kernels.rmsnorm",
-                 "ray_tpu_torch.ops.kernels.xent"):
+                 "ray_tpu_torch.ops.kernels.xent",
+                 "ray_tpu_torch.models.convert",
+                 "ray_tpu_torch.models.planning",
+                 "ray_tpu_torch.train.checkpointing"):
         assert name in modules
     code = (
         "import importlib, json, sys\n"
@@ -81,7 +84,9 @@ def test_chip_smoke_alone_fails_without_a_result(tmp_path):
 @pytest.mark.parametrize("entry", ["init_params", "params_from_jax",
                                    "engine", "require_cuda",
                                    "make_train_step", "make_init_fn",
-                                   "fused_adamw_optimizer", "bench"])
+                                   "fused_adamw_optimizer", "bench",
+                                   "params_from_hf_state_dict",
+                                   "servebench"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -93,6 +98,8 @@ def test_default_device_raises_without_cuda(entry):
                                      fused_adamw_optimizer, make_init_fn,
                                      make_train_step)
     from ray_tpu_torch import bench
+    from ray_tpu_torch.models import servebench
+    from ray_tpu_torch.models.convert import params_from_hf_state_dict
 
     cfg = ModelConfig.tiny()
     calls = {
@@ -108,6 +115,9 @@ def test_default_device_raises_without_cuda(entry):
         "fused_adamw_optimizer": lambda: make_init_fn(
             cfg, fused_adamw_optimizer())(0),
         "bench": lambda: bench.main([]),
+        "params_from_hf_state_dict": lambda: params_from_hf_state_dict(
+            {}, cfg),
+        "servebench": lambda: servebench.run_servebench(with_latency=False),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
