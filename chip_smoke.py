@@ -180,9 +180,10 @@ Phases (any failure exits non-zero and prints no result line):
      and restore seconds and GB/s logged; the directory deleted;
  14. print eightb_plan(); `_budget` at the 8-layer config on one card
      equal to phase 8's live params, grads and optimizer bytes exactly,
-     its total beside phase 9's peak; the phase efficiencies of the
-     8-layer all-kernel step (`planning.measure_phase_eff`) beside the
-     ones the planning module holds;
+     its total beside phase 9's peak; the phase efficiencies of the real
+     8-layer all-kernel step (`planning.measure_phase_eff`) under each
+     optimizer beside the ones the planning module holds, and the 4-card
+     projection under each;
  15. print the kernels line (the float32 kernels as `<name>_f32`), the
      nvidia-smi line, and the result line.
 
@@ -2776,8 +2777,9 @@ def plan_phase(torch, card: str, seed: int, cfg, default_run) -> None:
     """Phase 14: print eightb_plan(); `_budget` at the 8-layer config on one
     card against the live state of phase 8 (params, grads, optimizer, byte
     for byte), its total beside phase 9's peak; then the phase efficiencies
-    of the 8-layer all-kernel step (`measure_phase_eff`) beside the ones
-    the planning module holds."""
+    of the real 8-layer all-kernel step (`measure_phase_eff`) under each
+    optimizer beside the ones the planning module holds, and the 32-layer
+    4-card projection under each."""
     from ray_tpu_torch import bench
     from ray_tpu_torch.models import planning
     from ray_tpu_torch.ops.kernels import fused_ffn as ff
@@ -2801,22 +2803,39 @@ def plan_phase(torch, card: str, seed: int, cfg, default_run) -> None:
         f"{total - default_run['peak_gib']:+.2f} GiB [{card}]")
     old = ff.USE_K1, ff.USE_K2, ff.USE_K3
     ff.USE_K1 = ff.USE_K2 = ff.USE_K3 = True
+    meas = {}
     try:
         batch = bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1,
                                  "cuda")
-        meas = planning.measure_phase_eff(
-            cfg, fused_adamw_optimizer(warmup_steps=2), batch, seed=seed)
+        for kind, make in (("default", default_optimizer),
+                           ("fused", fused_adamw_optimizer)):
+            meas[kind] = planning.measure_phase_eff(
+                cfg, make(warmup_steps=2), batch, seed=seed)
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         ff.USE_K1, ff.USE_K2, ff.USE_K3 = old
     del batch
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"plan: phase efficiencies of the {cfg.n_layers}-layer all-kernel "
-        f"step over {meas['steps']} steps [{card}]: " + ", ".join(
-            f"{p} {meas['ms'][p]:.3f} ms (ideal {meas['ideal_ms'][p]:.3f}, "
-            f"eff {meas['eff'][p]:.4f}; planning.PHASE_EFF "
-            f"{planning.PHASE_EFF[p]})" for p in meas['ms'])
-        + f"; phase {time.perf_counter() - t0:.2f} s")
+    for kind, m in meas.items():
+        if m["optimizer"] != kind:
+            fail(f"measure_phase_eff took {m['optimizer']} for {kind}")
+        log(f"plan: phase efficiencies of the {cfg.n_layers}-layer "
+            f"all-kernel step under the {kind} optimizer over {m['steps']} "
+            f"steps [{card}]: " + ", ".join(
+                f"{p} {m['ms'][p]:.3f} ms (ideal {m['ideal_ms'][p]:.3f}, "
+                f"eff {m['eff'][p]:.4f}; planning.PHASE_EFF "
+                f"{planning.PHASE_EFF[kind][p]})" for p in m['ms'])
+            + f"; step {sum(m['ms'].values()):.3f} ms")
+    cfg8 = dataclasses.replace(cfg, n_layers=32, max_seq_len=4096)
+    for kind, make in (("default", default_optimizer),
+                       ("fused", fused_adamw_optimizer)):
+        p = planning._budget(cfg8, make(), 4, 4, 1, 4096, 4096)
+        log(f"plan: 32 layers on 4 cards under the {kind} optimizer: "
+            f"step {p['step_s']:.4f} s, projected MFU {p['mfu']:.4f}, "
+            f"{p['per_chip_bytes']['total'] / 2 ** 30:.2f} GiB a card")
+    log(f"plan: phase {time.perf_counter() - t0:.2f} s")
 
 
 def main() -> int:

@@ -7,10 +7,12 @@ bytes come from the meta-device `init_params` and `optimizer.init` (the
 counterpart of the reference's `jax.eval_shape`: no weight is
 materialized); activation bytes follow the reference's model of the
 dots-remat saved set; the throughput projection applies the phase
-efficiencies measured on the card (`measure_phase_eff`, on the 8-layer
-all-kernel step) to the 8B FLOP mix, with the fsdp collectives' time
-modelled from their volume at NVLink's rate. `_budget` does the arithmetic
-for any config and mesh; `eightb_plan` applies it to the 8B plan.
+efficiencies measured on the card (`measure_phase_eff`, on the real
+8-layer all-kernel step under the same optimizer) to the 8B FLOP mix, with
+the fsdp collectives' time modelled from their volume at NVLink's rate.
+`_budget` does the arithmetic for any config, optimizer and mesh;
+`eightb_plan` applies it to the 8B plan under `default_optimizer`, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ from typing import Any, Dict
 
 import torch
 
-from ray_tpu_torch.models.transformer import (ModelConfig, init_params,
-                                              loss_fn)
+from ray_tpu_torch.models.transformer import ModelConfig, init_params
 from ray_tpu_torch.ops.kernels._util import require_cuda, tree_leaves
+from ray_tpu_torch.ops.kernels.adamw import FusedAdamW
 
 GIB = 1 << 30
 
@@ -33,12 +35,24 @@ H100_HBM_BYTES = 80e9
 H100_HBM_BW = 3.35e12
 H100_NVLINK_BW = 450e9
 
-# Achieved fraction of each phase's ideal time, measured by
-# `measure_phase_eff` (chip_smoke.py phase 14) on the 8-layer all-kernel
-# step at llama3_8b width, batch 2 x 2048, 4 steps: forward 50.43 ms,
-# backward 103.20 ms, optimizer 23.88 ms, on an NVIDIA H100 80GB HBM3 at a
-# 700.00 W power limit.
-PHASE_EFF = {"forward": 0.4702, "backward": 0.4595, "optimizer": 0.7688}
+# Achieved fraction of each phase's ideal time, by optimizer, measured by
+# `measure_phase_eff` (chip_smoke.py phase 14) on the real 8-layer
+# all-kernel step at llama3_8b width, batch 2 x 2048, 4 steps, on an
+# NVIDIA H100 80GB HBM3 at a 700.00 W power limit. "default" is
+# `default_optimizer` (eager passes a leaf, one host sync a step): forward
+# 51.099, backward 102.721, optimizer 122.024 ms against 23.712, 47.424 and
+# 15.021 ideal; "fused" is `fused_adamw_optimizer` (one AdamW kernel a
+# leaf): 50.754, 103.142, 23.850 ms against 23.712, 47.424, 18.359.
+PHASE_EFF = {
+    "default": {"forward": 0.4640, "backward": 0.4617, "optimizer": 0.1231},
+    "fused": {"forward": 0.4672, "backward": 0.4598, "optimizer": 0.7698},
+}
+
+
+def _optimizer_kind(optimizer: Any) -> str:
+    """PHASE_EFF's key for `optimizer`: "fused" for `FusedAdamW`, else
+    "default" (the eager update of `default_optimizer`)."""
+    return "fused" if isinstance(optimizer, FusedAdamW) else "default"
 
 
 def _tree_bytes(tree: Any) -> int:
@@ -58,7 +72,8 @@ def _budget(cfg: ModelConfig, optimizer: Any, n_chips: int, fsdp: int,
             tp: int, tokens: int, seq: int) -> Dict[str, Any]:
     """Bytes and projected seconds of `cfg` trained with `optimizer` over
     fsdp x tp = n_chips cards, `tokens` tokens a card a step of `seq`-long
-    sequences. Raises if the sharding does not divide."""
+    sequences, at the phase efficiencies measured under that optimizer.
+    Raises if the sharding does not divide."""
     if fsdp * tp != n_chips:
         raise ValueError(f"fsdp={fsdp} x tp={tp} is not n_chips={n_chips}")
     # tp shards heads/mlp; fsdp shards everything ZeRO-3 style
@@ -89,15 +104,17 @@ def _budget(cfg: ModelConfig, optimizer: Any, n_chips: int, fsdp: int,
     headroom = H100_HBM_BYTES - state_per_chip - act_bytes - logits_bytes
 
     # ---- throughput projection from the measured phase efficiencies
+    kind = _optimizer_kind(optimizer)
+    eff = PHASE_EFF[kind]
     attn_flops_tok = 6 * cfg.n_layers * cfg.d_model * seq
     flops_tok = 6 * n_params + attn_flops_tok
     fwd_ideal = flops_tok / 3 / H100_PEAK_FLOPS     # s/token/card at peak
     bwd_ideal = 2 * flops_tok / 3 / H100_PEAK_FLOPS
     # optimizer: a bandwidth-bound sweep of the card's share of the state
     opt_sweep_bytes = (param_bytes * 2 + opt_bytes * 2 + grad_bytes) / shards
-    step_compute_s = tokens * (fwd_ideal / PHASE_EFF["forward"]
-                               + bwd_ideal / PHASE_EFF["backward"])
-    opt_s = opt_sweep_bytes / H100_HBM_BW / PHASE_EFF["optimizer"]
+    step_compute_s = tokens * (fwd_ideal / eff["forward"]
+                               + bwd_ideal / eff["backward"])
+    opt_s = opt_sweep_bytes / H100_HBM_BW / eff["optimizer"]
     # fsdp collectives per step: all-gather params forward and backward,
     # reduce-scatter grads, 3 param sweeps over NVLink (ZeRO-3), half of it
     # overlapped, and up to 0.3 of the compute hides the rest
@@ -106,6 +123,8 @@ def _budget(cfg: ModelConfig, optimizer: Any, n_chips: int, fsdp: int,
     step_s = step_compute_s + opt_s + max(link_s - 0.3 * step_compute_s, 0)
     tok_s_chip = tokens / step_s
     return {
+        "optimizer": kind,
+        "phase_eff": dict(eff),
         "n_params": n_params,
         "param_bytes": param_bytes,
         "grad_bytes": grad_bytes,
@@ -158,9 +177,11 @@ def eightb_plan(n_chips: int = 4, fsdp: int = 4, tp: int = 1,
         "batch_per_chip_tokens": batch_per_chip_tokens,
         "seq": seq,
         "projection": {
-            "basis": "phase efficiencies measured on an H100 (PHASE_EFF) + "
-                     "the fsdp collectives at NVLink's data-sheet rate",
-            "phase_eff": dict(PHASE_EFF),
+            "basis": "phase efficiencies measured on an H100 under "
+                     "default_optimizer (PHASE_EFF) + the fsdp collectives "
+                     "at NVLink's data-sheet rate",
+            "optimizer": "default_optimizer",
+            "phase_eff": b["phase_eff"],
             "nvlink_param_traffic_gib_per_step": round(
                 b["nvlink_bytes_per_step"] / GIB, 3),
             "step_s": round(b["step_s"], 4),
@@ -180,20 +201,29 @@ def eightb_plan(n_chips: int = 4, fsdp: int = 4, tp: int = 1,
 def measure_phase_eff(cfg: ModelConfig, optimizer: Any,
                       batch: Dict[str, torch.Tensor], *, steps: int = 4,
                       seed: int = 0, device="cuda") -> Dict[str, Any]:
-    """Each phase of the training step timed with CUDA events over `steps`
-    steps after one warm step: the forward (`loss_fn`), the backward
-    (the gradients), and the optimizer (the global norm and the update);
-    the achieved fraction of each phase's ideal time (the FLOPs at
-    H100_PEAK_FLOPS, the update's state sweep at H100_HBM_BW). Needs the
-    card: CUDA events time nothing on the CPU."""
-    from ray_tpu_torch.train.step import (_tree_map, _unflatten, global_norm,
-                                          make_init_fn)
+    """Each phase of the real training step (`make_train_step`'s, under
+    `optimizer`) timed by CUDA events recorded where the step launches it,
+    over `steps` steps after one warm step: the forward, the backward, and
+    the optimizer (the global norm and the update); and the achieved
+    fraction of each phase's ideal time (the FLOPs at H100_PEAK_FLOPS, the
+    update's state sweep at H100_HBM_BW). Needs the card: CUDA events time
+    nothing on the CPU."""
+    from ray_tpu_torch.train.step import make_train_step
 
     dev = require_cuda(device)
     if dev.type != "cuda":
         raise ValueError("measure_phase_eff times the card: pass a CUDA "
                          "device")
-    state = make_init_fn(cfg, optimizer, dev)(seed)
+    marks = []
+
+    def on_phase(name: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    step_fn, init_fn = make_train_step(cfg, optimizer, dev,
+                                       on_phase=on_phase)
+    state = init_fn(seed)
     n_params = sum(t.numel() for t in tree_leaves(state.params))
     param_bytes = _tree_bytes(state.params)
     opt_bytes = _tree_bytes(state.opt_state)
@@ -202,24 +232,13 @@ def measure_phase_eff(cfg: ModelConfig, optimizer: Any,
 
     ms = {"forward": [], "backward": [], "optimizer": []}
     for i in range(steps + 1):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        params = _tree_map(lambda t: t.detach().requires_grad_(True),
-                           state.params)
-        ev[0].record()
-        loss, _ = loss_fn(params, batch, cfg)
-        ev[1].record()
-        leaves = list(tree_leaves(params))
-        grads = _unflatten(params, iter(torch.autograd.grad(loss, leaves)))
-        del params, leaves, loss
-        ev[2].record()
-        state.opt_state = optimizer.apply(grads, state.opt_state,
-                                          state.params, global_norm(grads))
-        ev[3].record()
-        del grads
+        marks.clear()
+        state, _ = step_fn(state, batch)
         torch.cuda.synchronize(dev)
         if i:  # the first step is the warm one
-            for j, phase in enumerate(ms):
-                ms[phase].append(ev[j].elapsed_time(ev[j + 1]))
+            for (phase, a), (_, b) in zip(marks, marks[1:]):
+                ms[phase].append(a.elapsed_time(b))
+    del state
     flops_tok = 6 * n_params + 6 * cfg.n_layers * cfg.d_model * seq
     ideal_ms = {
         "forward": 1e3 * tokens * flops_tok / 3 / H100_PEAK_FLOPS,
@@ -229,4 +248,5 @@ def measure_phase_eff(cfg: ModelConfig, optimizer: Any,
     mean_ms = {k: sum(v) / len(v) for k, v in ms.items()}
     return {"eff": {k: ideal_ms[k] / mean_ms[k] for k in ms},
             "ms": mean_ms, "ideal_ms": ideal_ms, "steps": steps,
-            "tokens": tokens, "n_params": n_params}
+            "tokens": tokens, "n_params": n_params,
+            "optimizer": _optimizer_kind(optimizer)}

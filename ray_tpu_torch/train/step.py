@@ -190,14 +190,19 @@ def make_init_fn(cfg: ModelConfig, optimizer: Optimizer,
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
-                    device="cuda"
+                    device="cuda", *,
+                    on_phase: Optional[Callable[[str], None]] = None
                     ) -> Tuple[Callable[[TrainState, Dict[str, torch.Tensor]],
                                         Tuple[TrainState, Dict[str, Any]]],
                                Callable[[int], TrainState]]:
     """Returns (step_fn, init_fn). step_fn(state, batch) -> (state,
     metrics); the metrics are device tensors. Under `default_optimizer`
     the step waits for the device once, when it reads the global norm to
-    decide on clipping; under `fused_adamw_optimizer` it never waits."""
+    decide on clipping; under `fused_adamw_optimizer` it never waits.
+    `on_phase(name)`, if given, is called on the host as each phase of the
+    step is launched ("forward", "backward", "optimizer": the global norm
+    and the update) and once after the last ("end");
+    `planning.measure_phase_eff` records a CUDA event there."""
     optimizer = optimizer or default_optimizer()
     dev = require_cuda(device)
 
@@ -205,13 +210,21 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
         batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
         params = _tree_map(lambda t: t.detach().requires_grad_(True),
                            state.params)
+        if on_phase:
+            on_phase("forward")
         loss, aux = loss_fn(params, batch, cfg)
+        if on_phase:
+            on_phase("backward")
         leaves = list(tree_leaves(params))
         grads = _unflatten(params, iter(torch.autograd.grad(loss, leaves)))
         del params, leaves
+        if on_phase:
+            on_phase("optimizer")
         grad_norm = global_norm(grads)
         opt_state = optimizer.apply(grads, state.opt_state, state.params,
                                     grad_norm)
+        if on_phase:
+            on_phase("end")
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                    "moe_aux": aux["moe_aux"].detach(), "step": state.step}
         return TrainState(state.params, opt_state, state.step + 1), metrics

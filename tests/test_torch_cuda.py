@@ -11,6 +11,7 @@ installed:
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -1494,3 +1495,23 @@ def test_checkpoint_resume_is_bit_identical_on_the_card(cuda, tmp_path,
     for got, ref in zip(tensors(resumed), tensors(straight)):
         for a, b in zip(tree_leaves(got), tree_leaves(ref), strict=True):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("opt", ["default", "fused"])
+def test_phase_eff_times_the_real_step_on_the_card(cuda, opt):
+    """measure_phase_eff on tiny in bf16 at head_dim 128: each phase of the
+    real step timed on the card, finite and positive, under the optimizer
+    it was given."""
+    from ray_tpu_torch.models.planning import measure_phase_eff
+
+    cfg = dataclasses.replace(ModelConfig.tiny(), dtype=torch.bfloat16,
+                              fused_ffn=True, fused_attn=True, **TINY_HD128)
+    make = {"default": default_optimizer, "fused": fused_adamw_optimizer}
+    m = measure_phase_eff(cfg, make[opt](warmup_steps=1),
+                          make_batch(cfg, 2, 128, 1, cuda), steps=2,
+                          device=cuda)
+    assert m["optimizer"] == opt and m["steps"] == 2
+    assert set(m["ms"]) == {"forward", "backward", "optimizer"}
+    for phase, ms in m["ms"].items():
+        assert math.isfinite(ms) and ms > 0, phase
+        assert 0 < m["eff"][phase] < 1, phase

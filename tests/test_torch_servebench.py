@@ -3,6 +3,7 @@ the JAX package's keys (its committed SERVEBENCH_r16.json), latency aside;
 asking for the latency row raises (its Serve runtime is not ported); and
 `main` writes only the path it is given, never the JAX package's artifact."""
 
+import functools
 import json
 import os
 from pathlib import Path
@@ -29,6 +30,12 @@ def _paths(node, prefix=""):
     return out
 
 
+def _on_the_cpu(mp):
+    """`main` runs on the card; bind its `run_servebench` to the CPU."""
+    mp.setattr(servebench, "run_servebench",
+               functools.partial(servebench.run_servebench, device="cpu"))
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """One quick-profile `main` run on the CPU from an empty directory,
@@ -41,13 +48,11 @@ def run(tmp_path_factory):
     out.parent.mkdir()
     ref_stat = REFERENCE.stat()
     default_existed = os.path.exists(servebench.DEFAULT_ARTIFACT)
-    cwd = os.getcwd()
-    os.chdir(work)
-    try:
-        rc = servebench.main(["--cpu", "--no-latency", "--json", str(out),
+    with pytest.MonkeyPatch.context() as mp:
+        _on_the_cpu(mp)
+        mp.chdir(work)
+        rc = servebench.main(["--no-latency", "--json", str(out),
                               "--baseline", str(base)])
-    finally:
-        os.chdir(cwd)
     return {"rc": rc, "work": work, "out": out, "ref_stat": ref_stat,
             "default_existed": default_existed,
             "art": json.loads(out.read_text())}
@@ -78,6 +83,11 @@ def test_artifact_values_on_the_cpu(run):
     # int8 values and a float32 scale a row, against float32 weights
     assert claim["bytes_claim_validated"] and 0.25 < q["weight_bytes_ratio"] < 0.27
     assert claim["backend"] == "cpu"
+    # the note gives the measured ratio, and no cause the run did not measure
+    if not claim["throughput_claim_validated_on_this_backend"]:
+        assert claim["note"].endswith(
+            f"{q['speedup_vs_unquantized']:.3f}x the unquantized model's "
+            "tokens/s")
     assert (claim["throughput_claim_validated_on_this_backend"]
             == (q["speedup_vs_unquantized"] >= 1.5))
     assert art["prefill"]["batch"] == 4 and art["prefill"]["prompt_len"] == 64
@@ -101,10 +111,11 @@ def test_default_artifact_is_the_ports_own_and_ignored_by_git():
     assert "build/" in (REPO / ".gitignore").read_text().split()
 
 
-def test_latency_row_raises_until_serve_is_ported(tmp_path):
+def test_latency_row_raises_until_serve_is_ported(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         servebench.run_servebench(quick=True, device="cpu")
+    _on_the_cpu(monkeypatch)
     with pytest.raises(NotImplementedError, match="--no-latency"):
-        servebench.main(["--cpu", "--json", str(tmp_path / "x.json")])
+        servebench.main(["--json", str(tmp_path / "x.json")])
     assert not list(tmp_path.iterdir())
 
