@@ -168,7 +168,9 @@ Phases (any failure exits non-zero and prints no result line):
      launches (two w8a16 loads) and the dequant kernel at a positive
      multiple of 7·L + 2 (its launches a pass); the rows printed;
  13. (after 10f) checkpoint and resume at llama3_8b width with k layers,
-     the most of 8, 4, 2, 1 whose checkpoint takes at most half the free
+     the most of 8, 4, 2, 1 whose two checkpoints (default and fused
+     AdamW) fit the write budget of all of chip_smoke's checkpoints (30
+     GiB: 2 layers, 11.90 + 14.87 GB) and each take at most half the free
      disk: 4 steps straight (losses and the final params kept on the
      host), then 2 steps, save_checkpoint(step=2) under build/, a restore
      into an abstract_like state, 2 more steps: losses 1-4 and the final
@@ -184,7 +186,16 @@ Phases (any failure exits non-zero and prints no result line):
      8-layer all-kernel step (`planning.measure_phase_eff`) under each
      optimizer beside the ones the planning module holds, and the 4-card
      projection under each;
- 15. print the kernels line (the float32 kernels as `<name>_f32`), the
+ 15. the sharded step at world 1: `parallel.initialize_group` with NCCL
+     (one rank), `make_mesh(MeshConfig())`, and phase 8's config, seed and
+     batch, 3 steps under each optimizer through `make_train_step(...,
+     mesh=)` (the per-layer gathers, their reduce-scatters, the
+     re-gathers in the backward, the gradient and loss reductions, all
+     NCCL): losses, grad norms and the final params bit-identical to the
+     unsharded step's, and each step launching the flash kernels and K3
+     n_layers times and AdamW once a leaf under fused AdamW (0 under
+     default_optimizer); the process group destroyed;
+ 16. print the kernels line (the float32 kernels as `<name>_f32`), the
      nvidia-smi line, and the result line.
 
 Imports torch and the port only (never jax, never ray_tpu).
@@ -2508,10 +2519,14 @@ def ptxas_report(procs) -> None:
 
 
 # Phase 13: the layer counts tried for the checkpointed run, largest first;
-# the first whose larger checkpoint (fused AdamW, 10 B a parameter) takes at
-# most half the free disk runs.
+# the first whose two checkpoints fit CKPT_WRITE_BUDGET together and whose
+# larger one (fused AdamW, 10 B a parameter) takes at most half the free
+# disk runs. The budget bounds all of chip_smoke's checkpoint writes: a
+# one-card chip machine allows a command 45 GiB of writes, deleted files
+# included, and k = 8 wrote 46.9 GiB (22.36 + 27.96 GB).
 CKPT_LAYERS = (8, 4, 2, 1)
 CKPT_STEPS, CKPT_AT = 4, 2
+CKPT_WRITE_BUDGET = 30 * 2 ** 30
 
 
 class GradBytes:
@@ -2641,7 +2656,8 @@ def servebench_run(torch, card: str) -> None:
 
 def checkpoint_resume(torch, card: str, seed: int) -> None:
     """Phase 13: train llama3_8b width at k layers (the most of CKPT_LAYERS
-    whose checkpoint takes at most half the free disk) 4 steps straight,
+    whose two checkpoints fit CKPT_WRITE_BUDGET and each take at most half
+    the free disk) 4 steps straight,
     then 2 steps, save_checkpoint(step=2), restore into an abstract_like
     state, 2 more steps: losses 1-4 and the final params bit-identical to
     the straight run, under default_optimizer and fused AdamW; then
@@ -2670,16 +2686,20 @@ def checkpoint_resume(torch, card: str, seed: int) -> None:
         cfg = bench.train_config_8b(n_layers=k)
         nbytes = {name: _tree_bytes(make_init_fn(cfg, make(), "meta")(seed))
                   for name, make in optimizers.items()}
-        if max(nbytes.values()) <= free / 2:
+        if (sum(nbytes.values()) <= CKPT_WRITE_BUDGET
+                and max(nbytes.values()) <= free / 2):
             break
     else:
         fail(f"no checkpoint of {CKPT_LAYERS} layers fits half of "
-             f"{free / 1e9:.1f} GB free")
+             f"{free / 1e9:.1f} GB free and the write budget")
     log(f"checkpoint: {free / 1e9:.1f} GB free under {root.relative_to(HERE)}"
         f"; llama3_8b width at {k} layers, states of "
-        + ", ".join(f"{n} {b / 1e9:.2f} GB" for n, b in nbytes.items()))
+        + ", ".join(f"{n} {b / 1e9:.2f} GB" for n, b in nbytes.items())
+        + f" ({sum(nbytes.values()) / 2 ** 30:.2f} GiB together, budget "
+          f"{CKPT_WRITE_BUDGET / 2 ** 30:.0f} GiB)")
     batch = bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1, "cuda")
     L = cfg.n_layers
+    written = 0
     try:
         for name, make in optimizers.items():
             step_fn, init_fn = make_train_step(cfg, make(), device="cuda")
@@ -2705,6 +2725,7 @@ def checkpoint_resume(torch, card: str, seed: int) -> None:
             save_s = time.perf_counter() - t0
             on_disk = sum(f.stat().st_size for f in Path(path).rglob("*")
                           if f.is_file())
+            written += on_disk
             target = abstract_like(state)
             del state
             gc.collect()
@@ -2770,7 +2791,93 @@ def checkpoint_resume(torch, card: str, seed: int) -> None:
                 shutil.rmtree(child)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    log(f"checkpoint: phase {time.perf_counter() - t_phase:.2f} s")
+    log(f"checkpoint: {written / 2 ** 30:.2f} GiB written (budget "
+        f"{CKPT_WRITE_BUDGET / 2 ** 30:.0f} GiB); phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    if written > CKPT_WRITE_BUDGET:
+        fail(f"phase 13 wrote {written} bytes, over its budget")
+
+
+def sharded_world_one(torch, card: str, seed: int, cfg):
+    """Phase 15: the sharded step on a one-rank NCCL mesh against the
+    unsharded step, phase 8's config, seed and batch, 3 steps under each
+    optimizer: losses, grad norms and final params bit-identical, the flash
+    kernels and K3 at n_layers launches a step, AdamW once a leaf under
+    fused AdamW. Returns {kernel: {path: launches over the 3 sharded
+    steps}}."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models.transformer import tree_leaves
+    from ray_tpu_torch.ops.kernels import adamw as aw
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+    from ray_tpu_torch.parallel import (MeshConfig, initialize_group,
+                                        make_mesh, shutdown_group)
+    from ray_tpu_torch.train import (default_optimizer,
+                                     fused_adamw_optimizer, make_train_step,
+                                     to_local)
+
+    t0 = time.perf_counter()
+    L, steps = cfg.n_layers, 3
+    kernels = (*fa.KERNELS, ff.dw_gateup, aw.adamw_update)
+    batch = bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1, "cuda")
+    by_path = {k.__name__: {} for k in kernels}
+    initialize_group(0, 1, device="cuda")
+    try:
+        mesh = make_mesh(MeshConfig())
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        log(f"sharded: process group {dist.get_backend()} of "
+            f"{dist.get_world_size()}, mesh {shape}")
+        if dist.get_backend() != "nccl":
+            fail(f"the mesh's collectives run on {dist.get_backend()}")
+        for name, make in (("default", default_optimizer),
+                           ("fused AdamW", fused_adamw_optimizer)):
+            runs = {}
+            for label, m in (("unsharded", None), ("sharded", mesh)):
+                gc.collect()
+                torch.cuda.empty_cache()
+                step_fn, init_fn = make_train_step(
+                    cfg, make(warmup_steps=2), device="cuda", mesh=m)
+                state = init_fn(seed)
+                metrics, launches = [], []
+                for _ in range(steps):
+                    for k in kernels:  # the main path's counts start here
+                        k.launches = 0
+                    state, met = step_fn(state, batch)
+                    metrics.append((float(met["loss"]),
+                                    float(met["grad_norm"])))
+                    launches.append({k.__name__: k.launches
+                                     for k in kernels})
+                final = [t.cpu() for t in tree_leaves(to_local(
+                    state.params))]
+                runs[label] = (metrics, launches, final)
+                del state, step_fn, init_fn, met
+            (m0, l0, p0), (m1, l1, p1) = runs["unsharded"], runs["sharded"]
+            same = sum(torch.equal(a, b) for a, b in zip(p0, p1, strict=True))
+            n_adamw = len(p0) if name == "fused AdamW" else 0
+            want = {k.__name__: n_adamw if k is aw.adamw_update else L
+                    for k in kernels}
+            log(f"sharded {name} [{card}]: losses and grad norms "
+                f"{m1} (unsharded {m0}); final params bit-identical on "
+                f"{same} of {len(p0)} leaves; launches a step {l1[0]} "
+                f"(unsharded {l0[0]})")
+            if m1 != m0 or same != len(p0):
+                fail(f"sharded {name}: the world-1 sharded step differs "
+                     f"from the unsharded one")
+            if any(x != want for x in l1) or l1 != l0:
+                fail(f"sharded {name}: launches {l1}; expected {want} a "
+                     f"step, as unsharded {l0}")
+            for k in kernels:
+                by_path[k.__name__][f"sharded world 1 ({name})"] = sum(
+                    x[k.__name__] for x in l1)
+            del runs, p0, p1
+    finally:
+        shutdown_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"sharded: phase {time.perf_counter() - t0:.2f} s")
+    return by_path
 
 
 def plan_phase(torch, card: str, seed: int, cfg, default_run) -> None:
@@ -3029,8 +3136,10 @@ def main() -> int:
     checkpoint_resume(torch, card, args.seed)
     # ---- phase 14: the 8B plan against phase 8's live state
     plan_phase(torch, card, args.seed, train_cfg, default_run)
+    # ---- phase 15: the sharded step on a one-rank NCCL mesh
+    sharded_launches = sharded_world_one(torch, card, args.seed, train_cfg)
 
-    # ---- phase 15: report
+    # ---- phase 16: report
     pallas = "ray_tpu/ops/pallas/"
     replaces = {"quantize_int8": pallas + "quant.py:19",
                 "dequantize_int8": pallas + "quant.py:27",
@@ -3106,7 +3215,8 @@ def main() -> int:
         if kname in train_launches:
             kernels[-1]["launches_per_step"] = (train_launches[kname]
                                                 / TRAIN_STEPS)
-            kernels[-1]["launches_by_path"] = by_path[kname]
+            kernels[-1]["launches_by_path"] = {
+                **by_path[kname], **sharded_launches.get(kname, {})}
         if kname in f32_launches:
             kernels[-1]["launches_per_step"] = (f32_launches[kname]
                                                 / F32_TINY_STEPS)

@@ -10,4 +10,5 @@ Entry points take an explicit ``device`` and default to ``"cuda"``; on a
 machine without CUDA they raise rather than fall back to the CPU.
 """
 
-__all__ = ["models", "ops", "train", "bench", "bridge"]
+__all__ = ["models", "ops", "parallel", "train", "bench", "bridge",
+           "multichip"]

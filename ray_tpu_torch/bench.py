@@ -3,9 +3,14 @@ half of bench.py:19-75).
 
     python -m ray_tpu_torch.bench          # one GPU: Llama-3-8B width, 8 layers
     python -m ray_tpu_torch.bench --cpu    # smoke path: `tiny` on the CPU
+    torchrun --nproc-per-node 4 -m ray_tpu_torch.bench --fsdp 4 --n-layers 32
 
-Prints ONE JSON line with the reference's keys: tokens/s, MFU, step time,
-loss and n_params. FLOPs per token are counted as the reference counts them
+Runs over the world, as the reference's bench does (`bench.py:32`): the
+process group from torchrun's environment (a world of 1 when launched
+alone), a `MeshConfig(dp=-1, fsdp=--fsdp)` mesh over it, 2 rows a card of
+the global batch, and the sharded step. Rank 0 prints ONE JSON line with
+the reference's keys: tokens/s a chip, MFU, step time, loss, n_params and
+n_chips (the world size). FLOPs per token are counted as the reference counts them
 (`bench.py:72-74`): 6·n_params plus 6·L·d·seq for causal attention. MFU is
 measured against the H100 SXM's dense bf16 rate (989 TFLOP/s) on the card;
 the CPU smoke path divides by a nominal 1 TFLOP/s, as the reference's CI
@@ -22,6 +27,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -29,7 +35,10 @@ import torch
 
 from ray_tpu_torch.models.transformer import ModelConfig, count_params
 from ray_tpu_torch.ops.kernels._util import require_cuda
-from ray_tpu_torch.train.step import default_optimizer, make_train_step
+from ray_tpu_torch.parallel import (MeshConfig, initialize_group, make_mesh,
+                                    shutdown_group)
+from ray_tpu_torch.train.step import (default_optimizer, make_train_step,
+                                      shard_batch)
 
 PEAK_BF16_FLOPS_H100 = 989e12   # H100 SXM data sheet, dense
 NOMINAL_CPU_FLOPS = 1e12        # the reference's CI smoke-path divisor
@@ -74,14 +83,20 @@ def _sync(device: torch.device) -> None:
 
 def bench_config(cfg: ModelConfig, batch_size: int, seq: int,
                  peak_flops: float, iters: int, device="cuda",
-                 seed: int = 0) -> Dict[str, Any]:
+                 seed: int = 0, mesh=None) -> Dict[str, Any]:
     """One config's train step: the first step (kernel build and load
-    included), one warm step, then `iters` timed steps ending in a sync."""
+    included), one warm step, then `iters` timed steps ending in a sync.
+    With `mesh`, the sharded step on this rank's rows of the global batch
+    of `batch_size` rows; tokens/s and MFU are a chip's."""
     dev = require_cuda(device)
-    step_fn, init_fn = make_train_step(cfg, default_optimizer(), dev)
+    step_fn, init_fn = make_train_step(cfg, default_optimizer(), dev,
+                                       mesh=mesh)
     state = init_fn(seed)
     n_params = count_params(state.params)
     batch = make_batch(cfg, batch_size, seq, seed + 1, dev)
+    n_chips = 1
+    if mesh is not None:
+        batch, n_chips = shard_batch(batch, mesh), mesh.size()
 
     t0 = time.perf_counter()
     state, metrics = step_fn(state, batch)
@@ -94,9 +109,10 @@ def bench_config(cfg: ModelConfig, batch_size: int, seq: int,
         state, metrics = step_fn(state, batch)
     loss = float(metrics["loss"])
     dt = (time.perf_counter() - t0) / iters
-    return {**throughput(cfg, n_params, batch_size, seq, dt, peak_flops),
+    return {**throughput(cfg, n_params, batch_size // n_chips, seq, dt,
+                         peak_flops),
             "step_time_s": dt, "first_step_s": first_step_s, "loss": loss,
-            "n_params": n_params}
+            "n_params": n_params, "n_chips": n_chips}
 
 
 _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
@@ -110,6 +126,8 @@ def _kernel_kind(name: str) -> str:
     if any(k in name for k in _PORT_KERNELS):
         return "port kernels"
     low = name.lower()
+    if "nccl" in low:
+        return "collectives"
     if any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma")):
         return "cuBLAS matmuls"
     if any(k in low for k in ("memcpy", "memset", "copy")):
@@ -164,17 +182,34 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
                     help="smoke path: ModelConfig.tiny on the CPU")
+    ap.add_argument("--fsdp", type=int, default=1,
+                    help="fsdp axis of the mesh (dp takes the rest)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="layers (default: 8 on the card, tiny's on the CPU)")
     args = ap.parse_args(argv)
     if args.cpu:
-        cfg, batch_size, seq = ModelConfig.tiny(), 4, 128
+        cfg, rows, seq = ModelConfig.tiny(), 4, 128
         device, peak, platform = "cpu", NOMINAL_CPU_FLOPS, "cpu"
         kind, iters = "cpu", 3
     else:
         require_cuda("cuda")
-        cfg, batch_size, seq = train_config_8b(), 2, 2048
+        cfg, rows, seq = train_config_8b(), 2, 2048
         device, peak, platform = "cuda", PEAK_BF16_FLOPS_H100, "gpu"
         kind, iters = torch.cuda.get_device_name(0), 10
-    r = bench_config(cfg, batch_size, seq, peak, iters, device=device)
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    import torch.distributed as dist
+
+    own_group = not dist.is_initialized()
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    initialize_group(int(os.environ.get("RANK", "0")), world, device=device)
+    try:
+        mesh = make_mesh(MeshConfig(dp=-1, fsdp=args.fsdp), device=device)
+        r = bench_config(cfg, rows * mesh.size(), seq, peak, iters,
+                         device=device, mesh=mesh)
+    finally:
+        if own_group:
+            shutdown_group()
     result = {
         "metric": "train_tokens_per_sec_per_chip",
         "value": r["tokens_per_sec"],
@@ -182,16 +217,17 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
         "vs_baseline": r["mfu"] / 0.40,
         "mfu": r["mfu"],
         "n_params": r["n_params"],
-        "n_chips": 1,
+        "n_chips": r["n_chips"],
         "platform": platform,
         "device": kind,
-        "batch": batch_size,
+        "batch": rows * r["n_chips"],
         "seq": seq,
         "step_time_s": r["step_time_s"],
         "first_step_s": r["first_step_s"],
         "loss": r["loss"],
     }
-    print(json.dumps(result), flush=True)
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(json.dumps(result), flush=True)
     return result
 
 

@@ -22,9 +22,11 @@ from typing import Any, Dict
 
 import torch
 
-from ray_tpu_torch.models.transformer import ModelConfig, init_params
+from ray_tpu_torch.models.transformer import (ModelConfig, init_params,
+                                              param_logical_axes)
 from ray_tpu_torch.ops.kernels._util import require_cuda, tree_leaves
 from ray_tpu_torch.ops.kernels.adamw import FusedAdamW
+from ray_tpu_torch.parallel.mesh import DEFAULT_RULES
 
 GIB = 1 << 30
 
@@ -68,6 +70,27 @@ def _tree_bytes(tree: Any) -> int:
     return 0
 
 
+def _local_bytes(tree: Any, axes: Any, sizes: Dict[str, int]) -> int:
+    """Bytes of one card's blocks of a parameter-shaped tree under
+    DEFAULT_RULES on a mesh of axis `sizes`: a leaf split over mesh axes
+    holds 1 / their product of its bytes, a replicated leaf (the norms) all
+    of them. Raises where an axis does not divide its dim, as the mesh
+    does."""
+    if isinstance(tree, dict):
+        return sum(_local_bytes(v, axes[k], sizes) for k, v in tree.items())
+    n = tree.numel() * tree.element_size()
+    for dim, part in enumerate(DEFAULT_RULES.spec(axes)):
+        for axis in (part if isinstance(part, tuple) else (part,)):
+            if axis is None or sizes.get(axis, 1) == 1:
+                continue
+            if tree.shape[dim] % sizes[axis]:
+                raise ValueError(f"{axis}={sizes[axis]} does not divide "
+                                 f"dim {dim} of a leaf of shape "
+                                 f"{tuple(tree.shape)}")
+            n //= sizes[axis]
+    return n
+
+
 def _budget(cfg: ModelConfig, optimizer: Any, n_chips: int, fsdp: int,
             tp: int, tokens: int, seq: int) -> Dict[str, Any]:
     """Bytes and projected seconds of `cfg` trained with `optimizer` over
@@ -90,6 +113,14 @@ def _budget(cfg: ModelConfig, optimizer: Any, n_chips: int, fsdp: int,
     grad_bytes = param_bytes                    # grads in the param dtype
     shards = fsdp * tp
     state_per_chip = (param_bytes + opt_bytes + grad_bytes) / shards
+    # the same state as a card of the sharded step holds it: its blocks
+    # under DEFAULT_RULES, the norms whole (the reference's model above
+    # divides every leaf by the shards)
+    axes, sizes = param_logical_axes(cfg), {"fsdp": fsdp, "tp": tp}
+    local = {"params": _local_bytes(p_shape, axes, sizes),
+             "optimizer": sum(_local_bytes(getattr(o_shape, m), axes, sizes)
+                              for m in ("mu", "nu"))}
+    local["grads"] = local["params"]
 
     # Activations under dots remat, per layer, per card: the saved set is
     # the dot outputs (qkv 2d as an upper bound at GQA, attn out d, attn
@@ -138,6 +169,7 @@ def _budget(cfg: ModelConfig, optimizer: Any, n_chips: int, fsdp: int,
             "total": state_per_chip + act_bytes + logits_bytes,
             "headroom": headroom,
         },
+        "local_bytes": local,
         "flops_per_token": flops_tok,
         "nvlink_bytes_per_step": link_bytes,
         "step_s": step_s,

@@ -20,14 +20,20 @@ load-balancing loss. Every remat mode is ported: `full` is
 `torch.utils.checkpoint`, and the selective `dots` family keeps the values
 the reference's policy keeps, named through `ops/remat.py`
 (`maybe_remat`). Sequence parallelism raises until its port lands
-(ROADMAP.md queue A item 7).
+(ROADMAP.md queue A item 7, tp with sp).
+
+Sharded over a mesh, the parameters are each rank's blocks of the leaves
+(`param_logical_axes` names their axes), and the forward takes a `gather`
+callable (`parallel.fsdp.FSDP.gather`): each leaf is passed through it,
+by its path ("embed", "layers/wq"), just before it is used, a stacked leaf
+one layer's slice at a time, so the full weights exist one layer at a time.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -106,14 +112,57 @@ class ModelConfig:
 # ---------------------------------------------------------------- params
 
 
-def init_params(cfg: ModelConfig, seed: int = 0,
-                device="cuda") -> Dict[str, Any]:
+def param_logical_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axes per parameter leaf (layer-stacked leaves lead with
+    'layers', which is never mesh-sharded)."""
+    layers: Dict[str, Any] = {
+        "attn_norm": ("layers", "embed_nosplit"),
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "heads"),
+        "wv": ("layers", "embed", "heads"),
+        "wo": ("layers", "heads", "embed"),
+        "mlp_norm": ("layers", "embed_nosplit"),
+    }
+    if cfg.n_experts > 0:
+        layers.update({
+            "router": ("layers", "embed", None),
+            "w_gate": ("layers", "expert", "embed", "mlp"),
+            "w_up": ("layers", "expert", "embed", "mlp"),
+            "w_down": ("layers", "expert", "mlp", "embed"),
+        })
+    else:
+        layers.update({
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        })
+    axes = {
+        "embed": ("vocab", "embed"),
+        "final_norm": ("embed_nosplit",),
+        "layers": layers,
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def _whole(path: str, t: Any) -> Any:
+    """The identity `place` and `gather` of an unsharded model."""
+    return t
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", *,
+                place: Callable[[str, torch.Tensor], Any] = _whole
+                ) -> Dict[str, Any]:
     """Scaled-normal init from a `torch.Generator` seeded with `seed` on
     `device`, weights stored in cfg.dtype. The scheme is the JAX package's;
     the numbers differ (different generators), so parity tests load the
     JAX parameters through the bridge instead. On the "meta" device (the
     counterpart of `jax.eval_shape`) every leaf is an empty meta tensor of
-    its shape and dtype, and nothing is drawn."""
+    its shape and dtype, and nothing is drawn. `place(path, leaf)` is
+    applied to each leaf as soon as it is drawn (a sharded init keeps the
+    rank's block there), so the draws, and the leaves' values, are the
+    same for any `place`."""
     dev = require_cuda(device)
     gen = None
     if dev.type != "meta":  # a meta generator does not exist
@@ -136,35 +185,35 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     def ones(shape):
         return torch.ones(shape, dtype=cfg.dtype, device=dev)
 
-    layers: Dict[str, Any] = {
-        "attn_norm": ones((L, d)),
-        "wq": normal((L, d, nq * hd), d ** -0.5, True),
-        "wk": normal((L, d, nkv * hd), d ** -0.5, True),
-        "wv": normal((L, d, nkv * hd), d ** -0.5, True),
-        "wo": normal((L, nq * hd, d), (nq * hd) ** -0.5, True),
-        "mlp_norm": ones((L, d)),
-    }
+    layers: Dict[str, Any] = {}
+
+    def add(name, leaf):
+        layers[name] = place("layers/" + name, leaf)
+
+    add("attn_norm", ones((L, d)))
+    add("wq", normal((L, d, nq * hd), d ** -0.5, True))
+    add("wk", normal((L, d, nkv * hd), d ** -0.5, True))
+    add("wv", normal((L, d, nkv * hd), d ** -0.5, True))
+    add("wo", normal((L, nq * hd, d), (nq * hd) ** -0.5, True))
+    add("mlp_norm", ones((L, d)))
     if cfg.n_experts > 0:
         E = cfg.n_experts
-        layers.update({
-            "router": normal((L, d, E), 0.02, True),
-            "w_gate": normal((L, E, d, cfg.d_ff), d ** -0.5, True),
-            "w_up": normal((L, E, d, cfg.d_ff), d ** -0.5, True),
-            "w_down": normal((L, E, cfg.d_ff, d), cfg.d_ff ** -0.5, True),
-        })
+        add("router", normal((L, d, E), 0.02, True))
+        add("w_gate", normal((L, E, d, cfg.d_ff), d ** -0.5, True))
+        add("w_up", normal((L, E, d, cfg.d_ff), d ** -0.5, True))
+        add("w_down", normal((L, E, cfg.d_ff, d), cfg.d_ff ** -0.5, True))
     else:
-        layers.update({
-            "w_gate": normal((L, d, cfg.d_ff), d ** -0.5, True),
-            "w_up": normal((L, d, cfg.d_ff), d ** -0.5, True),
-            "w_down": normal((L, cfg.d_ff, d), cfg.d_ff ** -0.5, True),
-        })
+        add("w_gate", normal((L, d, cfg.d_ff), d ** -0.5, True))
+        add("w_up", normal((L, d, cfg.d_ff), d ** -0.5, True))
+        add("w_down", normal((L, cfg.d_ff, d), cfg.d_ff ** -0.5, True))
     params: Dict[str, Any] = {
-        "embed": normal((cfg.vocab_size, d), 0.02),
-        "final_norm": ones((d,)),
+        "embed": place("embed", normal((cfg.vocab_size, d), 0.02)),
+        "final_norm": place("final_norm", ones((d,))),
         "layers": layers,
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab_size), 0.02)
+        params["lm_head"] = place("lm_head",
+                                  normal((d, cfg.vocab_size), 0.02))
     return params
 
 
@@ -204,10 +253,13 @@ def _embed_lookup(emb: Any, tokens: torch.Tensor,
     return emb[tokens].to(dtype)
 
 
-def lm_head_weights(params: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
+def lm_head_weights(params: Dict[str, Any], cfg: ModelConfig,
+                    gather: Callable[[str, Any], Any] = _whole
+                    ) -> torch.Tensor:
     """[d_model, vocab] output-projection weights in activation dtype."""
-    head = (_deq(params["embed"], cfg.dtype).T if cfg.tie_embeddings
-            else _deq(params["lm_head"], cfg.dtype))
+    head = (_deq(gather("embed", params["embed"]), cfg.dtype).T
+            if cfg.tie_embeddings
+            else _deq(gather("lm_head", params["lm_head"]), cfg.dtype))
     return head.to(cfg.dtype)
 
 
@@ -231,7 +283,7 @@ def _unported(cfg: ModelConfig) -> None:
     if cfg.seq_parallel or cfg.use_ring_attention:
         raise NotImplementedError(
             "sequence parallelism is not ported yet (ROADMAP.md, queue A "
-            "item 7)")
+            "item 7: tp with sp, ring and Ulysses attention)")
 
 
 def _attn_half(cfg: ModelConfig, x, p, cos, sin):
@@ -335,12 +387,15 @@ def maybe_remat(layer_fn, cfg: ModelConfig, region: str = "layer"):
 
 def forward_features_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
                               cfg: ModelConfig,
-                              positions: Optional[torch.Tensor] = None):
+                              positions: Optional[torch.Tensor] = None,
+                              gather: Callable[[str, Any], Any] = _whole):
     """tokens [b, s] -> (features [b, s, d] after final norm, moe_aux
-    scalar)."""
+    scalar). `gather(path, leaf)` gives each leaf whole just before its
+    use (a layer's leaves as its loop iteration starts)."""
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed_lookup(params["embed"], tokens, cfg.dtype)  # [b, s, d]
+    x = _embed_lookup(gather("embed", params["embed"]), tokens,
+                      cfg.dtype)  # [b, s, d]
     cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos[None], sin[None]  # add batch dim
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -351,7 +406,11 @@ def forward_features_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
                           or cfg.use_ring_attention):
         raise ValueError("fused_ffn supports the dense, non-sp path only")
     _unported(cfg)
-    layers = _unstack(params["layers"])
+
+    def layers():  # one layer gathered at a time
+        for lp in _unstack(params["layers"]):
+            yield {k: gather("layers/" + k, v) for k, v in lp.items()}
+
     if cfg.fused_ffn:
         if cfg.fused_attn:
             def attn_fn(x, lp, cos, sin):
@@ -361,25 +420,28 @@ def forward_features_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
         else:
             attn_fn = maybe_remat(functools.partial(_attn_half, cfg), cfg,
                                   "attn")
-        for lp in layers:
+        for lp in layers():
             x = attn_fn(x, lp, cos, sin)
             x = ffn_block(x, lp["mlp_norm"], lp["w_gate"], lp["w_up"],
                           lp["w_down"], cfg.norm_eps)
     else:
         layer_fn = maybe_remat(functools.partial(_layer, cfg), cfg)
-        for lp in layers:
+        for lp in layers():
             x, layer_aux = layer_fn(x, lp, cos, sin)
             aux = aux + layer_aux
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, gather("final_norm", params["final_norm"]),
+                 cfg.norm_eps)
     return x, aux
 
 
 def forward_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
                      cfg: ModelConfig,
-                     positions: Optional[torch.Tensor] = None):
+                     positions: Optional[torch.Tensor] = None,
+                     gather: Callable[[str, Any], Any] = _whole):
     """tokens [b, s] -> (logits [b, s, vocab] float32, moe_aux scalar)."""
-    x, aux = forward_features_with_aux(params, tokens, cfg, positions)
-    return (x @ lm_head_weights(params, cfg)).float(), aux
+    x, aux = forward_features_with_aux(params, tokens, cfg, positions,
+                                       gather)
+    return (x @ lm_head_weights(params, cfg, gather)).float(), aux
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
@@ -441,11 +503,13 @@ def chunked_token_nll(x: torch.Tensor, head: torch.Tensor,
 
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig):
+            cfg: ModelConfig, gather: Callable[[str, Any], Any] = _whole):
     """Next-token cross entropy -> (loss, {"loss", "ntokens", "moe_aux"}).
 
     batch: {"tokens": [b, s+1]} (shifted here) or pre-shifted
     {"inputs": [b, s], "targets": [b, s]}; optional {"loss_mask": [b, s]}.
+    `gather` as in `forward_features_with_aux`; the loss is then this
+    batch's mean (the sharded step scales it to the global mean).
     """
     inputs, targets, mask = split_batch(batch)
     if cfg.loss_chunk:
@@ -454,11 +518,13 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                 f"loss_chunk={cfg.loss_chunk} must divide the target length "
                 f"{targets.shape[-1]} (note {{'tokens'}} batches lose one "
                 f"position to the shift)")
-        x, moe_aux = forward_features_with_aux(params, inputs, cfg)
-        loss = chunked_token_nll(x, lm_head_weights(params, cfg), targets,
-                                 mask, cfg.loss_chunk)
+        x, moe_aux = forward_features_with_aux(params, inputs, cfg,
+                                               gather=gather)
+        loss = chunked_token_nll(x, lm_head_weights(params, cfg, gather),
+                                 targets, mask, cfg.loss_chunk)
     else:
-        logits, moe_aux = forward_with_aux(params, inputs, cfg)
+        logits, moe_aux = forward_with_aux(params, inputs, cfg,
+                                           gather=gather)
         loss = token_nll(logits, targets, mask)
     if cfg.n_experts > 0:
         loss = loss + cfg.moe_aux_weight * moe_aux

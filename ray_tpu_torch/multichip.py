@@ -1,0 +1,594 @@
+"""The sharded training step on several cards: the dp/fsdp half of the
+reference's `dryrun_multichip` (__graft_entry__.py:45-109), run on real
+cards at Llama-3-8B widths instead of jitted on a virtual mesh.
+
+    python -m ray_tpu_torch.multichip --chips 4
+    python -m ray_tpu_torch.multichip --chips 4 --cpu    # rehearsal: gloo, tiny
+
+Spawns one rank a card (no torchrun needed; fails with fewer cards than
+asked), each joining NCCL through `parallel.initialize_group`, and runs:
+
+(a) parity: `bench.train_config_8b()` (8 layers), global batch chips x
+    2048, 4 steps of `default_optimizer`, sharded fsdp=chips and dp=chips,
+    against the unsharded step on the same batch (run first, on rank 0's
+    card): step-1 loss within 1e-4 relative, step-1 grad norm within 1%,
+    losses 2-4 within 1e-3; every kernel's launches each step those of the
+    unsharded step (the flash kernels and K3 n_layers times).
+(b) full depth: `ModelConfig.llama3_8b()` at 32 layers on the 8B plan's
+    layout (fsdp=chips, max_seq_len 4096, loss_chunk 512, one 4096-token
+    row a card), 6 steps under `default_optimizer` and then 6 under fused
+    AdamW: finite losses, the last below the first; ms/step (steps 3-6),
+    tokens/s a card, MFU (FLOPs as `bench.flops_per_token`), peak GiB a
+    card, the profiler's collective ms/step over 2 more steps; the state's
+    bytes a card equal `planning._budget`'s `local_bytes`; each beside
+    the plan's projection.
+(c) reshard: the 8-layer state after 2 steps at fsdp=chips saved
+    (`save_checkpoint`, every rank its blocks) and restored onto
+    dp 2 x fsdp chips/2: every leaf bit for bit, on the target mesh; the
+    next step's loss within 1e-6 relative of continuing at fsdp=chips.
+(d) collectives: `all_gather_into_tensor` and `reduce_scatter_tensor` over
+    the fsdp group at the 8B layer shards' sizes, ms a call and GB/s
+    (algorithm: the full tensor's bytes over the time; bus: times
+    (n-1)/n), beside `planning.H100_NVLINK_BW`.
+
+Rank 0 prints each phase's numbers and writes them all as JSON (--json).
+Every check raises, so a failing rank ends the run with a non-zero exit;
+nothing is caught and passed over. With --cpu the same phases run on gloo
+CPU ranks at `tiny` widths: a rehearsal of the control flow, no device
+measurement.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import gc
+import json
+import math
+import shutil
+import socket
+import statistics
+import subprocess
+import time
+from pathlib import Path
+from typing import Any, Dict, List
+
+import torch
+
+from ray_tpu_torch import bench
+from ray_tpu_torch.ops.kernels._util import require_cuda
+
+REPO = Path(__file__).resolve().parents[1]
+PHASES = ("parity", "full_depth", "reshard", "collectives")
+# Parity of the sharded steps with the unsharded one: the same forward
+# (step 1), gradients summed in another order (step-1 norm), then Adam's
+# divide by each gradient's running magnitude (losses 2-4).
+FIRST_LOSS_RTOL, GRAD_NORM_RTOL, LOSS_RTOL = 1e-4, 1e-2, 1e-3
+RESHARD_LOSS_RTOL = 1e-6
+SEED = 0
+# A collective that waits longer than this for a rank fails (the rank 0
+# reference of phase parity runs while the others wait); the whole run
+# longer than RUN_TIMEOUT_S is ended.
+GROUP_TIMEOUT_S, RUN_TIMEOUT_S = 1200.0, 3000.0
+
+
+@dataclasses.dataclass
+class Sizes:
+    """The model and batch of each phase: 8B widths on the card, `tiny`
+    on the CPU rehearsal."""
+    parity_layers: int
+    full_layers: int
+    parity_seq: int
+    full_seq: int
+    loss_chunk: int
+    steps_parity: int = 4
+    steps_full: int = 6
+
+    def cfg(self, cpu: bool, n_layers: int):
+        from ray_tpu_torch.models import ModelConfig
+
+        if cpu:
+            return dataclasses.replace(ModelConfig.tiny(), n_layers=n_layers,
+                                       fused_ffn=True, fused_attn=True,
+                                       remat="dots")
+        return bench.train_config_8b(n_layers=n_layers)
+
+
+GPU_SIZES = Sizes(parity_layers=8, full_layers=32, parity_seq=2048,
+                  full_seq=4096, loss_chunk=512)
+CPU_SIZES = Sizes(parity_layers=2, full_layers=4, parity_seq=32,
+                  full_seq=64, loss_chunk=16)
+
+
+class Rank:
+    """One rank's context: its device, group size, sizes and log."""
+
+    def __init__(self, rank: int, world: int, cpu: bool, seed: int,
+                 ckpt_root: str):
+        import torch.distributed as dist
+
+        self.rank, self.world, self.cpu, self.seed = rank, world, cpu, seed
+        self.dist = dist
+        self.dev = torch.device("cpu") if cpu else torch.device(
+            "cuda", torch.cuda.current_device())
+        self.sizes = CPU_SIZES if cpu else GPU_SIZES
+        self.peak = (bench.NOMINAL_CPU_FLOPS if cpu
+                     else bench.PEAK_BF16_FLOPS_H100)
+        self.ckpt_root = ckpt_root
+
+    def log(self, msg: str) -> None:
+        if self.rank == 0:
+            print(f"multichip: {msg}", flush=True)
+
+    def sync(self) -> None:
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+    def free(self) -> None:
+        gc.collect()
+        if self.dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(self.dev)
+
+    def peak_gib(self) -> float:
+        return (torch.cuda.max_memory_allocated(self.dev) / 2 ** 30
+                if self.dev.type == "cuda" else float("nan"))
+
+    def from_rank0(self, value: Any) -> Any:
+        out = [value]
+        self.dist.broadcast_object_list(out, src=0)
+        return out[0]
+
+    def mesh(self, **kw):
+        from ray_tpu_torch.parallel import MeshConfig, make_mesh
+
+        return make_mesh(MeshConfig(**kw), device=self.dev.type)
+
+
+def _kernels():
+    from ray_tpu_torch.ops.kernels import adamw as aw
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+
+    return (*fa.KERNELS, ff.dw_gateup, aw.adamw_update)
+
+
+def _steps(r: Rank, step_fn, state, batch, n: int):
+    """n steps: each one's loss, grad norm, host ms (ending in a sync) and
+    kernel launches."""
+    rows = []
+    kernels = _kernels()
+    for _ in range(n):
+        for k in kernels:  # the path's counts start here
+            k.launches = 0
+        r.sync()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        r.sync()
+        rows.append({"loss": loss, "grad_norm": norm,
+                     "ms": 1e3 * (time.perf_counter() - t0),
+                     "launches": {k.__name__: k.launches for k in kernels}})
+    return state, rows
+
+
+def _brief(result: Dict[str, Any]) -> str:
+    """A phase's result for the log: the steps as columns (losses, grad
+    norms, ms, the first step's launches)."""
+    out = dict(result)
+    rows = out.pop("steps", None)
+    if rows:
+        out.update(losses=[x["loss"] for x in rows],
+                   grad_norms=[x["grad_norm"] for x in rows],
+                   ms=[round(x["ms"], 2) for x in rows],
+                   launches_a_step=rows[0]["launches"])
+    return json.dumps(out)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def _check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise AssertionError(msg)
+
+
+def parity(r: Rank) -> Dict[str, Any]:
+    from ray_tpu_torch.train import (default_optimizer, make_train_step,
+                                     shard_batch)
+
+    sz = r.sizes
+    cfg = sz.cfg(r.cpu, sz.parity_layers)
+    batch = bench.make_batch(cfg, r.world, sz.parity_seq, r.seed + 1, r.dev)
+    ref = None
+    if r.rank == 0:
+        step_fn, init_fn = make_train_step(
+            cfg, default_optimizer(warmup_steps=2), r.dev)
+        _, ref = _steps(r, step_fn, init_fn(r.seed), batch, sz.steps_parity)
+        ref = {"steps": ref, "peak_gib": r.peak_gib()}
+        del step_fn, init_fn
+    r.free()
+    ref = r.from_rank0(ref)
+    r.log(f"parity: one card, {cfg.n_layers} layers, batch {r.world} x "
+          f"{sz.parity_seq}: " + _brief(ref))
+    out = {"layers": cfg.n_layers, "batch": [r.world, sz.parity_seq],
+           "one_card": ref}
+    L = cfg.n_layers
+    for name, kw in (("fsdp", {"fsdp": r.world}), ("dp", {"dp": r.world})):
+        mesh = r.mesh(**kw)
+        step_fn, init_fn = make_train_step(
+            cfg, default_optimizer(warmup_steps=2), r.dev, mesh=mesh)
+        _, rows = _steps(r, step_fn, init_fn(r.seed),
+                         shard_batch(batch, mesh), sz.steps_parity)
+        out[name] = {"steps": rows, "peak_gib": r.peak_gib()}
+        r.log(f"parity {name}={r.world}: " + _brief(out[name]))
+        want = ref["steps"]
+        _check(_rel(rows[0]["loss"], want[0]["loss"]) <= FIRST_LOSS_RTOL,
+               f"{name}: step-1 loss {rows[0]['loss']} vs {want[0]['loss']}")
+        _check(_rel(rows[0]["grad_norm"], want[0]["grad_norm"])
+               <= GRAD_NORM_RTOL, f"{name}: step-1 grad norm "
+               f"{rows[0]['grad_norm']} vs {want[0]['grad_norm']}")
+        for i in range(1, len(rows)):
+            _check(_rel(rows[i]["loss"], want[i]["loss"]) <= LOSS_RTOL,
+                   f"{name}: loss {i + 1} {rows[i]['loss']} vs "
+                   f"{want[i]['loss']}")
+        for got, one in zip(rows, want):
+            _check(got["launches"] == one["launches"],
+                   f"{name}: launches {got['launches']} vs one card's "
+                   f"{one['launches']}")
+            if not r.cpu:
+                _check(all(got["launches"][k] == L for k in (
+                    "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                    "dw_gateup")), f"{name}: launches {got['launches']}")
+        del step_fn, init_fn, mesh
+        r.free()
+    return out
+
+
+class _GradBytes:
+    """An optimizer that records the bytes of the gradients the step hands
+    it (this rank's blocks)."""
+
+    def __init__(self, optimizer):
+        self.optimizer, self.nbytes = optimizer, None
+
+    def init(self, params):
+        return self.optimizer.init(params)
+
+    def apply(self, grads, state, params, grad_norm=None):
+        from ray_tpu_torch.models.planning import _tree_bytes
+
+        self.nbytes = _tree_bytes(grads)
+        return self.optimizer.apply(grads, state, params, grad_norm)
+
+
+def full_depth(r: Rank) -> Dict[str, Any]:
+    from ray_tpu_torch.models import count_params, planning
+    from ray_tpu_torch.models.planning import _tree_bytes
+    from ray_tpu_torch.models.transformer import tree_leaves
+    from ray_tpu_torch.train import (default_optimizer,
+                                     fused_adamw_optimizer, make_train_step,
+                                     shard_batch, to_local)
+
+    sz = r.sizes
+    seq = sz.full_seq
+    cfg = dataclasses.replace(sz.cfg(r.cpu, sz.full_layers),
+                              max_seq_len=seq, loss_chunk=sz.loss_chunk)
+    mesh = r.mesh(fsdp=r.world)
+    batch = shard_batch(bench.make_batch(cfg, r.world, seq, r.seed + 1,
+                                         r.dev), mesh)
+    plan = planning.eightb_plan(n_chips=r.world, fsdp=r.world,
+                                batch_per_chip_tokens=seq, seq=seq)
+    out = {"layers": cfg.n_layers, "seq": seq, "mesh": {"fsdp": r.world},
+           "eightb_plan": plan}
+    for name, make in (("default", default_optimizer),
+                       ("fused", fused_adamw_optimizer)):
+        r.free()
+        optimizer = _GradBytes(make(warmup_steps=2))
+        step_fn, init_fn = make_train_step(cfg, optimizer, r.dev, mesh=mesh)
+        t0 = time.perf_counter()
+        state = init_fn(r.seed)
+        r.sync()
+        init_s = time.perf_counter() - t0
+        n_params = count_params(state.params)
+        live = {"params": _tree_bytes(to_local(state.params)),
+                "optimizer": _tree_bytes(to_local(state.opt_state))}
+        state, rows = _steps(r, step_fn, state, batch, sz.steps_full)
+        live["grads"] = optimizer.nbytes
+        peak = r.peak_gib()
+        budget = planning._budget(cfg, make(), r.world, r.world, 1, seq, seq)
+        ms = statistics.mean(x["ms"] for x in rows[2:])
+        tput = bench.throughput(cfg, n_params, 1, seq, ms / 1e3, r.peak)
+        state, prof = bench.profile_train(step_fn, state, batch, steps=2)
+        res = {"n_params": n_params, "init_s": init_s, "steps": rows,
+               "ms_per_step": ms, "tokens_per_sec_per_card":
+                   tput["tokens_per_sec"], "mfu": tput["mfu"],
+               "peak_gib": peak, "live_bytes": live,
+               "plan_local_bytes": budget["local_bytes"],
+               "plan": {"step_s": budget["step_s"],
+                        "tokens_per_sec_per_chip":
+                            budget["tokens_per_sec_per_chip"],
+                        "mfu": budget["mfu"],
+                        "per_chip_gib": {k: v / 2 ** 30 for k, v in
+                                         budget["per_chip_bytes"].items()}},
+               "profile": prof}
+        out[name] = res
+        r.log(f"full depth {name}: " + _brief(
+            {k: v for k, v in res.items() if k != "profile"}))
+        r.log(f"full depth {name} profile: device "
+              f"{prof['device_ms_per_step']:.2f} ms/step in "
+              f"{prof['ms_per_step']:.2f}, idle share "
+              f"{prof['device_idle_share']:.4f}, by kind "
+              f"{json.dumps(prof['ms_per_step_by_kind'])}")
+        losses = [x["loss"] for x in rows]
+        _check(all(math.isfinite(x) for x in losses)
+               and all(math.isfinite(x["grad_norm"]) for x in rows),
+               f"full depth {name}: losses {losses}")
+        _check(losses[-1] < losses[0],
+               f"full depth {name}: the loss did not fall: {losses}")
+        _check(live == budget["local_bytes"],
+               f"full depth {name}: live bytes {live} vs the plan's "
+               f"{budget['local_bytes']}")
+        n_leaves = len(list(tree_leaves(state.params)))
+        for x in rows:
+            want_adamw = n_leaves if name == "fused" else 0
+            _check(x["launches"]["adamw_update"] == (0 if r.cpu
+                                                     else want_adamw),
+                   f"full depth {name}: launches {x['launches']}")
+            if not r.cpu:
+                _check(all(x["launches"][k] == cfg.n_layers for k in (
+                    "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                    "dw_gateup")), f"full depth {name}: {x['launches']}")
+        del state, step_fn, init_fn, optimizer
+    r.free()
+    return out
+
+
+def reshard(r: Rank) -> Dict[str, Any]:
+    from ray_tpu_torch.parallel.fsdp import tree_paths
+    from ray_tpu_torch.train import (abstract_like, default_optimizer,
+                                     latest_checkpoint, load_checkpoint,
+                                     make_train_step, save_checkpoint,
+                                     shard_batch, state_shardings)
+
+    sz = r.sizes
+    cfg = sz.cfg(r.cpu, sz.parity_layers)
+    src, dst = r.mesh(fsdp=r.world), r.mesh(dp=2, fsdp=r.world // 2)
+    batch = bench.make_batch(cfg, r.world, sz.parity_seq, r.seed + 1, r.dev)
+    step_src, init_src = make_train_step(
+        cfg, default_optimizer(warmup_steps=2), r.dev, mesh=src)
+    step_dst, _ = make_train_step(
+        cfg, default_optimizer(warmup_steps=2), r.dev, mesh=dst)
+    state, _ = _steps(r, step_src, init_src(r.seed), shard_batch(batch, src),
+                      2)
+    root = Path(r.ckpt_root)
+    if r.rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    r.dist.barrier()
+    try:
+        r.sync()
+        t0 = time.perf_counter()
+        path = save_checkpoint(state, str(root), step=2)
+        save_s = time.perf_counter() - t0
+        on_disk = r.from_rank0(sum(f.stat().st_size for f in Path(
+            path).rglob("*") if f.is_file()) if r.rank == 0 else None)
+        target = abstract_like(state, state_shardings(
+            cfg, dst, default_optimizer()))
+        t0 = time.perf_counter()
+        restored, meta = load_checkpoint(latest_checkpoint(str(root)),
+                                         target)
+        r.sync()
+        load_s = time.perf_counter() - t0
+    finally:
+        r.dist.barrier()
+        if r.rank == 0:
+            shutil.rmtree(root, ignore_errors=True)
+    trees = [{"params": s.params, "mu": s.opt_state.mu,
+              "nu": s.opt_state.nu} for s in (state, restored)]
+    differ, off_mesh = [], []
+    for (path, a), (_, b) in zip(tree_paths(trees[0]), tree_paths(trees[1]),
+                                 strict=True):
+        if not torch.equal(a.full_tensor(), b.full_tensor()):
+            differ.append(path)
+        if b.device_mesh is not dst:
+            off_mesh.append(path)
+    _, m_src = step_src(state, shard_batch(batch, src))
+    _, m_dst = step_dst(restored, shard_batch(batch, dst))
+    losses = [float(m_src["loss"]), float(m_dst["loss"])]
+    n_leaves = len(list(tree_paths(trees[0])))
+    out = {"layers": cfg.n_layers, "from": {"fsdp": r.world},
+           "to": {"dp": 2, "fsdp": r.world // 2}, "bytes_on_disk": on_disk,
+           "save_s": save_s, "restore_s": load_s,
+           "leaves": n_leaves, "bit_identical_leaves": n_leaves - len(differ),
+           "next_loss": {"continued": losses[0], "resharded": losses[1]},
+           "meta": meta, "step": restored.step,
+           "count": restored.opt_state.count}
+    r.log("reshard: " + json.dumps(out))
+    _check(not differ, f"reshard: leaves differ after the restore: {differ}")
+    _check(not off_mesh, f"reshard: leaves not on the target mesh: "
+           f"{off_mesh}")
+    _check((restored.step, restored.opt_state.count) == (2, 2),
+           f"reshard: restored step {restored.step}, count "
+           f"{restored.opt_state.count}")
+    _check(_rel(losses[1], losses[0]) <= RESHARD_LOSS_RTOL,
+           f"reshard: next loss {losses[1]} vs {losses[0]}")
+    del state, restored, target, trees
+    r.free()
+    return out
+
+
+def collectives(r: Rank) -> Dict[str, Any]:
+    """The fsdp gather and reduce-scatter at each distinct shard size of
+    the 8B step (bf16), timed by CUDA events over 20 calls after 5."""
+    from ray_tpu_torch.models import ModelConfig, init_params
+    from ray_tpu_torch.models.planning import H100_NVLINK_BW
+    from ray_tpu_torch.parallel.fsdp import FSDP, tree_paths
+    from ray_tpu_torch.train import state_shardings, default_optimizer
+
+    cfg = (dataclasses.replace(ModelConfig.tiny(), dtype=torch.bfloat16)
+           if r.cpu else ModelConfig.llama3_8b())
+    mesh = r.mesh(fsdp=r.world)
+    fsdp = FSDP(mesh, state_shardings(cfg, mesh,
+                                      default_optimizer()).params)
+    n = r.world
+    shapes: Dict[tuple, List[str]] = {}  # a gathered shard (one layer's)
+    for path, t in tree_paths(init_params(cfg, device="meta")):
+        dim = fsdp.dims[path]
+        if dim is not None:
+            shape = list(t.shape[1:] if path.startswith("layers/")
+                         else t.shape)
+            shape[dim] //= n
+            shapes.setdefault(tuple(shape), []).append(path)
+    out = []
+    for shape, paths in sorted(shapes.items()):
+        shard = torch.randn(shape, device=r.dev).to(torch.bfloat16)
+        full = torch.empty((n * shape[0], *shape[1:]), dtype=shard.dtype,
+                           device=r.dev)
+        row = {"leaves": paths, "shard": list(shape),
+               "full_bytes": full.numel() * full.element_size()}
+        for name, fn in (
+                ("all_gather", lambda: r.dist.all_gather_into_tensor(
+                    full, shard, group=fsdp.fsdp_group)),
+                ("reduce_scatter", lambda: r.dist.reduce_scatter_tensor(
+                    shard, full, group=fsdp.fsdp_group))):
+            for _ in range(5):
+                fn()
+            r.sync()
+            if r.cpu:
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    fn()
+                ms = 1e3 * (time.perf_counter() - t0) / 20
+            else:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(20):
+                    fn()
+                b.record()
+                r.sync()
+                ms = a.elapsed_time(b) / 20
+            alg = row["full_bytes"] / (ms / 1e3)
+            row[name] = {"ms": ms, "algbw_gb_s": alg / 1e9,
+                         "busbw_gb_s": alg * (n - 1) / n / 1e9}
+        out.append(row)
+        r.log(f"collectives over fsdp={n}: " + json.dumps(row))
+    return {"rows": out, "H100_NVLINK_BW_gb_s": H100_NVLINK_BW / 1e9}
+
+
+def _smi() -> List[str]:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()
+
+
+def _rank_main(rank: int, world: int, port: int, opts: Dict[str, Any]
+               ) -> None:
+    from ray_tpu_torch.parallel import initialize_group, shutdown_group
+
+    cpu = opts["cpu"]
+    initialize_group(rank, world, device="cpu" if cpu else "cuda",
+                     timeout=GROUP_TIMEOUT_S,
+                     init_method=f"tcp://127.0.0.1:{port}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        r = Rank(rank, world, cpu, SEED, opts["ckpt_root"])
+        if opts["full_layers"]:
+            r.sizes = dataclasses.replace(r.sizes,
+                                          full_layers=opts["full_layers"])
+        results: Dict[str, Any] = {
+            "chips": world, "device": "cpu" if cpu else
+            torch.cuda.get_device_name(r.dev),
+            "nvidia_smi": None if cpu else _smi(),
+            "torch": torch.__version__}
+        r.log(f"{world} ranks on {results['device']}: "
+              f"{results['nvidia_smi']}")
+        for phase in opts["phases"]:
+            t0 = time.perf_counter()
+            results[phase] = globals()[phase](r)
+            results[phase]["seconds"] = time.perf_counter() - t0
+            r.log(f"{phase}: {results[phase]['seconds']:.1f} s")
+        if rank == 0:
+            path = Path(opts["json"])
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(results, indent=1))
+    finally:
+        shutdown_group()
+
+
+def main(argv=None) -> Dict[str, Any]:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--chips", type=int, default=4)
+    ap.add_argument("--cpu", action="store_true",
+                    help="rehearse on gloo CPU ranks at tiny widths")
+    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--json", default=str(REPO / "build" /
+                                          "MULTICHIP_torch.json"))
+    ap.add_argument("--ckpt-root", default=str(REPO / "build" /
+                                               "multichip_ckpt"))
+    ap.add_argument("--full-layers", type=int, default=None,
+                    help="depth of phase full_depth (default 32; fewer to "
+                         "rehearse it on fewer cards)")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        raise ValueError(f"unknown phases {unknown}; choose from {PHASES}")
+    if "reshard" in phases and (args.chips < 2 or args.chips % 2):
+        raise ValueError("phase reshard restores onto dp 2 x fsdp chips/2: "
+                         "--chips must be even")
+    if not args.cpu:
+        require_cuda("cuda")
+        have = torch.cuda.device_count()
+        if have < args.chips:
+            raise RuntimeError(f"--chips {args.chips} but this host has "
+                               f"{have} cards")
+        from ray_tpu_torch.ops.kernels import _util
+
+        # built once here: every rank then loads the same libraries
+        _util.build(["flash_attention", "fused_ffn", "adamw"])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    opts = {"cpu": args.cpu, "phases": phases,
+            "full_layers": args.full_layers, "json": args.json,
+            "ckpt_root": args.ckpt_root}
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(rank, args.chips, port,
+                                                  opts))
+             for rank in range(args.chips)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RUN_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            failed = [p.exitcode for p in procs if p.exitcode]
+            if failed or time.monotonic() > deadline:
+                raise SystemExit(f"multichip: a rank failed (exit codes "
+                                 f"{[p.exitcode for p in procs]}) or the "
+                                 f"run outlasted {RUN_TIMEOUT_S} s")
+            time.sleep(1.0)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise SystemExit(f"multichip: rank exit codes {codes}")
+    results = json.loads(Path(args.json).read_text())
+    print(json.dumps({k: v for k, v in results.items()
+                      if k in ("chips", "device", "nvidia_smi")}),
+          flush=True)
+    return results
+
+
+if __name__ == "__main__":
+    main()

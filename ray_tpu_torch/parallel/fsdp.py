@@ -1,0 +1,220 @@
+"""The collectives of the sharded training step, written out: what XLA
+emits for the reference's dp x fsdp step from its sharding annotations
+(ray_tpu/train/step.py:1-10).
+
+The state is stored as DTensors (the rules' placements, so a checkpoint
+can reshard), and the step computes on their local blocks:
+
+- **fsdp (ZeRO-3).** Each leaf sharded over fsdp is gathered whole just
+  before it is used, one layer at a time (`FSDP.gather`, an autograd
+  Function: `all_gather_into_tensor` over the fsdp group forward, a
+  summing `reduce_scatter_tensor` of its gradient backward). Every kernel
+  then runs unchanged on full per-layer weights and the rank's own rows.
+  A leaf split along a dim other than its first (`wo`, `w_down` per layer,
+  `embed`) is gathered into `[fsdp, ...]` and moved into place, and its
+  gradient moved back before the reduce-scatter, so the layout a
+  checkpoint and the bridge see stays the reference's.
+- **Re-gather in the backward.** The fused blocks save their weights for
+  the backward; saved whole, the forward would hold every layer's gathered
+  weights (16 GB at 8B). Under `FSDP.saved_tensor_hooks` a saved gathered
+  weight (or a view of one) is packed as its shard and gathered again when
+  the backward unpacks it: the plan's "all-gather params forward and
+  backward" (models/planning.py). Inside a checkpointed region (remat
+  modes, the chunked loss) torch's own hooks take over, and the region
+  keeps what it keeps.
+- **Replicated leaves** (the norms: "embed_nosplit" is in no rule) are
+  used as they are; their gradients are summed over fsdp after the
+  backward. **dp**: every gradient is then summed over dp.
+- **Global values.** Each rank's loss is scaled by its share of the
+  global token count (`data_sum`), so the summed gradients are the
+  gradient of the global mean and the summed loss is the global loss; the
+  gradient norm sums each leaf's squares over fsdp, counting a replicated
+  leaf once. Every rank gets the same loss and norm.
+
+All collectives run on torch's current stream, so they stay ordered with
+the kernels (which launch there too); a collective on the card goes
+through NCCL or fails.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+def _fsdp_dim(spec: Sequence[Any]) -> Optional[int]:
+    """The tensor dim a PartitionSpec splits over fsdp, or None."""
+    for dim, part in enumerate(spec):
+        axes = part if isinstance(part, tuple) else (part,)
+        if "fsdp" in axes:
+            return dim
+    return None
+
+
+def _gather(shard: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The full tensor from the fsdp shards, split along `dim`: gathered
+    along dim 0 (the collective's own layout), then, for another dim, the
+    `n` blocks moved into place (a copy)."""
+    out = torch.empty((n * shard.shape[0], *shard.shape[1:]),
+                      dtype=shard.dtype, device=shard.device)
+    _dist().all_gather_into_tensor(out, shard.contiguous(), group=group)
+    if dim == 0:
+        return out
+    return out.unflatten(0, (n, shard.shape[0])).movedim(0, dim).flatten(
+        dim, dim + 1)
+
+
+def _reduce_scatter(grad: torch.Tensor, dim: int, group, n: int
+                    ) -> torch.Tensor:
+    """This rank's block of the sum over fsdp of the full gradient (its
+    blocks moved to dim 0 first when split along another dim)."""
+    if dim:
+        grad = grad.unflatten(dim, (n, grad.shape[dim] // n)).movedim(
+            dim, 0).flatten(0, 1)
+    grad = grad.contiguous()
+    out = torch.empty((grad.shape[0] // n, *grad.shape[1:]),
+                      dtype=grad.dtype, device=grad.device)
+    _dist().reduce_scatter_tensor(out, grad, group=group)
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return _gather(shard, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad, ctx.dim, ctx.group, ctx.n), None, \
+            None, None
+
+
+@dataclasses.dataclass
+class _Regather:
+    """A saved gathered weight, packed: its shard and how to rebuild it."""
+    source: tuple      # (shard, dim, group, n)
+    size: torch.Size
+    stride: tuple
+    offset: int
+
+
+def _pack(t: torch.Tensor) -> Any:
+    root = t if t._base is None else t._base
+    source = getattr(root, "_fsdp_source", None)
+    if source is None:
+        return t
+    return _Regather(source, t.size(), t.stride(), t.storage_offset())
+
+
+def _unpack(x: Any) -> torch.Tensor:
+    if not isinstance(x, _Regather):
+        return x
+    with torch.no_grad():
+        full = _gather(*x.source)
+    return full.as_strided(x.size, x.stride, x.offset)
+
+
+class FSDP:
+    """The collectives of one mesh for a parameter tree of `shardings`
+    (nested dicts of NamedSharding, `param_logical_axes`' structure).
+    Needs tp = sp = pp = 1 and no leaf split over dp."""
+
+    def __init__(self, mesh, shardings: Dict[str, Any]):
+        self.mesh = mesh
+        self.fsdp_group = mesh.get_group("fsdp")
+        self.dp_group = mesh.get_group("dp")
+        self.n_fsdp = mesh.size(mesh.mesh_dim_names.index("fsdp"))
+        self.fsdp_rank = mesh.get_local_rank("fsdp")
+        # the fsdp dim of each leaf by its path ("embed", "layers/wq"); a
+        # stacked leaf's is that of one layer's slice (the gather runs a
+        # layer at a time)
+        self.dims: Dict[str, Optional[int]] = {}
+        self._whole = None  # global_norm's mask of leaves not split
+        for path, sh in tree_paths(shardings):
+            for part in sh.spec:
+                if part is not None and "dp" in (
+                        part if isinstance(part, tuple) else (part,)):
+                    raise NotImplementedError(
+                        f"{path} is split over dp: parameters split over "
+                        f"dp are not ported")
+            dim = _fsdp_dim(sh.spec)
+            if dim is not None and path.startswith("layers/"):
+                if dim == 0:
+                    raise ValueError(f"{path}: the stacked layers dim "
+                                     f"cannot be split over fsdp")
+                dim -= 1
+            self.dims[path] = dim
+
+    def gather(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """The full weight of `path` from this rank's shard `t` (one layer's
+        slice for a stacked leaf); a leaf not split over fsdp as it is."""
+        dim = self.dims[path]
+        if dim is None:
+            return t
+        full = _Gather.apply(t, dim, self.fsdp_group, self.n_fsdp)
+        root = full if full._base is None else full._base
+        root._fsdp_source = (t.detach(), dim, self.fsdp_group, self.n_fsdp)
+        return full
+
+    @contextlib.contextmanager
+    def saved_tensor_hooks(self):
+        """Inside: a gathered weight saved for the backward is kept as its
+        shard and gathered again when the backward reads it."""
+        with torch.autograd.graph.saved_tensors_hooks(_pack, _unpack):
+            yield
+
+    def data_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` summed over the data-parallel ranks (fsdp, then dp), in
+        place."""
+        dist = _dist()
+        dist.all_reduce(x, group=self.fsdp_group)
+        dist.all_reduce(x, group=self.dp_group)
+        return x
+
+    def reduce_grads(self, paths: Sequence[str],
+                     grads: Sequence[torch.Tensor]) -> None:
+        """After the backward, in place: the gradients of leaves not split
+        over fsdp summed over fsdp (each rank saw its own rows), then every
+        gradient summed over dp."""
+        dist = _dist()
+        for path, g in zip(paths, grads, strict=True):
+            if self.dims[path] is None:
+                dist.all_reduce(g, group=self.fsdp_group)
+        for g in grads:
+            dist.all_reduce(g, group=self.dp_group)
+
+    def global_norm(self, paths: Sequence[str],
+                    grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """sqrt of the sum of squares of the global gradient, in float32:
+        each leaf's squares summed over its fsdp shards, a leaf not split
+        over fsdp counted once; the same value on every rank."""
+        sq = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
+                          .square() for g in grads])
+        if self.fsdp_rank != 0:
+            if self._whole is None:  # one copy to the device, then kept
+                self._whole = torch.tensor(
+                    [self.dims[p] is None for p in paths], device=sq.device)
+            sq = sq.masked_fill(self._whole, 0.0)
+        _dist().all_reduce(sq, group=self.fsdp_group)
+        return sq.sum().sqrt()
+
+
+def tree_paths(tree: Dict[str, Any], prefix: str = ""):
+    """(path, leaf) of a tree of nested dicts in sorted-key order (the
+    order of `tree_leaves`), paths joined by "/"."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from tree_paths(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v

@@ -3,12 +3,18 @@ on torch.distributed.checkpoint (DCP).
 
 `save_sharded` writes a state, `restore_sharded` reads one back into a
 target of the same structure: nested dicts and dataclasses (`TrainState`,
-`AdamWState`, `FusedAdamWState`) of tensors and Python ints, the ints (the
-update count, the step) restored with the tensors. DCP is the format a
-sharded state reshards through; on one device it runs in a single process,
-with no process group. The reference's restore onto another mesh
-(`shardings=`) waits for the mesh's port, and its Prometheus gauge of the
-save time for the runtime's.
+`AdamWState`, `FusedAdamWState`) of tensors (or DTensors) and Python ints,
+the ints (the update count, the step) restored with the tensors. DCP is
+the format a sharded state reshards through: on one device it runs in a
+single process, with no process group; under a process group every rank
+writes its own blocks (a collective save), and a restore into DTensors of
+another mesh (`abstract_like(state, shardings)`, e.g. `state_shardings`
+of the target mesh) reads each rank's new blocks. The step directories
+work under a process group too: rank 0 stages and commits the directory,
+and `latest_checkpoint` and `gc_checkpoints` run on rank 0 and hand their
+result to every rank (so every rank calls them, as it calls the save).
+The ranks share one file system. The reference's Prometheus gauge of the
+save time waits for the runtime's port.
 
 The port's training update writes the state in place, so a save is
 synchronous (no `async_save`), and a restore fills the target's own
@@ -70,6 +76,25 @@ def _rebuild(template: Any, sd: Any,
     return leaf(sd)
 
 
+def _group() -> bool:
+    """Whether a process group exists (the collective checkpoint path)."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _rank0_result(fn, *args):
+    """fn(*args) on rank 0, its result handed to every rank; alone, just
+    fn(*args)."""
+    if not _group():
+        return fn(*args)
+    import torch.distributed as dist
+
+    out = [fn(*args) if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(out, src=0)
+    return out[0]
+
+
 def _single_process(fn, *args, **kwargs):
     """A DCP call; with no process group DCP runs in this process alone and
     says so in a warning, which is the intent here."""
@@ -102,13 +127,41 @@ def restore_sharded(path: str, target: Any) -> Any:
     return _rebuild(target, sd)
 
 
+def _zip(sd: Any, shardings: Any) -> Any:
+    """A `_state_dict` tree and the shardings of its state (dicts and
+    dataclasses of NamedShardings) as one tree of pairs."""
+    if isinstance(sd, dict):
+        return {k: _zip(v, shardings[k] if isinstance(shardings, dict)
+                        else getattr(shardings, k)) for k, v in sd.items()}
+    return (sd, shardings)
+
+
+def _empty_on(x: Any, sharding: Any) -> Any:
+    """An uninitialized DTensor of tensor `x`'s global shape and dtype with
+    `sharding`'s placements on its mesh; an int as it is."""
+    from ray_tpu_torch.parallel.mesh import NamedSharding
+
+    if not isinstance(x, torch.Tensor):
+        return x
+    if not isinstance(sharding, NamedSharding):
+        raise TypeError(f"abstract_like: a tensor's sharding must be a "
+                        f"NamedSharding (e.g. from train.step."
+                        f"state_shardings), got {type(sharding).__name__}")
+    local = [n for _, n in sharding.block(x.shape)]
+    return sharding.from_local(
+        torch.empty(local, dtype=x.dtype, device=sharding.mesh.device_type))
+
+
 def abstract_like(state: Any, shardings: Optional[Any] = None) -> Any:
     """A state of `state`'s structure with uninitialized tensors of each
-    leaf's shape, dtype and device (and its ints), to restore into."""
+    leaf's shape, dtype and device (and its ints), to restore into. With
+    `shardings` (a tree of NamedShardings of `state`'s structure, e.g.
+    `state_shardings(cfg, mesh, optimizer)`), each tensor is an empty
+    DTensor of its global shape on that sharding's mesh: `state` may live
+    on another mesh, or be unsharded."""
     if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto other shardings is not ported yet (ROADMAP.md, "
-            "queue A item 7)")
+        return _rebuild(state, _zip(_state_dict(state), shardings),
+                        lambda pair: _empty_on(*pair))
     return _rebuild(state, _state_dict(state),
                     lambda x: (torch.empty_like(x)
                                if isinstance(x, torch.Tensor) else x))
@@ -139,7 +192,12 @@ def save_checkpoint(state: Any, root: str, step: int,
     Everything is written under a hidden `.tmp-step_N-<pid>` staging dir
     first; the final `os.replace` onto `step_N` is the commit point.  A
     directory named `step_N` therefore always holds a complete save.
+    Under a process group every rank calls it: rank 0 stages the directory
+    (its pid names it), every rank writes its blocks, and rank 0 writes
+    the meta and commits after a barrier.
     """
+    if _group():
+        return _save_checkpoint_collective(state, root, step, meta)
     root = os.path.abspath(root)
     os.makedirs(root, exist_ok=True)
     final = checkpoint_path(root, step)
@@ -157,6 +215,39 @@ def save_checkpoint(state: Any, root: str, step: int,
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+    return final
+
+
+def _save_checkpoint_collective(state: Any, root: str, step: int,
+                                meta: Optional[dict]) -> str:
+    import torch.distributed as dist
+
+    rank0 = dist.get_rank() == 0
+    root = os.path.abspath(root)
+    final = checkpoint_path(root, step)
+    name = [f"{_TMP_PREFIX}step_{step}-{os.getpid()}" if rank0 else None]
+    dist.broadcast_object_list(name, src=0)
+    tmp = os.path.join(root, name[0])
+    if rank0:
+        os.makedirs(root, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    dist.barrier()
+    try:
+        save_sharded(state, os.path.join(tmp, _STATE_NAME))
+        dist.barrier()
+        if rank0:
+            with open(os.path.join(tmp, _META_NAME), "w") as f:
+                json.dump({"step": step, **(meta or {})}, f)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+    except BaseException:
+        if rank0:
+            shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    dist.barrier()
     return final
 
 
@@ -187,7 +278,7 @@ def latest_checkpoint(root: str) -> Optional[str]:
     meta or state are ignored, so a crash mid-save can never be resumed
     from.
     """
-    steps = _complete_steps(root)
+    steps = _rank0_result(_complete_steps, root)
     return steps[-1][1] if steps else None
 
 
@@ -202,8 +293,12 @@ def load_checkpoint(path: str, target: Any) -> Tuple[Any, dict]:
 
 def gc_checkpoints(root: str, keep: int) -> list:
     """Keep the newest `keep` complete checkpoints; delete the rest plus
-    any torn `.tmp-*` staging dirs.  Returns the deleted paths."""
-    root = os.path.abspath(root)
+    any torn `.tmp-*` staging dirs.  Returns the deleted paths (under a
+    process group, rank 0 deletes and every rank gets the list)."""
+    return _rank0_result(_gc_checkpoints, os.path.abspath(root), keep)
+
+
+def _gc_checkpoints(root: str, keep: int) -> list:
     deleted = []
     steps = _complete_steps(root)
     for _, path in steps[:-keep] if keep > 0 else steps:

@@ -1,4 +1,5 @@
-"""The single-device training step (twin of ray_tpu/train/step.py:32-165).
+"""The training step (twin of ray_tpu/train/step.py), on one device or
+sharded dp x fsdp over a mesh.
 
 `make_train_step(cfg, optimizer, device)` returns `(step_fn, init_fn)`:
 `init_fn(seed)` builds a `TrainState` on the device and
@@ -25,7 +26,17 @@ one returned share them.
 in float32, the clip factor kept on the device, so the step never waits
 for it.
 
-The mesh and its shardings wait for their port (ROADMAP.md queue A item 7).
+With `mesh=` (a `parallel.make_mesh` DeviceMesh) the state is sharded by
+`state_shardings`: each leaf a DTensor with the rules' placements, the
+optimizer moments sharded like the params, the ints replicated. `init_fn`
+draws each leaf as the unsharded init does and keeps this rank's block as
+soon as it is drawn (the gathered state equals the unsharded one bit for
+bit); `step_fn` takes this rank's rows of the global batch (`shard_batch`:
+rows over (dp, fsdp), dp-major as JAX splits them) and runs the
+collectives of `parallel/fsdp.py` around the unchanged model, loss and
+optimizers, which run on the local blocks. The metrics are global and the
+same on every rank. tp, sp and pp, and MoE over more than one data shard,
+raise (ROADMAP.md queue A item 7). `mesh=None` is the single-device step.
 """
 
 from __future__ import annotations
@@ -38,9 +49,13 @@ from typing import (Any, Callable, Dict, Iterator, NamedTuple, Optional,
 import torch
 
 from ray_tpu_torch.models.transformer import (ModelConfig, init_params,
-                                              loss_fn, tree_leaves)
+                                              loss_fn, param_logical_axes,
+                                              split_batch, tree_leaves)
 from ray_tpu_torch.ops.kernels._util import require_cuda
 from ray_tpu_torch.ops.kernels.adamw import FusedAdamW, bias_correction
+from ray_tpu_torch.parallel.fsdp import FSDP, tree_paths
+from ray_tpu_torch.parallel.mesh import (DEFAULT_RULES, AxisRules,
+                                         NamedSharding, P, logical_sharding)
 
 
 @dataclasses.dataclass
@@ -175,23 +190,166 @@ def fused_adamw_optimizer(learning_rate: float = 3e-4,
                       clip_norm=1.0)
 
 
-def make_init_fn(cfg: ModelConfig, optimizer: Optimizer,
-                 device="cuda") -> Callable[[int], TrainState]:
-    """init_fn(seed) -> TrainState with params from `init_params` on the
-    device and zero moments."""
-    dev = require_cuda(device)
+# ---------------------------------------------------------------- sharding
 
-    def init(seed: int = 0) -> TrainState:
-        params = init_params(cfg, seed=seed, device=dev)
-        return TrainState(params=params, opt_state=optimizer.init(params),
+
+def state_shardings(cfg: ModelConfig, mesh, optimizer: Any,
+                    rules: AxisRules = DEFAULT_RULES) -> TrainState:
+    """A TrainState of NamedShardings (the state's tree, its ints
+    replicated): the params by the rules, the optimizer's moments like the
+    params."""
+    p_sh = logical_sharding(mesh, param_logical_axes(cfg), rules)
+    params_shape = init_params(cfg, device="meta")
+    opt_shape = optimizer.init(params_shape)
+    replicated = NamedSharding(mesh, P())
+    opt_sh = _shard_opt_like_params(opt_shape, params_shape, p_sh,
+                                    replicated)
+    return TrainState(params=p_sh, opt_state=opt_sh, step=replicated)
+
+
+def _same_tree(a: Any, b: Any) -> bool:
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k])
+                                             for k in a)
+    return isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+
+
+def _shard_opt_like_params(opt_shape, params_shape, p_sh, replicated):
+    """Optimizer states embed param-shaped subtrees (adam mu/nu); shard those
+    like the params and replicate everything else (counts, schedules)."""
+
+    def recurse(node):
+        if _same_tree(node, params_shape):
+            return p_sh
+        if isinstance(node, dict):
+            return {k: recurse(v) for k, v in node.items()}
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return dataclasses.replace(node, **{
+                f.name: recurse(getattr(node, f.name))
+                for f in dataclasses.fields(node)})
+        return replicated
+
+    return recurse(opt_shape)
+
+
+def batch_sharding(mesh) -> Dict[str, NamedSharding]:
+    """inputs/targets [b, s]: batch over (dp, fsdp), seq over sp."""
+    s = NamedSharding(mesh, P(("dp", "fsdp"), "sp"))
+    return {"inputs": s, "targets": s}
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], mesh
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch (every key, "tokens" and
+    "loss_mask" too, laid out as `batch_sharding`'s inputs): rank (dp_i,
+    fsdp_j) gets row block dp_i * fsdp + fsdp_j."""
+    s = batch_sharding(mesh)["inputs"]
+    return {k: s.local(v) for k, v in batch.items()}
+
+
+def _map_sharded(fn, tree: Any, shardings: Any) -> Any:
+    """fn(tensor, sharding) over the tensors of `tree` and the
+    NamedShardings of `shardings` (the same tree); ints pass through."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _map_sharded(fn, getattr(tree, f.name),
+                                 getattr(shardings, f.name))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: _map_sharded(fn, v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, shardings)
+    return tree
+
+
+def shard_state(state: TrainState, shardings: TrainState) -> TrainState:
+    """A whole TrainState, held by every rank (from the bridge, or an
+    unsharded init), as the sharded state of `shardings`
+    (`state_shardings`): each rank keeps its blocks, no communication."""
+    return _map_sharded(lambda t, s: s.distribute(t), state, shardings)
+
+
+@torch.no_grad()
+def to_local(tree: Any) -> Any:
+    """The local blocks of a tree of DTensors (views: an in-place update of
+    one updates the DTensor); anything else as it is."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: to_local(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: to_local(v) for k, v in tree.items()}
+    return tree.to_local() if hasattr(tree, "to_local") else tree
+
+
+def _check_mesh(cfg: ModelConfig, mesh, dev: torch.device) -> None:
+    """Raise for what the sharded step does not run: tp, sp, pp, MoE over
+    several data shards, a mesh of another device, no NCCL on the card."""
+    import torch.distributed as dist
+
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    for axis, item in (("tp", "tp with sp"), ("sp", "tp with sp"),
+                       ("pp", "the pipeline")):
+        if sizes[axis] > 1:
+            raise NotImplementedError(
+                f"{axis}={sizes[axis]}: the sharded step runs dp x fsdp "
+                f"only; {axis} waits for {item} (ROADMAP.md, queue A item 7)")
+    shards = sizes["dp"] * sizes["fsdp"]
+    if cfg.n_experts > 0 and shards > 1:
+        raise NotImplementedError(
+            f"MoE over {shards} data shards: the reference's router sees "
+            f"the global batch (capacity and dropping are global), a "
+            f"per-rank router would drop other tokens; this waits for expert "
+            f"sharding (ROADMAP.md, queue A item 7)")
+    if mesh.device_type != dev.type:
+        raise ValueError(f"a mesh of {mesh.device_type} ranks for a step "
+                         f"on {dev}")
+    if dev.type == "cuda" and dist.get_backend() != "nccl":
+        raise RuntimeError(f"collectives on the card go through NCCL, not "
+                           f"{dist.get_backend()}")
+
+
+def make_init_fn(cfg: ModelConfig, optimizer: Optimizer,
+                 device="cuda", *, mesh=None,
+                 rules: AxisRules = DEFAULT_RULES
+                 ) -> Callable[[int], TrainState]:
+    """init_fn(seed) -> TrainState with params from `init_params` on the
+    device and zero moments; with `mesh`, each leaf this rank's block of
+    the same draw, as a DTensor of `state_shardings`."""
+    dev = require_cuda(device)
+    if mesh is None:
+        def init(seed: int = 0) -> TrainState:
+            params = init_params(cfg, seed=seed, device=dev)
+            return TrainState(params=params,
+                              opt_state=optimizer.init(params), step=0)
+
+        return init
+
+    _check_mesh(cfg, mesh, dev)
+    sh = state_shardings(cfg, mesh, optimizer, rules)
+
+    def place(path: str, leaf: torch.Tensor):
+        node = sh.params
+        for key in path.split("/"):
+            node = node[key]
+        return node.distribute(leaf)
+
+    def sharded_init(seed: int = 0) -> TrainState:
+        params = init_params(cfg, seed=seed, device=dev, place=place)
+        opt_state = optimizer.init(to_local(params))
+        return TrainState(params=params,
+                          opt_state=_map_sharded(
+                              lambda t, s: s.from_local(t), opt_state,
+                              sh.opt_state),
                           step=0)
 
-    return init
+    return sharded_init
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
                     device="cuda", *,
-                    on_phase: Optional[Callable[[str], None]] = None
+                    on_phase: Optional[Callable[[str], None]] = None,
+                    mesh=None, rules: AxisRules = DEFAULT_RULES
                     ) -> Tuple[Callable[[TrainState, Dict[str, torch.Tensor]],
                                         Tuple[TrainState, Dict[str, Any]]],
                                Callable[[int], TrainState]]:
@@ -202,9 +360,13 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
     `on_phase(name)`, if given, is called on the host as each phase of the
     step is launched ("forward", "backward", "optimizer": the global norm
     and the update) and once after the last ("end");
-    `planning.measure_phase_eff` records a CUDA event there."""
+    `planning.measure_phase_eff` records a CUDA event there. With `mesh`,
+    the sharded step (module docstring): `batch` is this rank's rows."""
     optimizer = optimizer or default_optimizer()
     dev = require_cuda(device)
+    if mesh is not None:
+        return (_sharded_step(cfg, optimizer, dev, on_phase, mesh, rules),
+                make_init_fn(cfg, optimizer, dev, mesh=mesh, rules=rules))
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
@@ -230,3 +392,51 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
     return step, make_init_fn(cfg, optimizer, dev)
+
+
+def _sharded_step(cfg: ModelConfig, optimizer: Any, dev: torch.device,
+                  on_phase: Optional[Callable[[str], None]], mesh,
+                  rules: AxisRules):
+    """The dp x fsdp step: the unsharded step's phases on the local blocks,
+    with parallel/fsdp.py's collectives around the model."""
+    _check_mesh(cfg, mesh, dev)
+    sh = state_shardings(cfg, mesh, optimizer, rules)
+    fsdp = FSDP(mesh, sh.params)
+    paths = [path for path, _ in tree_paths(sh.params)]
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
+        # this rank's share of the global token count: its loss (a mean over
+        # its tokens) times the share sums to the global mean over ranks
+        _, targets, mask = split_batch(batch)
+        count = (mask.float().sum() if mask is not None else torch.full(
+            (), float(targets.numel()), device=dev))
+        scale = count / fsdp.data_sum(count.clone()).clamp_min(1.0)
+        local = to_local(state.params)
+        params = _tree_map(lambda t: t.detach().requires_grad_(True), local)
+        if on_phase:
+            on_phase("forward")
+        with fsdp.saved_tensor_hooks():
+            loss, aux = loss_fn(params, batch, cfg, gather=fsdp.gather)
+            loss = loss * scale
+        if on_phase:
+            on_phase("backward")
+        leaves = list(tree_leaves(params))
+        grads = list(torch.autograd.grad(loss, leaves))
+        del params, leaves
+        fsdp.reduce_grads(paths, grads)
+        if on_phase:
+            on_phase("optimizer")
+        grad_norm = fsdp.global_norm(paths, grads)
+        grads = _unflatten(local, iter(grads))
+        opt_state = optimizer.apply(grads, to_local(state.opt_state), local,
+                                    grad_norm)
+        if on_phase:
+            on_phase("end")
+        metrics = {"loss": fsdp.data_sum(loss.detach()),
+                   "grad_norm": grad_norm,
+                   "moe_aux": aux["moe_aux"].detach(), "step": state.step}
+        return TrainState(state.params, dataclasses.replace(
+            state.opt_state, count=opt_state.count), state.step + 1), metrics
+
+    return step

@@ -187,7 +187,10 @@ def test_save_sharded_records_its_time(tmp_path):
 
 
 def test_other_shardings_are_not_ported():
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    """A restore onto another mesh takes NamedShardings of a torch
+    DeviceMesh (tests/test_torch_sharded_step.py restores one); any other
+    sharding of a tensor, such as none, raises."""
+    with pytest.raises(TypeError, match="NamedSharding"):
         abstract_like({"w": torch.ones(2)}, shardings={"w": None})
 
 

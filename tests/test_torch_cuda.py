@@ -1515,3 +1515,100 @@ def test_phase_eff_times_the_real_step_on_the_card(cuda, opt):
     for phase, ms in m["ms"].items():
         assert math.isfinite(ms) and ms > 0, phase
         assert 0 < m["eff"][phase] < 1, phase
+
+
+# ---------------------------------------------------------------- sharded
+
+
+@pytest.fixture
+def nccl_world_one(cuda):
+    """A one-rank NCCL process group and its mesh."""
+    from ray_tpu_torch.parallel import (MeshConfig, initialize_group,
+                                        make_mesh, shutdown_group)
+
+    initialize_group(0, 1, device="cuda")
+    try:
+        yield make_mesh(MeshConfig())
+    finally:
+        shutdown_group()
+
+
+@pytest.mark.parametrize("opt", ["default", "fused"])
+def test_world_one_nccl_sharded_step_is_the_unsharded_step(nccl_world_one,
+                                                           opt):
+    """tiny in bf16 at head_dim 128 (the flash kernels, K3 and, under fused
+    AdamW, the AdamW kernel): 3 steps through NCCL's gathers and
+    reductions equal the unsharded steps bit for bit, with the same
+    launches."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.transformer import tree_leaves
+    from ray_tpu_torch.train import to_local
+
+    assert dist.get_backend() == "nccl"
+    cfg = dataclasses.replace(ModelConfig.tiny(), dtype=torch.bfloat16,
+                              fused_ffn=True, fused_attn=True, **TINY_HD128)
+    make = {"default": default_optimizer, "fused": fused_adamw_optimizer}
+    kernels = (*fa.KERNELS, ff.dw_gateup, aw.adamw_update)
+    batch = make_batch(cfg, 2, 128, 1, "cuda")
+    runs = []
+    for mesh in (None, nccl_world_one):
+        step_fn, init_fn = make_train_step(
+            cfg, make[opt](1e-3, warmup_steps=1), "cuda", mesh=mesh)
+        state, rows = init_fn(0), []
+        for _ in range(3):
+            for kern in kernels:
+                kern.launches = 0
+            state, m = step_fn(state, batch)
+            rows.append((float(m["loss"]), float(m["grad_norm"]),
+                         [kern.launches for kern in kernels]))
+        runs.append((rows, [t.clone() for t in tree_leaves(
+            to_local(state.params))]))
+    (want, p0), (got, p1) = runs
+    assert got == want
+    n_adamw = len(p0) if opt == "fused" else 0
+    assert got[0][2] == [cfg.n_layers] * 4 + [n_adamw]
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1, strict=True))
+
+
+# The local blocks of every Llama-3-8B leaf at fsdp 4 (the norms whole).
+FSDP4_SHARDS = [(128256, 1024), (1024, 128256), (32, 1024, 4096),
+                (32, 1024, 1024), (32, 4096, 1024), (32, 1024, 14336),
+                (32, 14336, 1024), (32, 4096), (4096,)]
+
+
+@pytest.mark.parametrize("shape", FSDP4_SHARDS)
+def test_adamw_kernel_bitwise_at_the_fsdp4_shard_shapes(cuda, shape):
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+    c1, c2 = aw.bias_correction(0.9, 3), aw.bias_correction(0.95, 3)
+    clip = torch.tensor(0.61, device=cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+
+    def draw(scale, dtype=torch.float32, uniform=False):
+        x = (torch.rand if uniform else torch.randn)(shape, generator=gen,
+                                                     device=cuda)
+        return (scale * x).to(dtype)
+
+    p, g = draw(0.02, torch.bfloat16), draw(1e-2, torch.bfloat16)
+    mu, nu = draw(1e-3), draw(1e-5, uniform=True)
+    want = [t.clone() for t in (p, mu, nu)]
+    aw.adamw_update(p, g, mu, nu, 3e-4, clip, c1, c2, **hyper)
+    aw.adamw_update_plain(want[0], g, want[1], want[2], 3e-4, clip, c1, c2,
+                          **hyper)
+    torch.cuda.synchronize()
+    assert torch.equal(p.view(torch.int16), want[0].view(torch.int16))
+    assert torch.equal(mu, want[1]) and torch.equal(nu, want[2])
+
+
+def test_four_card_parity(cuda, tmp_path):
+    """The 4-card runner's parity phase (ray_tpu_torch.multichip): fsdp 4
+    and dp 4 against one card at 8B width, 8 layers."""
+    from ray_tpu_torch import multichip
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 cards, this host has "
+                    f"{torch.cuda.device_count()}")
+    out = multichip.main(["--chips", "4", "--phases", "parity", "--json",
+                          str(tmp_path / "multichip.json")])
+    assert {"fsdp", "dp", "one_card"} <= set(out["parity"])

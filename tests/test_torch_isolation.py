@@ -40,7 +40,11 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "ray_tpu_torch.ops.kernels.xent",
                  "ray_tpu_torch.models.convert",
                  "ray_tpu_torch.models.planning",
-                 "ray_tpu_torch.train.checkpointing"):
+                 "ray_tpu_torch.train.checkpointing",
+                 "ray_tpu_torch.parallel.mesh",
+                 "ray_tpu_torch.parallel.distributed",
+                 "ray_tpu_torch.parallel.fsdp",
+                 "ray_tpu_torch.multichip"):
         assert name in modules
     code = (
         "import importlib, json, sys\n"
@@ -86,7 +90,8 @@ def test_chip_smoke_alone_fails_without_a_result(tmp_path):
                                    "make_train_step", "make_init_fn",
                                    "fused_adamw_optimizer", "bench",
                                    "params_from_hf_state_dict",
-                                   "servebench"])
+                                   "servebench", "make_mesh",
+                                   "initialize_group", "multichip"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -100,6 +105,9 @@ def test_default_device_raises_without_cuda(entry):
     from ray_tpu_torch import bench
     from ray_tpu_torch.models import servebench
     from ray_tpu_torch.models.convert import params_from_hf_state_dict
+    from ray_tpu_torch import multichip
+    from ray_tpu_torch.parallel import (MeshConfig, initialize_group,
+                                        make_mesh)
 
     cfg = ModelConfig.tiny()
     calls = {
@@ -118,6 +126,9 @@ def test_default_device_raises_without_cuda(entry):
         "params_from_hf_state_dict": lambda: params_from_hf_state_dict(
             {}, cfg),
         "servebench": lambda: servebench.run_servebench(with_latency=False),
+        "make_mesh": lambda: make_mesh(MeshConfig()),
+        "initialize_group": lambda: initialize_group(0, 1),
+        "multichip": lambda: multichip.main(["--chips", "4"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

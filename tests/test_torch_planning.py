@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_ranks
 from ray_tpu.models import ModelConfig as JConfig
 from ray_tpu.models import init_params as jinit
 from ray_tpu.models import planning as ref
@@ -28,6 +29,7 @@ from ray_tpu_torch.models.planning import (H100_HBM_BYTES, GIB, PHASE_EFF,
                                            eightb_plan, measure_phase_eff)
 from ray_tpu_torch.train import (default_optimizer, fused_adamw_optimizer,
                                  make_train_step)
+from ray_tpu_torch.parallel.fsdp import tree_paths
 from ray_tpu_torch.train.step import _tree_map
 
 OPTIMIZERS = {"default": (default_optimizer, jdefault_optimizer),
@@ -229,3 +231,17 @@ def test_step_reports_the_phases_it_launches(opt):
     assert torch.equal(runs[True][0], runs[False][0])
     for a, b in zip(tree_leaves(runs[True][1]), tree_leaves(runs[False][1])):
         assert torch.equal(a, b)
+
+
+def test_budget_local_bytes_equal_a_live_fsdp2_state(tmp_path):
+    """Two gloo ranks at fsdp 2 (tests/torch_ranks.py): a card's params,
+    optimizer moments and, from one real step, grads, byte for byte, are
+    `_budget`'s `local_bytes` at fsdp 2 (the norms whole on each card)."""
+    cfg = ModelConfig.tiny()
+    b = _budget(cfg, default_optimizer(), 2, 2, 1, tokens=64, seq=32)
+    live = torch_ranks.run_ranks("budget", 2, tmp_path, 2)
+    assert b["local_bytes"] == live
+    whole = _budget(cfg, default_optimizer(), 1, 1, 1, tokens=64, seq=32)
+    norms = sum(t.numel() * t.element_size() for k, t in tree_paths(
+        init_params(cfg, device="meta")) if k.endswith("norm"))
+    assert live["params"] == (whole["param_bytes"] - norms) // 2 + norms
