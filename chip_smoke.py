@@ -195,6 +195,18 @@ Phases (any failure exits non-zero and prints no result line):
      unsharded step's, and each step launching the flash kernels and K3
      n_layers times and AdamW once a leaf under fused AdamW (0 under
      default_optimizer); the process group destroyed;
+ 15b. the tensor- and sequence-parallel code at tp = sp = 1 on a one-rank
+     NCCL mesh, phase 8's width, seed and batch with the fused blocks off
+     (remat "dots"), 3 default steps each: `seq_parallel="ulysses"` (its
+     all-to-alls on the one-rank sp group, the flash kernels between them)
+     bit-identical to the step without sp (losses, grad norms, final
+     params), the flash forward 2·n_layers and each backward n_layers a
+     step as there; `seq_parallel="ring"` (the bf16 einsum ring, no flash
+     launch) within multichip's ring bounds of it (step-1 loss 1e-3, grad
+     norm 2%, losses 2-3 5e-3); and the fused attention and FFN blocks on
+     the step's [2, 2048, 4096] bf16 activations and layer 0's weights with
+     a one-rank `tp_group` bit-identical to the blocks without one (output
+     and every gradient; the flash pair and K3 once each a pass);
  16. print the kernels line (the float32 kernels as `<name>_f32`), the
      nvidia-smi line, and the result line.
 
@@ -2880,6 +2892,148 @@ def sharded_world_one(torch, card: str, seed: int, cfg):
     return by_path
 
 
+def tp_sp_world_one(torch, card: str, seed: int, cfg):
+    """Phase 15b: the tp and sp code at tp = sp = 1 on a one-rank NCCL
+    mesh (the docstring's item 15b). Returns {kernel: {path: launches}}."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models.transformer import tree_leaves
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+    from ray_tpu_torch.ops.kernels.fused_attn import attn_block
+    from ray_tpu_torch.ops.kernels.fused_ffn import ffn_block
+    from ray_tpu_torch.ops.layers import rotary_embedding
+    from ray_tpu_torch.parallel import (MeshConfig, initialize_group,
+                                        make_mesh, shutdown_group)
+    from ray_tpu_torch.train import (default_optimizer, make_train_step,
+                                     to_local)
+
+    t0 = time.perf_counter()
+    L, steps = cfg.n_layers, 3
+    plain = dataclasses.replace(cfg, fused_ffn=False, fused_attn=False)
+    kernels = (*fa.KERNELS, ff.dw_gateup)
+    batch = bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1, "cuda")
+    by_path = {k.__name__: {} for k in kernels}
+    initialize_group(0, 1, device="cuda")
+    try:
+        mesh = make_mesh(MeshConfig())
+        if dist.get_backend() != "nccl":
+            fail(f"the mesh's collectives run on {dist.get_backend()}")
+        runs = {}
+        for scheme in ("", "ulysses", "ring"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            step_fn, init_fn = make_train_step(
+                dataclasses.replace(plain, seq_parallel=scheme),
+                default_optimizer(warmup_steps=2), device="cuda", mesh=mesh)
+            state = init_fn(seed)
+            metrics, launches = [], []
+            for _ in range(steps):
+                for k in kernels:  # the main path's counts start here
+                    k.launches = 0
+                state, met = step_fn(state, batch)
+                metrics.append((float(met["loss"]), float(met["grad_norm"])))
+                launches.append({k.__name__: k.launches for k in kernels})
+            final = [t.cpu() for t in tree_leaves(to_local(state.params))]
+            runs[scheme or "none"] = (metrics, launches, final)
+            log(f"tp/sp world 1, seq_parallel={scheme or 'none'} [{card}]: "
+                f"losses and grad norms {metrics}; launches a step "
+                f"{launches[0]}")
+            for k in kernels:
+                by_path[k.__name__][f"seq_parallel {scheme or 'none'} "
+                                    f"world 1"] = sum(x[k.__name__]
+                                                      for x in launches)
+            del state, step_fn, init_fn, met
+        (m0, l0, p0), (mu, lu, pu), (mr, lr, _) = (
+            runs["none"], runs["ulysses"], runs["ring"])
+        same = sum(torch.equal(a, b) for a, b in zip(p0, pu, strict=True))
+        log(f"tp/sp world 1: ulysses bit-identical on {same} of {len(p0)} "
+            f"leaves")
+        if mu != m0 or same != len(p0):
+            fail("ulysses at sp 1 differs from the step without sp")
+        want = {"flash_fwd": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
+                "dw_gateup": 0}
+        if any(x != want for x in lu) or lu != l0:
+            fail(f"ulysses launches {lu}; expected {want} a step, as "
+                 f"without sp {l0}")
+        if any(x != {k: 0 for k in want} for x in lr):
+            fail(f"ring launches {lr}: the ring's einsum launches no "
+                 f"kernel")
+        first, norm, later = 1e-3, 2e-2, 5e-3  # multichip.RING_BOUNDS
+        errs = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(mr, m0)]
+        norm_err = abs(mr[0][1] - m0[0][1]) / abs(m0[0][1])
+        log(f"tp/sp world 1: ring against no sp, loss rel errs {errs}, "
+            f"step-1 grad norm rel err {norm_err} (limits {first}, {norm}, "
+            f"{later})")
+        if errs[0] > first or norm_err > norm or max(errs[1:]) > later:
+            fail("ring at sp 1 outside its bounds of the step without sp")
+        del runs, p0, pu
+
+        # the fused blocks with a one-rank tp group against none
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 7)
+        d, hd = cfg.d_model, cfg.head_dim
+        nq, nkv = cfg.n_heads, cfg.n_kv_heads
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * scale).to(torch.bfloat16)
+
+        x = rnd(TRAIN_BATCH, TRAIN_SEQ, d)
+        dy = rnd(TRAIN_BATCH, TRAIN_SEQ, d, scale=1e-2)
+        cos, sin = rotary_embedding(torch.arange(TRAIN_SEQ, device="cuda"),
+                                    hd, cfg.rope_theta)
+        attn_w = [rnd(d, scale=0.0) + 1, rnd(d, nq * hd, scale=d ** -0.5),
+                  rnd(d, nkv * hd, scale=d ** -0.5),
+                  rnd(d, nkv * hd, scale=d ** -0.5),
+                  rnd(nq * hd, d, scale=(nq * hd) ** -0.5)]
+        ffn_w = [rnd(d, scale=0.0) + 1,
+                 rnd(d, cfg.d_ff, scale=d ** -0.5),
+                 rnd(d, cfg.d_ff, scale=d ** -0.5),
+                 rnd(cfg.d_ff, d, scale=cfg.d_ff ** -0.5)]
+        group = dist.group.WORLD
+        for name, fn, ws, kw, want_k in (
+                ("attn", attn_block, attn_w,
+                 dict(cos=cos[None], sin=sin[None], n_heads=nq,
+                      n_kv_heads=nkv), ("flash_fwd", "flash_bwd_dkv",
+                                        "flash_bwd_dq")),
+                ("ffn", ffn_block, ffn_w, {}, ("dw_gateup",))):
+            outs = []
+            for tp_group in (None, group):
+                for k in kernels:
+                    k.launches = 0
+                leaves = [t.clone().requires_grad_(True) for t in (x, *ws)]
+                if name == "attn":
+                    y = fn(*leaves, kw["cos"], kw["sin"], kw["n_heads"],
+                           kw["n_kv_heads"], cfg.norm_eps, tp_group=tp_group)
+                else:
+                    y = fn(*leaves, cfg.norm_eps, tp_group=tp_group)
+                grads = torch.autograd.grad(y, leaves, dy)
+                torch.cuda.synchronize()
+                outs.append((y, grads, {k.__name__: k.launches
+                                        for k in kernels}))
+            (y0, g0, n0), (y1, g1, n1) = outs
+            same = torch.equal(y0, y1) and all(
+                torch.equal(a, b) for a, b in zip(g0, g1, strict=True))
+            log(f"tp/sp world 1: {name} block with a one-rank tp group "
+                f"bit-identical to none: {same}; launches {n1} (none: {n0})")
+            if not same:
+                fail(f"the {name} block with a one-rank tp group differs")
+            if n1 != n0 or any(n1[k] != 1 for k in want_k):
+                fail(f"{name} block launches {n1}; expected one each of "
+                     f"{want_k}")
+            for k in want_k:
+                by_path[k][f"{name} block, one-rank tp group"] = n1[k]
+            del outs, y0, y1, g0, g1, leaves, y, grads
+    finally:
+        shutdown_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"tp/sp world 1: phase {time.perf_counter() - t0:.2f} s")
+    return by_path
+
+
 def plan_phase(torch, card: str, seed: int, cfg, default_run) -> None:
     """Phase 14: print eightb_plan(); `_budget` at the 8-layer config on one
     card against the live state of phase 8 (params, grads, optimizer, byte
@@ -3138,6 +3292,10 @@ def main() -> int:
     plan_phase(torch, card, args.seed, train_cfg, default_run)
     # ---- phase 15: the sharded step on a one-rank NCCL mesh
     sharded_launches = sharded_world_one(torch, card, args.seed, train_cfg)
+    # ---- phase 15b: the tp and sp code at tp = sp = 1, one-rank NCCL
+    for kname, paths in tp_sp_world_one(torch, card, args.seed,
+                                        train_cfg).items():
+        sharded_launches.setdefault(kname, {}).update(paths)
 
     # ---- phase 16: report
     pallas = "ray_tpu/ops/pallas/"

@@ -17,7 +17,8 @@ the CPU smoke path divides by a nominal 1 TFLOP/s, as the reference's CI
 path does, and its numbers are no device measurement.
 
 `profile_train` runs a few steps under torch.profiler: device time per step,
-the device-idle share of the window and the kernels that take the time.
+the device-idle share of the window and the kernels that take the time (the
+collectives also by NCCL operation).
 The transfer half of the reference's bench needs the runtime and waits for
 its port (ROADMAP.md queue A item 8).
 """
@@ -121,6 +122,12 @@ _PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
                  "dequant_rows")
 
 
+# NCCL's device kernels by the collective in their names (a kernel whose
+# name names none is kept under its own name)
+_NCCL_OPS = ("AllGather", "ReduceScatter", "AllReduce", "SendRecv",
+             "Broadcast")
+
+
 def _kernel_kind(name: str) -> str:
     """A device kernel's group for the time breakdown, from its name."""
     if any(k in name for k in _PORT_KERNELS):
@@ -162,9 +169,13 @@ def profile_train(step_fn, state, batch, *, steps: int = 3, top: int = 8
     rows.sort(key=lambda r: -r[1])
     device_us = sum(r[1] for r in rows)
     by_kind: Dict[str, float] = {}
+    by_collective: Dict[str, float] = {}
     for key, us, _ in rows:
         kind = _kernel_kind(key)
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / steps
+        if kind == "collectives":
+            op = next((o for o in _NCCL_OPS if o in key), key[:60])
+            by_collective[op] = by_collective.get(op, 0.0) + us / 1e3 / steps
     return state, {
         "steps": steps,
         "ms_per_step": window_ms / steps,
@@ -172,6 +183,7 @@ def profile_train(step_fn, state, batch, *, steps: int = 3, top: int = 8
         "device_idle_share": 1 - device_us / 1e3 / window_ms,
         "launches_per_step": sum(r[2] for r in rows) / steps,
         "ms_per_step_by_kind": by_kind,
+        "collective_ms_per_step_by_op": by_collective,
         "top": [{"name": k[:90], "ms_per_step": us / 1e3 / steps,
                  "share": us / device_us, "calls_per_step": n / steps}
                 for k, us, n in rows[:top]] if device_us else [],

@@ -19,14 +19,24 @@ flash and K3 kernels. With `n_experts > 0` the FFN is the top-2 MoE of
 load-balancing loss. Every remat mode is ported: `full` is
 `torch.utils.checkpoint`, and the selective `dots` family keeps the values
 the reference's policy keeps, named through `ops/remat.py`
-(`maybe_remat`). Sequence parallelism raises until its port lands
-(ROADMAP.md queue A item 7, tp with sp).
+(`maybe_remat`).
 
 Sharded over a mesh, the parameters are each rank's blocks of the leaves
-(`param_logical_axes` names their axes), and the forward takes a `gather`
-callable (`parallel.fsdp.FSDP.gather`): each leaf is passed through it,
-by its path ("embed", "layers/wq"), just before it is used, a stacked leaf
-one layer's slice at a time, so the full weights exist one layer at a time.
+(`param_logical_axes` names their axes), and the forward takes a
+`parallel.tensor.Parallel` context (`par`):
+- fsdp: each leaf passes through `par.gather` (`parallel.fsdp.FSDP.gather`),
+  by its path ("embed", "layers/wq"), just before it is used, a stacked
+  leaf one layer's slice at a time, so the full weights exist one layer at
+  a time; its tp block stays local;
+- tp: each rank computes `n_heads/tp` query and `n_kv_heads/tp` KV heads
+  and `d_ff/tp` FFN columns, between `copy_to_tp` on the normed input and
+  `reduce_from_tp` on the `wo`/`w_down` product (inside the fused blocks'
+  Functions, through their `tp_group`); the embedding and the head split
+  the vocab (`vocab_embed`, `vocab_nll`);
+- sp: each rank holds `seq/sp` positions (rotary positions are global),
+  and attention crosses the sp group through `ops/ring_attention.py`
+  (`seq_parallel="ring"` or `use_ring_attention`) or `ops/ulysses.py`
+  (`seq_parallel="ulysses"`), as the reference routes it.
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 import torch.utils.checkpoint
 
-from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.ops.attention import _repeat_kv, attention
 from ray_tpu_torch.ops.kernels._util import require_cuda, tree_leaves
 from ray_tpu_torch.ops.kernels.fused_attn import attn_block
 from ray_tpu_torch.ops.kernels.fused_ffn import ffn_block
@@ -48,6 +58,11 @@ from ray_tpu_torch.ops.layers import (apply_rotary, rms_norm,
 from ray_tpu_torch.ops.moe import moe_ffn
 from ray_tpu_torch.ops.remat import (checkpoint_name, named_matmul,
                                      selective_checkpoint)
+from ray_tpu_torch.ops.ring_attention import ring_attention
+from ray_tpu_torch.ops.ulysses import ulysses_attention
+from ray_tpu_torch.parallel.tensor import (SINGLE, Parallel, copy_to_tp,
+                                           local_heads, reduce_from_tp,
+                                           vocab_embed, vocab_nll)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,8 +78,8 @@ class ModelConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     # Training-side behaviour, as in the JAX package: remat, the chunked
-    # loss, MoE, the fused blocks. Sequence parallelism raises until its
-    # port lands; the rest are kept so configs compare field for field.
+    # loss, sequence parallelism (over a mesh), MoE, the fused blocks; the
+    # rest are kept so configs compare field for field.
     remat: str = "full"
     loss_chunk: int = 0
     use_ring_attention: bool = False
@@ -279,20 +294,23 @@ def _unstack(layers: Dict[str, Any]) -> List[Dict[str, Any]]:
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
-def _unported(cfg: ModelConfig) -> None:
-    if cfg.seq_parallel or cfg.use_ring_attention:
-        raise NotImplementedError(
-            "sequence parallelism is not ported yet (ROADMAP.md, queue A "
-            "item 7: tp with sp, ring and Ulysses attention)")
+def _sp_scheme(cfg: ModelConfig) -> str:
+    """The sequence-parallel attention: "ring", "ulysses" or "" (none)."""
+    scheme = cfg.seq_parallel or ("ring" if cfg.use_ring_attention else "")
+    if scheme not in ("", "ring", "ulysses"):
+        raise ValueError(f"unknown seq_parallel scheme {scheme!r}")
+    return scheme
 
 
-def _attn_half(cfg: ModelConfig, x, p, cos, sin):
-    """Attention sub-block: x + Wo(attn(rotary(qkv(rmsnorm(x)))))."""
+def _attn_half(cfg: ModelConfig, par: Parallel, x, p, cos, sin):
+    """Attention sub-block: x + Wo(attn(rotary(qkv(rmsnorm(x))))), on this
+    rank's heads and positions."""
     p = _deq_tree(p, cfg.dtype)
     b, s, _ = x.shape
     hd = cfg.head_dim
-    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    nq_d, nkv_d = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    nq, nkv = local_heads(cfg, par)
+    h = copy_to_tp(rms_norm(x, p["attn_norm"], cfg.norm_eps), par.tp_group)
+    nq_d, nkv_d = nq * hd, nkv * hd
     if cfg.fused_proj:
         qkv = named_matmul(h, torch.cat([p["wq"], p["wk"], p["wv"]], dim=1),
                            "qkv")
@@ -302,24 +320,32 @@ def _attn_half(cfg: ModelConfig, x, p, cos, sin):
     else:
         q, k, v = (named_matmul(h, p[w], n) for w, n in (
             ("wq", "qkv_q"), ("wk", "qkv_k"), ("wv", "qkv_v")))
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    q = q.reshape(b, s, nq, hd)
+    k = k.reshape(b, s, nkv, hd)
+    v = v.reshape(b, s, nkv, hd)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # [b, heads, s, hd]
-    attn = attention(q, k, v, causal=True)
+    scheme = _sp_scheme(cfg)
+    if scheme == "ring":  # K/V repeated to the query heads first
+        k, v = _repeat_kv(k, nq // nkv), _repeat_kv(v, nq // nkv)
+        attn = ring_attention(q, k, v, par.sp_group, causal=True)
+    elif scheme == "ulysses":  # KV heads cross the all-to-all unexpanded
+        attn = ulysses_attention(q, k, v, par.sp_group, causal=True)
+    else:
+        attn = attention(q, k, v, causal=True)
     attn = checkpoint_name(
-        attn.transpose(1, 2).reshape(b, s, cfg.n_heads * hd), "attn_out")
-    return x + named_matmul(attn, p["wo"], "attn_proj").to(x.dtype)
+        attn.transpose(1, 2).reshape(b, s, nq * hd), "attn_out")
+    return x + reduce_from_tp(named_matmul(attn, p["wo"], "attn_proj"),
+                              par.tp_group).to(x.dtype)
 
 
-def _layer(cfg: ModelConfig, x, layer_params, cos, sin):
+def _layer(cfg: ModelConfig, par: Parallel, x, layer_params, cos, sin):
     """One transformer block; returns (x, moe_aux), moe_aux 0 for a dense
     FFN."""
-    x = _attn_half(cfg, x, layer_params, cos, sin)
+    x = _attn_half(cfg, par, x, layer_params, cos, sin)
     p = _deq_tree(layer_params, cfg.dtype)
-    h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    h = copy_to_tp(rms_norm(x, p["mlp_norm"], cfg.norm_eps), par.tp_group)
     if cfg.n_experts > 0:
         out, aux = moe_ffn(h, p["router"], p["w_gate"], p["w_up"],
                            p["w_down"], cfg.capacity_factor)
@@ -327,13 +353,14 @@ def _layer(cfg: ModelConfig, x, layer_params, cos, sin):
     if cfg.fused_proj:
         gu = named_matmul(h, torch.cat([p["w_gate"], p["w_up"]], dim=1),
                           "ffn_gate_up")
-        gate = checkpoint_name(gu[..., :cfg.d_ff], "ffn_gate")
-        up = checkpoint_name(gu[..., cfg.d_ff:], "ffn_up")
+        dff = cfg.d_ff // par.tp
+        gate = checkpoint_name(gu[..., :dff], "ffn_gate")
+        up = checkpoint_name(gu[..., dff:], "ffn_up")
     else:
         gate = named_matmul(h, p["w_gate"], "ffn_gate")
         up = named_matmul(h, p["w_up"], "ffn_up")
-    x = x + named_matmul(swiglu(gate, up), p["w_down"], "ffn_down").to(
-        x.dtype)
+    x = x + reduce_from_tp(named_matmul(swiglu(gate, up), p["w_down"],
+                                        "ffn_down"), par.tp_group).to(x.dtype)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -388,48 +415,58 @@ def maybe_remat(layer_fn, cfg: ModelConfig, region: str = "layer"):
 def forward_features_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
                               cfg: ModelConfig,
                               positions: Optional[torch.Tensor] = None,
-                              gather: Callable[[str, Any], Any] = _whole):
+                              par: Parallel = SINGLE):
     """tokens [b, s] -> (features [b, s, d] after final norm, moe_aux
-    scalar). `gather(path, leaf)` gives each leaf whole just before its
-    use (a layer's leaves as its loop iteration starts)."""
+    scalar). `par` (module docstring) gives each leaf whole just before its
+    use (a layer's leaves as its loop iteration starts) and the tp and sp
+    groups; a sequence-parallel scheme needs a mesh's, as in the
+    reference. Under sp, `tokens` is this rank's block of the sequence and
+    the default positions are its global ones."""
+    scheme = _sp_scheme(cfg)
+    if scheme and par.sp_group is None:
+        raise ValueError(f"seq_parallel={scheme!r} needs a mesh: run it "
+                         f"through make_train_step(..., mesh=)")
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed_lookup(gather("embed", params["embed"]), tokens,
-                      cfg.dtype)  # [b, s, d]
+        s = tokens.shape[1]
+        positions = torch.arange(s, device=tokens.device) + par.sp_rank * s
+    emb = par.gather("embed", params["embed"])
+    x = (vocab_embed(emb, tokens, cfg.dtype, par.tp_group, par.tp_rank)
+         if par.tp_group is not None
+         else _embed_lookup(emb, tokens, cfg.dtype))  # [b, s, d]
     cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos[None], sin[None]  # add batch dim
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if cfg.fused_attn and not cfg.fused_ffn:
         raise ValueError("fused_attn requires fused_ffn")
-    if cfg.fused_ffn and (cfg.n_experts > 0 or cfg.seq_parallel
-                          or cfg.use_ring_attention):
+    if cfg.fused_ffn and (cfg.n_experts > 0 or scheme):
         raise ValueError("fused_ffn supports the dense, non-sp path only")
-    _unported(cfg)
 
     def layers():  # one layer gathered at a time
         for lp in _unstack(params["layers"]):
-            yield {k: gather("layers/" + k, v) for k, v in lp.items()}
+            yield {k: par.gather("layers/" + k, v) for k, v in lp.items()}
 
     if cfg.fused_ffn:
         if cfg.fused_attn:
+            nq, nkv = local_heads(cfg, par)
+
             def attn_fn(x, lp, cos, sin):
                 return attn_block(x, lp["attn_norm"], lp["wq"], lp["wk"],
-                                  lp["wv"], lp["wo"], cos, sin, cfg.n_heads,
-                                  cfg.n_kv_heads, cfg.norm_eps)
+                                  lp["wv"], lp["wo"], cos, sin, nq, nkv,
+                                  cfg.norm_eps, tp_group=par.tp_group)
         else:
-            attn_fn = maybe_remat(functools.partial(_attn_half, cfg), cfg,
-                                  "attn")
+            attn_fn = maybe_remat(functools.partial(_attn_half, cfg, par),
+                                  cfg, "attn")
         for lp in layers():
             x = attn_fn(x, lp, cos, sin)
             x = ffn_block(x, lp["mlp_norm"], lp["w_gate"], lp["w_up"],
-                          lp["w_down"], cfg.norm_eps)
+                          lp["w_down"], cfg.norm_eps, tp_group=par.tp_group)
     else:
-        layer_fn = maybe_remat(functools.partial(_layer, cfg), cfg)
+        layer_fn = maybe_remat(functools.partial(_layer, cfg, par), cfg)
         for lp in layers():
             x, layer_aux = layer_fn(x, lp, cos, sin)
             aux = aux + layer_aux
-    x = rms_norm(x, gather("final_norm", params["final_norm"]),
+    x = rms_norm(x, par.gather("final_norm", params["final_norm"]),
                  cfg.norm_eps)
     return x, aux
 
@@ -437,11 +474,12 @@ def forward_features_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
 def forward_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
                      cfg: ModelConfig,
                      positions: Optional[torch.Tensor] = None,
-                     gather: Callable[[str, Any], Any] = _whole):
-    """tokens [b, s] -> (logits [b, s, vocab] float32, moe_aux scalar)."""
-    x, aux = forward_features_with_aux(params, tokens, cfg, positions,
-                                       gather)
-    return (x @ lm_head_weights(params, cfg, gather)).float(), aux
+                     par: Parallel = SINGLE):
+    """tokens [b, s] -> (logits [b, s, vocab] float32, moe_aux scalar);
+    under tp this rank's [b, s, vocab/tp] block of the logits."""
+    x, aux = forward_features_with_aux(params, tokens, cfg, positions, par)
+    x = copy_to_tp(x, par.tp_group)
+    return (x @ lm_head_weights(params, cfg, par.gather)).float(), aux
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
@@ -460,13 +498,22 @@ def split_batch(batch: Dict[str, torch.Tensor]):
                                            else mask[:, 1:])
 
 
+def _nll(logits: torch.Tensor, targets: torch.Tensor,
+         par: Parallel) -> torch.Tensor:
+    """Per-token NLL of float32 logits; under tp of this rank's vocab
+    block (`vocab_nll`)."""
+    if par.tp_group is not None:
+        return vocab_nll(logits, targets, par.tp_group, par.tp_rank)
+    logz = torch.logsumexp(logits, dim=-1)
+    return logz - logits.gather(-1, targets[..., None].long())[..., 0]
+
+
 def token_nll(logits: torch.Tensor, targets: torch.Tensor,
-              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              mask: Optional[torch.Tensor] = None,
+              par: Parallel = SINGLE) -> torch.Tensor:
     """Mean next-token NLL over [..., s, vocab] logits / [..., s] targets,
     masked if a [..., s] mask is given."""
-    logz = torch.logsumexp(logits, dim=-1)
-    target_logit = logits.gather(-1, targets[..., None].long())[..., 0]
-    nll = logz - target_logit
+    nll = _nll(logits, targets, par)
     if mask is not None:
         maskf = mask.float()
         return (nll * maskf).sum() / maskf.sum().clamp_min(1.0)
@@ -475,23 +522,21 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor,
 
 def chunked_token_nll(x: torch.Tensor, head: torch.Tensor,
                       targets: torch.Tensor, mask: Optional[torch.Tensor],
-                      chunk: int) -> torch.Tensor:
+                      chunk: int, par: Parallel = SINGLE) -> torch.Tensor:
     """Mean NLL without materializing the full [b, s, vocab] float32
     logits: each `chunk` of the sequence runs its LM-head product and
     softmax under a checkpoint, so the backward recomputes one
-    [b, chunk, vocab] tile at a time."""
+    [b, chunk, vocab] tile at a time (under tp, [b, chunk, vocab/tp])."""
     b, s, _ = x.shape
     if s % chunk:
         raise ValueError(f"chunk {chunk} must divide the sequence {s}")
     maskf = (mask.float() if mask is not None
              else torch.ones(targets.shape, dtype=torch.float32,
                              device=x.device))
+    x = copy_to_tp(x, par.tp_group)
 
     def chunk_nll(x_c, t_c, m_c):
-        logits = (x_c @ head).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, t_c[..., None].long())[..., 0]
-        return ((logz - tgt) * m_c).sum()
+        return (_nll((x_c @ head).float(), t_c, par) * m_c).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s, chunk):
@@ -503,14 +548,20 @@ def chunked_token_nll(x: torch.Tensor, head: torch.Tensor,
 
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig, gather: Callable[[str, Any], Any] = _whole):
+            cfg: ModelConfig, par: Parallel = SINGLE):
     """Next-token cross entropy -> (loss, {"loss", "ntokens", "moe_aux"}).
 
     batch: {"tokens": [b, s+1]} (shifted here) or pre-shifted
     {"inputs": [b, s], "targets": [b, s]}; optional {"loss_mask": [b, s]}.
-    `gather` as in `forward_features_with_aux`; the loss is then this
-    batch's mean (the sharded step scales it to the global mean).
+    `par` as in `forward_features_with_aux`; the loss is then this
+    batch's mean (the sharded step scales it to the global mean). Under sp
+    the batch must be pre-shifted: a rank's block of a [b, s+1] row would
+    lose its last target to the shift.
     """
+    if par.sp > 1 and "inputs" not in batch:
+        raise ValueError(
+            "sequence parallelism needs pre-shifted {'inputs', 'targets'} "
+            "batches: a {'tokens': [b, s+1]} row does not split over sp")
     inputs, targets, mask = split_batch(batch)
     if cfg.loss_chunk:
         if targets.shape[-1] % cfg.loss_chunk != 0:
@@ -518,14 +569,12 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                 f"loss_chunk={cfg.loss_chunk} must divide the target length "
                 f"{targets.shape[-1]} (note {{'tokens'}} batches lose one "
                 f"position to the shift)")
-        x, moe_aux = forward_features_with_aux(params, inputs, cfg,
-                                               gather=gather)
-        loss = chunked_token_nll(x, lm_head_weights(params, cfg, gather),
-                                 targets, mask, cfg.loss_chunk)
+        x, moe_aux = forward_features_with_aux(params, inputs, cfg, par=par)
+        loss = chunked_token_nll(x, lm_head_weights(params, cfg, par.gather),
+                                 targets, mask, cfg.loss_chunk, par)
     else:
-        logits, moe_aux = forward_with_aux(params, inputs, cfg,
-                                           gather=gather)
-        loss = token_nll(logits, targets, mask)
+        logits, moe_aux = forward_with_aux(params, inputs, cfg, par=par)
+        loss = token_nll(logits, targets, mask, par)
     if cfg.n_experts > 0:
         loss = loss + cfg.moe_aux_weight * moe_aux
     return loss, {"loss": loss, "ntokens": targets.numel(),

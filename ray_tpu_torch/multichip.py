@@ -1,6 +1,6 @@
-"""The sharded training step on several cards: the dp/fsdp half of the
-reference's `dryrun_multichip` (__graft_entry__.py:45-109), run on real
-cards at Llama-3-8B widths instead of jitted on a virtual mesh.
+"""The sharded training step on several cards: the dp/fsdp/tp/sp part of
+the reference's `dryrun_multichip` (__graft_entry__.py:45-149), run on
+real cards at Llama-3-8B widths instead of jitted on a virtual mesh.
 
     python -m ray_tpu_torch.multichip --chips 4
     python -m ray_tpu_torch.multichip --chips 4 --cpu    # rehearsal: gloo, tiny
@@ -24,23 +24,48 @@ asked), each joining NCCL through `parallel.initialize_group`, and runs:
     the plan's projection.
 (c) reshard: the 8-layer state after 2 steps at fsdp=chips saved
     (`save_checkpoint`, every rank its blocks) and restored onto
-    dp 2 x fsdp chips/2: every leaf bit for bit, on the target mesh; the
-    next step's loss within 1e-6 relative of continuing at fsdp=chips.
+    dp 2 x fsdp chips/2 and onto fsdp 2 x tp chips/2: every leaf bit for
+    bit, on the target mesh; the next step's loss within 1e-6 relative of
+    continuing at fsdp=chips (within (a)'s 1e-4 under tp, whose bf16
+    partial sums add in another order).
 (d) collectives: `all_gather_into_tensor` and `reduce_scatter_tensor` over
     the fsdp group at the 8B layer shards' sizes, ms a call and GB/s
     (algorithm: the full tensor's bytes over the time; bus: times
-    (n-1)/n), beside `planning.H100_NVLINK_BW`.
+    (n-1)/n), beside `planning.H100_NVLINK_BW`; and the tp all-reduce at a
+    layer's activation size (4096 x 4096 bf16) over tp 2 and tp 4 (bus:
+    times 2(n-1)/n).
+(e) tp parity (four cards): the 8-layer 8B width at 4 x 2048, 4 steps of
+    `default_optimizer`, against one card on the same batch, (a)'s bounds
+    and launches: the reference plan's path (remat "dots", loss_chunk 512,
+    no fused blocks) at tp 4 and at fsdp 2 x tp 2; the fused blocks at
+    dp 2 x tp 2, and the all-kernel step there (fused AdamW, USE_K1 =
+    USE_K2 = True).
+(f) sp parity (four cards): 8 layers at 1 x 8192, remat "dots",
+    loss_chunk 512, against one card: sp 4 under Ulysses and under ring,
+    tp 2 x sp 2 under Ulysses. Ulysses takes (a)'s bounds and launches;
+    ring (a bf16 einsum where one card runs the flash kernels, which it
+    never launches) a step-1 loss within 1e-3, grad norm within 2%,
+    losses 2-4 within 5e-3.
+(g) tp full depth (four cards): (b) on fsdp 2 x tp 2, 4 rows of 4096 a
+    step ((b)'s 16384 tokens): the same checks and numbers, the collective
+    ms/step split by NCCL operation (all-gather and reduce-scatter: fsdp;
+    all-reduce: tp, and the fsdp all-reduce of the norms' gradients, a
+    few hundred KB), beside `eightb_plan(n_chips=4, fsdp=2, tp=2)`.
 
 Rank 0 prints each phase's numbers and writes them all as JSON (--json).
 Every check raises, so a failing rank ends the run with a non-zero exit;
 nothing is caught and passed over. With --cpu the same phases run on gloo
-CPU ranks at `tiny` widths: a rehearsal of the control flow, no device
-measurement.
+CPU ranks at `tiny` widths (with 4 KV heads in (e)-(f), so tp 4 and
+Ulysses at sp 4 split them): a rehearsal of the control flow, no device
+measurement. The --cpu rehearsal of (e) adds the dryrun's 8B-widths step
+(2 layers, vocab 4096, 64 positions, float32, remat dots, fsdp 2 x tp 2,
+one step, a finite loss), and of (f) its ring step at tp 2 x sp 2.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -59,11 +84,16 @@ from ray_tpu_torch import bench
 from ray_tpu_torch.ops.kernels._util import require_cuda
 
 REPO = Path(__file__).resolve().parents[1]
-PHASES = ("parity", "full_depth", "reshard", "collectives")
+PHASES = ("parity", "full_depth", "reshard", "collectives", "tp_parity",
+          "sp_parity", "tp_full_depth")
+# the phases that lay out four ranks as fsdp 2 x tp 2, tp 2 x sp 2, ...
+FOUR_RANK_PHASES = ("tp_parity", "sp_parity", "tp_full_depth")
 # Parity of the sharded steps with the unsharded one: the same forward
 # (step 1), gradients summed in another order (step-1 norm), then Adam's
 # divide by each gradient's running magnitude (losses 2-4).
 FIRST_LOSS_RTOL, GRAD_NORM_RTOL, LOSS_RTOL = 1e-4, 1e-2, 1e-3
+# Ring attention's bf16 einsum against one card's flash kernels
+RING_BOUNDS = (1e-3, 2e-2, 5e-3)
 RESHARD_LOSS_RTOL = 1e-6
 SEED = 0
 # A collective that waits longer than this for a rank fails (the rank 0
@@ -81,23 +111,27 @@ class Sizes:
     parity_seq: int
     full_seq: int
     loss_chunk: int
+    sp_seq: int
     steps_parity: int = 4
     steps_full: int = 6
 
-    def cfg(self, cpu: bool, n_layers: int):
+    def cfg(self, cpu: bool, n_layers: int, kv_heads: int = 0):
+        """The fused 8B width of `n_layers` (`tiny` on the CPU, with
+        `kv_heads` KV heads if given)."""
         from ray_tpu_torch.models import ModelConfig
 
         if cpu:
-            return dataclasses.replace(ModelConfig.tiny(), n_layers=n_layers,
-                                       fused_ffn=True, fused_attn=True,
-                                       remat="dots")
+            tiny = ModelConfig.tiny()
+            return dataclasses.replace(
+                tiny, n_layers=n_layers, fused_ffn=True, fused_attn=True,
+                remat="dots", n_kv_heads=kv_heads or tiny.n_kv_heads)
         return bench.train_config_8b(n_layers=n_layers)
 
 
 GPU_SIZES = Sizes(parity_layers=8, full_layers=32, parity_seq=2048,
-                  full_seq=4096, loss_chunk=512)
+                  full_seq=4096, loss_chunk=512, sp_seq=8192)
 CPU_SIZES = Sizes(parity_layers=2, full_layers=4, parity_seq=32,
-                  full_seq=64, loss_chunk=16)
+                  full_seq=64, loss_chunk=16, sp_seq=64)
 
 
 class Rank:
@@ -150,7 +184,7 @@ def _kernels():
     from ray_tpu_torch.ops.kernels import flash_attention as fa
     from ray_tpu_torch.ops.kernels import fused_ffn as ff
 
-    return (*fa.KERNELS, ff.dw_gateup, aw.adamw_update)
+    return (*fa.KERNELS, *ff.KERNELS, aw.adamw_update)
 
 
 def _steps(r: Rank, step_fn, state, batch, n: int):
@@ -205,9 +239,10 @@ def parity(r: Rank) -> Dict[str, Any]:
     if r.rank == 0:
         step_fn, init_fn = make_train_step(
             cfg, default_optimizer(warmup_steps=2), r.dev)
-        _, ref = _steps(r, step_fn, init_fn(r.seed), batch, sz.steps_parity)
+        state, ref = _steps(r, step_fn, init_fn(r.seed), batch,
+                            sz.steps_parity)
         ref = {"steps": ref, "peak_gib": r.peak_gib()}
-        del step_fn, init_fn
+        del state, step_fn, init_fn  # freed before the sharded runs
     r.free()
     ref = r.from_rank0(ref)
     r.log(f"parity: one card, {cfg.n_layers} layers, batch {r.world} x "
@@ -219,30 +254,205 @@ def parity(r: Rank) -> Dict[str, Any]:
         mesh = r.mesh(**kw)
         step_fn, init_fn = make_train_step(
             cfg, default_optimizer(warmup_steps=2), r.dev, mesh=mesh)
-        _, rows = _steps(r, step_fn, init_fn(r.seed),
-                         shard_batch(batch, mesh), sz.steps_parity)
+        state, rows = _steps(r, step_fn, init_fn(r.seed),
+                             shard_batch(batch, mesh), sz.steps_parity)
         out[name] = {"steps": rows, "peak_gib": r.peak_gib()}
         r.log(f"parity {name}={r.world}: " + _brief(out[name]))
-        want = ref["steps"]
-        _check(_rel(rows[0]["loss"], want[0]["loss"]) <= FIRST_LOSS_RTOL,
-               f"{name}: step-1 loss {rows[0]['loss']} vs {want[0]['loss']}")
-        _check(_rel(rows[0]["grad_norm"], want[0]["grad_norm"])
-               <= GRAD_NORM_RTOL, f"{name}: step-1 grad norm "
-               f"{rows[0]['grad_norm']} vs {want[0]['grad_norm']}")
-        for i in range(1, len(rows)):
-            _check(_rel(rows[i]["loss"], want[i]["loss"]) <= LOSS_RTOL,
-                   f"{name}: loss {i + 1} {rows[i]['loss']} vs "
-                   f"{want[i]['loss']}")
+        _compare(name, rows, ref["steps"])
+        if not r.cpu:
+            for got in rows:
+                _check(all(got["launches"][k] == L for k in (
+                    "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                    "dw_gateup")), f"{name}: launches {got['launches']}")
+        del state, step_fn, init_fn, mesh
+        r.free()
+    return out
+
+
+def _compare(name: str, rows, want, bounds=(FIRST_LOSS_RTOL, GRAD_NORM_RTOL,
+                                            LOSS_RTOL),
+             launches: bool = True) -> None:
+    """Raise unless a sharded run's steps agree with one card's: step-1
+    loss and grad norm, then every later loss, within `bounds`; and (if
+    `launches`) every kernel's launches, step by step."""
+    first, norm, later = bounds
+    _check(_rel(rows[0]["loss"], want[0]["loss"]) <= first,
+           f"{name}: step-1 loss {rows[0]['loss']} vs {want[0]['loss']}")
+    _check(_rel(rows[0]["grad_norm"], want[0]["grad_norm"]) <= norm,
+           f"{name}: step-1 grad norm {rows[0]['grad_norm']} vs "
+           f"{want[0]['grad_norm']}")
+    for i in range(1, len(rows)):
+        _check(_rel(rows[i]["loss"], want[i]["loss"]) <= later,
+               f"{name}: loss {i + 1} {rows[i]['loss']} vs "
+               f"{want[i]['loss']}")
+    if launches:
         for got, one in zip(rows, want):
             _check(got["launches"] == one["launches"],
                    f"{name}: launches {got['launches']} vs one card's "
                    f"{one['launches']}")
-            if not r.cpu:
-                _check(all(got["launches"][k] == L for k in (
-                    "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
-                    "dw_gateup")), f"{name}: launches {got['launches']}")
-        del step_fn, init_fn, mesh
+
+
+def _one_card(r: Rank, runs: Dict[str, Any], batch, steps: int):
+    """Each (cfg, optimizer maker, all kernels) of `runs` on rank 0's card
+    alone, then broadcast: {key: {"steps", "peak_gib"}}."""
+    from ray_tpu_torch.train import make_train_step
+
+    ref = None
+    if r.rank == 0:
+        ref = {}
+        for key, (cfg, make, all_kernels) in runs.items():
+            with _kernel_flags(all_kernels):
+                step_fn, init_fn = make_train_step(cfg, make(warmup_steps=2),
+                                                   r.dev)
+                state, rows = _steps(r, step_fn, init_fn(r.seed), batch,
+                                     steps)
+            ref[key] = {"steps": rows, "peak_gib": r.peak_gib()}
+            del state, step_fn, init_fn
+            r.free()
+    return r.from_rank0(ref)
+
+
+@contextlib.contextmanager
+def _kernel_flags(all_kernels: bool):
+    """USE_K1 = USE_K2 = True inside (the all-kernel step), as before
+    after."""
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+
+    old = (ff.USE_K1, ff.USE_K2)
+    if all_kernels:
+        ff.USE_K1 = ff.USE_K2 = True
+    try:
+        yield
+    finally:
+        ff.USE_K1, ff.USE_K2 = old
+
+
+def _sharded_runs(r: Rank, runs, batch, steps: int, ref, label: str):
+    """Each (name, cfg, mesh kw, optimizer maker, all kernels, ref key,
+    bounds, launches) of `runs` over the ranks against its one-card
+    reference; returns {name: {"mesh", "steps", "peak_gib"}}."""
+    from ray_tpu_torch.train import make_train_step, shard_batch
+
+    out = {}
+    for name, cfg, mesh_kw, make, all_kernels, key, bounds, launches in runs:
+        mesh = r.mesh(**mesh_kw)
+        with _kernel_flags(all_kernels):
+            step_fn, init_fn = make_train_step(cfg, make(warmup_steps=2),
+                                               r.dev, mesh=mesh)
+            state, rows = _steps(r, step_fn, init_fn(r.seed),
+                                 shard_batch(batch, mesh), steps)
+        out[name] = {"mesh": mesh_kw, "steps": rows,
+                     "peak_gib": r.peak_gib()}
+        r.log(f"{label} {name}: " + _brief(out[name]))
+        _compare(name, rows, ref[key]["steps"], bounds, launches)
+        del state, step_fn, init_fn, mesh
         r.free()
+    return out
+
+
+def _need_four(r: Rank, phase: str) -> None:
+    _check(r.world == 4, f"{phase} lays out 4 ranks, not {r.world}")
+
+
+def tp_parity(r: Rank) -> Dict[str, Any]:
+    """(e): the plan's path at tp 4 and fsdp 2 x tp 2, the fused blocks and
+    the all-kernel step at dp 2 x tp 2, each against one card."""
+    from ray_tpu_torch.train import default_optimizer, fused_adamw_optimizer
+
+    _need_four(r, "tp_parity")
+    sz = r.sizes
+    fused = sz.cfg(r.cpu, sz.parity_layers, kv_heads=4)
+    plan = dataclasses.replace(fused, fused_ffn=False, fused_attn=False,
+                               remat="dots", loss_chunk=sz.loss_chunk)
+    batch = bench.make_batch(fused, 4, sz.parity_seq, r.seed + 1, r.dev)
+    refs = {"plan": (plan, default_optimizer, False),
+            "fused": (fused, default_optimizer, False),
+            "all-kernel": (fused, fused_adamw_optimizer, True)}
+    ref = _one_card(r, refs, batch, sz.steps_parity)
+    for key, one in ref.items():
+        r.log(f"tp parity: one card, {key}, {fused.n_layers} layers, batch "
+              f"4 x {sz.parity_seq}: " + _brief(one))
+    a = (FIRST_LOSS_RTOL, GRAD_NORM_RTOL, LOSS_RTOL)
+    runs = [("plan tp4", plan, {"tp": 4}, default_optimizer, False, "plan",
+             a, True),
+            ("plan fsdp2xtp2", plan, {"fsdp": 2, "tp": 2},
+             default_optimizer, False, "plan", a, True),
+            ("fused dp2xtp2", fused, {"dp": 2, "tp": 2}, default_optimizer,
+             False, "fused", a, True),
+            ("all-kernel dp2xtp2", fused, {"dp": 2, "tp": 2},
+             fused_adamw_optimizer, True, "all-kernel", a, True)]
+    out = {"layers": fused.n_layers, "batch": [4, sz.parity_seq],
+           "one_card": ref,
+           **_sharded_runs(r, runs, batch, sz.steps_parity, ref,
+                           "tp parity")}
+    if r.cpu:
+        out["eightb_widths"] = _eightb_widths_dryrun(r)
+    return out
+
+
+def _eightb_widths_dryrun(r: Rank) -> Dict[str, Any]:
+    """The dryrun's 8B-widths step (__graft_entry__.py:125-149) on the CPU
+    ranks: llama3_8b's widths, 2 layers, vocab 4096, 64 positions, float32,
+    remat dots, fsdp 2 x tp 2, one step of 2 rows: a finite loss."""
+    from ray_tpu_torch.models import ModelConfig
+    from ray_tpu_torch.train import (default_optimizer, make_train_step,
+                                     shard_batch)
+
+    cfg = dataclasses.replace(ModelConfig.llama3_8b(), n_layers=2,
+                              vocab_size=4096, max_seq_len=64,
+                              dtype=torch.float32, remat="dots")
+    mesh = r.mesh(fsdp=2, tp=2)
+    step_fn, init_fn = make_train_step(cfg, default_optimizer(1e-3), r.dev,
+                                       mesh=mesh)
+    batch = shard_batch(bench.make_batch(cfg, 2, 64, r.seed + 4, r.dev),
+                        mesh)
+    _, m = step_fn(init_fn(r.seed), batch)
+    loss = float(m["loss"])
+    r.log(f"tp parity: 8B widths (d 4096, d_ff 14336, 32/8 heads), fsdp 2 x "
+          f"tp 2, loss {loss:.4f}")
+    _check(math.isfinite(loss), f"8B widths: loss {loss}")
+    del step_fn, init_fn, mesh
+    r.free()
+    return {"loss": loss}
+
+
+def sp_parity(r: Rank) -> Dict[str, Any]:
+    """(f): sp 4 under Ulysses and ring, tp 2 x sp 2 under Ulysses (and, on
+    the CPU, ring), each against one card at 1 x sp_seq."""
+    from ray_tpu_torch.train import default_optimizer
+
+    _need_four(r, "sp_parity")
+    sz = r.sizes
+    cfg = dataclasses.replace(
+        sz.cfg(r.cpu, sz.parity_layers, kv_heads=4), fused_ffn=False,
+        fused_attn=False, remat="dots", loss_chunk=sz.loss_chunk,
+        max_seq_len=sz.sp_seq)
+    batch = bench.make_batch(cfg, 1, sz.sp_seq, r.seed + 1, r.dev)
+    ref = _one_card(r, {"plain": (cfg, default_optimizer, False)}, batch,
+                    sz.steps_parity)
+    r.log(f"sp parity: one card, {cfg.n_layers} layers, 1 x {sz.sp_seq}: "
+          + _brief(ref["plain"]))
+    a = (FIRST_LOSS_RTOL, GRAD_NORM_RTOL, LOSS_RTOL)
+    uly = dataclasses.replace(cfg, seq_parallel="ulysses")
+    ring = dataclasses.replace(cfg, seq_parallel="ring")
+    runs = [("ulysses sp4", uly, {"sp": 4}, default_optimizer, False,
+             "plain", a, True),
+            ("ring sp4", ring, {"sp": 4}, default_optimizer, False, "plain",
+             RING_BOUNDS, False),
+            ("ulysses tp2xsp2", uly, {"tp": 2, "sp": 2}, default_optimizer,
+             False, "plain", a, True)]
+    if r.cpu:  # the dryrun's ring step at tp 2 x sp 2
+        runs.append(("ring tp2xsp2", ring, {"tp": 2, "sp": 2},
+                     default_optimizer, False, "plain", RING_BOUNDS, False))
+    out = {"layers": cfg.n_layers, "batch": [1, sz.sp_seq], "one_card": ref,
+           **_sharded_runs(r, runs, batch, sz.steps_parity, ref,
+                           "sp parity")}
+    for name, res in out.items():
+        if name.startswith("ring"):  # the einsum route: no flash launch
+            for x in res["steps"]:
+                _check(all(x["launches"][k] == 0 for k in (
+                    "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")),
+                    f"{name}: launches {x['launches']}")
     return out
 
 
@@ -264,6 +474,21 @@ class _GradBytes:
 
 
 def full_depth(r: Rank) -> Dict[str, Any]:
+    """(b): fsdp over every card, one row a card."""
+    return _full_depth(r, "full depth", fsdp=r.world, tp=1)
+
+
+def tp_full_depth(r: Rank) -> Dict[str, Any]:
+    """(g): fsdp 2 x tp 2, (b)'s rows (one a card) over the 2 data
+    shards."""
+    _need_four(r, "tp_full_depth")
+    return _full_depth(r, "tp full depth", fsdp=2, tp=2)
+
+
+def _full_depth(r: Rank, label: str, fsdp: int, tp: int) -> Dict[str, Any]:
+    """The full-depth run over fsdp x tp = world cards, `world` rows of
+    full_seq a step under each optimizer: its checks and numbers beside
+    the plan's."""
     from ray_tpu_torch.models import count_params, planning
     from ray_tpu_torch.models.planning import _tree_bytes
     from ray_tpu_torch.models.transformer import tree_leaves
@@ -275,13 +500,14 @@ def full_depth(r: Rank) -> Dict[str, Any]:
     seq = sz.full_seq
     cfg = dataclasses.replace(sz.cfg(r.cpu, sz.full_layers),
                               max_seq_len=seq, loss_chunk=sz.loss_chunk)
-    mesh = r.mesh(fsdp=r.world)
+    layout = {"fsdp": fsdp, "tp": tp} if tp > 1 else {"fsdp": fsdp}
+    mesh = r.mesh(**layout)
     batch = shard_batch(bench.make_batch(cfg, r.world, seq, r.seed + 1,
                                          r.dev), mesh)
-    plan = planning.eightb_plan(n_chips=r.world, fsdp=r.world,
+    plan = planning.eightb_plan(n_chips=r.world, fsdp=fsdp, tp=tp,
                                 batch_per_chip_tokens=seq, seq=seq)
-    out = {"layers": cfg.n_layers, "seq": seq, "mesh": {"fsdp": r.world},
-           "eightb_plan": plan}
+    out = {"layers": cfg.n_layers, "seq": seq, "mesh": layout,
+           "rows": r.world, "eightb_plan": plan}
     for name, make in (("default", default_optimizer),
                        ("fused", fused_adamw_optimizer)):
         r.free()
@@ -297,7 +523,7 @@ def full_depth(r: Rank) -> Dict[str, Any]:
         state, rows = _steps(r, step_fn, state, batch, sz.steps_full)
         live["grads"] = optimizer.nbytes
         peak = r.peak_gib()
-        budget = planning._budget(cfg, make(), r.world, r.world, 1, seq, seq)
+        budget = planning._budget(cfg, make(), r.world, fsdp, tp, seq, seq)
         ms = statistics.mean(x["ms"] for x in rows[2:])
         tput = bench.throughput(cfg, n_params, 1, seq, ms / 1e3, r.peak)
         state, prof = bench.profile_train(step_fn, state, batch, steps=2)
@@ -314,21 +540,22 @@ def full_depth(r: Rank) -> Dict[str, Any]:
                                          budget["per_chip_bytes"].items()}},
                "profile": prof}
         out[name] = res
-        r.log(f"full depth {name}: " + _brief(
+        r.log(f"{label} {name}: " + _brief(
             {k: v for k, v in res.items() if k != "profile"}))
-        r.log(f"full depth {name} profile: device "
+        r.log(f"{label} {name} profile: device "
               f"{prof['device_ms_per_step']:.2f} ms/step in "
               f"{prof['ms_per_step']:.2f}, idle share "
               f"{prof['device_idle_share']:.4f}, by kind "
-              f"{json.dumps(prof['ms_per_step_by_kind'])}")
+              f"{json.dumps(prof['ms_per_step_by_kind'])}, collectives by "
+              f"op {json.dumps(prof['collective_ms_per_step_by_op'])}")
         losses = [x["loss"] for x in rows]
         _check(all(math.isfinite(x) for x in losses)
                and all(math.isfinite(x["grad_norm"]) for x in rows),
-               f"full depth {name}: losses {losses}")
+               f"{label} {name}: losses {losses}")
         _check(losses[-1] < losses[0],
-               f"full depth {name}: the loss did not fall: {losses}")
+               f"{label} {name}: the loss did not fall: {losses}")
         _check(live == budget["local_bytes"],
-               f"full depth {name}: live bytes {live} vs the plan's "
+               f"{label} {name}: live bytes {live} vs the plan's "
                f"{budget['local_bytes']}")
         n_leaves = len(list(tree_leaves(state.params)))
         for x in rows:
@@ -339,13 +566,15 @@ def full_depth(r: Rank) -> Dict[str, Any]:
             if not r.cpu:
                 _check(all(x["launches"][k] == cfg.n_layers for k in (
                     "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
-                    "dw_gateup")), f"full depth {name}: {x['launches']}")
+                    "dw_gateup")), f"{label} {name}: {x['launches']}")
         del state, step_fn, init_fn, optimizer
     r.free()
     return out
 
 
 def reshard(r: Rank) -> Dict[str, Any]:
+    """(c): saved at fsdp=world, restored onto dp 2 x fsdp world/2 (the
+    result's top-level keys) and onto fsdp 2 x tp world/2 ("to_tp")."""
     from ray_tpu_torch.parallel.fsdp import tree_paths
     from ray_tpu_torch.train import (abstract_like, default_optimizer,
                                      latest_checkpoint, load_checkpoint,
@@ -354,18 +583,19 @@ def reshard(r: Rank) -> Dict[str, Any]:
 
     sz = r.sizes
     cfg = sz.cfg(r.cpu, sz.parity_layers)
-    src, dst = r.mesh(fsdp=r.world), r.mesh(dp=2, fsdp=r.world // 2)
+    src = r.mesh(fsdp=r.world)
+    targets = {"dp": ({"dp": 2, "fsdp": r.world // 2}, RESHARD_LOSS_RTOL),
+               "tp": ({"fsdp": 2, "tp": r.world // 2}, FIRST_LOSS_RTOL)}
     batch = bench.make_batch(cfg, r.world, sz.parity_seq, r.seed + 1, r.dev)
     step_src, init_src = make_train_step(
         cfg, default_optimizer(warmup_steps=2), r.dev, mesh=src)
-    step_dst, _ = make_train_step(
-        cfg, default_optimizer(warmup_steps=2), r.dev, mesh=dst)
     state, _ = _steps(r, step_src, init_src(r.seed), shard_batch(batch, src),
                       2)
     root = Path(r.ckpt_root)
     if r.rank == 0:
         shutil.rmtree(root, ignore_errors=True)
     r.dist.barrier()
+    results = {}
     try:
         r.sync()
         t0 = time.perf_counter()
@@ -373,17 +603,54 @@ def reshard(r: Rank) -> Dict[str, Any]:
         save_s = time.perf_counter() - t0
         on_disk = r.from_rank0(sum(f.stat().st_size for f in Path(
             path).rglob("*") if f.is_file()) if r.rank == 0 else None)
-        target = abstract_like(state, state_shardings(
-            cfg, dst, default_optimizer()))
-        t0 = time.perf_counter()
-        restored, meta = load_checkpoint(latest_checkpoint(str(root)),
-                                         target)
-        r.sync()
-        load_s = time.perf_counter() - t0
+        for name, (layout, rtol) in targets.items():
+            dst = r.mesh(**layout)
+            target = abstract_like(state, state_shardings(
+                cfg, dst, default_optimizer()))
+            t0 = time.perf_counter()
+            restored, meta = load_checkpoint(latest_checkpoint(str(root)),
+                                             target)
+            r.sync()
+            load_s = time.perf_counter() - t0
+            res = _check_restored(r, state, restored, dst, tree_paths)
+            step_dst, _ = make_train_step(
+                cfg, default_optimizer(warmup_steps=2), r.dev, mesh=dst)
+            res.update({"to": layout, "restore_s": load_s, "meta": meta,
+                        "step": restored.step,
+                        "count": restored.opt_state.count})
+            _check((restored.step, restored.opt_state.count) == (2, 2),
+                   f"reshard: restored step {restored.step}, count "
+                   f"{restored.opt_state.count}")
+            _, m_dst = step_dst(restored, shard_batch(batch, dst))
+            res["next_loss"] = {"resharded": float(m_dst["loss"])}
+            results[name] = res
+            del restored, target, step_dst, dst
+            r.free()
     finally:
         r.dist.barrier()
         if r.rank == 0:
             shutil.rmtree(root, ignore_errors=True)
+    # the step updates the state in place: continue it after the restores
+    _, m_src = step_src(state, shard_batch(batch, src))
+    continued = float(m_src["loss"])
+    for name, (layout, rtol) in targets.items():
+        res = results[name]
+        res["next_loss"]["continued"] = continued
+        r.log(f"reshard onto {layout}: " + json.dumps(res))
+        _check(_rel(res["next_loss"]["resharded"], continued) <= rtol,
+               f"reshard onto {layout}: next loss "
+               f"{res['next_loss']['resharded']} vs {continued}")
+    out = {"layers": cfg.n_layers, "from": {"fsdp": r.world},
+           "bytes_on_disk": on_disk, "save_s": save_s, **results["dp"],
+           "to_tp": results["tp"]}
+    del state
+    r.free()
+    return out
+
+
+def _check_restored(r: Rank, state, restored, dst, tree_paths
+                    ) -> Dict[str, Any]:
+    """Every leaf of `restored` equal to `state`'s whole and on `dst`."""
     trees = [{"params": s.params, "mu": s.opt_state.mu,
               "nu": s.opt_state.nu} for s in (state, restored)]
     differ, off_mesh = [], []
@@ -393,34 +660,17 @@ def reshard(r: Rank) -> Dict[str, Any]:
             differ.append(path)
         if b.device_mesh is not dst:
             off_mesh.append(path)
-    _, m_src = step_src(state, shard_batch(batch, src))
-    _, m_dst = step_dst(restored, shard_batch(batch, dst))
-    losses = [float(m_src["loss"]), float(m_dst["loss"])]
     n_leaves = len(list(tree_paths(trees[0])))
-    out = {"layers": cfg.n_layers, "from": {"fsdp": r.world},
-           "to": {"dp": 2, "fsdp": r.world // 2}, "bytes_on_disk": on_disk,
-           "save_s": save_s, "restore_s": load_s,
-           "leaves": n_leaves, "bit_identical_leaves": n_leaves - len(differ),
-           "next_loss": {"continued": losses[0], "resharded": losses[1]},
-           "meta": meta, "step": restored.step,
-           "count": restored.opt_state.count}
-    r.log("reshard: " + json.dumps(out))
     _check(not differ, f"reshard: leaves differ after the restore: {differ}")
     _check(not off_mesh, f"reshard: leaves not on the target mesh: "
            f"{off_mesh}")
-    _check((restored.step, restored.opt_state.count) == (2, 2),
-           f"reshard: restored step {restored.step}, count "
-           f"{restored.opt_state.count}")
-    _check(_rel(losses[1], losses[0]) <= RESHARD_LOSS_RTOL,
-           f"reshard: next loss {losses[1]} vs {losses[0]}")
-    del state, restored, target, trees
-    r.free()
-    return out
+    return {"leaves": n_leaves, "bit_identical_leaves": n_leaves - len(differ)}
 
 
 def collectives(r: Rank) -> Dict[str, Any]:
-    """The fsdp gather and reduce-scatter at each distinct shard size of
-    the 8B step (bf16), timed by CUDA events over 20 calls after 5."""
+    """(d): the fsdp gather and reduce-scatter at each distinct shard size
+    of the 8B step (bf16), and tp's activation all-reduce, timed by CUDA
+    events over 20 calls after 5."""
     from ray_tpu_torch.models import ModelConfig, init_params
     from ray_tpu_torch.models.planning import H100_NVLINK_BW
     from ray_tpu_torch.parallel.fsdp import FSDP, tree_paths
@@ -452,29 +702,50 @@ def collectives(r: Rank) -> Dict[str, Any]:
                     full, shard, group=fsdp.fsdp_group)),
                 ("reduce_scatter", lambda: r.dist.reduce_scatter_tensor(
                     shard, full, group=fsdp.fsdp_group))):
-            for _ in range(5):
-                fn()
-            r.sync()
-            if r.cpu:
-                t0 = time.perf_counter()
-                for _ in range(20):
-                    fn()
-                ms = 1e3 * (time.perf_counter() - t0) / 20
-            else:
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                for _ in range(20):
-                    fn()
-                b.record()
-                r.sync()
-                ms = a.elapsed_time(b) / 20
+            ms = _time_ms(r, fn)
             alg = row["full_bytes"] / (ms / 1e3)
             row[name] = {"ms": ms, "algbw_gb_s": alg / 1e9,
                          "busbw_gb_s": alg * (n - 1) / n / 1e9}
         out.append(row)
         r.log(f"collectives over fsdp={n}: " + json.dumps(row))
-    return {"rows": out, "H100_NVLINK_BW_gb_s": H100_NVLINK_BW / 1e9}
+    # tp's all-reduce of a layer's activations ([tokens, d_model] bf16) over
+    # the tp group of fsdp world/tp x tp, for each tp that divides world
+    act = torch.randn((64, 128) if r.cpu else (4096, cfg.d_model),
+                      device=r.dev).to(torch.bfloat16)
+    tp_rows = []
+    for tp in (t for t in (2, 4) if n % t == 0 and t <= n):
+        group = r.mesh(fsdp=n // tp, tp=tp).get_group("tp")
+        ms = _time_ms(r, lambda: r.dist.all_reduce(act, group=group))
+        nbytes = act.numel() * act.element_size()
+        alg = nbytes / (ms / 1e3)
+        row = {"tp": tp, "shape": list(act.shape), "bytes": nbytes,
+               "all_reduce": {"ms": ms, "algbw_gb_s": alg / 1e9,
+                              "busbw_gb_s": alg * 2 * (tp - 1) / tp / 1e9}}
+        tp_rows.append(row)
+        r.log(f"collectives: tp all-reduce: " + json.dumps(row))
+    return {"rows": out, "tp_all_reduce": tp_rows,
+            "H100_NVLINK_BW_gb_s": H100_NVLINK_BW / 1e9}
+
+
+def _time_ms(r: Rank, fn) -> float:
+    """ms a call of `fn` over 20 calls after 5 (CUDA events on the card,
+    the host clock on the CPU)."""
+    for _ in range(5):
+        fn()
+    r.sync()
+    if r.cpu:
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / 20
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(20):
+        fn()
+    b.record()
+    r.sync()
+    return a.elapsed_time(b) / 20
 
 
 def _smi() -> List[str]:
@@ -542,6 +813,9 @@ def main(argv=None) -> Dict[str, Any]:
     if "reshard" in phases and (args.chips < 2 or args.chips % 2):
         raise ValueError("phase reshard restores onto dp 2 x fsdp chips/2: "
                          "--chips must be even")
+    four = sorted(set(phases) & set(FOUR_RANK_PHASES))
+    if four and args.chips != 4:
+        raise ValueError(f"phases {four} lay out four ranks: --chips 4")
     if not args.cpu:
         require_cuda("cuda")
         have = torch.cuda.device_count()

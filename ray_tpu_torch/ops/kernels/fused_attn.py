@@ -23,6 +23,15 @@ einsum route off the TPU); both compute the same function.
 
 In bfloat16, dh is the float32 sum of three products each rounded to
 bfloat16 (the reference sums float32 products); in float32 the two agree.
+
+Under tensor parallelism (`tp_group`, a process group; None is the
+unsplit block) the weights are this rank's blocks: wq/wk/wv its columns
+of `n_heads`/`n_kv_heads` local heads, wo its rows. The `wo` product is
+then a partial sum over the group, all-reduced before `x` is added; in
+the backward, the gradient of the normed input (dh, float32) is a partial
+sum too, all-reduced before the RMSNorm VJP, so dx and the norm weight's
+gradient are the same on every rank. The flash kernels run on the local
+heads unchanged.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from ray_tpu_torch.ops.kernels.flash_attention import flash_bwd, flash_fwd
 from ray_tpu_torch.ops.kernels.fused_ffn import (_rmsnorm_vjp, normed,
                                                  rms_normed)
 from ray_tpu_torch.ops.layers import apply_rotary
+from ray_tpu_torch.parallel.tensor import all_reduce_
 
 
 def _flat(t: torch.Tensor) -> torch.Tensor:
@@ -58,9 +68,10 @@ def _einsum_vjp(q4, kr, vr, do4, scale):
         return torch.autograd.grad(out, leaves, do4)
 
 
-def _fwd_impl(x, nw, wq, wk, wv, wo, cos, sin, n_heads, n_kv_heads, eps):
+def _fwd_impl(x, nw, wq, wk, wv, wo, cos, sin, n_heads, n_kv_heads, eps,
+              tp_group=None):
     b, s, d = x.shape
-    hd = d // n_heads
+    hd = wq.shape[1] // n_heads
     rstd, h = rms_normed(x, nw, eps)
     q = (h @ wq).reshape(b, s, n_heads, hd)
     k = (h @ wk).reshape(b, s, n_kv_heads, hd)
@@ -79,19 +90,21 @@ def _fwd_impl(x, nw, wq, wk, wv, wo, cos, sin, n_heads, n_kv_heads, eps):
                                          causal=True)
         lse = None
     attn_flat = out.transpose(1, 2).reshape(b, s, n_heads * hd)
-    y = x + (attn_flat @ wo).to(x.dtype)
+    y = x + all_reduce_(attn_flat @ wo, tp_group).to(x.dtype)
     return y, (rstd, q, k, v, out, lse)
 
 
 class AttnBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, norm_w, wq, wk, wv, wo, cos, sin, n_heads,
-                n_kv_heads, eps):
+                n_kv_heads, eps, tp_group=None):
         y, (rstd, q, k, v, out, lse) = _fwd_impl(
-            x, norm_w, wq, wk, wv, wo, cos, sin, n_heads, n_kv_heads, eps)
+            x, norm_w, wq, wk, wv, wo, cos, sin, n_heads, n_kv_heads, eps,
+            tp_group)
         ctx.save_for_backward(x, rstd, q, k, v, out, lse, norm_w, wq, wk, wv,
                               wo, cos, sin)
         ctx.heads = (n_heads, n_kv_heads)
+        ctx.tp_group = tp_group
         return y
 
     @staticmethod
@@ -100,7 +113,7 @@ class AttnBlock(torch.autograd.Function):
          sin) = ctx.saved_tensors
         n_heads, n_kv_heads = ctx.heads
         b, s, d = x.shape
-        hd = d // n_heads
+        hd = wq.shape[1] // n_heads
         n_rep = n_heads // n_kv_heads
         dy2d = dy.reshape(b * s, d)
 
@@ -142,16 +155,20 @@ class AttnBlock(torch.autograd.Function):
         # dh back through the projections, then the rmsnorm VJP
         dh = ((dq2d @ wq.T).float() + (dk2d @ wk.T).float()
               + (dv2d @ wv.T).float())
+        all_reduce_(dh, ctx.tp_group)
         dx, dnw = _rmsnorm_vjp(x2d, rstd2d, nw, dh, dy2d)
         return (dx.reshape(b, s, d), dnw, dwq, dwk, dwv, dwo,
                 torch.zeros_like(cos), torch.zeros_like(sin), None, None,
-                None)
+                None, None)
 
 
 def attn_block(x: torch.Tensor, norm_w: torch.Tensor, wq: torch.Tensor,
                wk: torch.Tensor, wv: torch.Tensor, wo: torch.Tensor,
                cos: torch.Tensor, sin: torch.Tensor, n_heads: int,
-               n_kv_heads: int, eps: float = 1e-5) -> torch.Tensor:
-    """x [b, s, d] -> x + Wo(flash_attn(rotary(qkv(rmsnorm(x)))))."""
+               n_kv_heads: int, eps: float = 1e-5,
+               tp_group=None) -> torch.Tensor:
+    """x [b, s, d] -> x + Wo(flash_attn(rotary(qkv(rmsnorm(x))))); under
+    `tp_group`, `n_heads`/`n_kv_heads` are the local heads of the weights'
+    blocks."""
     return AttnBlock.apply(x, norm_w, wq, wk, wv, wo, cos, sin, n_heads,
-                           n_kv_heads, eps)
+                           n_kv_heads, eps, tp_group)

@@ -45,6 +45,7 @@ from ray_tpu_torch.ops.kernels._util import (KERNEL_DTYPES, WAVE_BLOCKS,
                                              cdiv, check, count_launch,
                                              dtype_entry, stream_handle,
                                              with_f32)
+from ray_tpu_torch.parallel.tensor import all_reduce_
 
 _P, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -303,11 +304,12 @@ def dw_gateup(x2d: torch.Tensor, rstd: torch.Tensor, norm_w: torch.Tensor,
 # ---------------------------------------------------------------- block
 
 
-def _fwd_impl(x2d, nw, wg, wu, wd, eps):
+def _fwd_impl(x2d, nw, wg, wu, wd, eps, tp_group=None):
     rstd, h = rms_normed(x2d, nw, eps)
     gate = h @ wg
     up = h @ wu
-    out = (_silu(gate.float()).to(x2d.dtype) * up) @ wd
+    out = all_reduce_((_silu(gate.float()).to(x2d.dtype) * up) @ wd,
+                      tp_group)
     return x2d + out.to(x2d.dtype), rstd, gate, up
 
 
@@ -325,13 +327,15 @@ def _rmsnorm_vjp(x2d, rstd, nw, dh, dy2d):
 
 class FFNBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, norm_w, w_gate, w_up, w_down, eps):
+    def forward(ctx, x, norm_w, w_gate, w_up, w_down, eps, tp_group=None):
         shape = x.shape
         x2d = x.reshape(-1, shape[-1])
-        y, rstd, gate, up = _fwd_impl(x2d, norm_w, w_gate, w_up, w_down, eps)
+        y, rstd, gate, up = _fwd_impl(x2d, norm_w, w_gate, w_up, w_down, eps,
+                                      tp_group)
         ctx.save_for_backward(x2d, rstd, gate, up, norm_w, w_gate, w_up,
                               w_down)
         ctx.shape = shape
+        ctx.tp_group = tp_group
         return y.reshape(shape)
 
     @staticmethod
@@ -361,17 +365,24 @@ class FFNBlock(torch.autograd.Function):
             del h
         # dh through the gate/up projections, then the rmsnorm VJP
         dh = (dgate @ wg.T).float() + (dup @ wu.T).float()
+        all_reduce_(dh, ctx.tp_group)
         dx, dnw = _rmsnorm_vjp(x2d, rstd, nw, dh, dy2d)
         return dx.reshape(shape), dnw, dwg.to(wg.dtype), dwu.to(wu.dtype), \
-            dwd.to(wd.dtype), None
+            dwd.to(wd.dtype), None, None
 
 
 def ffn_block(x: torch.Tensor, norm_w: torch.Tensor, w_gate: torch.Tensor,
               w_up: torch.Tensor, w_down: torch.Tensor,
-              eps: float = 1e-5) -> torch.Tensor:
+              eps: float = 1e-5, tp_group=None) -> torch.Tensor:
     """x [..., d] -> x + W_down(swiglu(Wg(rmsnorm(x)), Wu(rmsnorm(x)))).
-    The swiglu is `silu(gate in float32)` rounded to x's dtype, times up."""
-    return FFNBlock.apply(x, norm_w, w_gate, w_up, w_down, eps)
+    The swiglu is `silu(gate in float32)` rounded to x's dtype, times up.
+    Under `tp_group` (a process group; None is the unsplit block) the
+    weights are this rank's d_ff/tp columns of w_gate/w_up and rows of
+    w_down: the W_down product is all-reduced over the group before `x` is
+    added, and the gradient of the normed input before the RMSNorm VJP, so
+    K1-K3 run at the local width and dx, dnorm_w are the same on every
+    rank."""
+    return FFNBlock.apply(x, norm_w, w_gate, w_up, w_down, eps, tp_group)
 
 
 # Launch counts: each wrapper adds one to `.launches` where it launches its

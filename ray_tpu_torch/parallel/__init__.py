@@ -1,5 +1,6 @@
-"""Parallelism: device meshes, logical-axis shardings, process groups, and
-the ZeRO-3 gather of the sharded training step (`fsdp`)."""
+"""Parallelism: device meshes, logical-axis shardings, process groups, the
+ZeRO-3 gather of the sharded training step (`fsdp`) and tensor
+parallelism's collectives (`tensor`)."""
 
 from ray_tpu_torch.parallel.mesh import (
     MeshConfig,

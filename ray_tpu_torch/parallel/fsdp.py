@@ -1,6 +1,7 @@
 """The collectives of the sharded training step, written out: what XLA
-emits for the reference's dp x fsdp step from its sharding annotations
-(ray_tpu/train/step.py:1-10).
+emits for the reference's dp x fsdp x tp x sp step from its sharding
+annotations (ray_tpu/train/step.py:1-10). tp's own collectives sit inside
+the blocks (`parallel/tensor.py`); this module holds those around them.
 
 The state is stored as DTensors (the rules' placements, so a checkpoint
 can reshard), and the step computes on their local blocks:
@@ -8,8 +9,10 @@ can reshard), and the step computes on their local blocks:
 - **fsdp (ZeRO-3).** Each leaf sharded over fsdp is gathered whole just
   before it is used, one layer at a time (`FSDP.gather`, an autograd
   Function: `all_gather_into_tensor` over the fsdp group forward, a
-  summing `reduce_scatter_tensor` of its gradient backward). Every kernel
-  then runs unchanged on full per-layer weights and the rank's own rows.
+  summing `reduce_scatter_tensor` of its gradient backward), along the
+  leaf's fsdp dim only (found from its spec): a leaf also split over tp
+  keeps its tp block, so every kernel runs unchanged on this rank's
+  per-layer weights (whole, or its tp block) and its own rows.
   A leaf split along a dim other than its first (`wo`, `w_down` per layer,
   `embed`) is gathered into `[fsdp, ...]` and moved into place, and its
   gradient moved back before the reduce-scatter, so the layout a
@@ -24,12 +27,16 @@ can reshard), and the step computes on their local blocks:
   keeps what it keeps.
 - **Replicated leaves** (the norms: "embed_nosplit" is in no rule) are
   used as they are; their gradients are summed over fsdp after the
-  backward. **dp**: every gradient is then summed over dp.
+  backward, not over tp (`copy_to_tp`'s backward already gave every tp
+  rank the same whole gradient). **sp, then dp**: every gradient is then
+  summed over sp (its ranks saw other positions of the same rows) and
+  over dp.
 - **Global values.** Each rank's loss is scaled by its share of the
-  global token count (`data_sum`), so the summed gradients are the
-  gradient of the global mean and the summed loss is the global loss; the
-  gradient norm sums each leaf's squares over fsdp, counting a replicated
-  leaf once. Every rank gets the same loss and norm.
+  global token count (`data_sum`: over fsdp, sp and dp; tp ranks hold the
+  same tokens), so the summed gradients are the gradient of the global
+  mean and the summed loss is the global loss; the gradient norm sums
+  each leaf's squares over fsdp and then over tp, a leaf not split over
+  an axis counted once. Every rank gets the same loss and norm.
 
 All collectives run on torch's current stream, so they stay ordered with
 the kernels (which launch there too); a collective on the card goes
@@ -127,7 +134,7 @@ def _unpack(x: Any) -> torch.Tensor:
 class FSDP:
     """The collectives of one mesh for a parameter tree of `shardings`
     (nested dicts of NamedSharding, `param_logical_axes`' structure).
-    Needs tp = sp = pp = 1 and no leaf split over dp."""
+    Needs pp = 1 and no leaf split over dp or sp."""
 
     def __init__(self, mesh, shardings: Dict[str, Any]):
         self.mesh = mesh
@@ -135,18 +142,27 @@ class FSDP:
         self.dp_group = mesh.get_group("dp")
         self.n_fsdp = mesh.size(mesh.mesh_dim_names.index("fsdp"))
         self.fsdp_rank = mesh.get_local_rank("fsdp")
+        self.tp_group, self.sp_group = mesh.get_group("tp"), \
+            mesh.get_group("sp")
+        self.n_tp = mesh.size(mesh.mesh_dim_names.index("tp"))
+        self.n_sp = mesh.size(mesh.mesh_dim_names.index("sp"))
+        self.tp_rank = mesh.get_local_rank("tp")
         # the fsdp dim of each leaf by its path ("embed", "layers/wq"); a
         # stacked leaf's is that of one layer's slice (the gather runs a
-        # layer at a time)
+        # layer at a time); and whether the leaf is split over tp
         self.dims: Dict[str, Optional[int]] = {}
+        self.tp_split: Dict[str, bool] = {}
         self._whole = None  # global_norm's mask of leaves not split
+        self._not_tp = None  # the same for tp
         for path, sh in tree_paths(shardings):
-            for part in sh.spec:
-                if part is not None and "dp" in (
-                        part if isinstance(part, tuple) else (part,)):
+            axes = {a for part in sh.spec if part is not None
+                    for a in (part if isinstance(part, tuple) else (part,))}
+            for axis in ("dp", "sp"):
+                if axis in axes:
                     raise NotImplementedError(
-                        f"{path} is split over dp: parameters split over "
-                        f"dp are not ported")
+                        f"{path} is split over {axis}: parameters split "
+                        f"over {axis} are not ported")
+            self.tp_split[path] = "tp" in axes
             dim = _fsdp_dim(sh.spec)
             if dim is not None and path.startswith("layers/"):
                 if dim == 0:
@@ -174,10 +190,12 @@ class FSDP:
             yield
 
     def data_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """`x` summed over the data-parallel ranks (fsdp, then dp), in
-        place."""
+        """`x` summed over the ranks that hold other tokens (fsdp, sp, then
+        dp; not tp, whose ranks hold the same ones), in place."""
         dist = _dist()
         dist.all_reduce(x, group=self.fsdp_group)
+        if self.n_sp > 1:
+            dist.all_reduce(x, group=self.sp_group)
         dist.all_reduce(x, group=self.dp_group)
         return x
 
@@ -185,19 +203,23 @@ class FSDP:
                      grads: Sequence[torch.Tensor]) -> None:
         """After the backward, in place: the gradients of leaves not split
         over fsdp summed over fsdp (each rank saw its own rows), then every
-        gradient summed over dp."""
+        gradient summed over sp (other positions) and over dp."""
         dist = _dist()
         for path, g in zip(paths, grads, strict=True):
             if self.dims[path] is None:
                 dist.all_reduce(g, group=self.fsdp_group)
+        if self.n_sp > 1:
+            for g in grads:
+                dist.all_reduce(g, group=self.sp_group)
         for g in grads:
             dist.all_reduce(g, group=self.dp_group)
 
     def global_norm(self, paths: Sequence[str],
                     grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """sqrt of the sum of squares of the global gradient, in float32:
-        each leaf's squares summed over its fsdp shards, a leaf not split
-        over fsdp counted once; the same value on every rank."""
+        each leaf's squares summed over its fsdp shards and then its tp
+        blocks, a leaf not split over an axis counted once; the same value
+        on every rank."""
         sq = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
                           .square() for g in grads])
         if self.fsdp_rank != 0:
@@ -206,6 +228,14 @@ class FSDP:
                     [self.dims[p] is None for p in paths], device=sq.device)
             sq = sq.masked_fill(self._whole, 0.0)
         _dist().all_reduce(sq, group=self.fsdp_group)
+        if self.n_tp > 1:
+            if self.tp_rank != 0:
+                if self._not_tp is None:
+                    self._not_tp = torch.tensor(
+                        [not self.tp_split[p] for p in paths],
+                        device=sq.device)
+                sq = sq.masked_fill(self._not_tp, 0.0)
+            _dist().all_reduce(sq, group=self.tp_group)
         return sq.sum().sqrt()
 
 

@@ -23,7 +23,9 @@ pairs a mesh with a spec: it cuts a full tensor to this rank's block
 a sharded state is stored and checkpointed.
 
 No mesh axis may split a dim it does not divide: the collectives move
-equal blocks.
+equal blocks. Each axis's process group (`mesh.get_group("tp")`, "sp",
+...) and this rank's place on it (`mesh.get_local_rank("tp")`) are the
+DeviceMesh's own.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """The training step (twin of ray_tpu/train/step.py), on one device or
-sharded dp x fsdp over a mesh.
+sharded dp x fsdp x tp x sp over a mesh.
 
 `make_train_step(cfg, optimizer, device)` returns `(step_fn, init_fn)`:
 `init_fn(seed)` builds a `TrainState` on the device and
@@ -31,12 +31,15 @@ With `mesh=` (a `parallel.make_mesh` DeviceMesh) the state is sharded by
 optimizer moments sharded like the params, the ints replicated. `init_fn`
 draws each leaf as the unsharded init does and keeps this rank's block as
 soon as it is drawn (the gathered state equals the unsharded one bit for
-bit); `step_fn` takes this rank's rows of the global batch (`shard_batch`:
-rows over (dp, fsdp), dp-major as JAX splits them) and runs the
-collectives of `parallel/fsdp.py` around the unchanged model, loss and
-optimizers, which run on the local blocks. The metrics are global and the
-same on every rank. tp, sp and pp, and MoE over more than one data shard,
-raise (ROADMAP.md queue A item 7). `mesh=None` is the single-device step.
+bit); `step_fn` takes this rank's block of the global batch
+(`shard_batch`: rows over (dp, fsdp), dp-major as JAX splits them, the
+sequence over sp) and runs the collectives of `parallel/fsdp.py` around
+the model, whose tp and sp collectives sit inside it
+(`parallel/tensor.py`, ops/ring_attention.py, ops/ulysses.py); the loss
+and the optimizers run on the local blocks. The metrics are global and the
+same on every rank. pp, MoE over more than one shard of (dp, fsdp, tp,
+sp), and a layout tp does not split raise (ROADMAP.md queue A item 7).
+`mesh=None` is the single-device step.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from ray_tpu_torch.ops.kernels.adamw import FusedAdamW, bias_correction
 from ray_tpu_torch.parallel.fsdp import FSDP, tree_paths
 from ray_tpu_torch.parallel.mesh import (DEFAULT_RULES, AxisRules,
                                          NamedSharding, P, logical_sharding)
+from ray_tpu_torch.parallel.tensor import Parallel, check_split
 
 
 @dataclasses.dataclass
@@ -240,9 +244,10 @@ def batch_sharding(mesh) -> Dict[str, NamedSharding]:
 
 def shard_batch(batch: Dict[str, torch.Tensor], mesh
                 ) -> Dict[str, torch.Tensor]:
-    """This rank's rows of a global batch (every key, "tokens" and
+    """This rank's block of a global batch (every key, "tokens" and
     "loss_mask" too, laid out as `batch_sharding`'s inputs): rank (dp_i,
-    fsdp_j) gets row block dp_i * fsdp + fsdp_j."""
+    fsdp_j, sp_k) gets row block dp_i * fsdp + fsdp_j of sequence block
+    sp_k; tp ranks get the same block."""
     s = batch_sharding(mesh)["inputs"]
     return {k: s.local(v) for k, v in batch.items()}
 
@@ -283,24 +288,30 @@ def to_local(tree: Any) -> Any:
 
 
 def _check_mesh(cfg: ModelConfig, mesh, dev: torch.device) -> None:
-    """Raise for what the sharded step does not run: tp, sp, pp, MoE over
-    several data shards, a mesh of another device, no NCCL on the card."""
+    """Raise for what the sharded step does not run: pp, MoE over several
+    shards, a layout tp does not split, sp without a sequence-parallel
+    attention, a mesh of another device, no NCCL on the card."""
     import torch.distributed as dist
 
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    for axis, item in (("tp", "tp with sp"), ("sp", "tp with sp"),
-                       ("pp", "the pipeline")):
-        if sizes[axis] > 1:
-            raise NotImplementedError(
-                f"{axis}={sizes[axis]}: the sharded step runs dp x fsdp "
-                f"only; {axis} waits for {item} (ROADMAP.md, queue A item 7)")
-    shards = sizes["dp"] * sizes["fsdp"]
+    if sizes["pp"] > 1:
+        raise NotImplementedError(
+            f"pp={sizes['pp']}: the sharded step runs dp x fsdp x tp x sp; "
+            f"the pipeline waits for its port (ROADMAP.md, queue A item "
+            f"7.3)")
+    shards = sizes["dp"] * sizes["fsdp"] * sizes["tp"] * sizes["sp"]
     if cfg.n_experts > 0 and shards > 1:
         raise NotImplementedError(
-            f"MoE over {shards} data shards: the reference's router sees "
-            f"the global batch (capacity and dropping are global), a "
-            f"per-rank router would drop other tokens; this waits for expert "
-            f"sharding (ROADMAP.md, queue A item 7)")
+            f"MoE over {shards} shards of (dp, fsdp, tp, sp): the "
+            f"reference's router sees the global batch (capacity and "
+            f"dropping are global), a per-rank router would drop other "
+            f"tokens; this waits for expert sharding (ROADMAP.md, queue A "
+            f"item 7.2)")
+    check_split(cfg, sizes["tp"])
+    if sizes["sp"] > 1 and not (cfg.seq_parallel or cfg.use_ring_attention):
+        raise ValueError(
+            f"sp={sizes['sp']} needs seq_parallel='ring' or 'ulysses': "
+            f"plain attention would need every rank's K/V")
     if mesh.device_type != dev.type:
         raise ValueError(f"a mesh of {mesh.device_type} ranks for a step "
                          f"on {dev}")
@@ -397,11 +408,13 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
 def _sharded_step(cfg: ModelConfig, optimizer: Any, dev: torch.device,
                   on_phase: Optional[Callable[[str], None]], mesh,
                   rules: AxisRules):
-    """The dp x fsdp step: the unsharded step's phases on the local blocks,
-    with parallel/fsdp.py's collectives around the model."""
+    """The sharded step: the unsharded step's phases on the local blocks,
+    with parallel/fsdp.py's collectives around the model and
+    parallel/tensor.py's inside it."""
     _check_mesh(cfg, mesh, dev)
     sh = state_shardings(cfg, mesh, optimizer, rules)
     fsdp = FSDP(mesh, sh.params)
+    par = Parallel.from_mesh(mesh, fsdp.gather)
     paths = [path for path, _ in tree_paths(sh.params)]
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -417,7 +430,7 @@ def _sharded_step(cfg: ModelConfig, optimizer: Any, dev: torch.device,
         if on_phase:
             on_phase("forward")
         with fsdp.saved_tensor_hooks():
-            loss, aux = loss_fn(params, batch, cfg, gather=fsdp.gather)
+            loss, aux = loss_fn(params, batch, cfg, par=par)
             loss = loss * scale
         if on_phase:
             on_phase("backward")

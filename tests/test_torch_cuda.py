@@ -1612,3 +1612,100 @@ def test_four_card_parity(cuda, tmp_path):
     out = multichip.main(["--chips", "4", "--phases", "parity", "--json",
                           str(tmp_path / "multichip.json")])
     assert {"fsdp", "dp", "one_card"} <= set(out["parity"])
+
+
+# ---------------------------------------------------------------- tp and sp
+
+
+@pytest.mark.parametrize("T,tp", [(8192, 2), (8192, 4)])
+def test_ffn_kernels_at_the_tp_local_widths(cuda, T, tp):
+    """K1, K2 and K3 at llama3_8b's d_ff split over tp (7168, 3584 columns)
+    on a card's tokens of the fsdp 2 x tp 2 run (2 rows of 4096)."""
+    d, dff = 4096, 14336 // tp
+    x, dgate, dup = (_bf16(s, cuda, i) for i, s in enumerate(
+        ((T, d), (T, dff), (T, dff))))
+    gate, up = _bf16((T, dff), cuda, 3), _bf16((T, dff), cuda, 4)
+    dy = _bf16((T, d), cuda, 5, 0.01)
+    wd = _bf16((dff, d), cuda, 6, dff ** -0.5)
+    rstd = torch.rand((T, 1), device=cuda) + 0.5
+    nw = _bf16((d,), cuda, 7, 0.1) + 1
+    before = [k.launches for k in ff.KERNELS]
+    got = {"dw_gateup": ff.dw_gateup(x, rstd, nw, dgate, dup),
+           "dw_down": (ff.dw_down(gate, up, dy),),
+           "dgateup": ff.dgateup(dy, wd, gate, up)}
+    want = {"dw_gateup": ff.dw_gateup_plain(x, rstd, nw, dgate, dup),
+            "dw_down": (ff.dw_down_plain(gate, up, dy),),
+            "dgateup": ff.dgateup_plain(dy, wd, gate, up)}
+    torch.cuda.synchronize()
+    for name in got:
+        for g, w in zip(got[name], want[name], strict=True):
+            assert g.shape == w.shape
+            assert _rel_err(g, w) < REL_TOL, name
+    assert [k.launches for k in ff.KERNELS] == [b + 1 for b in before]
+
+
+@pytest.mark.parametrize("bh,s", [(2 * 16, 4096), (4 * 8, 2048),
+                                  (1 * 8, 8192)],
+                         ids=["fsdp2xtp2", "tp4", "ulysses_sp4"])
+def test_flash_kernels_at_the_tp_and_sp_local_heads(cuda, bh, s):
+    """The flash pair on the heads a card computes: 16 of 32 heads at tp 2
+    (2 rows of 4096), 8 at tp 4 (4 x 2048), 8 over the whole 8192 under
+    Ulysses at sp 4 (or tp 2 x sp 2), head_dim 128, causal."""
+    d = 128
+    q, k, v, do = (_bf16((bh, s, d), cuda, i) for i in range(4))
+    scale = d ** -0.5
+    before = [kern.launches for kern in fa.KERNELS]
+    out, lse = fa.flash_fwd(q, k, v, scale, True)
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale, True)
+    delta = fa.flash_delta(p_out, do)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, p_lse, delta, scale, True)
+    dq = fa.flash_bwd_dq(q, k, v, do, p_lse, delta, scale, True)
+    p_dk, p_dv = fa.flash_bwd_dkv_plain(q, k, v, do, p_lse, delta, scale,
+                                        True)
+    p_dq = fa.flash_bwd_dq_plain(q, k, v, do, p_lse, delta, scale, True)
+    torch.cuda.synchronize()
+    for got, want, name in ((out, p_out, "out"), (lse, p_lse, "lse"),
+                            (dq, p_dq, "dq"), (dk, p_dk, "dk"),
+                            (dv, p_dv, "dv")):
+        assert _rel_err(got, want) < REL_TOL, name
+    assert [kern.launches for kern in fa.KERNELS] == [b + 1 for b in before]
+
+
+def test_fused_blocks_with_a_one_rank_tp_group_on_the_card(cuda):
+    """attn_block and ffn_block with a one-rank NCCL tp group: output and
+    every gradient bit-identical to the blocks without a group."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.ops.kernels.fused_attn import attn_block
+    from ray_tpu_torch.ops.kernels.fused_ffn import ffn_block
+    from ray_tpu_torch.ops.layers import rotary_embedding
+    from ray_tpu_torch.parallel import initialize_group, shutdown_group
+
+    b, s, d, nq, nkv, dff = 2, 256, 1024, 8, 2, 2048
+    hd = d // nq
+    x, dy = _bf16((b, s, d), cuda, 0), _bf16((b, s, d), cuda, 1, 0.01)
+    attn_w = [_bf16((d,), cuda, 2, 0.1) + 1,
+              _bf16((d, nq * hd), cuda, 3, d ** -0.5),
+              _bf16((d, nkv * hd), cuda, 4, d ** -0.5),
+              _bf16((d, nkv * hd), cuda, 5, d ** -0.5),
+              _bf16((nq * hd, d), cuda, 6, d ** -0.5)]
+    ffn_w = [_bf16((d,), cuda, 7, 0.1) + 1,
+             _bf16((d, dff), cuda, 8, d ** -0.5),
+             _bf16((d, dff), cuda, 9, d ** -0.5),
+             _bf16((dff, d), cuda, 10, dff ** -0.5)]
+    cos, sin = rotary_embedding(torch.arange(s, device=cuda), hd)
+    initialize_group(0, 1, device="cuda")
+    try:
+        for fn, ws, extra in ((attn_block, attn_w,
+                               (cos[None], sin[None], nq, nkv, 1e-5)),
+                              (ffn_block, ffn_w, (1e-5,))):
+            runs = []
+            for group in (None, dist.group.WORLD):
+                leaves = [t.clone().requires_grad_(True) for t in (x, *ws)]
+                y = fn(*leaves, *extra, tp_group=group)
+                runs.append((y, torch.autograd.grad(y, leaves, dy)))
+            (y0, g0), (y1, g1) = runs
+            assert torch.equal(y0, y1)
+            assert all(torch.equal(a, c) for a, c in zip(g0, g1))
+    finally:
+        shutdown_group()

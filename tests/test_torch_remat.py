@@ -205,7 +205,8 @@ def _port_saved(monkeypatch, name, mode, region):
 
     monkeypatch.setattr(remat, "selective_policy", recording)
     body = ttf._attn_half if region == "attn" else ttf._layer
-    fn = ttf.maybe_remat(functools.partial(body, cfg), cfg, region)
+    fn = ttf.maybe_remat(functools.partial(body, cfg, ttf.SINGLE), cfg,
+                         region)
     out = fn(x, lp, cos[None], sin[None])
     loss = out.sum() if region == "attn" else out[0].sum() + out[1]
     loss.backward()

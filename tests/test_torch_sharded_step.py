@@ -112,6 +112,9 @@ def test_saved_weights_are_gathered_again_in_the_backward(world_one,
 
 
 def test_unported_meshes_raise():
+    """pp and MoE over more than one shard of (dp, fsdp, tp, sp) still
+    raise; tp and sp run (tests/test_torch_tensor_parallel.py,
+    tests/test_torch_seq_parallel.py)."""
     class Mesh:
         mesh_dim_names = ("dp", "pp", "fsdp", "tp", "sp")
         device_type = "cpu"
@@ -120,14 +123,16 @@ def test_unported_meshes_raise():
             self.shape = shape
 
     cpu = torch.device("cpu")
-    for shape, match in (((1, 1, 1, 2, 1), "tp=2"), ((1, 1, 1, 1, 2),
-                                                      "sp=2"),
-                         ((1, 2, 1, 1, 1), "pp=2")):
-        with pytest.raises(NotImplementedError, match=match):
-            _check_mesh(ModelConfig.tiny(), Mesh(shape), cpu)
-    with pytest.raises(NotImplementedError, match="expert sharding"):
-        _check_mesh(ModelConfig.tiny_moe(), Mesh((2, 1, 1, 1, 1)), cpu)
+    with pytest.raises(NotImplementedError, match="pp=2"):
+        _check_mesh(ModelConfig.tiny(), Mesh((1, 2, 1, 1, 1)), cpu)
+    for shape in ((2, 1, 1, 1, 1), (1, 1, 2, 1, 1), (1, 1, 1, 2, 1),
+                  (1, 1, 1, 1, 2)):
+        with pytest.raises(NotImplementedError, match="expert sharding"):
+            _check_mesh(ModelConfig.tiny_moe(), Mesh(shape), cpu)
     _check_mesh(ModelConfig.tiny_moe(), Mesh((1, 1, 1, 1, 1)), cpu)
+    _check_mesh(ModelConfig.tiny(), Mesh((1, 1, 1, 2, 1)), cpu)
+    _check_mesh(dataclasses.replace(ModelConfig.tiny(), seq_parallel="ring"),
+                Mesh((1, 1, 1, 1, 2)), cpu)
 
 
 # ---------------------------------------------------------------- vs JAX
@@ -146,10 +151,12 @@ def _mask():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_steps(n, dp, fsdp, masked):
-    """The JAX step on an n-device virtual mesh: the initial params and,
-    after each of 3 steps, (loss, grad_norm, params)."""
-    mesh = jmake_virtual_mesh(n, JMeshConfig(dp=dp, fsdp=fsdp, tp=1, sp=1))
+def _jax_steps(n, dp, fsdp, masked, tp=1, sp=1, scheme=""):
+    """The JAX step on an n-device virtual mesh (`tiny`, `seq_parallel`
+    `scheme`): the initial params and, after each of 3 steps, (loss,
+    grad_norm, params)."""
+    mesh = jmake_virtual_mesh(n, JMeshConfig(dp=dp, fsdp=fsdp, tp=tp,
+                                             sp=sp))
     real = jstep.batch_sharding
 
     def with_mask(m):  # the loss mask laid out as the rows it masks
@@ -159,8 +166,8 @@ def _jax_steps(n, dp, fsdp, masked):
     jstep.batch_sharding = with_mask if masked else real
     try:
         step_fn, init_fn, _ = jmake_train_step(
-            JConfig.tiny(), mesh, jdefault_optimizer(1e-3, warmup_steps=1),
-            donate=False)
+            dataclasses.replace(JConfig.tiny(), seq_parallel=scheme), mesh,
+            jdefault_optimizer(1e-3, warmup_steps=1), donate=False)
     finally:
         jstep.batch_sharding = real
     state = init_fn(jax.random.PRNGKey(0))
@@ -178,14 +185,21 @@ def _jax_steps(n, dp, fsdp, masked):
     return init, out
 
 
-def _check_against_jax(tmp_path, world, dp, fsdp, masked):
-    init, want = _jax_steps(world, dp, fsdp, masked)
+def _check_against_jax(tmp_path, world, dp, fsdp, masked, tp=1, sp=1,
+                       scheme="", fused=False):
+    """The port's sharded step on `world` gloo ranks against the JAX step
+    at the same mesh (the JAX side unfused: its fused blocks compute the
+    same function, tests/test_torch_fused_blocks.py)."""
+    init, want = _jax_steps(world, dp, fsdp, masked, tp, sp, scheme)
     np.savez(tmp_path / "in.npz", tokens=_tokens().astype(np.int64),
              mask=_mask(),
              **{"p/" + k: np.asarray(v) for k, v in tree_paths(init)})
     got = torch_ranks.run_ranks("steps", world, tmp_path, dp, fsdp,
-                                int(masked))
-    assert got["rows_as_dtensor"] and got["local_rows"] == BATCH // world
+                                int(masked), tp, sp, scheme or "-",
+                                int(fused))
+    assert got["rows_as_dtensor"]
+    assert (got["local_rows"], got["local_seq"]) == (BATCH // (dp * fsdp),
+                                                     SEQ // sp)
     assert got["count"] == got["step"] == 3
     params = dict(np.load(tmp_path / "out.npz"))
     for i, (loss, gnorm, _) in enumerate(want):

@@ -139,10 +139,12 @@ def test_unported_modes_raise():
     _, cfg = _cfgs(False)
     params = params_from_jax(_jax_params(), cfg, device="cpu")
     batch = {"tokens": torch.from_numpy(_tokens())}
-    for kw, err in ((dict(seq_parallel="ring"), NotImplementedError),
-                    (dict(fused_attn=True), ValueError),
-                    (dict(fused_ffn=True, n_experts=4), ValueError)):
-        with pytest.raises(err):
+    for kw, err in ((dict(seq_parallel="ring"), "needs a mesh"),
+                    (dict(use_ring_attention=True), "needs a mesh"),
+                    (dict(seq_parallel="stripes"), "unknown seq_parallel"),
+                    (dict(fused_attn=True), "requires fused_ffn"),
+                    (dict(fused_ffn=True, n_experts=4), "non-sp path")):
+        with pytest.raises(ValueError, match=err):
             loss_fn(params, batch, dataclasses.replace(cfg, **kw))
 
 

@@ -5,10 +5,26 @@ JAX side of a parity test stays in the pytest process.
     python tests/torch_ranks.py TASK OUTDIR RANK WORLD PORT [ARGS...]
 
 Tasks (rank 0 writes OUTDIR/out.npz and OUTDIR/out.json):
-  steps DP FSDP MASKED  3 steps of `default_optimizer(1e-3, warmup_steps=1)`
-                        on `tiny` (float32) from OUTDIR/in.npz (the JAX
-                        params, "p/<path>", and the global batch), each rank
-                        on its rows; losses, grad norms, final params whole.
+  steps DP FSDP MASKED [TP SP SCHEME FUSED]
+                        3 steps of `default_optimizer(1e-3, warmup_steps=1)`
+                        on `tiny` (float32; `seq_parallel=SCHEME`, "-" for
+                        none; the fused blocks if FUSED) from OUTDIR/in.npz
+                        (the JAX params, "p/<path>", and the global batch),
+                        each rank on its block; losses, grad norms, final
+                        params whole.
+  sp_ops                ring and Ulysses attention over sp = WORLD, each
+                        case of OUTDIR/in.npz ("<case>/q", k, v, the
+                        cotangent "dy", "causal"): outputs and dq, dk, dv
+                        whole.
+  tp_blocks             the fused attention and FFN blocks at tp = WORLD
+                        on OUTDIR/in.npz: outputs and gradients whole.
+  vocab CHUNK           vocab_embed and vocab_nll (dense, and chunked by
+                        CHUNK) at tp = WORLD on OUTDIR/in.npz with its loss
+                        mask: the rows, the losses, their gradients whole.
+  reshard_tp            a tiny state at fsdp 4, one step, saved; restored
+                        onto fsdp 2 x tp 2 and saved again; restored onto
+                        fsdp 4: every leaf compared whole both ways; the
+                        next step's loss on each mesh.
   ckpt                  a tiny state at dp 2 x fsdp 2, one step, saved;
                         restored onto fsdp 4; every leaf compared whole;
                         the next step's loss on both meshes.
@@ -111,7 +127,10 @@ def _write(outdir, rank, arrays, result):
         (Path(outdir) / "out.json").write_text(json.dumps(result))
 
 
-def steps(outdir, rank, world, dp, fsdp, masked):
+def steps(outdir, rank, world, dp, fsdp, masked, tp=1, sp=1, scheme="-",
+          fused=0):
+    import dataclasses
+
     import torch
     from torch.distributed.tensor import distribute_tensor
 
@@ -123,8 +142,11 @@ def steps(outdir, rank, world, dp, fsdp, masked):
                                      shard_batch, shard_state,
                                      state_shardings)
 
-    cfg = ModelConfig.tiny()
-    mesh = make_virtual_mesh(world, MeshConfig(dp=int(dp), fsdp=int(fsdp)))
+    cfg = dataclasses.replace(
+        ModelConfig.tiny(), seq_parallel="" if scheme == "-" else scheme,
+        fused_ffn=bool(int(fused)), fused_attn=bool(int(fused)))
+    mesh = make_virtual_mesh(world, MeshConfig(
+        dp=int(dp), fsdp=int(fsdp), tp=int(tp), sp=int(sp)))
     data = dict(np.load(Path(outdir) / "in.npz"))
     optimizer = default_optimizer(1e-3, warmup_steps=1)
     params = params_from_jax(_tree(data, "p/"), cfg, device="cpu")
@@ -151,7 +173,170 @@ def steps(outdir, rank, world, dp, fsdp, masked):
     _write(outdir, rank, arrays, {
         "losses": losses, "norms": norms, "rows_as_dtensor": rows_as_dtensor,
         "local_rows": int(local["inputs"].shape[0]),
+        "local_seq": int(local["inputs"].shape[1]),
         "count": state.opt_state.count, "step": state.step})
+
+
+def _whole_along(t, dim, group=None):
+    """The blocks of `t` along `dim` from every rank of `group`, in rank
+    order (a collective)."""
+    import torch
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim)
+
+
+def sp_ops(outdir, rank, world):
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.ops.ring_attention import ring_attention
+    from ray_tpu_torch.ops.ulysses import ulysses_attention
+
+    data = dict(np.load(Path(outdir) / "in.npz"))
+    group = dist.group.WORLD
+    arrays = {}
+    for case in sorted({k.split("/")[0] for k in data}):
+        s = data[case + "/q"].shape[2] // world  # this rank's positions
+        local = [torch.from_numpy(data[f"{case}/{n}"][:, :, rank * s:
+                                                      (rank + 1) * s])
+                 .requires_grad_(True) for n in ("q", "k", "v")]
+        dy = torch.from_numpy(data[case + "/dy"][:, :, rank * s:
+                                                 (rank + 1) * s])
+        fn = ring_attention if case.startswith("ring") else ulysses_attention
+        lq, lk, lv = local
+        if case.startswith("ring") and lk.shape[1] != lq.shape[1]:
+            rep = lq.shape[1] // lk.shape[1]  # the caller repeats K/V
+            lk, lv = (t.repeat_interleave(rep, dim=1) for t in (lk, lv))
+        out = fn(lq, lk, lv, group, causal=bool(data[case + "/causal"]))
+        grads = torch.autograd.grad(out, local, dy)
+        for name, t in (("out", out), *zip(("dq", "dk", "dv"), grads)):
+            arrays[f"{case}/{name}"] = _whole_along(t.detach(), 2).numpy()
+    _write(outdir, rank, arrays, {"cases": sorted(
+        {k.split("/")[0] for k in data})})
+
+
+def tp_blocks(outdir, rank, world):
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.ops.kernels.fused_attn import attn_block
+    from ray_tpu_torch.ops.kernels.fused_ffn import ffn_block
+
+    data = dict(np.load(Path(outdir) / "in.npz"))
+    group = dist.group.WORLD
+    # the split dim of each weight (its tp block); None replicated
+    splits = {"attn": (None, None, 1, 1, 1, 0, None, None),
+              "ffn": (None, None, 1, 1, 0)}
+    names = {"attn": ("x", "nw", "wq", "wk", "wv", "wo", "cos", "sin"),
+             "ffn": ("x", "nw", "wg", "wu", "wd")}
+    arrays = {}
+    for block, fn in (("attn", attn_block), ("ffn", ffn_block)):
+        leaves = []
+        for name, dim in zip(names[block], splits[block]):
+            t = torch.from_numpy(data[f"{block}/{name}"])
+            if dim is not None:
+                t = t.chunk(world, dim)[rank]
+            leaves.append(t.clone().requires_grad_(True))
+        kw = ({"n_heads": int(data["attn/heads"][0]) // world,
+               "n_kv_heads": int(data["attn/heads"][1]) // world}
+              if block == "attn" else {})
+        y = fn(*leaves, **kw, tp_group=group)
+        grads = torch.autograd.grad(y, leaves,
+                                    torch.from_numpy(data[f"{block}/dy"]))
+        arrays[f"{block}/y"] = y.detach().numpy()
+        for name, dim, g in zip(names[block], splits[block], grads):
+            arrays[f"{block}/d{name}"] = (
+                g if dim is None else _whole_along(g, dim)).numpy()
+    _write(outdir, rank, arrays, {})
+
+
+def vocab(outdir, rank, world, chunk):
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.transformer import chunked_token_nll, token_nll
+    from ray_tpu_torch.parallel.tensor import (Parallel, copy_to_tp,
+                                               vocab_embed)
+
+    data = dict(np.load(Path(outdir) / "in.npz"))
+    group = dist.group.WORLD
+    par = Parallel(tp_group=group, tp=world, tp_rank=rank)
+    emb, x, head = (torch.from_numpy(data[k]) for k in ("emb", "x", "head"))
+    tokens, targets = (torch.from_numpy(data[k]) for k in ("tokens",
+                                                           "targets"))
+    mask = torch.from_numpy(data["mask"])
+    emb_r = emb.chunk(world, 0)[rank].clone().requires_grad_(True)
+    rows = vocab_embed(emb_r, tokens, torch.float32, group, rank)
+    (d_emb,) = torch.autograd.grad(rows, [emb_r],
+                                   torch.from_numpy(data["rows_dy"]))
+    arrays = {"rows": rows.detach().numpy(),
+              "d_emb": _whole_along(d_emb, 0).numpy()}
+    for name in ("dense", "chunked"):
+        xl = x.clone().requires_grad_(True)
+        hl = head.chunk(world, 1)[rank].clone().requires_grad_(True)
+        if name == "dense":
+            logits = (copy_to_tp(xl, group) @ hl).float()
+            loss = token_nll(logits, targets, mask, par)
+        else:
+            loss = chunked_token_nll(xl, hl, targets, mask, int(chunk), par)
+        dx, dh = torch.autograd.grad(loss, [xl, hl])
+        arrays[f"{name}/loss"] = loss.detach().numpy()
+        arrays[f"{name}/dx"] = dx.numpy()
+        arrays[f"{name}/dhead"] = _whole_along(dh, 1).numpy()
+    _write(outdir, rank, arrays, {})
+
+
+def reshard_tp(outdir, rank, world):
+    from ray_tpu_torch.bench import make_batch
+    from ray_tpu_torch.models import ModelConfig
+    from ray_tpu_torch.parallel import MeshConfig, make_virtual_mesh
+    from ray_tpu_torch.train import (abstract_like, default_optimizer,
+                                     latest_checkpoint, load_checkpoint,
+                                     make_train_step, save_checkpoint,
+                                     shard_batch, state_shardings)
+
+    cfg = ModelConfig.tiny()
+    optimizer = default_optimizer(1e-3, warmup_steps=1)
+    meshes = {"fsdp4": make_virtual_mesh(world, MeshConfig(fsdp=4)),
+              "fsdp2xtp2": make_virtual_mesh(world, MeshConfig(fsdp=2,
+                                                               tp=2))}
+    steps = {k: make_train_step(cfg, optimizer, "cpu", mesh=m)
+             for k, m in meshes.items()}
+    batch = make_batch(cfg, 4, 32, 1, "cpu")
+    state, _ = steps["fsdp4"][0](steps["fsdp4"][1](0),
+                                 shard_batch(batch, meshes["fsdp4"]))
+    result, states = {}, {"fsdp4": state}
+    for i, (src, dst) in enumerate((("fsdp4", "fsdp2xtp2"),
+                                    ("fsdp2xtp2", "fsdp4"))):
+        root = Path(outdir) / f"ckpt_{i}"
+        save_checkpoint(states[src], str(root), step=1)
+        target = abstract_like(states[src], state_shardings(
+            cfg, meshes[dst], optimizer))
+        restored, _ = load_checkpoint(latest_checkpoint(str(root)), target)
+        whole_src, whole_dst = {}, {}
+        _whole(_tensors(states[src]), "", whole_src)
+        _whole(_tensors(restored), "", whole_dst)
+        result[f"{src}->{dst}"] = {
+            "leaves": len(whole_src),
+            "equal": sum(np.array_equal(whole_src[k], whole_dst[k])
+                         for k in whole_src),
+            "on_target_mesh": all(t.device_mesh is meshes[dst] for _, t in
+                                  tree_paths(_tensors(restored)))}
+        if i == 0:
+            states[dst] = restored
+        else:
+            states["back"] = restored
+    losses = {}
+    for name, mesh in (("fsdp4", "fsdp4"), ("fsdp2xtp2", "fsdp2xtp2"),
+                       ("back", "fsdp4")):
+        _, m = steps[mesh][0](states[name], shard_batch(batch,
+                                                        meshes[mesh]))
+        losses[name] = float(m["loss"])
+    result["next_loss"] = losses
+    _write(outdir, rank, {}, result)
 
 
 def ckpt(outdir, rank, world):
@@ -232,8 +417,9 @@ if __name__ == "__main__":
     rank, world = int(rank), int(world)
     _setup(rank, world, port)
     try:
-        {"steps": steps, "ckpt": ckpt, "budget": budget}[task](
-            outdir, rank, world, *rest)
+        {"steps": steps, "ckpt": ckpt, "budget": budget, "sp_ops": sp_ops,
+         "tp_blocks": tp_blocks, "vocab": vocab,
+         "reshard_tp": reshard_tp}[task](outdir, rank, world, *rest)
     finally:
         from ray_tpu_torch.parallel import shutdown_group
 
