@@ -87,12 +87,19 @@ Phases (any failure exits non-zero and prints no result line):
      1, 8 heads over 2 kv heads, s 1024, causal) and at 256 in float32 (4
      over 2 heads, s 256, TF32 off), the three packed and the three [b·h,
      s, d] kernels against their plain versions (within 1e-2, float32
-     1e-4, lse 2e-5), each launched once per shape, timed as the phase-7
-     and 7c rows are (0 calls a step); then ops.attention,
-     ops.attention_packed and the fused attn_block at each bf16 shape
-     against the einsum route in float32 (within 1e-2), each flash kernel
-     launched once per entry where the reference's gate takes it (head_dim
-     >= 128) and never below; head_dim 320 must raise;
+     1e-4, lse 2e-5), each launched once per shape and the wide family
+     never, timed as the phase-7 and 7c rows are (0 calls a step); then
+     ops.attention, ops.attention_packed and the fused attn_block at each
+     bf16 shape against the einsum route in float32 (within 1e-2), each
+     flash kernel launched once per entry where the reference's gate takes
+     it (head_dim >= 128) and never below; then head_dim 320 (zero-padded
+     to 384) and 512 through the wide family (csrc/flash_wide.cu) at the
+     same shapes, bf16 and float32, causal and not, both layouts, against
+     the plain versions (bf16 1e-2, float32 1e-4, lse 2e-5 of its max),
+     every launch the wide family's (counted apart), the causal cases
+     timed beside their bound and SDPA (its backend named), and the three
+     entries at 320 and 512 against the einsum route, their wide launches
+     the family's `launches`;
   8. train Llama-3-8B at full width with 8 of its 32 layers (random bf16
      weights, one batch of 2 x 2049 tokens reused) for 8 steps of
      default_optimizer(warmup_steps=2), checking finite losses and grad
@@ -207,8 +214,15 @@ Phases (any failure exits non-zero and prints no result line):
      the step's [2, 2048, 4096] bf16 activations and layer 0's weights with
      a one-rank `tp_group` bit-identical to the blocks without one (output
      and every gradient; the flash pair and K3 once each a pass);
- 16. print the kernels line (the float32 kernels as `<name>_f32`), the
-     nvidia-smi line, and the result line.
+ 15c. the expert-parallel code (the global router's token gather, the
+     dispatch's reduce-scatter and all-reduces, the combine's all-gather,
+     the expert leaves kept local) on a one-rank NCCL mesh: phase 10e's
+     Mixtral-8x7B-width config, 3 steps under each optimizer, losses, grad
+     norms, moe_aux and final params bit-identical to the unsharded MoE
+     step, the same launches a step;
+ 16. print the kernels line (the float32 kernels as `<name>_f32`, the
+     wide family as `<name>_wide`), the nvidia-smi line, and the result
+     line.
 
 Imports torch and the port only (never jax, never ray_tpu).
 """
@@ -1490,15 +1504,146 @@ HEAD_DIM_SHAPES = [(1, 8, 2, 1024, 256, "bfloat16"),
                    (1, 4, 2, 256, 256, "float32")]
 
 
+def flash_case(torch, fa, q, k, v, do, h: int, kv: int, causal: bool,
+               lim: float) -> dict:
+    """The three packed flash kernels on packed q, k, v, dO ([b, s, h·d],
+    [b, s, kv·d]) and the three [b·h, s, d] ones on their flat views (K/V
+    repeated per query head), each called once, against their plain
+    versions. Returns {"checks": {layout: per kernel [(output, (max abs
+    err, relative err), limit)]}, "layouts": {layout: (shape, bytes per
+    kernel, kernel calls, plain calls)} for timing (causal pairs' work),
+    "flat": the [b, s, n·d] -> [b·h, s, d] view}. The caller zeroes and
+    reads the launch counters around it (the plain versions launch
+    nothing)."""
+    b, s, width = q.shape
+    d = width // h
+    scale = d ** -0.5
+    esz = q.element_size()
+
+    def flat(t, n):  # [b, s, n·d] -> [b·h, s, d], heads repeated to h
+        return heads_view(t, n).repeat_interleave(h // n, 1).reshape(
+            b * h, s, d).contiguous()
+
+    q3, k3, v3, do3 = flat(q, h), flat(k, kv), flat(v, kv), flat(do, h)
+    out, lse = fa.flash_fwd_packed(q, k, v, h, kv, scale, causal)
+    p_out, p_lse = fa.flash_fwd_packed_plain(q, k, v, h, kv, scale, causal)
+    delta = fa.flash_delta_packed(p_out, do, h)
+    bwd = (q, k, v, do, p_lse, delta, h, kv, scale, causal)
+    dk, dv = fa.flash_bwd_dkv_packed(*bwd)
+    dq = fa.flash_bwd_dq_packed(*bwd)
+    rows3 = (p_lse.view(b * h, s), delta.view(b * h, s))
+    bwd3 = (q3, k3, v3, do3, *rows3, scale, causal)
+    out3, lse3 = fa.flash_fwd(q3, k3, v3, scale, causal)
+    dk3, dv3 = fa.flash_bwd_dkv(*bwd3)
+    dq3 = fa.flash_bwd_dq(*bwd3)
+    torch.cuda.synchronize()
+    p_dk, p_dv = fa.flash_bwd_dkv_packed_plain(*bwd)
+    p_dq = fa.flash_bwd_dq_packed_plain(*bwd)
+    p_dk3, p_dv3 = fa.flash_bwd_dkv_plain(*bwd3)
+    checks = {
+        "packed": ([("out", rel_err(torch, out, p_out), lim),
+                    ("lse", rel_err(torch, lse, p_lse), STAT_REL_LIMIT)],
+                   [("dk", rel_err(torch, dk, p_dk), lim),
+                    ("dv", rel_err(torch, dv, p_dv), lim)],
+                   [("dq", rel_err(torch, dq, p_dq), lim)]),
+        "flat": ([("out", rel_err(torch, out3, flat(p_out, h)), lim),
+                  ("lse", rel_err(torch, lse3, rows3[0]), STAT_REL_LIMIT)],
+                 [("dk", rel_err(torch, dk3, p_dk3), lim),
+                  ("dv", rel_err(torch, dv3, p_dv3), lim)],
+                 [("dq", rel_err(torch, dq3, flat(p_dq, h)), lim)])}
+    del out, lse, dk, dv, dq, p_dk, p_dv, p_dq, out3, lse3, dk3, dv3, dq3
+    del p_dk3, p_dv3
+    torch.cuda.empty_cache()
+    # bytes and FLOP as phases 7 and 7c (causal pairs only)
+    qo, kvb, rowb = esz * b * s * h * d, esz * b * s * kv * d, 4 * b * h * s
+    kv3 = esz * b * h * s * d  # K/V repeated per query head
+    layouts = {
+        "packed": ((b, h, kv, s, s, d),
+                   (2 * qo + 2 * kvb + rowb, 2 * qo + 4 * kvb + 2 * rowb,
+                    3 * qo + 2 * kvb + 2 * rowb),
+                   (lambda: fa.flash_fwd_packed(q, k, v, h, kv, scale,
+                                                causal),
+                    lambda: fa.flash_bwd_dkv_packed(*bwd),
+                    lambda: fa.flash_bwd_dq_packed(*bwd)),
+                   (lambda: fa.flash_fwd_packed_plain(q, k, v, h, kv, scale,
+                                                      causal),
+                    lambda: fa.flash_bwd_dkv_packed_plain(*bwd),
+                    lambda: fa.flash_bwd_dq_packed_plain(*bwd))),
+        "flat": ((b * h, s, s, d),
+                 (2 * qo + 2 * kv3 + rowb, 2 * qo + 4 * kv3 + 2 * rowb,
+                  3 * qo + 2 * kv3 + 2 * rowb),
+                 (lambda: fa.flash_fwd(q3, k3, v3, scale, causal),
+                  lambda: fa.flash_bwd_dkv(*bwd3),
+                  lambda: fa.flash_bwd_dq(*bwd3)),
+                 (lambda: fa.flash_fwd_plain(q3, k3, v3, scale, causal),
+                  lambda: fa.flash_bwd_dkv_plain(*bwd3),
+                  lambda: fa.flash_bwd_dq_plain(*bwd3)))}
+    return {"checks": checks, "layouts": layouts,
+            "product": 2 * b * h * causal_pairs(s, s, True) * d}
+
+
+def sdpa_library(torch, q, k, v, do, h: int, kv: int):
+    """((forward, backward), (what, what)): one causal SDPA call on the
+    strided [b, h, s, d] views of packed q, k, v (enable_gqa) and the
+    autograd backward of it, the library yardsticks of the flash kernels,
+    naming the backend PyTorch's dispatcher picks."""
+    from torch.nn.attention import SDPBackend
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    views = [heads_view(t, n) for t, n in zip(leaves, (h, kv, kv))]
+    backend = SDPBackend(torch._fused_sdp_choice(
+        *views, is_causal=True, enable_gqa=True)).name
+    out = sdpa(*views, is_causal=True, enable_gqa=True)
+    g4 = heads_view(do, h)
+
+    def forward():
+        with torch.no_grad():
+            sdpa(*views, is_causal=True, enable_gqa=True)
+
+    def backward():
+        torch.autograd.grad(out, leaves, g4, retain_graph=True)
+
+    return (forward, backward), (
+        f"torch scaled_dot_product_attention on the strided [b, h, s, d] "
+        f"views, enable_gqa ({backend} backend)",
+        "the autograd backward of that call")
+
+
+def _fail_checks(name: str, what_shape: str, checks) -> None:
+    for what, (err, rel), limit in checks:
+        if not rel < limit:
+            fail(f"{name} differs from its plain version at {what_shape}: "
+                 f"{what} relative {rel} (limit {limit})")
+
+
+def _time_case(torch, flush, case, lib, names, rows_of, dtype_name: str,
+               calls: int, peak: float, calls_what: str) -> None:
+    """record_checked for each layout and kernel of a `flash_case` into
+    rows_of(layout, i) (None: checked, not timed)."""
+    (lib_fwd, lib_bwd), (lib_what, bwd_what) = lib
+    for layout, (shape, nbytes, fns, plains) in case["layouts"].items():
+        for i, name in enumerate(names[layout]):
+            rows = rows_of(layout, name)
+            if rows is None:
+                _fail_checks(name, f"{shape} {dtype_name}",
+                             case["checks"][layout][i])
+                continue
+            record_checked(torch, flush, rows, name, shape, dtype_name,
+                           calls, case["checks"][layout][i], nbytes[i],
+                           (2, 4, 3)[i] * case["product"], peak, fns[i],
+                           plains[i], (lib_fwd, lib_bwd, lib_bwd)[i],
+                           (lib_what, bwd_what, bwd_what)[i], calls_what)
+
+
 def check_head_dims(torch, gen, train_rows, packed_rows, f32_rows):
     """Phase 7e: the flash kernels at head_dim 256 and at padded head dims,
     through the packed and the [b·h, s, d] entries, against their plain
     versions (each kernel launched once per entry and shape), timed into
     the kernel rows as shapes the training step does not call (0 calls);
     then ops.attention, ops.attention_packed and the fused attn_block at
-    each bf16 shape against the einsum route, and head_dim 320 refused."""
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
+    each bf16 shape against the einsum route, none of it launching the
+    wide family (head dims above 256: `check_wide_head_dims`)."""
     import importlib
 
     from ray_tpu_torch.ops.kernels import flash_attention as fa
@@ -1512,135 +1657,45 @@ def check_head_dims(torch, gen, train_rows, packed_rows, f32_rows):
     for b, h, kv, s, d, dtype_name in HEAD_DIM_SHAPES:
         dtype = getattr(torch, dtype_name)
         f32 = dtype == torch.float32
-        lim = F32_KERNEL_LIMIT if f32 else REL_ERR_LIMIT
-        peak = PEAK_F32_OPS_PER_S if f32 else PEAK_BF16_OPS_PER_S
-        esz = 4 if f32 else 2
-        scale = d ** -0.5
 
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
         q, do = randn(b, s, h * d), randn(b, s, h * d)
         k, v = randn(b, s, kv * d), randn(b, s, kv * d)
-
-        def flat(t, n):  # [b, s, n·d] -> [b·h, s, d], heads repeated to h
-            return heads_view(t, n).repeat_interleave(h // n, 1).reshape(
-                b * h, s, d).contiguous()
-
-        q3, k3, v3, do3 = flat(q, h), flat(k, kv), flat(v, kv), flat(do, h)
         for kern in kernels:  # this shape's launches start here
             kern.launches = 0
-        out, lse = fa.flash_fwd_packed(q, k, v, h, kv, scale)
-        p_out, p_lse = fa.flash_fwd_packed_plain(q, k, v, h, kv, scale)
-        delta = fa.flash_delta_packed(p_out, do, h)
-        bwd = (q, k, v, do, p_lse, delta, h, kv, scale, True)
-        dk, dv = fa.flash_bwd_dkv_packed(*bwd)
-        dq = fa.flash_bwd_dq_packed(*bwd)
-        rows3 = (p_lse.view(b * h, s), delta.view(b * h, s))
-        bwd3 = (q3, k3, v3, do3, *rows3, scale, True)
-        out3, lse3 = fa.flash_fwd(q3, k3, v3, scale)
-        dk3, dv3 = fa.flash_bwd_dkv(*bwd3)
-        dq3 = fa.flash_bwd_dq(*bwd3)
-        torch.cuda.synchronize()
+        case = flash_case(torch, fa, q, k, v, do, h, kv, True,
+                          F32_KERNEL_LIMIT if f32 else REL_ERR_LIMIT)
         launches = {kern.__name__: kern.launches for kern in kernels}
         log(f"head_dim {d} {dtype_name} (b {b}, {h}/{kv} heads, s {s}, "
             f"causal): launches {launches}")
         if launches != {kern.__name__: 1 for kern in kernels}:
             fail(f"phase 7e at head_dim {d} launched {launches}; expected "
                  f"one launch of each flash kernel")
-        p_dk, p_dv = fa.flash_bwd_dkv_packed_plain(*bwd)
-        p_dq = fa.flash_bwd_dq_packed_plain(*bwd)
-        p_dk3, p_dv3 = fa.flash_bwd_dkv_plain(*bwd3)
-        checks = {
-            "packed": ([("out", rel_err(torch, out, p_out), lim),
-                        ("lse", rel_err(torch, lse, p_lse), STAT_REL_LIMIT)],
-                       [("dk", rel_err(torch, dk, p_dk), lim),
-                        ("dv", rel_err(torch, dv, p_dv), lim)],
-                       [("dq", rel_err(torch, dq, p_dq), lim)]),
-            "flat": ([("out", rel_err(torch, out3, flat(p_out, h)), lim),
-                      ("lse", rel_err(torch, lse3, rows3[0]),
-                       STAT_REL_LIMIT)],
-                     [("dk", rel_err(torch, dk3, p_dk3), lim),
-                      ("dv", rel_err(torch, dv3, p_dv3), lim)],
-                     [("dq", rel_err(torch, dq3, flat(p_dq, h)), lim)])}
-        del out, lse, dk, dv, dq, p_dk, p_dv, p_dq, out3, lse3, dk3, dv3, dq3
-        del p_dk3, p_dv3
-        torch.cuda.empty_cache()
-        # bytes and FLOP as phases 7 and 7c (causal pairs only)
-        product = 2 * b * h * causal_pairs(s, s, True) * d
-        qo, kvb, rowb = esz * b * s * h * d, esz * b * s * kv * d, 4 * b * h * s
-        kv3 = esz * b * h * s * d  # K/V repeated per query head
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        views = [heads_view(t, n) for t, n in zip(leaves, (h, kv, kv))]
-        lib_out = sdpa(*views, is_causal=True, enable_gqa=True)
-        g4 = heads_view(do, h)
-
-        def lib_fwd():
-            with torch.no_grad():
-                sdpa(*views, is_causal=True, enable_gqa=True)
-
-        def lib_bwd():
-            torch.autograd.grad(lib_out, leaves, g4, retain_graph=True)
-
-        lib_what = ("torch scaled_dot_product_attention on the strided "
-                    "[b, h, s, d] views, enable_gqa")
-        bwd_what = "the autograd backward of that call"
+        if any(kern.wide_launches for kern in kernels):
+            fail(f"phase 7e at head_dim {d} launched the wide family: it "
+                 f"serves head_dim above {fa.MAX_HEAD_DIM} only")
         suffix = "_f32" if f32 else ""
-        shape7c = (b, h, kv, s, s, d)
-        shape7 = (b * h, s, s, d)
-        layouts = {
-            "packed": (packed_rows if not f32 else None, shape7c,
-                       (2 * qo + 2 * kvb + rowb, 2 * qo + 4 * kvb + 2 * rowb,
-                        3 * qo + 2 * kvb + 2 * rowb),
-                       (lambda: fa.flash_fwd_packed(q, k, v, h, kv, scale),
-                        lambda: fa.flash_bwd_dkv_packed(*bwd),
-                        lambda: fa.flash_bwd_dq_packed(*bwd)),
-                       (lambda: fa.flash_fwd_packed_plain(q, k, v, h, kv,
-                                                          scale),
-                        lambda: fa.flash_bwd_dkv_packed_plain(*bwd),
-                        lambda: fa.flash_bwd_dq_packed_plain(*bwd))),
-            "flat": (train_rows if not f32 else f32_rows, shape7,
-                     (2 * qo + 2 * kv3 + rowb, 2 * qo + 4 * kv3 + 2 * rowb,
-                      3 * qo + 2 * kv3 + 2 * rowb),
-                     (lambda: fa.flash_fwd(q3, k3, v3, scale),
-                      lambda: fa.flash_bwd_dkv(*bwd3),
-                      lambda: fa.flash_bwd_dq(*bwd3)),
-                     (lambda: fa.flash_fwd_plain(q3, k3, v3, scale),
-                      lambda: fa.flash_bwd_dkv_plain(*bwd3),
-                      lambda: fa.flash_bwd_dq_plain(*bwd3)))}
-        for layout, (rows, shape, nbytes, fns, plains) in layouts.items():
-            names = ([f"{n.__name__}{suffix}" for n in fa.PACKED_KERNELS]
-                     if layout == "packed" else
-                     [f"{n.__name__}{suffix}" for n in fa.KERNELS])
-            for i, name in enumerate(names):
-                if rows is None:  # float32 packed: checked, not timed
-                    for what, (err, rel), limit in checks[layout][i]:
-                        if not rel < limit:
-                            fail(f"{name} differs from its plain version at "
-                                 f"{shape} {dtype_name}: {what} relative "
-                                 f"{rel} (limit {limit})")
-                    continue
-                record_checked(torch, flush, rows[name], name, shape,
-                               dtype_name, 0, checks[layout][i], nbytes[i],
-                               (2, 4, 3)[i] * product, peak, fns[i],
-                               plains[i], (lib_fwd, lib_bwd, lib_bwd)[i],
-                               (lib_what, bwd_what, bwd_what)[i],
-                               "calls per training step")
-        lib_fwd = lib_bwd = lib_out = None
-        del leaves, views, g4
+        names = {"packed": [f"{n.__name__}{suffix}"
+                            for n in fa.PACKED_KERNELS],
+                 "flat": [f"{n.__name__}{suffix}" for n in fa.KERNELS]}
+        rows = {"packed": packed_rows if not f32 else None,
+                "flat": train_rows if not f32 else f32_rows}
+        _time_case(torch, flush, case, sdpa_library(torch, q, k, v, do, h,
+                                                    kv), names,
+                   lambda layout, name: (None if rows[layout] is None
+                                         else rows[layout][name]),
+                   dtype_name, 0,
+                   PEAK_F32_OPS_PER_S if f32 else PEAK_BF16_OPS_PER_S,
+                   "calls per training step")
+        del case
         if not f32:
             check_entries_at_head_dim(torch, gen, attn_mod, fused_attn, fa,
                                       rotary_embedding, q, k, v, do, b, h,
                                       kv, s, d)
-        del q, k, v, do, q3, k3, v3, do3, p_out, p_lse, delta, bwd, bwd3
+        del q, k, v, do
         torch.cuda.empty_cache()
-    wide = torch.zeros((1, 128, 320), device="cuda", dtype=torch.bfloat16)
-    try:
-        fa.flash_fwd_packed(wide, wide, wide, 1, 1, 320 ** -0.5)
-    except ValueError as e:
-        log(f"head_dim 320 refused: {e}")
-    else:
-        fail("the flash route took head_dim 320; it must raise")
     del flush
     torch.cuda.empty_cache()
     log(f"phase 7e: {time.perf_counter() - t0:.2f} s")
@@ -1726,6 +1781,108 @@ def check_entries_at_head_dim(torch, gen, attn_mod, fused_attn, fa,
         if not max(e if isinstance(e, tuple) else (e,)) < REL_ERR_LIMIT:
             fail(f"entries at head_dim {d}: {name} {e} (limit "
                  f"{REL_ERR_LIMIT})")
+
+
+# Phase 7e, the wide family (fault C.2): (b, heads, kv heads, s, head_dim,
+# dtype) of the kernel checks, each causal and not, in both layouts; the
+# causal ones timed. 320 is zero-padded to 384 (three 128-column slices),
+# 512 takes four.
+WIDE_SHAPES = [(1, 8, 2, 1024, 320, "bfloat16"),
+               (1, 8, 2, 1024, 512, "bfloat16"),
+               (1, 4, 2, 256, 320, "float32"),
+               (1, 4, 2, 256, 512, "float32")]
+WIDE_NAMES = {"flash_fwd": "flash_fwd_wide",
+              "flash_bwd_dkv": "flash_bwd_dkv_wide",
+              "flash_bwd_dq": "flash_bwd_dq_wide"}
+
+
+def check_wide_head_dims(torch, gen, card: str):
+    """Phase 7e, head_dim 320 and 512 (fault C.2): the wide family
+    (csrc/flash_wide.cu) through the packed entries (GQA by index) and the
+    [b·h, s, d] ones, bf16 and float32, causal and not, against the plain
+    versions (bf16 within 1e-2 of the plain max, float32 1e-4, lse 2e-5
+    of its max), each wrapper launched once per call and every launch the
+    wide family's; the causal cases timed beside their bound and SDPA (its
+    backend named); then ops.attention, ops.attention_packed and the fused
+    attn_block at each shape against the einsum route, with counters
+    zeroed just before and read just after: the wide launches of that run
+    are the family's launches on its path. Returns ({kernel: rows},
+    {kernel: launches})."""
+    import importlib
+
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_attn
+    from ray_tpu_torch.ops.layers import rotary_embedding
+
+    attn_mod = importlib.import_module("ray_tpu_torch.ops.attention")
+    t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    kernels = (*fa.KERNELS, *fa.PACKED_KERNELS)
+    rows = {}
+    path_launches = {}
+    for b, h, kv, s, d, dtype_name in WIDE_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        f32 = dtype == torch.float32
+        suffix = "_f32" if f32 else ""
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        q, do = randn(b, s, h * d), randn(b, s, h * d)
+        k, v = randn(b, s, kv * d), randn(b, s, kv * d)
+        for causal in (True, False):
+            for kern in kernels:
+                kern.launches = kern.wide_launches = kern.f32_launches = 0
+            case = flash_case(torch, fa, q, k, v, do, h, kv, causal,
+                              F32_KERNEL_LIMIT if f32 else REL_ERR_LIMIT)
+            got = {kern.__name__: (kern.launches, kern.wide_launches,
+                                   kern.f32_launches)
+                   for kern in kernels}
+            want = {kern.__name__: (1, 1, int(f32)) for kern in kernels}
+            log(f"wide head_dim {d} {dtype_name} (b {b}, {h}/{kv} heads, s "
+                f"{s}, causal {causal}): (launches, wide, float32) "
+                f"{got}")
+            if got != want:
+                fail(f"phase 7e at head_dim {d} {dtype_name} launched {got};"
+                     f" expected {want}")
+            names = {layout: [name + suffix for name in WIDE_NAMES.values()]
+                     for layout in ("packed", "flat")}
+            # not causal: checked, not timed
+            _time_case(torch, flush, case,
+                       sdpa_library(torch, q, k, v, do, h, kv), names,
+                       lambda layout, name: (rows.setdefault(name, [])
+                                             if causal else None),
+                       dtype_name, 1,
+                       PEAK_F32_OPS_PER_S if f32 else PEAK_BF16_OPS_PER_S,
+                       "call per timed shape")
+            del case
+        # the entries at this head_dim: the family's launches on its path
+        for kern in kernels:
+            kern.wide_launches = 0
+        check_entries_at_head_dim(torch, gen, attn_mod, fused_attn, fa,
+                                  rotary_embedding, q, k, v, do, b, h, kv, s,
+                                  d)
+        for base, name in WIDE_NAMES.items():
+            n = sum(kern.wide_launches for kern in kernels
+                    if kern.__name__ in (base, base + "_packed"))
+            path_launches[name + suffix] = (
+                path_launches.get(name + suffix, 0) + n)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    log(f"wide family launches on its path (ops.attention, "
+        f"ops.attention_packed and attn_block at head_dim 320 and 512): "
+        f"{path_launches}")
+    for name, kernel_rows in rows.items():
+        for r in kernel_rows:
+            log(f"summary {name} {r['shape']} {r['dtype']}: {r['ms']:.4f} ms "
+                f"a launch, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"{r['bound_ms'] / r['ms']:.4f} of bound, plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+                f"[{card}]")
+    del flush
+    torch.cuda.empty_cache()
+    log(f"phase 7e, head_dim 320 and 512: {time.perf_counter() - t0:.2f} s")
+    return rows, path_launches
 
 
 # The first (wmma) designs of flash dk/dv, its packed run, K1, K3 and K2,
@@ -2486,11 +2643,12 @@ KERNEL_SMEM = {
 def ptxas_report(procs) -> None:
     """Log ptxas's registers, spills and the dynamic shared memory of the
     wgmma kernels, the float32 K1, K2 and K3 and the float32 flash
-    forward, dq and dk/dv at each instantiation (the `nvcc -Xptxas -v`
-    runs started in phase 2), any warning ptxas gives, and any note that
-    it serialized products; fail if a float32 K1, K2 or K3 with 128 x 128
-    tiles (8 x 8 accumulators a thread) or a float32 flash kernel at
-    head_dim 128 spills."""
+    forward, dq and dk/dv at each instantiation, and the registers,
+    spills and static shared memory of the wide flash family (the `nvcc
+    -Xptxas -v` runs started in phase 2), any warning ptxas gives, and any
+    note that it serialized products; fail if a float32 K1, K2 or K3 with
+    128 x 128 tiles (8 x 8 accumulators a thread) or a float32 flash
+    kernel at head_dim 128 spills."""
     import re
 
     for name, (proc, out_path) in procs.items():
@@ -2503,6 +2661,16 @@ def ptxas_report(procs) -> None:
             # warnings, and notes of products ptxas serialized (C7515)
             if "warning" in line.lower() or "Performance Loss" in line:
                 log(f"ptxas {name}.cu: {line.strip()}")
+            w = re.search(r"Compiling entry function '.*?(flash_wide_"
+                          r"(?:fwd|dq|dkv)_kernel)I(f|13__nv_bfloat16)E",
+                          line)
+            if w:  # the wide family: static shared memory, one a dtype
+                stats = " ".join(x.split(":", 1)[-1].strip()
+                                 for x in lines[i + 1:i + 4]
+                                 if "registers" in x or "spill" in x)
+                log(f"ptxas {w.group(1)}<"
+                    f"{'float' if w.group(2) == 'f' else 'bf16'}>: {stats}")
+                continue
             m = re.search(r"Compiling entry function '.*?(flash_fwd_kernel|"
                           r"flash_bwd_dq_kernel|flash_bwd_dkv_kernel|"
                           r"flash_fwd_f32_kernel|flash_bwd_dq_f32_kernel|"
@@ -2892,6 +3060,87 @@ def sharded_world_one(torch, card: str, seed: int, cfg):
     return by_path
 
 
+def ep_world_one(torch, card: str, seed: int) -> dict:
+    """Phase 15c: the expert-parallel code (the global router's gather,
+    the dispatch's reduce-scatter and all-reduce, the combine's
+    all-gather, the expert leaves kept local) on a one-rank NCCL mesh:
+    phase 10e's Mixtral-8x7B-width config (2 layers, remat "dots"), 3
+    steps under each optimizer, losses, grad norms, moe_aux and the final
+    params bit-identical to the unsharded MoE step, and the same launches
+    a step (flash forward 2·L, backward L, AdamW once a leaf under fused
+    AdamW). Returns {kernel: {path: launches over the 3 sharded steps}}."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models.transformer import tree_leaves
+    from ray_tpu_torch.ops.kernels import adamw as aw
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.parallel import (MeshConfig, initialize_group,
+                                        make_mesh, shutdown_group)
+    from ray_tpu_torch.train import (default_optimizer,
+                                     fused_adamw_optimizer, make_train_step,
+                                     to_local)
+
+    t0 = time.perf_counter()
+    cfg = mixtral_config(MOE_TRAIN_LAYERS, MOE_TRAIN_CAPACITY, remat="dots")
+    L, steps = cfg.n_layers, 3
+    kernels = (*fa.KERNELS, aw.adamw_update)
+    batch = bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1, "cuda")
+    by_path = {k.__name__: {} for k in kernels}
+    initialize_group(0, 1, device="cuda")
+    try:
+        mesh = make_mesh(MeshConfig())
+        if dist.get_backend() != "nccl":
+            fail(f"the mesh's collectives run on {dist.get_backend()}")
+        for name, make in (("default", default_optimizer),
+                           ("fused AdamW", fused_adamw_optimizer)):
+            runs = {}
+            for label, m in (("unsharded", None), ("sharded", mesh)):
+                gc.collect()
+                torch.cuda.empty_cache()
+                step_fn, init_fn = make_train_step(
+                    cfg, make(warmup_steps=2), device="cuda", mesh=m)
+                state = init_fn(seed)
+                metrics, launches = [], []
+                for _ in range(steps):
+                    for k in kernels:  # the main path's counts start here
+                        k.launches = 0
+                    state, met = step_fn(state, batch)
+                    metrics.append((float(met["loss"]),
+                                    float(met["grad_norm"]),
+                                    float(met["moe_aux"])))
+                    launches.append({k.__name__: k.launches
+                                     for k in kernels})
+                final = [t.cpu() for t in tree_leaves(to_local(
+                    state.params))]
+                runs[label] = (metrics, launches, final)
+                del state, step_fn, init_fn, met
+            (m0, l0, p0), (m1, l1, p1) = runs["unsharded"], runs["sharded"]
+            same = sum(torch.equal(a, b) for a, b in zip(p0, p1, strict=True))
+            want = {"flash_fwd": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
+                    "adamw_update": len(p0) if name == "fused AdamW" else 0}
+            log(f"expert-parallel world 1, {name} [{card}]: losses, grad "
+                f"norms and moe_aux {m1} (unsharded {m0}); final params "
+                f"bit-identical on {same} of {len(p0)} leaves; launches a "
+                f"step {l1[0]} (unsharded {l0[0]})")
+            if m1 != m0 or same != len(p0):
+                fail(f"expert-parallel {name}: the world-1 step differs "
+                     f"from the unsharded MoE step")
+            if any(x != want for x in l1) or l1 != l0:
+                fail(f"expert-parallel {name}: launches {l1}; expected "
+                     f"{want} a step, as unsharded {l0}")
+            for k in kernels:
+                by_path[k.__name__][f"expert-parallel world 1 ({name})"] = \
+                    sum(x[k.__name__] for x in l1)
+            del runs, p0, p1
+    finally:
+        shutdown_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"expert-parallel world 1: phase {time.perf_counter() - t0:.2f} s")
+    return by_path
+
+
 def tp_sp_world_one(torch, card: str, seed: int, cfg):
     """Phase 15b: the tp and sp code at tp = sp = 1 on a one-rank NCCL
     mesh (the docstring's item 15b). Returns {kernel: {path: launches}}."""
@@ -3141,15 +3390,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _util.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     ptxas = {}
-    for src in ("flash_attention", "fused_ffn"):
+    for src in ("flash_attention", "flash_wide", "fused_ffn"):
         obj = _util.BUILD_DIR / f"ptxas-{src}.o"
         ptxas[src] = (subprocess.Popen(
             [_util._nvcc(), *[f for f in _util.NVCC_FLAGS if f != "-shared"],
              "-Xptxas", "-v", "-c", "-o", str(obj),
              str(_util.CSRC_DIR / f"{src}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), obj)
-    libs = _util.build(["quant", "flash_attention", "fused_ffn", "adamw",
-                        "rmsnorm", "xent"])
+    libs = _util.build(["quant", "flash_attention", "flash_wide",
+                        "fused_ffn", "adamw", "rmsnorm", "xent"])
     for lib in libs.values():
         log(f"built {lib.relative_to(HERE)}")
     ptxas_report(ptxas)
@@ -3259,8 +3508,10 @@ def main() -> int:
     f32_cfg = f32_tiny_config()
     f32_rows = check_f32_kernels(torch, gen, f32_cfg, card)
     f32_launches = train_f32_tiny(torch, args.seed, f32_cfg)
-    # ---- phase 7e: head dims 256, 96 and 192 on the flash route
+    # ---- phase 7e: head dims 256, 96 and 192 on the flash route, then
+    # 320 and 512 through the wide family
     check_head_dims(torch, gen, train_rows, packed_rows, f32_rows)
+    wide_rows, wide_launches = check_wide_head_dims(torch, gen, card)
 
     # ---- phases 8-10: train llama3_8b width, 8 layers, on the default
     # step and then the all-kernel step; measure both
@@ -3296,6 +3547,9 @@ def main() -> int:
     for kname, paths in tp_sp_world_one(torch, card, args.seed,
                                         train_cfg).items():
         sharded_launches.setdefault(kname, {}).update(paths)
+    # ---- phase 15c: the expert-parallel code on a one-rank NCCL mesh
+    for kname, paths in ep_world_one(torch, card, args.seed).items():
+        sharded_launches.setdefault(kname, {}).update(paths)
 
     # ---- phase 16: report
     pallas = "ray_tpu/ops/pallas/"
@@ -3315,8 +3569,10 @@ def main() -> int:
                 "flash_fwd_packed": pallas + "flash_attention.py:385",
                 "flash_bwd_dkv_packed": pallas + "flash_attention.py:442",
                 "flash_bwd_dq_packed": pallas + "flash_attention.py:480"}
-    # the float32 kernels replace the same TPU kernels, run in float32
+    # the float32 kernels replace the same TPU kernels, run in float32, and
+    # the wide family the same three at head widths above 256
     replaces.update({k: replaces[k[:-4]] for k in f32_rows})
+    replaces.update({k: replaces[k.split("_wide")[0]] for k in wide_rows})
     csrc = "ray_tpu_torch/ops/kernels/csrc/"
     source = {"quantize_int8": csrc + "quant.cu",
               "dequantize_int8": csrc + "quant.cu",
@@ -3335,6 +3591,7 @@ def main() -> int:
               "flash_bwd_dkv_packed": csrc + "flash_attention.cu",
               "flash_bwd_dq_packed": csrc + "flash_attention.cu"}
     source.update({k: source[k[:-4]] for k in f32_rows})
+    source.update({k: csrc + "flash_wide.cu" for k in wide_rows})
     norm_per = "one norm-and-gradient at the 8B training shape"
     xent_per = "one loss-and-gradient of the 8B logits"
     packed_per = "one forward-and-gradient at the 8B attention shape"
@@ -3344,16 +3601,23 @@ def main() -> int:
            "xent_fwd": xent_per, "xent_bwd": xent_per,
            **{k: packed_per for k in packed_rows},
            **{k: "one training step of the float32 tiny variant at "
-                 "head_dim 128" for k in f32_rows}}
+                 "head_dim 128" for k in f32_rows},
+           **{k: "one call at each timed shape of phase 7e (head_dim 320 "
+                 "and 512, causal, both layouts); launches: ops.attention, "
+                 "ops.attention_packed and attn_block at those widths"
+              for k in wide_rows}}
     launches.update(train_launches)
     launches.update(entry_launches)
     launches.update(f32_launches)
+    launches.update(wide_launches)
     kernels = []
     for kname, rows in {**kernel_rows, **train_rows, **entry_rows,
-                        **packed_rows, **f32_rows}.items():
+                        **packed_rows, **f32_rows, **wide_rows}.items():
         # times: the main path's calls for `per`, each shape timed once and
         # counted as often as the path calls it
         lib = [r for r in rows if r["calls"] and r.get("library_ms")]
+        if not launches[kname] > 0:
+            fail(f"{kname} was never launched on its path")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": source[kname],
@@ -3379,7 +3643,7 @@ def main() -> int:
             kernels[-1]["launches_per_step"] = (f32_launches[kname]
                                                 / F32_TINY_STEPS)
         if kname in train_launches or kname in entry_launches \
-                or kname in f32_launches:
+                or kname in f32_launches or kname in wide_launches:
             kernels[-1]["library"] = lib[0]["library"] if lib else None
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -148,9 +148,11 @@ def _kernel_kind(name: str) -> str:
 def profile_train(step_fn, state, batch, *, steps: int = 3, top: int = 8
                   ) -> Tuple[Any, Dict[str, Any]]:
     """torch.profiler over `steps` training steps: device (kernel and copy)
-    time per step, split by kind of kernel, the kernels that take most of
-    it, and the device-idle share of the window's own host-clock time
-    (synchronized at both ends, profiler overhead included)."""
+    time per step, split by kind of kernel and the collectives by NCCL
+    operation (and the expert-parallel ones by their `ep/` range), the
+    kernels that take most of it, and the device-idle share of the
+    window's own host-clock time (synchronized at both ends, profiler
+    overhead included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -163,9 +165,15 @@ def profile_train(step_fn, state, batch, *, steps: int = 3, top: int = 8
             state, _ = step_fn(state, batch)
         _sync(dev)
         window_ms = 1e3 * (time.perf_counter() - t0)
+    averages = prof.key_averages()
     # device-side rows only: a CPU op's row repeats its kernels' time
     rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in averages if e.device_type == DeviceType.CUDA]
+    # the expert-parallel collectives' ranges (parallel/expert.py): the
+    # device time of the kernels each launched
+    by_range = {e.key: e.device_time_total / 1e3 / steps for e in averages
+                if e.device_type == DeviceType.CPU
+                and e.key.startswith("ep/")}
     rows.sort(key=lambda r: -r[1])
     device_us = sum(r[1] for r in rows)
     by_kind: Dict[str, float] = {}
@@ -184,6 +192,7 @@ def profile_train(step_fn, state, batch, *, steps: int = 3, top: int = 8
         "launches_per_step": sum(r[2] for r in rows) / steps,
         "ms_per_step_by_kind": by_kind,
         "collective_ms_per_step_by_op": by_collective,
+        "ep_collective_ms_per_step": by_range,
         "top": [{"name": k[:90], "ms_per_step": us / 1e3 / steps,
                  "share": us / device_us, "calls_per_step": n / steps}
                 for k, us, n in rows[:top]] if device_us else [],

@@ -36,7 +36,12 @@ Sharded over a mesh, the parameters are each rank's blocks of the leaves
 - sp: each rank holds `seq/sp` positions (rotary positions are global),
   and attention crosses the sp group through `ops/ring_attention.py`
   (`seq_parallel="ring"` or `use_ring_attention`) or `ops/ulysses.py`
-  (`seq_parallel="ulysses"`), as the reference routes it.
+  (`seq_parallel="ulysses"`), as the reference routes it;
+- experts: the expert leaves are split over fsdp along their expert dim
+  and stay local (each fsdp rank runs its own experts), the router routes
+  the global batch's tokens, and `moe_ffn` moves the tokens to their
+  experts and back (`ops/moe.py`, `parallel/expert.py`), under any
+  combination of dp, fsdp, tp and sp.
 """
 
 from __future__ import annotations
@@ -345,11 +350,15 @@ def _layer(cfg: ModelConfig, par: Parallel, x, layer_params, cos, sin):
     FFN."""
     x = _attn_half(cfg, par, x, layer_params, cos, sin)
     p = _deq_tree(layer_params, cfg.dtype)
-    h = copy_to_tp(rms_norm(x, p["mlp_norm"], cfg.norm_eps), par.tp_group)
+    h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     if cfg.n_experts > 0:
+        # the router reads h itself: its branch is replicated over tp, so
+        # its gradient must not be summed over tp (moe_ffn puts copy_to_tp
+        # on the dispatch into the tp-split experts only)
         out, aux = moe_ffn(h, p["router"], p["w_gate"], p["w_up"],
-                           p["w_down"], cfg.capacity_factor)
+                           p["w_down"], cfg.capacity_factor, par)
         return x + out.to(x.dtype), aux
+    h = copy_to_tp(h, par.tp_group)
     if cfg.fused_proj:
         gu = named_matmul(h, torch.cat([p["w_gate"], p["w_up"]], dim=1),
                           "ffn_gate_up")

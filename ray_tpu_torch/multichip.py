@@ -51,6 +51,39 @@ asked), each joining NCCL through `parallel.initialize_group`, and runs:
     ms/step split by NCCL operation (all-gather and reduce-scatter: fsdp;
     all-reduce: tp, and the fsdp all-reduce of the norms' gradients, a
     few hundred KB), beside `eightb_plan(n_chips=4, fsdp=2, tp=2)`.
+(h) ep parity (four cards): Mixtral-8x7B's widths (`mixtral_config`) at 2
+    layers, remat "dots", capacity factor 1.25, moe_aux_weight 0.02, 4 x
+    2048 tokens, 4 steps of `default_optimizer` at fsdp 4 (2 experts a
+    card), fsdp 2 x tp 2 and dp 2 x fsdp 2, then fsdp 4 under fused AdamW,
+    each against one card on the same batch under the same optimizer, in
+    float32 and in bf16. Every run records each token's two experts and
+    kept bits at each step's forward (`_Routes`), and one card's step-1
+    forward is rerun under each layout's step-1 routing. In bf16 a sum
+    taken in another order (tp's all-reduces, the gradients'
+    reduce-scatter) can flip a near-tied choice, and the capacity queue
+    then moves other tokens, so the losses part by more than rounding.
+    Checks: in float32, (a)'s bounds and step-1 moe_aux within 1e-4; in
+    both dtypes, the one card's launches (flash forward 2·L, backward L,
+    K1-K3 never, AdamW once a leaf under fused AdamW), and one card's
+    forward under the layout's routing within 1e-4 of the layout's step-1
+    loss and moe_aux. Logged beside them: the tokens whose first choice,
+    second choice or kept bits differ from one card's, each step and
+    layer. Per bf16 layout ms/step (steps 2-4), tokens/s, peak GiB a card
+    and, over 2 more profiled steps, the NCCL ms/step by operation and by
+    expert-parallel collective (router gather, dispatch reduce-scatter and
+    all-reduce, combine all-gather, each forward and backward). With
+    --cpu: `tiny_moe` at the same layouts, then the dryrun's MoE step
+    (__graft_entry__.py:103-123; fsdp 2 x sp 2 under Ulysses here, one
+    step, a finite loss).
+(i) ep depth (four cards): Mixtral-8x7B's widths at 8 of 32 layers on
+    fsdp 4, 4 x 2048 tokens, 6 steps of `default_optimizer` then 6 of fused
+    AdamW: finite losses, the last below the first, each card's state
+    bytes equal `planning._local_bytes` over the rules; ms/step (steps
+    3-6), tokens/s a card, MFU over the active and over all parameters,
+    peak GiB a card, NCCL ms/step by operation. If the 8 layers peak below
+    45 GiB, 16 layers are tried under `default_optimizer` (4 steps) when
+    the 8-layer peak plus its state predicts them below 72 GiB; what was
+    predicted, and what ran, is reported either way.
 
 Rank 0 prints each phase's numbers and writes them all as JSON (--json).
 Every check raises, so a failing rank ends the run with a non-zero exit;
@@ -85,9 +118,10 @@ from ray_tpu_torch.ops.kernels._util import require_cuda
 
 REPO = Path(__file__).resolve().parents[1]
 PHASES = ("parity", "full_depth", "reshard", "collectives", "tp_parity",
-          "sp_parity", "tp_full_depth")
+          "sp_parity", "tp_full_depth", "ep_parity", "ep_depth")
 # the phases that lay out four ranks as fsdp 2 x tp 2, tp 2 x sp 2, ...
-FOUR_RANK_PHASES = ("tp_parity", "sp_parity", "tp_full_depth")
+FOUR_RANK_PHASES = ("tp_parity", "sp_parity", "tp_full_depth", "ep_parity",
+                    "ep_depth")
 # Parity of the sharded steps with the unsharded one: the same forward
 # (step 1), gradients summed in another order (step-1 norm), then Adam's
 # divide by each gradient's running magnitude (losses 2-4).
@@ -95,6 +129,14 @@ FIRST_LOSS_RTOL, GRAD_NORM_RTOL, LOSS_RTOL = 1e-4, 1e-2, 1e-3
 # Ring attention's bf16 einsum against one card's flash kernels
 RING_BOUNDS = (1e-3, 2e-2, 5e-3)
 RESHARD_LOSS_RTOL = 1e-6
+# (h): step-1 moe_aux against one card's (the same routing of the same
+# tokens, its probabilities' means summed in another order)
+AUX_RTOL = 1e-4
+# (i): the layer counts, and the 16-layer try's gates: the 8 layers' peak
+# below EP_TRY_PEAK_GIB and the predicted 16-layer peak below
+# EP_PREDICT_LIMIT_GIB (10% below the card's 80 GB)
+EP_DEPTH_LAYERS, EP_DEEPER_LAYERS = 8, 16
+EP_TRY_PEAK_GIB, EP_PREDICT_LIMIT_GIB = 45.0, 72.0
 SEED = 0
 # A collective that waits longer than this for a rank fails (the rank 0
 # reference of phase parity runs while the others wait); the whole run
@@ -126,6 +168,29 @@ class Sizes:
                 tiny, n_layers=n_layers, fused_ffn=True, fused_attn=True,
                 remat="dots", n_kv_heads=kv_heads or tiny.n_kv_heads)
         return bench.train_config_8b(n_layers=n_layers)
+
+    def moe_cfg(self, cpu: bool, n_layers: int):
+        """Mixtral-8x7B's widths at `n_layers` (`tiny_moe` on the CPU),
+        remat "dots", capacity factor 1.25, moe_aux_weight 0.02."""
+        from ray_tpu_torch.models import ModelConfig
+
+        base = ModelConfig.tiny_moe() if cpu else mixtral_config(n_layers)
+        return dataclasses.replace(base, n_layers=n_layers, remat="dots",
+                                   capacity_factor=1.25, moe_aux_weight=0.02)
+
+
+def mixtral_config(n_layers: int):
+    """Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1, its
+    config.json): d 4096, 32/8 heads of 128, 8 experts of d_ff 14336,
+    top-2, vocab 32000, rope_theta 1e6, RMSNorm eps 1e-5, untied head,
+    router aux coefficient 0.02 (chip_smoke.py keeps the same config)."""
+    from ray_tpu_torch.models import ModelConfig
+
+    return ModelConfig(vocab_size=32000, d_model=4096, n_layers=n_layers,
+                       n_heads=32, n_kv_heads=8, d_ff=14336,
+                       max_seq_len=32768, rope_theta=1e6, norm_eps=1e-5,
+                       n_experts=8, capacity_factor=1.25,
+                       moe_aux_weight=0.02)
 
 
 GPU_SIZES = Sizes(parity_layers=8, full_layers=32, parity_seq=2048,
@@ -187,22 +252,27 @@ def _kernels():
     return (*fa.KERNELS, *ff.KERNELS, aw.adamw_update)
 
 
-def _steps(r: Rank, step_fn, state, batch, n: int):
+def _steps(r: Rank, step_fn, state, batch, n: int, routes=None):
     """n steps: each one's loss, grad norm, host ms (ending in a sync) and
-    kernel launches."""
+    kernel launches; with `routes` (a `_Routes`), each step's routing."""
     rows = []
     kernels = _kernels()
-    for _ in range(n):
-        for k in kernels:  # the path's counts start here
-            k.launches = 0
-        r.sync()
-        t0 = time.perf_counter()
-        state, m = step_fn(state, batch)
-        loss, norm = float(m["loss"]), float(m["grad_norm"])
-        r.sync()
-        rows.append({"loss": loss, "grad_norm": norm,
-                     "ms": 1e3 * (time.perf_counter() - t0),
-                     "launches": {k.__name__: k.launches for k in kernels}})
+    with routes if routes is not None else contextlib.nullcontext():
+        for _ in range(n):
+            if routes is not None:
+                routes.step()
+            for k in kernels:  # the path's counts start here
+                k.launches = 0
+            r.sync()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            r.sync()
+            rows.append({"loss": loss, "grad_norm": norm,
+                         "moe_aux": float(m["moe_aux"]),
+                         "ms": 1e3 * (time.perf_counter() - t0),
+                         "launches": {k.__name__: k.launches
+                                      for k in kernels}})
     return state, rows
 
 
@@ -216,6 +286,8 @@ def _brief(result: Dict[str, Any]) -> str:
                    grad_norms=[x["grad_norm"] for x in rows],
                    ms=[round(x["ms"], 2) for x in rows],
                    launches_a_step=rows[0]["launches"])
+        if any(x["moe_aux"] for x in rows):
+            out["moe_aux"] = [x["moe_aux"] for x in rows]
     return json.dumps(out)
 
 
@@ -275,37 +347,57 @@ def _compare(name: str, rows, want, bounds=(FIRST_LOSS_RTOL, GRAD_NORM_RTOL,
     """Raise unless a sharded run's steps agree with one card's: step-1
     loss and grad norm, then every later loss, within `bounds`; and (if
     `launches`) every kernel's launches, step by step."""
+    misses = _mismatches(name, rows, want, bounds, launches)
+    _check(not misses, "; ".join(misses))
+
+
+def _mismatches(name: str, rows, want, bounds=(FIRST_LOSS_RTOL,
+                                               GRAD_NORM_RTOL, LOSS_RTOL),
+                launches: bool = True) -> List[str]:
+    """`_compare`'s checks, each one that fails as a message."""
     first, norm, later = bounds
-    _check(_rel(rows[0]["loss"], want[0]["loss"]) <= first,
-           f"{name}: step-1 loss {rows[0]['loss']} vs {want[0]['loss']}")
-    _check(_rel(rows[0]["grad_norm"], want[0]["grad_norm"]) <= norm,
-           f"{name}: step-1 grad norm {rows[0]['grad_norm']} vs "
-           f"{want[0]['grad_norm']}")
+    out = []
+    if _rel(rows[0]["loss"], want[0]["loss"]) > first:
+        out.append(f"{name}: step-1 loss {rows[0]['loss']} vs "
+                   f"{want[0]['loss']} (rel "
+                   f"{_rel(rows[0]['loss'], want[0]['loss']):.3g}, limit "
+                   f"{first})")
+    if _rel(rows[0]["grad_norm"], want[0]["grad_norm"]) > norm:
+        out.append(f"{name}: step-1 grad norm {rows[0]['grad_norm']} vs "
+                   f"{want[0]['grad_norm']} (limit {norm})")
     for i in range(1, len(rows)):
-        _check(_rel(rows[i]["loss"], want[i]["loss"]) <= later,
-               f"{name}: loss {i + 1} {rows[i]['loss']} vs "
-               f"{want[i]['loss']}")
+        if _rel(rows[i]["loss"], want[i]["loss"]) > later:
+            out.append(f"{name}: loss {i + 1} {rows[i]['loss']} vs "
+                       f"{want[i]['loss']} (rel "
+                       f"{_rel(rows[i]['loss'], want[i]['loss']):.3g}, "
+                       f"limit {later})")
     if launches:
         for got, one in zip(rows, want):
-            _check(got["launches"] == one["launches"],
-                   f"{name}: launches {got['launches']} vs one card's "
-                   f"{one['launches']}")
+            if got["launches"] != one["launches"]:
+                out.append(f"{name}: launches {got['launches']} vs one "
+                           f"card's {one['launches']}")
+    return out
 
 
-def _one_card(r: Rank, runs: Dict[str, Any], batch, steps: int):
+def _one_card(r: Rank, runs: Dict[str, Any], batch, steps: int,
+              routes: Dict[str, Any] = None):
     """Each (cfg, optimizer maker, all kernels) of `runs` on rank 0's card
-    alone, then broadcast: {key: {"steps", "peak_gib"}}."""
+    alone, then broadcast: {key: {"steps", "peak_gib"}}. With `routes`,
+    rank 0 also puts each run's routing there (`_Routes.steps`)."""
     from ray_tpu_torch.train import make_train_step
 
     ref = None
     if r.rank == 0:
         ref = {}
         for key, (cfg, make, all_kernels) in runs.items():
+            rec = None if routes is None else _Routes(cfg.n_layers)
             with _kernel_flags(all_kernels):
                 step_fn, init_fn = make_train_step(cfg, make(warmup_steps=2),
                                                    r.dev)
                 state, rows = _steps(r, step_fn, init_fn(r.seed), batch,
-                                     steps)
+                                     steps, rec)
+            if rec is not None:
+                routes[key] = rec.steps
             ref[key] = {"steps": rows, "peak_gib": r.peak_gib()}
             del state, step_fn, init_fn
             r.free()
@@ -453,6 +545,360 @@ def sp_parity(r: Rank) -> Dict[str, Any]:
                 _check(all(x["launches"][k] == 0 for k in (
                     "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")),
                     f"{name}: launches {x['launches']}")
+    return out
+
+
+def _moe_launches(cfg, n_leaves: int, fused: bool) -> Dict[str, int]:
+    """The launches a MoE step makes on the card: under remat "dots" the
+    flash forward twice a layer (the recompute reruns it) and the backward
+    pair once, the fused-FFN kernels never (MoE refuses them), AdamW once
+    a leaf under fused AdamW."""
+    L = cfg.n_layers
+    return {"flash_fwd": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
+            "dw_gateup": 0, "dw_down": 0, "dgateup": 0,
+            "adamw_update": n_leaves if fused else 0}
+
+
+def _check_moe_launches(r: Rank, label: str, rows, want) -> None:
+    if r.cpu:
+        return
+    for x in rows:
+        _check(x["launches"] == want, f"{label}: launches {x['launches']} "
+               f"vs {want}")
+
+
+def _profiled(r: Rank, step_fn, state, batch, rows, tokens: int):
+    """ms/step over steps 2 on, tokens/s, peak GiB, and 2 profiled steps:
+    (state, numbers)."""
+    ms = statistics.mean(x["ms"] for x in rows[1:])
+    peak = r.peak_gib()
+    state, prof = bench.profile_train(step_fn, state, batch, steps=2)
+    return state, {
+        "ms_per_step": ms, "tokens_per_sec": tokens / (ms / 1e3),
+        "tokens_per_sec_per_card": tokens / (ms / 1e3) / r.world,
+        "peak_gib": peak,
+        "device_ms_per_step": prof["device_ms_per_step"],
+        "device_idle_share": prof["device_idle_share"],
+        "ms_per_step_by_kind": prof["ms_per_step_by_kind"],
+        "collective_ms_per_step_by_op":
+            prof["collective_ms_per_step_by_op"],
+        "ep_collective_ms_per_step": prof["ep_collective_ms_per_step"]}
+
+
+class _Routes:
+    """The MoE layers' routing (ops/moe.py looks `_route` and `_choose` up
+    at call time). While active, the first `layers` routings of each step
+    (the forward's: remat's recompute routes again after them) are kept,
+    on the device, as every token's two experts ("first", "second", [T])
+    and kept bits ("kept", [T, 2]), one list a step (`step()` opens it).
+    Given `forced` (one step's list), each of those routings takes its two
+    experts from it, in call order, instead of from the probabilities."""
+
+    def __init__(self, layers: int, forced=None):
+        self.layers, self.forced = layers, forced
+        self.steps: List[List[Dict[str, torch.Tensor]]] = []
+
+    def step(self) -> None:
+        self.steps.append([])
+
+    def __enter__(self) -> "_Routes":
+        from ray_tpu_torch.ops import moe
+
+        self._real = route, choose = moe._route, moe._choose
+        chosen = []
+
+        def choosing(probs):
+            n = len(self.steps[-1])
+            if self.forced is not None and n < self.layers:
+                chosen[:] = self.forced[n]["first"], self.forced[n]["second"]
+            else:
+                chosen[:] = choose(probs)
+            return tuple(chosen)
+
+        def routing(logits, capacity):
+            out = route(logits, capacity)
+            calls = self.steps[-1]
+            if len(calls) < self.layers:
+                calls.append({"first": chosen[0], "second": chosen[1],
+                              "kept": torch.stack((out[0].sum(-1),
+                                                   out[3].sum(-1)), -1) > 0})
+            return out
+
+        moe._route, moe._choose = routing, choosing
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from ray_tpu_torch.ops import moe
+
+        moe._route, moe._choose = self._real
+
+
+def _route_diff(a, b) -> List[List[int]]:
+    """Per layer of one step's two routings (`_Routes`): the tokens whose
+    first choice, second choice, and kept bits differ."""
+    return [[int((x[k] != y[k]).reshape(len(x[k]), -1).any(-1).sum())
+             for k in ("first", "second", "kept")] for x, y in zip(a, b)]
+
+
+EP_LAYOUTS = (("fsdp4", {"fsdp": 4}, "default"),
+              ("fsdp2xtp2", {"fsdp": 2, "tp": 2}, "default"),
+              ("dp2xfsdp2", {"dp": 2, "fsdp": 2}, "default"),
+              ("fsdp4 fused", {"fsdp": 4}, "fused"))
+
+
+def ep_parity(r: Rank) -> Dict[str, Any]:
+    """(h): the expert-parallel step at fsdp 4, fsdp 2 x tp 2 and dp 2 x
+    fsdp 2 under default_optimizer and at fsdp 4 under fused AdamW, each
+    against one card under the same optimizer, in bf16 (measured) and in
+    float32; every layout runs and is logged, and the phase fails at its
+    end if any check missed."""
+    _need_four(r, "ep_parity")
+    sz = r.sizes
+    base = sz.moe_cfg(r.cpu, 2)
+    batch = bench.make_batch(base, 4, sz.parity_seq, r.seed + 1, r.dev)
+    out = {"layers": base.n_layers, "batch": [4, sz.parity_seq]}
+    misses = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        out[name], missed = _ep_parity_runs(
+            r, dataclasses.replace(base, dtype=dtype), batch, name)
+        misses += missed
+    if r.cpu:
+        out["dryrun_moe"] = _dryrun_moe(r)
+    r.log(f"ep parity: {len(misses)} checks missed: {misses}")
+    _check(not misses, "ep parity: " + "; ".join(misses))
+    return out
+
+
+def _ep_parity_runs(r: Rank, cfg, batch, name: str):
+    """(h) in cfg's dtype: (results, the checks missed). bf16 is measured
+    (`_profiled`); float32 is also held to (a)'s bounds."""
+    from ray_tpu_torch.models.transformer import init_params, tree_leaves
+    from ray_tpu_torch.train import (default_optimizer,
+                                     fused_adamw_optimizer, make_train_step,
+                                     shard_batch)
+
+    sz = r.sizes
+    measured = cfg.dtype == torch.bfloat16
+    label = f"ep parity {name}"
+    n_leaves = len(list(tree_leaves(init_params(cfg, device="meta"))))
+    makes = {"default": default_optimizer, "fused": fused_adamw_optimizer}
+    routes = {}  # rank 0: each run's routing, step by step
+    ref = _one_card(r, {k: (cfg, make, False) for k, make in makes.items()},
+                    batch, sz.steps_parity, routes)
+    for key, one in ref.items():
+        r.log(f"{label}: one card, {key}, {cfg.n_layers} layers, batch 4 x "
+              f"{sz.parity_seq}: " + _brief(one))
+        _check_moe_launches(r, f"{label} one card {key}", one["steps"],
+                            _moe_launches(cfg, n_leaves, key == "fused"))
+    out = {"one_card": ref}
+    misses = []
+    unbounded = (math.inf,) * 3  # bf16: the launches alone
+    for layout, mesh_kw, key in EP_LAYOUTS:
+        r.free()
+        mesh = r.mesh(**mesh_kw)
+        step_fn, init_fn = make_train_step(cfg, makes[key](warmup_steps=2),
+                                           r.dev, mesh=mesh)
+        local = shard_batch(batch, mesh)
+        rec = _Routes(cfg.n_layers)
+        state, rows = _steps(r, step_fn, init_fn(r.seed), local,
+                             sz.steps_parity, rec)
+        numbers = {"peak_gib": r.peak_gib()}
+        if measured:
+            state, numbers = _profiled(r, step_fn, state, local, rows,
+                                       4 * sz.parity_seq)
+        routes[layout] = rec.steps
+        out[layout] = {"mesh": mesh_kw, "optimizer": key, "steps": rows,
+                       **numbers}
+        r.log(f"{label} {layout}: " + _brief(out[layout]))
+        misses += _mismatches(f"{name} {layout}", rows, ref[key]["steps"],
+                              unbounded if measured else (
+                                  FIRST_LOSS_RTOL, GRAD_NORM_RTOL,
+                                  LOSS_RTOL))
+        if not all(math.isfinite(x["loss"]) for x in rows):
+            misses.append(f"{name} {layout}: losses {rows}")
+        want = ref[key]["steps"][0]["moe_aux"]
+        if not measured and _rel(rows[0]["moe_aux"], want) > AUX_RTOL:
+            misses.append(f"{name} {layout}: step-1 moe_aux "
+                          f"{rows[0]['moe_aux']} vs {want} (limit "
+                          f"{AUX_RTOL})")
+        del state, step_fn, init_fn, mesh, local, rec
+        r.free()
+    witness = _route_witness(r, cfg, batch, routes)
+    for layout, _, _ in EP_LAYOUTS:
+        w, first = witness[layout], out[layout]["steps"][0]
+        out[layout]["routing"] = w
+        r.log(f"{label} {layout}: routing against one card's (tokens "
+              f"whose first choice, second choice, kept bits differ; each "
+              f"step, each layer) {w['diff']}; one card's step-1 forward "
+              f"under this routing: loss {w['loss']} (this layout "
+              f"{first['loss']}), moe_aux {w['moe_aux']} (this layout "
+              f"{first['moe_aux']})")
+        for what, limit in (("loss", FIRST_LOSS_RTOL),
+                            ("moe_aux", AUX_RTOL)):
+            if not _rel(w[what], first[what]) <= limit:
+                misses.append(f"{name} {layout}: one card's step-1 {what} "
+                              f"under its routing {w[what]} vs "
+                              f"{first[what]} (limit {limit})")
+    out["one_card_forward"] = witness["one card"]
+    r.log(f"{label}: one card's step-1 forward alone: "
+          + json.dumps(witness["one card"]))
+    return out, misses
+
+
+def _route_witness(r: Rank, cfg, batch, routes) -> Dict[str, Any]:
+    """On rank 0, then broadcast: each layout's routing against one
+    card's under its optimizer, step by step (`_route_diff`), and one
+    card's step-1 forward (the same params and batch) under the layout's
+    step-1 routing: its loss and moe_aux. Under "one card", that forward
+    under its own choices, beside the step's."""
+    from ray_tpu_torch.models.transformer import init_params, loss_fn
+
+    out = None
+    if r.rank == 0:
+        params = init_params(cfg, seed=r.seed, device=r.dev)
+
+        def forward(rec):
+            with torch.no_grad(), rec:
+                rec.step()
+                loss, aux = loss_fn(params, batch, cfg)
+            return {"loss": float(loss), "moe_aux": float(aux["moe_aux"])}
+
+        own = _Routes(cfg.n_layers)
+        out = {"one card": forward(own)}
+        out["one card"]["diff"] = _route_diff(routes["default"][0],
+                                              own.steps[0])
+        for layout, _, key in EP_LAYOUTS:
+            got = routes[layout]
+            out[layout] = {
+                "diff": [_route_diff(a, b)
+                         for a, b in zip(routes[key], got)],
+                **forward(_Routes(cfg.n_layers, forced=got[0]))}
+        del params
+    r.free()
+    return r.from_rank0(out)
+
+
+def _dryrun_moe(r: Rank) -> Dict[str, Any]:
+    """The dryrun's MoE step (__graft_entry__.py:103-123: `tiny_moe`, the
+    experts over the fsdp axis, one step of `default_optimizer(1e-3)` on
+    the dryrun's mesh and batch) on the CPU ranks: fsdp 2 x sp 2, with
+    Ulysses for the sp axis (the port's step needs a sequence-parallel
+    attention there), 4 rows of 64: a finite loss."""
+    from ray_tpu_torch.models import ModelConfig
+    from ray_tpu_torch.train import (default_optimizer, make_train_step,
+                                     shard_batch)
+
+    cfg = dataclasses.replace(ModelConfig.tiny_moe(), seq_parallel="ulysses")
+    mesh = r.mesh(fsdp=2, sp=2)
+    step_fn, init_fn = make_train_step(cfg, default_optimizer(1e-3), r.dev,
+                                       mesh=mesh)
+    batch = shard_batch(bench.make_batch(cfg, 4, 64, r.seed + 3, r.dev),
+                        mesh)
+    _, m = step_fn(init_fn(r.seed), batch)
+    loss, aux = float(m["loss"]), float(m["moe_aux"])
+    r.log(f"ep parity: the dryrun's MoE step, fsdp 2 x sp 2 (experts over "
+          f"fsdp), loss {loss:.4f}, moe_aux {aux:.4f}")
+    _check(math.isfinite(loss) and math.isfinite(aux),
+           f"dryrun MoE: loss {loss}, moe_aux {aux}")
+    del step_fn, init_fn, mesh
+    r.free()
+    return {"loss": loss, "moe_aux": aux}
+
+
+def ep_depth(r: Rank) -> Dict[str, Any]:
+    """(i): Mixtral-8x7B's widths at EP_DEPTH_LAYERS layers on fsdp 4 under
+    each optimizer, then the EP_DEEPER_LAYERS try."""
+    from ray_tpu_torch.train import default_optimizer, fused_adamw_optimizer
+
+    _need_four(r, "ep_depth")
+    layers = r.sizes.full_layers if r.cpu else EP_DEPTH_LAYERS
+    runs = (("default", default_optimizer), ("fused", fused_adamw_optimizer))
+    out = {"mesh": {"fsdp": 4}, "layers": layers,
+           "runs": _ep_depth_runs(r, layers, runs, r.sizes.steps_full)}
+    if r.cpu:
+        return out
+    peak = max(x["peak_gib"] for x in out["runs"].values())
+    predicted = 2 * peak  # everything doubles but the logits and the batch
+    deeper = {"layers": EP_DEEPER_LAYERS, "peak_gib_at_fewer": peak,
+              "predicted_peak_gib": predicted}
+    if peak < EP_TRY_PEAK_GIB and predicted < EP_PREDICT_LIMIT_GIB:
+        deeper["runs"] = _ep_depth_runs(r, EP_DEEPER_LAYERS,
+                                        runs[:1], 4)
+    else:
+        deeper["not_tried"] = (
+            f"{layers} layers peaked at {peak:.2f} GiB (try below "
+            f"{EP_TRY_PEAK_GIB}), predicting {predicted:.2f} GiB (limit "
+            f"{EP_PREDICT_LIMIT_GIB})")
+    r.log(f"ep depth {EP_DEEPER_LAYERS} layers: " + json.dumps(
+        {k: v for k, v in deeper.items() if k != "runs"}))
+    out["deeper"] = deeper
+    return out
+
+
+def _ep_depth_runs(r: Rank, layers: int, runs, steps: int
+                   ) -> Dict[str, Any]:
+    """`layers` of the MoE config on fsdp 4, 4 rows a step, `steps` steps
+    under each (name, optimizer maker) of `runs`: checks and numbers."""
+    from ray_tpu_torch.models import count_params
+    from ray_tpu_torch.models.planning import _local_bytes, _tree_bytes
+    from ray_tpu_torch.models.transformer import (init_params,
+                                                  param_logical_axes,
+                                                  tree_leaves)
+    from ray_tpu_torch.train import make_train_step, shard_batch, to_local
+
+    sz = r.sizes
+    seq = sz.parity_seq
+    cfg = sz.moe_cfg(r.cpu, layers)
+    mesh = r.mesh(fsdp=4)
+    batch = shard_batch(bench.make_batch(cfg, 4, seq, r.seed + 1, r.dev),
+                        mesh)
+    axes, sizes = param_logical_axes(cfg), {"fsdp": 4}
+    meta = init_params(cfg, device="meta")
+    # the parameters a token passes through: all but (E - 2) experts' three
+    # matrices in every layer (top-2)
+    dead = cfg.n_layers * (cfg.n_experts - 2) * 3 * cfg.d_model * cfg.d_ff
+    out = {}
+    for name, make in runs:
+        r.free()
+        optimizer = _GradBytes(make(warmup_steps=2))
+        step_fn, init_fn = make_train_step(cfg, optimizer, r.dev, mesh=mesh)
+        state = init_fn(r.seed)
+        n_params = count_params(state.params)
+        live = {"params": _tree_bytes(to_local(state.params)),
+                "optimizer": _tree_bytes(to_local(state.opt_state))}
+        state, rows = _steps(r, step_fn, state, batch, steps)
+        live["grads"] = optimizer.nbytes
+        opt_meta = make().init(meta)
+        want = {"params": _local_bytes(meta, axes, sizes),
+                "optimizer": sum(_local_bytes(getattr(opt_meta, m), axes,
+                                              sizes) for m in ("mu", "nu"))}
+        want["grads"] = want["params"]
+        state, numbers = _profiled(r, step_fn, state, batch, rows[1:],
+                                   4 * seq)
+        ms = numbers["ms_per_step"]  # steps 3 on
+        res = {"n_params": n_params, "active_params": n_params - dead,
+               "steps": rows, **numbers, "live_bytes": live,
+               "local_bytes": want,
+               "mfu": bench.throughput(cfg, n_params, 1, seq, ms / 1e3,
+                                       r.peak)["mfu"],
+               "mfu_active": bench.throughput(cfg, n_params - dead, 1, seq,
+                                              ms / 1e3, r.peak)["mfu"]}
+        out[name] = res
+        r.log(f"ep depth {layers} layers {name}: " + _brief(res))
+        losses = [x["loss"] for x in rows]
+        _check(all(math.isfinite(x) for x in losses)
+               and all(math.isfinite(x["grad_norm"]) for x in rows),
+               f"ep depth {name}: losses {losses}")
+        _check(losses[-1] < losses[0],
+               f"ep depth {name}: the loss did not fall: {losses}")
+        _check(live == want, f"ep depth {name}: live bytes {live} vs "
+               f"_local_bytes' {want}")
+        _check_moe_launches(r, f"ep depth {name}", rows, _moe_launches(
+            cfg, len(list(tree_leaves(meta))), name == "fused"))
+        del state, step_fn, init_fn, optimizer
+    del mesh, batch
+    r.free()
     return out
 
 
@@ -673,14 +1119,15 @@ def collectives(r: Rank) -> Dict[str, Any]:
     events over 20 calls after 5."""
     from ray_tpu_torch.models import ModelConfig, init_params
     from ray_tpu_torch.models.planning import H100_NVLINK_BW
+    from ray_tpu_torch.models.transformer import param_logical_axes
     from ray_tpu_torch.parallel.fsdp import FSDP, tree_paths
     from ray_tpu_torch.train import state_shardings, default_optimizer
 
     cfg = (dataclasses.replace(ModelConfig.tiny(), dtype=torch.bfloat16)
            if r.cpu else ModelConfig.llama3_8b())
     mesh = r.mesh(fsdp=r.world)
-    fsdp = FSDP(mesh, state_shardings(cfg, mesh,
-                                      default_optimizer()).params)
+    fsdp = FSDP(mesh, state_shardings(cfg, mesh, default_optimizer()).params,
+                param_logical_axes(cfg))
     n = r.world
     shapes: Dict[tuple, List[str]] = {}  # a gathered shard (one layer's)
     for path, t in tree_paths(init_params(cfg, device="meta")):

@@ -18,14 +18,18 @@ KV-cache convention):
 On a CUDA tensor each of the three wrappers launches its hand-written kernel
 (csrc/flash_attention.cu) or raises: the kernels take bfloat16 or float32
 operands, all of one dtype (`KERNEL_DTYPES`; the reference computes in the
-input dtype), and head_dim 1 to 256. They are instantiated at 32, 64, 128
-and 256 (`HEAD_DIMS`); the wrappers zero-pad any other head_dim to the next
-of them before the launch and slice the outputs back (`pad_heads`,
-`unpad_heads`; exact, since the scale is the caller's). Each wrapper counts
-its launches in `.launches` and, of those, the float32 kernel's in
-`.f32_launches`. The float32 kernels also take a tile height planned
-from the shape: the query tile of the forward and dq (`f32_fwd_tile`: 64
-rows where those tiles alone make a wave of the card, else 16) and the key
+input dtype), and any head_dim. Up to 256 they are instantiated at 32, 64,
+128 and 256 (`HEAD_DIMS`); above 256 the wide family (csrc/flash_wide.cu)
+takes the head in output slices of `WIDE_SLICE` columns, recomputing the
+score over the whole width in each. The wrappers zero-pad any other
+head_dim to the next instantiated one, or to a multiple of `WIDE_SLICE`,
+before the launch and slice the outputs back (`kernel_head_dim`,
+`pad_heads`, `unpad_heads`; exact, since the scale is the caller's). Each
+wrapper counts its launches in `.launches` and, of those, the float32
+kernel's in `.f32_launches` and the wide family's in `.wide_launches`.
+The float32 kernels up to 256 also take a tile height planned from the
+shape: the query tile of the forward and dq (`f32_fwd_tile`: 64 rows
+where those tiles alone make a wave of the card, else 16) and the key
 tile of dk/dv (`f32_dkv_tile`, the same rule over kv heads and keys); dq
 and dk/dv stream the other side in tiles of `F32_BWD_STREAM` rows.
 `key_tiles`, `tile_needs_mask`, `query_tiles` and `bwd_tile_needs_mask`
@@ -63,11 +67,15 @@ from ray_tpu_torch.ops.kernels._util import (KERNEL_DTYPES, WAVE_BLOCKS,
                                              with_f32)
 
 _NEG_INF = -1e30
-# The head dims the CUDA kernels are instantiated at. Any other head_dim up
-# to the last is zero-padded to the next of them before the launch and the
-# outputs sliced back (`pad_heads`, `unpad_heads`); a wider one raises.
+# The head dims the CUDA kernels of flash_attention.cu are instantiated at.
+# Any other head_dim up to the last is zero-padded to the next of them
+# before the launch and the outputs sliced back (`pad_heads`,
+# `unpad_heads`); a wider one is zero-padded to a multiple of WIDE_SLICE and
+# runs the wide family of flash_wide.cu, one block a slice of that many
+# output columns.
 HEAD_DIMS = (32, 64, 128, 256)
 MAX_HEAD_DIM = HEAD_DIMS[-1]
+WIDE_SLICE = 128
 
 _P, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every entry takes the packed layout (batch, heads, n_rep, sq, sk, d);
@@ -86,6 +94,12 @@ _SIGNATURES = {
                              _INT),
     "rt_flash_bwd_dq_f32": ([_P] * 7 + _LAYOUT + [_F, _INT, _INT, _P], _INT),
 }
+# The wide family: the bf16 entries' arguments, in both dtypes (no tile).
+_WIDE_SIGNATURES = with_f32({
+    "rt_flash_wide_fwd": _SIGNATURES["rt_flash_fwd"],
+    "rt_flash_wide_bwd_dkv": _SIGNATURES["rt_flash_bwd_dkv"],
+    "rt_flash_wide_bwd_dq": _SIGNATURES["rt_flash_bwd_dq"],
+})
 
 # The float32 plan: a forward or dq block owns F32_FWD_TILES[0] query rows
 # of one head where those tiles alone make a wave of WAVE_BLOCKS blocks,
@@ -157,6 +171,13 @@ def tile_needs_mask(q0: int, k0: int, sq: int, sk: int,
 
 def _entry(name: str, dtype: torch.dtype):
     return dtype_entry("flash_attention", _SIGNATURES, name, dtype)
+
+
+def _wide_entry(name: str, dtype: torch.dtype):
+    """The wide family's entry for `name` ("rt_flash_fwd" ->
+    "rt_flash_wide_fwd")."""
+    return dtype_entry("flash_wide", _WIDE_SIGNATURES,
+                       name.replace("rt_flash_", "rt_flash_wide_"), dtype)
 
 
 # ---------------------------------------------------------------- plain
@@ -287,8 +308,11 @@ def flash_bwd_dq_packed_plain(q, k, v, do, lse, delta, n_heads: int,
 
 
 def kernel_head_dim(d: int) -> int:
-    """The instantiated head_dim that a head of width d (1 to
-    MAX_HEAD_DIM) runs at, zero-padded."""
+    """The head_dim that a head of width d runs at, zero-padded: the next
+    instantiated one up to MAX_HEAD_DIM, above it the next multiple of
+    WIDE_SLICE (the wide family's slices)."""
+    if d > MAX_HEAD_DIM:
+        return -(-d // WIDE_SLICE) * WIDE_SLICE
     return next(kd for kd in HEAD_DIMS if d <= kd)
 
 
@@ -328,8 +352,8 @@ def _check(q, k, v, what: str) -> None:
 
 def _check_cuda(tensors, what: str) -> None:
     """The kernels' contract: CUDA, one device, contiguous, 16-byte
-    aligned; operands of one dtype in KERNEL_DTYPES and head_dim up to
-    MAX_HEAD_DIM (checked by callers)."""
+    aligned; operands of one dtype in KERNEL_DTYPES and head_dim at least
+    1 (checked by callers)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
@@ -348,10 +372,9 @@ def _check_operands(q, k, v, d: int, batch: int, heads: int,
         raise TypeError(f"{what}: the CUDA kernels take bfloat16 or float32 "
                         f"operands of one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"{what}: the CUDA kernels take head_dim 1 to "
-                         f"{MAX_HEAD_DIM} (instantiated at {HEAD_DIMS}, "
-                         f"other widths zero-padded), got {d}")
+    if d < 1:
+        raise ValueError(f"{what}: the CUDA kernels take head_dim >= 1, "
+                         f"got {d}")
     if batch > 65535 or heads > 65535:
         raise ValueError(f"{what}: a grid axis of {max(batch, heads)} "
                          f"exceeds 65535")
@@ -374,13 +397,21 @@ def _padded(layout, q, k, v, do=None):
     return (b, heads, n_rep, sq, sk, kd), q, k, v, do, back
 
 
+def _kernel_entry(name: str, layout, dtype: torch.dtype):
+    """(library, entry point, wide): the wide family above MAX_HEAD_DIM
+    (the padded layout's head_dim), else flash_attention.cu's kernels."""
+    if layout[5] > MAX_HEAD_DIM:
+        return (*_wide_entry(name, dtype), True)
+    return (*_entry(name, dtype), False)
+
+
 def _launch_fwd(q, k, v, lse, layout, scale, causal, what) -> torch.Tensor:
     layout, q, k, v, _, back = _padded(layout, q, k, v)
     out = torch.empty_like(q)
-    lib, fn = _entry("rt_flash_fwd", q.dtype)
+    lib, fn, wide = _kernel_entry("rt_flash_fwd", layout, q.dtype)
     b, heads, _, sq = layout[:4]
-    tile = ((f32_fwd_tile(b * heads, sq),) if q.dtype == torch.float32
-            else ())
+    tile = ((f32_fwd_tile(b * heads, sq),)
+            if q.dtype == torch.float32 and not wide else ())
     check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *layout, float(scale), int(causal), *tile,
@@ -392,10 +423,10 @@ def _launch_dkv(q, k, v, do, lse, delta, layout, scale, causal, what):
     layout, q, k, v, do, back = _padded(layout, q, k, v, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib, fn = _entry("rt_flash_bwd_dkv", q.dtype)
+    lib, fn, wide = _kernel_entry("rt_flash_bwd_dkv", layout, q.dtype)
     b, heads, n_rep, _, sk = layout[:5]
     tile = ((f32_dkv_tile(b * heads // n_rep, sk),)
-            if q.dtype == torch.float32 else ())
+            if q.dtype == torch.float32 and not wide else ())
     check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -406,15 +437,23 @@ def _launch_dkv(q, k, v, do, lse, delta, layout, scale, causal, what):
 def _launch_dq(q, k, v, do, lse, delta, layout, scale, causal, what):
     layout, q, k, v, do, back = _padded(layout, q, k, v, do)
     dq = torch.empty_like(q)
-    lib, fn = _entry("rt_flash_bwd_dq", q.dtype)
+    lib, fn, wide = _kernel_entry("rt_flash_bwd_dq", layout, q.dtype)
     b, heads, _, sq = layout[:4]
-    tile = ((f32_fwd_tile(b * heads, sq),) if q.dtype == torch.float32
-            else ())
+    tile = ((f32_fwd_tile(b * heads, sq),)
+            if q.dtype == torch.float32 and not wide else ())
     check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *layout,
         float(scale), int(causal), *tile, stream_handle(q)), what)
     return back(dq, True)
+
+
+def _count(wrapper, dtype: torch.dtype, d: int) -> None:
+    """One launch of `wrapper`'s kernel at head_dim d: the wide family's
+    above MAX_HEAD_DIM."""
+    count_launch(wrapper, dtype)
+    if d > MAX_HEAD_DIM:
+        wrapper.wide_launches += 1
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -433,7 +472,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.empty_like(q), lse
     out = _launch_fwd(q, k, v, lse, (bh, 1, 1, sq, k.shape[1], d), scale,
                       causal, "flash_fwd")
-    count_launch(flash_fwd, q.dtype)
+    _count(flash_fwd, q.dtype, d)
     return out, lse
 
 
@@ -475,7 +514,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float,
     dk, dv = _launch_dkv(q, k, v, do, lse, delta,
                          (bh, 1, 1, sq, k.shape[1], d), scale, causal,
                          "flash_bwd_dkv")
-    count_launch(flash_bwd_dkv, q.dtype)
+    _count(flash_bwd_dkv, q.dtype, d)
     return dk, dv
 
 
@@ -489,7 +528,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float,
         return torch.empty_like(q)
     dq = _launch_dq(q, k, v, do, lse, delta, (bh, 1, 1, sq, k.shape[1], d),
                     scale, causal, "flash_bwd_dq")
-    count_launch(flash_bwd_dq, q.dtype)
+    _count(flash_bwd_dq, q.dtype, d)
     return dq
 
 
@@ -570,7 +609,7 @@ def flash_fwd_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.empty_like(q), lse
     out = _launch_fwd(q, k, v, lse, _packed_layout(q, k, n_heads, n_kv, d),
                       scale, causal, "flash_fwd_packed")
-    count_launch(flash_fwd_packed, q.dtype)
+    _count(flash_fwd_packed, q.dtype, d)
     return out, lse
 
 
@@ -602,7 +641,7 @@ def flash_bwd_dkv_packed(q, k, v, do, lse, delta, n_heads: int, n_kv: int,
     dk, dv = _launch_dkv(q, k, v, do, lse, delta,
                          _packed_layout(q, k, n_heads, n_kv, d), scale,
                          causal, "flash_bwd_dkv_packed")
-    count_launch(flash_bwd_dkv_packed, q.dtype)
+    _count(flash_bwd_dkv_packed, q.dtype, d)
     return dk, dv
 
 
@@ -619,7 +658,7 @@ def flash_bwd_dq_packed(q, k, v, do, lse, delta, n_heads: int, n_kv: int,
     dq = _launch_dq(q, k, v, do, lse, delta,
                     _packed_layout(q, k, n_heads, n_kv, d), scale, causal,
                     "flash_bwd_dq_packed")
-    count_launch(flash_bwd_dq_packed, q.dtype)
+    _count(flash_bwd_dq_packed, q.dtype, d)
     return dq
 
 
@@ -692,10 +731,13 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor,
 
 # Launch counts: each wrapper adds one to `.launches` where it launches its
 # kernel, and nowhere else (the CPU path launches nothing); `.f32_launches`
-# counts the float32 kernel's share. The packed wrappers run the same
-# kernels but count apart: no model path calls them.
+# counts the float32 kernel's share, `.wide_launches` the wide family's
+# (head_dim above MAX_HEAD_DIM).
+# The packed wrappers run the same kernels but count apart: no model path
+# calls them.
 KERNELS = (flash_fwd, flash_bwd_dkv, flash_bwd_dq)
 PACKED_KERNELS = (flash_fwd_packed, flash_bwd_dkv_packed, flash_bwd_dq_packed)
 for _wrapper in (*KERNELS, *PACKED_KERNELS):
     _wrapper.launches = 0
     _wrapper.f32_launches = 0
+    _wrapper.wide_launches = 0

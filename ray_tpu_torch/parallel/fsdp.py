@@ -25,6 +25,17 @@ can reshard), and the step computes on their local blocks:
   backward" (models/planning.py). Inside a checkpointed region (remat
   modes, the chunked loss) torch's own hooks take over, and the region
   keeps what it keeps.
+- **Expert leaves.** A leaf split over fsdp along its "expert" dim (the
+  MoE `w_gate`, `w_up` and `w_down`, found from their logical axes) is
+  never gathered: each fsdp rank runs its own experts on every token's
+  slots (`parallel/expert.py` moves the tokens to them), so `gather`
+  returns the shard as it is and the backward hooks have nothing to
+  re-gather. Its gradient is this rank's experts' whole gradient over the
+  fsdp group's tokens already (the dispatch's reduce-scatter summed them),
+  so `reduce_grads` does not sum it over fsdp; it is summed over sp and
+  dp like every gradient, and `global_norm` sums its squares over fsdp
+  like any leaf split there. The router is an ordinary leaf, gathered
+  on its embed dim.
 - **Replicated leaves** (the norms: "embed_nosplit" is in no rule) are
   used as they are; their gradients are summed over fsdp after the
   backward, not over tp (`copy_to_tp`'s backward already gave every tp
@@ -133,10 +144,13 @@ def _unpack(x: Any) -> torch.Tensor:
 
 class FSDP:
     """The collectives of one mesh for a parameter tree of `shardings`
-    (nested dicts of NamedSharding, `param_logical_axes`' structure).
-    Needs pp = 1 and no leaf split over dp or sp."""
+    (nested dicts of NamedSharding, `param_logical_axes`' structure), whose
+    `logical_axes` (`param_logical_axes` itself) mark the expert leaves:
+    those split over fsdp along an "expert" dim, kept local (module
+    docstring). Needs pp = 1 and no leaf split over dp or sp."""
 
-    def __init__(self, mesh, shardings: Dict[str, Any]):
+    def __init__(self, mesh, shardings: Dict[str, Any],
+                 logical_axes: Dict[str, Any]):
         self.mesh = mesh
         self.fsdp_group = mesh.get_group("fsdp")
         self.dp_group = mesh.get_group("dp")
@@ -154,6 +168,8 @@ class FSDP:
         self.tp_split: Dict[str, bool] = {}
         self._whole = None  # global_norm's mask of leaves not split
         self._not_tp = None  # the same for tp
+        names = dict(tree_paths(logical_axes))
+        self.experts = set()  # the expert leaves' paths
         for path, sh in tree_paths(shardings):
             axes = {a for part in sh.spec if part is not None
                     for a in (part if isinstance(part, tuple) else (part,))}
@@ -164,6 +180,8 @@ class FSDP:
                         f"over {axis} are not ported")
             self.tp_split[path] = "tp" in axes
             dim = _fsdp_dim(sh.spec)
+            if dim is not None and names[path][dim] == "expert":
+                self.experts.add(path)
             if dim is not None and path.startswith("layers/"):
                 if dim == 0:
                     raise ValueError(f"{path}: the stacked layers dim "
@@ -173,9 +191,10 @@ class FSDP:
 
     def gather(self, path: str, t: torch.Tensor) -> torch.Tensor:
         """The full weight of `path` from this rank's shard `t` (one layer's
-        slice for a stacked leaf); a leaf not split over fsdp as it is."""
+        slice for a stacked leaf); a leaf not split over fsdp, or an expert
+        leaf, as it is."""
         dim = self.dims[path]
-        if dim is None:
+        if dim is None or path in self.experts:
             return t
         full = _Gather.apply(t, dim, self.fsdp_group, self.n_fsdp)
         root = full if full._base is None else full._base
@@ -202,8 +221,10 @@ class FSDP:
     def reduce_grads(self, paths: Sequence[str],
                      grads: Sequence[torch.Tensor]) -> None:
         """After the backward, in place: the gradients of leaves not split
-        over fsdp summed over fsdp (each rank saw its own rows), then every
-        gradient summed over sp (other positions) and over dp."""
+        over fsdp summed over fsdp (each rank saw its own rows; a split
+        leaf's reduce-scatter, or an expert leaf's dispatch, summed the
+        others), then every gradient summed over sp (other positions) and
+        over dp."""
         dist = _dist()
         for path, g in zip(paths, grads, strict=True):
             if self.dims[path] is None:

@@ -26,10 +26,12 @@ is a partial sum over tp until the next contraction over the split dim:
   PyTorch, as `token_nll` is.
 
 `Parallel` is what the model's forward needs of a mesh: the fsdp gather
-(`parallel.fsdp.FSDP.gather`), and the tp and sp groups with this rank's
-place in them. `SINGLE` is one device: no gather, no group. A tp group
-is held only when tp > 1, so a mesh with tp = 1 runs the unsplit model;
-the sp group is always held, for the sequence-parallel attention.
+(`parallel.fsdp.FSDP.gather`), and the tp, sp, fsdp and dp groups with
+this rank's place in them. `SINGLE` is one device: no gather, no group. A
+tp group is held only when tp > 1, so a mesh with tp = 1 runs the unsplit
+model; the sp, fsdp and dp groups are always held, for the
+sequence-parallel attention and the expert-parallel MoE
+(`parallel/expert.py`), whose router sees every data rank's tokens.
 
 All collectives run on torch's current stream; on the card they go
 through NCCL (the step refuses another backend).
@@ -63,17 +65,25 @@ class Parallel:
     sp_group: Any = None      # None without a mesh
     sp: int = 1
     sp_rank: int = 0
+    fsdp_group: Any = None    # None without a mesh
+    fsdp: int = 1
+    fsdp_rank: int = 0
+    dp_group: Any = None      # None without a mesh
+    dp: int = 1
+    dp_rank: int = 0
 
     @classmethod
     def from_mesh(cls, mesh, gather: Callable[[str, Any], Any] = _whole
                   ) -> "Parallel":
         sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-        tp, sp = sizes["tp"], sizes["sp"]
+        tp = sizes["tp"]
+        held = {f"{axis}{suffix}": value for axis in ("sp", "fsdp", "dp")
+                for suffix, value in (("_group", mesh.get_group(axis)),
+                                      ("", sizes[axis]),
+                                      ("_rank", mesh.get_local_rank(axis)))}
         return cls(gather=gather,
                    tp_group=mesh.get_group("tp") if tp > 1 else None, tp=tp,
-                   tp_rank=mesh.get_local_rank("tp"),
-                   sp_group=mesh.get_group("sp"), sp=sp,
-                   sp_rank=mesh.get_local_rank("sp"))
+                   tp_rank=mesh.get_local_rank("tp"), **held)
 
 
 SINGLE = Parallel()

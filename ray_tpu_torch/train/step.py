@@ -36,10 +36,13 @@ bit); `step_fn` takes this rank's block of the global batch
 sequence over sp) and runs the collectives of `parallel/fsdp.py` around
 the model, whose tp and sp collectives sit inside it
 (`parallel/tensor.py`, ops/ring_attention.py, ops/ulysses.py); the loss
-and the optimizers run on the local blocks. The metrics are global and the
-same on every rank. pp, MoE over more than one shard of (dp, fsdp, tp,
-sp), and a layout tp does not split raise (ROADMAP.md queue A item 7).
-`mesh=None` is the single-device step.
+and the optimizers run on the local blocks. MoE runs on any such mesh:
+the experts are split over fsdp and stay local (`parallel/fsdp.py`), and
+the router sees the global batch (`ops/moe.py`, `parallel/expert.py`), so
+`moe_aux` is the global load-balancing loss on every rank. The metrics
+are global and the same on every rank. pp (ROADMAP.md queue A item 7.3),
+a layout tp does not split (item 7.5) and an fsdp that does not divide
+the experts raise. `mesh=None` is the single-device step.
 """
 
 from __future__ import annotations
@@ -288,9 +291,10 @@ def to_local(tree: Any) -> Any:
 
 
 def _check_mesh(cfg: ModelConfig, mesh, dev: torch.device) -> None:
-    """Raise for what the sharded step does not run: pp, MoE over several
-    shards, a layout tp does not split, sp without a sequence-parallel
-    attention, a mesh of another device, no NCCL on the card."""
+    """Raise for what the sharded step does not run: pp, experts that
+    fsdp does not divide, a layout tp does not split, sp without a
+    sequence-parallel attention, a mesh of another device, no NCCL on the
+    card."""
     import torch.distributed as dist
 
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
@@ -299,14 +303,12 @@ def _check_mesh(cfg: ModelConfig, mesh, dev: torch.device) -> None:
             f"pp={sizes['pp']}: the sharded step runs dp x fsdp x tp x sp; "
             f"the pipeline waits for its port (ROADMAP.md, queue A item "
             f"7.3)")
-    shards = sizes["dp"] * sizes["fsdp"] * sizes["tp"] * sizes["sp"]
-    if cfg.n_experts > 0 and shards > 1:
-        raise NotImplementedError(
-            f"MoE over {shards} shards of (dp, fsdp, tp, sp): the "
-            f"reference's router sees the global batch (capacity and "
-            f"dropping are global), a per-rank router would drop other "
-            f"tokens; this waits for expert sharding (ROADMAP.md, queue A "
-            f"item 7.2)")
+    if cfg.n_experts > 0 and cfg.n_experts % sizes["fsdp"]:
+        raise ValueError(
+            f"fsdp={sizes['fsdp']} does not divide n_experts="
+            f"{cfg.n_experts}: the expert leaves layers/w_gate, "
+            f"layers/w_up and layers/w_down split their expert dim over "
+            f"fsdp in equal blocks")
     check_split(cfg, sizes["tp"])
     if sizes["sp"] > 1 and not (cfg.seq_parallel or cfg.use_ring_attention):
         raise ValueError(
@@ -413,7 +415,7 @@ def _sharded_step(cfg: ModelConfig, optimizer: Any, dev: torch.device,
     parallel/tensor.py's inside it."""
     _check_mesh(cfg, mesh, dev)
     sh = state_shardings(cfg, mesh, optimizer, rules)
-    fsdp = FSDP(mesh, sh.params)
+    fsdp = FSDP(mesh, sh.params, param_logical_axes(cfg))
     par = Parallel.from_mesh(mesh, fsdp.gather)
     paths = [path for path, _ in tree_paths(sh.params)]
 

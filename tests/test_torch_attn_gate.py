@@ -116,8 +116,11 @@ def test_operand_checks_refuse_float16_and_mixed_dtypes():
     qb = _zeros((2, 64, 128), torch.bfloat16)
     with pytest.raises(TypeError, match="one dtype"):
         fa._check_operands(q32, qb, qb, 128, 2, 1, "flash_fwd")
+    # head_dim 320 runs the wide family (fault C.2 closed); 0 is refused
+    fa._check_operands(q32, q32, q32, 320, 2, 1, "flash_fwd")
+    q0 = _zeros((2, 64, 0), torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
-        fa._check_operands(q32, q32, q32, 320, 2, 1, "flash_fwd")
+        fa._check_operands(q0, q0, q0, 0, 2, 1, "flash_fwd")
     x16 = _zeros((8, 16), torch.float16)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         ff._require_dtype("dw_gateup", (x16, x16, x16))

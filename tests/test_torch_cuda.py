@@ -1103,7 +1103,9 @@ def test_k1_kernel_matches_plain_version(cuda, T, d, dff):
 def test_attention_entries_launch_the_kernels_at_head_dim_256(cuda):
     """ops.attention, ops.attention_packed and the fused attn_block at
     head_dim 256, s 128 take the flash route and launch its kernels (they
-    raised before), against the einsum reference; head_dim 320 raises."""
+    raised before), against the einsum reference, and none of the wide
+    family; head_dim 320 takes the wide family (it raised before the
+    wide kernels), once per kernel."""
     b, h, kv, s, d = 1, 2, 1, 128, 256
     q = _bf16((b, s, h * d), cuda, 0).requires_grad_(True)
     k = _bf16((b, s, kv * d), cuda, 1).requires_grad_(True)
@@ -1140,11 +1142,66 @@ def test_attention_entries_launch_the_kernels_at_head_dim_256(cuda):
     torch.cuda.synchronize()
     assert [kern.launches for kern in fa.KERNELS] == [n + 1 for n in before]
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(dx).all())
-    wide = torch.zeros((1, 128, 320), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 1 to 256"):
-        attention(wide.view(1, 1, 128, 320), wide.view(1, 1, 128, 320),
-                  wide.view(1, 1, 128, 320))
+    assert all(kern.wide_launches == 0 for kern in fa.KERNELS)
+    wide = _bf16((1, 1, 128, 320), cuda, 12).requires_grad_(True)
+    out = attention(wide, wide, wide)
+    torch.autograd.grad(out, (wide,), torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert [kern.wide_launches for kern in fa.KERNELS] == [1, 1, 1]
 
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["flat", "packed"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_head_dims_match_plain_versions(no_tf32, d, dtype, causal,
+                                             packed):
+    """Fault C.2: the wide family (csrc/flash_wide.cu) at head_dim 320
+    (zero-padded to 384) and 512, forward, dk/dv and dq, on [b·h, s, d]
+    and on the packed layout with GQA (4 over 2 heads, s 150: a ragged
+    tile), against the plain versions: bf16 within 1e-2 of the plain max,
+    float32 within 1e-4, lse within 2e-5 of its max; one wide launch
+    each."""
+    b, h, kv, s = 1, 4, 2, 150
+    lim = 1e-4 if dtype == torch.float32 else REL_TOL
+    q, do = (_randn((b, s, h * d), no_tf32, dtype, i) for i in (0, 3))
+    k, v = (_randn((b, s, kv * d), no_tf32, dtype, i) for i in (1, 2))
+    scale = d ** -0.5
+    if packed:
+        fwd, dkv, dq_fn = (fa.flash_fwd_packed, fa.flash_bwd_dkv_packed,
+                           fa.flash_bwd_dq_packed)
+        plain = (fa.flash_fwd_packed_plain, fa.flash_bwd_dkv_packed_plain,
+                 fa.flash_bwd_dq_packed_plain)
+        heads = (h, kv, scale, causal)
+    else:
+        def flat(t, n):
+            return _heads(t, n).repeat_interleave(h // n, 1).reshape(
+                b * h, s, d).contiguous()
+
+        q, do, k, v = flat(q, h), flat(do, h), flat(k, kv), flat(v, kv)
+        fwd, dkv, dq_fn = fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq
+        plain = (fa.flash_fwd_plain, fa.flash_bwd_dkv_plain,
+                 fa.flash_bwd_dq_plain)
+        heads = (scale, causal)
+    kernels = (fwd, dkv, dq_fn)
+    before = [(kern.launches, kern.wide_launches) for kern in kernels]
+    out, lse = fwd(q, k, v, *heads)
+    p_out, p_lse = plain[0](q, k, v, *heads)
+    delta = (fa.flash_delta_packed(p_out, do, h) if packed
+             else fa.flash_delta(p_out, do))
+    bwd = (q, k, v, do, p_lse, delta, *heads)
+    dk, dv = dkv(*bwd)
+    dq = dq_fn(*bwd)
+    torch.cuda.synchronize()
+    assert [(kern.launches, kern.wide_launches) for kern in kernels] == [
+        (n + 1, w + 1) for n, w in before]
+    p_dk, p_dv = plain[1](*bwd)
+    p_dq = plain[2](*bwd)
+    assert _rel_err(out, p_out) < lim
+    assert _rel_err(lse, p_lse) < STAT_TOL
+    for got, want in ((dk, p_dk), (dv, p_dv), (dq, p_dq)):
+        assert got.shape == want.shape and _rel_err(got, want) < lim
 
 
 # --------------------------- rows that see no key; the wgmma K3 and K2
@@ -1313,13 +1370,13 @@ def _moe_loss_and_grads(cfg, params, tokens, device):
     from ray_tpu_torch.ops import moe
 
     routed = []
-    real = moe.top2_gating
+    real = moe._route
 
     def recording(logits, capacity):
         routed.append(logits.detach())
         return real(logits, capacity)
 
-    moe.top2_gating = recording
+    moe._route = recording
     try:
         p = {k: ({kk: vv.to(device).requires_grad_(True)
                   for kk, vv in v.items()} if isinstance(v, dict)
@@ -1334,7 +1391,7 @@ def _moe_loss_and_grads(cfg, params, tokens, device):
             torch.cuda.synchronize()
         launches = {kern.__name__: kern.launches for kern in fa.KERNELS}
     finally:
-        moe.top2_gating = real
+        moe._route = real
     return (loss.item(), aux["moe_aux"].item(), [g.cpu() for g in grads],
             launches, routed)
 

@@ -1,16 +1,28 @@
-"""Head dims up to 256 on the flash route, on the CPU.
+"""Head dims beyond 128 on the flash route, on the CPU: up to 256 through
+flash_attention.cu's kernels, above it through the wide family
+(csrc/flash_wide.cu, output slices of `WIDE_SLICE` columns).
 
-* The flash plain versions at head_dim 96, 192 and 256 against the
-  reference's Pallas kernels in interpret mode, which take any head_dim
-  (ray_tpu/ops/pallas/flash_attention.py:104-137): float32 within 2e-4, the
-  tolerance of tests/test_torch_flash_attention.py.
+* The flash plain versions at head_dim 96, 192, 256, 320 and 512 against
+  the reference's Pallas kernels in interpret mode, which take any head_dim
+  (ray_tpu/ops/pallas/flash_attention.py:104-137), and the packed plain
+  versions with GQA at 320 and 512 against the packed Pallas kernels
+  (:376-502): float32 within 2e-4, the tolerance of
+  tests/test_torch_flash_attention.py.
 * The zero padding the CUDA wrappers apply before a launch (`pad_heads` to
-  the next instantiated head_dim, `unpad_heads` after): padding, the plain
-  version at the padded width, then slicing back gives the unpadded plain
-  version's outputs bit for bit, in the [b·h, s, d] and the packed layout
-  with GQA, because the padded columns add exact zeros to every score, to
-  dO·Vᵀ and to Δ, and the caller's scale is kept.
-* `_check_operands` takes head_dim 1 to 256 and refuses 320 and float16.
+  the next instantiated head_dim, or above 256 to the next multiple of the
+  wide family's slice, `unpad_heads` after): padding, the plain version at
+  the padded width, then slicing back gives the unpadded plain version's
+  outputs bit for bit, in the [b·h, s, d] and the packed layout with GQA,
+  because the padded columns add exact zeros to every score, to dO·Vᵀ and
+  to Δ, and the caller's scale is kept. (Above 256 the widths are 320
+  and 352, padded to 384: there the CPU's vectorized sums and GEMM
+  blocking keep the order of the unpadded columns. Padding 500 to 512
+  changes the sum's 16-lane split, and 448 to 512 the GEMM's blocking of
+  the reduced axis, and either moves the last bit, though the zeros are
+  exact; the kernels' sums are checked on the card against the plain
+  versions.)
+* `_check_operands` takes any head_dim from 1 (320 and 512 included) and
+  refuses head_dim 0 and float16.
 """
 
 import functools
@@ -26,7 +38,7 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 
 # (bh, sq, sk, d, causal, block_q, block_k): square and causal; a ragged
 # key tail (100 with block 64) against 64 queries, not causal
-CASES = [(hd, *case) for hd in (96, 192, 256)
+CASES = [(hd, *case) for hd in (96, 192, 256, 320, 512)
          for case in ((2, 128, 128, True, 64, 64), (1, 64, 100, False, 32, 64))]
 
 
@@ -69,10 +81,58 @@ def test_plain_backward_matches_pallas_at_wide_head_dims(case):
         np.testing.assert_allclose(g.numpy(), w, err_msg=name, **TOL)
 
 
+# (b, heads, kv heads, s, d, causal, block): GQA n_rep 4 and 2, causal and
+# not, a ragged tail (72 with block 32)
+PACKED_CASES = [(1, 4, 1, 64, 320, True, 32), (2, 4, 2, 72, 512, False, 32),
+                (1, 4, 2, 64, 512, True, 32), (2, 2, 1, 48, 320, False, 16)]
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_reference(case):
+    """The packed Pallas forward and backward on PACKED_CASES[case]
+    (interpret mode), lse at sublane 0 of its [b, 8·h, sq] broadcast."""
+    b, h, kv, s, d, causal, block = PACKED_CASES[case]
+    q, k, v, do = _packed_inputs(case)
+    scale = d ** -0.5
+    out, lse = jfa._flash_fwd_packed(q, k, v, h, kv, scale, causal, block,
+                                     block)
+    dq, dk, dv = jfa._flash_bwd_packed(q, k, v, out, lse, do, h, kv, scale,
+                                       causal, block, block)
+    lse0 = np.array(lse).reshape(b, h, 8, s)[:, :, 0, :]
+    return tuple(np.array(t) for t in (out, lse0, dq, dk, dv))
+
+
+def _packed_inputs(case):
+    b, h, kv, s, d, _, _ = PACKED_CASES[case]
+    rng = np.random.default_rng(100 + case)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, s, h * d), (b, s, kv * d), (b, s, kv * d),
+                          (b, s, h * d))]
+
+
+@pytest.mark.parametrize("case", range(len(PACKED_CASES)))
+def test_packed_plain_versions_match_pallas_at_wide_head_dims(case):
+    """The packed layout with GQA above head_dim 256: out, lse, dq, dk and
+    dv of the plain versions against the packed Pallas kernels."""
+    b, h, kv, s, d, causal, _ = PACKED_CASES[case]
+    q, k, v, do = (torch.from_numpy(a) for a in _packed_inputs(case))
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_packed(q, k, v, h, kv, scale, causal)
+    dq, dk, dv = fa.flash_bwd_packed(q, k, v, out, lse, do, h, kv, scale,
+                                     causal)
+    for got, want, name in zip((out, lse, dq, dk, dv),
+                               _packed_reference(case),
+                               ("out", "lse", "dq", "dk", "dv")):
+        np.testing.assert_allclose(got.numpy(), want, err_msg=name, **TOL)
+
+
 @pytest.mark.parametrize("d,kd", [(1, 32), (32, 32), (33, 64), (96, 128),
                                   (128, 128), (129, 256), (192, 256),
-                                  (256, 256)])
+                                  (256, 256), (257, 384), (320, 384),
+                                  (384, 384), (512, 512), (513, 640)])
 def test_kernel_head_dim_is_the_next_instantiated_one(d, kd):
+    """Up to 256 the next instantiated head_dim; above it the next
+    multiple of the wide family's slice."""
     assert fa.kernel_head_dim(d) == kd
 
 
@@ -99,7 +159,9 @@ DTYPES = [torch.float32, torch.bfloat16]
 @pytest.mark.parametrize("d,causal,sq,sk", [(1, True, 40, 40),
                                              (40, False, 33, 70),
                                              (96, True, 64, 64),
-                                             (200, True, 20, 90)])
+                                             (200, True, 20, 90),
+                                             (320, True, 40, 40),
+                                             (352, False, 24, 50)])
 def test_padded_plain_versions_equal_unpadded(dtype, d, causal, sq, sk):
     """[b·h, s, d]: pad, the plain versions at the kernel's head_dim, slice
     back; equal to the plain versions at d, bit for bit."""
@@ -131,7 +193,7 @@ def test_padded_plain_versions_equal_unpadded(dtype, d, causal, sq, sk):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [72, 160])
+@pytest.mark.parametrize("d", [72, 160, 320, 352])
 def test_padded_packed_plain_versions_equal_unpadded(dtype, d):
     """The packed layout with GQA (8 query heads over 2 kv heads): each
     head padded apart, the packed plain versions at the kernel's head_dim,
@@ -168,9 +230,19 @@ def test_operand_checks_take_head_dims_up_to_256(dtype, d):
 
 
 def test_operand_checks_refuse_320_and_float16():
-    q = torch.zeros((2, 8, 320), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 1 to 256"):
-        fa._check_operands(q, q, q, 320, 2, 1, "flash_fwd")
-    q16 = torch.zeros((2, 8, 256), dtype=torch.float16)
+    """Fault C.2 closed: head_dim 320 and 512 are taken (the wide family),
+    and what stays refused is head_dim 0, float16 and a grid axis past
+    65535."""
+    for d in (320, 512):
+        q = torch.zeros((2, 8, d), dtype=torch.bfloat16)
+        fa._check_operands(q, q, q, d, 2, 1, "flash_fwd")
+        assert fa.kernel_head_dim(d) > fa.MAX_HEAD_DIM
+    q0 = torch.zeros((2, 8, 0), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim >= 1"):
+        fa._check_operands(q0, q0, q0, 0, 2, 1, "flash_fwd")
+    q16 = torch.zeros((2, 8, 320), dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
-        fa._check_operands(q16, q16, q16, 256, 2, 1, "flash_fwd")
+        fa._check_operands(q16, q16, q16, 320, 2, 1, "flash_fwd")
+    q = torch.zeros((2, 8, 320), dtype=torch.float32)
+    with pytest.raises(ValueError, match="exceeds 65535"):
+        fa._check_operands(q, q, q, 320, 70000, 1, "flash_fwd")

@@ -44,6 +44,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "ray_tpu_torch.parallel.mesh",
                  "ray_tpu_torch.parallel.distributed",
                  "ray_tpu_torch.parallel.fsdp",
+                 "ray_tpu_torch.parallel.expert",
+                 "ray_tpu_torch.ops.moe",
                  "ray_tpu_torch.multichip"):
         assert name in modules
     code = (

@@ -65,18 +65,18 @@ def margins(logits) -> float:
 
 
 class _Router:
-    """Records the router logits of every `top2_gating` call the port makes
-    while active (moe_ffn looks the function up at call time)."""
+    """Records the router logits [T, E] of every routing the port makes
+    while active (`_route`, which the gating looks up at call time)."""
 
     def __init__(self, monkeypatch):
         self.logits = []
-        real = tmoe.top2_gating
+        real = tmoe._route
 
         def recording(router_logits, capacity):
             self.logits.append(router_logits.detach().clone())
             return real(router_logits, capacity)
 
-        monkeypatch.setattr(tmoe, "top2_gating", recording)
+        monkeypatch.setattr(tmoe, "_route", recording)
 
     def check(self, calls=None):
         assert self.logits, "no routing was recorded"

@@ -88,8 +88,8 @@ def test_remat_mode_matches_jax(monkeypatch, name, mode):
     for t in leaves:
         t.requires_grad_(True)
     logits = []
-    real = tmoe.top2_gating
-    monkeypatch.setattr(tmoe, "top2_gating", lambda lg, c: (
+    real = tmoe._route
+    monkeypatch.setattr(tmoe, "_route", lambda lg, c: (
         logits.append(lg.detach().clone()), real(lg, c))[1])
     loss, _ = loss_fn(params, {"tokens": torch.from_numpy(_tokens())}, cfg)
     grads = torch.autograd.grad(loss, leaves)

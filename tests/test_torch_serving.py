@@ -261,14 +261,15 @@ def _jax_outputs(name):
 def test_engine_matches_jax_engine(monkeypatch, name):
     _, tp = _params(_moe(name))
     routed = []
-    real = tmoe.top2_gating
+    real = tmoe._route
 
     def recording(logits, capacity):
-        out = real(logits, capacity)
-        routed.append((logits.detach().clone(), int(out[0].sum())))
+        out = real(logits, capacity)  # keep1 and keep2: the kept choices
+        routed.append((logits.detach().clone(),
+                       int(out[0].sum() + out[3].sum())))
         return out
 
-    monkeypatch.setattr(tmoe, "top2_gating", recording)
+    monkeypatch.setattr(tmoe, "_route", recording)
     eng = tsrv.ContinuousBatchingEngine(tp, CFG_MOE if _moe(name) else CFG,
                                         device="cpu", **_kwargs(name))
     got = SCENARIOS[name][0](eng)

@@ -112,8 +112,10 @@ def test_saved_weights_are_gathered_again_in_the_backward(world_one,
 
 
 def test_unported_meshes_raise():
-    """pp and MoE over more than one shard of (dp, fsdp, tp, sp) still
-    raise; tp and sp run (tests/test_torch_tensor_parallel.py,
+    """pp still raises, and MoE over an fsdp that does not divide the
+    experts raises naming the expert leaves; MoE on any other shard of
+    (dp, fsdp, tp, sp) runs (tests/test_torch_expert_parallel.py), and so
+    do tp and sp (tests/test_torch_tensor_parallel.py,
     tests/test_torch_seq_parallel.py)."""
     class Mesh:
         mesh_dim_names = ("dp", "pp", "fsdp", "tp", "sp")
@@ -126,9 +128,12 @@ def test_unported_meshes_raise():
     with pytest.raises(NotImplementedError, match="pp=2"):
         _check_mesh(ModelConfig.tiny(), Mesh((1, 2, 1, 1, 1)), cpu)
     for shape in ((2, 1, 1, 1, 1), (1, 1, 2, 1, 1), (1, 1, 1, 2, 1),
-                  (1, 1, 1, 1, 2)):
-        with pytest.raises(NotImplementedError, match="expert sharding"):
-            _check_mesh(ModelConfig.tiny_moe(), Mesh(shape), cpu)
+                  (1, 1, 4, 1, 1), (2, 1, 2, 2, 1)):
+        _check_mesh(ModelConfig.tiny_moe(), Mesh(shape), cpu)
+    with pytest.raises(ValueError, match="fsdp=3 does not divide "
+                                         "n_experts=4: the expert leaves "
+                                         "layers/w_gate"):
+        _check_mesh(ModelConfig.tiny_moe(), Mesh((1, 1, 3, 1, 1)), cpu)
     _check_mesh(ModelConfig.tiny_moe(), Mesh((1, 1, 1, 1, 1)), cpu)
     _check_mesh(ModelConfig.tiny(), Mesh((1, 1, 1, 2, 1)), cpu)
     _check_mesh(dataclasses.replace(ModelConfig.tiny(), seq_parallel="ring"),

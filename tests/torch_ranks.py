@@ -5,13 +5,14 @@ JAX side of a parity test stays in the pytest process.
     python tests/torch_ranks.py TASK OUTDIR RANK WORLD PORT [ARGS...]
 
 Tasks (rank 0 writes OUTDIR/out.npz and OUTDIR/out.json):
-  steps DP FSDP MASKED [TP SP SCHEME FUSED]
+  steps DP FSDP MASKED [TP SP SCHEME FUSED MOE]
                         3 steps of `default_optimizer(1e-3, warmup_steps=1)`
-                        on `tiny` (float32; `seq_parallel=SCHEME`, "-" for
-                        none; the fused blocks if FUSED) from OUTDIR/in.npz
-                        (the JAX params, "p/<path>", and the global batch),
-                        each rank on its block; losses, grad norms, final
-                        params whole.
+                        on `tiny` (`tiny_moe` if MOE; float32;
+                        `seq_parallel=SCHEME`, "-" for none; the fused
+                        blocks if FUSED) from OUTDIR/in.npz (the JAX params,
+                        "p/<path>", and the global batch), each rank on its
+                        block; losses, grad norms, moe_aux, final params
+                        whole.
   sp_ops                ring and Ulysses attention over sp = WORLD, each
                         case of OUTDIR/in.npz ("<case>/q", k, v, the
                         cotangent "dy", "causal"): outputs and dq, dk, dv
@@ -21,10 +22,16 @@ Tasks (rank 0 writes OUTDIR/out.npz and OUTDIR/out.json):
   vocab CHUNK           vocab_embed and vocab_nll (dense, and chunked by
                         CHUNK) at tp = WORLD on OUTDIR/in.npz with its loss
                         mask: the rows, the losses, their gradients whole.
-  reshard_tp            a tiny state at fsdp 4, one step, saved; restored
-                        onto fsdp 2 x tp 2 and saved again; restored onto
-                        fsdp 4: every leaf compared whole both ways; the
-                        next step's loss on each mesh.
+  reshard_tp [MOE]      a tiny (`tiny_moe` if MOE) state at fsdp 4, one
+                        step, saved; restored onto fsdp 2 x tp 2 and saved
+                        again; restored onto fsdp 4: every leaf compared
+                        whole both ways; the next step's loss on each mesh.
+  moe_units             on 2 ranks: `local_gating` of OUTDIR/in.npz's router
+                        logits at sp 2 and at fsdp 2 (each rank's dispatch,
+                        combine and aux into OUTDIR/<mesh>_<rank>.npz); and
+                        one `tiny_moe` MoE layer (`_layer`) at tp 2 on
+                        in.npz's x, params and cotangent: its output, aux
+                        and gradients whole (rank 0's out.npz).
   ckpt                  a tiny state at dp 2 x fsdp 2, one step, saved;
                         restored onto fsdp 4; every leaf compared whole;
                         the next step's loss on both meshes.
@@ -128,7 +135,7 @@ def _write(outdir, rank, arrays, result):
 
 
 def steps(outdir, rank, world, dp, fsdp, masked, tp=1, sp=1, scheme="-",
-          fused=0):
+          fused=0, moe=0):
     import dataclasses
 
     import torch
@@ -143,7 +150,8 @@ def steps(outdir, rank, world, dp, fsdp, masked, tp=1, sp=1, scheme="-",
                                      state_shardings)
 
     cfg = dataclasses.replace(
-        ModelConfig.tiny(), seq_parallel="" if scheme == "-" else scheme,
+        ModelConfig.tiny_moe() if int(moe) else ModelConfig.tiny(),
+        seq_parallel="" if scheme == "-" else scheme,
         fused_ffn=bool(int(fused)), fused_attn=bool(int(fused)))
     mesh = make_virtual_mesh(world, MeshConfig(
         dp=int(dp), fsdp=int(fsdp), tp=int(tp), sp=int(sp)))
@@ -163,15 +171,17 @@ def steps(outdir, rank, world, dp, fsdp, masked, tp=1, sp=1, scheme="-",
         local[k], distribute_tensor(v, mesh, s.placements).to_local())
         for k, v in batch.items())
     step_fn, _ = make_train_step(cfg, optimizer, "cpu", mesh=mesh)
-    losses, norms = [], []
+    losses, norms, aux = [], [], []
     for _ in range(3):
         state, metrics = step_fn(state, local)
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
+        aux.append(float(metrics["moe_aux"]))
     arrays = {}
     _whole(state.params, "p/", arrays)
     _write(outdir, rank, arrays, {
-        "losses": losses, "norms": norms, "rows_as_dtensor": rows_as_dtensor,
+        "losses": losses, "norms": norms, "moe_aux": aux,
+        "rows_as_dtensor": rows_as_dtensor,
         "local_rows": int(local["inputs"].shape[0]),
         "local_seq": int(local["inputs"].shape[1]),
         "count": state.opt_state.count, "step": state.step})
@@ -289,7 +299,7 @@ def vocab(outdir, rank, world, chunk):
     _write(outdir, rank, arrays, {})
 
 
-def reshard_tp(outdir, rank, world):
+def reshard_tp(outdir, rank, world, moe=0):
     from ray_tpu_torch.bench import make_batch
     from ray_tpu_torch.models import ModelConfig
     from ray_tpu_torch.parallel import MeshConfig, make_virtual_mesh
@@ -298,7 +308,7 @@ def reshard_tp(outdir, rank, world):
                                      make_train_step, save_checkpoint,
                                      shard_batch, state_shardings)
 
-    cfg = ModelConfig.tiny()
+    cfg = ModelConfig.tiny_moe() if int(moe) else ModelConfig.tiny()
     optimizer = default_optimizer(1e-3, warmup_steps=1)
     meshes = {"fsdp4": make_virtual_mesh(world, MeshConfig(fsdp=4)),
               "fsdp2xtp2": make_virtual_mesh(world, MeshConfig(fsdp=2,
@@ -337,6 +347,59 @@ def reshard_tp(outdir, rank, world):
         losses[name] = float(m["loss"])
     result["next_loss"] = losses
     _write(outdir, rank, {}, result)
+
+
+def moe_units(outdir, rank, world):
+    import torch
+
+    from ray_tpu_torch.models import ModelConfig
+    from ray_tpu_torch.models.transformer import _layer
+    from ray_tpu_torch.ops.layers import rotary_embedding
+    from ray_tpu_torch.ops.moe import local_gating
+    from ray_tpu_torch.parallel import MeshConfig, make_virtual_mesh
+    from ray_tpu_torch.parallel.expert import token_block
+    from ray_tpu_torch.parallel.tensor import Parallel
+
+    data = dict(np.load(Path(outdir) / "in.npz"))
+    logits = torch.from_numpy(data["logits"])
+    B, S, _ = logits.shape
+    for name, config in (("sp2", MeshConfig(sp=2)),
+                         ("fsdp2", MeshConfig(fsdp=2))):
+        par = Parallel.from_mesh(make_virtual_mesh(world, config))
+        b, s = B // par.fsdp, S // par.sp
+        b0, s0 = token_block(par, b, s)
+        dispatch, combine, aux = local_gating(
+            logits[b0:b0 + b, s0:s0 + s].contiguous(),
+            int(data["capacity"]), par)
+        np.savez(Path(outdir) / f"{name}_{rank}.npz", dispatch=dispatch,
+                 combine=combine, aux=aux, block=np.array([b0, b, s0, s]))
+
+    # one MoE layer at tp 2: the split leaves' tp blocks, the rest whole
+    cfg = ModelConfig.tiny_moe()
+    par = Parallel.from_mesh(make_virtual_mesh(world, MeshConfig(tp=2)))
+    split = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_gate": 2, "w_up": 2,
+             "w_down": 1}
+    leaves = {}
+    for key in data:
+        if key.startswith("p/"):
+            t = torch.from_numpy(data[key])
+            name = key[2:]
+            if name in split:
+                t = t.chunk(world, split[name])[par.tp_rank]
+            leaves[name] = t.clone().requires_grad_(True)
+    x = torch.from_numpy(data["x"]).requires_grad_(True)
+    cos, sin = rotary_embedding(torch.arange(x.shape[1]), cfg.head_dim,
+                                cfg.rope_theta)
+    out, aux = _layer(cfg, par, x, leaves, cos[None], sin[None])
+    loss = (out * torch.from_numpy(data["dy"])).sum() + aux
+    names = sorted(leaves)
+    grads = torch.autograd.grad(loss, [x] + [leaves[n] for n in names])
+    arrays = {"out": out.detach().numpy(), "aux": aux.detach().numpy(),
+              "d/x": grads[0].numpy()}
+    for name, g in zip(names, grads[1:]):
+        arrays["d/" + name] = (_whole_along(g, split[name], par.tp_group)
+                               if name in split else g).numpy()
+    _write(outdir, rank, arrays, {})
 
 
 def ckpt(outdir, rank, world):
@@ -418,8 +481,8 @@ if __name__ == "__main__":
     _setup(rank, world, port)
     try:
         {"steps": steps, "ckpt": ckpt, "budget": budget, "sp_ops": sp_ops,
-         "tp_blocks": tp_blocks, "vocab": vocab,
-         "reshard_tp": reshard_tp}[task](outdir, rank, world, *rest)
+         "tp_blocks": tp_blocks, "vocab": vocab, "reshard_tp": reshard_tp,
+         "moe_units": moe_units}[task](outdir, rank, world, *rest)
     finally:
         from ray_tpu_torch.parallel import shutdown_group
 
