@@ -11,8 +11,12 @@ Phases (any failure exits non-zero and prints no result line):
      flash forward, dq and dk/dv at each head_dim; K1's, K3's and K2's TMA
      and cp.async instances), of the float32 K3, K1 and K2 at each tile
      and of the float32 flash forward, dq and dk/dv at each head_dim and
-     tile, with any ptxas warning; fail if a 128 x 128 float32 tile (an 8 x
-     8 patch a thread) or a float32 flash kernel at head_dim 128 spills;
+     tile, and of the wide family (its SIMT kernels, and the wgmma bf16
+     dq and dk/dv with the dynamic shared memory their launch sets), with
+     any ptxas warning; fail if a 128 x 128 float32 tile (an 8 x 8 patch a
+     thread), a float32 flash kernel at head_dim 128 or a wide wgmma
+     kernel spills, or if ptxas serialized a wide kernel's products
+     (C7515);
   3. hold each quant kernel against its plain PyTorch version on the card,
      bit for bit, at every shape the serving path gives it (the quant
      kernel's stacked [L, in, out] leaves included) and at the six 8B
@@ -96,10 +100,11 @@ Phases (any failure exits non-zero and prints no result line):
      to 384) and 512 through the wide family (csrc/flash_wide.cu) at the
      same shapes, bf16 and float32, causal and not, both layouts, against
      the plain versions (bf16 1e-2, float32 1e-4, lse 2e-5 of its max),
-     every launch the wide family's (counted apart), the causal cases
-     timed beside their bound and SDPA (its backend named), and the three
-     entries at 320 and 512 against the einsum route, their wide launches
-     the family's `launches`;
+     every launch the wide family's (counted apart), dk/dv and dq (the
+     bf16 ones on wgmma) bit-identical across two calls in both layouts,
+     the causal cases timed beside their bound and SDPA (its backend
+     named), and the three entries at 320 and 512 against the einsum
+     route, their wide launches the family's `launches`;
   8. train Llama-3-8B at full width with 8 of its 32 layers (random bf16
      weights, one batch of 2 x 2049 tokens reused) for 8 steps of
      default_optimizer(warmup_steps=2), checking finite losses and grad
@@ -1794,6 +1799,48 @@ WIDE_SHAPES = [(1, 8, 2, 1024, 320, "bfloat16"),
 WIDE_NAMES = {"flash_fwd": "flash_fwd_wide",
               "flash_bwd_dkv": "flash_bwd_dkv_wide",
               "flash_bwd_dq": "flash_bwd_dq_wide"}
+# The bf16 wide dk/dv and dq of the first (SIMT) design, ms a launch at
+# phase 7e's causal shapes by head_dim, (packed, [b·h, s, d]), as PERF.md
+# §6 records them (NVIDIA H100 80GB HBM3, 700 W), before the wgmma
+# redesign replaced them.
+WIDE_SIMT_MS = {("flash_bwd_dkv_wide", 320): (5.6142, 3.4027),
+                ("flash_bwd_dkv_wide", 512): (9.0285, 5.1970),
+                ("flash_bwd_dq_wide", 320): (3.2552, 3.2368),
+                ("flash_bwd_dq_wide", 512): (5.7739, 5.3597)}
+
+
+def check_wide_repeatable(torch, fa, q, k, v, do, h: int, kv: int,
+                          causal: bool, what: str) -> None:
+    """Phase 7e: the wide dk/dv and dq, packed and on the [b·h, s, d]
+    views, called twice on the plain forward's lse and Δ, give the same
+    bits (every output written once, no atomics)."""
+    b, s, width = q.shape
+    d = width // h
+    scale = d ** -0.5
+
+    def flat(x, n):
+        return heads_view(x, n).repeat_interleave(h // n, 1).reshape(
+            b * h, s, d).contiguous()
+
+    p_out, p_lse = fa.flash_fwd_packed_plain(q, k, v, h, kv, scale, causal)
+    delta = fa.flash_delta_packed(p_out, do, h)
+    bwd = (q, k, v, do, p_lse, delta, h, kv, scale, causal)
+    bwd3 = (flat(q, h), flat(k, kv), flat(v, kv), flat(do, h),
+            p_lse.view(b * h, s), delta.view(b * h, s), scale, causal)
+    for layout, args, dkv, dq in (
+            ("packed", bwd, fa.flash_bwd_dkv_packed, fa.flash_bwd_dq_packed),
+            ("flat", bwd3, fa.flash_bwd_dkv, fa.flash_bwd_dq)):
+        first = (*dkv(*args), dq(*args))
+        second = (*dkv(*args), dq(*args))
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(x, y)) for x, y in zip(first, second)]
+        log(f"wide {what} {layout}: dk, dv, dq bit-identical across two "
+            f"calls {same}")
+        if not all(same):
+            fail(f"phase 7e, wide {what} {layout}: dk, dv, dq differ "
+                 f"between two calls ({same})")
+    del p_out, p_lse, delta, bwd, bwd3
+    torch.cuda.empty_cache()
 
 
 def check_wide_head_dims(torch, gen, card: str):
@@ -1802,9 +1849,11 @@ def check_wide_head_dims(torch, gen, card: str):
     [b·h, s, d] ones, bf16 and float32, causal and not, against the plain
     versions (bf16 within 1e-2 of the plain max, float32 1e-4, lse 2e-5
     of its max), each wrapper launched once per call and every launch the
-    wide family's; the causal cases timed beside their bound and SDPA (its
-    backend named); then ops.attention, ops.attention_packed and the fused
-    attn_block at each shape against the einsum route, with counters
+    wide family's, dk/dv and dq bit-identical across two calls
+    (`check_wide_repeatable`); the causal cases timed beside their bound
+    and SDPA (its backend named); then ops.attention, ops.attention_packed
+    and the fused attn_block at each shape against the einsum route, with
+    counters
     zeroed just before and read just after: the wide launches of that run
     are the family's launches on its path. Returns ({kernel: rows},
     {kernel: launches})."""
@@ -1845,6 +1894,9 @@ def check_wide_head_dims(torch, gen, card: str):
             if got != want:
                 fail(f"phase 7e at head_dim {d} {dtype_name} launched {got};"
                      f" expected {want}")
+            check_wide_repeatable(torch, fa, q, k, v, do, h, kv, causal,
+                                  f"head_dim {d} {dtype_name} causal "
+                                  f"{causal}")
             names = {layout: [name + suffix for name in WIDE_NAMES.values()]
                      for layout in ("packed", "flat")}
             # not causal: checked, not timed
@@ -1874,11 +1926,14 @@ def check_wide_head_dims(torch, gen, card: str):
         f"{path_launches}")
     for name, kernel_rows in rows.items():
         for r in kernel_rows:
+            simt = WIDE_SIMT_MS.get((name, r["shape"][-1]))
+            old = ("" if simt is None else f", the first (SIMT) design "
+                   f"{simt[len(r['shape']) == 4]} ms")
             log(f"summary {name} {r['shape']} {r['dtype']}: {r['ms']:.4f} ms "
                 f"a launch, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
                 f"{r['bound_ms'] / r['ms']:.4f} of bound, plain "
-                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
-                f"[{card}]")
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms"
+                f"{old} [{card}]")
     del flush
     torch.cuda.empty_cache()
     log(f"phase 7e, head_dim 320 and 512: {time.perf_counter() - t0:.2f} s")
@@ -2613,7 +2668,9 @@ def train_f32_tiny(torch, seed: int, cfg):
 # forward's Q [rows][d], K and V slots [64][d] and P [rows][64]; the
 # float32 dq's Q and dO [rows][d], K and V slots [32][d] and dS [rows][32];
 # the float32 dk/dv's K and V [keys][d], Q and dO slots [32][d], P^T and
-# dS^T [keys][32] and lse and delta slots [32].
+# dS^T [keys][32] and lse and delta slots [32]; the wide bf16 dq's and
+# dk/dv's four-stage chunk ring (Q and dO chunks of 128 x 64, K and V of
+# 64 x 64, lse and delta of 128 rows), at any head_dim.
 KERNEL_SMEM = {
     "flash_fwd_kernel": lambda d: 2 * (128 + 4 * 64) * d + 1024,
     "flash_bwd_dq_kernel": lambda d: (2 * (256 + (2 if d > 128 else 4) * 64)
@@ -2637,18 +2694,24 @@ KERNEL_SMEM = {
                                                      + 2 * 32 * d
                                                      + 2 * keys * 32
                                                      + 2 * 32),
+    "flash_wide_dq_wgmma_kernel": lambda: 4 * (2 * 2 * 64 * (128 + 64)
+                                               + 4 * 2 * 128) + 1024,
+    "flash_wide_dkv_wgmma_kernel": lambda: 4 * (2 * 2 * 64 * (128 + 64)
+                                                + 4 * 2 * 128) + 1024,
 }
 
 
 def ptxas_report(procs) -> None:
     """Log ptxas's registers, spills and the dynamic shared memory of the
     wgmma kernels, the float32 K1, K2 and K3 and the float32 flash
-    forward, dq and dk/dv at each instantiation, and the registers,
-    spills and static shared memory of the wide flash family (the `nvcc
-    -Xptxas -v` runs started in phase 2), any warning ptxas gives, and any
-    note that it serialized products; fail if a float32 K1, K2 or K3 with
-    128 x 128 tiles (8 x 8 accumulators a thread) or a float32 flash
-    kernel at head_dim 128 spills."""
+    forward, dq and dk/dv at each instantiation, the registers, spills and
+    static shared memory of the wide flash family's SIMT kernels and the
+    registers, spills and dynamic shared memory of its wgmma dq and dk/dv
+    (the `nvcc -Xptxas -v` runs started in phase 2), any warning ptxas
+    gives, and any note that it serialized products; fail if a float32 K1,
+    K2 or K3 with 128 x 128 tiles (8 x 8 accumulators a thread), a float32
+    flash kernel at head_dim 128 or a wide wgmma kernel spills, or if
+    ptxas serialized the products of a wide kernel (C7515)."""
     import re
 
     for name, (proc, out_path) in procs.items():
@@ -2661,6 +2724,20 @@ def ptxas_report(procs) -> None:
             # warnings, and notes of products ptxas serialized (C7515)
             if "warning" in line.lower() or "Performance Loss" in line:
                 log(f"ptxas {name}.cu: {line.strip()}")
+                if "Performance Loss" in line and "flash_wide_" in line:
+                    fail(f"ptxas serialized a wide kernel's products: "
+                         f"{line.strip()}")
+            w = re.search(r"Compiling entry function '.*?(flash_wide_"
+                          r"(?:dq|dkv)_wgmma_kernel)", line)
+            if w:  # the wide bf16 backward: wgmma, dynamic shared memory
+                stats = " ".join(x.split(":", 1)[-1].strip()
+                                 for x in lines[i + 1:i + 4]
+                                 if "registers" in x or "spill" in x)
+                log(f"ptxas {w.group(1)}: {stats}; dynamic shared memory "
+                    f"{KERNEL_SMEM[w.group(1)]()} bytes a block")
+                if not re.search(r"\b0 bytes spill stores", stats):
+                    fail(f"ptxas: {w.group(1)} spills ({stats})")
+                continue
             w = re.search(r"Compiling entry function '.*?(flash_wide_"
                           r"(?:fwd|dq|dkv)_kernel)I(f|13__nv_bfloat16)E",
                           line)

@@ -4,6 +4,7 @@
     python -m ray_tpu_torch.flashbench --dtype float32
     python -m ray_tpu_torch.flashbench --dtype float32 \\
         --source OTHER/flash_attention.cu --other-untiled-bwd
+    python -m ray_tpu_torch.flashbench --wide [--source OTHER/flash_wide.cu]
 
 In the [b·h, s, d] layout, causal: bf16 at the Llama-3-8B attention shape
 (b·h 64, s 2048, head_dim 128); float32 at the float32 tiny training
@@ -25,8 +26,12 @@ includes) are timed in turns with this tree's: other, tree, tree, other,
 twice. --other-unplanned says that none of the other build's float32
 entries takes a tile (before any plan existed, e.g. PR 9's);
 --other-untiled-bwd that its float32 dk/dv and dq take none (its forward
-does; e.g. PR 10's). A quick check between full chip_smoke runs; it needs
-a GPU.
+does; e.g. PR 10's). --wide times the wide family (csrc/flash_wide.cu)
+instead: its three bf16 entries at the 8B attention shape (b·h 64, s 2048,
+causal) and at chip_smoke phase 7e's (b·h 8, s 1024), at head_dim 320
+(zero-padded to 384, the bound at 320) and 512, with --source another
+flash_wide.cu. A quick check between full chip_smoke runs; it needs a
+GPU.
 """
 
 from __future__ import annotations
@@ -50,6 +55,11 @@ HOLD_CYCLES = 1_000_000
 # (after one it read 3-4x slower, PERF.md)
 SHAPES = {torch.bfloat16: [(64, 2048, 128)],
           torch.float32: [(4, 128, 128), (64, 2048, 128)]}
+# (b·h, s, head_dim) of --wide: the 8B attention shape at the wide family's
+# head dims, then chip_smoke phase 7e's [b·h, s, d] shapes (b 1, 8 heads,
+# s 1024), where the card is under-filled
+WIDE_SHAPES = [(64, 2048, 320), (64, 2048, 512), (8, 1024, 320),
+               (8, 1024, 512)]
 NAMES = ("rt_flash_fwd", "rt_flash_bwd_dkv", "rt_flash_bwd_dq")
 
 
@@ -99,10 +109,11 @@ def device_kernels(fn) -> list:
                    if e.device_type == DeviceType.CUDA})
 
 
-def load_other(source: Path, tiled) -> ctypes.CDLL:
+def load_other(source: Path, tiled, wide: bool = False) -> ctypes.CDLL:
     """`source` built with the port's nvcc flags (its own directory on the
     include path) into the build directory, its entries declared (the
-    float32 ones not in `tiled` without a tile)."""
+    float32 ones not in `tiled` without a tile; a flash_wide.cu's when
+    `wide`)."""
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(source.parent.glob("*.cuh")):
         h.update(header.read_bytes())
@@ -115,7 +126,11 @@ def load_other(source: Path, tiled) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     for name in NAMES:
         for entry in (name, f"{name}_f32"):
-            sig = fa._SIGNATURES[entry if name in tiled else name]
+            if wide:
+                entry = entry.replace("rt_flash_", "rt_flash_wide_")
+                sig = fa._WIDE_SIGNATURES[entry]
+            else:
+                sig = fa._SIGNATURES[entry if name in tiled else name]
             getattr(lib, entry).argtypes, getattr(lib, entry).restype = sig
     return lib
 
@@ -127,21 +142,23 @@ PLANS = {"rt_flash_fwd": fa.f32_fwd_tile, "rt_flash_bwd_dkv": fa.f32_dkv_tile,
          "rt_flash_bwd_dq": fa.f32_fwd_tile}
 
 
-def entries(lib: ctypes.CDLL, t: dict, dtype: torch.dtype, tiled=TILED,
-            tile=None) -> dict:
+def entries(lib: ctypes.CDLL, t: dict, dtype: torch.dtype, scale: float,
+            tiled=TILED, tile=None, wide: bool = False) -> dict:
     """The three entry points of `lib` for `dtype` on the tensors `t`
     ([b·h, s, d], causal), each launched on the current stream; each
-    float32 one in `tiled` at tile `tile`, else at its plan's."""
+    float32 one in `tiled` at tile `tile`, else at its plan's; the wide
+    family's (no tile) when `wide`."""
     bh, s, d = t["q"].shape
     layout = (bh, 1, 1, s, s, d)
     stream = torch.cuda.current_stream().cuda_stream
     f32 = dtype == torch.float32
 
     def call(name, names):
-        fn = getattr(lib, name + ("_f32" if f32 else ""))
-        extra = ((tile or PLANS[name](bh, s),) if f32 and name in tiled
-                 else ())
-        code = fn(*(t[x].data_ptr() for x in names), *layout, d ** -0.5, 1,
+        entry = name.replace("rt_flash_", "rt_flash_wide_") if wide else name
+        fn = getattr(lib, entry + ("_f32" if f32 else ""))
+        extra = ((tile or PLANS[name](bh, s),)
+                 if f32 and name in tiled and not wide else ())
+        code = fn(*(t[x].data_ptr() for x in names), *layout, scale, 1,
                   *extra, stream)
         if code:
             raise RuntimeError(f"CUDA error {code}")
@@ -158,12 +175,15 @@ def entries(lib: ctypes.CDLL, t: dict, dtype: torch.dtype, tiled=TILED,
     }
 
 
-def run(dtype: torch.dtype, shape, gen, flush, other) -> None:
+def run(dtype: torch.dtype, shape, gen, flush, other,
+        wide: bool = False) -> None:
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     bh, s, d = shape
+    # the wide family runs at head_dim kd, the operands zero-padded to it
+    kd = fa.kernel_head_dim(d) if wide else d
     name = str(dtype).replace("torch.", "")
-    label = f"{name} {list(shape)}"
+    label = f"{name} {list(shape)}{' wide' if wide else ''}"
     t = {x: torch.randn((bh, s, d), generator=gen, device="cuda").to(dtype)
          for x in ("q", "k", "v", "do")}
     scale = d ** -0.5
@@ -175,29 +195,36 @@ def run(dtype: torch.dtype, shape, gen, flush, other) -> None:
             "flash_bwd_dq": (fa.flash_bwd_dq_plain(*bwd),)}
     outs = {"flash_fwd": ("out", "lse"), "flash_bwd_dkv": ("dk", "dv"),
             "flash_bwd_dq": ("dq",)}
+    kt = dict(t)  # the entries' operands
+    for x in ("q", "k", "v", "do"):
+        kt[x] = fa.pad_heads(t[x], 1, d, kd)
     for x in ("out", "dq", "dk", "dv"):
-        t[x] = torch.empty_like(t["q"])
-    t["lse"] = torch.empty_like(t["p_lse"])
-    lib, _ = fa._entry("rt_flash_fwd", dtype)
-    tree = entries(lib, t, dtype)
+        kt[x] = torch.empty_like(kt["q"])
+    kt["lse"] = torch.empty_like(t["p_lse"])
+
+    def got(x):  # an entry's output at head_dim d
+        return fa.unpad_heads(kt[x], 1, d, kd) if x != "lse" else kt[x]
+
+    lib, _ = (fa._wide_entry if wide else fa._entry)("rt_flash_fwd", dtype)
+    tree = entries(lib, kt, dtype, scale, wide=wide)
     product = 2 * bh * (s * (s + 1) // 2) * d  # the causal pairs only
     n_products = {"flash_fwd": 2, "flash_bwd_dkv": 4, "flash_bwd_dq": 3}
     for kname, fn in tree.items():
         fn()
         torch.cuda.synchronize()
-        err = max(rel_err(t[o], w) for o, w in zip(outs[kname],
-                                                   want[kname]))
+        err = max(rel_err(got(o), w) for o, w in zip(outs[kname],
+                                                     want[kname]))
         ms = time_ms(fn, flush)
         bound = 1e3 * n_products[kname] * product / PEAK_OPS_PER_S[dtype]
         print(f"{label} {kname}: {ms:.4f} ms a launch, bound {bound:.4f} ms "
               f"(operations), {bound / ms:.3f} of bound; max abs err "
               f"{err:.3g} of the plain max", flush=True)
-    if dtype == torch.float32:
+    if dtype == torch.float32 and not wide:
         for kname, entry in zip(tree, NAMES):
             planned = PLANS[entry](bh, s)
             times = []
             for tile in fa.F32_FWD_TILES:
-                fn = entries(lib, t, dtype, tile=tile)[kname]
+                fn = entries(lib, kt, dtype, scale, tile=tile)[kname]
                 times.append(f"{tile}{' (plan)' if tile == planned else ''} "
                              f"{time_ms(fn, flush):.4f}")
             print(f"{label} {kname} by tile, ms a launch: "
@@ -220,12 +247,12 @@ def run(dtype: torch.dtype, shape, gen, flush, other) -> None:
     if other is None:
         return
     lib_other, tiled_other = other
-    others = entries(lib_other, t, dtype, tiled_other)
+    others = entries(lib_other, kt, dtype, scale, tiled_other, wide=wide)
     for kname in tree:
         others[kname]()
         torch.cuda.synchronize()
-        err = max(rel_err(t[o], w) for o, w in zip(outs[kname],
-                                                   want[kname]))
+        err = max(rel_err(got(o), w) for o, w in zip(outs[kname],
+                                                     want[kname]))
         turns = []
         for _ in range(2):
             for who, fns in (("other", others), ("tree", tree),
@@ -241,6 +268,7 @@ def main() -> None:
     ap.add_argument("--source", type=Path, default=None)
     ap.add_argument("--other-unplanned", action="store_true")
     ap.add_argument("--other-untiled-bwd", action="store_true")
+    ap.add_argument("--wide", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -256,8 +284,13 @@ def main() -> None:
         tiled = (frozenset() if args.other_unplanned
                  else frozenset({"rt_flash_fwd"}) if args.other_untiled_bwd
                  else TILED)
-        other = (load_other(args.source, tiled), tiled)
+        other = (load_other(args.source, tiled, args.wide), tiled)
         print(f"other: {args.source}", flush=True)
+    if args.wide:
+        for shape in WIDE_SHAPES:
+            run(torch.bfloat16, shape, gen, flush, other, wide=True)
+            torch.cuda.empty_cache()
+        return
     for name in ([args.dtype] if args.dtype else ["bfloat16", "float32"]):
         dtype = getattr(torch, name)
         for shape in SHAPES[dtype]:

@@ -6,25 +6,31 @@
 // flash_wide_fwd_kernel replaces the TPU kernel _fwd_kernel
 // (ray_tpu/ops/pallas/flash_attention.py:38) at those widths, in both of its
 // calls (_flash_fwd :104 over [b*h, s, d], _flash_fwd_packed :376 over the
-// packed [b, s, h*d]); flash_wide_dkv_kernel replaces _bwd_dkv_kernel
-// (:181) and flash_wide_dq_kernel _bwd_dq_kernel (:224), in _flash_bwd
-// (:276, :303) and _flash_bwd_packed (:442, :480). The Pallas blocks take
-// any head_dim; these kernels take any multiple of kW (128) columns, and
-// the wrapper zero-pads a head to it (flash_attention.py `pad_heads`; the
-// caller's scale is kept, so the padded zeros add nothing to any score, to
-// dO.V^T or to delta, and the padded output columns come out zero).
+// packed [b, s, h*d]); the dk/dv kernels (flash_wide_dkv_wgmma_kernel in
+// bf16, flash_wide_dkv_kernel<float>) replace _bwd_dkv_kernel (:181) and the
+// dq kernels (flash_wide_dq_wgmma_kernel, flash_wide_dq_kernel<float>)
+// _bwd_dq_kernel (:224), both on the recompute of _recompute_p_ds (:142), in
+// _flash_bwd (:276, :303) and _flash_bwd_packed (:442, :480). The Pallas
+// blocks take any head_dim; these kernels take any multiple of kW (128)
+// columns, and the wrapper zero-pads a head to it (flash_attention.py
+// `pad_heads`; the caller's scale is kept, so the padded zeros add nothing
+// to any score, to dO.V^T or to delta, and the padded output columns come
+// out zero).
 //
 // What bounds them on an H100: the products. A wide head's output does not
-// fit a block's registers, so the design cuts it:
+// fit a block's registers (64 keys x 512 columns of dK alone are 128 KB of
+// float32), so the design cuts it:
 //  * a grid axis over output-width slices of kW columns: a forward or dq
-//    block owns kRows query rows of one head and one kW-column slice of O
-//    (dQ); a dk/dv block owns kRows keys of one kv head and one slice of
-//    both dK and dV;
+//    block owns a tile of query rows of one head and one kW-column slice of
+//    O (dQ); a dk/dv block owns a tile of keys of one kv head and one slice
+//    of both dK and dV;
 //  * each block recomputes the score S = Q.K^T (and, in the backward,
-//    dP = dO.V^T) over the whole head_dim, chunk by chunk of kW columns,
-//    each chunk's partial sum added to the block's float32 accumulators,
-//    so no block holds a whole head's width: the score products run once
-//    per slice (d / kW times), the price of the cut;
+//    dP = dO.V^T) over the whole head_dim, chunk by chunk, each chunk's
+//    partial sum added to the block's float32 accumulators, so no block
+//    holds a whole head's width: the score products run once per slice
+//    (d / kW times), the price of the cut. Counted against the bound's
+//    products (each once), n slices do (4n + 4) / 8 of dk/dv's work and
+//    (4n + 2) / 6 of dq's: 2.5x and 3x at d 512;
 //  * the lse (forward) is written once, by slice 0; the other slices
 //    compute the same row statistics and do not store them.
 // The rest is the narrower kernels' arithmetic (flash_attention.cu): the
@@ -43,22 +49,27 @@
 // [b, heads, sq]; [b*h, s, d] is heads = n_rep = 1. Grid: x the tiles times
 // the slices, y the head (the kv head for dk/dv), z the batch.
 //
-// A simple design first (CUDA cores, no wgmma, no TMA): 256 threads; the
-// operands of each product pass through shared memory as float32 tiles of
-// 32 rows x kW columns padded to kW + 1 (bank-conflict-free reads); a
-// score tile is 32 x 32, thread (i, g) = (tid / 8, tid % 8) owning row i
-// and columns g + 8j (j < 4), and an output tile 32 x kW, the same thread
-// owning row i and columns g + 8c (c < 16). 37,248 bytes (forward, dq) and
-// 41,472 (dk/dv) of static shared memory a block; 80, 64 and 128
-// registers a thread, no spill (ptxas, sm_90a).
+// Two designs. The forward and the float32 backward are the family's first,
+// simple one (CUDA cores, no wgmma; "SIMT" below). The bf16 backward runs
+// on wgmma with a streamed chunk ring ("bf16 backward" below).
+//
+// SIMT: 256 threads; the operands of each product pass through shared
+// memory as float32 tiles of 32 rows x kW columns padded to kW + 1
+// (bank-conflict-free reads); a score tile is 32 x 32, thread (i, g) =
+// (tid / 8, tid % 8) owning row i and columns g + 8j (j < 4), and an output
+// tile 32 x kW, the same thread owning row i and columns g + 8c (c < 16).
+// 37,248 bytes (forward, dq) and 41,472 (dk/dv) of static shared memory a
+// block; 80, 64 and 128 registers a thread, no spill (ptxas, sm_90a).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include <type_traits>
 
-using bf16 = __nv_bfloat16;
+#include "hopper.cuh"
+
+namespace {
 
 constexpr int kW = 128;        // the output slice, and a score chunk
 constexpr int kRows = 32;      // rows a block owns (queries or keys)
@@ -96,14 +107,15 @@ __device__ __forceinline__ bool attends(int row, int col, int sq, int sk,
   return row < sq && col < sk && (!causal || col <= row + offset);
 }
 
-// Key tiles of kRows keys that query rows [q0, q0 + kRows) walk: all of
+// Key tiles of `keys` keys that query rows [q0, q0 + rows) walk: all of
 // sk, or, causal, up to the band of the last row.
 __device__ __forceinline__ int key_tiles(int q0, int sk, int offset,
-                                         int causal) {
-  int n = (sk + kRows - 1) / kRows;
+                                         int causal, int rows = kRows,
+                                         int keys = kRows) {
+  int n = (sk + keys - 1) / keys;
   if (causal) {
-    const int last = q0 + kRows - 1 + offset;
-    const int lim = last < 0 ? 0 : last / kRows + 1;
+    const int last = q0 + rows - 1 + offset;
+    const int lim = last < 0 ? 0 : last / keys + 1;
     n = n < lim ? n : lim;
   }
   return n;
@@ -422,6 +434,530 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------------ bf16 backward
+//
+// flash_wide_dkv_wgmma_kernel and flash_wide_dq_wgmma_kernel: the SIMT
+// kernels' cut (the slice axis, the score recomputed per slice) on Hopper's
+// warpgroup MMA. One block of two warpgroups (256 threads) owns one
+// kW-column output slice:
+//  * dk/dv: 64 keys of one kv head; query tiles of kWq (128) rows stream
+//    past them, warpgroup g taking rows 64g..64g+63 of each, for each of
+//    the n_rep query heads in turn;
+//  * dq: kWq query rows of one head, warpgroup g rows 64g..64g+63; key
+//    tiles of kWk (64) stream past them.
+// Per (query tile, key tile) pair each warpgroup computes, as m64n64k16
+// wgmma with both operands K-major in shared memory, S^T = K.Q^T and dP^T =
+// V.dO^T (dk/dv: rows keys) or S = Q.K^T and dP = dO.V^T (dq: rows
+// queries), as one k-loop over the head's kC-column chunks (64 columns: one
+// 128-byte swizzled row); then p and ds on the accumulators in float32 (the
+// reference's _recompute_p_ds), rounded to bf16 into register A operands,
+// and the output products dV += P^T.dO, dK += dS^T.Q (dk/dv) or dQ += dS.K
+// (dq) as m64n64k16 wgmma with the slice's two chunks of dO and Q (K) read
+// MN-major: the chunks the score loop staged, not loaded again.
+//
+// The chunk ring: every operand streams. A stage holds one chunk of the
+// pair: Q and dO for 128 query rows, K and V for 64 keys (48 KB), and the
+// lse and delta of the 128 rows (dk/dv). kStages (4) stages, filled by
+// cp.async (zero-filled past sq and sk) while the products of the stages
+// before them run. A tile's chunks are walked with the slice's two last
+// (chunk_of), so those two are still staged for the output products; a
+// stage is refilled once every thread is done with it (its score products,
+// or, for the slice's chunks, the tile's output products), so the first
+// chunks of the next tile load during the p/ds math and the output
+// products. Nothing stays resident, so shared memory is 197 KB at any
+// head_dim. dq keeps one step's score products in flight across the next
+// step's barrier (wgmma_wait<1>, kLag 1); dk/dv waits for them each step,
+// since with one in flight ptxas serializes its products (C7515) at 251
+// registers a thread.
+//
+// What bounds them: the products (the bound's FLOPs are the true width,
+// each product once), then the step itself. A chunk step moves 48 KB
+// through L2 and shared memory for two m64n64k64 products a warpgroup
+// (some 43 FLOP a byte), and each m64n64k16 reads 4 KB of shared memory in
+// its 32 cycles, at the edge of the SM's 128 bytes a cycle; on an H100 at
+// the 8B attention shape a step takes ~1 us against 0.28 at peak, and the
+// same kernel without its refills, or without its score products, takes
+// 0.64-0.74 or 0.73-0.87 of that (PERF.md §6): feed and products overlap
+// only in part. One block an SM: dk/dv holds 192 accumulator floats a
+// thread (the dK and dV halves of its slice, 64 + 64, and S^T, dP^T,
+// 32 + 32). dk/dv's two warpgroups each sum over half of
+// every query tile; at the end each adds warpgroup 0's partial sum and
+// warpgroup 1's, in that order, for one of dK and dV (exchanged through
+// shared memory) and writes it: deterministic. Blocks are issued slice
+// fastest: dk/dv key tile by key tile across every (kv head, batch), lowest
+// keys (the most query tiles under causal) first; dq the heaviest query
+// tiles first.
+
+constexpr int kC = 64;     // a chunk: 64 columns (128 bytes) of the head
+constexpr int kWq = 128;   // query rows a stage holds: a warpgroup's 64 each
+constexpr int kWk = 64;    // keys a stage holds
+constexpr int kStages = 4;
+constexpr int kQBytes = kWq * kC * 2;  // one Q (dO) chunk
+constexpr int kKBytes = kWk * kC * 2;  // one K (V) chunk
+// a stage: Q, dO, K, V chunks, then lse and delta of the 128 rows; every
+// tile 1024-byte aligned
+constexpr int kRowsAt = 2 * kQBytes + 2 * kKBytes;
+constexpr int kStageBytes = kRowsAt + 2 * kWq * 4;
+constexpr int kWgmmaSmem = kStages * kStageBytes + 1024;
+static_assert(kStageBytes % 1024 == 0, "stages stay 1024-byte aligned");
+static_assert(kStages <= 4, "cp_async_wait_upto waits for 3 at most");
+static_assert(kThreads == 2 * kWq, "a thread a row's lse or delta");
+
+// Which chunk step j of a tile reads: the slice's two chunks (2 slice,
+// 2 slice + 1) last.
+__device__ __forceinline__ int chunk_of(int j, int slice, int n) {
+  const int c = 2 * slice + 2 + j;
+  return c < n ? c : c - n;
+}
+
+// Waits until at most n (0-3) of this thread's cp.async groups are pending.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n <= 0) {
+    cp_async_wait<0>();
+  } else if (n == 1) {
+    cp_async_wait<1>();
+  } else if (n == 2) {
+    cp_async_wait<2>();
+  } else {
+    cp_async_wait<3>();
+  }
+}
+
+// One chunk of a pair into stage `st`: Q and dO rows [q0, q0 + kWq) and K
+// and V rows [k0, k0 + kWk), the pointers already at the head's chunk.
+__device__ __forceinline__ void load_chunks(unsigned char* st, const bf16* q,
+                                            const bf16* dout, int q0, int sq,
+                                            int64_t ldq, const bf16* k,
+                                            const bf16* v, int k0, int sk,
+                                            int64_t ldk) {
+  bf16* t = reinterpret_cast<bf16*>(st);
+  load_tile_async<kC, kWq>(t, q, q0, sq, ldq);
+  load_tile_async<kC, kWq>(t + kWq * kC, dout, q0, sq, ldq);
+  load_tile_async<kC, kWk>(t + 2 * kWq * kC, k, k0, sk, ldk);
+  load_tile_async<kC, kWk>(t + 2 * kWq * kC + kWk * kC, v, k0, sk, ldk);
+}
+
+// An m64n64 accumulator (float32) as the A fragments of the four k16 steps
+// of a product over its 64 columns, rounded to bf16.
+__device__ __forceinline__ void pack_a(const float (&p)[32],
+                                       uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    pa[j >> 1][(j & 1) * 2] = pack_bf16(p[4 * j], p[4 * j + 1]);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[4 * j + 2], p[4 * j + 3]);
+  }
+}
+
+// The ring's bookkeeping, the same in every thread: `loaded` steps (tile t,
+// chunk j at step t * n + j) have been issued, one cp.async group each.
+// Before step `step` reads its stage: wait for it, make every thread's
+// copies visible, and refill the stages now free. A step's score products
+// stay in flight for kLag more steps (wgmma_wait<kLag>), and a tile's last
+// ones, with its output products, until the tile's end. So at chunk j of a
+// tile every step before step - kLag is done (j > 0), or every step before
+// it (j = 0); at a tile's last chunk the one before it, the slice's first
+// chunk, is still read by the output products that follow.
+template <int kLag, typename Load>
+__device__ __forceinline__ void ring_step(int step, int j, int n, int total,
+                                          int& loaded, Load load_step) {
+  cp_async_wait_upto(loaded - 1 - step);
+  fence_async_shared();
+  __syncthreads();
+  int released = j == 0 ? step : step - kLag;  // steps before it are free
+  if (j == n - 1 && released > step - 1) released = step - 1;
+  for (; loaded < total && loaded < released + kStages; ++loaded) {
+    load_step(loaded);
+    cp_async_commit();
+  }
+}
+
+__device__ __forceinline__ unsigned char* ring_base(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t{1023});
+}
+
+// Zeroes an accumulator's registers before its first product.
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[i] = 0.0f;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wide_dkv_wgmma_kernel(const bf16* __restrict__ q,
+                                const bf16* __restrict__ k,
+                                const bf16* __restrict__ v,
+                                const bf16* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                int sq, int sk, int n_rep, int d, float scale,
+                                int causal) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring = ring_base(smem_raw);
+  const uint32_t ring_at = smem_u32(ring);
+
+  const int n = d / kC;  // chunks of the head
+  const int n_slices = d / kW;
+  // launch order: slice fastest, then (kv head, batch), then key tile
+  const int n_kv = gridDim.y;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + n_kv * blockIdx.z);
+  const int slice = lin % n_slices;
+  const int rest = lin / n_slices;
+  const int hb = rest % (n_kv * gridDim.z);
+  const int g = hb % n_kv;  // kv head
+  const int batch = hb / n_kv;
+  const int k0 = rest / (n_kv * gridDim.z) * kWk;
+  const int heads = n_kv * n_rep;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;  // query rows 64 wg.. of each tile
+  const int64_t ldq = static_cast<int64_t>(heads) * d;
+  const int64_t ldk = static_cast<int64_t>(n_kv) * d;
+  const int64_t koff = static_cast<int64_t>(batch) * sk * ldk +
+                       static_cast<int64_t>(g) * d;
+  const int offset = sk - sq;
+  const int key = k0 + (warp & 3) * 16 + (lane >> 2);
+  const int col_lane = 2 * (lane & 3);
+  const float scale2 = scale * kLog2e;
+
+  // first query tile whose causal band reaches this block's first key
+  int qb0 = 0;
+  if (causal) {
+    const int need = k0 - offset - (kWq - 1);
+    qb0 = need <= 0 ? 0 : (need + kWq - 1) / kWq;
+  }
+  const int n_qb = (sq + kWq - 1) / kWq;
+  const int per_head = n_qb > qb0 ? n_qb - qb0 : 0;
+  const int n_tiles = n_rep * per_head;  // query tiles of every head
+  const int total = n_tiles * n;
+
+  auto load_step = [&](int step) {
+    const int t = step / n;
+    const int j = step - t * n;
+    const int head = g * n_rep + t / per_head;
+    const int q0 = (qb0 + t % per_head) * kWq;
+    const int c = chunk_of(j, slice, n) * kC;
+    const int64_t qoff = static_cast<int64_t>(batch) * sq * ldq +
+                         static_cast<int64_t>(head) * d + c;
+    unsigned char* st = ring + (step % kStages) * kStageBytes;
+    load_chunks(st, q + qoff, dout + qoff, q0, sq, ldq, k + koff + c,
+                v + koff + c, k0, sk, ldk);
+    if (j == n - 1) {  // the tile's lse, then delta; zeros past sq
+      const int i = threadIdx.x % kWq;
+      const float* src = threadIdx.x < kWq ? lse : delta;
+      const bool valid = q0 + i < sq;
+      const int64_t row =
+          (static_cast<int64_t>(batch) * heads + head) * sq + q0 + i;
+      cp_async4(smem_u32(st + kRowsAt + threadIdx.x * 4),
+                valid ? src + row : src, valid);
+    }
+  };
+
+  float adk[2][32], adv[2][32];  // the slice's two 64-column halves
+  zero(adk[0]);
+  zero(adk[1]);
+  zero(adv[0]);
+  zero(adv[1]);
+  int loaded = 0;
+  for (; loaded < total && loaded < kStages; ++loaded) {
+    load_step(loaded);
+    cp_async_commit();
+  }
+  const uint32_t wg_rows = wg * 64 * 128;  // the warpgroup's rows of Q, dO
+
+  for (int t = 0; t < n_tiles; ++t) {
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    for (int j = 0; j < n; ++j) {
+      const int step = t * n + j;
+      ring_step<0>(step, j, n, total, loaded, load_step);
+      const uint32_t st = ring_at + (step % kStages) * kStageBytes;
+      const uint32_t tQ = st + wg_rows;
+      const uint32_t tO = st + kQBytes + wg_rows;
+      const uint32_t tK = st + 2 * kQBytes;
+      const uint32_t tV = tK + kKBytes;
+      fence_operands(s);
+      fence_operands(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kC / 16; ++kk) {  // S^T += K.Q^T
+        wgmma_ss_n64(s, kmajor_desc<kC, kWk>(tK, kk),
+                     kmajor_desc<kC, kWq>(tQ, kk));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kC / 16; ++kk) {  // dP^T += V.dO^T
+        wgmma_ss_n64(dp, kmajor_desc<kC, kWk>(tV, kk),
+                     kmajor_desc<kC, kWq>(tO, kk));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands(s);
+      fence_operands(dp);
+    }
+
+    // rows are keys, columns this warpgroup's queries: p^T and ds^T in place
+    const int q0 = (qb0 + t % per_head) * kWq;
+    const int first = (t * n + n - 2) % kStages;  // the slice's chunks
+    const int last = (t * n + n - 1) % kStages;
+    const float* row_lse =
+        reinterpret_cast<const float*>(ring + last * kStageBytes + kRowsAt);
+    const float* row_delta = row_lse + kWq;
+    const bool mask =
+        q0 + kWq > sq || (causal && k0 + kWk - 1 > q0 + offset);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 64 * wg + 8 * j + col_lane;
+      const float2 l2 = *reinterpret_cast<const float2*>(row_lse + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(row_delta + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const int qr = q0 + c + (e & 1);
+        const int kr = key + (e >> 1) * 8;
+        const bool valid =
+            !mask || (qr < sq && (!causal || kr <= qr + offset));
+        const float lv = (e & 1) ? l2.y : l2.x;
+        const float dl = (e & 1) ? d2.y : d2.x;
+        const float p =
+            valid ? exp2f(fmaf(s[i], scale2, -lv * kLog2e)) : 0.0f;
+        dp[i] = valid ? p * (dp[i] - dl) * scale : 0.0f;  // ds
+        s[i] = p;
+      }
+    }
+    uint32_t pa[4][4], da[4][4];
+    pack_a(s, pa);
+    pack_a(dp, da);
+    const uint32_t s0 = ring_at + first * kStageBytes + wg_rows;
+    const uint32_t s1 = ring_at + last * kStageBytes + wg_rows;
+    fence_operands(adv[0]);
+    fence_operands(adv[1]);
+    fence_operands(adk[0]);
+    fence_operands(adk[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // dV += P^T.dO, dO MN-major
+      wgmma_rs<64>(adv[0], pa[kk], mnmajor_desc<kC, kWq>(s0 + kQBytes, kk));
+      wgmma_rs<64>(adv[1], pa[kk], mnmajor_desc<kC, kWq>(s1 + kQBytes, kk));
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // dK += dS^T.Q, Q MN-major
+      wgmma_rs<64>(adk[0], da[kk], mnmajor_desc<kC, kWq>(s0, kk));
+      wgmma_rs<64>(adk[1], da[kk], mnmajor_desc<kC, kWq>(s1, kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(adv[0]);
+    fence_operands(adv[1]);
+    fence_operands(adk[0]);
+    fence_operands(adk[1]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every product is done with the ring
+
+  // Each warpgroup summed half of every query tile. Warpgroup 0 hands its
+  // dK to warpgroup 1 and takes warpgroup 1's dV, through the ring; each
+  // adds warpgroup 0's value and warpgroup 1's, in that order, and writes.
+  // [warpgroup][64 values][128 threads]
+  float* red = reinterpret_cast<float*>(ring);
+  const int tid = threadIdx.x & 127;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      red[(wg * 64 + h * 32 + i) * 128 + tid] =
+          wg == 0 ? adk[h][i] : adv[h][i];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float other = red[((1 - wg) * 64 + h * 32 + i) * 128 + tid];
+      if (wg == 0) {
+        adv[h][i] = adv[h][i] + other;
+      } else {
+        adk[h][i] = other + adk[h][i];
+      }
+    }
+  }
+  bf16* out = wg == 0 ? dv : dk;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = key + r * 8;
+    if (kr >= sk) continue;
+    bf16* dst =
+        out + koff + static_cast<int64_t>(kr) * ldk + slice * kW + col_lane;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float x0 = wg == 0 ? adv[h][4 * j + 2 * r] : adk[h][4 * j + 2 * r];
+        const float x1 =
+            wg == 0 ? adv[h][4 * j + 2 * r + 1] : adk[h][4 * j + 2 * r + 1];
+        *reinterpret_cast<uint32_t*>(dst + h * 64 + j * 8) = pack_bf16(x0, x1);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wide_dq_wgmma_kernel(const bf16* __restrict__ q,
+                               const bf16* __restrict__ k,
+                               const bf16* __restrict__ v,
+                               const bf16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               bf16* __restrict__ dq, int sq, int sk,
+                               int n_rep, int d, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring = ring_base(smem_raw);
+  const uint32_t ring_at = smem_u32(ring);
+
+  const int n = d / kC;
+  const int n_slices = d / kW;
+  // launch order: slice fastest, then (head, batch), then the query tile,
+  // heaviest (the causal band's longest rows) first
+  const int heads = gridDim.y;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + heads * blockIdx.z);
+  const int slice = lin % n_slices;
+  const int rest = lin / n_slices;
+  const int hb = rest % (heads * gridDim.z);
+  const int head = hb % heads;
+  const int batch = hb / heads;
+  const int q0 =
+      (gridDim.x / n_slices - 1 - rest / (heads * gridDim.z)) * kWq;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;  // rows 64 wg.. of the block
+  const int64_t ldq = static_cast<int64_t>(heads) * d;
+  const int64_t ldk = static_cast<int64_t>(heads / n_rep) * d;
+  const int64_t qoff = static_cast<int64_t>(batch) * sq * ldq +
+                       static_cast<int64_t>(head) * d;
+  const int64_t koff = static_cast<int64_t>(batch) * sk * ldk +
+                       static_cast<int64_t>(head / n_rep) * d;
+  const int64_t row_off = (static_cast<int64_t>(batch) * heads + head) * sq;
+  const int offset = sk - sq;
+  const int row = q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int col_lane = 2 * (lane & 3);
+  const float scale2 = scale * kLog2e;
+  const int n_kt = key_tiles(q0, sk, offset, causal, kWq, kWk);
+  const int total = n_kt * n;
+
+  auto load_step = [&](int step) {
+    const int t = step / n;
+    const int c = chunk_of(step - t * n, slice, n) * kC;
+    load_chunks(ring + (step % kStages) * kStageBytes, q + qoff + c,
+                dout + qoff + c, q0, sq, ldq, k + koff + c, v + koff + c,
+                t * kWk, sk, ldk);
+  };
+
+  int loaded = 0;
+  for (; loaded < total && loaded < kStages; ++loaded) {
+    load_step(loaded);
+    cp_async_commit();
+  }
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row + i * 8;
+    lse2[i] = r < sq ? lse[row_off + r] * kLog2e : 0.0f;
+    dl[i] = r < sq ? delta[row_off + r] : 0.0f;
+  }
+  float acc[2][32];  // the slice's two 64-column halves
+  zero(acc[0]);
+  zero(acc[1]);
+  const uint32_t wg_rows = wg * 64 * 128;  // the warpgroup's rows of Q, dO
+
+  for (int t = 0; t < n_kt; ++t) {
+    const int k0 = t * kWk;
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    for (int j = 0; j < n; ++j) {
+      const int step = t * n + j;
+      ring_step<1>(step, j, n, total, loaded, load_step);
+      const uint32_t st = ring_at + (step % kStages) * kStageBytes;
+      const uint32_t tQ = st + wg_rows;
+      const uint32_t tO = st + kQBytes + wg_rows;
+      const uint32_t tK = st + 2 * kQBytes;
+      const uint32_t tV = tK + kKBytes;
+      fence_operands(s);
+      fence_operands(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kC / 16; ++kk) {  // S += Q.K^T
+        wgmma_ss_n64(s, kmajor_desc<kC, kWq>(tQ, kk),
+                     kmajor_desc<kC, kWk>(tK, kk));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kC / 16; ++kk) {  // dP += dO.V^T
+        wgmma_ss_n64(dp, kmajor_desc<kC, kWq>(tO, kk),
+                     kmajor_desc<kC, kWk>(tV, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the step before this one is done
+      fence_operands(s);
+      fence_operands(dp);
+    }
+    wgmma_wait_all();
+    fence_operands(s);
+    fence_operands(dp);
+
+    const bool mask =
+        k0 + kWk > sk || (causal && k0 + kWk - 1 > q0 + offset);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const int col = k0 + (i >> 2) * 8 + col_lane + (i & 1);
+      const bool valid =
+          !mask || (col < sk && (!causal || col <= row + h * 8 + offset));
+      const float p = valid ? exp2f(s[i] * scale2 - lse2[h]) : 0.0f;
+      s[i] = valid ? p * (dp[i] - dl[h]) * scale : 0.0f;  // ds
+    }
+    uint32_t da[4][4];
+    pack_a(s, da);
+    // the slice's two K chunks
+    const uint32_t s0 = ring_at +
+                        ((t * n + n - 2) % kStages) * kStageBytes +
+                        2 * kQBytes;
+    const uint32_t s1 = ring_at +
+                        ((t * n + n - 1) % kStages) * kStageBytes +
+                        2 * kQBytes;
+    fence_operands(acc[0]);
+    fence_operands(acc[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // dQ += dS.K, K MN-major
+      wgmma_rs<64>(acc[0], da[kk], mnmajor_desc<kC, kWk>(s0, kk));
+      wgmma_rs<64>(acc[1], da[kk], mnmajor_desc<kC, kWk>(s1, kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(acc[0]);
+    fence_operands(acc[1]);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qr = row + r * 8;
+    if (qr >= sq) continue;
+    bf16* dst =
+        dq + qoff + static_cast<int64_t>(qr) * ldq + slice * kW + col_lane;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dst + h * 64 + j * 8) =
+            pack_bf16(acc[h][4 * j + 2 * r], acc[h][4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 bool bad_layout(int batch, int heads, int n_rep, int d) {
   return d <= 0 || d % kW != 0 || n_rep <= 0 || heads % n_rep != 0 ||
          batch > 65535 || heads > 65535;
@@ -451,16 +987,32 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
   if (bad_layout(batch, heads, n_rep, d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((sk + kRows - 1) / kRows * (d / kW), heads / n_rep,
-                  batch);
-  flash_wide_dkv_kernel<T><<<grid, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, n_rep, d, scale,
-      causal);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same_v<T, bf16>) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_wide_dkv_wgmma_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kWgmmaSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((sk + kWk - 1) / kWk * (d / kW), heads / n_rep, batch);
+    flash_wide_dkv_wgmma_kernel<<<grid, kThreads, kWgmmaSmem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, n_rep, d,
+        scale, causal);
+    return static_cast<int>(cudaGetLastError());
+  } else {  // float32: the SIMT kernel
+    const dim3 grid((sk + kRows - 1) / kRows * (d / kW), heads / n_rep,
+                    batch);
+    flash_wide_dkv_kernel<T><<<grid, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, n_rep, d, scale,
+        causal);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T>
@@ -471,14 +1023,29 @@ int dq_entry(const void* q, const void* k, const void* v, const void* dout,
   if (bad_layout(batch, heads, n_rep, d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((sq + kRows - 1) / kRows * (d / kW), heads, batch);
-  flash_wide_dq_kernel<T><<<grid, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), sq, sk, n_rep, d, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same_v<T, bf16>) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_wide_dq_wgmma_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kWgmmaSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((sq + kWq - 1) / kWq * (d / kW), heads, batch);
+    flash_wide_dq_wgmma_kernel<<<grid, kThreads, kWgmmaSmem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<bf16*>(dq), sq, sk, n_rep, d, scale, causal);
+    return static_cast<int>(cudaGetLastError());
+  } else {  // float32: the SIMT kernel
+    const dim3 grid((sq + kRows - 1) / kRows * (d / kW), heads, batch);
+    flash_wide_dq_kernel<T><<<grid, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dq), sq, sk, n_rep, d, scale, causal);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace

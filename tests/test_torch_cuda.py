@@ -1204,6 +1204,82 @@ def test_wide_head_dims_match_plain_versions(no_tf32, d, dtype, causal,
         assert got.shape == want.shape and _rel_err(got, want) < lim
 
 
+def _wide_backward(q, k, v, do, d, heads, causal):
+    """(the bf16 wide backward's dk, dv, dq; its plain versions'; a
+    function that calls the kernels again) on the plain forward's lse and
+    Δ. heads (h, kv): the packed [b, s, h·d] entries, GQA by index; None:
+    the [b·h, s, d] ones."""
+    scale = d ** -0.5
+    if heads is None:
+        args = (scale, causal)
+        p_out, p_lse = fa.flash_fwd_plain(q, k, v, *args)
+        delta = fa.flash_delta(p_out, do)
+        dkv, dq_fn = fa.flash_bwd_dkv, fa.flash_bwd_dq
+        plain = (fa.flash_bwd_dkv_plain, fa.flash_bwd_dq_plain)
+    else:
+        args = (*heads, scale, causal)
+        p_out, p_lse = fa.flash_fwd_packed_plain(q, k, v, *args)
+        delta = fa.flash_delta_packed(p_out, do, heads[0])
+        dkv, dq_fn = fa.flash_bwd_dkv_packed, fa.flash_bwd_dq_packed
+        plain = (fa.flash_bwd_dkv_packed_plain, fa.flash_bwd_dq_packed_plain)
+    bwd = (q, k, v, do, p_lse, delta, *args)
+
+    def kernels():
+        before = [dkv.wide_launches, dq_fn.wide_launches]
+        got = (*dkv(*bwd), dq_fn(*bwd))
+        torch.cuda.synchronize()
+        assert [dkv.wide_launches, dq_fn.wide_launches] == [
+            n + 1 for n in before]
+        return got
+
+    return kernels(), (*plain[0](*bwd), plain[1](*bwd)), kernels
+
+
+@pytest.mark.parametrize("sq,sk", [(200, 64), (64, 200)])
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_bf16_backward_where_sq_and_sk_differ(cuda, d, sq, sk):
+    """The wgmma dk/dv and dq of the wide family, causal (end-aligned) with
+    sq > sk, where rows 0..sq-sk-1 see no key and their dq is exactly 0,
+    and with sq < sk; against the plain versions within 1e-2 of the plain
+    max, on [b·h, s, d]."""
+    bh = 2
+    q, do = (_bf16((bh, sq, d), cuda, i) for i in (0, 3))
+    k, v = (_bf16((bh, sk, d), cuda, i) for i in (1, 2))
+    got, want, _ = _wide_backward(q, k, v, do, d, None, True)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel_err(g, w) < REL_TOL
+    if sq > sk:
+        assert bool((got[2][:, :sq - sk] == 0).all())
+        assert bool((got[2][:, sq - sk:] != 0).any())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("packed", [False, True], ids=["flat", "packed"])
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_bf16_backward_ragged_gqa_and_deterministic(cuda, d, packed,
+                                                         causal):
+    """The wgmma dk/dv and dq of the wide family at s 200 (two 128-row
+    query tiles and four 64-key tiles, each ragged at its tail) with GQA 4
+    query heads over 1 kv head, packed (by index) and on [b·h, s, d] (K/V
+    repeated): within 1e-2 of the plain max, and a second call gives the
+    same bits."""
+    b, h, kv, s = 1, 4, 1, 200
+    q, do = (_bf16((b, s, h * d), cuda, i) for i in (0, 3))
+    k, v = (_bf16((b, s, kv * d), cuda, i) for i in (1, 2))
+    if not packed:
+        def flat(t, n):
+            return _heads(t, n).repeat_interleave(h // n, 1).reshape(
+                b * h, s, d).contiguous()
+
+        q, do, k, v = flat(q, h), flat(do, h), flat(k, kv), flat(v, kv)
+    got, want, again = _wide_backward(q, k, v, do, d,
+                                      (h, kv) if packed else None, causal)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel_err(g, w) < REL_TOL
+    for g, g2 in zip(got, again()):
+        assert torch.equal(g, g2)
+
+
 # --------------------------- rows that see no key; the wgmma K3 and K2
 
 
