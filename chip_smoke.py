@@ -11,12 +11,12 @@ Phases (any failure exits non-zero and prints no result line):
      flash forward, dq and dk/dv at each head_dim; K1's, K3's and K2's TMA
      and cp.async instances), of the float32 K3, K1 and K2 at each tile
      and of the float32 flash forward, dq and dk/dv at each head_dim and
-     tile, and of the wide family (its SIMT kernels, and the wgmma bf16
-     dq and dk/dv with the dynamic shared memory their launch sets), with
-     any ptxas warning; fail if a 128 x 128 float32 tile (an 8 x 8 patch a
-     thread), a float32 flash kernel at head_dim 128 or a wide wgmma
-     kernel spills, or if ptxas serialized a wide kernel's products
-     (C7515);
+     tile, and of the wide family (its SIMT kernels; the wgmma bf16
+     forward, dq and dk/dv and the register-tiled float32 dq with the
+     dynamic shared memory their launch sets), with any ptxas warning;
+     fail if a 128 x 128 float32 tile (an 8 x 8 patch a thread), a float32
+     flash kernel at head_dim 128, a wide wgmma kernel or the wide float32
+     dq spills, or if ptxas serialized a wide kernel's products (C7515);
   3. hold each quant kernel against its plain PyTorch version on the card,
      bit for bit, at every shape the serving path gives it (the quant
      kernel's stacked [L, in, out] leaves included) and at the six 8B
@@ -100,11 +100,13 @@ Phases (any failure exits non-zero and prints no result line):
      to 384) and 512 through the wide family (csrc/flash_wide.cu) at the
      same shapes, bf16 and float32, causal and not, both layouts, against
      the plain versions (bf16 1e-2, float32 1e-4, lse 2e-5 of its max),
-     every launch the wide family's (counted apart), dk/dv and dq (the
-     bf16 ones on wgmma) bit-identical across two calls in both layouts,
-     the causal cases timed beside their bound and SDPA (its backend
-     named), and the three entries at 320 and 512 against the einsum
-     route, their wide launches the family's `launches`;
+     every launch the wide family's (counted apart), the forward's out
+     and lse, dk/dv and dq (the bf16 ones on wgmma, the float32 dq
+     register-tiled) bit-identical across two calls in both layouts, the
+     causal cases timed beside their bound, SDPA (its backend named) and
+     the first (SIMT) design's time where a redesign replaced it, and the
+     three entries at 320 and 512 against the einsum route, their wide
+     launches the family's `launches`;
   8. train Llama-3-8B at full width with 8 of its 32 layers (random bf16
      weights, one batch of 2 x 2049 tokens reused) for 8 steps of
      default_optimizer(warmup_steps=2), checking finite losses and grad
@@ -1799,21 +1801,26 @@ WIDE_SHAPES = [(1, 8, 2, 1024, 320, "bfloat16"),
 WIDE_NAMES = {"flash_fwd": "flash_fwd_wide",
               "flash_bwd_dkv": "flash_bwd_dkv_wide",
               "flash_bwd_dq": "flash_bwd_dq_wide"}
-# The bf16 wide dk/dv and dq of the first (SIMT) design, ms a launch at
-# phase 7e's causal shapes by head_dim, (packed, [b·h, s, d]), as PERF.md
-# §6 records them (NVIDIA H100 80GB HBM3, 700 W), before the wgmma
-# redesign replaced them.
+# The wide kernels of the first (SIMT) design that a redesign replaced (the
+# bf16 dk/dv, dq and forward, the float32 dq), ms a launch at phase 7e's
+# causal shapes by head_dim, (packed, [b·h, s, d]), as PERF.md §6 records
+# them (NVIDIA H100 80GB HBM3, 700 W).
 WIDE_SIMT_MS = {("flash_bwd_dkv_wide", 320): (5.6142, 3.4027),
                 ("flash_bwd_dkv_wide", 512): (9.0285, 5.1970),
                 ("flash_bwd_dq_wide", 320): (3.2552, 3.2368),
-                ("flash_bwd_dq_wide", 512): (5.7739, 5.3597)}
+                ("flash_bwd_dq_wide", 512): (5.7739, 5.3597),
+                ("flash_fwd_wide", 320): (1.7819, 1.7600),
+                ("flash_fwd_wide", 512): (2.8999, 2.8476),
+                ("flash_bwd_dq_wide_f32", 320): (0.3540, 0.3532),
+                ("flash_bwd_dq_wide_f32", 512): (0.5063, 0.5213)}
 
 
 def check_wide_repeatable(torch, fa, q, k, v, do, h: int, kv: int,
                           causal: bool, what: str) -> None:
-    """Phase 7e: the wide dk/dv and dq, packed and on the [b·h, s, d]
-    views, called twice on the plain forward's lse and Δ, give the same
-    bits (every output written once, no atomics)."""
+    """Phase 7e: the wide forward (out and lse), dk/dv and dq, packed and
+    on the [b·h, s, d] views, called twice (the backward on the plain
+    forward's lse and Δ), give the same bits (every output written once,
+    no atomics)."""
     b, s, width = q.shape
     d = width // h
     scale = d ** -0.5
@@ -1827,19 +1834,23 @@ def check_wide_repeatable(torch, fa, q, k, v, do, h: int, kv: int,
     bwd = (q, k, v, do, p_lse, delta, h, kv, scale, causal)
     bwd3 = (flat(q, h), flat(k, kv), flat(v, kv), flat(do, h),
             p_lse.view(b * h, s), delta.view(b * h, s), scale, causal)
-    for layout, args, dkv, dq in (
-            ("packed", bwd, fa.flash_bwd_dkv_packed, fa.flash_bwd_dq_packed),
-            ("flat", bwd3, fa.flash_bwd_dkv, fa.flash_bwd_dq)):
-        first = (*dkv(*args), dq(*args))
-        second = (*dkv(*args), dq(*args))
+    fwd = (q, k, v, h, kv, scale, causal)
+    fwd3 = (*bwd3[:3], scale, causal)
+    for layout, f_args, args, fwd_fn, dkv, dq in (
+            ("packed", fwd, bwd, fa.flash_fwd_packed,
+             fa.flash_bwd_dkv_packed, fa.flash_bwd_dq_packed),
+            ("flat", fwd3, bwd3, fa.flash_fwd, fa.flash_bwd_dkv,
+             fa.flash_bwd_dq)):
+        first = (*fwd_fn(*f_args), *dkv(*args), dq(*args))
+        second = (*fwd_fn(*f_args), *dkv(*args), dq(*args))
         torch.cuda.synchronize()
         same = [bool(torch.equal(x, y)) for x, y in zip(first, second)]
-        log(f"wide {what} {layout}: dk, dv, dq bit-identical across two "
-            f"calls {same}")
+        log(f"wide {what} {layout}: out, lse, dk, dv, dq bit-identical "
+            f"across two calls {same}")
         if not all(same):
-            fail(f"phase 7e, wide {what} {layout}: dk, dv, dq differ "
-                 f"between two calls ({same})")
-    del p_out, p_lse, delta, bwd, bwd3
+            fail(f"phase 7e, wide {what} {layout}: out, lse, dk, dv, dq "
+                 f"differ between two calls ({same})")
+    del p_out, p_lse, delta, bwd, bwd3, fwd, fwd3, first, second
     torch.cuda.empty_cache()
 
 
@@ -1849,8 +1860,8 @@ def check_wide_head_dims(torch, gen, card: str):
     [b·h, s, d] ones, bf16 and float32, causal and not, against the plain
     versions (bf16 within 1e-2 of the plain max, float32 1e-4, lse 2e-5
     of its max), each wrapper launched once per call and every launch the
-    wide family's, dk/dv and dq bit-identical across two calls
-    (`check_wide_repeatable`); the causal cases timed beside their bound
+    wide family's, the forward, dk/dv and dq bit-identical across two
+    calls (`check_wide_repeatable`); the causal cases timed beside their bound
     and SDPA (its backend named); then ops.attention, ops.attention_packed
     and the fused attn_block at each shape against the einsum route, with
     counters
@@ -2670,7 +2681,11 @@ def train_f32_tiny(torch, seed: int, cfg):
 # the float32 dk/dv's K and V [keys][d], Q and dO slots [32][d], P^T and
 # dS^T [keys][32] and lse and delta slots [32]; the wide bf16 dq's and
 # dk/dv's four-stage chunk ring (Q and dO chunks of 128 x 64, K and V of
-# 64 x 64, lse and delta of 128 rows), at any head_dim.
+# 64 x 64, lse and delta of 128 rows), at any head_dim; the wide bf16
+# forward's by plan and head_dim (flash_attention.wide_fwd_plan: its ring,
+# V slice and resident Q); the wide float32 dq's four-stage ring of Q and
+# dO chunks [rows][64] and K and V chunks [32][64], dS [32][rows] and the
+# rows' lse and delta.
 KERNEL_SMEM = {
     "flash_fwd_kernel": lambda d: 2 * (128 + 4 * 64) * d + 1024,
     "flash_bwd_dq_kernel": lambda d: (2 * (256 + (2 if d > 128 else 4) * 64)
@@ -2698,7 +2713,16 @@ KERNEL_SMEM = {
                                                + 4 * 2 * 128) + 1024,
     "flash_wide_dkv_wgmma_kernel": lambda: 4 * (2 * 2 * 64 * (128 + 64)
                                                 + 4 * 2 * 128) + 1024,
+    "flash_wide_fwd_wgmma_kernel": lambda d: _wide_fwd_plan(d)[2],
+    "flash_wide_dq_f32_kernel": lambda rows: 4 * (4 * 64 * (2 * rows + 64)
+                                                  + rows * (32 + 2)),
 }
+
+
+def _wide_fwd_plan(d: int):
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+
+    return fa.wide_fwd_plan(d)
 
 
 def ptxas_report(procs) -> None:
@@ -2706,12 +2730,13 @@ def ptxas_report(procs) -> None:
     wgmma kernels, the float32 K1, K2 and K3 and the float32 flash
     forward, dq and dk/dv at each instantiation, the registers, spills and
     static shared memory of the wide flash family's SIMT kernels and the
-    registers, spills and dynamic shared memory of its wgmma dq and dk/dv
-    (the `nvcc -Xptxas -v` runs started in phase 2), any warning ptxas
-    gives, and any note that it serialized products; fail if a float32 K1,
-    K2 or K3 with 128 x 128 tiles (8 x 8 accumulators a thread), a float32
-    flash kernel at head_dim 128 or a wide wgmma kernel spills, or if
-    ptxas serialized the products of a wide kernel (C7515)."""
+    registers, spills and dynamic shared memory of its wgmma forward, dq
+    and dk/dv and its float32 dq (the `nvcc -Xptxas -v` runs started in
+    phase 2), any warning ptxas gives, and any note that it serialized
+    products; fail if a float32 K1, K2 or K3 with 128 x 128 tiles (8 x 8
+    accumulators a thread), a float32 flash kernel at head_dim 128, a wide
+    wgmma kernel or the wide float32 dq spills, or if ptxas serialized the
+    products of a wide kernel (C7515)."""
     import re
 
     for name, (proc, out_path) in procs.items():
@@ -2738,8 +2763,30 @@ def ptxas_report(procs) -> None:
                 if not re.search(r"\b0 bytes spill stores", stats):
                     fail(f"ptxas: {w.group(1)} spills ({stats})")
                 continue
+            w = re.search(r"Compiling entry function '.*?(flash_wide_fwd_"
+                          r"wgmma_kernel)ILb([01])E|(flash_wide_dq_f32_"
+                          r"kernel)ILi(\d+)E", line)
+            if w:  # the wide bf16 forward by plan, the float32 dq by tile
+                stats = " ".join(x.split(":", 1)[-1].strip()
+                                 for x in lines[i + 1:i + 4]
+                                 if "registers" in x or "spill" in x)
+                if w.group(1):
+                    kernel, resident = w.group(1), w.group(2) == "1"
+                    inst = "<Q resident>" if resident else "<Q streamed>"
+                    smem = ", ".join(
+                        f"{KERNEL_SMEM[kernel](d)} bytes at head_dim {d}"
+                        for d in ((384, 512) if resident else (640,)))
+                else:
+                    kernel, rows = w.group(3), int(w.group(4))
+                    inst = f"<{rows}>"
+                    smem = f"{KERNEL_SMEM[kernel](rows)} bytes"
+                log(f"ptxas {kernel}{inst}: {stats}; dynamic shared memory "
+                    f"{smem} a block")
+                if not re.search(r"\b0 bytes spill stores", stats):
+                    fail(f"ptxas: {kernel}{inst} spills ({stats})")
+                continue
             w = re.search(r"Compiling entry function '.*?(flash_wide_"
-                          r"(?:fwd|dq|dkv)_kernel)I(f|13__nv_bfloat16)E",
+                          r"(?:fwd|dkv)_kernel)I(f|13__nv_bfloat16)E",
                           line)
             if w:  # the wide family: static shared memory, one a dtype
                 stats = " ".join(x.split(":", 1)[-1].strip()

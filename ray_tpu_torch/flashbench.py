@@ -4,7 +4,8 @@
     python -m ray_tpu_torch.flashbench --dtype float32
     python -m ray_tpu_torch.flashbench --dtype float32 \\
         --source OTHER/flash_attention.cu --other-untiled-bwd
-    python -m ray_tpu_torch.flashbench --wide [--source OTHER/flash_wide.cu]
+    python -m ray_tpu_torch.flashbench --wide [--dtype float32] \\
+        [--source OTHER/flash_wide.cu [--other-unplanned]]
 
 In the [b·h, s, d] layout, causal: bf16 at the Llama-3-8B attention shape
 (b·h 64, s 2048, head_dim 128); float32 at the float32 tiny training
@@ -29,9 +30,12 @@ entries takes a tile (before any plan existed, e.g. PR 9's);
 does; e.g. PR 10's). --wide times the wide family (csrc/flash_wide.cu)
 instead: its three bf16 entries at the 8B attention shape (b·h 64, s 2048,
 causal) and at chip_smoke phase 7e's (b·h 8, s 1024), at head_dim 320
-(zero-padded to 384, the bound at 320) and 512, with --source another
-flash_wide.cu. A quick check between full chip_smoke runs; it needs a
-GPU.
+(zero-padded to 384, the bound at 320) and 512; with --dtype float32 its
+float32 entries at phase 7e's float32 shape (b·h 4, s 256) and then at
+the 8B shape, the dq also at each tile of its plan
+(`flash_attention.wide_f32_dq_tile`); with --source another flash_wide.cu
+(--other-unplanned: one from before the float32 dq took a tile). A
+quick check between full chip_smoke runs; it needs a GPU.
 """
 
 from __future__ import annotations
@@ -60,6 +64,11 @@ SHAPES = {torch.bfloat16: [(64, 2048, 128)],
 # s 1024), where the card is under-filled
 WIDE_SHAPES = [(64, 2048, 320), (64, 2048, 512), (8, 1024, 320),
                (8, 1024, 512)]
+# --wide --dtype float32: chip_smoke phase 7e's float32 [b·h, s, d] shapes
+# (b 1, 4 heads, s 256) first, whose SDPA backward is timed before the one
+# torch.profiler window (at the last shape), then the 8B attention shape
+WIDE_F32_SHAPES = [(4, 256, 320), (4, 256, 512), (64, 2048, 320),
+                   (64, 2048, 512)]
 NAMES = ("rt_flash_fwd", "rt_flash_bwd_dkv", "rt_flash_bwd_dq")
 
 
@@ -124,40 +133,55 @@ def load_other(source: Path, tiled, wide: bool = False) -> ctypes.CDLL:
                         str(source.parent), "-o", str(out), str(source)],
                        check=True)
     lib = ctypes.CDLL(str(out))
+    sigs = fa._WIDE_SIGNATURES if wide else fa._SIGNATURES
     for name in NAMES:
+        if wide:
+            name = name.replace("rt_flash_", "rt_flash_wide_")
         for entry in (name, f"{name}_f32"):
-            if wide:
-                entry = entry.replace("rt_flash_", "rt_flash_wide_")
-                sig = fa._WIDE_SIGNATURES[entry]
-            else:
-                sig = fa._SIGNATURES[entry if name in tiled else name]
+            sig = sigs[entry if _base(entry) in tiled else name]
             getattr(lib, entry).argtypes, getattr(lib, entry).restype = sig
     return lib
 
 
 # The entries whose float32 kernel takes a tile in this tree, and the plan
-# of each ([b·h, s, d] operands: b·h heads of s rows and s keys).
+# of each ([b·h, s, d] operands: b·h heads of s rows and s keys); of the
+# wide family only the dq's, whose plan also takes the head_dim.
 TILED = frozenset(NAMES)
 PLANS = {"rt_flash_fwd": fa.f32_fwd_tile, "rt_flash_bwd_dkv": fa.f32_dkv_tile,
          "rt_flash_bwd_dq": fa.f32_fwd_tile}
+WIDE_TILED = frozenset({"rt_flash_bwd_dq"})
+WIDE_PLANS = {"rt_flash_bwd_dq": fa.wide_f32_dq_tile}
+
+
+def _base(entry: str) -> str:
+    """"rt_flash_wide_bwd_dq_f32" -> "rt_flash_bwd_dq"."""
+    return entry.replace("rt_flash_wide_", "rt_flash_").removesuffix("_f32")
+
+
+def planned_tile(name: str, bh: int, s: int, d: int, wide: bool) -> int:
+    """The tile the wrappers plan for entry `name` at [b·h, s, d]."""
+    return WIDE_PLANS[name](bh, s, d) if wide else PLANS[name](bh, s)
 
 
 def entries(lib: ctypes.CDLL, t: dict, dtype: torch.dtype, scale: float,
-            tiled=TILED, tile=None, wide: bool = False) -> dict:
+            tiled=None, tile=None, wide: bool = False) -> dict:
     """The three entry points of `lib` for `dtype` on the tensors `t`
     ([b·h, s, d], causal), each launched on the current stream; each
-    float32 one in `tiled` at tile `tile`, else at its plan's; the wide
-    family's (no tile) when `wide`."""
+    float32 one in `tiled` (by default this tree's: TILED, or WIDE_TILED
+    when `wide`) at tile `tile`, else at its plan's; the wide family's when
+    `wide`."""
     bh, s, d = t["q"].shape
     layout = (bh, 1, 1, s, s, d)
     stream = torch.cuda.current_stream().cuda_stream
     f32 = dtype == torch.float32
+    if tiled is None:
+        tiled = WIDE_TILED if wide else TILED
 
     def call(name, names):
         entry = name.replace("rt_flash_", "rt_flash_wide_") if wide else name
         fn = getattr(lib, entry + ("_f32" if f32 else ""))
-        extra = ((tile or PLANS[name](bh, s),)
-                 if f32 and name in tiled and not wide else ())
+        extra = ((tile or planned_tile(name, bh, s, d, wide),)
+                 if f32 and name in tiled else ())
         code = fn(*(t[x].data_ptr() for x in names), *layout, scale, 1,
                   *extra, stream)
         if code:
@@ -176,7 +200,10 @@ def entries(lib: ctypes.CDLL, t: dict, dtype: torch.dtype, scale: float,
 
 
 def run(dtype: torch.dtype, shape, gen, flush, other,
-        wide: bool = False) -> None:
+        wide: bool = False, profile: bool = True) -> None:
+    """Times the three entries at `shape` beside their plain versions and
+    SDPA (its forward's kernels read by torch.profiler when `profile`), and
+    in turns with `other`'s."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     bh, s, d = shape
@@ -219,12 +246,15 @@ def run(dtype: torch.dtype, shape, gen, flush, other,
         print(f"{label} {kname}: {ms:.4f} ms a launch, bound {bound:.4f} ms "
               f"(operations), {bound / ms:.3f} of bound; max abs err "
               f"{err:.3g} of the plain max", flush=True)
-    if dtype == torch.float32 and not wide:
+    if dtype == torch.float32:
         for kname, entry in zip(tree, NAMES):
-            planned = PLANS[entry](bh, s)
+            if entry not in (WIDE_TILED if wide else TILED):
+                continue
+            planned = planned_tile(entry, bh, s, kd, wide)
             times = []
             for tile in fa.F32_FWD_TILES:
-                fn = entries(lib, kt, dtype, scale, tile=tile)[kname]
+                fn = entries(lib, kt, dtype, scale, tile=tile,
+                             wide=wide)[kname]
                 times.append(f"{tile}{' (plan)' if tile == planned else ''} "
                              f"{time_ms(fn, flush):.4f}")
             print(f"{label} {kname} by tile, ms a launch: "
@@ -241,9 +271,11 @@ def run(dtype: torch.dtype, shape, gen, flush, other,
     bwd_ms = time_ms(lambda: torch.autograd.grad(
         lib_out, (q4, k4, v4), t["do"].view(1, *t["do"].shape),
         retain_graph=True), flush)
+    kernels = (f"; forward kernels {device_kernels(lib_fwd)}" if profile
+               else "")
     print(f"{label} scaled_dot_product_attention: forward {fwd_ms:.4f} ms, "
-          f"backward {bwd_ms:.4f} ms; backend {sdpa_backend(q4, k4, v4)}; "
-          f"forward kernels {device_kernels(lib_fwd)}", flush=True)
+          f"backward {bwd_ms:.4f} ms; backend {sdpa_backend(q4, k4, v4)}"
+          f"{kernels}", flush=True)
     if other is None:
         return
     lib_other, tiled_other = other
@@ -282,13 +314,17 @@ def main() -> None:
     other = None
     if args.source is not None:
         tiled = (frozenset() if args.other_unplanned
+                 else WIDE_TILED if args.wide
                  else frozenset({"rt_flash_fwd"}) if args.other_untiled_bwd
                  else TILED)
         other = (load_other(args.source, tiled, args.wide), tiled)
         print(f"other: {args.source}", flush=True)
     if args.wide:
-        for shape in WIDE_SHAPES:
-            run(torch.bfloat16, shape, gen, flush, other, wide=True)
+        f32 = args.dtype == "float32"
+        shapes = WIDE_F32_SHAPES if f32 else WIDE_SHAPES
+        for i, shape in enumerate(shapes):
+            run(torch.float32 if f32 else torch.bfloat16, shape, gen, flush,
+                other, wide=True, profile=not f32 or i == len(shapes) - 1)
             torch.cuda.empty_cache()
         return
     for name in ([args.dtype] if args.dtype else ["bfloat16", "float32"]):

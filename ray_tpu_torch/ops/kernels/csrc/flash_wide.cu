@@ -3,12 +3,13 @@
 // state. The narrower widths (up to 256) run the kernels of
 // flash_attention.cu; this family takes what those cannot hold.
 //
-// flash_wide_fwd_kernel replaces the TPU kernel _fwd_kernel
+// The forward kernels (flash_wide_fwd_wgmma_kernel in bf16,
+// flash_wide_fwd_kernel<float>) replace the TPU kernel _fwd_kernel
 // (ray_tpu/ops/pallas/flash_attention.py:38) at those widths, in both of its
 // calls (_flash_fwd :104 over [b*h, s, d], _flash_fwd_packed :376 over the
 // packed [b, s, h*d]); the dk/dv kernels (flash_wide_dkv_wgmma_kernel in
 // bf16, flash_wide_dkv_kernel<float>) replace _bwd_dkv_kernel (:181) and the
-// dq kernels (flash_wide_dq_wgmma_kernel, flash_wide_dq_kernel<float>)
+// dq kernels (flash_wide_dq_wgmma_kernel, flash_wide_dq_f32_kernel)
 // _bwd_dq_kernel (:224), both on the recompute of _recompute_p_ds (:142), in
 // _flash_bwd (:276, :303) and _flash_bwd_packed (:442, :480). The Pallas
 // blocks take any head_dim; these kernels take any multiple of kW (128)
@@ -20,17 +21,17 @@
 // What bounds them on an H100: the products. A wide head's output does not
 // fit a block's registers (64 keys x 512 columns of dK alone are 128 KB of
 // float32), so the design cuts it:
-//  * a grid axis over output-width slices of kW columns: a forward or dq
-//    block owns a tile of query rows of one head and one kW-column slice of
-//    O (dQ); a dk/dv block owns a tile of keys of one kv head and one slice
-//    of both dK and dV;
+//  * a grid axis over output-width slices of kW columns (kFwdSlice, 256,
+//    in the bf16 forward up to head_dim 512): a forward or dq block owns a
+//    tile of query rows of one head and one slice of O (dQ); a dk/dv block
+//    owns a tile of keys of one kv head and one slice of both dK and dV;
 //  * each block recomputes the score S = Q.K^T (and, in the backward,
 //    dP = dO.V^T) over the whole head_dim, chunk by chunk, each chunk's
 //    partial sum added to the block's float32 accumulators, so no block
-//    holds a whole head's width: the score products run once per slice
-//    (d / kW times), the price of the cut. Counted against the bound's
-//    products (each once), n slices do (4n + 4) / 8 of dk/dv's work and
-//    (4n + 2) / 6 of dq's: 2.5x and 3x at d 512;
+//    holds a whole head's width: the score products run once per slice,
+//    the price of the cut. Counted against the bound's products (each
+//    once), n slices do (4n + 4) / 8 of dk/dv's work, (4n + 2) / 6 of dq's
+//    and (n + 1) / 2 of the forward's: 2.5x, 3x and 1.5x at d 512;
 //  * the lse (forward) is written once, by slice 0; the other slices
 //    compute the same row statistics and do not store them.
 // The rest is the narrower kernels' arithmetic (flash_attention.cu): the
@@ -49,17 +50,19 @@
 // [b, heads, sq]; [b*h, s, d] is heads = n_rep = 1. Grid: x the tiles times
 // the slices, y the head (the kv head for dk/dv), z the batch.
 //
-// Two designs. The forward and the float32 backward are the family's first,
-// simple one (CUDA cores, no wgmma; "SIMT" below). The bf16 backward runs
-// on wgmma with a streamed chunk ring ("bf16 backward" below).
+// Three designs. The float32 forward and dk/dv are the family's first,
+// simple one (CUDA cores, no wgmma; "SIMT" below). The bf16 kernels run on
+// wgmma with a streamed chunk ring ("bf16 backward", "bf16 forward"
+// below); the float32 dq is register-tiled on the CUDA cores over the same
+// ring ("float32 dq" below).
 //
 // SIMT: 256 threads; the operands of each product pass through shared
 // memory as float32 tiles of 32 rows x kW columns padded to kW + 1
 // (bank-conflict-free reads); a score tile is 32 x 32, thread (i, g) =
 // (tid / 8, tid % 8) owning row i and columns g + 8j (j < 4), and an output
 // tile 32 x kW, the same thread owning row i and columns g + 8c (c < 16).
-// 37,248 bytes (forward, dq) and 41,472 (dk/dv) of static shared memory a
-// block; 80, 64 and 128 registers a thread, no spill (ptxas, sm_90a).
+// 37,248 bytes (forward) and 41,472 (dk/dv) of static shared memory a
+// block; 80 and 128 registers a thread, no spill (ptxas, sm_90a).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,20 +83,14 @@ constexpr int kOut = kW / 8;   // output columns a thread
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The SIMT kernels run in float32 only (the bf16 ones are wgmma kernels).
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // x rounded to T's precision (p and ds as operands of a product)
@@ -283,73 +280,6 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dq,
-                         int sq, int sk, int n_rep, int d, float scale,
-                         int causal) {
-  __shared__ float sA[kRows * kLd];   // a Q (dO) chunk
-  __shared__ float sB[kRows * kLd];   // a K (V) chunk, then the K slice
-  __shared__ float sS[kRows * kLdS];  // ds rounded to T
-
-  const int n_slices = d / kW;
-  const int slice = blockIdx.x % n_slices;
-  const int q0 = (gridDim.x / n_slices - 1 - blockIdx.x / n_slices) * kRows;
-  const int head = blockIdx.y;
-  const int heads = gridDim.y;
-  const int batch = blockIdx.z;
-  const int64_t ldq = static_cast<int64_t>(heads) * d;
-  const int64_t ldk = static_cast<int64_t>(heads / n_rep) * d;
-  const int64_t qoff = static_cast<int64_t>(batch) * sq * ldq +
-                       static_cast<int64_t>(head) * d;
-  const int64_t koff = static_cast<int64_t>(batch) * sk * ldk +
-                       static_cast<int64_t>(head / n_rep) * d;
-  const int offset = sk - sq;
-  const int i = threadIdx.x >> 3;
-  const int g = threadIdx.x & 7;
-  const int row = q0 + i;
-  const float scale2 = scale * kLog2e;
-  const int64_t row_off = (static_cast<int64_t>(batch) * heads + head) * sq;
-  const float lse2 = row < sq ? lse[row_off + row] * kLog2e : 0.0f;
-  const float dlt = row < sq ? delta[row_off + row] : 0.0f;
-
-  float acc[kOut];
-#pragma unroll
-  for (int c = 0; c < kOut; ++c) acc[c] = 0.0f;
-
-  const int n_kt = key_tiles(q0, sk, offset, causal);
-  for (int t = 0; t < n_kt; ++t) {
-    const int k0 = t * kRows;
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    scores(sA, sB, q + qoff, q0, sq, ldq, k + koff, k0, sk, ldk, d, i, g, s);
-    scores(sA, sB, dout + qoff, q0, sq, ldq, v + koff, k0, sk, ldk, d, i, g,
-           dp);
-    float ds[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool ok = attends(row, k0 + g + 8 * j, sq, sk, offset, causal);
-      const float p = ok ? exp2f(fmaf(s[j], scale2, -lse2)) : 0.0f;
-      ds[j] = ok ? p * (dp[j] - dlt) * scale : 0.0f;
-    }
-    __syncthreads();  // the V chunk's and the last dS.K's reads are done
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sS[i * kLdS + g + 8 * j] = round_to<T>(ds[j]);
-    load_tile(sB, k + koff, k0, sk, ldk, slice * kW);
-    __syncthreads();
-    accumulate(sS, sB, i, g, acc);
-  }
-
-  if (row < sq) {
-    T* drow = dq + qoff + static_cast<int64_t>(row) * ldq + slice * kW;
-#pragma unroll
-    for (int c = 0; c < kOut; ++c) drow[g + 8 * c] = from_float<T>(acc[c]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
     flash_wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse,
@@ -500,7 +430,6 @@ constexpr int kRowsAt = 2 * kQBytes + 2 * kKBytes;
 constexpr int kStageBytes = kRowsAt + 2 * kWq * 4;
 constexpr int kWgmmaSmem = kStages * kStageBytes + 1024;
 static_assert(kStageBytes % 1024 == 0, "stages stay 1024-byte aligned");
-static_assert(kStages <= 4, "cp_async_wait_upto waits for 3 at most");
 static_assert(kThreads == 2 * kWq, "a thread a row's lse or delta");
 
 // Which chunk step j of a tile reads: the slice's two chunks (2 slice,
@@ -510,16 +439,18 @@ __device__ __forceinline__ int chunk_of(int j, int slice, int n) {
   return c < n ? c : c - n;
 }
 
-// Waits until at most n (0-3) of this thread's cp.async groups are pending.
+// Waits until at most n of this thread's cp.async groups are pending (at
+// most 7: for a larger n, until 7 are).
 __device__ __forceinline__ void cp_async_wait_upto(int n) {
-  if (n <= 0) {
-    cp_async_wait<0>();
-  } else if (n == 1) {
-    cp_async_wait<1>();
-  } else if (n == 2) {
-    cp_async_wait<2>();
-  } else {
-    cp_async_wait<3>();
+  switch (n <= 0 ? 0 : n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
   }
 }
 
@@ -958,9 +889,596 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ------------------------------------------------------------ bf16 forward
+//
+// flash_wide_fwd_wgmma_kernel replaces the first (SIMT) forward in bf16
+// (the TPU kernel _fwd_kernel above head_dim 256). What held that one at
+// 0.003 of bound: CUDA cores, operands widened to float32 one element a
+// thread, two barriers a 128-column chunk and nothing in flight during a
+// product. This one runs on the warpgroup MMA with the bf16 backward's
+// block: two warpgroups (256 threads) own 128 query rows of one head,
+// warpgroup g rows 64g..64g+63, and key tiles of kWk (64) stream past them.
+// What bounds it: the products, the score product's feed and the slices'
+// recompute. Two staging plans by head_dim (`fwd_entry`;
+// flash_attention.py `wide_fwd_plan`):
+//  * plan 1, d <= kFwdResidentMaxD (512): the block's Q stays resident (128
+//    rows x d, 128 KB at 512), so a chunk step streams only K's chunk (8
+//    KB), and the output slice is kFwdSlice (256) columns, two m64n128
+//    halves (128 accumulator floats a thread): S is recomputed d / 256
+//    times, not d / 128, so the recompute caps the kernel at 2 / (n + 1) of
+//    bound for n slices, 0.67 at 384 and 512 (0.5 and 0.4 with 128-column
+//    slices). Where d is an odd multiple of 128 the last slice holds 128
+//    columns: it runs both halves' P.V (the second on whatever its half of
+//    the V buffer holds) and writes the first, so every block runs one
+//    code path. 225 KB of dynamic shared memory at 512, 255 registers a
+//    thread and no spill (ptxas, sm_90a);
+//  * plan 2, wider heads: Q's chunk streams beside K's (24 KB a step) and
+//    the slice is one half (kW): with two halves beside the Q loads ptxas
+//    spilled 88 bytes at 255 registers. 209 KB at any width, 224
+//    registers.
+// The chunk steps:
+//  * S = Q.K^T per key tile as m64n64k16 wgmma over the head's kC-column
+//    chunks, both operands K-major in 128-byte-swizzled shared memory. A
+//    ring of kFwdStages (8) stages is filled by cp.async kFwdAhead (6)
+//    steps ahead, one group committed a step (empty past the last), and a
+//    step's products stay in flight across the next step's barrier
+//    (kFwdLag): the refill at step s takes the stage step s - 2 read. The
+//    chunks are walked in order (no slice chunk is reused here, so no
+//    chunk_of): a stage holds chunk j of key tile t at step t n + j.
+//  * The online softmax on the S fragments: row max and sum over the quad
+//    of lanes that holds a row (shuffles), O rescaled by alpha in
+//    registers, exp2 of log2e-scaled scores, p kept 0 while a row's max is
+//    -1e30. P rounded to bf16 into register A fragments (pack_a), then O +=
+//    P.V_slice as m64n128k16 wgmma per half, the slice's V columns of the
+//    key tile read MN-major from their own buffer. V(t) is loaded in the
+//    group of step t n, after the barrier that follows P.V(t - 1), and
+//    waited for before P.V(t) (for n >= kFwdStages - kFwdLag chunks the
+//    last chunk step's wait already covers it).
+//  * lse written once, by slice 0; out as o / l in bf16.
+
+constexpr int kFwdSlice = 2 * kW;  // output columns a block (plan 1)
+constexpr int kFwdStages = 8;
+constexpr int kFwdLag = 1;
+constexpr int kFwdAhead = kFwdStages - 1 - kFwdLag;  // steps loaded ahead
+constexpr int kFwdResidentMaxD = 512;
+
+template <bool kResident>
+constexpr int kFwdStageBytes = kResident ? kKBytes : kQBytes + kKBytes;
+// 128-column halves of a block's output slice: plan 2 keeps one, since two
+// beside its Q loads spilled (255 registers)
+template <bool kResident>
+constexpr int kFwdHalves = kResident ? 2 : 1;
+template <bool kResident>
+constexpr int kFwdSliceOf = kFwdHalves<kResident> * kW;
+
+// Dynamic shared memory of the forward at head_dim d: the ring, the V
+// slice, resident Q (plan 1), and room to align the tiles to 1024 bytes.
+template <bool kResident>
+constexpr int fwd_wgmma_smem(int d) {
+  return kFwdStages * kFwdStageBytes<kResident> +
+         kWk * kFwdSliceOf<kResident> * 2 + (kResident ? kWq * d * 2 : 0) +
+         1024;
+}
+static_assert(fwd_wgmma_smem<true>(kFwdResidentMaxD) <= 232448 &&
+                  fwd_wgmma_smem<false>(0) <= 232448,
+              "a block's shared memory");
+
+template <bool kResident>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wide_fwd_wgmma_kernel(const bf16* __restrict__ q,
+                                const bf16* __restrict__ k,
+                                const bf16* __restrict__ v,
+                                bf16* __restrict__ out,
+                                float* __restrict__ lse, int sq, int sk,
+                                int n_rep, int d, float scale, int causal) {
+  constexpr int kStage = kFwdStageBytes<kResident>;
+  constexpr int kKAt = kResident ? 0 : kQBytes;  // a stage's K chunk
+  constexpr int kHalves = kFwdHalves<kResident>;
+  constexpr int kSlice = kFwdSliceOf<kResident>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring = ring_base(smem_raw);
+  unsigned char* sv = ring + kFwdStages * kStage;  // the V slice
+  unsigned char* sq_all = sv + kWk * kSlice * 2;   // resident Q, by chunk
+  const uint32_t ring_at = smem_u32(ring);
+  const uint32_t v_at = smem_u32(sv);
+  const uint32_t q_at = smem_u32(sq_all);
+
+  const int n = d / kC;  // chunks of the head
+  const int n_slices = (d + kSlice - 1) / kSlice;
+  // launch order: slice fastest, then (head, batch), then the query tile,
+  // heaviest (the causal band's longest rows) first
+  const int heads = gridDim.y;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + heads * blockIdx.z);
+  const int slice = lin % n_slices;
+  const int rest = lin / n_slices;
+  const int hb = rest % (heads * gridDim.z);
+  const int head = hb % heads;
+  const int batch = hb / heads;
+  const int q0 =
+      (gridDim.x / n_slices - 1 - rest / (heads * gridDim.z)) * kWq;
+  const int c0 = slice * kSlice;  // the slice's first column
+  const bool full = d - c0 >= kSlice;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;  // rows 64 wg.. of the block
+  const int64_t ldq = static_cast<int64_t>(heads) * d;
+  const int64_t ldk = static_cast<int64_t>(heads / n_rep) * d;
+  const int64_t qoff = static_cast<int64_t>(batch) * sq * ldq +
+                       static_cast<int64_t>(head) * d;
+  const int64_t koff = static_cast<int64_t>(batch) * sk * ldk +
+                       static_cast<int64_t>(head / n_rep) * d;
+  const int64_t row_off = (static_cast<int64_t>(batch) * heads + head) * sq;
+  const int offset = sk - sq;
+  const int row = q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int col_lane = 2 * (lane & 3);
+  const float scale2 = scale * kLog2e;
+  const int n_kt = key_tiles(q0, sk, offset, causal, kWq, kWk);
+  const int total = n_kt * n;
+
+  auto load_step = [&](int step) {  // chunk step % n of key tile step / n
+    const int t = step / n;
+    const int c = (step - t * n) * kC;
+    bf16* st = reinterpret_cast<bf16*>(ring + (step % kFwdStages) * kStage);
+    if constexpr (!kResident) {
+      load_tile_async<kC, kWq>(st, q + qoff + c, q0, sq, ldq);
+    }
+    load_tile_async<kC, kWk>(st + kKAt / 2, k + koff + c, t * kWk, sk, ldk);
+  };
+  auto load_v = [&](int t) {  // the slice's columns of key tile t
+    bf16* tv = reinterpret_cast<bf16*>(sv);
+    if (kHalves == 2 && full) {
+      load_tile_async<kFwdSlice, kWk>(tv, v + koff + c0, t * kWk, sk, ldk);
+    } else {
+      load_tile_async<kW, kWk>(tv, v + koff + c0, t * kWk, sk, ldk);
+    }
+  };
+
+  if constexpr (kResident) {  // the block's Q, every chunk, in group 0
+    for (int c = 0; c < n; ++c) {
+      load_tile_async<kC, kWq>(
+          reinterpret_cast<bf16*>(sq_all + c * kQBytes), q + qoff + c * kC,
+          q0, sq, ldq);
+    }
+  }
+  for (int i = 0; i < kFwdAhead; ++i) {
+    if (i < total) load_step(i);
+    cp_async_commit();
+  }
+
+  float o[kHalves][64];  // the slice's 128-column halves
+#pragma unroll
+  for (int h = 0; h < kHalves; ++h) zero(o[h]);
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};  // this lane's share of the row sums
+  const uint32_t wg_rows = wg * 64 * 128;  // the warpgroup's rows of Q
+
+  for (int t = 0; t < n_kt; ++t) {
+    const int k0 = t * kWk;
+    float s[32];
+    zero(s);
+    for (int j = 0; j < n; ++j) {
+      const int step = t * n + j;
+      // groups 0..step are in: kFwdAhead + step committed before this
+      cp_async_wait<kFwdAhead - 1>();
+      fence_async_shared();
+      __syncthreads();
+      if (step + kFwdAhead < total) load_step(step + kFwdAhead);
+      if (j == 0) load_v(t);  // P.V(t - 1) is done in every thread
+      cp_async_commit();
+      const uint32_t st = ring_at + (step % kFwdStages) * kStage;
+      const uint32_t tQ = (kResident ? q_at + j * kQBytes : st) + wg_rows;
+      const uint32_t tK = st + kKAt;
+      fence_operands(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kC / 16; ++kk) {  // S += Q.K^T
+        wgmma_ss_n64(s, kmajor_desc<kC, kWq>(tQ, kk),
+                     kmajor_desc<kC, kWk>(tK, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<kFwdLag>();  // the step before this one is done
+      fence_operands(s);
+    }
+    wgmma_wait_all();
+    fence_operands(s);
+    if (n < kFwdStages - kFwdLag) {  // V(t)'s group, n - 1 after it
+      cp_async_wait_upto(n - 1);
+      fence_async_shared();
+      __syncthreads();
+    }
+
+    // the online softmax: rows row and row + 8, columns k0 + 8 (i / 4) +
+    // col_lane + i % 2
+    const bool mask =
+        k0 + kWk > sk || (causal && k0 + kWk - 1 > q0 + offset);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      if (mask) {
+        const int col = k0 + (i >> 2) * 8 + col_lane + (i & 1);
+        if (!(col < sk && (!causal || col <= row + h * 8 + offset))) {
+          s[i] = kNegInf;
+        }
+      }
+      mx[h] = fmaxf(mx[h], s[i]);
+    }
+    float alpha[2], ms[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = exp2f((m[i] - mx[i]) * scale2);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+      // a row that has seen no key yet keeps p = 0 (and so out 0)
+      ms[i] = mx[i] == kNegInf ? 0.0f : mx[i] * scale2;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = exp2f(fmaf(s[i], scale2, -ms[(i >> 1) & 1]));
+      l[(i >> 1) & 1] += s[i];
+    }
+    uint32_t pa[4][4];
+    pack_a(s, pa);
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[h][i] *= alpha[(i >> 1) & 1];
+      fence_operands(o[h]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWk / 16; ++kk) {  // O += P.V, V MN-major
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h) {
+        wgmma_rs<kW>(o[h], pa[kk],
+                     mnmajor_desc<kW, kWk>(v_at + h * 2 * kWk * 128, kk));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) fence_operands(o[h]);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float sum = l[i];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum = fmaxf(sum, 1e-30f);
+    const int r = row + i * 8;
+    if (r >= sq) continue;
+    const float inv = 1.0f / sum;
+    bf16* dst = out + qoff + static_cast<int64_t>(r) * ldq + c0 + col_lane;
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+      if (h == 1 && !full) break;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<uint32_t*>(dst + h * kW + j * 8) = pack_bf16(
+            o[h][4 * j + 2 * i] * inv, o[h][4 * j + 2 * i + 1] * inv);
+      }
+    }
+    if (slice == 0 && (lane & 3) == 0) {
+      lse[row_off + r] = m[i] == kNegInf ? kNegInf : m[i] * scale + logf(sum);
+    }
+  }
+}
+
+// ------------------------------------------------------------ float32 dq
+//
+// flash_wide_dq_f32_kernel replaces the first (SIMT) dq in float32 (the TPU
+// kernel _bwd_dq_kernel above head_dim 256). What held that one at 0.011
+// of bound: 32 rows a block, five shared-memory loads for every four FMAs
+// (scalar reads of padded tiles), two barriers for each 128-column chunk of
+// each score product. Bound on an H100: float32 operations (67 TFLOP/s; no
+// TF32). What bounds a register-tiled SIMT product below that is its
+// shared-memory reads: a warp's float4 load is four wavefronts (one a
+// quarter-warp, broadcast or not), so a thread's R x J score patch, R + J
+// float4s for 4RJ FMAs a 4-column step, runs at RJ / (4 (R + J)) of the
+// FMA peak: 0.5 at 4 x 4, 0.2 at the 1 x 4 of the narrow dq's 16-row
+// tile (flash_attention.cu, "float32"). So:
+//  * Design choice (a) of the two a wide head allows: 128-column output
+//    slices, every operand streamed chunk by chunk through the bf16
+//    backward's ring (chunk_of, ring_step; kStages 4 of kC = 64 columns): a
+//    stage holds one chunk of Q and dO (BQ rows) and of K and V (32 keys),
+//    the slice's two chunks walked last and kept for dQ += dS.K_slice. The
+//    other, (b), a block holding dQ's whole width for fewer rows, needs all
+//    of a key tile's K after the scores (64 KB at 512) beside Q and dO, so
+//    a second plan beyond 512; (a) takes any width with one plan, at the
+//    slices' recompute cap of 3 / (2n + 1) of bound (0.43 at 384, 0.33 at
+//    512).
+//  * A block (256 threads) owns BQ query rows of one head (64, or 16 where
+//    the 64-row blocks, slices counted, would not make a wave: the host
+//    plan, flash_attention.py `wide_f32_dq_tile`) and one kW-column slice
+//    of dQ, and walks key tiles of kF32Stream (32) keys. Every thread
+//    computes a 4 x 4 patch of S and dP (rows 4rg.., keys kg + 8j) over its
+//    share of each chunk: the kSplit (2 at 64 rows, 8 at 16) lanes of a
+//    patch take the chunk's float4s dg, dg + kSplit, .., so 16 rows still
+//    run at the 4 x 4 patch's rate, and a butterfly of shuffles sums the
+//    shares once a key tile (each lane adds its partner's in the same
+//    order, so every lane holds the same bits). Both operands are read
+//    d-contiguous as stored; K and V chunks are XOR-swizzled by (key & 7)
+//    kSplit, so the quarter-warp's reads spread over the 8 bank groups.
+//    (8 x 4 patches at 64 rows, 4 lanes a patch, took 1.06-1.08x as long
+//    at the 8B attention shape: not kept, PERF.md.)
+//  * p = exp2(s scale log2e - lse log2e) selected to 0 where a row may not
+//    attend (never multiplied: a row that sees no key has lse -1e30), ds =
+//    p (dp - delta) scale, each lane of a patch computing 16 / kSplit of it
+//    into a [32 keys][BQ rows] buffer; then a barrier, and dQ_slice += dS.K
+//    with each thread on one float4 of the slice's columns and BQ / 8 rows.
+//  * One barrier a key tile beyond the ring's one a chunk step. 200.5 KB
+//    of dynamic shared memory at 64 rows and 98 KB at 16; one block an SM
+//    at either (224 and 162 registers a thread, no spill): two blocks of
+//    16 rows, at the 128 registers that allows, spilled and took 1.1-1.2x
+//    as long at phase 7e's shapes (PERF.md). No atomics; every sum in a
+//    fixed order.
+
+constexpr int kF32Stream = 32;  // keys a key tile
+constexpr int kF32Threads = 256;
+// lanes splitting each chunk of a 4 x 4 patch's dot products
+template <int BQ>
+constexpr int kSplit = kF32Threads / (BQ / 4 * (kF32Stream / 4));
+// a stage: Q and dO chunks [BQ][kC], K and V chunks [32][kC], float32
+template <int BQ>
+constexpr int kF32StageBytes = 4 * kC * (2 * BQ + 2 * kF32Stream);
+// the ring, dS [32][BQ], and the rows' lse (log2e-scaled) and delta
+template <int BQ>
+constexpr int kDqF32Smem =
+    kStages * kF32StageBytes<BQ> + 4 * BQ * (kF32Stream + 2);
+static_assert(kSplit<64> == 2 && kSplit<16> == 8, "patches of 4 x 4");
+static_assert(kDqF32Smem<64> <= 232448, "a block's shared memory");
+
+// Rows [row0, row0 + kRowsT) of a float32 matrix (rows ld apart), the kC
+// columns at src, into tile[kRowsT][kC] by cp.async with kF32Threads
+// threads, 16-byte chunk c of row r at chunk c ^ swizzle(r); rows >= n
+// zero-filled.
+template <int kRowsT, typename Swizzle>
+__device__ __forceinline__ void load_rows_f32(float* tile, const float* src,
+                                              int row0, int n, int64_t ld,
+                                              Swizzle swizzle) {
+  constexpr int kChunks = kRowsT * kC / 4;
+  static_assert(kChunks % kF32Threads == 0, "whole 16-byte moves");
+#pragma unroll
+  for (int it = 0; it < kChunks / kF32Threads; ++it) {
+    const int e = threadIdx.x + it * kF32Threads;
+    const int r = e / (kC / 4);
+    const int c = e % (kC / 4);
+    const bool valid = row0 + r < n;
+    const float* from =
+        valid ? src + (static_cast<int64_t>(row0) + r) * ld + 4 * c : src;
+    cp_async16(smem_u32(tile + r * kC + 4 * (c ^ swizzle(r))), from, valid);
+  }
+}
+
+// c[i][j] += A[own row i] . B[streamed row 8j] over this lane's share of one
+// chunk (float4s dg + S cc): `a` at the patch's first own row (rows kC
+// apart), `b` at its first streamed row (chunks ^ xb).
+template <int S>
+__device__ __forceinline__ void patch_dot(const float* a, const float* b,
+                                          int dg, int xb,
+                                          float (&c)[4][4]) {
+#pragma unroll
+  for (int cc = 0; cc < kC / 4 / S; ++cc) {
+    const int ch = dg + S * cc;
+    float4 bv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bv[j] =
+          *reinterpret_cast<const float4*>(b + 8 * j * kC + 4 * (ch ^ xb));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 av = *reinterpret_cast<const float4*>(a + i * kC + 4 * ch);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        c[i][j] = fmaf(av.x, bv[j].x, c[i][j]);
+        c[i][j] = fmaf(av.y, bv[j].y, c[i][j]);
+        c[i][j] = fmaf(av.z, bv[j].z, c[i][j]);
+        c[i][j] = fmaf(av.w, bv[j].w, c[i][j]);
+      }
+    }
+  }
+}
+
+template <int BQ>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_wide_dq_f32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dq, int sq, int sk,
+                             int n_rep, int d, float scale, int causal) {
+  constexpr int S = kSplit<BQ>;
+  constexpr int RO = BQ / 8;  // output rows a thread
+  constexpr int kStage = kF32StageBytes<BQ>;
+  constexpr int kKAt = 2 * BQ * kC;  // a stage's K chunk (floats)
+  constexpr int kVAt = kKAt + kF32Stream * kC;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw;
+  float* sDS = reinterpret_cast<float*>(ring + kStages * kStage);  // [32][BQ]
+  float* sLse = sDS + kF32Stream * BQ;  // the rows' lse log2e, then delta
+
+  const int n = d / kC;
+  const int n_slices = d / kW;
+  // launch order: slice fastest, then (head, batch), then the query tile,
+  // heaviest first
+  const int heads = gridDim.y;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + heads * blockIdx.z);
+  const int slice = lin % n_slices;
+  const int rest = lin / n_slices;
+  const int hb = rest % (heads * gridDim.z);
+  const int head = hb % heads;
+  const int batch = hb / heads;
+  const int q0 = (gridDim.x / n_slices - 1 - rest / (heads * gridDim.z)) * BQ;
+  const int dg = threadIdx.x % S;  // this lane's share of a chunk
+  const int kg = threadIdx.x / S % 8;  // the patch's keys kg + 8j
+  const int rg = threadIdx.x / S / 8;  // and its rows 4 rg + i
+  const int64_t ldq = static_cast<int64_t>(heads) * d;
+  const int64_t ldk = static_cast<int64_t>(heads / n_rep) * d;
+  const int64_t qoff = static_cast<int64_t>(batch) * sq * ldq +
+                       static_cast<int64_t>(head) * d;
+  const int64_t koff = static_cast<int64_t>(batch) * sk * ldk +
+                       static_cast<int64_t>(head / n_rep) * d;
+  const int64_t row_off = (static_cast<int64_t>(batch) * heads + head) * sq;
+  const int offset = sk - sq;
+  const float scale2 = scale * kLog2e;
+  const int n_kt = key_tiles(q0, sk, offset, causal, BQ, kF32Stream);
+  const int total = n_kt * n;
+  const auto unswizzled = [](int) { return 0; };
+  const auto key_swizzle = [](int r) { return ((r & 7) * S) & 15; };
+
+  auto load_step = [&](int step) {
+    const int t = step / n;
+    const int c = chunk_of(step - t * n, slice, n) * kC;
+    float* st = reinterpret_cast<float*>(ring + (step % kStages) * kStage);
+    load_rows_f32<BQ>(st, q + qoff + c, q0, sq, ldq, unswizzled);
+    load_rows_f32<BQ>(st + BQ * kC, dout + qoff + c, q0, sq, ldq,
+                      unswizzled);
+    load_rows_f32<kF32Stream>(st + kKAt, k + koff + c, t * kF32Stream, sk,
+                              ldk, key_swizzle);
+    load_rows_f32<kF32Stream>(st + kVAt, v + koff + c, t * kF32Stream, sk,
+                              ldk, key_swizzle);
+  };
+
+  int loaded = 0;
+  for (; loaded < total && loaded < kStages; ++loaded) {
+    load_step(loaded);
+    cp_async_commit();
+  }
+  // the block's rows' log2e-scaled lse and delta (0 past sq), read after
+  // the first chunk step's barrier
+  if (threadIdx.x < 2 * BQ) {
+    const int i = threadIdx.x % BQ;
+    const bool ok = q0 + i < sq;
+    sLse[threadIdx.x] = threadIdx.x < BQ
+                            ? (ok ? lse[row_off + q0 + i] * kLog2e : 0.0f)
+                            : (ok ? delta[row_off + q0 + i] : 0.0f);
+  }
+  // the output: rows q0 + RO ro + i, the slice's float4 column cg
+  const int cg = threadIdx.x % 32;
+  const int ro = threadIdx.x / 32;
+  float acc[RO][4];
+#pragma unroll
+  for (int i = 0; i < RO; ++i) zero(acc[i]);
+  const int xk = key_swizzle(kg);  // the patch's keys kg + 8j: one swizzle
+
+  for (int t = 0; t < n_kt; ++t) {
+    const int k0 = t * kF32Stream;
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      zero(s[i]);
+      zero(dp[i]);
+    }
+    for (int j = 0; j < n; ++j) {
+      const int step = t * n + j;
+      ring_step<0>(step, j, n, total, loaded, load_step);
+      const float* st =
+          reinterpret_cast<const float*>(ring + (step % kStages) * kStage);
+      patch_dot<S>(st + 4 * rg * kC, st + kKAt + kg * kC, dg, xk, s);
+      patch_dot<S>(st + BQ * kC + 4 * rg * kC, st + kVAt + kg * kC, dg, xk,
+                   dp);
+    }
+    // the shares of the patch's S lanes, summed
+#pragma unroll
+    for (int m = 1; m < S; m <<= 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          s[i][jj] += __shfl_xor_sync(0xffffffffu, s[i][jj], m);
+          dp[i][jj] += __shfl_xor_sync(0xffffffffu, dp[i][jj], m);
+        }
+      }
+    }
+    // a pair holding an entry no row may attend: a row past sq, a key past
+    // sk, or a key past the causal band of the block's first row
+    const bool mask = q0 + BQ > sq || k0 + kF32Stream > sk ||
+                      (causal && k0 + kF32Stream - 1 > q0 + offset);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      if (e % S != dg) continue;  // this lane's entries of the patch
+      const int i = e / 4;
+      const int jj = e % 4;
+      const int row = q0 + 4 * rg + i;
+      const int key = kg + 8 * jj;
+      const bool valid =
+          !mask || attends(row, k0 + key, sq, sk, offset, causal);
+      const float lse2 = sLse[4 * rg + i];
+      const float dlt = sLse[BQ + 4 * rg + i];
+      const float p = valid ? exp2f(fmaf(s[i][jj], scale2, -lse2)) : 0.0f;
+      sDS[key * BQ + 4 * rg + i] = p * (dp[i][jj] - dlt) * scale;
+    }
+    __syncthreads();  // every lane's dS is in
+    // dQ_slice += dS.K_slice: the slice's two K chunks, still staged
+    const float* kt = reinterpret_cast<const float*>(
+                          ring + ((t * n + n - 2 + cg / 16) % kStages) *
+                                     kStage) +
+                      kKAt;
+#pragma unroll 8
+    for (int r = 0; r < kF32Stream; ++r) {
+      const float4 y = *reinterpret_cast<const float4*>(
+          kt + r * kC + 4 * ((cg % 16) ^ key_swizzle(r)));
+      float x[RO];
+#pragma unroll
+      for (int i = 0; i < RO; i += 2) {
+        const float2 w =
+            *reinterpret_cast<const float2*>(sDS + r * BQ + RO * ro + i);
+        x[i] = w.x;
+        x[i + 1] = w.y;
+      }
+#pragma unroll
+      for (int i = 0; i < RO; ++i) {
+        acc[i][0] = fmaf(x[i], y.x, acc[i][0]);
+        acc[i][1] = fmaf(x[i], y.y, acc[i][1]);
+        acc[i][2] = fmaf(x[i], y.z, acc[i][2]);
+        acc[i][3] = fmaf(x[i], y.w, acc[i][3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < RO; ++i) {
+    const int r = q0 + RO * ro + i;
+    if (r >= sq) continue;
+    *reinterpret_cast<float4*>(dq + qoff + static_cast<int64_t>(r) * ldq +
+                               slice * kW + 4 * cg) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
 bool bad_layout(int batch, int heads, int n_rep, int d) {
   return d <= 0 || d % kW != 0 || n_rep <= 0 || heads % n_rep != 0 ||
          batch > 65535 || heads > 65535;
+}
+
+template <bool kResident>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
+                     void* lse, int batch, int heads, int n_rep, int sq,
+                     int sk, int d, float scale, int causal, void* stream) {
+  const int smem = fwd_wgmma_smem<kResident>(d);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wide_fwd_wgmma_kernel<kResident>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + kWq - 1) / kWq *
+                      ((d + kFwdSliceOf<kResident> - 1) /
+                       kFwdSliceOf<kResident>),
+                  heads, batch);
+  flash_wide_fwd_wgmma_kernel<kResident><<<grid, kThreads, smem,
+                                           static_cast<cudaStream_t>(
+                                               stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), sq, sk, n_rep, d, scale, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -970,13 +1488,23 @@ int fwd_entry(const void* q, const void* k, const void* v, void* out,
   if (bad_layout(batch, heads, n_rep, d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((sq + kRows - 1) / kRows * (d / kW), heads, batch);
-  flash_wide_fwd_kernel<T><<<grid, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), sq, sk, n_rep, d, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same_v<T, bf16>) {  // Q resident up to 512 columns
+    return d <= kFwdResidentMaxD
+               ? launch_fwd_wgmma<true>(q, k, v, out, lse, batch, heads,
+                                        n_rep, sq, sk, d, scale, causal,
+                                        stream)
+               : launch_fwd_wgmma<false>(q, k, v, out, lse, batch, heads,
+                                         n_rep, sq, sk, d, scale, causal,
+                                         stream);
+  } else {  // float32: the SIMT kernel
+    const dim3 grid((sq + kRows - 1) / kRows * (d / kW), heads, batch);
+    flash_wide_fwd_kernel<T><<<grid, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out),
+        static_cast<float*>(lse), sq, sk, n_rep, d, scale, causal);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T>
@@ -1015,11 +1543,31 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
   }
 }
 
+template <int BQ>
+int launch_dq_f32(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dq, int batch, int heads, int n_rep, int sq, int sk,
+                  int d, float scale, int causal, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wide_dq_f32_kernel<BQ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kDqF32Smem<BQ>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + BQ - 1) / BQ * (d / kW), heads, batch);
+  flash_wide_dq_f32_kernel<BQ><<<grid, kF32Threads, kDqF32Smem<BQ>,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), sq, sk, n_rep, d, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 dq on wgmma; the float32 one at query tile `tile` (64 or 16).
 template <typename T>
 int dq_entry(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dq, int batch,
              int heads, int n_rep, int sq, int sk, int d, float scale,
-             int causal, void* stream) {
+             int causal, int tile, void* stream) {
   if (bad_layout(batch, heads, n_rep, d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1036,15 +1584,16 @@ int dq_entry(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<bf16*>(dq), sq, sk, n_rep, d, scale, causal);
     return static_cast<int>(cudaGetLastError());
-  } else {  // float32: the SIMT kernel
-    const dim3 grid((sq + kRows - 1) / kRows * (d / kW), heads, batch);
-    flash_wide_dq_kernel<T><<<grid, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq), sq, sk, n_rep, d, scale, causal);
-    return static_cast<int>(cudaGetLastError());
+  } else {
+    if (tile == 64) {
+      return launch_dq_f32<64>(q, k, v, dout, lse, delta, dq, batch, heads,
+                               n_rep, sq, sk, d, scale, causal, stream);
+    }
+    if (tile == 16) {
+      return launch_dq_f32<16>(q, k, v, dout, lse, delta, dq, batch, heads,
+                               n_rep, sq, sk, d, scale, causal, stream);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -1100,16 +1649,19 @@ int rt_flash_wide_bwd_dq(const void* q, const void* k, const void* v,
                          int n_rep, int sq, int sk, int d, float scale,
                          int causal, void* stream) {
   return dq_entry<bf16>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep,
-                        sq, sk, d, scale, causal, stream);
+                        sq, sk, d, scale, causal, 0, stream);
 }
 
+// The float32 dq also takes its query tile (flash_attention.py
+// `wide_f32_dq_tile`: 64 or 16).
 int rt_flash_wide_bwd_dq_f32(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dq, int batch,
                              int heads, int n_rep, int sq, int sk, int d,
-                             float scale, int causal, void* stream) {
+                             float scale, int causal, int tile,
+                             void* stream) {
   return dq_entry<float>(q, k, v, dout, lse, delta, dq, batch, heads, n_rep,
-                         sq, sk, d, scale, causal, stream);
+                         sq, sk, d, scale, causal, tile, stream);
 }
 
 const char* rt_error_string(int code) {

@@ -20,8 +20,9 @@ On a CUDA tensor each of the three wrappers launches its hand-written kernel
 operands, all of one dtype (`KERNEL_DTYPES`; the reference computes in the
 input dtype), and any head_dim. Up to 256 they are instantiated at 32, 64,
 128 and 256 (`HEAD_DIMS`); above 256 the wide family (csrc/flash_wide.cu)
-takes the head in output slices of `WIDE_SLICE` columns, recomputing the
-score over the whole width in each. The wrappers zero-pad any other
+takes the head in output slices of `WIDE_SLICE` columns (`WIDE_FWD_SLICE`
+in the bf16 forward, whose staging plan is `wide_fwd_plan`), recomputing
+the score over the whole width in each. The wrappers zero-pad any other
 head_dim to the next instantiated one, or to a multiple of `WIDE_SLICE`,
 before the launch and slice the outputs back (`kernel_head_dim`,
 `pad_heads`, `unpad_heads`; exact, since the scale is the caller's). Each
@@ -31,7 +32,8 @@ The float32 kernels up to 256 also take a tile height planned from the
 shape: the query tile of the forward and dq (`f32_fwd_tile`: 64 rows
 where those tiles alone make a wave of the card, else 16) and the key
 tile of dk/dv (`f32_dkv_tile`, the same rule over kv heads and keys); dq
-and dk/dv stream the other side in tiles of `F32_BWD_STREAM` rows.
+and dk/dv stream the other side in tiles of `F32_BWD_STREAM` rows. The
+wide float32 dq takes one too (`wide_f32_dq_tile`, slices counted).
 `key_tiles`, `tile_needs_mask`, `query_tiles` and `bwd_tile_needs_mask`
 are the kernels' causal-band arithmetic, in Python for the tests. The
 plain PyTorch versions beside them run for tensors on the CPU; they
@@ -94,12 +96,16 @@ _SIGNATURES = {
                              _INT),
     "rt_flash_bwd_dq_f32": ([_P] * 7 + _LAYOUT + [_F, _INT, _INT, _P], _INT),
 }
-# The wide family: the bf16 entries' arguments, in both dtypes (no tile).
-_WIDE_SIGNATURES = with_f32({
-    "rt_flash_wide_fwd": _SIGNATURES["rt_flash_fwd"],
-    "rt_flash_wide_bwd_dkv": _SIGNATURES["rt_flash_bwd_dkv"],
-    "rt_flash_wide_bwd_dq": _SIGNATURES["rt_flash_bwd_dq"],
-})
+# The wide family: the bf16 entries' arguments, in both dtypes (no tile),
+# but the float32 dq's, which also takes its query tile (`wide_f32_dq_tile`).
+_WIDE_SIGNATURES = {
+    **with_f32({
+        "rt_flash_wide_fwd": _SIGNATURES["rt_flash_fwd"],
+        "rt_flash_wide_bwd_dkv": _SIGNATURES["rt_flash_bwd_dkv"],
+        "rt_flash_wide_bwd_dq": _SIGNATURES["rt_flash_bwd_dq"],
+    }),
+    "rt_flash_wide_bwd_dq_f32": _SIGNATURES["rt_flash_bwd_dq_f32"],
+}
 
 # The float32 plan: a forward or dq block owns F32_FWD_TILES[0] query rows
 # of one head where those tiles alone make a wave of WAVE_BLOCKS blocks,
@@ -110,6 +116,13 @@ _WIDE_SIGNATURES = with_f32({
 F32_FWD_TILES = (64, 16)
 KEY_TILE = 64
 F32_BWD_STREAM = 32
+# The bf16 wide forward (csrc/flash_wide.cu, "bf16 forward"): a ring of
+# WIDE_FWD_STAGES chunk stages, and the block's Q resident up to head_dim
+# WIDE_FWD_RESIDENT_MAX with output slices of WIDE_FWD_SLICE columns
+# (`wide_fwd_plan`).
+WIDE_FWD_SLICE = 256
+WIDE_FWD_STAGES = 8
+WIDE_FWD_RESIDENT_MAX = 512
 
 
 def f32_fwd_tile(heads: int, sq: int) -> int:
@@ -119,6 +132,38 @@ def f32_fwd_tile(heads: int, sq: int) -> int:
         if heads * cdiv(sq, tile) >= WAVE_BLOCKS:
             return tile
     return F32_FWD_TILES[-1]
+
+
+def wide_f32_dq_tile(heads: int, sq: int, d: int) -> int:
+    """The query-tile height of the wide float32 dq (csrc/flash_wide.cu,
+    "float32 dq") over `heads` query heads of sq rows at head_dim d (a
+    multiple of WIDE_SLICE): F32_FWD_TILES[0] where those blocks, one a
+    WIDE_SLICE-column slice of dq, alone make a wave of WAVE_BLOCKS, else
+    F32_FWD_TILES[1]."""
+    for tile in F32_FWD_TILES:
+        if heads * cdiv(sq, tile) * (d // WIDE_SLICE) >= WAVE_BLOCKS:
+            return tile
+    return F32_FWD_TILES[-1]
+
+
+def wide_fwd_plan(d: int) -> Tuple[bool, int, int]:
+    """The bf16 wide forward's staging plan at head_dim d (a multiple of
+    WIDE_SLICE), as csrc/flash_wide.cu's `fwd_entry` picks it: (whether the
+    block's 128 query rows of Q stay resident in shared memory, the number
+    of output slices, and the dynamic shared memory of a block in bytes).
+    Resident Q (up to WIDE_FWD_RESIDENT_MAX): slices of WIDE_FWD_SLICE
+    columns, the last one WIDE_SLICE where d is an odd multiple of it;
+    streamed Q: slices of WIDE_SLICE. Shared memory: the ring of
+    WIDE_FWD_STAGES K chunks (64 keys x 64 columns), with Q's chunk (128
+    rows) beside each where Q streams, a key tile's V slice, resident Q,
+    and 1 KB to align the tiles."""
+    resident = d <= WIDE_FWD_RESIDENT_MAX
+    q_chunk, k_chunk = 128 * 64 * 2, 64 * 64 * 2
+    stage = k_chunk if resident else q_chunk + k_chunk
+    width = WIDE_FWD_SLICE if resident else WIDE_SLICE
+    smem = (WIDE_FWD_STAGES * stage + 64 * width * 2
+            + (128 * d * 2 if resident else 0) + 1024)
+    return resident, cdiv(d, width), smem
 
 
 def f32_dkv_tile(kv_heads: int, sk: int) -> int:
@@ -439,8 +484,10 @@ def _launch_dq(q, k, v, do, lse, delta, layout, scale, causal, what):
     dq = torch.empty_like(q)
     lib, fn, wide = _kernel_entry("rt_flash_bwd_dq", layout, q.dtype)
     b, heads, _, sq = layout[:4]
-    tile = ((f32_fwd_tile(b * heads, sq),)
-            if q.dtype == torch.float32 and not wide else ())
+    tile = ()
+    if q.dtype == torch.float32:
+        tile = ((wide_f32_dq_tile(b * heads, sq, layout[5]),) if wide
+                else (f32_fwd_tile(b * heads, sq),))
     check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *layout,

@@ -1280,6 +1280,204 @@ def test_wide_bf16_backward_ragged_gqa_and_deterministic(cuda, d, packed,
         assert torch.equal(g, g2)
 
 
+def _wide_fwd(q, k, v, d, heads, causal):
+    """(the bf16 wide forward's out and lse; its plain version's; a
+    function that calls the kernel again). heads (h, kv): the packed
+    entry, GQA by index; None: the [b·h, s, d] one."""
+    args = (*(heads or ()), d ** -0.5, causal)
+    fwd, plain = ((fa.flash_fwd, fa.flash_fwd_plain) if heads is None
+                  else (fa.flash_fwd_packed, fa.flash_fwd_packed_plain))
+
+    def kernel():
+        before = fwd.wide_launches
+        got = fwd(q, k, v, *args)
+        torch.cuda.synchronize()
+        assert fwd.wide_launches == before + 1
+        return got
+
+    return kernel(), plain(q, k, v, *args), kernel
+
+
+@pytest.mark.parametrize("sq,sk", [(200, 64), (64, 200)])
+@pytest.mark.parametrize("d", [320, 512, 640])
+def test_wide_bf16_forward_where_sq_and_sk_differ(cuda, d, sq, sk):
+    """The wgmma forward of the wide family, causal (end-aligned) with sq >
+    sk, where rows 0..sq-sk-1 see no key: out exactly 0 and lse -1e30
+    there; and with sq < sk. Out within 1e-2 of the plain max, lse within
+    2e-5 on the rows that see keys, on [b·h, s, d]; 640 takes the second
+    staging plan (Q streamed, `wide_fwd_plan`)."""
+    bh = 2
+    q = _bf16((bh, sq, d), cuda, 0)
+    k, v = (_bf16((bh, sk, d), cuda, i) for i in (1, 2))
+    (out, lse), (p_out, p_lse), _ = _wide_fwd(q, k, v, d, None, True)
+    assert out.shape == p_out.shape and _rel_err(out, p_out) < REL_TOL
+    seen = max(sq - sk, 0)
+    assert _rel_err(lse[:, seen:], p_lse[:, seen:]) < STAT_TOL
+    if seen:
+        assert bool((out[:, :seen] == 0).all())
+        assert bool((lse[:, :seen] == -1e30).all())
+        assert bool((out[:, seen:] != 0).any())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("packed", [False, True], ids=["flat", "packed"])
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_bf16_forward_ragged_gqa_and_deterministic(cuda, d, packed,
+                                                        causal):
+    """The wgmma forward of the wide family at s 200 (two 128-row query
+    tiles and four 64-key tiles, each ragged at its tail) with GQA 4 query
+    heads over 1 kv head, packed (by index) and on [b·h, s, d] (K/V
+    repeated): out within 1e-2 of the plain max, lse within 2e-5, and a
+    second call gives the same bits."""
+    b, h, kv, s = 1, 4, 1, 200
+    q = _bf16((b, s, h * d), cuda, 0)
+    k, v = (_bf16((b, s, kv * d), cuda, i) for i in (1, 2))
+    if not packed:
+        def flat(t, n):
+            return _heads(t, n).repeat_interleave(h // n, 1).reshape(
+                b * h, s, d).contiguous()
+
+        q, k, v = flat(q, h), flat(k, kv), flat(v, kv)
+    got, want, again = _wide_fwd(q, k, v, d, (h, kv) if packed else None,
+                                 causal)
+    assert got[0].shape == want[0].shape
+    assert _rel_err(got[0], want[0]) < REL_TOL
+    assert _rel_err(got[1], want[1]) < STAT_TOL
+    for g, g2 in zip(got, again()):
+        assert torch.equal(g, g2)
+
+
+def _wide_f32_dq(q, k, v, do, d, heads, causal):
+    """(the float32 wide dq; its plain version's; a function that calls the
+    kernel again) on the plain forward's lse and Δ; heads as
+    `_wide_backward`."""
+    scale = d ** -0.5
+    if heads is None:
+        args = (scale, causal)
+        p_out, p_lse = fa.flash_fwd_plain(q, k, v, *args)
+        delta = fa.flash_delta(p_out, do)
+        dq_fn, plain = fa.flash_bwd_dq, fa.flash_bwd_dq_plain
+    else:
+        args = (*heads, scale, causal)
+        p_out, p_lse = fa.flash_fwd_packed_plain(q, k, v, *args)
+        delta = fa.flash_delta_packed(p_out, do, heads[0])
+        dq_fn, plain = fa.flash_bwd_dq_packed, fa.flash_bwd_dq_packed_plain
+    bwd = (q, k, v, do, p_lse, delta, *args)
+
+    def kernel():
+        before = (dq_fn.wide_launches, dq_fn.f32_launches)
+        got = dq_fn(*bwd)
+        torch.cuda.synchronize()
+        assert (dq_fn.wide_launches, dq_fn.f32_launches) == tuple(
+            n + 1 for n in before)
+        return got
+
+    return kernel(), plain(*bwd), kernel
+
+
+@pytest.mark.parametrize("sq,sk", [(200, 64), (64, 200)])
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_f32_dq_where_sq_and_sk_differ(no_tf32, d, sq, sk):
+    """The register-tiled float32 dq of the wide family, causal
+    (end-aligned) with sq > sk, where rows 0..sq-sk-1 see no key and their
+    dq is exactly 0, and with sq < sk; within 1e-4 of the plain max, on
+    [b·h, s, d]."""
+    bh = 2
+    q, do = (_randn((bh, sq, d), no_tf32, torch.float32, i) for i in (0, 3))
+    k, v = (_randn((bh, sk, d), no_tf32, torch.float32, i) for i in (1, 2))
+    got, want, _ = _wide_f32_dq(q, k, v, do, d, None, True)
+    assert got.shape == want.shape and _rel_err(got, want) < 1e-4
+    if sq > sk:
+        assert bool((got[:, :sq - sk] == 0).all())
+        assert bool((got[:, sq - sk:] != 0).any())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("packed", [False, True], ids=["flat", "packed"])
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_f32_dq_ragged_gqa_and_deterministic(no_tf32, d, packed,
+                                                  causal):
+    """The register-tiled float32 dq of the wide family at s 200 (ragged
+    16-row query tiles and 32-key tiles) with GQA 4 query heads over 1 kv
+    head, packed (by index) and on [b·h, s, d] (K/V repeated): within 1e-4
+    of the plain max, and a second call gives the same bits."""
+    b, h, kv, s = 1, 4, 1, 200
+    q, do = (_randn((b, s, h * d), no_tf32, torch.float32, i)
+             for i in (0, 3))
+    k, v = (_randn((b, s, kv * d), no_tf32, torch.float32, i)
+            for i in (1, 2))
+    if not packed:
+        def flat(t, n):
+            return _heads(t, n).repeat_interleave(h // n, 1).reshape(
+                b * h, s, d).contiguous()
+
+        q, do, k, v = flat(q, h), flat(do, h), flat(k, kv), flat(v, kv)
+    got, want, again = _wide_f32_dq(q, k, v, do, d,
+                                    (h, kv) if packed else None, causal)
+    assert got.shape == want.shape and _rel_err(got, want) < 1e-4
+    assert torch.equal(got, again())
+
+
+@pytest.mark.parametrize("d", [128, 256, 384, 640, 768])
+def test_wide_entries_take_every_multiple_of_128(no_tf32, d):
+    """The bf16 forward's and float32 dq's C entries of the wide family at
+    head widths the wrappers never send them (128, 256: a head of 2 or 4
+    chunks, shorter than the forward's ring) and at 384, 640 and 768 (its
+    two staging plans), causal, b·h 2 x s 150 against the plain versions:
+    bf16 within 1e-2 of the plain max, lse 2e-5, float32 1e-4."""
+    bh, s = 2, 150
+    scale = d ** -0.5
+    stream = torch.cuda.current_stream().cuda_stream
+    layout = (bh, 1, 1, s, s, d)
+    q, k, v = (_bf16((bh, s, d), no_tf32, i) for i in range(3))
+    out, lse = torch.empty_like(q), torch.empty((bh, s), device=no_tf32)
+    lib, fn = fa._wide_entry("rt_flash_fwd", torch.bfloat16)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              lse.data_ptr(), *layout, scale, 1, stream)
+    assert code == 0, lib.rt_error_string(code)
+    torch.cuda.synchronize()
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale, True)
+    assert _rel_err(out, p_out) < REL_TOL
+    assert _rel_err(lse, p_lse) < STAT_TOL
+    q, k, v, do = (_randn((bh, s, d), no_tf32, torch.float32, i)
+                   for i in range(4))
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale, True)
+    delta = fa.flash_delta(p_out, do)
+    dq = torch.empty_like(q)
+    lib, fn = fa._wide_entry("rt_flash_bwd_dq", torch.float32)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              p_lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *layout,
+              scale, 1, fa.wide_f32_dq_tile(bh, s, d), stream)
+    assert code == 0, lib.rt_error_string(code)
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_dq_plain(q, k, v, do, p_lse, delta, scale, True)
+    assert _rel_err(dq, want) < 1e-4
+
+
+@pytest.mark.parametrize("tile", fa.F32_FWD_TILES)
+@pytest.mark.parametrize("d", [384, 512, 640])
+def test_wide_f32_dq_at_each_tile(no_tf32, d, tile):
+    """The float32 wide dq's C entry at each query tile its plan can take
+    (64 rows: 256 threads, 2 rows a thread; 16: 128 threads, one row),
+    causal, b·h 3 x s 150 (ragged tiles), within 1e-4 of the plain max."""
+    bh, s = 3, 150
+    q, k, v, do = (_randn((bh, s, d), no_tf32, torch.float32, i)
+                   for i in range(4))
+    scale = d ** -0.5
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale, True)
+    delta = fa.flash_delta(p_out, do)
+    want = fa.flash_bwd_dq_plain(q, k, v, do, p_lse, delta, scale, True)
+    dq = torch.empty_like(q)
+    lib, fn = fa._wide_entry("rt_flash_bwd_dq", torch.float32)
+    stream = torch.cuda.current_stream().cuda_stream
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              p_lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, 1, 1,
+              s, s, d, scale, 1, tile, stream)
+    assert code == 0, lib.rt_error_string(code)
+    torch.cuda.synchronize()
+    assert _rel_err(dq, want) < 1e-4
+
+
 # --------------------------- rows that see no key; the wgmma K3 and K2
 
 
