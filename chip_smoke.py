@@ -11,12 +11,13 @@ Phases (any failure exits non-zero and prints no result line):
      flash forward, dq and dk/dv at each head_dim; K1's, K3's and K2's TMA
      and cp.async instances), of the float32 K3, K1 and K2 at each tile
      and of the float32 flash forward, dq and dk/dv at each head_dim and
-     tile, and of the wide family (its SIMT kernels; the wgmma bf16
-     forward, dq and dk/dv and the register-tiled float32 dq with the
-     dynamic shared memory their launch sets), with any ptxas warning;
-     fail if a 128 x 128 float32 tile (an 8 x 8 patch a thread), a float32
-     flash kernel at head_dim 128, a wide wgmma kernel or the wide float32
-     dq spills, or if ptxas serialized a wide kernel's products (C7515);
+     tile, and of the wide family (the wgmma bf16 forward, dq and dk/dv
+     and the register-tiled float32 forward, dq and dk/dv at each plan,
+     with the dynamic shared memory their launch sets), with any ptxas
+     warning; fail if a 128 x 128 float32 tile (an 8 x 8 patch a thread),
+     a float32 flash kernel at head_dim 128, a wide wgmma kernel or a wide
+     float32 kernel spills, or if ptxas serialized a wide kernel's products
+     (C7515);
   3. hold each quant kernel against its plain PyTorch version on the card,
      bit for bit, at every shape the serving path gives it (the quant
      kernel's stacked [L, in, out] leaves included) and at the six 8B
@@ -101,7 +102,7 @@ Phases (any failure exits non-zero and prints no result line):
      same shapes, bf16 and float32, causal and not, both layouts, against
      the plain versions (bf16 1e-2, float32 1e-4, lse 2e-5 of its max),
      every launch the wide family's (counted apart), the forward's out
-     and lse, dk/dv and dq (the bf16 ones on wgmma, the float32 dq
+     and lse, dk/dv and dq (the bf16 ones on wgmma, the float32 ones
      register-tiled) bit-identical across two calls in both layouts, the
      causal cases timed beside their bound, SDPA (its backend named) and
      the first (SIMT) design's time where a redesign replaced it, and the
@@ -1801,10 +1802,10 @@ WIDE_SHAPES = [(1, 8, 2, 1024, 320, "bfloat16"),
 WIDE_NAMES = {"flash_fwd": "flash_fwd_wide",
               "flash_bwd_dkv": "flash_bwd_dkv_wide",
               "flash_bwd_dq": "flash_bwd_dq_wide"}
-# The wide kernels of the first (SIMT) design that a redesign replaced (the
-# bf16 dk/dv, dq and forward, the float32 dq), ms a launch at phase 7e's
-# causal shapes by head_dim, (packed, [b·h, s, d]), as PERF.md §6 records
-# them (NVIDIA H100 80GB HBM3, 700 W).
+# The wide kernels of the first (SIMT) design that a redesign replaced (all
+# six: the bf16 dk/dv, dq and forward, the float32 dq, forward and dk/dv),
+# ms a launch at phase 7e's causal shapes by head_dim, (packed, [b·h, s,
+# d]), as PERF.md §6 records them (NVIDIA H100 80GB HBM3, 700 W).
 WIDE_SIMT_MS = {("flash_bwd_dkv_wide", 320): (5.6142, 3.4027),
                 ("flash_bwd_dkv_wide", 512): (9.0285, 5.1970),
                 ("flash_bwd_dq_wide", 320): (3.2552, 3.2368),
@@ -1812,7 +1813,11 @@ WIDE_SIMT_MS = {("flash_bwd_dkv_wide", 320): (5.6142, 3.4027),
                 ("flash_fwd_wide", 320): (1.7819, 1.7600),
                 ("flash_fwd_wide", 512): (2.8999, 2.8476),
                 ("flash_bwd_dq_wide_f32", 320): (0.3540, 0.3532),
-                ("flash_bwd_dq_wide_f32", 512): (0.5063, 0.5213)}
+                ("flash_bwd_dq_wide_f32", 512): (0.5063, 0.5213),
+                ("flash_fwd_wide_f32", 320): (0.2034, 0.2007),
+                ("flash_fwd_wide_f32", 512): (0.2879, 0.2958),
+                ("flash_bwd_dkv_wide_f32", 320): (0.6476, 0.3392),
+                ("flash_bwd_dkv_wide_f32", 512): (0.7867, 0.4087)}
 
 
 def check_wide_repeatable(torch, fa, q, k, v, do, h: int, kv: int,
@@ -2685,7 +2690,10 @@ def train_f32_tiny(torch, seed: int, cfg):
 # forward's by plan and head_dim (flash_attention.wide_fwd_plan: its ring,
 # V slice and resident Q); the wide float32 dq's four-stage ring of Q and
 # dO chunks [rows][64] and K and V chunks [32][64], dS [32][rows] and the
-# rows' lse and delta.
+# rows' lse and delta; the wide float32 forward's and dk/dv's by tile and
+# head_dim (flash_attention.wide_f32_smem: the forward's ring of K and V
+# chunk pairs, resident Q, p, alpha and l; dk/dv's ring of Q and dO
+# chunks, resident K and V, p and ds).
 KERNEL_SMEM = {
     "flash_fwd_kernel": lambda d: 2 * (128 + 4 * 64) * d + 1024,
     "flash_bwd_dq_kernel": lambda d: (2 * (256 + (2 if d > 128 else 4) * 64)
@@ -2716,6 +2724,19 @@ KERNEL_SMEM = {
     "flash_wide_fwd_wgmma_kernel": lambda d: _wide_fwd_plan(d)[2],
     "flash_wide_dq_f32_kernel": lambda rows: 4 * (4 * 64 * (2 * rows + 64)
                                                   + rows * (32 + 2)),
+    "flash_wide_fwd_f32_kernel": lambda rows, d: _wide_f32_smem("fwd", rows,
+                                                                d),
+    "flash_wide_dkv_f32_kernel": lambda d: _wide_f32_smem("dkv", 16, d),
+}
+# The head dims at which phase 2 logs each wide float32 instantiation's
+# dynamic shared memory, by (kernel, its template arguments): Q (K and V)
+# resident at the plans' whole-head widths, streamed above them.
+WIDE_F32_SMEM_AT = {
+    ("flash_wide_fwd_f32_kernel", "32", "1"): (384, 512),
+    ("flash_wide_fwd_f32_kernel", "16", "1"): (384, 512, 1024),
+    ("flash_wide_fwd_f32_kernel", "16", "0"): (1152, 4096),
+    ("flash_wide_dkv_f32_kernel", "1"): (384, 512),
+    ("flash_wide_dkv_f32_kernel", "0"): (640, 4096),
 }
 
 
@@ -2725,18 +2746,24 @@ def _wide_fwd_plan(d: int):
     return fa.wide_fwd_plan(d)
 
 
+def _wide_f32_smem(kernel: str, rows: int, d: int) -> int:
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+
+    return fa.wide_f32_smem(kernel, rows, d)
+
+
 def ptxas_report(procs) -> None:
     """Log ptxas's registers, spills and the dynamic shared memory of the
     wgmma kernels, the float32 K1, K2 and K3 and the float32 flash
-    forward, dq and dk/dv at each instantiation, the registers, spills and
-    static shared memory of the wide flash family's SIMT kernels and the
-    registers, spills and dynamic shared memory of its wgmma forward, dq
-    and dk/dv and its float32 dq (the `nvcc -Xptxas -v` runs started in
-    phase 2), any warning ptxas gives, and any note that it serialized
-    products; fail if a float32 K1, K2 or K3 with 128 x 128 tiles (8 x 8
-    accumulators a thread), a float32 flash kernel at head_dim 128, a wide
-    wgmma kernel or the wide float32 dq spills, or if ptxas serialized the
-    products of a wide kernel (C7515)."""
+    forward, dq and dk/dv at each instantiation, and the registers, spills
+    and dynamic shared memory of the wide flash family's wgmma forward, dq
+    and dk/dv and its float32 forward, dq and dk/dv at each plan (the
+    `nvcc -Xptxas -v` runs started in phase 2), any warning ptxas gives,
+    and any note that it serialized products; fail if a float32 K1, K2 or
+    K3 with 128 x 128 tiles (8 x 8 accumulators a thread), a float32 flash
+    kernel at head_dim 128, a wide wgmma kernel or a wide float32 kernel
+    spills, or if ptxas serialized the products of a wide kernel
+    (C7515)."""
     import re
 
     for name, (proc, out_path) in procs.items():
@@ -2785,15 +2812,29 @@ def ptxas_report(procs) -> None:
                 if not re.search(r"\b0 bytes spill stores", stats):
                     fail(f"ptxas: {kernel}{inst} spills ({stats})")
                 continue
-            w = re.search(r"Compiling entry function '.*?(flash_wide_"
-                          r"(?:fwd|dkv)_kernel)I(f|13__nv_bfloat16)E",
-                          line)
-            if w:  # the wide family: static shared memory, one a dtype
+            w = re.search(r"Compiling entry function '.*?(flash_wide_fwd_"
+                          r"f32_kernel)ILi(\d+)ELb([01])E|(flash_wide_dkv_"
+                          r"f32_kernel)ILb([01])E", line)
+            if w:  # the wide float32 forward by (tile, Q resident), dk/dv
                 stats = " ".join(x.split(":", 1)[-1].strip()
                                  for x in lines[i + 1:i + 4]
                                  if "registers" in x or "spill" in x)
-                log(f"ptxas {w.group(1)}<"
-                    f"{'float' if w.group(2) == 'f' else 'bf16'}>: {stats}")
+                if w.group(1):
+                    kernel, args = w.group(1), (w.group(2), w.group(3))
+                    dims = WIDE_F32_SMEM_AT[(kernel, *args)]
+                    smem = ", ".join(
+                        f"{KERNEL_SMEM[kernel](int(args[0]), d)} bytes at "
+                        f"head_dim {d}" for d in dims)
+                else:
+                    kernel, args = w.group(4), (w.group(5),)
+                    dims = WIDE_F32_SMEM_AT[(kernel, *args)]
+                    smem = ", ".join(f"{KERNEL_SMEM[kernel](d)} bytes at "
+                                     f"head_dim {d}" for d in dims)
+                inst = f"<{', '.join(args)}>"
+                log(f"ptxas {kernel}{inst}: {stats}; dynamic shared memory "
+                    f"{smem} a block")
+                if not re.search(r"\b0 bytes spill stores", stats):
+                    fail(f"ptxas: {kernel}{inst} spills ({stats})")
                 continue
             m = re.search(r"Compiling entry function '.*?(flash_fwd_kernel|"
                           r"flash_bwd_dq_kernel|flash_bwd_dkv_kernel|"

@@ -4,12 +4,12 @@
 // flash_attention.cu; this family takes what those cannot hold.
 //
 // The forward kernels (flash_wide_fwd_wgmma_kernel in bf16,
-// flash_wide_fwd_kernel<float>) replace the TPU kernel _fwd_kernel
+// flash_wide_fwd_f32_kernel in float32) replace the TPU kernel _fwd_kernel
 // (ray_tpu/ops/pallas/flash_attention.py:38) at those widths, in both of its
 // calls (_flash_fwd :104 over [b*h, s, d], _flash_fwd_packed :376 over the
-// packed [b, s, h*d]); the dk/dv kernels (flash_wide_dkv_wgmma_kernel in
-// bf16, flash_wide_dkv_kernel<float>) replace _bwd_dkv_kernel (:181) and the
-// dq kernels (flash_wide_dq_wgmma_kernel, flash_wide_dq_f32_kernel)
+// packed [b, s, h*d]); the dk/dv kernels (flash_wide_dkv_wgmma_kernel,
+// flash_wide_dkv_f32_kernel) replace _bwd_dkv_kernel (:181) and the dq
+// kernels (flash_wide_dq_wgmma_kernel, flash_wide_dq_f32_kernel)
 // _bwd_dq_kernel (:224), both on the recompute of _recompute_p_ds (:142), in
 // _flash_bwd (:276, :303) and _flash_bwd_packed (:442, :480). The Pallas
 // blocks take any head_dim; these kernels take any multiple of kW (128)
@@ -19,21 +19,20 @@
 // out zero).
 //
 // What bounds them on an H100: the products. A wide head's output does not
-// fit a block's registers (64 keys x 512 columns of dK alone are 128 KB of
-// float32), so the design cuts it:
-//  * a grid axis over output-width slices of kW columns (kFwdSlice, 256,
-//    in the bf16 forward up to head_dim 512): a forward or dq block owns a
-//    tile of query rows of one head and one slice of O (dQ); a dk/dv block
-//    owns a tile of keys of one kv head and one slice of both dK and dV;
-//  * each block recomputes the score S = Q.K^T (and, in the backward,
-//    dP = dO.V^T) over the whole head_dim, chunk by chunk, each chunk's
-//    partial sum added to the block's float32 accumulators, so no block
-//    holds a whole head's width: the score products run once per slice,
-//    the price of the cut. Counted against the bound's products (each
-//    once), n slices do (4n + 4) / 8 of dk/dv's work, (4n + 2) / 6 of dq's
-//    and (n + 1) / 2 of the forward's: 2.5x, 3x and 1.5x at d 512;
-//  * the lse (forward) is written once, by slice 0; the other slices
-//    compute the same row statistics and do not store them.
+// always fit a block's registers (64 keys x 512 columns of dK alone are 128
+// KB of float32), so a block owns one output-width slice of it: a forward
+// or dq block a tile of query rows of one head and one slice of O (dQ), a
+// dk/dv block a tile of keys of one kv head and one slice of both dK and
+// dV. Where the slice is narrower than the head, each block recomputes the
+// score S = Q.K^T (and, in the backward, dP = dO.V^T) over the whole
+// head_dim, chunk by chunk, each chunk's partial sum added to the block's
+// float32 accumulators: the price of the cut. Counted against the bound's
+// products (each once), n slices of 128 columns do (4n + 4) / 8 of dk/dv's
+// work, (4n + 2) / 6 of dq's and (n + 1) / 2 of the forward's: 2.5x, 3x and
+// 1.5x at d 512. The bf16 forward's slices are 256 columns up to head_dim
+// 512; the float32 forward's and dk/dv's are the whole padded head wherever
+// their tile's rows of it fit a block's registers (no recompute), else 128.
+// The lse (forward) is written once, by slice 0.
 // The rest is the narrower kernels' arithmetic (flash_attention.cu): the
 // causal mask end-aligned (key col <= row + sk - sq), key tiles wholly past
 // the band skipped, the online softmax in exp2 of log2e-scaled scores, p
@@ -50,19 +49,11 @@
 // [b, heads, sq]; [b*h, s, d] is heads = n_rep = 1. Grid: x the tiles times
 // the slices, y the head (the kv head for dk/dv), z the batch.
 //
-// Three designs. The float32 forward and dk/dv are the family's first,
-// simple one (CUDA cores, no wgmma; "SIMT" below). The bf16 kernels run on
-// wgmma with a streamed chunk ring ("bf16 backward", "bf16 forward"
-// below); the float32 dq is register-tiled on the CUDA cores over the same
-// ring ("float32 dq" below).
-//
-// SIMT: 256 threads; the operands of each product pass through shared
-// memory as float32 tiles of 32 rows x kW columns padded to kW + 1
-// (bank-conflict-free reads); a score tile is 32 x 32, thread (i, g) =
-// (tid / 8, tid % 8) owning row i and columns g + 8j (j < 4), and an output
-// tile 32 x kW, the same thread owning row i and columns g + 8c (c < 16).
-// 37,248 bytes (forward) and 41,472 (dk/dv) of static shared memory a
-// block; 80 and 128 registers a thread, no spill (ptxas, sm_90a).
+// Two designs, both fed by cp.async rings of 64-column chunks of the head
+// (zero-filled past sq and sk): the bf16 kernels run on wgmma ("bf16
+// backward", "bf16 forward" below); the float32 kernels are register-tiled
+// on the CUDA cores in full float32, no TF32 ("float32 dq", "float32
+// forward", "float32 dk/dv" below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,30 +65,10 @@
 
 namespace {
 
-constexpr int kW = 128;        // the output slice, and a score chunk
-constexpr int kRows = 32;      // rows a block owns (queries or keys)
+constexpr int kW = 128;  // an output slice of the cut
 constexpr int kThreads = 256;
-constexpr int kLd = kW + 1;    // a padded shared-memory row
-constexpr int kLdS = kRows + 1;
-constexpr int kOut = kW / 8;   // output columns a thread
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-// The SIMT kernels run in float32 only (the bf16 ones are wgmma kernels).
-__device__ __forceinline__ float to_float(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-
-// x rounded to T's precision (p and ds as operands of a product)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
 
 __device__ __forceinline__ bool attends(int row, int col, int sq, int sk,
                                         int offset, int causal) {
@@ -107,8 +78,7 @@ __device__ __forceinline__ bool attends(int row, int col, int sq, int sk,
 // Key tiles of `keys` keys that query rows [q0, q0 + rows) walk: all of
 // sk, or, causal, up to the band of the last row.
 __device__ __forceinline__ int key_tiles(int q0, int sk, int offset,
-                                         int causal, int rows = kRows,
-                                         int keys = kRows) {
+                                         int causal, int rows, int keys) {
   int n = (sk + keys - 1) / keys;
   if (causal) {
     const int last = q0 + rows - 1 + offset;
@@ -118,258 +88,12 @@ __device__ __forceinline__ int key_tiles(int q0, int sk, int offset,
   return n;
 }
 
-// Columns [c0, c0 + kW) of rows [row0, row0 + kRows) of a row-major matrix
-// of n rows (ld elements apart) into tile[kRows][kLd] as float32; rows >= n
-// zero-filled, so no product reads garbage.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* tile, const T* src,
-                                          int row0, int n, int64_t ld,
-                                          int c0) {
-  for (int e = threadIdx.x; e < kRows * kW; e += kThreads) {
-    const int r = e / kW;
-    const int c = e % kW;
-    float x = 0.0f;
-    if (row0 + r < n) {
-      x = to_float(src[static_cast<int64_t>(row0 + r) * ld + c0 + c]);
-    }
-    tile[r * kLd + c] = x;
-  }
-}
-
-// acc[j] += a[i] . b[g + 8j] over one chunk (rows of the two tiles).
-__device__ __forceinline__ void chunk_dots(const float* a, const float* b,
-                                           int i, int g, float (&acc)[4]) {
-  const float* ar = a + i * kLd;
-#pragma unroll 8
-  for (int c = 0; c < kW; ++c) {
-    const float x = ar[c];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[j] = fmaf(x, b[(g + 8 * j) * kLd + c], acc[j]);
-    }
-  }
-}
-
-// acc += the score of rows [a0, a0 + kRows) of `a` against rows [b0, b0 +
-// kRows) of `b` over the whole head_dim d, a chunk at a time through the
-// two shared tiles.
-template <typename T>
-__device__ __forceinline__ void scores(float* sa, float* sb, const T* a,
-                                       int a0, int na, int64_t lda,
-                                       const T* b, int b0, int nb,
-                                       int64_t ldb, int d, int i, int g,
-                                       float (&acc)[4]) {
-  for (int c0 = 0; c0 < d; c0 += kW) {
-    __syncthreads();  // every thread is done with the tiles' last reads
-    load_tile(sa, a, a0, na, lda, c0);
-    load_tile(sb, b, b0, nb, ldb, c0);
-    __syncthreads();
-    chunk_dots(sa, sb, i, g, acc);
-  }
-}
-
-// out[c] += sum over the tile's rows j of w[i][j] * x[j][g + 8c].
-__device__ __forceinline__ void accumulate(const float* w, const float* x,
-                                           int i, int g,
-                                           float (&out)[kOut]) {
-#pragma unroll 4
-  for (int j = 0; j < kRows; ++j) {
-    const float wj = w[i * kLdS + j];
-#pragma unroll
-    for (int c = 0; c < kOut; ++c) {
-      out[c] = fmaf(wj, x[j * kLd + g + 8 * c], out[c]);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, T* __restrict__ out,
-                          float* __restrict__ lse, int sq, int sk, int n_rep,
-                          int d, float scale, int causal) {
-  __shared__ float sA[kRows * kLd];   // a Q chunk
-  __shared__ float sB[kRows * kLd];   // a K chunk, then the V slice
-  __shared__ float sP[kRows * kLdS];  // p rounded to T
-
-  const int n_slices = d / kW;
-  const int slice = blockIdx.x % n_slices;
-  // heaviest query tiles first (the causal band's longest rows)
-  const int q0 = (gridDim.x / n_slices - 1 - blockIdx.x / n_slices) * kRows;
-  const int head = blockIdx.y;
-  const int heads = gridDim.y;
-  const int batch = blockIdx.z;
-  const int64_t ldq = static_cast<int64_t>(heads) * d;
-  const int64_t ldk = static_cast<int64_t>(heads / n_rep) * d;
-  const T* qb = q + static_cast<int64_t>(batch) * sq * ldq +
-                static_cast<int64_t>(head) * d;
-  const int64_t koff = static_cast<int64_t>(batch) * sk * ldk +
-                       static_cast<int64_t>(head / n_rep) * d;
-  const T* kb = k + koff;
-  const T* vb = v + koff;
-  const int offset = sk - sq;
-  const int i = threadIdx.x >> 3;  // this thread's row of the block
-  const int g = threadIdx.x & 7;   // its lane among the row's 8
-  const int row = q0 + i;
-  const float scale2 = scale * kLog2e;
-
-  float m = kNegInf, l = 0.0f;
-  float o[kOut];
-#pragma unroll
-  for (int c = 0; c < kOut; ++c) o[c] = 0.0f;
-
-  const int n_kt = key_tiles(q0, sk, offset, causal);
-  for (int t = 0; t < n_kt; ++t) {
-    const int k0 = t * kRows;
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    scores(sA, sB, qb, q0, sq, ldq, kb, k0, sk, ldk, d, i, g, s);
-
-    // the online softmax over the row's 8 lanes
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (!attends(row, k0 + g + 8 * j, sq, sk, offset, causal)) {
-        s[j] = kNegInf;
-      }
-      mx = fmaxf(mx, s[j]);
-    }
-#pragma unroll
-    for (int lanes = 1; lanes < 8; lanes <<= 1) {
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, lanes));
-    }
-    const float alpha = exp2f((m - mx) * scale2);
-    m = mx;
-    // a row that has seen no key yet keeps p = 0 (and so out 0)
-    const bool none = mx == kNegInf;
-    const float ms = mx * scale2;
-    float sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[j] = none ? 0.0f : exp2f(fmaf(s[j], scale2, -ms));
-      sum += s[j];
-    }
-#pragma unroll
-    for (int lanes = 1; lanes < 8; lanes <<= 1) {
-      sum += __shfl_xor_sync(0xffffffffu, sum, lanes);
-    }
-    l = l * alpha + sum;
-#pragma unroll
-    for (int c = 0; c < kOut; ++c) o[c] *= alpha;
-
-    __syncthreads();  // the K chunk's and the last P.V's reads are done
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sP[i * kLdS + g + 8 * j] = round_to<T>(s[j]);
-    load_tile(sB, vb, k0, sk, ldk, slice * kW);
-    __syncthreads();
-    accumulate(sP, sB, i, g, o);
-  }
-
-  if (row < sq) {
-    const float lc = fmaxf(l, 1e-30f);
-    T* orow = out + static_cast<int64_t>(batch) * sq * ldq +
-              static_cast<int64_t>(row) * ldq +
-              static_cast<int64_t>(head) * d + slice * kW;
-#pragma unroll
-    for (int c = 0; c < kOut; ++c) orow[g + 8 * c] = from_float<T>(o[c] / lc);
-    if (slice == 0 && g == 0) {
-      lse[(static_cast<int64_t>(batch) * heads + head) * sq + row] =
-          m == kNegInf ? kNegInf : m * scale + logf(lc);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, int sq,
-                          int sk, int n_rep, int d, float scale, int causal) {
-  __shared__ float sA[kRows * kLd];   // a K (V) chunk, then the dO slice
-  __shared__ float sB[kRows * kLd];   // a Q (dO) chunk, then the Q slice
-  __shared__ float sP[kRows * kLdS];  // P^T [key][row] rounded to T
-  __shared__ float sD[kRows * kLdS];  // dS^T [key][row] rounded to T
-
-  const int n_slices = d / kW;
-  const int slice = blockIdx.x % n_slices;
-  // lowest keys first: under causal they walk the most query tiles
-  const int k0 = blockIdx.x / n_slices * kRows;
-  const int kvh = blockIdx.y;
-  const int n_kv = gridDim.y;
-  const int heads = n_kv * n_rep;
-  const int batch = blockIdx.z;
-  const int64_t ldq = static_cast<int64_t>(heads) * d;
-  const int64_t ldk = static_cast<int64_t>(n_kv) * d;
-  const int64_t koff = static_cast<int64_t>(batch) * sk * ldk +
-                       static_cast<int64_t>(kvh) * d;
-  const int offset = sk - sq;
-  const int i = threadIdx.x >> 3;  // this thread's key of the block
-  const int g = threadIdx.x & 7;   // its lane among the key's 8
-  const int key = k0 + i;
-  const float scale2 = scale * kLog2e;
-  // the first query row that attends key k0 under causal, by tile
-  const int first = causal ? max(k0 - offset, 0) / kRows : 0;
-  const int n_qt = (sq + kRows - 1) / kRows;
-
-  float adk[kOut], adv[kOut];
-#pragma unroll
-  for (int c = 0; c < kOut; ++c) adk[c] = adv[c] = 0.0f;
-
-  for (int r = 0; r < n_rep; ++r) {
-    const int head = kvh * n_rep + r;
-    const int64_t qoff = static_cast<int64_t>(batch) * sq * ldq +
-                         static_cast<int64_t>(head) * d;
-    const int64_t row_off =
-        (static_cast<int64_t>(batch) * heads + head) * sq;
-    for (int qt = first; qt < n_qt; ++qt) {
-      const int q0 = qt * kRows;
-      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      scores(sA, sB, k + koff, k0, sk, ldk, q + qoff, q0, sq, ldq, d, i, g,
-             s);
-      scores(sA, sB, v + koff, k0, sk, ldk, dout + qoff, q0, sq, ldq, d, i,
-             g, dp);
-      float p[4], ds[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = q0 + g + 8 * j;
-        const bool ok = attends(row, key, sq, sk, offset, causal);
-        const float lse2 = ok ? lse[row_off + row] * kLog2e : 0.0f;
-        const float dlt = ok ? delta[row_off + row] : 0.0f;
-        p[j] = ok ? exp2f(fmaf(s[j], scale2, -lse2)) : 0.0f;
-        ds[j] = ok ? p[j] * (dp[j] - dlt) * scale : 0.0f;
-      }
-      __syncthreads();  // the chunks' and the last products' reads are done
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sP[i * kLdS + g + 8 * j] = round_to<T>(p[j]);
-        sD[i * kLdS + g + 8 * j] = round_to<T>(ds[j]);
-      }
-      load_tile(sA, dout + qoff, q0, sq, ldq, slice * kW);
-      load_tile(sB, q + qoff, q0, sq, ldq, slice * kW);
-      __syncthreads();
-      accumulate(sP, sA, i, g, adv);  // dV += P^T.dO
-      accumulate(sD, sB, i, g, adk);  // dK += dS^T.Q
-    }
-  }
-
-  if (key < sk) {
-    const int64_t at = koff + static_cast<int64_t>(key) * ldk + slice * kW;
-#pragma unroll
-    for (int c = 0; c < kOut; ++c) {
-      dk[at + g + 8 * c] = from_float<T>(adk[c]);
-      dv[at + g + 8 * c] = from_float<T>(adv[c]);
-    }
-  }
-}
-
 // ------------------------------------------------------------ bf16 backward
 //
-// flash_wide_dkv_wgmma_kernel and flash_wide_dq_wgmma_kernel: the SIMT
-// kernels' cut (the slice axis, the score recomputed per slice) on Hopper's
-// warpgroup MMA. One block of two warpgroups (256 threads) owns one
-// kW-column output slice:
+// flash_wide_dkv_wgmma_kernel and flash_wide_dq_wgmma_kernel: the cut (the
+// slice axis, the score recomputed per slice) on Hopper's warpgroup MMA.
+// One block of two warpgroups (256 threads) owns one kW-column output
+// slice:
 //  * dk/dv: 64 keys of one kv head; query tiles of kWq (128) rows stream
 //    past them, warpgroup g taking rows 64g..64g+63 of each, for each of
 //    the n_rep query heads in turn;
@@ -432,15 +156,15 @@ constexpr int kWgmmaSmem = kStages * kStageBytes + 1024;
 static_assert(kStageBytes % 1024 == 0, "stages stay 1024-byte aligned");
 static_assert(kThreads == 2 * kWq, "a thread a row's lse or delta");
 
-// Which chunk step j of a tile reads: the slice's two chunks (2 slice,
-// 2 slice + 1) last.
-__device__ __forceinline__ int chunk_of(int j, int slice, int n) {
-  const int c = 2 * slice + 2 + j;
+// Which chunk step j of a tile reads: the slice's m chunks (m slice ..
+// m slice + m - 1; 2 for a kW-column slice) last.
+__device__ __forceinline__ int chunk_of(int j, int slice, int n, int m = 2) {
+  const int c = m * (slice + 1) + j;
   return c < n ? c : c - n;
 }
 
 // Waits until at most n of this thread's cp.async groups are pending (at
-// most 7: for a larger n, until 7 are).
+// most 8: for a larger n, until 8 are).
 __device__ __forceinline__ void cp_async_wait_upto(int n) {
   switch (n <= 0 ? 0 : n) {
     case 0: cp_async_wait<0>(); break;
@@ -450,7 +174,8 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
     case 4: cp_async_wait<4>(); break;
     case 5: cp_async_wait<5>(); break;
     case 6: cp_async_wait<6>(); break;
-    default: cp_async_wait<7>(); break;
+    case 7: cp_async_wait<7>(); break;
+    default: cp_async_wait<8>(); break;
   }
 }
 
@@ -479,27 +204,38 @@ __device__ __forceinline__ void pack_a(const float (&p)[32],
   }
 }
 
-// The ring's bookkeeping, the same in every thread: `loaded` steps (tile t,
-// chunk j at step t * n + j) have been issued, one cp.async group each.
-// Before step `step` reads its stage: wait for it, make every thread's
-// copies visible, and refill the stages now free. A step's score products
-// stay in flight for kLag more steps (wgmma_wait<kLag>), and a tile's last
-// ones, with its output products, until the tile's end. So at chunk j of a
-// tile every step before step - kLag is done (j > 0), or every step before
-// it (j = 0); at a tile's last chunk the one before it, the slice's first
-// chunk, is still read by the output products that follow.
-template <int kLag, typename Load>
-__device__ __forceinline__ void ring_step(int step, int j, int n, int total,
-                                          int& loaded, Load load_step) {
+// A ring of kRing stages, the same bookkeeping in every thread: `loaded`
+// steps have been issued, one cp.async group each, step s into stage s %
+// kRing. Before step `step` reads its stage: wait for it, make every
+// thread's copies visible, and refill the stages whose steps before
+// `released` left free.
+template <int kRing, typename Load>
+__device__ __forceinline__ void ring_advance(int step, int released,
+                                             int total, int& loaded,
+                                             Load load_step) {
   cp_async_wait_upto(loaded - 1 - step);
   fence_async_shared();
   __syncthreads();
-  int released = j == 0 ? step : step - kLag;  // steps before it are free
-  if (j == n - 1 && released > step - 1) released = step - 1;
-  for (; loaded < total && loaded < released + kStages; ++loaded) {
+  for (; loaded < total && loaded < released + kRing; ++loaded) {
     load_step(loaded);
     cp_async_commit();
   }
+}
+
+// The backward's ring (tile t, chunk j at step t * n + j, the slice's m
+// chunks last). A step's score products stay in flight for kLag more steps
+// (wgmma_wait<kLag>), and a tile's last ones, with its output products,
+// until the tile's end. So at chunk j of a tile every step before step -
+// kLag is done (j > 0), or every step before it (j = 0), but the tile's
+// slice chunks, which the output products read after its last chunk, stay.
+template <int kLag, int kRing = kStages, typename Load>
+__device__ __forceinline__ void ring_step(int step, int j, int n, int total,
+                                          int& loaded, Load load_step,
+                                          int m = 2) {
+  int released = j == 0 ? step : step - kLag;  // steps before it are free
+  const int kept = step - j + n - m;  // the tile's first slice chunk
+  if (j > 0 && released > kept) released = kept;
+  ring_advance<kRing>(step, released, total, loaded, load_step);
 }
 
 __device__ __forceinline__ unsigned char* ring_base(unsigned char* raw) {
@@ -899,7 +635,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // block: two warpgroups (256 threads) own 128 query rows of one head,
 // warpgroup g rows 64g..64g+63, and key tiles of kWk (64) stream past them.
 // What bounds it: the products, the score product's feed and the slices'
-// recompute. Two staging plans by head_dim (`fwd_entry`;
+// recompute. Two staging plans by head_dim (`fwd_bf16_entry`;
 // flash_attention.py `wide_fwd_plan`):
 //  * plan 1, d <= kFwdResidentMaxD (512): the block's Q stays resident (128
 //    rows x d, 128 KB at 512), so a chunk step streams only K's chunk (8
@@ -1254,27 +990,28 @@ __device__ __forceinline__ void load_rows_f32(float* tile, const float* src,
   }
 }
 
-// c[i][j] += A[own row i] . B[streamed row 8j] over this lane's share of one
-// chunk (float4s dg + S cc): `a` at the patch's first own row (rows kC
-// apart), `b` at its first streamed row (chunks ^ xb).
-template <int S>
+// c[i][j] += A[own row i] . B[streamed row (32 / J) j] over this lane's
+// share of one chunk (float4s dg + S cc): `a` at the patch's first own row
+// (rows kC apart), `b` at its first streamed row (chunks ^ xb).
+template <int S, int J = 4>
 __device__ __forceinline__ void patch_dot(const float* a, const float* b,
                                           int dg, int xb,
-                                          float (&c)[4][4]) {
+                                          float (&c)[4][J]) {
+  constexpr int kApart = kF32Stream / J;  // the patch's streamed rows
 #pragma unroll
   for (int cc = 0; cc < kC / 4 / S; ++cc) {
     const int ch = dg + S * cc;
-    float4 bv[4];
+    float4 bv[J];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bv[j] =
-          *reinterpret_cast<const float4*>(b + 8 * j * kC + 4 * (ch ^ xb));
+    for (int j = 0; j < J; ++j) {
+      bv[j] = *reinterpret_cast<const float4*>(b + kApart * j * kC +
+                                               4 * (ch ^ xb));
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float4 av = *reinterpret_cast<const float4*>(a + i * kC + 4 * ch);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < J; ++j) {
         c[i][j] = fmaf(av.x, bv[j].x, c[i][j]);
         c[i][j] = fmaf(av.y, bv[j].y, c[i][j]);
         c[i][j] = fmaf(av.z, bv[j].z, c[i][j]);
@@ -1454,6 +1191,652 @@ __global__ void __launch_bounds__(kF32Threads, 1)
   }
 }
 
+// ------------------------------------------------------- float32 forward
+//
+// flash_wide_fwd_f32_kernel replaces the first (SIMT) forward in float32
+// (the TPU kernel _fwd_kernel above head_dim 256). What held that one at
+// 0.06 of bound: scalar shared-memory reads (five loads for four FMAs),
+// element-by-element copies with nothing in flight during a product, two
+// barriers for each 128-column chunk of each score product, and 128-column
+// output slices that recomputed S in each (a cap of 2 / (n + 1) of bound).
+// Bound on an H100: float32 operations (67 TFLOP/s; no TF32), below which
+// the patches' shared-memory reads hold it ("float32 dq": an R x J patch
+// reads R + J float4s for 4RJ FMAs a lane, RJ / (4 (R + J)) of the FMA
+// peak). The design, from the float32 dq's parts:
+//  * A block (256 threads) owns BQ query rows of one head (32, or 16 where
+//    those blocks alone would not make a wave) and one output slice of
+//    `width` columns: the whole padded head wherever the block's O fits
+//    kF32Acc floats (64 a thread: 32 rows up to 512 columns, 16 up to
+//    1024), so S is computed once; else kW (128). The host plan picks both
+//    (flash_attention.py `wide_f32_fwd_plan`); the kernel holds up to
+//    kF32Groups 128-column groups of O a thread and runs the slice's
+//    `width / 128` of them. (16-row 128-column slices took 0.79-0.88x
+//    the time of 32-row ones at chip_smoke phase 7e's float32 shapes, so
+//    the cut is 16 rows.)
+//  * Key tiles of kF32Stream (32) keys. Per key tile, one ring of
+//    kFwdF32Ring stages (cp.async, zero-filled past sq and sk) streams the
+//    tile's K in d / 128 steps of 128 columns, then the slice's V in
+//    width / 128: a K step's barrier frees the stage the step before it
+//    read; the V steps stay staged until the tile's P.V, which reads them
+//    all after one wait for the last, and the next tile's first barrier
+//    frees them (ring_advance; a host walk of it in
+//    tests/test_torch_wide_plan.py). Q stays resident (BQ x d, 64 KB at
+//    most) wherever the tile's rows of the whole head fit that budget;
+//    else (the 16-row cut above 1024 columns) its chunks stream beside
+//    K's.
+//  * S = Q.K^T as split-lane patches of 4 rows x 8 keys (patch_dot: 8
+//    lanes at 32 rows, 16 at 16, share each chunk, summed by a shuffle
+//    butterfly in one order), 0.67 of the FMA peak by their reads where the
+//    dq's 4 x 4 run at 0.5 (0.90-0.92x the time at the 8B attention shape,
+//    PERF.md); K and V chunks XOR-swizzled by key where 8 lanes share.
+//  * The online softmax in exp2 of log2e-scaled scores: the patches write S
+//    (-1e30 where a row may not attend) into a [32 keys][BQ] buffer; each
+//    row's 256 / BQ lanes take its max and sum by shuffles, keep its m and l,
+//    write p back (0 while the row's max is -1e30) and its alpha. Then O is
+//    rescaled by alpha and O += P.V_slice, each thread BQ / 8 rows x one
+//    float4 column (cg) of each 128-column group, unrolled over the
+//    slice's groups (`pv_groups`): at 32 rows a key's p (one broadcast
+//    float4) feeds every group's V float4, so the product runs at width /
+//    (width + 128) of the FMA peak (0.8 at 512) by its reads, not the 0.5
+//    of a group a step (which took 1.10-1.13x the time at the 8B shape).
+//  * lse written once, by slice 0; out = o / max(l, 1e-30), so a row that
+//    sees no key gives out 0 and lse -1e30. No atomics.
+// ptxas (sm_90a): 224 registers at 32 rows, 207 and 166 at 16 rows with Q
+// resident and streamed, no spill; dynamic shared memory 201,472 and
+// 217,856 bytes at 32 rows and head_dim 384 and 512, 215,680 at 16 rows
+// and 1024, 150,144 where Q streams (flash_attention.py `wide_f32_smem`).
+
+constexpr int kF32Acc = 16384;  // a block's output accumulators: 64 a thread
+// the forward's stages: 16 KB each where Q stays resident (a key tile's V
+// groups, up to 8, and one more), 24 KB (16 rows) where it streams
+template <bool kResident>
+constexpr int kFwdF32Ring = kResident ? 9 : 6;
+template <int BQ>
+constexpr int kF32Groups = kF32Acc / (BQ * kW);  // 4 (32 rows), 8 (16)
+// a forward stage: a K (V) pair of chunks [2][32][kC], and Q's pair
+// [2][BQ][kC] where Q streams
+template <int BQ, bool kResident>
+constexpr int kFwdF32Stage = 4 * 2 * kC * (kF32Stream + (kResident ? 0 : BQ));
+template <int BQ>
+constexpr int kFwdF32Ld = BQ + 4;  // a row of the p buffer, padded
+
+// Dynamic shared memory of the forward at head_dim d: the ring, resident Q,
+// the p buffer [32][BQ + 4], and the rows' alpha and l.
+template <int BQ, bool kResident>
+constexpr int fwd_f32_smem(int d) {
+  return kFwdF32Ring<kResident> * kFwdF32Stage<BQ, kResident> +
+         (kResident ? 4 * BQ * d : 0) +
+         4 * (kF32Stream * kFwdF32Ld<BQ> + 2 * BQ);
+}
+static_assert(fwd_f32_smem<32, true>(kF32Acc / 32) <= 232448 &&
+                  fwd_f32_smem<16, true>(kF32Acc / 16) <= 232448 &&
+                  fwd_f32_smem<16, false>(0) <= 232448,
+              "a block's shared memory");
+
+// O += P.V over NV 128-column groups of a key tile, V's rows staged at
+// ring + vat[c] (this lane's chunk of group c): for each of the 32 keys, the
+// thread's RO rows of p (`p` at its first row, keys ld apart) and float4
+// column cg of each group's V row. Unrolled over the groups, so every
+// group's loads of a key issue together; `pv_groups` picks NV = nv.
+template <int NV, int kGroups, int RO, typename Swizzle>
+__device__ __forceinline__ void pv_product(float (&acc)[kGroups][RO][4],
+                                           const float* p, int ld,
+                                           const float* ring,
+                                           const int (&vat)[kGroups], int cg,
+                                           Swizzle swizzle) {
+#pragma unroll 8
+  for (int r = 0; r < kF32Stream; ++r) {
+    float w[RO];
+    if constexpr (RO == 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + r * ld);
+      w[0] = x.x;
+      w[1] = x.y;
+      w[2] = x.z;
+      w[3] = x.w;
+    } else {
+      const float2 x = *reinterpret_cast<const float2*>(p + r * ld);
+      w[0] = x.x;
+      w[1] = x.y;
+    }
+    const int col = r * kC + 4 * (cg ^ swizzle(r));
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const float4 y = *reinterpret_cast<const float4*>(ring + vat[c] + col);
+#pragma unroll
+      for (int i = 0; i < RO; ++i) {
+        acc[c][i][0] = fmaf(w[i], y.x, acc[c][i][0]);
+        acc[c][i][1] = fmaf(w[i], y.y, acc[c][i][1]);
+        acc[c][i][2] = fmaf(w[i], y.z, acc[c][i][2]);
+        acc[c][i][3] = fmaf(w[i], y.w, acc[c][i][3]);
+      }
+    }
+  }
+}
+
+template <int NV, int kGroups, int RO, typename Swizzle>
+__device__ __forceinline__ void pv_groups(int nv,
+                                          float (&acc)[kGroups][RO][4],
+                                          const float* p, int ld,
+                                          const float* ring,
+                                          const int (&vat)[kGroups], int cg,
+                                          Swizzle swizzle) {
+  if constexpr (NV > 1) {
+    if (nv < NV) {
+      pv_groups<NV - 1>(nv, acc, p, ld, ring, vat, cg, swizzle);
+      return;
+    }
+  }
+  pv_product<NV>(acc, p, ld, ring, vat, cg, swizzle);
+}
+
+template <int BQ, bool kResident>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_wide_fwd_f32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              float* __restrict__ out,
+                              float* __restrict__ lse, int sq, int sk,
+                              int n_rep, int d, int width, float scale,
+                              int causal) {
+  constexpr int J = 8;                       // keys a score patch
+  constexpr int KG = kF32Stream / J;         // key groups: keys kg + KG j
+  constexpr int S = kF32Threads / (BQ / 4 * KG);  // lanes a patch: 8, 16
+  constexpr int kGroups = kResident ? kF32Groups<BQ> : 1;
+  constexpr int RO = BQ / 8;                 // output rows a thread
+  constexpr int TPR = kF32Threads / BQ;      // softmax lanes a row
+  constexpr int KPL = kF32Stream / TPR;      // keys a softmax lane
+  constexpr int LD = kFwdF32Ld<BQ>;
+  constexpr int kRing = kFwdF32Ring<kResident>;
+  constexpr int kStage = kFwdF32Stage<BQ, kResident> / 4;  // floats
+  constexpr int kQAt = 2 * kF32Stream * kC;  // a stage's Q pair (streamed)
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  float* sQ = ring + kRing * kStage;  // resident Q, [chunk][BQ][kC]
+  float* sP = sQ + (kResident ? BQ * d : 0);  // [32 keys][LD]: s, then p
+  float* sAlpha = sP + kF32Stream * LD;       // the rows' alpha, then l
+  float* sL = sAlpha + BQ;
+
+  const int n = d / kC;      // chunks of the head
+  const int nk = d / kW;     // K steps of a key tile
+  const int nv = width / kW; // V steps: the slice's 128-column groups
+  const int n_slices = d / width;
+  // launch order: slice fastest, then (head, batch), then the query tile,
+  // heaviest (the causal band's longest rows) first
+  const int heads = gridDim.y;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + heads * blockIdx.z);
+  const int slice = lin % n_slices;
+  const int rest = lin / n_slices;
+  const int hb = rest % (heads * gridDim.z);
+  const int head = hb % heads;
+  const int batch = hb / heads;
+  const int q0 = (gridDim.x / n_slices - 1 - rest / (heads * gridDim.z)) * BQ;
+  const int c0 = slice * width;  // the slice's first column
+  const int64_t ldq = static_cast<int64_t>(heads) * d;
+  const int64_t ldk = static_cast<int64_t>(heads / n_rep) * d;
+  const int64_t qoff = static_cast<int64_t>(batch) * sq * ldq +
+                       static_cast<int64_t>(head) * d;
+  const int64_t koff = static_cast<int64_t>(batch) * sk * ldk +
+                       static_cast<int64_t>(head / n_rep) * d;
+  const int64_t row_off = (static_cast<int64_t>(batch) * heads + head) * sq;
+  const int offset = sk - sq;
+  const float scale2 = scale * kLog2e;
+  const int n_kt = key_tiles(q0, sk, offset, causal, BQ, kF32Stream);
+  const int per = nk + nv;  // steps a key tile
+  const int total = n_kt * per;
+  const auto unswizzled = [](int) { return 0; };
+  const auto key_swizzle = [](int r) { return ((r & 7) * S) & 15; };
+
+  auto load_step = [&](int step) {  // K pair j, or V pair j - nk, of tile t
+    const int t = step / per;
+    const int j = step - t * per;
+    float* st = ring + (step % kRing) * kStage;
+    const int col = j < nk ? j * kW : c0 + (j - nk) * kW;
+    const float* src = (j < nk ? k : v) + koff + col;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      load_rows_f32<kF32Stream>(st + h * kF32Stream * kC, src + h * kC,
+                                t * kF32Stream, sk, ldk, key_swizzle);
+    }
+    if constexpr (!kResident) {
+      if (j < nk) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          load_rows_f32<BQ>(st + kQAt + h * BQ * kC, q + qoff + col + h * kC,
+                            q0, sq, ldq, unswizzled);
+        }
+      }
+    }
+  };
+
+  if constexpr (kResident) {  // the block's Q, every chunk, a group of its own
+    for (int c = 0; c < n; ++c) {
+      load_rows_f32<BQ>(sQ + c * BQ * kC, q + qoff + c * kC, q0, sq, ldq,
+                        unswizzled);
+    }
+    cp_async_commit();
+  }
+  int loaded = 0;
+  for (; loaded < total && loaded < kRing; ++loaded) {
+    load_step(loaded);
+    cp_async_commit();
+  }
+
+  // the score patch: rows 4 rg + i, keys kg + KG j, this lane's share dg
+  // (the patch's keys share their swizzle: KG is even)
+  const int dg = threadIdx.x % S;
+  const int kg = threadIdx.x / S % KG;
+  const int rg = threadIdx.x / S / KG;
+  const int xk = key_swizzle(kg);
+  // the softmax: row sr, keys su + TPR e
+  const int sr = threadIdx.x / TPR;
+  const int su = threadIdx.x % TPR;
+  float m = kNegInf, l = 0.0f;
+  // the output: rows RO ro + i, float4 column cg of each 128-column group
+  const int cg = threadIdx.x % 32;
+  const int ro = threadIdx.x / 32;
+  float acc[kGroups][RO][4];
+#pragma unroll
+  for (int c = 0; c < kGroups; ++c) {
+#pragma unroll
+    for (int i = 0; i < RO; ++i) zero(acc[c][i]);
+  }
+
+  for (int t = 0; t < n_kt; ++t) {
+    const int k0 = t * kF32Stream;
+    float s[4][J];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) zero(s[i]);
+    for (int j = 0; j < nk; ++j) {  // S += Q.K^T, 128 columns a step
+      const int step = t * per + j;
+      ring_advance<kRing>(step, step, total, loaded, load_step);
+      const float* st = ring + (step % kRing) * kStage;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* qa = kResident ? sQ + (2 * j + h) * BQ * kC
+                                    : st + kQAt + h * BQ * kC;
+        patch_dot<S, J>(qa + 4 * rg * kC,
+                        st + h * kF32Stream * kC + kg * kC, dg, xk, s);
+      }
+    }
+    // the shares of the patch's S lanes, summed
+#pragma unroll
+    for (int mk = 1; mk < S; mk <<= 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj) {
+          s[i][jj] += __shfl_xor_sync(0xffffffffu, s[i][jj], mk);
+        }
+      }
+    }
+    // a tile holding a key no row of the block may attend: a row past sq, a
+    // key past sk, or a key past the causal band of the block's first row
+    const bool mask = q0 + BQ > sq || k0 + kF32Stream > sk ||
+                      (causal && k0 + kF32Stream - 1 > q0 + offset);
+#pragma unroll
+    for (int e = 0; e < 4 * J; ++e) {
+      if (e % S != dg) continue;  // this lane's entries of the patch
+      const int i = e / J;
+      const int jj = e % J;
+      const int row = 4 * rg + i;
+      const int key = kg + KG * jj;
+      const bool ok =
+          !mask || attends(q0 + row, k0 + key, sq, sk, offset, causal);
+      sP[key * LD + row] = ok ? s[i][jj] : kNegInf;
+    }
+    __syncthreads();  // every patch's S is in
+    {  // the online softmax of row sr over its TPR lanes
+      float x[KPL];
+      float mx = m;
+#pragma unroll
+      for (int e = 0; e < KPL; ++e) {
+        x[e] = sP[(su + TPR * e) * LD + sr];
+        mx = fmaxf(mx, x[e]);
+      }
+#pragma unroll
+      for (int lanes = 1; lanes < TPR; lanes <<= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, lanes));
+      }
+      const float alpha = exp2f((m - mx) * scale2);
+      m = mx;
+      // a row that has seen no key yet keeps p = 0 (and so out 0)
+      const bool none = mx == kNegInf;
+      const float ms = mx * scale2;
+      float sum = 0.0f;
+#pragma unroll
+      for (int e = 0; e < KPL; ++e) {
+        x[e] = none ? 0.0f : exp2f(fmaf(x[e], scale2, -ms));
+        sum += x[e];
+        sP[(su + TPR * e) * LD + sr] = x[e];
+      }
+#pragma unroll
+      for (int lanes = 1; lanes < TPR; lanes <<= 1) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, lanes);
+      }
+      l = l * alpha + sum;
+      if (su == 0) sAlpha[sr] = alpha;
+    }
+    // every V step of the tile landed (they stay staged until its P.V is
+    // done); the barrier makes p and alpha visible
+    ring_advance<kRing>(t * per + per - 1, t * per + nk, total, loaded,
+                        load_step);
+#pragma unroll
+    for (int i = 0; i < RO; ++i) {
+      const float a = sAlpha[RO * ro + i];
+#pragma unroll
+      for (int c = 0; c < kGroups; ++c) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[c][i][x] *= a;
+      }
+    }
+    // O_slice += P.V_slice over the slice's nv groups, unrolled for nv
+    int vat[kGroups];  // the groups' stages, at this lane's chunk
+#pragma unroll
+    for (int c = 0; c < kGroups; ++c) {
+      vat[c] = ((t * per + nk + c) % kRing) * kStage +
+               (cg / 16) * kF32Stream * kC;
+    }
+    pv_groups<kGroups>(nv, acc, sP + RO * ro, LD, ring, vat, cg % 16,
+                       key_swizzle);
+  }
+  cp_async_wait<0>();
+
+  if (su == 0) {
+    const float lc = fmaxf(l, 1e-30f);
+    sL[sr] = lc;
+    if (slice == 0 && q0 + sr < sq) {
+      lse[row_off + q0 + sr] = m == kNegInf ? kNegInf : m * scale + logf(lc);
+    }
+  }
+  __syncthreads();  // every row's l is in
+#pragma unroll
+  for (int i = 0; i < RO; ++i) {
+    const int r = q0 + RO * ro + i;
+    if (r >= sq) continue;
+    const float lc = sL[RO * ro + i];
+    float* dst = out + qoff + static_cast<int64_t>(r) * ldq + c0 + 4 * cg;
+#pragma unroll
+    for (int c = 0; c < kGroups; ++c) {
+      if (c >= nv) break;
+      *reinterpret_cast<float4*>(dst + c * kW) =
+          make_float4(acc[c][i][0] / lc, acc[c][i][1] / lc,
+                      acc[c][i][2] / lc, acc[c][i][3] / lc);
+    }
+  }
+}
+
+// --------------------------------------------------------- float32 dk/dv
+//
+// flash_wide_dkv_f32_kernel replaces the first (SIMT) dk/dv in float32 (the
+// TPU kernel _bwd_dkv_kernel above head_dim 256). What held that one at
+// 0.06 of bound: the SIMT forward's scalar reads, copies and barriers, and
+// S and dP recomputed in each 128-column slice (a cap of 8 / (4n + 4) of
+// bound). Bound on an H100: float32 operations, below which the patches'
+// shared-memory reads hold it ("float32 forward"). The design:
+//  * A block (256 threads) owns kDkvKeys (16) keys of one kv head and one
+//    output slice of `width` columns of both dK and dV: the whole padded
+//    head up to 512 columns, where 2 x 16 x 512 accumulators make kF32Acc,
+//    so S and dP are computed once, and the blocks make a wave; else kW
+//    (128). The host plan picks it (flash_attention.py
+//    `wide_f32_dkv_plan`). The block's K and V stay resident (16 x d each,
+//    64 KB at 512) where it holds the whole head; above 512 they stream.
+//  * For each of the n_rep query heads in turn, query tiles of kF32Stream
+//    (32) rows from the first one whose band reaches the block's keys. Per
+//    tile, the backward's ring (chunk_of, ring_step; kDkvRing stages)
+//    streams Q and dO a 64-column chunk a step, the slice's chunks last;
+//    those stay staged for the output products (at the whole head, every
+//    chunk: the ring holds a tile's n chunk pairs, 16 KB each, and one more
+//    stage, so the next tile's first chunk loads during the output
+//    products). Staging them costs shared memory where streaming them
+//    again would double the tile's reads from L2 (~4 FMAs a byte at the
+//    whole head, near what L2 feeds 132 SMs).
+//  * S^T = K.Q^T and dP^T = V.dO^T as split-lane 4 x 4 patches (4 keys x 4
+//    rows, 8 lanes a patch, patch_dot; 0.5 of the FMA peak by their reads),
+//    summed by a shuffle butterfly. p =
+//    exp2(s scale log2e - lse log2e), selected to 0 where a row may not
+//    attend (never multiplied), ds = p (dp - delta) scale, into [32 rows]
+//    [16 keys] buffers; each lane's rows' lse and delta are read from global
+//    memory at the tile's start, in flight during its chunk steps.
+//  * dV_slice += P^T.dO_slice (threads 0-127) and dK_slice += dS^T.Q_slice
+//    (threads 128-255), each thread 4 keys x one float4 column of each
+//    128-column group (cg + 32 c) of its output: a row's p or ds (one
+//    broadcast float4) feeds every group, width / (width + 128) of the FMA
+//    peak by its reads; the n_rep heads' sums in registers in one order,
+//    each output written once. No atomics.
+// ptxas (sm_90a): 224 registers with K and V resident, 164 where they
+// stream, no spill; dynamic shared memory 200,704 and 217,088 bytes at
+// head_dim 384 and 512, 225,280 where K and V stream (flash_attention.py
+// `wide_f32_smem`).
+
+constexpr int kDkvKeys = 16;
+constexpr int kDkvRing = 9;  // stages: a tile's 8 chunk pairs at 512, + 1
+// a dk/dv stage: Q and dO chunks [32][kC], and K and V chunks [16][kC]
+// where they stream
+template <bool kResident>
+constexpr int kDkvF32Stage =
+    4 * kC * (2 * kF32Stream + (kResident ? 0 : 2 * kDkvKeys));
+constexpr int kDkvF32MaxD = kF32Acc / (2 * kDkvKeys);  // 512: K, V resident
+
+// Dynamic shared memory of dk/dv at head_dim d: the ring, resident K and V,
+// the p and ds buffers.
+template <bool kResident>
+constexpr int dkv_f32_smem(int d) {
+  return kDkvRing * kDkvF32Stage<kResident> +
+         (kResident ? 4 * 2 * kDkvKeys * d : 0) +
+         4 * 2 * kF32Stream * kDkvKeys;
+}
+static_assert(dkv_f32_smem<true>(kDkvF32MaxD) <= 232448 &&
+                  dkv_f32_smem<false>(0) <= 232448,
+              "a block's shared memory");
+static_assert(kDkvRing > kDkvF32MaxD / kC, "a tile's chunks and one more");
+
+template <bool kResident>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_wide_dkv_f32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              int sq, int sk, int n_rep, int d, int width,
+                              float scale, int causal) {
+  constexpr int BK = kDkvKeys;
+  constexpr int S = kF32Threads / (BK / 4 * (kF32Stream / 4));  // 8
+  constexpr int kPer = 16 / S;  // a lane's entries of its patch
+  constexpr int kGroups = kResident ? kF32Acc / (2 * BK * kW) : 1;
+  constexpr int kStage = kDkvF32Stage<kResident> / 4;  // floats
+  constexpr int kDoAt = kF32Stream * kC;        // a stage's dO chunk
+  constexpr int kKAt = 2 * kF32Stream * kC;     // K and V (streamed)
+  constexpr int kVAt = kKAt + BK * kC;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  float* sK = ring + kDkvRing * kStage;  // resident K, V [chunk][16][kC]
+  float* sV = sK + (kResident ? BK * d : 0);
+  float* sP = sV + (kResident ? BK * d : 0);  // P [32 rows][16 keys]
+  float* sD = sP + kF32Stream * BK;           // dS, the same
+
+  const int n = d / kC;
+  const int m = width / kC;  // the slice's chunks
+  const int n_slices = d / width;
+  // launch order: slice fastest, then (kv head, batch), then the key tile,
+  // lowest keys (the most query tiles under causal) first
+  const int n_kv = gridDim.y;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + n_kv * blockIdx.z);
+  const int slice = lin % n_slices;
+  const int rest = lin / n_slices;
+  const int hb = rest % (n_kv * gridDim.z);
+  const int g = hb % n_kv;  // kv head
+  const int batch = hb / n_kv;
+  const int k0 = rest / (n_kv * gridDim.z) * BK;
+  const int heads = n_kv * n_rep;
+  const int64_t ldq = static_cast<int64_t>(heads) * d;
+  const int64_t ldk = static_cast<int64_t>(n_kv) * d;
+  const int64_t koff = static_cast<int64_t>(batch) * sk * ldk +
+                       static_cast<int64_t>(g) * d;
+  const int offset = sk - sq;
+  const float scale2 = scale * kLog2e;
+  // query tiles from the first whose rows reach key k0 under causal
+  const int first = causal ? max(k0 - offset, 0) / kF32Stream : 0;
+  const int nq = (sq + kF32Stream - 1) / kF32Stream - first;
+  const int tiles = n_rep * nq;  // (query head, query tile) pairs
+  const int total = tiles * n;
+  const auto unswizzled = [](int) { return 0; };
+
+  auto qoff_of = [&](int tt) {  // head g n_rep + tt / nq's first column
+    return static_cast<int64_t>(batch) * sq * ldq +
+           static_cast<int64_t>(g * n_rep + tt / nq) * d;
+  };
+  auto load_step = [&](int step) {
+    const int tt = step / n;
+    const int q0 = (first + tt % nq) * kF32Stream;
+    const int c = chunk_of(step - tt * n, slice, n, m) * kC;
+    const int64_t qo = qoff_of(tt) + c;
+    float* st = ring + (step % kDkvRing) * kStage;
+    load_rows_f32<kF32Stream>(st, q + qo, q0, sq, ldq, unswizzled);
+    load_rows_f32<kF32Stream>(st + kDoAt, dout + qo, q0, sq, ldq,
+                              unswizzled);
+    if constexpr (!kResident) {
+      load_rows_f32<BK>(st + kKAt, k + koff + c, k0, sk, ldk, unswizzled);
+      load_rows_f32<BK>(st + kVAt, v + koff + c, k0, sk, ldk, unswizzled);
+    }
+  };
+
+  if constexpr (kResident) {  // the block's K and V, a group of their own
+    for (int c = 0; c < n; ++c) {
+      load_rows_f32<BK>(sK + c * BK * kC, k + koff + c * kC, k0, sk, ldk,
+                        unswizzled);
+      load_rows_f32<BK>(sV + c * BK * kC, v + koff + c * kC, k0, sk, ldk,
+                        unswizzled);
+    }
+    cp_async_commit();
+  }
+  int loaded = 0;
+  for (; loaded < total && loaded < kDkvRing; ++loaded) {
+    load_step(loaded);
+    cp_async_commit();
+  }
+
+  // the score patch: keys 4 kq + i, rows qg + 8 jj, this lane's share dg
+  const int dg = threadIdx.x % S;
+  const int qg = threadIdx.x / S % 8;
+  const int kq = threadIdx.x / S / 8;
+  // the output: dV (threads 0-127) or dK, keys 4 ko + i, float4 column cg
+  // of each 128-column group
+  const int cg = threadIdx.x % 32;
+  const int ko = threadIdx.x / 32 % 4;
+  const bool is_dk = threadIdx.x >= kF32Threads / 2;
+  const float* wsrc = is_dk ? sD : sP;
+  const int xat = is_dk ? 0 : kDoAt;  // Q for dK, dO for dV
+  float acc[kGroups][4][4];
+#pragma unroll
+  for (int c = 0; c < kGroups; ++c) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) zero(acc[c][i]);
+  }
+
+  for (int tt = 0; tt < tiles; ++tt) {
+    const int q0 = (first + tt % nq) * kF32Stream;
+    const int64_t row_off =
+        (static_cast<int64_t>(batch) * heads + g * n_rep + tt / nq) * sq;
+    // this lane's rows' log2e-scaled lse and delta (0 past sq)
+    float lse2[kPer], dlt[kPer];
+#pragma unroll
+    for (int x = 0; x < kPer; ++x) {
+      const int row = q0 + qg + 8 * ((dg + S * x) % 4);
+      lse2[x] = row < sq ? lse[row_off + row] * kLog2e : 0.0f;
+      dlt[x] = row < sq ? delta[row_off + row] : 0.0f;
+    }
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      zero(s[i]);
+      zero(dp[i]);
+    }
+    for (int j = 0; j < n; ++j) {
+      const int step = tt * n + j;
+      ring_step<0, kDkvRing>(step, j, n, total, loaded, load_step, m);
+      const float* st = ring + (step % kDkvRing) * kStage;
+      const int c = chunk_of(j, slice, n, m);
+      const float* ka = kResident ? sK + c * BK * kC : st + kKAt;
+      const float* va = kResident ? sV + c * BK * kC : st + kVAt;
+      patch_dot<S>(ka + 4 * kq * kC, st + qg * kC, dg, 0, s);
+      patch_dot<S>(va + 4 * kq * kC, st + kDoAt + qg * kC, dg, 0, dp);
+    }
+    // the shares of the patch's S lanes, summed
+#pragma unroll
+    for (int mk = 1; mk < S; mk <<= 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          s[i][jj] += __shfl_xor_sync(0xffffffffu, s[i][jj], mk);
+          dp[i][jj] += __shfl_xor_sync(0xffffffffu, dp[i][jj], mk);
+        }
+      }
+    }
+    // a pair holding an entry no row may attend: a row past sq, a key past
+    // sk, or a key past the causal band of the tile's first row
+    const bool mask = q0 + kF32Stream > sq || k0 + BK > sk ||
+                      (causal && k0 + BK - 1 > q0 + offset);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      if (e % S != dg) continue;  // this lane's entries of the patch
+      const int x = e / S;
+      const int i = e / 4;
+      const int jj = e % 4;
+      const int row = qg + 8 * jj;
+      const int key = 4 * kq + i;
+      const bool ok =
+          !mask || attends(q0 + row, k0 + key, sq, sk, offset, causal);
+      const float p = ok ? exp2f(fmaf(s[i][jj], scale2, -lse2[x])) : 0.0f;
+      sP[row * BK + key] = p;
+      sD[row * BK + key] = ok ? p * (dp[i][jj] - dlt[x]) * scale : 0.0f;
+    }
+    __syncthreads();  // every lane's p and ds are in
+    // dV_slice += P^T.dO_slice, dK_slice += dS^T.Q_slice: the slice's
+    // chunks, still staged (steps n - m .. n - 1 of the tile)
+#pragma unroll
+    for (int c = 0; c < kGroups; ++c) {
+      if (2 * c >= m) break;
+      const float* xt =
+          ring + ((tt * n + n - m + 2 * c + cg / 16) % kDkvRing) * kStage +
+          xat;
+#pragma unroll 8
+      for (int r = 0; r < kF32Stream; ++r) {
+        const float4 y =
+            *reinterpret_cast<const float4*>(xt + r * kC + 4 * (cg % 16));
+        const float4 w =
+            *reinterpret_cast<const float4*>(wsrc + r * BK + 4 * ko);
+        const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[c][i][0] = fmaf(wv[i], y.x, acc[c][i][0]);
+          acc[c][i][1] = fmaf(wv[i], y.y, acc[c][i][1]);
+          acc[c][i][2] = fmaf(wv[i], y.z, acc[c][i][2]);
+          acc[c][i][3] = fmaf(wv[i], y.w, acc[c][i][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dst = is_dk ? dk : dv;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + 4 * ko + i;
+    if (key >= sk) continue;
+    float* row = dst + koff + static_cast<int64_t>(key) * ldk +
+                 slice * width + 4 * cg;
+#pragma unroll
+    for (int c = 0; c < kGroups; ++c) {
+      if (2 * c >= m) break;
+      *reinterpret_cast<float4*>(row + c * kW) =
+          make_float4(acc[c][i][0], acc[c][i][1], acc[c][i][2], acc[c][i][3]);
+    }
+  }
+}
+
 bool bad_layout(int batch, int heads, int n_rep, int d) {
   return d <= 0 || d % kW != 0 || n_rep <= 0 || heads % n_rep != 0 ||
          batch > 65535 || heads > 65535;
@@ -1481,66 +1864,136 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int fwd_entry(const void* q, const void* k, const void* v, void* out,
-              void* lse, int batch, int heads, int n_rep, int sq, int sk,
-              int d, float scale, int causal, void* stream) {
+int fwd_bf16_entry(const void* q, const void* k, const void* v, void* out,
+                   void* lse, int batch, int heads, int n_rep, int sq, int sk,
+                   int d, float scale, int causal, void* stream) {
   if (bad_layout(batch, heads, n_rep, d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if constexpr (std::is_same_v<T, bf16>) {  // Q resident up to 512 columns
-    return d <= kFwdResidentMaxD
-               ? launch_fwd_wgmma<true>(q, k, v, out, lse, batch, heads,
-                                        n_rep, sq, sk, d, scale, causal,
-                                        stream)
-               : launch_fwd_wgmma<false>(q, k, v, out, lse, batch, heads,
-                                         n_rep, sq, sk, d, scale, causal,
-                                         stream);
-  } else {  // float32: the SIMT kernel
-    const dim3 grid((sq + kRows - 1) / kRows * (d / kW), heads, batch);
-    flash_wide_fwd_kernel<T><<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out),
-        static_cast<float*>(lse), sq, sk, n_rep, d, scale, causal);
-    return static_cast<int>(cudaGetLastError());
-  }
+  // Q resident up to 512 columns
+  return d <= kFwdResidentMaxD
+             ? launch_fwd_wgmma<true>(q, k, v, out, lse, batch, heads, n_rep,
+                                      sq, sk, d, scale, causal, stream)
+             : launch_fwd_wgmma<false>(q, k, v, out, lse, batch, heads,
+                                       n_rep, sq, sk, d, scale, causal,
+                                       stream);
 }
 
-template <typename T>
-int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dk, void* dv,
-              int batch, int heads, int n_rep, int sq, int sk, int d,
-              float scale, int causal, void* stream) {
+template <int BQ, bool kResident>
+int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
+                   void* lse, int batch, int heads, int n_rep, int sq, int sk,
+                   int d, int width, float scale, int causal, void* stream) {
+  const int smem = fwd_f32_smem<BQ, kResident>(d);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wide_fwd_f32_kernel<BQ, kResident>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + BQ - 1) / BQ * (d / width), heads, batch);
+  flash_wide_fwd_f32_kernel<BQ, kResident><<<grid, kF32Threads, smem,
+                                             static_cast<cudaStream_t>(
+                                                 stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), sq, sk, n_rep, d, width, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 forward at query tile `tile` (32 or 16) with output slices
+// of `width` columns: the whole head, where the tile's rows of it fit
+// kF32Acc accumulators, or kW (flash_attention.py `wide_f32_fwd_plan`). Q
+// stays resident wherever the tile's rows of the whole head fit that
+// budget; it streams only in 16-row, kW-column blocks. Any other pair is
+// refused.
+int fwd_f32_entry(const void* q, const void* k, const void* v, void* out,
+                  void* lse, int batch, int heads, int n_rep, int sq, int sk,
+                  int d, float scale, int causal, int tile, int width,
+                  void* stream) {
+  const bool resident = tile * d <= kF32Acc;
+  if (bad_layout(batch, heads, n_rep, d) || (tile != 32 && tile != 16) ||
+      (width != d && width != kW) ||
+      (!resident && (tile != 16 || width != kW))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (tile == 32) {
+    return launch_fwd_f32<32, true>(q, k, v, out, lse, batch, heads, n_rep,
+                                    sq, sk, d, width, scale, causal, stream);
+  }
+  return resident ? launch_fwd_f32<16, true>(q, k, v, out, lse, batch, heads,
+                                             n_rep, sq, sk, d, width, scale,
+                                             causal, stream)
+                  : launch_fwd_f32<16, false>(q, k, v, out, lse, batch,
+                                              heads, n_rep, sq, sk, d, width,
+                                              scale, causal, stream);
+}
+
+int dkv_bf16_entry(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int batch, int heads, int n_rep,
+                   int sq, int sk, int d, float scale, int causal,
+                   void* stream) {
   if (bad_layout(batch, heads, n_rep, d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if constexpr (std::is_same_v<T, bf16>) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_wide_dkv_wgmma_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kWgmmaSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((sk + kWk - 1) / kWk * (d / kW), heads / n_rep, batch);
-    flash_wide_dkv_wgmma_kernel<<<grid, kThreads, kWgmmaSmem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, n_rep, d,
-        scale, causal);
-    return static_cast<int>(cudaGetLastError());
-  } else {  // float32: the SIMT kernel
-    const dim3 grid((sk + kRows - 1) / kRows * (d / kW), heads / n_rep,
-                    batch);
-    flash_wide_dkv_kernel<T><<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, n_rep, d, scale,
-        causal);
-    return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wide_dkv_wgmma_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kWgmmaSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sk + kWk - 1) / kWk * (d / kW), heads / n_rep, batch);
+  flash_wide_dkv_wgmma_kernel<<<grid, kThreads, kWgmmaSmem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, n_rep, d,
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kResident>
+int launch_dkv_f32(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int batch, int heads, int n_rep,
+                   int sq, int sk, int d, int width, float scale, int causal,
+                   void* stream) {
+  const int smem = dkv_f32_smem<kResident>(d);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wide_dkv_f32_kernel<kResident>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sk + kDkvKeys - 1) / kDkvKeys * (d / width),
+                  heads / n_rep, batch);
+  flash_wide_dkv_f32_kernel<kResident><<<grid, kF32Threads, smem,
+                                         static_cast<cudaStream_t>(
+                                             stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, n_rep, d,
+      width, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 dk/dv at key tile `tile` (kDkvKeys) with output slices of
+// `width` columns: the whole head up to kDkvF32MaxD, or kW
+// (flash_attention.py `wide_f32_dkv_plan`); K and V resident up to
+// kDkvF32MaxD. Any other pair is refused.
+int dkv_f32_entry(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, int batch, int heads, int n_rep,
+                  int sq, int sk, int d, float scale, int causal, int tile,
+                  int width, void* stream) {
+  const bool resident = d <= kDkvF32MaxD;
+  if (bad_layout(batch, heads, n_rep, d) || tile != kDkvKeys ||
+      (width != d && width != kW) || (width != kW && !resident)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  return resident
+             ? launch_dkv_f32<true>(q, k, v, dout, lse, delta, dk, dv, batch,
+                                    heads, n_rep, sq, sk, d, width, scale,
+                                    causal, stream)
+             : launch_dkv_f32<false>(q, k, v, dout, lse, delta, dk, dv,
+                                     batch, heads, n_rep, sq, sk, d, width,
+                                     scale, causal, stream);
 }
 
 template <int BQ>
@@ -1610,16 +2063,18 @@ int rt_flash_wide_fwd(const void* q, const void* k, const void* v,
                       void* out, void* lse, int batch, int heads, int n_rep,
                       int sq, int sk, int d, float scale, int causal,
                       void* stream) {
-  return fwd_entry<bf16>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, d,
-                         scale, causal, stream);
+  return fwd_bf16_entry(q, k, v, out, lse, batch, heads, n_rep, sq, sk, d,
+                        scale, causal, stream);
 }
 
+// The float32 forward also takes its query tile and slice width
+// (flash_attention.py `wide_f32_fwd_plan`).
 int rt_flash_wide_fwd_f32(const void* q, const void* k, const void* v,
                           void* out, void* lse, int batch, int heads,
                           int n_rep, int sq, int sk, int d, float scale,
-                          int causal, void* stream) {
-  return fwd_entry<float>(q, k, v, out, lse, batch, heads, n_rep, sq, sk, d,
-                          scale, causal, stream);
+                          int causal, int tile, int width, void* stream) {
+  return fwd_f32_entry(q, k, v, out, lse, batch, heads, n_rep, sq, sk, d,
+                       scale, causal, tile, width, stream);
 }
 
 // dO like q, lse/delta [batch, heads, sq] float32; dk/dv like k.
@@ -1628,18 +2083,20 @@ int rt_flash_wide_bwd_dkv(const void* q, const void* k, const void* v,
                           const void* delta, void* dk, void* dv, int batch,
                           int heads, int n_rep, int sq, int sk, int d,
                           float scale, int causal, void* stream) {
-  return dkv_entry<bf16>(q, k, v, dout, lse, delta, dk, dv, batch, heads,
-                         n_rep, sq, sk, d, scale, causal, stream);
+  return dkv_bf16_entry(q, k, v, dout, lse, delta, dk, dv, batch, heads,
+                        n_rep, sq, sk, d, scale, causal, stream);
 }
 
+// The float32 dk/dv also takes its key tile and slice width
+// (flash_attention.py `wide_f32_dkv_plan`).
 int rt_flash_wide_bwd_dkv_f32(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, void* dk, void* dv,
                               int batch, int heads, int n_rep, int sq,
                               int sk, int d, float scale, int causal,
-                              void* stream) {
-  return dkv_entry<float>(q, k, v, dout, lse, delta, dk, dv, batch, heads,
-                          n_rep, sq, sk, d, scale, causal, stream);
+                              int tile, int width, void* stream) {
+  return dkv_f32_entry(q, k, v, dout, lse, delta, dk, dv, batch, heads,
+                       n_rep, sq, sk, d, scale, causal, tile, width, stream);
 }
 
 // dq like q.

@@ -21,8 +21,9 @@ operands, all of one dtype (`KERNEL_DTYPES`; the reference computes in the
 input dtype), and any head_dim. Up to 256 they are instantiated at 32, 64,
 128 and 256 (`HEAD_DIMS`); above 256 the wide family (csrc/flash_wide.cu)
 takes the head in output slices of `WIDE_SLICE` columns (`WIDE_FWD_SLICE`
-in the bf16 forward, whose staging plan is `wide_fwd_plan`), recomputing
-the score over the whole width in each. The wrappers zero-pad any other
+in the bf16 forward, whose staging plan is `wide_fwd_plan`; the whole head
+in the float32 forward and dk/dv where it fits, below), recomputing the
+score over the whole width in each. The wrappers zero-pad any other
 head_dim to the next instantiated one, or to a multiple of `WIDE_SLICE`,
 before the launch and slice the outputs back (`kernel_head_dim`,
 `pad_heads`, `unpad_heads`; exact, since the scale is the caller's). Each
@@ -33,7 +34,10 @@ shape: the query tile of the forward and dq (`f32_fwd_tile`: 64 rows
 where those tiles alone make a wave of the card, else 16) and the key
 tile of dk/dv (`f32_dkv_tile`, the same rule over kv heads and keys); dq
 and dk/dv stream the other side in tiles of `F32_BWD_STREAM` rows. The
-wide float32 dq takes one too (`wide_f32_dq_tile`, slices counted).
+wide float32 dq takes one too (`wide_f32_dq_tile`, slices counted), and
+the wide float32 forward and dk/dv a tile and a slice width: the whole
+padded head where the tile's rows of it fit the registers, so S is
+computed once (`wide_f32_fwd_plan`, `wide_f32_dkv_plan`).
 `key_tiles`, `tile_needs_mask`, `query_tiles` and `bwd_tile_needs_mask`
 are the kernels' causal-band arithmetic, in Python for the tests. The
 plain PyTorch versions beside them run for tensors on the CPU; they
@@ -96,14 +100,18 @@ _SIGNATURES = {
                              _INT),
     "rt_flash_bwd_dq_f32": ([_P] * 7 + _LAYOUT + [_F, _INT, _INT, _P], _INT),
 }
-# The wide family: the bf16 entries' arguments, in both dtypes (no tile),
-# but the float32 dq's, which also takes its query tile (`wide_f32_dq_tile`).
+# The wide family: the bf16 entries' arguments, but the float32 ones also
+# take their plan: the dq its query tile (`wide_f32_dq_tile`), the forward
+# and dk/dv their tile and slice width (`wide_f32_fwd_plan`,
+# `wide_f32_dkv_plan`).
 _WIDE_SIGNATURES = {
-    **with_f32({
-        "rt_flash_wide_fwd": _SIGNATURES["rt_flash_fwd"],
-        "rt_flash_wide_bwd_dkv": _SIGNATURES["rt_flash_bwd_dkv"],
-        "rt_flash_wide_bwd_dq": _SIGNATURES["rt_flash_bwd_dq"],
-    }),
+    "rt_flash_wide_fwd": _SIGNATURES["rt_flash_fwd"],
+    "rt_flash_wide_bwd_dkv": _SIGNATURES["rt_flash_bwd_dkv"],
+    "rt_flash_wide_bwd_dq": _SIGNATURES["rt_flash_bwd_dq"],
+    "rt_flash_wide_fwd_f32": ([_P] * 5 + _LAYOUT + [_F, _INT, _INT, _INT, _P],
+                              _INT),
+    "rt_flash_wide_bwd_dkv_f32": (
+        [_P] * 8 + _LAYOUT + [_F, _INT, _INT, _INT, _P], _INT),
     "rt_flash_wide_bwd_dq_f32": _SIGNATURES["rt_flash_bwd_dq_f32"],
 }
 
@@ -123,6 +131,16 @@ F32_BWD_STREAM = 32
 WIDE_FWD_SLICE = 256
 WIDE_FWD_STAGES = 8
 WIDE_FWD_RESIDENT_MAX = 512
+# The wide float32 forward and dk/dv (csrc/flash_wide.cu, "float32
+# forward", "float32 dk/dv"): a block's output accumulators hold at most
+# WIDE_F32_ACC floats (64 a thread of 256), so a block owns the whole padded
+# head, and computes S once, where its tile's rows of it fit (and the
+# blocks make a wave), else slices of WIDE_SLICE columns. The forward's
+# query tile is one of WIDE_F32_FWD_TILES, dk/dv's key tile
+# WIDE_F32_DKV_TILE; both walk the other side in tiles of F32_BWD_STREAM.
+WIDE_F32_ACC = 16384
+WIDE_F32_FWD_TILES = (32, 16)
+WIDE_F32_DKV_TILE = 16
 
 
 def f32_fwd_tile(heads: int, sq: int) -> int:
@@ -164,6 +182,59 @@ def wide_fwd_plan(d: int) -> Tuple[bool, int, int]:
     smem = (WIDE_FWD_STAGES * stage + 64 * width * 2
             + (128 * d * 2 if resident else 0) + 1024)
     return resident, cdiv(d, width), smem
+
+
+def wide_f32_fwd_plan(heads: int, sq: int, d: int) -> Tuple[int, int]:
+    """The wide float32 forward's (query tile, slice width) over `heads`
+    query heads of sq rows at head_dim d (a multiple of WIDE_SLICE), as
+    csrc/flash_wide.cu's `fwd_f32_entry` takes it: the whole head at the
+    first tile of WIDE_F32_FWD_TILES whose rows of it fit WIDE_F32_ACC and
+    whose blocks make a wave of WAVE_BLOCKS; else WIDE_SLICE-column slices
+    of 16 rows (at chip_smoke phase 7e's float32 shapes, 0.79-0.88x the
+    time of 32-row slices and 0.64-0.85x that of the whole head: PERF.md
+    §6)."""
+    for tile in WIDE_F32_FWD_TILES:
+        if (tile * d <= WIDE_F32_ACC
+                and heads * cdiv(sq, tile) >= WAVE_BLOCKS):
+            return tile, d
+    return WIDE_F32_FWD_TILES[-1], WIDE_SLICE
+
+
+def wide_f32_dkv_plan(kv_heads: int, sk: int, d: int) -> Tuple[int, int]:
+    """The wide float32 dk/dv's (key tile, slice width) over `kv_heads` kv
+    heads of sk keys at head_dim d, as `dkv_f32_entry` takes it: the whole
+    head where dK's and dV's WIDE_F32_DKV_TILE rows of it fit WIDE_F32_ACC
+    together and the blocks make a wave, else WIDE_SLICE-column slices."""
+    tile = WIDE_F32_DKV_TILE
+    if (2 * tile * d <= WIDE_F32_ACC
+            and kv_heads * cdiv(sk, tile) >= WAVE_BLOCKS):
+        return tile, d
+    return tile, WIDE_SLICE
+
+
+def wide_f32_smem(kernel: str, tile: int, d: int) -> int:
+    """The dynamic shared memory of a block of the wide float32 "fwd"
+    (query tile `tile`) or "dkv" at head_dim d, in bytes, as
+    csrc/flash_wide.cu's `fwd_f32_smem` and `dkv_f32_smem` count it. The
+    forward: a ring of 9 stages of a K (V) pair of 64-column chunks [2][32]
+    [64] where Q stays resident (tile x d, where it fits WIDE_F32_ACC), else
+    6 stages with Q's pair [2][tile][64] beside it; the p buffer [32][tile +
+    4] and the rows' alpha and l. dk/dv: 9 stages of a Q and a dO chunk
+    [32][64], with K's and V's [16][64] where they do not stay resident (16
+    x d each, up to d 512); the p and ds buffers [32][16]."""
+    if kernel == "fwd":
+        resident = tile * d <= WIDE_F32_ACC
+        if not resident and tile != 16:
+            raise ValueError(f"the wide float32 forward streams Q only at "
+                             f"16 rows, not {tile} at head_dim {d}")
+        stage = 4 * 2 * 64 * (F32_BWD_STREAM + (0 if resident else tile))
+        return ((9 if resident else 6) * stage
+                + (4 * tile * d if resident else 0)
+                + 4 * (F32_BWD_STREAM * (tile + 4) + 2 * tile))
+    resident = 2 * tile * d <= WIDE_F32_ACC
+    stage = 4 * 64 * (2 * F32_BWD_STREAM + (0 if resident else 2 * tile))
+    return (9 * stage + (4 * 2 * tile * d if resident else 0)
+            + 4 * 2 * F32_BWD_STREAM * tile)
 
 
 def f32_dkv_tile(kv_heads: int, sk: int) -> int:
@@ -455,8 +526,10 @@ def _launch_fwd(q, k, v, lse, layout, scale, causal, what) -> torch.Tensor:
     out = torch.empty_like(q)
     lib, fn, wide = _kernel_entry("rt_flash_fwd", layout, q.dtype)
     b, heads, _, sq = layout[:4]
-    tile = ((f32_fwd_tile(b * heads, sq),)
-            if q.dtype == torch.float32 and not wide else ())
+    tile = ()
+    if q.dtype == torch.float32:
+        tile = (wide_f32_fwd_plan(b * heads, sq, layout[5]) if wide
+                else (f32_fwd_tile(b * heads, sq),))
     check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *layout, float(scale), int(causal), *tile,
@@ -470,8 +543,10 @@ def _launch_dkv(q, k, v, do, lse, delta, layout, scale, causal, what):
     dv = torch.empty_like(v)
     lib, fn, wide = _kernel_entry("rt_flash_bwd_dkv", layout, q.dtype)
     b, heads, n_rep, _, sk = layout[:5]
-    tile = ((f32_dkv_tile(b * heads // n_rep, sk),)
-            if q.dtype == torch.float32 and not wide else ())
+    tile = ()
+    if q.dtype == torch.float32:
+        tile = (wide_f32_dkv_plan(b * heads // n_rep, sk, layout[5]) if wide
+                else (f32_dkv_tile(b * heads // n_rep, sk),))
     check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),

@@ -1420,11 +1420,13 @@ def test_wide_f32_dq_ragged_gqa_and_deterministic(no_tf32, d, packed,
 
 @pytest.mark.parametrize("d", [128, 256, 384, 640, 768])
 def test_wide_entries_take_every_multiple_of_128(no_tf32, d):
-    """The bf16 forward's and float32 dq's C entries of the wide family at
-    head widths the wrappers never send them (128, 256: a head of 2 or 4
-    chunks, shorter than the forward's ring) and at 384, 640 and 768 (its
-    two staging plans), causal, b·h 2 x s 150 against the plain versions:
-    bf16 within 1e-2 of the plain max, lse 2e-5, float32 1e-4."""
+    """The bf16 forward's and the float32 dq's, forward's and dk/dv's C
+    entries of the wide family at head widths the wrappers never send them
+    (128, 256: a head of 2 or 4 chunks, shorter than the forward's ring)
+    and at 384, 640 and 768 (the bf16 forward's two staging plans; the
+    float32 forward's and dk/dv's whole head and 128-column slices), causal,
+    b·h 2 x s 150 against the plain versions: bf16 within 1e-2 of the
+    plain max, lse 2e-5, float32 1e-4."""
     bh, s = 2, 150
     scale = d ** -0.5
     stream = torch.cuda.current_stream().cuda_stream
@@ -1452,6 +1454,53 @@ def test_wide_entries_take_every_multiple_of_128(no_tf32, d):
     torch.cuda.synchronize()
     want = fa.flash_bwd_dq_plain(q, k, v, do, p_lse, delta, scale, True)
     assert _rel_err(dq, want) < 1e-4
+    # the float32 forward and dk/dv at their plans
+    got = _wide_f32_entries(q, k, v, do, layout, scale, True,
+                            fa.wide_f32_fwd_plan(bh, s, d),
+                            fa.wide_f32_dkv_plan(bh, s, d))
+    want = (p_out, p_lse,
+            *fa.flash_bwd_dkv_plain(q, k, v, do, p_lse, delta, scale, True))
+    _assert_f32(got, want)
+
+
+def _wide_f32_entries(q, k, v, do, layout, scale, causal, fwd_plan,
+                      dkv_plan):
+    """(out, lse, dk, dv) of the float32 forward's and dk/dv's C entries of
+    the wide family at the plans given, on the plain forward's lse and
+    Δ."""
+    b, heads, n_rep, sq = layout[:4]
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty_like(q)
+    lse = torch.empty((b, heads, sq), device=q.device)
+    lib, fn = fa._wide_entry("rt_flash_fwd", torch.float32)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              lse.data_ptr(), *layout, scale, int(causal), *fwd_plan,
+              stream)
+    assert code == 0, lib.rt_error_string(code)
+    if heads == 1:
+        p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale, causal)
+        delta = fa.flash_delta(p_out, do)
+    else:
+        p_out, p_lse = fa.flash_fwd_packed_plain(q, k, v, heads,
+                                                 heads // n_rep, scale,
+                                                 causal)
+        delta = fa.flash_delta_packed(p_out, do, heads)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib, fn = fa._wide_entry("rt_flash_bwd_dkv", torch.float32)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              p_lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+              dv.data_ptr(), *layout, scale, int(causal), *dkv_plan, stream)
+    assert code == 0, lib.rt_error_string(code)
+    torch.cuda.synchronize()
+    return out, lse.view(p_lse.shape), dk, dv
+
+
+def _assert_f32(got, want):
+    """(out, lse, dk, dv) of the float32 kernels against the plain
+    versions': within 1e-4 of the plain max, lse within 2e-5 of its max."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape
+        assert _rel_err(g, w) < (STAT_TOL if i == 1 else 1e-4), i
 
 
 @pytest.mark.parametrize("tile", fa.F32_FWD_TILES)
@@ -1476,6 +1525,176 @@ def test_wide_f32_dq_at_each_tile(no_tf32, d, tile):
     assert code == 0, lib.rt_error_string(code)
     torch.cuda.synchronize()
     assert _rel_err(dq, want) < 1e-4
+
+
+# (d, the forward's (tile, width), dk/dv's): every pair the two plans can
+# return (the whole head at 32 rows up to 512 columns and at 16 up to 1024
+# with Q resident, 16-row 128-column slices with Q resident or streamed;
+# dk/dv's whole head up to 512 with K and V resident, 128-column slices with
+# them resident or streamed), each kernel's widest whole head among them,
+# and the 32-row 128-column slices the forward's entry also takes where Q
+# stays resident
+WIDE_F32_PLANS = [(384, (32, 384), (16, 384)), (512, (32, 512), (16, 512)),
+                  (512, (16, 512), (16, 128)), (1024, (16, 1024), (16, 128)),
+                  (384, (32, 128), (16, 128)), (640, (16, 640), (16, 128)),
+                  (1152, (16, 128), (16, 128)), (384, (16, 128), (16, 384))]
+
+
+@pytest.mark.parametrize("d,fwd_plan,dkv_plan", WIDE_F32_PLANS)
+def test_wide_f32_fwd_and_dkv_at_each_plan(no_tf32, d, fwd_plan, dkv_plan):
+    """The float32 forward's and dk/dv's C entries of the wide family at
+    each (tile, width) pair their plans can take, causal, b·h 3 x s 150
+    (ragged tiles), within 1e-4 of the plain max (lse 2e-5)."""
+    bh, s = 3, 150
+    q, k, v, do = (_randn((bh, s, d), no_tf32, torch.float32, i)
+                   for i in range(4))
+    scale = d ** -0.5
+    got = _wide_f32_entries(q, k, v, do, (bh, 1, 1, s, s, d), scale, True,
+                            fwd_plan, dkv_plan)
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale, True)
+    delta = fa.flash_delta(p_out, do)
+    _assert_f32(got, (p_out, p_lse, *fa.flash_bwd_dkv_plain(
+        q, k, v, do, p_lse, delta, scale, True)))
+
+
+@pytest.mark.parametrize("d,fwd_plan,dkv_plan", [
+    (384, (64, 384), (32, 384)), (640, (32, 640), (16, 640)),
+    (384, (32, 256), (16, 256)), (1152, (16, 1152), (16, 1152)),
+    (640, (32, 128), (16, 640))])
+def test_wide_f32_entries_refuse_pairs_without_an_instantiation(
+        no_tf32, d, fwd_plan, dkv_plan):
+    """A tile the kernels have no instantiation for, a width neither the
+    head nor 128, the whole head where its tile's rows do not fit the
+    registers, or the forward's 32 rows where Q would stream: the C
+    entries return cudaErrorInvalidValue and launch nothing."""
+    bh, s = 1, 64
+    q, k, v, do = (_randn((bh, s, d), no_tf32, torch.float32, i)
+                   for i in range(4))
+    stream = torch.cuda.current_stream().cuda_stream
+    layout = (bh, 1, 1, s, s, d)
+    out, lse = torch.empty_like(q), torch.empty((bh, s), device=no_tf32)
+    lib, fn = fa._wide_entry("rt_flash_fwd", torch.float32)
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              lse.data_ptr(), *layout, 1.0, 1, *fwd_plan, stream) == 1
+    lib, fn = fa._wide_entry("rt_flash_bwd_dkv", torch.float32)
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), lse.data_ptr(), out.data_ptr(),
+              out.data_ptr(), *layout, 1.0, 1, *dkv_plan, stream) == 1
+
+
+def _wide_f32_fwd_dkv(q, k, v, do, d, heads, causal):
+    """(the float32 wide forward's out and lse and dk/dv's dk and dv (on
+    the plain forward's lse and Δ); the plain versions'; a function that
+    calls both kernels again), each launch counted in `.wide_launches` and
+    `.f32_launches`; heads as `_wide_backward`."""
+    scale = d ** -0.5
+    if heads is None:
+        args = (scale, causal)
+        fwd, fwd_plain = fa.flash_fwd, fa.flash_fwd_plain
+        p_out, p_lse = fwd_plain(q, k, v, *args)
+        delta = fa.flash_delta(p_out, do)
+        dkv, dkv_plain = fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain
+    else:
+        args = (*heads, scale, causal)
+        fwd, fwd_plain = fa.flash_fwd_packed, fa.flash_fwd_packed_plain
+        p_out, p_lse = fwd_plain(q, k, v, *args)
+        delta = fa.flash_delta_packed(p_out, do, heads[0])
+        dkv = fa.flash_bwd_dkv_packed
+        dkv_plain = fa.flash_bwd_dkv_packed_plain
+    bwd = (q, k, v, do, p_lse, delta, *args)
+
+    def kernel():
+        before = [(f.wide_launches, f.f32_launches) for f in (fwd, dkv)]
+        got = (*fwd(q, k, v, *args), *dkv(*bwd))
+        torch.cuda.synchronize()
+        assert [(f.wide_launches, f.f32_launches) for f in (fwd, dkv)] == [
+            (w + 1, n + 1) for w, n in before]
+        return got
+
+    return kernel(), (p_out, p_lse, *dkv_plain(*bwd)), kernel
+
+
+@pytest.mark.parametrize("sq,sk", [(200, 64), (64, 200)])
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_f32_forward_where_sq_and_sk_differ(no_tf32, d, sq, sk):
+    """The register-tiled float32 forward of the wide family, causal
+    (end-aligned) with sq > sk, where rows 0..sq-sk-1 see no key and give
+    out exactly 0 and lse -1e30, and with sq < sk; within 1e-4 of the plain
+    max, lse within 2e-5, on [b·h, s, d]."""
+    bh = 2
+    q, do = (_randn((bh, sq, d), no_tf32, torch.float32, i) for i in (0, 3))
+    k, v = (_randn((bh, sk, d), no_tf32, torch.float32, i) for i in (1, 2))
+    got, want, _ = _wide_f32_fwd_dkv(q, k, v, do, d, None, True)
+    _assert_f32(got[:2], want[:2])
+    if sq > sk:
+        assert bool((got[0][:, :sq - sk] == 0).all())
+        assert bool((got[1][:, :sq - sk] == -1e30).all())
+        assert bool((got[0][:, sq - sk:] != 0).any())
+
+
+@pytest.mark.parametrize("sq,sk", [(200, 64), (64, 200)])
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_f32_dkv_where_sq_and_sk_differ(no_tf32, d, sq, sk):
+    """The register-tiled float32 dk/dv of the wide family, causal
+    (end-aligned) with sq > sk, where rows 0..sq-sk-1 see no key and add
+    nothing (their dO and Q scaled by -3 change no bit of dk and dv), and
+    with sq < sk; within 1e-4 of the plain max, on [b·h, s, d]."""
+    bh = 2
+    q, do = (_randn((bh, sq, d), no_tf32, torch.float32, i) for i in (0, 3))
+    k, v = (_randn((bh, sk, d), no_tf32, torch.float32, i) for i in (1, 2))
+    got, want, _ = _wide_f32_fwd_dkv(q, k, v, do, d, None, True)
+    _assert_f32(got[2:], want[2:])
+    if sq > sk:
+        p_lse, delta = want[1], fa.flash_delta(want[0], do)
+        q2, do2 = q.clone(), do.clone()
+        q2[:, :sq - sk] *= -3
+        do2[:, :sq - sk] *= -3
+        again = fa.flash_bwd_dkv(q2, k, v, do2, p_lse, delta, d ** -0.5,
+                                 True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, g) for a, g in zip(again, got[2:]))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("packed", [False, True], ids=["flat", "packed"])
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_f32_forward_ragged_gqa_and_deterministic(no_tf32, d, packed,
+                                                       causal):
+    """The register-tiled float32 forward of the wide family at s 200
+    (ragged query and key tiles) with GQA 4 query heads over 1 kv head,
+    packed (by index) and on [b·h, s, d] (K/V repeated): within 1e-4 of
+    the plain max (lse 2e-5), and a second call gives the same bits."""
+    got, want, again = _wide_f32_gqa(no_tf32, d, packed, causal)
+    _assert_f32(got[:2], want[:2])
+    assert all(torch.equal(g, g2) for g, g2 in zip(got[:2], again()[:2]))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("packed", [False, True], ids=["flat", "packed"])
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_f32_dkv_ragged_gqa_and_deterministic(no_tf32, d, packed,
+                                                   causal):
+    """The register-tiled float32 dk/dv of the wide family at s 200 with
+    GQA 4/1, packed (the 4 query heads of the kv head summed in registers)
+    and on [b·h, s, d]: within 1e-4 of the plain max, and a second call
+    gives the same bits."""
+    got, want, again = _wide_f32_gqa(no_tf32, d, packed, causal)
+    _assert_f32(got[2:], want[2:])
+    assert all(torch.equal(g, g2) for g, g2 in zip(got[2:], again()[2:]))
+
+
+def _wide_f32_gqa(cuda, d, packed, causal):
+    b, h, kv, s = 1, 4, 1, 200
+    q, do = (_randn((b, s, h * d), cuda, torch.float32, i) for i in (0, 3))
+    k, v = (_randn((b, s, kv * d), cuda, torch.float32, i) for i in (1, 2))
+    if not packed:
+        def flat(t, n):
+            return _heads(t, n).repeat_interleave(h // n, 1).reshape(
+                b * h, s, d).contiguous()
+
+        q, do, k, v = flat(q, h), flat(do, h), flat(k, kv), flat(v, kv)
+    return _wide_f32_fwd_dkv(q, k, v, do, d, (h, kv) if packed else None,
+                             causal)
 
 
 # --------------------------- rows that see no key; the wgmma K3 and K2
