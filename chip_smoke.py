@@ -228,6 +228,14 @@ Phases (any failure exits non-zero and prints no result line):
      Mixtral-8x7B-width config, 3 steps under each optimizer, losses, grad
      norms, moe_aux and final params bit-identical to the unsharded MoE
      step, the same launches a step;
+ 15d. the pipeline code (parallel/pipeline.py: the GPipe ticks, the
+     hand-offs, the mirror backward) at pp = 1 on a one-rank NCCL mesh,
+     phase 8's width, seed and batch on the `_layer` path (the fused
+     blocks off, remat "dots"), 3 default steps: at n_micro 1 losses, grad
+     norms and final params bit-identical to the sharded step on that
+     config, at n_micro 2 within multichip (a)'s bounds of it; the flash
+     forward at 2·L·n_micro launches a step and each backward at
+     L·n_micro, K3 never (the stage runs `_layer`);
  16. print the kernels line (the float32 kernels as `<name>_f32`, the
      wide family as `<name>_wide`), the nvidia-smi line, and the result
      line.
@@ -3448,6 +3456,99 @@ def tp_sp_world_one(torch, card: str, seed: int, cfg):
     return by_path
 
 
+def pp_world_one(torch, card: str, seed: int, cfg):
+    """Phase 15d: the pipeline code (parallel/pipeline.py) on a one-rank
+    NCCL mesh, phase 8's width, seed and batch on the `_layer` path (the
+    fused blocks off, remat "dots"), 3 default steps: at n_micro 1
+    bit-identical to the sharded step on that config (losses, grad norms,
+    final params), at n_micro 2 within multichip (a)'s bounds of it
+    (step-1 loss 1e-4, grad norm 1%, losses 2-3 1e-3); the flash forward
+    at 2·L·n_micro launches a step, each backward L·n_micro, K3 none.
+    Returns {kernel: {path: launches over the 3 pipeline steps}}."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models.transformer import tree_leaves
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+    from ray_tpu_torch.parallel import (MeshConfig, initialize_group,
+                                        make_mesh, shutdown_group)
+    from ray_tpu_torch.parallel.pipeline import make_pp_train_step
+    from ray_tpu_torch.train import (default_optimizer, make_train_step,
+                                     to_local)
+
+    t0 = time.perf_counter()
+    L, steps = cfg.n_layers, 3
+    plain = dataclasses.replace(cfg, fused_ffn=False, fused_attn=False,
+                                remat="dots", loss_chunk=0)
+    kernels = (*fa.KERNELS, ff.dw_gateup)
+    batch = bench.make_batch(plain, TRAIN_BATCH, TRAIN_SEQ, seed + 1, "cuda")
+    by_path = {k.__name__: {} for k in kernels}
+    initialize_group(0, 1, device="cuda")
+    try:
+        mesh = make_mesh(MeshConfig())
+        if dist.get_backend() != "nccl":
+            fail(f"the mesh's collectives run on {dist.get_backend()}")
+        runs = {}
+        for label, n_micro in (("sharded", None), ("pipeline n_micro 1", 1),
+                               ("pipeline n_micro 2", 2)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            opt = default_optimizer(warmup_steps=2)
+            if n_micro is None:
+                step_fn, init_fn = make_train_step(plain, opt, device="cuda",
+                                                   mesh=mesh)
+            else:
+                step_fn, init_fn, _ = make_pp_train_step(plain, mesh, opt,
+                                                         n_micro, "cuda")
+            state = init_fn(seed)
+            metrics, launches = [], []
+            for _ in range(steps):
+                for k in kernels:  # the main path's counts start here
+                    k.launches = 0
+                state, met = step_fn(state, batch)
+                metrics.append((float(met["loss"]), float(met["grad_norm"])))
+                launches.append({k.__name__: k.launches for k in kernels})
+            final = [t.cpu() for t in tree_leaves(to_local(state.params))]
+            runs[label] = (metrics, launches, final)
+            log(f"pipeline world 1, {label} [{card}]: losses and grad norms "
+                f"{metrics}; launches a step {launches[0]}")
+            want = {"flash_fwd": 2 * L * (n_micro or 1),
+                    "flash_bwd_dkv": L * (n_micro or 1),
+                    "flash_bwd_dq": L * (n_micro or 1), "dw_gateup": 0}
+            if any(x != want for x in launches):
+                fail(f"pipeline world 1, {label}: launches {launches}; "
+                     f"expected {want} a step")
+            if n_micro is not None:
+                for k in kernels:
+                    by_path[k.__name__][f"pipeline world 1, n_micro "
+                                        f"{n_micro}"] = sum(
+                        x[k.__name__] for x in launches)
+            del state, step_fn, init_fn, met
+        (m0, _, p0), (m1, _, p1), (m2, _, _) = runs.values()
+        same = sum(torch.equal(a, b) for a, b in zip(p0, p1, strict=True))
+        log(f"pipeline world 1: n_micro 1 bit-identical to the sharded step "
+            f"on {same} of {len(p0)} leaves")
+        if m1 != m0 or same != len(p0):
+            fail("the pipeline at n_micro 1 differs from the sharded step")
+        errs = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(m2, m0)]
+        norm_err = abs(m2[0][1] - m0[0][1]) / abs(m0[0][1])
+        log(f"pipeline world 1: n_micro 2 against the sharded step, loss "
+            f"rel errs {errs}, step-1 grad norm rel err {norm_err} (limits "
+            f"1e-4, 1e-2, 1e-3)")
+        if (errs[0] > 1e-4 or norm_err > GRAD_NORM_RTOL
+                or max(errs[1:]) > 1e-3):
+            fail("the pipeline at n_micro 2 outside (a)'s bounds of the "
+                 "sharded step")
+        del runs, p0, p1
+    finally:
+        shutdown_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"pipeline world 1: phase {time.perf_counter() - t0:.2f} s")
+    return by_path
+
+
 def plan_phase(torch, card: str, seed: int, cfg, default_run) -> None:
     """Phase 14: print eightb_plan(); `_budget` at the 8-layer config on one
     card against the live state of phase 8 (params, grads, optimizer, byte
@@ -3714,6 +3815,10 @@ def main() -> int:
         sharded_launches.setdefault(kname, {}).update(paths)
     # ---- phase 15c: the expert-parallel code on a one-rank NCCL mesh
     for kname, paths in ep_world_one(torch, card, args.seed).items():
+        sharded_launches.setdefault(kname, {}).update(paths)
+    # ---- phase 15d: the pipeline code on a one-rank NCCL mesh
+    for kname, paths in pp_world_one(torch, card, args.seed,
+                                     train_cfg).items():
         sharded_launches.setdefault(kname, {}).update(paths)
 
     # ---- phase 16: report

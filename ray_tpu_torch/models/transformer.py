@@ -421,6 +421,31 @@ def maybe_remat(layer_fn, cfg: ModelConfig, region: str = "layer"):
     return layer_fn
 
 
+def embed_tokens(params: Dict[str, Any], tokens: torch.Tensor,
+                 cfg: ModelConfig, par: Parallel = SINGLE) -> torch.Tensor:
+    """tokens [b, s] -> their embedding rows [b, s, d] in cfg.dtype (under
+    tp from this rank's vocab block, `vocab_embed`)."""
+    emb = par.gather("embed", params["embed"])
+    if par.tp_group is not None:
+        return vocab_embed(emb, tokens, cfg.dtype, par.tp_group, par.tp_rank)
+    return _embed_lookup(emb, tokens, cfg.dtype)
+
+
+def gathered_layers(layers: Dict[str, Any], par: Parallel = SINGLE):
+    """The stacked leaves' layers in order, each leaf passed through
+    `par.gather` as its layer comes up (one layer whole at a time)."""
+    for lp in _unstack(layers):
+        yield {k: par.gather("layers/" + k, v) for k, v in lp.items()}
+
+
+def head_logits(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+                par: Parallel = SINGLE) -> torch.Tensor:
+    """Final features [..., d] -> float32 logits [..., vocab] (under tp this
+    rank's [..., vocab/tp] block)."""
+    x = copy_to_tp(x, par.tp_group)
+    return (x @ lm_head_weights(params, cfg, par.gather)).float()
+
+
 def forward_features_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
                               cfg: ModelConfig,
                               positions: Optional[torch.Tensor] = None,
@@ -438,10 +463,7 @@ def forward_features_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
     if positions is None:
         s = tokens.shape[1]
         positions = torch.arange(s, device=tokens.device) + par.sp_rank * s
-    emb = par.gather("embed", params["embed"])
-    x = (vocab_embed(emb, tokens, cfg.dtype, par.tp_group, par.tp_rank)
-         if par.tp_group is not None
-         else _embed_lookup(emb, tokens, cfg.dtype))  # [b, s, d]
+    x = embed_tokens(params, tokens, cfg, par)  # [b, s, d]
     cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos[None], sin[None]  # add batch dim
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -450,10 +472,6 @@ def forward_features_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
         raise ValueError("fused_attn requires fused_ffn")
     if cfg.fused_ffn and (cfg.n_experts > 0 or scheme):
         raise ValueError("fused_ffn supports the dense, non-sp path only")
-
-    def layers():  # one layer gathered at a time
-        for lp in _unstack(params["layers"]):
-            yield {k: par.gather("layers/" + k, v) for k, v in lp.items()}
 
     if cfg.fused_ffn:
         if cfg.fused_attn:
@@ -466,13 +484,13 @@ def forward_features_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
         else:
             attn_fn = maybe_remat(functools.partial(_attn_half, cfg, par),
                                   cfg, "attn")
-        for lp in layers():
+        for lp in gathered_layers(params["layers"], par):
             x = attn_fn(x, lp, cos, sin)
             x = ffn_block(x, lp["mlp_norm"], lp["w_gate"], lp["w_up"],
                           lp["w_down"], cfg.norm_eps, tp_group=par.tp_group)
     else:
         layer_fn = maybe_remat(functools.partial(_layer, cfg, par), cfg)
-        for lp in layers():
+        for lp in gathered_layers(params["layers"], par):
             x, layer_aux = layer_fn(x, lp, cos, sin)
             aux = aux + layer_aux
     x = rms_norm(x, par.gather("final_norm", params["final_norm"]),
@@ -487,8 +505,7 @@ def forward_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
     """tokens [b, s] -> (logits [b, s, vocab] float32, moe_aux scalar);
     under tp this rank's [b, s, vocab/tp] block of the logits."""
     x, aux = forward_features_with_aux(params, tokens, cfg, positions, par)
-    x = copy_to_tp(x, par.tp_group)
-    return (x @ lm_head_weights(params, cfg, par.gather)).float(), aux
+    return head_logits(params, x, cfg, par), aux
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,

@@ -1,5 +1,5 @@
-"""The sharded training step on several cards: the dp/fsdp/tp/sp part of
-the reference's `dryrun_multichip` (__graft_entry__.py:45-149), run on
+"""The sharded training step on several cards: the dp/fsdp/tp/sp/pp part
+of the reference's `dryrun_multichip` (__graft_entry__.py:45-174), run on
 real cards at Llama-3-8B widths instead of jitted on a virtual mesh.
 
     python -m ray_tpu_torch.multichip --chips 4
@@ -24,10 +24,13 @@ asked), each joining NCCL through `parallel.initialize_group`, and runs:
     the plan's projection.
 (c) reshard: the 8-layer state after 2 steps at fsdp=chips saved
     (`save_checkpoint`, every rank its blocks) and restored onto
-    dp 2 x fsdp chips/2 and onto fsdp 2 x tp chips/2: every leaf bit for
+    dp 2 x fsdp chips/2, onto fsdp 2 x tp chips/2 and onto the pipeline at
+    pp 2 x tp chips/2 (its rules: the layers over pp): every leaf bit for
     bit, on the target mesh; the next step's loss within 1e-6 relative of
     continuing at fsdp=chips (within (a)'s 1e-4 under tp, whose bf16
-    partial sums add in another order).
+    partial sums add in another order, and on the pipeline, whose next
+    step, n_micro 2, is held against the `_layer` path it runs, continued
+    at fsdp=chips from the same checkpoint).
 (d) collectives: `all_gather_into_tensor` and `reduce_scatter_tensor` over
     the fsdp group at the 8B layer shards' sizes, ms a call and GB/s
     (algorithm: the full tensor's bytes over the time; bus: times
@@ -84,6 +87,34 @@ asked), each joining NCCL through `parallel.initialize_group`, and runs:
     45 GiB, 16 layers are tried under `default_optimizer` (4 steps) when
     the 8-layer peak plus its state predicts them below 72 GiB; what was
     predicted, and what ran, is reported either way.
+(j) pp parity (four cards): the pipeline (`parallel/pipeline.py`) on
+    `bench.train_config_8b()` (8 layers) with the fused blocks off (the
+    stage runs `_layer`), remat "dots", whole logits, 4 x 2048, 4 steps:
+    pp 2 x tp 2 at n_micro 4 (the dryrun's layout) under each optimizer,
+    pp 4 at n_micro 4 and dp 2 x pp 2 at n_micro 2 under
+    `default_optimizer`, each against one card under the same optimizer
+    within (a)'s bounds; each stage's launches a step exactly 2·L/pp·n_micro
+    flash forwards (the recompute reruns them), L/pp·n_micro of each
+    backward, K1-K3 none, AdamW once a local leaf (12) under fused AdamW,
+    and one (dp, fsdp, tp) coordinate's stages one card's flash launches
+    n_micro times over. Then the bubble sweep (timing only): pp 4, one row
+    of 2048 a microbatch, n_micro 1, 2, 4, 8 rows a step, the step without
+    its optimizer update: ms/step (steps 2-4), ms a row, the overhead as
+    the reference's `perf_multichip` measures it beside the model (n_micro
+    + pp - 1) / n_micro (__graft_entry__.py:313-345), each stage's P2P
+    (NCCL SendRecv) and busy shares of a profiled step and its host's ms
+    to issue a step (every phase logs these, `host_ms`). Then the dryrun's
+    pp step (__graft_entry__.py:150-174): `tiny`, pp 2 x tp 2, n_micro 2,
+    one step of `default_optimizer(1e-3)`, a finite loss.
+(k) pp full depth (four cards): `ModelConfig.llama3_8b()` at 32 layers on
+    pp 2 x tp 2, (g)'s 4 rows of 4096 a step, n_micro 4, remat "dots", 6
+    steps under `default_optimizer`, then 6 under fused AdamW: finite
+    losses, the last below the first; ms/step (steps 3-6), tokens/s a
+    card, MFU, each stage's peak GiB, the NCCL ms/step by operation of 2
+    profiled steps (the hand-offs' SendRecv apart from tp's AllReduce),
+    and each stage's P2P share of a step without its update, with its
+    host's ms to issue that step, beside the model's bubble (pp - 1) /
+    (n_micro + pp - 1) = 1/5.
 
 Rank 0 prints each phase's numbers and writes them all as JSON (--json).
 Every check raises, so a failing rank ends the run with a non-zero exit;
@@ -92,7 +123,9 @@ CPU ranks at `tiny` widths (with 4 KV heads in (e)-(f), so tp 4 and
 Ulysses at sp 4 split them): a rehearsal of the control flow, no device
 measurement. The --cpu rehearsal of (e) adds the dryrun's 8B-widths step
 (2 layers, vocab 4096, 64 positions, float32, remat dots, fsdp 2 x tp 2,
-one step, a finite loss), and of (f) its ring step at tp 2 x sp 2.
+one step, a finite loss), and of (f) its ring step at tp 2 x sp 2; (j)
+and (k) there run `tiny` with 4 layers, and the profiles and launch
+counts are the card's only.
 """
 
 from __future__ import annotations
@@ -118,10 +151,11 @@ from ray_tpu_torch.ops.kernels._util import require_cuda
 
 REPO = Path(__file__).resolve().parents[1]
 PHASES = ("parity", "full_depth", "reshard", "collectives", "tp_parity",
-          "sp_parity", "tp_full_depth", "ep_parity", "ep_depth")
+          "sp_parity", "tp_full_depth", "ep_parity", "ep_depth", "pp_parity",
+          "pp_full_depth")
 # the phases that lay out four ranks as fsdp 2 x tp 2, tp 2 x sp 2, ...
 FOUR_RANK_PHASES = ("tp_parity", "sp_parity", "tp_full_depth", "ep_parity",
-                    "ep_depth")
+                    "ep_depth", "pp_parity", "pp_full_depth")
 # Parity of the sharded steps with the unsharded one: the same forward
 # (step 1), gradients summed in another order (step-1 norm), then Adam's
 # divide by each gradient's running magnitude (losses 2-4).
@@ -253,8 +287,11 @@ def _kernels():
 
 
 def _steps(r: Rank, step_fn, state, batch, n: int, routes=None):
-    """n steps: each one's loss, grad norm, host ms (ending in a sync) and
-    kernel launches; with `routes` (a `_Routes`), each step's routing."""
+    """n steps: each one's loss, grad norm, host ms (ending in a sync), the
+    host's ms to issue it (the call's return: the whole step where the
+    host holds the device, or the step waits for the device inside, as
+    `default_optimizer`'s clip does) and kernel launches; with `routes` (a
+    `_Routes`), each step's routing."""
     rows = []
     kernels = _kernels()
     with routes if routes is not None else contextlib.nullcontext():
@@ -266,11 +303,13 @@ def _steps(r: Rank, step_fn, state, batch, n: int, routes=None):
             r.sync()
             t0 = time.perf_counter()
             state, m = step_fn(state, batch)
+            issued = time.perf_counter()
             loss, norm = float(m["loss"]), float(m["grad_norm"])
             r.sync()
             rows.append({"loss": loss, "grad_norm": norm,
                          "moe_aux": float(m["moe_aux"]),
                          "ms": 1e3 * (time.perf_counter() - t0),
+                         "host_ms": 1e3 * (issued - t0),
                          "launches": {k.__name__: k.launches
                                       for k in kernels}})
     return state, rows
@@ -285,6 +324,7 @@ def _brief(result: Dict[str, Any]) -> str:
         out.update(losses=[x["loss"] for x in rows],
                    grad_norms=[x["grad_norm"] for x in rows],
                    ms=[round(x["ms"], 2) for x in rows],
+                   host_ms=[round(x["host_ms"], 2) for x in rows],
                    launches_a_step=rows[0]["launches"])
         if any(x["moe_aux"] for x in rows):
             out["moe_aux"] = [x["moe_aux"] for x in rows]
@@ -1018,10 +1058,275 @@ def _full_depth(r: Rank, label: str, fsdp: int, tp: int) -> Dict[str, Any]:
     return out
 
 
+# (j): each layout (name, mesh, n_micro, optimizer) against one card
+PP_LAYOUTS = (("pp2xtp2", {"pp": 2, "tp": 2}, 4, "default"),
+              ("pp2xtp2 fused", {"pp": 2, "tp": 2}, 4, "fused"),
+              ("pp4", {"pp": 4}, 4, "default"),
+              ("dp2xpp2", {"dp": 2, "pp": 2}, 2, "default"))
+# (j)'s bubble sweep: pp 4, one row a microbatch
+PP_SWEEP_MICRO = (1, 2, 4, 8)
+
+
+def _pp_cfg(r: Rank, n_layers: int):
+    """The pipeline's config: the 8B width (`tiny` on the CPU) of
+    `n_layers`, the `_layer` path it runs whatever the fused flags say,
+    remat "dots", whole logits."""
+    return dataclasses.replace(r.sizes.cfg(r.cpu, n_layers), fused_ffn=False,
+                               fused_attn=False, loss_chunk=0, remat="dots")
+
+
+def _pp_launches(cfg, pp: int, n_micro: int, n_leaves: int,
+                 fused: bool) -> Dict[str, int]:
+    """A stage's launches a step: under remat "dots" the flash forward
+    twice a layer a microbatch (the recompute reruns it), the backward
+    pair once; K1-K3 never (the stage runs `_layer`); AdamW once a local
+    leaf under fused AdamW (every stage holds every leaf: the layers as
+    its block, the rest whole)."""
+    layers = cfg.n_layers // pp * n_micro
+    return {"flash_fwd": 2 * layers, "flash_bwd_dkv": layers,
+            "flash_bwd_dq": layers, "dw_gateup": 0, "dw_down": 0,
+            "dgateup": 0, "adamw_update": n_leaves if fused else 0}
+
+
+def _stages_of(r: Rank, mesh, value) -> List[Any]:
+    """`value` from every rank, as [(pp stage, (dp, fsdp, tp) coordinate,
+    value)] in rank order (a collective)."""
+    coord = mesh.get_coordinate()
+    out = [None] * r.world
+    r.dist.all_gather_object(out, (coord[1], (coord[0], coord[2], coord[3]),
+                                   value))
+    return out
+
+
+class _NoUpdate:
+    """An optimizer that leaves the state as it is: the step's forward,
+    backward and gradient reductions alone (the reference's bubble
+    evidence times the pipeline without its optimizer,
+    __graft_entry__.py:318-325)."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+
+    def init(self, params):
+        return self.optimizer.init(params)
+
+    def apply(self, grads, state, params, grad_norm=None):
+        return state
+
+
+def _p2p_share(r: Rank, step_fn, state, batch) -> Dict[str, float]:
+    """A profile of 2 steps on the card: ms/step, the P2P hand-offs'
+    device ms/step (NCCL SendRecv: a stage waiting for its neighbour
+    waits in them) and their share of the step, the compute's share (the
+    device time outside the collectives)."""
+    _, prof = bench.profile_train(step_fn, state, batch, steps=2)
+    p2p = prof["collective_ms_per_step_by_op"].get("SendRecv", 0.0)
+    compute = (prof["device_ms_per_step"]
+               - prof["ms_per_step_by_kind"].get("collectives", 0.0))
+    return {"ms_per_step": prof["ms_per_step"], "p2p_ms_per_step": p2p,
+            "p2p_share": p2p / prof["ms_per_step"],
+            "busy_share": compute / prof["ms_per_step"],
+            "collective_ms_per_step_by_op":
+                prof["collective_ms_per_step_by_op"]}
+
+
+def pp_parity(r: Rank) -> Dict[str, Any]:
+    """(j): the pipeline at pp 2 x tp 2 (both optimizers), pp 4 and dp 2 x
+    pp 2 against one card, each stage's launches; the bubble sweep at pp
+    4; the dryrun's pp step."""
+    from ray_tpu_torch.models.transformer import init_params, tree_leaves
+    from ray_tpu_torch.parallel.pipeline import make_pp_train_step
+    from ray_tpu_torch.train import (default_optimizer,
+                                     fused_adamw_optimizer, shard_batch)
+
+    _need_four(r, "pp_parity")
+    sz = r.sizes
+    cfg = _pp_cfg(r, max(sz.parity_layers, 4))
+    n_leaves = len(list(tree_leaves(init_params(cfg, device="meta"))))
+    batch = bench.make_batch(cfg, 4, sz.parity_seq, r.seed + 1, r.dev)
+    makes = {"default": default_optimizer, "fused": fused_adamw_optimizer}
+    ref = _one_card(r, {k: (cfg, make, False) for k, make in makes.items()},
+                    batch, sz.steps_parity)
+    for key, one in ref.items():
+        r.log(f"pp parity: one card, {key}, {cfg.n_layers} layers, batch 4 "
+              f"x {sz.parity_seq}: " + _brief(one))
+    out = {"layers": cfg.n_layers, "batch": [4, sz.parity_seq],
+           "one_card": ref}
+    for name, mesh_kw, n_micro, key in PP_LAYOUTS:
+        r.free()
+        mesh = r.mesh(**mesh_kw)
+        step_fn, init_fn, _ = make_pp_train_step(
+            cfg, mesh, makes[key](warmup_steps=2), n_micro, r.dev)
+        state, rows = _steps(r, step_fn, init_fn(r.seed),
+                             shard_batch(batch, mesh), sz.steps_parity)
+        stages = _stages_of(r, mesh, {"launches": rows[0]["launches"],
+                                      "peak_gib": r.peak_gib()})
+        res = {"mesh": mesh_kw, "n_micro": n_micro, "optimizer": key,
+               "steps": rows, "stages": stages,
+               "ms_per_step": statistics.mean(x["ms"] for x in rows[1:])}
+        out[name] = res
+        r.log(f"pp parity {name}, n_micro {n_micro}: " + _brief(res))
+        _compare(name, rows, ref[key]["steps"], launches=False)
+        if not r.cpu:
+            pp = mesh_kw["pp"]
+            want = _pp_launches(cfg, pp, n_micro, n_leaves, key == "fused")
+            for x in rows:
+                _check(x["launches"] == want, f"pp parity {name}: launches "
+                       f"{x['launches']} vs {want}")
+            # one (dp, fsdp, tp) coordinate's stages: one card's flash
+            # launches n_micro times over
+            for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+                got = sum(v["launches"][k] for _, c, v in stages
+                          if c == (0, 0, 0))
+                one = ref[key]["steps"][0]["launches"][k]
+                _check(got == one * n_micro, f"pp parity {name}: {k} "
+                       f"{got} over the stages vs one card's {one} x "
+                       f"{n_micro}")
+        del state, step_fn, init_fn, mesh
+    r.free()
+    out["bubble_sweep"] = _pp_sweep(r, cfg)
+    out["dryrun_pp"] = _dryrun_pp(r)
+    return out
+
+
+def _pp_sweep(r: Rank, cfg) -> List[Dict[str, Any]]:
+    """(j)'s timing: pp 4, one row of parity_seq a microbatch, n_micro
+    rows a step, the step without its optimizer update (`_NoUpdate`):
+    ms/step (steps 2-4), ms a row, the overhead as the reference measures
+    it (ms a row over the largest n_micro's, times that one's model)
+    beside the model (n_micro + pp - 1) / n_micro, each stage's P2P and
+    busy shares."""
+    from ray_tpu_torch.parallel.pipeline import make_pp_train_step
+    from ray_tpu_torch.train import default_optimizer, shard_batch
+
+    pp, seq = 4, r.sizes.parity_seq
+    mesh = r.mesh(pp=pp)
+    rows = []
+    for n_micro in PP_SWEEP_MICRO:
+        r.free()
+        batch = shard_batch(bench.make_batch(cfg, n_micro, seq, r.seed + 2,
+                                             r.dev), mesh)
+        step_fn, init_fn, _ = make_pp_train_step(
+            cfg, mesh, _NoUpdate(default_optimizer()), n_micro, r.dev)
+        state, steps = _steps(r, step_fn, init_fn(r.seed), batch,
+                              r.sizes.steps_parity)
+        ms = statistics.mean(x["ms"] for x in steps[1:])
+        host = statistics.mean(x["host_ms"] for x in steps[1:])
+        row = {"n_micro": n_micro, "rows": n_micro, "ms_per_step": ms,
+               "host_ms_per_step": _stages_of(r, mesh, host),
+               "ms_per_row": ms / n_micro,
+               "model_overhead": (n_micro + pp - 1) / n_micro}
+        if not r.cpu:
+            row["stages"] = _stages_of(r, mesh, _p2p_share(r, step_fn,
+                                                           state, batch))
+        rows.append(row)
+        del state, step_fn, init_fn, batch
+    base = rows[-1]
+    for row in rows:
+        row["measured_overhead"] = (row["ms_per_row"] / base["ms_per_row"]
+                                    * base["model_overhead"])
+        r.log("pp bubble sweep, pp 4: " + json.dumps(row))
+    del mesh
+    r.free()
+    return rows
+
+
+def _dryrun_pp(r: Rank) -> Dict[str, Any]:
+    """The dryrun's pp step (__graft_entry__.py:150-174): `tiny`, pp 2 x tp
+    2, n_micro 2, one step of `default_optimizer(1e-3)` on 4 rows of 64: a
+    finite loss."""
+    from ray_tpu_torch.models import ModelConfig
+    from ray_tpu_torch.parallel.pipeline import make_pp_train_step
+    from ray_tpu_torch.train import default_optimizer, shard_batch
+
+    cfg = ModelConfig.tiny()
+    mesh = r.mesh(pp=2, tp=2)
+    step_fn, init_fn, _ = make_pp_train_step(cfg, mesh, default_optimizer(
+        1e-3), 2, r.dev)
+    batch = shard_batch(bench.make_batch(cfg, 4, 64, r.seed + 2, r.dev),
+                        mesh)
+    _, m = step_fn(init_fn(r.seed), batch)
+    loss = float(m["loss"])
+    r.log(f"pp parity: the dryrun's pp step, pp 2 x tp 2, loss {loss:.4f}")
+    _check(math.isfinite(loss), f"dryrun pp: loss {loss}")
+    del step_fn, init_fn, mesh
+    r.free()
+    return {"loss": loss}
+
+
+def pp_full_depth(r: Rank) -> Dict[str, Any]:
+    """(k): Llama-3-8B at full depth on pp 2 x tp 2, (g)'s 4 rows of
+    full_seq a step, n_micro 4, under each optimizer: checks and numbers
+    beside (g)'s, then the bubble: each stage's P2P share of a step
+    without its optimizer update."""
+    from ray_tpu_torch.models import count_params
+    from ray_tpu_torch.parallel.pipeline import make_pp_train_step
+    from ray_tpu_torch.train import (default_optimizer,
+                                     fused_adamw_optimizer, shard_batch)
+
+    _need_four(r, "pp_full_depth")
+    sz = r.sizes
+    seq, n_micro, pp = sz.full_seq, 4, 2
+    cfg = dataclasses.replace(_pp_cfg(r, sz.full_layers), max_seq_len=seq)
+    mesh = r.mesh(pp=pp, tp=2)
+    batch = shard_batch(bench.make_batch(cfg, 4, seq, r.seed + 1, r.dev),
+                        mesh)
+    out = {"layers": cfg.n_layers, "seq": seq, "rows": 4, "n_micro": n_micro,
+           "mesh": {"pp": pp, "tp": 2},
+           "model_bubble_share": (pp - 1) / (n_micro + pp - 1)}
+    for name, make in (("default", default_optimizer),
+                       ("fused", fused_adamw_optimizer)):
+        r.free()
+        step_fn, init_fn, _ = make_pp_train_step(cfg, mesh, make(
+            warmup_steps=2), n_micro, r.dev)
+        state = init_fn(r.seed)
+        n_params = count_params(state.params)
+        state, rows = _steps(r, step_fn, state, batch, sz.steps_full)
+        ms = statistics.mean(x["ms"] for x in rows[2:])
+        tput = bench.throughput(cfg, n_params, 1, seq, ms / 1e3, r.peak)
+        res = {"n_params": n_params, "steps": rows, "ms_per_step": ms,
+               "tokens_per_sec_per_card": tput["tokens_per_sec"],
+               "mfu": tput["mfu"]}
+        peak = r.peak_gib()
+        if not r.cpu:
+            state, prof = bench.profile_train(step_fn, state, batch, steps=2)
+            res["profile"] = prof
+        res["stages"] = _stages_of(r, mesh, {
+            "peak_gib": peak, "collective_ms_per_step_by_op":
+                res.get("profile", {}).get("collective_ms_per_step_by_op")})
+        out[name] = res
+        r.log(f"pp full depth {name}: " + _brief(
+            {k: v for k, v in res.items() if k != "profile"}))
+        losses = [x["loss"] for x in rows]
+        _check(all(math.isfinite(x) for x in losses)
+               and all(math.isfinite(x["grad_norm"]) for x in rows),
+               f"pp full depth {name}: losses {losses}")
+        _check(losses[-1] < losses[0],
+               f"pp full depth {name}: the loss did not fall: {losses}")
+        del state, step_fn, init_fn
+    r.free()
+    if not r.cpu:
+        step_fn, init_fn, _ = make_pp_train_step(
+            cfg, mesh, _NoUpdate(default_optimizer()), n_micro, r.dev)
+        state, rows = _steps(r, step_fn, init_fn(r.seed), batch, 3)
+        out["bubble"] = _stages_of(r, mesh, {
+            **_p2p_share(r, step_fn, state, batch),
+            "host_ms": [x["host_ms"] for x in rows[1:]],
+            "synced_ms": [x["ms"] for x in rows[1:]]})
+        r.log("pp full depth bubble (stage, coordinate, the step without "
+              "its update): " + json.dumps(out["bubble"]))
+        del state, step_fn, init_fn
+    del mesh, batch
+    r.free()
+    return out
+
+
 def reshard(r: Rank) -> Dict[str, Any]:
     """(c): saved at fsdp=world, restored onto dp 2 x fsdp world/2 (the
-    result's top-level keys) and onto fsdp 2 x tp world/2 ("to_tp")."""
+    result's top-level keys), onto fsdp 2 x tp world/2 ("to_tp") and onto
+    the pipeline at pp 2 x tp world/2 ("to_pp")."""
     from ray_tpu_torch.parallel.fsdp import tree_paths
+    from ray_tpu_torch.parallel.pipeline import make_pp_train_step
     from ray_tpu_torch.train import (abstract_like, default_optimizer,
                                      latest_checkpoint, load_checkpoint,
                                      make_train_step, save_checkpoint,
@@ -1029,9 +1334,13 @@ def reshard(r: Rank) -> Dict[str, Any]:
 
     sz = r.sizes
     cfg = sz.cfg(r.cpu, sz.parity_layers)
+    # the pipeline runs `_layer` whatever the fused flags say: its next
+    # loss is held against that path continued at fsdp=world
+    plain = dataclasses.replace(cfg, fused_ffn=False, fused_attn=False)
     src = r.mesh(fsdp=r.world)
     targets = {"dp": ({"dp": 2, "fsdp": r.world // 2}, RESHARD_LOSS_RTOL),
-               "tp": ({"fsdp": 2, "tp": r.world // 2}, FIRST_LOSS_RTOL)}
+               "tp": ({"fsdp": 2, "tp": r.world // 2}, FIRST_LOSS_RTOL),
+               "pp": ({"pp": 2, "tp": r.world // 2}, FIRST_LOSS_RTOL)}
     batch = bench.make_batch(cfg, r.world, sz.parity_seq, r.seed + 1, r.dev)
     step_src, init_src = make_train_step(
         cfg, default_optimizer(warmup_steps=2), r.dev, mesh=src)
@@ -1051,16 +1360,21 @@ def reshard(r: Rank) -> Dict[str, Any]:
             path).rglob("*") if f.is_file()) if r.rank == 0 else None)
         for name, (layout, rtol) in targets.items():
             dst = r.mesh(**layout)
-            target = abstract_like(state, state_shardings(
-                cfg, dst, default_optimizer()))
+            if name == "pp":
+                step_dst, _, sh = make_pp_train_step(
+                    plain, dst, default_optimizer(warmup_steps=2), 2, r.dev)
+            else:
+                step_dst = make_train_step(
+                    cfg, default_optimizer(warmup_steps=2), r.dev,
+                    mesh=dst)[0]
+                sh = state_shardings(cfg, dst, default_optimizer())
+            target = abstract_like(state, sh)
             t0 = time.perf_counter()
             restored, meta = load_checkpoint(latest_checkpoint(str(root)),
                                              target)
             r.sync()
             load_s = time.perf_counter() - t0
             res = _check_restored(r, state, restored, dst, tree_paths)
-            step_dst, _ = make_train_step(
-                cfg, default_optimizer(warmup_steps=2), r.dev, mesh=dst)
             res.update({"to": layout, "restore_s": load_s, "meta": meta,
                         "step": restored.step,
                         "count": restored.opt_state.count})
@@ -1072,6 +1386,14 @@ def reshard(r: Rank) -> Dict[str, Any]:
             results[name] = res
             del restored, target, step_dst, dst
             r.free()
+        again, _ = load_checkpoint(latest_checkpoint(str(root)), abstract_like(
+            state, state_shardings(plain, src, default_optimizer())))
+        _, m = make_train_step(plain, default_optimizer(warmup_steps=2),
+                               r.dev, mesh=src)[0](again,
+                                                   shard_batch(batch, src))
+        results["pp"]["next_loss"]["continued"] = float(m["loss"])
+        del again
+        r.free()
     finally:
         r.dist.barrier()
         if r.rank == 0:
@@ -1081,14 +1403,14 @@ def reshard(r: Rank) -> Dict[str, Any]:
     continued = float(m_src["loss"])
     for name, (layout, rtol) in targets.items():
         res = results[name]
-        res["next_loss"]["continued"] = continued
+        want = res["next_loss"].setdefault("continued", continued)
         r.log(f"reshard onto {layout}: " + json.dumps(res))
-        _check(_rel(res["next_loss"]["resharded"], continued) <= rtol,
+        _check(_rel(res["next_loss"]["resharded"], want) <= rtol,
                f"reshard onto {layout}: next loss "
-               f"{res['next_loss']['resharded']} vs {continued}")
+               f"{res['next_loss']['resharded']} vs {want}")
     out = {"layers": cfg.n_layers, "from": {"fsdp": r.world},
            "bytes_on_disk": on_disk, "save_s": save_s, **results["dp"],
-           "to_tp": results["tp"]}
+           "to_tp": results["tp"], "to_pp": results["pp"]}
     del state
     r.free()
     return out

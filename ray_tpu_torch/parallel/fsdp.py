@@ -42,12 +42,20 @@ can reshard), and the step computes on their local blocks:
   rank the same whole gradient). **sp, then dp**: every gradient is then
   summed over sp (its ranks saw other positions of the same rows) and
   over dp.
+- **pp.** Under the pipeline's rules (`parallel/pipeline.py`: the layer
+  stack split over pp, each stage its contiguous layers) a leaf not split
+  over pp (`embed`, `lm_head`, `final_norm`) is used by the first or the
+  last stage only, so its gradient is also summed over pp; a layer leaf's
+  never is. Where no leaf is split over pp (the sharded step on a mesh
+  with pp > 1, which runs replicated over pp as the reference's does) no
+  collective crosses pp.
 - **Global values.** Each rank's loss is scaled by its share of the
-  global token count (`data_sum`: over fsdp, sp and dp; tp ranks hold the
-  same tokens), so the summed gradients are the gradient of the global
-  mean and the summed loss is the global loss; the gradient norm sums
-  each leaf's squares over fsdp and then over tp, a leaf not split over
-  an axis counted once. Every rank gets the same loss and norm.
+  global token count (`data_sum`: over fsdp, sp and dp; tp and pp ranks
+  hold the same tokens), so the summed gradients are the gradient of the
+  global mean and the summed loss is the global loss; the gradient norm
+  sums each leaf's squares over fsdp, then over tp, then (pipelined) over
+  pp, a leaf not split over an axis counted once. Every rank gets the
+  same loss and norm.
 
 All collectives run on torch's current stream, so they stay ordered with
 the kernels (which launch there too); a collective on the card goes
@@ -147,7 +155,7 @@ class FSDP:
     (nested dicts of NamedSharding, `param_logical_axes`' structure), whose
     `logical_axes` (`param_logical_axes` itself) mark the expert leaves:
     those split over fsdp along an "expert" dim, kept local (module
-    docstring). Needs pp = 1 and no leaf split over dp or sp."""
+    docstring). Needs no leaf split over dp or sp."""
 
     def __init__(self, mesh, shardings: Dict[str, Any],
                  logical_axes: Dict[str, Any]):
@@ -161,13 +169,17 @@ class FSDP:
         self.n_tp = mesh.size(mesh.mesh_dim_names.index("tp"))
         self.n_sp = mesh.size(mesh.mesh_dim_names.index("sp"))
         self.tp_rank = mesh.get_local_rank("tp")
+        self.pp_group = mesh.get_group("pp")
+        self.pp_rank = mesh.get_local_rank("pp")
         # the fsdp dim of each leaf by its path ("embed", "layers/wq"); a
         # stacked leaf's is that of one layer's slice (the gather runs a
         # layer at a time); and whether the leaf is split over tp
         self.dims: Dict[str, Optional[int]] = {}
         self.tp_split: Dict[str, bool] = {}
+        self.pp_split: Dict[str, bool] = {}
         self._whole = None  # global_norm's mask of leaves not split
         self._not_tp = None  # the same for tp
+        self._not_pp = None  # and for pp
         names = dict(tree_paths(logical_axes))
         self.experts = set()  # the expert leaves' paths
         for path, sh in tree_paths(shardings):
@@ -179,6 +191,7 @@ class FSDP:
                         f"{path} is split over {axis}: parameters split "
                         f"over {axis} are not ported")
             self.tp_split[path] = "tp" in axes
+            self.pp_split[path] = "pp" in axes
             dim = _fsdp_dim(sh.spec)
             if dim is not None and names[path][dim] == "expert":
                 self.experts.add(path)
@@ -188,6 +201,9 @@ class FSDP:
                                      f"cannot be split over fsdp")
                 dim -= 1
             self.dims[path] = dim
+        # the layer stack split over more than one stage: the pipeline
+        self.pipelined = (mesh.size(mesh.mesh_dim_names.index("pp")) > 1
+                          and any(self.pp_split.values()))
 
     def gather(self, path: str, t: torch.Tensor) -> torch.Tensor:
         """The full weight of `path` from this rank's shard `t` (one layer's
@@ -224,11 +240,14 @@ class FSDP:
         over fsdp summed over fsdp (each rank saw its own rows; a split
         leaf's reduce-scatter, or an expert leaf's dispatch, summed the
         others), then every gradient summed over sp (other positions) and
-        over dp."""
+        over dp; pipelined, those of leaves not split over pp summed over
+        pp (only the stage that uses one holds its gradient)."""
         dist = _dist()
         for path, g in zip(paths, grads, strict=True):
             if self.dims[path] is None:
                 dist.all_reduce(g, group=self.fsdp_group)
+            if self.pipelined and not self.pp_split[path]:
+                dist.all_reduce(g, group=self.pp_group)
         if self.n_sp > 1:
             for g in grads:
                 dist.all_reduce(g, group=self.sp_group)
@@ -238,9 +257,9 @@ class FSDP:
     def global_norm(self, paths: Sequence[str],
                     grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """sqrt of the sum of squares of the global gradient, in float32:
-        each leaf's squares summed over its fsdp shards and then its tp
-        blocks, a leaf not split over an axis counted once; the same value
-        on every rank."""
+        each leaf's squares summed over its fsdp shards, then its tp
+        blocks, then (pipelined) its pp blocks, a leaf not split over an
+        axis counted once; the same value on every rank."""
         sq = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
                           .square() for g in grads])
         if self.fsdp_rank != 0:
@@ -257,6 +276,14 @@ class FSDP:
                         device=sq.device)
                 sq = sq.masked_fill(self._not_tp, 0.0)
             _dist().all_reduce(sq, group=self.tp_group)
+        if self.pipelined:
+            if self.pp_rank != 0:
+                if self._not_pp is None:
+                    self._not_pp = torch.tensor(
+                        [not self.pp_split[p] for p in paths],
+                        device=sq.device)
+                sq = sq.masked_fill(self._not_pp, 0.0)
+            _dist().all_reduce(sq, group=self.pp_group)
         return sq.sum().sqrt()
 
 

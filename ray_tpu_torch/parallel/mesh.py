@@ -42,8 +42,9 @@ from ray_tpu_torch.ops.kernels._util import require_cuda
 class MeshConfig:
     """Sizes of each parallelism axis. -1 on `dp` means 'fill'.
 
-    `pp` (pipeline parallel) is manual-mode in the reference; the sharded
-    train step requires pp == 1.
+    `pp` (pipeline parallel) is manual-mode in the reference: the sharded
+    train step runs replicated over it, and `parallel/pipeline.py` splits
+    the layer stack over it.
     """
 
     dp: int = -1

@@ -40,9 +40,13 @@ and the optimizers run on the local blocks. MoE runs on any such mesh:
 the experts are split over fsdp and stay local (`parallel/fsdp.py`), and
 the router sees the global batch (`ops/moe.py`, `parallel/expert.py`), so
 `moe_aux` is the global load-balancing loss on every rank. The metrics
-are global and the same on every rank. pp (ROADMAP.md queue A item 7.3),
-a layout tp does not split (item 7.5) and an fsdp that does not divide
-the experts raise. `mesh=None` is the single-device step.
+are global and the same on every rank. On a mesh with pp > 1 the step
+runs replicated over pp, as the reference's does (its rules leave the
+layer stack whole): the batch goes over (dp, fsdp) and no collective
+crosses pp; `parallel.pipeline.make_pp_train_step` is the step that
+splits the layers over pp. A layout tp does not split (ROADMAP.md queue A
+item 7.5) and an fsdp that does not divide the experts raise.
+`mesh=None` is the single-device step.
 """
 
 from __future__ import annotations
@@ -291,18 +295,13 @@ def to_local(tree: Any) -> Any:
 
 
 def _check_mesh(cfg: ModelConfig, mesh, dev: torch.device) -> None:
-    """Raise for what the sharded step does not run: pp, experts that
-    fsdp does not divide, a layout tp does not split, sp without a
+    """Raise for what the sharded step does not run: experts that fsdp
+    does not divide, a layout tp does not split, sp without a
     sequence-parallel attention, a mesh of another device, no NCCL on the
     card."""
     import torch.distributed as dist
 
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    if sizes["pp"] > 1:
-        raise NotImplementedError(
-            f"pp={sizes['pp']}: the sharded step runs dp x fsdp x tp x sp; "
-            f"the pipeline waits for its port (ROADMAP.md, queue A item "
-            f"7.3)")
     if cfg.n_experts > 0 and cfg.n_experts % sizes["fsdp"]:
         raise ValueError(
             f"fsdp={sizes['fsdp']} does not divide n_experts="
@@ -378,7 +377,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
     optimizer = optimizer or default_optimizer()
     dev = require_cuda(device)
     if mesh is not None:
-        return (_sharded_step(cfg, optimizer, dev, on_phase, mesh, rules),
+        return (_sharded_step(cfg, optimizer, dev, on_phase, mesh, rules,
+                              loss_fn),
                 make_init_fn(cfg, optimizer, dev, mesh=mesh, rules=rules))
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -409,10 +409,11 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
 
 def _sharded_step(cfg: ModelConfig, optimizer: Any, dev: torch.device,
                   on_phase: Optional[Callable[[str], None]], mesh,
-                  rules: AxisRules):
+                  rules: AxisRules, loss_of: Callable[..., Any]):
     """The sharded step: the unsharded step's phases on the local blocks,
     with parallel/fsdp.py's collectives around the model and
-    parallel/tensor.py's inside it."""
+    parallel/tensor.py's inside it. `loss_of(params, batch, cfg, par=)`
+    is `loss_fn`, or the pipeline's `pp_loss_fn` (parallel/pipeline.py)."""
     _check_mesh(cfg, mesh, dev)
     sh = state_shardings(cfg, mesh, optimizer, rules)
     fsdp = FSDP(mesh, sh.params, param_logical_axes(cfg))
@@ -432,7 +433,7 @@ def _sharded_step(cfg: ModelConfig, optimizer: Any, dev: torch.device,
         if on_phase:
             on_phase("forward")
         with fsdp.saved_tensor_hooks():
-            loss, aux = loss_fn(params, batch, cfg, par=par)
+            loss, aux = loss_of(params, batch, cfg, par=par)
             loss = loss * scale
         if on_phase:
             on_phase("backward")

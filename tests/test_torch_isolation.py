@@ -45,6 +45,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "ray_tpu_torch.parallel.distributed",
                  "ray_tpu_torch.parallel.fsdp",
                  "ray_tpu_torch.parallel.expert",
+                 "ray_tpu_torch.parallel.pipeline",
                  "ray_tpu_torch.ops.moe",
                  "ray_tpu_torch.multichip"):
         assert name in modules

@@ -13,9 +13,11 @@ on the CPU under gloo, `ModelConfig.tiny` in float32.
   bounds: Adam's first steps move a parameter whose gradient nearly
   cancels by up to the learning rate, 1e-3, on another summation order),
   with a loss mask that keeps a different count of tokens on each
-  rank. fsdp 2 on 2 ranks here; dp 2 x fsdp 2 and fsdp 4 on 4 ranks, and
-  the checkpoint saved at dp 2 x fsdp 2 and restored onto fsdp 4 and onto
-  one process, are slow.
+  rank. fsdp 2 on 2 ranks here, and pp 2 on 2 ranks, which runs
+  replicated over pp as the reference's step does (every pp rank holds the
+  same bits); dp 2 x fsdp 2 and fsdp 4 on 4 ranks, and the checkpoint
+  saved at dp 2 x fsdp 2 and restored onto fsdp 4 and onto one process,
+  are slow.
 """
 
 import dataclasses
@@ -112,10 +114,11 @@ def test_saved_weights_are_gathered_again_in_the_backward(world_one,
 
 
 def test_unported_meshes_raise():
-    """pp still raises, and MoE over an fsdp that does not divide the
-    experts raises naming the expert leaves; MoE on any other shard of
-    (dp, fsdp, tp, sp) runs (tests/test_torch_expert_parallel.py), and so
-    do tp and sp (tests/test_torch_tensor_parallel.py,
+    """MoE over an fsdp that does not divide the experts raises naming the
+    expert leaves; pp runs (replicated over pp here, split by
+    parallel/pipeline.py), MoE on any other shard of (dp, fsdp, tp, sp)
+    runs (tests/test_torch_expert_parallel.py), and so do tp and sp
+    (tests/test_torch_tensor_parallel.py,
     tests/test_torch_seq_parallel.py)."""
     class Mesh:
         mesh_dim_names = ("dp", "pp", "fsdp", "tp", "sp")
@@ -125,8 +128,7 @@ def test_unported_meshes_raise():
             self.shape = shape
 
     cpu = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="pp=2"):
-        _check_mesh(ModelConfig.tiny(), Mesh((1, 2, 1, 1, 1)), cpu)
+    _check_mesh(ModelConfig.tiny(), Mesh((1, 2, 1, 1, 1)), cpu)
     for shape in ((2, 1, 1, 1, 1), (1, 1, 2, 1, 1), (1, 1, 1, 2, 1),
                   (1, 1, 4, 1, 1), (2, 1, 2, 2, 1)):
         _check_mesh(ModelConfig.tiny_moe(), Mesh(shape), cpu)
@@ -156,12 +158,12 @@ def _mask():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_steps(n, dp, fsdp, masked, tp=1, sp=1, scheme=""):
+def _jax_steps(n, dp, fsdp, masked, tp=1, sp=1, scheme="", pp=1):
     """The JAX step on an n-device virtual mesh (`tiny`, `seq_parallel`
     `scheme`): the initial params and, after each of 3 steps, (loss,
     grad_norm, params)."""
     mesh = jmake_virtual_mesh(n, JMeshConfig(dp=dp, fsdp=fsdp, tp=tp,
-                                             sp=sp))
+                                             sp=sp, pp=pp))
     real = jstep.batch_sharding
 
     def with_mask(m):  # the loss mask laid out as the rows it masks
@@ -191,18 +193,18 @@ def _jax_steps(n, dp, fsdp, masked, tp=1, sp=1, scheme=""):
 
 
 def _check_against_jax(tmp_path, world, dp, fsdp, masked, tp=1, sp=1,
-                       scheme="", fused=False):
+                       scheme="", fused=False, pp=1):
     """The port's sharded step on `world` gloo ranks against the JAX step
     at the same mesh (the JAX side unfused: its fused blocks compute the
     same function, tests/test_torch_fused_blocks.py)."""
-    init, want = _jax_steps(world, dp, fsdp, masked, tp, sp, scheme)
+    init, want = _jax_steps(world, dp, fsdp, masked, tp, sp, scheme, pp)
     np.savez(tmp_path / "in.npz", tokens=_tokens().astype(np.int64),
              mask=_mask(),
              **{"p/" + k: np.asarray(v) for k, v in tree_paths(init)})
     got = torch_ranks.run_ranks("steps", world, tmp_path, dp, fsdp,
                                 int(masked), tp, sp, scheme or "-",
-                                int(fused))
-    assert got["rows_as_dtensor"]
+                                int(fused), 0, pp)
+    assert got["rows_as_dtensor"] and got["pp_replicas_equal"]
     assert (got["local_rows"], got["local_seq"]) == (BATCH // (dp * fsdp),
                                                      SEQ // sp)
     assert got["count"] == got["step"] == 3
@@ -218,6 +220,10 @@ def _check_against_jax(tmp_path, world, dp, fsdp, masked, tp=1, sp=1,
 
 def test_fsdp2_on_two_ranks_matches_jax(tmp_path):
     _check_against_jax(tmp_path, 2, 1, 2, masked=True)
+
+
+def test_pp2_on_two_ranks_runs_replicated_and_matches_jax(tmp_path):
+    _check_against_jax(tmp_path, 2, 1, 1, masked=True, pp=2)
 
 
 @pytest.mark.slow

@@ -5,14 +5,29 @@ JAX side of a parity test stays in the pytest process.
     python tests/torch_ranks.py TASK OUTDIR RANK WORLD PORT [ARGS...]
 
 Tasks (rank 0 writes OUTDIR/out.npz and OUTDIR/out.json):
-  steps DP FSDP MASKED [TP SP SCHEME FUSED MOE]
+  steps DP FSDP MASKED [TP SP SCHEME FUSED MOE PP]
                         3 steps of `default_optimizer(1e-3, warmup_steps=1)`
                         on `tiny` (`tiny_moe` if MOE; float32;
                         `seq_parallel=SCHEME`, "-" for none; the fused
                         blocks if FUSED) from OUTDIR/in.npz (the JAX params,
                         "p/<path>", and the global batch), each rank on its
                         block; losses, grad norms, moe_aux, final params
+                        whole, and whether every pp rank's blocks are the
+                        same bits.
+  pp DP PP FSDP TP N_MICRO
+                        the pipeline (`make_pp_train_step`) on OUTDIR/in.npz
+                        (the JAX params of `tiny` at its "n_layers", the
+                        global batch and its mask): `pp_forward`'s logits
+                        of the first row block on the last stage, vocab
+                        whole (OUTDIR/logits.npz), then 3 steps of
+                        `default_optimizer(1e-3, warmup_steps=1)`: losses,
+                        grad norms, step 1's gradients and the final params
                         whole.
+  ckpt_pp               a tiny state at fsdp 2, one step, saved; restored
+                        onto pp 2 (the pipeline's rules); every leaf
+                        compared whole; the next pipeline step's loss
+                        (n_micro 2) and the unsharded step's on the same
+                        state.
   sp_ops                ring and Ulysses attention over sp = WORLD, each
                         case of OUTDIR/in.npz ("<case>/q", k, v, the
                         cotangent "dy", "causal"): outputs and dq, dk, dv
@@ -135,7 +150,7 @@ def _write(outdir, rank, arrays, result):
 
 
 def steps(outdir, rank, world, dp, fsdp, masked, tp=1, sp=1, scheme="-",
-          fused=0, moe=0):
+          fused=0, moe=0, pp=1):
     import dataclasses
 
     import torch
@@ -154,7 +169,7 @@ def steps(outdir, rank, world, dp, fsdp, masked, tp=1, sp=1, scheme="-",
         seq_parallel="" if scheme == "-" else scheme,
         fused_ffn=bool(int(fused)), fused_attn=bool(int(fused)))
     mesh = make_virtual_mesh(world, MeshConfig(
-        dp=int(dp), fsdp=int(fsdp), tp=int(tp), sp=int(sp)))
+        dp=int(dp), fsdp=int(fsdp), tp=int(tp), sp=int(sp), pp=int(pp)))
     data = dict(np.load(Path(outdir) / "in.npz"))
     optimizer = default_optimizer(1e-3, warmup_steps=1)
     params = params_from_jax(_tree(data, "p/"), cfg, device="cpu")
@@ -179,23 +194,169 @@ def steps(outdir, rank, world, dp, fsdp, masked, tp=1, sp=1, scheme="-",
         aux.append(float(metrics["moe_aux"]))
     arrays = {}
     _whole(state.params, "p/", arrays)
+    pp_group = mesh.get_group("pp")
+    pp_same = all(all(torch.equal(parts[0], x) for x in parts) for parts in (
+        _blocks(t.to_local(), pp_group) for _, t in tree_paths(state.params)))
     _write(outdir, rank, arrays, {
         "losses": losses, "norms": norms, "moe_aux": aux,
+        "pp_replicas_equal": pp_same,
         "rows_as_dtensor": rows_as_dtensor,
         "local_rows": int(local["inputs"].shape[0]),
         "local_seq": int(local["inputs"].shape[1]),
         "count": state.opt_state.count, "step": state.step})
 
 
-def _whole_along(t, dim, group=None):
-    """The blocks of `t` along `dim` from every rank of `group`, in rank
-    order (a collective)."""
+def _blocks(t, group=None):
+    """`t` from every rank of `group`, in rank order (a collective)."""
     import torch
     import torch.distributed as dist
 
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts, dim)
+    return parts
+
+
+def _whole_along(t, dim, group=None):
+    """The blocks of `t` along `dim` from every rank of `group`, in rank
+    order (a collective)."""
+    import torch
+
+    return torch.cat(_blocks(t, group), dim)
+
+
+class _FirstGrads:
+    """An optimizer that keeps the gradients (this rank's blocks) of the
+    first step it applies."""
+
+    def __init__(self, optimizer):
+        self.optimizer, self.grads = optimizer, None
+
+    def init(self, params):
+        return self.optimizer.init(params)
+
+    def apply(self, grads, state, params, grad_norm=None):
+        if self.grads is None:
+            self.grads = grads
+        return self.optimizer.apply(grads, state, params, grad_norm)
+
+
+def _whole_blocks(tree, shardings, prefix, out):
+    """Each local block of `tree` (a tree of tensors laid out as the
+    NamedShardings of `shardings`) gathered whole (a collective) into
+    out[prefix + path] as numpy."""
+    node = dict(tree_paths(shardings))
+    for path, t in tree_paths(tree):
+        out[prefix + path] = node[path].from_local(
+            t).full_tensor().numpy().copy()
+
+
+def pp(outdir, rank, world, dp, pp_, fsdp, tp, n_micro):
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.bridge import params_from_jax
+    from ray_tpu_torch.models import ModelConfig
+    from ray_tpu_torch.models.transformer import param_logical_axes
+    from ray_tpu_torch.parallel import MeshConfig, make_virtual_mesh
+    from ray_tpu_torch.parallel.fsdp import FSDP
+    from ray_tpu_torch.parallel.pipeline import (Stages, make_pp_train_step,
+                                                 pp_forward)
+    from ray_tpu_torch.parallel.tensor import Parallel
+    from ray_tpu_torch.train import (TrainState, default_optimizer,
+                                     shard_batch, shard_state, to_local)
+
+    data = dict(np.load(Path(outdir) / "in.npz"))
+    cfg = dataclasses.replace(ModelConfig.tiny(),
+                              n_layers=int(data["n_layers"]))
+    n_micro = int(n_micro)
+    mesh = make_virtual_mesh(world, MeshConfig(
+        dp=int(dp), pp=int(pp_), fsdp=int(fsdp), tp=int(tp)))
+    optimizer = _FirstGrads(default_optimizer(1e-3, warmup_steps=1))
+    step_fn, _, sh = make_pp_train_step(cfg, mesh, optimizer, n_micro,
+                                        device="cpu")
+    params = params_from_jax(_tree(data, "p/"), cfg, device="cpu")
+    state = shard_state(TrainState(params, optimizer.init(params), 0), sh)
+    tokens = torch.from_numpy(data["tokens"])
+    batch = {"inputs": tokens[:, :-1], "targets": tokens[:, 1:],
+             "loss_mask": torch.from_numpy(data["mask"])}
+    local = shard_batch(batch, mesh)
+
+    fsdp_ = FSDP(mesh, sh.params, param_logical_axes(cfg))
+    par = Parallel.from_mesh(mesh, fsdp_.gather)
+    stages = Stages.from_mesh(mesh)
+    logits = pp_forward(to_local(state.params), local["inputs"], cfg, stages,
+                        n_micro, par)
+    if stages.last:
+        if par.tp_group is not None:
+            logits = _whole_along(logits, -1, par.tp_group)
+        dp_i, _, fsdp_i, tp_i, _ = mesh.get_coordinate()
+        if dp_i == fsdp_i == tp_i == 0:
+            np.savez(Path(outdir) / "logits.npz", logits=logits.numpy())
+
+    losses, norms = [], []
+    for _ in range(3):
+        state, metrics = step_fn(state, local)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    arrays = {}
+    _whole_blocks(optimizer.grads, sh.params, "g/", arrays)
+    _whole(state.params, "p/", arrays)
+    _write(outdir, rank, arrays, {
+        "losses": losses, "norms": norms, "step": state.step,
+        "count": state.opt_state.count,
+        "local_rows": int(local["inputs"].shape[0])})
+
+
+def ckpt_pp(outdir, rank, world):
+    import dataclasses
+
+    from ray_tpu_torch.bench import make_batch
+    from ray_tpu_torch.models import ModelConfig
+    from ray_tpu_torch.parallel import MeshConfig, make_virtual_mesh
+    from ray_tpu_torch.parallel.pipeline import make_pp_train_step
+    from ray_tpu_torch.train import (TrainState, abstract_like,
+                                     default_optimizer, latest_checkpoint,
+                                     load_checkpoint, make_train_step,
+                                     save_checkpoint, shard_batch)
+
+    cfg = ModelConfig.tiny()
+    optimizer = default_optimizer(1e-3, warmup_steps=1)
+    src = make_virtual_mesh(world, MeshConfig(fsdp=2))
+    dst = make_virtual_mesh(world, MeshConfig(pp=2))
+    batch = make_batch(cfg, 4, 32, 1, "cpu")
+    step_src, init_src = make_train_step(cfg, optimizer, "cpu", mesh=src)
+    step_pp, _, sh = make_pp_train_step(cfg, dst, optimizer, 2, "cpu")
+    state, _ = step_src(init_src(0), shard_batch(batch, src))
+    root = Path(outdir) / "ckpt"
+    save_checkpoint(state, str(root), step=1)
+    restored, _ = load_checkpoint(latest_checkpoint(str(root)),
+                                  abstract_like(state, sh))
+    whole_src, whole_dst = {}, {}
+    _whole(_tensors(state), "", whole_src)
+    _whole(_tensors(restored), "", whole_dst)
+    equal = sorted(k for k in whole_src
+                   if np.array_equal(whole_src[k], whole_dst[k]))
+    on_dst = all(t.device_mesh is dst
+                 for _, t in tree_paths(_tensors(restored)))
+    # the unsharded step on the whole state, then the pipeline's
+    whole = TrainState(_full(state.params), dataclasses.replace(
+        state.opt_state, mu=_full(state.opt_state.mu),
+        nu=_full(state.opt_state.nu)), state.step)
+    _, m_one = make_train_step(cfg, optimizer, "cpu")[0](whole, batch)
+    _, m_pp = step_pp(restored, shard_batch(batch, dst))
+    _write(outdir, rank, {}, {
+        "leaves": sorted(whole_src), "equal": equal,
+        "on_target_mesh": on_dst, "step": restored.step,
+        "count": restored.opt_state.count,
+        "next_loss": [float(m_one["loss"]), float(m_pp["loss"])]})
+
+
+def _full(tree):
+    """A tree of DTensors gathered whole (a collective), as tensors."""
+    if isinstance(tree, dict):
+        return {k: _full(v) for k, v in tree.items()}
+    return tree.full_tensor()
 
 
 def sp_ops(outdir, rank, world):
@@ -482,7 +643,8 @@ if __name__ == "__main__":
     try:
         {"steps": steps, "ckpt": ckpt, "budget": budget, "sp_ops": sp_ops,
          "tp_blocks": tp_blocks, "vocab": vocab, "reshard_tp": reshard_tp,
-         "moe_units": moe_units}[task](outdir, rank, world, *rest)
+         "moe_units": moe_units, "pp": pp,
+         "ckpt_pp": ckpt_pp}[task](outdir, rank, world, *rest)
     finally:
         from ray_tpu_torch.parallel import shutdown_group
 
