@@ -240,6 +240,23 @@ Phases (any failure exits non-zero and prints no result line):
      wide family as `<name>_wide`), the nvidia-smi line, and the result
      line.
 
+ 17. (run after 15d, before the report) the port's runtime on the card:
+     `ray_tpu_torch.init(num_cpus=8, resources={"GPU": 1})`; a num_gpus=1
+     task in a forked warm worker sees get_gpu_ids() == [0] and launches
+     dequant_rows at [4096, 14336], and the driver's get of its CUDA
+     tensor equals the driver's own launch bit for bit; a 256 MiB CUDA
+     float32 and a 256 MiB CPU bf16 tensor through put/get bit for bit
+     (GB/s logged); two num_gpus=0.5 actors on index 0, a second
+     num_gpus=1 task waiting for the first; a num_gpus=1 actor that builds
+     ContinuousBatchingEngine at llama3_8b width and depth from phase 4's
+     seed in w8a16 and serves phase 4's 12 requests through actor calls,
+     token for token phase 4's w8a16 outputs, with phase 4's launch counts
+     (added to the kernels line's `launches_by_path`); initialize_group at
+     world 1 over NCCL in an actor, through the runtime's KV; the port's
+     native scheduler and arena loaded; the actor round trip (µs) and the
+     warm (torch preloaded in the fork template) and cold worker start
+     (ms).
+
 Imports torch and the port only (never jax, never ray_tpu).
 """
 
@@ -3549,6 +3566,359 @@ def pp_world_one(torch, card: str, seed: int, cfg):
     return by_path
 
 
+# Phase 17: each tensor that goes through the store, the actor round trips
+# timed, and the actor starts timed for each way a worker starts.
+RUNTIME_TENSOR_BYTES = 256 << 20
+RUNTIME_PINGS = 2000
+# starts timed a way: a warm start (torch preloaded) takes ~0.14 s, a cold
+# one ~10 s (torch's import on the card's host)
+RUNTIME_STARTS, RUNTIME_SLOW_STARTS = 5, 3
+RUNTIME_DEQUANT_SHAPE = (4096, 14336)  # phase 3's w_gate/w_up slice
+
+
+def _runtime_start_ms(rt, n: int):
+    """Median ms from creating an actor to its first call's answer, the
+    call importing torch as every GPU task does; and whether each ran in a
+    forked worker."""
+
+    @rt.remote
+    class Starter:
+        def first(self):
+            import os
+
+            import torch as _torch  # noqa: F401 - the import is the work
+
+            return os.environ.get("RAY_TPU_TORCH_WORKER_FORKED") == "1"
+
+    times, forked = [], []
+    for _ in range(n):
+        t = time.perf_counter()
+        a = Starter.remote()
+        forked.append(rt.get(a.first.remote(), timeout=120))
+        times.append(1e3 * (time.perf_counter() - t))
+        rt.kill(a)
+    return statistics.median(times), times, forked
+
+
+def _runtime_wait_gpu(rt, amount: float = 1.0, timeout: float = 60.0):
+    deadline = time.monotonic() + timeout
+    while rt.available_resources().get("GPU", 0.0) < amount:
+        if time.monotonic() > deadline:
+            fail(f"runtime: the GPU grant was not released within {timeout} s")
+        time.sleep(0.05)
+
+
+def runtime_phase(torch, card: str, seed: int, cfg, requests, w8_out):
+    """Phase 17: the port's runtime (ray_tpu_torch.core) on the card, started
+    as a user starts it, `init(resources={"GPU": 1})`: a num_gpus=1 task in
+    a forked warm worker launches dequant_rows at a phase-3 shape and its
+    CUDA result equals the driver's own launch bit for bit; a 256 MiB CUDA
+    tensor and a 256 MiB CPU bf16 tensor go through put/get bit for bit
+    (GB/s logged); two num_gpus=0.5 actors share index 0 and a second
+    num_gpus=1 task waits for the first; a num_gpus=1 actor builds
+    ContinuousBatchingEngine at Llama-3-8B width and depth from phase 4's
+    seed in w8a16 and serves phase 4's 12 requests through actor calls,
+    token for token phase 4's w8a16 outputs, with phase 4's launch counts;
+    initialize_group at world 1 over NCCL inside an actor, through the
+    runtime's KV; the native scheduler and arena loaded. Logs the actor
+    round trip and the warm (torch preloaded in the template) and cold
+    start. Returns {kernel: {path: launches}}."""
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.core import arena, native_scheduler
+    from ray_tpu_torch.core.config import reset_config
+    from ray_tpu_torch.ops.kernels import quant
+
+    t0 = time.perf_counter()
+    libs = {"native scheduler": native_scheduler._load_lib(),
+            "arena": arena._load_lib()}
+    for what, lib in libs.items():
+        if lib is None:
+            fail(f"runtime: the port's {what} library did not build or load")
+        log(f"runtime: {what} loaded from {Path(lib._name).relative_to(HERE)}")
+    shm = shutil.disk_usage("/dev/shm")
+    log(f"runtime: /dev/shm {shm.total / 2 ** 30:.1f} GiB, "
+        f"{shm.free / 2 ** 30:.1f} GiB free")
+    by_path = {k.__name__: {} for k in quant.KERNELS}
+    figures = {}
+    reset_config()
+    rt.init(num_cpus=8, resources={"GPU": 1}, object_store_memory=4 << 30)
+    try:
+        raylet = rt_api._node.raylet
+        if raylet._policy._native is None or rt_api._node.gcs._policy._native \
+                is None:
+            fail("runtime: a scheduling policy runs without the native "
+                 "scheduler")
+        if raylet.store._arena is None:
+            fail("runtime: the object store runs without the arena")
+
+        # 2. a GPU task in a forked warm worker
+        x = torch.randn(RUNTIME_DEQUANT_SHAPE, device="cuda",
+                        dtype=torch.bfloat16) * 0.02
+        v, s = quant.quantize_int8(x)
+        want = quant.dequantize_int8(v, s, torch.bfloat16)
+        torch.cuda.synchronize()
+
+        @rt.remote(num_gpus=1)
+        def dequant_task(v, s):
+            import os
+
+            import torch as _torch
+
+            import ray_tpu_torch
+            from ray_tpu_torch.ops.kernels import quant as q
+
+            q.dequantize_int8.launches = 0
+            out = q.dequantize_int8(v, s, _torch.bfloat16)
+            _torch.cuda.synchronize()
+            return {"ids": ray_tpu_torch.get_gpu_ids(),
+                    "forked": os.environ.get("RAY_TPU_TORCH_WORKER_FORKED")
+                    == "1", "launches": q.dequantize_int8.launches,
+                    "cuda_device": _torch.cuda.current_device(), "out": out}
+
+        t = time.perf_counter()
+        got = rt.get(dequant_task.remote(v, s), timeout=300)
+        out = got["out"]
+        same = (out.device == torch.device("cuda", 0)
+                and torch.equal(out.view(torch.int16), want.view(torch.int16)))
+        log(f"runtime: GPU task {list(RUNTIME_DEQUANT_SHAPE)} in "
+            f"{time.perf_counter() - t:.2f} s: forked worker "
+            f"{got['forked']}, get_gpu_ids() {got['ids']}, its cuda device "
+            f"{got['cuda_device']}, dequant launches {got['launches']}, the "
+            f"driver's get of its CUDA tensor ({out.device}) equal to the "
+            f"driver's own launch bit for bit: {same}")
+        if not (got["forked"] and got["ids"] == [0] and got["launches"] == 1
+                and got["cuda_device"] == 0 and same):
+            fail("runtime: the GPU task in a forked worker")
+        by_path["dequantize_int8"]["runtime num_gpus=1 task (phase 17)"] = \
+            got["launches"]
+        del x, v, s, want, got, out
+        _runtime_wait_gpu(rt)
+
+        # 3. 256 MiB tensors through the store
+        cpu_gen = torch.Generator().manual_seed(seed)
+        n = RUNTIME_TENSOR_BYTES
+        for label, make, ints in (
+                ("CUDA float32", lambda: torch.randn(
+                    n // 4, device="cuda"), torch.int32),
+                ("CPU bf16", lambda: torch.randn(
+                    n // 2, generator=cpu_gen).to(torch.bfloat16),
+                 torch.int16)):
+            src = make()
+            put_s, get_s = [], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ref = rt.put(src)
+                t_put = time.perf_counter()
+                back = rt.get(ref)
+                torch.cuda.synchronize()
+                t_get = time.perf_counter()
+                if back.device != src.device or not torch.equal(
+                        back.view(ints), src.view(ints)):
+                    fail(f"runtime: a {label} tensor came back from the "
+                         f"store on {back.device}, not bit for bit")
+                put_s.append(t_put - t)
+                get_s.append(t_get - t_put)
+                del ref, back
+            put_gbs = n / statistics.median(put_s) / 1e9
+            get_gbs = n / statistics.median(get_s) / 1e9
+            figures[label] = (put_gbs, get_gbs)
+            log(f"runtime: put/get of a 256 MiB {label} tensor, bit for bit, "
+                f"put {put_gbs:.3f} GB/s, get {get_gbs:.3f} GB/s (median of "
+                f"3; put s {put_s}, get s {get_s}) [{card}]")
+            del src
+        torch.cuda.empty_cache()
+
+        # 4. grants: two halves share index 0; a whole card waits
+        @rt.remote
+        class Half:
+            def ids(self):
+                import ray_tpu_torch
+
+                return ray_tpu_torch.get_gpu_ids()
+
+        halves = [Half.options(num_gpus=0.5).remote() for _ in range(2)]
+        half_ids = rt.get([h.ids.remote() for h in halves], timeout=120)
+        left = rt.available_resources().get("GPU", 0.0)
+        for h in halves:
+            rt.kill(h)
+        _runtime_wait_gpu(rt)
+
+        @rt.remote(num_gpus=1)
+        def hold(seconds):
+            import time as _time
+
+            import ray_tpu_torch
+
+            start = _time.time()
+            _time.sleep(seconds)
+            return ray_tpu_torch.get_gpu_ids(), start, _time.time()
+
+        (ia, sa, ea), (ib, sb, eb) = rt.get([hold.remote(2.0),
+                                             hold.remote(0.0)], timeout=120)
+        waited = max(sa, sb) >= min(ea, eb) - 1e-3
+        log(f"runtime: two num_gpus=0.5 actors got {half_ids} (GPU left "
+            f"{left}); two num_gpus=1 tasks got {ia}, {ib}, the second "
+            f"started {max(sa, sb) - min(ea, eb):+.3f} s after the first "
+            f"released the card")
+        if half_ids != [[0], [0]] or left != 0.0 or ia != [0] or ib != [0] \
+                or not waited:
+            fail("runtime: the fractional or whole-card grants")
+        _runtime_wait_gpu(rt)
+
+        # 5. the serving actor
+        @rt.remote(num_gpus=1)
+        class Server:
+            def __init__(self, seed):
+                import torch as _torch
+
+                from ray_tpu_torch.models import ModelConfig, init_params
+                from ray_tpu_torch.models.serving import (
+                    ContinuousBatchingEngine)
+                from ray_tpu_torch.ops.kernels import quant as q
+
+                self.cfg = ModelConfig.llama3_8b()
+                params = init_params(self.cfg, seed=seed, device="cuda")
+                for k in q.KERNELS:  # this path's counts start here
+                    k.launches = 0
+                self.eng = ContinuousBatchingEngine(
+                    params, self.cfg, num_slots=NUM_SLOTS, max_len=MAX_LEN,
+                    quantize_weights=True, device="cuda")
+                del params
+                _torch.cuda.empty_cache()
+
+            def submit(self, prompt, n):
+                return self.eng.submit(prompt, max_new_tokens=n)
+
+            def run(self):
+                import torch as _torch
+
+                from ray_tpu_torch.ops.kernels import quant as q
+
+                self.eng.run_until_done()
+                _torch.cuda.synchronize()
+                return ({k.__name__: k.launches for k in q.KERNELS},
+                        self.eng.prefill_calls, self.eng.decode_steps)
+
+            def result(self, rid):
+                return self.eng.result(rid)
+
+        t = time.perf_counter()
+        server = Server.remote(seed)
+        rids = [rt.get(server.submit.remote(p, n), timeout=600)
+                for p, n in requests]
+        launches, prefills, steps = rt.get(server.run.remote(), timeout=600)
+        outs = rt.get([server.result.remote(r) for r in rids], timeout=60)
+        want = {"quantize_int8": 9,
+                "dequantize_int8": (7 * cfg.n_layers + 2) * (prefills + steps)}
+        equal = sum(o == w for o, w in zip(outs, w8_out, strict=True))
+        log(f"runtime: the num_gpus=1 serving actor (llama3_8b w8a16, seed "
+            f"{seed}) served {len(outs)} requests through actor calls in "
+            f"{time.perf_counter() - t:.2f} s ({prefills} prefill calls, "
+            f"{steps} decode steps); {equal}/{len(outs)} equal to phase 4's "
+            f"w8a16 outputs token for token; its launches {launches} "
+            f"(expected {want})")
+        if equal != len(outs):
+            fail("runtime: the serving actor's tokens differ from phase 4's")
+        if launches != want:
+            fail(f"runtime: the serving actor launched {launches}, not "
+                 f"{want}")
+        for k, n_launch in launches.items():
+            by_path[k]["runtime serving actor, w8a16 (phase 17)"] = n_launch
+        rt.kill(server)
+        _runtime_wait_gpu(rt)
+
+        # 6. NCCL at world 1 through the runtime's KV
+        @rt.remote(num_gpus=1)
+        class WorldOne:
+            def run(self):
+                import os
+
+                import torch as _torch
+                import torch.distributed as dist
+
+                from ray_tpu_torch.core.worker import current_worker
+                from ray_tpu_torch.parallel import (initialize_group,
+                                                    shutdown_group)
+
+                initialize_group(0, 1, device="cuda")
+                key = current_worker().gcs.call("kv_get", {
+                    "namespace": "_torch_distributed",
+                    "key": b"coordinator:default"})
+                x = _torch.full((4,), 3.0, device="cuda")
+                dist.all_reduce(x)
+                _torch.cuda.synchronize()
+                backend = dist.get_backend()
+                shutdown_group()
+                return {"kv": key.decode() if key else None,
+                        "backend": backend, "sum": x.tolist(),
+                        "master_addr": os.environ.get("MASTER_ADDR")}
+
+        w1 = WorldOne.remote()
+        res = rt.get(w1.run.remote(), timeout=300)
+        log(f"runtime: initialize_group at world 1 in an actor: backend "
+            f"{res['backend']}, rendezvous {res['kv']} from the KV, "
+            f"all_reduce {res['sum']}")
+        if res["backend"] != "nccl" or not res["kv"] or res["master_addr"] \
+                or res["sum"] != [3.0] * 4:
+            fail("runtime: initialize_group at world 1 through the KV")
+        rt.kill(w1)
+        _runtime_wait_gpu(rt)
+
+        # 8. figures: the actor round trip and a warm start
+        @rt.remote
+        class Echo:
+            def ping(self):
+                return None
+
+        echo = Echo.remote()
+        for _ in range(50):
+            rt.get(echo.ping.remote())
+        rtt = []
+        for _ in range(RUNTIME_PINGS):
+            t = time.perf_counter()
+            rt.get(echo.ping.remote())
+            rtt.append(1e6 * (time.perf_counter() - t))
+        rtt.sort()
+        figures["rtt_us"] = (statistics.median(rtt),
+                             rtt[int(0.99 * len(rtt))])
+        log(f"runtime: actor round trip {figures['rtt_us'][0]:.1f} us median,"
+            f" {figures['rtt_us'][1]:.1f} us p99 over {RUNTIME_PINGS} calls "
+            f"[{card}]")
+        rt.kill(echo)
+        figures["warm"] = _runtime_start_ms(rt, RUNTIME_STARTS)
+        stats = raylet._worker_pool.stats()
+        log(f"runtime: the pool's fork latency p50 {stats['fork_p50_ms']} ms, "
+            f"p99 {stats['fork_p99_ms']} ms; {stats['warm_starts']} warm and "
+            f"{stats['cold_starts']} cold starts")
+    finally:
+        rt.shutdown()
+    env = {"RAY_TPU_TORCH_WORKER_TEMPLATE_ENABLED": "0"}
+    os.environ.update(env)
+    reset_config()
+    rt.init(num_cpus=8, resources={"GPU": 1})
+    try:
+        figures["cold"] = _runtime_start_ms(rt, RUNTIME_SLOW_STARTS)
+    finally:
+        rt.shutdown()
+        for k in env:
+            del os.environ[k]
+        reset_config()
+    for label, key in (("warm, torch preloaded", "warm"), ("cold", "cold")):
+        med, times, forked = figures[key]
+        log(f"runtime: {label} worker start (actor created to its first "
+            f"call, which imports torch) {med:.1f} ms median of "
+            f"{len(times)} ({', '.join(f'{x:.1f}' for x in times)}); forked "
+            f"{forked} [{card}]")
+        if forked != [key != "cold"] * len(forked):
+            fail(f"runtime: the {label} starts did not take that path")
+    log(f"runtime: phase {time.perf_counter() - t0:.2f} s")
+    return by_path
+
+
 def plan_phase(torch, card: str, seed: int, cfg, default_run) -> None:
     """Phase 14: print eightb_plan(); `_budget` at the 8-layer config on one
     card against the live state of phase 8 (params, grads, optimizer, byte
@@ -3712,6 +4082,7 @@ def main() -> int:
     if launches != want:
         fail(f"kernel launch counts {launches} != expected {want}")
     qparams = qeng.params
+    w8_out = [qeng.result(r) for r in qrids]  # phase 17 serves these again
     agree = teacher_forced_agreement(torch, qparams, cfg,
                                      qeng.result(qrids[0]),
                                      len(requests[0][0]))
@@ -3821,6 +4192,11 @@ def main() -> int:
                                      train_cfg).items():
         sharded_launches.setdefault(kname, {}).update(paths)
 
+    # ---- phase 17: the runtime on the card: a GPU task, the store, the
+    # grants, the 8B w8a16 serving actor, NCCL at world 1, native libraries
+    runtime_launches = runtime_phase(torch, card, args.seed, cfg, requests,
+                                     w8_out)
+
     # ---- phase 16: report
     pallas = "ray_tpu/ops/pallas/"
     replaces = {"quantize_int8": pallas + "quant.py:19",
@@ -3909,6 +4285,10 @@ def main() -> int:
                                                 / TRAIN_STEPS)
             kernels[-1]["launches_by_path"] = {
                 **by_path[kname], **sharded_launches.get(kname, {})}
+        if kname in runtime_launches:
+            kernels[-1]["launches_by_path"] = {
+                "ContinuousBatchingEngine w8a16 (phase 4)": launches[kname],
+                **runtime_launches[kname]}
         if kname in f32_launches:
             kernels[-1]["launches_per_step"] = (f32_launches[kname]
                                                 / F32_TINY_STEPS)

@@ -19,8 +19,9 @@ path does, and its numbers are no device measurement.
 `profile_train` runs a few steps under torch.profiler: device time per step,
 the device-idle share of the window and the kernels that take the time (the
 collectives also by NCCL operation).
-The transfer half of the reference's bench needs the runtime and waits for
-its port (ROADMAP.md queue A item 8).
+The transfer half of the reference's bench (an object moved between two
+raylets of one process) is not ported yet (ROADMAP.md queue A item 8); the
+runtime it runs on is `ray_tpu_torch.core`.
 """
 
 from __future__ import annotations

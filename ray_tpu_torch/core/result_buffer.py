@@ -1,0 +1,261 @@
+"""Executor-side batched result delivery (the return-path sibling of
+`task_events.py`'s TaskEventBuffer).
+
+Every finished task used to push its results to the owner as one
+`report_task_result` notify, and the owner paid one `_obj_cv.notify_all()`
+wakeup per task. Under a deep queue of small tasks the control plane
+saturates on exactly that per-completion traffic (the JAX package's
+CPU-host ENVELOPE_r05: 583 submits/s vs 81 completions/s). This buffer coalesces results PER OWNER:
+
+- **Adaptive flush**: delivery runs on a dedicated flush thread. When no
+  delivery is in flight, a reported result wakes the thread and ships
+  immediately (one thread hop — single-task round-trip latency stays in
+  the same regime, and the executor thread never blocks on the owner's
+  socket). When results arrive WHILE a delivery is on the wire — the
+  deep-queue regime, where completion rate exceeds delivery rate — they
+  batch until the `result_buffer_flush_interval_ms` edge and one notify
+  per owner carries all of them. The load signal is an actual in-flight
+  delivery, not wall-clock spacing: a sequential caller's round-trips
+  never wait out the interval.
+- **No silent loss**: a flush whose owner link is down requeues the batch
+  (ahead of anything buffered since, preserving completion order) and
+  retries, bounded by `result_delivery_max_attempts` before the results
+  are dropped with a warning — the same at-least-tried contract
+  TaskEventBuffer's try_notify requeue gives task events. Self-scheduled
+  retries back off exponentially with full jitter (util/backoff.py, base
+  = the flush interval, cap = `result_retry_backoff_cap_ms`) instead of
+  hammering a dead owner every interval; an explicit flush (new results,
+  shutdown) still retries immediately, preserving per-owner order.
+
+The owner side (`CoreWorker.rpc_report_task_result`) accepts the multi-task
+`{"batch": [(task_id, results), ...]}` payload and collapses the per-task
+condition-variable wakeups into one `notify_all` per batch.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from collections import OrderedDict
+from typing import Dict, List
+
+from ray_tpu_torch.core.config import get_config
+
+logger = logging.getLogger(__name__)
+
+
+class ResultBuffer:
+    def __init__(self, worker):
+        self._worker = worker
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        # owner address -> [[task_id, results, attempts], ...] in completion
+        # order (OrderedDict so flush delivers owners in first-result order)
+        self._buffers: "OrderedDict[str, List[list]]" = OrderedDict()
+        # owners backing off after failed deliveries:
+        # owner -> [not_before_monotonic, [[task_id, results, attempts]...]]
+        # — re-merged AHEAD of newer results at the next flush
+        self._deferred: "OrderedDict[str, list]" = OrderedDict()
+        # monotonic deadline of the scheduled flush; None = no flush claimed.
+        # Also the immediate path's claim token: concurrent reporters that
+        # see it non-None just append and ride the claimed flush.
+        self._deadline = None
+        self._last_flush = 0.0
+        self._thread = None
+        self._stopped = False
+        self._inflight = 0  # deliveries between buffer-swap and wire
+        # Serializes flush bodies (swap + deliver + requeue): without it a
+        # concurrent flush (stop(), tests) could deliver an owner's NEWER
+        # results while an older failed batch was still waiting to requeue,
+        # breaking per-owner completion order.
+        self._flush_mutex = threading.Lock()
+        # instrumentation for tests/benchmarks
+        self.flush_count = 0
+        self.immediate_count = 0
+
+    # ------------------------------------------------------------- reporting
+    def report(self, owner: str, task_id, results) -> None:
+        """Buffer one task's results for `owner`; the flush thread ships
+        them ASAP when idle, interval-batched while a delivery is in
+        flight."""
+        interval = get_config().result_buffer_flush_interval_ms / 1000.0
+        with self._lock:
+            if not self._stopped and owner in self._deferred:
+                # the owner is backing off after failed deliveries: join the
+                # deferred batch so completion order holds when it re-merges
+                self._deferred[owner][1].append([task_id, results, 0])
+                self._ensure_thread_locked()
+                self._cond.notify_all()
+                return
+            self._buffers.setdefault(owner, []).append([task_id, results, 0])
+            if self._stopped:
+                # after stop() no thread will ever drain a deferred flush:
+                # drain synchronously (a concurrent flush makes this a no-op)
+                drain = True
+            else:
+                drain = False
+                if self._deadline is None:
+                    if self._inflight > 0:
+                        # a delivery is on the wire: results are arriving
+                        # faster than they ship — batch to the interval edge
+                        self._deadline = self._last_flush + interval
+                    else:
+                        # idle: ship as soon as the flush thread wakes
+                        self._deadline = time.monotonic()
+                        self.immediate_count += 1
+                    self._ensure_thread_locked()
+                    self._cond.notify_all()
+                # else: a flush is already claimed; these results ride it
+        if drain:
+            self.flush()
+
+    def flush(self) -> None:
+        """Deliver everything buffered, one notify per owner."""
+        with self._flush_mutex:
+            with self._lock:
+                # deferred batches re-merge AHEAD of anything buffered since
+                # (per-owner completion order is the contract); any flush
+                # retries them — the backoff only paces the SELF-scheduled
+                # retry wakeups, never delays an explicit flush
+                for owner, (_t, items) in list(self._deferred.items()):
+                    self._buffers.setdefault(owner, [])[:0] = items
+                self._deferred.clear()
+                buffers, self._buffers = self._buffers, OrderedDict()
+                self._deadline = None
+                self._last_flush = time.monotonic()
+                if buffers:
+                    self._inflight += 1
+            if not buffers:
+                return
+            try:
+                for owner, items in buffers.items():
+                    self._deliver(owner, items)
+                self.flush_count += 1
+            finally:
+                with self._lock:
+                    self._inflight -= 1
+                    self._cond.notify_all()
+
+    def _deliver(self, owner: str, items: List[list]) -> None:
+        w = self._worker
+        payload = {"batch": [(tid, res) for tid, res, _ in items]}
+        if getattr(w, "actor_id", None) is not None:
+            # one process = one actor incarnation: stamp the batch so a
+            # late delivery from a superseded instance (partition heal) is
+            # rejected at the owner instead of resolving a pinned call
+            payload["actor_incarnation"] = w._actor_incarnation
+        try:
+            w.peer(owner).notify("report_task_result", payload)
+            return
+        except Exception:
+            with w._peers_lock:  # drop the stale cached connection
+                w._peers.pop(owner, None)
+        # Retry on a fresh SHORT-TIMEOUT connection: flushes for different
+        # owners run sequentially, so a dead owner must not hold the shared
+        # path for a full rpc_connect_timeout_s reconnect (close() still
+        # flushes the kernel buffer, same one-shot idiom as raylet pushes).
+        try:
+            from ray_tpu_torch.core import rpc
+
+            cli = rpc.RpcClient(owner, connect_timeout=2)
+            try:
+                cli.notify("report_task_result", payload)
+                return
+            finally:
+                cli.close()
+        except Exception:
+            pass
+        # Owner unreachable right now: requeue AHEAD of anything buffered
+        # since (completion order per owner is part of the contract), bounded
+        # per item so a dead owner can't pin its batch forever.
+        max_attempts = max(1, get_config().result_delivery_max_attempts)
+        keep = []
+        for tid, res, attempts in items:
+            if attempts + 1 < max_attempts:
+                keep.append([tid, res, attempts + 1])
+            else:
+                logger.warning(
+                    "dropping results of task %s: owner %s unreachable "
+                    "after %d delivery attempts", tid, owner, attempts + 1)
+        if not keep:
+            return
+        cfg = get_config()
+        from ray_tpu_torch.util.backoff import ExponentialBackoff
+
+        backoff = ExponentialBackoff(
+            base_s=max(0.001, cfg.result_buffer_flush_interval_ms / 1000.0),
+            cap_s=max(0.001, cfg.result_retry_backoff_cap_ms / 1000.0))
+        with self._lock:
+            if self._stopped:
+                # the process is exiting; nothing will drain a requeue. The
+                # raylet's recent-done failover (task_worker_died after the
+                # retiring worker's grace window) is the owner's backstop.
+                logger.warning(
+                    "exiting with %d undeliverable task results for owner %s",
+                    len(keep), owner)
+                return
+            # Defer with full-jitter backoff scaled by how often this batch
+            # already failed: a down owner (e.g. mid head replacement) gets
+            # progressively rarer self-scheduled retries instead of one per
+            # flush interval.
+            ent = self._deferred.get(owner)
+            if ent is None:
+                not_before = time.monotonic() + backoff.delay_for(keep[0][2])
+                self._deferred[owner] = [not_before, keep]
+            else:
+                ent[1][:0] = keep
+            self._ensure_thread_locked()
+            self._cond.notify_all()
+
+    # ------------------------------------------------------- deferred flusher
+    def _ensure_thread_locked(self) -> None:
+        """Caller holds _lock. Lazily start the deferred-flush thread (a
+        process whose results always go out on the immediate path never
+        spawns it)."""
+        if self._thread is None or not self._thread.is_alive():
+            t = threading.Thread(target=self._loop, name="result-buffer",
+                                 daemon=True)
+            self._thread = t
+            t.start()
+
+    def _loop(self) -> None:
+        while True:
+            due = False
+            with self._lock:
+                if self._stopped or self._worker._shutdown.is_set():
+                    return
+                nxt = self._deadline
+                for not_before, _items in self._deferred.values():
+                    nxt = not_before if nxt is None else min(nxt, not_before)
+                if nxt is None:
+                    self._cond.wait(timeout=5.0)
+                else:
+                    delay = nxt - time.monotonic()
+                    if delay > 0:
+                        self._cond.wait(timeout=delay)
+                    else:
+                        due = True
+            if due:
+                try:
+                    self.flush()
+                except Exception:
+                    logger.debug("result flush failed", exc_info=True)
+
+    def stop(self) -> None:
+        """Final flush at shutdown/recycle: buffered results must never be
+        lost to a clean exit (the owner would see the task hang until the
+        raylet's worker-death notification failed it). Also WAITS for any
+        delivery the loop thread has in flight — callers os._exit(0) right
+        after stop(), which must not cut a swapped-out batch mid-wire."""
+        with self._lock:
+            self._stopped = True
+            self._cond.notify_all()
+        try:
+            self.flush()
+        except Exception:
+            logger.debug("final result flush failed", exc_info=True)
+        deadline = time.monotonic() + 5.0
+        with self._lock:
+            while self._inflight > 0 and time.monotonic() < deadline:
+                self._cond.wait(timeout=0.1)

@@ -8,12 +8,14 @@ hold: idempotent for one group, a RuntimeError for a second one, a world
 of 1 allowed, and `timeout` the process group's, so a rank that never
 arrives or a collective that hangs fails instead of stalling.
 
-Rendezvous comes from `init_method` (e.g. "tcp://localhost:29500") or
-from the environment `torchrun` and `torch.multiprocessing` launchers set
-(MASTER_ADDR, MASTER_PORT); a world of 1 needs neither. The reference's
-rendezvous through the runtime's KV store waits for the runtime's port
-(ROADMAP.md queue A item 8), and `initialize_from_session` for the Train
-session's (item 9).
+Rendezvous comes, in this order, from `init_method` (e.g.
+"tcp://localhost:29500"); inside a task or actor of the port's runtime
+(`ray_tpu_torch.core`), from its KV store, as the reference's does: rank 0
+binds a free port and publishes `host:port` under the group's key, every
+rank reads it (a world of 1 too); from the environment `torchrun` and
+`torch.multiprocessing` launchers set (MASTER_ADDR, MASTER_PORT); a world
+of 1 needs none of them. `initialize_from_session` waits for the Train
+session (ROADMAP.md queue A item 9).
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ from __future__ import annotations
 import datetime
 import logging
 import os
+import socket
+import sys
+import time
 from typing import Optional
 
 import torch
@@ -29,7 +34,54 @@ from ray_tpu_torch.ops.kernels._util import require_cuda
 
 logger = logging.getLogger(__name__)
 
+_KV_NS = "_torch_distributed"
 _initialized_group: Optional[str] = None
+
+
+def _runtime_worker():
+    """The port runtime's worker of this process when it runs a task or an
+    actor, else None. Looked up without importing the runtime."""
+    worker_mod = sys.modules.get("ray_tpu_torch.core.worker")
+    w = worker_mod.current_worker() if worker_mod is not None else None
+    return w if w is not None and getattr(w, "mode", None) == "worker" \
+        else None
+
+
+def _kv_rendezvous(worker, rank: int, group_name: str,
+                   timeout: float) -> str:
+    """The reference's rendezvous: rank 0 binds a free port on its host and
+    publishes `host:port` under the group's KV key; every other rank polls
+    the key until a coordinator listens there. Returns the init_method."""
+    key = f"coordinator:{group_name}".encode()
+    gcs = worker.gcs
+    if rank == 0:
+        addr = worker.address
+        host = addr.rsplit(":", 1)[0] if ":" in addr else "127.0.0.1"
+        # hold the bound socket until the key is out, then hand the port to
+        # the process group's store, which binds it again
+        s = socket.socket()
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind((host, 0))
+        coord = f"{s.getsockname()[0]}:{s.getsockname()[1]}"
+        gcs.call("kv_put", {"namespace": _KV_NS, "key": key,
+                            "value": coord.encode()})
+        s.close()
+        return f"tcp://{coord}"
+    # a stale key from an earlier run of this group may still be in the KV:
+    # accept only a coordinator that is listening
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        v = gcs.call("kv_get", {"namespace": _KV_NS, "key": key})
+        if v:
+            host, port = v.decode().rsplit(":", 1)
+            try:
+                socket.create_connection((host, int(port)), timeout=1).close()
+                return f"tcp://{v.decode()}"
+            except OSError:
+                pass
+        time.sleep(0.1)
+    raise TimeoutError(f"rank {rank}: no live coordinator for group "
+                       f"{group_name!r} within {timeout}s")
 
 
 def _local_rank(rank: int) -> int:
@@ -72,8 +124,12 @@ def initialize_group(rank: int, world_size: int, *,
         torch.cuda.set_device(local)
         kwargs.update(backend="nccl",
                       device_id=torch.device("cuda", local))
+    worker = _runtime_worker()
     if init_method is not None:
         kwargs["init_method"] = init_method
+    elif worker is not None and "MASTER_ADDR" not in os.environ:
+        kwargs["init_method"] = _kv_rendezvous(worker, rank, group_name,
+                                               timeout)
     elif world_size == 1 and "MASTER_ADDR" not in os.environ:
         kwargs["store"] = dist.HashStore()
     logger.info("rank %d/%d joining torch.distributed (%s)", rank,
@@ -101,4 +157,12 @@ def shutdown_group(group_name: str = "default") -> None:
         return
     if dist.is_initialized():
         dist.destroy_process_group()
+    worker = _runtime_worker()
+    if worker is not None:
+        try:
+            worker.gcs.call("kv_del", {
+                "namespace": _KV_NS,
+                "key": f"coordinator:{group_name}".encode()})
+        except (OSError, RuntimeError, TimeoutError):
+            pass  # control plane already down at interpreter exit
     _initialized_group = None

@@ -47,7 +47,27 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "ray_tpu_torch.parallel.expert",
                  "ray_tpu_torch.parallel.pipeline",
                  "ray_tpu_torch.ops.moe",
-                 "ray_tpu_torch.multichip"):
+                 "ray_tpu_torch.multichip",
+                 "ray_tpu_torch._version",
+                 "ray_tpu_torch.runtime_env",
+                 "ray_tpu_torch.core.api",
+                 "ray_tpu_torch.core.worker",
+                 "ray_tpu_torch.core.worker_main",
+                 "ray_tpu_torch.core.worker_pool",
+                 "ray_tpu_torch.core.raylet",
+                 "ray_tpu_torch.core.gcs",
+                 "ray_tpu_torch.core.node_main",
+                 "ray_tpu_torch.core.cluster",
+                 "ray_tpu_torch.core.serialization",
+                 "ray_tpu_torch.core.object_store",
+                 "ray_tpu_torch.core.arena",
+                 "ray_tpu_torch.core.native_scheduler",
+                 "ray_tpu_torch.core.placement_group",
+                 "ray_tpu_torch.client.client",
+                 "ray_tpu_torch.client.server",
+                 "ray_tpu_torch.util",
+                 "ray_tpu_torch.util.collective",
+                 "ray_tpu_torch.util.profiler"):
         assert name in modules
     code = (
         "import importlib, json, sys\n"
