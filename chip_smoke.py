@@ -256,6 +256,18 @@ Phases (any failure exits non-zero and prints no result line):
      native scheduler and arena loaded; the actor round trip (µs) and the
      warm (torch preloaded in the fork template) and cold worker start
      (ms).
+ 18. (after 17) Serve on the card, in a fresh `init(resources={"GPU":
+     1})`: `LLMDeployment` at llama3_8b width with 4 layers (random bf16
+     weights from the seed, held as host tensors in the class closure) in
+     w8a16 from a `num_gpus=1` replica (the deploy's seconds and the
+     pickled definition's bytes logged); phase 4's 12 requests through
+     the handle one at a time, token for token an engine in the driver on
+     the same params fed the same way, quant_rows and dequant_rows with
+     that engine's exact counts (read through a subclass's extra method;
+     added to `launches_by_path`); the 12 at once (tokens/s logged, 7·L +
+     2 dequants a pass); request 0 streamed over HTTP equal to the
+     handle's tokens; servebench's latency row on b1 (5 s at 6 rps, 16 new
+     tokens) with hung 0 and errors 0.
 
 Imports torch and the port only (never jax, never ray_tpu).
 """
@@ -3742,7 +3754,14 @@ def runtime_phase(torch, card: str, seed: int, cfg, requests, w8_out):
 
         halves = [Half.options(num_gpus=0.5).remote() for _ in range(2)]
         half_ids = rt.get([h.ids.remote() for h in halves], timeout=120)
+        # the GCS's view of a node trails its raylet by up to one
+        # resource_broadcast_period_ms (100 ms): give it 5 s to show both
+        # halves charged
+        deadline = time.monotonic() + 5.0
         left = rt.available_resources().get("GPU", 0.0)
+        while left != 0.0 and time.monotonic() < deadline:
+            time.sleep(0.05)
+            left = rt.available_resources().get("GPU", 0.0)
         for h in halves:
             rt.kill(h)
         _runtime_wait_gpu(rt)
@@ -3766,7 +3785,9 @@ def runtime_phase(torch, card: str, seed: int, cfg, requests, w8_out):
             f"released the card")
         if half_ids != [[0], [0]] or left != 0.0 or ia != [0] or ib != [0] \
                 or not waited:
-            fail("runtime: the fractional or whole-card grants")
+            fail(f"runtime: the fractional or whole-card grants (halves "
+                 f"{half_ids}, GPU left {left}, wholes {ia} {ib}, second "
+                 f"waited {waited})")
         _runtime_wait_gpu(rt)
 
         # 5. the serving actor
@@ -3916,6 +3937,311 @@ def runtime_phase(torch, card: str, seed: int, cfg, requests, w8_out):
         if forked != [key != "cold"] * len(forked):
             fail(f"runtime: the {label} starts did not take that path")
     log(f"runtime: phase {time.perf_counter() - t0:.2f} s")
+    return by_path
+
+
+# Phase 18: Serve at Llama-3-8B width, cut to SERVE_LAYERS layers (a 3.85 GB
+# bf16 closure), and servebench's latency row at b1 in bf16.
+SERVE_LAYERS = 4
+SERVE_LATENCY = dict(duration_s=5.0, rps=6.0, max_new_tokens=16)
+# The burst's replies against a teacher-forced prefill over each finished
+# sequence (phase 4's gate, pooled over the 12), and each reply alone: one
+# that carried another request's tokens would agree at ~1/vocab.
+SERVE_BURST_POOLED, SERVE_BURST_EACH = 0.9, 0.5
+# The spans a deploy leaves in timeline(), by process (serve/api.py and the
+# worker's argument get, task::get_arg).
+DEPLOY_SPANS = {
+    "driver": ("serve::pickle_definition", "serve::submit_deploy",
+               "serve::await_deploy"),
+    "controller": ("task::get_arg", "serve::checkpoint_pickle",
+                   "serve::checkpoint_kv_put", "serve::put_definition"),
+    "replica": ("task::get_arg", "serve::replica_unpickle",
+                "serve::replica_construct"),
+}
+
+
+def _rss() -> int:
+    """This process's resident bytes now."""
+    import os
+
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _deploy_spans(rt, since_us: float) -> dict:
+    """{process: {span: (count, seconds)}} of the deploy that began at
+    `since_us` (epoch µs), read from `timeline()`; the controller and the
+    replica are the processes of their own serve spans. Waits for the
+    workers' span batches to reach the GCS, and fails if a span is missing.
+    """
+    import os
+
+    deadline = time.monotonic() + 60
+    while True:
+        events = [e for e in rt.timeline()
+                  if e.get("ph") == "X" and e["ts"] >= since_us]
+        pid = {"driver": {os.getpid()}}
+        for proc, names in DEPLOY_SPANS.items():
+            if proc != "driver":
+                pid[proc] = {e["pid"] for e in events
+                             if e["name"] in names[1:]}
+        out = {proc: {n: [0, 0.0] for n in names}
+               for proc, names in DEPLOY_SPANS.items()}
+        for e in events:
+            for proc, names in DEPLOY_SPANS.items():
+                if e["name"] in names and e["pid"] in pid[proc]:
+                    out[proc][e["name"]][0] += 1
+                    out[proc][e["name"]][1] += e["dur"] / 1e6
+        if all(c for d in out.values() for c, _ in d.values()):
+            return {proc: {n: tuple(v) for n, v in d.items()}
+                    for proc, d in out.items()}
+        if time.monotonic() > deadline:
+            fail(f"serve: the deploy's spans are not all in timeline(): "
+                 f"{out}")
+        time.sleep(0.5)
+
+
+def _stream_tokens(port: int, path: str, payload) -> list:
+    """The tokens of a chunked `?stream=1` response, one JSON line each."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, body=json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            fail(f"serve: HTTP stream answered {resp.status}: "
+                 f"{resp.read()[:300]!r}")
+        return [json.loads(line) for line in resp.read().splitlines()
+                if line.strip()]
+    finally:
+        conn.close()
+
+
+def serve_phase(torch, card: str, seed: int, requests) -> dict:
+    """Phase 18: the port's Serve on the card. `ray_tpu_torch.init(
+    resources={"GPU": 1})`; `LLMDeployment` at Llama-3-8B width with
+    SERVE_LAYERS layers (random bf16 weights from `seed`, kept on the host
+    in the class closure) in w8a16, deployed with `ray_actor_options=
+    {"num_gpus": 1}` as a subclass whose extra method reports the
+    replica's launch counts, its grant and its engine's passes; phase 4's
+    12 requests through the handle one at a time, token for token a
+    ContinuousBatchingEngine in the driver on the same params in w8a16 fed
+    the same way, with its exact launch counts; the deploy's time by
+    process and span (`timeline()`); the 12 again all at once (tokens/s
+    logged, each reply its own prompt's, and its tokens a teacher-forced
+    prefill's on the driver's w8a16 params, pooled and one by one;
+    dequant_rows 7·L + 2 a pass); request 0 streamed over HTTP (`POST /LLMDeployment/stream?
+    stream=1`), its tokens the handle's; then servebench's latency row on
+    b1 (max_len 2048, 5 s at 6 rps, 16 new tokens), hung 0 and errors 0.
+    Returns {kernel: {path: launches}}."""
+    import cloudpickle
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core.config import reset_config
+    from ray_tpu_torch.models import ModelConfig, init_params
+    from ray_tpu_torch.models.servebench import (_bench_model,
+                                                 measure_latency_under_load)
+    from ray_tpu_torch.models.serving import (ContinuousBatchingEngine,
+                                              LLMDeployment, _tree_to)
+    from ray_tpu_torch.models.transformer import tree_leaves
+    from ray_tpu_torch.ops.kernels import quant
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(ModelConfig.llama3_8b(), n_layers=SERVE_LAYERS)
+    params = init_params(cfg, seed=seed, device="cuda")
+    host = _tree_to(params, torch.device("cpu"))
+    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(host))
+
+    # the reference: an engine in the driver, the requests one at a time
+    for k in quant.KERNELS:
+        k.launches = 0
+    eng = ContinuousBatchingEngine(params, cfg, num_slots=NUM_SLOTS,
+                                   max_len=MAX_LEN, quantize_weights=True,
+                                   device="cuda")
+    load = {k.__name__: k.launches for k in quant.KERNELS}
+    want_out = [eng.generate(p, max_new_tokens=n) for p, n in requests]
+    torch.cuda.synchronize()
+    per_pass = 7 * cfg.n_layers + 2
+    passes = eng.prefill_calls + eng.decode_steps
+    want = {"quantize_int8": load["quantize_int8"],
+            "dequantize_int8": quant.dequantize_int8.launches}
+    if load != {"quantize_int8": 9, "dequantize_int8": 0} or \
+            want["dequantize_int8"] != per_pass * passes:
+        fail(f"serve: the driver's engine launched {load} at load and "
+             f"{want['dequantize_int8']} dequants over {passes} passes")
+    qparams = eng.params  # the burst's teacher-forced check reads these
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    class Counted(LLMDeployment(host, cfg, num_slots=NUM_SLOTS,
+                                max_len=MAX_LEN, quantize_weights=True)):
+        """LLMDeployment with the replica's counts readable: they start at
+        0 where the replica starts, before the engine's load."""
+
+        def __init__(self):
+            from ray_tpu_torch.ops.kernels import quant as q
+
+            for k in q.KERNELS:
+                k.launches = 0
+            super().__init__()
+
+        def counts(self):
+            import resource
+
+            import torch as _torch
+
+            import ray_tpu_torch
+            from ray_tpu_torch.ops.kernels import quant as q
+
+            _torch.cuda.synchronize()
+            return {"launches": {k.__name__: k.launches for k in q.KERNELS},
+                    "passes": (self.engine.prefill_calls
+                               + self.engine.decode_steps),
+                    "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+                    "device": str(self.engine.device),
+                    "current": _torch.cuda.current_device(),
+                    "peak_rss": resource.getrusage(
+                        resource.RUSAGE_SELF).ru_maxrss << 10}
+
+    t = time.perf_counter()
+    blob = len(cloudpickle.dumps(Counted))
+    pickle_s = time.perf_counter() - t
+    log(f"serve: llama3_8b width, {cfg.n_layers} layers, "
+        f"{sum(x.numel() for x in tree_leaves(host)) / 1e9:.3f}B params, "
+        f"{nbytes / 1e9:.3f} GB of bf16 host tensors in the class closure; "
+        f"its pickled definition {blob / 1e9:.3f} GB in {pickle_s:.2f} s")
+
+    by_path = {k.__name__: {} for k in quant.KERNELS}
+    reset_config()
+    rt.init(num_cpus=8, resources={"GPU": 1}, object_store_memory=24 << 30)
+    try:
+        t = time.perf_counter()
+        t_us = time.time() * 1e6
+        handle = serve.run(serve.deployment(
+            Counted, name="LLMDeployment",
+            ray_actor_options={"num_gpus": 1}).bind())
+        run_s = time.perf_counter() - t
+        counts = handle.options(method_name="counts")
+        first = rt.get(counts.remote(), timeout=900)
+        ready_s = time.perf_counter() - t
+        log(f"serve: deployed in {ready_s:.2f} s (serve.run returned after "
+            f"{run_s:.2f} s; {nbytes / ready_s / 1e9:.3f} GB/s of weights to "
+            f"a ready replica); host memory: the driver's resident "
+            f"{_rss() / 1e9:.2f} GB, the replica's peak "
+            f"{first['peak_rss'] / 1e9:.2f} GB; the replica got GPU "
+            f"{first['gpu_ids']}, its engine on {first['device']} (current "
+            f"device {first['current']}), launches at load "
+            f"{first['launches']} [{card}]")
+        if first["gpu_ids"] != [0] or first["current"] != 0 or \
+                first["device"] != "cuda:0" or first["launches"] != load:
+            fail("serve: the replica's grant, device or load launches")
+        spans = _deploy_spans(rt, t_us)
+        log(f"serve: where the deploy went (timeline() spans, seconds; "
+            f"count where not 1): " + "; ".join(
+                f"{proc} " + ", ".join(
+                    f"{n.split('::')[1]} {sec:.2f}"
+                    + (f" x{c}" if c != 1 else "")
+                    for n, (c, sec) in d.items())
+                for proc, d in spans.items()) + f" [{card}]")
+
+        t = time.perf_counter()
+        outs = [rt.get(handle.remote({"prompt": p, "max_new_tokens": n}),
+                       timeout=600) for p, n in requests]
+        seq_s = time.perf_counter() - t
+        after_seq = rt.get(counts.remote(), timeout=60)
+        equal = sum(o == w for o, w in zip(outs, want_out, strict=True))
+        n_new = sum(n for _, n in requests)
+        log(f"serve: {len(outs)} requests through the handle one at a time "
+            f"in {seq_s:.2f} s ({n_new / seq_s:.1f} tokens/s); "
+            f"{equal}/{len(outs)} equal to the driver's engine token for "
+            f"token; the replica's launches {after_seq['launches']} over "
+            f"{after_seq['passes']} passes (the driver's {want} over "
+            f"{passes}) [{card}]")
+        if equal != len(outs):
+            fail("serve: the replica's tokens differ from the driver's "
+                 "engine")
+        if after_seq["launches"] != want:
+            fail(f"serve: the replica launched {after_seq['launches']}, "
+                 f"not the driver engine's {want}")
+
+        t = time.perf_counter()
+        refs = [handle.remote({"prompt": p, "max_new_tokens": n})
+                for p, n in requests]
+        burst = rt.get(refs, timeout=600)
+        burst_s = time.perf_counter() - t
+        for out, (p, n) in zip(burst, requests):
+            if len(out) != len(p) + n or out[:len(p)] != p or \
+                    not all(0 <= x < cfg.vocab_size for x in out):
+                fail("serve: a request of the burst came back malformed")
+        fracs = [teacher_forced_agreement(torch, qparams, cfg, out, len(p))
+                 for out, (p, _) in zip(burst, requests)]
+        pooled = (sum(f * n for f, (_, n) in zip(fracs, requests))
+                  / sum(n for _, n in requests))
+        log(f"serve: the burst's teacher-forced agreement {pooled:.4f} "
+            f"pooled (each: {', '.join(f'{f:.3f}' for f in fracs)})")
+        if pooled < SERVE_BURST_POOLED or min(fracs) < SERVE_BURST_EACH:
+            fail(f"serve: the burst's replies disagree with a prefill over "
+                 f"them: pooled {pooled}, least {min(fracs)}")
+        after_burst = rt.get(counts.remote(), timeout=60)
+        d_passes = after_burst["passes"] - after_seq["passes"]
+        d_deq = (after_burst["launches"]["dequantize_int8"]
+                 - after_seq["launches"]["dequantize_int8"])
+        log(f"serve: the {len(refs)} requests at once in {burst_s:.2f} s "
+            f"({n_new / burst_s:.1f} tokens/s, {d_passes} passes); "
+            f"{sum(o == w for o, w in zip(burst, outs))}/{len(burst)} equal "
+            f"to the one-at-a-time outputs (batched together, the products "
+            f"see other shapes); dequant_rows {d_deq} [{card}]")
+        if d_deq != per_pass * d_passes:
+            fail(f"serve: {d_deq} dequants over {d_passes} passes, not "
+                 f"{per_pass} a pass")
+
+        _, port = serve.start_http_proxy()
+        prompt, n = requests[0]
+        t = time.perf_counter()
+        streamed = _stream_tokens(port, "/LLMDeployment/stream?stream=1",
+                                  {"prompt": prompt, "max_new_tokens": n})
+        log(f"serve: request 0 streamed over HTTP in "
+            f"{time.perf_counter() - t:.2f} s, {len(streamed)} tokens, "
+            f"equal to the handle's: {prompt + streamed == outs[0]}")
+        if prompt + streamed != outs[0]:
+            fail("serve: the HTTP stream's tokens differ from the handle's")
+        final = rt.get(counts.remote(), timeout=60)
+        if final["launches"]["dequantize_int8"] != per_pass * final["passes"]:
+            fail(f"serve: the replica's launches {final['launches']} over "
+                 f"{final['passes']} passes")
+        for k, n_launch in final["launches"].items():
+            by_path[k]["Serve LLMDeployment replica, w8a16 (phase 18)"] = \
+                n_launch
+        serve.delete("LLMDeployment")
+        del handle, counts, Counted, host, qparams
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # servebench's latency row: b1 in bf16, one num_gpus=1 replica
+        b1, b1_cfg, b1_len = _bench_model(quick=False, device="cuda")
+        t = time.perf_counter()
+        row = measure_latency_under_load(b1, b1_cfg, max_len=b1_len,
+                                         device="cuda", **SERVE_LATENCY)
+        del b1
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"serve: servebench latency row, b1 bf16 (max_len {b1_len}) "
+            f"through a num_gpus=1 replica, {time.perf_counter() - t:.2f} s "
+            f"with the deploy [{card}]: {json.dumps(row)}")
+        if row["hung"] or row["errors"] or not row["accepted"]:
+            fail(f"serve: the latency row has hung {row['hung']}, errors "
+                 f"{row['errors']}, accepted {row['accepted']}")
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+            reset_config()
+    log(f"serve: phase {time.perf_counter() - t_phase:.2f} s")
     return by_path
 
 
@@ -4196,6 +4522,11 @@ def main() -> int:
     # grants, the 8B w8a16 serving actor, NCCL at world 1, native libraries
     runtime_launches = runtime_phase(torch, card, args.seed, cfg, requests,
                                      w8_out)
+    # ---- phase 18: Serve: LLMDeployment at 8B width (4 layers) in w8a16
+    # from a num_gpus=1 replica, and servebench's latency row at b1
+    for kname, paths in serve_phase(torch, card, args.seed,
+                                    requests).items():
+        runtime_launches.setdefault(kname, {}).update(paths)
 
     # ---- phase 16: report
     pallas = "ray_tpu/ops/pallas/"

@@ -19,6 +19,9 @@ with the chip grant a GPU grant::
     def f(x): return x + 1          # ray.get_gpu_ids() == [0] in here
     ray.get(f.remote(1))
 
+Serve (``ray_tpu_torch.serve``) runs on it; a replica takes a card with
+``ray_actor_options={"num_gpus": 1}``.
+
 Its API below is bound lazily (PEP 562), so ``import ray_tpu_torch``
 loads neither the runtime nor torch.
 """
@@ -43,7 +46,7 @@ _LAZY = {name: mod for mod, names in _API.items() for name in names}
 
 __all__ = (["__version__"] + list(_LAZY)
            + ["models", "ops", "parallel", "train", "bench", "bridge",
-              "multichip", "util"])
+              "multichip", "util", "serve"])
 
 
 def __getattr__(name):
@@ -54,7 +57,8 @@ def __getattr__(name):
         value = getattr(importlib.import_module(f"ray_tpu_torch.{mod}"), name)
         globals()[name] = value
         return value
-    if name == "util":
-        # `ray_tpu_torch.util` like the reference's `ray.util`
-        return importlib.import_module("ray_tpu_torch.util")
+    if name in ("util", "serve"):
+        # `ray_tpu_torch.util` and `.serve` like the reference's `ray.util`
+        # and `ray.serve`
+        return importlib.import_module(f"ray_tpu_torch.{name}")
     raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")

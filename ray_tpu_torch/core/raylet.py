@@ -2109,10 +2109,14 @@ class Raylet:
                 # process, and so its disconnect reads as clean (reference
                 # worker_pool DisconnectWorker on max-calls exit).
                 self._workers.pop(wid, None)
-        if spec is not None:
-            self._release_resources(spec)
-        if grant is not None:
-            self._release_gpus(*grant)
+        # the card indices go back with the GPU count, under one hold of
+        # the lock: a task scheduled on the count alone would find no free
+        # index and run with get_gpu_ids() == []
+        with self._lock:
+            if grant is not None:
+                self._release_gpus(*grant)
+            if spec is not None:
+                self._release_resources(spec)
         if retiring:
             if w.env_key:
                 self._env_manager.release(w.env_key)

@@ -3655,6 +3655,8 @@ class CoreWorker:
             else:
                 _, oid, owner = a
                 ref = ObjectRef(oid, owner_address=owner)
-                out.append(self._get_one(ref, deadline=None))
+                with tracing.span("task::get_arg", "task_execution",
+                                  object_id=oid.hex()):
+                    out.append(self._get_one(ref, deadline=None))
         kwargs = serialization.loads(kwargs_blob) if kwargs_blob else {}
         return out, kwargs

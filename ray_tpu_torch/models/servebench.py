@@ -8,14 +8,18 @@ as one artifact (twin of ray_tpu/models/servebench.py).
   * `measure_prefill` — batched bucketed admission throughput;
   * `measure_quant_parity` — the w8a16 honesty check: prefill logits of the
     quantized model against the unquantized one, and the weight-bytes ratio;
+  * `measure_latency_under_load` — p50/p99 request latency of a real Serve
+    deployment of `LLMDeployment` under the storm harness's open-loop load
+    generator;
   * `run_servebench` / `main` — the runner: a slot sweep (1/4/8), bf16
     against w8a16 on the same loop with the parity check and the verdict
-    on the "weight traffic halves" claim for this device, and prefill.
+    on the "weight traffic halves" claim for this device, prefill, and the
+    latency-under-load row.
 
 Run:
 
-    python -m ray_tpu_torch.models.servebench --no-latency   # quick profile
-    python -m ray_tpu_torch.models.servebench --full --no-latency \
+    python -m ray_tpu_torch.models.servebench                # quick profile
+    python -m ray_tpu_torch.models.servebench --full \
         --json build/servebench_b1.json                  # b1 in bf16
 
 The CLI runs on the card; `run_servebench(device="cpu")` runs on the CPU.
@@ -23,9 +27,10 @@ The CLI runs on the card; `run_servebench(device="cpu")` runs on the CPU.
 The quick profile is the reference's (`_QUICK`: float32, max_len 512);
 `--full` is `ModelConfig.b1()` in bf16 at max_len 2048. The artifact goes to
 `build/SERVEBENCH_torch.json` unless `--json` names another path; the JAX
-package's committed SERVEBENCH_r16.json is never written. The reference's
-latency-under-load row needs the Serve runtime, which is not ported yet:
-asking for it raises, so a run passes `--no-latency` (`with_latency=False`).
+package's committed SERVEBENCH_r16.json is never written. The latency row
+runs on the port's runtime (ray_tpu_torch.core): the runner starts it, and
+stops it after the row, unless one is already running; `--no-latency`
+(`with_latency=False`) skips the row.
 
 Times are host-clock windows that end in a device synchronization, so they
 cover the device work they dispatch.
@@ -191,6 +196,60 @@ def measure_quant_parity(params, cfg, *, max_len: int,
     }
 
 
+def measure_latency_under_load(params, cfg, *, max_len: int,
+                               num_slots: int = 8, duration_s: float = 5.0,
+                               rps: float = 6.0, max_new_tokens: int = 16,
+                               request_timeout_s: float = 20.0,
+                               device="cuda") -> Dict[str, Any]:
+    """p50/p99 request latency for a REAL Serve deployment of
+    `LLMDeployment` (replica engine in driver mode via the
+    `__serve_start__` hook; on the card a `num_gpus=1` replica) under the
+    storm harness's open-loop load generator. Needs an initialized
+    ray_tpu_torch runtime."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models.serving import LLMDeployment
+    from ray_tpu_torch.serve.storm import LoadGenerator
+    from ray_tpu_torch.util.stats import percentile
+
+    dev = require_cuda(device)
+    D = serve.deployment(
+        name="servebench_llm", num_replicas=1,
+        max_concurrent_queries=num_slots,
+        ray_actor_options={"num_gpus": 1} if dev.type == "cuda" else None)(
+        LLMDeployment(params, cfg, num_slots=num_slots, max_len=max_len,
+                      device=dev))
+    handle = serve.run(D.bind(), name="servebench")
+    try:
+        # warm: every admission and decode shape variant before the clock
+        for wave in (num_slots, num_slots // 2 or 1, 2, 1):
+            ray_tpu_torch.get([handle.remote(
+                {"prompt": _PROMPT, "max_new_tokens": max_new_tokens})
+                for _ in range(wave)], timeout=120)
+        gen = LoadGenerator(
+            handle, rps=rps, request_timeout_s=request_timeout_s,
+            payload_fn=lambda idx, i: {"prompt": _PROMPT,
+                                       "max_new_tokens": max_new_tokens},
+            threads=2)
+        out = gen.run(duration_s)
+        lat = sorted(out.latencies_ms)
+        return {
+            "offered_rps": rps,
+            "duration_s": round(gen.elapsed_s, 2),
+            "max_new_tokens": max_new_tokens,
+            "submitted": out.submitted,
+            "accepted": out.accepted,
+            "shed": out.shed,
+            "timeout": out.timeout,
+            "errors": out.replica_death + out.other_error,
+            "hung": out.hung,
+            "p50_ms": round(percentile(lat, 0.50) or 0.0, 2),
+            "p99_ms": round(percentile(lat, 0.99) or 0.0, 2),
+        }
+    finally:
+        serve.delete("servebench_llm")
+
+
 def _bench_model(quick: bool = True, device="cuda"):
     from ray_tpu_torch.models.transformer import ModelConfig, init_params
 
@@ -210,14 +269,11 @@ def run_servebench(quick: bool = True, *,
                    baseline: Optional[Dict[str, Any]] = None,
                    device="cuda") -> Dict[str, Any]:
     """The artifact: decode at each slot count of `slot_sweep` (the last is
-    the flagship row), w8a16 at the last, the parity check, and prefill,
-    for the quick or the full profile on `device`. One engine runs on one
-    device, so n_chips is 1."""
-    if with_latency:
-        raise NotImplementedError(
-            "the latency-under-load row needs the Serve runtime, which is "
-            "not ported yet (ROADMAP.md, queue A item 8): pass "
-            "with_latency=False (--no-latency)")
+    the flagship row), w8a16 at the last, the parity check, prefill, and
+    (`with_latency`) the latency-under-load row, for the quick or the full
+    profile on `device`. One engine runs on one device, so n_chips is 1.
+    The latency row starts the port's runtime (and stops it after the
+    row) unless one is already running."""
     dev = require_cuda(device)
     params, cfg, max_len = _bench_model(quick, dev)
     n_chips = 1
@@ -290,6 +346,25 @@ def run_servebench(quick: bool = True, *,
             art["decode"]["speedup_vs_baseline"] = (
                 flagship["decode_tokens_per_s"]
                 / base_row["decode_tokens_per_s"])
+    if with_latency:
+        import ray_tpu_torch
+
+        owns_runtime = not ray_tpu_torch.is_initialized()
+        if owns_runtime:
+            ray_tpu_torch.init(num_cpus=8, resources=(
+                {"GPU": torch.cuda.device_count()} if dev.type == "cuda"
+                else None))
+        try:
+            art["latency_under_load"] = measure_latency_under_load(
+                params, cfg, max_len=max_len, device=dev)
+        finally:
+            if owns_runtime:
+                try:
+                    from ray_tpu_torch import serve
+
+                    serve.shutdown()
+                finally:
+                    ray_tpu_torch.shutdown()
     return art
 
 
@@ -308,9 +383,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="flagship-config profile (b1 in bf16; default is "
                          "the quick profile)")
     ap.add_argument("--no-latency", action="store_true",
-                    help="skip the serve-deployment latency row (its "
-                         "runtime is not ported: without this flag the run "
-                         "raises)")
+                    help="skip the serve-deployment latency row (no "
+                         "runtime spin-up)")
     ap.add_argument("--baseline", default=None,
                     help="JSON file with pre-change decode numbers to "
                          "embed as baseline_pre_change")
@@ -345,6 +419,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"  prefill: {art['prefill']['prefill_tokens_per_s']:.1f} tok/s "
           f"(batch {art['prefill']['batch']} x "
           f"{art['prefill']['prompt_len']} tokens)")
+    if "latency_under_load" in art:
+        lat = art["latency_under_load"]
+        print(f"  latency under load: p50 {lat['p50_ms']:.2f} ms, p99 "
+              f"{lat['p99_ms']:.2f} ms ({lat['accepted']}/"
+              f"{lat['submitted']} accepted at {lat['offered_rps']} rps, "
+              f"hung={lat['hung']}, errors={lat['errors']})")
 
     missing = [r for r in REQUIRED_ROWS
                if r not in art and not (r == "latency_under_load"

@@ -1,6 +1,6 @@
 """Continuous-batching LLM engine: slot-based KV cache, join/leave per step
-(twin of ray_tpu/models/serving.py; `LLMDeployment` waits for the Serve
-runtime port).
+(twin of ray_tpu/models/serving.py), and `LLMDeployment`, the engine behind
+a Serve deployment.
 
 Requests occupy fixed cache *slots*, so the decode step runs over static
 shapes: sequences join (a batched prefill writes their KV rows into free
@@ -29,6 +29,11 @@ Device work is dispatched and waited on OUTSIDE the bookkeeping lock
 (`_step_lock` serializes steppers; `_lock` only guards host-side state).
 Host data reaches the device through pinned memory and asynchronous copies,
 so dispatch never waits for the device.
+
+Serve wires it through `LLMDeployment` (each serve replica hosts an engine;
+the replica lifecycle hooks `__serve_start__`/`__serve_stop__` start and
+stop a background driver thread, so the engine steps itself and callers
+just wait on their request).
 """
 
 from __future__ import annotations
@@ -81,6 +86,18 @@ def quantize_model_params(params: Dict, cfg: ModelConfig) -> Dict:
     if "lm_head" in params:
         out["lm_head"] = q(params["lm_head"])
     return out
+
+
+def _pinned_device(device) -> torch.device:
+    """`device` resolved, a bare "cuda" pinned to this thread's current card.
+    The CUDA current device belongs to each thread and a new thread starts
+    on card 0, so the engine keeps an index: its driver thread makes that
+    card current, and its buffers and weights stay on the card the caller
+    was on (in a replica, its grant's)."""
+    dev = require_cuda(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _to_device(data, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -314,10 +331,10 @@ class ContinuousBatchingEngine:
     def __init__(self, params: Dict, cfg: ModelConfig, *, num_slots: int = 4,
                  max_len: int = 512, eos_token: Optional[int] = None,
                  quantize_weights: bool = False, device="cuda"):
-        self.device = require_cuda(device)
+        self.device = _pinned_device(device)
         emb = params["embed"]
         emb_dev = (emb["int8"] if isinstance(emb, dict) else emb).device
-        if emb_dev.type != self.device.type:
+        if emb_dev != self.device:
             raise ValueError(f"params live on {emb_dev}, engine device is "
                              f"{self.device}")
         if quantize_weights:
@@ -541,6 +558,8 @@ class ContinuousBatchingEngine:
                     or self._pending_first)
 
     def _drive(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)  # a new thread is on card 0
         while True:
             with self._lock:
                 while not self._driver_stop and not self._has_work():
@@ -654,3 +673,71 @@ class ContinuousBatchingEngine:
                 return
             if active == 0:
                 return  # nothing left anywhere; request never finished
+
+
+def _tree_to(tree, device: torch.device):
+    """`tree` (nested dicts of tensors) with every tensor on `device`."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def LLMDeployment(params, cfg: ModelConfig, *, num_slots: int = 4,
+                  max_len: int = 512, eos_token: Optional[int] = None,
+                  quantize_weights: bool = False, device="cuda"):
+    """A serve-ready callable class hosting one engine per replica.
+
+    Usage:
+        from ray_tpu_torch import serve
+        D = serve.deployment(LLMDeployment(params, cfg),
+                             ray_actor_options={"num_gpus": 1})
+        handle = serve.run(D.bind())
+        handle.remote({"prompt": [1, 2, 3], "max_new_tokens": 8})
+
+    The class closes over the weights as host (CPU) tensors, wherever
+    `params` lives: the deployment's definition is pickled to the replica,
+    and a pickled CUDA tensor would come back on the driver's device index,
+    not on the card the replica was granted. Each replica's engine puts
+    them on `device`; "cuda" is the card current in the replica's
+    `__init__`, which the runtime sets to its grant's (`num_gpus=1`), and
+    the engine keeps that index for its driver thread. Raises here, as every
+    entry point of the port does, when `device` names CUDA and there is
+    none (pass device="cpu").
+
+    Inside a replica the `__serve_start__` lifecycle hook starts the
+    engine's background driver thread, so concurrent requests all ride one
+    continuously-batched decode loop (each caller blocks only on its own
+    request); standalone (no hook) the engine self-steps in the caller.
+    """
+    require_cuda(device)
+    host = _tree_to(params, torch.device("cpu"))
+
+    class _LLM:
+        def __init__(self):
+            dev = _pinned_device(device)
+            self.engine = ContinuousBatchingEngine(
+                _tree_to(host, dev), cfg, num_slots=num_slots,
+                max_len=max_len, eos_token=eos_token,
+                quantize_weights=quantize_weights, device=dev)
+
+        def __serve_start__(self):
+            self.engine.start_driver()
+
+        def __serve_stop__(self):
+            self.engine.stop_driver()
+
+        def __call__(self, payload):
+            prompt = list(payload["prompt"])
+            n = int(payload.get("max_new_tokens", 32))
+            return self.engine.generate(prompt, max_new_tokens=n)
+
+        def stream(self, payload):
+            """Streaming entry: call through a stream handle
+            (`handle.options(method_name='stream', stream=True)`) or HTTP
+            `POST /<name>/stream?stream=1` — tokens arrive as generated."""
+            prompt = list(payload["prompt"])
+            n = int(payload.get("max_new_tokens", 32))
+            yield from self.engine.generate_stream(prompt, max_new_tokens=n)
+
+    _LLM.__name__ = "LLMDeployment"
+    return _LLM

@@ -114,13 +114,15 @@ def test_chip_smoke_alone_fails_without_a_result(tmp_path):
                                    "fused_adamw_optimizer", "bench",
                                    "params_from_hf_state_dict",
                                    "servebench", "make_mesh",
-                                   "initialize_group", "multichip"])
+                                   "initialize_group", "multichip",
+                                   "LLMDeployment"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     from ray_tpu_torch.bridge import params_from_jax
     from ray_tpu_torch.models import ModelConfig, init_params
-    from ray_tpu_torch.models.serving import ContinuousBatchingEngine
+    from ray_tpu_torch.models.serving import (ContinuousBatchingEngine,
+                                              LLMDeployment)
     from ray_tpu_torch.ops.kernels._util import require_cuda
     from ray_tpu_torch.train import (default_optimizer,
                                      fused_adamw_optimizer, make_init_fn,
@@ -152,6 +154,8 @@ def test_default_device_raises_without_cuda(entry):
         "make_mesh": lambda: make_mesh(MeshConfig()),
         "initialize_group": lambda: initialize_group(0, 1),
         "multichip": lambda: multichip.main(["--chips", "4"]),
+        "LLMDeployment": lambda: LLMDeployment(
+            init_params(cfg, seed=0, device="cpu"), cfg),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

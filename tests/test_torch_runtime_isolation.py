@@ -232,3 +232,66 @@ def test_import_is_light():
                          text=True, env=env, timeout=60)
     assert out.stdout.split() == ["False", "False", "True", "False"], \
         out.stdout + out.stderr
+
+
+def test_serve_knobs_read_only_their_own_namespace(monkeypatch):
+    """`RAY_TPU_SERVE_*` sets ray_tpu's Serve knobs and
+    `RAY_TPU_TORCH_SERVE_*` the port's; neither reaches the other."""
+    from ray_tpu.serve import config as ref_cfg
+    from ray_tpu_torch.serve import config as port_cfg
+
+    monkeypatch.setenv("RAY_TPU_SERVE_REQUEST_TIMEOUT_S", "7")
+    monkeypatch.setenv("RAY_TPU_SERVE_MAX_QUEUE_PER_REPLICA", "3")
+    monkeypatch.setenv("RAY_TPU_TORCH_SERVE_REQUEST_TIMEOUT_S", "11")
+    ref_cfg.reset_serve_config()
+    port_cfg.reset_serve_config()
+    try:
+        ref, port = ref_cfg.get_serve_config(), port_cfg.get_serve_config()
+        assert (ref.request_timeout_s, ref.max_queue_per_replica) == (7.0, 3)
+        assert port.request_timeout_s == 11.0
+        assert port.max_queue_per_replica == \
+            port_cfg.ServeConfig.max_queue_per_replica
+        port_cfg.set_serve_config(drain_deadline_s=1.5)
+        assert ref.drain_deadline_s == ref_cfg.ServeConfig.drain_deadline_s
+    finally:
+        ref_cfg.reset_serve_config()
+        port_cfg.reset_serve_config()
+
+
+def test_serve_metrics_stay_in_their_own_registry(both):
+    """A deployment served on one runtime counts its requests under that
+    runtime's metric names and registry only."""
+    from ray_tpu import serve as ref_serve
+    from ray_tpu.util import metrics as ref_metrics
+    from ray_tpu_torch import serve as port_serve
+    from ray_tpu_torch.util import metrics as port_metrics
+
+    @port_serve.deployment
+    def iso_port(x):
+        return x
+
+    @ref_serve.deployment
+    def iso_ref(x):
+        return x
+
+    try:
+        h = port_serve.run(iso_port.bind())
+        assert ray_tpu_torch.get([h.remote(i) for i in range(2)],
+                                 timeout=60) == [0, 1]
+        h = ref_serve.run(iso_ref.bind())
+        assert ray_tpu.get([h.remote(i) for i in range(3)],
+                           timeout=60) == [0, 1, 2]
+        port_snap, ref_snap = port_metrics.snapshot(), ref_metrics.snapshot()
+        port_served = port_snap["ray_tpu_torch_serve_requests_total"]
+        ref_served = ref_snap["ray_tpu_serve_requests_total"]
+        assert [v for k, v in port_served["values"].items()
+                if "iso_port" in str(k)] == [2]
+        assert [v for k, v in ref_served["values"].items()
+                if "iso_ref" in str(k)] == [3]
+        assert "iso_ref" not in str(port_snap)
+        assert "iso_port" not in str(ref_snap)
+        assert not [k for k in port_snap if k.startswith("ray_tpu_serve_")]
+        assert not [k for k in ref_snap if k.startswith("ray_tpu_torch_")]
+    finally:
+        port_serve.shutdown()
+        ref_serve.shutdown()

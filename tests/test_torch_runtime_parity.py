@@ -19,7 +19,7 @@ import torch
 import ray_tpu
 import ray_tpu_torch
 from torch_runtime import both_runtimes as _both
-from torch_runtime import KILLED, rerun_if_killed
+from torch_runtime import KILLED, rerun_if_killed, rerun_if_pkilled
 
 ACCEL = {
     "ref": {"rt": ray_tpu, "key": "TPU", "opt": "num_tpus",
@@ -310,14 +310,17 @@ def both_runtimes():
 
 @pytest.mark.usefixtures("both_runtimes")
 class TestSameProgramsSameResults:
+    # rerun_if_pkilled, not rerun_if_killed: an outside pkill can change
+    # these results without an error (a holder that answered and then died
+    # frees its card for the next one, which then gets the same index)
     @pytest.mark.parametrize("program", list(PROGRAMS))
     def test_program(self, program):
-        ref = rerun_if_killed(PROGRAMS[program], ACCEL["ref"])
-        port = rerun_if_killed(PROGRAMS[program], ACCEL["port"])
+        ref = rerun_if_pkilled(PROGRAMS[program], ACCEL["ref"])
+        port = rerun_if_pkilled(PROGRAMS[program], ACCEL["port"])
         assert port == ref
 
     def test_grants_are_disjoint(self):
-        g = rerun_if_killed(prog_grants, ACCEL["port"])
+        g = rerun_if_pkilled(prog_grants, ACCEL["port"])
         assert g["actors_whole"] == [[0], [1]]
         assert g["tasks_whole"] == [[0], [1]]
         assert g["tasks_pair"] == [[0, 1]]

@@ -1,7 +1,10 @@
 """models/servebench's runner on the CPU, quick profile: the artifact has
-the JAX package's keys (its committed SERVEBENCH_r16.json), latency aside;
-asking for the latency row raises (its Serve runtime is not ported); and
-`main` writes only the path it is given, never the JAX package's artifact."""
+the JAX package's keys (its committed SERVEBENCH_r16.json); the latency row
+runs a Serve deployment of `LLMDeployment` on the port's runtime, started
+and stopped around it; and `main` writes only the path it is given, never
+the JAX package's artifact. Also storm's `--kill-head`, which waits for the
+port of envelope.py, and the spans a deploy of `LLMDeployment` leaves in
+`timeline()`."""
 
 import functools
 import json
@@ -111,11 +114,96 @@ def test_default_artifact_is_the_ports_own_and_ignored_by_git():
     assert "build/" in (REPO / ".gitignore").read_text().split()
 
 
-def test_latency_row_raises_until_serve_is_ported(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        servebench.run_servebench(quick=True, device="cpu")
-    _on_the_cpu(monkeypatch)
-    with pytest.raises(NotImplementedError, match="--no-latency"):
-        servebench.main(["--json", str(tmp_path / "x.json")])
+def test_latency_row_on_the_ports_runtime(monkeypatch):
+    """The reference's latency row, from a Serve deployment of
+    `LLMDeployment` under the load generator (1 s of load here): its keys,
+    nothing hung, nothing failed; the runner started the port's runtime
+    for the row and stopped it after."""
+    import ray_tpu_torch
+
+    assert not ray_tpu_torch.is_initialized()
+    monkeypatch.setattr(servebench, "measure_latency_under_load",
+                        functools.partial(
+                            servebench.measure_latency_under_load,
+                            duration_s=1.0))
+    art = servebench.run_servebench(quick=True, slot_sweep=(8,),
+                                    device="cpu")
+    assert not ray_tpu_torch.is_initialized()
+    lat = art["latency_under_load"]
+    ref = json.loads(REFERENCE.read_text())["latency_under_load"]
+    assert set(lat) == set(ref)
+    assert lat["hung"] == 0 and lat["errors"] == 0, lat
+    assert lat["submitted"] == (lat["accepted"] + lat["shed"]
+                                + lat["timeout"] + lat["errors"]), lat
+    assert lat["accepted"] > 0 and 0 < lat["p50_ms"] <= lat["p99_ms"]
+    assert (lat["offered_rps"], lat["max_new_tokens"]) == (6.0, 16)
+
+
+def test_storm_kill_head_raises_until_envelope_is_ported(tmp_path):
+    from ray_tpu_torch.serve import storm
+
+    with pytest.raises(NotImplementedError, match="A.8.2"):
+        storm.main(["--kill-head", "--quick", "--json",
+                    str(tmp_path / "storm.json")])
     assert not list(tmp_path.iterdir())
 
+
+def test_deploy_spans_on_the_real_deploy_path():
+    """A deploy of `LLMDeployment` on `tiny` on the CPU leaves its spans in
+    `timeline()`: the driver pickles and submits the definition and waits;
+    the controller gets it as an argument and checkpoints it; the replica
+    gets it, unpickles it and builds the engine. chip_smoke phase 18 reads
+    the same spans from its deploy at 8B width."""
+    import time
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import ModelConfig, init_params
+    from ray_tpu_torch.models.serving import LLMDeployment
+    from ray_tpu_torch.models.transformer import tree_leaves
+
+    cfg = ModelConfig.tiny()
+    params = init_params(cfg, seed=0, device="cpu")
+    driver = ["serve::pickle_definition", "serve::submit_deploy",
+              "serve::await_deploy"]
+    controller = ["serve::checkpoint_pickle", "serve::checkpoint_kv_put",
+                  "serve::put_definition"]
+    replica = ["serve::replica_unpickle", "serve::replica_construct"]
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        since = time.time() * 1e6  # this process may hold earlier spans
+        handle = serve.run(serve.deployment(LLMDeployment(
+            params, cfg, num_slots=2, max_len=64, device="cpu")).bind())
+        assert ray_tpu_torch.get(handle.remote(
+            {"prompt": [1, 2, 3], "max_new_tokens": 2}), timeout=60)[:3] \
+            == [1, 2, 3]
+        deadline = time.monotonic() + 30
+        while True:
+            events = [e for e in ray_tpu_torch.timeline()
+                      if e.get("ph") == "X" and e["ts"] >= since]
+            names = {e["name"] for e in events}
+            if set(driver + controller + replica) <= names or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        serve.shutdown()
+    finally:
+        ray_tpu_torch.shutdown()
+    pids = {n: {e["pid"] for e in events if e["name"] == n}
+            for n in driver + controller + replica}
+    assert all(pids.values()), pids
+    assert set().union(*(pids[n] for n in driver)) == {os.getpid()}
+    c_pid = set().union(*(pids[n] for n in controller))
+    r_pid = set().union(*(pids[n] for n in replica))
+    assert len(c_pid) == len(r_pid) == 1 and c_pid != r_pid
+    assert c_pid | r_pid | {os.getpid()} == set().union(*pids.values())
+    # the definition crosses each process boundary as an object in the store
+    got = {e["pid"] for e in events if e["name"] == "task::get_arg"}
+    assert c_pid | r_pid <= got
+    blob = [e["args"]["bytes"] for e in events
+            if e["name"] == "serve::submit_deploy"]
+    unpickled = [e["args"]["bytes"] for e in events
+                 if e["name"] == "serve::replica_unpickle"]
+    assert len(blob) == 1 and unpickled == blob
+    assert blob[0] > sum(t.numel() * t.element_size()
+                         for t in tree_leaves(params))

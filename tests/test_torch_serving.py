@@ -297,6 +297,37 @@ def test_engine_validates_prompts():
                                       CFG, device="cpu")
 
 
+def test_engine_keeps_its_cards_index_for_the_driver_thread(monkeypatch):
+    """A bare "cuda" becomes the caller's current card, in the engine and in
+    `LLMDeployment`'s replica, and the driver thread makes the engine's card
+    current before it steps: a new thread starts on card 0, so a replica
+    granted another card would otherwise run its requests there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    assert tsrv._pinned_device("cuda") == torch.device("cuda", 3)
+    assert tsrv._pinned_device("cuda:1") == torch.device("cuda", 1)
+    assert tsrv._pinned_device("cpu") == torch.device("cpu")
+
+    _, tp = _params()
+    D = tsrv.LLMDeployment(tp, CFG, num_slots=2, max_len=MAX_LEN)
+    with monkeypatch.context() as m:
+        m.setattr(tsrv, "_tree_to", lambda tree, dev: tree)
+        m.setattr(tsrv, "ContinuousBatchingEngine",
+                  lambda params, cfg, **kw: kw["device"])
+        assert D().engine == torch.device("cuda", 3)
+
+    eng = tsrv.ContinuousBatchingEngine(tp, CFG, num_slots=2, max_len=MAX_LEN,
+                                        device="cpu")
+    assert eng.device == torch.device("cpu")
+    calls = []
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(
+        (d, threading.current_thread().name)))
+    eng.device = torch.device("cuda", 3)  # as a replica's engine on card 3
+    eng.start_driver()
+    eng.stop_driver()
+    assert calls == [(torch.device("cuda", 3), "engine-driver")]
+
+
 def test_cache_buffers_stay_in_place_across_steps():
     """The counterpart of the reference's donation: stepping never
     reallocates the caches or the lengths, and the token vector is a new

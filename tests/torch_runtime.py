@@ -50,6 +50,13 @@ KILLED = (_ref_exc.ActorDiedError, _ref_exc.WorkerCrashedError,
 RERUNS = []  # (program, error) of every rerun, in order
 
 
+def _canary():
+    """A process whose command line matches `pkill -f worker_main`."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import time; time.sleep(3600)",
+         "worker_main-canary"], stdin=subprocess.DEVNULL)
+
+
 def rerun_if_killed(program, *args):
     """`program(*args)`, run once more only if a worker it used was killed
     from outside: tests/test_client.py ends with `pkill -f worker_main`,
@@ -60,9 +67,7 @@ def rerun_if_killed(program, *args):
     (a crash of the worker itself) fails the test. Each rerun is logged
     and kept in RERUNS. A program that kills its own workers catches
     those errors itself."""
-    canary = subprocess.Popen(
-        [sys.executable, "-c", "import time; time.sleep(3600)",
-         "worker_main-canary"], stdin=subprocess.DEVNULL)
+    canary = _canary()
     try:
         return program(*args)
     except KILLED as e:
@@ -79,6 +84,39 @@ def rerun_if_killed(program, *args):
         canary.kill()
         canary.wait()
     _settle()
+    return program(*args)
+
+
+def rerun_if_pkilled(program, *args, reset=None):
+    """`program(*args)`, run once more whenever an outside `pkill -f
+    worker_main` (see `rerun_if_killed`) struck while it ran, whatever the
+    first run returned or raised: a Serve program loses its controller,
+    replicas and proxies to such a kill and sees timeouts or failed
+    requests, not only the errors in KILLED. `reset()` runs before the
+    rerun (e.g. `serve.shutdown`). Any outcome without such a kill stands."""
+    canary = _canary()
+    try:
+        try:
+            out, err = program(*args), None
+        except Exception as e:
+            out, err = None, e
+        try:
+            rc = canary.wait(timeout=5) if err is not None else canary.poll()
+        except subprocess.TimeoutExpired:
+            rc = None
+    finally:
+        canary.kill()
+        canary.wait()
+    if rc != -signal.SIGTERM:
+        if err is not None:
+            raise err
+        return out
+    RERUNS.append((program.__name__, repr(err)))
+    print(f"rerun {len(RERUNS)}: {program.__name__} ran through an outside "
+          f"pkill ({err!r})", file=sys.stderr)
+    _settle()
+    if reset is not None:
+        reset()
     return program(*args)
 
 
