@@ -268,6 +268,19 @@ Phases (any failure exits non-zero and prints no result line):
      2 dequants a pass); request 0 streamed over HTTP equal to the
      handle's tokens; servebench's latency row on b1 (5 s at 6 rps, 16 new
      tokens) with hung 0 and errors 0.
+ 19. (after 18, its runtime shut down; in a fresh interpreter, `python3
+     chip_smoke.py --harness`, as each harness's CLI runs) the runtime's
+     harnesses on the card's host, none of which does device work:
+     `microbenchmark.run_microbenchmark(quick=True)` in `init(num_cpus=4,
+     resources={"GPU": 1})` (every row finite and above 0);
+     `bench._bench_transfer(512)`; `envelope.run_envelope(scale=0.01)` (200
+     queued tasks, 2 actors on 2 workers, 1 placement group, a broadcast
+     above 0 GB/s, every microbenchmark row finite and above 0, and its
+     `hardware` naming the card and its power limit); then the quick
+     profiles of memstorm, jobstorm (whose drivers must make no CUDA
+     context), `run_burst` (in `init(num_cpus=8, resources={"GPU": 1})`)
+     and the node storm, each with `violations == []`. Every rate and each
+     part's seconds are logged beside the card's name and power limit.
 
 Imports torch and the port only (never jax, never ray_tpu).
 """
@@ -4310,10 +4323,133 @@ def plan_phase(torch, card: str, seed: int, cfg, default_run) -> None:
     log(f"plan: phase {time.perf_counter() - t0:.2f} s")
 
 
+def _bad_rates(rows) -> list:
+    return [r for r in rows
+            if not (math.isfinite(r["rate"]) and r["rate"] > 0)]
+
+
+def harness_phase(card: str, seed: int) -> dict:
+    """Phase 19: the runtime's harnesses on the card's host (they do no
+    device work): the quick microbenchmark in a runtime of its own, the
+    transfer bench at 512 MiB, the envelope at scale 0.01, and the quick
+    memstorm, jobstorm, burst and node storm, each of which must end with
+    no violation. Returns each part's seconds."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import bench, envelope, microbenchmark
+    from ray_tpu_torch.core import burst, jobstorm, memstorm
+    from ray_tpu_torch.core.config import reset_config
+
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            reset_config()
+            seconds[name] = round(time.perf_counter() - t, 2)
+            log(f"harness: {name} took {seconds[name]} s [{card}]")
+
+    def micro():
+        rt.init(num_cpus=4, resources={"GPU": 1})
+        try:
+            return microbenchmark.run_microbenchmark(quick=True)
+        finally:
+            rt.shutdown()
+
+    rows = part("microbenchmark", micro)
+    for r in rows:
+        log(f"harness: microbenchmark {r['benchmark']} {r['rate']} "
+            f"{r['unit']} [{card}]")
+    if _bad_rates(rows):
+        fail(f"harness: microbenchmark rows not finite and above 0: "
+             f"{_bad_rates(rows)}")
+
+    tr = part("transfer", lambda: bench._bench_transfer(512))
+    log(f"harness: transfer {json.dumps(tr)} [{card}]")
+    if not tr["transfer_gbps"] > 0 or tr["transfer_mib"] != 512:
+        fail(f"harness: transfer {tr}")
+
+    art = part("envelope", lambda: envelope.run_envelope(scale=0.01))
+    for key in ("queued_tasks", "concurrent_actors", "placement_groups",
+                "broadcast_1k_nodes", "broadcast"):
+        log(f"harness: envelope {key} {json.dumps(art[key])} [{card}]")
+    hw = art["hardware"]
+    log(f"harness: envelope hardware {json.dumps(hw)}")
+    name, limit = (s.strip() for s in card.split(",", 1))
+    want = {("queued_tasks", "n_tasks"): 200,
+            ("concurrent_actors", "n_actors"): 2,
+            ("concurrent_actors", "distinct_workers"): 2,
+            ("placement_groups", "n_pgs"): 1}
+    got = {k: art[k[0]][k[1]] for k in want}
+    if got != want:
+        fail(f"harness: envelope counts {got}, want {want}")
+    if not art["broadcast"]["aggregate_gbps"] > 0 \
+            or _bad_rates(art["microbenchmark"]):
+        fail(f"harness: envelope rates {art['broadcast']} "
+             f"{_bad_rates(art['microbenchmark'])}")
+    if (hw.get("gpu"), hw.get("gpu_power_limit")) != (name, limit):
+        fail(f"harness: envelope hardware {hw} does not name {card!r}")
+
+    def storm(name, result):
+        c = {k: v for k, v in result.items()
+             if k in ("chaos", "counters", "scale_up", "worker_pool",
+                      "load", "onboarding", "actors")}
+        log(f"harness: {name} {json.dumps(c)} [{card}]")
+        if result["violations"]:
+            fail(f"harness: {name} violations {result['violations']}")
+
+    storm("memstorm", part("memstorm", lambda: memstorm.run_memstorm(
+        memstorm.MemStormProfile(**dict(memstorm.QUICK_PROFILE,
+                                        seed=seed)))))
+    js = part("jobstorm", lambda: jobstorm.run_jobstorm(
+        jobstorm.JobStormProfile(**dict(jobstorm.QUICK_PROFILE,
+                                        seed=seed))))
+    storm("jobstorm", js)
+    log(f"harness: jobstorm survivors {json.dumps(js['phases']['survivors'])}"
+        f" reap {js['phases']['storm']['reap_latency_s']}")
+
+    def run_burst():
+        rt.init(num_cpus=8, resources={"GPU": 1})
+        try:
+            return burst.run_burst(burst.BurstProfile(
+                **dict(burst.QUICK_PROFILE, seed=seed)))
+        finally:
+            rt.shutdown()
+
+    storm("burst", part("burst", run_burst))
+    storm("node storm", part("node storm", lambda: burst.run_node_storm(
+        burst.NodeStormProfile(**dict(burst.NODE_QUICK_PROFILE,
+                                      seed=seed)))))
+    seconds["phase"] = round(time.perf_counter() - t_phase, 2)
+    log(f"harness: phase {seconds['phase']} s, parts {json.dumps(seconds)} "
+        f"[{card}]")
+    return seconds
+
+
+def run_harness_phase(card: str, seed: int) -> None:
+    """Phase 19 in a fresh interpreter, as each harness's CLI runs: the
+    harnesses boot their clusters inside the calling process, and in this
+    one, which holds the earlier phases' memory and threads, jobstorm's
+    surviving drivers starved (PERF.md §6)."""
+    out = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"),
+                          "--harness", "--seed", str(seed)], timeout=900)
+    if out.returncode != 0:
+        fail(f"harness phase exited {out.returncode}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--harness", action="store_true",
+                    help="run only phase 19 (chip_smoke starts it this way "
+                         "after phase 18, in a process of its own)")
     args = ap.parse_args()
+    if args.harness:
+        sys.path.insert(0, str(HERE))
+        harness_phase(smi_line(), args.seed)
+        return 0
     t_start = time.perf_counter()
 
     import torch
@@ -4527,6 +4663,9 @@ def main() -> int:
     for kname, paths in serve_phase(torch, card, args.seed,
                                     requests).items():
         runtime_launches.setdefault(kname, {}).update(paths)
+    # ---- phase 19: the runtime's harnesses (microbenchmark, transfer,
+    # envelope, the quick memstorm, jobstorm, burst and node storm)
+    run_harness_phase(card, args.seed)
 
     # ---- phase 16: report
     pallas = "ray_tpu/ops/pallas/"

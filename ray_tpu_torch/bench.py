@@ -19,9 +19,12 @@ path does, and its numbers are no device measurement.
 `profile_train` runs a few steps under torch.profiler: device time per step,
 the device-idle share of the window and the kernels that take the time (the
 collectives also by NCCL operation).
-The transfer half of the reference's bench (an object moved between two
-raylets of one process) is not ported yet (ROADMAP.md queue A item 8); the
-runtime it runs on is `ray_tpu_torch.core`.
+The transfer half (`_bench_transfer`, the reference's `bench.py:161-200`)
+moves one object between two raylets of an in-process `ray_tpu_torch.core`
+cluster through the pipelined chunk pull, 512 MiB on the card's host and
+24 MiB under `--cpu`, beside a single-stream loopback TCP baseline of the
+same host; rank 0 adds its keys (`transfer_mib`, `transfer_gbps`,
+`loopback_tcp_1stream_gbps`) to the JSON line, or `transfer_error`.
 """
 
 from __future__ import annotations
@@ -249,8 +252,89 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
         "loss": r["loss"],
     }
     if int(os.environ.get("RANK", "0")) == 0:
+        try:
+            # larger than the 16 MiB chunk at both sizes, so the measured
+            # path is the pipelined chunk pull, not the single-shot one
+            result.update(_bench_transfer(24 if args.cpu else 512))
+        except Exception as e:  # never lose the primary line to the add-on
+            result["transfer_error"] = f"{type(e).__name__}: {e}"[:200]
         print(json.dumps(result), flush=True)
     return result
+
+
+def _bench_transfer(size_mib: int = 512) -> dict:
+    """Cross-raylet chunked object transfer throughput (reference
+    release/benchmarks object-transfer envelope): an in-process 2-raylet
+    cluster moves a size_mib object through the pipelined chunk pull path.
+    Host memory only: no device work."""
+    import numpy as np
+
+    import ray_tpu_torch.core.rpc as rpc
+    from ray_tpu_torch.core.cluster import Cluster
+    from ray_tpu_torch.core.ids import ObjectID
+
+    cluster = Cluster()
+    a = cluster.add_node(num_cpus=1, object_store_memory=2 * (size_mib << 20))
+    b = cluster.add_node(num_cpus=1, object_store_memory=2 * (size_mib << 20))
+    try:
+        oid = ObjectID.from_random()
+        a.store.put_bytes(oid, np.ones(size_mib << 20, dtype=np.uint8).data)
+        cli = rpc.connect_with_retry(b.address, timeout=10)
+        try:
+            t0 = time.perf_counter()
+            cli.call("pull_object", {"object_id": oid, "source": a.address},
+                     timeout=300)
+            dt = time.perf_counter() - t0
+        finally:
+            cli.close()
+        return {"transfer_mib": size_mib,
+                "transfer_gbps": round(size_mib / 1024 / dt * 8, 2),
+                **_transfer_ceiling(size_mib)}
+    finally:
+        cluster.shutdown()
+
+
+def _transfer_ceiling(size_mib: int) -> dict:
+    """Measured SINGLE-STREAM loopback TCP baseline on THIS host, reported
+    next to the transfer number so it reads against the right bar: the
+    kernel loopback path is the limiter, not a NIC (both raylets share the
+    host). The data plane's striped multi-stream + copy_file_range pull can
+    legitimately exceed this single-stream figure."""
+    import socket
+    import threading
+
+    payload = bytearray(4 << 20)
+    n_chunks = (size_mib << 20) // len(payload)
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+
+    def sink():
+        conn, _ = srv.accept()
+        with conn:
+            left = n_chunks * len(payload)
+            buf = memoryview(bytearray(1 << 20))
+            while left:
+                n = conn.recv_into(buf)
+                if not n:
+                    break
+                left -= n
+
+    t = threading.Thread(target=sink, daemon=True)
+    t.start()
+    cli = socket.create_connection(srv.getsockname())
+    try:
+        t0 = time.perf_counter()
+        with cli:
+            for _ in range(n_chunks):
+                cli.sendall(payload)
+        t.join(timeout=60)
+        dt = time.perf_counter() - t0
+        moved_mib = n_chunks * len(payload) >> 20
+        return {"loopback_tcp_1stream_gbps":
+                round(moved_mib / 1024 / dt * 8, 2)}
+    finally:
+        srv.close()
 
 
 if __name__ == "__main__":

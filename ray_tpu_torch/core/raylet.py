@@ -37,6 +37,18 @@ from ray_tpu_torch.util import tracing
 logger = logging.getLogger(__name__)
 
 
+def _resident_bytes(pid: int) -> int:
+    """A process's resident bytes, or 0 where they cannot be read."""
+    try:
+        import psutil
+    except ImportError:
+        return 0
+    try:
+        return psutil.Process(pid).memory_info().rss
+    except psutil.Error:
+        return 0
+
+
 @dataclass
 class WorkerHandle:
     worker_id: WorkerID
@@ -58,6 +70,9 @@ class WorkerHandle:
     # batched results may still sit in the worker's ResultBuffer when the
     # process dies, so unexpected disconnects fail them over to the owners
     recent_done: deque = field(default_factory=lambda: deque(maxlen=128))
+    # resident bytes at registration, before any task ran: the memory
+    # monitor's budget mode counts only the growth past it
+    mem_baseline: int = 0
 
 
 @dataclass
@@ -954,6 +969,9 @@ class Raylet:
         handle = WorkerHandle(
             worker_id=wid, conn=conn, address=payload["address"], pid=payload["pid"],
         )
+        if payload.get("worker_type") != "driver" \
+                and get_config().memory_monitor_worker_budget_bytes > 0:
+            handle.mem_baseline = _resident_bytes(handle.pid)
         with self._lock:
             # adopt the Popen (or forked-worker shim) if we started it
             for p in self._starting:
@@ -1465,16 +1483,25 @@ class Raylet:
         if budget > 0:
             # Budget mode counts only the workers the kill policy may touch:
             # actor-held memory must not trigger an endless kill loop of
-            # innocent task workers it can never relieve.
+            # innocent task workers it can never relieve. Each worker counts
+            # its growth past its resident size at registration, the memory
+            # its tasks took. Every worker starts with torch resident (a
+            # fork of the template, or its own import): most of it shared
+            # with the template on Linux, but in every worker's RSS, and a
+            # host that reports no shared pages (gVisor) shows the whole of
+            # it in every worker's unique set too. Counting that start in
+            # every worker tripped the budget with no task memory at all.
             with self._lock:
-                pids = [w.pid for w in self._workers.values()
-                        if not w.is_driver and w.actor_id is None]
+                workers = [(w.pid, w.mem_baseline)
+                           for w in self._workers.values()
+                           if not w.is_driver and w.actor_id is None]
             total = 0
-            for pid in pids:
+            for pid, baseline in workers:
                 try:
-                    total += psutil.Process(pid).memory_info().rss
+                    rss = psutil.Process(pid).memory_info().rss
                 except psutil.Error:
-                    pass  # raced a worker exit
+                    continue  # raced a worker exit
+                total += max(0, rss - baseline)
             return total / budget
         return psutil.virtual_memory().percent / 100.0
 

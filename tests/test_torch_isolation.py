@@ -1,5 +1,9 @@
 """The port stands alone: ray_tpu_torch and chip_smoke.py import neither jax
-nor ray_tpu, and every entry point refuses to run on a missing GPU."""
+nor ray_tpu, and every entry point of the device path refuses to run on a
+missing GPU. The runtime, Serve and the runtime's harness CLIs (burst,
+jobstorm, memstorm, envelope, microbenchmark), which do no device work, run
+on any host; no default artifact of theirs names a file of the JAX
+package."""
 
 import ast
 import json
@@ -67,7 +71,17 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "ray_tpu_torch.client.server",
                  "ray_tpu_torch.util",
                  "ray_tpu_torch.util.collective",
-                 "ray_tpu_torch.util.profiler"):
+                 "ray_tpu_torch.util.profiler",
+                 "ray_tpu_torch.util.flight_recorder",
+                 "ray_tpu_torch.autoscaler",
+                 "ray_tpu_torch.autoscaler.autoscaler",
+                 "ray_tpu_torch.autoscaler.node_provider",
+                 "ray_tpu_torch.core.burst",
+                 "ray_tpu_torch.core.jobstorm",
+                 "ray_tpu_torch.core.memstorm",
+                 "ray_tpu_torch.envelope",
+                 "ray_tpu_torch.microbenchmark",
+                 "ray_tpu_torch.serve.storm"):
         assert name in modules
     code = (
         "import importlib, json, sys\n"
@@ -159,3 +173,44 @@ def test_default_device_raises_without_cuda(entry):
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
+
+
+def test_default_artifacts_are_the_ports_own():
+    """Every CLI default of the harnesses writes under the ignored build/
+    with a `_torch` name, never over a file the JAX package committed."""
+    from ray_tpu_torch import envelope, microbenchmark
+    from ray_tpu_torch.core import burst, jobstorm, memstorm
+    from ray_tpu_torch.models import servebench
+    from ray_tpu_torch.serve import storm
+
+    paths = [envelope.DEFAULT_ARTIFACT, microbenchmark.OBJPLANE_ARTIFACT,
+             jobstorm.DEFAULT_ARTIFACT, memstorm.DEFAULT_ARTIFACT,
+             storm.DEFAULT_ARTIFACT, storm.HEADFAIL_ARTIFACT,
+             servebench.DEFAULT_ARTIFACT, *burst.DEFAULT_ARTIFACTS.values()]
+    committed = {p.name for p in REPO.glob("*.json")}
+    assert len(set(paths)) == len(paths)
+    for path in map(Path, paths):
+        assert path.parent == REPO / "build", path
+        assert path.stem.endswith("_torch"), path
+        assert path.name not in committed, path
+    assert {"ENVELOPE_r10.json", "HEADFAIL_r11.json", "JOBSTORM_r20.json",
+            "STORESTORM_r18.json", "PARTITION_r13.json",
+            "OBJPLANE_r14.json"} <= committed
+
+
+@pytest.mark.parametrize("module", ["ray_tpu_torch.core.burst",
+                                    "ray_tpu_torch.core.jobstorm",
+                                    "ray_tpu_torch.core.memstorm",
+                                    "ray_tpu_torch.envelope",
+                                    "ray_tpu_torch.microbenchmark"])
+def test_harness_clis_start_without_a_gpu(module):
+    """The harness CLIs do no device work: they parse and start on a host
+    without a card (here the help text, which names the default path)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-m", module, "--help"],
+                         capture_output=True, text=True, env=env,
+                         cwd=str(REPO), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "usage" in out.stdout
+
