@@ -191,7 +191,9 @@ Phases (any failure exits non-zero and prints no result line):
      into an abstract_like state, 2 more steps: losses 1-4 and the final
      params bit-identical to the straight run under default_optimizer and
      fused AdamW, the flash kernels and K3 at n_layers launches a step
-     after the restore (AdamW once a leaf under fused AdamW); then
+     after the restore (AdamW once a leaf under fused AdamW), and the
+     gauge `ray_tpu_torch_checkpoint_save_seconds` in export_prometheus()
+     equal to the save's seconds save_sharded measured; then
      latest_checkpoint and gc_checkpoints on that directory (a torn
      staging dir, a step dir without meta, an older complete save); save
      and restore seconds and GB/s logged; the directory deleted;
@@ -281,6 +283,34 @@ Phases (any failure exits non-zero and prints no result line):
      context), `run_burst` (in `init(num_cpus=8, resources={"GPU": 1})`)
      and the node storm, each with `violations == []`. Every rate and each
      part's seconds are logged beside the card's name and power limit.
+ 20. (after 19; in a fresh interpreter, `python3 chip_smoke.py
+     --operator`) the operator surface: `python -m ray_tpu_torch up` on a
+     fake-provider YAML under build/phase20/ whose head has `resources:
+     {GPU: 1}` (state root under build/phase20/ too); this process joins
+     it and serves `start_dashboard(0)`; `python -m ray_tpu_torch job
+     submit` starts `python3 chip_smoke.py --operator-job`, whose driver
+     joins through RAY_TPU_TORCH_ADDRESS and executes a `.bind()` DAG:
+     InputNode (the seed) -> a CPU task drawing phase 8's batch recipe on
+     the CPU -> a num_gpus=1 actor's method running phase 10's all-kernel
+     step at llama3_8b width with 2 layers for 3 steps. The job must
+     SUCCEED within 180 s with finite, falling losses, the six flash and
+     FFN kernels at 2 launches a step and AdamW once a leaf (read in the
+     actor's process), its actor on the card its grant names and its
+     driver without a CUDA context. The dashboard, scraped while the actor
+     lives and after the job: GPU 1 in all, the supervisor and the GPU
+     actor listed, the job's driver among the jobs, `nodes_alive 1` and
+     `tasks_finished_total` at least the DAG's 2 tasks in /metrics,
+     /timeline JSON, a page naming GPUs. `status`, `healthcheck` and
+     `metrics export-dashboards` exit 0 (three files, every expression on a
+     `ray_tpu_torch_*` series); every CLI call runs through a probe that
+     reports whether its process made a CUDA context (none may), and the
+     head daemon, the supervisor and the job's driver hold no /dev/nvidia*
+     file where the GPU actor does. `down`: the head's pid gone,
+     `healthcheck` then failing. Then the same 3 steps directly on the
+     card, same seed and batch, no runtime: losses and grad norms equal
+     to the job's bit for bit. Each part's seconds are logged beside the
+     card's name and power limit; the job's launches join the kernels
+     line's `launches_by_path` as "job DAG actor (phase 20)".
 
 Imports torch and the port only (never jax, never ray_tpu).
 """
@@ -3063,11 +3093,15 @@ def checkpoint_resume(torch, card: str, seed: int) -> None:
     from ray_tpu_torch.ops.kernels import adamw as aw
     from ray_tpu_torch.ops.kernels import flash_attention as fa
     from ray_tpu_torch.ops.kernels import fused_ffn as ff
+    import re
+
     from ray_tpu_torch.train import (abstract_like, default_optimizer,
                                      fused_adamw_optimizer, gc_checkpoints,
                                      latest_checkpoint, load_checkpoint,
                                      make_init_fn, make_train_step,
                                      save_checkpoint)
+    from ray_tpu_torch.train.checkpointing import pop_last_save_seconds
+    from ray_tpu_torch.util.metrics import export_prometheus
 
     t_phase = time.perf_counter()
     root = HERE / "build" / "checkpoints"
@@ -3118,6 +3152,16 @@ def checkpoint_resume(torch, card: str, seed: int) -> None:
             path = save_checkpoint(state, str(root), step=CKPT_AT,
                                    meta={"losses": first})
             save_s = time.perf_counter() - t0
+            sharded_s = pop_last_save_seconds()
+            gauge = re.search(
+                r"^ray_tpu_torch_checkpoint_save_seconds ([0-9.e+-]+)$",
+                export_prometheus(), re.MULTILINE)
+            log(f"checkpoint {name}: save_sharded {sharded_s} s; gauge "
+                f"ray_tpu_torch_checkpoint_save_seconds "
+                f"{gauge.group(1) if gauge else None}")
+            if gauge is None or float(gauge.group(1)) != sharded_s:
+                fail(f"checkpoint {name}: the save gauge does not hold the "
+                     f"save's seconds {sharded_s}")
             on_disk = sum(f.stat().st_size for f in Path(path).rglob("*")
                           if f.is_file())
             written += on_disk
@@ -4439,16 +4483,558 @@ def run_harness_phase(card: str, seed: int) -> None:
         fail(f"harness phase exited {out.returncode}")
 
 
+# ---------------------------------------------------------------- phase 20
+# The operator surface: a cluster brought up through the launcher's CLI, a
+# job submitted through the job CLI, whose driver runs a `.bind()` DAG that
+# trains on the card in a num_gpus=1 actor.
+
+OPERATOR_DIR = HERE / "build" / "phase20"
+OPERATOR_LAYERS, OPERATOR_STEPS = 2, 3
+# the DAG's tasks: the batch's CPU task and the actor's method call
+OPERATOR_DAG_TASKS = 2
+OPERATOR_TRAINER = "OperatorTrainer"
+# a CLI run as `python -m ray_tpu_torch ...` is, reporting after it ends
+# whether its process made a CUDA context
+CLI_PROBE = (
+    "import runpy, sys\n"
+    "sys.argv = ['ray_tpu_torch', *sys.argv[1:]]\n"
+    "rc = 0\n"
+    "try:\n"
+    "    runpy.run_module('ray_tpu_torch', run_name='__main__',"
+    " alter_sys=True)\n"
+    "except SystemExit as e:\n"
+    "    rc = e.code if isinstance(e.code, int) else (0 if e.code is None"
+    " else 1)\n"
+    "t = sys.modules.get('torch')\n"
+    "print('CLI_CUDA_CONTEXT', bool(t is not None and"
+    " t.cuda.is_initialized()), file=sys.stderr, flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def operator_batch(seed: int):
+    """Phase 8's batch recipe (2 x 2049 tokens from seed + 1, reused every
+    step) drawn on the CPU: the job's CPU task and the direct run both call
+    this, so both train on the same tokens."""
+    from ray_tpu_torch import bench
+
+    cfg = bench.train_config_8b(n_layers=OPERATOR_LAYERS)
+    return bench.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1, "cpu")
+
+
+def operator_train(seed: int, batch) -> dict:
+    """Phase 10's all-kernel step (K1, K2 and K3 on, fused AdamW, TF32 off)
+    at llama3_8b width with OPERATOR_LAYERS layers: OPERATOR_STEPS steps on
+    `batch` (moved to the card). Returns the losses, grad norms and each
+    step's launches of the seven kernels, read in this process."""
+    import torch
+
+    from ray_tpu_torch.models.transformer import tree_leaves
+    from ray_tpu_torch.ops.kernels import adamw as aw
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+    from ray_tpu_torch.train import fused_adamw_optimizer, make_train_step
+    from ray_tpu_torch import bench
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = bench.train_config_8b(n_layers=OPERATOR_LAYERS)
+    kernels = (*fa.KERNELS, *ff.KERNELS, aw.adamw_update)
+    old = ff.USE_K1, ff.USE_K2, ff.USE_K3
+    ff.USE_K1 = ff.USE_K2 = ff.USE_K3 = True
+    t0 = time.perf_counter()
+    try:
+        step_fn, init_fn = make_train_step(
+            cfg, fused_adamw_optimizer(warmup_steps=2), device="cuda")
+        state = init_fn(seed)
+        n_leaves = len(list(tree_leaves(state.params)))
+        batch = {k: v.to("cuda") for k, v in batch.items()}
+        losses, norms, launches = [], [], []
+        for _ in range(OPERATOR_STEPS):
+            for k in kernels:  # the main path's counts start here
+                k.launches = 0
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            launches.append({k.__name__: k.launches for k in kernels})
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+    finally:
+        ff.USE_K1, ff.USE_K2, ff.USE_K3 = old
+    out = {"losses": losses, "norms": norms, "launches": launches,
+           "n_leaves": n_leaves, "cuda_device": torch.cuda.current_device(),
+           "seconds": round(time.perf_counter() - t0, 2)}
+    del state, step_fn, init_fn, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def nvidia_fds(pid: int) -> list:
+    """The /dev/nvidia* files process `pid` holds open: a process with a
+    CUDA context holds the driver's device files."""
+    import os
+
+    found = []
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                found.append(target)
+    except OSError:
+        pass
+    return sorted(set(found))
+
+
+def _supervisor_pid(pid: int):
+    """The nearest ancestor of `pid` that is a port worker (the job's
+    supervisor actor, whose subprocess the entrypoint is)."""
+    for _ in range(4):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                pid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except (OSError, ValueError, IndexError):
+            return None
+        if "core.worker_main" in cmd:
+            return pid
+    return None
+
+
+def operator_job(seed: int) -> int:
+    """The submitted job's driver (`chip_smoke.py --operator-job`): joins
+    the cluster through RAY_TPU_TORCH_ADDRESS and executes a `.bind()` DAG,
+    InputNode (the seed) -> a CPU task that makes the batch -> a num_gpus=1
+    actor's method that trains on the card. Prints one OPERATOR_JOB line of
+    JSON."""
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+
+    address = os.environ.get("RAY_TPU_TORCH_ADDRESS")
+    if not address or os.environ.get("RAY_TPU_ADDRESS") == address:
+        fail(f"operator job: RAY_TPU_TORCH_ADDRESS {address!r}")
+    rt.init()
+    repo = str(HERE)
+
+    @rt.remote(num_cpus=1)
+    def make_batch(seed, repo):
+        import sys
+
+        sys.path.insert(0, repo)
+        import chip_smoke
+
+        return chip_smoke.operator_batch(seed)
+
+    @rt.remote(num_gpus=1)
+    class OperatorTrainer:
+        def __init__(self, repo):
+            import sys
+
+            sys.path.insert(0, repo)
+
+        def train(self, seed, batch):
+            import os
+
+            import chip_smoke
+            import ray_tpu_torch
+
+            out = chip_smoke.operator_train(seed, batch)
+            out.update(pid=os.getpid(), gpu_ids=ray_tpu_torch.get_gpu_ids())
+            return out
+
+        def ping(self):
+            return True
+
+    t0 = time.perf_counter()
+    with InputNode() as inp:
+        trainer = OperatorTrainer.bind(repo)
+        node = trainer.train.bind(inp, make_batch.bind(inp, repo))
+    result = rt.get(node.execute(seed), timeout=600)
+    result["dag_seconds"] = round(time.perf_counter() - t0, 2)
+    result["actor_fds"] = nvidia_fds(result["pid"])
+    sup = _supervisor_pid(os.getpid())
+    result["supervisor_pid"] = sup
+    result["supervisor_fds"] = nvidia_fds(sup) if sup else None
+    result["job_id"] = rt.get_runtime_context().job_id.hex()
+    # keep the actor alive until the operator has scraped the dashboard
+    # with it, then end it
+    signal_file = OPERATOR_DIR / "scraped"
+    deadline = time.monotonic() + 90
+    while not signal_file.exists() and time.monotonic() < deadline:
+        rt.get(trainer._handle.ping.remote(), timeout=30)
+        time.sleep(0.2)
+    result["scraped_alive"] = signal_file.exists()
+    rt.kill(trainer._handle)
+    torch = sys.modules.get("torch")
+    result["driver_cuda"] = bool(torch is not None
+                                 and torch.cuda.is_initialized())
+    result["driver_fds"] = nvidia_fds(os.getpid())
+    print("OPERATOR_JOB " + json.dumps(result), flush=True)
+    rt.shutdown()
+    return 0
+
+
+def _cli(args, env, timeout=120):
+    """`python -m ray_tpu_torch args...` through CLI_PROBE; returns (rc,
+    stdout, whether the CLI's process made a CUDA context, seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", CLI_PROBE, *args],
+                         capture_output=True, text=True, env=env,
+                         cwd=str(HERE), timeout=timeout)
+    cuda = [ln for ln in out.stderr.splitlines()
+            if ln.startswith("CLI_CUDA_CONTEXT")]
+    if not cuda:
+        fail(f"operator: `ray_tpu_torch {' '.join(args)}` ended without its "
+             f"probe line (rc {out.returncode}): {out.stderr[-2000:]}")
+    return (out.returncode, out.stdout, cuda[-1].split()[-1] == "True",
+            round(time.perf_counter() - t0, 2))
+
+
+def _scrape(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return r.status, r.read().decode()
+
+
+def _check_scrape(port: int, when: str, job: dict, actor_state: str) -> dict:
+    """The dashboard's endpoints: GPU 1 in all, the supervisor and the GPU
+    actor listed (the latter `actor_state`), the job's driver among the
+    jobs, the cluster gauges in /metrics, /timeline JSON, a page that names
+    GPUs."""
+    import re
+
+    got = {}
+    for path in ("/api/cluster_resources", "/api/actors", "/api/jobs",
+                 "/api/nodes", "/metrics", "/timeline", "/"):
+        status, body = _scrape(port, path)
+        if status != 200:
+            fail(f"operator: {when}, {path} answered {status}")
+        got[path] = body
+    res = json.loads(got["/api/cluster_resources"])
+    actors = json.loads(got["/api/actors"])
+    jobs = json.loads(got["/api/jobs"])
+    sup = [a for a in actors if (a.get("name") or "").startswith(
+        "_job_supervisor:") and a["class_name"] == "JobSupervisor"]
+    gpu = [a for a in actors if a["class_name"] == OPERATOR_TRAINER]
+    values = dict(re.findall(r"^(ray_tpu_torch_[a-z_]+) ([0-9.e+-]+)$",
+                             got["/metrics"], re.MULTILINE))
+    timeline = json.loads(got["/timeline"])
+    summary = {"GPU total": res["total"].get("GPU"),
+               "GPU available": res["available"].get("GPU"),
+               "supervisors": [a["state"] for a in sup],
+               "GPU actor": [a["state"] for a in gpu],
+               "jobs": len(jobs),
+               "nodes_alive": values.get("ray_tpu_torch_nodes_alive"),
+               "tasks_finished_total":
+                   values.get("ray_tpu_torch_tasks_finished_total"),
+               "actors_alive": values.get("ray_tpu_torch_actors_alive"),
+               "timeline events": len(timeline["traceEvents"])}
+    log(f"operator: dashboard {when}: {json.dumps(summary)}")
+    bad = []
+    if res["total"].get("GPU") != 1.0:
+        bad.append("GPU total")
+    if not sup or not gpu or gpu[-1]["state"] != actor_state:
+        bad.append("actors")
+    if job.get("job_id") and not any(j["job_id"] == job["job_id"]
+                                     for j in jobs):
+        bad.append("jobs")
+    if values.get("ray_tpu_torch_nodes_alive") not in ("1", "1.0"):
+        bad.append("nodes_alive")
+    if job.get("job_id") and not float(values.get(
+            "ray_tpu_torch_tasks_finished_total", 0)) >= OPERATOR_DAG_TASKS:
+        bad.append("tasks_finished_total")
+    if "GPUs in use" not in got["/"] or "TPU" in got["/"]:
+        bad.append("page")
+    if bad:
+        fail(f"operator: dashboard {when}: {bad}")
+    return summary
+
+
+def operator_phase(card: str, seed: int) -> dict:
+    """Phase 20 (in a process of its own, `chip_smoke.py --operator`): `up`
+    a fake-provider cluster whose head has GPU 1, a dashboard in this
+    process, `job submit` the DAG job, checks of its output and of the
+    dashboard while its GPU actor lives and after, `status`, `healthcheck`
+    and `metrics export-dashboards`, `down`; then the same steps directly
+    on the card, bit for bit the job's. Returns each part's seconds and the
+    job's launches a kernel."""
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dashboard import start_dashboard
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    shutil.rmtree(OPERATOR_DIR, ignore_errors=True)
+    OPERATOR_DIR.mkdir(parents=True)
+    yaml_path = OPERATOR_DIR / "cluster.yaml"
+    name = "chip-smoke-operator"
+    yaml_path.write_text(
+        f"cluster_name: {name}\n"
+        "provider:\n  type: fake\n"
+        "head:\n  num_cpus: 4\n  resources: {GPU: 1}\n"
+        "workers:\n  count: 0\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(HERE) + os.pathsep + env.get("PYTHONPATH", "")
+    env["RAY_TPU_TORCH_CLUSTERS_DIR"] = str(OPERATOR_DIR / "clusters")
+    env.pop("RAY_TPU_TORCH_ADDRESS", None)
+    state_file = OPERATOR_DIR / "clusters" / f"{name}.json"
+
+    def part(label, t):
+        seconds[label] = round(time.perf_counter() - t, 2)
+        log(f"operator: {label} took {seconds[label]} s [{card}]")
+
+    # 1. up: the launcher holds the fake cluster in its own process
+    t = time.perf_counter()
+    up_log = open(OPERATOR_DIR / "up.log", "w")
+    up = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch", "up",
+                           str(yaml_path)], stdout=up_log,
+                          stderr=subprocess.STDOUT, env=env, cwd=str(HERE))
+    state = {}
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline and "holder_pid" not in state:
+        if up.poll() is not None:
+            fail(f"operator: `up` exited {up.returncode}: "
+                 f"{(OPERATOR_DIR / 'up.log').read_text()[-2000:]}")
+        try:
+            state = json.loads(state_file.read_text())
+        except (OSError, ValueError):
+            state = {}
+        time.sleep(0.2)
+    if "holder_pid" not in state:
+        up.kill()
+        fail("operator: `up` never recorded its cluster")
+    address, head_pid = state["gcs_address"], state["head_pid"]
+    part("up", t)
+    log(f"operator: cluster {name} at {address}, head pid {head_pid}, "
+        f"state under {state_file.parent.relative_to(HERE)}")
+    try:
+        # 2. this process joins and serves the dashboard
+        t = time.perf_counter()
+        rt.init(address=address)
+        server, port = start_dashboard(0)
+        part("init and dashboard", t)
+        try:
+            # 3. job submit through the CLI
+            rc, out, cuda, s = _cli(
+                ["job", "submit", "--address", address, "--working-dir",
+                 str(HERE), "--", "python3", "chip_smoke.py",
+                 "--operator-job", "--seed", str(seed)], env)
+            seconds["job submit CLI"] = s
+            if rc != 0 or cuda:
+                fail(f"operator: job submit rc {rc}, CUDA context {cuda}")
+            job_id = out.strip().splitlines()[-1]
+            log(f"operator: submitted {job_id} in {s} s [{card}]; the "
+                f"CLI made no CUDA context")
+            client = JobSubmissionClient(address)
+            t = time.perf_counter()
+            live = None
+            status = "PENDING"
+            deadline = time.monotonic() + 180
+            while time.monotonic() < deadline:
+                status = client.get_job_status(job_id)
+                if status in ("SUCCEEDED", "FAILED", "STOPPED"):
+                    break
+                if live is None:
+                    _, body = _scrape(port, "/api/actors")
+                    if any(a["class_name"] == OPERATOR_TRAINER
+                           and a["state"] == "ALIVE"
+                           for a in json.loads(body)):
+                        live = _check_scrape(port, "while the GPU actor "
+                                             "lives", {}, "ALIVE")
+                        (OPERATOR_DIR / "scraped").write_text("1")
+                time.sleep(0.5)
+            logs = client.get_job_logs(job_id)
+            part("job", t)
+            (OPERATOR_DIR / "job.log").write_text(logs)
+            if status != "SUCCEEDED":
+                fail(f"operator: job {job_id} {status}: {logs[-4000:]}")
+            if live is None:
+                fail("operator: the dashboard never saw the GPU actor alive")
+            lines = [ln for ln in logs.splitlines()
+                     if ln.startswith("OPERATOR_JOB ")]
+            if not lines:
+                fail(f"operator: the job printed no result: {logs[-4000:]}")
+            # 4. the job's output
+            job = json.loads(lines[-1][len("OPERATOR_JOB "):])
+            log(f"operator: job losses {job['losses']}, grad norms "
+                f"{job['norms']}, launches a step {job['launches'][0]}, "
+                f"get_gpu_ids() {job['gpu_ids']}, cuda device "
+                f"{job['cuda_device']}, train {job['seconds']} s, DAG "
+                f"{job['dag_seconds']} s [{card}]")
+            job_checks(job)
+
+            # 5. after the job: its actor ended, the job listed
+            time.sleep(1.0)
+            _check_scrape(port, "after the job", job, "DEAD")
+        finally:
+            server.shutdown()
+
+        # 6. the CLI against the live cluster
+        for label, args in (
+                ("status", ["status", "--address", address]),
+                ("healthcheck", ["healthcheck", "--address", address]),
+                ("export-dashboards", ["metrics", "export-dashboards",
+                                       "--out-dir",
+                                       str(OPERATOR_DIR / "grafana")])):
+            rc, out, cuda, s = _cli(args, env)
+            seconds[f"{label} CLI"] = s
+            log(f"operator: {label} rc {rc} in {s} s, CUDA context {cuda}: "
+                f"{' '.join(out.split())[:300]} [{card}]")
+            if rc != 0 or cuda:
+                fail(f"operator: {label} rc {rc}, CUDA context {cuda}")
+        export_checks(OPERATOR_DIR / "grafana")
+        head_fds = nvidia_fds(head_pid)
+        log(f"operator: /dev/nvidia* files open: head daemon {head_fds}, "
+            f"supervisor {job['supervisor_fds']}, job driver "
+            f"{job['driver_fds']}, GPU actor (control) {job['actor_fds']}")
+        if job["actor_fds"]:
+            if head_fds or job["supervisor_fds"] or job["driver_fds"]:
+                fail("operator: a process beside the GPU actor holds the "
+                     "card's device files")
+        else:
+            log("operator: the device-file probe saw none in the GPU actor "
+                "either, so it cannot see a context on this host: only the "
+                "in-process checks (CLI, job driver, this process) hold")
+        if job["supervisor_pid"] is None:
+            fail("operator: the job's supervisor worker was not found")
+        torch_mod = sys.modules.get("torch")
+        if torch_mod is not None and torch_mod.cuda.is_initialized():
+            fail("operator: the dashboard's process made a CUDA context")
+        rt.shutdown()
+    finally:
+        # 7. down
+        t = time.perf_counter()
+        rc, out, cuda, s = _cli(["down", str(yaml_path)], env)
+        log(f"operator: down rc {rc}: {out.strip()}")
+        try:
+            up.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            up.kill()
+        up_log.close()
+    if rc != 0 or cuda:
+        fail(f"operator: down rc {rc}, CUDA context {cuda}")
+    gone = False
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and not gone:
+        gone = not Path(f"/proc/{head_pid}").exists()
+        time.sleep(0.2)
+    rc, out, _, _ = _cli(["healthcheck", "--address", address], env)
+    part("down", t)
+    log(f"operator: after down the head pid {head_pid} is gone: {gone}; "
+        f"healthcheck rc {rc} ({out.strip()}); `up` exited {up.returncode}")
+    if not gone or rc == 0 or up.returncode != 0:
+        fail("operator: `down` left the cluster up")
+    deadline = time.monotonic() + 30
+    while Path(f"/proc/{job['pid']}").exists() \
+            and time.monotonic() < deadline:
+        time.sleep(0.2)
+
+    # 8. the same steps directly on the card, no runtime
+    t = time.perf_counter()
+    direct = operator_train(seed, operator_batch(seed))
+    part("direct run", t)
+    same = (direct["losses"] == job["losses"]
+            and direct["norms"] == job["norms"]
+            and direct["launches"] == job["launches"])
+    log(f"operator: direct run losses {direct['losses']}, grad norms "
+        f"{direct['norms']}; bit-identical to the job's: {same}")
+    if not same:
+        fail("operator: the job's DAG actor and the direct run differ")
+    seconds["phase"] = round(time.perf_counter() - t_phase, 2)
+    log(f"operator: phase {seconds['phase']} s, parts {json.dumps(seconds)} "
+        f"[{card}]")
+    launches = {k: sum(step[k] for step in job["launches"])
+                for k in job["launches"][0]}
+    result = {"seconds": seconds, "launches": launches}
+    (OPERATOR_DIR / "result.json").write_text(json.dumps(result))
+    return result
+
+
+def job_checks(job: dict) -> None:
+    """The job's output: finite, falling losses; the six flash and FFN
+    kernels at 2 launches a step (one a layer), AdamW once a leaf; the
+    driver without a CUDA context; the actor on the card its grant names;
+    the actor still alive when the dashboard scraped it."""
+    want = {k: OPERATOR_LAYERS for k in job["launches"][0]}
+    want["adamw_update"] = job["n_leaves"]
+    bad = []
+    if not all(math.isfinite(x) for x in job["losses"] + job["norms"]):
+        bad.append("not finite")
+    if not job["losses"][-1] < job["losses"][0]:
+        bad.append("losses not falling")
+    if any(step != want for step in job["launches"]):
+        bad.append(f"launches {job['launches']}, want {want} a step")
+    if len(want) != 7:
+        bad.append(f"kernels {sorted(want)}")
+    if job["driver_cuda"] or job["driver_fds"]:
+        bad.append("the job's driver made a CUDA context")
+    if job["gpu_ids"] != [0] or job["cuda_device"] != 0:
+        bad.append(f"actor on {job['cuda_device']}, grant {job['gpu_ids']}")
+    if not job["scraped_alive"]:
+        bad.append("the job ended its actor before the scrape")
+    if bad:
+        fail(f"operator: job output: {bad}")
+
+
+def export_checks(out_dir: Path) -> None:
+    """Three dashboards, every expression on a `ray_tpu_torch_*` series."""
+    import re
+
+    files = sorted(p.name for p in out_dir.iterdir())
+    want = [f"ray_tpu_torch_{n}.json" for n in ("core", "serve", "train")]
+    exprs = []
+    for f in files:
+        doc = json.loads((out_dir / f).read_text())
+        exprs += [t["expr"] for p in doc["panels"] for t in p["targets"]]
+    series = {s for e in exprs for s in re.findall(r"ray_tpu[a-z_]*", e)}
+    log(f"operator: dashboards {files}, {len(exprs)} expressions over "
+        f"{len(series)} series")
+    if files != want or not exprs \
+            or not all(s.startswith("ray_tpu_torch_") for s in series):
+        fail(f"operator: exported dashboards {files}, series {series}")
+
+
+def run_operator_phase(card: str, seed: int) -> dict:
+    """Phase 20 in a fresh interpreter, as phase 19 runs; returns its
+    result (each part's seconds, the job's launches a kernel)."""
+    out = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"),
+                          "--operator", "--seed", str(seed)], timeout=300)
+    if out.returncode != 0:
+        fail(f"operator phase exited {out.returncode}")
+    return json.loads((OPERATOR_DIR / "result.json").read_text())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--harness", action="store_true",
                     help="run only phase 19 (chip_smoke starts it this way "
                          "after phase 18, in a process of its own)")
+    ap.add_argument("--operator", action="store_true",
+                    help="run only phase 20 (chip_smoke starts it this way "
+                         "after phase 19, in a process of its own)")
+    ap.add_argument("--operator-job", action="store_true",
+                    help="phase 20's submitted job: the driver of the "
+                         "training DAG (run by the job's supervisor)")
     args = ap.parse_args()
     if args.harness:
         sys.path.insert(0, str(HERE))
         harness_phase(smi_line(), args.seed)
+        return 0
+    if args.operator_job:
+        sys.path.insert(0, str(HERE))
+        return operator_job(args.seed)
+    if args.operator:
+        sys.path.insert(0, str(HERE))
+        operator_phase(smi_line(), args.seed)
         return 0
     t_start = time.perf_counter()
 
@@ -4666,6 +5252,10 @@ def main() -> int:
     # ---- phase 19: the runtime's harnesses (microbenchmark, transfer,
     # envelope, the quick memstorm, jobstorm, burst and node storm)
     run_harness_phase(card, args.seed)
+    # ---- phase 20: the operator surface: `up`, `job submit` of a DAG job
+    # that trains on the card, the dashboard, the CLI, `down`, and the same
+    # steps run directly
+    operator = run_operator_phase(card, args.seed)
 
     # ---- phase 16: report
     pallas = "ray_tpu/ops/pallas/"
@@ -4755,6 +5345,9 @@ def main() -> int:
                                                 / TRAIN_STEPS)
             kernels[-1]["launches_by_path"] = {
                 **by_path[kname], **sharded_launches.get(kname, {})}
+            if kname in operator["launches"]:
+                kernels[-1]["launches_by_path"][
+                    "job DAG actor (phase 20)"] = operator["launches"][kname]
         if kname in runtime_launches:
             kernels[-1]["launches_by_path"] = {
                 "ContinuousBatchingEngine w8a16 (phase 4)": launches[kname],

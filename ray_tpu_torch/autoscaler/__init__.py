@@ -1,12 +1,16 @@
-"""The autoscaler's core: `StandardAutoscaler` (demand-driven launches and
+"""The autoscaler: `StandardAutoscaler` (demand-driven launches and
 dead-node reap-and-replace) over the `NodeProvider` interface, with
-`FakeNodeProvider`'s in-process raylets. The cloud providers for GPU hosts
-and the cluster launcher that drives them are still to port (ROADMAP.md,
-A.8)."""
+`FakeNodeProvider`'s in-process raylets and the GPU hosts of
+`GceGpuNodeProvider` (Compute Engine) and `KubernetesGpuNodeProvider`
+(`nvidia.com/gpu` Pods); `launcher` brings a cluster up and down from a
+YAML (`python -m ray_tpu_torch up|down|exec|submit|attach`)."""
 
 from ray_tpu_torch.autoscaler.autoscaler import NodeType, StandardAutoscaler
 from ray_tpu_torch.autoscaler.node_provider import (FakeNodeProvider,
+                                                    GceGpuNodeProvider,
+                                                    KubernetesGpuNodeProvider,
                                                     NodeProvider)
 
-__all__ = ["FakeNodeProvider", "NodeProvider", "NodeType",
+__all__ = ["FakeNodeProvider", "GceGpuNodeProvider",
+           "KubernetesGpuNodeProvider", "NodeProvider", "NodeType",
            "StandardAutoscaler"]

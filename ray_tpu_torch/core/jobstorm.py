@@ -294,6 +294,27 @@ def _spawn_driver(p: JobStormProfile, gcs: str, idx: int,
     return rec
 
 
+def _warm_templates(cluster: Cluster, timeout: float = 90.0) -> float:
+    """Boot every node's default-env fork template before the drivers
+    start, and wait for each (returns the seconds it took). The port's
+    template imports torch, 6-11 s cold on a GPU host: a storm begun
+    before that would measure the boots, not the job failure domain (a
+    survivor's task spilled to a node whose template was still booting
+    waited out the import while the other node had idle workers)."""
+    t0 = time.monotonic()
+    for r in cluster._raylets:
+        r._worker_pool.prewarm([{"env_key": None}])
+    deadline = t0 + timeout
+    for r in cluster._raylets:
+        while time.monotonic() < deadline:
+            slot = r._worker_pool._templates.get(None)
+            if slot is not None and slot.state in ("ready", "failed",
+                                                   "cold_only"):
+                break
+            time.sleep(0.05)
+    return time.monotonic() - t0
+
+
 def run_jobstorm(profile: Optional[JobStormProfile] = None,
                  out_path: Optional[str] = None) -> Dict[str, Any]:
     p = profile or JobStormProfile()
@@ -315,6 +336,7 @@ def run_jobstorm(profile: Optional[JobStormProfile] = None,
         # runtime, of other processes and of earlier clusters never count
         shm_prefixes = [r.store._prefix for r in cluster._raylets]
         stats_c = rpc.connect_with_retry(cluster.gcs_address, timeout=10)
+        phases["warm_templates_s"] = round(_warm_templates(cluster), 2)
 
         def gcs_jobs() -> Dict[str, dict]:
             st = stats_c.call("gcs_stats", timeout=10)

@@ -146,7 +146,12 @@ class ResultBuffer:
             # rejected at the owner instead of resolving a pinned call
             payload["actor_incarnation"] = w._actor_incarnation
         try:
-            w.peer(owner).notify("report_task_result", payload)
+            # one dial, not peer()'s connect-and-retry loop: this flush
+            # serves the owners one after another, and a dead owner (its
+            # port refuses at once) held every other owner's results for
+            # the loop's rpc_connect_timeout_s
+            w.peer(owner, connect_timeout_s=2, retry=False).notify(
+                "report_task_result", payload)
             return
         except Exception:
             with w._peers_lock:  # drop the stale cached connection

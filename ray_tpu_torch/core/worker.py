@@ -508,22 +508,27 @@ class CoreWorker:
         return self._server.address
 
     def peer(self, address: str,
-             connect_timeout_s: Optional[float] = None) -> rpc.RpcClient:
+             connect_timeout_s: Optional[float] = None,
+             retry: bool = True) -> rpc.RpcClient:
         """Cached connection to another worker/raylet. The dial happens
         OUTSIDE the cache lock: connect_with_retry spins for the full
         connect timeout when the target is dead (SIGKILLed worker whose
         address we still hold), and holding the lock through that would
         serialize every other peer() caller in the process behind one
         corpse — under a node kill storm that stalls submissions to
-        perfectly healthy actors for 30 s at a time."""
+        perfectly healthy actors for 30 s at a time. `retry=False` dials
+        once: a dead peer's refusal raises at once."""
         with self._peers_lock:
             c = self._peers.get(address)
             if c is not None and not c.closed:
                 return c
-        c = rpc.connect_with_retry(
-            address,
-            timeout=connect_timeout_s or get_config().rpc_connect_timeout_s,
-            origin=self.raylet_address)
+        timeout = connect_timeout_s or get_config().rpc_connect_timeout_s
+        if retry:
+            c = rpc.connect_with_retry(address, timeout=timeout,
+                                       origin=self.raylet_address)
+        else:
+            c = rpc.RpcClient(address, connect_timeout=timeout,
+                              origin=self.raylet_address)
         with self._peers_lock:
             existing = self._peers.get(address)
             if existing is not None and not existing.closed:

@@ -13,8 +13,9 @@ of the target mesh) reads each rank's new blocks. The step directories
 work under a process group too: rank 0 stages and commits the directory,
 and `latest_checkpoint` and `gc_checkpoints` run on rank 0 and hand their
 result to every rank (so every rank calls them, as it calls the save).
-The ranks share one file system. The reference's Prometheus gauge of the
-save time waits for the runtime's port.
+The ranks share one file system. Each save sets the Prometheus gauge
+`ray_tpu_torch_checkpoint_save_seconds` to its seconds, as the reference
+sets `ray_tpu_checkpoint_save_seconds`.
 
 The port's training update writes the state in place, so a save is
 synchronous (no `async_save`), and a restore fills the target's own
@@ -113,6 +114,10 @@ def save_sharded(state: Any, path: str) -> str:
     path = os.path.abspath(path)
     _single_process(dcp.save, _state_dict(state), checkpoint_id=path)
     _last_save_seconds[:] = [time.monotonic() - t0]
+    from ray_tpu_torch.util.metrics import get_or_create
+
+    get_or_create("gauge", "ray_tpu_torch_checkpoint_save_seconds",
+                  "last checkpoint save time").set(_last_save_seconds[0])
     return path
 
 

@@ -544,6 +544,82 @@ def test_kill_head_no_longer_raises_and_defaults_under_build():
         "ref", "serve.storm").KILLHEAD_QUICK_PROFILE
 
 
+
+# ------------------------------- jobstorm's survivors on a slow-start host
+
+
+def test_dead_owner_does_not_hold_a_live_owners_results():
+    """A worker's result flush serves its owners one after another. A
+    dead owner's port refuses at once, and the flush must move on: the
+    live owner behind it gets its result at once (ray_tpu's flush dials
+    with a 30 s retry loop first, which starved jobstorm's survivors after
+    a kill on the GPU host)."""
+    import socket
+    import threading
+
+    from ray_tpu_torch.core import rpc
+    from ray_tpu_torch.core.result_buffer import ResultBuffer
+    from ray_tpu_torch.core.worker import CoreWorker
+
+    got = []
+    srv = rpc.RpcServer("127.0.0.1")
+    srv.register("report_task_result",
+                 lambda conn, req_id, payload: got.append(
+                     (time.monotonic(), payload)))
+    srv.start()
+    with socket.socket() as s:  # a port nothing listens on
+        s.bind(("127.0.0.1", 0))
+        dead = f"127.0.0.1:{s.getsockname()[1]}"
+    w = types.SimpleNamespace(_peers={}, _peers_lock=threading.Lock(),
+                              _shutdown=threading.Event(),
+                              raylet_address="127.0.0.1:0", actor_id=None)
+    w.peer = types.MethodType(CoreWorker.peer, w)
+    buf = ResultBuffer(w)
+    try:
+        t0 = time.monotonic()
+        buf.report(dead, b"t-dead", [1])
+        buf.report(srv.address, b"t-live", [2])
+        deadline = t0 + 20
+        while not got and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert got, "the live owner never got its result"
+        assert got[0][0] - t0 < 5.0, got[0][0] - t0
+        assert got[0][1]["batch"] == [(b"t-live", [2])]
+    finally:
+        buf.stop()
+        srv.stop()
+
+
+def test_jobstorm_warms_every_template_before_its_drivers():
+    """Every node's default-env template is booted, and each waited for,
+    before the drivers start (the port's template imports torch, seconds
+    on a GPU host)."""
+    from ray_tpu_torch.core import jobstorm
+
+    class _Pool:
+        def __init__(self, boot_s):
+            self.boot_s, self._templates, self.asked = boot_s, {}, []
+
+        def prewarm(self, hot_envs):
+            self.asked.append(list(hot_envs))
+            slot = types.SimpleNamespace(state="booting")
+            self._templates[None] = slot
+
+            def boot():
+                time.sleep(self.boot_s)
+                slot.state = "ready"
+
+            threading.Thread(target=boot, daemon=True).start()
+
+    pools = [_Pool(0.3), _Pool(0.6)]
+    cluster = types.SimpleNamespace(_raylets=[
+        types.SimpleNamespace(_worker_pool=p) for p in pools])
+    took = jobstorm._warm_templates(cluster)
+    assert [p.asked for p in pools] == [[[{"env_key": None}]]] * 2
+    assert all(p._templates[None].state == "ready" for p in pools)
+    assert 0.6 <= took < 5.0
+
+
 # ------------------------------------------------ the storms' contracts
 
 

@@ -3,7 +3,10 @@ nor ray_tpu, and every entry point of the device path refuses to run on a
 missing GPU. The runtime, Serve and the runtime's harness CLIs (burst,
 jobstorm, memstorm, envelope, microbenchmark), which do no device work, run
 on any host; no default artifact of theirs names a file of the JAX
-package."""
+package. The operator surface (`python -m ray_tpu_torch`, the launcher,
+job submission, the dashboard, Grafana, rpdb) keeps its own state root, KV
+namespaces, job ids and dashboard files, and its CLI starts without a
+GPU."""
 
 import ast
 import json
@@ -81,7 +84,17 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "ray_tpu_torch.core.memstorm",
                  "ray_tpu_torch.envelope",
                  "ray_tpu_torch.microbenchmark",
-                 "ray_tpu_torch.serve.storm"):
+                 "ray_tpu_torch.serve.storm",
+                 "ray_tpu_torch.__main__",
+                 "ray_tpu_torch.dag",
+                 "ray_tpu_torch.dashboard",
+                 "ray_tpu_torch.dashboard_ui",
+                 "ray_tpu_torch.grafana",
+                 "ray_tpu_torch.job_submission",
+                 "ray_tpu_torch.autoscaler.launcher",
+                 "ray_tpu_torch.util.otel",
+                 "ray_tpu_torch.util.joblib",
+                 "ray_tpu_torch.util.rpdb"):
         assert name in modules
     code = (
         "import importlib, json, sys\n"
@@ -196,21 +209,58 @@ def test_default_artifacts_are_the_ports_own():
     assert {"ENVELOPE_r10.json", "HEADFAIL_r11.json", "JOBSTORM_r20.json",
             "STORESTORM_r18.json", "PARTITION_r13.json",
             "OBJPLANE_r14.json"} <= committed
+    # the operator surface: Grafana's default directory, the launcher's
+    # state root, the KV namespaces of jobs and breakpoints, the job ids
+    from ray_tpu import job_submission as ref_jobs
+    from ray_tpu.autoscaler import launcher as ref_launcher
+    from ray_tpu.util import rpdb as ref_rpdb
+    from ray_tpu_torch import grafana, job_submission
+    from ray_tpu_torch.autoscaler import launcher
+    from ray_tpu_torch.util import rpdb
+
+    out_dir = Path(grafana.DEFAULT_OUT_DIR)
+    assert out_dir.parent == REPO / "build"
+    assert out_dir.name.endswith("_torch")
+    if "RAY_TPU_TORCH_CLUSTERS_DIR" not in os.environ:
+        assert launcher._STATE_ROOT == os.path.expanduser(
+            "~/.ray_tpu_torch/clusters")
+    assert launcher._STATE_ROOT != ref_launcher._STATE_ROOT
+    assert job_submission._KV_NS == "ray_tpu_torch_job_submission"
+    assert rpdb._KV_NS == "ray_tpu_torch_rpdb"
+    assert job_submission._KV_NS != ref_jobs._KV_NS
+    assert rpdb._KV_NS != ref_rpdb._KV_NS
+    assert job_submission.JOB_ID_PREFIX == "rtt-job-"
 
 
 @pytest.mark.parametrize("module", ["ray_tpu_torch.core.burst",
                                     "ray_tpu_torch.core.jobstorm",
                                     "ray_tpu_torch.core.memstorm",
                                     "ray_tpu_torch.envelope",
-                                    "ray_tpu_torch.microbenchmark"])
-def test_harness_clis_start_without_a_gpu(module):
-    """The harness CLIs do no device work: they parse and start on a host
-    without a card (here the help text, which names the default path)."""
+                                    "ray_tpu_torch.microbenchmark",
+                                    "ray_tpu_torch",
+                                    "ray_tpu_torch metrics export-dashboards",
+                                    "ray_tpu_torch rllib train --algo ppo"])
+def test_harness_clis_start_without_a_gpu(module, tmp_path):
+    """The harness CLIs and the operator CLI do no device work: they parse
+    and start on a host without a card (here the help text, which names
+    the default path; the dashboards' export; `rllib`, which exits 2 with
+    one line until the port has an rllib)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
-    out = subprocess.run([sys.executable, "-m", module, "--help"],
+    module, *args = module.split()
+    if args[:2] == ["metrics", "export-dashboards"]:
+        args += ["--out-dir", str(tmp_path)]
+    out = subprocess.run([sys.executable, "-m", module, *(args or ["--help"])],
                          capture_output=True, text=True, env=env,
                          cwd=str(REPO), timeout=120)
+    if args[:1] == ["rllib"]:
+        assert out.returncode == 2 and out.stdout == ""
+        assert len(out.stderr.strip().splitlines()) == 1, out.stderr
+        return
     assert out.returncode == 0, out.stderr
+    if args:
+        assert sorted(os.listdir(tmp_path)) == [
+            f"ray_tpu_torch_{n}.json" for n in ("core", "serve", "train")]
+        return
     assert "usage" in out.stdout
 
