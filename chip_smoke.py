@@ -240,9 +240,11 @@ Phases (any failure exits non-zero and prints no result line):
      L·n_micro, K3 never (the stage runs `_layer`);
  16. print the kernels line (the float32 kernels as `<name>_f32`, the
      wide family as `<name>_wide`), the nvidia-smi line, and the result
-     line.
+     line. Each phase's wall seconds are logged on a `timing:` line, for
+     the 1200 s budget.
 
- 17. (run after 15d, before the report) the port's runtime on the card:
+ 17. (run after 15d and phase 19, before the report) the port's runtime
+     on the card:
      `ray_tpu_torch.init(num_cpus=8, resources={"GPU": 1})`; a num_gpus=1
      task in a forked warm worker sees get_gpu_ids() == [0] and launches
      dequant_rows at [4096, 14336], and the driver's get of its CUDA
@@ -270,8 +272,10 @@ Phases (any failure exits non-zero and prints no result line):
      2 dequants a pass); request 0 streamed over HTTP equal to the
      handle's tokens; servebench's latency row on b1 (5 s at 6 rps, 16 new
      tokens) with hung 0 and errors 0.
- 19. (after 18, its runtime shut down; in a fresh interpreter, `python3
-     chip_smoke.py --harness`, as each harness's CLI runs) the runtime's
+ 19. (started beside phases 7-15d, which only the card bounds, in a
+     fresh interpreter, `python3 chip_smoke.py --harness`, as each
+     harness's CLI runs, its log printed when it ends; then, after 15d and
+     alone, `python3 chip_smoke.py --node-storm`) the runtime's
      harnesses on the card's host, none of which does device work:
      `microbenchmark.run_microbenchmark(quick=True)` in `init(num_cpus=4,
      resources={"GPU": 1})` (every row finite and above 0);
@@ -283,7 +287,7 @@ Phases (any failure exits non-zero and prints no result line):
      context), `run_burst` (in `init(num_cpus=8, resources={"GPU": 1})`)
      and the node storm, each with `violations == []`. Every rate and each
      part's seconds are logged beside the card's name and power limit.
- 20. (after 19; in a fresh interpreter, `python3 chip_smoke.py
+ 20. (after 18; in a fresh interpreter, `python3 chip_smoke.py
      --operator`) the operator surface: `python -m ray_tpu_torch up` on a
      fake-provider YAML under build/phase20/ whose head has `resources:
      {GPU: 1}` (state root under build/phase20/ too); this process joins
@@ -311,6 +315,35 @@ Phases (any failure exits non-zero and prints no result line):
      to the job's bit for bit. Each part's seconds are logged beside the
      card's name and power limit; the job's launches join the kernels
      line's `launches_by_path` as "job DAG actor (phase 20)".
+ 21. (after 20; in a fresh interpreter, `python3 chip_smoke.py
+     --libraries`) the ML libraries: `init(num_cpus=8, resources={"GPU":
+     1}, object_store_memory=12 GiB)`, a flat int32 file of Llama-3 token
+     ids from the seed under build/phase21/ (8 sequential batches of 2 x
+     2049), then a Tune sweep
+     of two trials at once on the card (`resources_per_trial={"GPU":
+     0.5}`, `FailureConfig(max_failures=1)`), each 4 of phase 10's
+     all-kernel steps at llama3_8b width with 2 layers from the seed: A
+     reads the port's native `TokenLoader`, saves its state with
+     `save_sharded` after step 2 and reports the directory, raises at
+     step 3 on its first attempt, and its retry restores the state through
+     `tune.get_checkpoint()`; B reads the same windows from a Datastream
+     (`from_numpy` over the loader's batches, `streaming_split(1)`, handed
+     over by `with_parameters`, `iter_torch_batches` on the card) and
+     reports its params (`Checkpoint.from_dict`, ~3 GB of CUDA tensors).
+     Both TERMINATED, A after 1 failure; both trials' losses and grad
+     norms, steps 1-4, and B's checkpoint (CPU tensors) equal to a direct
+     run bit for bit; the six flash and FFN kernels 2 a step and AdamW
+     once a leaf in each trial's process, each on the card its grant
+     names; `ray_tpu_torch_tune_trials_running` read 2; the native
+     loader in use; the card's memory while both ran logged. Then `map_batches` of a
+     num_gpus=1 pool actor scoring 4 windows (each row's mean NLL in
+     float64, equal to a direct forward bit for bit; the flash forward 2
+     a batch), and a 2-step CPU workflow cancelled and resumed (its output
+     the direct call's, the finished step not run again). The driver
+     makes no CUDA context until all that has finished. Each part's
+     seconds and the checkpoint's and B's GB/s are logged beside the
+     card's name and power limit; the trials' and the pool actor's
+     launches join `launches_by_path`.
 
 Imports torch and the port only (never jax, never ray_tpu).
 """
@@ -4376,8 +4409,9 @@ def harness_phase(card: str, seed: int) -> dict:
     """Phase 19: the runtime's harnesses on the card's host (they do no
     device work): the quick microbenchmark in a runtime of its own, the
     transfer bench at 512 MiB, the envelope at scale 0.01, and the quick
-    memstorm, jobstorm, burst and node storm, each of which must end with
-    no violation. Returns each part's seconds."""
+    memstorm, jobstorm and burst, each of which must end with no violation
+    (the node storm, whose death bound is a wall-clock one, runs apart:
+    `node_storm_phase`). Returns each part's seconds."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import bench, envelope, microbenchmark
     from ray_tpu_torch.core import burst, jobstorm, memstorm
@@ -4463,24 +4497,138 @@ def harness_phase(card: str, seed: int) -> dict:
             rt.shutdown()
 
     storm("burst", part("burst", run_burst))
-    storm("node storm", part("node storm", lambda: burst.run_node_storm(
-        burst.NodeStormProfile(**dict(burst.NODE_QUICK_PROFILE,
-                                      seed=seed)))))
     seconds["phase"] = round(time.perf_counter() - t_phase, 2)
     log(f"harness: phase {seconds['phase']} s, parts {json.dumps(seconds)} "
         f"[{card}]")
     return seconds
 
 
-def run_harness_phase(card: str, seed: int) -> None:
-    """Phase 19 in a fresh interpreter, as each harness's CLI runs: the
-    harnesses boot their clusters inside the calling process, and in this
-    one, which holds the earlier phases' memory and threads, jobstorm's
-    surviving drivers starved (PERF.md §6)."""
+def node_storm_phase(card: str, seed: int) -> None:
+    """Phase 19's node storm (its quick profile): node kills detected
+    within the death bound, every actor recovered, no violation."""
+    from ray_tpu_torch.core import burst
+
+    t = time.perf_counter()
+    result = burst.run_node_storm(burst.NodeStormProfile(
+        **dict(burst.NODE_QUICK_PROFILE, seed=seed)))
+    c = {k: v for k, v in result.items()
+         if k in ("chaos", "counters", "onboarding", "actors")}
+    log(f"harness: node storm took {time.perf_counter() - t:.2f} s "
+        f"[{card}]")
+    log(f"harness: node storm {json.dumps(c)} [{card}]")
+    if result["violations"]:
+        fail(f"harness: node storm violations {result['violations']}")
+
+
+HARNESS_LOG = HERE / "build" / "phase19.log"
+
+
+def start_harness_phase(seed: int):
+    """Phase 19 but its node storm, in a fresh interpreter (the harnesses
+    boot their clusters inside the calling process, and in this one, which
+    holds the earlier phases' memory and threads, jobstorm's surviving
+    drivers starved: PERF.md §6), started beside the card-bound phases
+    7-15d: it does no device work, and it would take 220-400 s of the 1200
+    s budget alone. Its output goes to HARNESS_LOG."""
+    import atexit
+
+    HARNESS_LOG.parent.mkdir(parents=True, exist_ok=True)
+    out = open(HARNESS_LOG, "w")
+    proc = subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"),
+                             "--harness", "--seed", str(seed)],
+                            stdout=out, stderr=subprocess.STDOUT)
+    out.close()
+
+    def stop():  # a failure elsewhere ends this script before the join
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    return proc, time.perf_counter()
+
+
+def finish_harness_phase(card: str, seed: int, started) -> None:
+    """Wait for phase 19's harnesses and print their log, then run its
+    node storm alone in a fresh interpreter (its node-death bound is a
+    wall-clock one, so nothing else runs beside it)."""
+    proc, t0 = started
+    try:
+        rc = proc.wait(timeout=max(1.0, 900 - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at 900 s"
+    for line in HARNESS_LOG.read_text(errors="replace").splitlines():
+        log(line)
+    log(f"harness: the harnesses ran beside phases 7-15d, which ended "
+        f"{time.perf_counter() - t0:.1f} s after the harnesses started "
+        f"[{card}]")
+    if rc != 0:
+        fail(f"harness phase exited {rc}")
     out = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"),
-                          "--harness", "--seed", str(seed)], timeout=900)
+                          "--node-storm", "--seed", str(seed)], timeout=600)
     if out.returncode != 0:
-        fail(f"harness phase exited {out.returncode}")
+        fail(f"node storm phase exited {out.returncode}")
+
+
+def step_kernels() -> tuple:
+    """The seven kernels of phase 10's all-kernel step."""
+    from ray_tpu_torch.ops.kernels import adamw as aw
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+
+    return (*fa.KERNELS, *ff.KERNELS, aw.adamw_update)
+
+
+class AllKernelTrainer:
+    """Phase 10's all-kernel step (K1, K2 and K3 on, fused AdamW, TF32 off)
+    at llama3_8b width with `n_layers` layers on this thread's card, from
+    the seed; `close()` puts the FFN flags back."""
+
+    def __init__(self, seed: int, n_layers: int):
+        import torch
+
+        from ray_tpu_torch import bench
+        from ray_tpu_torch.models.transformer import tree_leaves
+        from ray_tpu_torch.ops.kernels import fused_ffn as ff
+        from ray_tpu_torch.train import fused_adamw_optimizer, make_train_step
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.torch, self.ff = torch, ff
+        self.kernels = step_kernels()
+        self.old = ff.USE_K1, ff.USE_K2, ff.USE_K3
+        ff.USE_K1 = ff.USE_K2 = ff.USE_K3 = True
+        self.cfg = bench.train_config_8b(n_layers=n_layers)
+        self.step_fn, init_fn = make_train_step(
+            self.cfg, fused_adamw_optimizer(warmup_steps=2), device="cuda")
+        self.state = init_fn(seed)
+        self.n_leaves = len(list(tree_leaves(self.state.params)))
+
+    def nbytes(self, tree=None) -> int:
+        from ray_tpu_torch.models.planning import _tree_bytes
+
+        return _tree_bytes(self.state if tree is None else tree)
+
+    def step(self, batch: dict) -> dict:
+        """One step on a batch of tensors on the card; the loss, grad norm
+        and each kernel's launches in it."""
+        torch = self.torch
+        for k in self.kernels:  # the main path's counts start here
+            k.launches = 0
+        self.state, metrics = self.step_fn(self.state, batch)
+        torch.cuda.synchronize()
+        return {"loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"]),
+                "launches": {k.__name__: k.launches for k in self.kernels}}
+
+    def close(self) -> None:
+        self.ff.USE_K1, self.ff.USE_K2, self.ff.USE_K3 = self.old
 
 
 # ---------------------------------------------------------------- phase 20
@@ -4522,47 +4670,25 @@ def operator_batch(seed: int):
 
 
 def operator_train(seed: int, batch) -> dict:
-    """Phase 10's all-kernel step (K1, K2 and K3 on, fused AdamW, TF32 off)
-    at llama3_8b width with OPERATOR_LAYERS layers: OPERATOR_STEPS steps on
-    `batch` (moved to the card). Returns the losses, grad norms and each
-    step's launches of the seven kernels, read in this process."""
+    """Phase 10's all-kernel step at llama3_8b width with OPERATOR_LAYERS
+    layers (`AllKernelTrainer`): OPERATOR_STEPS steps on `batch` (moved to
+    the card). Returns the losses, grad norms and each step's launches of
+    the seven kernels, read in this process."""
     import torch
 
-    from ray_tpu_torch.models.transformer import tree_leaves
-    from ray_tpu_torch.ops.kernels import adamw as aw
-    from ray_tpu_torch.ops.kernels import flash_attention as fa
-    from ray_tpu_torch.ops.kernels import fused_ffn as ff
-    from ray_tpu_torch.train import fused_adamw_optimizer, make_train_step
-    from ray_tpu_torch import bench
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = bench.train_config_8b(n_layers=OPERATOR_LAYERS)
-    kernels = (*fa.KERNELS, *ff.KERNELS, aw.adamw_update)
-    old = ff.USE_K1, ff.USE_K2, ff.USE_K3
-    ff.USE_K1 = ff.USE_K2 = ff.USE_K3 = True
     t0 = time.perf_counter()
+    tr = AllKernelTrainer(seed, OPERATOR_LAYERS)
     try:
-        step_fn, init_fn = make_train_step(
-            cfg, fused_adamw_optimizer(warmup_steps=2), device="cuda")
-        state = init_fn(seed)
-        n_leaves = len(list(tree_leaves(state.params)))
         batch = {k: v.to("cuda") for k, v in batch.items()}
-        losses, norms, launches = [], [], []
-        for _ in range(OPERATOR_STEPS):
-            for k in kernels:  # the main path's counts start here
-                k.launches = 0
-            state, metrics = step_fn(state, batch)
-            torch.cuda.synchronize()
-            launches.append({k.__name__: k.launches for k in kernels})
-            losses.append(float(metrics["loss"]))
-            norms.append(float(metrics["grad_norm"]))
+        steps = [tr.step(batch) for _ in range(OPERATOR_STEPS)]
     finally:
-        ff.USE_K1, ff.USE_K2, ff.USE_K3 = old
-    out = {"losses": losses, "norms": norms, "launches": launches,
-           "n_leaves": n_leaves, "cuda_device": torch.cuda.current_device(),
+        tr.close()
+    out = {"losses": [m["loss"] for m in steps],
+           "norms": [m["grad_norm"] for m in steps],
+           "launches": [m["launches"] for m in steps],
+           "n_leaves": tr.n_leaves, "cuda_device": torch.cuda.current_device(),
            "seconds": round(time.perf_counter() - t0, 2)}
-    del state, step_fn, init_fn, batch, metrics
+    del tr, batch
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -5012,22 +5138,567 @@ def run_operator_phase(card: str, seed: int) -> dict:
     return json.loads((OPERATOR_DIR / "result.json").read_text())
 
 
+# ---------------------------------------------------------------- phase 21
+# The ML libraries on the runtime: a Tune sweep of two trials training on
+# one card (one fed by the native token loader, across a failure and a
+# restore; one fed by a Datastream), a map_batches GPU actor pool, a
+# workflow cancelled and resumed.
+
+LIBRARIES_DIR = HERE / "build" / "phase21"
+LIB_LAYERS, LIB_STEPS, LIB_CKPT_AT, LIB_FAIL_AT = 2, 4, 2, 3
+# the token file holds 8 sequential batches of 2 x 2049 tokens; the scorer
+# reads 4 of its windows, 2 rows a batch
+LIB_BATCHES, LIB_SCORED = 8, 4
+# the card's memory (nvidia-smi, the whole card) while both trials ran, as
+# PERF.md predicted it; logged beside the reading, not a check
+LIB_PEAK_GB = 50.0
+
+
+def lib_token_file(seed: int) -> Path:
+    """A flat int32 file of Llama-3 token ids drawn from the seed."""
+    import numpy as np
+
+    from ray_tpu_torch.models import ModelConfig
+
+    path = LIBRARIES_DIR / "tokens.bin"
+    rng = np.random.default_rng(seed + 21)
+    n = LIB_BATCHES * TRAIN_BATCH * (TRAIN_SEQ + 1)
+    rng.integers(0, ModelConfig.llama3_8b().vocab_size, n,
+                 dtype=np.int32).tofile(path)
+    return path
+
+
+def lib_loader(seed: int):
+    """The port's native token loader over the phase's file, sequential
+    epochs from the seed; one prefetch thread keeps the order fixed."""
+    from ray_tpu_torch.data.token_loader import TokenLoader
+
+    return TokenLoader(str(LIBRARIES_DIR / "tokens.bin"), batch=TRAIN_BATCH,
+                       seq_len=TRAIN_SEQ, n_threads=1, seed=seed,
+                       mode="sequential")
+
+
+def lib_batch(tokens) -> dict:
+    """A [2, 2049] batch of token ids (numpy or a tensor) as the step takes
+    it, on the card."""
+    import torch
+
+    return {"tokens": torch.as_tensor(tokens).to("cuda").long()}
+
+
+def _lib_sum(hist: list) -> dict:
+    """Each kernel's launches over a trial's steps."""
+    return {k: sum(m["launches"][k] for m in hist)
+            for k in hist[0]["launches"]}
+
+
+def library_trial(config: dict, data=None, *, seed: int) -> None:
+    """The trainable of both trials (run on the trial actor's own thread).
+    A reads the native loader; after step LIB_CKPT_AT it saves its state
+    with save_sharded and reports the directory; on its first attempt it
+    raises at step LIB_FAIL_AT, and the retry restores that state through
+    tune.get_checkpoint(). B reads the Datastream handed over by
+    with_parameters on the card and reports its params at the end."""
+    import os
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air import Checkpoint
+    from ray_tpu_torch.data import token_loader
+    from ray_tpu_torch.train.checkpointing import (restore_sharded,
+                                                   save_sharded)
+
+    which = config["trial"]
+    t0 = time.perf_counter()
+    tr = AllKernelTrainer(seed, LIB_LAYERS)
+    torch.cuda.synchronize()
+    base = {"trial": which, "pid": os.getpid(),
+            "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+            "cuda_device": torch.cuda.current_device(),
+            "n_leaves": tr.n_leaves, "init_s": time.perf_counter() - t0}
+    start, extra = 0, {}
+    if which == "A":
+        loader = lib_loader(seed)
+        base["native"] = token_loader.native()
+        ck = tune.get_checkpoint()
+        if ck is not None:
+            d = Path(ck._directory)
+            t = time.perf_counter()
+            tr.state = restore_sharded(str(d / "state"), tr.state)
+            torch.cuda.synchronize()
+            start = json.loads((d / "meta.json").read_text())["step"]
+            extra = {"restore_s": time.perf_counter() - t,
+                     "restore_bytes": tr.nbytes()}
+            for _ in range(start):  # the windows of the steps before it
+                loader.next()
+        batches = (loader.next() for _ in range(start, LIB_STEPS))
+    else:
+        batches = (b["tokens"] for b in data.iter_torch_batches(
+            batch_size=TRAIN_BATCH))
+    marker = LIBRARIES_DIR / "A_failed_once"
+    for i, tokens in zip(range(start, LIB_STEPS), batches):
+        n = i + 1
+        if which == "A" and n == LIB_FAIL_AT and not marker.exists():
+            marker.write_text(str(os.getpid()))
+            raise RuntimeError(f"trial A: the planned failure at step {n}")
+        m = {**base, **extra, **tr.step(lib_batch(tokens)), "step": n,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        extra, ckpt = {}, None
+        if which == "A" and n == LIB_CKPT_AT:
+            d = LIBRARIES_DIR / "ckpt_A"
+            shutil.rmtree(d, ignore_errors=True)
+            d.mkdir(parents=True)
+            t = time.perf_counter()
+            save_sharded(tr.state, str(d / "state"))
+            m.update(save_s=time.perf_counter() - t, save_bytes=tr.nbytes())
+            (d / "meta.json").write_text(json.dumps({"step": n}))
+            ckpt = Checkpoint.from_directory(str(d))
+        if which == "B" and n == LIB_STEPS:
+            ckpt = Checkpoint.from_dict({"params": tr.state.params})
+            m.update(ckpt_bytes=tr.nbytes(tr.state.params),
+                     report_t=time.time())
+        tune.report(m, checkpoint=ckpt)
+    tr.close()
+
+
+class LibraryScorer:
+    """The map_batches UDF: the same model from the seed on the pool
+    member's card; each row's mean next-token NLL in float64 under no_grad,
+    with the flash forward's launches in that batch as a column."""
+
+    def __init__(self, seed: int):
+        import torch
+
+        from ray_tpu_torch import bench
+        from ray_tpu_torch.models import init_params
+
+        self.torch = torch
+        self.cfg = bench.train_config_8b(n_layers=LIB_LAYERS)
+        self.params = init_params(self.cfg, seed=seed, device="cuda")
+
+    def __call__(self, batch: dict) -> dict:
+        import os
+
+        import numpy as np
+
+        import ray_tpu_torch
+        from ray_tpu_torch.ops.kernels import flash_attention as fa
+
+        fa.flash_fwd.launches = 0  # the main path's count starts here
+        nll = lib_row_nll(self.torch, self.params, self.cfg,
+                          np.asarray(batch["tokens"]))
+        n = len(nll)
+        return {"nll": nll, "flash_fwd": np.full(n, fa.flash_fwd.launches),
+                "pid": np.full(n, os.getpid()),
+                "cuda_device": np.full(n, self.torch.cuda.current_device()),
+                "gpu": np.full(n, (ray_tpu_torch.get_gpu_ids() or [-1])[0])}
+
+
+def lib_row_nll(torch, params, cfg, tokens):
+    """Each row's mean next-token NLL (float64 numpy) of a [n, 2049] batch
+    of token ids, under no_grad on the card."""
+    import numpy as np
+
+    from ray_tpu_torch.models.transformer import _nll, forward
+    from ray_tpu_torch.parallel.tensor import SINGLE
+
+    t = torch.from_numpy(np.array(tokens)).to("cuda").long()
+    with torch.no_grad():
+        logits = forward(params, t[:, :-1], cfg)
+        nll = _nll(logits, t[:, 1:], SINGLE).double().mean(dim=1)
+    return nll.cpu().numpy()
+
+
+def _poll_card(stop, seen: dict) -> None:
+    """While the sweep runs (in a thread of the driver): the highest
+    `ray_tpu_torch_tune_trials_running` and the card's memory in use
+    (nvidia-smi, a process of its own: the driver makes no context)."""
+    from ray_tpu_torch.util.metrics import get_or_create
+
+    gauge = get_or_create("gauge", "ray_tpu_torch_tune_trials_running")
+    while not stop.is_set():
+        seen["running"] = max([seen["running"],
+                               *gauge._combined_values().values()])
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30)
+        if out.returncode == 0 and out.stdout.strip():
+            seen["card_mib"] = max(seen["card_mib"],
+                                   float(out.stdout.split()[0]))
+        stop.wait(0.25)
+
+
+def _lib_history(result) -> list:
+    """A trial's reported steps, in order (a retry's too)."""
+    return sorted((m for m in result.metrics_history if "step" in m),
+                  key=lambda m: m["step"])
+
+
+def library_sweep(seed: int, seconds: dict) -> dict:
+    """The Tune part: two trials at once on the one card, A from the
+    native loader across a failure, B from a Datastream. Returns both
+    trials' histories, B's checkpoint and what the driver saw."""
+    import threading
+
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data, tune
+    from ray_tpu_torch.air import FailureConfig, RunConfig
+
+    t = time.perf_counter()
+    loader = lib_loader(seed)
+    tokens = np.concatenate([loader.next() for _ in range(LIB_STEPS)])
+    loader.close()
+    # the driver holds the stream's blocks for the whole sweep: with only
+    # the split coordinator borrowing them, B's gets found them freed on
+    # the card's host
+    ds = data.from_numpy({"tokens": tokens})
+    it = ds.streaming_split(1)[0]
+    repo = str(HERE)
+
+    def trainable(config, data=None):
+        import sys
+
+        if repo not in sys.path:
+            sys.path.insert(0, repo)
+        import chip_smoke
+
+        chip_smoke.library_trial(config, data, seed=seed)
+
+    arrival = {}
+
+    class Arrival(tune.Callback):
+        def on_trial_result(self, trial, result):
+            if "report_t" in result:
+                arrival[trial.config["trial"]] = time.time()
+
+    seen = {"running": 0.0, "card_mib": 0.0}
+    stop = threading.Event()
+    poller = threading.Thread(target=_poll_card, args=(stop, seen),
+                              daemon=True)
+    poller.start()
+    try:
+        grid = tune.Tuner(
+            tune.with_parameters(trainable, data=it),
+            param_space={"trial": tune.grid_search(["A", "B"])},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", max_concurrent_trials=2,
+                resources_per_trial={"GPU": 0.5}),
+            run_config=RunConfig(
+                name="sweep", storage_path=str(LIBRARIES_DIR),
+                failure_config=FailureConfig(max_failures=1),
+                callbacks=[Arrival()])).fit()
+    finally:
+        stop.set()
+        poller.join()
+    del ds
+    seconds["tune"] = round(time.perf_counter() - t, 2)
+    by = {r.config["trial"]: r for r in grid}
+    for name in ("A", "B"):
+        r = by[name]
+        if r.error is not None:
+            fail(f"libraries: trial {name} failed: {str(r.error)[-3000:]}")
+    a, b = _lib_history(by["A"]), _lib_history(by["B"])
+    ckpt = by["B"].checkpoint.to_dict()["params"]
+    return {"tokens": tokens, "A": a, "B": b, "B_params": ckpt,
+            "B_store_s": arrival["B"] - b[-1]["report_t"],
+            "A_failures": _trial_failures("A"),
+            "seen": seen, "best": grid.get_best_result().config["trial"]}
+
+
+def _trial_failures(name: str) -> tuple:
+    """A trial's final state and `num_failures`, read from the experiment's
+    durable state (the ResultGrid keeps no trial table)."""
+    import cloudpickle
+
+    state = cloudpickle.loads(
+        (LIBRARIES_DIR / "sweep" / "experiment_state.pkl").read_bytes())
+    return {s["config"]["trial"]: (s["state"], s["num_failures"])
+            for s in state["trials"]}[name]
+
+
+def library_scores(seed: int, seconds: dict):
+    """map_batches over LIB_SCORED of the file's windows through a pool of
+    one num_gpus=1 actor; returns the rows."""
+    import numpy as np
+
+    from ray_tpu_torch import data
+    from ray_tpu_torch.data import ActorPoolStrategy
+
+    t = time.perf_counter()
+    w = TRAIN_SEQ + 1
+    windows = np.fromfile(LIBRARIES_DIR / "tokens.bin",
+                          dtype=np.int32)[:LIB_SCORED * w].reshape(-1, w)
+    repo = str(HERE)
+
+    class Scorer:
+        def __init__(self, seed):
+            import sys
+
+            if repo not in sys.path:
+                sys.path.insert(0, repo)
+            import chip_smoke
+
+            self._udf = chip_smoke.LibraryScorer(seed)
+
+        def __call__(self, batch):
+            return self._udf(batch)
+
+    ds = data.from_numpy({"tokens": windows}).map_batches(
+        Scorer, compute=ActorPoolStrategy(
+            min_size=1, max_size=1, actor_options={"num_gpus": 1}),
+        batch_size=TRAIN_BATCH, fn_constructor_args=(seed,))
+    rows = ds.take_all()
+    seconds["map_batches"] = round(time.perf_counter() - t, 2)
+    return windows, rows
+
+
+def library_workflow(seconds: dict) -> dict:
+    """A 2-step CPU workflow (a prefix that counts its runs in a file, then
+    a step gated on an event) started, cancelled after the prefix
+    persisted, then resumed once the event is sent."""
+    from ray_tpu_torch import workflow
+
+    t = time.perf_counter()
+    storage = str(LIBRARIES_DIR / "workflows")
+    mark = LIBRARIES_DIR / "prefix_runs"
+
+    def prefix_fn():
+        with open(mark, "a") as f:
+            f.write("ran\n")
+        return 10
+
+    def gated_fn(a, ev):
+        return a + ev
+
+    prefix, gated = workflow.step(prefix_fn), workflow.step(gated_fn)
+    dag = gated.step(prefix.step(), workflow.wait_for_event("unblock"))
+    ref = workflow.run_async(dag, workflow_id="w21", storage=storage)
+    steps = Path(storage) / "w21" / "steps"
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and not (
+            steps.is_dir() and any("prefix" in f.name
+                                   for f in steps.iterdir())):
+        time.sleep(0.1)
+    workflow.cancel("w21", storage=storage)
+    import ray_tpu_torch as rt
+
+    try:
+        rt.get(ref, timeout=60)
+        cancelled = False
+    except Exception as e:  # the run's own error: it was cancelled
+        cancelled = "ancel" in str(e) or "ancel" in type(e).__name__
+    status = workflow.get_status("w21", storage=storage)
+    workflow.send_event("w21", "unblock", 5, storage=storage)
+    out = workflow.resume("w21", storage=storage)
+    runs = mark.read_text().count("ran")
+    mark.unlink()
+    direct = gated_fn(prefix_fn(), 5)
+    seconds["workflow"] = round(time.perf_counter() - t, 2)
+    return {"cancelled": cancelled, "status": status, "out": out,
+            "direct": direct, "prefix_runs": runs,
+            "final": workflow.get_status("w21", storage=storage)}
+
+
+def libraries_phase(card: str, seed: int) -> dict:
+    """Phase 21 (in a process of its own, `chip_smoke.py --libraries`):
+    the Tune sweep, the map_batches GPU pool and the workflow on a runtime
+    with one GPU; then, with the runtime shut down, the same steps and the
+    same forward directly on the card. Returns each part's seconds and the
+    launches of each path."""
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.data import token_loader
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    shutil.rmtree(LIBRARIES_DIR, ignore_errors=True)
+    LIBRARIES_DIR.mkdir(parents=True)
+    free = shutil.disk_usage(LIBRARIES_DIR).free
+    lib_token_file(seed)
+    if not token_loader.native():
+        fail("libraries: the native token loader did not build or load")
+    log(f"libraries: {free / 1e9:.1f} GB free under "
+        f"{LIBRARIES_DIR.relative_to(HERE)}; the native loader "
+        f"{token_loader._lib._name}")
+    t = time.perf_counter()
+    # B's ~3 GB checkpoint crosses the store twice (its report, then the
+    # Tuner's final save), above the 2 GiB default
+    rt.init(num_cpus=8, resources={"GPU": 1}, object_store_memory=12 << 30)
+    seconds["init"] = round(time.perf_counter() - t, 2)
+    try:
+        sweep = library_sweep(seed, seconds)
+        windows, rows = library_scores(seed, seconds)
+        flow = library_workflow(seconds)
+        torch_mod = sys.modules.get("torch")
+        driver_cuda = bool(torch_mod is not None
+                           and torch_mod.cuda.is_initialized())
+        driver_fds = nvidia_fds(os.getpid())
+    finally:
+        rt.shutdown()
+    a, b, seen = sweep["A"], sweep["B"], sweep["seen"]
+    log(f"libraries: trial A steps {[m['step'] for m in a]} losses "
+        f"{[m['loss'] for m in a]}, state and failures "
+        f"{sweep['A_failures']}; B losses {[m['loss'] for m in b]}; "
+        f"trials running at most {seen['running']}; card memory at most "
+        f"{seen['card_mib'] * 2 ** 20 / 1e9:.2f} GB (predicted at most "
+        f"{LIB_PEAK_GB}); trial peaks allocated "
+        f"{max(m['peak_gb'] for m in a):.2f} (A), "
+        f"{max(m['peak_gb'] for m in b):.2f} (B) GB; best {sweep['best']} "
+        f"[{card}]")
+    save = next(m for m in a if "save_s" in m)
+    restore = next(m for m in a if "restore_s" in m)
+    gb = {"A save": save["save_bytes"] / 1e9 / save["save_s"],
+          "A restore": restore["restore_bytes"] / 1e9 / restore["restore_s"],
+          "B to the driver": b[-1]["ckpt_bytes"] / 1e9 / sweep["B_store_s"]}
+    log(f"libraries: A's checkpoint {save['save_bytes'] / 1e9:.2f} GB "
+        f"written in {save['save_s']:.2f} s ({gb['A save']:.3f} GB/s), "
+        f"read in {restore['restore_s']:.2f} s ({gb['A restore']:.3f} "
+        f"GB/s); B's params {b[-1]['ckpt_bytes'] / 1e9:.2f} GB from its "
+        f"report to the driver's callback in {sweep['B_store_s']:.2f} s "
+        f"({gb['B to the driver']:.3f} GB/s) [{card}]")
+    log(f"libraries: map_batches rows {[r['nll'] for r in rows]}, flash "
+        f"forward {[int(r['flash_fwd']) for r in rows]} a batch on cuda "
+        f"{[int(r['cuda_device']) for r in rows]}; workflow {flow} [{card}]")
+
+    # the same steps and forward directly on the card, no runtime
+    import torch
+
+    from ray_tpu_torch.models.transformer import tree_leaves
+
+    t = time.perf_counter()
+    tr = AllKernelTrainer(seed, LIB_LAYERS)
+    tokens = sweep["tokens"]
+    direct = [tr.step(lib_batch(tokens[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]))
+              for i in range(LIB_STEPS)]
+    params = [v.cpu() for v in tree_leaves(tr.state.params)]
+    tr.close()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["direct run"] = round(time.perf_counter() - t, 2)
+    t = time.perf_counter()
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import init_params
+
+    cfg = bench.train_config_8b(n_layers=LIB_LAYERS)
+    sp = init_params(cfg, seed=seed, device="cuda")
+    want_nll = [v for i in range(0, LIB_SCORED, TRAIN_BATCH)
+                for v in lib_row_nll(torch, sp, cfg,
+                                     windows[i:i + TRAIN_BATCH])]
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["direct forward"] = round(time.perf_counter() - t, 2)
+
+    bad = []
+    want = {k: [m[k] for m in direct] for k in ("loss", "grad_norm")}
+    for name, hist in (("A", a), ("B", b)):
+        if [m["step"] for m in hist] != list(range(1, LIB_STEPS + 1)):
+            bad.append(f"{name} steps {[m['step'] for m in hist]}")
+        for k in ("loss", "grad_norm"):
+            if [m[k] for m in hist] != want[k]:
+                bad.append(f"{name} {k} {[m[k] for m in hist]}, direct "
+                           f"{want[k]}")
+        per_step = {k.__name__: LIB_LAYERS for k in step_kernels()}
+        per_step["adamw_update"] = hist[0]["n_leaves"]
+        if any(m["launches"] != per_step for m in hist) or len(per_step) != 7:
+            bad.append(f"{name} launches {[m['launches'] for m in hist]}, "
+                       f"want {per_step} a step")
+        for m in hist:
+            if m["gpu_ids"] != [0] or m["cuda_device"] != m["gpu_ids"][0]:
+                bad.append(f"{name} step {m['step']} on cuda "
+                           f"{m['cuda_device']}, grant {m['gpu_ids']}")
+    if sweep["A_failures"] != ("TERMINATED", 1):
+        bad.append(f"A state and failures {sweep['A_failures']}")
+    if sorted(m["pid"] for m in a[:2]) == sorted(m["pid"] for m in a[2:]):
+        bad.append("A's retry ran in the process that failed")
+    if not all(m.get("native") for m in a):
+        bad.append("A read the numpy fallback")
+    if seen["running"] != 2:
+        bad.append(f"ray_tpu_torch_tune_trials_running peaked at "
+                   f"{seen['running']}, want 2")
+    got = list(tree_leaves(sweep["B_params"]))
+    if len(got) != len(params) or any(
+            g.device.type != "cpu" or not torch.equal(g, w)
+            for g, w in zip(got, params)):
+        bad.append("B's checkpoint is not the direct run's params (CPU, bit "
+                   "for bit)")
+    if driver_cuda or driver_fds:
+        bad.append(f"the driver made a CUDA context ({driver_fds})")
+    nll = [float(r["nll"]) for r in rows]
+    if nll != [float(v) for v in want_nll]:
+        bad.append(f"map_batches rows {nll}, direct {want_nll}")
+    if [int(r["flash_fwd"]) for r in rows] != [LIB_LAYERS] * LIB_SCORED \
+            or any(int(r["gpu"]) != int(r["cuda_device"]) for r in rows):
+        bad.append(f"map_batches rows {rows}")
+    if not (flow["cancelled"] and flow["status"] == "CANCELED"
+            and flow["out"] == flow["direct"] == 15
+            and flow["prefix_runs"] == 1 and flow["final"] == "SUCCEEDED"):
+        bad.append(f"workflow {flow}")
+    shutil.rmtree(LIBRARIES_DIR / "ckpt_A", ignore_errors=True)
+    shutil.rmtree(LIBRARIES_DIR / "sweep" / "checkpoints",
+                  ignore_errors=True)
+    if bad:
+        fail(f"libraries: {bad}")
+    seconds["phase"] = round(time.perf_counter() - t_phase, 2)
+    log(f"libraries: phase {seconds['phase']} s, parts "
+        f"{json.dumps(seconds)} [{card}]")
+    launches = {
+        "tune trial A (phase 21)": _lib_sum(a),
+        "tune trial B (phase 21)": _lib_sum(b),
+        "data map_batches actor (phase 21)": {
+            "flash_fwd": sum(int(r["flash_fwd"]) for r in rows)
+            // TRAIN_BATCH}}
+    result = {"seconds": seconds, "launches": launches,
+              "gb_per_s": gb, "card_gb": seen["card_mib"] * 2 ** 20 / 1e9}
+    (LIBRARIES_DIR / "result.json").write_text(json.dumps(result))
+    return result
+
+
+def run_libraries_phase(card: str, seed: int) -> dict:
+    """Phase 21 in a fresh interpreter, as phases 19 and 20 run; returns
+    its result (each part's seconds, the launches of each path)."""
+    out = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"),
+                          "--libraries", "--seed", str(seed)], timeout=400)
+    if out.returncode != 0:
+        fail(f"libraries phase exited {out.returncode}")
+    return json.loads((LIBRARIES_DIR / "result.json").read_text())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--harness", action="store_true",
-                    help="run only phase 19 (chip_smoke starts it this way "
-                         "after phase 18, in a process of its own)")
+                    help="run only phase 19 but its node storm (chip_smoke "
+                         "starts it this way beside phases 7-15d, in a "
+                         "process of its own)")
+    ap.add_argument("--node-storm", action="store_true",
+                    help="run only phase 19's node storm (chip_smoke starts "
+                         "it this way after phase 15d, in a process of its "
+                         "own)")
     ap.add_argument("--operator", action="store_true",
                     help="run only phase 20 (chip_smoke starts it this way "
                          "after phase 19, in a process of its own)")
     ap.add_argument("--operator-job", action="store_true",
                     help="phase 20's submitted job: the driver of the "
                          "training DAG (run by the job's supervisor)")
+    ap.add_argument("--libraries", action="store_true",
+                    help="run only phase 21 (chip_smoke starts it this way "
+                         "after phase 20, in a process of its own)")
     args = ap.parse_args()
     if args.harness:
         sys.path.insert(0, str(HERE))
         harness_phase(smi_line(), args.seed)
+        return 0
+    if args.node_storm:
+        sys.path.insert(0, str(HERE))
+        node_storm_phase(smi_line(), args.seed)
         return 0
     if args.operator_job:
         sys.path.insert(0, str(HERE))
@@ -5036,7 +5707,19 @@ def main() -> int:
         sys.path.insert(0, str(HERE))
         operator_phase(smi_line(), args.seed)
         return 0
+    if args.libraries:
+        sys.path.insert(0, str(HERE))
+        libraries_phase(smi_line(), args.seed)
+        return 0
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(label: str) -> None:
+        """Each phase's wall seconds, for the 1200 s budget."""
+        now = time.perf_counter()
+        log(f"timing: {label} took {now - t_lap[0]:.1f} s, "
+            f"{now - t_start:.1f} s in all")
+        t_lap[0] = now
 
     import torch
 
@@ -5069,6 +5752,7 @@ def main() -> int:
         f"bf16 tensor cores {PEAK_BF16_OPS_PER_S / 1e12} TFLOP/s dense "
         f"(H100 SXM data sheet)")
 
+    lap("phase 1")
     # ---- phase 2: build, and beside it ptxas's report on the wgmma
     # kernels (flash forward, dq and dk/dv; K1, K3, K2)
     t0 = time.perf_counter()
@@ -5088,6 +5772,7 @@ def main() -> int:
     ptxas_report(ptxas)
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
 
+    lap("phase 2")
     # ---- phase 3: kernels against their plain versions, before the
     # weights take the card's memory
     cfg = ModelConfig.llama3_8b()
@@ -5096,6 +5781,7 @@ def main() -> int:
     kernel_rows = check_kernels(torch, quant, gen,
                                 kernel_shapes(cfg, NUM_SLOTS))
 
+    lap("phase 3")
     # ---- phase 4: serve llama3_8b at full width and depth
     t0 = time.perf_counter()
     params = init_params(cfg, seed=args.seed, device="cuda")
@@ -5140,6 +5826,7 @@ def main() -> int:
     del qeng
     torch.cuda.empty_cache()
 
+    lap("phase 4")
     # ---- phase 5: w8a16 parity
     parity = measure_quant_parity(params, cfg, max_len=MAX_LEN,
                                   qparams=qparams, device="cuda")
@@ -5148,6 +5835,7 @@ def main() -> int:
     if not parity["logits_parity_ok"]:
         fail(f"w8a16 logits rel err {parity['logits_max_abs_diff_rel']}")
 
+    lap("phase 5")
     # ---- phase 6: throughput
     decode_rows(torch, params, cfg, card)
     for label, p in (("bf16", params), ("w8a16", qparams)):
@@ -5158,16 +5846,23 @@ def main() -> int:
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
+    lap("phase 6")
     # ---- phase 11: HF conversion of phase 4's params, round trip and
     # serving
     del qparams
     convert_round_trip(torch, params, cfg, requests, bf16_out)
+    lap("phase 11")
     # ---- phase 12: the servebench runner at b1
     del params
     gc.collect()
     torch.cuda.empty_cache()
     servebench_run(torch, card)
 
+    lap("phase 12")
+    # ---- phase 19 (first part) starts beside phases 7-15d: the
+    # runtime's harnesses (microbenchmark, transfer, envelope, the quick
+    # memstorm, jobstorm and burst) do no device work
+    harness = start_harness_phase(args.seed)
     # ---- phase 7: training kernels against their plain versions, with
     # the serving weights freed and before the training state exists
     gc.collect()
@@ -5181,23 +5876,28 @@ def main() -> int:
     k1_summary(torch, gen, train_rows, card)
     k3_k2_summary(torch, gen, train_rows, card)
     check_no_key_rows(torch, gen, packed=False)
+    lap("phase 7")
     # ---- phase 7b: the RMSNorm and cross-entropy kernels
     entry_rows = check_norm_xent_kernels(torch, gen)
+    lap("phase 7b")
     # ---- phase 7c: the packed flash kernels
     packed_rows = check_packed_kernels(torch, gen)
     redesign_summary(packed_rows, ("flash_fwd_packed", "flash_bwd_dkv_packed",
                                    "flash_bwd_dq_packed"), card)
     check_no_key_rows(torch, gen, packed=True)
+    lap("phase 7c")
     # ---- phase 7d: the float32 kernels, then the float32 tiny variant
     # trained through them
     f32_cfg = f32_tiny_config()
     f32_rows = check_f32_kernels(torch, gen, f32_cfg, card)
     f32_launches = train_f32_tiny(torch, args.seed, f32_cfg)
+    lap("phase 7d")
     # ---- phase 7e: head dims 256, 96 and 192 on the flash route, then
     # 320 and 512 through the wide family
     check_head_dims(torch, gen, train_rows, packed_rows, f32_rows)
     wide_rows, wide_launches = check_wide_head_dims(torch, gen, card)
 
+    lap("phase 7e")
     # ---- phases 8-10: train llama3_8b width, 8 layers, on the default
     # step and then the all-kernel step; measure both
     by_path, default_run = train_both(torch, card, args.seed, train_cfg)
@@ -5206,57 +5906,83 @@ def main() -> int:
     # step for the flash kernels and K3, the all-kernel step for the rest
     train_launches = {k: (n["default"] if n["default"] else n["all-kernel"])
                       for k, n in by_path.items() if k not in packed_rows}
+    lap("phases 8-10")
     # ---- phase 10b: the RMSNorm and cross-entropy entries on the model
     entry_launches = check_entries_on_model(torch, gen, args.seed, train_cfg,
                                             first_loss)
+    lap("phase 10b")
     # ---- phase 10c: the packed flash-attention entry on the model
     entry_launches.update(check_packed_entry_on_model(torch, gen, args.seed,
                                                       train_cfg))
+    lap("phase 10c")
     # ---- phase 10d: serve Mixtral-8x7B width, 8 layers, bf16 and w8a16
     serve_moe(torch, card, args.seed)
+    lap("phase 10d")
     # ---- phase 10e: train Mixtral-8x7B width, 2 layers, remat "dots"
     train_moe(torch, card, args.seed)
+    lap("phase 10e")
     # ---- phase 10f: every remat mode on the MoE config and on the dense
     # 8B width with fused_ffn and a rematerialized attention half
     remat_modes(torch, card, args.seed,
                 mixtral_config(MOE_TRAIN_LAYERS, MOE_TRAIN_CAPACITY), "moe")
     remat_modes(torch, card, args.seed,
                 dataclasses.replace(train_cfg, fused_attn=False), "dense")
+    lap("phase 10f")
     # ---- phase 13: checkpoint and resume at 8B width
     checkpoint_resume(torch, card, args.seed)
+    lap("phase 13")
     # ---- phase 14: the 8B plan against phase 8's live state
     plan_phase(torch, card, args.seed, train_cfg, default_run)
+    lap("phase 14")
     # ---- phase 15: the sharded step on a one-rank NCCL mesh
     sharded_launches = sharded_world_one(torch, card, args.seed, train_cfg)
+    lap("phase 15")
     # ---- phase 15b: the tp and sp code at tp = sp = 1, one-rank NCCL
     for kname, paths in tp_sp_world_one(torch, card, args.seed,
                                         train_cfg).items():
         sharded_launches.setdefault(kname, {}).update(paths)
+    lap("phase 15b")
     # ---- phase 15c: the expert-parallel code on a one-rank NCCL mesh
     for kname, paths in ep_world_one(torch, card, args.seed).items():
         sharded_launches.setdefault(kname, {}).update(paths)
+    lap("phase 15c")
     # ---- phase 15d: the pipeline code on a one-rank NCCL mesh
     for kname, paths in pp_world_one(torch, card, args.seed,
                                      train_cfg).items():
         sharded_launches.setdefault(kname, {}).update(paths)
 
+    lap("phase 15d")
+    # ---- phase 19: the harnesses' end, then the node storm alone
+    finish_harness_phase(card, args.seed, harness)
+    lap("phase 19 (the wait for the harnesses, the node storm)")
     # ---- phase 17: the runtime on the card: a GPU task, the store, the
     # grants, the 8B w8a16 serving actor, NCCL at world 1, native libraries
     runtime_launches = runtime_phase(torch, card, args.seed, cfg, requests,
                                      w8_out)
+    lap("phase 17")
     # ---- phase 18: Serve: LLMDeployment at 8B width (4 layers) in w8a16
     # from a num_gpus=1 replica, and servebench's latency row at b1
     for kname, paths in serve_phase(torch, card, args.seed,
                                     requests).items():
         runtime_launches.setdefault(kname, {}).update(paths)
-    # ---- phase 19: the runtime's harnesses (microbenchmark, transfer,
-    # envelope, the quick memstorm, jobstorm, burst and node storm)
-    run_harness_phase(card, args.seed)
+    lap("phase 18")
     # ---- phase 20: the operator surface: `up`, `job submit` of a DAG job
     # that trains on the card, the dashboard, the CLI, `down`, and the same
     # steps run directly
     operator = run_operator_phase(card, args.seed)
+    lap("phase 20")
+    # ---- phase 21: the ML libraries: a Tune sweep of two trials training
+    # on the card (the native loader across a failure and a restore, a
+    # Datastream), a map_batches GPU actor pool, a workflow resumed. Its
+    # two trials share the card, so this process gives back its cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory of this process before phase 21: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
+    libraries = run_libraries_phase(card, args.seed)
 
+    lap("phase 21")
     # ---- phase 16: report
     pallas = "ray_tpu/ops/pallas/"
     replaces = {"quantize_int8": pallas + "quant.py:19",
@@ -5348,6 +6074,9 @@ def main() -> int:
             if kname in operator["launches"]:
                 kernels[-1]["launches_by_path"][
                     "job DAG actor (phase 20)"] = operator["launches"][kname]
+            for path, counts in libraries["launches"].items():
+                if kname in counts:
+                    kernels[-1]["launches_by_path"][path] = counts[kname]
         if kname in runtime_launches:
             kernels[-1]["launches_by_path"] = {
                 "ContinuousBatchingEngine w8a16 (phase 4)": launches[kname],

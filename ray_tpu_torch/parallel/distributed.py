@@ -14,8 +14,8 @@ Rendezvous comes, in this order, from `init_method` (e.g.
 binds a free port and publishes `host:port` under the group's key, every
 rank reads it (a world of 1 too); from the environment `torchrun` and
 `torch.multiprocessing` launchers set (MASTER_ADDR, MASTER_PORT); a world
-of 1 needs none of them. `initialize_from_session` waits for the Train
-session (ROADMAP.md queue A item 9).
+of 1 needs none of them. `initialize_from_session` takes the rank and
+the world size from the AIR session (`ray_tpu_torch.air.session`).
 """
 
 from __future__ import annotations
@@ -139,13 +139,14 @@ def initialize_group(rank: int, world_size: int, *,
 
 
 def initialize_from_session(group_name: str = "default",
-                            timeout: float = 120.0) -> None:
-    """Inside a Train worker, rank and world come from the session: the
-    Train runtime is not ported yet (ROADMAP.md queue A item 9)."""
-    raise NotImplementedError(
-        "initialize_from_session needs the Train session, which is not "
-        "ported yet (ROADMAP.md, queue A item 9); call initialize_group "
-        "with the rank and world size")
+                            timeout: float = 120.0, *,
+                            device="cuda") -> None:
+    """Inside a Train worker: rank/world come from the AIR session
+    (`device` as `initialize_group` takes it)."""
+    from ray_tpu_torch.air import session
+
+    initialize_group(session.get_world_rank(), session.get_world_size(),
+                     group_name=group_name, timeout=timeout, device=device)
 
 
 def shutdown_group(group_name: str = "default") -> None:

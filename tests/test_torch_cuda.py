@@ -2259,3 +2259,41 @@ def test_fused_blocks_with_a_one_rank_tp_group_on_the_card(cuda):
             assert all(torch.equal(a, c) for a, c in zip(g0, g1))
     finally:
         shutdown_group()
+
+
+def test_checkpoint_carries_cuda_leaves_as_cpu_tensors(cuda, tmp_path):
+    """A checkpoint of CUDA tensors: as given in its own process; pickled
+    (to the Tuner's driver), CPU tensors of the same dtype, shape and bits;
+    through a directory, CPU tensors."""
+    import pickle
+
+    from ray_tpu_torch.air import Checkpoint
+
+    want = {"w": _bf16((64, 32), cuda, 0), "b": torch.randn(7, device=cuda),
+            "n": [torch.arange(3, device=cuda), None]}
+    ck = Checkpoint.from_dict(want)
+    assert ck.to_dict()["w"].is_cuda
+    for got in (pickle.loads(pickle.dumps(ck)).to_dict(),
+                Checkpoint.from_directory(
+                    ck.to_directory(str(tmp_path))).to_dict()):
+        for g, w in ((got["w"], want["w"]), (got["b"], want["b"]),
+                     (got["n"][0], want["n"][0])):
+            assert g.device.type == "cpu" and g.dtype == w.dtype
+            assert torch.equal(g, w.cpu())
+        assert got["n"][1] is None
+
+
+def test_iter_torch_batches_lands_on_the_current_card(cuda):
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+
+    ray_tpu_torch.init(num_cpus=2, resources={"GPU": 1})
+    try:
+        ds = data.from_numpy({"x": np.arange(6.0)})
+        (batch,) = list(ds.iter_torch_batches(batch_size=8))
+        assert batch["x"].device == torch.device(
+            "cuda", torch.cuda.current_device())
+        (cpu,) = list(ds.iter_torch_batches(batch_size=8, device="cpu"))
+        assert cpu["x"].device.type == "cpu"
+    finally:
+        ray_tpu_torch.shutdown()

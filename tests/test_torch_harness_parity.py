@@ -53,6 +53,12 @@ def test_flight_records_have_the_reference_keys(tmp_path):
         with tracing.ctx_scope(tracing.start_trace()):
             with tracing.span(tag, "storm", phase="traced"):
                 pass
+        # a gauge and a histogram in each package's registry, whatever ran
+        # before in this process, so each kind's keys are compared
+        metrics = _mod(pkg, "util.metrics")
+        metrics.get_or_create("gauge", f"harness_parity_{pkg}").set(1.0)
+        metrics.get_or_create("histogram",
+                              f"harness_parity_{pkg}_seconds").observe(0.5)
         path = fr.dump_flight_record(str(tmp_path / f"{pkg}.json"),
                                      ["a violation"], window_s=60.0)
         assert path == fr.flight_record_path(str(tmp_path / f"{pkg}.json"))

@@ -6,7 +6,8 @@ on any host; no default artifact of theirs names a file of the JAX
 package. The operator surface (`python -m ray_tpu_torch`, the launcher,
 job submission, the dashboard, Grafana, rpdb) keeps its own state root, KV
 namespaces, job ids and dashboard files, and its CLI starts without a
-GPU."""
+GPU. The ML libraries (air, tune, data, workflow) are scanned and
+imported with the rest; their own names are held in their parity tests."""
 
 import ast
 import json
@@ -94,7 +95,33 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                  "ray_tpu_torch.autoscaler.launcher",
                  "ray_tpu_torch.util.otel",
                  "ray_tpu_torch.util.joblib",
-                 "ray_tpu_torch.util.rpdb"):
+                 "ray_tpu_torch.util.rpdb",
+                 "ray_tpu_torch.air",
+                 "ray_tpu_torch.air.checkpoint",
+                 "ray_tpu_torch.air.config",
+                 "ray_tpu_torch.air.integrations",
+                 "ray_tpu_torch.air.result",
+                 "ray_tpu_torch.air.session",
+                 "ray_tpu_torch.tune",
+                 "ray_tpu_torch.tune.callback",
+                 "ray_tpu_torch.tune.logger",
+                 "ray_tpu_torch.tune.schedulers",
+                 "ray_tpu_torch.tune.search",
+                 "ray_tpu_torch.tune.searchers",
+                 "ray_tpu_torch.tune.session",
+                 "ray_tpu_torch.tune.stopper",
+                 "ray_tpu_torch.tune.tuner",
+                 "ray_tpu_torch.data",
+                 "ray_tpu_torch.data.datasources",
+                 "ray_tpu_torch.data.datastream",
+                 "ray_tpu_torch.data.expressions",
+                 "ray_tpu_torch.data.plan",
+                 "ray_tpu_torch.data.preprocessors",
+                 "ray_tpu_torch.data.shuffle",
+                 "ray_tpu_torch.data.tfrecord",
+                 "ray_tpu_torch.data.token_loader",
+                 "ray_tpu_torch.workflow",
+                 "ray_tpu_torch.workflow.api"):
         assert name in modules
     code = (
         "import importlib, json, sys\n"
