@@ -343,6 +343,32 @@ Phases (any failure exits non-zero and prints no result line):
      makes no CUDA context until all that has finished. Each part's
      seconds and the checkpoint's and B's GB/s are logged beside the
      card's name and power limit; the trials' and the pool actor's
+     launches join `launches_by_path`. (`--libraries --drop-stream`, which
+     chip_smoke never sets: the driver drops B's Datastream once split,
+     ROADMAP C.7's check.)
+ 22. (after 21; in a fresh interpreter, `python3 chip_smoke.py
+     --trainers`) the trainers: `init(num_cpus=8, resources={"GPU": 1},
+     object_store_memory=12 GiB)`; a `DataParallelTrainer` of one
+     `ScalingConfig(use_gpu=True)` worker with `FailureConfig(max_failures=
+     1)` and `datasets={"train": ...}` (phase 21's first 3 token windows
+     of 2 x 2049): the worker joins NCCL at world 1 through
+     `initialize_from_session`, runs phase 10's all-kernel step at
+     llama3_8b width with 2 layers on `iter_torch_batches` of its shard on
+     the card, saves with `save_sharded` after step 2 and reports the
+     directory, dies (`os._exit(1)`) at step 3 on its first attempt, and
+     its retry restores and runs step 3, then reports its params
+     (`Checkpoint.from_dict`). Steps [1, 2, 3], losses and grad norms a
+     direct run's bit for bit, `ray_tpu_torch_train_loss` the last loss,
+     the retry in a new process; the six flash and FFN kernels 4 and
+     AdamW 24 in attempt 1, 2 and 12 in the retry. Then a `BatchPredictor`
+     on the result's checkpoint with `TorchPredictor` and one `{"GPU": 1}`
+     actor scores 4 windows: each row's mean NLL a direct forward's bit
+     for bit, 2 flash forwards a batch. Then a `TorchTrainer` of one
+     `use_gpu` worker on NCCL trains a 2-layer MLP 3 SGD steps on
+     `get_device()`: its losses and params the same steps' run directly.
+     The driver makes no CUDA context and opens no /dev/nvidia* file
+     before the direct runs. Each part's seconds are logged beside the
+     card's name and power limit; the worker's and the predictor actor's
      launches join `launches_by_path`.
 
 Imports torch and the port only (never jax, never ray_tpu).
@@ -5154,13 +5180,13 @@ LIB_BATCHES, LIB_SCORED = 8, 4
 LIB_PEAK_GB = 50.0
 
 
-def lib_token_file(seed: int) -> Path:
+def lib_token_file(seed: int, directory: Path = LIBRARIES_DIR) -> Path:
     """A flat int32 file of Llama-3 token ids drawn from the seed."""
     import numpy as np
 
     from ray_tpu_torch.models import ModelConfig
 
-    path = LIBRARIES_DIR / "tokens.bin"
+    path = directory / "tokens.bin"
     rng = np.random.default_rng(seed + 21)
     n = LIB_BATCHES * TRAIN_BATCH * (TRAIN_SEQ + 1)
     rng.integers(0, ModelConfig.llama3_8b().vocab_size, n,
@@ -5337,7 +5363,8 @@ def _lib_history(result) -> list:
                   key=lambda m: m["step"])
 
 
-def library_sweep(seed: int, seconds: dict) -> dict:
+def library_sweep(seed: int, seconds: dict, drop_stream: bool = False
+                  ) -> dict:
     """The Tune part: two trials at once on the one card, A from the
     native loader across a failure, B from a Datastream. Returns both
     trials' histories, B's checkpoint and what the driver saw."""
@@ -5355,9 +5382,11 @@ def library_sweep(seed: int, seconds: dict) -> dict:
     loader.close()
     # the driver holds the stream's blocks for the whole sweep: with only
     # the split coordinator borrowing them, B's gets found them freed on
-    # the card's host
+    # the card's host (ROADMAP C.7; `--drop-stream` drops them here)
     ds = data.from_numpy({"tokens": tokens})
     it = ds.streaming_split(1)[0]
+    if drop_stream:
+        del ds
     repo = str(HERE)
 
     def trainable(config, data=None):
@@ -5395,7 +5424,7 @@ def library_sweep(seed: int, seconds: dict) -> dict:
     finally:
         stop.set()
         poller.join()
-    del ds
+    ds = None
     seconds["tune"] = round(time.perf_counter() - t, 2)
     by = {r.config["trial"]: r for r in grid}
     for name in ("A", "B"):
@@ -5504,7 +5533,8 @@ def library_workflow(seconds: dict) -> dict:
             "final": workflow.get_status("w21", storage=storage)}
 
 
-def libraries_phase(card: str, seed: int) -> dict:
+def libraries_phase(card: str, seed: int, drop_stream: bool = False
+                    ) -> dict:
     """Phase 21 (in a process of its own, `chip_smoke.py --libraries`):
     the Tune sweep, the map_batches GPU pool and the workflow on a runtime
     with one GPU; then, with the runtime shut down, the same steps and the
@@ -5532,7 +5562,7 @@ def libraries_phase(card: str, seed: int) -> dict:
     rt.init(num_cpus=8, resources={"GPU": 1}, object_store_memory=12 << 30)
     seconds["init"] = round(time.perf_counter() - t, 2)
     try:
-        sweep = library_sweep(seed, seconds)
+        sweep = library_sweep(seed, seconds, drop_stream)
         windows, rows = library_scores(seed, seconds)
         flow = library_workflow(seconds)
         torch_mod = sys.modules.get("torch")
@@ -5671,6 +5701,360 @@ def run_libraries_phase(card: str, seed: int) -> dict:
     return json.loads((LIBRARIES_DIR / "result.json").read_text())
 
 
+# ---------------------------------------------------------------- phase 22
+# The Train library on the runtime: a DataParallelTrainer whose one use_gpu
+# worker trains through the all-kernel step across a failure, a
+# BatchPredictor scoring with its checkpoint, a TorchTrainer on NCCL.
+
+TRAINERS_DIR = HERE / "build" / "phase22"
+# phase 21's width, depth, save and failure steps and scored windows (the
+# BatchPredictor scores them, TRAIN_BATCH a block), over 3 steps
+TRN_STEPS = 3
+# the TorchTrainer's model: [TORCH_ROWS, TORCH_WIDTH] -> 1, SGD
+TORCH_ROWS, TORCH_WIDTH, TORCH_STEPS = 64, 256, 3
+
+
+def trainer_worker(config: dict, *, seed: int) -> None:
+    """The DataParallelTrainer's loop (in its use_gpu worker): NCCL at world
+    1 through initialize_from_session, phase 10's all-kernel step at
+    llama3_8b width with LIB_LAYERS layers on the session's dataset shard
+    (`iter_torch_batches`, on the card). After step LIB_CKPT_AT it saves
+    with save_sharded and reports the directory; its first attempt dies at
+    step LIB_FAIL_AT (`os._exit(1)`), and the retry restores that state
+    and reports its params at the end."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import ray_tpu_torch
+    from ray_tpu_torch.air import Checkpoint, session
+    from ray_tpu_torch.parallel import initialize_from_session, shutdown_group
+    from ray_tpu_torch.train.checkpointing import (restore_sharded,
+                                                   save_sharded)
+
+    t0 = time.perf_counter()
+    initialize_from_session(group_name="phase22")
+    one = torch.ones(1, device="cuda")
+    dist.all_reduce(one)
+    tr = AllKernelTrainer(seed, LIB_LAYERS)
+    torch.cuda.synchronize()
+    base = {"pid": os.getpid(), "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+            "cuda_device": torch.cuda.current_device(),
+            "backend": dist.get_backend(), "world": dist.get_world_size(),
+            "all_reduce": float(one), "n_leaves": tr.n_leaves,
+            "init_s": time.perf_counter() - t0}
+    start, extra = 0, {}
+    ck = session.get_checkpoint()
+    if ck is not None:
+        d = Path(ck._directory)
+        t = time.perf_counter()
+        tr.state = restore_sharded(str(d / "state"), tr.state)
+        torch.cuda.synchronize()
+        start = json.loads((d / "meta.json").read_text())["step"]
+        extra = {"restore_s": time.perf_counter() - t}
+    batches = iter(session.get_dataset_shard("train").iter_torch_batches(
+        batch_size=TRAIN_BATCH))
+    for _ in range(start):  # the windows of the steps before it
+        next(batches)
+    marker = TRAINERS_DIR / "failed_once"
+    try:
+        for n in range(start + 1, TRN_STEPS + 1):
+            if n == LIB_FAIL_AT and not marker.exists():
+                marker.write_text(str(os.getpid()))
+                os._exit(1)  # the worker's process dies mid-run
+            b = next(batches)
+            m = {**base, **extra, **tr.step({"tokens": b["tokens"].long()}),
+                 "step": n, "on_card": b["tokens"].device.type == "cuda"}
+            extra, ckpt = {}, None
+            if n == LIB_CKPT_AT:
+                d = TRAINERS_DIR / "ckpt"
+                shutil.rmtree(d, ignore_errors=True)
+                d.mkdir(parents=True)
+                t = time.perf_counter()
+                save_sharded(tr.state, str(d / "state"))
+                m.update(save_s=time.perf_counter() - t,
+                         save_bytes=tr.nbytes())
+                (d / "meta.json").write_text(json.dumps({"step": n}))
+                ckpt = Checkpoint.from_directory(str(d))
+            if n == TRN_STEPS:
+                ckpt = Checkpoint.from_dict({"params": tr.state.params})
+            session.report(m, checkpoint=ckpt)
+    finally:
+        tr.close()
+        shutdown_group("phase22")
+
+
+def trainer_nll(params, batch: dict) -> dict:
+    """The BatchPredictor's apply_fn (in its actor): `lib_row_nll` of the
+    batch's windows with the checkpoint's params, with the flash forward's
+    launches in this batch and the actor's card as columns."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+
+    fa.flash_fwd.launches = 0  # the main path's count starts here
+    nll = lib_row_nll(torch, params, bench.train_config_8b(
+        n_layers=LIB_LAYERS), batch["tokens"].cpu().numpy())
+    n = len(nll)
+    return {"nll": nll, "flash_fwd": np.full(n, fa.flash_fwd.launches),
+            "pid": np.full(n, os.getpid()),
+            "cuda_device": np.full(n, torch.cuda.current_device()),
+            "gpu": np.full(n, (ray_tpu_torch.get_gpu_ids() or [-1])[0])}
+
+
+def torch_trainer_worker(config: dict, *, seed: int) -> None:
+    """The TorchTrainer's loop: a small nn.Module on `get_device()`,
+    TORCH_STEPS SGD steps on one seeded batch; reports each loss, the
+    backend and the device."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.train.torch import get_device, prepare_model
+
+    dev = get_device()
+    losses, params = torch_direct(seed, dev, prepare_model)
+    session.report({"losses": losses, "params": params,
+                    "backend": dist.get_backend(), "device": str(dev),
+                    "cuda_device": torch.cuda.current_device()})
+
+
+def torch_direct(seed: int, dev, prepare=lambda m: m):
+    """TORCH_STEPS SGD steps of a 2-layer MLP from the seed on `dev`: the
+    losses and the final params (CPU tensors)."""
+    import torch
+
+    torch.manual_seed(seed)
+    model = prepare(torch.nn.Sequential(
+        torch.nn.Linear(TORCH_WIDTH, TORCH_WIDTH), torch.nn.ReLU(),
+        torch.nn.Linear(TORCH_WIDTH, 1)).to(dev))
+    opt = torch.optim.SGD(model.parameters(), lr=0.05)
+    g = torch.Generator().manual_seed(seed + 22)
+    x = torch.randn(TORCH_ROWS, TORCH_WIDTH, generator=g).to(dev)
+    y = x.sum(-1, keepdim=True).mul(0.1)
+    losses = []
+    for _ in range(TORCH_STEPS):
+        loss = ((model(x) - y) ** 2).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    return losses, [p.detach().cpu() for p in model.parameters()]
+
+
+def _in_repo(fn_name: str, **kwargs):
+    """chip_smoke's `fn_name` with `kwargs` bound, as a function the
+    runtime ships by value: it puts the repo on the worker's path and
+    imports this module there."""
+    repo = str(HERE)
+
+    def call(*args):
+        import sys
+
+        if repo not in sys.path:
+            sys.path.insert(0, repo)
+        import chip_smoke
+
+        return getattr(chip_smoke, fn_name)(*args, **kwargs)
+
+    return call
+
+
+def trainers_phase(card: str, seed: int) -> dict:
+    """Phase 22 (in a process of its own, `chip_smoke.py --trainers`): the
+    DataParallelTrainer across a failure, the BatchPredictor on its
+    checkpoint and the TorchTrainer on a runtime with one GPU; then, with
+    the runtime shut down, the same steps and forward directly on the
+    card. Returns each part's seconds and the launches of each path."""
+    import os
+
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+    from ray_tpu_torch.air import FailureConfig, RunConfig, ScalingConfig
+    from ray_tpu_torch.train import (BatchPredictor, DataParallelTrainer,
+                                     TorchPredictor)
+    from ray_tpu_torch.train.torch import TorchTrainer
+    from ray_tpu_torch.util.metrics import get_or_create
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    shutil.rmtree(TRAINERS_DIR, ignore_errors=True)
+    TRAINERS_DIR.mkdir(parents=True)
+    w = TRAIN_SEQ + 1
+    # phase 21's token windows, drawn the same way
+    tokens = np.fromfile(lib_token_file(seed, TRAINERS_DIR),
+                         dtype=np.int32).reshape(-1, w)
+    train_rows = tokens[:TRN_STEPS * TRAIN_BATCH]
+    scored = tokens[:LIB_SCORED]
+    t = time.perf_counter()
+    # the trainer's ~3 GB checkpoint of params crosses the store
+    rt.init(num_cpus=8, resources={"GPU": 1}, object_store_memory=12 << 30)
+    seconds["init"] = round(time.perf_counter() - t, 2)
+    try:
+        t = time.perf_counter()
+        result = DataParallelTrainer(
+            _in_repo("trainer_worker", seed=seed),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="phase22",
+                                 storage_path=str(TRAINERS_DIR),
+                                 failure_config=FailureConfig(max_failures=1)),
+            datasets={"train": data.from_numpy({"tokens": train_rows})}
+        ).fit()
+        seconds["trainer"] = round(time.perf_counter() - t, 2)
+        if result.error is not None:
+            fail(f"trainers: the DataParallelTrainer failed: "
+                 f"{str(result.error)[-3000:]}")
+        gauge = get_or_create("gauge", "ray_tpu_torch_train_loss")
+        loss_gauge = list(gauge._combined_values().values())
+        hist = sorted(result.metrics_history, key=lambda m: m["step"])
+        t = time.perf_counter()
+        bp = BatchPredictor.from_checkpoint(result.checkpoint, TorchPredictor,
+                                            apply_fn=_in_repo("trainer_nll"))
+        rows = bp.predict(data.from_numpy({"tokens": scored},
+                                          parallelism=LIB_SCORED
+                                          // TRAIN_BATCH),
+                          num_actors=1, resources_per_actor={"GPU": 1}
+                          ).take_all()
+        seconds["batch predictor"] = round(time.perf_counter() - t, 2)
+        t = time.perf_counter()
+        torch_result = TorchTrainer(
+            _in_repo("torch_trainer_worker", seed=seed),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True)).fit()
+        seconds["torch trainer"] = round(time.perf_counter() - t, 2)
+        if torch_result.error is not None:
+            fail(f"trainers: the TorchTrainer failed: "
+                 f"{str(torch_result.error)[-3000:]}")
+        params_ckpt = result.checkpoint.to_dict()["params"]
+        torch_mod = sys.modules.get("torch")
+        driver_cuda = bool(torch_mod is not None
+                           and torch_mod.cuda.is_initialized())
+        driver_fds = nvidia_fds(os.getpid())
+    finally:
+        rt.shutdown()
+    log(f"trainers: steps {[m['step'] for m in hist]} losses "
+        f"{[m['loss'] for m in hist]} grad norms "
+        f"{[m['grad_norm'] for m in hist]}; the worker's processes "
+        f"{sorted({m['pid'] for m in hist})}, backend "
+        f"{hist[0]['backend']} world {hist[0]['world']}; "
+        f"ray_tpu_torch_train_loss {loss_gauge} [{card}]")
+    save = next(m for m in hist if "save_s" in m)
+    restore = next(m for m in hist if "restore_s" in m)
+    log(f"trainers: the state {save['save_bytes'] / 1e9:.2f} GB saved in "
+        f"{save['save_s']:.2f} s, restored in {restore['restore_s']:.2f} s; "
+        f"the predictor's rows {[r['nll'] for r in rows]}, flash forward "
+        f"{[int(r['flash_fwd']) for r in rows]} on cuda "
+        f"{[int(r['cuda_device']) for r in rows]}; the TorchTrainer's "
+        f"losses {torch_result.metrics['losses']} on "
+        f"{torch_result.metrics['device']} "
+        f"({torch_result.metrics['backend']}) [{card}]")
+
+    # the same steps, forward and module directly on the card, no runtime
+    import torch
+
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models.transformer import tree_leaves
+
+    t = time.perf_counter()
+    tr = AllKernelTrainer(seed, LIB_LAYERS)
+    direct = [tr.step(lib_batch(train_rows[i * TRAIN_BATCH:
+                                           (i + 1) * TRAIN_BATCH]))
+              for i in range(TRN_STEPS)]
+    cfg = bench.train_config_8b(n_layers=LIB_LAYERS)
+    want_nll = [float(v) for i in range(0, LIB_SCORED, TRAIN_BATCH)
+                for v in lib_row_nll(torch, tr.state.params, cfg,
+                                     scored[i:i + TRAIN_BATCH])]
+    params = [v.cpu() for v in tree_leaves(tr.state.params)]
+    tr.close()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_losses, want_params = torch_direct(seed, torch.device("cuda"))
+    seconds["direct run"] = round(time.perf_counter() - t, 2)
+
+    bad = []
+    for k in ("loss", "grad_norm"):
+        if [m[k] for m in hist] != [m[k] for m in direct]:
+            bad.append(f"{k} {[m[k] for m in hist]}, direct "
+                       f"{[m[k] for m in direct]}")
+    if [m["step"] for m in hist] != list(range(1, TRN_STEPS + 1)):
+        bad.append(f"steps {[m['step'] for m in hist]}")
+    if loss_gauge != [hist[-1]["loss"]]:
+        bad.append(f"ray_tpu_torch_train_loss {loss_gauge}, last loss "
+                   f"{hist[-1]['loss']}")
+    first = [m for m in hist if m["step"] < LIB_FAIL_AT]
+    retry = [m for m in hist if m["step"] >= LIB_FAIL_AT]
+    if len({m["pid"] for m in first}) != 1 or {m["pid"] for m in first} \
+            & {m["pid"] for m in retry}:
+        bad.append("the retry ran in the process that failed")
+    per_step = {k.__name__: LIB_LAYERS for k in step_kernels()}
+    per_step["adamw_update"] = hist[0]["n_leaves"]
+    for name, part in (("attempt 1", first), ("the retry", retry)):
+        got = _lib_sum(part)
+        want = {k: v * len(part) for k, v in per_step.items()}
+        if got != want or len(want) != 7:
+            bad.append(f"{name}'s launches {got}, want {want}")
+    for m in hist:
+        if (m["gpu_ids"] != [0] or m["cuda_device"] != 0 or not m["on_card"]
+                or m["backend"] != "nccl" or m["world"] != 1
+                or m["all_reduce"] != 1.0):
+            bad.append(f"step {m['step']}: grant {m['gpu_ids']}, cuda "
+                       f"{m['cuda_device']}, batch on the card "
+                       f"{m['on_card']}, {m['backend']} world {m['world']}")
+    got_params = list(tree_leaves(params_ckpt))
+    if len(got_params) != len(params) or any(
+            g.device.type != "cpu" or not torch.equal(g, p)
+            for g, p in zip(got_params, params)):
+        bad.append("the checkpoint is not the direct run's params (CPU, bit "
+                   "for bit)")
+    nll = [float(r["nll"]) for r in rows]
+    if nll != want_nll:
+        bad.append(f"the predictor's rows {nll}, direct {want_nll}")
+    if [int(r["flash_fwd"]) for r in rows] != [LIB_LAYERS] * LIB_SCORED \
+            or any(int(r["gpu"]) != int(r["cuda_device"]) for r in rows):
+        bad.append(f"the predictor's rows {rows}")
+    tm = torch_result.metrics
+    if (tm["losses"] != want_losses or tm["backend"] != "nccl"
+            or tm["device"] != "cuda:0" or any(
+                not torch.equal(g, w) for g, w in zip(tm["params"],
+                                                      want_params))):
+        bad.append(f"the TorchTrainer's losses {tm['losses']} on "
+                   f"{tm['device']} ({tm['backend']}), direct {want_losses}")
+    if driver_cuda or driver_fds:
+        bad.append(f"the driver made a CUDA context ({driver_fds})")
+    shutil.rmtree(TRAINERS_DIR / "ckpt", ignore_errors=True)
+    if bad:
+        fail(f"trainers: {bad}")
+    seconds["phase"] = round(time.perf_counter() - t_phase, 2)
+    log(f"trainers: phase {seconds['phase']} s, parts "
+        f"{json.dumps(seconds)} [{card}]")
+    launches = {
+        "train worker (phase 22)": _lib_sum(hist),
+        "batch predictor actor (phase 22)": {
+            "flash_fwd": sum(int(r["flash_fwd"]) for r in rows)
+            // TRAIN_BATCH}}
+    out = {"seconds": seconds, "launches": launches}
+    (TRAINERS_DIR / "result.json").write_text(json.dumps(out))
+    return out
+
+
+def run_trainers_phase(card: str, seed: int) -> dict:
+    """Phase 22 in a fresh interpreter, as phases 19-21 run; returns its
+    result (each part's seconds, the launches of each path)."""
+    out = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"),
+                          "--trainers", "--seed", str(seed)], timeout=400)
+    if out.returncode != 0:
+        fail(f"trainers phase exited {out.returncode}")
+    return json.loads((TRAINERS_DIR / "result.json").read_text())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5691,7 +6075,16 @@ def main() -> int:
     ap.add_argument("--libraries", action="store_true",
                     help="run only phase 21 (chip_smoke starts it this way "
                          "after phase 20, in a process of its own)")
+    ap.add_argument("--drop-stream", action="store_true",
+                    help="with --libraries: the driver drops trial B's "
+                         "Datastream once it has split it (ROADMAP C.7's "
+                         "check; chip_smoke never sets it)")
+    ap.add_argument("--trainers", action="store_true",
+                    help="run only phase 22 (chip_smoke starts it this way "
+                         "after phase 21, in a process of its own)")
     args = ap.parse_args()
+    if args.drop_stream and not args.libraries:
+        ap.error("--drop-stream goes with --libraries")
     if args.harness:
         sys.path.insert(0, str(HERE))
         harness_phase(smi_line(), args.seed)
@@ -5709,7 +6102,11 @@ def main() -> int:
         return 0
     if args.libraries:
         sys.path.insert(0, str(HERE))
-        libraries_phase(smi_line(), args.seed)
+        libraries_phase(smi_line(), args.seed, args.drop_stream)
+        return 0
+    if args.trainers:
+        sys.path.insert(0, str(HERE))
+        trainers_phase(smi_line(), args.seed)
         return 0
     t_start = time.perf_counter()
     t_lap = [t_start]
@@ -5981,8 +6378,13 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
         f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
     libraries = run_libraries_phase(card, args.seed)
-
     lap("phase 21")
+    # ---- phase 22: the Train library: a DataParallelTrainer training on
+    # the card across a failure, a BatchPredictor on its checkpoint, a
+    # TorchTrainer on NCCL
+    trainers = run_trainers_phase(card, args.seed)
+
+    lap("phase 22")
     # ---- phase 16: report
     pallas = "ray_tpu/ops/pallas/"
     replaces = {"quantize_int8": pallas + "quant.py:19",
@@ -6074,7 +6476,8 @@ def main() -> int:
             if kname in operator["launches"]:
                 kernels[-1]["launches_by_path"][
                     "job DAG actor (phase 20)"] = operator["launches"][kname]
-            for path, counts in libraries["launches"].items():
+            for path, counts in {**libraries["launches"],
+                                 **trainers["launches"]}.items():
                 if kname in counts:
                     kernels[-1]["launches_by_path"][path] = counts[kname]
         if kname in runtime_launches:

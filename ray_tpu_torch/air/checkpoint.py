@@ -110,6 +110,20 @@ def _to_host(obj: Any) -> Any:
     return obj
 
 
+def host_metrics(metrics: Dict[str, Any]) -> Dict[str, Any]:
+    """`metrics` as they may leave a trial or a train worker: one-element
+    tensors as Python numbers, other tensors as CPU tensors (nested dicts
+    too), so the process that receives them never makes a CUDA context."""
+    def host(v):
+        if isinstance(v, dict):
+            return {k: host(x) for k, x in v.items()}
+        if _is_tensor(v):
+            return v.item() if v.numel() == 1 else v.detach().cpu()
+        return v
+
+    return host(dict(metrics))
+
+
 class Checkpoint:
     def __init__(self, data: Optional[Dict[str, Any]] = None,
                  directory: Optional[str] = None):

@@ -20,13 +20,16 @@ _ctx = threading.local()
 class _Session:
     def __init__(self, rank: int, world_size: int, report_fn,
                  checkpoint: Optional[Checkpoint], dataset_shards: Optional[dict],
-                 trial_info: Optional[dict] = None):
+                 trial_info: Optional[dict] = None, use_gpu: bool = False):
         self.rank = rank
         self.world_size = world_size
         self.report_fn = report_fn
         self.checkpoint = checkpoint
         self.dataset_shards = dataset_shards or {}
         self.trial_info = trial_info or {}
+        # a `ScalingConfig(use_gpu=True)` train worker: its device is its
+        # grant's first card (`train.torch.get_device`)
+        self.use_gpu = use_gpu
 
 
 def _set_session(s: Optional[_Session]) -> None:

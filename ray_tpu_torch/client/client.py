@@ -116,9 +116,10 @@ class ClientWorker:
             "opts": opts,
         })["refs"]
 
-    def _serialize_args(self, args: tuple) -> List[Tuple]:
+    def _serialize_args(self, args: tuple, creation_of=None) -> List[Tuple]:
         """Actor init args cross the wire as inline values/refs; the server
-        driver re-serializes them with its own object-store thresholds."""
+        driver re-serializes them with its own object-store thresholds (and
+        pins the refs they hold, `creation_of` unused here)."""
         out: List[Tuple] = []
         for a in args:
             if isinstance(a, ObjectRef):

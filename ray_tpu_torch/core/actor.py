@@ -115,8 +115,9 @@ class ActorClass:
             import cloudpickle
 
             class_fn_id, class_blob = None, cloudpickle.dumps(self._cls)
+        actor_id = ActorID.from_random()
         spec = ActorCreationSpec(
-            actor_id=ActorID.from_random(),
+            actor_id=actor_id,
             name=o.get("name"),
             namespace=o.get("namespace", ""),
             max_restarts=o.get("max_restarts", 0),
@@ -126,7 +127,7 @@ class ActorClass:
             concurrency_groups=o.get("concurrency_groups"),
             class_blob=class_blob,
             class_fn_id=class_fn_id,
-            init_args=w._serialize_args(args),
+            init_args=w._serialize_args(args, creation_of=actor_id),
             init_kwargs_blob=serialization.dumps(kwargs) if kwargs else None,
             resources=resources,
             scheduling=scheduling,

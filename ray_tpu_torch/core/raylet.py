@@ -2385,19 +2385,19 @@ class Raylet:
         with self._lock:
             pool = self._bundles.pop(key, None)
             self._bundles_committed.pop(key, None)
-            self._bundle_reservations.pop(key, None)
+            reserved = self._bundle_reservations.pop(key, None)
             self._bundle_prepared_at.pop(key, None)
             if pool is None:
                 return True
-            # return the bundle's original reservation to the node
-            # (anything still charged inside the bundle is leaked by the
-            # caller's contract: PG removal implies its tasks are done)
-        # recompute: original reservation minus what's still charged = pool
-        # we return the *full* original amount; find it from payload if given
-        resources = payload.get("resources")
+        # return the bundle's whole original reservation to the node. An
+        # actor still charged inside it (a kill is asynchronous: the
+        # trainer kills its workers, then removes their group at once)
+        # releases its charge later against the missing bundle, which drops
+        # it: returning only what is left in the bundle would lose that
+        # charge for the node's lifetime (PG removal implies its tasks are
+        # done)
+        resources = payload.get("resources") or reserved or pool
         with self._lock:
-            if resources is None:
-                resources = pool
             for r, q in resources.items():
                 self.resources_available[r] = self.resources_available.get(r, 0.0) + q
         self._report_resources()

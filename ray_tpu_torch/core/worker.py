@@ -89,6 +89,14 @@ def _send_unpin(worker_ref, oid) -> None:
 
 _cuda_cards: Optional[int] = None
 
+# A closed borrower connection's borrows are released this long after the
+# close: the borrower's owner link reconnects and replays its live borrows
+# (`ReferenceCounter._replay_borrows`), and a replay that lands after the
+# object's free finds nothing to borrow (ROADMAP C.7). A borrower that died
+# never replays, and its objects go this much later. The reconnect
+# backoff's cap (`reconnect_backoff_cap_ms`).
+BORROW_RECONNECT_WINDOW_S = 10.0
+
 
 def _select_granted_gpu(gpu_ids: List[int]) -> None:
     """Make the grant's first card this thread's current CUDA device, so a
@@ -313,6 +321,11 @@ class CoreWorker:
 
         # grace-deferred plasma frees (see _maybe_free)
         self._deferred_frees: deque = deque()
+        # owned refs nested in an inline actor-creation argument, by actor:
+        # pinned until the actor is ALIVE or DEAD (_pin_for_creation)
+        self._creation_pins: Dict[ActorID, List[ObjectID]] = {}
+        self._creation_lock = threading.Lock()
+        self._creation_watcher: Optional[threading.Thread] = None
         self._free_sweeper: Optional[threading.Thread] = None
         # background owner notifications (ref releases from __del__)
         self._owner_notify_q: "queue.Queue[Tuple[str, str, dict]]" = queue.Queue()
@@ -700,9 +713,13 @@ class CoreWorker:
         return refs
 
     def _serialize_args(self, args: tuple,
-                        task_id: Optional[TaskID] = None) -> List[Tuple]:
+                        task_id: Optional[TaskID] = None,
+                        creation_of: Optional[ActorID] = None
+                        ) -> List[Tuple]:
         """Inline small values; pass refs through; promote big args to the
-        object store (cf. reference: big args -> plasma `Put`)."""
+        object store (cf. reference: big args -> plasma `Put`). For the
+        creation of actor `creation_of`, owned refs nested in an inline
+        value stay pinned until the actor is up (`_pin_for_creation`)."""
         out: List[Tuple] = []
         cfg = get_config()
         for a in args:
@@ -714,6 +731,8 @@ class CoreWorker:
                 self._mark_shipped(s.contained_refs)
                 if s.total_bytes <= cfg.max_direct_call_object_size:
                     out.append(("value", s.to_bytes()))
+                    if creation_of is not None:
+                        self._pin_for_creation(creation_of, s.contained_refs)
                 else:
                     ref = self.put(a)
                     # Pin: the promoted ref's only Python instance dies right
@@ -741,6 +760,64 @@ class CoreWorker:
                 st.shipped = True  # the executor materializes a borrow
                 if task_id is not None:
                     self._task_pins.setdefault(task_id, []).append(ref.id)
+
+    def _pin_for_creation(self, actor_id: ActorID, refs) -> None:
+        """Owned refs nested in an inline argument of actor `actor_id`'s
+        creation: pinned until the actor is ALIVE (its `__init__` has
+        deserialized them and sent their borrows, which the free grace then
+        covers in flight) or DEAD. Marked shipped alone they would live only
+        the grace past the owner's last ref, and an actor's worker may start
+        later than that: a fresh node's first lease waits for its fork
+        template's boot (ROADMAP C.7)."""
+        oids = []
+        with self._obj_lock:
+            for r in refs or ():
+                st = (self._objects.get(r.id)
+                      if r.owner_address == self.address else None)
+                if st is not None:
+                    st.submitted_task_deps += 1
+                    oids.append(r.id)
+        if not oids:
+            return
+        with self._creation_lock:
+            self._creation_pins.setdefault(actor_id, []).extend(oids)
+            if self._creation_watcher is None:
+                self._creation_watcher = threading.Thread(
+                    target=self._creation_watch_loop, name="creation-pins",
+                    daemon=True)
+                self._creation_watcher.start()
+
+    def _creation_watch_loop(self) -> None:
+        """Release each actor's creation pins once it is ALIVE or DEAD: the
+        driver's actor pubsub where it has seen the change, else a GCS
+        poll (workers subscribe to no actor channel). Exits when none is
+        left."""
+        while not self._shutdown.is_set():
+            with self._creation_lock:
+                pending = list(self._creation_pins)
+                if not pending:
+                    self._creation_watcher = None
+                    return
+            for aid in pending:
+                settled = aid in self._actor_addresses or aid in self._actor_dead
+                if not settled:
+                    try:
+                        info = self.gcs.call("get_actor_info",
+                                             {"actor_id": aid}, timeout=10)
+                    except Exception:
+                        continue  # control plane busy or restarting
+                    settled = info is None or info["state"] in ("ALIVE",
+                                                                "DEAD")
+                if settled:
+                    with self._creation_lock:
+                        oids = self._creation_pins.pop(aid, [])
+                    with self._obj_lock:
+                        for oid in oids:
+                            st = self._objects.get(oid)
+                            if st is not None:
+                                st.submitted_task_deps -= 1
+                                self._maybe_free(oid, st)
+            self._shutdown.wait(0.2)
 
     def _mark_shipped(self, refs) -> None:
         """Mark owned objects whose refs were serialized into an outgoing
@@ -2251,18 +2328,29 @@ class CoreWorker:
         return True
 
     def _on_borrower_conn_close(self, conn_key: int) -> None:
-        """The borrower's process (or its link) died: release every borrow
-        registered over that connection."""
+        """The borrower's process or its link died: release every borrow
+        registered over that connection, BORROW_RECONNECT_WINDOW_S
+        later. A live borrower's link reconnects and replays its borrows
+        within that window (counted afresh on the new connection), so an
+        object it still holds is never freed in between; a dead borrower's
+        borrows go when the window ends."""
         with self._obj_lock:
             m = self._conn_borrows.pop(conn_key, None)
-            if not m:
-                return
+        if not m:
+            return
+        t = threading.Timer(BORROW_RECONNECT_WINDOW_S,
+                            self._release_conn_borrows, args=(m,))
+        t.daemon = True
+        t.start()
+
+    def _release_conn_borrows(self, m: Dict[ObjectID, int]) -> None:
+        with self._obj_lock:
             for oid, count in m.items():
                 st = self._objects.get(oid)
                 if st is not None:
                     st.borrowers = max(0, st.borrowers - count)
                     self._maybe_free(oid, st)
-        logger.debug("released %d borrows from dead borrower connection",
+        logger.debug("released %d borrows of a closed borrower connection",
                      sum(m.values()))
 
     # ------------------------------------------------------------- ref count

@@ -91,7 +91,8 @@ asked), each joining NCCL through `parallel.initialize_group`, and runs:
     `bench.train_config_8b()` (8 layers) with the fused blocks off (the
     stage runs `_layer`), remat "dots", whole logits, 4 x 2048, 4 steps:
     pp 2 x tp 2 at n_micro 4 (the dryrun's layout) under each optimizer,
-    pp 4 at n_micro 4 and dp 2 x pp 2 at n_micro 2 under
+    pp 4 at n_micro 4 and dp 2 x pp 2 at n_micro 2 and 4 (4: each rank
+    runs its 2 of the 4 global microbatches) under
     `default_optimizer`, each against one card under the same optimizer
     within (a)'s bounds; each stage's launches a step exactly 2·L/pp·n_micro
     flash forwards (the recompute reruns them), L/pp·n_micro of each
@@ -115,6 +116,14 @@ asked), each joining NCCL through `parallel.initialize_group`, and runs:
     and each stage's P2P share of a step without its update, with its
     host's ms to issue that step, beside the model's bubble (pp - 1) /
     (n_micro + pp - 1) = 1/5.
+(l) trainer (run in the launching process, after the rank phases): the
+    port's runtime with `{"GPU": chips}` on one node, a `MeshTrainer` of 1
+    worker and then of `chips` `use_gpu` workers (`{"GPU": 1}` bundles on
+    the CPU), each worker joining the group's world through
+    `prepare_mesh(MeshConfig(fsdp=workers))` and running (a)'s 8-layer step
+    on (a)'s batch: every worker's `get_gpu_ids()` its current card, the
+    grants distinct, the losses within (a)'s bounds against the 1-worker
+    fit.
 
 Rank 0 prints each phase's numbers and writes them all as JSON (--json).
 Every check raises, so a failing rank ends the run with a non-zero exit;
@@ -152,7 +161,9 @@ from ray_tpu_torch.ops.kernels._util import require_cuda
 REPO = Path(__file__).resolve().parents[1]
 PHASES = ("parity", "full_depth", "reshard", "collectives", "tp_parity",
           "sp_parity", "tp_full_depth", "ep_parity", "ep_depth", "pp_parity",
-          "pp_full_depth")
+          "pp_full_depth", "trainer")
+# (l) runs in the launching process (it starts the runtime's workers)
+LAUNCHER_PHASES = ("trainer",)
 # the phases that lay out four ranks as fsdp 2 x tp 2, tp 2 x sp 2, ...
 FOUR_RANK_PHASES = ("tp_parity", "sp_parity", "tp_full_depth", "ep_parity",
                     "ep_depth", "pp_parity", "pp_full_depth")
@@ -1062,7 +1073,10 @@ def _full_depth(r: Rank, label: str, fsdp: int, tp: int) -> Dict[str, Any]:
 PP_LAYOUTS = (("pp2xtp2", {"pp": 2, "tp": 2}, 4, "default"),
               ("pp2xtp2 fused", {"pp": 2, "tp": 2}, 4, "fused"),
               ("pp4", {"pp": 4}, 4, "default"),
-              ("dp2xpp2", {"dp": 2, "pp": 2}, 2, "default"))
+              ("dp2xpp2", {"dp": 2, "pp": 2}, 2, "default"),
+              # n_micro the global batch, not a rank's 2 rows: each rank
+              # runs its 2 of the 4 global microbatches (ROADMAP A.7.6)
+              ("dp2xpp2 n_micro 4", {"dp": 2, "pp": 2}, 4, "default"))
 # (j)'s bubble sweep: pp 4, one row a microbatch
 PP_SWEEP_MICRO = (1, 2, 4, 8)
 
@@ -1135,7 +1149,8 @@ def pp_parity(r: Rank) -> Dict[str, Any]:
     pp 2 against one card, each stage's launches; the bubble sweep at pp
     4; the dryrun's pp step."""
     from ray_tpu_torch.models.transformer import init_params, tree_leaves
-    from ray_tpu_torch.parallel.pipeline import make_pp_train_step
+    from ray_tpu_torch.parallel.pipeline import (Stages, make_pp_train_step,
+                                                 micro_rows)
     from ray_tpu_torch.train import (default_optimizer,
                                      fused_adamw_optimizer, shard_batch)
 
@@ -1157,32 +1172,39 @@ def pp_parity(r: Rank) -> Dict[str, Any]:
         mesh = r.mesh(**mesh_kw)
         step_fn, init_fn, _ = make_pp_train_step(
             cfg, mesh, makes[key](warmup_steps=2), n_micro, r.dev)
-        state, rows = _steps(r, step_fn, init_fn(r.seed),
-                             shard_batch(batch, mesh), sz.steps_parity)
+        local = shard_batch(batch, mesh)
+        st = Stages.from_mesh(mesh)
+        # the microbatches a stage runs: n_micro, or its rows' share of
+        # them where n_micro does not divide its rows
+        n_local = len(micro_rows(local["inputs"].shape[0], n_micro,
+                                 st.rows_index, st.rows_blocks))
+        state, rows = _steps(r, step_fn, init_fn(r.seed), local,
+                             sz.steps_parity)
         stages = _stages_of(r, mesh, {"launches": rows[0]["launches"],
                                       "peak_gib": r.peak_gib()})
         res = {"mesh": mesh_kw, "n_micro": n_micro, "optimizer": key,
-               "steps": rows, "stages": stages,
+               "microbatches_a_rank": n_local, "steps": rows,
+               "stages": stages,
                "ms_per_step": statistics.mean(x["ms"] for x in rows[1:])}
         out[name] = res
         r.log(f"pp parity {name}, n_micro {n_micro}: " + _brief(res))
         _compare(name, rows, ref[key]["steps"], launches=False)
         if not r.cpu:
             pp = mesh_kw["pp"]
-            want = _pp_launches(cfg, pp, n_micro, n_leaves, key == "fused")
+            want = _pp_launches(cfg, pp, n_local, n_leaves, key == "fused")
             for x in rows:
                 _check(x["launches"] == want, f"pp parity {name}: launches "
                        f"{x['launches']} vs {want}")
             # one (dp, fsdp, tp) coordinate's stages: one card's flash
-            # launches n_micro times over
+            # launches as many times over as a stage runs microbatches
             for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
                 got = sum(v["launches"][k] for _, c, v in stages
                           if c == (0, 0, 0))
                 one = ref[key]["steps"][0]["launches"][k]
-                _check(got == one * n_micro, f"pp parity {name}: {k} "
+                _check(got == one * n_local, f"pp parity {name}: {k} "
                        f"{got} over the stages vs one card's {one} x "
-                       f"{n_micro}")
-        del state, step_fn, init_fn, mesh
+                       f"{n_local}")
+        del state, step_fn, init_fn, mesh, local
     r.free()
     out["bubble_sweep"] = _pp_sweep(r, cfg)
     out["dryrun_pp"] = _dryrun_pp(r)
@@ -1496,6 +1518,107 @@ def collectives(r: Rank) -> Dict[str, Any]:
             "H100_NVLINK_BW_gb_s": H100_NVLINK_BW / 1e9}
 
 
+def _trainer_loop(config: Dict[str, Any]) -> None:
+    """(l)'s worker loop: the group's world and a DeviceMesh through
+    `MeshTrainer.prepare_mesh` (fsdp over the workers), (a)'s step on this
+    worker's share of (a)'s batch; each step rank 0 reports the loss, the
+    grad norm and every worker's grant, current card and process."""
+    import os
+
+    import torch.distributed as dist
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.parallel import MeshConfig, shutdown_group
+    from ray_tpu_torch.train import (MeshTrainer, default_optimizer,
+                                     make_train_step, shard_batch)
+
+    cpu = config["cpu"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = session.get_world_size()
+    mesh = MeshTrainer.prepare_mesh(MeshConfig(fsdp=world),
+                                    device="cpu" if cpu else "cuda")
+    try:
+        dev = torch.device("cpu") if cpu else torch.device(
+            "cuda", torch.cuda.current_device())
+        sizes = CPU_SIZES if cpu else GPU_SIZES
+        cfg = sizes.cfg(cpu, sizes.parity_layers)
+        batch = shard_batch(bench.make_batch(
+            cfg, config["rows"], sizes.parity_seq, SEED + 1, dev), mesh)
+        step_fn, init_fn = make_train_step(
+            cfg, default_optimizer(warmup_steps=2), dev, mesh=mesh)
+        state = init_fn(SEED)
+        grants = [None] * world
+        dist.all_gather_object(grants, {
+            "rank": session.get_world_rank(), "gpu_ids": rt.get_gpu_ids(),
+            "current_device": None if cpu else torch.cuda.current_device(),
+            "pid": os.getpid()})
+        for i in range(sizes.steps_parity):
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            session.report({"step": i + 1, "loss": loss, "grad_norm": norm,
+                            "ms": 1e3 * (time.perf_counter() - t0),
+                            "grants": grants})
+    finally:
+        shutdown_group()
+
+
+def trainer(chips: int, cpu: bool) -> Dict[str, Any]:
+    """(l), driven from the launching process: the port's runtime with
+    `chips` GPUs on one node, a MeshTrainer of 1 worker, then one of
+    `chips` workers (`use_gpu`; on the CPU `{"GPU": 1}` bundles and gloo),
+    each fit (a)'s step on (a)'s batch. Checks: every worker's grant is its
+    current card, the grants differ, and the losses are within (a)'s bounds
+    against the 1-worker fit."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import multichip  # the loop by reference, as __main__
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.train import MeshTrainer
+
+    def log(msg):
+        print(f"multichip: trainer: {msg}", flush=True)
+
+    rt.init(num_cpus=max(8, 2 * chips), resources={"GPU": chips})
+    out: Dict[str, Any] = {}
+    try:
+        for n in (1, chips):
+            t0 = time.perf_counter()
+            sc = (ScalingConfig(num_workers=n, resources_per_worker={
+                "GPU": 1}) if cpu else ScalingConfig(num_workers=n,
+                                                     use_gpu=True))
+            result = MeshTrainer(
+                multichip._trainer_loop, train_loop_config={"cpu": cpu,
+                                                  "rows": chips},
+                scaling_config=sc).fit()
+            _check(result.error is None, f"trainer, {n} workers: "
+                   f"{result.error}")
+            hist = result.metrics_history
+            grants = hist[-1]["grants"]
+            rows = [{"loss": m["loss"], "grad_norm": m["grad_norm"],
+                     "ms": m["ms"]} for m in hist]
+            out[f"workers_{n}"] = {"steps": rows, "grants": grants,
+                                   "seconds": time.perf_counter() - t0}
+            log(f"{n} workers: losses {[x['loss'] for x in rows]}, grad "
+                f"norms {[x['grad_norm'] for x in rows]}, ms "
+                f"{[round(x['ms'], 2) for x in rows]}, grants {grants}, "
+                f"{out[f'workers_{n}']['seconds']:.1f} s")
+            ids = [g["gpu_ids"] for g in grants]
+            _check(len(grants) == n and all(len(i) == 1 for i in ids)
+                   and len({i[0] for i in ids}) == n,
+                   f"trainer, {n} workers: grants {grants}")
+            if not cpu:
+                _check(all(g["current_device"] == g["gpu_ids"][0]
+                           for g in grants),
+                       f"trainer, {n} workers: current cards {grants}")
+        _compare(f"trainer {chips} workers", out[f"workers_{chips}"]["steps"],
+                 out["workers_1"]["steps"], launches=False)
+    finally:
+        rt.shutdown()
+    return out
+
+
 def _time_ms(r: Rank, fn) -> float:
     """ms a call of `fn` over 20 calls after 5 (CUDA events on the card,
     the host clock on the CPU)."""
@@ -1549,6 +1672,8 @@ def _rank_main(rank: int, world: int, port: int, opts: Dict[str, Any]
         r.log(f"{world} ranks on {results['device']}: "
               f"{results['nvidia_smi']}")
         for phase in opts["phases"]:
+            if phase in LAUNCHER_PHASES:
+                continue
             t0 = time.perf_counter()
             results[phase] = globals()[phase](r)
             results[phase]["seconds"] = time.perf_counter() - t0
@@ -1595,6 +1720,25 @@ def main(argv=None) -> Dict[str, Any]:
 
         # built once here: every rank then loads the same libraries
         _util.build(["flash_attention", "fused_ffn", "adamw"])
+    results: Dict[str, Any] = {}
+    if any(p not in LAUNCHER_PHASES for p in phases):
+        results = _run_ranks(args, phases)
+    if "trainer" in phases:
+        t0 = time.perf_counter()
+        results["trainer"] = trainer(args.chips, args.cpu)
+        results["trainer"]["seconds"] = time.perf_counter() - t0
+        path = Path(args.json)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(results, indent=1))
+    print(json.dumps({k: v for k, v in results.items()
+                      if k in ("chips", "device", "nvidia_smi")}),
+          flush=True)
+    return results
+
+
+def _run_ranks(args, phases: List[str]) -> Dict[str, Any]:
+    """The rank phases: one process a card (gloo CPU ranks with --cpu),
+    rank 0 writing the results to --json; returns them."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -1626,11 +1770,7 @@ def main(argv=None) -> Dict[str, Any]:
     codes = [p.exitcode for p in procs]
     if any(codes):
         raise SystemExit(f"multichip: rank exit codes {codes}")
-    results = json.loads(Path(args.json).read_text())
-    print(json.dumps({k: v for k, v in results.items()
-                      if k in ("chips", "device", "nvidia_smi")}),
-          flush=True)
-    return results
+    return json.loads(Path(args.json).read_text())
 
 
 if __name__ == "__main__":

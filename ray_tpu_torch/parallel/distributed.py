@@ -86,10 +86,16 @@ def _kv_rendezvous(worker, rank: int, group_name: str,
 
 def _local_rank(rank: int) -> int:
     """The card of this rank on its host: LOCAL_RANK where a launcher set
-    it, else the rank modulo the host's cards."""
+    it; inside a task or actor of the port's runtime granted GPUs, the
+    grant's first card (a Train worker's bundle need not be its rank's
+    card); else the rank modulo the host's cards."""
     local = os.environ.get("LOCAL_RANK")
-    return int(local) if local is not None else rank % max(
-        torch.cuda.device_count(), 1)
+    if local is not None:
+        return int(local)
+    api = sys.modules.get("ray_tpu_torch.core.api")
+    ids = api.get_gpu_ids() if api is not None and _runtime_worker() \
+        is not None else []
+    return ids[0] if ids else rank % max(torch.cuda.device_count(), 1)
 
 
 def initialize_group(rank: int, world_size: int, *,

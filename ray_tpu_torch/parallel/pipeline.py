@@ -31,10 +31,18 @@ stage. Each rank runs its own stage of the schedule (`_GPipe`):
   rank's share of the global tokens as the sharded step does. The sum is
   all-reduced over pp: every rank holds the loss. Under tp the embedding
   and the head split the vocab (`vocab_embed`, `vocab_nll`).
-- **Microbatches** are cut from each rank's own rows of the batch (its
-  (dp, fsdp) block, `shard_batch`), which `n_micro` must divide (the
-  reference asserts it of the global batch, :126); the loss is a global
-  mean, so the split changes only the order of the sums.
+- **Microbatches.** `n_micro` must divide the global batch of B rows (the
+  reference's assertion, :126); each rank runs the microbatches whose
+  rows it holds (its (dp, fsdp) block of b = B / (dp·fsdp) rows,
+  `shard_batch`), cut by `micro_rows`. Where `n_micro` divides b, a rank
+  cuts its own rows into `n_micro` microbatches of b / n_micro rows.
+  Otherwise it takes the reference's global microbatches of B / n_micro
+  rows (microbatch m is global rows [m·B/n_micro, (m+1)·B/n_micro)) and
+  runs each one's part in its rows, in order: at dp 2 with 4 rows and
+  n_micro 4, each rank runs 2 microbatches of 1 row. Every rank must then
+  run as many as every other (each microbatch gathers the fsdp leaves).
+  The loss is a global mean, so the split changes only the order of the
+  sums.
 - **Step.** `make_pp_train_step` is the sharded step (train/step.py) with
   `pp_loss_fn` for `loss_fn`: parallel/fsdp.py sums the gradients of the
   leaves every stage holds (only the first or the last stage's are not
@@ -80,19 +88,28 @@ def _dist():
 @dataclasses.dataclass(frozen=True)
 class Stages:
     """The pp group as this rank sees it: the group (None for one stage),
-    the stage count, this rank's stage, and its neighbours' global ranks."""
+    the stage count, this rank's stage, and its neighbours' global ranks;
+    and this rank's block of the batch's rows (`shard_batch`'s block
+    `rows_index` of `rows_blocks`, the (dp, fsdp) ranks)."""
     group: Any = None
     n: int = 1
     index: int = 0
     prev: Optional[int] = None
     next: Optional[int] = None
+    rows_index: int = 0
+    rows_blocks: int = 1
 
     @classmethod
     def from_mesh(cls, mesh) -> "Stages":
         """This rank's stages of `mesh` (a collective over pp)."""
-        n = mesh.size(mesh.mesh_dim_names.index("pp"))
+        names = mesh.mesh_dim_names
+        fsdp = mesh.size(names.index("fsdp"))
+        rows = {"rows_index": (mesh.get_local_rank("dp") * fsdp
+                               + mesh.get_local_rank("fsdp")),
+                "rows_blocks": mesh.size(names.index("dp")) * fsdp}
+        n = mesh.size(names.index("pp"))
         if n == 1:
-            return cls()
+            return cls(**rows)
         dist = _dist()
         group = mesh.get_group("pp")
         ranks = dist.get_process_group_ranks(group)
@@ -101,7 +118,7 @@ class Stages:
         # every rank of the group joins it: a collective of all comes first
         dist.all_reduce(torch.zeros(1, device=mesh.device_type), group=group)
         return cls(group, n, i, ranks[i - 1] if i > 0 else None,
-                   ranks[i + 1] if i + 1 < n else None)
+                   ranks[i + 1] if i + 1 < n else None, **rows)
 
     @property
     def first(self) -> bool:
@@ -129,6 +146,36 @@ class Stages:
         return recv
 
 
+def micro_rows(b: int, n_micro: int, index: int = 0, blocks: int = 1
+               ) -> List[slice]:
+    """The microbatches rank block `index` of `blocks` runs, as slices of
+    its b rows (the module docstring's rule): `n_micro` of b / n_micro
+    rows where `n_micro` divides b, else its parts of the global
+    microbatches of B / n_micro rows. Raises ValueError where `n_micro`
+    does not divide the global batch B = b·blocks, or where the blocks
+    would run different numbers of microbatches."""
+    B = b * blocks
+    if B % n_micro:
+        raise ValueError(f"the global batch of {B} rows is not divisible "
+                         f"by n_micro {n_micro}")
+    if b % n_micro == 0:
+        mb = b // n_micro
+        return [slice(m * mb, (m + 1) * mb) for m in range(n_micro)]
+    mb = B // n_micro
+
+    def cuts(i):
+        lo, hi = i * b, (i + 1) * b
+        edges = [lo, *range((lo // mb + 1) * mb, hi, mb), hi]
+        return [slice(a - lo, z - lo) for a, z in zip(edges, edges[1:])]
+
+    counts = {len(cuts(i)) for i in range(blocks)}
+    if len(counts) > 1:
+        raise ValueError(f"n_micro {n_micro} over {blocks} blocks of {b} "
+                         f"rows gives the blocks {sorted(counts)} "
+                         f"microbatches: each must run as many")
+    return cuts(index)
+
+
 def _stage_fn(cfg: ModelConfig, par: Parallel, layers_local: Dict[str, Any],
               x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
               ) -> torch.Tensor:
@@ -150,20 +197,19 @@ def _final(params: Dict[str, Any], y: torch.Tensor, cfg: ModelConfig,
 
 class _GPipe:
     """One pass of the schedule (module docstring) on this rank over the
-    microbatches of `inputs` [b, s]: `forward` runs the ticks (keeping, to
-    `record`, each microbatch's graph) and `backward` the mirror ticks.
-    `last(params, m, y)` maps the last stage's output of microbatch m to
-    what it yields."""
+    microbatches of `inputs` [b, s] (`micro_rows`, `self.rows`): `forward`
+    runs the ticks (keeping, to `record`, each microbatch's graph) and
+    `backward` the mirror ticks. `last(params, m, y)` maps the last
+    stage's output of microbatch m to what it yields."""
 
     def __init__(self, cfg: ModelConfig, par: Parallel, stages: Stages,
                  n_micro: int, inputs: torch.Tensor,
                  last: Callable[..., torch.Tensor]):
         b, s = inputs.shape
-        if b % n_micro:
-            raise ValueError(f"this rank's batch of {b} rows is not "
-                             f"divisible by n_micro {n_micro}")
+        self.rows = micro_rows(b, n_micro, stages.rows_index,
+                               stages.rows_blocks)
         self.cfg, self.par, self.stages = cfg, par, stages
-        self.n_micro, self.mb, self.seq = n_micro, b // n_micro, s
+        self.n_micro, self.seq = len(self.rows), s
         self.inputs, self.last = inputs, last
         self.records: List[Any] = []
 
@@ -173,8 +219,10 @@ class _GPipe:
     def _takes(self, m: int) -> bool:
         return 0 <= m < self.n_micro
 
-    def _activation(self) -> torch.Tensor:
-        return torch.empty((self.mb, self.seq, self.cfg.d_model),
+    def _activation(self, m: int) -> torch.Tensor:
+        rows = self.rows[m]
+        return torch.empty((rows.stop - rows.start, self.seq,
+                            self.cfg.d_model),
                            dtype=self.cfg.dtype, device=self.inputs.device)
 
     def forward(self, params: Dict[str, Any], record: bool
@@ -194,9 +242,8 @@ class _GPipe:
                 with torch.set_grad_enabled(record):
                     if st.first:
                         x_in = None
-                        x = embed_tokens(
-                            params, self.inputs[m * self.mb:(m + 1) * self.mb],
-                            cfg, par)
+                        x = embed_tokens(params, self.inputs[self.rows[m]],
+                                         cfg, par)
                     else:
                         x = x_in = received.requires_grad_(record)
                     y = _stage_fn(cfg, par, params["layers"], x, cos, sin)
@@ -209,7 +256,7 @@ class _GPipe:
             # send what this stage made; take what it works on next tick
             received = st.hand_off(
                 None if st.last or y is None else y.detach(), st.next,
-                self._activation() if not st.first
+                self._activation(t + 1 - st.index) if not st.first
                 and self._takes(t + 1 - st.index) else None, st.prev)
         return outputs
 
@@ -239,7 +286,7 @@ class _GPipe:
             # send the input's gradient back; take the next one's
             received = st.hand_off(
                 dx, st.prev,
-                self._activation() if not st.last
+                self._activation(t - 1 - st.index) if not st.last
                 and self._takes(t - 1 - st.index) else None, st.next)
         return [torch.zeros_like(leaf) if g is None else g
                 for leaf, g in zip(leaves, grads)]
@@ -287,9 +334,10 @@ def pipeline_blocks(cfg: ModelConfig, params: Dict[str, Any],
 def pp_forward(params: Dict[str, Any], tokens: torch.Tensor,
                cfg: ModelConfig, stages: Stages, n_micro: int,
                par: Parallel = SINGLE) -> Optional[torch.Tensor]:
-    """tokens [b, s] -> float32 logits [n_micro, mb, s, vocab] (under tp this
-    rank's vocab block) on the last stage, None on the others. The
-    embedding runs on stage 0, the final norm and the head on the last."""
+    """tokens [b, s] -> float32 logits [n, mb, s, vocab] of this rank's n
+    microbatches of mb rows (`micro_rows`; under tp this rank's vocab
+    block) on the last stage, None on the others. The embedding runs on
+    stage 0, the final norm and the head on the last."""
     out = pipeline_blocks(cfg, params, tokens, stages, n_micro,
                           lambda p, m, y: _final(p, y, cfg, par), par)
     return torch.stack(out) if stages.last else None
@@ -307,10 +355,9 @@ def pp_loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     inputs, targets, mask = split_batch(batch)
     count = (mask.float().sum() if mask is not None else torch.full(
         (), float(targets.numel()), device=targets.device)).clamp_min(1.0)
-    mb = inputs.shape[0] // n_micro
 
     def last(p, m, y):
-        rows = slice(m * mb, (m + 1) * mb)
+        rows = pipe.rows[m]
         t_m, k_m = targets[rows], None if mask is None else mask[rows]
         c_m = (k_m.float().sum() if k_m is not None else torch.full(
             (), float(t_m.numel()), device=t_m.device))

@@ -31,7 +31,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Set
 
 import ray_tpu_torch
-from ray_tpu_torch.air.checkpoint import Checkpoint
+from ray_tpu_torch.air.checkpoint import Checkpoint, host_metrics
 from ray_tpu_torch.air.result import Result
 from ray_tpu_torch.tune import session as tune_session
 from ray_tpu_torch.tune.stopper import Stopper, make_stopper
@@ -45,23 +45,6 @@ from ray_tpu_torch.tune.schedulers import CONTINUE, FIFOScheduler, STOP
 from ray_tpu_torch.tune.search import generate_configs
 
 logger = logging.getLogger(__name__)
-
-
-def _host_metrics(metrics: Dict[str, Any]) -> Dict[str, Any]:
-    """`metrics` as they may leave a trial: one-element tensors as Python
-    numbers, other tensors as CPU tensors (nested dicts too)."""
-    import sys
-
-    torch = sys.modules.get("torch")
-
-    def host(v):
-        if isinstance(v, dict):
-            return {k: host(x) for k, x in v.items()}
-        if torch is not None and isinstance(v, torch.Tensor):
-            return v.item() if v.numel() == 1 else v.detach().cpu()
-        return v
-
-    return host(dict(metrics))
 
 
 @ray_tpu_torch.remote
@@ -96,7 +79,7 @@ class _TrialActor:
             if ckpt is not None:
                 self._last_checkpoint = ckpt
             self._iteration += 1
-            m = _host_metrics(metrics)
+            m = host_metrics(metrics)
             m["training_iteration"] = self._iteration
             if ckpt is not None:
                 # the runner needs mid-flight checkpoints for trial retries

@@ -2297,3 +2297,62 @@ def test_iter_torch_batches_lands_on_the_current_card(cuda):
         assert cpu["x"].device.type == "cpu"
     finally:
         ray_tpu_torch.shutdown()
+
+
+def test_torch_predictor_on_the_card_is_its_cpu_run(no_tf32):
+    """TorchPredictor on the card (its default) against its CPU run on the
+    same float32 `tiny` params and tokens: within 1e-5, returned as numpy
+    on the host."""
+    from ray_tpu_torch.models.transformer import forward, tree_leaves
+    from ray_tpu_torch.train import TorchPredictor
+
+    cfg = ModelConfig.tiny()
+    params = init_params(cfg, seed=3, device="cpu")
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (4, 33))
+
+    def apply(p, batch):
+        logits = forward(p, batch["tokens"][:, :-1], cfg)
+        return {"last": logits[:, -1],
+                "nll": torch.nn.functional.cross_entropy(
+                    logits.transpose(1, 2), batch["tokens"][:, 1:],
+                    reduction="none").mean(1)}
+
+    on_card = TorchPredictor(params, apply)
+    assert all(t.is_cuda for t in tree_leaves(on_card._params))
+    got = on_card.predict({"tokens": tokens})
+    want = TorchPredictor(params, apply, device="cpu").predict(
+        {"tokens": tokens})
+    for k in want:
+        assert isinstance(got[k], np.ndarray) and got[k].dtype == np.float32
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5)
+
+
+def test_use_gpu_worker_holds_its_grant_as_its_device(cuda):
+    """One `ScalingConfig(use_gpu=True)` worker: its `get_gpu_ids()` names
+    `torch.cuda.current_device()`, and `train.torch.get_device()` is that
+    card."""
+    import ray_tpu_torch
+    from ray_tpu_torch.air import ScalingConfig, session
+    from ray_tpu_torch.train import DataParallelTrainer
+
+    def loop():
+        import torch
+
+        import ray_tpu_torch
+        from ray_tpu_torch.train.torch import get_device
+
+        session.report({"gpu_ids": ray_tpu_torch.get_gpu_ids(),
+                        "current": torch.cuda.current_device(),
+                        "device": str(get_device())})
+
+    ray_tpu_torch.init(num_cpus=2, resources={"GPU": 1})
+    try:
+        result = DataParallelTrainer(
+            loop, scaling_config=ScalingConfig(num_workers=1,
+                                               use_gpu=True)).fit()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert result.error is None, result.error
+    m = result.metrics
+    assert m["gpu_ids"] == [m["current"]] and m["device"] == \
+        f"cuda:{m['current']}"

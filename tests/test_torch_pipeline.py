@@ -21,8 +21,9 @@ dp, fsdp and tp) on the CPU under gloo, `ModelConfig.tiny` in float32.
   optimizers; at n_micro 2 and 4 the losses and grad norms within 1e-6
   relative (the microbatches' sums in another order), every param within
   the bounds above.
-- An sp 2 mesh raises ValueError, MoE NotImplementedError, rows that
-  n_micro does not divide ValueError.
+- An sp 2 mesh raises ValueError, MoE NotImplementedError, a global batch
+  that n_micro does not divide ValueError. n_micro may divide the global
+  batch and not a rank's rows: dp 2 x pp 2 with n_micro 4 (slow).
 """
 
 import dataclasses
@@ -47,7 +48,7 @@ from ray_tpu_torch.models.transformer import forward, loss_fn, tree_leaves
 from ray_tpu_torch.parallel import (MeshConfig, initialize_group, make_mesh,
                                     shutdown_group)
 from ray_tpu_torch.parallel.fsdp import tree_paths
-from ray_tpu_torch.parallel.pipeline import make_pp_train_step
+from ray_tpu_torch.parallel.pipeline import make_pp_train_step, micro_rows
 from ray_tpu_torch.train import (default_optimizer, fused_adamw_optimizer,
                                  make_train_step, to_local)
 
@@ -123,7 +124,8 @@ def _check_pipeline(tmp_path, dp=1, pp=2, fsdp=1, tp=1, n_layers=2,
         rows = got["local_rows"]
         logits = forward(params, batch["inputs"][:rows], cfg)
     pp_logits = np.load(tmp_path / "logits.npz")["logits"]
-    assert pp_logits.shape == (n_micro, rows // n_micro, SEQ, 512)
+    n_local = len(micro_rows(rows, n_micro, 0, dp * fsdp))
+    assert pp_logits.shape == (n_local, rows // n_local, SEQ, 512)
     np.testing.assert_allclose(pp_logits.reshape(logits.shape),
                                logits.numpy(), rtol=1e-4, atol=1e-4)
 
@@ -146,6 +148,7 @@ def test_pp2_on_two_ranks_matches_dense_and_jax(tmp_path):
     (2, 2, 1, 1, 2, 2),
     (1, 2, 2, 1, 4, 2),
     (1, 4, 1, 1, 4, 4),
+    (2, 2, 1, 1, 2, 4),  # n_micro the global batch: 2 microbatches a rank
 ])
 def test_four_ranks_match_dense_and_jax(tmp_path, dp, pp, fsdp, tp,
                                         n_layers, n_micro):
@@ -219,6 +222,21 @@ def test_rows_that_n_micro_does_not_divide_raise(world_one):
     with pytest.raises(ValueError, match="4 rows is not divisible by "
                                          "n_micro 3"):
         step_fn(init_fn(0), make_batch(cfg, BATCH, SEQ, 1, "cpu"))
+
+
+def test_microbatches_follow_the_global_batch():
+    """`micro_rows`: n_micro dividing a rank's rows cuts them; else the
+    rank runs its parts of the global microbatches (dp 2 x pp 2 with 4
+    rows and n_micro 4: 2 of 1 row each); unequal counts raise."""
+    assert micro_rows(4, 2) == [slice(0, 2), slice(2, 4)]
+    assert micro_rows(2, 4, 1, 2) == [slice(0, 1), slice(1, 2)]
+    assert micro_rows(3, 6, 2, 4) == [slice(0, 2), slice(2, 3)]
+    assert micro_rows(1, 2, 3, 4) == [slice(0, 1)]
+    with pytest.raises(ValueError, match="12 rows is not divisible by "
+                                         "n_micro 5"):
+        micro_rows(3, 5, 0, 4)
+    with pytest.raises(ValueError, match="each must run as many"):
+        micro_rows(6, 4, 0, 2 * 5)
 
 
 class _Mesh:

@@ -5,7 +5,8 @@ of its calls recorded so the two packages' runs can be compared.
 
 `load(filename, pkg)` executes a reference test module's source in a
 namespace of its own: as it is for "ref", translated for "port" (the
-package's name, the accelerator resource, and `device="cpu"` added to
+package's name, the accelerator resource and its fields, the trainer and
+predictor that run on it, and `device="cpu"` added to
 `iter_torch_batches`, whose port defaults to the card). `run(ns, name,
 pkg, ...)` calls one of its tests with fixtures bound to the runtime the
 calling test holds. `recording(pkg, targets)` wraps methods of the
@@ -30,6 +31,12 @@ def to_port(src: str) -> str:
     """A reference test's source as the port runs it."""
     src = re.sub(r"\bray_tpu\b", "ray_tpu_torch", src)
     src = src.replace('"TPU"', '"GPU"').replace("num_tpus", "num_gpus")
+    for ref, port in (("JaxTrainer", "MeshTrainer"),
+                      ("JaxPredictor", "TorchPredictor"),
+                      ("use_tpu", "use_gpu"),
+                      ("chips_per_worker", "gpus_per_worker"),
+                      ("get_tpu_ids", "get_gpu_ids")):
+        src = re.sub(rf"\b{ref}\b", port, src)
     return src.replace(".iter_torch_batches(", '.iter_torch_batches(device="cpu", ')
 
 
