@@ -370,6 +370,33 @@ Phases (any failure exits non-zero and prints no result line):
      before the direct runs. Each part's seconds are logged beside the
      card's name and power limit; the worker's and the predictor actor's
      launches join `launches_by_path`.
+ 23. (beside 22; in a fresh interpreter, `python3 chip_smoke.py --rllib`,
+     its log printed when it ends)
+     rllib's Learner stack: `init(num_cpus=8, resources={"GPU": 1})`, every
+     kernel's count set to 0; (a) PPO at the reference's defaults
+     (CartPole, 2 rollout workers x 4 envs x 128 steps, 4 SGD epochs of
+     256 rows: 16 updates an iteration) with its learner on the card: 3
+     `train()`s, `save()`, a 4th; a direct run in this process (the
+     algorithm's `RolloutWorkerImpl`s and seeds, a `PPOLearner` on the
+     card) gives the 4 iterations' stats and params bit for bit; the
+     learner's params and Adam state on cuda:0; a new PPO `restore()`s the
+     checkpoint (the weights and the iteration, as the reference's) and
+     runs an iteration: the direct run of a fresh PPO from those weights
+     bit for bit (its distance from the uninterrupted 4th is logged: the
+     checkpoint holds no optimizer state or env state); (b) the mesh
+     backend with no mesh (a world of 1 on the card through
+     `initialize_group`), one iteration: (a)'s first bit for bit; (c) the
+     actors backend, one `_LearnerActor` holding `{"GPU": 1}`, one
+     iteration: its learner on its grant's card, its params within 1e-6
+     of (a)'s first (whether bit for bit is logged); (d) DQN, 2
+     iterations (samples taken in order): a direct run bit for bit;
+     IMPALA, APPO and A3C (samples taken as they finish), 2 iterations
+     each: finite stats, their learners' params on the card; (e) the CLI:
+     `python -m ray_tpu_torch rllib train --algo ppo --stop-iters 2
+     --checkpoint-path ...` then `rllib evaluate`, both exit 0. No kernel
+     launches on the path ("rllib learner (phase 23)" in
+     `launches_by_path`, 0 for every kernel). Each part's seconds are
+     logged beside the card's name and power limit.
 
 Imports torch and the port only (never jax, never ray_tpu).
 """
@@ -6055,6 +6082,383 @@ def run_trainers_phase(card: str, seed: int) -> dict:
     return json.loads((TRAINERS_DIR / "result.json").read_text())
 
 
+RLLIB_DIR = HERE / "build" / "phase23"
+RLLIB_LOG = HERE / "build" / "phase23.log"
+
+
+def _all_kernels() -> tuple:
+    """Every wrapper of the port's kernels (each counts its launches)."""
+    from ray_tpu_torch.ops.kernels import adamw as aw
+    from ray_tpu_torch.ops.kernels import flash_attention as fa
+    from ray_tpu_torch.ops.kernels import fused_ffn as ff
+    from ray_tpu_torch.ops.kernels import quant
+    from ray_tpu_torch.ops.kernels import rmsnorm as rms
+    from ray_tpu_torch.ops.kernels import xent
+
+    return (*quant.KERNELS, *fa.KERNELS, *fa.PACKED_KERNELS, *ff.KERNELS,
+            *aw.KERNELS, *rms.KERNELS, *xent.KERNELS)
+
+
+def _rl_weights_equal(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return sorted(a) == sorted(b) and all(
+        np.array_equal(a[k], b[k]) for k in a)
+
+
+def _rl_direct_ppo(cfg, iters: int, start=None) -> tuple:
+    """PPO's training_step `iters` times in this process: the algorithm's
+    RolloutWorkerImpls and seeds, a PPOLearner on the card (`start` its
+    weights if given, as `restore` sets them). Returns ([stats], weights,
+    ms an update: the learner's updates timed apart, synchronized)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib.ppo import (PPOLearner, RolloutWorkerImpl,
+                                         compute_gae)
+
+    learner = PPOLearner(cfg.obs_dim, cfg.num_actions, cfg.lr,
+                         clip=cfg.clip_param, vf_coeff=cfg.vf_coeff,
+                         entropy_coeff=cfg.entropy_coeff, seed=cfg.seed,
+                         device="cuda")
+    if start is not None:
+        learner.set_weights(start)
+    workers = [RolloutWorkerImpl(cfg.env_maker, cfg.num_envs_per_worker,
+                                 cfg.seed + 1000 * (i + 1), cfg.obs_dim,
+                                 cfg.num_actions)
+               for i in range(cfg.num_rollout_workers)]
+    rng = np.random.default_rng(cfg.seed)
+    history, out, total, upd_s, n_upd = [], [], 0, 0.0, 0
+    for _ in range(iters):
+        w = learner.get_weights()
+        for wk in workers:
+            wk.set_weights(w)
+        flats, rets = [], []
+        for batch in [wk.sample(cfg.rollout_fragment_length)
+                      for wk in workers]:
+            adv, ret = compute_gae(batch, cfg.gamma, cfg.lambda_)
+            T, N = batch["actions"].shape
+            flats.append({"obs": batch["obs"].reshape(T * N, -1),
+                          "actions": batch["actions"].reshape(-1),
+                          "logp": batch["logp"].reshape(-1),
+                          "advantages": adv.reshape(-1),
+                          "returns": ret.reshape(-1)})
+            rets.extend(batch["episode_returns"].tolist())
+        flat = {k: np.concatenate([f[k] for f in flats]) for k in flats[0]}
+        a = flat["advantages"]
+        flat["advantages"] = (a - a.mean()) / (a.std() + 1e-8)
+        total += int(flat["actions"].size)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = learner.update_minibatches(
+            flat, cfg.num_sgd_iter, cfg.sgd_minibatch_size, rng)
+        torch.cuda.synchronize()
+        upd_s += time.perf_counter() - t
+        n_upd += cfg.num_sgd_iter * -(-int(flat["actions"].size)
+                                      // cfg.sgd_minibatch_size)
+        history = (history + rets)[-100:]
+        out.append({"episode_reward_mean": (float(np.mean(history))
+                                            if history else 0.0),
+                    "num_env_steps_sampled": total, **stats})
+    return out, learner.get_weights(), 1e3 * upd_s / n_upd
+
+
+def _rl_direct_dqn(cfg, iters: int) -> tuple:
+    """DQN's training_step `iters` times in this process (its workers'
+    class in the driver, the same seeds; its learner on the card)."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.dqn import DQNLearner, EpsilonGreedyWorker
+    from ray_tpu_torch.rllib.replay_buffers import ReplayBuffer
+
+    learner = DQNLearner(cfg.obs_dim, cfg.num_actions, cfg.lr, cfg.gamma,
+                         cfg.seed, double_q=cfg.double_q, device="cuda")
+    buf = ReplayBuffer(cfg.buffer_capacity, seed=cfg.seed)
+    workers = [EpsilonGreedyWorker._cls(
+        cfg.env_maker, cfg.num_envs_per_worker, cfg.seed + 1000 * (i + 1),
+        cfg.obs_dim, cfg.num_actions) for i in range(cfg.num_rollout_workers)]
+    out, history, total = [], [], 0
+    for it in range(1, iters + 1):
+        for wk in workers:
+            wk.set_weights(learner.get_weights())
+        frac = min(1.0, it / max(1, cfg.epsilon_decay_steps))
+        eps = cfg.epsilon_start + frac * (cfg.epsilon_end
+                                          - cfg.epsilon_start)
+        for s in [wk.sample(cfg.rollout_fragment_length, eps)
+                  for wk in workers]:
+            history.extend(s.pop("episode_returns").tolist())
+            buf.add_batch(s)
+            total += len(s["actions"])
+        history = history[-100:]
+        losses = []
+        if len(buf) >= cfg.learning_starts:
+            for _ in range(cfg.num_updates_per_step):
+                loss, _ = learner.update_batch(buf.sample(
+                    cfg.train_batch_size))
+                losses.append(loss)
+            if it % cfg.target_update_interval == 0:
+                learner.sync_target()
+        out.append({"episode_reward_mean": (float(np.mean(history))
+                                            if history else 0.0),
+                    "epsilon": eps, "buffer_size": len(buf),
+                    "num_env_steps_sampled": total,
+                    "loss": float(np.mean(losses)) if losses
+                    else float("nan")})
+    return out, learner.get_weights()
+
+
+def _rl_same(a: dict, b: dict) -> bool:
+    """Stats equal, NaN equal to NaN."""
+    return sorted(a) == sorted(b) and all(
+        a[k] == b[k] or (a[k] != a[k] and b[k] != b[k]) for k in a)
+
+
+def rllib_phase(card: str, seed: int) -> dict:
+    """Phase 23 (in a process of its own, `chip_smoke.py --rllib`): PPO,
+    its learner group's two backends, DQN, IMPALA, APPO and A3C on the
+    port's runtime with their learners on the card, each against a direct
+    run where the algorithm takes its samples in order; then the rllib
+    CLI. Returns each part's seconds and the kernels' launches (none)."""
+    import math
+    import os
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.parallel import shutdown_group
+
+    t_phase = time.perf_counter()
+    seconds, bad = {}, []
+    shutil.rmtree(RLLIB_DIR, ignore_errors=True)
+    RLLIB_DIR.mkdir(parents=True)
+    kernels = _all_kernels()
+    for k in kernels:   # the main path's counts start here
+        k.launches = 0
+
+    def ppo_cfg():
+        cfg = rllib.PPOConfig()
+        cfg.seed = seed
+        return cfg
+
+    def part(name, t):
+        seconds[name] = round(time.perf_counter() - t, 2)
+        log(f"rllib: ({name}) {seconds[name]} s [{card}]")
+
+    t = time.perf_counter()
+    rt.init(num_cpus=8, resources={"GPU": 1})
+    seconds["init"] = round(time.perf_counter() - t, 2)
+    try:
+        # (a) PPO at the reference's defaults, its learner on the card
+        t = time.perf_counter()
+        algo = ppo_cfg().build()
+        stats = [algo.train() for _ in range(3)]
+        ckpt = algo.save()
+        stats.append(algo.train())
+        w4 = algo.get_weights()
+        lrn = algo.learner
+        where = {str(v.device) for v in lrn.params.values()} | {
+            str(v.device) for tree in (lrn.opt_state.mu, lrn.opt_state.nu)
+            for v in tree.values()} | {str(lrn.opt_state.count.device)}
+        algo.stop()
+        if where != {"cuda:0"}:
+            bad.append(f"(a) the learner's params and Adam state on {where}")
+        for i, m in enumerate(stats):
+            if m["training_iteration"] != i + 1:
+                bad.append(f"(a) iteration {m['training_iteration']}")
+            m.pop("training_iteration")
+        log(f"rllib: (a) PPO rewards "
+            f"{[round(m['episode_reward_mean'], 3) for m in stats]}, "
+            f"total_loss {[m['total_loss'] for m in stats]}")
+        part("ppo", t)
+        t = time.perf_counter()
+        direct, dw, upd_ms = _rl_direct_ppo(ppo_cfg(), 4)
+        log(f"rllib: (a) the direct run's learner: {upd_ms:.3f} ms an "
+            f"update (256 rows, synchronized; float stats read each "
+            f"minibatch) [{card}]")
+        if not all(_rl_same(a, b) for a, b in zip(stats, direct)) \
+                or not _rl_weights_equal(w4, dw):
+            bad.append(f"(a) PPO's 4 iterations {stats} against the direct "
+                       f"run's {direct} (weights equal: "
+                       f"{_rl_weights_equal(w4, dw)})")
+        part("ppo_direct", t)
+        t = time.perf_counter()
+        restored = ppo_cfg().build()
+        restored.restore(ckpt)
+        r4 = restored.train()
+        rw4 = restored.get_weights()
+        restored.stop()
+        want, want_w, _ = _rl_direct_ppo(ppo_cfg(), 1,
+                                         start=ckpt.to_dict()["weights"])
+        if r4.pop("training_iteration") != 4 or not _rl_same(r4, want[0]) \
+                or not _rl_weights_equal(rw4, want_w):
+            bad.append(f"(a) the restored 4th iteration {r4} against a "
+                       f"fresh PPO from the checkpoint's weights {want[0]}")
+        gap = max(float(np.abs(rw4[k] - w4[k]).max()) for k in w4)
+        # the local learner's first iteration, for (b) and (c)
+        first, w1, _ = _rl_direct_ppo(ppo_cfg(), 1)
+        if not _rl_same(first[0], stats[0]):
+            bad.append(f"(a) a 1-iteration direct run {first[0]}, the "
+                       f"algorithm's first {stats[0]}")
+        log(f"rllib: (a) restored 4th iteration: a fresh PPO from the "
+            f"checkpoint's weights bit for bit; against the uninterrupted "
+            f"4th: rewards {r4['episode_reward_mean']} vs "
+            f"{stats[3]['episode_reward_mean']}, params max |diff| {gap:.3e}"
+            f" (the checkpoint holds the weights and the iteration only)")
+        part("ppo_restore", t)
+
+        # (b) the mesh backend, no mesh: a world of 1 on the card
+        t = time.perf_counter()
+        try:
+            algo = ppo_cfg().learners(backend="mesh").build()
+            m1 = algo.train()
+            mw = algo.get_weights()
+            world = torch.distributed.get_world_size()
+            backend = torch.distributed.get_backend()
+            algo.stop()
+        finally:
+            shutdown_group()
+        m1.pop("training_iteration")
+        if world != 1 or backend != "nccl" or not _rl_same(m1, stats[0]) \
+                or not _rl_weights_equal(mw, w1):
+            bad.append(f"(b) the mesh group ({backend} world {world}) "
+                       f"{m1}, the local learner's {stats[0]}")
+        part("mesh_group", t)
+
+        # (c) the actors backend: one learner actor holding the card
+        t = time.perf_counter()
+        algo = ppo_cfg().learners(backend="actors", num_learners=1).build()
+        c1 = algo.train()
+        cw = algo.get_weights()
+        grant = rt.get(algo.learner_group._actors[0].device.remote())
+        algo.stop()
+        c1.pop("training_iteration")
+        c_gap = max(float(np.abs(cw[k] - w1[k]).max()) for k in w1)
+        if grant["device"] != f"cuda:{grant['gpu_ids'][0]}" \
+                or len(grant["gpu_ids"]) != 1 or c_gap > 1e-6:
+            bad.append(f"(c) the learner actor on {grant}, params "
+                       f"{c_gap:.3e} from the local learner's")
+        log(f"rllib: (c) the learner actor on {grant['device']} (grant "
+            f"{grant['gpu_ids']}), params max |diff| {c_gap:.3e} from the "
+            f"local learner's first iteration (bit for bit: "
+            f"{_rl_weights_equal(cw, w1)}), total_loss {c1['total_loss']} "
+            f"vs {stats[0]['total_loss']}")
+        part("actor_group", t)
+
+        # (d) DQN against a direct run; IMPALA, APPO, A3C
+        t = time.perf_counter()
+        dcfg = rllib.DQNConfig()
+        dcfg.seed = seed
+        algo = dcfg.build()
+        dstats = [algo.train() for _ in range(2)]
+        dwts = algo.get_weights()
+        on = {str(v.device) for v in algo.learner.params.values()}
+        algo.stop()
+        for m in dstats:
+            m.pop("training_iteration")
+        ddir, ddw = _rl_direct_dqn(dcfg, 2)
+        if on != {"cuda:0"} or not all(
+                _rl_same(a, b) for a, b in zip(dstats, ddir)) \
+                or not _rl_weights_equal(dwts, ddw):
+            bad.append(f"(d) DQN {dstats} on {on}, direct {ddir}")
+        log(f"rllib: (d) DQN losses {[m['loss'] for m in dstats]}, buffer "
+            f"{dstats[-1]['buffer_size']}: the direct run's bit for bit")
+        for name in ("ImpalaConfig", "APPOConfig", "A3CConfig"):
+            cfg = getattr(rllib, name)()
+            cfg.seed = seed
+            algo = cfg.build()
+            got = [algo.train() for _ in range(2)]
+            on = {str(v.device) for v in algo.learner.params.values()}
+            algo.stop()
+            finite = all(math.isfinite(v) for m in got for v in m.values()
+                         if isinstance(v, float))
+            if on != {"cuda:0"} or not finite:
+                bad.append(f"(d) {name}: {got} on {on}")
+            log(f"rllib: (d) {name[:-6]}: {json.dumps(got[-1])} on "
+                f"{sorted(on)}")
+        part("dqn_async", t)
+    finally:
+        rt.shutdown()
+    counts = {k.__name__: k.launches for k in kernels}
+    if any(counts.values()):
+        bad.append(f"kernels launched on the rllib path: {counts}")
+
+    # (e) the CLI: train and checkpoint on the card, then evaluate
+    t = time.perf_counter()
+    ck = str(RLLIB_DIR / "ppo_ckpt")
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    for argv in (["train", "--algo", "ppo", "--stop-iters", "2",
+                  "--checkpoint-path", ck],
+                 ["evaluate", "--algo", "ppo", "--checkpoint-path", ck,
+                  "--episodes", "2"]):
+        out = subprocess.run([sys.executable, "-m", "ray_tpu_torch", "rllib",
+                              *argv], capture_output=True, text=True,
+                             env=env, cwd=str(RLLIB_DIR), timeout=300)
+        log(f"rllib: (e) rllib {argv[0]} exited {out.returncode}: "
+            f"{out.stdout.strip().splitlines()[-1:]}")
+        if out.returncode != 0:
+            bad.append(f"(e) rllib {argv[0]} exited {out.returncode}: "
+                       f"{out.stderr[-2000:]}")
+    part("cli", t)
+    if bad:
+        fail(f"rllib: {bad}")
+    seconds["phase"] = round(time.perf_counter() - t_phase, 2)
+    log(f"rllib: phase {seconds['phase']} s, parts {json.dumps(seconds)} "
+        f"[{card}]")
+    out = {"seconds": seconds,
+           "launches": {"rllib learner (phase 23)": counts}}
+    (RLLIB_DIR / "result.json").write_text(json.dumps(out))
+    return out
+
+
+def start_rllib_phase(seed: int):
+    """Phase 23 in a fresh interpreter (a runtime of its own), started
+    beside phase 22: its learners are 64-64 MLPs that take the card for a
+    few ms an update, so the two share it at little cost, and alone it
+    would take 60-90 s of the 1200 s budget. Its output goes to
+    RLLIB_LOG."""
+    import atexit
+
+    RLLIB_LOG.parent.mkdir(parents=True, exist_ok=True)
+    out = open(RLLIB_LOG, "w")
+    proc = subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"),
+                             "--rllib", "--seed", str(seed)],
+                            stdout=out, stderr=subprocess.STDOUT)
+    out.close()
+
+    def stop():  # a failure elsewhere ends this script before the join
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    return proc, time.perf_counter()
+
+
+def finish_rllib_phase(card: str, started) -> dict:
+    """Wait for phase 23, print its log and return its result (each
+    part's seconds, the kernels' launches on its path)."""
+    proc, t0 = started
+    try:
+        rc = proc.wait(timeout=max(1.0, 500 - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at 500 s"
+    for line in RLLIB_LOG.read_text(errors="replace").splitlines():
+        log(line)
+    log(f"rllib: the phase ran beside phase 22, which ended "
+        f"{time.perf_counter() - t0:.1f} s after it started [{card}]")
+    if rc != 0:
+        fail(f"rllib phase exited {rc}")
+    return json.loads((RLLIB_DIR / "result.json").read_text())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6082,6 +6486,9 @@ def main() -> int:
     ap.add_argument("--trainers", action="store_true",
                     help="run only phase 22 (chip_smoke starts it this way "
                          "after phase 21, in a process of its own)")
+    ap.add_argument("--rllib", action="store_true",
+                    help="run only phase 23 (chip_smoke starts it this way "
+                         "beside phase 22, in a process of its own)")
     args = ap.parse_args()
     if args.drop_stream and not args.libraries:
         ap.error("--drop-stream goes with --libraries")
@@ -6107,6 +6514,10 @@ def main() -> int:
     if args.trainers:
         sys.path.insert(0, str(HERE))
         trainers_phase(smi_line(), args.seed)
+        return 0
+    if args.rllib:
+        sys.path.insert(0, str(HERE))
+        rllib_phase(smi_line(), args.seed)
         return 0
     t_start = time.perf_counter()
     t_lap = [t_start]
@@ -6379,12 +6790,18 @@ def main() -> int:
         f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
     libraries = run_libraries_phase(card, args.seed)
     lap("phase 21")
+    # ---- phase 23, started beside 22: rllib's Learner stack: PPO with
+    # its learner on the card (a restore, both learner-group backends),
+    # DQN, IMPALA, APPO, A3C, the rllib CLI; no kernel on the path
+    rl_started = start_rllib_phase(args.seed)
     # ---- phase 22: the Train library: a DataParallelTrainer training on
     # the card across a failure, a BatchPredictor on its checkpoint, a
     # TorchTrainer on NCCL
     trainers = run_trainers_phase(card, args.seed)
 
     lap("phase 22")
+    rl = finish_rllib_phase(card, rl_started)
+    lap("phase 23 (the wait for it)")
     # ---- phase 16: report
     pallas = "ray_tpu/ops/pallas/"
     replaces = {"quantize_int8": pallas + "quant.py:19",
@@ -6477,13 +6894,19 @@ def main() -> int:
                 kernels[-1]["launches_by_path"][
                     "job DAG actor (phase 20)"] = operator["launches"][kname]
             for path, counts in {**libraries["launches"],
-                                 **trainers["launches"]}.items():
+                                 **trainers["launches"],
+                                 **rl["launches"]}.items():
                 if kname in counts:
                     kernels[-1]["launches_by_path"][path] = counts[kname]
         if kname in runtime_launches:
             kernels[-1]["launches_by_path"] = {
                 "ContinuousBatchingEngine w8a16 (phase 4)": launches[kname],
                 **runtime_launches[kname]}
+        # no kernel lies on rllib's path: every row says so (phase 23
+        # fails on any launch there)
+        rl_path, rl_counts = next(iter(rl["launches"].items()))
+        kernels[-1].setdefault("launches_by_path", {})[rl_path] = \
+            rl_counts.get(kname.split("_f32")[0].split("_wide")[0], 0)
         if kname in f32_launches:
             kernels[-1]["launches_per_step"] = (f32_launches[kname]
                                                 / F32_TINY_STEPS)

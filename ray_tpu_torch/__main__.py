@@ -4,9 +4,11 @@ Command surface mirrors the reference CLI (SURVEY appendix A): start,
 status, list (actors/nodes/tasks/pgs/jobs), summary, timeline, job submit,
 the cluster launcher (up/down/exec/submit/attach), serve, debug and
 metrics. `start` runs `core/node_main.py` (`--num-gpus n` gives a node its
-cards). No command touches CUDA: the CLI's process makes no CUDA context.
-`rllib train|evaluate` parses as the reference's but exits 2 until the
-port has an `rllib` package.
+cards). No command but `rllib` touches CUDA. `rllib train|evaluate` runs
+the reference's loop over the port's algorithms (those of this package's
+`rllib`; another name prints the reference's "unknown algorithm" line) with
+their learners on `--device` (the card by default; without one, and without
+`--device cpu`, it exits 2 with one line naming the missing card).
 """
 
 from __future__ import annotations
@@ -195,6 +197,9 @@ def main(argv=None) -> int:
     p_rl_eval.add_argument("--algo", required=True)
     p_rl_eval.add_argument("--checkpoint-path", required=True)
     p_rl_eval.add_argument("--episodes", type=int, default=5)
+    for p in (p_rl_train, p_rl_eval):
+        p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                       help="the learners' device (default: the card)")
 
     p_debug = sub.add_parser("debug",
                              help="attach to a remote rpdb breakpoint")
@@ -622,11 +627,59 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "rllib":
-        # the reference's parser, no run: the port has no rllib package
-        # yet (ROADMAP.md, A.9), and a faked run would be worse than none
-        print(f"python -m ray_tpu_torch rllib {args.rllib_cmd}: the port has "
-              f"no rllib yet (ROADMAP.md, A.9)", file=sys.stderr)
-        return 2
+        import torch
+
+        if args.device == "cuda" and not torch.cuda.is_available():
+            print(f"python -m ray_tpu_torch rllib {args.rllib_cmd}: no CUDA "
+                  f"card on this host for the learner; pass --device cpu to "
+                  f"train on the CPU", file=sys.stderr)
+            return 2
+        _connect(args.address) if hasattr(args, "address") else None
+        import ray_tpu_torch as _rt
+
+        if not _rt.is_initialized():
+            _rt.init(num_cpus=4)
+        from ray_tpu_torch import rllib as _rllib
+
+        by_name = {n[:-6].lower(): getattr(_rllib, n) for n in dir(_rllib)
+                   if n.endswith("Config")}
+        cfg_cls = by_name.get(args.algo.lower())
+        if cfg_cls is None:
+            print(f"unknown algorithm {args.algo!r}; "
+                  f"available: {' '.join(sorted(by_name))}")
+            return 1
+        cfg = cfg_cls()
+        if hasattr(cfg, "device"):
+            cfg.device = args.device
+        if hasattr(cfg, "rollouts") and args.rllib_cmd == "train":
+            try:
+                cfg.rollouts(num_rollout_workers=args.num_workers)
+            except TypeError:
+                pass
+        algo = cfg.build()
+        try:
+            if args.rllib_cmd == "train":
+                last = {}
+                for i in range(args.stop_iters):
+                    last = algo.train()
+                    reward = last.get("episode_reward_mean")
+                    print(f"iter {i + 1}: reward={reward}")
+                    if (args.stop_reward is not None and reward is not None
+                            and reward >= args.stop_reward):
+                        break
+                if args.checkpoint_path:
+                    ckpt = algo.save()
+                    ckpt.to_directory(args.checkpoint_path)
+                    print(f"checkpoint: {args.checkpoint_path}")
+            else:  # evaluate
+                from ray_tpu_torch.air.checkpoint import Checkpoint
+
+                algo.restore(Checkpoint.from_directory(args.checkpoint_path))
+                ev = algo.evaluate(num_episodes=args.episodes)
+                print(json.dumps(ev, indent=2))
+        finally:
+            algo.stop()
+        return 0
 
     return 1
 

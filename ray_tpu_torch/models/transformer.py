@@ -29,7 +29,8 @@ Sharded over a mesh, the parameters are each rank's blocks of the leaves
   leaf one layer's slice at a time, so the full weights exist one layer at
   a time; its tp block stays local;
 - tp: each rank computes `n_heads/tp` query and `n_kv_heads/tp` KV heads
-  and `d_ff/tp` FFN columns, between `copy_to_tp` on the normed input and
+  (one KV head, gathered over tp by `kv_projection`, where tp holds fewer
+  KV heads than ranks) and `d_ff/tp` FFN columns, between `copy_to_tp` on the normed input and
   `reduce_from_tp` on the `wo`/`w_down` product (inside the fused blocks'
   Functions, through their `tp_group`); the embedding and the head split
   the vocab (`vocab_embed`, `vocab_nll`);
@@ -66,8 +67,9 @@ from ray_tpu_torch.ops.remat import (checkpoint_name, named_matmul,
 from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.ops.ulysses import ulysses_attention
 from ray_tpu_torch.parallel.tensor import (SINGLE, Parallel, copy_to_tp,
-                                           local_heads, reduce_from_tp,
-                                           vocab_embed, vocab_nll)
+                                           kv_projection, local_heads,
+                                           reduce_from_tp, vocab_embed,
+                                           vocab_nll)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,6 +313,8 @@ def _attn_half(cfg: ModelConfig, par: Parallel, x, p, cos, sin):
     """Attention sub-block: x + Wo(attn(rotary(qkv(rmsnorm(x))))), on this
     rank's heads and positions."""
     p = _deq_tree(p, cfg.dtype)
+    p = dict(p, wk=kv_projection(p["wk"], cfg, par),
+             wv=kv_projection(p["wv"], cfg, par))
     b, s, _ = x.shape
     hd = cfg.head_dim
     nq, nkv = local_heads(cfg, par)
@@ -478,8 +482,10 @@ def forward_features_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
             nq, nkv = local_heads(cfg, par)
 
             def attn_fn(x, lp, cos, sin):
-                return attn_block(x, lp["attn_norm"], lp["wq"], lp["wk"],
-                                  lp["wv"], lp["wo"], cos, sin, nq, nkv,
+                return attn_block(x, lp["attn_norm"], lp["wq"],
+                                  kv_projection(lp["wk"], cfg, par),
+                                  kv_projection(lp["wv"], cfg, par),
+                                  lp["wo"], cos, sin, nq, nkv,
                                   cfg.norm_eps, tp_group=par.tp_group)
         else:
             attn_fn = maybe_remat(functools.partial(_attn_half, cfg, par),

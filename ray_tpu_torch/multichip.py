@@ -42,7 +42,10 @@ asked), each joining NCCL through `parallel.initialize_group`, and runs:
     and launches: the reference plan's path (remat "dots", loss_chunk 512,
     no fused blocks) at tp 4 and at fsdp 2 x tp 2; the fused blocks at
     dp 2 x tp 2, and the all-kernel step there (fused AdamW, USE_K1 =
-    USE_K2 = True).
+    USE_K2 = True). Then fewer KV heads than ranks (2 KV heads at tp 4,
+    each rank's 8 query heads reading one KV head gathered over tp): the
+    plan's path and the fused blocks at tp 4 against one card with 2 KV
+    heads.
 (f) sp parity (four cards): 8 layers at 1 x 8192, remat "dots",
     loss_chunk 512, against one card: sp 4 under Ulysses and under ring,
     tp 2 x sp 2 under Ulysses. Ulysses takes (a)'s bounds and launches;
@@ -124,6 +127,14 @@ asked), each joining NCCL through `parallel.initialize_group`, and runs:
     on (a)'s batch: every worker's `get_gpu_ids()` its current card, the
     grants distinct, the losses within (a)'s bounds against the 1-worker
     fit.
+(m) ppo learner: the dryrun's PPO learner part (__graft_entry__.py:
+    176-198) on the cards: `PPOLearner(obs_dim=4, num_actions=2, lr=1e-3)`
+    over `make_mesh(MeshConfig(dp=-1, fsdp=1, tp=1, sp=1))`, every rank
+    the same 8·world-row batch from `np.random.default_rng(0)`, 4 updates:
+    a finite loss, each update's total_loss within 1e-5 relative and the
+    params within 1e-6 of the same learner on rank 0's card alone; then a
+    `DQNLearner` on the mesh: its `td`, gathered over dp in row order,
+    within 1e-5 of one card's.
 
 Rank 0 prints each phase's numbers and writes them all as JSON (--json).
 Every check raises, so a failing rank ends the run with a non-zero exit;
@@ -161,7 +172,7 @@ from ray_tpu_torch.ops.kernels._util import require_cuda
 REPO = Path(__file__).resolve().parents[1]
 PHASES = ("parity", "full_depth", "reshard", "collectives", "tp_parity",
           "sp_parity", "tp_full_depth", "ep_parity", "ep_depth", "pp_parity",
-          "pp_full_depth", "trainer")
+          "pp_full_depth", "trainer", "ppo_learner")
 # (l) runs in the launching process (it starts the runtime's workers)
 LAUNCHER_PHASES = ("trainer",)
 # the phases that lay out four ranks as fsdp 2 x tp 2, tp 2 x sp 2, ...
@@ -508,9 +519,14 @@ def tp_parity(r: Rank) -> Dict[str, Any]:
     plan = dataclasses.replace(fused, fused_ffn=False, fused_attn=False,
                                remat="dots", loss_chunk=sz.loss_chunk)
     batch = bench.make_batch(fused, 4, sz.parity_seq, r.seed + 1, r.dev)
+    # fewer KV heads than ranks (ROADMAP A.7.5): 2 at tp 4
+    plan_kv2 = dataclasses.replace(plan, n_kv_heads=2)
+    fused_kv2 = dataclasses.replace(fused, n_kv_heads=2)
     refs = {"plan": (plan, default_optimizer, False),
             "fused": (fused, default_optimizer, False),
-            "all-kernel": (fused, fused_adamw_optimizer, True)}
+            "all-kernel": (fused, fused_adamw_optimizer, True),
+            "plan kv2": (plan_kv2, default_optimizer, False),
+            "fused kv2": (fused_kv2, default_optimizer, False)}
     ref = _one_card(r, refs, batch, sz.steps_parity)
     for key, one in ref.items():
         r.log(f"tp parity: one card, {key}, {fused.n_layers} layers, batch "
@@ -523,7 +539,11 @@ def tp_parity(r: Rank) -> Dict[str, Any]:
             ("fused dp2xtp2", fused, {"dp": 2, "tp": 2}, default_optimizer,
              False, "fused", a, True),
             ("all-kernel dp2xtp2", fused, {"dp": 2, "tp": 2},
-             fused_adamw_optimizer, True, "all-kernel", a, True)]
+             fused_adamw_optimizer, True, "all-kernel", a, True),
+            ("plan tp4 kv2", plan_kv2, {"tp": 4}, default_optimizer, False,
+             "plan kv2", a, True),
+            ("fused tp4 kv2", fused_kv2, {"tp": 4}, default_optimizer,
+             False, "fused kv2", a, True)]
     out = {"layers": fused.n_layers, "batch": [4, sz.parity_seq],
            "one_card": ref,
            **_sharded_runs(r, runs, batch, sz.steps_parity, ref,
@@ -1516,6 +1536,81 @@ def collectives(r: Rank) -> Dict[str, Any]:
         r.log(f"collectives: tp all-reduce: " + json.dumps(row))
     return {"rows": out, "tp_all_reduce": tp_rows,
             "H100_NVLINK_BW_gb_s": H100_NVLINK_BW / 1e9}
+
+
+PPO_LOSS_RTOL, PPO_PARAMS_ATOL, TD_RTOL = 1e-5, 1e-6, 1e-5
+
+
+def ppo_learner(r: Rank) -> Dict[str, Any]:
+    """(m): the dryrun's PPO learner part on a dp mesh of every rank, and
+    DQN's gathered td, each against rank 0's card alone."""
+    import numpy as np
+
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh
+    from ray_tpu_torch.rllib.dqn import DQNLearner
+    from ray_tpu_torch.rllib.ppo import PPOLearner
+
+    mesh = make_mesh(MeshConfig(dp=-1, fsdp=1, tp=1, sp=1),
+                     device=r.dev.type)
+    rng = np.random.default_rng(0)
+    n = 8 * r.world
+    batch = {
+        "obs": rng.normal(size=(n, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, n),
+        "logp": rng.normal(size=n).astype(np.float32) * 0.1 - 0.7,
+        "advantages": rng.normal(size=n).astype(np.float32),
+        "returns": rng.normal(size=n).astype(np.float32),
+    }
+    dqn_batch = {
+        "obs": rng.normal(size=(n, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, n),
+        "rewards": rng.normal(size=n).astype(np.float32),
+        "next_obs": rng.normal(size=(n, 4)).astype(np.float32),
+        "dones": rng.integers(0, 2, n).astype(np.float32),
+    }
+    updates = 4
+
+    def run(**kw):
+        ppo = PPOLearner(obs_dim=4, num_actions=2, lr=1e-3,
+                         device=r.dev.type, **kw)
+        losses = [float(ppo.update(batch)["total_loss"])
+                  for _ in range(updates)]
+        dqn = DQNLearner(4, 2, lr=1e-3, gamma=0.99, device=r.dev.type, **kw)
+        _, td = dqn.update_batch(dqn_batch)
+        on = [str(t.device) for t in ppo.params.values()]
+        return {"losses": losses, "params": ppo.get_weights(), "td": td,
+                "devices": sorted(set(on))}
+
+    one = r.from_rank0(run() if r.rank == 0 else None)
+    t0 = time.perf_counter()
+    got = run(mesh=mesh)
+    seconds = time.perf_counter() - t0
+    _check(all(math.isfinite(v) for v in got["losses"]),
+           f"ppo learner: a non-finite loss {got['losses']}")
+    loss_rel = max(_rel(a, b) for a, b in zip(got["losses"],
+                                              one["losses"]))
+    params_diff = max(float(np.abs(got["params"][k] - one["params"][k]).max())
+                      for k in one["params"])
+    td_rel = float(np.max(np.abs(got["td"] - one["td"])
+                          / np.maximum(np.abs(one["td"]), 1e-6)))
+    out = {"batch_rows": n, "updates": updates, "losses": got["losses"],
+           "one_card_losses": one["losses"], "loss_max_rel": loss_rel,
+           "params_max_abs": params_diff, "td_max_rel": td_rel,
+           "td_rows": int(len(got["td"])), "devices": got["devices"],
+           "mesh_update_seconds": seconds}
+    r.log("ppo learner: " + json.dumps(out))
+    _check(loss_rel <= PPO_LOSS_RTOL,
+           f"ppo learner: total_loss {got['losses']} against one card's "
+           f"{one['losses']} (rel {loss_rel:.2e} > {PPO_LOSS_RTOL})")
+    _check(params_diff <= PPO_PARAMS_ATOL,
+           f"ppo learner: params {params_diff:.2e} from one card's after "
+           f"{updates} updates (> {PPO_PARAMS_ATOL})")
+    _check(len(got["td"]) == n and td_rel <= TD_RTOL,
+           f"dqn learner: the gathered td ({len(got['td'])} rows) "
+           f"{td_rel:.2e} from one card's")
+    _check(got["devices"] == [str(r.dev)],
+           f"ppo learner: params on {got['devices']}, not {r.dev}")
+    return out
 
 
 def _trainer_loop(config: Dict[str, Any]) -> None:

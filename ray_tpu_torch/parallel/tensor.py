@@ -180,17 +180,55 @@ def vocab_nll(logits: torch.Tensor, targets: torch.Tensor, group,
 
 def check_split(cfg, tp: int) -> None:
     """Raise a ValueError naming the first of n_heads, n_kv_heads, d_ff and
-    vocab_size that tp does not divide (the reference's plan refuses the
-    same layouts, ray_tpu/models/planning.py:59-62)."""
+    vocab_size that tp does not split. tp splits n_heads, d_ff and
+    vocab_size in equal blocks; n_kv_heads too, or, with fewer KV heads
+    than tp ranks, where n_kv_heads divides tp and tp divides
+    n_kv_heads·head_dim (wk/wv's columns, GSPMD's even split): each rank's
+    query heads then read one KV head, gathered over tp (`kv_projection`).
+    The reference's step runs every layout GSPMD can split; the port's
+    plan refuses the same ones the reference's does
+    (ray_tpu/models/planning.py:59-62)."""
     for name in ("n_heads", "n_kv_heads", "d_ff", "vocab_size"):
-        if getattr(cfg, name) % tp:
-            raise ValueError(
-                f"tp={tp} does not divide {name}={getattr(cfg, name)}: the "
-                f"port splits heads, mlp and vocab over tp in equal blocks "
-                f"(gathering K/V over tp where it does not divide the KV "
-                f"heads is ROADMAP.md queue A item 7.5)")
+        dim = getattr(cfg, name)
+        if not dim % tp or (name == "n_kv_heads" and kv_gathered(cfg, tp)):
+            continue
+        raise ValueError(
+            f"tp={tp} does not divide {name}={dim}: the port splits heads, "
+            f"mlp and vocab over tp in equal blocks, and gathers K/V over "
+            f"tp only where n_kv_heads divides tp and tp divides "
+            f"n_kv_heads*head_dim (other layouts: ROADMAP.md queue A item "
+            f"7.5)")
+
+
+def kv_gathered(cfg, tp: int) -> bool:
+    """Whether tp holds fewer KV heads than ranks in the layout the port
+    runs: n_kv_heads divides tp, tp divides n_kv_heads·head_dim."""
+    kv = cfg.n_kv_heads
+    return (kv < tp and not tp % kv
+            and not (kv * cfg.head_dim) % tp)
 
 
 def local_heads(cfg, par: Parallel) -> tuple:
-    """(query heads, KV heads) this rank computes."""
-    return cfg.n_heads // par.tp, cfg.n_kv_heads // par.tp
+    """(query heads, KV heads) this rank computes: one KV head where tp
+    holds fewer KV heads than ranks."""
+    return cfg.n_heads // par.tp, max(cfg.n_kv_heads // par.tp, 1)
+
+
+def kv_projection(w: torch.Tensor, cfg, par: Parallel) -> torch.Tensor:
+    """The `wk` or `wv` columns this rank projects with. Where tp splits
+    the KV heads, `w` itself (this rank's `[d, n_kv_heads·head_dim/tp]`
+    block). Where it holds fewer KV heads than ranks, `w` stays split over
+    tp on its columns as the reference's rules lay it out (so checkpoints
+    and their reshards are unchanged); here it is gathered over tp (an
+    all-gather forward, a summing reduce-scatter of its gradient
+    backward) and cut to the head_dim columns of the one KV head this
+    rank's query heads read (head `tp_rank // (tp / n_kv_heads)`). The
+    ranks that share a KV head sum their gradients of it."""
+    if par.tp_group is None or not kv_gathered(cfg, par.tp):
+        return w
+    from ray_tpu_torch.parallel.fsdp import _Gather
+
+    full = _Gather.apply(w, w.dim() - 1, par.tp_group, par.tp)
+    head = par.tp_rank // (par.tp // cfg.n_kv_heads)
+    hd = cfg.head_dim
+    return full[..., head * hd:(head + 1) * hd]

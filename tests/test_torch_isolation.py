@@ -270,8 +270,9 @@ def test_default_artifacts_are_the_ports_own():
 def test_harness_clis_start_without_a_gpu(module, tmp_path):
     """The harness CLIs and the operator CLI do no device work: they parse
     and start on a host without a card (here the help text, which names
-    the default path; the dashboards' export; `rllib`, which exits 2 with
-    one line until the port has an rllib)."""
+    the default path; the dashboards' export). `rllib` trains on the card
+    by default: without one it exits 2 with one line naming the missing
+    card, and with `--device cpu` it trains an iteration and exits 0."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     module, *args = module.split()
@@ -283,6 +284,14 @@ def test_harness_clis_start_without_a_gpu(module, tmp_path):
     if args[:1] == ["rllib"]:
         assert out.returncode == 2 and out.stdout == ""
         assert len(out.stderr.strip().splitlines()) == 1, out.stderr
+        assert "no CUDA card" in out.stderr and "--device cpu" in out.stderr
+        cpu = subprocess.run(
+            [sys.executable, "-m", module, *args, "--stop-iters", "1",
+             "--num-workers", "1", "--device", "cpu"],
+            capture_output=True, text=True, env=env, cwd=str(tmp_path),
+            timeout=120)
+        assert cpu.returncode == 0, cpu.stderr
+        assert cpu.stdout.startswith("iter 1: reward=")
         return
     assert out.returncode == 0, out.stderr
     if args:

@@ -6,8 +6,8 @@ test_predictor_util's joblib case) runs through both packages, one runtime
 of each alive side by side in this process, and the outputs are compared:
 results, endpoint key sets, statuses, logs, span names, and metric and
 label names after mapping `ray_tpu_` to `ray_tpu_torch_` and TPU to GPU.
-Also: `rllib` exits 2 on the port, and `save_sharded` sets the port's
-checkpoint gauge.
+Also: `rllib` exits 2 on the port without a card and trains with
+`--device cpu`, and `save_sharded` sets the port's checkpoint gauge.
 """
 
 import json
@@ -665,9 +665,16 @@ def test_joblib_backend_matches_reference(both):
 # ------------------------------------------------------- rllib, the gauge
 
 
-def test_rllib_subcommand_exits_2_with_one_line(capsys):
+def test_rllib_subcommand_exits_2_with_one_line(capsys, tmp_path):
+    """Without a card (and without `--device cpu`) `rllib train` and
+    `rllib evaluate` exit 2 with one line naming the missing card; with
+    `--device cpu` an iteration trains, checkpoints and evaluates."""
+    import torch
+
     from ray_tpu_torch.__main__ import main
 
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
     for argv in (["rllib", "train", "--algo", "ppo"],
                  ["rllib", "evaluate", "--algo", "ppo",
                   "--checkpoint-path", "/nonexistent"]):
@@ -675,7 +682,21 @@ def test_rllib_subcommand_exits_2_with_one_line(capsys):
         out = capsys.readouterr()
         assert out.out == ""
         assert len(out.err.strip().splitlines()) == 1
-        assert "rllib" in out.err and "A.9" in out.err
+        assert "rllib" in out.err and "no CUDA card" in out.err
+    ckpt = str(tmp_path / "ppo")
+    started = not ray_tpu_torch.is_initialized()
+    try:
+        assert main(["rllib", "train", "--algo", "ppo", "--stop-iters", "1",
+                     "--num-workers", "1", "--device", "cpu",
+                     "--checkpoint-path", ckpt]) == 0
+        assert main(["rllib", "evaluate", "--algo", "ppo", "--device", "cpu",
+                     "--checkpoint-path", ckpt, "--episodes", "1"]) == 0
+    finally:
+        if started:
+            ray_tpu_torch.shutdown()
+    out = capsys.readouterr().out
+    assert "iter 1: reward=" in out and f"checkpoint: {ckpt}" in out
+    assert json.loads(out[out.index("{"):])["num_episodes"] == 1
     # it parses as the reference's: a missing --algo is argparse's error
     with pytest.raises(SystemExit) as e:
         main(["rllib", "train"])

@@ -158,10 +158,10 @@ def _mask():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_steps(n, dp, fsdp, masked, tp=1, sp=1, scheme="", pp=1):
+def _jax_steps(n, dp, fsdp, masked, tp=1, sp=1, scheme="", pp=1, kv=0):
     """The JAX step on an n-device virtual mesh (`tiny`, `seq_parallel`
-    `scheme`): the initial params and, after each of 3 steps, (loss,
-    grad_norm, params)."""
+    `scheme`, `kv` KV heads if not 0): the initial params and, after each
+    of 3 steps, (loss, grad_norm, params)."""
     mesh = jmake_virtual_mesh(n, JMeshConfig(dp=dp, fsdp=fsdp, tp=tp,
                                              sp=sp, pp=pp))
     real = jstep.batch_sharding
@@ -172,8 +172,11 @@ def _jax_steps(n, dp, fsdp, masked, tp=1, sp=1, scheme="", pp=1):
 
     jstep.batch_sharding = with_mask if masked else real
     try:
+        cfg = dataclasses.replace(JConfig.tiny(), seq_parallel=scheme)
+        if kv:
+            cfg = dataclasses.replace(cfg, n_kv_heads=kv)
         step_fn, init_fn, _ = jmake_train_step(
-            dataclasses.replace(JConfig.tiny(), seq_parallel=scheme), mesh,
+            cfg, mesh,
             jdefault_optimizer(1e-3, warmup_steps=1), donate=False)
     finally:
         jstep.batch_sharding = real
@@ -193,17 +196,18 @@ def _jax_steps(n, dp, fsdp, masked, tp=1, sp=1, scheme="", pp=1):
 
 
 def _check_against_jax(tmp_path, world, dp, fsdp, masked, tp=1, sp=1,
-                       scheme="", fused=False, pp=1):
+                       scheme="", fused=False, pp=1, kv=0):
     """The port's sharded step on `world` gloo ranks against the JAX step
     at the same mesh (the JAX side unfused: its fused blocks compute the
-    same function, tests/test_torch_fused_blocks.py)."""
-    init, want = _jax_steps(world, dp, fsdp, masked, tp, sp, scheme, pp)
+    same function, tests/test_torch_fused_blocks.py); `kv` KV heads in
+    both if not 0."""
+    init, want = _jax_steps(world, dp, fsdp, masked, tp, sp, scheme, pp, kv)
     np.savez(tmp_path / "in.npz", tokens=_tokens().astype(np.int64),
              mask=_mask(),
              **{"p/" + k: np.asarray(v) for k, v in tree_paths(init)})
     got = torch_ranks.run_ranks("steps", world, tmp_path, dp, fsdp,
                                 int(masked), tp, sp, scheme or "-",
-                                int(fused), 0, pp)
+                                int(fused), 0, pp, kv)
     assert got["rows_as_dtensor"] and got["pp_replicas_equal"]
     assert (got["local_rows"], got["local_seq"]) == (BATCH // (dp * fsdp),
                                                      SEQ // sp)

@@ -21,7 +21,13 @@ package on `make_virtual_mesh`.
   more than 8.0e9 parameters, `_budget`'s `local_bytes` (the counterpart
   of test_eightb_sharding_lowers_on_virtual_v5e64).
 - A one-rank tp group through the fused blocks is bit-identical to none.
-- The raises that stay: tp not dividing the heads or the KV heads.
+- Fewer KV heads than tp ranks (ROADMAP A.7.5: wk/wv split over tp on
+  their columns, gathered at use, each rank projecting with the one KV
+  head its query heads read): `tiny` with 1 KV head at tp 2, plain and
+  fused, against `make_train_step` on a 2-device mesh in the bounds
+  above; `tiny` (2 KV heads) at tp 4 on four ranks is slow.
+- The raises that stay: tp not dividing the query heads, and KV heads
+  that tp neither divides nor gathers (3 KV heads at tp 4).
 """
 
 import dataclasses
@@ -60,6 +66,17 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
                                                        "fused_blocks"])
 def test_tp2_step_on_two_ranks_matches_jax(tmp_path, fused):
     _check_against_jax(tmp_path, 2, 1, 1, True, tp=2, fused=fused)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain",
+                                                       "fused_blocks"])
+def test_tp2_with_one_kv_head_on_two_ranks_matches_jax(tmp_path, fused):
+    _check_against_jax(tmp_path, 2, 1, 1, True, tp=2, fused=fused, kv=1)
+
+
+@pytest.mark.slow
+def test_tp4_with_two_kv_heads_on_four_ranks_matches_jax(tmp_path):
+    _check_against_jax(tmp_path, 4, 1, 1, True, tp=4)
 
 
 @pytest.mark.slow
@@ -358,8 +375,14 @@ class _Mesh:
         self.shape = shape
 
 
-@pytest.mark.parametrize("tp,dim", [(3, "n_heads"), (4, "n_kv_heads")])
-def test_tp_that_does_not_split_the_heads_raises(tp, dim):
+@pytest.mark.parametrize("tp,dim,kv", [(3, "n_heads", 2),
+                                       (4, "n_kv_heads", 3)])
+def test_tp_that_does_not_split_the_heads_raises(tp, dim, kv):
+    """Query heads tp does not divide, and KV heads tp neither divides nor
+    gathers (3 at tp 4: 3 does not divide 4); `tiny`'s 2 KV heads at tp 4
+    run (test_tp4_with_two_kv_heads_on_four_ranks_matches_jax)."""
+    cfg = dataclasses.replace(ModelConfig.tiny(), n_kv_heads=kv)
     with pytest.raises(ValueError, match=f"tp={tp} does not divide {dim}="):
-        _check_mesh(ModelConfig.tiny(), _Mesh((1, 1, 1, tp, 1)),
-                    torch.device("cpu"))
+        _check_mesh(cfg, _Mesh((1, 1, 1, tp, 1)), torch.device("cpu"))
+    _check_mesh(ModelConfig.tiny(), _Mesh((1, 1, 1, 4, 1)),
+                torch.device("cpu"))

@@ -7,7 +7,9 @@ of its calls recorded so the two packages' runs can be compared.
 namespace of its own: as it is for "ref", translated for "port" (the
 package's name, the accelerator resource and its fields, the trainer and
 predictor that run on it, and `device="cpu"` added to
-`iter_torch_batches`, whose port defaults to the card). `run(ns, name,
+`iter_torch_batches`, to rllib's learners, learner groups and algorithm
+configs and to the `rllib` CLI, whose port defaults to the card).
+`run(ns, name,
 pkg, ...)` calls one of its tests with fixtures bound to the runtime the
 calling test holds. `recording(pkg, targets)` wraps methods of the
 package's classes and records what each outermost call returns, after
@@ -37,7 +39,35 @@ def to_port(src: str) -> str:
                       ("chips_per_worker", "gpus_per_worker"),
                       ("get_tpu_ids", "get_gpu_ids")):
         src = re.sub(rf"\b{ref}\b", port, src)
-    return src.replace(".iter_torch_batches(", '.iter_torch_batches(device="cpu", ')
+    src = src.replace(".iter_torch_batches(", '.iter_torch_batches(device="cpu", ')
+    return _rllib_on_cpu(src)
+
+
+RL_LEARNERS = ("PPOLearner", "PGLearner", "A2CLearner", "ImpalaLearner",
+               "APPOLearner", "DQNLearner")
+RL_CONFIGS = ("A2CConfig", "A3CConfig", "PGConfig", "APPOConfig",
+              "DQNConfig", "SimpleQConfig", "ImpalaConfig")
+
+
+def _rllib_on_cpu(src: str) -> str:
+    """rllib's learners, learner groups, configs and CLI asked for the CPU
+    at the call: `X(...)` of a learner becomes
+    `functools.partial(X, device="cpu")(...)`, a LearnerGroup's kwargs
+    dict gains `"device": "cpu"`, `PPOConfig()` gets `.learners(device=)`
+    and the other configs `.training(device=)`, and `rllib train` and
+    `rllib evaluate` get `--device cpu`."""
+    names = "|".join(RL_LEARNERS)
+    src, n = re.subn(rf"(?<![\w.])({names})\(",
+                     r'__import__("functools").partial(\1, device="cpu")(',
+                     src)
+    src = re.sub(r"(\bLearnerGroup\(\s*\w+,\s*\{)", r'\1"device": "cpu", ',
+                 src)
+    src = re.sub(r"\bPPOConfig\(\)", 'PPOConfig().learners(device="cpu")',
+                 src)
+    src = re.sub(rf"\b({'|'.join(RL_CONFIGS)})\(\)",
+                 r'\1().training(device="cpu")', src)
+    return re.sub(r'"rllib", "(train|evaluate)",',
+                  r'"rllib", "\1", "--device", "cpu",', src)
 
 
 def load(filename: str, pkg: str) -> dict:

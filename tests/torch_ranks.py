@@ -5,9 +5,10 @@ JAX side of a parity test stays in the pytest process.
     python tests/torch_ranks.py TASK OUTDIR RANK WORLD PORT [ARGS...]
 
 Tasks (rank 0 writes OUTDIR/out.npz and OUTDIR/out.json):
-  steps DP FSDP MASKED [TP SP SCHEME FUSED MOE PP]
+  steps DP FSDP MASKED [TP SP SCHEME FUSED MOE PP KV]
                         3 steps of `default_optimizer(1e-3, warmup_steps=1)`
-                        on `tiny` (`tiny_moe` if MOE; float32;
+                        on `tiny` (`tiny_moe` if MOE; KV KV heads if not 0;
+                        float32;
                         `seq_parallel=SCHEME`, "-" for none; the fused
                         blocks if FUSED) from OUTDIR/in.npz (the JAX params,
                         "p/<path>", and the global batch), each rank on its
@@ -52,6 +53,14 @@ Tasks (rank 0 writes OUTDIR/out.npz and OUTDIR/out.json):
                         the next step's loss on both meshes.
   budget FSDP           a tiny state at fsdp FSDP, one step: the bytes of
                         this rank's params, optimizer moments and grads.
+
+  rl_mesh               rllib's learners on a dp = WORLD mesh (every rank the
+                        same batch, `ppo_batch`/`traj_batch`/`dqn_batch`)
+                        beside the same learners without one, each on the
+                        CPU: PPO (one update), DQN (update, sync_target,
+                        update; td gathered), IMPALA and APPO (one
+                        update), the mesh LearnerGroup (update, weights
+                        round trip); losses, aux and params of both.
 
 `run_ranks` launches WORLD such processes and waits for them (the test's
 join timeout besides the group's own).
@@ -150,7 +159,7 @@ def _write(outdir, rank, arrays, result):
 
 
 def steps(outdir, rank, world, dp, fsdp, masked, tp=1, sp=1, scheme="-",
-          fused=0, moe=0, pp=1):
+          fused=0, moe=0, pp=1, kv=0):
     import dataclasses
 
     import torch
@@ -168,6 +177,8 @@ def steps(outdir, rank, world, dp, fsdp, masked, tp=1, sp=1, scheme="-",
         ModelConfig.tiny_moe() if int(moe) else ModelConfig.tiny(),
         seq_parallel="" if scheme == "-" else scheme,
         fused_ffn=bool(int(fused)), fused_attn=bool(int(fused)))
+    if int(kv):
+        cfg = dataclasses.replace(cfg, n_kv_heads=int(kv))
     mesh = make_virtual_mesh(world, MeshConfig(
         dp=int(dp), fsdp=int(fsdp), tp=int(tp), sp=int(sp), pp=int(pp)))
     data = dict(np.load(Path(outdir) / "in.npz"))
@@ -636,6 +647,88 @@ def budget(outdir, rank, world, fsdp):
         "grads": seen["grads"]})
 
 
+def ppo_batch(n, obs_dim=4, num_actions=2, seed=0):
+    """tests/test_learner_group.py's `_ppo_batch`."""
+    rng = np.random.default_rng(seed)
+    return {
+        "obs": rng.normal(size=(n, obs_dim)).astype(np.float32),
+        "actions": rng.integers(0, num_actions, n),
+        "logp": rng.normal(size=n).astype(np.float32) * 0.1 - 0.7,
+        "advantages": rng.normal(size=n).astype(np.float32),
+        "returns": rng.normal(size=n).astype(np.float32),
+    }
+
+
+def traj_batch(n_envs=8, t=16, obs_dim=4, num_actions=2, seed=3):
+    """tests/test_learner_group.py's `_traj_batch`."""
+    rng = np.random.default_rng(seed)
+    return {
+        "obs": rng.normal(size=(t, n_envs, obs_dim)).astype(np.float32),
+        "actions": rng.integers(0, num_actions, (t, n_envs)).astype(np.int32),
+        "logp": (rng.normal(size=(t, n_envs)) * 0.1 - 0.7).astype(np.float32),
+        "rewards": rng.normal(size=(t, n_envs)).astype(np.float32),
+        "dones": (rng.random((t, n_envs)) < 0.05).astype(np.float32),
+        "last_value": rng.normal(size=n_envs).astype(np.float32),
+    }
+
+
+def dqn_batch(n=32):
+    """tests/test_learner_group.py's DQN batch."""
+    rng = np.random.default_rng(0)
+    return {
+        "obs": rng.normal(size=(n, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, n),
+        "rewards": rng.normal(size=n).astype(np.float32),
+        "next_obs": rng.normal(size=(n, 4)).astype(np.float32),
+        "dones": rng.integers(0, 2, n).astype(np.float32),
+    }
+
+
+def rl_mesh(outdir, rank, world):
+    from ray_tpu_torch.parallel import MeshConfig, make_virtual_mesh
+    from ray_tpu_torch.rllib.appo import APPOLearner
+    from ray_tpu_torch.rllib.dqn import DQNLearner
+    from ray_tpu_torch.rllib.impala import ImpalaLearner
+    from ray_tpu_torch.rllib.learner import LearnerGroup
+    from ray_tpu_torch.rllib.ppo import PPOLearner
+
+    mesh = make_virtual_mesh(world, MeshConfig(dp=world, fsdp=1, tp=1,
+                                               sp=1))
+    arrays, out = {}, {}
+
+    def keep(name, learner):
+        for k, v in learner.get_weights().items():
+            arrays[f"{name}/{k}"] = v
+
+    for name, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+        ppo = PPOLearner(4, 2, lr=1e-3, seed=7, device="cpu", **kw)
+        out[f"ppo_{name}"] = float(ppo.update(ppo_batch(64))["total_loss"])
+        keep(f"ppo_{name}", ppo)
+        dqn = DQNLearner(4, 2, lr=1e-3, gamma=0.99, device="cpu", **kw)
+        loss1, td = dqn.update_batch(dqn_batch())
+        dqn.sync_target()
+        loss2, _ = dqn.update_batch(dqn_batch())
+        out[f"dqn_{name}"] = [loss1, loss2]
+        arrays[f"dqn_{name}_td"] = td
+        keep(f"dqn_{name}", dqn)
+        for cls in (ImpalaLearner, APPOLearner):
+            args = (4, 2, 1e-3, 0.99) + ((0.2,) if cls is APPOLearner
+                                         else ()) + (0.5, 0.01)
+            vt = cls(*args, seed=5, device="cpu", **kw)
+            tag = f"{cls.__name__}_{name}"
+            out[tag] = vt.update_batch(traj_batch())["total_loss"]
+            keep(tag, vt)
+    group = LearnerGroup(PPOLearner, {"obs_dim": 4, "num_actions": 2,
+                                      "lr": 1e-3, "device": "cpu"},
+                         backend="mesh", mesh=mesh)
+    out["group"] = group.update(ppo_batch(64))["total_loss"]
+    w = group.get_weights()
+    group.set_weights(w)
+    out["group_roundtrip"] = all(
+        np.array_equal(w[k], v) for k, v in group.get_weights().items())
+    _write(outdir, rank, arrays, out)
+
+
 if __name__ == "__main__":
     task, outdir, rank, world, port, *rest = sys.argv[1:]
     rank, world = int(rank), int(world)
@@ -644,7 +737,8 @@ if __name__ == "__main__":
         {"steps": steps, "ckpt": ckpt, "budget": budget, "sp_ops": sp_ops,
          "tp_blocks": tp_blocks, "vocab": vocab, "reshard_tp": reshard_tp,
          "moe_units": moe_units, "pp": pp,
-         "ckpt_pp": ckpt_pp}[task](outdir, rank, world, *rest)
+         "ckpt_pp": ckpt_pp, "rl_mesh": rl_mesh}[task](outdir, rank, world,
+                                                        *rest)
     finally:
         from ray_tpu_torch.parallel import shutdown_group
 
