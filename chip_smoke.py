@@ -397,6 +397,29 @@ Phases (any failure exits non-zero and prints no result line):
      launches on the path ("rllib learner (phase 23)" in
      `launches_by_path`, 0 for every kernel). Each part's seconds are
      logged beside the card's name and power limit.
+ 24. (beside 22 and 23; in a fresh interpreter, `python3 chip_smoke.py
+     --rllib-families`, its log printed when it ends) rllib's families on
+     a runtime of its own: (a) SAC at the reference's defaults on Pendulum
+     (hidden 256-256, 256 rows, 8 updates a step from 256 transitions), 5
+     iterations with its learner on the card: a direct run (the
+     algorithm's worker class in this process, the same seeds, a
+     `SACLearner` on the card drawing its noise from its generator there)
+     bit for bit in stats and params; params, Adam state and the target
+     critics on cuda:0; ms a learner update (synchronized); (b) TD3's save
+     and restore (the reference's DDPG scenario): the restored weights
+     equal, its next iteration a fresh TD3 from the checkpoint's weights
+     bit for bit; (c) Ape-X DQN and Ape-X DDPG (2 workers, replay actors on
+     the CPU), 2 iterations each: the last loss, every other stat and the
+     weights finite, the learner on cuda:0; (d) BC, MARWIL, CQL and CRR,
+     2 iterations each from 10 CartPole episodes in a `Datastream`, and BC
+     from a parquet round trip where pyarrow imports (which ran is logged);
+     (e) DT, QMIX, MADDPG and R2D2, 2-3 iterations each: finite, their nets
+     on cuda:0;
+     (f) DD-PPO with 2 ranks sharing cuda:0 (num_gpus=0.5 each, the
+     card's whole grant held): their weights equal after a step;
+     (g) ES, ARS, LinUCB and LinTS, one iteration each on the host. No
+     kernel launches on the path ("rllib families (phase 24)" in
+     `launches_by_path`, 0 for every kernel).
 
 Imports torch and the port only (never jax, never ray_tpu).
 """
@@ -6099,11 +6122,24 @@ def _all_kernels() -> tuple:
             *aw.KERNELS, *rms.KERNELS, *xent.KERNELS)
 
 
-def _rl_weights_equal(a: dict, b: dict) -> bool:
+def _rl_flat(tree, prefix="") -> dict:
+    """Nested dicts/lists of arrays as {"a/0/b": array}."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
+            out.update(_rl_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _rl_trees_equal(a, b) -> bool:
     import numpy as np
 
-    return sorted(a) == sorted(b) and all(
-        np.array_equal(a[k], b[k]) for k in a)
+    a, b = _rl_flat(a), _rl_flat(b)
+    return sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                          for k in a)
 
 
 def _rl_direct_ppo(cfg, iters: int, start=None) -> tuple:
@@ -6278,10 +6314,10 @@ def rllib_phase(card: str, seed: int) -> dict:
             f"update (256 rows, synchronized; float stats read each "
             f"minibatch) [{card}]")
         if not all(_rl_same(a, b) for a, b in zip(stats, direct)) \
-                or not _rl_weights_equal(w4, dw):
+                or not _rl_trees_equal(w4, dw):
             bad.append(f"(a) PPO's 4 iterations {stats} against the direct "
                        f"run's {direct} (weights equal: "
-                       f"{_rl_weights_equal(w4, dw)})")
+                       f"{_rl_trees_equal(w4, dw)})")
         part("ppo_direct", t)
         t = time.perf_counter()
         restored = ppo_cfg().build()
@@ -6292,7 +6328,7 @@ def rllib_phase(card: str, seed: int) -> dict:
         want, want_w, _ = _rl_direct_ppo(ppo_cfg(), 1,
                                          start=ckpt.to_dict()["weights"])
         if r4.pop("training_iteration") != 4 or not _rl_same(r4, want[0]) \
-                or not _rl_weights_equal(rw4, want_w):
+                or not _rl_trees_equal(rw4, want_w):
             bad.append(f"(a) the restored 4th iteration {r4} against a "
                        f"fresh PPO from the checkpoint's weights {want[0]}")
         gap = max(float(np.abs(rw4[k] - w4[k]).max()) for k in w4)
@@ -6321,7 +6357,7 @@ def rllib_phase(card: str, seed: int) -> dict:
             shutdown_group()
         m1.pop("training_iteration")
         if world != 1 or backend != "nccl" or not _rl_same(m1, stats[0]) \
-                or not _rl_weights_equal(mw, w1):
+                or not _rl_trees_equal(mw, w1):
             bad.append(f"(b) the mesh group ({backend} world {world}) "
                        f"{m1}, the local learner's {stats[0]}")
         part("mesh_group", t)
@@ -6342,7 +6378,7 @@ def rllib_phase(card: str, seed: int) -> dict:
         log(f"rllib: (c) the learner actor on {grant['device']} (grant "
             f"{grant['gpu_ids']}), params max |diff| {c_gap:.3e} from the "
             f"local learner's first iteration (bit for bit: "
-            f"{_rl_weights_equal(cw, w1)}), total_loss {c1['total_loss']} "
+            f"{_rl_trees_equal(cw, w1)}), total_loss {c1['total_loss']} "
             f"vs {stats[0]['total_loss']}")
         part("actor_group", t)
 
@@ -6360,7 +6396,7 @@ def rllib_phase(card: str, seed: int) -> dict:
         ddir, ddw = _rl_direct_dqn(dcfg, 2)
         if on != {"cuda:0"} or not all(
                 _rl_same(a, b) for a, b in zip(dstats, ddir)) \
-                or not _rl_weights_equal(dwts, ddw):
+                or not _rl_trees_equal(dwts, ddw):
             bad.append(f"(d) DQN {dstats} on {on}, direct {ddir}")
         log(f"rllib: (d) DQN losses {[m['loss'] for m in dstats]}, buffer "
             f"{dstats[-1]['buffer_size']}: the direct run's bit for bit")
@@ -6412,18 +6448,19 @@ def rllib_phase(card: str, seed: int) -> dict:
     return out
 
 
-def start_rllib_phase(seed: int):
-    """Phase 23 in a fresh interpreter (a runtime of its own), started
-    beside phase 22: its learners are 64-64 MLPs that take the card for a
-    few ms an update, so the two share it at little cost, and alone it
-    would take 60-90 s of the 1200 s budget. Its output goes to
-    RLLIB_LOG."""
+def start_rllib_phase(seed: int, flag: str = "--rllib",
+                      log_path: Path = RLLIB_LOG):
+    """Phase 23 (or, with `flag` "--rllib-families", 24) in a fresh
+    interpreter (a runtime of its own), started beside phase 22: its
+    learners are small MLPs that take the card for a few ms an update, so
+    they share it at little cost, and alone each would take 60-90 s of the
+    1200 s budget. Its output goes to `log_path`."""
     import atexit
 
-    RLLIB_LOG.parent.mkdir(parents=True, exist_ok=True)
-    out = open(RLLIB_LOG, "w")
+    log_path.parent.mkdir(parents=True, exist_ok=True)
+    out = open(log_path, "w")
     proc = subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"),
-                             "--rllib", "--seed", str(seed)],
+                             flag, "--seed", str(seed)],
                             stdout=out, stderr=subprocess.STDOUT)
     out.close()
 
@@ -6440,9 +6477,11 @@ def start_rllib_phase(seed: int):
     return proc, time.perf_counter()
 
 
-def finish_rllib_phase(card: str, started) -> dict:
-    """Wait for phase 23, print its log and return its result (each
-    part's seconds, the kernels' launches on its path)."""
+def finish_rllib_phase(card: str, started, log_path: Path = RLLIB_LOG,
+                       result_dir: Path = RLLIB_DIR,
+                       label: str = "rllib") -> dict:
+    """Wait for phase 23 (or 24), print its log and return its result
+    (each part's seconds, the kernels' launches on its path)."""
     proc, t0 = started
     try:
         rc = proc.wait(timeout=max(1.0, 500 - (time.perf_counter() - t0)))
@@ -6450,13 +6489,359 @@ def finish_rllib_phase(card: str, started) -> dict:
         proc.kill()
         proc.wait()
         rc = "killed at 500 s"
-    for line in RLLIB_LOG.read_text(errors="replace").splitlines():
+    for line in log_path.read_text(errors="replace").splitlines():
         log(line)
-    log(f"rllib: the phase ran beside phase 22, which ended "
+    log(f"{label}: the phase ran beside phase 22, which ended "
         f"{time.perf_counter() - t0:.1f} s after it started [{card}]")
     if rc != 0:
-        fail(f"rllib phase exited {rc}")
-    return json.loads((RLLIB_DIR / "result.json").read_text())
+        fail(f"{label} phase exited {rc}")
+    return json.loads((result_dir / "result.json").read_text())
+
+FAMILIES_DIR = HERE / "build" / "phase24"
+FAMILIES_LOG = HERE / "build" / "phase24.log"
+# (a): SAC at the reference's defaults takes its first updates at
+# iteration 4 (one worker's 64 steps an iteration, 256 to learn from)
+SAC_ITERS = 5
+CONTINUOUS_KEYS = ("obs", "actions", "rewards", "next_obs", "dones")
+
+
+def _rl_on_card(*trees) -> set:
+    """The devices of every tensor in nested dicts/tuples (params, Adam
+    state, targets)."""
+    import torch
+
+    return {str(v.device) for t in trees if t is not None
+            for v in _rl_flat(t).values() if isinstance(v, torch.Tensor)}
+
+
+def _rl_direct_continuous(cfg, iters: int, learner, worker_cls,
+                          start=None) -> tuple:
+    """SAC's or DDPG's training_step `iters` times in this process: the
+    algorithm's workers' class in the driver (the same seeds), `learner`
+    on the card (`start` its weights if given, as `restore` sets them).
+    Returns ([stats], weights, ms a learner update, synchronized, the
+    updates' count)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib.replay_buffers import ReplayBuffer
+
+    if start is not None:
+        learner.set_weights(start)
+    buf = ReplayBuffer(cfg.buffer_size, seed=cfg.seed)
+    extra = ((cfg.exploration_noise,) if hasattr(cfg, "exploration_noise")
+             else ())
+    workers = [worker_cls._cls(cfg.env_maker, cfg.num_envs_per_worker,
+                               cfg.seed + 1000 * (i + 1), cfg.obs_dim,
+                               cfg.action_dim, cfg.max_action, *extra)
+               for i in range(cfg.num_rollout_workers)]
+    for wk in workers:
+        wk.set_weights(learner.get_weights()["actor"])
+    out, history, total, upd_s, n_upd = [], [], 0, 0.0, 0
+    for _ in range(iters):
+        random_phase = total < cfg.learning_starts
+        for s in [wk.sample(cfg.rollout_fragment_length, random_phase)
+                  for wk in workers]:
+            buf.add_batch({k: s[k] for k in CONTINUOUS_KEYS})
+            total += int(s["actions"].shape[0])
+            history.extend(s["episode_returns"].tolist())
+        history = history[-100:]
+        stats = {}
+        if len(buf) >= cfg.train_batch_size:
+            for _ in range(cfg.num_updates_per_step):
+                mb = buf.sample(cfg.train_batch_size)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                stats = learner.update_batch({k: mb[k]
+                                              for k in CONTINUOUS_KEYS})
+                torch.cuda.synchronize()
+                upd_s += time.perf_counter() - t
+                n_upd += 1
+            for wk in workers:
+                wk.set_weights(learner.get_weights()["actor"])
+        out.append({"episode_reward_mean": (float(np.mean(history))
+                                            if history else 0.0),
+                    "num_env_steps_sampled": total, **stats})
+    return out, learner.get_weights(), (1e3 * upd_s / n_upd if n_upd
+                                        else float("nan")), n_upd
+
+
+def _rl_finite(stats: dict) -> bool:
+    return all(math.isfinite(v) for v in stats.values()
+               if isinstance(v, float))
+
+
+def families_phase(card: str, seed: int) -> dict:
+    """Phase 24 (in a process of its own, `chip_smoke.py
+    --rllib-families`): rllib's off-policy, distributed, offline, bandit,
+    multi-agent and recurrent families on the port's runtime, their
+    learners on the card (DD-PPO's two ranks sharing it, ES, ARS and the
+    bandits on the host). Returns each part's seconds and the kernels'
+    launches (none)."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.ddpg import DDPGLearner, NoisyActorWorker
+    from ray_tpu_torch.rllib.sac import ContinuousSampleWorker, SACLearner
+
+    t_phase = time.perf_counter()
+    seconds, bad = {}, []
+    shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
+    FAMILIES_DIR.mkdir(parents=True)
+    kernels = _all_kernels()
+    for k in kernels:   # the main path's counts start here
+        k.launches = 0
+
+    def part(name, t):
+        seconds[name] = round(time.perf_counter() - t, 2)
+        log(f"families: ({name}) {seconds[name]} s [{card}]")
+
+    def seeded(cfg):
+        cfg.seed = seed
+        return cfg
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            bad.append(what)
+
+    t = time.perf_counter()
+    rt.init(num_cpus=8, resources={"GPU": 1})
+    seconds["init"] = round(time.perf_counter() - t, 2)
+    try:
+        # (a) SAC at the reference's defaults on Pendulum, its learner on
+        # the card, against a direct run
+        t = time.perf_counter()
+        algo = seeded(rllib.SACConfig()).build()
+        stats = [algo.train() for _ in range(SAC_ITERS)]
+        weights = algo.get_weights()
+        lrn = algo.learner
+        where = _rl_on_card(lrn.params, lrn.opt_state, lrn.extra)
+        algo.stop()
+        for m in stats:
+            m.pop("training_iteration")
+        cfg = seeded(rllib.SACConfig())
+        direct, dw, sac_ms, sac_upd = _rl_direct_continuous(
+            cfg, SAC_ITERS, SACLearner(
+                cfg.obs_dim, cfg.action_dim, cfg.max_action, cfg.lr,
+                cfg.gamma, cfg.tau, -float(cfg.action_dim), cfg.seed,
+                device="cuda"), ContinuousSampleWorker)
+        check(where == {"cuda:0"}, f"(a) SAC's params, Adam state and "
+                                   f"targets on {where}")
+        check("critic_loss" in stats[-1] and _rl_finite(stats[-1]),
+              f"(a) SAC learned nothing: {stats[-1]}")
+        check(all(_rl_same(a, b) for a, b in zip(stats, direct))
+              and _rl_trees_equal(weights, dw),
+              f"(a) SAC's {SAC_ITERS} iterations {stats} against the "
+              f"direct run's {direct}")
+        log(f"rllib families: (a) SAC on Pendulum: iterations "
+            f"{SAC_ITERS}, updates {sac_upd} of "
+            f"{cfg.train_batch_size} rows, last {json.dumps(stats[-1])}; "
+            f"the direct run's bit for bit; a learner update {sac_ms:.3f} "
+            f"ms (256 rows, hidden 256-256, synchronized, its 6 stats read "
+            f"back) [{card}]")
+        seconds["sac_update_ms"] = round(sac_ms, 3)
+        part("sac", t)
+
+        # (b) TD3's save and restore (the reference's DDPG scenario)
+        t = time.perf_counter()
+
+        def td3_cfg():
+            return seeded(rllib.TD3Config()).rollouts(
+                rollout_fragment_length=32).training(
+                learning_starts=16, train_batch_size=16,
+                num_updates_per_step=1)
+
+        algo = td3_cfg().build()
+        algo.train()
+        ckpt = algo.save()
+        w1 = algo.get_weights()
+        algo.stop()
+        algo2 = td3_cfg().build()
+        algo2.restore(ckpt)
+        check(_rl_trees_equal(algo2.get_weights(), w1),
+              "(b) TD3's restored weights")
+        r2 = algo2.train()
+        rw = algo2.get_weights()
+        on = _rl_on_card(algo2.learner.params, algo2.learner.extra)
+        algo2.stop()
+        check(r2.pop("training_iteration") == 2, "(b) the restored iteration")
+        cfg = td3_cfg()
+        want, want_w, td3_ms, _ = _rl_direct_continuous(
+            cfg, 1, DDPGLearner(
+                cfg.obs_dim, cfg.action_dim, cfg.max_action, cfg.actor_lr,
+                cfg.critic_lr, cfg.gamma, cfg.tau, cfg.twin_q,
+                cfg.smooth_target_policy, cfg.target_noise,
+                cfg.target_noise_clip, cfg.seed,
+                policy_delay=cfg.policy_delay, device="cuda"),
+            NoisyActorWorker, start=ckpt.to_dict()["weights"])
+        check(on == {"cuda:0"} and _rl_same(r2, want[0])
+              and _rl_trees_equal(rw, want_w),
+              f"(b) the restored TD3's iteration {r2} on {on} against a "
+              f"fresh one from the checkpoint's weights {want[0]}")
+        log(f"rllib families: (b) TD3 restored: {json.dumps(r2)}, a fresh "
+            f"TD3 from the checkpoint's weights bit for bit; a learner "
+            f"update {td3_ms:.3f} ms (16 rows) [{card}]")
+        part("td3_restore", t)
+
+        # (c) Ape-X DQN and Ape-X DDPG: replay actors and workers on the
+        # CPU, the learner on the card
+        t = time.perf_counter()
+        for name, cfg in (
+                ("ApexDQN", rllib.ApexDQNConfig().rollouts(
+                    num_rollout_workers=2).training(learning_starts=64)),
+                ("ApexDDPG", rllib.ApexDDPGConfig().rollouts(
+                    num_rollout_workers=2, rollout_fragment_length=64)
+                 .training(learning_starts=128, train_batch_size=64))):
+            algo = seeded(cfg).build()
+            got = [algo.train() for _ in range(2)]
+            on = _rl_on_card(algo.learner.params)
+            weights = algo.get_weights()
+            algo.stop()
+            # the first iteration's loss is NaN where it took no update
+            check(on == {"cuda:0"} and all(_rl_finite(
+                {k: v for k, v in m.items() if k != "loss"}) for m in got)
+                and math.isfinite(got[-1]["loss"]),
+                f"(c) {name}: {got} on {on}")
+            check(all(np.isfinite(v).all()
+                      for v in _rl_flat(weights).values()),
+                  f"(c) {name}'s weights are not finite")
+            log(f"rllib families: (c) {name}: losses "
+                f"{[m['loss'] for m in got]}, buffer "
+                f"{got[-1]['buffer_size']} on {sorted(on)}")
+        part("apex", t)
+
+        # (d) the offline learners from CartPole episodes: a Datastream,
+        # and parquet where pyarrow imports
+        t = time.perf_counter()
+        ds = rllib.collect_episodes(
+            lambda s: rllib.CartPoleEnv(s),
+            lambda obs, rng: int(obs[2] + 0.5 * obs[3] > 0), 10, seed=seed)
+        stream = rdata.from_numpy(ds, parallelism=2)
+        for name in ("BCConfig", "MARWILConfig", "CQLConfig", "CRRConfig"):
+            algo = seeded(getattr(rllib, name)()).offline_data(
+                stream).build()
+            got = [algo.train() for _ in range(2)]
+            on = _rl_on_card(algo.learner.params, algo.learner.extra)
+            check(on == {"cuda:0"} and all(map(_rl_finite, got))
+                  and got[-1]["num_samples_trained"] == len(ds["obs"]),
+                  f"(d) {name[:-6]}: {got} on {on}")
+            log(f"rllib families: (d) {name[:-6]} from a Datastream of "
+                f"{len(ds['obs'])} transitions: {json.dumps(got[-1])}")
+        try:
+            import pyarrow  # noqa: F401
+        except ImportError:
+            log("rllib families: (d) no pyarrow on this host: the parquet "
+                "round trip did not run (the Datastream path did)")
+        else:
+            paths = rllib.write_experiences(ds, str(FAMILIES_DIR / "exp"),
+                                            num_shards=2)
+            back = rllib.read_experiences(str(FAMILIES_DIR / "exp"))
+            algo = seeded(rllib.BCConfig()).offline_data(
+                input_path=str(FAMILIES_DIR / "exp")).build()
+            got = algo.train()
+            check(len(paths) == 2 and all(
+                np.array_equal(np.sort(back[k], axis=0),
+                               np.sort(ds[k], axis=0)) for k in ds)
+                and _rl_finite(got),
+                f"(d) the parquet round trip: {len(paths)} shards, {got}")
+            log(f"rllib families: (d) parquet: {len(paths)} shards back "
+                f"equal, BC from them {json.dumps(got)}")
+        part("offline", t)
+
+        # (e) DT, QMIX, MADDPG and R2D2, their nets on the card
+        t = time.perf_counter()
+        for name, cfg, iters in (
+                ("DT", rllib.DTConfig().offline_data(ds).training(
+                    updates_per_iter=20), 2),
+                ("QMix", rllib.QMixConfig(), 3),
+                ("MADDPG", rllib.MADDPGConfig().training(
+                    updates_per_iter=20), 3),
+                ("R2D2", rllib.R2D2Config(), 3)):
+            algo = seeded(cfg).build()
+            got = [algo.train() for _ in range(iters)]
+            if name == "R2D2":
+                nets = (algo.learner.params, algo.learner.extra)
+            elif name == "MADDPG":
+                nets = (algo.actors, algo.critics, algo.t_actors,
+                        algo.t_critics)
+            else:
+                nets = (algo.params, algo.opt_state.mu)
+            on = _rl_on_card(*nets)
+            check(on == {"cuda:0"} and _rl_finite(got[-1]),
+                  f"(e) {name}: {got} on {on}")
+            check(all(np.isfinite(v).all()
+                      for v in _rl_flat(algo.get_weights()).values()),
+                  f"(e) {name}'s weights are not finite")
+            log(f"rllib families: (e) {name}: {json.dumps(got[-1])} on "
+                f"{sorted(on)}")
+        part("dt_qmix_maddpg_r2d2", t)
+
+        # (f) DD-PPO: two ranks sharing the card (num_gpus=0.5 each),
+        # gradients averaged on the host
+        t = time.perf_counter()
+        algo = seeded(rllib.DDPPOConfig()).rollouts(
+            num_workers=2, num_envs_per_worker=2,
+            rollout_fragment_length=16).training(
+            num_sgd_iter=1, sgd_minibatch_size=32).build()
+        got = algo.train()
+        w0 = algo.get_weights()
+        w1 = rt.get(algo.workers[1].get_weights.remote())
+        devs = rt.get([w.device_of.remote() for w in algo.workers])
+        # the GCS's view trails the raylet's by up to 100 ms
+        deadline = time.monotonic() + 5.0
+        left = rt.available_resources().get("GPU", 0.0)
+        while left != 0.0 and time.monotonic() < deadline:
+            time.sleep(0.05)
+            left = rt.available_resources().get("GPU", 0.0)
+        algo.stop()
+        _runtime_wait_gpu(rt)
+        check(_rl_trees_equal(w0, w1) and devs == ["cuda:0", "cuda:0"]
+              and left == 0.0 and got["num_env_steps_sampled"] == 64,
+              f"(f) DD-PPO's ranks on {devs} (GPU left {left}): weights "
+              f"equal {_rl_trees_equal(w0, w1)}, {got}")
+        log(f"rllib families: (f) DD-PPO: ranks on {devs} holding the "
+            f"card's grant (GPU left {left}), weights equal after a step, "
+            f"{json.dumps(got)}")
+        part("ddppo", t)
+
+        # (g) ES, ARS and the bandits on the host
+        t = time.perf_counter()
+        env = rllib.LinearBanditEnv(num_arms=4, context_dim=6, noise=0.05,
+                                    seed=seed)
+        for name, algo in (
+                ("ES", rllib.ESConfig().training(
+                    num_workers=2, episodes_per_batch=8,
+                    max_episode_steps=200, seed=seed).build()),
+                ("ARS", rllib.ARSConfig().training(
+                    num_workers=2, num_directions=8, top_directions=4,
+                    max_episode_steps=100, seed=seed).build()),
+                ("LinUCB", rllib.BanditLinUCB(
+                    {"env": env, "alpha": 1.0, "batch_size": 64})),
+                ("LinTS", rllib.BanditLinTS(
+                    {"env": env, "alpha": 0.3, "batch_size": 64}))):
+            got = algo.train()
+            algo.stop()
+            check(_rl_finite(got), f"(g) {name}: {got}")
+            log(f"rllib families: (g) {name}: {json.dumps(got)}")
+        part("host", t)
+    finally:
+        rt.shutdown()
+    counts = {k.__name__: k.launches for k in kernels}
+    if any(counts.values()):
+        bad.append(f"kernels launched on the families' path: {counts}")
+    if bad:
+        fail(f"rllib families: {bad}")
+    seconds["phase"] = round(time.perf_counter() - t_phase, 2)
+    log(f"rllib families: phase {seconds['phase']} s, parts "
+        f"{json.dumps(seconds)} [{card}]")
+    out = {"seconds": seconds,
+           "launches": {"rllib families (phase 24)": counts}}
+    (FAMILIES_DIR / "result.json").write_text(json.dumps(out))
+    return out
+
 
 
 def main() -> int:
@@ -6489,6 +6874,10 @@ def main() -> int:
     ap.add_argument("--rllib", action="store_true",
                     help="run only phase 23 (chip_smoke starts it this way "
                          "beside phase 22, in a process of its own)")
+    ap.add_argument("--rllib-families", action="store_true",
+                    help="run only phase 24 (chip_smoke starts it this way "
+                         "beside phases 22 and 23, in a process of its "
+                         "own)")
     args = ap.parse_args()
     if args.drop_stream and not args.libraries:
         ap.error("--drop-stream goes with --libraries")
@@ -6518,6 +6907,10 @@ def main() -> int:
     if args.rllib:
         sys.path.insert(0, str(HERE))
         rllib_phase(smi_line(), args.seed)
+        return 0
+    if args.rllib_families:
+        sys.path.insert(0, str(HERE))
+        families_phase(smi_line(), args.seed)
         return 0
     t_start = time.perf_counter()
     t_lap = [t_start]
@@ -6794,6 +7187,11 @@ def main() -> int:
     # its learner on the card (a restore, both learner-group backends),
     # DQN, IMPALA, APPO, A3C, the rllib CLI; no kernel on the path
     rl_started = start_rllib_phase(args.seed)
+    # ---- phase 24, beside them: rllib's families: SAC, TD3's restore,
+    # Ape-X, the offline learners, DT, QMIX, MADDPG, R2D2 with their nets
+    # on the card; DD-PPO's two ranks on it; ES, ARS, the bandits; no kernel
+    fam_started = start_rllib_phase(args.seed, "--rllib-families",
+                                    FAMILIES_LOG)
     # ---- phase 22: the Train library: a DataParallelTrainer training on
     # the card across a failure, a BatchPredictor on its checkpoint, a
     # TorchTrainer on NCCL
@@ -6802,6 +7200,10 @@ def main() -> int:
     lap("phase 22")
     rl = finish_rllib_phase(card, rl_started)
     lap("phase 23 (the wait for it)")
+    families = finish_rllib_phase(card, fam_started, FAMILIES_LOG,
+                                  FAMILIES_DIR, "rllib families")
+    rl["launches"].update(families["launches"])
+    lap("phase 24 (the wait for it)")
     # ---- phase 16: report
     pallas = "ray_tpu/ops/pallas/"
     replaces = {"quantize_int8": pallas + "quant.py:19",
@@ -6902,11 +7304,11 @@ def main() -> int:
             kernels[-1]["launches_by_path"] = {
                 "ContinuousBatchingEngine w8a16 (phase 4)": launches[kname],
                 **runtime_launches[kname]}
-        # no kernel lies on rllib's path: every row says so (phase 23
-        # fails on any launch there)
-        rl_path, rl_counts = next(iter(rl["launches"].items()))
-        kernels[-1].setdefault("launches_by_path", {})[rl_path] = \
-            rl_counts.get(kname.split("_f32")[0].split("_wide")[0], 0)
+        # no kernel lies on rllib's paths: every row says so (phases 23
+        # and 24 fail on any launch there)
+        for rl_path, rl_counts in rl["launches"].items():
+            kernels[-1].setdefault("launches_by_path", {})[rl_path] = \
+                rl_counts.get(kname.split("_f32")[0].split("_wide")[0], 0)
         if kname in f32_launches:
             kernels[-1]["launches_per_step"] = (f32_launches[kname]
                                                 / F32_TINY_STEPS)

@@ -1610,6 +1610,82 @@ def ppo_learner(r: Rank) -> Dict[str, Any]:
            f"{td_rel:.2e} from one card's")
     _check(got["devices"] == [str(r.dev)],
            f"ppo learner: params on {got['devices']}, not {r.dev}")
+    out["continuous"] = continuous_learners(r, mesh)
+    return out
+
+
+def continuous_learners(r: Rank, mesh) -> Dict[str, Any]:
+    """(m)'s continuous family: DDPG's learner (twin critics, the actor
+    delayed by 2, polyak targets) and SAC's (its standard normals drawn
+    from the learner's generator on the card: each rank draws the whole
+    batch's and keeps its rows) on the dp mesh, 3 updates of a
+    Pendulum-shaped batch, each against rank 0's card alone: losses
+    within PPO_LOSS_RTOL, params and targets within PPO_PARAMS_ATOL."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.ddpg import DDPGLearner
+    from ray_tpu_torch.rllib.sac import SACLearner
+
+    rng = np.random.default_rng(1)
+    n = 16 * r.world
+    batch = {"obs": rng.normal(size=(n, 3)).astype(np.float32),
+             "actions": rng.uniform(-1, 1, (n, 1)).astype(np.float32),
+             "rewards": rng.normal(size=n).astype(np.float32),
+             "next_obs": rng.normal(size=(n, 3)).astype(np.float32),
+             "dones": np.zeros(n, np.float32)}
+    makers = {
+        "ddpg": lambda **kw: DDPGLearner(
+            3, 1, 1.0, actor_lr=1e-3, critic_lr=1e-3, gamma=0.99, tau=0.05,
+            twin_q=True, smooth_target_policy=False, target_noise=0.0,
+            target_noise_clip=0.0, seed=2, policy_delay=2,
+            device=r.dev.type, **kw),
+        "sac": lambda **kw: SACLearner(
+            3, 1, 1.0, lr=3e-4, gamma=0.99, tau=0.05, target_entropy=-1.0,
+            seed=4, device=r.dev.type, **kw)}
+
+    def run(name, **kw):
+        learner = makers[name](**kw)
+        losses = [learner.update_batch(batch)["total_loss"]
+                  for _ in range(3)]
+        flat = {f"{k}/{n}": v for k, tree in learner.get_weights().items()
+                for n, v in (tree.items() if isinstance(tree, dict)
+                             else [("", tree)])}
+        flat.update({f"target/{k}/{n}": v.cpu().numpy()
+                     for k, tree in learner.extra.items()
+                     for n, v in tree.items()})
+        on = {str(t.device) for tree in learner.params.values()
+              for t in (tree.values() if isinstance(tree, dict) else [tree])}
+        return {"losses": losses, "params": flat, "devices": sorted(on)}
+
+    out = {}
+    for name in makers:     # both learners' figures first, then the checks
+        one = r.from_rank0(run(name) if r.rank == 0 else None)
+        got = run(name, mesh=mesh)
+        loss_rel = max(_rel(a, b) for a, b in zip(got["losses"],
+                                                  one["losses"]))
+        diffs = {k: float(np.abs(got["params"][k] - one["params"][k]).max())
+                 for k in one["params"]}
+        worst = max(diffs, key=diffs.get)
+        out[name] = {"batch_rows": n, "updates": 3,
+                     "losses": got["losses"],
+                     "one_card_losses": one["losses"],
+                     "loss_max_rel": loss_rel,
+                     "params_max_abs": diffs[worst],
+                     "params_max_abs_at": worst,
+                     "devices": got["devices"]}
+        r.log(f"{name} learner: " + json.dumps(out[name]))
+    for name, o in out.items():
+        _check(all(math.isfinite(v) for v in o["losses"])
+               and o["loss_max_rel"] <= PPO_LOSS_RTOL,
+               f"{name} learner: total_loss {o['losses']} against one "
+               f"card's {o['one_card_losses']} (rel "
+               f"{o['loss_max_rel']:.2e} > {PPO_LOSS_RTOL})")
+        _check(o["params_max_abs"] <= PPO_PARAMS_ATOL,
+               f"{name} learner: params {o['params_max_abs']:.2e} from one "
+               f"card's after 3 updates, at {o['params_max_abs_at']} "
+               f"(> {PPO_PARAMS_ATOL})")
+        _check(o["devices"] == [str(r.dev)],
+               f"{name} learner: params on {o['devices']}, not {r.dev}")
     return out
 
 

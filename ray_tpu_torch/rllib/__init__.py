@@ -1,9 +1,14 @@
 """RLlib on the port (the port of ray_tpu/rllib/): environments,
 connectors, replay buffers, RLModules, the Learner stack with its
-optimizer transforms (`optim`), and the on-policy and DQN-family
-algorithms. Learners run on the card unless asked for the CPU
-(`device="cpu"`); rollout workers act in numpy on the CPU. The other
-algorithms of the reference are not ported yet (ROADMAP.md, A.9.2)."""
+optimizer transforms (`optim`), the on-policy and DQN-family algorithms,
+and the evolutionary (ES, ARS), continuous-control (SAC, DDPG, TD3,
+Ape-X), decentralized (DD-PPO), offline (BC, MARWIL, CQL, CRR, the
+Decision Transformer), bandit, multi-agent (QMIX, MADDPG) and recurrent
+(R2D2) families. Learners run on the card unless asked for the CPU
+(`device="cpu"`), DD-PPO's ranks sharing it; rollout workers, replay
+actors and environments stay in numpy on the CPU.
+Still to come (ROADMAP.md, A.9.2): alpha_zero, slateq, maml, dreamer,
+fleet and trainstorm."""
 
 from ray_tpu_torch.rllib.env import (
     CartPoleEnv, ContinuousVectorEnv, PendulumEnv, VectorEnv)
@@ -25,5 +30,23 @@ from ray_tpu_torch.rllib.dqn import DQN, DQNConfig
 from ray_tpu_torch.rllib.simple_q import SimpleQ, SimpleQConfig
 from ray_tpu_torch.rllib.random_agent import RandomAgent, RandomAgentConfig
 from ray_tpu_torch.rllib.impala import IMPALA, ImpalaConfig
+from ray_tpu_torch.rllib.es import ES, ESConfig
+from ray_tpu_torch.rllib.ars import ARS, ARSConfig
+from ray_tpu_torch.rllib.apex import (ApexDDPG, ApexDDPGConfig, ApexDQN,
+                                      ApexDQNConfig)
+from ray_tpu_torch.rllib.sac import SAC, SACConfig
+from ray_tpu_torch.rllib.ddpg import DDPG, DDPGConfig, TD3, TD3Config
+from ray_tpu_torch.rllib.offline import (
+    BC, BCConfig, CQL, CQLConfig, CRR, CRRConfig, MARWIL, MARWILConfig,
+    collect_episodes, read_experiences, write_experiences)
+from ray_tpu_torch.rllib.bandit import (BanditLinTS, BanditLinUCB,
+                                        LinearBanditEnv)
 from ray_tpu_torch.rllib.replay_buffers import (ReplayBuffer,
                                                 PrioritizedReplayBuffer)
+from ray_tpu_torch.rllib.multi_agent import (
+    MultiAgentEnv, QMix, QMixConfig, TwoStepCooperativeEnv,
+    policy_mapping_rollout)
+from ray_tpu_torch.rllib.r2d2 import MemoryCorridorEnv, R2D2, R2D2Config
+from ray_tpu_torch.rllib.ddppo import DDPPO, DDPPOConfig
+from ray_tpu_torch.rllib.dt import DT, DTConfig
+from ray_tpu_torch.rllib.maddpg import MADDPG, MADDPGConfig, SpreadEnv

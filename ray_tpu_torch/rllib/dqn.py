@@ -19,7 +19,7 @@ import ray_tpu_torch
 from ray_tpu_torch.rllib.algorithm import Algorithm
 from ray_tpu_torch.rllib.env import CartPoleEnv, VectorEnv
 from ray_tpu_torch.rllib.evaluation import EvalConfigMixin
-from ray_tpu_torch.rllib.learner import Learner
+from ray_tpu_torch.rllib.learner import Learner, clone_tree
 from ray_tpu_torch.rllib.replay_buffers import PrioritizedReplayBuffer, ReplayBuffer
 
 
@@ -124,13 +124,8 @@ class DQNLearner(Learner):
     def init_params(self, seed: int):
         return init_q_params(seed, self._obs_dim, self._num_actions)
 
-    def _frozen_copy(self):
-        """The online params cloned: the target never shares storage with
-        tensors an optimizer step may write."""
-        return {k: v.detach().clone() for k, v in self.params.items()}
-
     def make_extra(self):
-        return self._frozen_copy()
+        return clone_tree(self.params)
 
     def loss(self, params, batch, extra, rng):
         import torch
@@ -163,11 +158,11 @@ class DQNLearner(Learner):
                 aux["td"].detach().cpu().numpy())
 
     def sync_target(self) -> None:
-        self.extra = self._frozen_copy()
+        self.extra = clone_tree(self.params)
 
     def set_weights(self, weights):
         super().set_weights(weights)
-        self.extra = self._frozen_copy()
+        self.extra = clone_tree(self.params)
 
     # kept for callers that referenced the old attribute name
     @property

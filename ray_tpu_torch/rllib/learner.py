@@ -43,7 +43,8 @@ from ray_tpu_torch.rllib import optim
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Learner", "LearnerGroup", "broadcast_weights", "delayed"]
+__all__ = ["Learner", "LearnerGroup", "broadcast_weights", "clone_tree",
+           "delayed"]
 
 
 def broadcast_weights(weights, handles, method: str = "set_weights"):
@@ -122,6 +123,12 @@ def _to_host(tree):
     return optim.tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
+def clone_tree(tree):
+    """A copy of a params tree that no optimizer step writes: a target
+    network (the reference aliases its immutable arrays instead)."""
+    return optim.tree_map(lambda v: v.detach().clone(), tree)
+
+
 def host_scalars(aux: Dict[str, Any]) -> Dict[str, float]:
     """The 0-d entries of an aux dict as Python floats (the reference's
     `jax.device_get` then `np.ndim(v) == 0` filter)."""
@@ -143,8 +150,9 @@ class Learner:
                           else self.make_optimizer())
         self.params = _to_tensors(self.init_params(seed), self.device)
         self.opt_state = self.optimizer.init(self.params)
-        # the reference's PRNGKey(seed), split once an update; no loss of
-        # this package draws from it
+        # the reference's PRNGKey(seed), split once an update: SAC's
+        # reparameterized samples and TD3's target smoothing draw from it
+        # (`draw_normal`); the other losses ignore it
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(seed)
         self._dp, self._dp_rank, self._dp_group = self._dp_axis()
@@ -244,6 +252,20 @@ class Learner:
         parts = [torch.empty_like(t) for _ in range(self._dp)]
         dist.all_gather(parts, t.contiguous(), group=self._dp_group)
         return torch.cat(parts)
+
+    def draw_normal(self, rng, shape):
+        """A standard normal draw of `shape` ([rows, ...]) from `rng` on
+        the learner's device for this dp rank's rows: under a mesh every
+        rank draws the whole batch's rows (each rank's generator holds the
+        same seed) and keeps its own block, so the meshed update sees the
+        noise one device would, as the reference's one key under GSPMD."""
+        rows, *rest = shape
+        dp = self._dp if self.per_row_loss else 1
+        full = torch.randn((rows * dp, *rest), generator=rng,
+                           device=self.device)
+        if dp == 1:
+            return full
+        return full[self._dp_rank * rows:(self._dp_rank + 1) * rows]
 
     # -------------------------------------------------------------- update
     def _grads(self, batch):

@@ -3,7 +3,8 @@ tensors.
 
 The reference's learners build `optax.adam` and `optax.rmsprop` and compose
 them with `optax.multi_transform` (ray_tpu/rllib/learner.py:119,
-impala.py:123, learner.py:59-84). The card's host has no optax, so these
+impala.py:123, learner.py:59-84); its Decision Transformer trains with
+`optax.adamw` (dt.py:190). The card's host has no optax, so these
 are its transforms written out in torch, op for op as optax 0.2.6 computes
 them in float32:
 
@@ -12,6 +13,9 @@ them in float32:
   mu_hat = mu / (1 - b1^count), nu_hat = nu / (1 - b2^count) (the
   correction's power taken in float32, as optax takes it),
   u = mu_hat / (sqrt(nu_hat) + eps), then u·(-lr).
+- `adamw(lr, b1, b2, eps, weight_decay)`: optax's defaults and order —
+  `scale_by_adam`, then decoupled weight decay on every leaf (no mask),
+  u + weight_decay·p, then `scale(-lr)`.
 - `rmsprop(lr, decay, eps)`: optax's defaults (no centering, no momentum,
   no bias correction, `eps_in_sqrt=True`): nu = (1 - decay)·g² + decay·nu,
   u = g·rsqrt(nu + eps), then u·(-lr).
@@ -32,7 +36,8 @@ from typing import Any, Callable, Dict, NamedTuple, Union
 
 import torch
 
-__all__ = ["GradientTransformation", "adam", "rmsprop", "multi_transform",
+__all__ = ["GradientTransformation", "adam", "adamw", "rmsprop",
+           "multi_transform",
            "apply_updates", "tree_map", "tree_items", "tree_from_items"]
 
 
@@ -72,6 +77,15 @@ class ScaleByAdamState(NamedTuple):
 
 def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> GradientTransformation:
+    return adamw(learning_rate, b1, b2, eps, weight_decay=None)
+
+
+def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: Union[float, None] = 1e-4
+          ) -> GradientTransformation:
+    """optax.adamw (with `weight_decay=None`, optax.adam, which has no
+    decay step at all)."""
+
     def init(params):
         leaf = next((v for _, v in tree_items(params)), None)
         return ScaleByAdamState(
@@ -89,6 +103,9 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         updates = tree_map(
             lambda m, v: (m / c1.to(m.dtype))
             / (torch.sqrt(v / c2.to(v.dtype)) + eps), mu, nu)
+        if weight_decay is not None:
+            updates = tree_map(lambda u, p: u + weight_decay * p, updates,
+                               params)
         updates = tree_map(lambda u: u * -learning_rate, updates)
         return updates, ScaleByAdamState(count, mu, nu)
 

@@ -395,6 +395,8 @@ class RecurrentQModule(RLModule):
         for t in range(obs_seq.shape[1]):
             hc = self._cell(params, hc, obs_seq[:, t])
             hs.append(hc)
+        if not hs:   # T = 0 (R2D2 without burn-in): no tick, h0 back
+            return h0.new_zeros((h0.shape[0], 0, params["wq"].shape[1])), hc
         hs = torch.stack(hs, dim=1)                  # [B, T, h]
         return hs @ params["wq"] + params["bq"], hc
 

@@ -2388,3 +2388,50 @@ def test_ppo_learner_on_the_card_matches_its_cpu_run(cuda):
     for k in wp:
         np.testing.assert_allclose(wc[k], wp[k], rtol=0, atol=1e-6,
                                    err_msg=k)
+
+
+def test_sac_learner_on_the_card_updates_with_its_own_noise(cuda):
+    """A `SACLearner` at the reference's widths (256-256) on the card:
+    params, Adam state, the target critics and the generator on cuda:0;
+    four updates of a Pendulum-shaped batch of 256 drawing their standard
+    normals on the card, finite; given the same normals in the batch, a
+    CPU learner's losses within 1e-5 relative (TF32 off)."""
+    from ray_tpu_torch.rllib.sac import SACLearner
+
+    rng = np.random.default_rng(0)
+    batch = {"obs": rng.normal(size=(256, 3)).astype(np.float32),
+             "actions": rng.uniform(-2, 2, (256, 1)).astype(np.float32),
+             "rewards": rng.normal(size=256).astype(np.float32),
+             "next_obs": rng.normal(size=(256, 3)).astype(np.float32),
+             "dones": np.zeros(256, np.float32)}
+    kw = dict(lr=3e-4, gamma=0.99, tau=0.005, target_entropy=-1.0, seed=0)
+    card = SACLearner(3, 1, 2.0, **kw)
+    where = {str(v.device) for tree in (card.params, card.extra)
+             for v in _leaves(tree)} | {
+        str(v.device) for v in _leaves(card.opt_state.mu)}
+    assert where == {"cuda:0"} and card._rng.device.type == "cuda"
+    for _ in range(4):
+        stats = card.update_batch(batch)
+        assert all(math.isfinite(v) for v in stats.values()), stats
+    assert all(bool(torch.isfinite(v).all()) for v in _leaves(card.params))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        a = SACLearner(3, 1, 2.0, **kw)
+        b = SACLearner(3, 1, 2.0, **kw, device="cpu")
+        for u in range(3):
+            noisy = {**batch,
+                     "next_eps": rng.normal(size=(256, 1)).astype(np.float32),
+                     "eps": rng.normal(size=(256, 1)).astype(np.float32)}
+            sa, sb = a.update_batch(noisy), b.update_batch(noisy)
+            assert math.isclose(sa["critic_loss"], sb["critic_loss"],
+                                rel_tol=1e-5), (u, sa, sb)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _leaves(tree):
+    """The tensors of nested dicts."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]

@@ -1,8 +1,8 @@
 """The port's Learner stack (ray_tpu_torch/rllib/learner.py, optim.py)
 against ray_tpu's, on the CPU.
 
-- The optimizer transforms (`optim.adam`, `optim.rmsprop`, `delayed` under
-  `optim.multi_transform`) against optax on the same gradients, step by
+- The optimizer transforms (`optim.adam`, `optim.adamw`, `optim.rmsprop`,
+  `delayed` under `optim.multi_transform`) against optax on the same gradients, step by
   step: updates and states within 1e-7, params within 1e-7 + 1e-7·|p|.
 - Twins of tests/test_learner_group.py's mesh cases (the reference runs dp
   8 on 8 virtual devices): every learner on a dp 2 mesh of two gloo ranks
@@ -49,7 +49,8 @@ def _close(got, want, rtol=0.0):
                                    atol=1e-7, err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["adam", "rmsprop", "delayed_multi"])
+@pytest.mark.parametrize("name", ["adam", "rmsprop", "delayed_multi",
+                                  "adamw"])
 def test_optimizer_transforms_match_optax(name):
     import optax
 
@@ -59,6 +60,9 @@ def test_optimizer_transforms_match_optax(name):
     labels = {"w0": "a", "b0": "a", "w1": "c", "b1": "c"}
     if name == "adam":
         ref, port = optax.adam(3e-3), optim.adam(3e-3)
+    elif name == "adamw":   # the Decision Transformer's (dt.py:190)
+        ref, port = (optax.adamw(1e-3, weight_decay=1e-4),
+                     optim.adamw(1e-3, weight_decay=1e-4))
     elif name == "rmsprop":   # IMPALA's (impala.py:123)
         ref = optax.rmsprop(1e-3, decay=0.99, eps=0.1)
         port = optim.rmsprop(1e-3, decay=0.99, eps=0.1)

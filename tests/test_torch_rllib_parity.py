@@ -37,8 +37,8 @@ from torch_runtime import both_runtimes, rerun_if_pkilled
 
 PKGS = {"ref": ray_tpu, "port": ray_tpu_torch}
 
-# (file, scenario) -> kind; scenarios of algorithms not ported yet (ES,
-# Ape-X DDPG) and the twinned ones below are left out
+# (file, scenario) -> kind; the families' scenarios (ES, Ape-X DDPG) run
+# in test_torch_rllib_families_parity.py, the twinned ones below here
 HOST, ALGO, ASYNC, GROUP = "host", "algo", "async", "group"
 SCENARIOS = {
     "test_rllib.py": {
@@ -191,17 +191,20 @@ def test_reference_scenario_matches(both, filename, name, kind, tmp_path,
 def test_every_ported_config_runs_its_learner_on_the_cpu_when_asked():
     """Every algorithm config of the port has a `device` (the card by
     default) that to_port's `.training(device=)`/`.learners(device=)`
-    reach; RandomAgent has no learner."""
+    reach; RandomAgent, ES and ARS have no learner."""
     from ray_tpu_torch import rllib
     from torch_libs import RL_CONFIGS
 
+    no_learner = {"RandomAgentConfig", "ESConfig", "ARSConfig"}
     configs = {n for n in dir(rllib) if n.endswith("Config")}
-    assert configs == set(RL_CONFIGS) | {"PPOConfig", "RandomAgentConfig"}
+    assert configs == set(RL_CONFIGS) | {"PPOConfig"} | no_learner
     for n in RL_CONFIGS:
         cfg = getattr(rllib, n)()
-        assert cfg.device == "cuda"
+        assert cfg.device == "cuda", n
         assert cfg.training(device="cpu").device == "cpu"
     assert rllib.PPOConfig().learners(device="cpu").device == "cpu"
+    for n in no_learner:
+        assert not hasattr(getattr(rllib, n)(), "device"), n
 
 
 # ------------------------------------------------ twins of jax scenarios

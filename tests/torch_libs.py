@@ -44,9 +44,14 @@ def to_port(src: str) -> str:
 
 
 RL_LEARNERS = ("PPOLearner", "PGLearner", "A2CLearner", "ImpalaLearner",
-               "APPOLearner", "DQNLearner")
+               "APPOLearner", "DQNLearner", "SACLearner", "DDPGLearner",
+               "MARWILLearner", "CQLLearner", "CRRLearner", "R2D2Learner")
 RL_CONFIGS = ("A2CConfig", "A3CConfig", "PGConfig", "APPOConfig",
-              "DQNConfig", "SimpleQConfig", "ImpalaConfig")
+              "DQNConfig", "SimpleQConfig", "ImpalaConfig", "SACConfig",
+              "DDPGConfig", "TD3Config", "ApexDQNConfig", "ApexDDPGConfig",
+              "BCConfig", "MARWILConfig", "CQLConfig", "CRRConfig",
+              "DTConfig", "QMixConfig", "MADDPGConfig", "R2D2Config",
+              "DDPPOConfig")
 
 
 def _rllib_on_cpu(src: str) -> str:

@@ -729,6 +729,86 @@ def rl_mesh(outdir, rank, world):
     _write(outdir, rank, arrays, out)
 
 
+def continuous_batch(seed, n=32):
+    """tests/test_learner_group.py's DDPG (seed 1) and SAC (seed 0)
+    batches: Pendulum-shaped transitions."""
+    rng = np.random.default_rng(seed)
+    return {
+        "obs": rng.normal(size=(n, 3)).astype(np.float32),
+        "actions": rng.uniform(-1, 1, (n, 1)).astype(np.float32),
+        "rewards": rng.normal(size=n).astype(np.float32),
+        "next_obs": rng.normal(size=(n, 3)).astype(np.float32),
+        "dones": np.zeros(n, np.float32),
+    }
+
+
+# tests/test_learner_group.py's DDPG learner (its mesh case) and SAC's
+DDPG_KW = dict(actor_lr=1e-3, critic_lr=1e-3, gamma=0.99, tau=0.05,
+               twin_q=True, smooth_target_policy=False, target_noise=0.0,
+               target_noise_clip=0.0, seed=2, policy_delay=2)
+SAC_KW = dict(lr=3e-4, gamma=0.99, tau=0.05, target_entropy=-1.0, seed=4)
+CONTINUOUS_UPDATES = 3   # crosses the delayed actor's boundary (delay 2)
+
+
+def rl_mesh_continuous(outdir, rank, world):
+    """DDPG's and SAC's learners with and without a dp mesh: DDPG as the
+    reference's mesh case; SAC given the reference's standard normals
+    (`noise.npz`: next_eps/eps of each update) and drawing its own; TD3
+    (target smoothing) drawing its own. 3 updates each."""
+    from ray_tpu_torch.parallel import MeshConfig, make_virtual_mesh
+    from ray_tpu_torch.rllib.ddpg import DDPGLearner
+    from ray_tpu_torch.rllib.sac import SACLearner
+
+    mesh = make_virtual_mesh(world, MeshConfig(dp=world, fsdp=1, tp=1,
+                                               sp=1))
+    noise = dict(np.load(Path(outdir) / "noise.npz"))
+    arrays, out = {}, {}
+
+    def keep(tag, learner):
+        for path, v in _flat(learner.get_weights()).items():
+            arrays[f"{tag}/{path}"] = v
+        for path, v in _flat(learner.extra).items():
+            arrays[f"{tag}/target/{path}"] = v
+
+    for name, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+        ddpg = DDPGLearner(3, 1, 1.0, **DDPG_KW, device="cpu", **kw)
+        td3 = DDPGLearner(3, 1, 1.0, **{**DDPG_KW,
+                                        "smooth_target_policy": True,
+                                        "target_noise": 0.2,
+                                        "target_noise_clip": 0.5},
+                          device="cpu", **kw)
+        sac = SACLearner(3, 1, 1.0, **SAC_KW, device="cpu", **kw)
+        sac_own = SACLearner(3, 1, 1.0, **SAC_KW, device="cpu", **kw)
+        for tag in ("ddpg", "td3", "sac", "sac_own"):
+            out[f"{tag}_{name}"] = []
+        for u in range(CONTINUOUS_UPDATES):
+            for tag, learner, batch in (
+                    ("ddpg", ddpg, continuous_batch(1)),
+                    ("td3", td3, continuous_batch(1)),
+                    ("sac", sac, {**continuous_batch(0),
+                                  "next_eps": noise[f"next_eps{u}"],
+                                  "eps": noise[f"eps{u}"]}),
+                    ("sac_own", sac_own, continuous_batch(0))):
+                out[f"{tag}_{name}"].append(learner.update_batch(batch))
+        for tag, learner in (("ddpg", ddpg), ("td3", td3), ("sac", sac),
+                             ("sac_own", sac_own)):
+            keep(f"{tag}_{name}", learner)
+    _write(outdir, rank, arrays, out)
+
+
+def _flat(tree, prefix=""):
+    """Nested dicts and lists as {"a/0/b": array}, tensors as numpy."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v.detach() if hasattr(
+                v, "detach") else v)
+    return out
+
+
 if __name__ == "__main__":
     task, outdir, rank, world, port, *rest = sys.argv[1:]
     rank, world = int(rank), int(world)
@@ -737,8 +817,9 @@ if __name__ == "__main__":
         {"steps": steps, "ckpt": ckpt, "budget": budget, "sp_ops": sp_ops,
          "tp_blocks": tp_blocks, "vocab": vocab, "reshard_tp": reshard_tp,
          "moe_units": moe_units, "pp": pp,
-         "ckpt_pp": ckpt_pp, "rl_mesh": rl_mesh}[task](outdir, rank, world,
-                                                        *rest)
+         "ckpt_pp": ckpt_pp, "rl_mesh": rl_mesh,
+         "rl_mesh_continuous": rl_mesh_continuous}[task](outdir, rank,
+                                                         world, *rest)
     finally:
         from ray_tpu_torch.parallel import shutdown_group
 
